@@ -16,6 +16,11 @@ anything np.asarray accepts) and fills the state dict of the port's model:
 
 Every key is accounted for: tensors of the model that the trees do not fill
 and tree leaves that no tensor takes are both reported, and either raises.
+
+The same map runs the other way: `key_map(tree)` gives {flax path: port
+key} for every leaf, and `to_jax_tree(tensors, like)` carries the port's
+tensors (parameters, gradients, per-parameter flags) back into a nested dict
+shaped like `like` in the JAX layout, each layout change undone.
 """
 from __future__ import annotations
 
@@ -129,6 +134,62 @@ def convert_value(key: str, value: np.ndarray) -> np.ndarray:
             return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
         return np.transpose(value, (3, 2, 0, 1))          # HWIO -> OIHW
     return value
+
+
+def unconvert_value(key: str, value: np.ndarray) -> np.ndarray:
+    """Inverse of `convert_value`: torch layout -> flax layout."""
+    if not key.endswith(".weight"):
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:
+        if ".deconv_layers." in key:
+            return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
+        return np.transpose(value, (2, 3, 1, 0))          # OIHW -> HWIO
+    return value
+
+
+def key_map(tree: Mapping) -> Dict[Tuple[str, ...], str]:
+    """{flax path: port state-dict key} for every leaf of `tree` (a params
+    or batch_stats tree, arrays or shape structs). Raises KeyError for a
+    leaf without a counterpart."""
+    out: Dict[Tuple[str, ...], str] = {}
+
+    def walk(node: Mapping, prefix: Tuple[str, ...]) -> None:
+        for k, v in node.items():
+            path = prefix + (str(k),)
+            if isinstance(v, Mapping):
+                walk(v, path)
+                continue
+            key = torch_key(path)
+            if key is None:
+                raise KeyError(f"no port key for {'/'.join(path)}")
+            out[path] = key
+
+    walk(tree, ())
+    return out
+
+
+def to_jax_tree(tensors: Mapping[str, object], like: Mapping,
+                convert: bool = True) -> dict:
+    """Nested dict shaped like `like` (a flax params / batch_stats tree)
+    holding, for each leaf, the value `tensors` has under the port's key, as
+    a numpy array in the JAX layout (`convert=False` for values that are not
+    tensors of the parameter's shape: flags, scales). `tensors` maps port
+    names to torch tensors, arrays or scalars, e.g.
+    dict(model.named_parameters()), {n: p.grad ...} or a scale table."""
+    out: dict = {}
+    for path, key in key_map(like).items():
+        v = tensors[key]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        if convert:
+            v = np.ascontiguousarray(unconvert_value(key, np.asarray(v)))
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
 
 
 def load_jax_variables(model: torch.nn.Module, params: Mapping,

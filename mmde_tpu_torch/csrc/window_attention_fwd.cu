@@ -124,14 +124,15 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
                             const float* __restrict__ logit_scale,
                             const TB* __restrict__ bias,
                             const TB* __restrict__ mask,
-                            T* __restrict__ out, int N, int C, int nW,
-                            int maxfree) {
+                            T* __restrict__ out, float* __restrict__ lse,
+                            int N, int C, int nW, int maxfree) {
   __shared__ __align__(16) float sQt[DH * BQ];   // q^ transposed [d][row]
   __shared__ __align__(16) float sKt[DH * BK];   // k^ transposed [d][key]
   __shared__ __align__(16) float sV[BK * V_LD];  // v [key][d]
   __shared__ __align__(16) float sP[BQ * P_LD];  // p [row][key]
   __shared__ float sAlpha[BQ];
   __shared__ float sL[BQ];
+  __shared__ float sM[BQ];
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -327,9 +328,17 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
 #pragma unroll
     for (int off = 8; off >= 1; off >>= 1)
       l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (tx == 0) sL[ty * 8 + i] = l;
+    if (tx == 0) {
+      sL[ty * 8 + i] = l;
+      sM[ty * 8 + i] = mf ? shift : m_run[i];
+    }
   }
   __syncthreads();
+
+  // the statistic the backward kernel rebuilds p from, for either softmax
+  // form: p = exp(s - lse), lse = shift-or-maximum + log(row sum)
+  if (lse != nullptr && tid < BQ && q0 + tid < N)
+    lse[((size_t)b * gridDim.y + h) * N + q0 + tid] = sM[tid] + logf(sL[tid]);
 
   T* out_b = out + (size_t)b * N * C + (size_t)h * DH + px * 4;
 #pragma unroll
@@ -346,29 +355,28 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
 
 template <typename T, typename TB, bool FASTEXP>
 cudaError_t launch(const void* qkv, const void* ls, const void* bias,
-                   const void* mask, void* out, int B_, int N, int C, int nH,
-                   int nW, int maxfree, cudaStream_t stream) {
+                   const void* mask, void* out, void* lse, int B_, int N,
+                   int C, int nH, int nW, int maxfree, cudaStream_t stream) {
   dim3 grid((N + BQ - 1) / BQ, nH, B_);
   window_attention_fwd_kernel<T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
       (const T*)qkv, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (T*)out, N, C, nW, maxfree);
+      (T*)out, (float*)lse, N, C, nW, maxfree);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry. Pointers are device pointers; `mask` may be null (then nW
+// Plain C entries. Pointers are device pointers; `mask` may be null (then nW
 // is ignored). qkv_bf16 / bias_bf16 select the element types (0 = fp32);
-// fp32 qkv requires fp32 bias. Returns cudaGetLastError() of the launch, or
-// -1 for an argument combination the kernel does not take. Launches on
-// `stream`, does not synchronise, allocates nothing.
-extern "C" int mmde_window_attention_fwd(const void* qkv,
-                                         const void* logit_scale,
-                                         const void* bias, const void* mask,
-                                         void* out, int B_, int N, int C,
-                                         int nH, int nW, int qkv_bf16,
-                                         int bias_bf16, int maxfree,
-                                         void* stream) {
+// fp32 qkv requires fp32 bias. `lse` (B_, nH, N) fp32, when not null,
+// receives each row's log-sum-exp for the backward kernel. Both return
+// cudaGetLastError() of the launch, or -1 for an argument combination the
+// kernel does not take. They launch on `stream`, do not synchronise and
+// allocate nothing.
+extern "C" int mmde_window_attention_fwd_stats(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
   if (B_ <= 0 || N <= 0 || nH <= 0 || C != nH * DH || B_ > 65535 ||
       nH > 65535)
     return -1;
@@ -376,12 +384,28 @@ extern "C" int mmde_window_attention_fwd(const void* qkv,
   cudaStream_t st = (cudaStream_t)stream;
   if (!qkv_bf16 && !bias_bf16)
     return (int)launch<float, float, false>(qkv, logit_scale, bias, mask, out,
-                                            B_, N, C, nH, nW, maxfree, st);
+                                            lse, B_, N, C, nH, nW, maxfree,
+                                            st);
   if (qkv_bf16 && bias_bf16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16, true>(
-        qkv, logit_scale, bias, mask, out, B_, N, C, nH, nW, maxfree, st);
+        qkv, logit_scale, bias, mask, out, lse, B_, N, C, nH, nW, maxfree,
+        st);
   if (qkv_bf16 && !bias_bf16)
     return (int)launch<__nv_bfloat16, float, true>(
-        qkv, logit_scale, bias, mask, out, B_, N, C, nH, nW, maxfree, st);
+        qkv, logit_scale, bias, mask, out, lse, B_, N, C, nH, nW, maxfree,
+        st);
   return -1;
+}
+
+// The serving entry: the forward alone, no statistics.
+extern "C" int mmde_window_attention_fwd(const void* qkv,
+                                         const void* logit_scale,
+                                         const void* bias, const void* mask,
+                                         void* out, int B_, int N, int C,
+                                         int nH, int nW, int qkv_bf16,
+                                         int bias_bf16, int maxfree,
+                                         void* stream) {
+  return mmde_window_attention_fwd_stats(qkv, logit_scale, bias, mask, out,
+                                         nullptr, B_, N, C, nH, nW, qkv_bf16,
+                                         bias_bf16, maxfree, stream);
 }

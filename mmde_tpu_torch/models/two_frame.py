@@ -174,6 +174,25 @@ class TwoFrameDepthPose(nn.Module):
         }
 
 
+def require_device(device: Union[str, torch.device],
+                   module: Optional[nn.Module] = None,
+                   what: str = "mmde_tpu_torch") -> torch.device:
+    """The check every entry point makes: `device` (default of the callers:
+    the CUDA card) must exist - no silent CPU substitute - and `module`,
+    when given, must already live on a device of that type."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device is CUDA but no CUDA device is available; "
+            "pass device='cpu' explicitly to run on the CPU")
+    if module is not None:
+        p = next(module.parameters(), None)
+        if p is not None and p.device.type != device.type:
+            raise ValueError(f"{what}: the model lives on {p.device}, not on "
+                             f"{device}")
+    return device
+
+
 def build_model(cfg: ModelConfig, *,
                 device: Union[str, torch.device] = "cuda",
                 generator: Optional[torch.Generator] = None) -> nn.Module:
@@ -186,11 +205,7 @@ def build_model(cfg: ModelConfig, *,
         raise NotImplementedError(
             f"model family '{cfg.family}' is not ported yet (ROADMAP Queue "
             "A: other encoders and families)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_model: device is CUDA but no CUDA device is available; "
-            "pass device='cpu' explicitly to build on the CPU")
+    device = require_device(device, what="build_model")
     if generator is not None:
         # torch's initialisers draw from the global generator: fork it,
         # seed the fork from `generator`, and leave the caller's stream alone

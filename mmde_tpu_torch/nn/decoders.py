@@ -27,8 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mmde_tpu_torch.geometry import normalize_rotation
-from mmde_tpu_torch.nn.layers import (Conv2d, Linear, TorchBatchNorm,
-                                      torch_deconv)
+from mmde_tpu_torch.nn.layers import (Conv2d, Dropout, Linear,
+                                      TorchBatchNorm, torch_deconv)
 
 
 def _conv(cin: int, cout: int, stride: int, dtype) -> Conv2d:
@@ -47,16 +47,17 @@ def _to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class Regression(nn.Module):
-    """3-layer MLP head with dropout 0.5."""
+    """3-layer MLP head with dropout 0.5 (drawn from the generator that
+    `layers.set_generator` installed, else torch's global one)."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.reg_layer = nn.Sequential(
             Linear(in_dim, in_dim // 2, dtype=dtype), nn.ReLU(),
-            nn.Dropout(0.5),
+            Dropout(0.5),
             Linear(in_dim // 2, in_dim // 4, dtype=dtype), nn.ReLU(),
-            nn.Dropout(0.5),
+            Dropout(0.5),
             Linear(in_dim // 4, out_dim, dtype=dtype))
 
     def forward(self, x):

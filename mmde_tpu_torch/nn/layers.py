@@ -63,11 +63,24 @@ class LayerNormFP32(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+def _uniform(shape, generator: Optional[torch.Generator],
+             device: torch.device) -> torch.Tensor:
+    """U[0, 1) of `shape` from `generator`, drawn on the generator's own
+    device (None: torch's global generator of `device`) and moved to
+    `device`."""
+    draw_on = generator.device if generator is not None else device
+    return torch.rand(shape, device=draw_on, generator=generator).to(device)
+
+
 class DropPath(nn.Module):
     """Stochastic depth: drops the whole residual branch per sample; the
     identity in eval mode. `window_groups` > 1 marks window-partitioned
     input (leading dim = B * nW, sample-major): the per-sample mask is drawn
-    at batch size B and repeated across each sample's nW windows."""
+    at batch size B and repeated across each sample's nW windows.
+
+    `draw(x)` returns the keep mask `forward` would draw (None when nothing
+    is dropped), and `forward(x, keep)` applies a mask drawn earlier: a
+    rematerialised block is run twice and must see one draw."""
 
     def __init__(self, rate: float = 0.0, window_groups: int = 1,
                  generator: Optional[torch.Generator] = None):
@@ -76,19 +89,47 @@ class DropPath(nn.Module):
         self.window_groups = int(window_groups)
         self.generator = generator
 
+    def draw(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if not self.training or self.rate == 0.0:
+            return None
+        g = max(self.window_groups, 1)
+        shape = (x.shape[0] // g,) + (1,) * (x.dim() - 1)
+        return _uniform(shape, self.generator, x.device) < 1.0 - self.rate
+
+    def forward(self, x, keep: Optional[torch.Tensor] = None):
+        if keep is None:
+            keep = self.draw(x)
+        if keep is None:
+            return x
+        g = max(self.window_groups, 1)
+        if g > 1:
+            keep = keep.repeat_interleave(g, dim=0)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout that draws from the generator it was given
+    (nn.Dropout can only use torch's global one)."""
+
+    def __init__(self, rate: float = 0.5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = generator
+
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        g = max(self.window_groups, 1)
-        keep = 1.0 - self.rate
-        shape = (x.shape[0] // g,) + (1,) * (x.dim() - 1)
-        gen = self.generator
-        draw_on = gen.device if gen is not None else x.device
-        mask = (torch.rand(shape, device=draw_on, generator=gen)
-                < keep).to(x.device)
-        if g > 1:
-            mask = mask.repeat_interleave(g, dim=0)
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        keep = _uniform(x.shape, self.generator, x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_generator(module: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Make every DropPath / Dropout under `module` draw from `generator`."""
+    for m in module.modules():
+        if isinstance(m, (DropPath, Dropout)):
+            m.generator = generator
 
 
 class Mlp(nn.Module):
@@ -121,7 +162,13 @@ class TorchBatchNorm(nn.BatchNorm2d):
     """BatchNorm over the channel axis of an NCHW tensor with the statistics
     and the normalisation in float32 and the OUTPUT cast to `dtype` (the
     input's type when None). Eval mode uses the running statistics
-    (eps 1e-5); train mode is torch's own batch-statistics update."""
+    (eps 1e-5). Train mode is torch's own: normalise with the biased batch
+    variance, feed the UNBIASED one (n / (n - 1)) into running_var, momentum
+    0.1 - which is what the JAX package's TorchBatchNorm reproduces
+    (momentum 0.9 in flax's convention); flax's own nn.BatchNorm would feed
+    the biased variance. One difference remains: torch refuses a training
+    batch with a single value per channel, where the JAX package computes a
+    zero variance."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1,

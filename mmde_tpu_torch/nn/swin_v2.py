@@ -17,10 +17,20 @@ Counterpart of mmde_tpu/nn/swin_v2.py:
 
 Every stage runs the map path (pad -> roll -> partition -> attention ->
 reverse -> roll back -> crop, per block). The JAX package's window residency
-on padded maps (`resident_pad_max`), its `scan_blocks` layout and its remat
-policies are accepted as arguments and ignored: residency matches the map
-path at real token positions, scanning only shrinks an XLA graph, and
-rematerialisation belongs to the training path, which is not ported yet.
+on padded maps (`resident_pad_max`) and its `scan_blocks` layout are
+accepted as arguments and ignored: residency matches the map path at real
+token positions, scanning only shrinks an XLA graph.
+
+Training: gradients flow through both attention implementations (the CUDA
+forward and backward kernels for "cuda" on CUDA tensors). Rematerialisation
+follows `use_checkpoint` (per stage) and `remat_policy`: "none" keeps every
+activation (the flagship's setting), "full" recomputes each block in the
+backward (torch.utils.checkpoint, non-reentrant; the block's drop-path masks
+are drawn outside the recomputed region so both runs see one draw),
+"mlp_only" recomputes the MLP alone. "attn_out" / "attn_qkv" save named
+intermediates of a block under an XLA remat policy, which eager PyTorch has
+no counterpart for: they raise when a training forward reaches them. Remat
+changes memory, never values.
 
 Parameter names follow the reference PyTorch implementation
 (`layers.0.blocks.0.attn.qkv.weight`, `attn.rpe_mlp.0/2`, `norm3.weight`).
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmde_tpu_torch.nn.layers import (Conv2d, DropPath, LayerNormFP32, Linear,
                                       Mlp)
@@ -244,22 +255,36 @@ class WindowAttention(nn.Module):
             table = 16.0 * torch.sigmoid(table)
         return table
 
+    def _expanded_bias(self) -> torch.Tensor:
+        """table[relative_position_index] as (nH, N, N). index_select, not
+        advanced indexing: the values are the same, but its backward is an
+        index_add (atomics) where advanced indexing sorts the N*N indices
+        on every step."""
+        table = self._rpe_table()                              # (T, nH)
+        idx = self.relative_position_index
+        return torch.index_select(table.t(), 1, idx.reshape(-1)).reshape(
+            (self.num_heads,) + tuple(idx.shape))
+
     def rpe_bias(self) -> torch.Tensor:
         """(nH, N, N) float32 bias. Cached while no gradient is recorded and
-        the parameters it derives from are unchanged."""
+        the parameters it derives from are unchanged. The cached tensor is
+        built outside inference mode even when the caller is inside it: a
+        later training forward with frozen RPE parameters takes it from the
+        cache and saves it for the backward, which an inference tensor
+        cannot be."""
         params = ([self.relative_position_bias_table]
                   if self.rpe_table_type == "none"
                   else list(self.rpe_mlp.parameters()))
         cacheable = not (torch.is_grad_enabled()
                          and any(p.requires_grad for p in params))
+        if not cacheable:
+            self._bias_cache = None
+            return self._expanded_bias()
         key = tuple((p.data_ptr(), p._version) for p in params)
-        if cacheable and self._bias_cache is not None \
-                and self._bias_cache[0] == key:
-            return self._bias_cache[1]
-        table = self._rpe_table()                              # (T, nH)
-        bias = table.t()[:, self.relative_position_index].contiguous()
-        self._bias_cache = (key, bias) if cacheable else None
-        return bias
+        if self._bias_cache is None or self._bias_cache[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._bias_cache = (key, self._expanded_bias())
+        return self._bias_cache[1]
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -312,11 +337,13 @@ class SwinBlock(nn.Module):
                  pretrain_window_size: int = -1, mlpfp32: bool = False,
                  attn_impl: str = "torch",
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat_mlp: bool = False):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.postnorm = postnorm
+        self.remat_mlp = remat_mlp      # recompute the MLP in the backward
         self.norm1 = LayerNormFP32(dim)
         self.attn = WindowAttention(
             dim, (window_size, window_size), num_heads, qkv_bias=qkv_bias,
@@ -337,10 +364,23 @@ class SwinBlock(nn.Module):
             self.gamma_1 = self.gamma_2 = None
         self.enorm = LayerNormFP32(dim) if endnorm else None
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def draw_drop_path(self, x: torch.Tensor):
+        """The block's two drop-path keep masks, in the order forward draws
+        them."""
+        return self.drop_path.draw(x), self.drop_path.draw(x)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat_mlp and torch.is_grad_enabled() and x.requires_grad:
+            return checkpoint(self.mlp, x, use_reentrant=False)
+        return self.mlp(x)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                keeps=None) -> torch.Tensor:
+        """`keeps`: drop-path masks from `draw_drop_path`, for a caller that
+        runs this forward twice (remat); None draws them here."""
         B, H, W, C = x.shape
         ws, ss = self.window_size, self.shift_size
+        keep1, keep2 = keeps if keeps is not None else self.draw_drop_path(x)
         shortcut = x
         if not self.postnorm:
             x = self.norm1(x)
@@ -363,13 +403,13 @@ class SwinBlock(nn.Module):
             x = x[:, :H, :W, :]
 
         if self.postnorm:
-            x = shortcut + self.drop_path(self.norm1(x))
-            x = x + self.drop_path(self.norm2(self.mlp(x)))
+            x = shortcut + self.drop_path(self.norm1(x), keep1)
+            x = x + self.drop_path(self.norm2(self._mlp(x)), keep2)
         else:
             g1 = 1.0 if self.gamma_1 is None else self.gamma_1.to(x.dtype)
             g2 = 1.0 if self.gamma_2 is None else self.gamma_2.to(x.dtype)
-            x = shortcut + self.drop_path(g1 * x)
-            x = x + self.drop_path(g2 * self.mlp(self.norm2(x)))
+            x = shortcut + self.drop_path(g1 * x, keep1)
+            x = x + self.drop_path(g2 * self._mlp(self.norm2(x)), keep2)
         if self.enorm is not None:
             x = self.enorm(x)
         return x
@@ -495,9 +535,10 @@ class BasicLayer(nn.Module):
             raise ValueError(
                 f"unknown remat_policy {remat_policy!r}; expected one of "
                 f"{_REMAT_POLICIES}")
-        # use_checkpoint / remat_policy / scan_blocks / resident_pad_max:
-        # accepted for config compatibility, ignored (see module docstring)
-        del use_checkpoint, scan_blocks, resident_pad_max
+        # scan_blocks / resident_pad_max: accepted for config compatibility,
+        # ignored (see module docstring)
+        del scan_blocks, resident_pad_max
+        self.remat = remat_policy if use_checkpoint else "none"
         self.window_size = window_size
         self.shift_size = window_size // 2
         self.has_mask = bool(use_shift and depth > 1)
@@ -518,7 +559,8 @@ class BasicLayer(nn.Module):
                 rpe_output_type=rpe_output_type,
                 pretrain_window_size=pretrain_window_size,
                 mlpfp32=(i in mlpfp32_blocks), attn_impl=attn_impl,
-                dtype=dtype, generator=generator))
+                dtype=dtype, generator=generator,
+                remat_mlp=self.remat == "mlp_only"))
         if downsample is None:
             self.downsample = None
         else:
@@ -532,8 +574,22 @@ class BasicLayer(nn.Module):
         key = (Hp, Wp, str(device))
         if key not in self._mask_cache:
             m = shifted_window_mask(Hp, Wp, self.window_size, self.shift_size)
-            self._mask_cache[key] = torch.from_numpy(m).to(device)
+            # never an inference tensor: a training forward saves it
+            with torch.inference_mode(False):
+                self._mask_cache[key] = torch.from_numpy(m).to(device)
         return self._mask_cache[key]
+
+    def _block(self, blk: SwinBlock, x, mask):
+        if not (self.remat in ("full", "attn_out", "attn_qkv")
+                and torch.is_grad_enabled() and x.requires_grad):
+            return blk(x, mask)
+        if self.remat != "full":
+            raise NotImplementedError(
+                f"remat_policy {self.remat!r} saves named intermediates "
+                "under an XLA remat policy and is not ported (ROADMAP Queue "
+                "A, M2); train with 'full', 'mlp_only' or 'none'")
+        keeps = blk.draw_drop_path(x)       # one draw for both runs
+        return checkpoint(blk, x, mask, keeps, use_reentrant=False)
 
     def forward(self, x):
         B, H, W, C = x.shape
@@ -542,7 +598,7 @@ class BasicLayer(nn.Module):
         Wp = -(-W // ws) * ws
         mask = self._mask(Hp, Wp, x.device)
         for blk in self.blocks:
-            x = blk(x, mask if blk.shift_size > 0 else None)
+            x = self._block(blk, x, mask if blk.shift_size > 0 else None)
         x_out = x
         if self.downsample is not None:
             x = self.downsample(x)

@@ -17,14 +17,16 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Mapping, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]     # registers / spills go to the build log
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"path", "seconds" (0.0 when an existing build was reused), "log"}
@@ -89,3 +91,13 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     _LIBS[name] = lib
     BUILD_LOG[name] = {"path": lib_path, "seconds": seconds, "log": log}
     return lib
+
+
+def load_libraries(specs: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """`load_library` for several {name: sources} at once, one nvcc process
+    per library, all started together (a thread each: the work is in the
+    subprocesses)."""
+    with ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
+        futs = {n: pool.submit(load_library, n, src)
+                for n, src in specs.items()}
+        return {n: f.result() for n, f in futs.items()}

@@ -71,6 +71,18 @@ def _module_names():
     return names
 
 
+def test_source_scan_covers_the_training_slice():
+    """The walk above reaches the modules and the trainer entry that the
+    training slice added."""
+    names = set(_module_names())
+    for mod in ("losses", "metrics", "geometry", "train.optim", "train.step",
+                "tools.train_steps", "ops.window_attention_packed"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
+    assert os.path.join(ROOT, "chip_smoke.py") in _port_sources()
+    assert os.path.isfile(os.path.join(PORT, "csrc",
+                                       "window_attention_bwd.cu"))
+
+
 def test_every_module_imports_without_the_jax_package_or_a_compiler():
     """Fresh interpreter: every module of the port imports here (no nvcc, no
     triton, no card) and pulls in nothing of mmde_tpu."""
@@ -109,6 +121,40 @@ def test_entry_points_default_to_cuda_and_do_not_drop_to_cpu():
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_training_entry_points_default_to_cuda_and_do_not_drop_to_cpu():
+    """make_train_step, make_eval_step, make_eval_metrics_step,
+    build_optimizer and the trainer entry want the CUDA card unless told
+    otherwise, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    from mmde_tpu_torch.models import build_model
+    from mmde_tpu_torch.tools import train_steps
+    from mmde_tpu_torch.train import optim, step
+    cfg = tcfg.ModelConfig(backbone="swin_nano_v2", decoder="decoder_v2",
+                           model_scale=32)
+    model = build_model(cfg, device="cpu")
+    okw = dict(backbone=cfg.backbone, depths=cfg.swin.depths, max_lr=5e-4,
+               min_lr=3e-5, weight_decay=0.05, layer_decay=0.9,
+               steps_per_epoch=10, epochs=4)
+    lkw = dict(decoder="decoder_v2", lambda_rot=100.0, lambda_trans=100.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optim.build_optimizer(model, **okw)
+    opt, _ = optim.build_optimizer(model, device="cpu", **okw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step.make_train_step(model, opt, **lkw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step.make_eval_step(model, **lkw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        step.make_eval_metrics_step(model, dataset="void",
+                                    min_depth_eval=1e-3, max_depth_eval=10.0,
+                                    **lkw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_steps.build_trainer(tcfg.Config(model=cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_steps.main(["--steps", "1"])
+    step.make_train_step(model, opt, device="cpu", **lkw)
 
 
 def test_kernel_source_and_binding_agree():
