@@ -21,7 +21,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 bfloat16, one head at the ln(100) clamp and one hot head:
                 dqkv, dbias, dlogit_scale against the plain backward and
                 against float64 autograd of the plain forward; ms, plain
-                ms, bound.
+                ms, bound. Each case also holds the output of the forward
+                that recorded the graph (the forward kernel's training entry
+                point, which writes the log-sum-exp as well) against the
+                plain forward, and times it.
   serve         the flagship model (swin_base_v2 + decoder_v2, bfloat16,
                 two 480x640 frames) built at full width from a seed,
                 answering requests through mmde_tpu_torch.tools.infer.predict
@@ -35,8 +38,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 weights and frames, float32 and bfloat16.
   train_parity  one deterministic float32 train step, kernel path against
                 plain path: loss and gradients of a named set of parameters.
-  kernels       per kernel of the served and the trained path: launches on
-                that path, error, ms, plain ms, bound.
+  kernels       per kernel and shape of the served path (forward) and of
+                the trained path (forward with statistics, backward):
+                launches on that path, error, ms, plain ms, bound.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -146,14 +150,18 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
-def kernel_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
+def kernel_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype,
+                 stats: bool = False) -> dict:
+    """Roofline bound of the forward; `stats` adds the log-sum-exp output the
+    training entry point writes."""
     esz = torch.empty((), dtype=dtype).element_size()
     bsz = torch.empty((), dtype=bias_dtype).element_size()
     nbytes = (B_ * N * 3 * C * esz          # qkv read once
               + B_ * N * C * esz            # out written once
               + nH * N * N * bsz            # bias read once
               + nW * N * N * bsz            # mask read once
-              + nH * 4)                     # logit_scale
+              + nH * 4                      # logit_scale
+              + (B_ * nH * N * 4 if stats else 0))  # log-sum-exp written once
     flops = 4 * B_ * nH * N * N * (C // nH)     # two products, 2 flops/MAC
     exps = B_ * nH * N * N
     name = str(dtype).replace("torch.", "")
@@ -230,6 +238,12 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
 
 
 def backward_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
+    """Roofline bound of the backward as a function: every input read once,
+    every output written once in the type it leaves in (dbias in the bias's
+    type). What the design moves besides is not in the bound: the fp32
+    (nH, N, N) buffer dbias is summed in before its cast, and the scratch the
+    dq pass hands to the dk/dv pass (delta, 4 bytes per row, and the
+    per-block partial sums of dlogit_scale)."""
     esz = torch.empty((), dtype=dtype).element_size()
     bsz = torch.empty((), dtype=bias_dtype).element_size()
     nbytes = (B_ * N * 3 * C * esz          # qkv read once
@@ -250,6 +264,26 @@ def backward_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def check_forward(got: torch.Tensor, want: torch.Tensor, dtype,
+                  where: dict) -> dict:
+    """The forward kernel's output against the plain forward's, at the
+    tolerances of compare_kernel; raises when they disagree."""
+    g, w = got.float(), want.float()
+    rec = {"max_abs_err": float((g - w).abs().max()),
+           "rel_l2_err": float((g - w).norm() / w.norm())}
+    if dtype == torch.float32:
+        ok = rec["max_abs_err"] <= TOL_FP32_MAX_ABS
+        rec["tolerance"] = {"max_abs": TOL_FP32_MAX_ABS}
+    else:
+        ok = rec["rel_l2_err"] <= TOL_BF16_REL_L2
+        rec["tolerance"] = {"rel_l2": TOL_BF16_REL_L2}
+    if not (ok and bool(torch.isfinite(g).all())):
+        raise RuntimeError(f"forward kernel (training entry point) disagrees "
+                           f"with its plain version: {json.dumps(rec)} at "
+                           f"{json.dumps(where)}")
+    return rec
+
+
 def _errs(got: torch.Tensor, want: torch.Tensor) -> dict:
     g, w = got.double(), want.double()
     return {"max_abs": float((g - w).abs().max()),
@@ -258,7 +292,10 @@ def _errs(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     """K2 (both dbias grid modes) against the plain backward and against
-    float64 autograd of the plain forward, at one stage shape. Head 0 sits
+    float64 autograd of the plain forward, at one stage shape; and the
+    output of the forward that recorded the graph (K1 through its training
+    entry point, which also writes the log-sum-exp) against the plain
+    forward, under rec["forward"]. Head 0 sits
     above the ln(100) clamp (its dlogit_scale must be exactly 0), head 1 is
     hot (scale e^4 = 54.6 > 30: the forward's row-maximum softmax form)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
@@ -281,11 +318,13 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             grid_mode=grid_mode)
         out.backward(g)
         torch.cuda.synchronize()
-        return [t.grad for t in leaves]
+        return [t.grad for t in leaves], out.detach()
 
     with torch.no_grad():
         plain = wap.cosine_window_attention_packed_backward_plain(
             qkv, ls, bias, mask, g, num_heads=nH)
+        want_out = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH)
     # independent ground truth: autograd through the plain forward, float64
     leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls, bias)]
     out64 = wap.cosine_window_attention_packed_plain(
@@ -299,7 +338,9 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     rec["plain_vs_float64"] = {n: _errs(p, t)
                                for n, p, t in zip(names, plain, truth)}
     for grid_mode in wap.GRID_MODES:
-        got = kernel_grads(grid_mode)
+        got, out = kernel_grads(grid_mode)
+        if grid_mode == wap.DEFAULT_GRID_MODE:
+            rec["forward"] = check_forward(out, want_out, dtype, rec)
         if not all(bool(torch.isfinite(t).all()) for t in got):
             raise RuntimeError(f"backward kernel output not finite at "
                                f"{shape} {dtype} {grid_mode}")
@@ -320,10 +361,21 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     dflt = rec[wap.DEFAULT_GRID_MODE]["vs_float64"]
     rec["max_abs_err"] = dflt["dqkv"]["max_abs"]
     rec["rel_l2_err"] = dflt["dqkv"]["rel_l2"]
-    del truth
+    del truth, want_out
     if timed:
-        # time the backward launch alone: forward once, backward repeatedly
         leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+        # the forward as training launches it (graph recorded, stats written)
+        fwd = rec["forward"]
+        fwd["ms"] = time_ms(lambda: wap.cosine_window_attention_packed(
+            leaves[0], leaves[1], leaves[2], mask, num_heads=nH))
+        with torch.no_grad():
+            fwd["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_plain(
+                    qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
+        fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                rec["nW"], dtype, bias.dtype, stats=True))
+        fwd["library_ms"] = None    # no single PyTorch call computes this
+        # time the backward launch alone: forward once, backward repeatedly
         for grid_mode in wap.GRID_MODES:
             out = wap.cosine_window_attention_packed(
                 leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
@@ -806,6 +858,8 @@ def phase_train(steps: int = 6, pairs: int = 2) -> dict:
            "step_ms_median": statistics.median(steady),
            "images_per_s": 2 * pairs / (statistics.median(steady) / 1e3),
            "launches_fwd_per_step": 24, "launches_bwd_per_step": 24,
+           "launches_fwd_by_shape": {str(k): v
+                                     for k, v in fwd_by_shape.items()},
            "launches_bwd_by_shape": {str(k): v
                                      for k, v in bwd_by_shape.items()},
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
@@ -827,6 +881,7 @@ def phase_train(steps: int = 6, pairs: int = 2) -> dict:
     torch.cuda.empty_cache()
     emit("train", rec)
     rec["_bwd_by_shape"] = bwd_by_shape
+    rec["_fwd_by_shape"] = fwd_by_shape
     return rec
 
 
@@ -909,31 +964,37 @@ def contract_kernels(cases: list, serve: dict) -> list:
     return entries
 
 
-def contract_kernels_backward(cases: list, train: dict) -> list:
-    """One entry per (backward kernel, trained shape): the trained model is
-    bfloat16 at 2 frame pairs, stages 1-2 masked in every other block (the
-    masked case is listed)."""
+def contract_kernels_train(cases: list, train: dict) -> list:
+    """Two entries per trained shape, the forward kernel through its training
+    entry point (output and log-sum-exp) and the backward kernel: the trained
+    model is bfloat16 at 2 frame pairs, stages 1-2 masked in every other
+    block (the masked case is listed). Errors: the forward's output against
+    the plain forward, the backward's dqkv against float64 autograd."""
     entries = []
-    by_shape = train["_bwd_by_shape"]
     for shape in flagship_stage_shapes(batch=train["frame_pairs"]):
         case = next(c for c in cases
                     if c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
                     and c["frame_pairs"] == train["frame_pairs"])
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
-        n = by_shape.get(key, 0)
-        if n == 0:
-            raise RuntimeError(f"the train path never launched the backward "
-                               f"kernel at stage {shape['stage']} {key}")
-        entries.append({
-            "name": f"window_attention_bwd[stage{shape['stage']} "
-                    f"B_={key[0]} N={key[1]} C={key[2]} nH={key[3]} bf16"
-                    f"{' mask' if case['nW'] else ''}]",
-            "route": "cuda", "source": KERNEL_BWD_SOURCE,
-            "replaces": KERNEL_BWD_REPLACES, "launches": n,
-            "max_abs_err": case["max_abs_err"],
-            "rel_l2_err": case["rel_l2_err"], "ms": case["ms"],
-            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": None})
+        where = (f"[train stage{shape['stage']} B_={key[0]} N={key[1]} "
+                 f"C={key[2]} nH={key[3]} bf16"
+                 f"{' mask' if case['nW'] else ''}]")
+        for name, source, replaces, counts, c in (
+                ("window_attention_fwd+lse", KERNEL_SOURCE, KERNEL_REPLACES,
+                 train["_fwd_by_shape"], case["forward"]),
+                ("window_attention_bwd", KERNEL_BWD_SOURCE,
+                 KERNEL_BWD_REPLACES, train["_bwd_by_shape"], case)):
+            n = counts.get(key, 0)
+            if n == 0:
+                raise RuntimeError(f"the train path never launched {name} "
+                                   f"at stage {shape['stage']} {key}")
+            entries.append({
+                "name": name + where, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": c["max_abs_err"],
+                "rel_l2_err": c["rel_l2_err"], "ms": c["ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": None})
     return entries
 
 
@@ -967,7 +1028,7 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     print(json.dumps({"kernels": contract_kernels(cases, serve)
-                      + contract_kernels_backward(cases_bwd, train)}),
+                      + contract_kernels_train(cases_bwd, train)}),
           flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -18,6 +18,7 @@ PyTorch, which are also what the kernels are compared with on the card.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -35,9 +36,14 @@ LAUNCHES_BWD_BY_SHAPE: dict = {}
 # atomics from the dk/dv pass (the TPU kernel's default grid dumps ds per
 # window there and sums outside). "split": a pass of its own with windows
 # innermost and no atomics (the TPU package's grid_mode="split" / its
-# _pallas_dbias kernel); reproducible bit for bit.
+# _pallas_dbias kernel): slower, but dbias is the same bits on every run.
+# As in the TPU package the model never passes grid_mode: MMDE_ATTN_GRID
+# chooses it for a whole process and is read once, here at import.
 GRID_MODES = ("window_resident", "split")
-DEFAULT_GRID_MODE = "window_resident"
+DEFAULT_GRID_MODE = os.environ.get("MMDE_ATTN_GRID", "window_resident")
+if DEFAULT_GRID_MODE not in GRID_MODES:
+    raise ValueError(
+        f"MMDE_ATTN_GRID={DEFAULT_GRID_MODE!r} is not one of {GRID_MODES}")
 _DBIAS_MODE = {"window_resident": 1, "split": 2}
 
 _LIB_NAME = "window_attention_fwd"
@@ -71,14 +77,6 @@ def _library_bwd() -> ctypes.CDLL:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
-
-
-def build_kernel() -> dict:
-    """Compile (or find) the forward kernel's library now; returns its build
-    record {"path", "seconds", "log"}."""
-    from mmde_tpu_torch.ops import cuda_build
-    _library()
-    return dict(cuda_build.BUILD_LOG[_LIB_NAME])
 
 
 def build_kernels() -> dict:
@@ -365,8 +363,9 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
     same function either way.
 
     grid_mode: how the backward sums ds over windows into dbias, one of
-    GRID_MODES (None = DEFAULT_GRID_MODE); the values agree up to the order
-    of an fp32 sum.
+    GRID_MODES (None = DEFAULT_GRID_MODE, which the MMDE_ATTN_GRID
+    environment variable sets); the values agree up to the order of an fp32
+    sum.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. When a gradient is recorded the forward kernel also writes

@@ -10,7 +10,9 @@ decoder_v2 in bfloat16) from a seed, draws one synthetic batch (frames,
 valid depth, relative poses) from the same seed, and takes N steps through
 `make_train_step` with the layer-decay AdamW of `build_optimizer`, printing
 one JSON line per step. The first call on a CUDA device builds the attention
-kernels into mmde_tpu_torch/_build/. The training loop proper (datasets,
+kernels into mmde_tpu_torch/_build/; MMDE_ATTN_GRID=split in the environment
+takes the attention backward's atomics-free dbias pass (slower; see
+ops/window_attention_packed.py). The training loop proper (datasets,
 validation, checkpoints) is a later slice; this entry is what a smoke run
 and a profiler drive.
 """

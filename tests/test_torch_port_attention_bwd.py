@@ -277,3 +277,47 @@ def test_backward_source_constants_match_the_wrapper():
     assert twp._DBIAS_MODE == {"window_resident": 1, "split": 2}
     for mode, code in twp._DBIAS_MODE.items():
         assert f"dbias_mode == {code}" in src or f"dbias_mode = {code}" in src
+
+
+_ENV_PROBE = """
+import torch
+from mmde_tpu_torch.nn.swin_v2 import WindowAttention
+from mmde_tpu_torch.ops import window_attention_packed as twp
+assert twp.DEFAULT_GRID_MODE == "split", twp.DEFAULT_GRID_MODE
+torch.manual_seed(0)
+attn = WindowAttention(128, (6, 6), 4, pretrain_window_size=4,
+                       attn_impl="cuda")
+out = attn(torch.randn(2, 36, 128))
+todo, seen, modes = [out.grad_fn], set(), []
+while todo:
+    fn = todo.pop()
+    if fn is None or fn in seen:
+        continue
+    seen.add(fn)
+    if "PackedWindowAttention" in type(fn).__name__:
+        modes.append(fn.grid_mode)
+    todo.extend(f for f, _ in fn.next_functions)
+assert modes == ["split"], modes
+out.sum().backward()
+assert attn.rpe_mlp[0].weight.grad is not None
+print("ok")
+"""
+
+
+def test_environment_variable_selects_the_grid_mode_for_the_model():
+    """The model never passes grid_mode (nor does the JAX package's): a user
+    takes the atomics-free dbias pass with MMDE_ATTN_GRID=split, read once at
+    import, and a value the port does not have raises at import."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MMDE_ATTN_GRID="split", PYTHONPATH=root)
+    run = subprocess.run([sys.executable, "-c", _ENV_PROBE], env=env,
+                         cwd=root, capture_output=True, text=True)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", run.stderr
+    env["MMDE_ATTN_GRID"] = "bias_resident"          # K4: not ported
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import mmde_tpu_torch.ops.window_attention_packed"], env=env,
+        cwd=root, capture_output=True, text=True)
+    assert run.returncode != 0 and "MMDE_ATTN_GRID" in run.stderr

@@ -191,4 +191,4 @@ def test_cuda_wrapper_raises_without_a_compiler_or_card():
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc"):
-        wap.build_kernel()
+        wap.build_kernels()
