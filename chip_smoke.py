@@ -4,7 +4,9 @@
     python3 chip_smoke.py                 # everything, one card
     python3 chip_smoke.py --only kernels  # build + compare the kernels only
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
-                                            # of a request and a train step
+                                            # of a request and a train step,
+                                            # flagship (p.json) and
+                                            # swin_large (p_large.json)
 
 What it does, each phase printing one JSON object on a line of its own:
 
@@ -24,22 +26,39 @@ What it does, each phase printing one JSON object on a line of its own:
                 ms, bound. Each case also holds the output of the forward
                 that recorded the graph (the forward kernel's training entry
                 point, which writes the log-sum-exp as well) against the
-                plain forward, and times it.
+                plain forward, and times it. Both phases also cover the
+                packed stages 2-4 of swin_large_v2.
+  kernel_cases_headsplit
+                the head-split forward (K6') and backward (K7') against
+                their plain versions, the backward also against float64
+                autograd, at every head-split stage shape of the real swin
+                variants at 480x640 (swin_tiny 1-2, swin_large 1, swin_huge
+                1-2) and at swin_large's train shape, float32 and bfloat16,
+                masked and unmasked, one clamped and one hot head; q, k, v
+                are the model's strided views of one qkv tensor. ms, plain
+                ms, bound of the serving forward, the forward with
+                statistics and the backward.
   serve         the flagship model (swin_base_v2 + decoder_v2, bfloat16,
                 two 480x640 frames) built at full width from a seed,
                 answering requests through mmde_tpu_torch.tools.infer.predict
-                with the kernel launch counter read around them.
+                with the kernel launch counters read around them.
   train         the flagship trainer (mmde_tpu_torch.tools.train_steps):
                 steps of make_train_step at 2 frame pairs, bfloat16, train
-                mode, with the launch counters of both kernels read around
+                mode, with the launch counters of every kernel read around
                 every step; per-step loss and ms, images/s, peak memory;
                 then a short deterministic run whose loss must fall.
+  serve_large, train_large
+                the same for swin_large_v2 + decoder_v2 (the flagship's
+                windows, depths and decoder): stage 1 (C 192, 6 heads) runs
+                the head-split kernels, stages 2-4 the packed ones.
   parity        the whole model, attn_impl "cuda" against "torch", same
                 weights and frames, float32 and bfloat16.
   train_parity  one deterministic float32 train step, kernel path against
                 plain path: loss and gradients of a named set of parameters.
-  kernels       per kernel and shape of the served path (forward) and of
-                the trained path (forward with statistics, backward):
+  parity_large  both, float32, for swin_large_v2 (gradients of stage-1
+                parameters, which only the head-split backward reaches).
+  kernels       per kernel and shape of each served path (forward) and
+                each trained path (forward with statistics, backward):
                 launches on that path, error, ms, plain ms, bound.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
@@ -72,6 +91,11 @@ KERNEL_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
 KERNEL_BWD_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd.cu"
 KERNEL_BWD_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:473 "
                        "(_bwd_body; pallas_call :1103)")
+# the head-split entry points live in the same two sources
+KERNEL_HS_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:62 "
+                      "(_kernel; pallas_call :132)")
+KERNEL_HS_BWD_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:146 "
+                          "(_bwd_kernel; pallas_call :310)")
 
 # kernel-vs-plain tolerances on the card
 TOL_FP32_MAX_ABS = 5e-5     # fp32 sums in another order + expf vs exp
@@ -112,10 +136,15 @@ def emit(tag: str, obj: dict) -> None:
     print(json.dumps({tag: obj}), flush=True)
 
 
-def flagship_stage_shapes(h: int = 480, w: int = 640, batch: int = 1):
-    """(name, B_, N, C, nH, nW) the kernel sees per stage for `batch` frame
-    pairs at h x w, re-derived from the flagship config."""
-    embed, heads = 128, (4, 8, 16, 32)
+def stage_shapes(backbone: str = "swin_base_v2", h: int = 480, w: int = 640,
+                 batch: int = 1):
+    """(B_, N, C, nH, nW, blocks, layout) the attention kernels see per stage
+    for `batch` frame pairs at h x w, re-derived from the flagship config
+    with `backbone`'s widths; layout = the kernel the stage takes
+    ("packed" / "headsplit", as the model chooses)."""
+    from mmde_tpu_torch.models.two_frame import SWIN_VARIANTS
+    from mmde_tpu_torch.ops.window_attention_packed import packed_layout_ok
+    embed, heads = SWIN_VARIANTS[backbone.split("_")[1]]
     windows, shift = (30, 30, 30, 15), (True, True, False, False)
     depths = (2, 2, 18, 2)
     out = []
@@ -124,11 +153,15 @@ def flagship_stage_shapes(h: int = 480, w: int = 640, batch: int = 1):
         ws = windows[i]
         hp, wp = -(-mh // ws) * ws, -(-mw // ws) * ws
         nw = (hp // ws) * (wp // ws)
-        out.append({"stage": i + 1, "map": [mh, mw], "padded": [hp, wp],
-                    "B_": 2 * batch * nw, "N": ws * ws,
-                    "C": embed * 2 ** i, "nH": heads[i],
+        C = embed * 2 ** i
+        out.append({"model": backbone, "stage": i + 1, "map": [mh, mw],
+                    "padded": [hp, wp], "B_": 2 * batch * nw, "N": ws * ws,
+                    "C": C, "nH": heads[i],
                     "nW": nw if (shift[i] and depths[i] > 1) else 0,
-                    "blocks": depths[i]})
+                    "blocks": depths[i],
+                    "layout": ("packed" if packed_layout_ok(
+                        ws * ws, heads[i], C // heads[i], C)
+                        else "headsplit")})
         mh, mw = (mh + 1) // 2, (mw + 1) // 2
     return out
 
@@ -210,8 +243,8 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
             raise RuntimeError(f"kernel output not finite at {shape} {dtype}")
         max_abs = float((g - w).abs().max())
         rel_l2 = float((g - w).norm() / w.norm())
-        rec = {"stage": shape["stage"], "B_": shape["B_"], "N": shape["N"],
-               "C": shape["C"], "nH": nH,
+        rec = {"model": shape["model"], "stage": shape["stage"],
+               "B_": shape["B_"], "N": shape["N"], "C": shape["C"], "nH": nH,
                "nW": mask.shape[0] if mask is not None else 0,
                "dtype": str(dtype).replace("torch.", ""),
                "softmax": "maxfree" if maxfree else "rowmax",
@@ -306,8 +339,8 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
                     generator=gen).to(dtype)
     name = str(dtype).replace("torch.", "")
-    rec = {"stage": shape["stage"], "B_": shape["B_"], "N": shape["N"],
-           "C": shape["C"], "nH": nH,
+    rec = {"model": shape["model"], "stage": shape["stage"],
+           "B_": shape["B_"], "N": shape["N"], "C": shape["C"], "nH": nH,
            "nW": mask.shape[0] if mask is not None else 0, "dtype": name,
            "tolerance_rel_l2": TOL_BWD[name]}
 
@@ -426,12 +459,19 @@ def phase_env() -> dict:
     return env
 
 
+def packed_stages(backbone: str, batch: int = 1) -> list:
+    return [s for s in stage_shapes(backbone, batch=batch)
+            if s["layout"] == "packed"]
+
+
 def phase_kernels(timed: bool = True) -> list:
+    """K1 at the flagship's four stage shapes and swin_large's packed
+    stages 2-4 (1 frame pair, as served)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     cases = []
-    shapes = flagship_stage_shapes()
-    for shape in shapes:
+    shapes = stage_shapes()
+    for shape in shapes + packed_stages("swin_large_v2"):
         for dtype in (torch.float32, torch.bfloat16):
             for with_mask in (False, True):
                 cases.append(compare_kernel(shape, dtype, with_mask, gen,
@@ -442,7 +482,7 @@ def phase_kernels(timed: bool = True) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(compare_kernel(shape, dtype, True, gen,
                                         maxfree=False, timed=timed))
-    emit("kernel_cases", {"shapes": shapes, "cases": cases,
+    emit("kernel_cases", {"cases": cases,
                           "timing": "CUDA events, 3 warm + 20 launches, "
                                     "median; inputs stay in L2 between "
                                     "launches"})
@@ -451,13 +491,15 @@ def phase_kernels(timed: bool = True) -> list:
 
 def phase_kernels_backward(timed: bool = True) -> list:
     """K2 at the four flagship stage shapes, at 2 frame pairs (what the
-    train phase runs) and at 1, float32 and bfloat16, masked where the stage
-    shifts."""
+    train phase runs) and at 1, and at swin_large's packed stages 2-4 at 2
+    pairs; float32 and bfloat16, masked where the stage shifts."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     cases = []
-    for batch in (2, 1):
-        for shape in flagship_stage_shapes(batch=batch):
+    for batch, shapes in (
+            (2, stage_shapes(batch=2) + packed_stages("swin_large_v2", 2)),
+            (1, stage_shapes(batch=1))):
+        for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
                 case = compare_backward(shape, dtype, gen, timed=timed)
                 case["frame_pairs"] = batch
@@ -467,6 +509,168 @@ def phase_kernels_backward(timed: bool = True) -> list:
         "timing": "CUDA events around the backward launch (dq pass, dk/dv "
                   "pass, dbias) of an autograd graph built once; 2 warm + 8 "
                   "launches, median"})
+    return cases
+
+
+def headsplit_shapes() -> list:
+    """Every head-split stage shape of the real swin variants at 480x640 and
+    1 frame pair (swin_tiny 1-2, swin_large 1, swin_huge 1-2), and
+    swin_large's stage 1 at 2 pairs, the train shape."""
+    out = [dict(s, frame_pairs=1) for b in ("swin_tiny_v2", "swin_large_v2",
+                                            "swin_huge_v2")
+           for s in stage_shapes(b) if s["layout"] == "headsplit"]
+    out += [dict(s, frame_pairs=2)
+            for s in stage_shapes("swin_large_v2", batch=2)
+            if s["layout"] == "headsplit"]
+    return out
+
+
+def make_headsplit_inputs(shape: dict, dtype, with_mask: bool, gen):
+    """q, k, v as the model hands them over: strided views of one
+    (B_, N, 3C) qkv tensor; g likewise a view of a (B_, N, C) gradient.
+    Bias and mask float32 (head-split stages keep them so). Head 0 above
+    the ln(100) clamp, head 1 hot (scale e^4 = 54.6)."""
+    dev = "cuda"
+    B_, N, C, nH = shape["B_"], shape["N"], shape["C"], shape["nH"]
+    qkv = torch.randn((B_, N, 3 * C), device=dev, generator=gen).to(dtype)
+    ls = torch.randn((nH, 1, 1), device=dev, generator=gen) * 0.5 + 2.0
+    ls[0], ls[1] = 5.0, 4.0
+    bias = 16.0 * torch.sigmoid(torch.randn((nH, N, N), device=dev,
+                                            generator=gen))
+    mask = None
+    if with_mask:
+        m = torch.rand((shape["nW"], N, N), device=dev, generator=gen) < 0.3
+        eye = torch.eye(N, device=dev, dtype=torch.bool)
+        mask = torch.where(m & ~eye, -100.0, 0.0).contiguous()
+    g = torch.randn((B_, N, C), device=dev, generator=gen).to(dtype)
+    g = g.reshape(B_, N, nH, C // nH).permute(0, 2, 1, 3)
+    return qkv, ls, bias, mask, g
+
+
+def _views(qkv, nH):
+    B_, N, C3 = qkv.shape
+    return qkv.reshape(B_, N, 3, nH, C3 // 3 // nH).permute(2, 0, 3, 1,
+                                                            4).unbind(0)
+
+
+def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
+                      timed: bool = True) -> dict:
+    """K6' (serving entry, and the training entry that also writes the
+    log-sum-exp) against the plain forward; K7' against the plain backward
+    and against float64 autograd of the plain forward, at K1 / K2's
+    tolerances. Gradients are taken through the model's views, into one
+    (B_, N, 3C) dqkv."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    qkv, ls, bias, mask, g = make_headsplit_inputs(shape, dtype, with_mask,
+                                                   gen)
+    nH = shape["nH"]
+    q, k, v = _views(qkv, nH)
+    if not all(ths.rows_layout_ok(t) for t in (q, k, v, g)):
+        raise RuntimeError(f"the model's views need a copy at {shape}")
+    name = str(dtype).replace("torch.", "")
+    rec = {"model": shape["model"], "stage": shape["stage"],
+           "frame_pairs": shape["frame_pairs"], "B_": shape["B_"],
+           "N": shape["N"], "C": shape["C"], "nH": nH,
+           "nW": mask.shape[0] if mask is not None else 0, "dtype": name,
+           "tolerance_rel_l2": TOL_BWD[name]}
+    with torch.no_grad():
+        want = ths.cosine_window_attention_headsplit_plain(q, k, v, ls, bias,
+                                                           mask)
+        got = ths.cosine_window_attention_headsplit(q, k, v, ls, bias, mask)
+        torch.cuda.synchronize()
+        rec["forward"] = check_forward(got, want, dtype, rec)
+
+    leaves = [qkv.detach().clone().requires_grad_(), ls.clone()
+              .requires_grad_(), bias.clone().requires_grad_()]
+    out = ths.cosine_window_attention_headsplit(*_views(leaves[0], nH),
+                                                leaves[1], leaves[2], mask)
+    rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
+    out.backward(g)
+    torch.cuda.synchronize()
+    got = [t.grad for t in leaves]
+    del out, want
+    with torch.no_grad():
+        dq, dk, dv, dls, dbias = \
+            ths.cosine_window_attention_headsplit_backward_plain(
+                q, k, v, ls, bias, mask, g)
+        plain = [torch.stack([dq, dk, dv], 2).permute(0, 3, 2, 1, 4)
+                 .reshape(qkv.shape), dls, dbias]
+        del dq, dk, dv
+    leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls,
+                                                               bias)]
+    out64 = ths.cosine_window_attention_headsplit_plain(
+        *_views(leaves64[0], nH), leaves64[1], leaves64[2],
+        None if mask is None else mask.double(), compute_dtype=torch.float64)
+    truth = torch.autograd.grad(out64, leaves64, g.double())
+    del out64, leaves64
+    names = ("dqkv", "dlogit_scale", "dbias")
+    rec["plain_vs_float64"] = {n: _errs(p, t)
+                               for n, p, t in zip(names, plain, truth)}
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError(f"head-split backward not finite at {rec}")
+    if float(got[1].flatten()[0]) != 0.0:
+        raise RuntimeError(f"dlogit_scale of the clamped head is "
+                           f"{float(got[1].flatten()[0])}, not 0")
+    rec["vs_plain"] = {n: _errs(a, b) for n, a, b in zip(names, got, plain)}
+    rec["vs_float64"] = {n: _errs(a, b) for n, a, b in zip(names, got, truth)}
+    for which in ("vs_plain", "vs_float64"):
+        for n, e in rec[which].items():
+            if not e["rel_l2"] <= TOL_BWD[name][n]:
+                raise RuntimeError(f"head-split backward disagrees ({which}, "
+                                   f"{n}): {json.dumps(rec)}")
+    rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
+    rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
+    del got, plain, truth, leaves
+    if timed:
+        nW = rec["nW"]
+        fwd, fst = rec["forward"], rec["forward_stats"]
+        with torch.no_grad():
+            fwd["ms"] = time_ms(lambda: ths.cosine_window_attention_headsplit(
+                q, k, v, ls, bias, mask))
+            fwd["plain_ms"] = time_ms(
+                lambda: ths.cosine_window_attention_headsplit_plain(
+                    q, k, v, ls, bias, mask), reps=5, warm=1)
+            fst["ms"] = time_ms(lambda: ths._launch_forward(
+                q, k, v, ls, bias, mask, want_stats=True))
+            fst["plain_ms"] = fwd["plain_ms"]
+            lse = ths._launch_forward(q, k, v, ls, bias, mask,
+                                      want_stats=True)[1]
+            # the backward entry alone (its three passes, the dbias buffer
+            # and the dlogit_scale sum), on the forward's saved statistics
+            rec["ms"] = time_ms(lambda: ths._launch_backward(
+                q, k, v, ls, bias, mask, lse, g, want_dbias=True),
+                reps=8, warm=2)
+            rec["ms_no_dbias"] = time_ms(lambda: ths._launch_backward(
+                q, k, v, ls, bias, mask, lse, g, want_dbias=False),
+                reps=8, warm=2)
+            rec["plain_ms"] = time_ms(
+                lambda: ths.cosine_window_attention_headsplit_backward_plain(
+                    q, k, v, ls, bias, mask, g), reps=3, warm=1)
+        for r, stats in ((fwd, False), (fst, True)):
+            r.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH, nW,
+                                  dtype, torch.float32, stats=stats))
+            r["library_ms"] = None  # no single PyTorch call computes this
+        rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                  nW, dtype, torch.float32))
+        rec["library_ms"] = None
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_headsplit(timed: bool = True) -> list:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    cases = []
+    for shape in headsplit_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_mask in (False, True):     # every such stage shifts
+                cases.append(compare_headsplit(shape, dtype, with_mask, gen,
+                                               timed=timed))
+    emit("kernel_cases_headsplit", {
+        "cases": cases,
+        "timing": "CUDA events, median: serving forward 3 warm + 20, "
+                  "forward with statistics the same, backward entry 2 warm "
+                  "+ 8; inputs stay in L2 between launches"})
     return cases
 
 
@@ -528,13 +732,13 @@ def make_frames(seed: int, batch: int = 1, h: int = 480, w: int = 640):
 
 
 def flagship_cfg(dtype: str = "bfloat16", attn_impl: str = "cuda",
-                 depths=(2, 2, 18, 2)):
+                 depths=(2, 2, 18, 2), backbone: str = "swin_base_v2"):
     from mmde_tpu_torch.config import ModelConfig, SwinConfig
     swin = SwinConfig(depths=tuple(depths), window_size=(30, 30, 30, 15),
                       pretrain_window_size=(12, 12, 12, 6),
                       use_shift=(True, True, False, False),
                       drop_path_rate=0.3)
-    return ModelConfig(backbone="swin_base_v2", decoder="decoder_v2",
+    return ModelConfig(backbone=backbone, decoder="decoder_v2",
                        model_scale=32, max_depth=10.0, swin=swin,
                        dtype=dtype, attn_impl=attn_impl)
 
@@ -559,12 +763,53 @@ def check_outputs(out: dict, what: str) -> dict:
     return info
 
 
-def phase_serve(requests: int = 3) -> dict:
+def _reset_launch_counts():
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
+    for m in (wap, ths):
+        m.LAUNCHES = m.LAUNCHES_BWD = 0
+        m.LAUNCHES_BY_SHAPE.clear()
+        m.LAUNCHES_BWD_BY_SHAPE.clear()
+
+
+def _launches(backward: bool = False) -> dict:
+    """{layout: {(B_, N, C, nH): launches}} since the last reset."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    attr = "LAUNCHES_BWD_BY_SHAPE" if backward else "LAUNCHES_BY_SHAPE"
+    return {"packed": dict(getattr(wap, attr)),
+            "headsplit": dict(getattr(ths, attr))}
+
+
+def _total(by_layout: dict) -> int:
+    return sum(n for d in by_layout.values() for n in d.values())
+
+
+def expected_launches(backbone: str, batch: int, times: int) -> dict:
+    """{layout: {(B_, N, C, nH): launches}} of `times` forwards (or
+    backwards): one per block of each stage, in the stage's layout."""
+    want = {"packed": {}, "headsplit": {}}
+    for sh in stage_shapes(backbone, batch=batch):
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        want[sh["layout"]][key] = sh["blocks"] * times
+    return want
+
+
+def _per_forward(want: dict, times: int) -> dict:
+    return {layout: sum(d.values()) // times for layout, d in want.items()}
+
+
+def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
+                flip: bool = True, tag: str = "serve") -> dict:
+    """`backbone` + decoder_v2 (bfloat16, the flagship's windows and
+    depths) built at full width from a seed, answering `requests` requests
+    of two 480x640 frames through tools.infer.predict, with every kernel's
+    launch counter read around them; with `flip`, also a flip-averaged
+    request."""
     from mmde_tpu_torch.tools import infer
     t0 = time.time()
-    model = infer.build(flagship_cfg("bfloat16", "cuda"), device="cuda",
-                        seed=0)
+    model = infer.build(flagship_cfg("bfloat16", "cuda", backbone=backbone),
+                        device="cuda", seed=0)
     randomize_weights(model, seed=7)
     build_s = time.time() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -573,8 +818,7 @@ def phase_serve(requests: int = 3) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    wap.LAUNCHES = 0
-    wap.LAUNCHES_BY_SHAPE.clear()
+    _reset_launch_counts()
     ms, dev_ms, shapes = [], [], None
     for i in range(requests):
         g1, g2 = make_frames(seed=100 + i)
@@ -588,40 +832,45 @@ def phase_serve(requests: int = 3) -> dict:
         torch.cuda.synchronize()
         ms.append((time.time() - t) * 1e3)
         dev_ms.append(e0.elapsed_time(e1))
-        shapes = check_outputs(out, f"request {i}")
-    launches_plain = wap.LAUNCHES
-    by_shape = {str(k): v for k, v in wap.LAUNCHES_BY_SHAPE.items()}
-    by_shape_raw = dict(wap.LAUNCHES_BY_SHAPE)
-    if launches_plain != 24 * requests:
-        raise RuntimeError(f"{launches_plain} kernel launches for {requests} "
-                           f"forwards, expected {24 * requests}")
+        shapes = check_outputs(out, f"{tag} request {i}")
+    by_layout = _launches()
+    want = expected_launches(backbone, 1, requests)
+    if by_layout != want:
+        raise RuntimeError(f"{tag}: kernel launches by layout and shape "
+                           f"{by_layout} for {requests} forwards, expected "
+                           f"{want}")
+    per_forward = _per_forward(want, requests)
     depth_std = float(out["pred_d1"].std())
     if depth_std <= 0.1:
-        raise RuntimeError(f"depth map is near-constant (std {depth_std})")
-
-    infer.predict(model, f1, f2, flip_tta=True)           # warm-up
-    torch.cuda.synchronize()
-    before_flip = wap.LAUNCHES
-    t = time.time()
-    out_flip = infer.predict(model, f1, f2, flip_tta=True)
-    torch.cuda.synchronize()
-    flip_ms = (time.time() - t) * 1e3
-    check_outputs(out_flip, "flip request")
-    launches_flip = wap.LAUNCHES - before_flip
-    if launches_flip != 48:
-        raise RuntimeError(f"{launches_flip} launches for a flip-averaged "
-                           "request, expected 48")
-    rec = {"model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2",
+        raise RuntimeError(f"{tag}: depth map is near-constant (std "
+                           f"{depth_std})")
+    rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2",
            "params": n_params, "build_seconds": round(build_s, 2),
            "input": "2 x uint8 (1, 480, 640, 3)", "request_ms": ms,
-           "request_ms_cuda_events": dev_ms, "flip_request_ms": flip_ms, "outputs": shapes,
+           "request_ms_cuda_events": dev_ms, "outputs": shapes,
            "finite": True, "depth_std": depth_std,
-           "launches": launches_plain, "launches_per_forward": 24,
-           "launches_flip_request": launches_flip,
-           "launches_by_shape": by_shape,
+           "launches_per_forward": per_forward,
+           "launches_by_shape": {lay: {str(k): v for k, v in d.items()}
+                                 for lay, d in by_layout.items()},
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    emit("serve", rec)
-    rec["_by_shape"] = by_shape_raw
+    if flip:
+        infer.predict(model, f1, f2, flip_tta=True)       # warm-up
+        torch.cuda.synchronize()
+        before = _total(_launches())
+        t = time.time()
+        out_flip = infer.predict(model, f1, f2, flip_tta=True)
+        torch.cuda.synchronize()
+        rec["flip_request_ms"] = (time.time() - t) * 1e3
+        check_outputs(out_flip, f"{tag} flip request")
+        n_flip = _total(_launches()) - before
+        if n_flip != 2 * sum(per_forward.values()):
+            raise RuntimeError(f"{tag}: {n_flip} launches for a "
+                               f"flip-averaged request, expected "
+                               f"{2 * sum(per_forward.values())}")
+        rec["launches_flip_request"] = n_flip
+    emit(tag, rec)
+    rec["backbone"] = backbone
+    rec["_by_shape"] = by_layout
     del model
     torch.cuda.empty_cache()
     return rec
@@ -651,7 +900,7 @@ def _profile(fn) -> dict:
 
     def group(name: str) -> str:
         n = name.lower()
-        if "window_attention_fwd" in n:
+        if "window_attention_fwd" in n:     # K1 and K6' share the kernel
             return "window_attention_fwd (this repo's kernel)"
         if "bwd_dq_kernel" in n or "bwd_dkv_kernel" in n \
                 or "bwd_dbias_kernel" in n:
@@ -682,15 +931,16 @@ def _profile(fn) -> dict:
             "top": rows[:12]}
 
 
-def phase_profile(path: str) -> dict:
+def phase_profile(path: str, backbone: str = "swin_base_v2",
+                  tag: str = "profile") -> dict:
     """Optional (--profile PATH): device time by kernel group of one served
-    request and of one train step (2 frame pairs). Every row goes to PATH
-    (the served request's at top level, the train step's under
+    request and of one train step (2 frame pairs) of `backbone`. Every row
+    goes to PATH (the served request's at top level, the train step's under
     "train_step")."""
     from mmde_tpu_torch.tools import infer
     from mmde_tpu_torch.tools import train_steps as ts
-    model = infer.build(flagship_cfg("bfloat16", "cuda"), device="cuda",
-                        seed=0)
+    model = infer.build(flagship_cfg("bfloat16", "cuda", backbone=backbone),
+                        device="cuda", seed=0)
     randomize_weights(model, seed=7)
     f1, f2 = make_frames(seed=11)
     for _ in range(2):
@@ -700,8 +950,9 @@ def phase_profile(path: str) -> dict:
     del model
     torch.cuda.empty_cache()
 
-    state, step = ts.build_trainer(ts.flagship_config(batch_size=2),
-                                   device="cuda", seed=0)
+    state, step = ts.build_trainer(
+        ts.flagship_config(batch_size=2, backbone=backbone), device="cuda",
+        seed=0)
     randomize_weights(state.model, seed=7)
     batch = ts.synthetic_batch(2, 480, 640, seed=31, device="cuda")
     for _ in range(2):
@@ -718,12 +969,13 @@ def phase_profile(path: str) -> dict:
         json.dump({**serve, "train_step": train}, f, indent=1)
     rec = {k: v for k, v in serve.items() if k != "rows"}
     rec["train_step"] = {k: v for k, v in train.items() if k != "rows"}
-    emit("profile", rec)
+    emit(tag, rec)
     return rec
 
 
-def phase_parity() -> dict:
-    """Kernel path vs plain path through the whole flagship model. fp32
+def phase_parity(backbone: str = "swin_base_v2",
+                 dtypes=("float32", "bfloat16"), tag: str = "parity") -> dict:
+    """Kernel path vs plain path through the whole model. fp32
     convolutions go through cuDNN in TF32 by default; for this phase TF32 is
     switched off so that both paths are true fp32 outside the attention."""
     from mmde_tpu_torch.tools import infer
@@ -732,11 +984,12 @@ def phase_parity() -> dict:
     f1, f2 = make_frames(seed=21)
     res = {"cudnn_allow_tf32": False}
     try:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in dtypes:
             outs = {}
             for impl in ("cuda", "torch"):
-                model = infer.build(flagship_cfg(dtype, impl), device="cuda",
-                                    seed=0)
+                model = infer.build(flagship_cfg(dtype, impl,
+                                                 backbone=backbone),
+                                    device="cuda", seed=0)
                 randomize_weights(model, seed=7)
                 outs[impl] = infer.predict(model, f1, f2)
                 check_outputs(outs[impl], f"parity {dtype} {impl}")
@@ -764,11 +1017,10 @@ def phase_parity() -> dict:
                           "depth_std": std, "tolerance": tol}
     finally:
         torch.backends.cudnn.allow_tf32 = old
-    emit("parity", res)
+    if tag:
+        emit(tag, res)
     return res
 
-
-TRAIN_STAGE_LAUNCHES = {1: 2, 2: 2, 3: 18, 4: 2}    # blocks per stage
 
 # train_parity: one fp32 step, kernel path vs plain path. The two differ by
 # the order of fp32 sums inside the attention (forward ~1e-6 per block,
@@ -789,36 +1041,37 @@ PARITY_PARAMS = (
 )
 
 
-def _reset_launch_counts():
-    from mmde_tpu_torch.ops import window_attention_packed as wap
-    wap.LAUNCHES = wap.LAUNCHES_BWD = 0
-    wap.LAUNCHES_BY_SHAPE.clear()
-    wap.LAUNCHES_BWD_BY_SHAPE.clear()
+# stage 1 of swin_large runs the head-split backward: its RPE MLP and q bias
+LARGE_PARITY_PARAMS = PARITY_PARAMS + (
+    "encoder.layers.0.blocks.1.attn.rpe_mlp.0.weight",
+    "encoder.layers.0.blocks.0.attn.q_bias")
 
 
-def phase_train(steps: int = 6, pairs: int = 2) -> dict:
-    """The flagship trainer on the card: `steps` steps of make_train_step at
-    `pairs` frame pairs (bf16, train mode, drop path 0.3, seeded generator)
-    on one synthetic batch, then a short deterministic run whose loss must
-    fall."""
-    from mmde_tpu_torch.ops import window_attention_packed as wap
+def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
+                pairs: int = 2, deterministic_run: bool = True,
+                tag: str = "train") -> dict:
+    """The trainer on the card: `steps` steps of make_train_step at `pairs`
+    frame pairs (bf16, train mode, drop path 0.3, seeded generator) on one
+    synthetic batch, every kernel's launches counted per step; then, with
+    `deterministic_run`, a short deterministic run whose loss must fall."""
     from mmde_tpu_torch.tools import train_steps as ts
-    cfg = ts.flagship_config("bfloat16", "cuda", batch_size=pairs)
+    cfg = ts.flagship_config("bfloat16", "cuda", batch_size=pairs,
+                             backbone=backbone)
     t0 = time.time()
     state, step = ts.build_trainer(cfg, device="cuda", seed=0)
     randomize_weights(state.model, seed=7)
     build_s = time.time() - t0
     batch = ts.synthetic_batch(pairs, 480, 640, seed=31, device="cuda")
     watch = {n: p.detach().clone() for n, p in state.model.named_parameters()
-             if n in PARITY_PARAMS}
-    shapes = flagship_stage_shapes(batch=pairs)
+             if n in LARGE_PARITY_PARAMS}
+    per_step = _per_forward(expected_launches(backbone, pairs, 1), 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     _reset_launch_counts()
     losses, ms = [], []
     for i in range(steps):
-        f0, b0 = wap.LAUNCHES, wap.LAUNCHES_BWD
+        before = (_launches(), _launches(backward=True))
         torch.cuda.synchronize()
         t = time.time()
         state, aux = step(state, batch)
@@ -826,30 +1079,28 @@ def phase_train(steps: int = 6, pairs: int = 2) -> dict:
         ms.append((time.time() - t) * 1e3)
         aux = {k: float(v) for k, v in aux.items()}
         if not all(math.isfinite(v) for v in aux.values()):
-            raise RuntimeError(f"train step {i}: loss not finite: {aux}")
+            raise RuntimeError(f"{tag} step {i}: loss not finite: {aux}")
         losses.append(aux)
-        if (wap.LAUNCHES - f0, wap.LAUNCHES_BWD - b0) != (24, 24):
-            raise RuntimeError(
-                f"train step {i} launched the forward kernel "
-                f"{wap.LAUNCHES - f0} and the backward kernel "
-                f"{wap.LAUNCHES_BWD - b0} times, expected 24 and 24")
-    fwd_by_shape = dict(wap.LAUNCHES_BY_SHAPE)
-    bwd_by_shape = dict(wap.LAUNCHES_BWD_BY_SHAPE)
-    for sh in shapes:
-        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
-        want = TRAIN_STAGE_LAUNCHES[sh["stage"]] * steps
-        if fwd_by_shape.get(key) != want or bwd_by_shape.get(key) != want:
-            raise RuntimeError(
-                f"stage {sh['stage']} {key}: {fwd_by_shape.get(key)} forward "
-                f"and {bwd_by_shape.get(key)} backward launches, expected "
-                f"{want} each")
+        for bwd, prev in ((False, before[0]), (True, before[1])):
+            now = _launches(backward=bwd)
+            got = {lay: sum(now[lay].values()) - sum(prev[lay].values())
+                   for lay in now}
+            if got != per_step:
+                raise RuntimeError(
+                    f"{tag} step {i}: {'backward' if bwd else 'forward'} "
+                    f"launches by layout {got}, expected {per_step}")
+    fwd_by_shape, bwd_by_shape = _launches(), _launches(backward=True)
+    want = expected_launches(backbone, pairs, steps)
+    if fwd_by_shape != want or bwd_by_shape != want:
+        raise RuntimeError(f"{tag}: forward launches {fwd_by_shape}, "
+                           f"backward {bwd_by_shape}, expected {want} each")
     peak = torch.cuda.max_memory_allocated()
     moved = {n: float((p.detach() - watch[n]).abs().max())
              for n, p in state.model.named_parameters() if n in watch}
     if not all(v > 0 for v in moved.values()):
-        raise RuntimeError(f"parameters did not change: {moved}")
+        raise RuntimeError(f"{tag}: parameters did not change: {moved}")
     steady = ms[1:]
-    rec = {"model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2, "
+    rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2, "
                     "train mode, drop path 0.3, remat none",
            "frame_pairs": pairs, "steps": steps,
            "params": sum(p.numel() for p in state.model.parameters()),
@@ -857,35 +1108,41 @@ def phase_train(steps: int = 6, pairs: int = 2) -> dict:
            "first_step_ms": ms[0], "step_ms": steady,
            "step_ms_median": statistics.median(steady),
            "images_per_s": 2 * pairs / (statistics.median(steady) / 1e3),
-           "launches_fwd_per_step": 24, "launches_bwd_per_step": 24,
-           "launches_fwd_by_shape": {str(k): v
-                                     for k, v in fwd_by_shape.items()},
-           "launches_bwd_by_shape": {str(k): v
-                                     for k, v in bwd_by_shape.items()},
+           "launches_fwd_per_step": per_step,
+           "launches_bwd_per_step": per_step,
+           "launches_fwd_by_shape": {lay: {str(k): v for k, v in d.items()}
+                                     for lay, d in fwd_by_shape.items()},
+           "launches_bwd_by_shape": {lay: {str(k): v for k, v in d.items()}
+                                     for lay, d in bwd_by_shape.items()},
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
     del state, step
     torch.cuda.empty_cache()
 
-    # deterministic: eval-mode modules, same batch every step -> loss falls
-    state, step = ts.build_trainer(cfg, device="cuda", seed=0,
-                                   deterministic=True)
-    randomize_weights(state.model, seed=7)
-    det = []
-    for _ in range(4):
-        state, aux = step(state, batch)
-        det.append(float(aux["loss_total"]))
-    if not (all(math.isfinite(v) for v in det) and det[-1] < det[0]):
-        raise RuntimeError(f"deterministic run: loss did not fall: {det}")
-    rec["deterministic_loss_total"] = det
-    del state, step
-    torch.cuda.empty_cache()
-    emit("train", rec)
+    if deterministic_run:
+        # eval-mode modules, same batch every step -> loss falls
+        state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                       deterministic=True)
+        randomize_weights(state.model, seed=7)
+        det = []
+        for _ in range(4):
+            state, aux = step(state, batch)
+            det.append(float(aux["loss_total"]))
+        if not (all(math.isfinite(v) for v in det) and det[-1] < det[0]):
+            raise RuntimeError(f"{tag} deterministic run: loss did not "
+                               f"fall: {det}")
+        rec["deterministic_loss_total"] = det
+        del state, step
+        torch.cuda.empty_cache()
+    emit(tag, rec)
+    rec["backbone"] = backbone
     rec["_bwd_by_shape"] = bwd_by_shape
     rec["_fwd_by_shape"] = fwd_by_shape
     return rec
 
 
-def phase_train_parity(pairs: int = 1) -> dict:
+def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
+                       params=PARITY_PARAMS, tag: str = "train_parity"
+                       ) -> dict:
     """One deterministic fp32 step at full width and depth, kernel path
     against plain path from the same weights and batch: the loss and the
     gradients of a named set of parameters. cuDNN TF32 is off for this
@@ -897,27 +1154,28 @@ def phase_train_parity(pairs: int = 1) -> dict:
     got = {}
     try:
         for impl in ("cuda", "torch"):
-            cfg = ts.flagship_config("float32", impl, batch_size=pairs)
+            cfg = ts.flagship_config("float32", impl, batch_size=pairs,
+                                     backbone=backbone)
             state, step = ts.build_trainer(cfg, device="cuda", seed=0,
                                            deterministic=True)
             randomize_weights(state.model, seed=7)
             state, aux = step(state, batch)
             grads = {n: p.grad.detach().double().clone()
                      for n, p in state.model.named_parameters()
-                     if n in PARITY_PARAMS}
+                     if n in params}
             got[impl] = ({k: float(v) for k, v in aux.items()}, grads)
             del state, step
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = old
     (la, ga), (lb, gb) = got["cuda"], got["torch"]
-    if set(ga) != set(PARITY_PARAMS):
+    if set(ga) != set(params):
         raise RuntimeError(f"parity parameters missing: "
-                           f"{set(PARITY_PARAMS) - set(ga)}")
+                           f"{set(params) - set(ga)}")
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
     grad_rel = {n: float((ga[n] - gb[n]).norm()
                          / gb[n].norm().clamp_min(1e-300)) for n in ga}
-    rec = {"dtype": "float32", "frame_pairs": pairs,
+    rec = {"model": backbone, "dtype": "float32", "frame_pairs": pairs,
            "depths": [2, 2, 18, 2], "cudnn_allow_tf32": False,
            "loss_cuda": la, "loss_torch": lb, "loss_rel_diff": loss_rel,
            "grad_rel_l2": grad_rel,
@@ -930,71 +1188,89 @@ def phase_train_parity(pairs: int = 1) -> dict:
                 and float(gb[n].norm()) > 0):
             raise RuntimeError(f"train parity: gradient of {n} differs or is "
                                f"zero: {json.dumps(rec)}")
-    emit("train_parity", rec)
+    if tag:
+        emit(tag, rec)
     return rec
 
 
-def contract_kernels(cases: list, serve: dict) -> list:
+def _entry(name, shape, source, replaces, n, c, pairs=1) -> dict:
+    where = (f"[{shape['model'].rsplit('_', 1)[0]} stage{shape['stage']} "
+             f"B_={shape['B_']} N={shape['N']} C={shape['C']} "
+             f"nH={shape['nH']} bf16{' mask' if shape['nW'] else ''}"
+             f"{' train' if pairs > 1 else ''}]")
+    if n == 0:
+        raise RuntimeError(f"the path never launched {name}{where}")
+    return {"name": name + where, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": c["max_abs_err"], "rel_l2_err": c["rel_l2_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None}
+
+
+def _find(cases, shape, pairs, **want):
+    return next(c for c in cases
+                if c["model"] == shape["model"]
+                and c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
+                and c.get("frame_pairs", 1) == pairs
+                and all(c[k] == v for k, v in want.items()))
+
+
+def contract_serve(k1_cases: list, hs_cases: list, serve: dict) -> list:
     """One entry per (kernel, served shape): the served model is bfloat16,
     stages 1-2 alternate unmasked and masked blocks (the masked case is
     listed), stages 3-4 are unmasked."""
     entries = []
-    by_shape = serve["_by_shape"]
-    for shape in flagship_stage_shapes():
-        masked = shape["nW"] > 0
-        case = next(c for c in cases
-                    if c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
-                    and c["softmax"] == "maxfree"
-                    and (c["nW"] > 0) == masked)
+    for shape in stage_shapes(serve["backbone"]):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
-        n = by_shape.get(key, 0)
-        if n == 0:
-            raise RuntimeError(f"the served path never launched the kernel "
-                               f"at stage {shape['stage']} {key}")
-        entries.append({
-            "name": f"window_attention_fwd[stage{shape['stage']} "
-                    f"B_={key[0]} N={key[1]} C={key[2]} nH={key[3]} bf16"
-                    f"{' mask' if masked else ''}]",
-            "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES, "launches": n,
-            "max_abs_err": case["max_abs_err"],
-            "rel_l2_err": case["rel_l2_err"], "ms": case["ms"],
-            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": None})
+        n = serve["_by_shape"][shape["layout"]].get(key, 0)
+        nW = shape["nW"]
+        if shape["layout"] == "packed":
+            c = next(c for c in k1_cases
+                     if c["model"] == shape["model"]
+                     and c["stage"] == shape["stage"]
+                     and c["dtype"] == "bfloat16"
+                     and c["softmax"] == "maxfree" and (c["nW"] > 0) == (
+                         nW > 0))
+            entries.append(_entry("window_attention_fwd", shape,
+                                  KERNEL_SOURCE, KERNEL_REPLACES, n, c))
+        else:
+            c = _find(hs_cases, shape, 1, nW=nW)["forward"]
+            entries.append(_entry("window_attention_headsplit_fwd", shape,
+                                  KERNEL_SOURCE, KERNEL_HS_REPLACES, n, c))
     return entries
 
 
-def contract_kernels_train(cases: list, train: dict) -> list:
-    """Two entries per trained shape, the forward kernel through its training
-    entry point (output and log-sum-exp) and the backward kernel: the trained
-    model is bfloat16 at 2 frame pairs, stages 1-2 masked in every other
-    block (the masked case is listed). Errors: the forward's output against
-    the plain forward, the backward's dqkv against float64 autograd."""
+def contract_train(k2_cases: list, hs_cases: list, train: dict) -> list:
+    """Two entries per trained shape, the forward through its training entry
+    point (output and log-sum-exp) and the backward: the trained model is
+    bfloat16 at 2 frame pairs, stages 1-2 masked in every other block (the
+    masked case is listed). Errors: the forward's output against the plain
+    forward, the backward's dqkv against float64 autograd."""
     entries = []
-    for shape in flagship_stage_shapes(batch=train["frame_pairs"]):
-        case = next(c for c in cases
-                    if c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
-                    and c["frame_pairs"] == train["frame_pairs"])
+    pairs = train["frame_pairs"]
+    for shape in stage_shapes(train["backbone"], batch=pairs):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
-        where = (f"[train stage{shape['stage']} B_={key[0]} N={key[1]} "
-                 f"C={key[2]} nH={key[3]} bf16"
-                 f"{' mask' if case['nW'] else ''}]")
-        for name, source, replaces, counts, c in (
-                ("window_attention_fwd+lse", KERNEL_SOURCE, KERNEL_REPLACES,
-                 train["_fwd_by_shape"], case["forward"]),
-                ("window_attention_bwd", KERNEL_BWD_SOURCE,
-                 KERNEL_BWD_REPLACES, train["_bwd_by_shape"], case)):
-            n = counts.get(key, 0)
-            if n == 0:
-                raise RuntimeError(f"the train path never launched {name} "
-                                   f"at stage {shape['stage']} {key}")
-            entries.append({
-                "name": name + where, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n,
-                "max_abs_err": c["max_abs_err"],
-                "rel_l2_err": c["rel_l2_err"], "ms": c["ms"],
-                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                "bound_by": c["bound_by"], "library_ms": None})
+        lay = shape["layout"]
+        nf = train["_fwd_by_shape"][lay].get(key, 0)
+        nb = train["_bwd_by_shape"][lay].get(key, 0)
+        if lay == "packed":
+            c = _find(k2_cases, shape, pairs)
+            entries.append(_entry("window_attention_fwd+lse", shape,
+                                  KERNEL_SOURCE, KERNEL_REPLACES, nf,
+                                  c["forward"], pairs))
+            e = _entry("window_attention_bwd", shape, KERNEL_BWD_SOURCE,
+                       KERNEL_BWD_REPLACES, nb, c, pairs)
+            e["ms_split_dbias"] = c["ms_split"]     # K3, not the default
+        else:
+            c = _find(hs_cases, shape, pairs, nW=shape["nW"])
+            entries.append(_entry("window_attention_headsplit_fwd+lse",
+                                  shape, KERNEL_SOURCE, KERNEL_HS_REPLACES,
+                                  nf, c["forward_stats"], pairs))
+            e = _entry("window_attention_headsplit_bwd", shape,
+                       KERNEL_BWD_SOURCE, KERNEL_HS_BWD_REPLACES, nb, c,
+                       pairs)
+        entries.append(e)
     return entries
 
 
@@ -1006,8 +1282,9 @@ def main() -> int:
                          "ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
-                         "step with torch.profiler and write their rows to "
-                         "PATH (JSON)")
+                         "step with torch.profiler, of the flagship and of "
+                         "swin_large, and write their rows to PATH and "
+                         "PATH with _large before its extension (JSON)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1017,18 +1294,33 @@ def main() -> int:
     t_start = time.time()
     torch.manual_seed(0)
     phase_env()
-    cases = phase_kernels(timed=args.only is None)
-    cases_bwd = phase_kernels_backward(timed=args.only is None)
+    timed = args.only is None
+    k1_cases = phase_kernels(timed=timed)
+    k2_cases = phase_kernels_backward(timed=timed)
+    hs_cases = phase_kernels_headsplit(timed=timed)
     if args.only == "kernels":
         return 0
     serve = phase_serve()
     train = phase_train()
+    serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
+    train_large = phase_train("swin_large_v2", steps=6,
+                              deterministic_run=False, tag="train_large")
     if args.profile:
         phase_profile(args.profile)
+        root, ext = os.path.splitext(args.profile)
+        phase_profile(f"{root}_large{ext}", "swin_large_v2", "profile_large")
     phase_parity()
     phase_train_parity()
-    print(json.dumps({"kernels": contract_kernels(cases, serve)
-                      + contract_kernels_train(cases_bwd, train)}),
+    emit("parity_large", {
+        "forward": phase_parity("swin_large_v2", ("float32",), tag=None),
+        "train_step": phase_train_parity("swin_large_v2",
+                                         params=LARGE_PARITY_PARAMS,
+                                         tag=None)})
+    print(json.dumps({"kernels":
+                      contract_serve(k1_cases, hs_cases, serve)
+                      + contract_train(k2_cases, hs_cases, train)
+                      + contract_serve(k1_cases, hs_cases, serve_large)
+                      + contract_train(k2_cases, hs_cases, train_large)}),
           flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,19 @@
 // Fused SwinV2 cosine window attention, backward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel mmde_tpu/ops/window_attention_packed.py::_bwd_body
-// (driven by _pallas_backward), and, with dbias_mode = 2, the dbias-only
-// pass ::_dbias_body (driven by _pallas_dbias). Same function, re-derived
-// for a GPU. Per (window b, head h), with
+// Replaces the TPU kernels mmde_tpu/ops/window_attention_packed.py::_bwd_body
+// (K2, driven by _pallas_backward) and, with dbias_mode = 2, its dbias-only
+// pass ::_dbias_body (K3, driven by _pallas_dbias), on qkv as the Linear
+// emits it; and mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7,
+// driven by _pallas_backward) on head-split q, k, v (B_, nH, N, Dh): the
+// operands are `Rows` (window_attention_common.cuh), base + (window, head,
+// token) strides, so one set of kernels serves both layouts. Same function,
+// re-derived for a GPU. Per (window b, head h), with
 //
 //   q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),   k^ = k * rk likewise
 //   scale = exp(min(logit_scale[h], ln 100))
 //   sc = scale * q^ k^T,  s = sc + bias[h] + mask[b % nW]
 //   p  = exp(s - lse)           lse: the forward's row log-sum-exp
-//   g  = incoming gradient of the output, (B_, N, C)
+//   g  = incoming gradient of the output, per (window, head) N x 32
 //
 // it computes
 //
@@ -36,23 +40,32 @@
 //                    known; instead of a second sweep the block accumulates
 //                    A = (p*dp) k^ and B = p k^ and forms
 //                    ds k^ = A - delta * B at the end (one extra product, no
-//                    second pass, delta exact in fp32). Writes dq, delta and
-//                    its share of dlogit_scale (sum(p*dp*sc) - delta*sum(p*sc)
-//                    per row) into a partials buffer that the caller sums:
-//                    no atomics, so dq and dlogit_scale are reproducible.
+//                    second pass, delta exact in fp32). Writes dq and delta.
 //   bwd_dkv_kernel   one block per (window, head, 64-key tile), loop over
 //                    64-query tiles with delta and lse read back: the sum
 //                    over query tiles stays inside the block, in fp32
 //                    registers, rounded once on the way out (the TPU kernel
 //                    rounds dk/dv to qkv's type between query tiles). The
-//                    normalise-VJP of k is applied after that sum. With
-//                    dbias_mode = 1 it also adds its ds tile into
+//                    normalise-VJP of k is applied after that sum. Its dot
+//                    k^_j . dkn_j is sum_i ds_ij sc_ij, so the block's
+//                    share of dlogit_scale is the sum of those dots over its
+//                    keys, at no cost in the loop; summed in fp64 into a
+//                    partials buffer that the caller sums: no atomics,
+//                    reproducible. (A per-row sum(p*dp*sc) -
+//                    delta*sum(p*sc) in the dq pass, in fp32, cancels and
+//                    lost ~1e-3 of a hot head's dlogit_scale; a sum of
+//                    ds * sc inside the loop cost this pass 3-5 %.)
+//                    With dbias_mode = 1 it also adds its ds tile into
 //                    dbias (nH, N, N) fp32 with atomics (sum over windows in
 //                    whatever order the blocks arrive).
 //   bwd_dbias_kernel dbias_mode = 2: one block per (head, query tile, key
 //                    tile), windows innermost, ds accumulated in registers,
 //                    written once. No atomics, reproducible; costs two more
 //                    N x N x 32 products.
+//
+// K7's TPU kernel instead dumps ds per window in the input type and sums it
+// in XLA; here K7' takes K2's default, fp32 atomics from the dk/dv pass, so
+// its dbias is summed once in fp32 but is not bit-reproducible either.
 //
 // Ragged edge (N = 900 = 14*64 + 4, N = 225 = 3*64 + 33): rows and keys
 // past N are loaded as zeros and their p is forced to 0, so they add nothing
@@ -71,6 +84,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_attention_common.cuh"
+
 namespace {
 
 constexpr int DH = 32;        // head dim of every swin variant
@@ -81,37 +96,9 @@ constexpr int P_LD = BT + 4;  // [row][key] / [key][row] tiles
 constexpr float LN100 = 4.605170185988091f;
 
 constexpr int DQ_SMEM_FLOATS =
-    4 * DH * BT + BT * R_LD + 2 * BT * P_LD + 3 * BT + 4;
+    4 * DH * BT + BT * R_LD + 2 * BT * P_LD + 3 * BT;
 constexpr int DKV_SMEM_FLOATS =
-    4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 3 * BT;
-
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&x)[DH]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < DH / 4; ++i) {
-    float4 v = __ldg(p4 + i);
-    x[4 * i + 0] = v.x;
-    x[4 * i + 1] = v.y;
-    x[4 * i + 2] = v.z;
-    x[4 * i + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
-                                         float (&x)[DH]) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
-    uint4 v = __ldg(p4 + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[8 * i + 2 * j + 0] = __uint_as_float(w[j] << 16);
-      x[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-}
+    4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 3 * BT + 8;
 
 // row r of a (rows, ld) array whose first wanted column is at `base`; zeros
 // past the edge
@@ -152,33 +139,6 @@ __device__ __forceinline__ void put_r(float* sr, int j,
   for (int d = 0; d < DH; d += 4)
     *reinterpret_cast<float4*>(&sr[j * R_LD + d]) =
         make_float4(x[d], x[d + 1], x[d + 2], x[d + 3]);
-}
-
-__device__ __forceinline__ float ldf(const float* __restrict__ p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float ldf(const __nv_bfloat16* __restrict__ p,
-                                     size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 w;
-  w.x = *reinterpret_cast<uint32_t*>(&lo);
-  w.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = w;
-}
-
-template <bool FAST>
-__device__ __forceinline__ float exp_(float x) {
-  return FAST ? __expf(x) : expf(x);
 }
 
 // acc[i][j] = sum_d A[d][ty*8 + i] * B[d][tx*4 + j]
@@ -254,12 +214,11 @@ __device__ __forceinline__ float row_sum8(float x) {
 // ---------------------------------------------------------------------------
 template <typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dq_kernel(const T* __restrict__ qkv,
-              const float* __restrict__ logit_scale,
+bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+              Rows<const T> g, const float* __restrict__ logit_scale,
               const TB* __restrict__ bias, const TB* __restrict__ mask,
-              const float* __restrict__ lse, const T* __restrict__ g,
-              T* __restrict__ dqkv, float* __restrict__ delta,
-              float* __restrict__ dls_part, int N, int C, int nW) {
+              const float* __restrict__ lse, Rows<T> dq,
+              float* __restrict__ delta, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sQt = smem;               // [DH][BT] q^
   float* sGt = sQt + DH * BT;      // [DH][BT] g
@@ -271,23 +230,18 @@ bwd_dq_kernel(const T* __restrict__ qkv,
   float* sRq = sW + BT * P_LD;     // [BT]
   float* sLse = sRq + BT;          // [BT]
   float* sDelta = sLse + BT;       // [BT]
-  float* sRed = sDelta + BT;       // [4]
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nH = gridDim.y;
-  const size_t ld = 3 * (size_t)C;
-  const T* qkv_b = qkv + (size_t)b * N * ld + (size_t)h * DH;
-  const T* g_b = g + (size_t)b * N * C + (size_t)h * DH;
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w =
       mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
   const size_t stat0 = ((size_t)b * nH + h) * N;
 
-  const float ls = logit_scale[h];
-  const float scale = expf(fminf(ls, LN100));
+  const float scale = expf(fminf(logit_scale[h], LN100));
 
   const int tx = tid & 15;  // N x N tiles: rows ty*8..+7, keys tx*4..+3
   const int ty = tid >> 4;
@@ -299,19 +253,23 @@ bwd_dq_kernel(const T* __restrict__ qkv,
     const int j = tid & (BT - 1);
     const int r = q0 + j;
     if (tid < BT) {
-      fetch_row(qkv_b, ld, r, N, x);
+      fetch_row(q.head(b, h), q.sn, r, N, x);
       sRq[j] = normalise(x);
       put_t(sQt, j, x);
       sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
     } else {
-      fetch_row(g_b, (size_t)C, r, N, x);
+      fetch_row(g.head(b, h), g.sn, r, N, x);
       put_t(sGt, j, x);
     }
   }
 
-  float d_part[8], ws_part[8], ps_part[8];
+  // threads 0..63 load key rows, 64..127 value rows
+  const T* kv_bh = tid < BT ? k.head(b, h) : v.head(b, h);
+  const size_t kv_ld = tid < BT ? k.sn : v.sn;
+
+  float d_part[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) d_part[i] = ws_part[i] = ps_part[i] = 0.0f;
+  for (int i = 0; i < 8; ++i) d_part[i] = 0.0f;
   float accA[4][4], accB[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -324,13 +282,12 @@ bwd_dq_kernel(const T* __restrict__ qkv,
       float x[DH];
       const int j = tid & (BT - 1);
       const int r = k0 + j;
+      fetch_row(kv_bh, kv_ld, r, N, x);
       if (tid < BT) {
-        fetch_row(qkv_b + C, ld, r, N, x);
         normalise(x);
         put_t(sKt, j, x);
         put_r(sK, j, x);
       } else {
-        fetch_row(qkv_b + 2 * C, ld, r, N, x);
         put_t(sVt, j, x);
       }
     }
@@ -348,8 +305,6 @@ bwd_dq_kernel(const T* __restrict__ qkv,
       for (int j = 0; j < 4; ++j) {
         w[j] = p[i][j] * dp[i][j];
         d_part[i] += w[j];
-        ws_part[i] = fmaf(w[j], s[i][j], ws_part[i]);
-        ps_part[i] = fmaf(p[i][j], s[i][j], ps_part[i]);
       }
       store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1], p[i][2],
              p[i][3]);
@@ -386,32 +341,17 @@ bwd_dq_kernel(const T* __restrict__ qkv,
     }
   }
 
-  // delta per row, and this block's share of dlogit_scale
-  float dls_thread = 0.0f;
+  // delta per row
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float d = row_sum16(d_part[i]);
-    const float ws = row_sum16(ws_part[i]);
-    const float ps = row_sum16(ps_part[i]);
-    if (tx == 0) {
-      sDelta[ty * 8 + i] = d;
-      dls_thread += ws - d * ps;
-    }
+    if (tx == 0) sDelta[ty * 8 + i] = d;
   }
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1)
-    dls_thread += __shfl_xor_sync(0xffffffffu, dls_thread, off);
-  if ((tid & 31) == 0) sRed[tid >> 5] = dls_thread;
   __syncthreads();
 
-  if (tid == 0) {
-    const float tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
-    dls_part[((size_t)b * gridDim.x + blockIdx.x) * nH + h] =
-        ls < LN100 ? tot : 0.0f;
-  }
   if (tid < BT && q0 + tid < N) delta[stat0 + q0 + tid] = sDelta[tid];
 
-  T* dq_b = dqkv + (size_t)b * N * ld + (size_t)h * DH + px * 4;
+  T* dq_b = dq.head(b, h) + px * 4;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int lr = py + 16 * r;
@@ -428,7 +368,7 @@ bwd_dq_kernel(const T* __restrict__ qkv,
     dot = row_sum8(dot);
     const float rq = sRq[lr];
     if (row < N)
-      store4(dq_b + (size_t)row * ld, rq * (dqn[0] - qn[0] * dot),
+      store4(dq_b + (size_t)row * dq.sn, rq * (dqn[0] - qn[0] * dot),
              rq * (dqn[1] - qn[1] * dot), rq * (dqn[2] - qn[2] * dot),
              rq * (dqn[3] - qn[3] * dot));
   }
@@ -439,12 +379,12 @@ bwd_dq_kernel(const T* __restrict__ qkv,
 // ---------------------------------------------------------------------------
 template <typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dkv_kernel(const T* __restrict__ qkv,
-               const float* __restrict__ logit_scale,
+bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+               Rows<const T> g, const float* __restrict__ logit_scale,
                const TB* __restrict__ bias, const TB* __restrict__ mask,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               const T* __restrict__ g, T* __restrict__ dqkv,
-               float* __restrict__ dbias, int N, int C, int nW) {
+               Rows<T> dk, Rows<T> dv, double* __restrict__ dls_part,
+               float* __restrict__ dbias, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sKt = smem;               // [DH][BT] k^
   float* sVt = sKt + DH * BT;      // [DH][BT] v
@@ -457,22 +397,22 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
   float* sRk = sDSt + BT * P_LD;   // [BT]
   float* sLse = sRk + BT;          // [BT]
   float* sDelta = sLse + BT;       // [BT]
+  // [4] doubles; the offset (21696 floats) keeps them 8-byte aligned
+  double* sRed = reinterpret_cast<double*>(sDelta + BT);
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int nH = gridDim.y;
-  const size_t ld = 3 * (size_t)C;
-  const T* qkv_b = qkv + (size_t)b * N * ld + (size_t)h * DH;
-  const T* g_b = g + (size_t)b * N * C + (size_t)h * DH;
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w =
       mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
   float* dbias_h = dbias != nullptr ? dbias + (size_t)h * N * N : nullptr;
   const size_t stat0 = ((size_t)b * nH + h) * N;
 
-  const float scale = expf(fminf(logit_scale[h], LN100));
+  const float ls = logit_scale[h];
+  const float scale = expf(fminf(ls, LN100));
 
   const int tx = tid & 15;  // N x N tiles: query rows ty*8..+7, keys tx*4..+3
   const int ty = tid >> 4;
@@ -484,14 +424,18 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
     const int j = tid & (BT - 1);
     const int r = k0 + j;
     if (tid < BT) {
-      fetch_row(qkv_b + C, ld, r, N, x);
+      fetch_row(k.head(b, h), k.sn, r, N, x);
       sRk[j] = normalise(x);
       put_t(sKt, j, x);
     } else {
-      fetch_row(qkv_b + 2 * C, ld, r, N, x);
+      fetch_row(v.head(b, h), v.sn, r, N, x);
       put_t(sVt, j, x);
     }
   }
+
+  // threads 0..63 load query rows, 64..127 rows of g
+  const T* qg_bh = tid < BT ? q.head(b, h) : g.head(b, h);
+  const size_t qg_ld = tid < BT ? q.sn : g.sn;
 
   float accV[4][4], accK[4][4];
 #pragma unroll
@@ -505,14 +449,13 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
       float x[DH];
       const int j = tid & (BT - 1);
       const int r = q0 + j;
+      fetch_row(qg_bh, qg_ld, r, N, x);
       if (tid < BT) {
-        fetch_row(qkv_b, ld, r, N, x);
         normalise(x);
         put_t(sQt, j, x);
         put_r(sQ, j, x);
         sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
       } else {
-        fetch_row(g_b, (size_t)C, r, N, x);
         put_t(sGt, j, x);
         put_r(sG, j, x);
         sDelta[j] = r < N ? delta[stat0 + r] : 0.0f;
@@ -587,8 +530,10 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
     }
   }
 
-  T* dk_b = dqkv + (size_t)b * N * ld + C + (size_t)h * DH + px * 4;
-  T* dv_b = dk_b + C;
+  T* dk_b = dk.head(b, h) + px * 4;
+  T* dv_b = dv.head(b, h) + px * 4;
+  // k^ . dkn = sum_i ds_ij sc_ij for key j: this block's dlogit_scale share
+  double dls = 0.0;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int lk = py + 16 * r;
@@ -604,12 +549,23 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
     dot = row_sum8(dot);
     const float rk = sRk[lk];
     if (key < N) {
-      store4(dk_b + (size_t)key * ld, rk * (dkn[0] - kn[0] * dot),
+      store4(dk_b + (size_t)key * dk.sn, rk * (dkn[0] - kn[0] * dot),
              rk * (dkn[1] - kn[1] * dot), rk * (dkn[2] - kn[2] * dot),
              rk * (dkn[3] - kn[3] * dot));
-      store4(dv_b + (size_t)key * ld, accV[r][0], accV[r][1], accV[r][2],
+      store4(dv_b + (size_t)key * dv.sn, accV[r][0], accV[r][1], accV[r][2],
              accV[r][3]);
+      if (px == 0) dls += dot;    // the 8 lanes of a key hold the same dot
     }
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    dls += __shfl_xor_sync(0xffffffffu, dls, off);
+  if ((tid & 31) == 0) sRed[tid >> 5] = dls;
+  __syncthreads();
+  if (tid == 0) {
+    const double tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
+    dls_part[((size_t)b * gridDim.x + blockIdx.x) * nH + h] =
+        ls < LN100 ? tot : 0.0;
   }
 }
 
@@ -618,12 +574,12 @@ bwd_dkv_kernel(const T* __restrict__ qkv,
 // ---------------------------------------------------------------------------
 template <typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dbias_kernel(const T* __restrict__ qkv,
-                 const float* __restrict__ logit_scale,
+bwd_dbias_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                 Rows<const T> g, const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, const T* __restrict__ g,
-                 float* __restrict__ dbias, int B_, int N, int C, int nW) {
+                 const float* __restrict__ delta, float* __restrict__ dbias,
+                 int B_, int N, int nW) {
   __shared__ __align__(16) float sQt[DH * BT];
   __shared__ __align__(16) float sGt[DH * BT];
   __shared__ __align__(16) float sKt[DH * BT];
@@ -636,7 +592,6 @@ bwd_dbias_kernel(const T* __restrict__ qkv,
   const int q0 = blockIdx.y * BT;
   const int h = blockIdx.z;
   const int nH = gridDim.z;
-  const size_t ld = 3 * (size_t)C;
   const TB* bias_h = bias + (size_t)h * N * N;
   const float scale = expf(fminf(logit_scale[h], LN100));
   const int tx = tid & 15;
@@ -649,8 +604,6 @@ bwd_dbias_kernel(const T* __restrict__ qkv,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int b = 0; b < B_; ++b) {
-    const T* qkv_b = qkv + (size_t)b * N * ld + (size_t)h * DH;
-    const T* g_b = g + (size_t)b * N * C + (size_t)h * DH;
     const TB* mask_w =
         mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
     const size_t stat0 = ((size_t)b * nH + h) * N;
@@ -659,18 +612,18 @@ bwd_dbias_kernel(const T* __restrict__ qkv,
       float x[DH];
       const int j = tid & (BT - 1);
       if (tid < BT) {
-        fetch_row(qkv_b, ld, q0 + j, N, x);
+        fetch_row(q.head(b, h), q.sn, q0 + j, N, x);
         normalise(x);
         put_t(sQt, j, x);
         sLse[j] = q0 + j < N ? lse[stat0 + q0 + j] : 0.0f;
-        fetch_row(qkv_b + C, ld, k0 + j, N, x);
+        fetch_row(k.head(b, h), k.sn, k0 + j, N, x);
         normalise(x);
         put_t(sKt, j, x);
       } else {
-        fetch_row(g_b, (size_t)C, q0 + j, N, x);
+        fetch_row(g.head(b, h), g.sn, q0 + j, N, x);
         put_t(sGt, j, x);
         sDelta[j] = q0 + j < N ? delta[stat0 + q0 + j] : 0.0f;
-        fetch_row(qkv_b + 2 * C, ld, k0 + j, N, x);
+        fetch_row(v.head(b, h), v.sn, k0 + j, N, x);
         put_t(sVt, j, x);
       }
     }
@@ -702,12 +655,23 @@ bwd_dbias_kernel(const T* __restrict__ qkv,
   }
 }
 
+// The operands' (window, head, token) layout, on the host.
+template <typename T>
+struct Operands {
+  Rows<const T> q, k, v, g;
+  Rows<T> dq, dk, dv;
+  bool aligned() const {
+    return rows_aligned(q) && rows_aligned(k) && rows_aligned(v) &&
+           rows_aligned(g) && rows_aligned(dq) && rows_aligned(dk) &&
+           rows_aligned(dv);
+  }
+};
+
 template <typename T, typename TB, bool FASTEXP>
-cudaError_t launch(const void* qkv, const void* ls, const void* bias,
-                   const void* mask, const void* lse, const void* g,
-                   void* dqkv, void* delta, void* dls_part, void* dbias,
-                   int B_, int N, int C, int nH, int nW, int dbias_mode,
-                   cudaStream_t stream) {
+cudaError_t launch(const Operands<T>& o, const void* ls, const void* bias,
+                   const void* mask, const void* lse, void* delta,
+                   void* dls_part, void* dbias, int B_, int N, int nH, int nW,
+                   int dbias_mode, cudaStream_t stream) {
   const int nT = (N + BT - 1) / BT;
   const int dq_bytes = DQ_SMEM_FLOATS * (int)sizeof(float);
   const int dkv_bytes = DKV_SMEM_FLOATS * (int)sizeof(float);
@@ -722,28 +686,89 @@ cudaError_t launch(const void* qkv, const void* ls, const void* bias,
 
   dim3 grid(nT, nH, B_);
   bwd_dq_kernel<T, TB, FASTEXP><<<grid, NT, dq_bytes, stream>>>(
-      (const T*)qkv, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, (const T*)g, (T*)dqkv, (float*)delta,
-      (float*)dls_part, N, C, nW);
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   bwd_dkv_kernel<T, TB, FASTEXP><<<grid, NT, dkv_bytes, stream>>>(
-      (const T*)qkv, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, (const float*)delta, (const T*)g, (T*)dqkv,
-      dbias_mode == 1 ? (float*)dbias : nullptr, N, C, nW);
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
+      (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   if (dbias_mode == 2) {
     dim3 grid_b(nT, nT, nH);
     bwd_dbias_kernel<T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
-        (const T*)qkv, (const float*)ls, (const TB*)bias, (const TB*)mask,
-        (const float*)lse, (const float*)delta, (const T*)g, (float*)dbias,
-        B_, N, C, nW);
+        o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+        (const TB*)mask, (const float*)lse, (const float*)delta,
+        (float*)dbias, B_, N, nW);
     err = cudaGetLastError();
   }
   return err;
+}
+
+// `packed`: q = qkv (B_, N, 3C), g (B_, N, C), dq = dqkv (B_, N, 3C), each
+// by column block. Otherwise: q, k, v, g at their own bases with the twelve
+// host strides `st` (q, k, v, g: window, head, token) and contiguous
+// (B_, nH, N, DH) dq, dk, dv.
+template <typename T, typename TB, bool FASTEXP>
+int launch_layout(bool packed, const void* q, const void* k, const void* v,
+                  const void* g, const long long* st, const void* ls,
+                  const void* bias, const void* mask, const void* lse,
+                  void* dq, void* dk, void* dv, void* delta, void* dls_part,
+                  void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
+                  cudaStream_t stream) {
+  const int C = nH * DH;
+  Operands<T> o;
+  if (packed) {
+    o.q = packed_rows((const T*)q, 0, N, C, 3, DH);
+    o.k = packed_rows((const T*)q, 1, N, C, 3, DH);
+    o.v = packed_rows((const T*)q, 2, N, C, 3, DH);
+    o.g = packed_rows((const T*)g, 0, N, C, 1, DH);
+    o.dq = packed_rows((T*)dq, 0, N, C, 3, DH);
+    o.dk = packed_rows((T*)dq, 1, N, C, 3, DH);
+    o.dv = packed_rows((T*)dq, 2, N, C, 3, DH);
+  } else {
+    o.q = {(const T*)q, st[0], st[1], st[2]};
+    o.k = {(const T*)k, st[3], st[4], st[5]};
+    o.v = {(const T*)v, st[6], st[7], st[8]};
+    o.g = {(const T*)g, st[9], st[10], st[11]};
+    o.dq = contiguous_rows((T*)dq, nH, N, DH);
+    o.dk = contiguous_rows((T*)dk, nH, N, DH);
+    o.dv = contiguous_rows((T*)dv, nH, N, DH);
+  }
+  if (!o.aligned()) return -1;
+  return (int)launch<T, TB, FASTEXP>(o, ls, bias, mask, lse, delta, dls_part,
+                                     dbias, B_, N, nH, nW, dbias_mode,
+                                     stream);
+}
+
+int dispatch(bool packed, const void* q, const void* k, const void* v,
+             const void* g, const long long* st, const void* ls,
+             const void* bias, const void* mask, const void* lse, void* dq,
+             void* dk, void* dv, void* delta, void* dls_part, void* dbias,
+             int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
+             int dbias_mode, void* stream) {
+  if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  if (dbias_mode < 0 || dbias_mode > 2) return -1;
+  if (dbias_mode != 0 && dbias == nullptr) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16 && !bias_bf16)
+    return launch_layout<float, float, false>(
+        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
+  if (qkv_bf16 && bias_bf16)
+    return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
+        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
+  if (qkv_bf16 && !bias_bf16)
+    return launch_layout<__nv_bfloat16, float, true>(
+        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
+  return -1;
 }
 
 }  // namespace
@@ -752,7 +777,7 @@ cudaError_t launch(const void* qkv, const void* ls, const void* bias,
 // and dqkv (B_, N, 3C) share an element type (qkv_bf16: 0 = fp32); bias
 // (nH, N, N) and mask (nW, N, N; may be null) share one (bias_bf16); fp32
 // qkv requires fp32 bias. lse (B_, nH, N) fp32 comes from the forward
-// kernel; delta (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp32
+// kernel; delta (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp64
 // are scratch and output (the caller sums dls_part over its first axis).
 // dbias (nH, N, N) fp32: dbias_mode 0 = not computed (may be null),
 // 1 = added with atomics (the caller zeroes it first), 2 = written by the
@@ -764,24 +789,26 @@ extern "C" int mmde_window_attention_bwd(
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
     int nW, int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
-  if (B_ <= 0 || N <= 0 || nH <= 0 || C != nH * DH || B_ > 65535 ||
-      nH > 65535)
-    return -1;
-  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
-  if (dbias_mode < 0 || dbias_mode > 2) return -1;
-  if (dbias_mode != 0 && dbias == nullptr) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!qkv_bf16 && !bias_bf16)
-    return (int)launch<float, float, false>(qkv, logit_scale, bias, mask, lse,
-                                            g, dqkv, delta, dls_part, dbias,
-                                            B_, N, C, nH, nW, dbias_mode, st);
-  if (qkv_bf16 && bias_bf16)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16, true>(
-        qkv, logit_scale, bias, mask, lse, g, dqkv, delta, dls_part, dbias,
-        B_, N, C, nH, nW, dbias_mode, st);
-  if (qkv_bf16 && !bias_bf16)
-    return (int)launch<__nv_bfloat16, float, true>(
-        qkv, logit_scale, bias, mask, lse, g, dqkv, delta, dls_part, dbias,
-        B_, N, C, nH, nW, dbias_mode, st);
-  return -1;
+  if (C != nH * DH) return -1;
+  return dispatch(true, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias,
+                  mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
+                  B_, N, nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
+}
+
+// Head-split entry (K7's counterpart): q, k, v and g (B_, nH, N, 32) of one
+// element type, each at its own base with the strides `strides` gives, a
+// host array of twelve: q, k, v, g, each (window, head, token), in
+// elements; the channel axis is unit-stride and every row 16-byte aligned.
+// dq, dk, dv: contiguous (B_, nH, N, 32) of that type. The other arguments
+// as for mmde_window_attention_bwd.
+extern "C" int mmde_window_attention_headsplit_bwd(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* strides, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, void* dls_part, void* dbias, int B_, int N, int nH, int nW,
+    int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
+  if (strides == nullptr) return -1;
+  return dispatch(false, q, k, v, g, (const long long*)strides, logit_scale,
+                  bias, mask, lse, dq, dk, dv, delta, dls_part, dbias, B_, N,
+                  nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
 }

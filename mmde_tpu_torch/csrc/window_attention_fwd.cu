@@ -1,7 +1,11 @@
 // Fused SwinV2 cosine window attention, forward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel mmde_tpu/ops/window_attention_packed.py::_fwd_body
-// (driven by _pallas_forward). Same function, re-tiled for a GPU:
+// Replaces two TPU kernels, one kernel body here:
+//   K1  mmde_tpu/ops/window_attention_packed.py::_fwd_body (driven by
+//       _pallas_forward), on qkv as the Linear emits it;
+//   K6  mmde_tpu/ops/window_attention_pallas.py::_kernel (driven by
+//       _pallas_forward), on head-split q, k, v (B_, nH, N, Dh).
+// Same function, re-tiled for a GPU:
 //
 //   per (window b, head h):
 //     q^ = q * rsqrt(sum(q^2) + 1e-12),  k^ likewise            (fp32)
@@ -9,9 +13,14 @@
 //          + bias[h] + mask[b % nW]
 //     o  = softmax(s) v
 //
-// qkv is read exactly as the Linear layer emits it, (B_, N, 3C) with the
-// head's 32 channels at column  part*C + h*32 ; the output is (B_, N, C).
-// bias is plain (nH, N, N), mask plain (nW, N, N); the ragged edge
+// q, k, v and the output are `Rows` (window_attention_common.cuh): a base
+// and (window, head, token) strides. The packed entry points read qkv
+// exactly as the Linear layer emits it, (B_, N, 3C) with the head's 32
+// channels at column  part*C + h*32, and write (B_, N, C); the head-split
+// entry points take the strides of the caller's (B_, nH, N, 32) views (the
+// model's permuted view of that same qkv: no copy) and write a contiguous
+// (B_, nH, N, 32). On a GPU the TPU's head-split layout is only a matter of
+// strides. bias is plain (nH, N, N), mask plain (nW, N, N); the ragged edge
 // (N = 900 = 14*64 + 4, N = 225 = 3*64 + 33) is masked in the kernel, so
 // nothing is padded or packed on the host.
 //
@@ -33,7 +42,8 @@
 // fp32's normal range, e^-87), and a running row maximum with rescaling
 // (online softmax) for hotter heads, and for every head when the caller
 // says its bias is not bounded that way (maxfree = 0). The choice is
-// uniform over a block.
+// uniform over a block. The head-split entry points always pass maxfree = 0:
+// the TPU kernel they replace takes the row maximum for every head.
 //
 // What bounds it on an H100 at the flagship shapes (Dh = 32, N = 900):
 // bytes are small - qkv read once and out written once (13 MB fp32 at
@@ -51,6 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_attention_common.cuh"
+
 namespace {
 
 constexpr int DH = 32;        // head dim of every swin variant
@@ -62,70 +74,16 @@ constexpr int P_LD = BK + 4;
 constexpr float LN100 = 4.605170185988091f;
 constexpr float MAXFREE_MAX_SCALE = 30.0f;
 
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&x)[DH]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < DH / 4; ++i) {
-    float4 v = __ldg(p4 + i);
-    x[4 * i + 0] = v.x;
-    x[4 * i + 1] = v.y;
-    x[4 * i + 2] = v.z;
-    x[4 * i + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
-                                         float (&x)[DH]) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
-    uint4 v = __ldg(p4 + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[8 * i + 2 * j + 0] = __uint_as_float(w[j] << 16);
-      x[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-}
-
-__device__ __forceinline__ float ldf(const float* __restrict__ p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float ldf(const __nv_bfloat16* __restrict__ p,
-                                     size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 w;
-  w.x = *reinterpret_cast<uint32_t*>(&lo);
-  w.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = w;
-}
-
-template <bool FAST>
-__device__ __forceinline__ float exp_(float x) {
-  return FAST ? __expf(x) : expf(x);
-}
-
-// T: qkv / out element type; TB: bias / mask element type.
+// T: q / k / v / out element type; TB: bias / mask element type.
 template <typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-window_attention_fwd_kernel(const T* __restrict__ qkv,
+window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
+                            Rows<const T> v,
                             const float* __restrict__ logit_scale,
                             const TB* __restrict__ bias,
-                            const TB* __restrict__ mask,
-                            T* __restrict__ out, float* __restrict__ lse,
-                            int N, int C, int nW, int maxfree) {
+                            const TB* __restrict__ mask, Rows<T> out,
+                            float* __restrict__ lse, int N, int nW,
+                            int maxfree) {
   __shared__ __align__(16) float sQt[DH * BQ];   // q^ transposed [d][row]
   __shared__ __align__(16) float sKt[DH * BK];   // k^ transposed [d][key]
   __shared__ __align__(16) float sV[BK * V_LD];  // v [key][d]
@@ -138,8 +96,7 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t ld = 3 * (size_t)C;
-  const T* qkv_b = qkv + (size_t)b * N * ld + (size_t)h * DH;
+  const T* q_bh = q.head(b, h);
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w =
       mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
@@ -159,7 +116,7 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
     float x[DH];
     const int r = q0 + tid;
     if (r < N) {
-      load_row(qkv_b + (size_t)r * ld, x);
+      load_row(q_bh + (size_t)r * q.sn, x);
       float ss = 0.0f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
@@ -187,15 +144,19 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[r][c] = 0.0f;
 
+  // threads 0..63 load key rows, 64..127 value rows
+  const bool is_k = tid < BK;
+  const T* kv_bh = is_k ? k.head(b, h) : v.head(b, h);
+  const size_t kv_ld = is_k ? k.sn : v.sn;
+
   for (int k0 = 0; k0 < N; k0 += BK) {
     __syncthreads();  // the previous step's reads of sKt / sV / sP are done
     {
       float x[DH];
       const int j = tid & (BK - 1);
       const int r = k0 + j;
-      const bool is_k = tid < BK;
       if (r < N) {
-        load_row(qkv_b + (size_t)r * ld + (is_k ? C : 2 * C), x);
+        load_row(kv_bh + (size_t)r * kv_ld, x);
       } else {
 #pragma unroll
         for (int d = 0; d < DH; ++d) x[d] = 0.0f;
@@ -243,17 +204,17 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        float v;
+        float logit;
         if (col >= N) {
-          v = -INFINITY;
+          logit = -INFINITY;
         } else if (!row_ok) {
-          v = 0.0f;  // rows past the edge: finite filler, never stored
+          logit = 0.0f;  // rows past the edge: finite filler, never stored
         } else {
           const size_t idx = (size_t)row * N + col;
-          v = fmaf(s[i][j], scale, ldf(bias_h, idx));
-          if (mask_w != nullptr) v += ldf(mask_w, idx);
+          logit = fmaf(s[i][j], scale, ldf(bias_h, idx));
+          if (mask_w != nullptr) logit += ldf(mask_w, idx);
         }
-        s[i][j] = v;
+        s[i][j] = logit;
       }
       float p[4];
       if (mf) {
@@ -340,28 +301,80 @@ window_attention_fwd_kernel(const T* __restrict__ qkv,
   if (lse != nullptr && tid < BQ && q0 + tid < N)
     lse[((size_t)b * gridDim.y + h) * N + q0 + tid] = sM[tid] + logf(sL[tid]);
 
-  T* out_b = out + (size_t)b * N * C + (size_t)h * DH + px * 4;
+  T* out_b = out.head(b, h) + px * 4;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int lr = py + 16 * r;
     const int row = q0 + lr;
     if (row < N) {
       const float den = sL[lr];  // > 0: see the note on the softmax
-      store4(out_b + (size_t)row * C, o[r][0] / den, o[r][1] / den,
+      store4(out_b + (size_t)row * out.sn, o[r][0] / den, o[r][1] / den,
              o[r][2] / den, o[r][3] / den);
     }
   }
 }
 
 template <typename T, typename TB, bool FASTEXP>
-cudaError_t launch(const void* qkv, const void* ls, const void* bias,
-                   const void* mask, void* out, void* lse, int B_, int N,
-                   int C, int nH, int nW, int maxfree, cudaStream_t stream) {
+cudaError_t launch(const Rows<const T>& q, const Rows<const T>& k,
+                   const Rows<const T>& v, const void* ls, const void* bias,
+                   const void* mask, const Rows<T>& out, void* lse, int B_,
+                   int N, int nH, int nW, int maxfree, cudaStream_t stream) {
   dim3 grid((N + BQ - 1) / BQ, nH, B_);
   window_attention_fwd_kernel<T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
-      (const T*)qkv, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (T*)out, (float*)lse, N, C, nW, maxfree);
+      q, k, v, (const float*)ls, (const TB*)bias, (const TB*)mask, out,
+      (float*)lse, N, nW, maxfree);
   return cudaGetLastError();
+}
+
+// The operands' layout: `packed` = qkv (B_, N, 3C) and out (B_, N, C);
+// otherwise q, k, v with the nine host strides `st` (q, k, v: window, head,
+// token) and a contiguous out (B_, nH, N, DH).
+template <typename T, typename TB, bool FASTEXP>
+int launch_layout(bool packed, const void* q, const void* k, const void* v,
+                  const long long* st, const void* ls, const void* bias,
+                  const void* mask, void* out, void* lse, int B_, int N,
+                  int nH, int nW, int maxfree, cudaStream_t stream) {
+  const int C = nH * DH;
+  Rows<const T> rq, rk, rv;
+  Rows<T> ro;
+  if (packed) {
+    rq = packed_rows((const T*)q, 0, N, C, 3, DH);
+    rk = packed_rows((const T*)q, 1, N, C, 3, DH);
+    rv = packed_rows((const T*)q, 2, N, C, 3, DH);
+    ro = packed_rows((T*)out, 0, N, C, 1, DH);
+  } else {
+    rq = {(const T*)q, st[0], st[1], st[2]};
+    rk = {(const T*)k, st[3], st[4], st[5]};
+    rv = {(const T*)v, st[6], st[7], st[8]};
+    ro = contiguous_rows((T*)out, nH, N, DH);
+  }
+  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
+      !rows_aligned(ro))
+    return -1;
+  return (int)launch<T, TB, FASTEXP>(rq, rk, rv, ls, bias, mask, ro, lse, B_,
+                                     N, nH, nW, maxfree, stream);
+}
+
+int dispatch(bool packed, const void* q, const void* k, const void* v,
+             const long long* st, const void* ls, const void* bias,
+             const void* mask, void* out, void* lse, int B_, int N, int nH,
+             int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
+  if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16 && !bias_bf16)
+    return launch_layout<float, float, false>(packed, q, k, v, st, ls, bias,
+                                              mask, out, lse, B_, N, nH, nW,
+                                              maxfree, s);
+  if (qkv_bf16 && bias_bf16)
+    return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
+        packed, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
+        maxfree, s);
+  if (qkv_bf16 && !bias_bf16)
+    return launch_layout<__nv_bfloat16, float, true>(
+        packed, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
+        maxfree, s);
+  return -1;
 }
 
 }  // namespace
@@ -369,7 +382,7 @@ cudaError_t launch(const void* qkv, const void* ls, const void* bias,
 // Plain C entries. Pointers are device pointers; `mask` may be null (then nW
 // is ignored). qkv_bf16 / bias_bf16 select the element types (0 = fp32);
 // fp32 qkv requires fp32 bias. `lse` (B_, nH, N) fp32, when not null,
-// receives each row's log-sum-exp for the backward kernel. Both return
+// receives each row's log-sum-exp for the backward kernel. All return
 // cudaGetLastError() of the launch, or -1 for an argument combination the
 // kernel does not take. They launch on `stream`, do not synchronise and
 // allocate nothing.
@@ -377,24 +390,10 @@ extern "C" int mmde_window_attention_fwd_stats(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
     int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
-  if (B_ <= 0 || N <= 0 || nH <= 0 || C != nH * DH || B_ > 65535 ||
-      nH > 65535)
-    return -1;
-  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!qkv_bf16 && !bias_bf16)
-    return (int)launch<float, float, false>(qkv, logit_scale, bias, mask, out,
-                                            lse, B_, N, C, nH, nW, maxfree,
-                                            st);
-  if (qkv_bf16 && bias_bf16)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16, true>(
-        qkv, logit_scale, bias, mask, out, lse, B_, N, C, nH, nW, maxfree,
-        st);
-  if (qkv_bf16 && !bias_bf16)
-    return (int)launch<__nv_bfloat16, float, true>(
-        qkv, logit_scale, bias, mask, out, lse, B_, N, C, nH, nW, maxfree,
-        st);
-  return -1;
+  if (C != nH * DH) return -1;
+  return dispatch(true, qkv, nullptr, nullptr, nullptr, logit_scale, bias,
+                  mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16, maxfree,
+                  stream);
 }
 
 // The serving entry: the forward alone, no statistics.
@@ -408,4 +407,30 @@ extern "C" int mmde_window_attention_fwd(const void* qkv,
   return mmde_window_attention_fwd_stats(qkv, logit_scale, bias, mask, out,
                                          nullptr, B_, N, C, nH, nW, qkv_bf16,
                                          bias_bf16, maxfree, stream);
+}
+
+// Head-split entries (K6's counterpart): q, k, v (B_, nH, N, 32) of one
+// element type, each at its own base with the strides `strides` gives, a
+// host array of nine: q, k, v, each (window, head, token), in elements; the
+// channel axis is unit-stride and every row 16-byte aligned. out is a
+// contiguous (B_, nH, N, 32) of the same type. Row maximum for every head.
+extern "C" int mmde_window_attention_headsplit_fwd_stats(
+    const void* q, const void* k, const void* v, const void* strides,
+    const void* logit_scale, const void* bias, const void* mask, void* out,
+    void* lse, int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
+    void* stream) {
+  if (strides == nullptr) return -1;
+  return dispatch(false, q, k, v, (const long long*)strides, logit_scale,
+                  bias, mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16,
+                  0, stream);
+}
+
+extern "C" int mmde_window_attention_headsplit_fwd(
+    const void* q, const void* k, const void* v, const void* strides,
+    const void* logit_scale, const void* bias, const void* mask, void* out,
+    int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
+    void* stream) {
+  return mmde_window_attention_headsplit_fwd_stats(
+      q, k, v, strides, logit_scale, bias, mask, out, nullptr, B_, N, nH, nW,
+      qkv_bf16, bias_bf16, stream);
 }

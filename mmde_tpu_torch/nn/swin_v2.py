@@ -3,7 +3,9 @@
 Counterpart of mmde_tpu/nn/swin_v2.py:
 
   * cosine-similarity window attention with a learned log temperature clamped
-    at ln(100), through mmde_tpu_torch.ops (plain PyTorch or the CUDA kernel);
+    at ln(100), through mmde_tpu_torch.ops (plain PyTorch, or the CUDA
+    kernels: packed where the JAX package's packed layout applies,
+    head-split elsewhere, stage by stage as there);
   * continuous relative position bias: 2-layer MLP over a log-spaced
     relative-coordinate table, sigmoid output x16 (applied on the table);
   * split q/v bias with an implicit zero k bias;
@@ -49,8 +51,10 @@ from mmde_tpu_torch.nn.layers import (Conv2d, DropPath, LayerNormFP32, Linear,
                                       Mlp)
 from mmde_tpu_torch.ops.window_attention import (cosine_window_attention,
                                                  scaled_window_attention)
+from mmde_tpu_torch.ops.window_attention_headsplit import (
+    cosine_window_attention_headsplit)
 from mmde_tpu_torch.ops.window_attention_packed import (
-    HEAD_DIM, cosine_window_attention_packed)
+    HEAD_DIM, cosine_window_attention_packed, packed_layout_ok)
 
 _REMAT_POLICIES = ("full", "attn_out", "attn_qkv", "mlp_only", "none")
 ATTN_IMPLS = ("torch", "cuda")
@@ -170,11 +174,14 @@ def pad_keep_mask(H: int, W: int, Hp: int, Wp: int, ws: int,
 class WindowAttention(nn.Module):
     """W-MSA with cosine attention + continuous RPE on (B*nW, N, C) windows.
 
-    attn_impl "cuda" sends cosine attention through
-    `cosine_window_attention_packed` (the CUDA kernel for CUDA tensors, its
-    plain version for CPU tensors); "torch" splits heads and runs the plain
-    functions of ops.window_attention. attn_type "normal" has no kernel in
-    either package and always takes the plain function.
+    attn_impl "cuda" sends cosine attention to a fused kernel (for CUDA
+    tensors; its plain version for CPU tensors), chosen as the JAX package
+    chooses for "pallas": `cosine_window_attention_packed` on qkv as the
+    Linear emits it where `packed_layout_ok` (C a multiple of 128, heads in
+    whole 128-lane groups), `cosine_window_attention_headsplit` on split
+    heads elsewhere. "torch" splits heads and runs the plain functions of
+    ops.window_attention. attn_type "normal" has no kernel in either package
+    and always takes the plain function.
     """
 
     def __init__(self, dim: int, window_size: Tuple[int, int], num_heads: int,
@@ -299,10 +306,12 @@ class WindowAttention(nn.Module):
             qkv = qkv + bias_vec
         bias = self.rpe_bias()
 
-        if self.attn_type == "cosine_mh" and self.attn_impl == "cuda":
+        fused = self.attn_type == "cosine_mh" and self.attn_impl == "cuda"
+        if fused and packed_layout_ok(N, nH, Dh, C):
             if self.dtype == torch.bfloat16:
-                # bf16 models stream bias and mask in bf16: the mask is exact
-                # (0 / -100), the bias loses ~0.4% relative
+                # bf16 models stream bias and mask in bf16 on the packed path
+                # only, as the JAX package does: the mask is exact (0 / -100),
+                # the bias loses ~0.4% relative
                 bias = bias.to(torch.bfloat16)
                 if mask is not None:
                     mask = mask.to(torch.bfloat16)
@@ -310,9 +319,13 @@ class WindowAttention(nn.Module):
                 qkv.contiguous(), self.logit_scale, bias, mask, num_heads=nH,
                 maxfree=self.rpe_output_type == "sigmoid")
         else:
-            x3 = qkv.reshape(B_, N, 3, nH, Dh).permute(2, 0, 3, 1, 4)
-            q, k, v = x3[0], x3[1], x3[2]                # (B_, nH, N, Dh)
-            if self.attn_type == "cosine_mh":
+            # views of qkv, read in place by the head-split kernel
+            q, k, v = qkv.reshape(B_, N, 3, nH, Dh).permute(2, 0, 3, 1,
+                                                            4).unbind(0)
+            if fused:       # float32 bias and mask, as in the JAX package
+                out = cosine_window_attention_headsplit(
+                    q, k, v, self.logit_scale, bias, mask)
+            elif self.attn_type == "cosine_mh":
                 out = cosine_window_attention(q, k, v, self.logit_scale,
                                               bias, mask)
             else:

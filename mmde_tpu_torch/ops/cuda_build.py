@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file exposes a plain C interface (no PyTorch headers), is
 compiled by nvcc for sm_90a into a shared library under
 `mmde_tpu_torch/_build/` the first time it is needed, and is loaded with
-ctypes. The library name carries a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never picked up.
+ctypes. The library name carries a hash of the sources, the headers under
+`csrc/` (`*.cuh`) and the flags, so an edited source or header rebuilds and
+a stale library is never picked up.
 
 Nothing here runs at import time: machines without nvcc can import every
 module of the package and only fail when a kernel is actually requested.
@@ -64,9 +65,11 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
     flags = list(NVCC_FLAGS)
     h = hashlib.sha256()
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     h.update(" ".join(flags).encode())

@@ -12,8 +12,14 @@ edge themselves.
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_packed_plain` and, under autograd,
 `cosine_window_attention_packed_backward_plain` - the same functions in plain
-PyTorch, which are also what the kernels are compared with on the card.
-`LAUNCHES` / `LAUNCHES_BWD` count kernel launches, and nothing else.
+PyTorch (the head-split module's, on qkv split into heads), which are also
+what the kernels are compared with on the card. `LAUNCHES` / `LAUNCHES_BWD`
+count kernel launches, and nothing else.
+
+The same two libraries hold the head-split entry points that
+ops/window_attention_headsplit.py binds; `packed_layout_ok` says which of
+the two layouts a swin stage takes, as the JAX package's `attention_plan`
+does.
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from mmde_tpu_torch.ops.window_attention import MAX_LOGIT_SCALE
+from mmde_tpu_torch.ops.window_attention_headsplit import (
+    HEAD_DIM, cosine_window_attention_headsplit_backward_plain,
+    cosine_window_attention_headsplit_plain)
 
-HEAD_DIM = 32           # the kernels are written for Dh = 32 (all swin variants)
 BWD_TILE = 64           # query rows per block of the backward's dq pass
 LAUNCHES = 0            # incremented once per forward-kernel launch
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
@@ -50,6 +57,41 @@ _LIB_NAME = "window_attention_fwd"
 _SOURCES = ("window_attention_fwd.cu",)
 _LIB_NAME_BWD = "window_attention_bwd"
 _SOURCES_BWD = ("window_attention_bwd.cu",)
+
+# The JAX package's packed-layout test, copied (not imported) so both
+# packages send the same stages to the same kernel: `attention_plan` is None
+# when C is not a multiple of 128, Dh does not divide 128, or the heads do
+# not fill whole 128-lane groups - and, for windows over 456 tokens, when no
+# q tile fits its per-cell VMEM budget. That budget is the TPU's and means
+# nothing on a GPU; it is kept for routing parity only.
+_BQ_CANDIDATES = (456, 384, 304, 232, 152, 120, 80, 48, 40)
+_VMEM_BUDGET_FWD = 16 * 1024 * 1024
+
+
+def _cell_vmem_fwd(bq: int, np_: int, hg: int) -> int:
+    """The JAX package's per-cell VMEM estimate of its packed forward."""
+    bias = bq * hg * np_ * 4 * 2
+    logits = 3 * bq * np_ * 4
+    kv = 2 * np_ * 128 * 2 * 2
+    mask = bq * np_ * 4 * 2
+    return bias + logits + kv + mask
+
+
+def packed_layout_ok(n: int, num_heads: int, head_dim: int,
+                     channels: int) -> bool:
+    """True where the JAX package's `attention_plan(n, num_heads, head_dim,
+    channels)` is not None: the stage takes the packed kernel; otherwise it
+    takes the head-split one."""
+    if channels % 128 != 0 or 128 % head_dim != 0:
+        return False
+    hg = 128 // head_dim
+    if num_heads % hg != 0:
+        return False
+    if n <= max(_BQ_CANDIDATES):
+        return True
+    return any(_cell_vmem_fwd(bq, -(-n // bq) * bq, hg) <= _VMEM_BUDGET_FWD
+               for bq in _BQ_CANDIDATES)
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
@@ -144,31 +186,17 @@ def cosine_window_attention_packed_plain(qkv: torch.Tensor,
     (float32; float64 gives the ground truth the kernels' gradients are
     checked against); output in qkv's type."""
     B_, N, C3 = qkv.shape
-    C = C3 // 3
-    nH = num_heads
-    ct = compute_dtype
-    x = qkv.reshape(B_, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4).to(ct)
-    q, k, v = x[0], x[1], x[2]                          # (B_, nH, N, Dh)
-    qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
-    kn = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
-    scale = torch.exp(torch.clamp(logit_scale.to(ct).reshape(nH, 1, 1),
-                                  max=MAX_LOGIT_SCALE))
-    s = torch.matmul(qn, kn.transpose(-1, -2)) * scale[None]
-    s = s + bias[None].to(ct)
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(B_ // nW, nW, nH, N, N)
-             + mask[None, :, None].to(ct)).reshape(B_, nH, N, N)
-    o = torch.matmul(torch.softmax(s, dim=-1), v)       # (B_, nH, N, Dh)
-    return o.permute(0, 2, 1, 3).reshape(B_, N, C).to(qkv.dtype)
+    q, k, v = _split_heads(qkv, 3, num_heads)
+    o = cosine_window_attention_headsplit_plain(
+        q, k, v, logit_scale, bias, mask, compute_dtype=compute_dtype)
+    return o.permute(0, 2, 1, 3).reshape(B_, N, C3 // 3)
 
 
-def _split_heads(x: torch.Tensor, parts: int, nH: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """(B_, N, parts*C) -> (parts, B_, nH, N, Dh) in `dtype`."""
+def _split_heads(x: torch.Tensor, parts: int, nH: int) -> torch.Tensor:
+    """(B_, N, parts*C) -> (parts, B_, nH, N, Dh), a view."""
     B_, N, W = x.shape
     C = W // parts
-    return x.reshape(B_, N, parts, nH, C // nH).permute(2, 0, 3, 1, 4).to(dtype)
+    return x.reshape(B_, N, parts, nH, C // nH).permute(2, 0, 3, 1, 4)
 
 
 def cosine_window_attention_packed_backward_plain(
@@ -183,34 +211,12 @@ def cosine_window_attention_packed_backward_plain(
     ln(100) clamp binds) and dbias in bias's type; the mask gets no
     gradient."""
     B_, N, C3 = qkv.shape
-    nH = num_heads
-    ct = compute_dtype
-    q, k, v = _split_heads(qkv, 3, nH, ct)              # (B_, nH, N, Dh)
-    gh = _split_heads(g, 1, nH, ct)[0]
-    rq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
-    rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
-    qn, kn = q * rq, k * rk
-    ls = logit_scale.to(ct).reshape(nH)
-    scale = torch.exp(torch.clamp(ls, max=MAX_LOGIT_SCALE)).reshape(nH, 1, 1)
-    sc = torch.matmul(qn, kn.transpose(-1, -2)) * scale[None]
-    s = sc + bias[None].to(ct)
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(B_ // nW, nW, nH, N, N)
-             + mask[None, :, None].to(ct)).reshape(B_, nH, N, N)
-    p = torch.softmax(s, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), gh)
-    dp = torch.matmul(gh, v.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dqn = torch.matmul(ds, kn) * scale[None]
-    dq = rq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
-    dkn = torch.matmul(ds.transpose(-1, -2), qn) * scale[None]
-    dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
-    dls = (ds * sc).sum(dim=(0, 2, 3)) * (ls < MAX_LOGIT_SCALE).to(ct)
-    dbias = ds.sum(dim=0)
+    q, k, v = _split_heads(qkv, 3, num_heads)
+    dq, dk, dv, dls, dbias = cosine_window_attention_headsplit_backward_plain(
+        q, k, v, logit_scale, bias, mask, _split_heads(g, 1, num_heads)[0],
+        compute_dtype=compute_dtype)
     dqkv = torch.stack([dq, dk, dv], dim=0).permute(1, 3, 0, 2, 4)
-    return (dqkv.reshape(B_, N, C3).to(qkv.dtype),
-            dls.reshape(logit_scale.shape), dbias.to(bias.dtype))
+    return dqkv.reshape(B_, N, C3), dls, dbias.to(bias.dtype)
 
 
 def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
@@ -270,7 +276,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
     n_tiles = -(-N // BWD_TILE)
-    dls_part = torch.empty((B_ * n_tiles, nH), dtype=torch.float32,
+    dls_part = torch.empty((B_ * n_tiles, nH), dtype=torch.float64,
                            device=dev)
     mode = _DBIAS_MODE[grid_mode] if want_dbias else 0
     dbias = None
@@ -298,7 +304,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     LAUNCHES_BWD_BY_SHAPE[key] = LAUNCHES_BWD_BY_SHAPE.get(key, 0) + 1
     # per-block partial sums of dlogit_scale, summed here as the TPU package
     # sums its ds dump outside its kernel
-    dls = dls_part.sum(dim=0).reshape(logit_scale.shape)
+    dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
     return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
 
 

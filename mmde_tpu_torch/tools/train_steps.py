@@ -2,16 +2,20 @@
 """Take a few train steps on a synthetic batch.
 
     python -m mmde_tpu_torch.tools.train_steps --steps 5 [--batch 2] \\
-        [--config cfg.yaml] [--height 480 --width 640] [--seed 0] \\
-        [--deterministic] [--device cuda]
+        [--config cfg.yaml | --backbone swin_large_v2] \\
+        [--height 480 --width 640] [--seed 0] [--deterministic] \\
+        [--device cuda]
 
 Builds the model of the config (default: the flagship, swin_base_v2 +
-decoder_v2 in bfloat16) from a seed, draws one synthetic batch (frames,
-valid depth, relative poses) from the same seed, and takes N steps through
-`make_train_step` with the layer-decay AdamW of `build_optimizer`, printing
-one JSON line per step. The first call on a CUDA device builds the attention
-kernels into mmde_tpu_torch/_build/; MMDE_ATTN_GRID=split in the environment
-takes the attention backward's atomics-free dbias pass (slower; see
+decoder_v2 in bfloat16; `--backbone` swaps the flagship's encoder for
+another swin variant at the same windows and depths, e.g. swin_large_v2,
+whose first stage runs the head-split attention kernels) from a seed, draws
+one synthetic batch (frames, valid depth, relative poses) from the same
+seed, and takes N steps through `make_train_step` with the layer-decay AdamW
+of `build_optimizer`, printing one JSON line per step. The first call on a
+CUDA device builds the attention kernels into mmde_tpu_torch/_build/;
+MMDE_ATTN_GRID=split in the environment takes the packed attention
+backward's atomics-free dbias pass (slower; see
 ops/window_attention_packed.py). The training loop proper (datasets,
 validation, checkpoints) is a later slice; this entry is what a smoke run
 and a profiler drive.
@@ -35,15 +39,17 @@ from mmde_tpu_torch.train.step import TrainState, make_train_step
 
 
 def flagship_config(dtype: str = "bfloat16", attn_impl: str = "cuda",
-                    depths=(2, 2, 18, 2), batch_size: int = 2) -> Config:
+                    depths=(2, 2, 18, 2), batch_size: int = 2,
+                    backbone: str = "swin_base_v2") -> Config:
     """The flagship: swin_base_v2 (windows 30/30/30/15, shift on stages 1-2,
-    drop path 0.3, nothing rematerialised) + decoder_v2."""
+    drop path 0.3, nothing rematerialised) + decoder_v2; `backbone` another
+    swin variant in its place."""
     swin = SwinConfig(depths=tuple(depths), window_size=(30, 30, 30, 15),
                       pretrain_window_size=(12, 12, 12, 6),
                       use_shift=(True, True, False, False),
                       drop_path_rate=0.3, use_checkpoint=True,
                       remat_policy="none")
-    model = ModelConfig(backbone="swin_base_v2", decoder="decoder_v2",
+    model = ModelConfig(backbone=backbone, decoder="decoder_v2",
                         model_scale=32, max_depth=10.0, swin=swin,
                         dtype=dtype, attn_impl=attn_impl)
     return Config(model=model, train=TrainConfig(batch_size=batch_size))
@@ -115,6 +121,8 @@ def main(argv=None) -> None:
     p.add_argument("--batch", type=int, default=None,
                    help="frame pairs per step (default: the config's)")
     p.add_argument("--config", default=None, help="YAML config")
+    p.add_argument("--backbone", default="swin_base_v2",
+                   help="the flagship's encoder (without --config)")
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--seed", type=int, default=0)
@@ -123,7 +131,8 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    cfg = load_yaml(args.config) if args.config else flagship_config()
+    cfg = (load_yaml(args.config) if args.config
+           else flagship_config(backbone=args.backbone))
     batch_size = args.batch or cfg.train.batch_size
     state, step = build_trainer(cfg, device=args.device, seed=args.seed,
                                 deterministic=args.deterministic)
