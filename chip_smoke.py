@@ -5,8 +5,9 @@
     python3 chip_smoke.py --only kernels  # build + compare the kernels only
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
                                             # of a request and a train step,
-                                            # flagship (p.json) and
-                                            # swin_large (p_large.json)
+                                            # flagship (p.json), swin_large
+                                            # (p_large.json), the flagship's
+                                            # slab path (p_slab.json)
 
 What it does, each phase printing one JSON object on a line of its own:
 
@@ -57,9 +58,29 @@ What it does, each phase printing one JSON object on a line of its own:
                 plain path: loss and gradients of a named set of parameters.
   parity_large  both, float32, for swin_large_v2 (gradients of stage-1
                 parameters, which only the head-split backward reaches).
+  kernel_cases_slab
+                the slab kernels (K8' forward, K9' backward: the windows
+                read straight off the (B, Hp, Wp, 3C) map) against their
+                plain versions, the backward also against float64
+                autograd: the flagship's four stage maps served (1 frame
+                pair, forward) and trained (2 pairs), swin_large's stages
+                2-4 trained; float32 and bfloat16, float32 bias and mask,
+                masked where the stage shifts, one clamped and one hot
+                head. ms, plain ms, bound.
+  serve_slab, train_slab
+                the flagship with attn_impl "cuda_slab" (the JAX package's
+                "pallas_slab"): every block's attention on the map, 24 K8'
+                launches a forward and 24 K8' + 24 K9' a step, none of the
+                packed or head-split kernels.
+  parity_slab   parity and train_parity for "cuda_slab" against "torch".
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
-                launches on that path, error, ms, plain ms, bound.
+                launches on that path, error, ms, plain ms, bound, and the
+                nearest library call's time (bf16 cases:
+                F.scaled_dot_product_attention on the normalised, scaled q
+                and k with bias + mask as its attn_mask; the normalisation
+                and the SDPA backend beside it; for a backward, that call's
+                backward under autograd).
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -96,6 +117,11 @@ KERNEL_HS_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:62 "
                       "(_kernel; pallas_call :132)")
 KERNEL_HS_BWD_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:146 "
                           "(_bwd_kernel; pallas_call :310)")
+# and so do the slab entry points
+KERNEL_SLAB_REPLACES = ("mmde_tpu/ops/window_attention_slab.py:109 "
+                        "(_fwd_body; pallas_call :264)")
+KERNEL_SLAB_BWD_REPLACES = ("mmde_tpu/ops/window_attention_slab.py:140 "
+                            "(_bwd_body; pallas_call :317)")
 
 # kernel-vs-plain tolerances on the card
 TOL_FP32_MAX_ABS = 5e-5     # fp32 sums in another order + expf vs exp
@@ -137,13 +163,15 @@ def emit(tag: str, obj: dict) -> None:
 
 
 def stage_shapes(backbone: str = "swin_base_v2", h: int = 480, w: int = 640,
-                 batch: int = 1):
+                 batch: int = 1, attn_impl: str = "cuda"):
     """(B_, N, C, nH, nW, blocks, layout) the attention kernels see per stage
     for `batch` frame pairs at h x w, re-derived from the flagship config
-    with `backbone`'s widths; layout = the kernel the stage takes
-    ("packed" / "headsplit", as the model chooses)."""
+    with `backbone`'s widths; layout = the kernel the stage takes under
+    `attn_impl` ("packed" / "headsplit" / "slab", as the model chooses);
+    "images", "padded" and "ws" give the slab kernels' map."""
     from mmde_tpu_torch.models.two_frame import SWIN_VARIANTS
     from mmde_tpu_torch.ops.window_attention_packed import packed_layout_ok
+    from mmde_tpu_torch.ops.window_attention_slab import slab_plan
     embed, heads = SWIN_VARIANTS[backbone.split("_")[1]]
     windows, shift = (30, 30, 30, 15), (True, True, False, False)
     depths = (2, 2, 18, 2)
@@ -154,14 +182,20 @@ def stage_shapes(backbone: str = "swin_base_v2", h: int = 480, w: int = 640,
         hp, wp = -(-mh // ws) * ws, -(-mw // ws) * ws
         nw = (hp // ws) * (wp // ws)
         C = embed * 2 ** i
+        dh = C // heads[i]
+        if (attn_impl == "cuda_slab"
+                and slab_plan(ws, wp, heads[i], dh, C) is not None):
+            layout = "slab"
+        elif packed_layout_ok(ws * ws, heads[i], dh, C):
+            layout = "packed"
+        else:
+            layout = "headsplit"
         out.append({"model": backbone, "stage": i + 1, "map": [mh, mw],
-                    "padded": [hp, wp], "B_": 2 * batch * nw, "N": ws * ws,
-                    "C": C, "nH": heads[i],
+                    "padded": [hp, wp], "images": 2 * batch, "ws": ws,
+                    "B_": 2 * batch * nw, "N": ws * ws, "C": C,
+                    "nH": heads[i],
                     "nW": nw if (shift[i] and depths[i] > 1) else 0,
-                    "blocks": depths[i],
-                    "layout": ("packed" if packed_layout_ok(
-                        ws * ws, heads[i], C // heads[i], C)
-                        else "headsplit")})
+                    "blocks": depths[i], "layout": layout})
         mh, mw = (mh + 1) // 2, (mw + 1) // 2
     return out
 
@@ -266,7 +300,10 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
             rec.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                     rec["nW"], dtype, bias.dtype))
-            rec["library_ms"] = None    # no single PyTorch call computes this
+            rec["library_ms"] = None
+            if dtype == torch.bfloat16:     # the served and trained type
+                rec.update(library_yardstick(*wap._split_heads(qkv, 3, nH),
+                                             ls, bias, mask))
     return rec
 
 
@@ -323,6 +360,69 @@ def _errs(got: torch.Tensor, want: torch.Tensor) -> dict:
             "rel_l2": float((g - w).norm() / w.norm().clamp_min(1e-300))}
 
 
+def library_yardstick(q, k, v, ls, bias, mask, g=None) -> dict:
+    """The nearest PyTorch call, timed beside a kernel and used nowhere in
+    the port: F.scaled_dot_product_attention on q^ * scale_h, k^ and v with
+    bias + mask as attn_mask (in v's type), q^ / k^ the L2-normalised q / k
+    and scale_h the head's clamped temperature. q, k, v: (B_, nH, N, 32)
+    views as the kernel reads them. The normalisation is timed apart
+    (`library_norm_ms`); the additive mask is built once, outside the
+    timing. With g (B_, nH, N, 32), also its backward under autograd
+    (dq^, dk^, dv; no dbias, no normalisation VJP). Returns the times, the
+    SDPA backend PyTorch chose for these inputs, and the call's rel-L2
+    against the plain forward in float32 (it rounds bias + mask to v's
+    type)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from mmde_tpu_torch.ops.window_attention import MAX_LOGIT_SCALE
+    from mmde_tpu_torch.ops.window_attention_headsplit import (
+        cosine_window_attention_headsplit_plain)
+    B_, nH, N, _ = q.shape
+    dt = v.dtype
+
+    def normalise():
+        scale = torch.exp(torch.clamp(ls.reshape(1, nH, 1, 1),
+                                      max=MAX_LOGIT_SCALE))
+        qf, kf = q.float(), k.float()
+        qn = qf * torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-12)
+        kn = kf * torch.rsqrt((kf * kf).sum(-1, keepdim=True) + 1e-12)
+        return (qn * scale).to(dt), kn.to(dt)
+
+    with torch.no_grad():
+        qn, kn = normalise()
+        vv = v.contiguous()
+        if mask is None:
+            am = bias.to(dt)[None].expand(B_, nH, N, N)
+        else:
+            nW = mask.shape[0]
+            am = (bias[None] + mask[:, None]).to(dt)
+            am = am[None].expand(B_ // nW, nW, nH, N, N).reshape(B_, nH, N, N)
+
+        def call():
+            return F.scaled_dot_product_attention(qn, kn, vv, attn_mask=am,
+                                                  scale=1.0)
+        want = cosine_window_attention_headsplit_plain(q, k, v, ls, bias,
+                                                       mask)
+        got = call()
+        rec = {"library_call": "F.scaled_dot_product_attention(q^ * scale_h,"
+                               " k^, v, attn_mask=bias + mask, scale=1)",
+               "library_backend": SDPBackend(torch._fused_sdp_choice(
+                   qn, kn, vv, am, 0.0, False, scale=1.0)).name,
+               "library_rel_l2_vs_plain": float(
+                   (got.float() - want.float()).norm() / want.float().norm()),
+               "library_ms": time_ms(call),
+               "library_norm_ms": time_ms(normalise)}
+        del want, got
+    if g is not None:
+        leaves = [t.detach().clone().requires_grad_() for t in (qn, kn, vv)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=am, scale=1.0)
+        gc = g.contiguous()
+        rec["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, leaves, gc, retain_graph=True), reps=8, warm=2)
+        del out, leaves
+    return rec
+
+
 def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     """K2 (both dbias grid modes) against the plain backward and against
     float64 autograd of the plain forward, at one stage shape; and the
@@ -370,7 +470,7 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     names = ("dqkv", "dlogit_scale", "dbias")
     rec["plain_vs_float64"] = {n: _errs(p, t)
                                for n, p, t in zip(names, plain, truth)}
-    for grid_mode in wap.GRID_MODES:
+    for grid_mode in wap.BACKWARD_GRID_MODES:
         got, out = kernel_grads(grid_mode)
         if grid_mode == wap.DEFAULT_GRID_MODE:
             rec["forward"] = check_forward(out, want_out, dtype, rec)
@@ -407,9 +507,16 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
         fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                 rec["nW"], dtype, bias.dtype, stats=True))
-        fwd["library_ms"] = None    # no single PyTorch call computes this
+        fwd["library_ms"] = rec["library_ms"] = None
+        if dtype == torch.bfloat16:         # the trained type
+            lib = library_yardstick(
+                *wap._split_heads(qkv, 3, nH), ls, bias, mask,
+                g=wap._split_heads(g, 1, nH)[0])
+            fwd.update({k: v for k, v in lib.items() if k != "library_bwd_ms"})
+            rec.update({k: v for k, v in lib.items() if k != "library_ms"})
+            rec["library_ms"] = lib["library_bwd_ms"]
         # time the backward launch alone: forward once, backward repeatedly
-        for grid_mode in wap.GRID_MODES:
+        for grid_mode in wap.BACKWARD_GRID_MODES:
             out = wap.cosine_window_attention_packed(
                 leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
                 grid_mode=grid_mode)
@@ -428,7 +535,6 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
                     qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
         rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
                                   rec["nW"], dtype, bias.dtype))
-        rec["library_ms"] = None    # no single PyTorch call computes this
     torch.cuda.empty_cache()
     return rec
 
@@ -436,6 +542,7 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
 def phase_env() -> dict:
     from mmde_tpu_torch.ops import cuda_build
     from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.tools.bench_attention import ptxas_summary
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -450,9 +557,8 @@ def phase_env() -> dict:
                             for n, r in recs.items()},
            "libraries": [os.path.relpath(r["path"]) for r in recs.values()],
            # registers / spills / shared memory per kernel, as ptxas says
-           "ptxas": [ln.strip() for r in recs.values()
-                     for ln in r["log"].splitlines()
-                     if "registers" in ln or "spill" in ln],
+           "ptxas": [ln for r in recs.values()
+                     for ln in ptxas_summary(r["log"])],
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     emit("env", env)
@@ -649,10 +755,18 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
         for r, stats in ((fwd, False), (fst, True)):
             r.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH, nW,
                                   dtype, torch.float32, stats=stats))
-            r["library_ms"] = None  # no single PyTorch call computes this
+            r["library_ms"] = None
         rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
                                   nW, dtype, torch.float32))
         rec["library_ms"] = None
+        if dtype == torch.bfloat16:         # the served and trained type
+            lib = library_yardstick(q, k, v, ls, bias, mask, g=g)
+            for r in (fwd, fst):
+                r.update({k_: v_ for k_, v_ in lib.items()
+                          if k_ != "library_bwd_ms"})
+            rec.update({k_: v_ for k_, v_ in lib.items()
+                        if k_ != "library_ms"})
+            rec["library_ms"] = lib["library_bwd_ms"]
     torch.cuda.empty_cache()
     return rec
 
@@ -671,6 +785,177 @@ def phase_kernels_headsplit(timed: bool = True) -> list:
         "timing": "CUDA events, median: serving forward 3 warm + 20, "
                   "forward with statistics the same, backward entry 2 warm "
                   "+ 8; inputs stay in L2 between launches"})
+    return cases
+
+
+def slab_shapes() -> list:
+    """The slab kernels' shapes: the flagship's four stages served (1 frame
+    pair: forward only) and trained (2 pairs), swin_large's slab stages 2-4
+    trained (stage 1, C 192, fails `slab_plan` and stays head-split)."""
+    out = [dict(s, frame_pairs=1)
+           for s in stage_shapes(batch=1, attn_impl="cuda_slab")]
+    out += [dict(s, frame_pairs=2)
+            for b in ("swin_base_v2", "swin_large_v2")
+            for s in stage_shapes(b, batch=2, attn_impl="cuda_slab")
+            if s["layout"] == "slab"]
+    return out
+
+
+def make_slab_inputs(shape: dict, dtype, gen):
+    """The qkv map (B, Hp, Wp, 3C) and output gradient map (B, Hp, Wp, C)
+    as the model hands them over, float32 16*sigmoid bias and, where the
+    stage shifts, a float32 0/-100 mask with one row per window of an image
+    (the slab path keeps both float32 in bf16 models). Head 0 above the
+    ln(100) clamp, head 1 hot (scale e^4 = 54.6)."""
+    dev = "cuda"
+    B, (Hp, Wp) = shape["images"], shape["padded"]
+    N, C, nH = shape["N"], shape["C"], shape["nH"]
+    qkv = torch.randn((B, Hp, Wp, 3 * C), device=dev, generator=gen).to(dtype)
+    ls = torch.randn((nH, 1, 1), device=dev, generator=gen) * 0.5 + 2.0
+    ls[0], ls[1] = 5.0, 4.0
+    bias = 16.0 * torch.sigmoid(torch.randn((nH, N, N), device=dev,
+                                            generator=gen))
+    mask = None
+    if shape["nW"]:
+        m = torch.rand((shape["nW"], N, N), device=dev, generator=gen) < 0.3
+        eye = torch.eye(N, device=dev, dtype=torch.bool)
+        mask = torch.where(m & ~eye, -100.0, 0.0).contiguous()
+    g = torch.randn((B, Hp, Wp, C), device=dev, generator=gen).to(dtype)
+    return qkv, ls, bias, mask, g
+
+
+def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
+    """K8' (serving entry) against the slab plain forward; at the train
+    shapes (2 frame pairs) also K8' through the training entry (with the
+    log-sum-exp) and K9' against the plain backward and against float64
+    autograd of the plain forward, at K1 / K2's tolerances. Times: median of
+    single launches; bounds count float32 bias and mask bytes."""
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen)
+    nH, ws = shape["nH"], shape["ws"]
+    kw = dict(num_heads=nH, window_size=ws)
+    name = str(dtype).replace("torch.", "")
+    nW = mask.shape[0] if mask is not None else 0
+    rec = {"model": shape["model"], "stage": shape["stage"],
+           "frame_pairs": shape["frame_pairs"], "map": list(qkv.shape),
+           "B_": shape["B_"], "N": shape["N"], "C": shape["C"], "nH": nH,
+           "nW": nW, "dtype": name, "tolerance_rel_l2": TOL_BWD[name]}
+    with torch.no_grad():
+        want = was.cosine_window_attention_slab_plain(qkv, ls, bias, mask,
+                                                      **kw)
+        got = was.cosine_window_attention_slab(qkv, ls, bias, mask, **kw)
+        torch.cuda.synchronize()
+        rec["forward"] = check_forward(got, want, dtype, rec)
+        del got
+    train = shape["frame_pairs"] > 1
+    if train:
+        leaves = [qkv.detach().clone().requires_grad_(),
+                  ls.clone().requires_grad_(), bias.clone().requires_grad_()]
+        out = was.cosine_window_attention_slab(*leaves, mask, **kw)
+        rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
+        out.backward(g)
+        torch.cuda.synchronize()
+        got = [t.grad for t in leaves]
+        del out, leaves
+        with torch.no_grad():
+            plain = was.cosine_window_attention_slab_backward_plain(
+                qkv, ls, bias, mask, g, **kw)
+        leaves64 = [t.detach().double().requires_grad_()
+                    for t in (qkv, ls, bias)]
+        out64 = was.cosine_window_attention_slab_plain(
+            *leaves64, None if mask is None else mask.double(),
+            compute_dtype=torch.float64, **kw)
+        truth = torch.autograd.grad(out64, leaves64, g.double())
+        del out64, leaves64
+        names = ("dqkv", "dlogit_scale", "dbias")
+        rec["plain_vs_float64"] = {n: _errs(p, t)
+                                   for n, p, t in zip(names, plain, truth)}
+        if not all(bool(torch.isfinite(t).all()) for t in got):
+            raise RuntimeError(f"slab backward not finite at {rec}")
+        if float(got[1].flatten()[0]) != 0.0:
+            raise RuntimeError(f"dlogit_scale of the clamped head is "
+                               f"{float(got[1].flatten()[0])}, not 0")
+        rec["vs_plain"] = {n: _errs(a, b)
+                           for n, a, b in zip(names, got, plain)}
+        rec["vs_float64"] = {n: _errs(a, b)
+                             for n, a, b in zip(names, got, truth)}
+        for which in ("vs_plain", "vs_float64"):
+            for n, e in rec[which].items():
+                if not e["rel_l2"] <= TOL_BWD[name][n]:
+                    raise RuntimeError(f"slab backward disagrees ({which}, "
+                                       f"{n}): {json.dumps(rec)}")
+        rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
+        rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
+        del got, plain, truth
+    del want
+    if timed:
+        fwd = rec["forward"]
+        with torch.no_grad():
+            fwd["ms"] = time_ms(lambda: was.cosine_window_attention_slab(
+                qkv, ls, bias, mask, **kw))
+            fwd["plain_ms"] = time_ms(
+                lambda: was.cosine_window_attention_slab_plain(
+                    qkv, ls, bias, mask, **kw), reps=5, warm=1)
+        fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH, nW,
+                                dtype, torch.float32))
+        fwd["library_ms"] = None
+        if train:
+            fst = rec["forward_stats"]
+            with torch.no_grad():
+                fst["ms"] = time_ms(lambda: was._launch_forward(
+                    qkv, ls, bias, mask, nH, ws, want_stats=True))
+                fst["plain_ms"] = fwd["plain_ms"]
+                lse = was._launch_forward(qkv, ls, bias, mask, nH, ws,
+                                          want_stats=True)[1]
+                # the backward entry alone (both passes, the dbias buffer
+                # and the dlogit_scale sum), on the forward's statistics
+                rec["ms"] = time_ms(lambda: was._launch_backward(
+                    qkv, ls, bias, mask, lse, g, nH, ws, want_dbias=True),
+                    reps=8, warm=2)
+                rec["ms_no_dbias"] = time_ms(lambda: was._launch_backward(
+                    qkv, ls, bias, mask, lse, g, nH, ws, want_dbias=False),
+                    reps=8, warm=2)
+                rec["plain_ms"] = time_ms(
+                    lambda: was.cosine_window_attention_slab_backward_plain(
+                        qkv, ls, bias, mask, g, **kw), reps=3, warm=1)
+            fst.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                    nW, dtype, torch.float32, stats=True))
+            fst["library_ms"] = None
+            rec.update(backward_bound(shape["B_"], shape["N"], shape["C"],
+                                      nH, nW, dtype, torch.float32))
+            rec["library_ms"] = None
+        if dtype == torch.bfloat16:         # the served and trained type
+            # on the partitioned windows: the library call has no map layout
+            qw = was._heads(was.window_partition(qkv, ws), 3, nH)
+            gw = (was._heads(was.window_partition(g, ws), 1, nH)[0]
+                  if train else None)
+            lib = library_yardstick(*qw, ls, bias, mask, g=gw)
+            lib["library_call"] += " on window_partition(qkv_map)"
+            for r in (fwd, rec.get("forward_stats")):
+                if r is not None:
+                    r.update({k_: v_ for k_, v_ in lib.items()
+                              if k_ != "library_bwd_ms"})
+            if train:
+                rec.update({k_: v_ for k_, v_ in lib.items()
+                            if k_ != "library_ms"})
+                rec["library_ms"] = lib["library_bwd_ms"]
+            del qw, gw
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_slab(timed: bool = True) -> list:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    cases = []
+    for shape in slab_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(compare_slab(shape, dtype, gen, timed=timed))
+    emit("kernel_cases_slab", {
+        "cases": cases,
+        "timing": "CUDA events, median: serving forward 3 warm + 20 (1 pair "
+                  "and 2), forward with statistics the same, backward entry "
+                  "2 warm + 8 (2 pairs); inputs stay in L2 between launches"})
     return cases
 
 
@@ -763,10 +1048,16 @@ def check_outputs(out: dict, what: str) -> dict:
     return info
 
 
-def _reset_launch_counts():
+def _kernel_modules() -> dict:
+    """{layout: the wrapper module that counts its kernels' launches}"""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    for m in (wap, ths):
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    return {"packed": wap, "headsplit": ths, "slab": was}
+
+
+def _reset_launch_counts():
+    for m in _kernel_modules().values():
         m.LAUNCHES = m.LAUNCHES_BWD = 0
         m.LAUNCHES_BY_SHAPE.clear()
         m.LAUNCHES_BWD_BY_SHAPE.clear()
@@ -774,22 +1065,21 @@ def _reset_launch_counts():
 
 def _launches(backward: bool = False) -> dict:
     """{layout: {(B_, N, C, nH): launches}} since the last reset."""
-    from mmde_tpu_torch.ops import window_attention_headsplit as ths
-    from mmde_tpu_torch.ops import window_attention_packed as wap
     attr = "LAUNCHES_BWD_BY_SHAPE" if backward else "LAUNCHES_BY_SHAPE"
-    return {"packed": dict(getattr(wap, attr)),
-            "headsplit": dict(getattr(ths, attr))}
+    return {lay: dict(getattr(m, attr))
+            for lay, m in _kernel_modules().items()}
 
 
 def _total(by_layout: dict) -> int:
     return sum(n for d in by_layout.values() for n in d.values())
 
 
-def expected_launches(backbone: str, batch: int, times: int) -> dict:
+def expected_launches(backbone: str, batch: int, times: int,
+                      attn_impl: str = "cuda") -> dict:
     """{layout: {(B_, N, C, nH): launches}} of `times` forwards (or
     backwards): one per block of each stage, in the stage's layout."""
-    want = {"packed": {}, "headsplit": {}}
-    for sh in stage_shapes(backbone, batch=batch):
+    want = {"packed": {}, "headsplit": {}, "slab": {}}
+    for sh in stage_shapes(backbone, batch=batch, attn_impl=attn_impl):
         key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
         want[sh["layout"]][key] = sh["blocks"] * times
     return want
@@ -800,15 +1090,17 @@ def _per_forward(want: dict, times: int) -> dict:
 
 
 def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
-                flip: bool = True, tag: str = "serve") -> dict:
+                flip: bool = True, tag: str = "serve",
+                attn_impl: str = "cuda") -> dict:
     """`backbone` + decoder_v2 (bfloat16, the flagship's windows and
-    depths) built at full width from a seed, answering `requests` requests
-    of two 480x640 frames through tools.infer.predict, with every kernel's
-    launch counter read around them; with `flip`, also a flip-averaged
-    request."""
+    depths, attention `attn_impl`) built at full width from a seed,
+    answering `requests` requests of two 480x640 frames through
+    tools.infer.predict, with every kernel's launch counter read around
+    them; with `flip`, also a flip-averaged request."""
     from mmde_tpu_torch.tools import infer
     t0 = time.time()
-    model = infer.build(flagship_cfg("bfloat16", "cuda", backbone=backbone),
+    model = infer.build(flagship_cfg("bfloat16", attn_impl,
+                                     backbone=backbone),
                         device="cuda", seed=0)
     randomize_weights(model, seed=7)
     build_s = time.time() - t0
@@ -834,17 +1126,24 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         dev_ms.append(e0.elapsed_time(e1))
         shapes = check_outputs(out, f"{tag} request {i}")
     by_layout = _launches()
-    want = expected_launches(backbone, 1, requests)
+    want = expected_launches(backbone, 1, requests, attn_impl)
     if by_layout != want:
         raise RuntimeError(f"{tag}: kernel launches by layout and shape "
                            f"{by_layout} for {requests} forwards, expected "
                            f"{want}")
     per_forward = _per_forward(want, requests)
+    if attn_impl == "cuda_slab" and backbone == "swin_base_v2" and (
+            per_forward != {"packed": 0, "headsplit": 0, "slab": 24}):
+        # every block of the flagship takes the slab kernels: no route back
+        # to the packed or head-split kernel
+        raise RuntimeError(f"{tag}: launches per forward {per_forward}, "
+                           "expected 24 slab and no packed or head-split")
     depth_std = float(out["pred_d1"].std())
     if depth_std <= 0.1:
         raise RuntimeError(f"{tag}: depth map is near-constant (std "
                            f"{depth_std})")
     rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2",
+           "attn_impl": attn_impl,
            "params": n_params, "build_seconds": round(build_s, 2),
            "input": "2 x uint8 (1, 480, 640, 3)", "request_ms": ms,
            "request_ms_cuda_events": dev_ms, "outputs": shapes,
@@ -871,6 +1170,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
     emit(tag, rec)
     rec["backbone"] = backbone
     rec["_by_shape"] = by_layout
+    rec["_attn_impl"] = attn_impl
     del model
     torch.cuda.empty_cache()
     return rec
@@ -932,14 +1232,15 @@ def _profile(fn) -> dict:
 
 
 def phase_profile(path: str, backbone: str = "swin_base_v2",
-                  tag: str = "profile") -> dict:
+                  tag: str = "profile", attn_impl: str = "cuda") -> dict:
     """Optional (--profile PATH): device time by kernel group of one served
-    request and of one train step (2 frame pairs) of `backbone`. Every row
-    goes to PATH (the served request's at top level, the train step's under
-    "train_step")."""
+    request and of one train step (2 frame pairs) of `backbone` under
+    `attn_impl`. Every row goes to PATH (the served request's at top level,
+    the train step's under "train_step")."""
     from mmde_tpu_torch.tools import infer
     from mmde_tpu_torch.tools import train_steps as ts
-    model = infer.build(flagship_cfg("bfloat16", "cuda", backbone=backbone),
+    model = infer.build(flagship_cfg("bfloat16", attn_impl,
+                                     backbone=backbone),
                         device="cuda", seed=0)
     randomize_weights(model, seed=7)
     f1, f2 = make_frames(seed=11)
@@ -951,8 +1252,8 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
     torch.cuda.empty_cache()
 
     state, step = ts.build_trainer(
-        ts.flagship_config(batch_size=2, backbone=backbone), device="cuda",
-        seed=0)
+        ts.flagship_config(attn_impl=attn_impl, batch_size=2,
+                           backbone=backbone), device="cuda", seed=0)
     randomize_weights(state.model, seed=7)
     batch = ts.synthetic_batch(2, 480, 640, seed=31, device="cuda")
     for _ in range(2):
@@ -973,33 +1274,45 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
     return rec
 
 
+# outputs of the plain path ("torch"), which parity and parity_slab share:
+# {(phase, backbone, dtype or frame pairs): result}
+_PLAIN_RUNS: dict = {}
+
+
 def phase_parity(backbone: str = "swin_base_v2",
-                 dtypes=("float32", "bfloat16"), tag: str = "parity") -> dict:
-    """Kernel path vs plain path through the whole model. fp32
+                 dtypes=("float32", "bfloat16"), tag: str = "parity",
+                 impl: str = "cuda") -> dict:
+    """Kernel path (`impl`) vs plain path through the whole model. fp32
     convolutions go through cuDNN in TF32 by default; for this phase TF32 is
     switched off so that both paths are true fp32 outside the attention."""
     from mmde_tpu_torch.tools import infer
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     f1, f2 = make_frames(seed=21)
-    res = {"cudnn_allow_tf32": False}
+    res = {"cudnn_allow_tf32": False, "attn_impl": impl}
     try:
         for dtype in dtypes:
             outs = {}
-            for impl in ("cuda", "torch"):
-                model = infer.build(flagship_cfg(dtype, impl,
+            for path in (impl, "torch"):
+                key = ("parity", backbone, dtype)
+                if path == "torch" and key in _PLAIN_RUNS:
+                    outs[path] = _PLAIN_RUNS[key]
+                    continue
+                model = infer.build(flagship_cfg(dtype, path,
                                                  backbone=backbone),
                                     device="cuda", seed=0)
                 randomize_weights(model, seed=7)
-                outs[impl] = infer.predict(model, f1, f2)
-                check_outputs(outs[impl], f"parity {dtype} {impl}")
+                outs[path] = infer.predict(model, f1, f2)
+                check_outputs(outs[path], f"parity {dtype} {path}")
+                if path == "torch":
+                    _PLAIN_RUNS[key] = outs[path]
                 del model
                 torch.cuda.empty_cache()
             std = float(outs["torch"]["pred_d1"].std())
             if std <= 0.1:
                 raise RuntimeError(f"parity {dtype}: depth map is "
                                    f"near-constant (std {std})")
-            diffs = {k: float(np.abs(outs["cuda"][k].astype(np.float64)
+            diffs = {k: float(np.abs(outs[impl][k].astype(np.float64)
                                      - outs["torch"][k]).max())
                      for k in EXPECT_SHAPES}
             tol = TOL_MODEL[dtype]
@@ -1008,7 +1321,7 @@ def phase_parity(backbone: str = "swin_base_v2",
                 if not v <= lim:
                     raise RuntimeError(f"parity {dtype}: {k} differs by {v} "
                                        f"> {lim}")
-            mean_d = float(np.abs(outs["cuda"]["pred_d1"]
+            mean_d = float(np.abs(outs[impl]["pred_d1"]
                                   - outs["torch"]["pred_d1"]).mean())
             if not mean_d <= tol.get("depth_mean", tol["depth"]):
                 raise RuntimeError(f"parity {dtype}: pred_d1 differs by "
@@ -1049,13 +1362,14 @@ LARGE_PARITY_PARAMS = PARITY_PARAMS + (
 
 def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                 pairs: int = 2, deterministic_run: bool = True,
-                tag: str = "train") -> dict:
+                tag: str = "train", attn_impl: str = "cuda") -> dict:
     """The trainer on the card: `steps` steps of make_train_step at `pairs`
-    frame pairs (bf16, train mode, drop path 0.3, seeded generator) on one
-    synthetic batch, every kernel's launches counted per step; then, with
-    `deterministic_run`, a short deterministic run whose loss must fall."""
+    frame pairs (bf16, train mode, drop path 0.3, seeded generator,
+    attention `attn_impl`) on one synthetic batch, every kernel's launches
+    counted per step; then, with `deterministic_run`, a short deterministic
+    run whose loss must fall."""
     from mmde_tpu_torch.tools import train_steps as ts
-    cfg = ts.flagship_config("bfloat16", "cuda", batch_size=pairs,
+    cfg = ts.flagship_config("bfloat16", attn_impl, batch_size=pairs,
                              backbone=backbone)
     t0 = time.time()
     state, step = ts.build_trainer(cfg, device="cuda", seed=0)
@@ -1064,7 +1378,12 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     batch = ts.synthetic_batch(pairs, 480, 640, seed=31, device="cuda")
     watch = {n: p.detach().clone() for n, p in state.model.named_parameters()
              if n in LARGE_PARITY_PARAMS}
-    per_step = _per_forward(expected_launches(backbone, pairs, 1), 1)
+    per_step = _per_forward(expected_launches(backbone, pairs, 1,
+                                              attn_impl), 1)
+    if attn_impl == "cuda_slab" and backbone == "swin_base_v2" and (
+            per_step != {"packed": 0, "headsplit": 0, "slab": 24}):
+        raise RuntimeError(f"{tag}: expected 24 slab launches a step and no "
+                           f"packed or head-split, planned {per_step}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1090,7 +1409,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                     f"{tag} step {i}: {'backward' if bwd else 'forward'} "
                     f"launches by layout {got}, expected {per_step}")
     fwd_by_shape, bwd_by_shape = _launches(), _launches(backward=True)
-    want = expected_launches(backbone, pairs, steps)
+    want = expected_launches(backbone, pairs, steps, attn_impl)
     if fwd_by_shape != want or bwd_by_shape != want:
         raise RuntimeError(f"{tag}: forward launches {fwd_by_shape}, "
                            f"backward {bwd_by_shape}, expected {want} each")
@@ -1102,7 +1421,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     steady = ms[1:]
     rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2, "
                     "train mode, drop path 0.3, remat none",
-           "frame_pairs": pairs, "steps": steps,
+           "attn_impl": attn_impl, "frame_pairs": pairs, "steps": steps,
            "params": sum(p.numel() for p in state.model.parameters()),
            "build_seconds": round(build_s, 2), "losses": losses,
            "first_step_ms": ms[0], "step_ms": steady,
@@ -1135,26 +1454,31 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
         torch.cuda.empty_cache()
     emit(tag, rec)
     rec["backbone"] = backbone
+    rec["_attn_impl"] = attn_impl
     rec["_bwd_by_shape"] = bwd_by_shape
     rec["_fwd_by_shape"] = fwd_by_shape
     return rec
 
 
 def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
-                       params=PARITY_PARAMS, tag: str = "train_parity"
-                       ) -> dict:
+                       params=PARITY_PARAMS, tag: str = "train_parity",
+                       impl: str = "cuda") -> dict:
     """One deterministic fp32 step at full width and depth, kernel path
-    against plain path from the same weights and batch: the loss and the
-    gradients of a named set of parameters. cuDNN TF32 is off for this
-    phase (matmul TF32 is off by default)."""
+    (`impl`) against plain path from the same weights and batch: the loss
+    and the gradients of a named set of parameters. cuDNN TF32 is off for
+    this phase (matmul TF32 is off by default)."""
     from mmde_tpu_torch.tools import train_steps as ts
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     batch = ts.synthetic_batch(pairs, 480, 640, seed=33, device="cuda")
     got = {}
     try:
-        for impl in ("cuda", "torch"):
-            cfg = ts.flagship_config("float32", impl, batch_size=pairs,
+        for path in (impl, "torch"):
+            key = ("train_parity", backbone, pairs)
+            if path == "torch" and key in _PLAIN_RUNS:
+                got[path] = _PLAIN_RUNS[key]
+                continue
+            cfg = ts.flagship_config("float32", path, batch_size=pairs,
                                      backbone=backbone)
             state, step = ts.build_trainer(cfg, device="cuda", seed=0,
                                            deterministic=True)
@@ -1162,13 +1486,17 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
             state, aux = step(state, batch)
             grads = {n: p.grad.detach().double().clone()
                      for n, p in state.model.named_parameters()
-                     if n in params}
-            got[impl] = ({k: float(v) for k, v in aux.items()}, grads)
+                     if n in LARGE_PARITY_PARAMS}
+            got[path] = ({k: float(v) for k, v in aux.items()}, grads)
+            if path == "torch":
+                _PLAIN_RUNS[key] = got[path]
             del state, step
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = old
-    (la, ga), (lb, gb) = got["cuda"], got["torch"]
+    (la, ga), (lb, gb) = got[impl], got["torch"]
+    ga = {n: t for n, t in ga.items() if n in params}
+    gb = {n: t for n, t in gb.items() if n in params}
     if set(ga) != set(params):
         raise RuntimeError(f"parity parameters missing: "
                            f"{set(params) - set(ga)}")
@@ -1177,7 +1505,8 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
                          / gb[n].norm().clamp_min(1e-300)) for n in ga}
     rec = {"model": backbone, "dtype": "float32", "frame_pairs": pairs,
            "depths": [2, 2, 18, 2], "cudnn_allow_tf32": False,
-           "loss_cuda": la, "loss_torch": lb, "loss_rel_diff": loss_rel,
+           "attn_impl": impl, "loss_cuda": la, "loss_torch": lb,
+           "loss_rel_diff": loss_rel,
            "grad_rel_l2": grad_rel,
            "grad_norm": {n: float(gb[n].norm()) for n in gb},
            "tolerance": TOL_TRAIN_PARITY}
@@ -1197,15 +1526,23 @@ def _entry(name, shape, source, replaces, n, c, pairs=1) -> dict:
     where = (f"[{shape['model'].rsplit('_', 1)[0]} stage{shape['stage']} "
              f"B_={shape['B_']} N={shape['N']} C={shape['C']} "
              f"nH={shape['nH']} bf16{' mask' if shape['nW'] else ''}"
-             f"{' train' if pairs > 1 else ''}]")
+             f"{' train' if pairs > 1 else ''}")
+    if shape["layout"] == "slab":
+        where += " map {}x{}x{}".format(shape["images"], *shape["padded"])
+    where += "]"
     if n == 0:
         raise RuntimeError(f"the path never launched {name}{where}")
-    return {"name": name + where, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n,
-            "max_abs_err": c["max_abs_err"], "rel_l2_err": c["rel_l2_err"],
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": None}
+    entry = {"name": name + where, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": n,
+             "max_abs_err": c["max_abs_err"], "rel_l2_err": c["rel_l2_err"],
+             "ms": c["ms"], "plain_ms": c["plain_ms"],
+             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+             "library_ms": c["library_ms"]}
+    # the yardstick's own numbers: the normalisation it needs first and the
+    # SDPA backend that ran
+    entry.update({k: c[k] for k in ("library_norm_ms", "library_backend")
+                  if k in c})
+    return entry
 
 
 def _find(cases, shape, pairs, **want):
@@ -1216,16 +1553,22 @@ def _find(cases, shape, pairs, **want):
                 and all(c[k] == v for k, v in want.items()))
 
 
-def contract_serve(k1_cases: list, hs_cases: list, serve: dict) -> list:
+def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
+                   serve: dict) -> list:
     """One entry per (kernel, served shape): the served model is bfloat16,
     stages 1-2 alternate unmasked and masked blocks (the masked case is
     listed), stages 3-4 are unmasked."""
     entries = []
-    for shape in stage_shapes(serve["backbone"]):
+    for shape in stage_shapes(serve["backbone"],
+                              attn_impl=serve["_attn_impl"]):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
         n = serve["_by_shape"][shape["layout"]].get(key, 0)
         nW = shape["nW"]
-        if shape["layout"] == "packed":
+        if shape["layout"] == "slab":
+            c = _find(slab_cases, shape, 1, nW=nW)["forward"]
+            entries.append(_entry("window_attention_slab_fwd", shape,
+                                  KERNEL_SOURCE, KERNEL_SLAB_REPLACES, n, c))
+        elif shape["layout"] == "packed":
             c = next(c for c in k1_cases
                      if c["model"] == shape["model"]
                      and c["stage"] == shape["stage"]
@@ -1241,7 +1584,8 @@ def contract_serve(k1_cases: list, hs_cases: list, serve: dict) -> list:
     return entries
 
 
-def contract_train(k2_cases: list, hs_cases: list, train: dict) -> list:
+def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
+                   train: dict) -> list:
     """Two entries per trained shape, the forward through its training entry
     point (output and log-sum-exp) and the backward: the trained model is
     bfloat16 at 2 frame pairs, stages 1-2 masked in every other block (the
@@ -1249,12 +1593,20 @@ def contract_train(k2_cases: list, hs_cases: list, train: dict) -> list:
     forward, the backward's dqkv against float64 autograd."""
     entries = []
     pairs = train["frame_pairs"]
-    for shape in stage_shapes(train["backbone"], batch=pairs):
+    for shape in stage_shapes(train["backbone"], batch=pairs,
+                              attn_impl=train["_attn_impl"]):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
         lay = shape["layout"]
         nf = train["_fwd_by_shape"][lay].get(key, 0)
         nb = train["_bwd_by_shape"][lay].get(key, 0)
-        if lay == "packed":
+        if lay == "slab":
+            c = _find(slab_cases, shape, pairs, nW=shape["nW"])
+            entries.append(_entry("window_attention_slab_fwd+lse", shape,
+                                  KERNEL_SOURCE, KERNEL_SLAB_REPLACES, nf,
+                                  c["forward_stats"], pairs))
+            e = _entry("window_attention_slab_bwd", shape, KERNEL_BWD_SOURCE,
+                       KERNEL_SLAB_BWD_REPLACES, nb, c, pairs)
+        elif lay == "packed":
             c = _find(k2_cases, shape, pairs)
             entries.append(_entry("window_attention_fwd+lse", shape,
                                   KERNEL_SOURCE, KERNEL_REPLACES, nf,
@@ -1282,9 +1634,10 @@ def main() -> int:
                          "ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
-                         "step with torch.profiler, of the flagship and of "
-                         "swin_large, and write their rows to PATH and "
-                         "PATH with _large before its extension (JSON)")
+                         "step with torch.profiler, of the flagship, of "
+                         "swin_large and of the flagship's slab path, and "
+                         "write their rows to PATH and PATH with _large / "
+                         "_slab before its extension (JSON)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1298,6 +1651,7 @@ def main() -> int:
     k1_cases = phase_kernels(timed=timed)
     k2_cases = phase_kernels_backward(timed=timed)
     hs_cases = phase_kernels_headsplit(timed=timed)
+    slab_cases = phase_kernels_slab(timed=timed)
     if args.only == "kernels":
         return 0
     serve = phase_serve()
@@ -1305,10 +1659,15 @@ def main() -> int:
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
     train_large = phase_train("swin_large_v2", steps=6,
                               deterministic_run=False, tag="train_large")
+    serve_slab = phase_serve(tag="serve_slab", attn_impl="cuda_slab")
+    train_slab = phase_train(steps=6, deterministic_run=False,
+                             tag="train_slab", attn_impl="cuda_slab")
     if args.profile:
         phase_profile(args.profile)
         root, ext = os.path.splitext(args.profile)
         phase_profile(f"{root}_large{ext}", "swin_large_v2", "profile_large")
+        phase_profile(f"{root}_slab{ext}", tag="profile_slab",
+                      attn_impl="cuda_slab")
     phase_parity()
     phase_train_parity()
     emit("parity_large", {
@@ -1316,12 +1675,16 @@ def main() -> int:
         "train_step": phase_train_parity("swin_large_v2",
                                          params=LARGE_PARITY_PARAMS,
                                          tag=None)})
-    print(json.dumps({"kernels":
-                      contract_serve(k1_cases, hs_cases, serve)
-                      + contract_train(k2_cases, hs_cases, train)
-                      + contract_serve(k1_cases, hs_cases, serve_large)
-                      + contract_train(k2_cases, hs_cases, train_large)}),
-          flush=True)
+    emit("parity_slab", {
+        "forward": phase_parity(dtypes=("float32",), tag=None,
+                                impl="cuda_slab"),
+        "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
+    entries = []
+    for sv, tr in ((serve, train), (serve_large, train_large),
+                   (serve_slab, train_slab)):
+        entries += contract_serve(k1_cases, hs_cases, slab_cases, sv)
+        entries += contract_train(k2_cases, hs_cases, slab_cases, tr)
+    print(json.dumps({"kernels": entries}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -71,7 +71,8 @@ class ModelConfig:
     use_pallas_attention: bool = True       # fused window attention kernel
     # Attention implementation override: "" derives from
     # use_pallas_attention (True -> the CUDA kernel, False -> plain torch).
-    # "cuda" | "torch"; the JAX package's names "pallas" | "xla" are
+    # "cuda" | "cuda_slab" (the slab kernels, windows read off the map) |
+    # "torch"; the JAX package's names "pallas" | "pallas_slab" | "xla" are
     # accepted as their counterparts.
     attn_impl: str = ""
 

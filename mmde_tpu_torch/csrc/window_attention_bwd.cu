@@ -3,11 +3,14 @@
 // Replaces the TPU kernels mmde_tpu/ops/window_attention_packed.py::_bwd_body
 // (K2, driven by _pallas_backward) and, with dbias_mode = 2, its dbias-only
 // pass ::_dbias_body (K3, driven by _pallas_dbias), on qkv as the Linear
-// emits it; and mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7,
-// driven by _pallas_backward) on head-split q, k, v (B_, nH, N, Dh): the
-// operands are `Rows` (window_attention_common.cuh), base + (window, head,
-// token) strides, so one set of kernels serves both layouts. Same function,
-// re-derived for a GPU. Per (window b, head h), with
+// emits it; mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7,
+// driven by _pallas_backward) on head-split q, k, v (B_, nH, N, Dh); and
+// mmde_tpu/ops/window_attention_slab.py::_bwd_body (K9, driven by
+// _pallas_backward) on the (B, Hp, Wp, 3C) map, reading g and writing dqkv
+// as maps too. The operands are layout structs (window_attention_common.cuh)
+// and the kernels templates over them, so one set of kernels serves the
+// three layouts. Same function, re-derived for a GPU. Per (window b, head
+// h), with
 //
 //   q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),   k^ = k * rk likewise
 //   scale = exp(min(logit_scale[h], ln 100))
@@ -65,7 +68,12 @@
 //
 // K7's TPU kernel instead dumps ds per window in the input type and sums it
 // in XLA; here K7' takes K2's default, fp32 atomics from the dk/dv pass, so
-// its dbias is summed once in fp32 but is not bit-reproducible either.
+// its dbias is summed once in fp32 but is not bit-reproducible either. K9's
+// TPU kernel accumulates dbias in fp32 in its resident output block across
+// the consecutive (image, window row) sweep of a head group; K9' takes the
+// same fp32 atomics, the values agreeing up to the order of an fp32 sum, and
+// computes dq, dk, dv per window in the two passes above, written straight
+// into the dqkv map.
 //
 // Ragged edge (N = 900 = 14*64 + 4, N = 225 = 3*64 + 33): rows and keys
 // past N are loaded as zeros and their p is forced to 0, so they add nothing
@@ -84,6 +92,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "window_attention_common.cuh"
 
 namespace {
@@ -100,14 +110,14 @@ constexpr int DQ_SMEM_FLOATS =
 constexpr int DKV_SMEM_FLOATS =
     4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 3 * BT + 8;
 
-// row r of a (rows, ld) array whose first wanted column is at `base`; zeros
-// past the edge
-template <typename T>
+// token row r of the head whose token 0 is at `base`, in layout `rows`;
+// zeros past the edge
+template <typename T, class R>
 __device__ __forceinline__ void fetch_row(const T* __restrict__ base,
-                                          size_t ld, int r, int N,
+                                          const R& rows, int r, int N,
                                           float (&x)[DH]) {
   if (r < N) {
-    load_row(base + (size_t)r * ld, x);
+    load_row(base + rows.off(r), x);
   } else {
 #pragma unroll
     for (int d = 0; d < DH; ++d) x[d] = 0.0f;
@@ -212,12 +222,12 @@ __device__ __forceinline__ float row_sum8(float x) {
 // ---------------------------------------------------------------------------
 // dq, delta, dlogit_scale partials: one block per (query tile, head, window)
 // ---------------------------------------------------------------------------
-template <typename T, typename TB, bool FASTEXP>
+template <template <typename> class L, typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
-              Rows<const T> g, const float* __restrict__ logit_scale,
+bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
+              const float* __restrict__ logit_scale,
               const TB* __restrict__ bias, const TB* __restrict__ mask,
-              const float* __restrict__ lse, Rows<T> dq,
+              const float* __restrict__ lse, L<T> dq,
               float* __restrict__ delta, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sQt = smem;               // [DH][BT] q^
@@ -253,19 +263,19 @@ bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     const int j = tid & (BT - 1);
     const int r = q0 + j;
     if (tid < BT) {
-      fetch_row(q.head(b, h), q.sn, r, N, x);
+      fetch_row(q.head(b, h), q, r, N, x);
       sRq[j] = normalise(x);
       put_t(sQt, j, x);
       sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
     } else {
-      fetch_row(g.head(b, h), g.sn, r, N, x);
+      fetch_row(g.head(b, h), g, r, N, x);
       put_t(sGt, j, x);
     }
   }
 
   // threads 0..63 load key rows, 64..127 value rows
   const T* kv_bh = tid < BT ? k.head(b, h) : v.head(b, h);
-  const size_t kv_ld = tid < BT ? k.sn : v.sn;
+  const L<const T> kv = tid < BT ? k : v;
 
   float d_part[8];
 #pragma unroll
@@ -282,7 +292,7 @@ bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       float x[DH];
       const int j = tid & (BT - 1);
       const int r = k0 + j;
-      fetch_row(kv_bh, kv_ld, r, N, x);
+      fetch_row(kv_bh, kv, r, N, x);
       if (tid < BT) {
         normalise(x);
         put_t(sKt, j, x);
@@ -368,7 +378,7 @@ bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     dot = row_sum8(dot);
     const float rq = sRq[lr];
     if (row < N)
-      store4(dq_b + (size_t)row * dq.sn, rq * (dqn[0] - qn[0] * dot),
+      store4(dq_b + dq.off(row), rq * (dqn[0] - qn[0] * dot),
              rq * (dqn[1] - qn[1] * dot), rq * (dqn[2] - qn[2] * dot),
              rq * (dqn[3] - qn[3] * dot));
   }
@@ -377,13 +387,13 @@ bwd_dq_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 // ---------------------------------------------------------------------------
 // dk, dv (and dbias by atomics): one block per (key tile, head, window)
 // ---------------------------------------------------------------------------
-template <typename T, typename TB, bool FASTEXP>
+template <template <typename> class L, typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
-               Rows<const T> g, const float* __restrict__ logit_scale,
+bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
+               const float* __restrict__ logit_scale,
                const TB* __restrict__ bias, const TB* __restrict__ mask,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               Rows<T> dk, Rows<T> dv, double* __restrict__ dls_part,
+               L<T> dk, L<T> dv, double* __restrict__ dls_part,
                float* __restrict__ dbias, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sKt = smem;               // [DH][BT] k^
@@ -424,18 +434,18 @@ bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     const int j = tid & (BT - 1);
     const int r = k0 + j;
     if (tid < BT) {
-      fetch_row(k.head(b, h), k.sn, r, N, x);
+      fetch_row(k.head(b, h), k, r, N, x);
       sRk[j] = normalise(x);
       put_t(sKt, j, x);
     } else {
-      fetch_row(v.head(b, h), v.sn, r, N, x);
+      fetch_row(v.head(b, h), v, r, N, x);
       put_t(sVt, j, x);
     }
   }
 
   // threads 0..63 load query rows, 64..127 rows of g
   const T* qg_bh = tid < BT ? q.head(b, h) : g.head(b, h);
-  const size_t qg_ld = tid < BT ? q.sn : g.sn;
+  const L<const T> qg = tid < BT ? q : g;
 
   float accV[4][4], accK[4][4];
 #pragma unroll
@@ -449,7 +459,7 @@ bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       float x[DH];
       const int j = tid & (BT - 1);
       const int r = q0 + j;
-      fetch_row(qg_bh, qg_ld, r, N, x);
+      fetch_row(qg_bh, qg, r, N, x);
       if (tid < BT) {
         normalise(x);
         put_t(sQt, j, x);
@@ -549,10 +559,10 @@ bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     dot = row_sum8(dot);
     const float rk = sRk[lk];
     if (key < N) {
-      store4(dk_b + (size_t)key * dk.sn, rk * (dkn[0] - kn[0] * dot),
+      store4(dk_b + dk.off(key), rk * (dkn[0] - kn[0] * dot),
              rk * (dkn[1] - kn[1] * dot), rk * (dkn[2] - kn[2] * dot),
              rk * (dkn[3] - kn[3] * dot));
-      store4(dv_b + (size_t)key * dv.sn, accV[r][0], accV[r][1], accV[r][2],
+      store4(dv_b + dv.off(key), accV[r][0], accV[r][1], accV[r][2],
              accV[r][3]);
       if (px == 0) dls += dot;    // the 8 lanes of a key hold the same dot
     }
@@ -572,10 +582,10 @@ bwd_dkv_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 // ---------------------------------------------------------------------------
 // dbias alone, windows innermost: one block per (key tile, query tile, head)
 // ---------------------------------------------------------------------------
-template <typename T, typename TB, bool FASTEXP>
+template <template <typename> class L, typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-bwd_dbias_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
-                 Rows<const T> g, const float* __restrict__ logit_scale,
+bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
+                 const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dbias,
@@ -612,18 +622,18 @@ bwd_dbias_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       float x[DH];
       const int j = tid & (BT - 1);
       if (tid < BT) {
-        fetch_row(q.head(b, h), q.sn, q0 + j, N, x);
+        fetch_row(q.head(b, h), q, q0 + j, N, x);
         normalise(x);
         put_t(sQt, j, x);
         sLse[j] = q0 + j < N ? lse[stat0 + q0 + j] : 0.0f;
-        fetch_row(k.head(b, h), k.sn, k0 + j, N, x);
+        fetch_row(k.head(b, h), k, k0 + j, N, x);
         normalise(x);
         put_t(sKt, j, x);
       } else {
-        fetch_row(g.head(b, h), g.sn, q0 + j, N, x);
+        fetch_row(g.head(b, h), g, q0 + j, N, x);
         put_t(sGt, j, x);
         sDelta[j] = q0 + j < N ? delta[stat0 + q0 + j] : 0.0f;
-        fetch_row(v.head(b, h), v.sn, k0 + j, N, x);
+        fetch_row(v.head(b, h), v, k0 + j, N, x);
         put_t(sVt, j, x);
       }
     }
@@ -656,10 +666,10 @@ bwd_dbias_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 }
 
 // The operands' (window, head, token) layout, on the host.
-template <typename T>
+template <template <typename> class L, typename T>
 struct Operands {
-  Rows<const T> q, k, v, g;
-  Rows<T> dq, dk, dv;
+  L<const T> q, k, v, g;
+  L<T> dq, dk, dv;
   bool aligned() const {
     return rows_aligned(q) && rows_aligned(k) && rows_aligned(v) &&
            rows_aligned(g) && rows_aligned(dq) && rows_aligned(dk) &&
@@ -667,62 +677,84 @@ struct Operands {
   }
 };
 
-template <typename T, typename TB, bool FASTEXP>
-cudaError_t launch(const Operands<T>& o, const void* ls, const void* bias,
-                   const void* mask, const void* lse, void* delta,
-                   void* dls_part, void* dbias, int B_, int N, int nH, int nW,
-                   int dbias_mode, cudaStream_t stream) {
+template <template <typename> class L, typename T, typename TB,
+          bool FASTEXP>
+int launch(const Operands<L, T>& o, const void* ls, const void* bias,
+           const void* mask, const void* lse, void* delta, void* dls_part,
+           void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
+           cudaStream_t stream) {
+  if (!o.aligned()) return -1;
   const int nT = (N + BT - 1) / BT;
   const int dq_bytes = DQ_SMEM_FLOATS * (int)sizeof(float);
   const int dkv_bytes = DKV_SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<T, TB, FASTEXP>,
+      bwd_dq_kernel<L, T, TB, FASTEXP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkv_kernel<T, TB, FASTEXP>,
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dkv_kernel<L, T, TB, FASTEXP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkv_bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
 
   dim3 grid(nT, nH, B_);
-  bwd_dq_kernel<T, TB, FASTEXP><<<grid, NT, dq_bytes, stream>>>(
+  bwd_dq_kernel<L, T, TB, FASTEXP><<<grid, NT, dq_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
 
-  bwd_dkv_kernel<T, TB, FASTEXP><<<grid, NT, dkv_bytes, stream>>>(
+  bwd_dkv_kernel<L, T, TB, FASTEXP><<<grid, NT, dkv_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
       (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
 
-  if (dbias_mode == 2) {
+  // the windows-innermost dbias pass serves the packed and head-split
+  // layouts (MMDE_ATTN_GRID=split); the slab entry sums dbias by atomics
+  if constexpr (std::is_same<L<T>, Rows<T>>::value) {
+    if (dbias_mode != 2) return (int)err;
     dim3 grid_b(nT, nT, nH);
-    bwd_dbias_kernel<T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
+    bwd_dbias_kernel<L, T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
         o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
         (const TB*)mask, (const float*)lse, (const float*)delta,
         (float*)dbias, B_, N, nW);
     err = cudaGetLastError();
   }
-  return err;
+  return (int)err;
 }
 
-// `packed`: q = qkv (B_, N, 3C), g (B_, N, C), dq = dqkv (B_, N, 3C), each
-// by column block. Otherwise: q, k, v, g at their own bases with the twelve
-// host strides `st` (q, k, v, g: window, head, token) and contiguous
-// (B_, nH, N, DH) dq, dk, dv.
+enum Layout { PACKED, STRIDED, MAP };
+
+// PACKED: q = qkv (B_, N, 3C), g (B_, N, C), dq = dqkv (B_, N, 3C), each by
+// column block. STRIDED: q, k, v, g at their own bases with the twelve host
+// strides `st` (q, k, v, g: window, head, token) and contiguous
+// (B_, nH, N, DH) dq, dk, dv. MAP: as PACKED on (B, Hp, Wp, 3C) / (.., C)
+// maps, `st` = {Hp, Wp, ws}.
 template <typename T, typename TB, bool FASTEXP>
-int launch_layout(bool packed, const void* q, const void* k, const void* v,
-                  const void* g, const long long* st, const void* ls,
-                  const void* bias, const void* mask, const void* lse,
-                  void* dq, void* dk, void* dv, void* delta, void* dls_part,
-                  void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
-                  cudaStream_t stream) {
+int launch_layout(Layout layout, const void* q, const void* k,
+                  const void* v, const void* g, const long long* st,
+                  const void* ls, const void* bias, const void* mask,
+                  const void* lse, void* dq, void* dk, void* dv, void* delta,
+                  void* dls_part, void* dbias, int B_, int N, int nH, int nW,
+                  int dbias_mode, cudaStream_t stream) {
   const int C = nH * DH;
-  Operands<T> o;
-  if (packed) {
+  if (layout == MAP) {
+    const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
+    Operands<MapRows, T> o;
+    o.q = map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH);
+    o.k = map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH);
+    o.v = map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH);
+    o.g = map_rows((const T*)g, 0, C, 1, Hp, Wp, ws, DH);
+    o.dq = map_rows((T*)dq, 0, C, 3, Hp, Wp, ws, DH);
+    o.dk = map_rows((T*)dq, 1, C, 3, Hp, Wp, ws, DH);
+    o.dv = map_rows((T*)dq, 2, C, 3, Hp, Wp, ws, DH);
+    return launch<MapRows, T, TB, FASTEXP>(o, ls, bias, mask, lse, delta,
+                                           dls_part, dbias, B_, N, nH, nW,
+                                           dbias_mode, stream);
+  }
+  Operands<Rows, T> o;
+  if (layout == PACKED) {
     o.q = packed_rows((const T*)q, 0, N, C, 3, DH);
     o.k = packed_rows((const T*)q, 1, N, C, 3, DH);
     o.v = packed_rows((const T*)q, 2, N, C, 3, DH);
@@ -739,13 +771,12 @@ int launch_layout(bool packed, const void* q, const void* k, const void* v,
     o.dk = contiguous_rows((T*)dk, nH, N, DH);
     o.dv = contiguous_rows((T*)dv, nH, N, DH);
   }
-  if (!o.aligned()) return -1;
-  return (int)launch<T, TB, FASTEXP>(o, ls, bias, mask, lse, delta, dls_part,
-                                     dbias, B_, N, nH, nW, dbias_mode,
-                                     stream);
+  return launch<Rows, T, TB, FASTEXP>(o, ls, bias, mask, lse, delta,
+                                      dls_part, dbias, B_, N, nH, nW,
+                                      dbias_mode, stream);
 }
 
-int dispatch(bool packed, const void* q, const void* k, const void* v,
+int dispatch(Layout layout, const void* q, const void* k, const void* v,
              const void* g, const long long* st, const void* ls,
              const void* bias, const void* mask, const void* lse, void* dq,
              void* dk, void* dv, void* delta, void* dls_part, void* dbias,
@@ -758,15 +789,15 @@ int dispatch(bool packed, const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (!qkv_bf16 && !bias_bf16)
     return launch_layout<float, float, false>(
-        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   if (qkv_bf16 && bias_bf16)
     return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
-        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   if (qkv_bf16 && !bias_bf16)
     return launch_layout<__nv_bfloat16, float, true>(
-        packed, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
+        layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   return -1;
 }
@@ -790,7 +821,7 @@ extern "C" int mmde_window_attention_bwd(
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
     int nW, int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
   if (C != nH * DH) return -1;
-  return dispatch(true, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias,
+  return dispatch(PACKED, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias,
                   mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
                   B_, N, nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
 }
@@ -808,7 +839,34 @@ extern "C" int mmde_window_attention_headsplit_bwd(
     void* delta, void* dls_part, void* dbias, int B_, int N, int nH, int nW,
     int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
   if (strides == nullptr) return -1;
-  return dispatch(false, q, k, v, g, (const long long*)strides, logit_scale,
+  return dispatch(STRIDED, q, k, v, g, (const long long*)strides, logit_scale,
                   bias, mask, lse, dq, dk, dv, delta, dls_part, dbias, B_, N,
                   nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
+}
+
+// Slab entry (K9's counterpart): qkv (B, Hp, Wp, 3C), g (B, Hp, Wp, C) and
+// dqkv (B, Hp, Wp, 3C) maps of one element type, Hp and Wp multiples of ws;
+// the B * (Hp/ws) * (Wp/ws) windows image-major and row-major, N = ws*ws.
+// lse and delta are (B * nW, nH, N) in that window order, dls_part
+// (B * nW * ceil(N / 64), nH); a mask (nW, N, N) holds one row per window of
+// an image (nW = (Hp/ws) * (Wp/ws)). dbias_mode 0 or 1 (atomics); the other
+// arguments as for mmde_window_attention_bwd.
+extern "C" int mmde_window_attention_slab_bwd(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, void* dqkv,
+    void* delta, void* dls_part, void* dbias, int B, int Hp, int Wp, int C,
+    int nH, int ws, int qkv_bf16, int bias_bf16, int dbias_mode,
+    void* stream) {
+  if (C != nH * DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
+      Hp % ws != 0 || Wp % ws != 0)
+    return -1;
+  const long long N = (long long)ws * ws;
+  const long long nW = (long long)(Hp / ws) * (Wp / ws);
+  if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
+  if (dbias_mode == 2) return -1;     // no windows-innermost pass for maps
+  const long long geom[3] = {Hp, Wp, ws};
+  return dispatch(MAP, qkv, nullptr, nullptr, g, geom, logit_scale, bias,
+                  mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
+                  (int)(B * nW), (int)N, nH, (int)nW, qkv_bf16, bias_bf16,
+                  dbias_mode, stream);
 }

@@ -2,12 +2,18 @@
 // (window_attention_fwd.cu, window_attention_bwd.cu).
 //
 // Every operand of shape (window b, head h, token r, channel d) is handed to
-// a kernel as `Rows`: a base pointer and three element strides, with the
-// channel axis unit-stride. The packed entry points describe q, k and v as
-// the three column blocks of the qkv Linear's (B_, N, 3C) output
-// (strides N*3C, 32, 3C), the head-split entry points pass the strides of
-// whatever (B_, nH, N, 32) view the caller holds - the permuted view of that
-// same qkv tensor, or a contiguous one. One kernel body serves both.
+// a kernel as a layout struct with two methods: head(b, h), the address of
+// the head's token 0, and off(r), token r's offset from there; the channel
+// axis is unit-stride. The kernels are templates over that struct.
+//
+//   Rows     a base pointer and three element strides. The packed entry
+//            points describe q, k and v as the three column blocks of the
+//            qkv Linear's (B_, N, 3C) output (strides N*3C, 32, 3C), the
+//            head-split entry points pass the strides of whatever
+//            (B_, nH, N, 32) view the caller holds - the permuted view of
+//            that same qkv tensor, or a contiguous one.
+//   MapRows  the slab entry points: windows read straight off the
+//            (B, Hp, Wp, parts*C) map (see below).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +29,37 @@ struct Rows {
   __device__ __forceinline__ T* head(int b, int h) const {
     return p + (long long)b * sb + (long long)h * sh;
   }
+  __device__ __forceinline__ size_t off(int r) const {
+    return (size_t)r * sn;
+  }
+};
+
+// The map layout of the slab path. Window b of the kernels' B*nW grid is
+// (image, window row wi, window column wj) over (Hp/ws) x (Wp/ws) windows,
+// image-major and row-major - the order of window_partition and of the
+// shifted-window mask's rows, so the mask row stays b % nW. Its token r is
+// pixel (wi*ws + r/ws, wj*ws + r%ws), and the head's 32 channels sit at
+// column part*C + h*32 of that pixel: each row stays contiguous and, with
+// 3C*esize and 32*esize multiples of 16, 16-byte aligned. r/ws is a 64-bit
+// multiply by the host's ceil(2^32 / ws) and a shift, exact for
+// r * ws < 2^32 (the entry points check N * ws), not a divide on the
+// key-loading loop.
+template <typename T>
+struct MapRows {
+  T* p;                    // map base + part*C
+  long long s, rs, si, sh; // element strides of pixel, map row, image, head
+  int ws, nww, nW;         // window edge; windows per window row, per image
+  unsigned long long inv_ws;
+  __device__ __forceinline__ T* head(int b, int h) const {
+    const int img = b / nW, w = b - img * nW;
+    const int wi = w / nww, wj = w - wi * nww;
+    return p + img * si + (long long)(wi * ws) * rs +
+           (long long)(wj * ws) * s + (long long)h * sh;
+  }
+  __device__ __forceinline__ size_t off(int r) const {
+    const int t = (int)(((unsigned long long)r * inv_ws) >> 32);
+    return (size_t)t * rs + (size_t)(r - t * ws) * s;
+  }
 };
 
 // Host side: the strides a (B_, N, parts*C) tensor gives the head-split
@@ -37,6 +74,24 @@ Rows<T> contiguous_rows(T* base, int nH, int N, int dh) {
   return {base, (long long)nH * N * dh, (long long)N * dh, dh};
 }
 
+// Host side: column block `part` of a (B, Hp, Wp, parts*C) map, windows
+// of ws x ws.
+template <typename T>
+MapRows<T> map_rows(T* base, int part, int C, int parts, int Hp, int Wp,
+                    int ws, int dh) {
+  MapRows<T> m;
+  m.p = base + (long long)part * C;
+  m.s = (long long)parts * C;
+  m.rs = (long long)Wp * m.s;
+  m.si = (long long)Hp * m.rs;
+  m.sh = dh;
+  m.ws = ws;
+  m.nww = Wp / ws;
+  m.nW = (Hp / ws) * m.nww;
+  m.inv_ws = ((1ull << 32) + ws - 1) / ws;
+  return m;
+}
+
 // Rows are read with 16-byte vector loads: the base and every stride must
 // keep each row 16-byte aligned.
 template <typename T>
@@ -44,6 +99,12 @@ bool rows_aligned(const Rows<T>& r) {
   const long long e = sizeof(*r.p);
   return r.p != nullptr && reinterpret_cast<uintptr_t>(r.p) % 16 == 0 &&
          (r.sb * e) % 16 == 0 && (r.sh * e) % 16 == 0 && (r.sn * e) % 16 == 0;
+}
+template <typename T>
+bool rows_aligned(const MapRows<T>& r) {
+  const long long e = sizeof(*r.p);
+  return r.p != nullptr && reinterpret_cast<uintptr_t>(r.p) % 16 == 0 &&
+         (r.s * e) % 16 == 0 && (r.sh * e) % 16 == 0;
 }
 
 template <int D>

@@ -1,10 +1,12 @@
 // Fused SwinV2 cosine window attention, forward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces two TPU kernels, one kernel body here:
+// Replaces three TPU kernels, one kernel body here:
 //   K1  mmde_tpu/ops/window_attention_packed.py::_fwd_body (driven by
 //       _pallas_forward), on qkv as the Linear emits it;
 //   K6  mmde_tpu/ops/window_attention_pallas.py::_kernel (driven by
-//       _pallas_forward), on head-split q, k, v (B_, nH, N, Dh).
+//       _pallas_forward), on head-split q, k, v (B_, nH, N, Dh);
+//   K8  mmde_tpu/ops/window_attention_slab.py::_fwd_body (driven by
+//       _pallas_forward), on the (B, Hp, Wp, 3C) map, windows read in place.
 // Same function, re-tiled for a GPU:
 //
 //   per (window b, head h):
@@ -13,14 +15,20 @@
 //          + bias[h] + mask[b % nW]
 //     o  = softmax(s) v
 //
-// q, k, v and the output are `Rows` (window_attention_common.cuh): a base
-// and (window, head, token) strides. The packed entry points read qkv
+// q, k, v and the output are layout structs (window_attention_common.cuh),
+// a template parameter of the kernel. The packed entry points read qkv
 // exactly as the Linear layer emits it, (B_, N, 3C) with the head's 32
 // channels at column  part*C + h*32, and write (B_, N, C); the head-split
 // entry points take the strides of the caller's (B_, nH, N, 32) views (the
 // model's permuted view of that same qkv: no copy) and write a contiguous
 // (B_, nH, N, 32). On a GPU the TPU's head-split layout is only a matter of
-// strides. bias is plain (nH, N, N), mask plain (nW, N, N); the ragged edge
+// strides. The slab entry points read q, k, v straight off the padded,
+// rolled (B, Hp, Wp, 3C) map and write the (B, Hp, Wp, C) map: no window
+// partition before the kernel and no reverse after it. The TPU slab
+// kernel's grid (nG, B, nwh), its static sublane slices and in-kernel
+// reshapes are Mosaic workarounds with no counterpart here; on a GPU the
+// map layout is only another address per token row (MapRows). bias is
+// plain (nH, N, N), mask plain (nW, N, N); the ragged edge
 // (N = 900 = 14*64 + 4, N = 225 = 3*64 + 33) is masked in the kernel, so
 // nothing is padded or packed on the host.
 //
@@ -42,8 +50,9 @@
 // fp32's normal range, e^-87), and a running row maximum with rescaling
 // (online softmax) for hotter heads, and for every head when the caller
 // says its bias is not bounded that way (maxfree = 0). The choice is
-// uniform over a block. The head-split entry points always pass maxfree = 0:
-// the TPU kernel they replace takes the row maximum for every head.
+// uniform over a block. The head-split and slab entry points always pass
+// maxfree = 0: the TPU kernels they replace take the row maximum for every
+// head.
 //
 // What bounds it on an H100 at the flagship shapes (Dh = 32, N = 900):
 // bytes are small - qkv read once and out written once (13 MB fp32 at
@@ -74,14 +83,14 @@ constexpr int P_LD = BK + 4;
 constexpr float LN100 = 4.605170185988091f;
 constexpr float MAXFREE_MAX_SCALE = 30.0f;
 
-// T: q / k / v / out element type; TB: bias / mask element type.
-template <typename T, typename TB, bool FASTEXP>
+// L: the operands' layout (Rows, MapRows); T: q / k / v / out element
+// type; TB: bias / mask element type.
+template <template <typename> class L, typename T, typename TB, bool FASTEXP>
 __global__ void __launch_bounds__(NT)
-window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
-                            Rows<const T> v,
+window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
                             const float* __restrict__ logit_scale,
                             const TB* __restrict__ bias,
-                            const TB* __restrict__ mask, Rows<T> out,
+                            const TB* __restrict__ mask, L<T> out,
                             float* __restrict__ lse, int N, int nW,
                             int maxfree) {
   __shared__ __align__(16) float sQt[DH * BQ];   // q^ transposed [d][row]
@@ -116,7 +125,7 @@ window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
     float x[DH];
     const int r = q0 + tid;
     if (r < N) {
-      load_row(q_bh + (size_t)r * q.sn, x);
+      load_row(q_bh + q.off(r), x);
       float ss = 0.0f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
@@ -147,7 +156,7 @@ window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
   // threads 0..63 load key rows, 64..127 value rows
   const bool is_k = tid < BK;
   const T* kv_bh = is_k ? k.head(b, h) : v.head(b, h);
-  const size_t kv_ld = is_k ? k.sn : v.sn;
+  const L<const T> kv = is_k ? k : v;
 
   for (int k0 = 0; k0 < N; k0 += BK) {
     __syncthreads();  // the previous step's reads of sKt / sV / sP are done
@@ -156,7 +165,7 @@ window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
       const int j = tid & (BK - 1);
       const int r = k0 + j;
       if (r < N) {
-        load_row(kv_bh + (size_t)r * kv_ld, x);
+        load_row(kv_bh + kv.off(r), x);
       } else {
 #pragma unroll
         for (int d = 0; d < DH; ++d) x[d] = 0.0f;
@@ -308,36 +317,53 @@ window_attention_fwd_kernel(Rows<const T> q, Rows<const T> k,
     const int row = q0 + lr;
     if (row < N) {
       const float den = sL[lr];  // > 0: see the note on the softmax
-      store4(out_b + (size_t)row * out.sn, o[r][0] / den, o[r][1] / den,
+      store4(out_b + out.off(row), o[r][0] / den, o[r][1] / den,
              o[r][2] / den, o[r][3] / den);
     }
   }
 }
 
-template <typename T, typename TB, bool FASTEXP>
-cudaError_t launch(const Rows<const T>& q, const Rows<const T>& k,
-                   const Rows<const T>& v, const void* ls, const void* bias,
-                   const void* mask, const Rows<T>& out, void* lse, int B_,
-                   int N, int nH, int nW, int maxfree, cudaStream_t stream) {
+template <template <typename> class L, typename T, typename TB,
+          bool FASTEXP>
+int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
+           const void* ls, const void* bias, const void* mask,
+           const L<T>& out, void* lse, int B_, int N, int nH, int nW,
+           int maxfree, cudaStream_t stream) {
+  if (!rows_aligned(q) || !rows_aligned(k) || !rows_aligned(v) ||
+      !rows_aligned(out))
+    return -1;
   dim3 grid((N + BQ - 1) / BQ, nH, B_);
-  window_attention_fwd_kernel<T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
+  window_attention_fwd_kernel<L, T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
       q, k, v, (const float*)ls, (const TB*)bias, (const TB*)mask, out,
       (float*)lse, N, nW, maxfree);
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
-// The operands' layout: `packed` = qkv (B_, N, 3C) and out (B_, N, C);
-// otherwise q, k, v with the nine host strides `st` (q, k, v: window, head,
-// token) and a contiguous out (B_, nH, N, DH).
+enum Layout { PACKED, STRIDED, MAP };
+
+// The operands' layout: PACKED = qkv (B_, N, 3C) and out (B_, N, C);
+// STRIDED = q, k, v with the nine host strides `st` (q, k, v: window, head,
+// token) and a contiguous out (B_, nH, N, DH); MAP = qkv (B, Hp, Wp, 3C) and
+// out (B, Hp, Wp, C), `st` = {Hp, Wp, ws}.
 template <typename T, typename TB, bool FASTEXP>
-int launch_layout(bool packed, const void* q, const void* k, const void* v,
-                  const long long* st, const void* ls, const void* bias,
-                  const void* mask, void* out, void* lse, int B_, int N,
-                  int nH, int nW, int maxfree, cudaStream_t stream) {
+int launch_layout(Layout layout, const void* q, const void* k,
+                  const void* v, const long long* st, const void* ls,
+                  const void* bias, const void* mask, void* out, void* lse,
+                  int B_, int N, int nH, int nW, int maxfree,
+                  cudaStream_t stream) {
   const int C = nH * DH;
+  if (layout == MAP) {
+    const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
+    return launch<MapRows, T, TB, FASTEXP>(
+        map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH),
+        map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH),
+        map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH), ls, bias, mask,
+        map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, B_, N, nH, nW,
+        maxfree, stream);
+  }
   Rows<const T> rq, rk, rv;
   Rows<T> ro;
-  if (packed) {
+  if (layout == PACKED) {
     rq = packed_rows((const T*)q, 0, N, C, 3, DH);
     rk = packed_rows((const T*)q, 1, N, C, 3, DH);
     rv = packed_rows((const T*)q, 2, N, C, 3, DH);
@@ -348,14 +374,11 @@ int launch_layout(bool packed, const void* q, const void* k, const void* v,
     rv = {(const T*)v, st[6], st[7], st[8]};
     ro = contiguous_rows((T*)out, nH, N, DH);
   }
-  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
-      !rows_aligned(ro))
-    return -1;
-  return (int)launch<T, TB, FASTEXP>(rq, rk, rv, ls, bias, mask, ro, lse, B_,
-                                     N, nH, nW, maxfree, stream);
+  return launch<Rows, T, TB, FASTEXP>(rq, rk, rv, ls, bias, mask, ro, lse,
+                                      B_, N, nH, nW, maxfree, stream);
 }
 
-int dispatch(bool packed, const void* q, const void* k, const void* v,
+int dispatch(Layout layout, const void* q, const void* k, const void* v,
              const long long* st, const void* ls, const void* bias,
              const void* mask, void* out, void* lse, int B_, int N, int nH,
              int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
@@ -363,16 +386,16 @@ int dispatch(bool packed, const void* q, const void* k, const void* v,
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (!qkv_bf16 && !bias_bf16)
-    return launch_layout<float, float, false>(packed, q, k, v, st, ls, bias,
+    return launch_layout<float, float, false>(layout, q, k, v, st, ls, bias,
                                               mask, out, lse, B_, N, nH, nW,
                                               maxfree, s);
   if (qkv_bf16 && bias_bf16)
     return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
-        packed, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
+        layout, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
         maxfree, s);
   if (qkv_bf16 && !bias_bf16)
     return launch_layout<__nv_bfloat16, float, true>(
-        packed, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
+        layout, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
         maxfree, s);
   return -1;
 }
@@ -391,7 +414,7 @@ extern "C" int mmde_window_attention_fwd_stats(
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
     int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
   if (C != nH * DH) return -1;
-  return dispatch(true, qkv, nullptr, nullptr, nullptr, logit_scale, bias,
+  return dispatch(PACKED, qkv, nullptr, nullptr, nullptr, logit_scale, bias,
                   mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16, maxfree,
                   stream);
 }
@@ -420,7 +443,7 @@ extern "C" int mmde_window_attention_headsplit_fwd_stats(
     void* lse, int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
     void* stream) {
   if (strides == nullptr) return -1;
-  return dispatch(false, q, k, v, (const long long*)strides, logit_scale,
+  return dispatch(STRIDED, q, k, v, (const long long*)strides, logit_scale,
                   bias, mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16,
                   0, stream);
 }
@@ -433,4 +456,38 @@ extern "C" int mmde_window_attention_headsplit_fwd(
   return mmde_window_attention_headsplit_fwd_stats(
       q, k, v, strides, logit_scale, bias, mask, out, nullptr, B_, N, nH, nW,
       qkv_bf16, bias_bf16, stream);
+}
+
+// Slab entries (K8's counterpart): qkv is the (B, Hp, Wp, 3C) map the qkv
+// Linear emits on the padded (and, for shifted blocks, rolled) feature map,
+// Hp and Wp multiples of ws; out is a (B, Hp, Wp, C) map of its type. The
+// kernels' windows are the B * (Hp/ws) * (Wp/ws) windows of the map, image-
+// major and row-major, N = ws*ws tokens each; `lse` (when not null) is
+// (B * nW, nH, N) in that window order, and a mask (nW, N, N) must hold one
+// row per window of an image (nW = (Hp/ws) * (Wp/ws)). Row maximum for
+// every head. The other arguments as for mmde_window_attention_fwd_stats.
+extern "C" int mmde_window_attention_slab_fwd_stats(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B, int Hp, int Wp, int C,
+    int nH, int ws, int qkv_bf16, int bias_bf16, void* stream) {
+  if (C != nH * DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
+      Hp % ws != 0 || Wp % ws != 0)
+    return -1;
+  const long long N = (long long)ws * ws;
+  const long long nW = (long long)(Hp / ws) * (Wp / ws);
+  if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
+  const long long geom[3] = {Hp, Wp, ws};
+  return dispatch(MAP, qkv, nullptr, nullptr, geom, logit_scale, bias, mask,
+                  out, lse, (int)(B * nW), (int)N, nH, (int)nW, qkv_bf16,
+                  bias_bf16, 0, stream);
+}
+
+extern "C" int mmde_window_attention_slab_fwd(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, int B, int Hp, int Wp, int C, int nH,
+    int ws, int qkv_bf16, int bias_bf16, void* stream) {
+  return mmde_window_attention_slab_fwd_stats(qkv, logit_scale, bias, mask,
+                                              out, nullptr, B, Hp, Wp, C, nH,
+                                              ws, qkv_bf16, bias_bf16,
+                                              stream);
 }

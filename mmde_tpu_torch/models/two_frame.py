@@ -79,17 +79,13 @@ def build_plan(cfg: ModelConfig) -> BuildPlan:
 
 def resolve_attn_impl(cfg: ModelConfig) -> str:
     """Attention implementation, resolved once at model build: an explicit
-    cfg.attn_impl wins ("cuda" | "torch", or the JAX package's "pallas" |
-    "xla" read as their counterparts); otherwise derived from
-    use_pallas_attention."""
+    cfg.attn_impl wins ("cuda" | "cuda_slab" | "torch", or the JAX package's
+    "pallas" | "pallas_slab" | "xla" read as their counterparts); otherwise
+    derived from use_pallas_attention."""
     if cfg.attn_impl:
-        impl = {"pallas": "cuda", "xla": "torch"}.get(cfg.attn_impl,
-                                                      cfg.attn_impl)
-        if impl == "pallas_slab":
-            raise NotImplementedError(
-                "the slab (map-layout) attention kernel is not ported yet "
-                "(ROADMAP Queue B, K8/K9)")
-        if impl not in ("cuda", "torch"):
+        impl = {"pallas": "cuda", "pallas_slab": "cuda_slab",
+                "xla": "torch"}.get(cfg.attn_impl, cfg.attn_impl)
+        if impl not in ("cuda", "cuda_slab", "torch"):
             raise ValueError(f"unknown attn_impl '{cfg.attn_impl}'")
         return impl
     return "cuda" if cfg.use_pallas_attention else "torch"

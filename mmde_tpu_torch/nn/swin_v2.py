@@ -5,7 +5,9 @@ Counterpart of mmde_tpu/nn/swin_v2.py:
   * cosine-similarity window attention with a learned log temperature clamped
     at ln(100), through mmde_tpu_torch.ops (plain PyTorch, or the CUDA
     kernels: packed where the JAX package's packed layout applies,
-    head-split elsewhere, stage by stage as there);
+    head-split elsewhere, stage by stage as there; with attn_impl
+    "cuda_slab", the JAX package's "pallas_slab", the slab kernels read the
+    windows straight off the map wherever its `slab_plan` admits a block);
   * continuous relative position bias: 2-layer MLP over a log-spaced
     relative-coordinate table, sigmoid output x16 (applied on the table);
   * split q/v bias with an implicit zero k bias;
@@ -18,21 +20,25 @@ Counterpart of mmde_tpu/nn/swin_v2.py:
     fp32 LayerNorm on the outputs.
 
 Every stage runs the map path (pad -> roll -> partition -> attention ->
-reverse -> roll back -> crop, per block). The JAX package's window residency
-on padded maps (`resident_pad_max`) and its `scan_blocks` layout are
-accepted as arguments and ignored: residency matches the map path at real
-token positions, scanning only shrinks an XLA graph.
+reverse -> roll back -> crop, per block); a slab block (attn_impl
+"cuda_slab", `slab_plan` not None) drops the partition and the reverse:
+pad -> roll -> attention on the map -> roll back -> crop, as the JAX
+package's slab blocks do. The JAX package's window residency on padded maps
+(`resident_pad_max`) and its `scan_blocks` layout are accepted as arguments
+and ignored: residency matches the map path at real token positions (and
+the JAX package keeps the per-block path for "pallas_slab" anyway), scanning
+only shrinks an XLA graph.
 
-Training: gradients flow through both attention implementations (the CUDA
-forward and backward kernels for "cuda" on CUDA tensors). Rematerialisation
-follows `use_checkpoint` (per stage) and `remat_policy`: "none" keeps every
-activation (the flagship's setting), "full" recomputes each block in the
-backward (torch.utils.checkpoint, non-reentrant; the block's drop-path masks
-are drawn outside the recomputed region so both runs see one draw),
-"mlp_only" recomputes the MLP alone. "attn_out" / "attn_qkv" save named
-intermediates of a block under an XLA remat policy, which eager PyTorch has
-no counterpart for: they raise when a training forward reaches them. Remat
-changes memory, never values.
+Training: gradients flow through every attention implementation (the CUDA
+forward and backward kernels for "cuda" and "cuda_slab" on CUDA tensors).
+Rematerialisation follows `use_checkpoint` (per stage) and `remat_policy`:
+"none" keeps every activation (the flagship's setting), "full" recomputes
+each block in the backward (torch.utils.checkpoint, non-reentrant; the
+block's drop-path masks are drawn outside the recomputed region so both
+runs see one draw), "mlp_only" recomputes the MLP alone. "attn_out" /
+"attn_qkv" save named intermediates of a block under an XLA remat policy,
+which eager PyTorch has no counterpart for: they raise when a training
+forward reaches them. Remat changes memory, never values.
 
 Parameter names follow the reference PyTorch implementation
 (`layers.0.blocks.0.attn.qkv.weight`, `attn.rpe_mlp.0/2`, `norm3.weight`).
@@ -55,9 +61,12 @@ from mmde_tpu_torch.ops.window_attention_headsplit import (
     cosine_window_attention_headsplit)
 from mmde_tpu_torch.ops.window_attention_packed import (
     HEAD_DIM, cosine_window_attention_packed, packed_layout_ok)
+from mmde_tpu_torch.ops.window_attention_slab import (
+    cosine_window_attention_slab, slab_plan, window_partition,
+    window_reverse)
 
 _REMAT_POLICIES = ("full", "attn_out", "attn_qkv", "mlp_only", "none")
-ATTN_IMPLS = ("torch", "cuda")
+ATTN_IMPLS = ("torch", "cuda", "cuda_slab")
 
 
 # ---------------------------------------------------------------------------
@@ -111,22 +120,6 @@ def relative_position_index(window_size: Tuple[int, int]) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)
 
 
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nW, ws*ws, C). H, W must be multiples of ws."""
-    B, H, W, C = x.shape
-    x = x.reshape(B, H // ws, ws, W // ws, ws, C)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, C)
-
-
-def window_reverse(windows: torch.Tensor, ws: int, H: int,
-                   W: int) -> torch.Tensor:
-    """(B*nW, ws*ws, C) -> (B, H, W, C)."""
-    C = windows.shape[-1]
-    B = windows.shape[0] // ((H // ws) * (W // ws))
-    x = windows.reshape(B, H // ws, W // ws, ws, ws, C)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
-
-
 def rpe_bias_from_table(table: torch.Tensor, Wh: int,
                         Ww: int) -> torch.Tensor:
     """Expand a ((2Wh-1)(2Ww-1), nH) relative-position table to the
@@ -172,14 +165,21 @@ def pad_keep_mask(H: int, W: int, Hp: int, Wp: int, ws: int,
 # ---------------------------------------------------------------------------
 
 class WindowAttention(nn.Module):
-    """W-MSA with cosine attention + continuous RPE on (B*nW, N, C) windows.
+    """W-MSA with cosine attention + continuous RPE on (B*nW, N, C) windows,
+    or on the (B, Hp, Wp, C) map for the slab kernels.
 
     attn_impl "cuda" sends cosine attention to a fused kernel (for CUDA
     tensors; its plain version for CPU tensors), chosen as the JAX package
     chooses for "pallas": `cosine_window_attention_packed` on qkv as the
     Linear emits it where `packed_layout_ok` (C a multiple of 128, heads in
     whole 128-lane groups), `cosine_window_attention_headsplit` on split
-    heads elsewhere. "torch" splits heads and runs the plain functions of
+    heads elsewhere. "cuda_slab" routes windows exactly so, and takes a
+    rank-4 map (SwinBlock hands one over where `slab_plan` admits the block)
+    to `cosine_window_attention_slab`: the qkv Linear and the q/v bias run on
+    the padded map (pointwise over C, so they commute with windowing), the
+    kernels read each window off it, `proj` runs on the output map, and bias
+    and mask stay float32 whatever the model's type, as the JAX slab path
+    keeps them. "torch" splits heads and runs the plain functions of
     ops.window_attention. attn_type "normal" has no kernel in either package
     and always takes the plain function.
     """
@@ -197,10 +197,10 @@ class WindowAttention(nn.Module):
                              f"{attn_impl!r}")
         if attn_type not in ("cosine_mh", "normal"):
             raise NotImplementedError(attn_type)
-        if (attn_impl == "cuda" and attn_type == "cosine_mh"
+        if (attn_impl != "torch" and attn_type == "cosine_mh"
                 and dim // num_heads != HEAD_DIM):
             raise NotImplementedError(
-                f"attn_impl='cuda' needs head_dim {HEAD_DIM}, got "
+                f"attn_impl={attn_impl!r} needs head_dim {HEAD_DIM}, got "
                 f"{dim}/{num_heads}")
         self.dim = dim
         self.window_size = tuple(window_size)
@@ -295,9 +295,13 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B_, N, C = x.shape
+        """x: (B*nW, N, C) windows, or - slab blocks only - the padded,
+        rolled (B, Hp, Wp, C) map; returns the same layout."""
         nH = self.num_heads
-        Dh = C // nH
+        if x.dim() == 4 and not (self.attn_impl == "cuda_slab"
+                                 and self.attn_type == "cosine_mh"):
+            raise ValueError("a (B, Hp, Wp, C) map goes to the slab kernels "
+                             "only: attn_impl='cuda_slab', cosine attention")
         qkv = self.qkv(x)
         if self.q_bias is not None:
             # k has no bias: concat(q_bias, 0, v_bias) after a bias-free Linear
@@ -305,8 +309,16 @@ class WindowAttention(nn.Module):
                                   self.v_bias]).to(qkv.dtype)
             qkv = qkv + bias_vec
         bias = self.rpe_bias()
+        if x.dim() == 4:
+            # float32 bias and mask, as the JAX slab path keeps them
+            return self.proj(cosine_window_attention_slab(
+                qkv, self.logit_scale, bias, mask, num_heads=nH,
+                window_size=self.window_size[0]))
 
-        fused = self.attn_type == "cosine_mh" and self.attn_impl == "cuda"
+        B_, N, C = x.shape
+        Dh = C // nH
+        fused = (self.attn_type == "cosine_mh"
+                 and self.attn_impl in ("cuda", "cuda_slab"))
         if fused and packed_layout_ok(N, nH, Dh, C):
             if self.dtype == torch.bfloat16:
                 # bf16 models stream bias and mask in bf16 on the packed path
@@ -337,7 +349,12 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     """One Swin block (post-norm default / pre-norm + layerscale variant) on
     an NHWC map: pad bottom/right with zeros -> roll (-ss, -ss) -> partition
-    -> attention -> reverse -> roll back -> crop."""
+    -> attention -> reverse -> roll back -> crop. A slab block (attn_impl
+    "cuda_slab", cosine attention, `slab_plan` not None for its window, map
+    width and heads) hands the rolled map to attention whole: no partition,
+    no reverse (the JAX package's `use_slab`). Elsewhere "cuda_slab" takes
+    the windows path and routes as "cuda" does, as the JAX package routes
+    "pallas_slab" there."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
@@ -407,9 +424,15 @@ class SwinBlock(nn.Module):
             attn_mask = mask
         else:
             attn_mask = None
-        windows = window_partition(x, ws)                # (B*nW, ws*ws, C)
-        attn = self.attn(windows, attn_mask)
-        x = window_reverse(attn, ws, Hp, Wp)
+        nH = self.attn.num_heads
+        if (self.attn.attn_impl == "cuda_slab"
+                and self.attn.attn_type == "cosine_mh"
+                and slab_plan(ws, Wp, nH, C // nH, C) is not None):
+            x = self.attn(x, attn_mask)                  # the map, in place
+        else:
+            windows = window_partition(x, ws)            # (B*nW, ws*ws, C)
+            attn = self.attn(windows, attn_mask)
+            x = window_reverse(attn, ws, Hp, Wp)
         if ss > 0:
             x = torch.roll(x, (ss, ss), dims=(1, 2))
         if pad_b or pad_r:
@@ -525,7 +548,11 @@ _DOWNSAMPLE = {"merge": PatchMerging, "reduce1c": PatchReduction1C,
 
 class BasicLayer(nn.Module):
     """One Swin stage: blocks (alternating shift) + optional downsample.
-    forward(x NHWC) -> (stage output, downsampled output)."""
+    forward(x NHWC) -> (stage output, downsampled output). Every block runs
+    on the map (pad, roll and the rest per block), which is what the JAX
+    package's stage does for "pallas_slab" (no window residency there): the
+    slab blocks need nothing of the stage beyond the cached mask, whose rows
+    are in the kernels' window order."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,

@@ -39,19 +39,24 @@ LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
 LAUNCHES_BWD = 0        # incremented once per backward launch (all its passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
 
-# How the backward sums ds over windows into dbias. "window_resident": fp32
-# atomics from the dk/dv pass (the TPU kernel's default grid dumps ds per
-# window there and sums outside). "split": a pass of its own with windows
-# innermost and no atomics (the TPU package's grid_mode="split" / its
-# _pallas_dbias kernel): slower, but dbias is the same bits on every run.
-# As in the TPU package the model never passes grid_mode: MMDE_ATTN_GRID
-# chooses it for a whole process and is read once, here at import.
-GRID_MODES = ("window_resident", "split")
+# The JAX package's three grid modes. The forward is the same function
+# under each (K1 here whatever the mode); they differ in the backward, in how
+# ds is summed over windows into dbias. "window_resident": fp32 atomics from
+# the dk/dv pass (the TPU kernel's default grid dumps ds per window there and
+# sums outside). "split": a pass of its own with windows innermost and no
+# atomics (the TPU package's grid_mode="split" / its _pallas_dbias kernel):
+# slower, but dbias is the same bits on every run. "bias_resident": the TPU
+# package's single-pass backward (its _pallas_backward_v4 kernel, K4), not
+# ported yet - a backward under it raises. As in the TPU package the model
+# never passes grid_mode: MMDE_ATTN_GRID chooses it for a whole process and
+# is read once, here at import.
+GRID_MODES = ("window_resident", "split", "bias_resident")
 DEFAULT_GRID_MODE = os.environ.get("MMDE_ATTN_GRID", "window_resident")
 if DEFAULT_GRID_MODE not in GRID_MODES:
     raise ValueError(
         f"MMDE_ATTN_GRID={DEFAULT_GRID_MODE!r} is not one of {GRID_MODES}")
 _DBIAS_MODE = {"window_resident": 1, "split": 2}
+BACKWARD_GRID_MODES = tuple(_DBIAS_MODE)    # the modes with a backward here
 
 _LIB_NAME = "window_attention_fwd"
 _SOURCES = ("window_attention_fwd.cu",)
@@ -328,6 +333,12 @@ class _PackedWindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.grid_mode not in BACKWARD_GRID_MODES:
+            raise NotImplementedError(
+                f"grid_mode={ctx.grid_mode!r} (MMDE_ATTN_GRID) takes the TPU "
+                "package's single-pass backward, kernel K4, which is not "
+                "ported yet (ROADMAP Queue B, K4); unset MMDE_ATTN_GRID or "
+                f"choose one of {BACKWARD_GRID_MODES}")
         qkv, logit_scale, bias, mask, lse = ctx.saved_tensors
         need_qkv, need_ls, need_bias = ctx.needs_input_grad[:3]
         g = g.contiguous()
@@ -371,7 +382,8 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
     grid_mode: how the backward sums ds over windows into dbias, one of
     GRID_MODES (None = DEFAULT_GRID_MODE, which the MMDE_ATTN_GRID
     environment variable sets); the values agree up to the order of an fp32
-    sum.
+    sum. The forward is the same under every mode; a backward under
+    "bias_resident" (kernel K4, not ported) raises NotImplementedError.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. When a gradient is recorded the forward kernel also writes

@@ -1,0 +1,373 @@
+"""Fused cosine window attention straight off the (B, Hp, Wp, 3C) map.
+
+Counterpart of mmde_tpu/ops/window_attention_slab.py: its forward kernel
+(`_fwd_body`, K8) and its backward kernel (`_bwd_body`, K9), behind one
+`torch.autograd.Function`. `cosine_window_attention_slab` takes the qkv map
+the qkv Linear emits on the padded (and, in a shifted block, rolled) feature
+map, the per-head log temperature, the relative-position bias as plain
+(nH, N, N) and the shifted-window mask as plain (nW, N, N), and returns the
+(B, Hp, Wp, C) map: the model runs no window partition before attention and
+no reverse after it. The TPU package's head-group bias packing
+(`pack_rpe_bias_slab`) is TPU tiling and has no counterpart here.
+
+The CUDA kernels are the packed kernels' bodies (csrc/window_attention_fwd.cu,
+csrc/window_attention_bwd.cu) reached through slab entry points that address
+each window's token rows in the map (`MapRows`,
+csrc/window_attention_common.cuh); on a GPU the map layout is only another
+address per row, where the TPU kernel needed static sublane slices and
+in-kernel reshapes. As the TPU kernel, the forward keeps a running row
+maximum for every head (no max-free softmax) and takes bias and mask in
+float32 whatever the model's type; the backward sums dbias over windows in
+fp32 (by atomics here, in the resident output block there), gives
+`dlogit_scale` zero where the ln(100) clamp binds and the mask no gradient.
+
+For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
+it computes `cosine_window_attention_slab_plain` and, under autograd,
+`cosine_window_attention_slab_backward_plain` - the window partition, the
+head-split module's plain function, and the reverse - which are also what the
+kernels are compared with on the card. `LAUNCHES` / `LAUNCHES_BWD` count
+kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from mmde_tpu_torch.ops.window_attention_headsplit import (
+    HEAD_DIM, cosine_window_attention_headsplit_backward_plain,
+    cosine_window_attention_headsplit_plain)
+
+LAUNCHES = 0            # incremented once per forward-kernel launch
+LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B*nW, N, C, nH)
+LAUNCHES_BWD = 0        # incremented once per backward launch (both passes)
+LAUNCHES_BWD_BY_SHAPE: dict = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# qkv, logit_scale, bias, mask, out [, lse]; B, Hp, Wp, C, nH, ws, qkv_bf16,
+# bias_bf16; stream
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
+_FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+# qkv, logit_scale, bias, mask, lse, g, dqkv, delta, dls_part, dbias; B, Hp,
+# Wp, C, nH, ws, qkv_bf16, bias_bf16, dbias_mode; stream
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+
+# The JAX package's slab test, copied (not imported) so both packages send
+# the same blocks to the slab kernel: None when C is not a multiple of 128,
+# Dh does not divide 128 or the heads do not fill whole 128-lane groups, and
+# when a cell's TPU VMEM estimate exceeds 100 MiB (a map wider than ~480
+# tokens at window 30). That budget is the TPU's and means nothing on a GPU;
+# it is kept for routing parity only.
+_VMEM_CAP = 100 * 1024 * 1024
+
+
+def slab_plan(ws: int, Wp: int, num_heads: int, head_dim: int,
+              channels: int):
+    """(HG, nG) or None when the slab layout is unusable: the JAX package's
+    `slab_plan`. A block takes the slab kernels where it is not None."""
+    if channels % 128 != 0 or 128 % head_dim != 0:
+        return None
+    hg = 128 // head_dim
+    if num_heads % hg != 0:
+        return None
+    n = ws * ws
+    cell = 2 * n * hg * n * 4 + 6 * n * n * 4 + 8 * ws * Wp * 128 * 4
+    if cell > _VMEM_CAP:
+        return None
+    return hg, num_heads // hg
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nW, ws*ws, C), windows image-major and row-major.
+    H, W must be multiples of ws."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // ws, ws, W // ws, ws, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, C)
+
+
+def window_reverse(windows: torch.Tensor, ws: int, H: int,
+                   W: int) -> torch.Tensor:
+    """(B*nW, ws*ws, C) -> (B, H, W, C)."""
+    C = windows.shape[-1]
+    B = windows.shape[0] // ((H // ws) * (W // ws))
+    x = windows.reshape(B, H // ws, W // ws, ws, ws, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
+
+
+def _library(bwd: bool) -> ctypes.CDLL:
+    """The library the packed module builds (the same sources hold every
+    layout's entry points), with the slab entries' signatures set."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    lib = wap._library_bwd() if bwd else wap._library()
+    entries = ((("mmde_window_attention_slab_bwd", _BWD_ARGTYPES),) if bwd
+               else (("mmde_window_attention_slab_fwd", _FWD_ARGTYPES),
+                     ("mmde_window_attention_slab_fwd_stats",
+                      _FWD_STATS_ARGTYPES)))
+    for name, types in entries:
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(qkv_map, logit_scale, bias, mask, num_heads, window_size):
+    if qkv_map.dim() != 4 or qkv_map.shape[-1] % 3:
+        raise ValueError(f"qkv_map must be (B, Hp, Wp, 3C), got "
+                         f"{tuple(qkv_map.shape)}")
+    B, Hp, Wp, C3 = qkv_map.shape
+    C, ws = C3 // 3, window_size
+    if ws <= 0 or Hp % ws or Wp % ws:
+        raise ValueError(f"the map ({Hp}, {Wp}) is not a whole number of "
+                         f"{ws} x {ws} windows")
+    if C % num_heads or C // num_heads != HEAD_DIM:
+        raise NotImplementedError(
+            f"the window-attention kernel takes head_dim {HEAD_DIM} only "
+            f"(C={C}, num_heads={num_heads})")
+    if qkv_map.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qkv_map must be float32 or bfloat16, got "
+                        f"{qkv_map.dtype}")
+    if logit_scale.dtype != torch.float32 or logit_scale.numel() != num_heads:
+        raise ValueError("logit_scale must be float32 with one entry per "
+                         f"head, got {logit_scale.dtype} "
+                         f"{tuple(logit_scale.shape)}")
+    N, nW = ws * ws, (Hp // ws) * (Wp // ws)
+    if tuple(bias.shape) != (num_heads, N, N):
+        raise ValueError(f"bias must be ({num_heads}, {N}, {N}), got "
+                         f"{tuple(bias.shape)}")
+    if bias.dtype not in (torch.float32, qkv_map.dtype):
+        raise TypeError(f"bias must be float32 or qkv_map's type, got "
+                        f"{bias.dtype} for {qkv_map.dtype} qkv_map")
+    tensors = [("qkv_map", qkv_map), ("logit_scale", logit_scale),
+               ("bias", bias)]
+    if mask is not None:
+        if tuple(mask.shape) != (nW, N, N):
+            raise ValueError(f"mask must be ({nW}, {N}, {N}): one row per "
+                             f"window of an image, got {tuple(mask.shape)}")
+        if mask.dtype != bias.dtype:
+            raise TypeError(f"mask ({mask.dtype}) and bias ({bias.dtype}) "
+                            "must share a type")
+        tensors.append(("mask", mask))
+    for name, t in tensors:
+        if t.device != qkv_map.device:
+            raise ValueError(f"{name} is on {t.device}, qkv_map on "
+                             f"{qkv_map.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _heads(win: torch.Tensor, parts: int, nH: int) -> torch.Tensor:
+    """(B_, N, parts*C) windows -> (parts, B_, nH, N, Dh), a view."""
+    B_, N, W = win.shape
+    return win.reshape(B_, N, parts, nH, W // parts // nH).permute(
+        2, 0, 3, 1, 4)
+
+
+def cosine_window_attention_slab_plain(
+        qkv_map: torch.Tensor, logit_scale: torch.Tensor, bias: torch.Tensor,
+        mask: Optional[torch.Tensor] = None, *, num_heads: int,
+        window_size: int, compute_dtype: torch.dtype = torch.float32
+        ) -> torch.Tensor:
+    """The forward kernel's function in plain PyTorch, on any device: the
+    window partition of the map, the head-split plain function (in
+    `compute_dtype`; float64 gives the ground truth the kernels' gradients
+    are checked against), and the reverse. Output in qkv_map's type."""
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws = window_size
+    q, k, v = _heads(window_partition(qkv_map, ws), 3, num_heads)
+    o = cosine_window_attention_headsplit_plain(
+        q, k, v, logit_scale, bias, mask, compute_dtype=compute_dtype)
+    o = o.permute(0, 2, 1, 3).reshape(-1, ws * ws, C3 // 3)
+    return window_reverse(o, ws, Hp, Wp)
+
+
+def cosine_window_attention_slab_backward_plain(
+        qkv_map: torch.Tensor, logit_scale: torch.Tensor, bias: torch.Tensor,
+        mask: Optional[torch.Tensor], g: torch.Tensor, *, num_heads: int,
+        window_size: int, compute_dtype: torch.dtype = torch.float32
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in plain PyTorch, on any device: the
+    head-split plain backward on the partitioned map and gradient, the
+    result reversed into a map. g is the gradient of the output,
+    (B, Hp, Wp, C). Returns dqkv (B, Hp, Wp, 3C) in qkv_map's type,
+    dlogit_scale in logit_scale's shape (`compute_dtype`; zero where the
+    ln(100) clamp binds) and dbias in bias's type; the mask gets no
+    gradient."""
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws = window_size
+    q, k, v = _heads(window_partition(qkv_map, ws), 3, num_heads)
+    gw = _heads(window_partition(g, ws), 1, num_heads)[0]
+    dq, dk, dv, dls, dbias = cosine_window_attention_headsplit_backward_plain(
+        q, k, v, logit_scale, bias, mask, gw, compute_dtype=compute_dtype)
+    dqkv = torch.stack([dq, dk, dv], dim=0).permute(1, 3, 0, 2, 4)
+    dqkv = window_reverse(dqkv.reshape(-1, ws * ws, C3), ws, Hp, Wp)
+    return dqkv, dls, dbias.to(bias.dtype)
+
+
+def _shape_args(qkv_map, bias, num_heads, window_size):
+    B, Hp, Wp, C3 = qkv_map.shape
+    return (B, Hp, Wp, C3 // 3, num_heads, window_size,
+            int(qkv_map.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16))
+
+
+def _count(by_shape: dict, qkv_map, num_heads, window_size) -> None:
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws = window_size
+    key = (B * (Hp // ws) * (Wp // ws), ws * ws, C3 // 3, num_heads)
+    by_shape[key] = by_shape.get(key, 0) + 1
+
+
+def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
+                    want_stats):
+    """Launch the forward kernel; returns (out map, lse or None)."""
+    global LAUNCHES
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws = window_size
+    if qkv_map.data_ptr() % 16:
+        raise ValueError("qkv_map must be 16-byte aligned for the kernel's "
+                         "vector loads")
+    lib = _library(bwd=False)
+    dev = qkv_map.device
+    out = torch.empty((B, Hp, Wp, C3 // 3), dtype=qkv_map.dtype, device=dev)
+    B_ = B * (Hp // ws) * (Wp // ws)
+    lse = (torch.empty((B_, num_heads, ws * ws), dtype=torch.float32,
+                       device=dev) if want_stats else None)
+    mask_ptr = mask.data_ptr() if mask is not None else None
+    args = _shape_args(qkv_map, bias, num_heads, ws)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if want_stats:
+            err = lib.mmde_window_attention_slab_fwd_stats(
+                qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, out.data_ptr(), lse.data_ptr(), *args, stream)
+        else:
+            err = lib.mmde_window_attention_slab_fwd(
+                qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, out.data_ptr(), *args, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_slab_fwd launch failed with code {err} "
+            f"(map {tuple(qkv_map.shape)}, nH={num_heads}, ws={ws}, "
+            f"{qkv_map.dtype})")
+    LAUNCHES += 1
+    _count(LAUNCHES_BY_SHAPE, qkv_map, num_heads, ws)
+    return out, lse
+
+
+def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
+                     window_size, want_dbias):
+    """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
+    or None)."""
+    global LAUNCHES_BWD
+    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws, nH, N = window_size, num_heads, window_size * window_size
+    if g.dtype != qkv_map.dtype or tuple(g.shape) != (B, Hp, Wp, C3 // 3):
+        raise ValueError(f"g must be {(B, Hp, Wp, C3 // 3)} {qkv_map.dtype}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    if qkv_map.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("qkv_map and g must be 16-byte aligned for the "
+                         "kernel's vector loads")
+    lib = _library(bwd=True)
+    dev = qkv_map.device
+    B_ = B * (Hp // ws) * (Wp // ws)
+    dqkv = torch.empty_like(qkv_map)
+    delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
+    dls_part = torch.empty((B_ * -(-N // BWD_TILE), nH), dtype=torch.float64,
+                           device=dev)
+    # atomics add into dbias (the packed backward's default dbias mode)
+    dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
+             if want_dbias else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mmde_window_attention_slab_bwd(
+            qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, lse.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+            dls_part.data_ptr(),
+            dbias.data_ptr() if dbias is not None else None,
+            *_shape_args(qkv_map, bias, nH, ws), int(want_dbias), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_slab_bwd launch failed with code {err} "
+            f"(map {tuple(qkv_map.shape)}, nH={nH}, ws={ws}, "
+            f"{qkv_map.dtype})")
+    LAUNCHES_BWD += 1
+    _count(LAUNCHES_BWD_BY_SHAPE, qkv_map, nH, ws)
+    dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
+    return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
+
+
+class _SlabWindowAttention(torch.autograd.Function):
+    """K8 forward (saving each row's log-sum-exp) and K9 backward for CUDA
+    tensors; the plain forward and the plain backward for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, qkv_map, logit_scale, bias, mask, num_heads,
+                window_size):
+        ctx.num_heads, ctx.window_size = num_heads, window_size
+        if qkv_map.is_cuda:
+            out, lse = _launch_forward(qkv_map, logit_scale, bias, mask,
+                                       num_heads, window_size,
+                                       want_stats=True)
+        else:
+            out = cosine_window_attention_slab_plain(
+                qkv_map, logit_scale, bias, mask, num_heads=num_heads,
+                window_size=window_size)
+            lse = None
+        ctx.save_for_backward(qkv_map, logit_scale, bias, mask, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv_map, logit_scale, bias, mask, lse = ctx.saved_tensors
+        need_qkv, need_ls, need_bias = ctx.needs_input_grad[:3]
+        g = g.contiguous()
+        if qkv_map.is_cuda:
+            dqkv, dls, dbias = _launch_backward(
+                qkv_map, logit_scale, bias, mask, lse, g, ctx.num_heads,
+                ctx.window_size, want_dbias=need_bias)
+        else:
+            dqkv, dls, dbias = cosine_window_attention_slab_backward_plain(
+                qkv_map, logit_scale, bias, mask, g, num_heads=ctx.num_heads,
+                window_size=ctx.window_size)
+        # the mask is a constant of the window layout: no gradient
+        return (dqkv if need_qkv else None, dls if need_ls else None,
+                dbias if need_bias else None, None, None, None)
+
+
+def cosine_window_attention_slab(qkv_map: torch.Tensor,
+                                 logit_scale: torch.Tensor,
+                                 bias: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None,
+                                 *, num_heads: int, window_size: int
+                                 ) -> torch.Tensor:
+    """Map-in / map-out fused cosine window attention, differentiable in
+    qkv_map, logit_scale and bias.
+
+    qkv_map: (B, Hp, Wp, 3C) float32 or bfloat16, contiguous, Hp and Wp
+    multiples of window_size (pre-rolled for shifted blocks); logit_scale:
+    (nH, 1, 1) float32; bias: (nH, N, N), float32 (as the model passes it)
+    or qkv_map's type; mask: (nW, N, N) of bias's type or None, one row per
+    window of an image in row-major window order. Returns (B, Hp, Wp, C) in
+    qkv_map's type.
+
+    CUDA tensors launch the kernels (or raise); CPU tensors take the plain
+    versions. When a gradient is recorded the forward kernel also writes
+    each row's log-sum-exp, which the backward kernel rebuilds the
+    probabilities from; without one (serving) it writes the output alone.
+    """
+    _check(qkv_map, logit_scale, bias, mask, num_heads, window_size)
+    if torch.is_grad_enabled() and (qkv_map.requires_grad
+                                    or logit_scale.requires_grad
+                                    or bias.requires_grad):
+        return _SlabWindowAttention.apply(qkv_map, logit_scale, bias, mask,
+                                          num_heads, window_size)
+    if not qkv_map.is_cuda:
+        return cosine_window_attention_slab_plain(
+            qkv_map, logit_scale, bias, mask, num_heads=num_heads,
+            window_size=window_size)
+    return _launch_forward(qkv_map, logit_scale, bias, mask, num_heads,
+                           window_size, want_stats=False)[0]

@@ -8,22 +8,53 @@ so one copy of the script times two trees in turns on one card (unpack the
 other tree with `git archive` into a gitignored directory and pass it as
 --tree). Per stage of swin_base_v2 + decoder_v2 at 480x640, bfloat16, masked
 where the stage shifts: the packed forward as served (1 frame pair), the
-forward with its log-sum-exp and the backward as trained (2 pairs); and,
-where the tree has the head-split kernels, swin_large_v2's stage 1 the same
-way. Each time is the CUDA-event time of `--reps` back-to-back launches
-divided by their number (after a warm-up), so host overhead between
-launches hides behind the queue. Prints one JSON line per case, then the
-card's name and power limit.
+forward with its log-sum-exp and the backward as trained (2 pairs); where
+the tree has the head-split kernels, swin_large_v2's stage 1 the same way;
+and, where it has the slab kernels, the flagship's four stage maps through
+them (float32 bias and mask, as the slab path streams them). Each time is
+the CUDA-event time of `--reps` back-to-back launches divided by their
+number (after a warm-up), so host overhead between launches hides behind
+the queue. Prints one JSON line per case, one line
+with each compiled kernel's registers and spills as ptxas reports them,
+then the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of an `nvcc -Xptxas -v` log: its demangled name
+    (template arguments kept, parameters dropped), registers, spills and
+    shared memory."""
+    names, stats, cur, spill = [], [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and cur:
+            names.append(cur)
+            stats.append(line.split(":", 1)[1].strip()
+                         + (f"; {spill}" if spill else ""))
+            cur = None
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = out.splitlines()
+    short = [re.sub(r"\(anonymous namespace\)::|void ", "", n) for n in names]
+    short = [n[:n.rfind(">(") + 1] if ">(" in n else n for n in short]
+    return [f"{n}: {st}" for n, st in zip(short, stats)]
 
 
 def _time(fn, reps: int) -> float:
@@ -103,10 +134,43 @@ def bench_headsplit(shape, pairs, reps, gen) -> dict:
     return rec
 
 
+def bench_slab(stage, pairs, reps, gen) -> dict:
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    Hp, Wp, C, nH, ws, masked = stage
+    B, N = 2 * pairs, ws * ws
+    nW = (Hp // ws) * (Wp // ws)
+    qkv, ls, bias, mask, g = _inputs(B * nW, N, C, nH, nW if masked else 0,
+                                     gen)
+    qkv, g = qkv.reshape(B, Hp, Wp, 3 * C), g.reshape(B, Hp, Wp, C)
+    rec = {"kernel": "slab", "map": [B, Hp, Wp], "B_": B * nW, "N": N,
+           "C": C, "nH": nH, "nW": nW if masked else 0}
+    if pairs == 1:
+        rec["fwd_ms"] = _time(lambda: was._launch_forward(
+            qkv, ls, bias, mask, nH, ws, False), reps)
+        return rec
+    rec["fwd_lse_ms"] = _time(lambda: was._launch_forward(
+        qkv, ls, bias, mask, nH, ws, True), reps)
+    lse = was._launch_forward(qkv, ls, bias, mask, nH, ws, True)[1]
+    rec["bwd_ms"] = _time(lambda: was._launch_backward(
+        qkv, ls, bias, mask, lse, g, nH, ws, True), reps)
+    rec["bwd_no_dbias_ms"] = _time(lambda: was._launch_backward(
+        qkv, ls, bias, mask, lse, g, nH, ws, False), reps)
+    return rec
+
+
 # (B_ per frame pair, N, C, nH, nW) of each stage at 480x640
 BASE_STAGES = ((48, 900, 128, 4, 24), (12, 900, 256, 8, 6),
                (4, 900, 512, 16, 0), (4, 225, 1024, 32, 0))
 LARGE_STAGE1 = (48, 900, 192, 6, 24)
+# (Hp, Wp, C, nH, ws, masked) of each stage's padded map at 480x640
+BASE_SLAB_STAGES = ((120, 180, 128, 4, 30, True), (60, 90, 256, 8, 30, True),
+                    (30, 60, 512, 16, 30, False),
+                    (15, 30, 1024, 32, 15, False))
+
+
+def _has(module: str) -> bool:
+    import importlib.util
+    return importlib.util.find_spec(module) is not None
 
 
 def main(argv=None) -> int:
@@ -123,19 +187,25 @@ def main(argv=None) -> int:
     import mmde_tpu_torch
     from mmde_tpu_torch.ops import window_attention_packed as wap
     tree = os.path.dirname(os.path.dirname(mmde_tpu_torch.__file__))
-    wap.build_kernels()
+    builds = wap.build_kernels()
+    print(json.dumps({"tree": tree, "ptxas": [
+        ln for b in builds.values() for ln in ptxas_summary(b["log"])]}),
+        flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     for pairs in (1, 2):
         for shape in BASE_STAGES:
             rec = bench_packed(shape, pairs, args.reps, gen)
             print(json.dumps({"tree": tree, **rec}), flush=True)
-        try:
-            import mmde_tpu_torch.ops.window_attention_headsplit  # noqa
-        except ImportError:
-            continue
-        rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen)
-        print(json.dumps({"tree": tree, **rec}), flush=True)
+        if _has("mmde_tpu_torch.ops.window_attention_headsplit"):
+            rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen)
+            print(json.dumps({"tree": tree, **rec}), flush=True)
+    if _has("mmde_tpu_torch.ops.window_attention_slab"):
+        # after the others, so that their inputs do not depend on the tree
+        for pairs in (1, 2):
+            for stage in BASE_SLAB_STAGES:
+                rec = bench_slab(stage, pairs, args.reps, gen)
+                print(json.dumps({"tree": tree, **rec}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -3,26 +3,29 @@
 
     python -m mmde_tpu_torch.tools.train_steps --steps 5 [--batch 2] \\
         [--config cfg.yaml | --backbone swin_large_v2] \\
-        [--height 480 --width 640] [--seed 0] [--deterministic] \\
-        [--device cuda]
+        [--attn-impl pallas_slab] [--height 480 --width 640] [--seed 0] \\
+        [--deterministic] [--device cuda]
 
 Builds the model of the config (default: the flagship, swin_base_v2 +
 decoder_v2 in bfloat16; `--backbone` swaps the flagship's encoder for
 another swin variant at the same windows and depths, e.g. swin_large_v2,
-whose first stage runs the head-split attention kernels) from a seed, draws
-one synthetic batch (frames, valid depth, relative poses) from the same
-seed, and takes N steps through `make_train_step` with the layer-decay AdamW
-of `build_optimizer`, printing one JSON line per step. The first call on a
-CUDA device builds the attention kernels into mmde_tpu_torch/_build/;
-MMDE_ATTN_GRID=split in the environment takes the packed attention
-backward's atomics-free dbias pass (slower; see
-ops/window_attention_packed.py). The training loop proper (datasets,
-validation, checkpoints) is a later slice; this entry is what a smoke run
-and a profiler drive.
+whose first stage runs the head-split attention kernels; `--attn-impl`
+sets the model's attention implementation, e.g. "pallas_slab" / "cuda_slab"
+for the slab kernels that read windows straight off the map, "torch" for
+the plain functions) from a seed, draws one synthetic batch (frames, valid
+depth, relative poses) from the same seed, and takes N steps through
+`make_train_step` with the layer-decay AdamW of `build_optimizer`, printing
+one JSON line per step. The first call on a CUDA device builds the
+attention kernels into mmde_tpu_torch/_build/; MMDE_ATTN_GRID=split in the
+environment takes the packed attention backward's atomics-free dbias pass
+(slower; see ops/window_attention_packed.py). The training loop proper
+(datasets, validation, checkpoints) is a later slice; this entry is what a
+smoke run and a profiler drive.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Dict, Optional, Tuple, Union
@@ -123,6 +126,11 @@ def main(argv=None) -> None:
     p.add_argument("--config", default=None, help="YAML config")
     p.add_argument("--backbone", default="swin_base_v2",
                    help="the flagship's encoder (without --config)")
+    p.add_argument("--attn-impl", default=None,
+                   choices=("cuda", "cuda_slab", "torch", "pallas",
+                            "pallas_slab", "xla"),
+                   help="attention implementation (default: the config's; "
+                        "the flagship's is cuda)")
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--seed", type=int, default=0)
@@ -133,6 +141,9 @@ def main(argv=None) -> None:
 
     cfg = (load_yaml(args.config) if args.config
            else flagship_config(backbone=args.backbone))
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attn_impl=args.attn_impl))
     batch_size = args.batch or cfg.train.batch_size
     state, step = build_trainer(cfg, device=args.device, seed=args.seed,
                                 deterministic=args.deterministic)

@@ -304,20 +304,58 @@ print("ok")
 """
 
 
-def test_environment_variable_selects_the_grid_mode_for_the_model():
-    """The model never passes grid_mode (nor does the JAX package's): a user
-    takes the atomics-free dbias pass with MMDE_ATTN_GRID=split, read once at
-    import, and a value the port does not have raises at import."""
+def _run_with_grid(value, code):
     import subprocess
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, MMDE_ATTN_GRID="split", PYTHONPATH=root)
-    run = subprocess.run([sys.executable, "-c", _ENV_PROBE], env=env,
-                         cwd=root, capture_output=True, text=True)
+    env = dict(os.environ, MMDE_ATTN_GRID=value, PYTHONPATH=root)
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                          capture_output=True, text=True)
+
+
+def test_environment_variable_selects_the_grid_mode_for_the_model():
+    """The model never passes grid_mode (nor does the JAX package's): a user
+    takes the atomics-free dbias pass with MMDE_ATTN_GRID=split, read once at
+    import, and a value neither package has raises at import."""
+    run = _run_with_grid("split", _ENV_PROBE)
     assert run.returncode == 0 and run.stdout.strip() == "ok", run.stderr
-    env["MMDE_ATTN_GRID"] = "bias_resident"          # K4: not ported
-    run = subprocess.run(
-        [sys.executable, "-c",
-         "import mmde_tpu_torch.ops.window_attention_packed"], env=env,
-        cwd=root, capture_output=True, text=True)
+    run = _run_with_grid("typo",
+                         "import mmde_tpu_torch.ops.window_attention_packed")
     assert run.returncode != 0 and "MMDE_ATTN_GRID" in run.stderr
+
+
+_BIAS_RESIDENT_PROBE = """
+import torch
+from mmde_tpu_torch.ops import window_attention_packed as twp
+from mmde_tpu_torch.tools import infer
+assert twp.DEFAULT_GRID_MODE == "bias_resident", twp.DEFAULT_GRID_MODE
+g = torch.Generator().manual_seed(0)
+qkv = torch.randn(4, 36, 384, generator=g)
+ls = torch.full((4, 1, 1), 1.5)
+bias = torch.randn(4, 36, 36, generator=g)
+mask = torch.where(torch.rand(2, 36, 36, generator=g) < 0.3, -100.0, 0.0)
+with torch.no_grad():
+    out = twp.cosine_window_attention_packed(qkv, ls, bias, mask,
+                                             num_heads=4, maxfree=False)
+want = twp.cosine_window_attention_packed_plain(qkv, ls, bias, mask,
+                                                num_heads=4)
+assert torch.equal(out, want)
+leaf = qkv.clone().requires_grad_()
+out = twp.cosine_window_attention_packed(leaf, ls, bias, mask, num_heads=4)
+try:
+    out.sum().backward()
+except NotImplementedError as e:
+    print("raised:", e)
+"""
+
+
+def test_bias_resident_grid_imports_serves_and_names_k4_in_the_backward():
+    """MMDE_ATTN_GRID=bias_resident is one of the JAX package's grid modes:
+    the package imports under it and serves (the forward is the same
+    function under every grid; K1 here), and only a backward, which would
+    need the TPU's single-pass kernel K4, raises, naming it."""
+    run = _run_with_grid("bias_resident", _BIAS_RESIDENT_PROBE)
+    assert run.returncode == 0, run.stderr
+    lines = run.stdout.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("raised:"), run.stdout
+    assert "K4" in lines[0] and "ROADMAP" in lines[0]

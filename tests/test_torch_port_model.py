@@ -272,8 +272,9 @@ def test_not_ported_families_raise_naming_the_roadmap():
                dict(backbone="swin_base_v2", family="glpdepth_scale16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttf.build_model(tcfg.ModelConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.resolve_attn_impl(tcfg.ModelConfig(attn_impl="pallas_slab"))
+    # the slab kernels are ported: "pallas_slab" resolves, it does not raise
+    assert ttf.resolve_attn_impl(
+        tcfg.ModelConfig(attn_impl="pallas_slab")) == "cuda_slab"
 
 
 def test_build_plan_and_variants_match_jax():
@@ -292,7 +293,9 @@ def test_build_plan_and_variants_match_jax():
                 assert dataclasses.asdict(j) == dataclasses.asdict(t)
     for attn, use, want in (("", True, "cuda"), ("", False, "torch"),
                             ("torch", True, "torch"), ("cuda", False, "cuda"),
-                            ("xla", True, "torch"), ("pallas", False, "cuda")):
+                            ("xla", True, "torch"), ("pallas", False, "cuda"),
+                            ("pallas_slab", False, "cuda_slab"),
+                            ("cuda_slab", True, "cuda_slab")):
         cfg = tcfg.ModelConfig(attn_impl=attn, use_pallas_attention=use)
         assert ttf.resolve_attn_impl(cfg) == want
     with pytest.raises(ValueError):

@@ -44,14 +44,16 @@ _LOSS = dict(decoder="decoder_v2", lambda_rot=100.0, lambda_trans=100.0)
 # ----------------------------------------------------- backbone gradients
 
 @pytest.mark.parametrize("jimpl,timpl", [("xla", "torch"),
-                                         ("pallas", "cuda")])
+                                         ("pallas", "cuda"),
+                                         ("pallas_slab", "cuda_slab")])
 def test_backbone_gradients_match_jax_grad(jimpl, timpl):
-    """embed 128 / heads 4, 8 (Dh = 32: the packed layout on both sides),
-    a shifted block and a patch merging. d(sum(out * w))/d(params) for
-    every parameter; the JAX "pallas" side runs its forward and backward
-    kernels in interpret mode, the port's "cuda" side the autograd Function
-    on its plain halves. fp32 sums in another order through 4 blocks:
-    5e-4 of each gradient's largest entry."""
+    """embed 128 / heads 4, 8 (Dh = 32: the packed layout, or the slab
+    kernels on the map, on both sides), a shifted block and a patch
+    merging. d(sum(out * w))/d(params) for every parameter; the JAX
+    "pallas" / "pallas_slab" side runs its forward and backward kernels in
+    interpret mode, the port's "cuda" / "cuda_slab" side the autograd
+    Function on its plain halves. fp32 sums in another order through 4
+    blocks: 5e-4 of each gradient's largest entry."""
     kw = dict(embed_dim=128, depths=(2, 2), num_heads=(4, 8),
               window_size=(6, 6), drop_path_rate=0.0, out_indices=(1,),
               pretrain_window_size=(4, 4))
