@@ -73,6 +73,33 @@ What it does, each phase printing one JSON object on a line of its own:
                 launches a forward and 24 K8' + 24 K9' a step, none of the
                 packed or head-split kernels.
   parity_slab   parity and train_parity for "cuda_slab" against "torch".
+  kernel_cases_resident
+                K4, the single-pass backward MMDE_ATTN_GRID=bias_resident
+                selects, at the flagship's four train shapes (bf16; fp32 at
+                stages 1 and 4), through the autograd Function under that
+                grid (the forward before it: K1 without the log-sum-exp),
+                against the plain backward and float64 autograd; dbias
+                bitwise equal over two launches; ms beside K2's in the same
+                call, bound, the SDPA backward yardstick.
+  kernel_cases_w
+                K5, W windows per block, at every (shape, W) the JAX rule
+                gives the flagship's served and trained stages under
+                MMDE_ATTN_W=auto (blocks with and without their mask) and
+                at W = 2 on stage 1: forward against the plain forward,
+                backward against the plain backward and float64 autograd;
+                ms beside K1 / K2 at W = 1 in the same call.
+  train_resident
+                `MMDE_ATTN_GRID=bias_resident python -m
+                mmde_tpu_torch.tools.train_steps --steps 6` in a process of
+                its own: step ms, peak bytes, and its launches, 24 K1
+                without lse and 24 K4 a step, no K2.
+  serve_w, train_w
+                the flagship under MMDE_ATTN_W=auto (this script in a
+                process of its own): 3 requests, 6 steps, every packed
+                launch at the rule's W, launches by kernel and W.
+  train_parity_resident
+                one fp32 step (TF32 off) under bias_resident (a process of
+                its own) against the default grid's: loss and gradients.
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path, error, ms, plain ms, bound, and the
@@ -80,7 +107,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 F.scaled_dot_product_attention on the normalised, scaled q
                 and k with bias + mask as its attn_mask; the normalisation
                 and the SDPA backend beside it; for a backward, that call's
-                backward under autograd).
+                backward under autograd). K4's and K5's entries carry the
+                launches of train_resident, serve_w and train_w; K2's also
+                K3's own time and bound.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -117,6 +146,19 @@ KERNEL_HS_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:62 "
                       "(_kernel; pallas_call :132)")
 KERNEL_HS_BWD_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:146 "
                           "(_bwd_kernel; pallas_call :310)")
+# K5, W windows per block, has kernels of its own in the same two sources
+KERNEL_W_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
+                     "(_fwd_body with w > 1, W from _choose_w :191; "
+                     "pallas_call :454)")
+KERNEL_W_BWD_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:473 "
+                         "(_bwd_body with w > 1, W from _choose_w :191; "
+                         "pallas_call :1103)")
+# K4, the single-pass backward, has a source of its own
+KERNEL_RESIDENT_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd_resident.cu"
+KERNEL_RESIDENT_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:636 "
+                            "(_bwd_body_v4; pallas_call :800)")
+# the two grid modes of K2 (K4 is "bias_resident", compared on its own)
+WINDOW_GRID_MODES = ("window_resident", "split")
 # and so do the slab entry points
 KERNEL_SLAB_REPLACES = ("mmde_tpu/ops/window_attention_slab.py:109 "
                         "(_fwd_body; pallas_call :264)")
@@ -307,13 +349,15 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
     return rec
 
 
-def backward_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
+def backward_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype,
+                   lse: bool = True) -> dict:
     """Roofline bound of the backward as a function: every input read once,
     every output written once in the type it leaves in (dbias in the bias's
-    type). What the design moves besides is not in the bound: the fp32
-    (nH, N, N) buffer dbias is summed in before its cast, and the scratch the
-    dq pass hands to the dk/dv pass (delta, 4 bytes per row, and the
-    per-block partial sums of dlogit_scale)."""
+    type); `lse`: the saved log-sum-exp is an input (K2, K5; K4 takes none).
+    What the design moves besides is not in the bound: the fp32 (nH, N, N)
+    buffer dbias is summed in before its cast, the scratch the dq pass hands
+    to the dk/dv pass (delta, 4 bytes per row, and the per-block partial
+    sums of dlogit_scale), K4's fp32 dk/dv scratch and dbias partials."""
     esz = torch.empty((), dtype=dtype).element_size()
     bsz = torch.empty((), dtype=bias_dtype).element_size()
     nbytes = (B_ * N * 3 * C * esz          # qkv read once
@@ -321,11 +365,28 @@ def backward_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
               + B_ * N * 3 * C * esz        # dqkv written once
               + nH * N * N * bsz            # bias read once
               + nW * N * N * bsz            # mask read once
-              + B_ * nH * N * 4             # saved log-sum-exp read once
+              + (B_ * nH * N * 4 if lse else 0)   # saved log-sum-exp
               + nH * N * N * bsz            # dbias written once
               + 2 * nH * 4)                 # logit_scale, dlogit_scale
     # five N x N x Dh products: q^k^T, g v^T, p^T g, ds k^, ds^T q^
     flops = 10 * B_ * nH * N * N * (C // nH)
+    name = str(dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def dbias_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype) -> dict:
+    """Roofline bound of K3's function, dbias alone: qkv, g, the saved
+    log-sum-exp and delta read once, bias and mask read once, dbias written
+    once in the bias's type; two N x N x Dh products (q^k^T, g v^T)."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    bsz = torch.empty((), dtype=bias_dtype).element_size()
+    nbytes = (B_ * N * 4 * C * esz + 2 * B_ * nH * N * 4
+              + (2 * nH + nW) * N * N * bsz)
+    flops = 4 * B_ * nH * N * N * (C // nH)
     name = str(dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[name] * 1e3
@@ -423,6 +484,47 @@ def library_yardstick(q, k, v, ls, bias, mask, g=None) -> dict:
     return rec
 
 
+def _float64_grads(qkv, ls, bias, mask, g, nH):
+    """Autograd of the plain forward in float64: the independent truth."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls, bias)]
+    out64 = wap.cosine_window_attention_packed_plain(
+        leaves64[0], leaves64[1], leaves64[2],
+        None if mask is None else mask.double(), num_heads=nH,
+        compute_dtype=torch.float64)
+    truth = torch.autograd.grad(out64, leaves64, g.double())
+    del out64, leaves64
+    return truth
+
+
+def _check_grads(got, plain, truth, name: str, what: str) -> dict:
+    """dqkv, dlogit_scale, dbias of a backward kernel against the plain
+    backward and float64 autograd at TOL_BWD; raises on disagreement, on a
+    value that is not finite, or on a clamped head's dlogit_scale not 0."""
+    names = ("dqkv", "dlogit_scale", "dbias")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError(f"{what}: backward output not finite")
+    if float(got[1].flatten()[0]) != 0.0:
+        raise RuntimeError(f"{what}: dlogit_scale of the clamped head is "
+                           f"{float(got[1].flatten()[0])}, not 0")
+    vs = {"vs_plain": {n: _errs(k, p) for n, k, p in zip(names, got, plain)},
+          "vs_float64": {n: _errs(k, t) for n, k, t in zip(names, got, truth)}}
+    for which, d in vs.items():
+        for n, e in d.items():
+            if not e["rel_l2"] <= TOL_BWD[name][n]:
+                raise RuntimeError(f"{what} disagrees ({which}, {n}): "
+                                   f"{json.dumps(vs)}")
+    return vs
+
+
+def _case_head(shape, dtype, mask) -> dict:
+    return {"model": shape["model"], "stage": shape["stage"],
+            "B_": shape["B_"], "N": shape["N"], "C": shape["C"],
+            "nH": shape["nH"],
+            "nW": mask.shape[0] if mask is not None else 0,
+            "dtype": str(dtype).replace("torch.", "")}
+
+
 def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     """K2 (both dbias grid modes) against the plain backward and against
     float64 autograd of the plain forward, at one stage shape; and the
@@ -439,10 +541,8 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
                     generator=gen).to(dtype)
     name = str(dtype).replace("torch.", "")
-    rec = {"model": shape["model"], "stage": shape["stage"],
-           "B_": shape["B_"], "N": shape["N"], "C": shape["C"], "nH": nH,
-           "nW": mask.shape[0] if mask is not None else 0, "dtype": name,
-           "tolerance_rel_l2": TOL_BWD[name]}
+    rec = _case_head(shape, dtype, mask)
+    rec["tolerance_rel_l2"] = TOL_BWD[name]
 
     def kernel_grads(grid_mode):
         leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
@@ -458,39 +558,18 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             qkv, ls, bias, mask, g, num_heads=nH)
         want_out = wap.cosine_window_attention_packed_plain(
             qkv, ls, bias, mask, num_heads=nH)
-    # independent ground truth: autograd through the plain forward, float64
-    leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls, bias)]
-    out64 = wap.cosine_window_attention_packed_plain(
-        leaves64[0], leaves64[1], leaves64[2],
-        None if mask is None else mask.double(), num_heads=nH,
-        compute_dtype=torch.float64)
-    truth = torch.autograd.grad(out64, leaves64, g.double())
-    del out64, leaves64
+    truth = _float64_grads(qkv, ls, bias, mask, g, nH)
     # the plain backward itself must agree with autograd, or it is no oracle
     names = ("dqkv", "dlogit_scale", "dbias")
     rec["plain_vs_float64"] = {n: _errs(p, t)
                                for n, p, t in zip(names, plain, truth)}
-    for grid_mode in wap.BACKWARD_GRID_MODES:
+    for grid_mode in WINDOW_GRID_MODES:
         got, out = kernel_grads(grid_mode)
         if grid_mode == wap.DEFAULT_GRID_MODE:
             rec["forward"] = check_forward(out, want_out, dtype, rec)
-        if not all(bool(torch.isfinite(t).all()) for t in got):
-            raise RuntimeError(f"backward kernel output not finite at "
-                               f"{shape} {dtype} {grid_mode}")
-        if float(got[1].flatten()[0]) != 0.0:
-            raise RuntimeError(f"dlogit_scale of the clamped head is "
-                               f"{float(got[1].flatten()[0])}, not 0")
-        vs = {"vs_plain": {n: _errs(k, p)
-                           for n, k, p in zip(names, got, plain)},
-              "vs_float64": {n: _errs(k, t)
-                             for n, k, t in zip(names, got, truth)}}
-        rec[grid_mode] = vs
-        for which, d in vs.items():
-            for n, e in d.items():
-                if not e["rel_l2"] <= TOL_BWD[name][n]:
-                    raise RuntimeError(
-                        f"backward kernel disagrees ({grid_mode}, {which}, "
-                        f"{n}): {json.dumps(rec)}")
+        rec[grid_mode] = _check_grads(
+            got, plain, truth, name,
+            f"backward kernel ({grid_mode}) at {json.dumps(rec)}")
     dflt = rec[wap.DEFAULT_GRID_MODE]["vs_float64"]
     rec["max_abs_err"] = dflt["dqkv"]["max_abs"]
     rec["rel_l2_err"] = dflt["dqkv"]["rel_l2"]
@@ -516,7 +595,7 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             rec.update({k: v for k, v in lib.items() if k != "library_ms"})
             rec["library_ms"] = lib["library_bwd_ms"]
         # time the backward launch alone: forward once, backward repeatedly
-        for grid_mode in wap.BACKWARD_GRID_MODES:
+        for grid_mode in WINDOW_GRID_MODES:
             out = wap.cosine_window_attention_packed(
                 leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
                 grid_mode=grid_mode)
@@ -533,6 +612,14 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             rec["plain_ms"] = time_ms(
                 lambda: wap.cosine_window_attention_packed_backward_plain(
                     qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
+            # K3 alone: the split backward with dbias less the same without
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+            split = [time_ms(lambda: wap._launch_backward(
+                qkv, ls, bias, mask, lse, g, nH, "split", want), reps=8,
+                warm=2) for want in (True, False)]
+        rec["k3_ms"] = split[0] - split[1]
+        rec["k3_bound"] = dbias_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                      rec["nW"], dtype, bias.dtype)
         rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
                                   rec["nW"], dtype, bias.dtype))
     torch.cuda.empty_cache()
@@ -1057,7 +1144,10 @@ def _kernel_modules() -> dict:
 
 
 def _reset_launch_counts():
-    for m in _kernel_modules().values():
+    for lay, m in _kernel_modules().items():
+        if lay == "packed":
+            m.reset_launch_counts()
+            continue
         m.LAUNCHES = m.LAUNCHES_BWD = 0
         m.LAUNCHES_BY_SHAPE.clear()
         m.LAUNCHES_BWD_BY_SHAPE.clear()
@@ -1131,6 +1221,12 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         raise RuntimeError(f"{tag}: kernel launches by layout and shape "
                            f"{by_layout} for {requests} forwards, expected "
                            f"{want}")
+    by_kernel = _packed_by_kernel()
+    want_k = expected_packed_kernels(backbone, 1, requests, False, attn_impl)
+    if by_kernel != want_k:
+        # every packed launch at the W the JAX rule gives (MMDE_ATTN_W)
+        raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
+                           f"expected {want_k}")
     per_forward = _per_forward(want, requests)
     if attn_impl == "cuda_slab" and backbone == "swin_base_v2" and (
             per_forward != {"packed": 0, "headsplit": 0, "slab": 24}):
@@ -1151,6 +1247,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
            "launches_per_forward": per_forward,
            "launches_by_shape": {lay: {str(k): v for k, v in d.items()}
                                  for lay, d in by_layout.items()},
+           "launches_by_kernel": _str_keys(by_kernel),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if flip:
         infer.predict(model, f1, f2, flip_tta=True)       # warm-up
@@ -1202,8 +1299,9 @@ def _profile(fn) -> dict:
         n = name.lower()
         if "window_attention_fwd" in n:     # K1 and K6' share the kernel
             return "window_attention_fwd (this repo's kernel)"
-        if "bwd_dq_kernel" in n or "bwd_dkv_kernel" in n \
-                or "bwd_dbias_kernel" in n:
+        if ("bwd_dq_kernel" in n or "bwd_dkv_kernel" in n
+                or "bwd_dbias_kernel" in n or "bwd_dq_w_kernel" in n
+                or "bwd_dkv_w_kernel" in n or "bwd_resident_kernel" in n):
             return "window_attention_bwd (this repo's kernel)"
         if "multi_tensor_apply" in n:
             return "optimizer (foreach AdamW, grad zeroing)"
@@ -1413,6 +1511,11 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     if fwd_by_shape != want or bwd_by_shape != want:
         raise RuntimeError(f"{tag}: forward launches {fwd_by_shape}, "
                            f"backward {bwd_by_shape}, expected {want} each")
+    by_kernel = _packed_by_kernel()
+    want_k = expected_packed_kernels(backbone, pairs, steps, True, attn_impl)
+    if by_kernel != want_k:
+        raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
+                           f"expected {want_k}")
     peak = torch.cuda.max_memory_allocated()
     moved = {n: float((p.detach() - watch[n]).abs().max())
              for n, p in state.model.named_parameters() if n in watch}
@@ -1433,6 +1536,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                                      for lay, d in fwd_by_shape.items()},
            "launches_bwd_by_shape": {lay: {str(k): v for k, v in d.items()}
                                      for lay, d in bwd_by_shape.items()},
+           "launches_by_kernel": _str_keys(by_kernel),
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
     del state, step
     torch.cuda.empty_cache()
@@ -1467,34 +1571,8 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     (`impl`) against plain path from the same weights and batch: the loss
     and the gradients of a named set of parameters. cuDNN TF32 is off for
     this phase (matmul TF32 is off by default)."""
-    from mmde_tpu_torch.tools import train_steps as ts
-    old = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    batch = ts.synthetic_batch(pairs, 480, 640, seed=33, device="cuda")
-    got = {}
-    try:
-        for path in (impl, "torch"):
-            key = ("train_parity", backbone, pairs)
-            if path == "torch" and key in _PLAIN_RUNS:
-                got[path] = _PLAIN_RUNS[key]
-                continue
-            cfg = ts.flagship_config("float32", path, batch_size=pairs,
-                                     backbone=backbone)
-            state, step = ts.build_trainer(cfg, device="cuda", seed=0,
-                                           deterministic=True)
-            randomize_weights(state.model, seed=7)
-            state, aux = step(state, batch)
-            grads = {n: p.grad.detach().double().clone()
-                     for n, p in state.model.named_parameters()
-                     if n in LARGE_PARITY_PARAMS}
-            got[path] = ({k: float(v) for k, v in aux.items()}, grads)
-            if path == "torch":
-                _PLAIN_RUNS[key] = got[path]
-            del state, step
-            torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.allow_tf32 = old
-    (la, ga), (lb, gb) = got[impl], got["torch"]
+    (la, ga), (lb, gb) = (train_step_grads(backbone, pairs, path)
+                          for path in (impl, "torch"))
     ga = {n: t for n, t in ga.items() if n in params}
     gb = {n: t for n, t in gb.items() if n in params}
     if set(ga) != set(params):
@@ -1614,6 +1692,12 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e = _entry("window_attention_bwd", shape, KERNEL_BWD_SOURCE,
                        KERNEL_BWD_REPLACES, nb, c, pairs)
             e["ms_split_dbias"] = c["ms_split"]     # K3, not the default
+            # K3 alone (0 launches on this path), its own bound; no single
+            # PyTorch call computes dbias alone
+            e["k3_ms"] = c["k3_ms"]
+            e["k3_bound_ms"] = c["k3_bound"]["bound_ms"]
+            e["k3_bound_by"] = c["k3_bound"]["bound_by"]
+            e["k3_library_ms"] = None
         else:
             c = _find(hs_cases, shape, pairs, nW=shape["nW"])
             entries.append(_entry("window_attention_headsplit_fwd+lse",
@@ -1622,6 +1706,540 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e = _entry("window_attention_headsplit_bwd", shape,
                        KERNEL_BWD_SOURCE, KERNEL_HS_BWD_REPLACES, nb, c,
                        pairs)
+        entries.append(e)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# K4 (MMDE_ATTN_GRID=bias_resident) and K5 (MMDE_ATTN_W)
+# ---------------------------------------------------------------------------
+
+def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
+    """K4 at one train shape through the autograd Function under
+    grid_mode="bias_resident" (forward: K1 without the log-sum-exp, checked
+    against the plain forward under rec["forward"]), against the plain
+    backward and float64 autograd; dbias bitwise equal over two launches.
+    Head 0 above the ln(100) clamp, head 1 hot (scale e^4). Times: K4 and,
+    in the same call, K2 at the same inputs (medians of single launches)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, shape["nW"] > 0,
+                                             gen)
+    ls[1] = 4.0
+    nH = shape["nH"]
+    g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
+                    generator=gen).to(dtype)
+    name = str(dtype).replace("torch.", "")
+    rec = _case_head(shape, dtype, mask)
+    rec["tolerance_rel_l2"] = TOL_BWD[name]
+    with torch.no_grad():
+        plain = wap.cosine_window_attention_packed_backward_plain(
+            qkv, ls, bias, mask, g, num_heads=nH)
+        want_out = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH)
+    truth = _float64_grads(qkv, ls, bias, mask, g, nH)
+    leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+    before = (wap.LAUNCHES_RESIDENT, wap.LAUNCHES_BWD)
+    out = wap.cosine_window_attention_packed(
+        leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
+        grid_mode="bias_resident")
+    out.backward(g)
+    torch.cuda.synchronize()
+    if (wap.LAUNCHES_RESIDENT - before[0], wap.LAUNCHES_BWD - before[1]) \
+            != (1, 0):
+        raise RuntimeError("bias_resident backward did not launch K4 alone")
+    rec["forward"] = check_forward(out.detach(), want_out, dtype, rec)
+    got = [t.grad for t in leaves]
+    rec.update(_check_grads(got, plain, truth, name,
+                            f"K4 at {json.dumps(rec)}"))
+    with torch.no_grad():
+        d1 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
+        d2 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
+    rec["dbias_bitwise_equal"] = bool(torch.equal(d1, d2))
+    if not rec["dbias_bitwise_equal"]:
+        raise RuntimeError(f"K4 dbias differs between two launches at "
+                           f"{json.dumps(rec)}")
+    rec["splits"] = wap.resident_splits(shape["N"], nH, shape["B_"])
+    rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
+    rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
+    del truth, want_out, d1, d2, out, leaves
+    if timed:
+        with torch.no_grad():
+            rec["ms"] = time_ms(lambda: wap._launch_backward_resident(
+                qkv, ls, bias, mask, g, nH), reps=8, warm=2)
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+            rec["k2_ms"] = time_ms(lambda: wap._launch_backward(
+                qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
+                reps=8, warm=2)
+            rec["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_backward_plain(
+                    qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
+            fwd = rec["forward"]
+            fwd["ms"] = time_ms(lambda: wap._launch_forward(
+                qkv, ls, bias, mask, nH, True, False))
+            fwd["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_plain(
+                    qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
+        rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                  rec["nW"], dtype, bias.dtype, lse=False))
+        fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
+                                rec["nW"], dtype, bias.dtype))
+        fwd["library_ms"] = rec["library_ms"] = None
+        if dtype == torch.bfloat16:
+            lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
+                                    mask, g=wap._split_heads(g, 1, nH)[0])
+            fwd.update({k: v for k, v in lib.items()
+                        if k != "library_bwd_ms"})
+            rec.update({k: v for k, v in lib.items() if k != "library_ms"})
+            rec["library_ms"] = lib["library_bwd_ms"]
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_resident(timed: bool = True) -> list:
+    """K4 at the four flagship train shapes (2 frame pairs), bfloat16,
+    masked where the stage shifts; and float32 at stages 1 and 4."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5151)
+    shapes = stage_shapes(batch=2)
+    cases = [compare_resident(s, torch.bfloat16, gen, timed=timed)
+             for s in shapes]
+    cases += [compare_resident(s, torch.float32, gen, timed=timed)
+              for s in (shapes[0], shapes[3])]
+    for c in cases:
+        c["frame_pairs"] = 2
+    emit("kernel_cases_resident", {
+        "cases": cases,
+        "timing": "CUDA events around one launch (K4 and the k-normalise "
+                  "VJP after it; K2's dq, dk/dv passes), 2 warm + 8 "
+                  "launches, median; inputs stay in L2"})
+    return cases
+
+
+def _w_of(shape, bwd: bool, masked: bool, setting="auto") -> int:
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    return wap.windows_per_block(shape["B_"], shape["N"], shape["C"],
+                                 shape["nH"], shape["nW"] if masked else 0,
+                                 bwd, setting)
+
+
+def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
+              with_mask: bool, timed=True) -> list:
+    """K5 at one shape: the forward at each W of `w_fwd` (with the
+    log-sum-exp when `train`) against the plain forward at K1's tolerances;
+    the backward at each W of `w_bwd` against the plain backward and
+    float64 autograd at K2's. Times beside K1 / K2 (W = 1) in the same
+    call. With the stage's mask or without (the W of a shifted stage's
+    blocks depends on it); head 0 clamped, head 1 hot."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, with_mask, gen)
+    ls[1] = 4.0
+    nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
+    name = str(dtype).replace("torch.", "")
+    head = _case_head(shape, dtype, mask)
+    head["frame_pairs"] = 2 if train else 1
+    recs, fwd_common = [], {}
+    with torch.no_grad():
+        want_out = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH)
+        if timed:
+            fwd_common["k1_ms"] = time_ms(lambda: wap._launch_forward(
+                qkv, ls, bias, mask, nH, True, train))
+            fwd_common["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_plain(
+                    qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
+            fwd_common.update(kernel_bound(B_, N, C, nH, head["nW"], dtype,
+                                           bias.dtype, stats=train))
+            fwd_common["library_ms"] = None
+            if dtype == torch.bfloat16:
+                fwd_common.update(library_yardstick(
+                    *wap._split_heads(qkv, 3, nH), ls, bias, mask))
+        for w in w_fwd:
+            out, _ = wap._launch_forward(qkv, ls, bias, mask, nH, True, train,
+                                         w=w)
+            torch.cuda.synchronize()
+            rec = dict(head, direction="forward", W=w, lse=train)
+            rec.update(check_forward(out, want_out, dtype, rec))
+            if timed:
+                rec["ms"] = time_ms(lambda: wap._launch_forward(
+                    qkv, ls, bias, mask, nH, True, train, w=w))
+                rec.update(fwd_common)
+            recs.append(rec)
+        del want_out
+    if w_bwd:
+        g = torch.randn((B_, N, C), device="cuda", generator=gen).to(dtype)
+        with torch.no_grad():
+            plain = wap.cosine_window_attention_packed_backward_plain(
+                qkv, ls, bias, mask, g, num_heads=nH)
+        truth = _float64_grads(qkv, ls, bias, mask, g, nH)
+        bwd_common = {}
+        if timed and dtype == torch.bfloat16:
+            # the yardstick's backward needs autograd: outside no_grad
+            bwd_common["library_bwd_ms"] = library_yardstick(
+                *wap._split_heads(qkv, 3, nH), ls, bias, mask,
+                g=wap._split_heads(g, 1, nH)[0])["library_bwd_ms"]
+        with torch.no_grad():
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+            if timed:
+                bwd_common["k2_ms"] = time_ms(lambda: wap._launch_backward(
+                    qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
+                    reps=8, warm=2)
+                bwd_common["plain_ms"] = time_ms(
+                    lambda: wap.cosine_window_attention_packed_backward_plain(
+                        qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
+                bwd_common.update(backward_bound(B_, N, C, nH, head["nW"],
+                                                 dtype, bias.dtype))
+                bwd_common["library_ms"] = bwd_common.pop("library_bwd_ms",
+                                                          None)
+            for w in w_bwd:
+                got = wap._launch_backward(qkv, ls, bias, mask, lse, g, nH,
+                                           "window_resident", True, w=w)
+                torch.cuda.synchronize()
+                rec = dict(head, direction="backward", W=w,
+                           tolerance_rel_l2=TOL_BWD[name])
+                rec.update(_check_grads(got, plain, truth, name,
+                                        f"K5 backward at {json.dumps(rec)}"))
+                rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
+                rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
+                if timed:
+                    rec["ms"] = time_ms(lambda: wap._launch_backward(
+                        qkv, ls, bias, mask, lse, g, nH, "window_resident",
+                        True, w=w), reps=8, warm=2)
+                    rec.update(bwd_common)
+                recs.append(rec)
+        del plain, truth
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_kernels_w(timed: bool = True) -> list:
+    """K5 at every (shape, W) that choose_w("auto") gives the flagship's
+    served (1 pair) and trained (2 pairs) stages, masked and unmasked
+    blocks alike, plus W = 2 at stage 1 trained; bfloat16, and float32 at
+    the trained stages 1 and 4."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6262)
+    cases = []
+
+    def by_mask(shape, bwd, extra=()):
+        """{with mask: W values} of a shape's blocks, each W once (with the
+        mask where both kinds of block take it)"""
+        masked = shape["nW"] > 0
+        ws = {True: set(), False: set()}
+        ws[masked].add(_w_of(shape, bwd, masked))
+        ws[masked].update(extra)
+        if masked:
+            ws[False].add(_w_of(shape, bwd, False))
+            ws[False] -= ws[True]
+        return {m: sorted(w - {1}) for m, w in ws.items()}
+
+    for shape in stage_shapes(batch=1):
+        for m, ws in by_mask(shape, False).items():
+            if ws:
+                cases += compare_w(shape, torch.bfloat16, gen, ws, [], False,
+                                   m, timed)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in stage_shapes(batch=2):
+            if dtype == torch.float32 and shape["stage"] not in (1, 4):
+                continue
+            extra = (2,) if shape["stage"] == 1 else ()
+            wf, wb = by_mask(shape, False, extra), by_mask(shape, True, extra)
+            for m in (True, False):
+                if wf[m] or wb[m]:
+                    cases += compare_w(shape, dtype, gen, wf[m], wb[m], True,
+                                       m, timed)
+    emit("kernel_cases_w", {
+        "cases": cases,
+        "timing": "CUDA events around one launch (forward; backward: the dq "
+                  "and dk/dv passes), median of 20 (forward) / 8 (backward) "
+                  "after warm-up; k1_ms / k2_ms: the same at W = 1"})
+    return cases
+
+
+def expected_packed_kernels(backbone: str, batch: int, times: int,
+                            train: bool, attn_impl: str = "cuda") -> dict:
+    """{kernel name: {(B_, N, C, nH): launches}} of the packed kernels over
+    `times` forwards (or train steps) under this process's MMDE_ATTN_GRID
+    and MMDE_ATTN_W: each block's W by the JAX rule, for its own mask (the
+    shifted blocks of stages 1-2 have one, the others not)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
+    want: dict = {}
+
+    def add(kernel, key, n):
+        want.setdefault(kernel, {})
+        want[kernel][key] = want[kernel].get(key, 0) + n
+
+    for sh in stage_shapes(backbone, batch=batch, attn_impl=attn_impl):
+        if sh["layout"] != "packed":
+            continue
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        masked = sh["blocks"] // 2 if sh["nW"] else 0
+        for has_mask, n in ((False, sh["blocks"] - masked), (True, masked)):
+            if n == 0:
+                continue
+            wf = 1 if resident else _w_of(sh, False, has_mask,
+                                          wap.WINDOWS_PER_CELL)
+            fwd = "window_attention_fwd" + (f"_w{wf}" if wf > 1 else "") \
+                + ("+lse" if train and not resident else "")
+            add(fwd, key, n * times)
+            if not train:
+                continue
+            if resident:
+                add("window_attention_bwd_resident", key, n * times)
+            else:
+                wb = _w_of(sh, True, has_mask, wap.WINDOWS_PER_CELL)
+                add("window_attention_bwd" + (f"_w{wb}" if wb > 1 else ""),
+                    key, n * times)
+    return want
+
+
+def _packed_by_kernel() -> dict:
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    out: dict = {}
+    for (kernel, key), n in wap.LAUNCHES_BY_KERNEL.items():
+        out.setdefault(kernel, {})[key] = n
+    return out
+
+
+def _str_keys(d: dict) -> dict:
+    return {k: {str(s): n for s, n in v.items()} for k, v in d.items()}
+
+
+def _run_child(argv: list, env_extra: dict, timeout: int) -> list:
+    """Run this checkout's python `argv` with `env_extra` in the
+    environment (the kernel settings are read at import: a process of their
+    own); returns its JSON lines. Raises when it fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable] + argv, env=env, cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{env_extra} {' '.join(argv)} exited "
+                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def phase_train_resident(steps: int = 6) -> dict:
+    """Path A: `MMDE_ATTN_GRID=bias_resident python -m
+    mmde_tpu_torch.tools.train_steps --steps 6` (the flagship, bf16, 2
+    frame pairs) in a process of its own: every step 24 K1 launches without
+    the log-sum-exp and 24 K4, no K2."""
+    cmd = ["-m", "mmde_tpu_torch.tools.train_steps", "--steps", str(steps)]
+    t0 = time.time()
+    lines = _run_child(cmd, {"MMDE_ATTN_GRID": "bias_resident"}, 900)
+    recs = [ln for ln in lines if "step" in ln]
+    if len(recs) != steps:
+        raise RuntimeError(f"train_resident: {len(recs)} step lines")
+    for r in recs:
+        if not all(math.isfinite(r[k]) for k in r if k.startswith("loss")):
+            raise RuntimeError(f"train_resident: loss not finite: {r}")
+    last = recs[-1]
+    pairs = 2
+    want = {k: {f"{b}x{n}x{c}/{h}": v for (b, n, c, h), v in d.items()}
+            for k, d in _expected_resident(pairs, steps).items()}
+    if last["launches"] != {k: sum(d.values()) for k, d in want.items()} \
+            or last["launches_by_shape"] != want:
+        raise RuntimeError(f"train_resident: launches {last['launches']} "
+                           f"{last['launches_by_shape']}, expected {want}")
+    ms = [r["ms"] for r in recs]
+    rec = {"command": "MMDE_ATTN_GRID=bias_resident python -m "
+                      "mmde_tpu_torch.tools.train_steps --steps "
+                      f"{steps}",
+           "model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2, "
+                    "train mode, 2 frame pairs, fresh weights from seed 0",
+           "seconds": round(time.time() - t0, 1),
+           "first_step_ms": ms[0], "step_ms": ms[1:],
+           "step_ms_median": statistics.median(ms[1:]),
+           "images_per_s": 2 * pairs / (statistics.median(ms[1:]) / 1e3),
+           "peak_memory_bytes": last["peak_memory_bytes"],
+           "losses": [r["loss_total"] for r in recs],
+           "launches": last["launches"],
+           "launches_by_shape": last["launches_by_shape"]}
+    emit("train_resident", rec)
+    rec["_by_shape"] = {k: {tuple(int(x) for x in
+                                  s.replace("/", "x").split("x")): n
+                            for s, n in d.items()}
+                        for k, d in last["launches_by_shape"].items()}
+    return rec
+
+
+def _expected_resident(pairs: int, steps: int) -> dict:
+    want: dict = {}
+    for sh in stage_shapes(batch=pairs):
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        for k in ("window_attention_fwd", "window_attention_bwd_resident"):
+            want.setdefault(k, {})[key] = sh["blocks"] * steps
+    return want
+
+
+def phase_w_child() -> tuple:
+    """Path B: the flagship under MMDE_ATTN_W=auto in a process of its own:
+    `serve_w` (3 requests) and `train_w` (6 steps), every packed launch at
+    the JAX rule's W (checked in the child)."""
+    lines = _run_child([os.path.basename(__file__), "--child", "w"],
+                       {"MMDE_ATTN_W": "auto"}, 900)
+    got = {k: v for ln in lines for k, v in ln.items()
+           if k in ("serve_w", "train_w")}
+    if set(got) != {"serve_w", "train_w"}:
+        raise RuntimeError(f"W child printed {[list(ln) for ln in lines]}")
+    for tag in ("serve_w", "train_w"):
+        emit(tag, got[tag])
+        got[tag]["_by_kernel"] = {
+            k: {tuple(int(x) for x in s.strip("()").split(",")): n
+                for s, n in d.items()}
+            for k, d in got[tag]["launches_by_kernel"].items()}
+    return got["serve_w"], got["train_w"]
+
+
+def train_step_grads(backbone: str, pairs: int, path: str) -> tuple:
+    """(losses, {name: gradient}) of one deterministic fp32 train step of
+    `backbone` at full width and depth under attention `path`, weights and
+    batch from fixed seeds, cuDNN TF32 off; cached per process."""
+    from mmde_tpu_torch.tools import train_steps as ts
+    key = ("train_step", backbone, pairs, path)
+    if key in _PLAIN_RUNS:
+        return _PLAIN_RUNS[key]
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        batch = ts.synthetic_batch(pairs, 480, 640, seed=33, device="cuda")
+        cfg = ts.flagship_config("float32", path, batch_size=pairs,
+                                 backbone=backbone)
+        state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                       deterministic=True)
+        randomize_weights(state.model, seed=7)
+        state, aux = step(state, batch)
+        grads = {n: p.grad.detach().double().clone()
+                 for n, p in state.model.named_parameters()
+                 if n in LARGE_PARITY_PARAMS}
+        res = ({k: float(v) for k, v in aux.items()}, grads)
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    _PLAIN_RUNS[key] = res
+    return res
+
+
+def phase_train_parity_resident() -> dict:
+    """One deterministic fp32 flagship step (TF32 off) under
+    MMDE_ATTN_GRID=bias_resident (K1 without lse + K4, in a process of its
+    own) against the default grid's (K1 + K2, this process): loss and the
+    gradients of PARITY_PARAMS at TOL_TRAIN_PARITY."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "grads.pt")
+        lines = _run_child([os.path.basename(__file__), "--child", "grads",
+                            "--out", out],
+                           {"MMDE_ATTN_GRID": "bias_resident"}, 900)
+        child = torch.load(out)
+    counts = child["launches"]
+    if not (counts.get("window_attention_bwd_resident", 0) == 24
+            and not any(k.startswith("window_attention_bwd")
+                        and k != "window_attention_bwd_resident"
+                        for k in counts)):
+        raise RuntimeError(f"train_parity_resident: the child's launches "
+                           f"{counts}, expected 24 K4 and no K2")
+    la, ga = child["loss"], child["grads"]
+    lb, gb = train_step_grads("swin_base_v2", 1, "cuda")
+    loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
+    grad_rel = {n: float((ga[n].cuda() - gb[n]).norm()
+                         / gb[n].norm().clamp_min(1e-300))
+                for n in PARITY_PARAMS}
+    rec = {"model": "swin_base_v2", "dtype": "float32", "frame_pairs": 1,
+           "cudnn_allow_tf32": False, "child_lines": len(lines),
+           "bias_resident_launches": counts,
+           "loss_bias_resident": la, "loss_window_resident": lb,
+           "loss_rel_diff": loss_rel, "grad_rel_l2": grad_rel,
+           "tolerance": TOL_TRAIN_PARITY}
+    if not loss_rel <= TOL_TRAIN_PARITY["loss_rel"]:
+        raise RuntimeError(f"train_parity_resident: loss differs: "
+                           f"{json.dumps(rec)}")
+    for n, v in grad_rel.items():
+        if not (v <= TOL_TRAIN_PARITY["grad_rel_l2"]
+                and float(gb[n].norm()) > 0):
+            raise RuntimeError(f"train_parity_resident: gradient of {n} "
+                               f"differs or is zero: {json.dumps(rec)}")
+    emit("train_parity_resident", rec)
+    return rec
+
+
+def child_main(args) -> int:
+    """The processes phase_w_child and phase_train_parity_resident start,
+    with their environment variable set."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    if args.child == "w":
+        if wap.WINDOWS_PER_CELL != "auto":
+            raise RuntimeError("the W child needs MMDE_ATTN_W=auto")
+        phase_serve(flip=False, tag="serve_w")
+        phase_train(steps=6, deterministic_run=False, tag="train_w")
+        return 0
+    if wap.DEFAULT_GRID_MODE != "bias_resident":
+        raise RuntimeError("the grads child needs MMDE_ATTN_GRID="
+                           "bias_resident")
+    wap.reset_launch_counts()
+    loss, grads = train_step_grads("swin_base_v2", 1, "cuda")
+    torch.save({"loss": loss, "grads": {n: t.cpu() for n, t in grads.items()},
+                "launches": wap.launch_counts()}, args.out)
+    print(json.dumps({"grads_child": {"loss": loss}}), flush=True)
+    return 0
+
+
+def _w_case(cases, shape, pairs, direction, w, lse=None):
+    return next(c for c in cases
+                if c["model"] == shape["model"]
+                and c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
+                and c["frame_pairs"] == pairs and c["direction"] == direction
+                and c["W"] == w and (lse is None or c["lse"] == lse))
+
+
+def contract_w(kw_cases: list, serve_w: dict, train_w: dict) -> list:
+    """One entry per (K5 kernel, W, shape) launched on Path B: the served
+    forward, the trained forward (with lse) and the backward."""
+    entries = []
+    for rec, pairs in ((serve_w, 1), (train_w, 2)):
+        for kernel, by_shape in sorted(rec["_by_kernel"].items()):
+            if "_w" not in kernel:
+                continue
+            w = int(kernel.split("_w")[1].split("+")[0])
+            bwd = "_bwd" in kernel
+            for shape in stage_shapes(batch=pairs):
+                key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
+                n = by_shape.get(key, 0)
+                if n == 0:
+                    continue
+                c = _w_case(kw_cases, shape, pairs,
+                            "backward" if bwd else "forward", w,
+                            None if bwd else pairs > 1)
+                # the blocks at this W with the case's mask, or without
+                entries.append(_entry(
+                    kernel, dict(shape, nW=c["nW"]),
+                    KERNEL_BWD_SOURCE if bwd else KERNEL_SOURCE,
+                    KERNEL_W_BWD_REPLACES if bwd else KERNEL_W_REPLACES,
+                    n, c, pairs))
+    return entries
+
+
+def contract_resident(k4_cases: list, train_res: dict) -> list:
+    """Path A's entries: K1 without the log-sum-exp and K4 at each trained
+    shape, launches from train_resident."""
+    entries = []
+    for shape in stage_shapes(batch=2):
+        key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
+        c = _find(k4_cases, shape, 2)
+        nf = train_res["_by_shape"]["window_attention_fwd"].get(key, 0)
+        nb = train_res["_by_shape"]["window_attention_bwd_resident"].get(
+            key, 0)
+        entries.append(_entry("window_attention_fwd (bias_resident)", shape,
+                              KERNEL_SOURCE, KERNEL_REPLACES, nf,
+                              c["forward"], 2))
+        e = _entry("window_attention_bwd_resident", shape,
+                   KERNEL_RESIDENT_SOURCE, KERNEL_RESIDENT_REPLACES, nb, c, 2)
+        e["k2_ms"] = c["k2_ms"]
+        e["dbias_bitwise_equal"] = c["dbias_bitwise_equal"]
         entries.append(e)
     return entries
 
@@ -1638,6 +2256,9 @@ def main() -> int:
                          "swin_large and of the flagship's slab path, and "
                          "write their rows to PATH and PATH with _large / "
                          "_slab before its extension (JSON)")
+    ap.add_argument("--child", choices=["w", "grads"], default=None,
+                    help=argparse.SUPPRESS)     # the script's own children
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1646,12 +2267,16 @@ def main() -> int:
         return 1
     t_start = time.time()
     torch.manual_seed(0)
+    if args.child:
+        return child_main(args)
     phase_env()
     timed = args.only is None
     k1_cases = phase_kernels(timed=timed)
     k2_cases = phase_kernels_backward(timed=timed)
     hs_cases = phase_kernels_headsplit(timed=timed)
     slab_cases = phase_kernels_slab(timed=timed)
+    k4_cases = phase_kernels_resident(timed=timed)
+    kw_cases = phase_kernels_w(timed=timed)
     if args.only == "kernels":
         return 0
     serve = phase_serve()
@@ -1662,6 +2287,8 @@ def main() -> int:
     serve_slab = phase_serve(tag="serve_slab", attn_impl="cuda_slab")
     train_slab = phase_train(steps=6, deterministic_run=False,
                              tag="train_slab", attn_impl="cuda_slab")
+    train_res = phase_train_resident()
+    serve_w, train_w = phase_w_child()
     if args.profile:
         phase_profile(args.profile)
         root, ext = os.path.splitext(args.profile)
@@ -1679,11 +2306,14 @@ def main() -> int:
         "forward": phase_parity(dtypes=("float32",), tag=None,
                                 impl="cuda_slab"),
         "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
+    phase_train_parity_resident()
     entries = []
     for sv, tr in ((serve, train), (serve_large, train_large),
                    (serve_slab, train_slab)):
         entries += contract_serve(k1_cases, hs_cases, slab_cases, sv)
         entries += contract_train(k2_cases, hs_cases, slab_cases, tr)
+    entries += contract_resident(k4_cases, train_res)
+    entries += contract_w(kw_cases, serve_w, train_w)
     print(json.dumps({"kernels": entries}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,7 +7,10 @@
 // driven by _pallas_backward) on head-split q, k, v (B_, nH, N, Dh); and
 // mmde_tpu/ops/window_attention_slab.py::_bwd_body (K9, driven by
 // _pallas_backward) on the (B, Hp, Wp, 3C) map, reading g and writing dqkv
-// as maps too. The operands are layout structs (window_attention_common.cuh)
+// as maps too; and, in kernels of their own (bwd_dq_w_kernel,
+// bwd_dkv_w_kernel), K5: K2's w > 1 path (the same _bwd_body with W windows
+// per grid cell, which MMDE_ATTN_W selects through _choose_w). The
+// operands are layout structs (window_attention_common.cuh)
 // and the kernels templates over them, so one set of kernels serves the
 // three layouts. Same function, re-derived for a GPU. Per (window b, head
 // h), with
@@ -110,31 +113,6 @@ constexpr int DQ_SMEM_FLOATS =
 constexpr int DKV_SMEM_FLOATS =
     4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 3 * BT + 8;
 
-// token row r of the head whose token 0 is at `base`, in layout `rows`;
-// zeros past the edge
-template <typename T, class R>
-__device__ __forceinline__ void fetch_row(const T* __restrict__ base,
-                                          const R& rows, int r, int N,
-                                          float (&x)[DH]) {
-  if (r < N) {
-    load_row(base + rows.off(r), x);
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) x[d] = 0.0f;
-  }
-}
-
-// x <- x * rsqrt(sum(x^2) + 1e-12); returns the factor
-__device__ __forceinline__ float normalise(float (&x)[DH]) {
-  float ss = 0.0f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
-  const float inv = rsqrtf(ss + 1e-12f);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) x[d] *= inv;
-  return inv;
-}
-
 // tile stored transposed, [d][j]
 __device__ __forceinline__ void put_t(float* st, int j,
                                       const float (&x)[DH]) {
@@ -201,22 +179,6 @@ __device__ __forceinline__ void probabilities(
       }
     }
   }
-}
-
-// sum over the 16 lanes (one half warp) that share a row of the N x N tile
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off >= 1; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// sum over the 8 lanes that share a row of an N x 32 output tile
-__device__ __forceinline__ float row_sum8(float x) {
-#pragma unroll
-  for (int off = 4; off >= 1; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -665,6 +627,464 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5: the dq and dk/dv passes with W consecutive windows per block
+// ---------------------------------------------------------------------------
+// The block owns one (query tile | key tile, head) of W windows and walks the
+// other tile axis outermost; for each step it stages the 64 x 64 bias tile
+// once in shared memory (fp32) and then runs the W windows' tile products
+// against it. What a window carries from one step to the next - the dq
+// pass's A / B accumulators and delta, the dk/dv pass's dv / dk^
+// accumulators - lives in shared memory, one slot per window; the q / g /
+// k / v tiles are re-read for each (step, window) (from L2). The tile
+// products' staging and the p / ds tiles share one region, which the two
+// use in turn. The dk/dv pass sums the W windows' ds tiles in registers
+// before its fp32 atomics into dbias: one atomic per element per W windows.
+
+// `probabilities` with the bias read from the staged tile
+template <typename TB, bool FASTEXP>
+__device__ __forceinline__ void probabilities_staged(
+    float (&s)[8][4], float (&p)[8][4], const float* __restrict__ sB,
+    const TB* __restrict__ mask_w, const float* __restrict__ sLse,
+    float scale, int q0, int k0, int ty, int tx, int N) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + ty * 8 + i;
+    const float lse = sLse[ty * 8 + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx * 4 + j;
+      if (row < N && col < N) {
+        const float sc = s[i][j] * scale;
+        float v = sc + sB[(ty * 8 + i) * P_LD + tx * 4 + j];
+        if (mask_w != nullptr) v += ldf(mask_w, (size_t)row * N + col);
+        s[i][j] = sc;
+        p[i][j] = exp_<FASTEXP>(v - lse);
+      } else {
+        s[i][j] = 0.0f;
+        p[i][j] = 0.0f;
+      }
+    }
+  }
+}
+
+// shared memory of the W-window passes, in floats: the part every block
+// has, and one window's slot
+constexpr int DQW_BASE_FLOATS = 2 * BT * P_LD + BT * R_LD + BT * P_LD + BT;
+constexpr int DQW_WIN_FLOATS = 2 * BT * R_LD + 2 * BT;
+constexpr int DKVW_BASE_FLOATS =
+    8 + 2 * BT * P_LD + 2 * BT * R_LD + BT * P_LD + 3 * BT;
+constexpr int DKVW_WIN_FLOATS = 2 * BT * R_LD;
+static_assert(2 * BT * P_LD >= 4 * DH * BT, "p / ds tiles cover the staging");
+
+template <typename T, typename TB, bool FASTEXP>
+__global__ void __launch_bounds__(NT)
+bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                Rows<const T> g, const float* __restrict__ logit_scale,
+                const TB* __restrict__ bias, const TB* __restrict__ mask,
+                const float* __restrict__ lse, Rows<T> dq,
+                float* __restrict__ delta, int N, int nW, int W) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQt = smem;                   // [DH][BT] q^   } the tile products
+  float* sGt = sQt + DH * BT;          // [DH][BT] g    }
+  float* sKt = sGt + DH * BT;          // [DH][BT] k^   }
+  float* sVt = sKt + DH * BT;          // [DH][BT] v    }
+  float* sP = smem;                    // [BT][P_LD] p       } then, in turn
+  float* sW = sP + BT * P_LD;          // [BT][P_LD] p * dp  }
+  float* sK = smem + 2 * BT * P_LD;    // [BT][R_LD] k^
+  float* sB = sK + BT * R_LD;          // [BT][P_LD] bias tile
+  float* sRq = sB + BT * P_LD;         // [BT]
+  float* sWin = sRq + BT;              // W x {A, B [BT][R_LD]; delta, lse}
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT;
+  const int h = blockIdx.y;
+  const int nH = gridDim.y;
+  const int b0 = blockIdx.z * W;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const float scale = expf(fminf(logit_scale[h], LN100));
+  const int tx = tid & 15, ty = tid >> 4;
+  const int px = tid & 7, py = tid >> 3;
+
+  for (int w = 0; w < W; ++w) {
+    float* wA = sWin + w * DQW_WIN_FLOATS;
+    float* wD = wA + 2 * BT * R_LD;
+    float* wL = wD + BT;
+    for (int e = tid; e < 2 * BT * R_LD; e += NT) wA[e] = 0.0f;
+    if (tid < BT) {
+      const int r = q0 + tid;
+      wD[tid] = 0.0f;
+      wL[tid] = r < N ? lse[((size_t)(b0 + w) * nH + h) * N + r] : 0.0f;
+    }
+  }
+
+  for (int k0 = 0; k0 < N; k0 += BT) {
+    __syncthreads();  // the previous key tile's reads of sB and sK are done
+    stage_bias<BT, BT, P_LD, NT>(sB, bias_h, q0, k0, N, tid);
+    for (int w = 0; w < W; ++w) {
+      const int b = b0 + w;
+      float* wA = sWin + w * DQW_WIN_FLOATS;
+      float* wB = wA + BT * R_LD;
+      float* wD = wB + BT * R_LD;
+      const float* wL = wD + BT;
+      const TB* mask_w =
+          mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
+      __syncthreads();  // sB staged; the last window's reads of sP/sW/sK done
+      {
+        float x[DH];
+        const int j = tid & (BT - 1);
+        if (tid < BT) {
+          fetch_row(q.head(b, h), q, q0 + j, N, x);
+          normalise(x);
+          put_t(sQt, j, x);
+          fetch_row(k.head(b, h), k, k0 + j, N, x);
+          normalise(x);
+          put_t(sKt, j, x);
+          put_r(sK, j, x);
+        } else {
+          fetch_row(g.head(b, h), g, q0 + j, N, x);
+          put_t(sGt, j, x);
+          fetch_row(v.head(b, h), v, k0 + j, N, x);
+          put_t(sVt, j, x);
+        }
+      }
+      __syncthreads();
+
+      float s[8][4], p[8][4], dp[8][4];
+      tile_dot(sQt, sKt, ty, tx, s);
+      probabilities_staged<TB, FASTEXP>(s, p, sB, mask_w, wL, scale, q0, k0,
+                                        ty, tx, N);
+      tile_dot(sGt, sVt, ty, tx, dp);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float d = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dp[i][j] *= p[i][j];
+          d += dp[i][j];
+        }
+        d = row_sum16(d);
+        if (tx == 0) wD[ty * 8 + i] += d;
+      }
+      __syncthreads();  // the products' reads of the staging are done
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1], p[i][2],
+               p[i][3]);
+        store4(&sW[(ty * 8 + i) * P_LD + tx * 4], dp[i][0], dp[i][1],
+               dp[i][2], dp[i][3]);
+      }
+      __syncthreads();
+
+      // A += (p*dp) k^,  B += p k^, this window's slot
+      float accA[4][4], accB[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            &wA[(py + 16 * r) * R_LD + px * 4]);
+        const float4 c = *reinterpret_cast<const float4*>(
+            &wB[(py + 16 * r) * R_LD + px * 4]);
+        accA[r][0] = a.x; accA[r][1] = a.y; accA[r][2] = a.z; accA[r][3] = a.w;
+        accB[r][0] = c.x; accB[r][1] = c.y; accB[r][2] = c.z; accB[r][3] = c.w;
+      }
+#pragma unroll 2
+      for (int j0 = 0; j0 < BT; j0 += 4) {
+        float pr[4][4], wr[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              &sP[(py + 16 * r) * P_LD + j0]);
+          const float4 u = *reinterpret_cast<const float4*>(
+              &sW[(py + 16 * r) * P_LD + j0]);
+          pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
+          wr[r][0] = u.x; wr[r][1] = u.y; wr[r][2] = u.z; wr[r][3] = u.w;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              &sK[(j0 + jj) * R_LD + px * 4]);
+          const float kc[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              accA[r][c] = fmaf(wr[r][jj], kc[c], accA[r][c]);
+              accB[r][c] = fmaf(pr[r][jj], kc[c], accB[r][c]);
+            }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        store4(&wA[(py + 16 * r) * R_LD + px * 4], accA[r][0], accA[r][1],
+               accA[r][2], accA[r][3]);
+        store4(&wB[(py + 16 * r) * R_LD + px * 4], accB[r][0], accB[r][1],
+               accB[r][2], accB[r][3]);
+      }
+    }
+  }
+
+  // per window: delta out, dq = rq (dqn - q^ <dqn, q^>), dqn = scale (A - delta B)
+  for (int w = 0; w < W; ++w) {
+    const int b = b0 + w;
+    const float* wA = sWin + w * DQW_WIN_FLOATS;
+    const float* wB = wA + BT * R_LD;
+    const float* wD = wB + BT * R_LD;
+    const size_t stat0 = ((size_t)b * nH + h) * N;
+    __syncthreads();  // the last reads of sP / sW / sQt are done
+    if (tid < BT) {
+      float x[DH];
+      fetch_row(q.head(b, h), q, q0 + tid, N, x);
+      sRq[tid] = normalise(x);
+      put_t(sQt, tid, x);
+      if (q0 + tid < N) delta[stat0 + q0 + tid] = wD[tid];
+    }
+    __syncthreads();
+    T* dq_b = dq.head(b, h) + px * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int lr = py + 16 * r;
+      const int row = q0 + lr;
+      const float dl = wD[lr];
+      float dqn[4], qn[4];
+      float dot = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dqn[c] = scale * (wA[lr * R_LD + px * 4 + c] -
+                          dl * wB[lr * R_LD + px * 4 + c]);
+        qn[c] = sQt[(px * 4 + c) * BT + lr];
+        dot = fmaf(dqn[c], qn[c], dot);
+      }
+      dot = row_sum8(dot);
+      const float rq = sRq[lr];
+      if (row < N)
+        store4(dq_b + dq.off(row), rq * (dqn[0] - qn[0] * dot),
+               rq * (dqn[1] - qn[1] * dot), rq * (dqn[2] - qn[2] * dot),
+               rq * (dqn[3] - qn[3] * dot));
+    }
+  }
+}
+
+template <typename T, typename TB, bool FASTEXP>
+__global__ void __launch_bounds__(NT)
+bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                 Rows<const T> g, const float* __restrict__ logit_scale,
+                 const TB* __restrict__ bias, const TB* __restrict__ mask,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, Rows<T> dk, Rows<T> dv,
+                 double* __restrict__ dls_part, float* __restrict__ dbias,
+                 int N, int nW, int W) {
+  extern __shared__ __align__(16) float smem[];
+  double* sRed = reinterpret_cast<double*>(smem);  // [4]
+  float* sKt = smem + 8;               // [DH][BT] k^   } the tile products
+  float* sVt = sKt + DH * BT;          // [DH][BT] v    }
+  float* sQt = sVt + DH * BT;          // [DH][BT] q^   }
+  float* sGt = sQt + DH * BT;          // [DH][BT] g    }
+  float* sPt = smem + 8;               // [BT keys][P_LD rows] p   } then
+  float* sDSt = sPt + BT * P_LD;       // [BT keys][P_LD rows] ds  }
+  float* sQ = smem + 8 + 2 * BT * P_LD;  // [BT][R_LD] q^
+  float* sG = sQ + BT * R_LD;          // [BT][R_LD] g
+  float* sB = sG + BT * R_LD;          // [BT rows][P_LD keys] bias tile
+  float* sRk = sB + BT * P_LD;         // [BT]
+  float* sLse = sRk + BT;              // [BT]
+  float* sDelta = sLse + BT;           // [BT]
+  float* sWin = sDelta + BT;           // W x {dv, dk^ [BT][R_LD]}
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BT;
+  const int h = blockIdx.y;
+  const int nH = gridDim.y;
+  const int b0 = blockIdx.z * W;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  float* dbias_h = dbias != nullptr ? dbias + (size_t)h * N * N : nullptr;
+  const float ls = logit_scale[h];
+  const float scale = expf(fminf(ls, LN100));
+  const int tx = tid & 15, ty = tid >> 4;
+  const int px = tid & 7, py = tid >> 3;
+
+  for (int e = tid; e < W * DKVW_WIN_FLOATS; e += NT) sWin[e] = 0.0f;
+
+  for (int q0 = 0; q0 < N; q0 += BT) {
+    __syncthreads();  // the previous query tile's reads of sB are done
+    stage_bias<BT, BT, P_LD, NT>(sB, bias_h, q0, k0, N, tid);
+    float dsum[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dsum[i][j] = 0.0f;
+    for (int w = 0; w < W; ++w) {
+      const int b = b0 + w;
+      float* wV = sWin + w * DKVW_WIN_FLOATS;
+      float* wK = wV + BT * R_LD;
+      const TB* mask_w =
+          mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
+      const size_t stat0 = ((size_t)b * nH + h) * N;
+      __syncthreads();  // sB staged; the last window's reads of the tiles done
+      {
+        float x[DH];
+        const int j = tid & (BT - 1);
+        const int r = q0 + j;
+        if (tid < BT) {
+          fetch_row(q.head(b, h), q, r, N, x);
+          normalise(x);
+          put_t(sQt, j, x);
+          put_r(sQ, j, x);
+          sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
+          fetch_row(k.head(b, h), k, k0 + j, N, x);
+          normalise(x);
+          put_t(sKt, j, x);
+        } else {
+          fetch_row(g.head(b, h), g, r, N, x);
+          put_t(sGt, j, x);
+          put_r(sG, j, x);
+          sDelta[j] = r < N ? delta[stat0 + r] : 0.0f;
+          fetch_row(v.head(b, h), v, k0 + j, N, x);
+          put_t(sVt, j, x);
+        }
+      }
+      __syncthreads();
+
+      float s[8][4], p[8][4], ds[8][4];
+      tile_dot(sQt, sKt, ty, tx, s);
+      probabilities_staged<TB, FASTEXP>(s, p, sB, mask_w, sLse, scale, q0,
+                                        k0, ty, tx, N);
+      tile_dot(sGt, sVt, ty, tx, ds);  // dp for now
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float dl = sDelta[ty * 8 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ds[i][j] = p[i][j] * (ds[i][j] - dl);
+          dsum[i][j] += ds[i][j];
+        }
+      }
+      __syncthreads();  // the products' reads of the staging are done
+      // transposed, [key][row]: the next products sum over query rows
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* pp = &sPt[(tx * 4 + j) * P_LD + ty * 8];
+        float* dd = &sDSt[(tx * 4 + j) * P_LD + ty * 8];
+        store4(pp, p[0][j], p[1][j], p[2][j], p[3][j]);
+        store4(pp + 4, p[4][j], p[5][j], p[6][j], p[7][j]);
+        store4(dd, ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
+        store4(dd + 4, ds[4][j], ds[5][j], ds[6][j], ds[7][j]);
+      }
+      __syncthreads();
+
+      // dv += p^T g,  dkn += ds^T q^, this window's slot
+      float accV[4][4], accK[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            &wV[(py + 16 * r) * R_LD + px * 4]);
+        const float4 c = *reinterpret_cast<const float4*>(
+            &wK[(py + 16 * r) * R_LD + px * 4]);
+        accV[r][0] = a.x; accV[r][1] = a.y; accV[r][2] = a.z; accV[r][3] = a.w;
+        accK[r][0] = c.x; accK[r][1] = c.y; accK[r][2] = c.z; accK[r][3] = c.w;
+      }
+#pragma unroll 2
+      for (int i0 = 0; i0 < BT; i0 += 4) {
+        float pr[4][4], dr[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              &sPt[(py + 16 * r) * P_LD + i0]);
+          const float4 u = *reinterpret_cast<const float4*>(
+              &sDSt[(py + 16 * r) * P_LD + i0]);
+          pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
+          dr[r][0] = u.x; dr[r][1] = u.y; dr[r][2] = u.z; dr[r][3] = u.w;
+        }
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float4 gg = *reinterpret_cast<const float4*>(
+              &sG[(i0 + ii) * R_LD + px * 4]);
+          const float4 qq = *reinterpret_cast<const float4*>(
+              &sQ[(i0 + ii) * R_LD + px * 4]);
+          const float gc[4] = {gg.x, gg.y, gg.z, gg.w};
+          const float qc[4] = {qq.x, qq.y, qq.z, qq.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              accV[r][c] = fmaf(pr[r][ii], gc[c], accV[r][c]);
+              accK[r][c] = fmaf(dr[r][ii], qc[c], accK[r][c]);
+            }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        store4(&wV[(py + 16 * r) * R_LD + px * 4], accV[r][0], accV[r][1],
+               accV[r][2], accV[r][3]);
+        store4(&wK[(py + 16 * r) * R_LD + px * 4], accK[r][0], accK[r][1],
+               accK[r][2], accK[r][3]);
+      }
+    }
+    if (dbias_h != nullptr) {   // the W windows' ds, one atomic per element
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = q0 + ty * 8 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx * 4 + j;
+          if (row < N && col < N)
+            atomicAdd(dbias_h + (size_t)row * N + col, dsum[i][j]);
+        }
+      }
+    }
+  }
+
+  // per window: dk = rk (dkn - k^ <dkn, k^>), dkn = scale * acc; dv
+  double dls = 0.0;
+  for (int w = 0; w < W; ++w) {
+    const int b = b0 + w;
+    const float* wV = sWin + w * DKVW_WIN_FLOATS;
+    const float* wK = wV + BT * R_LD;
+    __syncthreads();  // the last reads of sPt / sDSt (over sKt) are done
+    if (tid < BT) {
+      float x[DH];
+      fetch_row(k.head(b, h), k, k0 + tid, N, x);
+      sRk[tid] = normalise(x);
+      put_t(sKt, tid, x);
+    }
+    __syncthreads();
+    T* dk_b = dk.head(b, h) + px * 4;
+    T* dv_b = dv.head(b, h) + px * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int lk = py + 16 * r;
+      const int key = k0 + lk;
+      float dkn[4], kn[4];
+      float dot = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dkn[c] = scale * wK[lk * R_LD + px * 4 + c];
+        kn[c] = sKt[(px * 4 + c) * BT + lk];
+        dot = fmaf(dkn[c], kn[c], dot);
+      }
+      dot = row_sum8(dot);
+      const float rk = sRk[lk];
+      if (key < N) {
+        store4(dk_b + dk.off(key), rk * (dkn[0] - kn[0] * dot),
+               rk * (dkn[1] - kn[1] * dot), rk * (dkn[2] - kn[2] * dot),
+               rk * (dkn[3] - kn[3] * dot));
+        const float* av = &wV[lk * R_LD + px * 4];
+        store4(dv_b + dv.off(key), av[0], av[1], av[2], av[3]);
+        if (px == 0) dls += dot;  // the 8 lanes of a key hold the same dot
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    dls += __shfl_xor_sync(0xffffffffu, dls, off);
+  __syncthreads();
+  if ((tid & 31) == 0) sRed[tid >> 5] = dls;
+  __syncthreads();
+  if (tid == 0) {
+    const double tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
+    dls_part[((size_t)blockIdx.z * gridDim.x + blockIdx.x) * nH + h] =
+        ls < LN100 ? tot : 0.0;
+  }
+}
+
 // The operands' (window, head, token) layout, on the host.
 template <template <typename> class L, typename T>
 struct Operands {
@@ -722,6 +1142,73 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
     err = cudaGetLastError();
   }
   return (int)err;
+}
+
+// K5's two passes (and, with dbias_mode = 2, K3's pass at one window) on
+// the packed layout, W windows per block of the dq and dk/dv passes.
+template <typename T, typename TB, bool FASTEXP>
+int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
+             const void* mask, const void* lse, void* delta, void* dls_part,
+             void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
+             int W, cudaStream_t stream) {
+  if (!o.aligned()) return -1;
+  if (W < 2 || B_ % W != 0) return -1;
+  const int nT = (N + BT - 1) / BT;
+  const long long dq_bytes =
+      (long long)(DQW_BASE_FLOATS + (long long)W * DQW_WIN_FLOATS) * 4;
+  const long long dkv_bytes =
+      (long long)(DKVW_BASE_FLOATS + (long long)W * DKVW_WIN_FLOATS) * 4;
+  if (dq_bytes > (1ll << 30) || dkv_bytes > (1ll << 30)) return -1;
+  // more windows than the shared memory holds: the attribute is refused
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_w_kernel<T, TB, FASTEXP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dkv_w_kernel<T, TB, FASTEXP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkv_bytes);
+  if (err != cudaSuccess) return (int)err;
+
+  dim3 grid(nT, nH, B_ / W);
+  bwd_dq_w_kernel<T, TB, FASTEXP><<<grid, NT, (int)dq_bytes, stream>>>(
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  bwd_dkv_w_kernel<T, TB, FASTEXP><<<grid, NT, (int)dkv_bytes, stream>>>(
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
+      (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW,
+      W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || dbias_mode != 2) return (int)err;
+
+  dim3 grid_b(nT, nT, nH);
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias, (const TB*)mask,
+      (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TB, bool FASTEXP>
+int launch_packed_w(const void* qkv, const void* g, const void* ls,
+                    const void* bias, const void* mask, const void* lse,
+                    void* dqkv, void* delta, void* dls_part, void* dbias,
+                    int B_, int N, int nH, int nW, int dbias_mode, int W,
+                    cudaStream_t stream) {
+  const int C = nH * DH;
+  Operands<Rows, T> o;
+  o.q = packed_rows((const T*)qkv, 0, N, C, 3, DH);
+  o.k = packed_rows((const T*)qkv, 1, N, C, 3, DH);
+  o.v = packed_rows((const T*)qkv, 2, N, C, 3, DH);
+  o.g = packed_rows((const T*)g, 0, N, C, 1, DH);
+  o.dq = packed_rows((T*)dqkv, 0, N, C, 3, DH);
+  o.dk = packed_rows((T*)dqkv, 1, N, C, 3, DH);
+  o.dv = packed_rows((T*)dqkv, 2, N, C, 3, DH);
+  return launch_w<T, TB, FASTEXP>(o, ls, bias, mask, lse, delta, dls_part,
+                                  dbias, B_, N, nH, nW, dbias_mode, W,
+                                  stream);
 }
 
 enum Layout { PACKED, STRIDED, MAP };
@@ -869,4 +1356,35 @@ extern "C" int mmde_window_attention_slab_bwd(
                   mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
                   (int)(B * nW), (int)N, nH, (int)nW, qkv_bf16, bias_bf16,
                   dbias_mode, stream);
+}
+
+// K5's entry: as mmde_window_attention_bwd, with W (>= 2, dividing B_)
+// consecutive windows per block of the dq and dk/dv passes; dls_part is
+// (B_ / W * ceil(N / 64), nH). Returns the attribute's error when W windows'
+// accumulators do not fit in a block's shared memory (W > 8).
+extern "C" int mmde_window_attention_bwd_w(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, void* dqkv,
+    void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
+    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int W,
+    void* stream) {
+  if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535) return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  if (dbias_mode < 0 || dbias_mode > 2) return -1;
+  if (dbias_mode != 0 && dbias == nullptr) return -1;
+  if (W < 2 || B_ % W != 0 || B_ / W > 65535) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16 && !bias_bf16)
+    return launch_packed_w<float, float, false>(
+        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+        B_, N, nH, nW, dbias_mode, W, s);
+  if (qkv_bf16 && bias_bf16)
+    return launch_packed_w<__nv_bfloat16, __nv_bfloat16, true>(
+        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+        B_, N, nH, nW, dbias_mode, W, s);
+  if (qkv_bf16 && !bias_bf16)
+    return launch_packed_w<__nv_bfloat16, float, true>(
+        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+        B_, N, nH, nW, dbias_mode, W, s);
+  return -1;
 }

@@ -1,5 +1,6 @@
 // Device helpers shared by the window-attention kernels
-// (window_attention_fwd.cu, window_attention_bwd.cu).
+// (window_attention_fwd.cu, window_attention_bwd.cu,
+// window_attention_bwd_resident.cu).
 //
 // Every operand of shape (window b, head h, token r, channel d) is handed to
 // a kernel as a layout struct with two methods: head(b, h), the address of
@@ -162,6 +163,63 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
 template <bool FAST>
 __device__ __forceinline__ float exp_(float x) {
   return FAST ? __expf(x) : expf(x);
+}
+
+// token row r of the head whose token 0 is at `base`, in layout `rows`;
+// zeros past the edge
+template <typename T, class R, int D>
+__device__ __forceinline__ void fetch_row(const T* __restrict__ base,
+                                          const R& rows, int r, int N,
+                                          float (&x)[D]) {
+  if (r < N) {
+    load_row(base + rows.off(r), x);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = 0.0f;
+  }
+}
+
+// x <- x * rsqrt(sum(x^2) + 1e-12); returns the factor
+template <int D>
+__device__ __forceinline__ float normalise(float (&x)[D]) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) ss += x[d] * x[d];
+  const float inv = rsqrtf(ss + 1e-12f);
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] *= inv;
+  return inv;
+}
+
+// rows r0.. and columns c0.. of the (N, N) bias of one head as a fp32
+// ROWS x COLS tile with row stride LD in shared memory, 0 past the edge;
+// the NT threads of the block share the work
+template <int ROWS, int COLS, int LD, int NT, typename TB>
+__device__ __forceinline__ void stage_bias(float* __restrict__ sB,
+                                           const TB* __restrict__ bias_h,
+                                           int r0, int c0, int N, int tid) {
+  for (int e = tid; e < ROWS * COLS; e += NT) {
+    const int r = e / COLS, c = e - (e / COLS) * COLS;
+    const int row = r0 + r, col = c0 + c;
+    sB[r * LD + c] = (row < N && col < N)
+                         ? ldf(bias_h, (size_t)row * N + col) : 0.0f;
+  }
+}
+
+// sum over the 16 lanes (one half warp) that share a row of an N x N tile
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// sum over the 8 lanes that share a row of an N x 32 tile
+__device__ __forceinline__ float row_sum8(float x) {
+#pragma unroll
+  for (int off = 4; off >= 1; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 }  // namespace

@@ -6,8 +6,10 @@
 //   K6  mmde_tpu/ops/window_attention_pallas.py::_kernel (driven by
 //       _pallas_forward), on head-split q, k, v (B_, nH, N, Dh);
 //   K8  mmde_tpu/ops/window_attention_slab.py::_fwd_body (driven by
-//       _pallas_forward), on the (B, Hp, Wp, 3C) map, windows read in place.
-// Same function, re-tiled for a GPU:
+//       _pallas_forward), on the (B, Hp, Wp, 3C) map, windows read in place;
+// and, in a kernel of its own (window_attention_fwd_w_kernel), K5: K1's
+// w > 1 path (the same _fwd_body with W windows per grid cell, which
+// MMDE_ATTN_W selects through _choose_w). Same function, re-tiled for a GPU:
 //
 //   per (window b, head h):
 //     q^ = q * rsqrt(sum(q^2) + 1e-12),  k^ likewise            (fp32)
@@ -323,6 +325,238 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
   }
 }
 
+// K5: W consecutive windows per block (W divides B_). The block owns one
+// (query tile, head) of its W windows and walks the key tiles outermost;
+// each step stages the 64 x 64 bias tile once, in fp32 shared memory, and
+// runs the W windows' tile products against it. What a window carries from
+// one key tile to the next - its q^ tile, output accumulator, row maximum
+// and row sum - lives in shared memory, one slot per window; K and V of
+// each (key tile, window) stream through the staging K1 uses. Same
+// function, same softmax forms and log-sum-exp as K1; the row sums are
+// reduced per key tile instead of once at the end.
+constexpr int W_BASE_FLOATS = DH * BK + BK * V_LD + 2 * BQ * P_LD + BQ;
+constexpr int W_WIN_FLOATS = DH * BQ + BQ * V_LD + 2 * BQ;
+
+template <typename T, typename TB, bool FASTEXP>
+__global__ void __launch_bounds__(NT)
+window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
+                              Rows<const T> v,
+                              const float* __restrict__ logit_scale,
+                              const TB* __restrict__ bias,
+                              const TB* __restrict__ mask, Rows<T> out,
+                              float* __restrict__ lse, int N, int nW,
+                              int maxfree, int W) {
+  extern __shared__ __align__(16) float smem[];
+  float* sKt = smem;                 // [DH][BK] k^ of one window's key tile
+  float* sV = sKt + DH * BK;         // [BK][V_LD] its v
+  float* sP = sV + BK * V_LD;        // [BQ][P_LD] p
+  float* sB = sP + BQ * P_LD;        // [BQ][P_LD] bias tile, the W windows'
+  float* sAlpha = sB + BQ * P_LD;    // [BQ]
+  float* sWin = sAlpha + BQ;         // W x {q^ [DH][BQ], o [BQ][V_LD], m, l}
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b0 = blockIdx.z * W;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const float scale = expf(fminf(logit_scale[h], LN100));
+  const float shift = scale + 16.0f;
+  const bool mf = maxfree != 0 && scale <= MAXFREE_MAX_SCALE;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int px = tid & 7, py = tid >> 3;
+
+  for (int w = 0; w < W; ++w) {
+    float* wq = sWin + w * W_WIN_FLOATS;
+    float* wo = wq + DH * BQ;
+    float* wm = wo + BQ * V_LD;
+    float* wl = wm + BQ;
+    if (tid < BQ) {
+      float x[DH];
+      fetch_row(q.head(b0 + w, h), q, q0 + tid, N, x);  // zeros past the edge
+      normalise(x);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) wq[d * BQ + tid] = x[d];
+      wm[tid] = mf ? shift : -INFINITY;
+      wl[tid] = 0.0f;
+    }
+    for (int e = tid; e < BQ * V_LD; e += NT) wo[e] = 0.0f;
+  }
+
+  // threads 0..63 load key rows, 64..127 value rows
+  const bool is_k = tid < BK;
+  const Rows<const T> kv = is_k ? k : v;
+
+  for (int k0 = 0; k0 < N; k0 += BK) {
+    __syncthreads();  // the previous key tile's reads of sB are done
+    stage_bias<BQ, BK, P_LD, NT>(sB, bias_h, q0, k0, N, tid);
+    for (int w = 0; w < W; ++w) {
+      const int b = b0 + w;
+      const float* wq = sWin + w * W_WIN_FLOATS;
+      float* wo = sWin + w * W_WIN_FLOATS + DH * BQ;
+      float* wm = wo + BQ * V_LD;
+      float* wl = wm + BQ;
+      const TB* mask_w =
+          mask != nullptr ? mask + (size_t)(b % nW) * N * N : nullptr;
+      __syncthreads();  // sB staged; the last window's reads of sKt/sV/sP done
+      {
+        float x[DH];
+        const int j = tid & (BK - 1);
+        fetch_row(kv.head(b, h), kv, k0 + j, N, x);
+        if (is_k) {
+          normalise(x);
+#pragma unroll
+          for (int d = 0; d < DH; ++d) sKt[d * BK + j] = x[d];
+        } else {
+#pragma unroll
+          for (int d = 0; d < DH; d += 4)
+            store4(&sV[j * V_LD + d], x[d], x[d + 1], x[d + 2], x[d + 3]);
+        }
+      }
+      __syncthreads();
+
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        const float4 qa =
+            *reinterpret_cast<const float4*>(&wq[d * BQ + ty * 8]);
+        const float4 qb =
+            *reinterpret_cast<const float4*>(&wq[d * BQ + ty * 8 + 4]);
+        const float4 kk =
+            *reinterpret_cast<const float4*>(&sKt[d * BK + tx * 4]);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        const float kv4[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv4[j], s[i][j]);
+      }
+
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int lr = ty * 8 + i;
+        const bool row_ok = q0 + lr < N;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx * 4 + j;
+          float logit;
+          if (col >= N) {
+            logit = -INFINITY;
+          } else if (!row_ok) {
+            logit = 0.0f;  // rows past the edge: finite filler, never stored
+          } else {
+            logit = fmaf(s[i][j], scale, sB[lr * P_LD + tx * 4 + j]);
+            if (mask_w != nullptr)
+              logit += ldf(mask_w, (size_t)(q0 + lr) * N + col);
+          }
+          s[i][j] = logit;
+        }
+        float p[4];
+        if (mf) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            p[j] = exp_<FASTEXP>(s[i][j] - shift);
+            sum += p[j];
+          }
+          sum = row_sum16(sum);
+          if (tx == 0) wl[lr] += sum;
+        } else {
+          const float m_old = wm[lr];
+          float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+          for (int off = 8; off >= 1; off >>= 1)
+            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+          const float m_new = fmaxf(m_old, tmax);
+          const float alpha = exp_<FASTEXP>(m_old - m_new);
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            p[j] = exp_<FASTEXP>(s[i][j] - m_new);
+            sum += p[j];
+          }
+          sum = row_sum16(sum);
+          __syncwarp();  // every lane of the row has read wm[lr]
+          if (tx == 0) {
+            wm[lr] = m_new;
+            wl[lr] = wl[lr] * alpha + sum;
+            sAlpha[lr] = alpha;
+          }
+        }
+        store4(&sP[lr * P_LD + tx * 4], p[0], p[1], p[2], p[3]);
+      }
+      __syncthreads();
+
+      // ---- o += p v, this window's slot ----
+      float o[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            &wo[(py + 16 * r) * V_LD + px * 4]);
+        const float a = mf ? 1.0f : sAlpha[py + 16 * r];
+        o[r][0] = t.x * a;
+        o[r][1] = t.y * a;
+        o[r][2] = t.z * a;
+        o[r][3] = t.w * a;
+      }
+#pragma unroll 4
+      for (int j0 = 0; j0 < BK; j0 += 4) {
+        float pr[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              &sP[(py + 16 * r) * P_LD + j0]);
+          pr[r][0] = t.x;
+          pr[r][1] = t.y;
+          pr[r][2] = t.z;
+          pr[r][3] = t.w;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              &sV[(j0 + jj) * V_LD + px * 4]);
+          const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              o[r][c] = fmaf(pr[r][jj], vc[c], o[r][c]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        store4(&wo[(py + 16 * r) * V_LD + px * 4], o[r][0], o[r][1], o[r][2],
+               o[r][3]);
+    }
+  }
+  __syncthreads();
+
+  for (int w = 0; w < W; ++w) {
+    const int b = b0 + w;
+    const float* wo = sWin + w * W_WIN_FLOATS + DH * BQ;
+    const float* wm = wo + BQ * V_LD;
+    const float* wl = wm + BQ;
+    if (lse != nullptr && tid < BQ && q0 + tid < N)
+      lse[((size_t)b * gridDim.y + h) * N + q0 + tid] =
+          wm[tid] + logf(wl[tid]);
+    T* out_b = out.head(b, h) + px * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int lr = py + 16 * r;
+      const int row = q0 + lr;
+      if (row < N) {
+        const float den = wl[lr];
+        const float* ov = &wo[lr * V_LD + px * 4];
+        store4(out_b + out.off(row), ov[0] / den, ov[1] / den, ov[2] / den,
+               ov[3] / den);
+      }
+    }
+  }
+}
+
 template <template <typename> class L, typename T, typename TB,
           bool FASTEXP>
 int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
@@ -336,6 +570,35 @@ int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
   window_attention_fwd_kernel<L, T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
       q, k, v, (const float*)ls, (const TB*)bias, (const TB*)mask, out,
       (float*)lse, N, nW, maxfree);
+  return (int)cudaGetLastError();
+}
+
+// K5 on the packed layout: qkv (B_, N, 3C), out (B_, N, C)
+template <typename T, typename TB, bool FASTEXP>
+int launch_w(const void* qkv, const void* ls, const void* bias,
+             const void* mask, void* out, void* lse, int B_, int N, int nH,
+             int nW, int maxfree, int W, cudaStream_t stream) {
+  const int C = nH * DH;
+  const Rows<const T> rq = packed_rows((const T*)qkv, 0, N, C, 3, DH);
+  const Rows<const T> rk = packed_rows((const T*)qkv, 1, N, C, 3, DH);
+  const Rows<const T> rv = packed_rows((const T*)qkv, 2, N, C, 3, DH);
+  const Rows<T> ro = packed_rows((T*)out, 0, N, C, 1, DH);
+  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
+      !rows_aligned(ro))
+    return -1;
+  const long long bytes =
+      (W_BASE_FLOATS + (long long)W * W_WIN_FLOATS) * (long long)sizeof(float);
+  if (bytes > (1ll << 30)) return -1;
+  // more windows than the shared memory holds: the attribute is refused
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_fwd_w_kernel<T, TB, FASTEXP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + BQ - 1) / BQ, nH, B_ / W);
+  window_attention_fwd_w_kernel<T, TB, FASTEXP>
+      <<<grid, NT, (int)bytes, stream>>>(rq, rk, rv, (const float*)ls,
+                                         (const TB*)bias, (const TB*)mask, ro,
+                                         (float*)lse, N, nW, maxfree, W);
   return (int)cudaGetLastError();
 }
 
@@ -490,4 +753,29 @@ extern "C" int mmde_window_attention_slab_fwd(
                                               out, nullptr, B, Hp, Wp, C, nH,
                                               ws, qkv_bf16, bias_bf16,
                                               stream);
+}
+
+// K5's entry (the JAX package's W windows per cell): as
+// mmde_window_attention_fwd_stats, `lse` may be null (serving), with W
+// (>= 2, dividing B_) consecutive windows per block. Returns the
+// attribute's error when W windows' state does not fit in a block's shared
+// memory (W > 10).
+extern "C" int mmde_window_attention_fwd_w(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, int W, void* stream) {
+  if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535) return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  if (W < 2 || B_ % W != 0 || B_ / W > 65535) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16 && !bias_bf16)
+    return launch_w<float, float, false>(qkv, logit_scale, bias, mask, out,
+                                         lse, B_, N, nH, nW, maxfree, W, s);
+  if (qkv_bf16 && bias_bf16)
+    return launch_w<__nv_bfloat16, __nv_bfloat16, true>(
+        qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W, s);
+  if (qkv_bf16 && !bias_bf16)
+    return launch_w<__nv_bfloat16, float, true>(
+        qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W, s);
+  return -1;
 }

@@ -6,17 +6,28 @@ temperature, the relative-position bias as plain (nH, N, N) and the
 shifted-window mask as plain (nW, N, N), and returns (B_, N, C). The TPU
 kernel's head-group packing, 8-row padding and -1e9 bias columns are TPU
 tiling and have no counterpart here: the CUDA kernels
-(csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu) mask the ragged
-edge themselves.
+(csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu,
+csrc/window_attention_bwd_resident.cu) mask the ragged edge themselves.
+
+Which kernel runs follows the JAX package's two process-wide settings, both
+read once at import:
+  MMDE_ATTN_GRID  "window_resident" (default) / "split": forward K1, backward
+                  K2 (its dbias by atomics / by K3's windows-innermost pass);
+                  "bias_resident": forward K1 without the log-sum-exp,
+                  backward K4, the single-pass kernel.
+  MMDE_ATTN_W     windows per block, "auto" or an int (default 1): where the
+                  JAX rule `choose_w` gives W > 1, the forward and K2's two
+                  passes run as K5, W consecutive windows per block sharing
+                  one staged bias tile ("bias_resident" keeps W = 1, as JAX).
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_packed_plain` and, under autograd,
 `cosine_window_attention_packed_backward_plain` - the same functions in plain
-PyTorch (the head-split module's, on qkv split into heads), which are also
-what the kernels are compared with on the card. `LAUNCHES` / `LAUNCHES_BWD`
-count kernel launches, and nothing else.
+PyTorch (the head-split module's, on qkv split into heads), whatever the
+grid or W, and also what the kernels are compared with on the card.
+`LAUNCHES*` count kernel launches, and nothing else.
 
-The same two libraries hold the head-split entry points that
+The same libraries hold the head-split entry points that
 ops/window_attention_headsplit.py binds; `packed_layout_ok` says which of
 the two layouts a swin stage takes, as the JAX package's `attention_plan`
 does.
@@ -34,52 +45,166 @@ from mmde_tpu_torch.ops.window_attention_headsplit import (
     cosine_window_attention_headsplit_plain)
 
 BWD_TILE = 64           # query rows per block of the backward's dq pass
-LAUNCHES = 0            # incremented once per forward-kernel launch
+RESIDENT_ROWS = 16      # query rows per block of K4
+RESIDENT_BLOCKS = 528   # K4 splits its window sweep until ~4 blocks per SM
+LAUNCHES = 0            # incremented once per forward-kernel launch (K1, K5)
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
-LAUNCHES_BWD = 0        # incremented once per backward launch (all its passes)
+LAUNCHES_BWD = 0        # once per K2 / K5 backward launch (all its passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
+LAUNCHES_RESIDENT = 0   # once per K4 launch
+LAUNCHES_RESIDENT_BY_SHAPE: dict = {}
+# every launch above, keyed by (kernel, (B_, N, C, nH)); kernel names:
+# window_attention_fwd[+lse] (K1), window_attention_fwd_w{W}[+lse] (K5),
+# window_attention_bwd (K2), window_attention_bwd_w{W} (K5),
+# window_attention_bwd_resident (K4)
+LAUNCHES_BY_KERNEL: dict = {}
 
 # The JAX package's three grid modes. The forward is the same function
-# under each (K1 here whatever the mode); they differ in the backward, in how
-# ds is summed over windows into dbias. "window_resident": fp32 atomics from
-# the dk/dv pass (the TPU kernel's default grid dumps ds per window there and
-# sums outside). "split": a pass of its own with windows innermost and no
-# atomics (the TPU package's grid_mode="split" / its _pallas_dbias kernel):
-# slower, but dbias is the same bits on every run. "bias_resident": the TPU
-# package's single-pass backward (its _pallas_backward_v4 kernel, K4), not
-# ported yet - a backward under it raises. As in the TPU package the model
-# never passes grid_mode: MMDE_ATTN_GRID chooses it for a whole process and
-# is read once, here at import.
+# under each; they differ in the backward, in how ds is summed over windows
+# into dbias. "window_resident": fp32 atomics from the dk/dv pass (the TPU
+# kernel's default grid dumps ds per window there and sums outside).
+# "split": a pass of its own with windows innermost and no atomics (the TPU
+# package's _pallas_dbias kernel, K3): slower, but dbias is the same bits on
+# every run. "bias_resident": the TPU package's single-pass backward (its
+# _pallas_backward_v4 kernel, K4): p computed once per (window, head, query
+# tile), dbias summed over windows inside the block, also the same bits on
+# every run. As in the TPU package the model never passes grid_mode:
+# MMDE_ATTN_GRID chooses it for a whole process and is read once, here.
 GRID_MODES = ("window_resident", "split", "bias_resident")
 DEFAULT_GRID_MODE = os.environ.get("MMDE_ATTN_GRID", "window_resident")
 if DEFAULT_GRID_MODE not in GRID_MODES:
     raise ValueError(
         f"MMDE_ATTN_GRID={DEFAULT_GRID_MODE!r} is not one of {GRID_MODES}")
 _DBIAS_MODE = {"window_resident": 1, "split": 2}
-BACKWARD_GRID_MODES = tuple(_DBIAS_MODE)    # the modes with a backward here
+
+# Windows per block, read once at import with the JAX package's check
+# (MMDE_ATTN_W: "auto" or an int; the default 1 is K1/K2's schedule).
+_w_env = os.environ.get("MMDE_ATTN_W", "1")
+if _w_env != "auto":
+    try:
+        int(_w_env)
+    except ValueError:
+        raise ValueError(f"MMDE_ATTN_W={_w_env!r} must be 'auto' or an int")
+WINDOWS_PER_CELL = _w_env
+del _w_env
+
+# MMDE_ATTN_SOFTMAX=max, read once at import as the JAX package does, makes
+# every packed forward take the row maximum (maxfree=False); K4 always does.
+SOFTMAX_MAXFREE = os.environ.get("MMDE_ATTN_SOFTMAX", "maxfree") != "max"
 
 _LIB_NAME = "window_attention_fwd"
 _SOURCES = ("window_attention_fwd.cu",)
 _LIB_NAME_BWD = "window_attention_bwd"
 _SOURCES_BWD = ("window_attention_bwd.cu",)
+_LIB_NAME_RESIDENT = "window_attention_bwd_resident"
+_SOURCES_RESIDENT = ("window_attention_bwd_resident.cu",)
 
-# The JAX package's packed-layout test, copied (not imported) so both
-# packages send the same stages to the same kernel: `attention_plan` is None
-# when C is not a multiple of 128, Dh does not divide 128, or the heads do
-# not fill whole 128-lane groups - and, for windows over 456 tokens, when no
-# q tile fits its per-cell VMEM budget. That budget is the TPU's and means
-# nothing on a GPU; it is kept for routing parity only.
+# The JAX package's packed-layout plan and windows-per-cell rule, copied
+# (not imported) so that both packages send the same stages to the same
+# kernel at the same W. The budgets below are the TPU's per-cell VMEM
+# budgets and the estimates its cells' VMEM: they mean nothing on a GPU and
+# are kept for routing parity only. `attention_plan` is None when C is not a
+# multiple of 128, Dh does not divide 128, or the heads do not fill whole
+# 128-lane groups - and, for windows over 456 tokens, when no q tile fits.
 _BQ_CANDIDATES = (456, 384, 304, 232, 152, 120, 80, 48, 40)
+_W_CANDIDATES = (8, 6, 4, 3, 2)
 _VMEM_BUDGET_FWD = 16 * 1024 * 1024
+_VMEM_BUDGET_BWD = 24 * 1024 * 1024
+_VMEM_BUDGET_FWD_W = 40 * 1024 * 1024
+_VMEM_BUDGET_BWD_W = 48 * 1024 * 1024
 
 
-def _cell_vmem_fwd(bq: int, np_: int, hg: int) -> int:
-    """The JAX package's per-cell VMEM estimate of its packed forward."""
+def _cell_vmem(bq: int, np_: int, hg: int, bwd: bool) -> int:
+    """The JAX package's per-cell VMEM estimate of its packed kernels."""
     bias = bq * hg * np_ * 4 * 2
-    logits = 3 * bq * np_ * 4
+    logits = (3 if not bwd else 5) * bq * np_ * 4
     kv = 2 * np_ * 128 * 2 * 2
     mask = bq * np_ * 4 * 2
-    return bias + logits + kv + mask
+    extra = 0
+    if bwd:
+        extra = bq * hg * np_ * 2 * 2
+        extra += 2 * np_ * 128 * 4 * 2
+    return bias + logits + kv + mask + extra
+
+
+def _cell_vmem_w(bq: int, np_: int, hg: int, bwd: bool, w: int,
+                 masked: bool) -> int:
+    """The same for a cell of w windows sharing one bias block."""
+    bias = bq * hg * np_ * 4 * 2
+    logits = (3 if not bwd else 5) * bq * np_ * 4
+    per_w = 2 * np_ * 128 * 2 * 2
+    if masked:
+        per_w += bq * np_ * 4 * 2
+    per_w += 3 * bq * 128 * 4
+    if bwd:
+        per_w += bq * hg * np_ * 2 * 2
+        per_w += 2 * np_ * 128 * 4 * 2
+    return bias + logits + w * per_w
+
+
+def _largest_fitting_divisor(np_: int, hg: int, bwd: bool) -> int:
+    """Largest 8-multiple divisor of Np whose cell fits the budget."""
+    budget = _VMEM_BUDGET_BWD if bwd else _VMEM_BUDGET_FWD
+    best = 8
+    for d in range(8, np_ + 1, 8):
+        if np_ % d == 0 and _cell_vmem(d, np_, hg, bwd) <= budget:
+            best = d
+    return best
+
+
+def attention_plan(n: int, num_heads: int, head_dim: int, channels: int):
+    """The JAX package's (BQ_fwd, Np, nQ_fwd, HG, nG, BQ_bwd), or None where
+    the packed layout does not apply."""
+    if channels % 128 != 0 or 128 % head_dim != 0:
+        return None
+    hg = 128 // head_dim
+    if num_heads % hg != 0:
+        return None
+    ng = num_heads // hg
+    if n <= max(_BQ_CANDIDATES):
+        np_ = -(-n // 8) * 8
+        bq = np_ if _cell_vmem(np_, np_, hg, False) <= _VMEM_BUDGET_FWD else \
+            _largest_fitting_divisor(np_, hg, False)
+        return bq, np_, np_ // bq, hg, ng, \
+            _largest_fitting_divisor(np_, hg, True)
+    best = None
+    fallback = None
+    for bq in _BQ_CANDIDATES:
+        nq = -(-n // bq)
+        np_ = nq * bq
+        if _cell_vmem(bq, np_, hg, False) > _VMEM_BUDGET_FWD:
+            continue
+        if best is None and np_ <= int(n * 1.08):
+            best = (bq, np_, nq)
+        if fallback is None or np_ < fallback[1] or (
+                np_ == fallback[1] and bq > fallback[0]):
+            fallback = (bq, np_, nq)
+    chosen = best or fallback
+    if chosen is None:
+        return None
+    bq, np_, nq = chosen
+    return bq, np_, nq, hg, ng, _largest_fitting_divisor(np_, hg, True)
+
+
+def choose_w(B: int, nW: int, bq: int, np_: int, hg: int, bwd: bool,
+             override=None) -> int:
+    """The JAX package's windows per cell: the largest candidate dividing B
+    (and nW when a mask is present, nW > 0) whose W-cell fits the W budget;
+    an int setting is taken where it divides them, else 1. `override`: a
+    per-call setting ("auto" / int), else WINDOWS_PER_CELL."""
+    setting = WINDOWS_PER_CELL if override is None else str(override)
+    if setting != "auto":
+        w = int(setting)
+        if w <= 1 or B % w or (nW and nW % w):
+            return 1
+        return w
+    budget = _VMEM_BUDGET_BWD_W if bwd else _VMEM_BUDGET_FWD_W
+    for w in _W_CANDIDATES:
+        if B % w or (nW and nW % w):
+            continue
+        if _cell_vmem_w(bq, np_, hg, bwd, w, masked=nW > 0) <= budget:
+            return w
+    return 1
 
 
 def packed_layout_ok(n: int, num_heads: int, head_dim: int,
@@ -87,55 +212,74 @@ def packed_layout_ok(n: int, num_heads: int, head_dim: int,
     """True where the JAX package's `attention_plan(n, num_heads, head_dim,
     channels)` is not None: the stage takes the packed kernel; otherwise it
     takes the head-split one."""
-    if channels % 128 != 0 or 128 % head_dim != 0:
-        return False
-    hg = 128 // head_dim
-    if num_heads % hg != 0:
-        return False
-    if n <= max(_BQ_CANDIDATES):
-        return True
-    return any(_cell_vmem_fwd(bq, -(-n // bq) * bq, hg) <= _VMEM_BUDGET_FWD
-               for bq in _BQ_CANDIDATES)
+    return attention_plan(n, num_heads, head_dim, channels) is not None
+
+
+def windows_per_block(B_: int, N: int, C: int, nH: int, nW: int, bwd: bool,
+                      windows_per_cell=None) -> int:
+    """W of the forward (bwd=False) or of the backward's two passes at this
+    shape, by `choose_w` with the JAX plan's q tile of that direction (1
+    where the plan does not apply, for a caller that sends such a shape
+    here anyway)."""
+    plan = attention_plan(N, nH, C // nH, C)
+    if plan is None:
+        return 1
+    bq_f, np_, _, hg, _, bq_b = plan
+    return choose_w(B_, nW, bq_b if bwd else bq_f, np_, hg, bwd,
+                    override=windows_per_cell)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
 _FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_FWD_W_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+_BWD_W_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+_RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
 
 
-def _library() -> ctypes.CDLL:
-    from mmde_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(_LIB_NAME, _SOURCES)
-    if lib.mmde_window_attention_fwd.argtypes is None:
-        for fn, types in ((lib.mmde_window_attention_fwd, _FWD_ARGTYPES),
-                          (lib.mmde_window_attention_fwd_stats,
-                           _FWD_STATS_ARGTYPES)):
+def _bind(lib, table) -> ctypes.CDLL:
+    for name, types in table:
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
 
 
+def _library() -> ctypes.CDLL:
+    from mmde_tpu_torch.ops.cuda_build import load_library
+    return _bind(load_library(_LIB_NAME, _SOURCES), (
+        ("mmde_window_attention_fwd", _FWD_ARGTYPES),
+        ("mmde_window_attention_fwd_stats", _FWD_STATS_ARGTYPES),
+        ("mmde_window_attention_fwd_w", _FWD_W_ARGTYPES)))
+
+
 def _library_bwd() -> ctypes.CDLL:
     from mmde_tpu_torch.ops.cuda_build import load_library
-    lib = load_library(_LIB_NAME_BWD, _SOURCES_BWD)
-    fn = lib.mmde_window_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = _BWD_ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return _bind(load_library(_LIB_NAME_BWD, _SOURCES_BWD), (
+        ("mmde_window_attention_bwd", _BWD_ARGTYPES),
+        ("mmde_window_attention_bwd_w", _BWD_W_ARGTYPES)))
+
+
+def _library_resident() -> ctypes.CDLL:
+    from mmde_tpu_torch.ops.cuda_build import load_library
+    return _bind(load_library(_LIB_NAME_RESIDENT, _SOURCES_RESIDENT), (
+        ("mmde_window_attention_bwd_resident", _RESIDENT_ARGTYPES),))
 
 
 def build_kernels() -> dict:
-    """Compile (or find) both libraries, the two nvcc runs side by side;
+    """Compile (or find) the three libraries, the nvcc runs side by side;
     returns {library name: build record}."""
     from mmde_tpu_torch.ops import cuda_build
     cuda_build.load_libraries({_LIB_NAME: _SOURCES,
-                               _LIB_NAME_BWD: _SOURCES_BWD})
+                               _LIB_NAME_BWD: _SOURCES_BWD,
+                               _LIB_NAME_RESIDENT: _SOURCES_RESIDENT})
     _library()
     _library_bwd()
+    _library_resident()
     return {n: dict(cuda_build.BUILD_LOG[n])
-            for n in (_LIB_NAME, _LIB_NAME_BWD)}
+            for n in (_LIB_NAME, _LIB_NAME_BWD, _LIB_NAME_RESIDENT)}
 
 
 def _check(qkv, logit_scale, bias, mask, num_heads):
@@ -186,7 +330,7 @@ def cosine_window_attention_packed_plain(qkv: torch.Tensor,
                                          *, num_heads: int,
                                          compute_dtype: torch.dtype =
                                          torch.float32) -> torch.Tensor:
-    """The forward kernel's function in plain PyTorch, on any device:
+    """The forward kernels' function in plain PyTorch, on any device:
     normalisation, logits, softmax and accumulation in `compute_dtype`
     (float32; float64 gives the ground truth the kernels' gradients are
     checked against); output in qkv's type."""
@@ -209,7 +353,7 @@ def cosine_window_attention_packed_backward_plain(
         mask: Optional[torch.Tensor], g: torch.Tensor, *, num_heads: int,
         compute_dtype: torch.dtype = torch.float32
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's function in plain PyTorch, on any device: the
+    """The backward kernels' function in plain PyTorch, on any device: the
     explicit formulas (no autograd) in `compute_dtype` (float32). g is the
     gradient of the output, (B_, N, C). Returns dqkv in qkv's type,
     dlogit_scale in logit_scale's shape (`compute_dtype`; zero where the
@@ -224,27 +368,68 @@ def cosine_window_attention_packed_backward_plain(
     return dqkv.reshape(B_, N, C3), dls, dbias.to(bias.dtype)
 
 
+def _count(kernel: str, qkv: torch.Tensor, num_heads: int) -> None:
+    B_, N, C3 = qkv.shape
+    key = (B_, N, C3 // 3, num_heads)
+    LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
+        (kernel, key), 0) + 1
+    by_shape = (LAUNCHES_RESIDENT_BY_SHAPE if kernel.endswith("resident")
+                else LAUNCHES_BWD_BY_SHAPE if "_bwd" in kernel
+                else LAUNCHES_BY_SHAPE)
+    by_shape[key] = by_shape.get(key, 0) + 1
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} summed over shapes, since the counters were
+    last cleared."""
+    out: dict = {}
+    for (kernel, _), n in LAUNCHES_BY_KERNEL.items():
+        out[kernel] = out.get(kernel, 0) + n
+    return dict(sorted(out.items()))
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, LAUNCHES_BWD, LAUNCHES_RESIDENT
+    LAUNCHES = LAUNCHES_BWD = LAUNCHES_RESIDENT = 0
+    for d in (LAUNCHES_BY_SHAPE, LAUNCHES_BWD_BY_SHAPE,
+              LAUNCHES_RESIDENT_BY_SHAPE, LAUNCHES_BY_KERNEL):
+        d.clear()
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
-                    want_stats):
-    """Launch the forward kernel; returns (out, lse or None)."""
+                    want_stats, w=1):
+    """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block);
+    returns (out, lse or None)."""
     global LAUNCHES
     B_, N, C3 = qkv.shape
     C = C3 // 3
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned for the kernel's "
                          "vector loads")
+    nW = mask.shape[0] if mask is not None else 0
+    if w < 1 or B_ % w or (nW and nW % w):
+        raise ValueError(f"{w} windows per block must divide B_={B_} and "
+                         f"the mask's nW={nW}")
     lib = _library()
     out = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((B_, num_heads, N), dtype=torch.float32,
                        device=qkv.device) if want_stats else None)
-    shape_args = (B_, N, C, num_heads,
-                  mask.shape[0] if mask is not None else 0,
-                  int(qkv.dtype == torch.bfloat16),
+    shape_args = (B_, N, C, num_heads, nW, int(qkv.dtype == torch.bfloat16),
                   int(bias.dtype == torch.bfloat16), int(bool(maxfree)))
     mask_ptr = mask.data_ptr() if mask is not None else None
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        if want_stats:
+        stream = _stream(qkv.device)
+        if w > 1:
+            err = lib.mmde_window_attention_fwd_w(
+                qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, out.data_ptr(),
+                lse.data_ptr() if want_stats else None, *shape_args, w,
+                stream)
+        elif want_stats:
             err = lib.mmde_window_attention_fwd_stats(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(), lse.data_ptr(), *shape_args, stream)
@@ -255,16 +440,18 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     if err != 0:
         raise RuntimeError(
             f"window_attention_fwd launch failed with code {err} "
-            f"(B_={B_}, N={N}, C={C}, nH={num_heads}, {qkv.dtype})")
+            f"(B_={B_}, N={N}, C={C}, nH={num_heads}, {qkv.dtype}, "
+            f"{w} windows per block)")
     LAUNCHES += 1
-    key = (B_, N, C, num_heads)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    _count(f"window_attention_fwd{f'_w{w}' if w > 1 else ''}"
+           f"{'+lse' if want_stats else ''}", qkv, num_heads)
     return out, lse
 
 
 def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
-                     grid_mode, want_dbias):
-    """Launch the backward kernels; returns (dqkv, dlogit_scale, dbias or
+                     grid_mode, want_dbias, w=1):
+    """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
+    pass stays at one window); returns (dqkv, dlogit_scale, dbias or
     None)."""
     global LAUNCHES_BWD
     B_, N, C3 = qkv.shape
@@ -276,12 +463,16 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     if qkv.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("qkv and g must be 16-byte aligned for the "
                          "kernel's vector loads")
+    nW = mask.shape[0] if mask is not None else 0
+    if w < 1 or B_ % w or (nW and nW % w):
+        raise ValueError(f"{w} windows per block must divide B_={B_} and "
+                         f"the mask's nW={nW}")
     lib = _library_bwd()
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
     n_tiles = -(-N // BWD_TILE)
-    dls_part = torch.empty((B_ * n_tiles, nH), dtype=torch.float64,
+    dls_part = torch.empty((B_ // w * n_tiles, nH), dtype=torch.float64,
                            device=dev)
     mode = _DBIAS_MODE[grid_mode] if want_dbias else 0
     dbias = None
@@ -289,69 +480,152 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
         dbias = torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
     elif mode == 2:     # every element written once
         dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mmde_window_attention_bwd(
-            qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+    args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, lse.data_ptr(),
             g.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
             dls_part.data_ptr(),
             dbias.data_ptr() if dbias is not None else None,
-            B_, N, C, nH, mask.shape[0] if mask is not None else 0,
-            int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), mode, stream)
+            B_, N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), mode)
+    with torch.cuda.device(dev):
+        if w > 1:
+            err = lib.mmde_window_attention_bwd_w(*args, w, _stream(dev))
+        else:
+            err = lib.mmde_window_attention_bwd(*args, _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"window_attention_bwd launch failed with code {err} "
-            f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype}, {grid_mode})")
+            f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype}, {grid_mode}, "
+            f"{w} windows per block)")
     LAUNCHES_BWD += 1
-    key = (B_, N, C, nH)
-    LAUNCHES_BWD_BY_SHAPE[key] = LAUNCHES_BWD_BY_SHAPE.get(key, 0) + 1
+    _count(f"window_attention_bwd{f'_w{w}' if w > 1 else ''}", qkv, nH)
     # per-block partial sums of dlogit_scale, summed here as the TPU package
     # sums its ds dump outside its kernel
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
     return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
 
 
+def resident_splits(N: int, nH: int, B_: int) -> int:
+    """Chunks K4 cuts its window sweep into: enough blocks for ~4 per SM
+    (RESIDENT_BLOCKS), at most one chunk per window. Each chunk writes its
+    own fp32 dbias partial; the partials are summed in a fixed order."""
+    blocks = -(-N // RESIDENT_ROWS) * nH
+    return max(1, min(B_, -(-RESIDENT_BLOCKS // blocks)))
+
+
+def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
+                              want_dbias=True):
+    """Launch K4; returns (dqkv, dlogit_scale, dbias or None). dq leaves the
+    kernel complete; dk^ and dv are summed over query tiles by fp32 atomics
+    into a (B_, N, 2C) scratch, and the normalise-VJP of k and the casts
+    are applied here, as the TPU package applies them in XLA after its
+    kernel. A block holds three 16 x N fp32 rows in shared memory, so
+    windows of more than 1088 tokens are refused at launch (raises)."""
+    global LAUNCHES_RESIDENT
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    nH = num_heads
+    if g.dtype != qkv.dtype or tuple(g.shape) != (B_, N, C):
+        raise ValueError(f"g must be {(B_, N, C)} {qkv.dtype}, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if qkv.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("qkv and g must be 16-byte aligned for the "
+                         "kernel's vector loads")
+    lib = _library_resident()
+    dev = qkv.device
+    splits = resident_splits(N, nH, B_)
+    dqkv = torch.empty_like(qkv)
+    dkv = torch.zeros((B_, N, 2 * C), dtype=torch.float32, device=dev)
+    dbias_part = torch.empty((splits, nH, N, N), dtype=torch.float32,
+                             device=dev)
+    dls_part = torch.empty((splits * -(-N // RESIDENT_ROWS), nH),
+                           dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.mmde_window_attention_bwd_resident(
+            qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, g.data_ptr(),
+            dqkv.data_ptr(), dkv.data_ptr(), dbias_part.data_ptr(),
+            dls_part.data_ptr(), B_, N, C, nH,
+            mask.shape[0] if mask is not None else 0,
+            int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), splits, _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_bwd_resident launch failed with code {err} "
+            f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype})")
+    LAUNCHES_RESIDENT += 1
+    _count("window_attention_bwd_resident", qkv, nH)
+    # dk = rk * (dk^ - k^ <dk^, k^>), per head
+    k = qkv[:, :, C:2 * C].float().reshape(B_, N, nH, HEAD_DIM)
+    rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+    kn = k * rk
+    dkn = dkv[:, :, :C].reshape(B_, N, nH, HEAD_DIM)
+    dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
+    dqkv[:, :, C:2 * C] = dk.reshape(B_, N, C)
+    dqkv[:, :, 2 * C:] = dkv[:, :, C:]
+    dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
+    dbias = None
+    if want_dbias:
+        # the chunks' partials in a fixed order: the same bits on every run
+        dbias = (dbias_part[0] if splits == 1 else dbias_part.sum(dim=0))
+        dbias = dbias.to(bias.dtype)
+    return dqkv, dls, dbias
+
+
 class _PackedWindowAttention(torch.autograd.Function):
-    """K1 forward (saving each row's log-sum-exp) and K2 backward for CUDA
-    tensors; the plain forward and the plain backward for CPU tensors."""
+    """For CUDA tensors: K1 / K5 forward (saving each row's log-sum-exp)
+    and K2 / K5 backward, or under "bias_resident" K1 without statistics and
+    K4; the plain forward and the plain backward for CPU tensors."""
 
     @staticmethod
     def forward(ctx, qkv, logit_scale, bias, mask, num_heads, maxfree,
-                grid_mode):
+                grid_mode, windows_per_cell):
         ctx.num_heads, ctx.grid_mode = num_heads, grid_mode
-        if qkv.is_cuda:
-            out, lse = _launch_forward(qkv, logit_scale, bias, mask,
-                                       num_heads, maxfree, want_stats=True)
-        else:
+        ctx.windows_per_cell = windows_per_cell
+        lse = None
+        if not qkv.is_cuda:
             out = cosine_window_attention_packed_plain(
                 qkv, logit_scale, bias, mask, num_heads=num_heads)
-            lse = None
+        elif grid_mode == "bias_resident":
+            # K4 rebuilds the softmax from the exact row maximum itself
+            out = _launch_forward(qkv, logit_scale, bias, mask, num_heads,
+                                  maxfree, want_stats=False)[0]
+        else:
+            B_, N, C3 = qkv.shape
+            w = windows_per_block(
+                B_, N, C3 // 3, num_heads,
+                mask.shape[0] if mask is not None else 0, False,
+                windows_per_cell)
+            out, lse = _launch_forward(qkv, logit_scale, bias, mask,
+                                       num_heads, maxfree, want_stats=True,
+                                       w=w)
         ctx.save_for_backward(qkv, logit_scale, bias, mask, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.grid_mode not in BACKWARD_GRID_MODES:
-            raise NotImplementedError(
-                f"grid_mode={ctx.grid_mode!r} (MMDE_ATTN_GRID) takes the TPU "
-                "package's single-pass backward, kernel K4, which is not "
-                "ported yet (ROADMAP Queue B, K4); unset MMDE_ATTN_GRID or "
-                f"choose one of {BACKWARD_GRID_MODES}")
         qkv, logit_scale, bias, mask, lse = ctx.saved_tensors
         need_qkv, need_ls, need_bias = ctx.needs_input_grad[:3]
         g = g.contiguous()
-        if qkv.is_cuda:
-            dqkv, dls, dbias = _launch_backward(
-                qkv, logit_scale, bias, mask, lse, g, ctx.num_heads,
-                ctx.grid_mode, want_dbias=need_bias)
-        else:
+        if not qkv.is_cuda:
             dqkv, dls, dbias = cosine_window_attention_packed_backward_plain(
                 qkv, logit_scale, bias, mask, g, num_heads=ctx.num_heads)
+        elif ctx.grid_mode == "bias_resident":
+            dqkv, dls, dbias = _launch_backward_resident(
+                qkv, logit_scale, bias, mask, g, ctx.num_heads,
+                want_dbias=need_bias)
+        else:
+            B_, N, C3 = qkv.shape
+            w = windows_per_block(
+                B_, N, C3 // 3, ctx.num_heads,
+                mask.shape[0] if mask is not None else 0, True,
+                ctx.windows_per_cell)
+            dqkv, dls, dbias = _launch_backward(
+                qkv, logit_scale, bias, mask, lse, g, ctx.num_heads,
+                ctx.grid_mode, want_dbias=need_bias, w=w)
         # the mask is a constant of the window layout: no gradient
         return (dqkv if need_qkv else None, dls if need_ls else None,
-                dbias if need_bias else None, None, None, None, None)
+                dbias if need_bias else None, None, None, None, None, None)
 
 
 def cosine_window_attention_packed(qkv: torch.Tensor,
@@ -360,8 +634,8 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
                                    mask: Optional[torch.Tensor] = None,
                                    *, num_heads: int,
                                    maxfree: bool = True,
-                                   grid_mode: Optional[str] = None
-                                   ) -> torch.Tensor:
+                                   grid_mode: Optional[str] = None,
+                                   windows_per_cell=None) -> torch.Tensor:
     """Fused cosine window attention, differentiable in qkv, logit_scale and
     bias.
 
@@ -370,38 +644,53 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
     qkv's type; mask: (nW, N, N) of bias's type or None, window b uses row
     b % nW. Returns (B_, N, C) in qkv's type.
 
-    maxfree=True lets the kernel replace the softmax's row maximum by the
-    static shift exp(min(logit_scale, ln 100)) + 16 - for the heads whose
-    temperature is low enough (<= 30) for that shift to stay inside
+    maxfree=True lets the forward kernel replace the softmax's row maximum
+    by the static shift exp(min(logit_scale, ln 100)) + 16 - for the heads
+    whose temperature is low enough (<= 30) for that shift to stay inside
     float32's range; hotter heads keep a running row maximum. The shift is
     an upper bound only while bias lies in (0, 16) - the 16*sigmoid
     continuous position bias - and mask <= 0; any other bias must pass
-    maxfree=False (running row maximum for every head). The result is the
-    same function either way.
+    maxfree=False (running row maximum for every head), as does
+    MMDE_ATTN_SOFTMAX=max for the whole process. The result is the same
+    function either way.
 
-    grid_mode: how the backward sums ds over windows into dbias, one of
-    GRID_MODES (None = DEFAULT_GRID_MODE, which the MMDE_ATTN_GRID
-    environment variable sets); the values agree up to the order of an fp32
-    sum. The forward is the same under every mode; a backward under
-    "bias_resident" (kernel K4, not ported) raises NotImplementedError.
+    grid_mode: one of GRID_MODES (None = DEFAULT_GRID_MODE, which the
+    MMDE_ATTN_GRID environment variable sets): how the backward sums ds over
+    windows into dbias - atomics, K3's pass, or K4's single pass; the values
+    agree up to the order of fp32 sums.
+
+    windows_per_cell: "auto" | int | None (= WINDOWS_PER_CELL, which
+    MMDE_ATTN_W sets): windows per block of the forward and of the
+    window-grid backward, by the JAX rule `choose_w`; W > 1 runs K5 (up to
+    8 windows per block: more is refused for shared memory, and raises).
+    "bias_resident" ignores it (W = 1), as the JAX package does.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. When a gradient is recorded the forward kernel also writes
-    each row's log-sum-exp, which the backward kernel rebuilds the
-    probabilities from; without one (serving) it writes the output alone.
+    each row's log-sum-exp (not under "bias_resident"), which the backward
+    kernel rebuilds the probabilities from; without one (serving) it writes
+    the output alone.
     """
     if grid_mode is None:
         grid_mode = DEFAULT_GRID_MODE
     elif grid_mode not in GRID_MODES:
         raise ValueError(f"grid_mode={grid_mode!r} not in {GRID_MODES}")
+    if windows_per_cell is not None and str(windows_per_cell) != "auto":
+        int(windows_per_cell)       # "auto" or an int, as MMDE_ATTN_W
+    maxfree = bool(maxfree) and SOFTMAX_MAXFREE
     _check(qkv, logit_scale, bias, mask, num_heads)
     if torch.is_grad_enabled() and (qkv.requires_grad
                                     or logit_scale.requires_grad
                                     or bias.requires_grad):
         return _PackedWindowAttention.apply(qkv, logit_scale, bias, mask,
-                                            num_heads, maxfree, grid_mode)
+                                            num_heads, maxfree, grid_mode,
+                                            windows_per_cell)
     if not qkv.is_cuda:
         return cosine_window_attention_packed_plain(
             qkv, logit_scale, bias, mask, num_heads=num_heads)
+    B_, N, C3 = qkv.shape
+    w = 1 if grid_mode == "bias_resident" else windows_per_block(
+        B_, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
+        False, windows_per_cell)
     return _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
-                           want_stats=False)[0]
+                           want_stats=False, w=w)[0]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Time the window-attention kernels at the flagship's stage shapes.
 
-    python3 mmde_tpu_torch/tools/bench_attention.py [--tree DIR] [--reps 20]
+    python3 mmde_tpu_torch/tools/bench_attention.py [--tree DIR] [--reps 20] \
+        [--grid bias_resident] [--windows-per-cell auto|N]
 
 Imports `mmde_tpu_torch` from DIR (default: the checkout holding this file),
 so one copy of the script times two trees in turns on one card (unpack the
@@ -11,7 +12,11 @@ where the stage shifts: the packed forward as served (1 frame pair), the
 forward with its log-sum-exp and the backward as trained (2 pairs); where
 the tree has the head-split kernels, swin_large_v2's stage 1 the same way;
 and, where it has the slab kernels, the flagship's four stage maps through
-them (float32 bias and mask, as the slab path streams them). Each time is
+them (float32 bias and mask, as the slab path streams them). `--grid
+bias_resident` adds the single-pass backward K4 (after the forward without
+log-sum-exp it follows) beside K2 at each train shape; `--windows-per-cell`
+adds the packed kernels at the W the JAX rule gives for that setting (K5
+where W > 1) beside W = 1 - both only where the tree has them. Each time is
 the CUDA-event time of `--reps` back-to-back launches divided by their
 number (after a warm-up), so host overhead between launches hides behind
 the queue. Prints one JSON line per case, one line
@@ -87,7 +92,8 @@ def _inputs(B_, N, C, nH, nW, gen):
     return qkv, ls, bias, mask, g
 
 
-def bench_packed(shape, pairs, reps, gen) -> dict:
+def bench_packed(shape, pairs, reps, gen, grid="window_resident",
+                 wpc="1") -> dict:
     import torch
     from mmde_tpu_torch.ops import window_attention_packed as wap
     B_, N, C, nH, nW = shape
@@ -96,9 +102,18 @@ def bench_packed(shape, pairs, reps, gen) -> dict:
     bias = bias.to(torch.bfloat16)              # as bf16 models stream it
     mask = None if mask is None else mask.to(torch.bfloat16)
     rec = {"kernel": "packed", "B_": B_, "N": N, "C": C, "nH": nH, "nW": nW}
+    # W of the forward and the backward under --windows-per-cell (K5 where
+    # W > 1), where the tree has K5
+    w_f = w_b = 1
+    if hasattr(wap, "windows_per_block"):
+        w_f, w_b = (wap.windows_per_block(B_, N, C, nH, nW, bwd, wpc)
+                    for bwd in (False, True))
     if pairs == 1:
         rec["fwd_ms"] = _time(lambda: wap._launch_forward(
             qkv, ls, bias, mask, nH, True, False), reps)
+        if w_f > 1:
+            rec[f"fwd_w{w_f}_ms"] = _time(lambda: wap._launch_forward(
+                qkv, ls, bias, mask, nH, True, False, w=w_f), reps)
         return rec
     rec["fwd_lse_ms"] = _time(lambda: wap._launch_forward(
         qkv, ls, bias, mask, nH, True, True), reps)
@@ -107,6 +122,19 @@ def bench_packed(shape, pairs, reps, gen) -> dict:
         qkv, ls, bias, mask, lse, g, nH, "window_resident", True), reps)
     rec["bwd_no_dbias_ms"] = _time(lambda: wap._launch_backward(
         qkv, ls, bias, mask, lse, g, nH, "window_resident", False), reps)
+    if w_f > 1:
+        rec[f"fwd_lse_w{w_f}_ms"] = _time(lambda: wap._launch_forward(
+            qkv, ls, bias, mask, nH, True, True, w=w_f), reps)
+    if w_b > 1:
+        rec[f"bwd_w{w_b}_ms"] = _time(lambda: wap._launch_backward(
+            qkv, ls, bias, mask, lse, g, nH, "window_resident", True,
+            w=w_b), reps)
+    if grid == "bias_resident" and hasattr(wap, "_launch_backward_resident"):
+        rec["fwd_no_lse_ms"] = _time(lambda: wap._launch_forward(
+            qkv, ls, bias, mask, nH, True, False), reps)
+        rec["bwd_resident_ms"] = _time(
+            lambda: wap._launch_backward_resident(qkv, ls, bias, mask, g, nH),
+            reps)
     return rec
 
 
@@ -178,7 +206,15 @@ def main(argv=None) -> int:
     p.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)),
                    help="checkout whose mmde_tpu_torch is timed")
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--grid", default="window_resident",
+                   choices=("window_resident", "bias_resident"),
+                   help="bias_resident: also time K4 at the train shapes")
+    p.add_argument("--windows-per-cell", default="1",
+                   help='"auto" or an int: also time the packed kernels at '
+                        "the W the JAX rule gives for it (K5 where W > 1)")
     args = p.parse_args(argv)
+    if args.windows_per_cell != "auto":
+        int(args.windows_per_cell)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
     if not torch.cuda.is_available():
@@ -195,7 +231,8 @@ def main(argv=None) -> int:
     gen.manual_seed(99)
     for pairs in (1, 2):
         for shape in BASE_STAGES:
-            rec = bench_packed(shape, pairs, args.reps, gen)
+            rec = bench_packed(shape, pairs, args.reps, gen, args.grid,
+                               args.windows_per_cell)
             print(json.dumps({"tree": tree, **rec}), flush=True)
         if _has("mmde_tpu_torch.ops.window_attention_headsplit"):
             rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen)

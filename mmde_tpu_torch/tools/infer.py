@@ -9,7 +9,11 @@ numpy frames and returns numpy predictions, and is what a server or a smoke
 run calls. The CLI pairs each image with itself (as the JAX package's
 tools/infer.py does for the two-frame model) and writes 16-bit depth PNGs;
 it imports cv2 only inside main(). The first call on a CUDA device builds the
-attention kernel into mmde_tpu_torch/_build/.
+attention kernels into mmde_tpu_torch/_build/. MMDE_ATTN_W=auto (or an int),
+read once at import as in the JAX package, serves the packed attention with
+W windows per block (K5) where the JAX rule gives W > 1; MMDE_ATTN_GRID
+changes only the backward, so serving is the same under each of its values
+(see ops/window_attention_packed.py).
 """
 from __future__ import annotations
 

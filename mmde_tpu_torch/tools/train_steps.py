@@ -15,10 +15,17 @@ for the slab kernels that read windows straight off the map, "torch" for
 the plain functions) from a seed, draws one synthetic batch (frames, valid
 depth, relative poses) from the same seed, and takes N steps through
 `make_train_step` with the layer-decay AdamW of `build_optimizer`, printing
-one JSON line per step. The first call on a CUDA device builds the
-attention kernels into mmde_tpu_torch/_build/; MMDE_ATTN_GRID=split in the
-environment takes the packed attention backward's atomics-free dbias pass
-(slower; see ops/window_attention_packed.py). The training loop proper
+one JSON line per step; the last line also carries `launches`, the window-
+attention kernel launches of the run by kernel (for the packed kernels also
+by windows per block, `..._w{W}`, and, under `launches_by_shape`, by
+B_ x N x C / nH). The first call on a CUDA device
+builds the attention kernels into mmde_tpu_torch/_build/. Two environment
+variables, read once at import as in the JAX package, choose the packed
+attention's schedule (see ops/window_attention_packed.py):
+MMDE_ATTN_GRID=split takes the backward's atomics-free dbias pass (K3),
+MMDE_ATTN_GRID=bias_resident the single-pass backward (K4) after a forward
+without the log-sum-exp; MMDE_ATTN_W=auto (or an int) runs W windows per
+block (K5) where the JAX rule gives W > 1. The training loop proper
 (datasets, validation, checkpoints) is a later slice; this entry is what a
 smoke run and a profiler drive.
 """
@@ -118,6 +125,20 @@ def build_trainer(cfg: Optional[Config] = None, *,
     return TrainState.create(model, optimizer, gen), step
 
 
+def kernel_launches() -> Dict[str, int]:
+    """{kernel: launches} of the window-attention kernels since import (or
+    since their counters were last cleared), the zero ones left out."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    out = dict(wap.launch_counts())
+    for prefix, m in (("window_attention_headsplit", ths),
+                      ("window_attention_slab", was)):
+        out[f"{prefix}_fwd"] = m.LAUNCHES
+        out[f"{prefix}_bwd"] = m.LAUNCHES_BWD
+    return {k: v for k, v in out.items() if v}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=5)
@@ -150,7 +171,7 @@ def main(argv=None) -> None:
     batch = synthetic_batch(batch_size, args.height, args.width, args.seed,
                             device=args.device)
     on_cuda = torch.device(args.device).type == "cuda"
-    for _ in range(args.steps):
+    for i in range(args.steps):
         t0 = time.time()
         state, aux = step(state, batch)
         if on_cuda:
@@ -159,6 +180,14 @@ def main(argv=None) -> None:
         rec.update({k: float(v) for k, v in aux.items()})
         if on_cuda:
             rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if i == args.steps - 1:
+            from mmde_tpu_torch.ops import window_attention_packed as wap
+            rec["launches"] = kernel_launches()
+            by_shape: Dict[str, Dict[str, int]] = {}
+            for (kernel, (b_, n, c, nh)), cnt in sorted(
+                    wap.LAUNCHES_BY_KERNEL.items()):
+                by_shape.setdefault(kernel, {})[f"{b_}x{n}x{c}/{nh}"] = cnt
+            rec["launches_by_shape"] = by_shape
         print(json.dumps(rec), flush=True)
 
 
