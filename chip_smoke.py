@@ -53,7 +53,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 windows, depths and decoder): stage 1 (C 192, 6 heads) runs
                 the head-split kernels, stages 2-4 the packed ones.
   parity        the whole model, attn_impl "cuda" against "torch", same
-                weights and frames, float32 and bfloat16.
+                weights and frames, float32 and bfloat16; every parity
+                phase runs the model with stage 3 cut to 10 blocks
+                (PARITY_DEPTHS), to keep the script inside its time.
   train_parity  one deterministic float32 train step, kernel path against
                 plain path: loss and gradients of a named set of parameters.
   parity_large  both, float32, for swin_large_v2 (gradients of stage-1
@@ -89,17 +91,48 @@ What it does, each phase printing one JSON object on a line of its own:
                 backward against the plain backward and float64 autograd;
                 ms beside K1 / K2 at W = 1 in the same call.
   train_resident
-                `MMDE_ATTN_GRID=bias_resident python -m
-                mmde_tpu_torch.tools.train_steps --steps 6` in a process of
-                its own: step ms, peak bytes, and its launches, 24 K1
-                without lse and 24 K4 a step, no K2.
+                the trainer entry point (`tools.train_steps.main`, 4 steps)
+                in a process of its own under MMDE_ATTN_GRID=bias_resident:
+                step ms, peak bytes, and its launches, 24 K1 without lse
+                and 24 K4 a step, no K2.
   serve_w, train_w
                 the flagship under MMDE_ATTN_W=auto (this script in a
-                process of its own): 3 requests, 6 steps, every packed
+                process of its own): 2 requests, 4 steps, every packed
                 launch at the rule's W, launches by kernel and W.
   train_parity_resident
-                one fp32 step (TF32 off) under bias_resident (a process of
-                its own) against the default grid's: loss and gradients.
+                one fp32 step (TF32 off) under bias_resident (computed in
+                train_resident's process, after its steps) against the
+                default grid's: loss and gradients.
+  probes        the layout probes (T1): `tools.probe_layouts.main()`, the six
+                probes of the JAX package's tools/probe_mosaic.py on the
+                card (csrc/probes.cu), each against its plain version; all
+                must PASS. Launches counted around that run; then each
+                kernel timed beside its plain version and a PyTorch call.
+  variants      the attention-body variants (T2) at the tool's four stages:
+                v0 / v1 / v3 are the production K1 launched with mxu =
+                fp32 / fold / bf16 and must be bitwise equal to it; every
+                variant within K1's bf16 tolerance of its plain version; ms.
+  roofline      the unit-rate micro-kernels (T3, csrc/roofline.cu): each
+                against its plain version, then `tools.roofline.microbench`
+                (launches counted around it): rates by differencing two
+                iteration counts, none above 105 % of its published peak;
+                the port's K1 / K2 work at the flagship's train shapes as
+                FMA-, MUFU- and bytes-bound times at those rates, beside the
+                kernels' measured ms; the fixed buckets.
+  kernel_cases_mxu
+                K1 with the log-sum-exp, K2 and K5 under mxu = "fold" and
+                "bf16" at flagship stages 1 and 4, train shape, float32 and
+                bfloat16: forward against the plain forward of the same
+                mode, backward against the plain backward and float64
+                autograd of the plain forward in that mode; ms beside the
+                "fp32" mode's in the same call.
+  serve_mxu, train_mxu
+                the flagship under MMDE_ATTN_MXU=bf16 (this script in a
+                process of its own): one request and 3 train steps, every
+                packed launch in the bf16 mode. The processes of
+                train_resident, serve_w / train_w and these run side by
+                side: their request and step times share the card
+                (`shared_card`).
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path, error, ms, plain ms, bound, and the
@@ -109,7 +142,8 @@ What it does, each phase printing one JSON object on a line of its own:
                 and the SDPA backend beside it; for a backward, that call's
                 backward under autograd). K4's and K5's entries carry the
                 launches of train_resident, serve_w and train_w; K2's also
-                K3's own time and bound.
+                K3's own time and bound; T1-T3's the launches of the tool
+                runs above, K1 / K2 in the bf16 mode those of train_mxu.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -130,10 +164,9 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks used for the roofline bound
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12,      # fp32 FMA outside the tensor cores
-              "bfloat16": 989e12}    # dense bf16 tensor-core rate
+# published H100 SXM peaks used for the roofline bound (fp32: FMA outside
+# the tensor cores; bf16: dense tensor-core rate), and CUDA-event timing
+from mmde_tpu_torch.tools.card import HBM_BYTES_PER_S, PEAK_FLOPS, time_ms
 
 KERNEL_SOURCE = "mmde_tpu_torch/csrc/window_attention_fwd.cu"
 KERNEL_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
@@ -200,8 +233,16 @@ TOL_MODEL = {
 }
 
 
+# seconds from one emitted line to the next, by tag: each phase's time
+PHASE_SECONDS: dict = {}
+_LAST_EMIT = [time.time()]
+
+
 def emit(tag: str, obj: dict) -> None:
     print(json.dumps({tag: obj}), flush=True)
+    now = time.time()
+    PHASE_SECONDS[tag] = round(now - _LAST_EMIT[0], 1)
+    _LAST_EMIT[0] = now
 
 
 def stage_shapes(backbone: str = "swin_base_v2", h: int = 480, w: int = 640,
@@ -240,23 +281,6 @@ def stage_shapes(backbone: str = "swin_base_v2", h: int = 480, w: int = 640,
                     "blocks": depths[i], "layout": layout})
         mh, mw = (mh + 1) // 2, (mw + 1) // 2
     return out
-
-
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median over `reps` launches of the CUDA-event time of one call."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b))
-    return statistics.median(ts)
 
 
 def kernel_bound(B_, N, C, nH, nW, dtype: torch.dtype, bias_dtype,
@@ -484,14 +508,16 @@ def library_yardstick(q, k, v, ls, bias, mask, g=None) -> dict:
     return rec
 
 
-def _float64_grads(qkv, ls, bias, mask, g, nH):
-    """Autograd of the plain forward in float64: the independent truth."""
+def _float64_grads(qkv, ls, bias, mask, g, nH, mxu=None):
+    """Autograd of the plain forward in float64: the independent truth (in
+    precision mode `mxu`: its bf16 roundings are in the forward, and
+    autograd passes gradients through them unchanged)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls, bias)]
     out64 = wap.cosine_window_attention_packed_plain(
         leaves64[0], leaves64[1], leaves64[2],
         None if mask is None else mask.double(), num_heads=nH,
-        compute_dtype=torch.float64)
+        compute_dtype=torch.float64, mxu=mxu)
     truth = torch.autograd.grad(out64, leaves64, g.double())
     del out64, leaves64
     return truth
@@ -499,22 +525,9 @@ def _float64_grads(qkv, ls, bias, mask, g, nH):
 
 def _check_grads(got, plain, truth, name: str, what: str) -> dict:
     """dqkv, dlogit_scale, dbias of a backward kernel against the plain
-    backward and float64 autograd at TOL_BWD; raises on disagreement, on a
-    value that is not finite, or on a clamped head's dlogit_scale not 0."""
-    names = ("dqkv", "dlogit_scale", "dbias")
-    if not all(bool(torch.isfinite(t).all()) for t in got):
-        raise RuntimeError(f"{what}: backward output not finite")
-    if float(got[1].flatten()[0]) != 0.0:
-        raise RuntimeError(f"{what}: dlogit_scale of the clamped head is "
-                           f"{float(got[1].flatten()[0])}, not 0")
-    vs = {"vs_plain": {n: _errs(k, p) for n, k, p in zip(names, got, plain)},
-          "vs_float64": {n: _errs(k, t) for n, k, t in zip(names, got, truth)}}
-    for which, d in vs.items():
-        for n, e in d.items():
-            if not e["rel_l2"] <= TOL_BWD[name][n]:
-                raise RuntimeError(f"{what} disagrees ({which}, {n}): "
-                                   f"{json.dumps(vs)}")
-    return vs
+    backward and float64 autograd at TOL_BWD[name] (see _check_against)."""
+    return _check_against(got, {"vs_plain": (plain, TOL_BWD[name]),
+                                "vs_float64": (truth, TOL_BWD[name])}, what)
 
 
 def _case_head(shape, dtype, mask) -> dict:
@@ -634,8 +647,19 @@ def phase_env() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    from concurrent.futures import ThreadPoolExecutor
+    from mmde_tpu_torch.tools import bench_attention_variants as tbv
+    from mmde_tpu_torch.tools import probe_layouts as tpl
+    from mmde_tpu_torch.tools import roofline as trl
     t0 = time.time()
-    recs = wap.build_kernels()          # one nvcc per source, side by side
+    # one nvcc per library (forward, backward, K4), all side by side; then
+    # the tools' libraries in the background, through the kernel phases
+    # (tool_libraries() waits for them)
+    recs = wap.build_kernels()
+    tools = dict(**tpl.library_specs(), **tbv.library_specs(),
+                 **trl.library_specs())
+    _TOOL_BUILD.append(ThreadPoolExecutor(1).submit(
+        cuda_build.load_libraries, tools))
     env = {"nvidia_smi": smi, "python": sys.version.split()[0],
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "nvcc": cuda_build.nvcc_version(),
@@ -650,6 +674,16 @@ def phase_env() -> dict:
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     emit("env", env)
     return env
+
+
+_TOOL_BUILD: list = []     # the tools' background build (phase_env)
+
+
+def tool_libraries() -> dict:
+    """Wait for the tools' libraries; {name: nvcc seconds}."""
+    from mmde_tpu_torch.ops import cuda_build
+    return {n: round(cuda_build.BUILD_LOG[n]["seconds"], 3)
+            for n in _TOOL_BUILD[0].result()}
 
 
 def packed_stages(backbone: str, batch: int = 1) -> list:
@@ -685,7 +719,8 @@ def phase_kernels(timed: bool = True) -> list:
 def phase_kernels_backward(timed: bool = True) -> list:
     """K2 at the four flagship stage shapes, at 2 frame pairs (what the
     train phase runs) and at 1, and at swin_large's packed stages 2-4 at 2
-    pairs; float32 and bfloat16, masked where the stage shifts."""
+    pairs; float32 and bfloat16, masked where the stage shifts. Timed at 2
+    pairs only (the trained shapes), to keep the script inside its time."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     cases = []
@@ -694,7 +729,8 @@ def phase_kernels_backward(timed: bool = True) -> list:
             (1, stage_shapes(batch=1))):
         for shape in shapes:
             for dtype in (torch.float32, torch.bfloat16):
-                case = compare_backward(shape, dtype, gen, timed=timed)
+                case = compare_backward(shape, dtype, gen,
+                                        timed=timed and batch == 2)
                 case["frame_pairs"] = batch
                 cases.append(case)
     emit("kernel_cases_backward", {
@@ -859,14 +895,18 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
 
 
 def phase_kernels_headsplit(timed: bool = True) -> list:
+    """K6' / K7' at every head-split shape; timed at swin_large's (the
+    served and trained paths), the others checked only, to keep the script
+    inside its time."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
     cases = []
     for shape in headsplit_shapes():
         for dtype in (torch.float32, torch.bfloat16):
             for with_mask in (False, True):     # every such stage shifts
-                cases.append(compare_headsplit(shape, dtype, with_mask, gen,
-                                               timed=timed))
+                cases.append(compare_headsplit(
+                    shape, dtype, with_mask, gen,
+                    timed=timed and shape["model"] == "swin_large_v2"))
     emit("kernel_cases_headsplit", {
         "cases": cases,
         "timing": "CUDA events, median: serving forward 3 warm + 20, "
@@ -1227,6 +1267,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         # every packed launch at the W the JAX rule gives (MMDE_ATTN_W)
         raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
                            f"expected {want_k}")
+    by_mxu = _check_mxu(tag, by_kernel)
     per_forward = _per_forward(want, requests)
     if attn_impl == "cuda_slab" and backbone == "swin_base_v2" and (
             per_forward != {"packed": 0, "headsplit": 0, "slab": 24}):
@@ -1248,6 +1289,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
            "launches_by_shape": {lay: {str(k): v for k, v in d.items()}
                                  for lay, d in by_layout.items()},
            "launches_by_kernel": _str_keys(by_kernel),
+           "launches_by_mxu": by_mxu,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if flip:
         infer.predict(model, f1, f2, flip_tta=True)       # warm-up
@@ -1375,19 +1417,65 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
 # outputs of the plain path ("torch"), which parity and parity_slab share:
 # {(phase, backbone, dtype or frame pairs): result}
 _PLAIN_RUNS: dict = {}
+# the parity phases' models and trainers, built once per (backbone, dtype)
+# and switched between attention paths in place (the modules read attn_impl
+# at each forward): the same weights for every path, no rebuild
+_PARITY_MODELS: dict = {}
+
+
+def _set_attn_impl(model, impl: str) -> None:
+    from mmde_tpu_torch.nn.swin_v2 import WindowAttention
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            m.attn_impl = impl
+
+
+def _parity_model(backbone: str, dtype: str):
+    """The served model for the parity phases (depths PARITY_DEPTHS),
+    weights drawn from seed 7."""
+    from mmde_tpu_torch.tools import infer
+    key = ("model", backbone, dtype)
+    if key not in _PARITY_MODELS:
+        model = infer.build(flagship_cfg(dtype, "cuda", PARITY_DEPTHS,
+                                         backbone=backbone),
+                            device="cuda", seed=0)
+        randomize_weights(model, seed=7)
+        _PARITY_MODELS[key] = model
+    return _PARITY_MODELS[key]
+
+
+def _parity_trainer(backbone: str, pairs: int) -> list:
+    """[state, step, initial weights and buffers, batch] of the fp32
+    deterministic trainer the train-parity phases step from."""
+    from mmde_tpu_torch.tools import train_steps as ts
+    key = ("trainer", backbone, pairs)
+    if key not in _PARITY_MODELS:
+        cfg = ts.flagship_config("float32", "cuda", PARITY_DEPTHS,
+                                 batch_size=pairs, backbone=backbone)
+        state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                       deterministic=True)
+        randomize_weights(state.model, seed=7)
+        init = {n: t.detach().clone()
+                for n, t in state.model.state_dict().items()}
+        batch = ts.synthetic_batch(pairs, 480, 640, seed=33, device="cuda")
+        _PARITY_MODELS[key] = [state, step, init, batch]
+    return _PARITY_MODELS[key]
 
 
 def phase_parity(backbone: str = "swin_base_v2",
                  dtypes=("float32", "bfloat16"), tag: str = "parity",
                  impl: str = "cuda") -> dict:
-    """Kernel path (`impl`) vs plain path through the whole model. fp32
-    convolutions go through cuDNN in TF32 by default; for this phase TF32 is
-    switched off so that both paths are true fp32 outside the attention."""
+    """Kernel path (`impl`) vs plain path through the whole model (depths
+    PARITY_DEPTHS). fp32 convolutions go through cuDNN in TF32 by default;
+    for this phase TF32 is switched off so that both paths are true fp32
+    outside the attention."""
     from mmde_tpu_torch.tools import infer
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     f1, f2 = make_frames(seed=21)
-    res = {"cudnn_allow_tf32": False, "attn_impl": impl}
+    torch.cuda.empty_cache()
+    res = {"cudnn_allow_tf32": False, "attn_impl": impl,
+           "depths": list(PARITY_DEPTHS)}
     try:
         for dtype in dtypes:
             outs = {}
@@ -1396,16 +1484,12 @@ def phase_parity(backbone: str = "swin_base_v2",
                 if path == "torch" and key in _PLAIN_RUNS:
                     outs[path] = _PLAIN_RUNS[key]
                     continue
-                model = infer.build(flagship_cfg(dtype, path,
-                                                 backbone=backbone),
-                                    device="cuda", seed=0)
-                randomize_weights(model, seed=7)
+                model = _parity_model(backbone, dtype)
+                _set_attn_impl(model, path)
                 outs[path] = infer.predict(model, f1, f2)
                 check_outputs(outs[path], f"parity {dtype} {path}")
                 if path == "torch":
                     _PLAIN_RUNS[key] = outs[path]
-                del model
-                torch.cuda.empty_cache()
             std = float(outs["torch"]["pred_d1"].std())
             if std <= 0.1:
                 raise RuntimeError(f"parity {dtype}: depth map is "
@@ -1451,6 +1535,11 @@ PARITY_PARAMS = (
     "decoder.decoder_depth.conv_layers.0.weight",
 )
 
+
+# the parity phases' depths: stage 3 cut from 18 blocks to 10 (every layout
+# and kernel of the full model still runs; blocks 0-9 hold PARITY_PARAMS),
+# to keep the whole script inside its time
+PARITY_DEPTHS = (2, 2, 10, 2)
 
 # stage 1 of swin_large runs the head-split backward: its RPE MLP and q bias
 LARGE_PARITY_PARAMS = PARITY_PARAMS + (
@@ -1516,6 +1605,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     if by_kernel != want_k:
         raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
                            f"expected {want_k}")
+    by_mxu = _check_mxu(tag, by_kernel)
     peak = torch.cuda.max_memory_allocated()
     moved = {n: float((p.detach() - watch[n]).abs().max())
              for n, p in state.model.named_parameters() if n in watch}
@@ -1537,6 +1627,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
            "launches_bwd_by_shape": {lay: {str(k): v for k, v in d.items()}
                                      for lay, d in bwd_by_shape.items()},
            "launches_by_kernel": _str_keys(by_kernel),
+           "launches_by_mxu": by_mxu,
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
     del state, step
     torch.cuda.empty_cache()
@@ -1567,7 +1658,8 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
 def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
                        params=PARITY_PARAMS, tag: str = "train_parity",
                        impl: str = "cuda") -> dict:
-    """One deterministic fp32 step at full width and depth, kernel path
+    """One deterministic fp32 step at full width (depths PARITY_DEPTHS),
+    kernel path
     (`impl`) against plain path from the same weights and batch: the loss
     and the gradients of a named set of parameters. cuDNN TF32 is off for
     this phase (matmul TF32 is off by default)."""
@@ -1582,7 +1674,7 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     grad_rel = {n: float((ga[n] - gb[n]).norm()
                          / gb[n].norm().clamp_min(1e-300)) for n in ga}
     rec = {"model": backbone, "dtype": "float32", "frame_pairs": pairs,
-           "depths": [2, 2, 18, 2], "cudnn_allow_tf32": False,
+           "depths": list(PARITY_DEPTHS), "cudnn_allow_tf32": False,
            "attn_impl": impl, "loss_cuda": la, "loss_torch": lb,
            "loss_rel_diff": loss_rel,
            "grad_rel_l2": grad_rel,
@@ -1993,6 +2085,26 @@ def expected_packed_kernels(backbone: str, batch: int, times: int,
     return want
 
 
+def _check_mxu(tag: str, by_kernel: dict) -> dict:
+    """Every packed launch since the reset in this process's precision mode
+    for a bf16 model (MMDE_ATTN_MXU, "fold" unless set); K4 in fp32.
+    Returns {mode: {shape: launches}} (string keys)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    mode = wap.resolve_mxu(None, torch.bfloat16)
+    want: dict = {}
+    for kernel, d in by_kernel.items():
+        m = "fp32" if kernel.endswith("resident") else mode
+        for key, n in d.items():
+            want[(m, key)] = want.get((m, key), 0) + n
+    if wap.LAUNCHES_BY_MXU != want:
+        raise RuntimeError(f"{tag}: packed launches by mode "
+                           f"{wap.LAUNCHES_BY_MXU}, expected {want}")
+    out: dict = {}
+    for (m, key), n in want.items():
+        out.setdefault(m, {})[str(key)] = n
+    return out
+
+
 def _packed_by_kernel() -> dict:
     from mmde_tpu_torch.ops import window_attention_packed as wap
     out: dict = {}
@@ -2005,31 +2117,86 @@ def _str_keys(d: dict) -> dict:
     return {k: {str(s): n for s, n in v.items()} for k, v in d.items()}
 
 
-def _run_child(argv: list, env_extra: dict, timeout: int) -> list:
-    """Run this checkout's python `argv` with `env_extra` in the
+def _start_child(argv: list, env_extra: dict) -> dict:
+    """Start this checkout's python `argv` with `env_extra` in the
     environment (the kernel settings are read at import: a process of their
-    own); returns its JSON lines. Raises when it fails."""
+    own), its output to temporary files."""
+    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, **env_extra)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable] + argv, env=env, cwd=root,
-                          capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{env_extra} {' '.join(argv)} exited "
-                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                           f"{proc.stderr[-6000:]}")
-    return [json.loads(ln) for ln in proc.stdout.splitlines()
-            if ln.startswith("{")]
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable] + argv, env=env, cwd=root,
+                            stdout=out, stderr=err, text=True)
+    return {"proc": proc, "out": out, "err": err,
+            "what": f"{env_extra} {' '.join(argv)}"}
 
 
-def phase_train_resident(steps: int = 6) -> dict:
-    """Path A: `MMDE_ATTN_GRID=bias_resident python -m
-    mmde_tpu_torch.tools.train_steps --steps 6` (the flagship, bf16, 2
-    frame pairs) in a process of its own: every step 24 K1 launches without
-    the log-sum-exp and 24 K4, no K2."""
-    cmd = ["-m", "mmde_tpu_torch.tools.train_steps", "--steps", str(steps)]
-    t0 = time.time()
-    lines = _run_child(cmd, {"MMDE_ATTN_GRID": "bias_resident"}, 900)
+def _child_lines(child: dict, timeout: int) -> list:
+    """Wait for a started child; its JSON lines. Raises when it fails or
+    outlives `timeout` (then it is killed)."""
+    try:
+        rc = child["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child["proc"].kill()
+        child["proc"].wait()
+        raise RuntimeError(f"{child['what']} ran over {timeout} s")
+    child["out"].seek(0)
+    child["err"].seek(0)
+    out, err = child["out"].read(), child["err"].read()
+    if rc != 0:
+        raise RuntimeError(f"{child['what']} exited {rc}:\n{out[-3000:]}\n"
+                           f"{err[-6000:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+# Path A, Path B and the bf16 mode run in processes of their own, all three
+# side by side on the card: their request and step times share it and do
+# not compare with the default path's (this script is the correctness gate;
+# timing those paths is the bench's)
+SHARED_CARD = ("train_resident, serve_w / train_w and serve_mxu / "
+               "train_mxu ran side by side, each in its own process: "
+               "request and step times share the card")
+
+
+def phase_children(resident_steps: int = 4) -> tuple:
+    """Start the three children at once (`phase_resident_child`'s,
+    `phase_w_child`'s, `phase_mxu_child`'s), wait for all three, then read
+    each; returns (train_resident, resident gradients, serve_w, train_w,
+    serve_mxu, train_mxu)."""
+    import tempfile
+    me = os.path.basename(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        grads = os.path.join(tmp, "grads.pt")
+        children = {
+            "resident": _start_child(
+                [me, "--child", "resident", "--steps", str(resident_steps),
+                 "--out", grads], {"MMDE_ATTN_GRID": "bias_resident"}),
+            "w": _start_child([me, "--child", "w"], {"MMDE_ATTN_W": "auto"}),
+            "mxu": _start_child([me, "--child", "mxu"],
+                                {"MMDE_ATTN_MXU": "bf16"})}
+        try:
+            lines = {k: _child_lines(c, 900) for k, c in children.items()}
+        finally:
+            for c in children.values():
+                if c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+        resident = torch.load(grads)
+    train_res, resident = phase_resident_child(lines["resident"], resident,
+                                               resident_steps)
+    serve_w, train_w = phase_w_child(lines["w"])
+    serve_mxu, train_mxu = phase_mxu_child(lines["mxu"])
+    return train_res, resident, serve_w, train_w, serve_mxu, train_mxu
+
+
+def phase_resident_child(lines: list, child: dict, steps: int) -> tuple:
+    """Path A, read off its process (under MMDE_ATTN_GRID=bias_resident):
+    the trainer entry point `mmde_tpu_torch.tools.train_steps.main(
+    ["--steps", "4"])` (the flagship, bf16, 2 frame pairs: every step 24 K1
+    launches without the log-sum-exp and 24 K4, no K2), then one fp32 step's
+    gradients (`child`) for train_parity_resident. Returns (the
+    train_resident record, the child's gradients)."""
     recs = [ln for ln in lines if "step" in ln]
     if len(recs) != steps:
         raise RuntimeError(f"train_resident: {len(recs)} step lines")
@@ -2045,12 +2212,11 @@ def phase_train_resident(steps: int = 6) -> dict:
         raise RuntimeError(f"train_resident: launches {last['launches']} "
                            f"{last['launches_by_shape']}, expected {want}")
     ms = [r["ms"] for r in recs]
-    rec = {"command": "MMDE_ATTN_GRID=bias_resident python -m "
-                      "mmde_tpu_torch.tools.train_steps --steps "
-                      f"{steps}",
+    rec = {"command": "mmde_tpu_torch.tools.train_steps.main(['--steps', "
+                      f"'{steps}']) under MMDE_ATTN_GRID=bias_resident",
            "model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2, "
                     "train mode, 2 frame pairs, fresh weights from seed 0",
-           "seconds": round(time.time() - t0, 1),
+           "shared_card": SHARED_CARD,
            "first_step_ms": ms[0], "step_ms": ms[1:],
            "step_ms_median": statistics.median(ms[1:]),
            "images_per_s": 2 * pairs / (statistics.median(ms[1:]) / 1e3),
@@ -2063,7 +2229,8 @@ def phase_train_resident(steps: int = 6) -> dict:
                                   s.replace("/", "x").split("x")): n
                             for s, n in d.items()}
                         for k, d in last["launches_by_shape"].items()}
-    return rec
+    child["child_lines"] = len(lines)
+    return rec, child
 
 
 def _expected_resident(pairs: int, steps: int) -> dict:
@@ -2075,18 +2242,16 @@ def _expected_resident(pairs: int, steps: int) -> dict:
     return want
 
 
-def phase_w_child() -> tuple:
-    """Path B: the flagship under MMDE_ATTN_W=auto in a process of its own:
-    `serve_w` (3 requests) and `train_w` (6 steps), every packed launch at
+def phase_w_child(lines: list) -> tuple:
+    """Path B, read off its process: the flagship under MMDE_ATTN_W=auto,
+    `serve_w` (2 requests) and `train_w` (4 steps), every packed launch at
     the JAX rule's W (checked in the child)."""
-    lines = _run_child([os.path.basename(__file__), "--child", "w"],
-                       {"MMDE_ATTN_W": "auto"}, 900)
     got = {k: v for ln in lines for k, v in ln.items()
            if k in ("serve_w", "train_w")}
     if set(got) != {"serve_w", "train_w"}:
         raise RuntimeError(f"W child printed {[list(ln) for ln in lines]}")
     for tag in ("serve_w", "train_w"):
-        emit(tag, got[tag])
+        emit(tag, dict(got[tag], shared_card=SHARED_CARD))
         got[tag]["_by_kernel"] = {
             k: {tuple(int(x) for x in s.strip("()").split(",")): n
                 for s, n in d.items()}
@@ -2096,53 +2261,45 @@ def phase_w_child() -> tuple:
 
 def train_step_grads(backbone: str, pairs: int, path: str) -> tuple:
     """(losses, {name: gradient}) of one deterministic fp32 train step of
-    `backbone` at full width and depth under attention `path`, weights and
-    batch from fixed seeds, cuDNN TF32 off; cached per process."""
-    from mmde_tpu_torch.tools import train_steps as ts
+    `backbone` at full width (depths PARITY_DEPTHS) under attention `path`,
+    weights and batch from fixed seeds, cuDNN TF32 off; cached per
+    process."""
     key = ("train_step", backbone, pairs, path)
     if key in _PLAIN_RUNS:
         return _PLAIN_RUNS[key]
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        batch = ts.synthetic_batch(pairs, 480, 640, seed=33, device="cuda")
-        cfg = ts.flagship_config("float32", path, batch_size=pairs,
-                                 backbone=backbone)
-        state, step = ts.build_trainer(cfg, device="cuda", seed=0,
-                                       deterministic=True)
-        randomize_weights(state.model, seed=7)
+        trainer = _parity_trainer(backbone, pairs)
+        state, step, init, batch = trainer
+        with torch.no_grad():       # every path steps from the same weights
+            state.model.load_state_dict(init)
+        _set_attn_impl(state.model, path)
         state, aux = step(state, batch)
+        trainer[0] = state
         grads = {n: p.grad.detach().double().clone()
                  for n, p in state.model.named_parameters()
                  if n in LARGE_PARITY_PARAMS}
         res = ({k: float(v) for k, v in aux.items()}, grads)
-        del state, step
-        torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.allow_tf32 = old
     _PLAIN_RUNS[key] = res
     return res
 
 
-def phase_train_parity_resident() -> dict:
+def phase_train_parity_resident(child: dict) -> dict:
     """One deterministic fp32 flagship step (TF32 off) under
-    MMDE_ATTN_GRID=bias_resident (K1 without lse + K4, in a process of its
-    own) against the default grid's (K1 + K2, this process): loss and the
-    gradients of PARITY_PARAMS at TOL_TRAIN_PARITY."""
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "grads.pt")
-        lines = _run_child([os.path.basename(__file__), "--child", "grads",
-                            "--out", out],
-                           {"MMDE_ATTN_GRID": "bias_resident"}, 900)
-        child = torch.load(out)
+    MMDE_ATTN_GRID=bias_resident (K1 without lse + K4: the resident child's
+    gradients) against the default grid's (K1 + K2, this process): loss and
+    the gradients of PARITY_PARAMS at TOL_TRAIN_PARITY."""
     counts = child["launches"]
-    if not (counts.get("window_attention_bwd_resident", 0) == 24
+    blocks = sum(PARITY_DEPTHS)
+    if not (counts.get("window_attention_bwd_resident", 0) == blocks
             and not any(k.startswith("window_attention_bwd")
                         and k != "window_attention_bwd_resident"
                         for k in counts)):
         raise RuntimeError(f"train_parity_resident: the child's launches "
-                           f"{counts}, expected 24 K4 and no K2")
+                           f"{counts}, expected {blocks} K4 and no K2")
     la, ga = child["loss"], child["grads"]
     lb, gb = train_step_grads("swin_base_v2", 1, "cuda")
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
@@ -2150,7 +2307,8 @@ def phase_train_parity_resident() -> dict:
                          / gb[n].norm().clamp_min(1e-300))
                 for n in PARITY_PARAMS}
     rec = {"model": "swin_base_v2", "dtype": "float32", "frame_pairs": 1,
-           "cudnn_allow_tf32": False, "child_lines": len(lines),
+           "depths": list(PARITY_DEPTHS), "cudnn_allow_tf32": False,
+           "child_lines": child["child_lines"],
            "bias_resident_launches": counts,
            "loss_bias_resident": la, "loss_window_resident": lb,
            "loss_rel_diff": loss_rel, "grad_rel_l2": grad_rel,
@@ -2168,18 +2326,27 @@ def phase_train_parity_resident() -> dict:
 
 
 def child_main(args) -> int:
-    """The processes phase_w_child and phase_train_parity_resident start,
-    with their environment variable set."""
+    """The processes phase_w_child, phase_mxu_child and
+    phase_resident_child start, with their environment variable set."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
+    if args.child == "mxu":
+        if wap.MXU_BF16_DEFAULT != "bf16":
+            raise RuntimeError("the mxu child needs MMDE_ATTN_MXU=bf16")
+        phase_serve(requests=1, flip=False, tag="serve_mxu")
+        phase_train(steps=3, deterministic_run=False, tag="train_mxu")
+        return 0
     if args.child == "w":
         if wap.WINDOWS_PER_CELL != "auto":
             raise RuntimeError("the W child needs MMDE_ATTN_W=auto")
-        phase_serve(flip=False, tag="serve_w")
-        phase_train(steps=6, deterministic_run=False, tag="train_w")
+        phase_serve(requests=2, flip=False, tag="serve_w")
+        phase_train(steps=4, deterministic_run=False, tag="train_w")
         return 0
     if wap.DEFAULT_GRID_MODE != "bias_resident":
-        raise RuntimeError("the grads child needs MMDE_ATTN_GRID="
+        raise RuntimeError("the resident child needs MMDE_ATTN_GRID="
                            "bias_resident")
+    from mmde_tpu_torch.tools import train_steps
+    train_steps.main(["--steps", str(args.steps)])
+    torch.cuda.empty_cache()
     wap.reset_launch_counts()
     loss, grads = train_step_grads("swin_base_v2", 1, "cuda")
     torch.save({"loss": loss, "grads": {n: t.cpu() for n, t in grads.items()},
@@ -2244,6 +2411,398 @@ def contract_resident(k4_cases: list, train_res: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the tools' kernels (T1-T3) and the packed kernels' precision modes
+# ---------------------------------------------------------------------------
+
+def _tool_entry(name: str, source: str, replaces: str, launches: int,
+                rec: dict, **extra) -> dict:
+    if launches == 0:
+        raise RuntimeError(f"the tool run never launched {name}")
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+    if "rel_l2_err" in rec:
+        entry["rel_l2_err"] = rec["rel_l2_err"]
+    entry.update(extra)
+    return entry
+
+
+def phase_probes() -> list:
+    """T1: the probe tool's entry point (all six probes, stdout captured)
+    with the launch counts read around it, then each kernel timed beside
+    its plain version and the PyTorch call computing the same function."""
+    import contextlib
+    import io
+    from mmde_tpu_torch.tools import probe_layouts as tpl
+    builds = tool_libraries()
+    tpl.LAUNCHES.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tpl.main([])
+    launches = dict(tpl.LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or sum(ln.startswith("PASS ") for ln in lines) != 7:
+        raise RuntimeError(f"probes: exit {rc}: {lines}")
+    recs = tpl.run(timed=True, time_fn=lambda fn: time_ms(fn, reps=10))
+    if not all(r["ok"] for r in recs):
+        raise RuntimeError(f"probes (timed run): {recs}")
+    entries = [_tool_entry(f"probe {r['name']}", tpl.SOURCE, r["replaces"],
+                           launches.get(r["name"], 0), r) for r in recs]
+    emit("probes", {"tool_output": lines, "launches": launches,
+                    "cases": recs,
+                    "tool_libraries_nvcc_seconds": builds})
+    return entries
+
+
+def phase_variants() -> list:
+    """T2 at the tool's four stages: v0 / v1 / v3 bitwise equal to the
+    production K1 launched with mxu fp32 / fold / bf16 (serving entry,
+    maxfree=False as the tool's body), every variant within K1's bf16
+    tolerance of its plain version, v3 and v4 also tbv.APART times nearer
+    their own plain version than v1's; launches by (mode, shape) read
+    around the tool's run."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.tools import bench_attention_variants as tbv
+    wap.reset_launch_counts()
+    recs = tbv.run(list(tbv.STAGES))
+    counts = dict(wap.LAUNCHES_BY_MXU)
+    entries, cases = [], []
+    for stage in tbv.STAGES:
+        qkv, ls, bias, mask, nH = tbv.make_inputs(stage)
+        key = tuple(qkv.shape[:2]) + (qkv.shape[2] // 3, nH)
+        by_v = {r["variant"]: r for r in recs if r["stage"] == stage}
+        for v, rec in by_v.items():
+            if not rec["ok"]:
+                raise RuntimeError(f"variants: {stage} {v} disagrees with "
+                                   f"its plain version: {rec}")
+            if v in ("v0", "v1", "v3"):
+                with torch.no_grad():
+                    prod = wap.cosine_window_attention_packed(
+                        qkv, ls, bias, mask, num_heads=nH, maxfree=False,
+                        mxu=rec["mxu"])
+                rec["bitwise_equal_to_production"] = bool(
+                    torch.equal(prod, rec["_out"]))
+                if not rec["bitwise_equal_to_production"]:
+                    raise RuntimeError(f"variants: {stage} {v} differs from "
+                                       f"the production K1 (mxu="
+                                       f"{rec['mxu']})")
+        if not torch.equal(by_v["v1"]["_out"], by_v["v2"]["_out"]):
+            raise RuntimeError(f"variants: {stage} v2 differs from v1")
+        for v, rec in by_v.items():
+            del rec["_out"]
+            cases.append(rec)
+            if v == "v2":           # v1's launch (see the tool's docstring)
+                continue
+            entries.append(_tool_entry(
+                f"window_attention_fwd variant {v}{'/v2' if v == 'v1' else ''}"
+                f" (mxu={rec['mxu']}) [{stage} B_={key[0]} N={key[1]} "
+                f"C={key[2]} nH={nH} bf16{' mask' if mask is not None else ''}"
+                "]", KERNEL_SOURCE, tbv.REPLACES,
+                counts.get((rec["mxu"], key), 0), dict(rec, library_ms=None)))
+    emit("variants", {"cases": cases,
+                      "launches_by_mxu": {f"{m} {k}": n for (m, k), n
+                                          in counts.items()},
+                      "timing": "CUDA events, 3 warm + 20 launches, median"})
+    return entries
+
+
+def phase_roofline() -> tuple:
+    """T3: the micro-kernels against their plain versions (16 iterations),
+    then `microbench` (launches counted around it): the rates, none above
+    105 % of its published peak; the port's K1 / K2 work at the flagship's
+    train shapes (2 frame pairs) at those rates beside their measured ms;
+    the fixed buckets."""
+    from mmde_tpu_torch.tools import roofline as trl
+    checks = trl.check(timed=True)
+    if not all(r["ok"] for r in checks):
+        raise RuntimeError(f"roofline micro-kernels disagree with their "
+                           f"plain versions: {checks}")
+    trl.LAUNCHES.clear()
+    rates = trl.microbench()
+    launches = dict(trl.LAUNCHES)
+    attn = {}
+    for stage, (B_, nH, N, C, nW, blocks) in trl.stages(2).items():
+        attn[stage] = {"shape": [B_, nH, N, C, nW], "blocks": blocks,
+                       "cost": trl.attention_cost(B_, nH, N, C, nW, rates),
+                       "measured_ms": trl.measure_stage(B_, nH, N, C, nW)}
+    rec = {"rates": {k: v for k, v in rates.items() if k != "_detail"},
+           "peaks_105pct_of": trl.PEAKS, "detail": rates["_detail"],
+           "launches": launches, "checks": checks,
+           "attention_2_pairs": attn,
+           "fixed_buckets_2_pairs": trl.fixed_buckets(rates, 2)}
+    emit("roofline", rec)
+    entries = []
+    for r in checks:
+        kind = "mxu" if r["name"].startswith("dot") else "vpu"
+        replaces = (trl.REPLACES[kind] if r["name"] != "copy" else
+                    "tools/roofline.py:149 (microbench's HBM copy; XLA, "
+                    "no pallas_call)")
+        size = "256 MB" if r["name"] == "copy" else f"iters {r['iters']}"
+        entries.append(_tool_entry(f"roofline {r['name']} ({size})",
+                                   trl.SOURCE, replaces,
+                                   launches.get(r["name"], 0), r))
+    return entries, rec
+
+
+# mxu="bf16" is held to its own plain version (forward and plain backward;
+# for fp32 qkv also the backward's formulas in float64, where bf16 qkv
+# would add their own output rounding, ~1.7e-3) at limits near the
+# geometric mean of the sound kernels' largest error and the distance
+# between the bf16 and the fold plain versions (rel-L2 over these cases:
+# out 7.6e-5 / 5.7e-3, dqkv 3.1e-4 / 1.8e-2, dlogit_scale 2.4e-4 / 4.1e-3,
+# dbias 1.9e-4 / 5.7e-3; PERF.md, Findings), so that a kernel computing
+# another mode fails; and the kernel must lie MXU_APART times nearer to the
+# bf16 plain version than to the fold one (forward and dqkv).
+TOL_MXU_BF16 = {"out": 6e-4, "dqkv": 2e-3, "dlogit_scale": 1e-3,
+                "dbias": 1e-3}
+MXU_APART = 4.0
+# mxu="bf16" against float64 autograd of its own forward: the mode's
+# backward formulas (the JAX package's) round ds and take dlogit_scale as
+# sum(ds * sc) with sc built from the rounded q^ * scale, while the exact
+# derivative of the rounded forward uses the unrounded one, so dlogit_scale
+# is read there but held only to the formulas above.
+TOL_MXU_BF16_AUTOGRAD = {"dqkv": 4e-3, "dbias": 4e-3}
+
+
+def _check_against(got, refs: dict, what: str) -> dict:
+    """dqkv, dlogit_scale, dbias of a backward kernel against each
+    reference of `refs` ({name: (tensors, {output: rel-L2 tolerance})}; an
+    output without a tolerance is read, not held); raises on disagreement,
+    a value that is not finite, or a clamped head's dlogit_scale not 0."""
+    names = ("dqkv", "dlogit_scale", "dbias")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError(f"{what}: backward output not finite")
+    if float(got[1].flatten()[0]) != 0.0:
+        raise RuntimeError(f"{what}: dlogit_scale of the clamped head is "
+                           f"{float(got[1].flatten()[0])}, not 0")
+    out = {ref: {n: _errs(k, w) for n, k, w in zip(names, got, want)}
+           for ref, (want, _) in refs.items()}
+    for ref, (_, tol) in refs.items():
+        for n, e in out[ref].items():
+            if n in tol and not e["rel_l2"] <= tol[n]:
+                raise RuntimeError(f"{what} disagrees ({ref}, {n}): "
+                                   f"{json.dumps(out)}")
+    return out
+
+
+def _plain_mode(qkv, ls, bias, mask, g, nH, mxu):
+    """The plain forward and the plain backward in mode `mxu`."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    with torch.no_grad():
+        return (wap.cosine_window_attention_packed_plain(
+                    qkv, ls, bias, mask, num_heads=nH, mxu=mxu),
+                wap.cosine_window_attention_packed_backward_plain(
+                    qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu))
+
+
+def _apart(out, grads, want, plain, qkv, ls, bias, mask, g, nH) -> dict:
+    """The bf16-mode kernel's rel-L2 distance to the bf16 plain version, to
+    the fold one, and the two plain versions' distance, for the forward
+    and each gradient; raises unless the kernel lies MXU_APART times nearer
+    to the bf16 plain version (forward and dqkv)."""
+    want_f, plain_f = _plain_mode(qkv, ls, bias, mask, g, nH, "fold")
+    rec = {}
+    for n, k, w, f in zip(("out", "dqkv", "dlogit_scale", "dbias"),
+                          (out,) + tuple(grads), (want,) + tuple(plain),
+                          (want_f,) + tuple(plain_f)):
+        rec[n] = {"to_bf16_plain": _errs(k, w)["rel_l2"],
+                  "to_fold_plain": _errs(k, f)["rel_l2"],
+                  "bf16_plain_to_fold_plain": _errs(w, f)["rel_l2"]}
+    for n in ("out", "dqkv"):
+        r = rec[n]
+        if not r["to_fold_plain"] >= MXU_APART * r["to_bf16_plain"]:
+            raise RuntimeError(f"mxu=bf16 kernel not {MXU_APART}x nearer "
+                               f"to the bf16 plain version than to the "
+                               f"fold one ({n}): {json.dumps(rec)}")
+    return rec
+
+
+def compare_mxu(shape, dtype, mxu: str, gen, timed=True) -> dict:
+    """K1 (+ log-sum-exp) and K2 through the autograd Function, and K5 at
+    the rule's W, in precision mode `mxu` at one train shape: forwards
+    against the plain forward of that mode, backwards against the plain
+    backward and float64 autograd of the plain forward in that mode, and
+    against the mode's formulas evaluated in float64 (the plain backward at
+    float64). "bf16" at TOL_MXU_BF16 (float64 at TOL_BWD's bf16 limits for
+    bf16 qkv, autograd at TOL_MXU_BF16_AUTOGRAD) and MXU_APART (_apart);
+    the other modes at the bf16 tolerances where the type is bf16, else
+    fp32's. Head 0 clamped (scale 100: the row maximum), head 1 hot."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    masked = shape["nW"] > 0
+    qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, masked, gen)
+    ls[1] = 4.0
+    nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
+    g = torch.randn((B_, N, C), device="cuda", generator=gen).to(dtype)
+    tol = ("mxu_bf16" if mxu == "bf16" else
+           "bfloat16" if dtype == torch.bfloat16 else "float32")
+    tol_b = TOL_MXU_BF16 if mxu == "bf16" else TOL_BWD[tol]
+    rec = dict(_case_head(shape, dtype, mask), mxu=mxu, tolerance=tol,
+               tolerance_rel_l2=tol_b, frame_pairs=2)
+    want, plain = _plain_mode(qkv, ls, bias, mask, g, nH, mxu)
+    truth = _float64_grads(qkv, ls, bias, mask, g, nH, mxu)
+    with torch.no_grad():
+        formulas = wap.cosine_window_attention_packed_backward_plain(
+            qkv.double(), ls, bias.double(),
+            None if mask is None else mask.double(), g.double(),
+            num_heads=nH, compute_dtype=torch.float64, mxu=mxu)
+    refs = {"vs_plain": (plain, tol_b),
+            "vs_float64_formulas": (formulas, TOL_BWD[
+                "bfloat16"] if dtype == torch.bfloat16 else tol_b),
+            "vs_float64_autograd": (truth, TOL_MXU_BF16_AUTOGRAD
+                                    if mxu == "bf16" else tol_b)}
+    leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+    out = wap.cosine_window_attention_packed(leaves[0], leaves[1], leaves[2],
+                                             mask, num_heads=nH, mxu=mxu)
+    out.backward(g)
+    torch.cuda.synchronize()
+    grads = [t.grad for t in leaves]
+    if mxu == "bf16":
+        rec["apart"] = _apart(out.detach(), grads, want, plain, qkv, ls,
+                              bias, mask, g, nH)
+
+    def forward_ok(got):
+        if mxu != "bf16":
+            return check_forward(got, want, torch.bfloat16 if tol ==
+                                 "bfloat16" else torch.float32, rec)
+        e = {"max_abs_err": _errs(got, want)["max_abs"],
+             "rel_l2_err": _errs(got, want)["rel_l2"],
+             "tolerance": {"rel_l2": TOL_MXU_BF16["out"]}}
+        if not (e["rel_l2_err"] <= TOL_MXU_BF16["out"]
+                and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"K1 (mxu=bf16) disagrees with its plain "
+                               f"version: {json.dumps(e)} at "
+                               f"{json.dumps(rec)}")
+        return e
+
+    rec["forward"] = forward_ok(out.detach())
+    rec["backward"] = _check_against(grads, refs,
+                                     f"K2 (mxu={mxu}) at {json.dumps(rec)}")
+    w_f, w_b = _w_of(shape, False, masked), _w_of(shape, True, masked)
+    rec["W"] = [w_f, w_b]
+    with torch.no_grad():
+        out_w, _ = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                       w=w_f, mxu=mxu)
+        rec["forward_w"] = forward_ok(out_w)
+        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                  mxu=mxu)[1]
+        got_w = wap._launch_backward(qkv, ls, bias, mask, lse, g, nH,
+                                     "window_resident", True, w=w_b,
+                                     mxu=mxu)
+        torch.cuda.synchronize()
+        rec["backward_w"] = _check_against(got_w, refs,
+                                           f"K5 (mxu={mxu}) at "
+                                           f"{json.dumps(rec)}")
+        err = rec["backward"]["vs_float64_formulas"]["dqkv"]
+        rec["max_abs_err"], rec["rel_l2_err"] = err["max_abs"], err["rel_l2"]
+        if timed:
+            # the exact mode at the same inputs, in the same call
+            for m in dict.fromkeys(("fp32", mxu)):
+                sfx = "" if m == mxu else "_fp32"
+                rec["fwd_lse_ms" + sfx] = time_ms(lambda: wap._launch_forward(
+                    qkv, ls, bias, mask, nH, True, True, mxu=m))
+                lse_m = wap._launch_forward(qkv, ls, bias, mask, nH, True,
+                                            True, mxu=m)[1]
+                rec["bwd_ms" + sfx] = time_ms(lambda: wap._launch_backward(
+                    qkv, ls, bias, mask, lse_m, g, nH, "window_resident",
+                    True, mxu=m), reps=8, warm=2)
+            rec[f"fwd_lse_w{w_f}_ms"] = time_ms(lambda: wap._launch_forward(
+                qkv, ls, bias, mask, nH, True, True, w=w_f, mxu=mxu))
+            rec[f"bwd_w{w_b}_ms"] = time_ms(lambda: wap._launch_backward(
+                qkv, ls, bias, mask, lse, g, nH, "window_resident", True,
+                w=w_b, mxu=mxu), reps=8, warm=2)
+            rec["forward"]["ms"] = rec["fwd_lse_ms"]
+            rec["forward"]["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_plain(
+                    qkv, ls, bias, mask, num_heads=nH, mxu=mxu), reps=3,
+                warm=1)
+            rec["ms"] = rec["bwd_ms"]
+            rec["plain_ms"] = time_ms(
+                lambda: wap.cosine_window_attention_packed_backward_plain(
+                    qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu), reps=3,
+                warm=1)
+            rec["forward"].update(kernel_bound(B_, N, C, nH, rec["nW"],
+                                               dtype, bias.dtype, stats=True))
+            rec.update(backward_bound(B_, N, C, nH, rec["nW"], dtype,
+                                      bias.dtype))
+            rec["forward"]["library_ms"] = rec["library_ms"] = None
+    del truth, formulas, plain, want, leaves, out, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_mxu(timed: bool = True) -> list:
+    """K1+lse, K2 and K5 under "fold" and "bf16" (and, for bfloat16, the
+    exact "fp32", which the model's default no longer takes) at flagship
+    stages 1 and 4 (train shape, 2 frame pairs), float32 and bfloat16.
+    Every case runs; the phase's line is printed, then it fails if any
+    case disagreed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7373)
+    shapes = stage_shapes(batch=2)
+    cases, failed = [], []
+    for shape in (shapes[0], shapes[3]):
+        for dtype, modes in ((torch.bfloat16, ("fp32", "fold", "bf16")),
+                             (torch.float32, ("fold", "bf16"))):
+            for mxu in modes:
+                try:
+                    cases.append(compare_mxu(shape, dtype, mxu, gen, timed))
+                except RuntimeError as e:
+                    failed.append(str(e))
+                torch.cuda.empty_cache()
+    emit("kernel_cases_mxu", {
+        "cases": cases, "failed": failed,
+        "timing": "CUDA events around one launch (forward with lse; "
+                  "backward: the dq and dk/dv passes), median of 20 / 8; "
+                  "*_fp32 keys: the exact mode at the same inputs"})
+    if failed:
+        raise RuntimeError(f"kernel_cases_mxu: {len(failed)} case(s) "
+                           f"disagree: {failed[0]}")
+    return cases
+
+
+def phase_mxu_child(lines: list) -> tuple:
+    """The bf16 mode, read off its process: the flagship under
+    MMDE_ATTN_MXU=bf16, `serve_mxu` (1 request) and `train_mxu` (3 steps),
+    every packed launch in the bf16 mode (checked in the child)."""
+    got = {k: v for ln in lines for k, v in ln.items()
+           if k in ("serve_mxu", "train_mxu")}
+    if set(got) != {"serve_mxu", "train_mxu"}:
+        raise RuntimeError(f"mxu child printed {[list(ln) for ln in lines]}")
+    for tag in ("serve_mxu", "train_mxu"):
+        if set(got[tag]["launches_by_mxu"]) != {"bf16"}:
+            raise RuntimeError(f"{tag}: launches by mode "
+                               f"{got[tag]['launches_by_mxu']}")
+        emit(tag, dict(got[tag], shared_card=SHARED_CARD))
+    return got["serve_mxu"], got["train_mxu"]
+
+
+def contract_mxu(mxu_cases: list, train_mxu: dict) -> list:
+    """The bf16 mode's K1 (served; with lse, trained) and K2 at the shapes
+    kernel_cases_mxu measured (stages 1 and 4), launches from the
+    MMDE_ATTN_MXU=bf16 child."""
+    entries = []
+    for shape in stage_shapes(batch=2):
+        if shape["stage"] not in (1, 4):
+            continue
+        c = next(c for c in mxu_cases if c["stage"] == shape["stage"]
+                 and c["dtype"] == "bfloat16" and c["mxu"] == "bf16")
+        key = str((shape["B_"], shape["N"], shape["C"], shape["nH"]))
+        by_kernel = train_mxu["launches_by_kernel"]
+        entries.append(_entry(
+            "window_attention_fwd+lse [mxu=bf16]", shape, KERNEL_SOURCE,
+            KERNEL_REPLACES,
+            by_kernel.get("window_attention_fwd+lse", {}).get(key, 0),
+            c["forward"], 2))
+        entries.append(_entry(
+            "window_attention_bwd [mxu=bf16]", shape, KERNEL_BWD_SOURCE,
+            KERNEL_BWD_REPLACES,
+            by_kernel.get("window_attention_bwd", {}).get(key, 0), c, 2))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=["kernels"], default=None,
@@ -2256,9 +2815,11 @@ def main() -> int:
                          "swin_large and of the flagship's slab path, and "
                          "write their rows to PATH and PATH with _large / "
                          "_slab before its extension (JSON)")
-    ap.add_argument("--child", choices=["w", "grads"], default=None,
+    ap.add_argument("--child", choices=["w", "resident", "mxu"],
+                    default=None,
                     help=argparse.SUPPRESS)     # the script's own children
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--steps", type=int, default=4, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2277,18 +2838,21 @@ def main() -> int:
     slab_cases = phase_kernels_slab(timed=timed)
     k4_cases = phase_kernels_resident(timed=timed)
     kw_cases = phase_kernels_w(timed=timed)
+    mxu_cases = phase_kernels_mxu(timed=timed)
     if args.only == "kernels":
         return 0
+    tool_entries = phase_probes() + phase_variants()
+    roof_entries, _ = phase_roofline()
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
-    train_large = phase_train("swin_large_v2", steps=6,
+    train_large = phase_train("swin_large_v2", steps=4,
                               deterministic_run=False, tag="train_large")
     serve_slab = phase_serve(tag="serve_slab", attn_impl="cuda_slab")
-    train_slab = phase_train(steps=6, deterministic_run=False,
+    train_slab = phase_train(steps=4, deterministic_run=False,
                              tag="train_slab", attn_impl="cuda_slab")
-    train_res = phase_train_resident()
-    serve_w, train_w = phase_w_child()
+    (train_res, resident_child, serve_w, train_w, _,
+     train_mxu) = phase_children()
     if args.profile:
         phase_profile(args.profile)
         root, ext = os.path.splitext(args.profile)
@@ -2306,7 +2870,9 @@ def main() -> int:
         "forward": phase_parity(dtypes=("float32",), tag=None,
                                 impl="cuda_slab"),
         "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
-    phase_train_parity_resident()
+    phase_train_parity_resident(resident_child)
+    _PARITY_MODELS.clear()
+    torch.cuda.empty_cache()
     entries = []
     for sv, tr in ((serve, train), (serve_large, train_large),
                    (serve_slab, train_slab)):
@@ -2314,11 +2880,14 @@ def main() -> int:
         entries += contract_train(k2_cases, hs_cases, slab_cases, tr)
     entries += contract_resident(k4_cases, train_res)
     entries += contract_w(kw_cases, serve_w, train_w)
+    entries += contract_mxu(mxu_cases, train_mxu)
+    entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    emit("phase_seconds", PHASE_SECONDS)
     emit("total_seconds", round(time.time() - t_start, 1))
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {

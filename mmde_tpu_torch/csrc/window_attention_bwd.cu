@@ -90,6 +90,17 @@
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
 // inputs far from their tensor-core bound. Tensor-core products and a
 // one-pass dq/dk/dv are the known next steps.
+//
+// Precision modes (MXU, window_attention_common.cuh; the JAX package's
+// `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)
+// rebuild p with the forward's ops ("fold": logits from q^*scale; "bf16":
+// from bf16 operands) and, under "bf16", round the products' operands where
+// the TPU body casts them: g and v for dp, p and g for dv, ds for dq and dk
+// (ds and p enter dbias, delta and dlogit_scale unrounded). Two
+// consequences: the dq pass cannot round ds inside A - delta * B, so under
+// "bf16" it sweeps the keys twice (delta first, then ds k^); and k^ . dkn
+// is no longer sum_i ds_ij sc_ij, so the dk/dv pass sums ds * sc itself
+// for dlogit_scale. The head-split and slab entries take no mode.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -129,6 +140,32 @@ __device__ __forceinline__ void put_r(float* sr, int j,
         make_float4(x[d], x[d + 1], x[d + 2], x[d + 3]);
 }
 
+// x <- the operand a product of mode MXU takes: times `scale` (a q^ row
+// under the folded modes, scale = 1 for the others) and rounded to bf16
+// where the mode rounds that operand (ROUND: MXU_BF16)
+template <bool ROUND>
+__device__ __forceinline__ void operand(float (&x)[DH], float scale) {
+#pragma unroll
+  for (int d = 0; d < DH; ++d) x[d] = rnd<ROUND>(x[d] * scale);
+}
+
+// the four channels px*4.. of the normalised row r (0 past the edge), from
+// device memory: q^ / k^ in fp32 where the staged tile holds the scaled or
+// rounded operand
+template <typename T, class R>
+__device__ __forceinline__ void unit_row4(const T* __restrict__ base,
+                                          const R& rows, int r, int N, int px,
+                                          float inv, float (&x)[4]) {
+  if (r < N) {
+    load4(base + rows.off(r) + px * 4, x);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] *= inv;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] = 0.0f;
+  }
+}
+
 // acc[i][j] = sum_d A[d][ty*8 + i] * B[d][tx*4 + j]
 __device__ __forceinline__ void tile_dot(const float* __restrict__ sAt,
                                          const float* __restrict__ sBt,
@@ -152,9 +189,10 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ sAt,
   }
 }
 
-// in: s = q^ k^T of the tile. out: s = sc = scale * q^ k^T and
-// p = exp(sc + bias + mask - lse); both 0 past the edge.
-template <typename TB, bool FASTEXP>
+// in: s = q^ k^T of the tile (FOLD: (q^ * scale) k^T). out: s = sc =
+// scale * q^ k^T (FOLD: s as it is) and p = exp(sc + bias + mask - lse);
+// both 0 past the edge.
+template <typename TB, bool FASTEXP, bool FOLD>
 __device__ __forceinline__ void probabilities(
     float (&s)[8][4], float (&p)[8][4], const TB* __restrict__ bias_h,
     const TB* __restrict__ mask_w, const float* __restrict__ sLse,
@@ -168,7 +206,7 @@ __device__ __forceinline__ void probabilities(
       const int col = k0 + tx * 4 + j;
       if (row < N && col < N) {
         const size_t idx = (size_t)row * N + col;
-        const float sc = s[i][j] * scale;
+        const float sc = FOLD ? s[i][j] : s[i][j] * scale;
         float v = sc + ldf(bias_h, idx);
         if (mask_w != nullptr) v += ldf(mask_w, idx);
         s[i][j] = sc;
@@ -184,7 +222,11 @@ __device__ __forceinline__ void probabilities(
 // ---------------------------------------------------------------------------
 // dq, delta, dlogit_scale partials: one block per (query tile, head, window)
 // ---------------------------------------------------------------------------
-template <template <typename> class L, typename T, typename TB, bool FASTEXP>
+// MXU_BF16 rounds ds itself before its product with k^, so that mode cannot
+// use A - delta * B: a first sweep over the keys sums delta (p and dp), the
+// second forms ds and its product.
+template <template <typename> class L, typename T, typename TB, bool FASTEXP,
+          int MXU>
 __global__ void __launch_bounds__(NT)
 bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
               const float* __restrict__ logit_scale,
@@ -192,17 +234,19 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
               const float* __restrict__ lse, L<T> dq,
               float* __restrict__ delta, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
-  float* sQt = smem;               // [DH][BT] q^
+  float* sQt = smem;               // [DH][BT] q^ (folded: q^ * scale)
   float* sGt = sQt + DH * BT;      // [DH][BT] g
   float* sKt = sGt + DH * BT;      // [DH][BT] k^
   float* sVt = sKt + DH * BT;      // [DH][BT] v
   float* sK = sVt + DH * BT;       // [BT][R_LD] k^
   float* sP = sK + BT * R_LD;      // [BT][P_LD] p
-  float* sW = sP + BT * P_LD;      // [BT][P_LD] p * dp
+  float* sW = sP + BT * P_LD;      // [BT][P_LD] p * dp (MXU_BF16: ds)
   float* sRq = sW + BT * P_LD;     // [BT]
   float* sLse = sRq + BT;          // [BT]
   float* sDelta = sLse + BT;       // [BT]
 
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RB = MXU == MXU_BF16;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT;
   const int h = blockIdx.y;
@@ -227,10 +271,12 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
     if (tid < BT) {
       fetch_row(q.head(b, h), q, r, N, x);
       sRq[j] = normalise(x);
+      operand<RB>(x, FOLD ? scale : 1.0f);
       put_t(sQt, j, x);
       sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
     } else {
       fetch_row(g.head(b, h), g, r, N, x);
+      operand<RB>(x, 1.0f);
       put_t(sGt, j, x);
     }
   }
@@ -248,76 +294,104 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 #pragma unroll
     for (int c = 0; c < 4; ++c) accA[r][c] = accB[r][c] = 0.0f;
 
-  for (int k0 = 0; k0 < N; k0 += BT) {
-    __syncthreads();  // the previous step's reads of the key tiles are done
-    {
-      float x[DH];
-      const int j = tid & (BT - 1);
-      const int r = k0 + j;
-      fetch_row(kv_bh, kv, r, N, x);
-      if (tid < BT) {
-        normalise(x);
-        put_t(sKt, j, x);
-        put_r(sK, j, x);
-      } else {
-        put_t(sVt, j, x);
+  for (int pass = RB ? 0 : 1; pass < 2; ++pass) {
+    if (RB && pass == 1) {   // delta of the first sweep, per row
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float d = row_sum16(d_part[i]);
+        if (tx == 0) sDelta[ty * 8 + i] = d;
       }
     }
-    __syncthreads();
-
-    float s[8][4], p[8][4], dp[8][4];
-    tile_dot(sQt, sKt, ty, tx, s);
-    probabilities<TB, FASTEXP>(s, p, bias_h, mask_w, sLse, scale, q0, k0, ty,
-                               tx, N);
-    tile_dot(sGt, sVt, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = p[i][j] * dp[i][j];
-        d_part[i] += w[j];
+    for (int k0 = 0; k0 < N; k0 += BT) {
+      __syncthreads();  // the previous step's reads of the key tiles are done
+      {
+        float x[DH];
+        const int j = tid & (BT - 1);
+        const int r = k0 + j;
+        fetch_row(kv_bh, kv, r, N, x);
+        if (tid < BT) {
+          normalise(x);
+          operand<RB>(x, 1.0f);
+          put_t(sKt, j, x);
+          put_r(sK, j, x);
+        } else {
+          operand<RB>(x, 1.0f);
+          put_t(sVt, j, x);
+        }
       }
-      store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1], p[i][2],
-             p[i][3]);
-      store4(&sW[(ty * 8 + i) * P_LD + tx * 4], w[0], w[1], w[2], w[3]);
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // A += (p*dp) k^,  B += p k^
-#pragma unroll 2
-    for (int j0 = 0; j0 < BT; j0 += 4) {
-      float pr[4][4], wr[4][4];
+      float s[8][4], p[8][4], dp[8][4];
+      tile_dot(sQt, sKt, ty, tx, s);
+      probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
+                                       k0, ty, tx, N);
+      tile_dot(sGt, sVt, ty, tx, dp);
+      if (RB && pass == 0) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&sP[(py + 16 * r) * P_LD + j0]);
-        const float4 u =
-            *reinterpret_cast<const float4*>(&sW[(py + 16 * r) * P_LD + j0]);
-        pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
-        wr[r][0] = u.x; wr[r][1] = u.y; wr[r][2] = u.z; wr[r][3] = u.w;
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d_part[i] += p[i][j] * dp[i][j];
+        continue;
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&sK[(j0 + jj) * R_LD + px * 4]);
-        const float kc[4] = {kk.x, kk.y, kk.z, kk.w};
+      for (int i = 0; i < 8; ++i) {
+        float w[4];
+        if constexpr (RB) {
+          const float dl = sDelta[ty * 8 + i];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int j = 0; j < 4; ++j) w[j] = bf16r(p[i][j] * (dp[i][j] - dl));
+        } else {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            accA[r][c] = fmaf(wr[r][jj], kc[c], accA[r][c]);
-            accB[r][c] = fmaf(pr[r][jj], kc[c], accB[r][c]);
+          for (int j = 0; j < 4; ++j) {
+            w[j] = p[i][j] * dp[i][j];
+            d_part[i] += w[j];
           }
+          store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1],
+                 p[i][2], p[i][3]);
+        }
+        store4(&sW[(ty * 8 + i) * P_LD + tx * 4], w[0], w[1], w[2], w[3]);
+      }
+      __syncthreads();
+
+      // A += (p*dp) k^,  B += p k^  (MXU_BF16: A += ds k^)
+#pragma unroll 2
+      for (int j0 = 0; j0 < BT; j0 += 4) {
+        float pr[4][4], wr[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 u = *reinterpret_cast<const float4*>(
+              &sW[(py + 16 * r) * P_LD + j0]);
+          wr[r][0] = u.x; wr[r][1] = u.y; wr[r][2] = u.z; wr[r][3] = u.w;
+          if constexpr (!RB) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                &sP[(py + 16 * r) * P_LD + j0]);
+            pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              &sK[(j0 + jj) * R_LD + px * 4]);
+          const float kc[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              accA[r][c] = fmaf(wr[r][jj], kc[c], accA[r][c]);
+              if constexpr (!RB) accB[r][c] = fmaf(pr[r][jj], kc[c], accB[r][c]);
+            }
+        }
       }
     }
   }
 
   // delta per row
+  if constexpr (!RB) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float d = row_sum16(d_part[i]);
-    if (tx == 0) sDelta[ty * 8 + i] = d;
+    for (int i = 0; i < 8; ++i) {
+      const float d = row_sum16(d_part[i]);
+      if (tx == 0) sDelta[ty * 8 + i] = d;
+    }
   }
   __syncthreads();
 
@@ -329,16 +403,21 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
     const int lr = py + 16 * r;
     const int row = q0 + lr;
     const float dl = sDelta[lr];
+    const float rq = sRq[lr];
     float dqn[4], qn[4];
+    if constexpr (FOLD) {     // sQt holds the folded operand
+      unit_row4(q.head(b, h), q, row, N, px, rq, qn);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) qn[c] = sQt[(px * 4 + c) * BT + lr];
+    }
     float dot = 0.0f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      dqn[c] = scale * (accA[r][c] - dl * accB[r][c]);
-      qn[c] = sQt[(px * 4 + c) * BT + lr];
+      dqn[c] = scale * (RB ? accA[r][c] : accA[r][c] - dl * accB[r][c]);
       dot = fmaf(dqn[c], qn[c], dot);
     }
     dot = row_sum8(dot);
-    const float rq = sRq[lr];
     if (row < N)
       store4(dq_b + dq.off(row), rq * (dqn[0] - qn[0] * dot),
              rq * (dqn[1] - qn[1] * dot), rq * (dqn[2] - qn[2] * dot),
@@ -349,7 +428,8 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // ---------------------------------------------------------------------------
 // dk, dv (and dbias by atomics): one block per (key tile, head, window)
 // ---------------------------------------------------------------------------
-template <template <typename> class L, typename T, typename TB, bool FASTEXP>
+template <template <typename> class L, typename T, typename TB, bool FASTEXP,
+          int MXU>
 __global__ void __launch_bounds__(NT)
 bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
                const float* __restrict__ logit_scale,
@@ -385,6 +465,8 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
   const float ls = logit_scale[h];
   const float scale = expf(fminf(ls, LN100));
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RB = MXU == MXU_BF16;
 
   const int tx = tid & 15;  // N x N tiles: query rows ty*8..+7, keys tx*4..+3
   const int ty = tid >> 4;
@@ -398,9 +480,11 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
     if (tid < BT) {
       fetch_row(k.head(b, h), k, r, N, x);
       sRk[j] = normalise(x);
+      operand<RB>(x, 1.0f);
       put_t(sKt, j, x);
     } else {
       fetch_row(v.head(b, h), v, r, N, x);
+      operand<RB>(x, 1.0f);
       put_t(sVt, j, x);
     }
   }
@@ -414,6 +498,9 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) accV[r][c] = accK[r][c] = 0.0f;
+  // MXU_BF16: k^ . dkn is no longer sum_i ds_ij sc_ij (ds is rounded in its
+  // product), so the block sums ds * sc itself, tile by tile
+  double dls_tiles = 0.0;
 
   for (int q0 = 0; q0 < N; q0 += BT) {
     __syncthreads();  // the previous step's reads of the query tiles are done
@@ -424,10 +511,12 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
       fetch_row(qg_bh, qg, r, N, x);
       if (tid < BT) {
         normalise(x);
+        operand<RB>(x, FOLD ? scale : 1.0f);
         put_t(sQt, j, x);
         put_r(sQ, j, x);
         sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
       } else {
+        operand<RB>(x, 1.0f);
         put_t(sGt, j, x);
         put_r(sG, j, x);
         sDelta[j] = r < N ? delta[stat0 + r] : 0.0f;
@@ -437,15 +526,20 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
     float s[8][4], p[8][4], ds[8][4];
     tile_dot(sQt, sKt, ty, tx, s);
-    probabilities<TB, FASTEXP>(s, p, bias_h, mask_w, sLse, scale, q0, k0, ty,
-                               tx, N);
+    probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
+                                     k0, ty, tx, N);
     tile_dot(sGt, sVt, ty, tx, ds);  // dp for now
+    float dls_t = 0.0f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float dl = sDelta[ty * 8 + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ds[i][j] = p[i][j] * (ds[i][j] - dl);
+      for (int j = 0; j < 4; ++j) {
+        ds[i][j] = p[i][j] * (ds[i][j] - dl);
+        if (RB) dls_t = fmaf(ds[i][j], s[i][j], dls_t);
+      }
     }
+    if (RB) dls_tiles += dls_t;
     if (dbias_h != nullptr) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -458,7 +552,18 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
         }
       }
     }
-    // transposed, [key][row]: the next products sum over query rows
+    // transposed, [key][row]: the next products sum over query rows; their
+    // operands (MXU_BF16 rounds p and ds here, the sums above took them as
+    // they are)
+    if constexpr (RB) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          p[i][j] = bf16r(p[i][j]);
+          ds[i][j] = bf16r(ds[i][j]);
+        }
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float* pp = &sPt[(tx * 4 + j) * P_LD + ty * 8];
@@ -470,7 +575,7 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
     }
     __syncthreads();
 
-    // dv += p^T g,  dkn += ds^T q^
+    // dv += p^T g,  dkn += ds^T q^  (folded: ds^T (q^ * scale))
 #pragma unroll 2
     for (int i0 = 0; i0 < BT; i0 += 4) {
       float pr[4][4], dr[4][4];
@@ -505,28 +610,34 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   T* dk_b = dk.head(b, h) + px * 4;
   T* dv_b = dv.head(b, h) + px * 4;
   // k^ . dkn = sum_i ds_ij sc_ij for key j: this block's dlogit_scale share
-  double dls = 0.0;
+  // (MXU_BF16: the sum the loop took)
+  double dls = RB ? dls_tiles : 0.0;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int lk = py + 16 * r;
     const int key = k0 + lk;
+    const float rk = sRk[lk];
     float dkn[4], kn[4];
+    if constexpr (RB) {       // sKt holds the rounded operand
+      unit_row4(k.head(b, h), k, key, N, px, rk, kn);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kn[c] = sKt[(px * 4 + c) * BT + lk];
+    }
     float dot = 0.0f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      dkn[c] = scale * accK[r][c];
-      kn[c] = sKt[(px * 4 + c) * BT + lk];
+      dkn[c] = FOLD ? accK[r][c] : scale * accK[r][c];
       dot = fmaf(dkn[c], kn[c], dot);
     }
     dot = row_sum8(dot);
-    const float rk = sRk[lk];
     if (key < N) {
       store4(dk_b + dk.off(key), rk * (dkn[0] - kn[0] * dot),
              rk * (dkn[1] - kn[1] * dot), rk * (dkn[2] - kn[2] * dot),
              rk * (dkn[3] - kn[3] * dot));
       store4(dv_b + dv.off(key), accV[r][0], accV[r][1], accV[r][2],
              accV[r][3]);
-      if (px == 0) dls += dot;    // the 8 lanes of a key hold the same dot
+      if (!RB && px == 0) dls += dot;  // the 8 lanes of a key hold one dot
     }
   }
 #pragma unroll
@@ -544,7 +655,8 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // ---------------------------------------------------------------------------
 // dbias alone, windows innermost: one block per (key tile, query tile, head)
 // ---------------------------------------------------------------------------
-template <template <typename> class L, typename T, typename TB, bool FASTEXP>
+template <template <typename> class L, typename T, typename TB, bool FASTEXP,
+          int MXU>
 __global__ void __launch_bounds__(NT)
 bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
                  const float* __restrict__ logit_scale,
@@ -566,6 +678,8 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   const int nH = gridDim.z;
   const TB* bias_h = bias + (size_t)h * N * N;
   const float scale = expf(fminf(logit_scale[h], LN100));
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RB = MXU == MXU_BF16;
   const int tx = tid & 15;
   const int ty = tid >> 4;
 
@@ -586,16 +700,20 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
       if (tid < BT) {
         fetch_row(q.head(b, h), q, q0 + j, N, x);
         normalise(x);
+        operand<RB>(x, FOLD ? scale : 1.0f);
         put_t(sQt, j, x);
         sLse[j] = q0 + j < N ? lse[stat0 + q0 + j] : 0.0f;
         fetch_row(k.head(b, h), k, k0 + j, N, x);
         normalise(x);
+        operand<RB>(x, 1.0f);
         put_t(sKt, j, x);
       } else {
         fetch_row(g.head(b, h), g, q0 + j, N, x);
+        operand<RB>(x, 1.0f);
         put_t(sGt, j, x);
         sDelta[j] = q0 + j < N ? delta[stat0 + q0 + j] : 0.0f;
         fetch_row(v.head(b, h), v, k0 + j, N, x);
+        operand<RB>(x, 1.0f);
         put_t(sVt, j, x);
       }
     }
@@ -603,8 +721,8 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
     float s[8][4], p[8][4], dp[8][4];
     tile_dot(sQt, sKt, ty, tx, s);
-    probabilities<TB, FASTEXP>(s, p, bias_h, mask_w, sLse, scale, q0, k0, ty,
-                               tx, N);
+    probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
+                                     k0, ty, tx, N);
     tile_dot(sGt, sVt, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -642,7 +760,7 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // before its fp32 atomics into dbias: one atomic per element per W windows.
 
 // `probabilities` with the bias read from the staged tile
-template <typename TB, bool FASTEXP>
+template <typename TB, bool FASTEXP, bool FOLD>
 __device__ __forceinline__ void probabilities_staged(
     float (&s)[8][4], float (&p)[8][4], const float* __restrict__ sB,
     const TB* __restrict__ mask_w, const float* __restrict__ sLse,
@@ -655,7 +773,7 @@ __device__ __forceinline__ void probabilities_staged(
     for (int j = 0; j < 4; ++j) {
       const int col = k0 + tx * 4 + j;
       if (row < N && col < N) {
-        const float sc = s[i][j] * scale;
+        const float sc = FOLD ? s[i][j] : s[i][j] * scale;
         float v = sc + sB[(ty * 8 + i) * P_LD + tx * 4 + j];
         if (mask_w != nullptr) v += ldf(mask_w, (size_t)row * N + col);
         s[i][j] = sc;
@@ -677,7 +795,7 @@ constexpr int DKVW_BASE_FLOATS =
 constexpr int DKVW_WIN_FLOATS = 2 * BT * R_LD;
 static_assert(2 * BT * P_LD >= 4 * DH * BT, "p / ds tiles cover the staging");
 
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 __global__ void __launch_bounds__(NT)
 bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                 Rows<const T> g, const float* __restrict__ logit_scale,
@@ -703,6 +821,8 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   const int b0 = blockIdx.z * W;
   const TB* bias_h = bias + (size_t)h * N * N;
   const float scale = expf(fminf(logit_scale[h], LN100));
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RB = MXU == MXU_BF16;
   const int tx = tid & 15, ty = tid >> 4;
   const int px = tid & 7, py = tid >> 3;
 
@@ -718,6 +838,9 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     }
   }
 
+  // MXU_BF16 rounds ds itself before its product with k^: a first sweep
+  // sums every window's delta, the second forms ds (as bwd_dq_kernel)
+  for (int pass = RB ? 0 : 1; pass < 2; ++pass) {
   for (int k0 = 0; k0 < N; k0 += BT) {
     __syncthreads();  // the previous key tile's reads of sB and sK are done
     stage_bias<BT, BT, P_LD, NT>(sB, bias_h, q0, k0, N, tid);
@@ -736,15 +859,19 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
         if (tid < BT) {
           fetch_row(q.head(b, h), q, q0 + j, N, x);
           normalise(x);
+          operand<RB>(x, FOLD ? scale : 1.0f);
           put_t(sQt, j, x);
           fetch_row(k.head(b, h), k, k0 + j, N, x);
           normalise(x);
+          operand<RB>(x, 1.0f);
           put_t(sKt, j, x);
           put_r(sK, j, x);
         } else {
           fetch_row(g.head(b, h), g, q0 + j, N, x);
+          operand<RB>(x, 1.0f);
           put_t(sGt, j, x);
           fetch_row(v.head(b, h), v, k0 + j, N, x);
+          operand<RB>(x, 1.0f);
           put_t(sVt, j, x);
         }
       }
@@ -752,52 +879,65 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 
       float s[8][4], p[8][4], dp[8][4];
       tile_dot(sQt, sKt, ty, tx, s);
-      probabilities_staged<TB, FASTEXP>(s, p, sB, mask_w, wL, scale, q0, k0,
-                                        ty, tx, N);
+      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, wL, scale,
+                                              q0, k0, ty, tx, N);
       tile_dot(sGt, sVt, ty, tx, dp);
+      if (!RB || pass == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float d = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d += p[i][j] * dp[i][j];
+          d = row_sum16(d);
+          if (tx == 0) wD[ty * 8 + i] += d;
+        }
+        if (RB) continue;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        float d = 0.0f;
+        const float dl = RB ? wD[ty * 8 + i] : 0.0f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dp[i][j] *= p[i][j];
-          d += dp[i][j];
-        }
-        d = row_sum16(d);
-        if (tx == 0) wD[ty * 8 + i] += d;
+        for (int j = 0; j < 4; ++j)   // p * dp (MXU_BF16: ds, rounded)
+          dp[i][j] = RB ? bf16r(p[i][j] * (dp[i][j] - dl)) : p[i][j] * dp[i][j];
       }
       __syncthreads();  // the products' reads of the staging are done
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1], p[i][2],
-               p[i][3]);
+        if (!RB)
+          store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[i][0], p[i][1],
+                 p[i][2], p[i][3]);
         store4(&sW[(ty * 8 + i) * P_LD + tx * 4], dp[i][0], dp[i][1],
                dp[i][2], dp[i][3]);
       }
       __syncthreads();
 
-      // A += (p*dp) k^,  B += p k^, this window's slot
+      // A += (p*dp) k^,  B += p k^ (MXU_BF16: A += ds k^), this window's slot
       float accA[4][4], accB[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float4 a = *reinterpret_cast<const float4*>(
             &wA[(py + 16 * r) * R_LD + px * 4]);
-        const float4 c = *reinterpret_cast<const float4*>(
-            &wB[(py + 16 * r) * R_LD + px * 4]);
         accA[r][0] = a.x; accA[r][1] = a.y; accA[r][2] = a.z; accA[r][3] = a.w;
-        accB[r][0] = c.x; accB[r][1] = c.y; accB[r][2] = c.z; accB[r][3] = c.w;
+        if constexpr (!RB) {
+          const float4 c = *reinterpret_cast<const float4*>(
+              &wB[(py + 16 * r) * R_LD + px * 4]);
+          accB[r][0] = c.x; accB[r][1] = c.y; accB[r][2] = c.z;
+          accB[r][3] = c.w;
+        }
       }
 #pragma unroll 2
       for (int j0 = 0; j0 < BT; j0 += 4) {
         float pr[4][4], wr[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float4 t = *reinterpret_cast<const float4*>(
-              &sP[(py + 16 * r) * P_LD + j0]);
           const float4 u = *reinterpret_cast<const float4*>(
               &sW[(py + 16 * r) * P_LD + j0]);
-          pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
           wr[r][0] = u.x; wr[r][1] = u.y; wr[r][2] = u.z; wr[r][3] = u.w;
+          if constexpr (!RB) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                &sP[(py + 16 * r) * P_LD + j0]);
+            pr[r][0] = t.x; pr[r][1] = t.y; pr[r][2] = t.z; pr[r][3] = t.w;
+          }
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -809,7 +949,7 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               accA[r][c] = fmaf(wr[r][jj], kc[c], accA[r][c]);
-              accB[r][c] = fmaf(pr[r][jj], kc[c], accB[r][c]);
+              if constexpr (!RB) accB[r][c] = fmaf(pr[r][jj], kc[c], accB[r][c]);
             }
         }
       }
@@ -817,10 +957,12 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       for (int r = 0; r < 4; ++r) {
         store4(&wA[(py + 16 * r) * R_LD + px * 4], accA[r][0], accA[r][1],
                accA[r][2], accA[r][3]);
-        store4(&wB[(py + 16 * r) * R_LD + px * 4], accB[r][0], accB[r][1],
-               accB[r][2], accB[r][3]);
+        if constexpr (!RB)
+          store4(&wB[(py + 16 * r) * R_LD + px * 4], accB[r][0], accB[r][1],
+                 accB[r][2], accB[r][3]);
       }
     }
+  }
   }
 
   // per window: delta out, dq = rq (dqn - q^ <dqn, q^>), dqn = scale (A - delta B)
@@ -849,8 +991,9 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       float dot = 0.0f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        dqn[c] = scale * (wA[lr * R_LD + px * 4 + c] -
-                          dl * wB[lr * R_LD + px * 4 + c]);
+        dqn[c] = scale * (RB ? wA[lr * R_LD + px * 4 + c]
+                             : wA[lr * R_LD + px * 4 + c] -
+                                   dl * wB[lr * R_LD + px * 4 + c]);
         qn[c] = sQt[(px * 4 + c) * BT + lr];
         dot = fmaf(dqn[c], qn[c], dot);
       }
@@ -864,7 +1007,7 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   }
 }
 
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 __global__ void __launch_bounds__(NT)
 bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                  Rows<const T> g, const float* __restrict__ logit_scale,
@@ -898,8 +1041,11 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   float* dbias_h = dbias != nullptr ? dbias + (size_t)h * N * N : nullptr;
   const float ls = logit_scale[h];
   const float scale = expf(fminf(ls, LN100));
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RB = MXU == MXU_BF16;
   const int tx = tid & 15, ty = tid >> 4;
   const int px = tid & 7, py = tid >> 3;
+  double dls_tiles = 0.0;   // MXU_BF16: the sum of ds * sc, as bwd_dkv_kernel
 
   for (int e = tid; e < W * DKVW_WIN_FLOATS; e += NT) sWin[e] = 0.0f;
 
@@ -926,18 +1072,22 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
         if (tid < BT) {
           fetch_row(q.head(b, h), q, r, N, x);
           normalise(x);
+          operand<RB>(x, FOLD ? scale : 1.0f);
           put_t(sQt, j, x);
           put_r(sQ, j, x);
           sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
           fetch_row(k.head(b, h), k, k0 + j, N, x);
           normalise(x);
+          operand<RB>(x, 1.0f);
           put_t(sKt, j, x);
         } else {
           fetch_row(g.head(b, h), g, r, N, x);
+          operand<RB>(x, 1.0f);
           put_t(sGt, j, x);
           put_r(sG, j, x);
           sDelta[j] = r < N ? delta[stat0 + r] : 0.0f;
           fetch_row(v.head(b, h), v, k0 + j, N, x);
+          operand<RB>(x, 1.0f);
           put_t(sVt, j, x);
         }
       }
@@ -945,9 +1095,10 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 
       float s[8][4], p[8][4], ds[8][4];
       tile_dot(sQt, sKt, ty, tx, s);
-      probabilities_staged<TB, FASTEXP>(s, p, sB, mask_w, sLse, scale, q0,
-                                        k0, ty, tx, N);
+      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, sLse, scale,
+                                              q0, k0, ty, tx, N);
       tile_dot(sGt, sVt, ty, tx, ds);  // dp for now
+      float dls_t = 0.0f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float dl = sDelta[ty * 8 + i];
@@ -955,8 +1106,14 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
         for (int j = 0; j < 4; ++j) {
           ds[i][j] = p[i][j] * (ds[i][j] - dl);
           dsum[i][j] += ds[i][j];
+          if (RB) {
+            dls_t = fmaf(ds[i][j], s[i][j], dls_t);
+            p[i][j] = bf16r(p[i][j]);      // the operands of dv and dk^
+            ds[i][j] = bf16r(ds[i][j]);
+          }
         }
       }
+      if (RB) dls_tiles += dls_t;
       __syncthreads();  // the products' reads of the staging are done
       // transposed, [key][row]: the next products sum over query rows
 #pragma unroll
@@ -1032,8 +1189,9 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     }
   }
 
-  // per window: dk = rk (dkn - k^ <dkn, k^>), dkn = scale * acc; dv
-  double dls = 0.0;
+  // per window: dk = rk (dkn - k^ <dkn, k^>), dkn = scale * acc (folded:
+  // acc); dv
+  double dls = RB ? dls_tiles : 0.0;
   for (int w = 0; w < W; ++w) {
     const int b = b0 + w;
     const float* wV = sWin + w * DKVW_WIN_FLOATS;
@@ -1056,7 +1214,8 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       float dot = 0.0f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        dkn[c] = scale * wK[lk * R_LD + px * 4 + c];
+        dkn[c] = FOLD ? wK[lk * R_LD + px * 4 + c]
+                      : scale * wK[lk * R_LD + px * 4 + c];
         kn[c] = sKt[(px * 4 + c) * BT + lk];
         dot = fmaf(dkn[c], kn[c], dot);
       }
@@ -1068,7 +1227,7 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                rk * (dkn[3] - kn[3] * dot));
         const float* av = &wV[lk * R_LD + px * 4];
         store4(dv_b + dv.off(key), av[0], av[1], av[2], av[3]);
-        if (px == 0) dls += dot;  // the 8 lanes of a key hold the same dot
+        if (!RB && px == 0) dls += dot;  // the 8 lanes of a key: one dot
       }
     }
   }
@@ -1098,7 +1257,7 @@ struct Operands {
 };
 
 template <template <typename> class L, typename T, typename TB,
-          bool FASTEXP>
+          bool FASTEXP, int MXU>
 int launch(const Operands<L, T>& o, const void* ls, const void* bias,
            const void* mask, const void* lse, void* delta, void* dls_part,
            void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
@@ -1108,22 +1267,22 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
   const int dq_bytes = DQ_SMEM_FLOATS * (int)sizeof(float);
   const int dkv_bytes = DKV_SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<L, T, TB, FASTEXP>,
+      bwd_dq_kernel<L, T, TB, FASTEXP, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_kernel<L, T, TB, FASTEXP>,
+  err = cudaFuncSetAttribute(bwd_dkv_kernel<L, T, TB, FASTEXP, MXU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkv_bytes);
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid(nT, nH, B_);
-  bwd_dq_kernel<L, T, TB, FASTEXP><<<grid, NT, dq_bytes, stream>>>(
+  bwd_dq_kernel<L, T, TB, FASTEXP, MXU><<<grid, NT, dq_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bwd_dkv_kernel<L, T, TB, FASTEXP><<<grid, NT, dkv_bytes, stream>>>(
+  bwd_dkv_kernel<L, T, TB, FASTEXP, MXU><<<grid, NT, dkv_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
       (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW);
@@ -1135,7 +1294,7 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
   if constexpr (std::is_same<L<T>, Rows<T>>::value) {
     if (dbias_mode != 2) return (int)err;
     dim3 grid_b(nT, nT, nH);
-    bwd_dbias_kernel<L, T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
+    bwd_dbias_kernel<L, T, TB, FASTEXP, MXU><<<grid_b, NT, 0, stream>>>(
         o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
         (const TB*)mask, (const float*)lse, (const float*)delta,
         (float*)dbias, B_, N, nW);
@@ -1146,7 +1305,7 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
 
 // K5's two passes (and, with dbias_mode = 2, K3's pass at one window) on
 // the packed layout, W windows per block of the dq and dk/dv passes.
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
              const void* mask, const void* lse, void* delta, void* dls_part,
              void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
@@ -1161,37 +1320,38 @@ int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
   if (dq_bytes > (1ll << 30) || dkv_bytes > (1ll << 30)) return -1;
   // more windows than the shared memory holds: the attribute is refused
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_w_kernel<T, TB, FASTEXP>,
+      bwd_dq_w_kernel<T, TB, FASTEXP, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_w_kernel<T, TB, FASTEXP>,
+  err = cudaFuncSetAttribute(bwd_dkv_w_kernel<T, TB, FASTEXP, MXU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkv_bytes);
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid(nT, nH, B_ / W);
-  bwd_dq_w_kernel<T, TB, FASTEXP><<<grid, NT, (int)dq_bytes, stream>>>(
+  bwd_dq_w_kernel<T, TB, FASTEXP, MXU><<<grid, NT, (int)dq_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bwd_dkv_w_kernel<T, TB, FASTEXP><<<grid, NT, (int)dkv_bytes, stream>>>(
-      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-      (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
-      (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW,
-      W);
+  bwd_dkv_w_kernel<T, TB, FASTEXP, MXU>
+      <<<grid, NT, (int)dkv_bytes, stream>>>(
+          o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+          (const TB*)mask, (const float*)lse, (const float*)delta, o.dk,
+          o.dv, (double*)dls_part,
+          dbias_mode == 1 ? (float*)dbias : nullptr, N, nW, W);
   err = cudaGetLastError();
   if (err != cudaSuccess || dbias_mode != 2) return (int)err;
 
   dim3 grid_b(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP><<<grid_b, NT, 0, stream>>>(
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU><<<grid_b, NT, 0, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias, (const TB*)mask,
       (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_packed_w(const void* qkv, const void* g, const void* ls,
                     const void* bias, const void* mask, const void* lse,
                     void* dqkv, void* delta, void* dls_part, void* dbias,
@@ -1206,9 +1366,9 @@ int launch_packed_w(const void* qkv, const void* g, const void* ls,
   o.dq = packed_rows((T*)dqkv, 0, N, C, 3, DH);
   o.dk = packed_rows((T*)dqkv, 1, N, C, 3, DH);
   o.dv = packed_rows((T*)dqkv, 2, N, C, 3, DH);
-  return launch_w<T, TB, FASTEXP>(o, ls, bias, mask, lse, delta, dls_part,
-                                  dbias, B_, N, nH, nW, dbias_mode, W,
-                                  stream);
+  return launch_w<T, TB, FASTEXP, MXU>(o, ls, bias, mask, lse, delta,
+                                       dls_part, dbias, B_, N, nH, nW,
+                                       dbias_mode, W, stream);
 }
 
 enum Layout { PACKED, STRIDED, MAP };
@@ -1217,8 +1377,10 @@ enum Layout { PACKED, STRIDED, MAP };
 // column block. STRIDED: q, k, v, g at their own bases with the twelve host
 // strides `st` (q, k, v, g: window, head, token) and contiguous
 // (B_, nH, N, DH) dq, dk, dv. MAP: as PACKED on (B, Hp, Wp, 3C) / (.., C)
-// maps, `st` = {Hp, Wp, ws}.
-template <typename T, typename TB, bool FASTEXP>
+// maps, `st` = {Hp, Wp, ws}. Only PACKED takes a precision mode other than
+// MXU_FP32 (as in the forward), so only the MXU_FP32 instantiation holds
+// the other two.
+template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_layout(Layout layout, const void* q, const void* k,
                   const void* v, const void* g, const long long* st,
                   const void* ls, const void* bias, const void* mask,
@@ -1227,42 +1389,51 @@ int launch_layout(Layout layout, const void* q, const void* k,
                   int dbias_mode, cudaStream_t stream) {
   const int C = nH * DH;
   if (layout == MAP) {
-    const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
-    Operands<MapRows, T> o;
-    o.q = map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH);
-    o.k = map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH);
-    o.v = map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH);
-    o.g = map_rows((const T*)g, 0, C, 1, Hp, Wp, ws, DH);
-    o.dq = map_rows((T*)dq, 0, C, 3, Hp, Wp, ws, DH);
-    o.dk = map_rows((T*)dq, 1, C, 3, Hp, Wp, ws, DH);
-    o.dv = map_rows((T*)dq, 2, C, 3, Hp, Wp, ws, DH);
-    return launch<MapRows, T, TB, FASTEXP>(o, ls, bias, mask, lse, delta,
-                                           dls_part, dbias, B_, N, nH, nW,
-                                           dbias_mode, stream);
-  }
-  Operands<Rows, T> o;
-  if (layout == PACKED) {
-    o.q = packed_rows((const T*)q, 0, N, C, 3, DH);
-    o.k = packed_rows((const T*)q, 1, N, C, 3, DH);
-    o.v = packed_rows((const T*)q, 2, N, C, 3, DH);
-    o.g = packed_rows((const T*)g, 0, N, C, 1, DH);
-    o.dq = packed_rows((T*)dq, 0, N, C, 3, DH);
-    o.dk = packed_rows((T*)dq, 1, N, C, 3, DH);
-    o.dv = packed_rows((T*)dq, 2, N, C, 3, DH);
+    if constexpr (MXU != MXU_FP32) {
+      return -1;
+    } else {
+      const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
+      Operands<MapRows, T> m;
+      m.q = map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH);
+      m.k = map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH);
+      m.v = map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH);
+      m.g = map_rows((const T*)g, 0, C, 1, Hp, Wp, ws, DH);
+      m.dq = map_rows((T*)dq, 0, C, 3, Hp, Wp, ws, DH);
+      m.dk = map_rows((T*)dq, 1, C, 3, Hp, Wp, ws, DH);
+      m.dv = map_rows((T*)dq, 2, C, 3, Hp, Wp, ws, DH);
+      return launch<MapRows, T, TB, FASTEXP, MXU>(m, ls, bias, mask, lse,
+                                                  delta, dls_part, dbias, B_,
+                                                  N, nH, nW, dbias_mode,
+                                                  stream);
+    }
   } else {
-    o.q = {(const T*)q, st[0], st[1], st[2]};
-    o.k = {(const T*)k, st[3], st[4], st[5]};
-    o.v = {(const T*)v, st[6], st[7], st[8]};
-    o.g = {(const T*)g, st[9], st[10], st[11]};
-    o.dq = contiguous_rows((T*)dq, nH, N, DH);
-    o.dk = contiguous_rows((T*)dk, nH, N, DH);
-    o.dv = contiguous_rows((T*)dv, nH, N, DH);
+    Operands<Rows, T> o;
+    if (layout == PACKED) {
+      o.q = packed_rows((const T*)q, 0, N, C, 3, DH);
+      o.k = packed_rows((const T*)q, 1, N, C, 3, DH);
+      o.v = packed_rows((const T*)q, 2, N, C, 3, DH);
+      o.g = packed_rows((const T*)g, 0, N, C, 1, DH);
+      o.dq = packed_rows((T*)dq, 0, N, C, 3, DH);
+      o.dk = packed_rows((T*)dq, 1, N, C, 3, DH);
+      o.dv = packed_rows((T*)dq, 2, N, C, 3, DH);
+    } else if (MXU != MXU_FP32 || layout != STRIDED) {
+      return -1;
+    } else {
+      o.q = {(const T*)q, st[0], st[1], st[2]};
+      o.k = {(const T*)k, st[3], st[4], st[5]};
+      o.v = {(const T*)v, st[6], st[7], st[8]};
+      o.g = {(const T*)g, st[9], st[10], st[11]};
+      o.dq = contiguous_rows((T*)dq, nH, N, DH);
+      o.dk = contiguous_rows((T*)dk, nH, N, DH);
+      o.dv = contiguous_rows((T*)dv, nH, N, DH);
+    }
+    return launch<Rows, T, TB, FASTEXP, MXU>(o, ls, bias, mask, lse, delta,
+                                             dls_part, dbias, B_, N, nH, nW,
+                                             dbias_mode, stream);
   }
-  return launch<Rows, T, TB, FASTEXP>(o, ls, bias, mask, lse, delta,
-                                      dls_part, dbias, B_, N, nH, nW,
-                                      dbias_mode, stream);
 }
 
+template <int MXU>
 int dispatch(Layout layout, const void* q, const void* k, const void* v,
              const void* g, const long long* st, const void* ls,
              const void* bias, const void* mask, const void* lse, void* dq,
@@ -1275,15 +1446,15 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
   if (dbias_mode != 0 && dbias == nullptr) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (!qkv_bf16 && !bias_bf16)
-    return launch_layout<float, float, false>(
+    return launch_layout<float, float, false, MXU>(
         layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   if (qkv_bf16 && bias_bf16)
-    return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
+    return launch_layout<__nv_bfloat16, __nv_bfloat16, true, MXU>(
         layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   if (qkv_bf16 && !bias_bf16)
-    return launch_layout<__nv_bfloat16, float, true>(
+    return launch_layout<__nv_bfloat16, float, true, MXU>(
         layout, q, k, v, g, st, ls, bias, mask, lse, dq, dk, dv, delta,
         dls_part, dbias, B_, N, nH, nW, dbias_mode, s);
   return -1;
@@ -1301,16 +1472,23 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
 // 1 = added with atomics (the caller zeroes it first), 2 = written by the
 // windows-innermost pass. Returns the first CUDA error of the launches, or
 // -1 for arguments the kernels do not take. Launches on `stream`, does not
-// synchronise, allocates nothing.
+// synchronise, allocates nothing. The packed entries (this one and
+// mmde_window_attention_bwd_w) run the bodies in precision mode `mxu`
+// (MXU_FP32 / MXU_FOLD / MXU_BF16, window_attention_common.cuh; -1 for
+// another code).
 extern "C" int mmde_window_attention_bwd(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
-    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int mxu,
+    void* stream) {
   if (C != nH * DH) return -1;
-  return dispatch(PACKED, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias,
-                  mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
-                  B_, N, nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
+  return by_mode(mxu, [&](auto m) {
+    return dispatch<decltype(m)::value>(
+        PACKED, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias, mask,
+        lse, dqkv, nullptr, nullptr, delta, dls_part, dbias, B_, N, nH, nW,
+        qkv_bf16, bias_bf16, dbias_mode, stream);
+  });
 }
 
 // Head-split entry (K7's counterpart): q, k, v and g (B_, nH, N, 32) of one
@@ -1326,9 +1504,10 @@ extern "C" int mmde_window_attention_headsplit_bwd(
     void* delta, void* dls_part, void* dbias, int B_, int N, int nH, int nW,
     int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
   if (strides == nullptr) return -1;
-  return dispatch(STRIDED, q, k, v, g, (const long long*)strides, logit_scale,
-                  bias, mask, lse, dq, dk, dv, delta, dls_part, dbias, B_, N,
-                  nH, nW, qkv_bf16, bias_bf16, dbias_mode, stream);
+  return dispatch<MXU_FP32>(STRIDED, q, k, v, g, (const long long*)strides,
+                            logit_scale, bias, mask, lse, dq, dk, dv, delta,
+                            dls_part, dbias, B_, N, nH, nW, qkv_bf16,
+                            bias_bf16, dbias_mode, stream);
 }
 
 // Slab entry (K9's counterpart): qkv (B, Hp, Wp, 3C), g (B, Hp, Wp, C) and
@@ -1352,10 +1531,11 @@ extern "C" int mmde_window_attention_slab_bwd(
   if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
   if (dbias_mode == 2) return -1;     // no windows-innermost pass for maps
   const long long geom[3] = {Hp, Wp, ws};
-  return dispatch(MAP, qkv, nullptr, nullptr, g, geom, logit_scale, bias,
-                  mask, lse, dqkv, nullptr, nullptr, delta, dls_part, dbias,
-                  (int)(B * nW), (int)N, nH, (int)nW, qkv_bf16, bias_bf16,
-                  dbias_mode, stream);
+  return dispatch<MXU_FP32>(MAP, qkv, nullptr, nullptr, g, geom,
+                            logit_scale, bias, mask, lse, dqkv, nullptr,
+                            nullptr, delta, dls_part, dbias, (int)(B * nW),
+                            (int)N, nH, (int)nW, qkv_bf16, bias_bf16,
+                            dbias_mode, stream);
 }
 
 // K5's entry: as mmde_window_attention_bwd, with W (>= 2, dividing B_)
@@ -1366,7 +1546,7 @@ extern "C" int mmde_window_attention_bwd_w(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
-    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int W,
+    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int W, int mxu,
     void* stream) {
   if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535) return -1;
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
@@ -1374,17 +1554,20 @@ extern "C" int mmde_window_attention_bwd_w(
   if (dbias_mode != 0 && dbias == nullptr) return -1;
   if (W < 2 || B_ % W != 0 || B_ / W > 65535) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!qkv_bf16 && !bias_bf16)
-    return launch_packed_w<float, float, false>(
-        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
-        B_, N, nH, nW, dbias_mode, W, s);
-  if (qkv_bf16 && bias_bf16)
-    return launch_packed_w<__nv_bfloat16, __nv_bfloat16, true>(
-        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
-        B_, N, nH, nW, dbias_mode, W, s);
-  if (qkv_bf16 && !bias_bf16)
-    return launch_packed_w<__nv_bfloat16, float, true>(
-        qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
-        B_, N, nH, nW, dbias_mode, W, s);
-  return -1;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if (!qkv_bf16 && !bias_bf16)
+      return launch_packed_w<float, float, false, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+          B_, N, nH, nW, dbias_mode, W, s);
+    if (qkv_bf16 && bias_bf16)
+      return launch_packed_w<__nv_bfloat16, __nv_bfloat16, true, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+          B_, N, nH, nW, dbias_mode, W, s);
+    if (qkv_bf16 && !bias_bf16)
+      return launch_packed_w<__nv_bfloat16, float, true, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, dqkv, delta, dls_part, dbias,
+          B_, N, nH, nW, dbias_mode, W, s);
+    return -1;
+  });
 }

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 template <typename T>
@@ -163,6 +165,68 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
 template <bool FAST>
 __device__ __forceinline__ float exp_(float x) {
   return FAST ? __expf(x) : expf(x);
+}
+
+// The packed kernels' body precision (the JAX package's `mxu` argument,
+// MMDE_ATTN_MXU), a template parameter of their bodies:
+//   MXU_FP32  s = scale * (q^ k^T), every product on fp32 operands;
+//   MXU_FOLD  s = (q^ * scale) k^T: the scale folded into q^ before the
+//             product (one multiply per row element, not per logit);
+//   MXU_BF16  fold, and every product's operands rounded to bf16 where the
+//             JAX body casts them (q^*scale and k^; p and v; g and v for
+//             dp; p and g for dv; ds for dq and dk), fp32 accumulation;
+//   MXU_FOLD_PV  fold, with only p and v rounded (a benchmark variant of
+//             the forward, tools/bench_attention_variants.py's v4; never on
+//             the model's path).
+// The packed C entry points take the mode as a runtime argument (these
+// codes) and switch to its instantiation (by_mode); the head-split and slab
+// entry points take none (MXU_FP32). MXU_FOLD_PV is instantiated only in a
+// build with MMDE_FOLD_PV=1 (the benchmark tool's own library).
+constexpr int MXU_FP32 = 0;
+constexpr int MXU_FOLD = 1;
+constexpr int MXU_BF16 = 2;
+constexpr int MXU_FOLD_PV = 3;
+#ifndef MMDE_FOLD_PV
+#define MMDE_FOLD_PV 0
+#endif
+
+// f(std::integral_constant<int, MXU>()) for the runtime mode code `mxu`;
+// -1 for a code this build does not instantiate
+template <class F>
+int by_mode(int mxu, F&& f) {
+  switch (mxu) {
+    case MXU_FP32: return f(std::integral_constant<int, MXU_FP32>());
+    case MXU_FOLD: return f(std::integral_constant<int, MXU_FOLD>());
+    case MXU_BF16: return f(std::integral_constant<int, MXU_BF16>());
+#if MMDE_FOLD_PV
+    case MXU_FOLD_PV: return f(std::integral_constant<int, MXU_FOLD_PV>());
+#endif
+    default: return -1;
+  }
+}
+
+// x rounded to the nearest bf16 (ties to even), kept as fp32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <bool ROUND>
+__device__ __forceinline__ float rnd(float x) {
+  return ROUND ? bf16r(x) : x;
+}
+
+// channels 4c..4c+3 of the token row at p, as fp32
+__device__ __forceinline__ void load4(const float* __restrict__ p,
+                                      float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p,
+                                      float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
 // token row r of the head whose token 0 is at `base`, in layout `rows`;

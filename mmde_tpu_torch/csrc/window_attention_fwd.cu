@@ -67,6 +67,14 @@
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
 // load and take the same path, far from their bound. Tensor-core products
 // (mma.sync / wgmma for bf16) are the known next step.
+//
+// Precision modes (MXU, window_attention_common.cuh; the JAX package's
+// `mxu`): the packed bodies (K1, K5) are templates over it, and their C
+// entries take it as an argument. "fold" multiplies q^ by the scale before the
+// product; "bf16" also rounds q^*scale, k^, p and v to bf16 where the TPU
+// body casts them (p after the row sums took it, before the product);
+// MXU_FOLD_PV (T2's v4) rounds p and v only. The head-split and slab
+// entries take no mode, as the TPU kernels they replace.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,8 +94,10 @@ constexpr float LN100 = 4.605170185988091f;
 constexpr float MAXFREE_MAX_SCALE = 30.0f;
 
 // L: the operands' layout (Rows, MapRows); T: q / k / v / out element
-// type; TB: bias / mask element type.
-template <template <typename> class L, typename T, typename TB, bool FASTEXP>
+// type; TB: bias / mask element type; MXU: the body's precision mode
+// (window_attention_common.cuh).
+template <template <typename> class L, typename T, typename TB, bool FASTEXP,
+          int MXU>
 __global__ void __launch_bounds__(NT)
 window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
                             const float* __restrict__ logit_scale,
@@ -115,6 +125,15 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
   const float scale = expf(fminf(logit_scale[h], LN100));
   const float shift = scale + 16.0f;
   const bool mf = maxfree != 0 && scale <= MAXFREE_MAX_SCALE;
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RQK = MXU == MXU_BF16;     // bf16 operands of q^ k^T
+  constexpr bool RPV = MXU == MXU_BF16 || MXU == MXU_FOLD_PV;  // of p v
+  // A mode that rounds p rounds exp(s - m) against the row's exact maximum,
+  // as the TPU body does with the whole key row at hand (a running maximum
+  // would round other numbers): pass 0 sweeps the logits alone for it, and
+  // pass 1 then runs with that fixed shift, without rescaling o.
+  const bool max_first = RPV && !mf;
+  const bool fixed = mf || max_first;
 
   // logits phase: thread (ty, tx) owns rows ty*8..+7, keys tx*4..+3
   const int tx = tid & 15;
@@ -139,7 +158,8 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
       for (int d = 0; d < DH; ++d) x[d] = 0.0f;
     }
 #pragma unroll
-    for (int d = 0; d < DH; ++d) sQt[d * BQ + tid] = x[d];
+    for (int d = 0; d < DH; ++d)
+      sQt[d * BQ + tid] = rnd<RQK>(FOLD ? x[d] * scale : x[d]);
   }
 
   float m_run[8];
@@ -160,6 +180,7 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
   const T* kv_bh = is_k ? k.head(b, h) : v.head(b, h);
   const L<const T> kv = is_k ? k : v;
 
+  for (int pass = max_first ? 0 : 1; pass < 2; ++pass)
   for (int k0 = 0; k0 < N; k0 += BK) {
     __syncthreads();  // the previous step's reads of sKt / sV / sP are done
     {
@@ -178,11 +199,12 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
         for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
         const float inv = rsqrtf(ss + 1e-12f);
 #pragma unroll
-        for (int d = 0; d < DH; ++d) sKt[d * BK + j] = x[d] * inv;
+        for (int d = 0; d < DH; ++d) sKt[d * BK + j] = rnd<RQK>(x[d] * inv);
       } else {
 #pragma unroll
         for (int d = 0; d < DH; d += 4)
-          store4(&sV[j * V_LD + d], x[d], x[d + 1], x[d + 2], x[d + 3]);
+          store4(&sV[j * V_LD + d], rnd<RPV>(x[d]), rnd<RPV>(x[d + 1]),
+                 rnd<RPV>(x[d + 2]), rnd<RPV>(x[d + 3]));
       }
     }
     __syncthreads();
@@ -222,17 +244,27 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
           logit = 0.0f;  // rows past the edge: finite filler, never stored
         } else {
           const size_t idx = (size_t)row * N + col;
-          logit = fmaf(s[i][j], scale, ldf(bias_h, idx));
+          logit = FOLD ? s[i][j] + ldf(bias_h, idx)
+                       : fmaf(s[i][j], scale, ldf(bias_h, idx));
           if (mask_w != nullptr) logit += ldf(mask_w, idx);
         }
         s[i][j] = logit;
       }
+      if (pass == 0) {  // the row maximum alone
+        float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+        for (int off = 8; off >= 1; off >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        m_run[i] = fmaxf(m_run[i], tmax);
+        continue;
+      }
       float p[4];
-      if (mf) {
+      if (fixed) {
+        const float sh = mf ? shift : m_run[i];
         float sum = 0.0f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          p[j] = exp_<FASTEXP>(s[i][j] - shift);  // exp(-inf) = 0 past the edge
+          p[j] = exp_<FASTEXP>(s[i][j] - sh);  // exp(-inf) = 0 past the edge
           sum += p[j];
         }
         l_part[i] += sum;
@@ -254,12 +286,15 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
         m_run[i] = m_new;
         if (tx == 0) sAlpha[ty * 8 + i] = alpha;
       }
-      store4(&sP[(ty * 8 + i) * P_LD + tx * 4], p[0], p[1], p[2], p[3]);
+      // the row sums above take p as it is, the product its operand
+      store4(&sP[(ty * 8 + i) * P_LD + tx * 4], rnd<RPV>(p[0]),
+             rnd<RPV>(p[1]), rnd<RPV>(p[2]), rnd<RPV>(p[3]));
     }
+    if (pass == 0) continue;
     __syncthreads();
 
     // ---- o += p v ----
-    if (!mf) {
+    if (!fixed) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float a = sAlpha[py + 16 * r];
@@ -337,7 +372,7 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
 constexpr int W_BASE_FLOATS = DH * BK + BK * V_LD + 2 * BQ * P_LD + BQ;
 constexpr int W_WIN_FLOATS = DH * BQ + BQ * V_LD + 2 * BQ;
 
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 __global__ void __launch_bounds__(NT)
 window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
                               Rows<const T> v,
@@ -362,6 +397,13 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
   const float scale = expf(fminf(logit_scale[h], LN100));
   const float shift = scale + 16.0f;
   const bool mf = maxfree != 0 && scale <= MAXFREE_MAX_SCALE;
+  constexpr bool FOLD = MXU != MXU_FP32;
+  constexpr bool RQK = MXU == MXU_BF16;
+  constexpr bool RPV = MXU == MXU_BF16 || MXU == MXU_FOLD_PV;
+  // as in K1: with p rounded, pass 0 finds each row's exact maximum, pass 1
+  // runs with it fixed
+  const bool max_first = RPV && !mf;
+  const bool fixed = mf || max_first;
   const int tx = tid & 15, ty = tid >> 4;
   const int px = tid & 7, py = tid >> 3;
 
@@ -375,7 +417,8 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
       fetch_row(q.head(b0 + w, h), q, q0 + tid, N, x);  // zeros past the edge
       normalise(x);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) wq[d * BQ + tid] = x[d];
+      for (int d = 0; d < DH; ++d)
+        wq[d * BQ + tid] = rnd<RQK>(FOLD ? x[d] * scale : x[d]);
       wm[tid] = mf ? shift : -INFINITY;
       wl[tid] = 0.0f;
     }
@@ -386,6 +429,7 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
   const bool is_k = tid < BK;
   const Rows<const T> kv = is_k ? k : v;
 
+  for (int pass = max_first ? 0 : 1; pass < 2; ++pass)
   for (int k0 = 0; k0 < N; k0 += BK) {
     __syncthreads();  // the previous key tile's reads of sB are done
     stage_bias<BQ, BK, P_LD, NT>(sB, bias_h, q0, k0, N, tid);
@@ -405,11 +449,12 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
         if (is_k) {
           normalise(x);
 #pragma unroll
-          for (int d = 0; d < DH; ++d) sKt[d * BK + j] = x[d];
+          for (int d = 0; d < DH; ++d) sKt[d * BK + j] = rnd<RQK>(x[d]);
         } else {
 #pragma unroll
           for (int d = 0; d < DH; d += 4)
-            store4(&sV[j * V_LD + d], x[d], x[d + 1], x[d + 2], x[d + 3]);
+            store4(&sV[j * V_LD + d], rnd<RPV>(x[d]), rnd<RPV>(x[d + 1]),
+                   rnd<RPV>(x[d + 2]), rnd<RPV>(x[d + 3]));
         }
       }
       __syncthreads();
@@ -448,18 +493,28 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
           } else if (!row_ok) {
             logit = 0.0f;  // rows past the edge: finite filler, never stored
           } else {
-            logit = fmaf(s[i][j], scale, sB[lr * P_LD + tx * 4 + j]);
+            logit = FOLD ? s[i][j] + sB[lr * P_LD + tx * 4 + j]
+                         : fmaf(s[i][j], scale, sB[lr * P_LD + tx * 4 + j]);
             if (mask_w != nullptr)
               logit += ldf(mask_w, (size_t)(q0 + lr) * N + col);
           }
           s[i][j] = logit;
         }
+        if (pass == 0) {  // the row maximum alone (only lane tx 0 writes)
+          float tmax = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+          for (int off = 8; off >= 1; off >>= 1)
+            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+          if (tx == 0) wm[lr] = fmaxf(wm[lr], tmax);
+          continue;
+        }
         float p[4];
-        if (mf) {
+        if (fixed) {
+          const float sh = wm[lr];  // the static shift, or the row maximum
           float sum = 0.0f;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            p[j] = exp_<FASTEXP>(s[i][j] - shift);
+            p[j] = exp_<FASTEXP>(s[i][j] - sh);
             sum += p[j];
           }
           sum = row_sum16(sum);
@@ -486,8 +541,10 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
             sAlpha[lr] = alpha;
           }
         }
-        store4(&sP[lr * P_LD + tx * 4], p[0], p[1], p[2], p[3]);
+        store4(&sP[lr * P_LD + tx * 4], rnd<RPV>(p[0]), rnd<RPV>(p[1]),
+               rnd<RPV>(p[2]), rnd<RPV>(p[3]));
       }
+      if (pass == 0) continue;
       __syncthreads();
 
       // ---- o += p v, this window's slot ----
@@ -496,7 +553,7 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
       for (int r = 0; r < 4; ++r) {
         const float4 t = *reinterpret_cast<const float4*>(
             &wo[(py + 16 * r) * V_LD + px * 4]);
-        const float a = mf ? 1.0f : sAlpha[py + 16 * r];
+        const float a = fixed ? 1.0f : sAlpha[py + 16 * r];
         o[r][0] = t.x * a;
         o[r][1] = t.y * a;
         o[r][2] = t.z * a;
@@ -558,7 +615,7 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
 }
 
 template <template <typename> class L, typename T, typename TB,
-          bool FASTEXP>
+          bool FASTEXP, int MXU>
 int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
            const void* ls, const void* bias, const void* mask,
            const L<T>& out, void* lse, int B_, int N, int nH, int nW,
@@ -567,14 +624,15 @@ int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
       !rows_aligned(out))
     return -1;
   dim3 grid((N + BQ - 1) / BQ, nH, B_);
-  window_attention_fwd_kernel<L, T, TB, FASTEXP><<<grid, NT, 0, stream>>>(
-      q, k, v, (const float*)ls, (const TB*)bias, (const TB*)mask, out,
-      (float*)lse, N, nW, maxfree);
+  window_attention_fwd_kernel<L, T, TB, FASTEXP, MXU>
+      <<<grid, NT, 0, stream>>>(q, k, v, (const float*)ls, (const TB*)bias,
+                                (const TB*)mask, out, (float*)lse, N, nW,
+                                maxfree);
   return (int)cudaGetLastError();
 }
 
 // K5 on the packed layout: qkv (B_, N, 3C), out (B_, N, C)
-template <typename T, typename TB, bool FASTEXP>
+template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_w(const void* qkv, const void* ls, const void* bias,
              const void* mask, void* out, void* lse, int B_, int N, int nH,
              int nW, int maxfree, int W, cudaStream_t stream) {
@@ -591,11 +649,11 @@ int launch_w(const void* qkv, const void* ls, const void* bias,
   if (bytes > (1ll << 30)) return -1;
   // more windows than the shared memory holds: the attribute is refused
   cudaError_t err = cudaFuncSetAttribute(
-      window_attention_fwd_w_kernel<T, TB, FASTEXP>,
+      window_attention_fwd_w_kernel<T, TB, FASTEXP, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, nH, B_ / W);
-  window_attention_fwd_w_kernel<T, TB, FASTEXP>
+  window_attention_fwd_w_kernel<T, TB, FASTEXP, MXU>
       <<<grid, NT, (int)bytes, stream>>>(rq, rk, rv, (const float*)ls,
                                          (const TB*)bias, (const TB*)mask, ro,
                                          (float*)lse, N, nW, maxfree, W);
@@ -607,40 +665,44 @@ enum Layout { PACKED, STRIDED, MAP };
 // The operands' layout: PACKED = qkv (B_, N, 3C) and out (B_, N, C);
 // STRIDED = q, k, v with the nine host strides `st` (q, k, v: window, head,
 // token) and a contiguous out (B_, nH, N, DH); MAP = qkv (B, Hp, Wp, 3C) and
-// out (B, Hp, Wp, C), `st` = {Hp, Wp, ws}.
-template <typename T, typename TB, bool FASTEXP>
+// out (B, Hp, Wp, C), `st` = {Hp, Wp, ws}. Only PACKED takes a precision
+// mode other than MXU_FP32 (the TPU's head-split and slab kernels have
+// none), so only the MXU_FP32 instantiation holds the other two.
+template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_layout(Layout layout, const void* q, const void* k,
                   const void* v, const long long* st, const void* ls,
                   const void* bias, const void* mask, void* out, void* lse,
                   int B_, int N, int nH, int nW, int maxfree,
                   cudaStream_t stream) {
   const int C = nH * DH;
-  if (layout == MAP) {
+  if (layout == PACKED)
+    return launch<Rows, T, TB, FASTEXP, MXU>(
+        packed_rows((const T*)q, 0, N, C, 3, DH),
+        packed_rows((const T*)q, 1, N, C, 3, DH),
+        packed_rows((const T*)q, 2, N, C, 3, DH), ls, bias, mask,
+        packed_rows((T*)out, 0, N, C, 1, DH), lse, B_, N, nH, nW, maxfree,
+        stream);
+  if constexpr (MXU != MXU_FP32) {
+    return -1;
+  } else if (layout == MAP) {
     const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
-    return launch<MapRows, T, TB, FASTEXP>(
+    return launch<MapRows, T, TB, FASTEXP, MXU>(
         map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH),
         map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH),
         map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH), ls, bias, mask,
         map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, B_, N, nH, nW,
         maxfree, stream);
-  }
-  Rows<const T> rq, rk, rv;
-  Rows<T> ro;
-  if (layout == PACKED) {
-    rq = packed_rows((const T*)q, 0, N, C, 3, DH);
-    rk = packed_rows((const T*)q, 1, N, C, 3, DH);
-    rv = packed_rows((const T*)q, 2, N, C, 3, DH);
-    ro = packed_rows((T*)out, 0, N, C, 1, DH);
   } else {
-    rq = {(const T*)q, st[0], st[1], st[2]};
-    rk = {(const T*)k, st[3], st[4], st[5]};
-    rv = {(const T*)v, st[6], st[7], st[8]};
-    ro = contiguous_rows((T*)out, nH, N, DH);
+    const Rows<const T> rq = {(const T*)q, st[0], st[1], st[2]};
+    const Rows<const T> rk = {(const T*)k, st[3], st[4], st[5]};
+    const Rows<const T> rv = {(const T*)v, st[6], st[7], st[8]};
+    return launch<Rows, T, TB, FASTEXP, MXU>(
+        rq, rk, rv, ls, bias, mask, contiguous_rows((T*)out, nH, N, DH), lse,
+        B_, N, nH, nW, maxfree, stream);
   }
-  return launch<Rows, T, TB, FASTEXP>(rq, rk, rv, ls, bias, mask, ro, lse,
-                                      B_, N, nH, nW, maxfree, stream);
 }
 
+template <int MXU>
 int dispatch(Layout layout, const void* q, const void* k, const void* v,
              const long long* st, const void* ls, const void* bias,
              const void* mask, void* out, void* lse, int B_, int N, int nH,
@@ -649,15 +711,15 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (!qkv_bf16 && !bias_bf16)
-    return launch_layout<float, float, false>(layout, q, k, v, st, ls, bias,
-                                              mask, out, lse, B_, N, nH, nW,
-                                              maxfree, s);
+    return launch_layout<float, float, false, MXU>(
+        layout, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
+        maxfree, s);
   if (qkv_bf16 && bias_bf16)
-    return launch_layout<__nv_bfloat16, __nv_bfloat16, true>(
+    return launch_layout<__nv_bfloat16, __nv_bfloat16, true, MXU>(
         layout, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
         maxfree, s);
   if (qkv_bf16 && !bias_bf16)
-    return launch_layout<__nv_bfloat16, float, true>(
+    return launch_layout<__nv_bfloat16, float, true, MXU>(
         layout, q, k, v, st, ls, bias, mask, out, lse, B_, N, nH, nW,
         maxfree, s);
   return -1;
@@ -671,15 +733,21 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
 // receives each row's log-sum-exp for the backward kernel. All return
 // cudaGetLastError() of the launch, or -1 for an argument combination the
 // kernel does not take. They launch on `stream`, do not synchronise and
-// allocate nothing.
+// allocate nothing. The packed entries (these two and
+// mmde_window_attention_fwd_w) run the body in precision mode `mxu`
+// (MXU_FP32 / MXU_FOLD / MXU_BF16, window_attention_common.cuh; -1 for
+// another code).
 extern "C" int mmde_window_attention_fwd_stats(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
-    int nW, int qkv_bf16, int bias_bf16, int maxfree, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, int mxu,
+    void* stream) {
   if (C != nH * DH) return -1;
-  return dispatch(PACKED, qkv, nullptr, nullptr, nullptr, logit_scale, bias,
-                  mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16, maxfree,
-                  stream);
+  return by_mode(mxu, [&](auto m) {
+    return dispatch<decltype(m)::value>(
+        PACKED, qkv, nullptr, nullptr, nullptr, logit_scale, bias, mask, out,
+        lse, B_, N, nH, nW, qkv_bf16, bias_bf16, maxfree, stream);
+  });
 }
 
 // The serving entry: the forward alone, no statistics.
@@ -688,11 +756,11 @@ extern "C" int mmde_window_attention_fwd(const void* qkv,
                                          const void* bias, const void* mask,
                                          void* out, int B_, int N, int C,
                                          int nH, int nW, int qkv_bf16,
-                                         int bias_bf16, int maxfree,
+                                         int bias_bf16, int maxfree, int mxu,
                                          void* stream) {
   return mmde_window_attention_fwd_stats(qkv, logit_scale, bias, mask, out,
                                          nullptr, B_, N, C, nH, nW, qkv_bf16,
-                                         bias_bf16, maxfree, stream);
+                                         bias_bf16, maxfree, mxu, stream);
 }
 
 // Head-split entries (K6's counterpart): q, k, v (B_, nH, N, 32) of one
@@ -706,9 +774,9 @@ extern "C" int mmde_window_attention_headsplit_fwd_stats(
     void* lse, int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
     void* stream) {
   if (strides == nullptr) return -1;
-  return dispatch(STRIDED, q, k, v, (const long long*)strides, logit_scale,
-                  bias, mask, out, lse, B_, N, nH, nW, qkv_bf16, bias_bf16,
-                  0, stream);
+  return dispatch<MXU_FP32>(STRIDED, q, k, v, (const long long*)strides,
+                            logit_scale, bias, mask, out, lse, B_, N, nH, nW,
+                            qkv_bf16, bias_bf16, 0, stream);
 }
 
 extern "C" int mmde_window_attention_headsplit_fwd(
@@ -740,9 +808,9 @@ extern "C" int mmde_window_attention_slab_fwd_stats(
   const long long nW = (long long)(Hp / ws) * (Wp / ws);
   if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
   const long long geom[3] = {Hp, Wp, ws};
-  return dispatch(MAP, qkv, nullptr, nullptr, geom, logit_scale, bias, mask,
-                  out, lse, (int)(B * nW), (int)N, nH, (int)nW, qkv_bf16,
-                  bias_bf16, 0, stream);
+  return dispatch<MXU_FP32>(MAP, qkv, nullptr, nullptr, geom, logit_scale,
+                            bias, mask, out, lse, (int)(B * nW), (int)N, nH,
+                            (int)nW, qkv_bf16, bias_bf16, 0, stream);
 }
 
 extern "C" int mmde_window_attention_slab_fwd(
@@ -763,19 +831,26 @@ extern "C" int mmde_window_attention_slab_fwd(
 extern "C" int mmde_window_attention_fwd_w(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
-    int nW, int qkv_bf16, int bias_bf16, int maxfree, int W, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, int W, int mxu,
+    void* stream) {
   if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535) return -1;
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
   if (W < 2 || B_ % W != 0 || B_ / W > 65535) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!qkv_bf16 && !bias_bf16)
-    return launch_w<float, float, false>(qkv, logit_scale, bias, mask, out,
-                                         lse, B_, N, nH, nW, maxfree, W, s);
-  if (qkv_bf16 && bias_bf16)
-    return launch_w<__nv_bfloat16, __nv_bfloat16, true>(
-        qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W, s);
-  if (qkv_bf16 && !bias_bf16)
-    return launch_w<__nv_bfloat16, float, true>(
-        qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W, s);
-  return -1;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if (!qkv_bf16 && !bias_bf16)
+      return launch_w<float, float, false, MXU>(qkv, logit_scale, bias, mask,
+                                                out, lse, B_, N, nH, nW,
+                                                maxfree, W, s);
+    if (qkv_bf16 && bias_bf16)
+      return launch_w<__nv_bfloat16, __nv_bfloat16, true, MXU>(
+          qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W,
+          s);
+    if (qkv_bf16 && !bias_bf16)
+      return launch_w<__nv_bfloat16, float, true, MXU>(
+          qkv, logit_scale, bias, mask, out, lse, B_, N, nH, nW, maxfree, W,
+          s);
+    return -1;
+  });
 }

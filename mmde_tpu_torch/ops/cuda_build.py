@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "--split-compile=0",   # optimise the kernels on every core
               "-Xptxas", "-v"]     # registers / spills go to the build log
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -59,15 +60,18 @@ def nvcc_version() -> str:
     return out.strip().splitlines()[-1] if out.strip() else ""
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into one shared library and
-    return it as a ctypes.CDLL. Built once per (sources, flags) content."""
+    return it as a ctypes.CDLL. `defines` ("NAME=VALUE") go to nvcc as -D
+    flags (a tool's variant of a source is a library of its own, under its
+    own `name`). Built once per (sources, flags) content."""
     if name in _LIBS:
         return _LIBS[name]
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
     headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
                      if f.endswith(".cuh"))
-    flags = list(NVCC_FLAGS)
+    flags = list(NVCC_FLAGS) + [f"-D{d}" for d in defines]
     h = hashlib.sha256()
     for p in paths + headers:
         with open(p, "rb") as f:
@@ -96,11 +100,12 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     return lib
 
 
-def load_libraries(specs: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
-    """`load_library` for several {name: sources} at once, one nvcc process
-    per library, all started together (a thread each: the work is in the
-    subprocesses)."""
+def load_libraries(specs: Mapping[str, Tuple[Sequence[str], Sequence[str]]]
+                   ) -> Dict[str, ctypes.CDLL]:
+    """`load_library` for several {name: (sources, defines)} at once, one
+    nvcc process per library, all started together (a thread each: the
+    work is in the subprocesses)."""
     with ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
-        futs = {n: pool.submit(load_library, n, src)
-                for n, src in specs.items()}
+        futs = {n: pool.submit(load_library, n, src, defines)
+                for n, (src, defines) in specs.items()}
         return {n: f.result() for n, f in futs.items()}

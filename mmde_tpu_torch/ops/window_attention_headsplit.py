@@ -50,6 +50,24 @@ from mmde_tpu_torch.ops.window_attention import (MAX_LOGIT_SCALE,
                                                  cosine_window_attention)
 
 HEAD_DIM = 32           # the kernels are written for Dh = 32 (all swin variants)
+MAXFREE_MAX_SCALE = 30.0    # the forward kernels' static-shift limit (F1)
+
+# The products' operands under each precision mode of the packed kernels
+# (window_attention_packed.MXU_MODES, and "fold_pv_bf16", a forward-only
+# benchmark variant): (fold the scale into q^ before q^ k^T, round q^ * scale
+# and k^ to bf16, round the other products' operands to bf16). The
+# head-split kernels take "fp32" only, as the TPU kernel they replace.
+_MXU_OPS = {"fp32": (False, False, False), "fold": (True, False, False),
+            "bf16": (True, True, True), "fold_pv_bf16": (True, False, True)}
+
+
+def _bf16r(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest, ties to even), in x's type."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
 LAUNCHES = 0            # incremented once per forward-kernel launch
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
 LAUNCHES_BWD = 0        # incremented once per backward launch (all its passes)
@@ -140,39 +158,66 @@ def _strides(*ts: torch.Tensor) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _logits(qn, kn, scale, fold: bool, r):
+    """sc = scale * q^ k^T, or under the folded modes (r(q^ * scale))
+    r(k^)^T with r the operands' rounding; returns (sc, q^ operand, k^
+    operand)."""
+    if fold:
+        qd, kd = r(qn * scale[None]), r(kn)
+        return torch.matmul(qd, kd.transpose(-1, -2)), qd, kd
+    return torch.matmul(qn, kn.transpose(-1, -2)) * scale[None], qn, kn
+
+
 def cosine_window_attention_headsplit_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logit_scale: torch.Tensor, bias: torch.Tensor,
         mask: Optional[torch.Tensor] = None, *,
-        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        compute_dtype: torch.dtype = torch.float32, mxu: str = "fp32",
+        maxfree: bool = False) -> torch.Tensor:
     """The forward kernel's function in plain PyTorch, on any device:
     normalisation, logits, softmax and both products in `compute_dtype`
     (float32; float64 gives the ground truth the kernels' gradients are
     checked against), output in v's type. For float32 inputs this is
     ops.window_attention.cosine_window_attention; for bfloat16 it differs
     there only in keeping the probabilities in float32 for the second
-    product, as the kernels (and the TPU kernel) do."""
+    product, as the kernels (and the TPU kernel) do.
+
+    mxu: the packed kernels' precision mode (keys of _MXU_OPS). Where p is
+    rounded for its product with v ("bf16", "fold_pv_bf16") the kernels
+    round exp(s - shift) before the division by the row sum, as the TPU
+    kernel does, so this does too: shift = scale + 16 for the heads whose
+    forward takes the static shift (`maxfree` and scale <= 30), the row
+    maximum for the others."""
     B_, nH, N, _ = q.shape
     ct = compute_dtype
+    fold, rqk, rpv = _MXU_OPS[mxu]
     q, k, vc = q.to(ct), k.to(ct), v.to(ct)
     qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
     kn = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
     scale = torch.exp(torch.clamp(logit_scale.to(ct).reshape(nH, 1, 1),
                                   max=MAX_LOGIT_SCALE))
-    s = torch.matmul(qn, kn.transpose(-1, -2)) * scale[None]
+    s = _logits(qn, kn, scale, fold, _bf16r if rqk else _same)[0]
     s = s + bias[None].to(ct)
     if mask is not None:
         nW = mask.shape[0]
         s = (s.reshape(B_ // nW, nW, nH, N, N)
              + mask[None, :, None].to(ct)).reshape(B_, nH, N, N)
-    return torch.matmul(torch.softmax(s, dim=-1), vc).to(v.dtype)
+    if not rpv:
+        return torch.matmul(torch.softmax(s, dim=-1), vc).to(v.dtype)
+    shift = s.amax(dim=-1, keepdim=True)
+    if maxfree:
+        shift = torch.where((scale <= MAXFREE_MAX_SCALE)[None],
+                            (scale + 16.0)[None], shift)
+    e = torch.exp(s - shift)
+    o = torch.matmul(_bf16r(e), _bf16r(vc))
+    return (o / e.sum(dim=-1, keepdim=True)).to(v.dtype)
 
 
 def cosine_window_attention_headsplit_backward_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logit_scale: torch.Tensor, bias: torch.Tensor,
         mask: Optional[torch.Tensor], g: torch.Tensor, *,
-        compute_dtype: torch.dtype = torch.float32
+        compute_dtype: torch.dtype = torch.float32, mxu: str = "fp32"
         ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's function in plain PyTorch, on any device: the
     explicit formulas of the TPU's `_bwd_kernel` (no autograd) in
@@ -180,28 +225,38 @@ def cosine_window_attention_headsplit_backward_plain(
     (B_, nH, N, Dh). Returns dq, dk, dv in the inputs' types, dlogit_scale
     in logit_scale's shape and dbias (nH, N, N), both in `compute_dtype`;
     dlogit_scale is zero where the ln(100) clamp binds; the mask gets no
-    gradient."""
+    gradient. mxu: the packed kernels' precision mode ("fp32", "fold",
+    "bf16"), the TPU body's `_bwd_body` formulas in that mode: p rebuilt
+    with the forward's ops, and under "bf16" every product's operands
+    rounded to bf16 (g and v for dp, p and g for dv, ds for dq and dk)."""
     B_, nH, N, _ = q.shape
     ct = compute_dtype
+    fold = _MXU_OPS[mxu][0]
+    r = _bf16r if mxu == "bf16" else _same
     qc, kc, vc, gc = (t.to(ct) for t in (q, k, v, g))
     rq = torch.rsqrt((qc * qc).sum(-1, keepdim=True) + 1e-12)
     rk = torch.rsqrt((kc * kc).sum(-1, keepdim=True) + 1e-12)
     qn, kn = qc * rq, kc * rk
     ls = logit_scale.to(ct).reshape(nH)
     scale = torch.exp(torch.clamp(ls, max=MAX_LOGIT_SCALE)).reshape(nH, 1, 1)
-    sc = torch.matmul(qn, kn.transpose(-1, -2)) * scale[None]
+    sc, qd, kd = _logits(qn, kn, scale, fold, r)
     s = sc + bias[None].to(ct)
     if mask is not None:
         nW = mask.shape[0]
         s = (s.reshape(B_ // nW, nW, nH, N, N)
              + mask[None, :, None].to(ct)).reshape(B_, nH, N, N)
     p = torch.softmax(s, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), gc)
-    dp = torch.matmul(gc, vc.transpose(-1, -2))
+    gr = r(gc)
+    dv = torch.matmul(r(p).transpose(-1, -2), gr)
+    dp = torch.matmul(gr, r(vc).transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dqn = torch.matmul(ds, kn) * scale[None]
+    if fold:    # qd carries the scale: ds^T qd = scale * ds^T q^
+        dqn = torch.matmul(r(ds), kd) * scale[None]
+        dkn = torch.matmul(r(ds).transpose(-1, -2), qd)
+    else:
+        dqn = torch.matmul(ds, kn) * scale[None]
+        dkn = torch.matmul(ds.transpose(-1, -2), qn) * scale[None]
     dq = rq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
-    dkn = torch.matmul(ds.transpose(-1, -2), qn) * scale[None]
     dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
     dls = (ds * sc).sum(dim=(0, 2, 3)) * (ls < MAX_LOGIT_SCALE).to(ct)
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),

@@ -9,8 +9,8 @@ tiling and have no counterpart here: the CUDA kernels
 (csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu,
 csrc/window_attention_bwd_resident.cu) mask the ragged edge themselves.
 
-Which kernel runs follows the JAX package's two process-wide settings, both
-read once at import:
+Which kernel runs follows the JAX package's process-wide settings, each read
+once at import:
   MMDE_ATTN_GRID  "window_resident" (default) / "split": forward K1, backward
                   K2 (its dbias by atomics / by K3's windows-innermost pass);
                   "bias_resident": forward K1 without the log-sum-exp,
@@ -19,6 +19,12 @@ read once at import:
                   JAX rule `choose_w` gives W > 1, the forward and K2's two
                   passes run as K5, W consecutive windows per block sharing
                   one staged bias tile ("bias_resident" keeps W = 1, as JAX).
+  MMDE_ATTN_MXU   the kernel body's precision for bf16 qkv, "auto" (= "fold",
+                  the default) / "fp32" / "fold" / "bf16"; fp32 qkv takes
+                  "fp32" unless a call passes mxu= (see
+                  `cosine_window_attention_packed`). Each mode is a library
+                  of its own, built from the same sources; K4's backward
+                  keeps fp32 whatever the mode, as in JAX.
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_packed_plain` and, under autograd,
@@ -92,8 +98,40 @@ del _w_env
 # every packed forward take the row maximum (maxfree=False); K4 always does.
 SOFTMAX_MAXFREE = os.environ.get("MMDE_ATTN_SOFTMAX", "maxfree") != "max"
 
+# The kernel body's precision (the JAX package's `mxu`): "fp32" exact;
+# "fold" the logit scale folded into q^ before the q^k^T product; "bf16"
+# fold plus bf16 operands for every product, fp32 accumulation. The default
+# for bf16 qkv, read once at import as the JAX package reads it:
+# MMDE_ATTN_MXU, "auto" meaning "fold". fp32 qkv always default to "fp32".
+MXU_MODES = ("fp32", "fold", "bf16")
+_m = os.environ.get("MMDE_ATTN_MXU", "auto")
+MXU_BF16_DEFAULT = "fold" if _m == "auto" else _m
+del _m
+# the mode's code, the C entries' `mxu` argument (csrc/
+# window_attention_common.cuh); "fold_pv_bf16" (fold, only p and v rounded)
+# is a forward-only benchmark variant (tools/bench_attention_variants.py,
+# v4) held by a library of its own (_LIB_NAME_PV), built at that tool's
+# first use
+_MXU_CODE = {"fp32": 0, "fold": 1, "bf16": 2, "fold_pv_bf16": 3}
+# every launch of the packed kernels, keyed by (mode, (B_, N, C, nH)); K4
+# (always fp32) under "fp32"
+LAUNCHES_BY_MXU: dict = {}
+
+
+def resolve_mxu(mxu: Optional[str], dtype: torch.dtype,
+                modes=MXU_MODES) -> str:
+    """The mode a call computes in: `mxu`, or for None the JAX default
+    (MXU_BF16_DEFAULT for bf16 qkv, "fp32" otherwise). The JAX body folds
+    for "fold" / "bf16" and rounds for "bf16" only, so any other value
+    computes as "fp32" there; it does here too (no error)."""
+    if mxu is None:
+        mxu = MXU_BF16_DEFAULT if dtype == torch.bfloat16 else "fp32"
+    return mxu if mxu in modes else "fp32"
+
 _LIB_NAME = "window_attention_fwd"
 _SOURCES = ("window_attention_fwd.cu",)
+_LIB_NAME_PV = "window_attention_fwd_fold_pv"
+_DEFINES_PV = ("MMDE_FOLD_PV=1",)
 _LIB_NAME_BWD = "window_attention_bwd"
 _SOURCES_BWD = ("window_attention_bwd.cu",)
 _LIB_NAME_RESIDENT = "window_attention_bwd_resident"
@@ -230,11 +268,11 @@ def windows_per_block(B_: int, N: int, C: int, nH: int, nW: int, bwd: bool,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P]
-_FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
-_FWD_W_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
-_BWD_W_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P]
+_FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_FWD_W_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+_BWD_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
 
 
@@ -247,9 +285,13 @@ def _bind(lib, table) -> ctypes.CDLL:
     return lib
 
 
-def _library() -> ctypes.CDLL:
+def _library(mxu: str = "fp32") -> ctypes.CDLL:
+    """The forward library (every mode of MXU_MODES, the head-split and
+    slab entries), or for mode "fold_pv_bf16" the benchmark tool's own."""
     from mmde_tpu_torch.ops.cuda_build import load_library
-    return _bind(load_library(_LIB_NAME, _SOURCES), (
+    lib = (load_library(_LIB_NAME_PV, _SOURCES, _DEFINES_PV)
+           if mxu == "fold_pv_bf16" else load_library(_LIB_NAME, _SOURCES))
+    return _bind(lib, (
         ("mmde_window_attention_fwd", _FWD_ARGTYPES),
         ("mmde_window_attention_fwd_stats", _FWD_STATS_ARGTYPES),
         ("mmde_window_attention_fwd_w", _FWD_W_ARGTYPES)))
@@ -268,18 +310,25 @@ def _library_resident() -> ctypes.CDLL:
         ("mmde_window_attention_bwd_resident", _RESIDENT_ARGTYPES),))
 
 
-def build_kernels() -> dict:
-    """Compile (or find) the three libraries, the nvcc runs side by side;
-    returns {library name: build record}."""
+def library_specs() -> dict:
+    """{library name: (sources, defines)} of every library the model's
+    path binds: the forward and the backward (each with every mode of
+    MXU_MODES) and K4."""
+    return {_LIB_NAME: (_SOURCES, ()), _LIB_NAME_BWD: (_SOURCES_BWD, ()),
+            _LIB_NAME_RESIDENT: (_SOURCES_RESIDENT, ())}
+
+
+def build_kernels(extra: Optional[dict] = None) -> dict:
+    """Compile (or find) this module's libraries and any `extra` ones
+    ({name: (sources, defines)}, other modules' tools), one nvcc each, all
+    side by side; returns {library name: build record}."""
     from mmde_tpu_torch.ops import cuda_build
-    cuda_build.load_libraries({_LIB_NAME: _SOURCES,
-                               _LIB_NAME_BWD: _SOURCES_BWD,
-                               _LIB_NAME_RESIDENT: _SOURCES_RESIDENT})
+    specs = dict(library_specs(), **(extra or {}))
+    cuda_build.load_libraries(specs)
     _library()
     _library_bwd()
     _library_resident()
-    return {n: dict(cuda_build.BUILD_LOG[n])
-            for n in (_LIB_NAME, _LIB_NAME_BWD, _LIB_NAME_RESIDENT)}
+    return {n: dict(cuda_build.BUILD_LOG[n]) for n in specs}
 
 
 def _check(qkv, logit_scale, bias, mask, num_heads):
@@ -329,15 +378,22 @@ def cosine_window_attention_packed_plain(qkv: torch.Tensor,
                                          mask: Optional[torch.Tensor] = None,
                                          *, num_heads: int,
                                          compute_dtype: torch.dtype =
-                                         torch.float32) -> torch.Tensor:
+                                         torch.float32,
+                                         mxu: Optional[str] = None,
+                                         maxfree: bool = True
+                                         ) -> torch.Tensor:
     """The forward kernels' function in plain PyTorch, on any device:
     normalisation, logits, softmax and accumulation in `compute_dtype`
     (float32; float64 gives the ground truth the kernels' gradients are
-    checked against); output in qkv's type."""
+    checked against); output in qkv's type. mxu: the body's precision mode,
+    None = the wrapper's default for qkv's type (`resolve_mxu`); maxfree:
+    the wrapper's, which decides where "bf16" rounds p (see
+    cosine_window_attention_headsplit_plain)."""
     B_, N, C3 = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads)
     o = cosine_window_attention_headsplit_plain(
-        q, k, v, logit_scale, bias, mask, compute_dtype=compute_dtype)
+        q, k, v, logit_scale, bias, mask, compute_dtype=compute_dtype,
+        mxu=resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE)), maxfree=maxfree)
     return o.permute(0, 2, 1, 3).reshape(B_, N, C3 // 3)
 
 
@@ -351,19 +407,20 @@ def _split_heads(x: torch.Tensor, parts: int, nH: int) -> torch.Tensor:
 def cosine_window_attention_packed_backward_plain(
         qkv: torch.Tensor, logit_scale: torch.Tensor, bias: torch.Tensor,
         mask: Optional[torch.Tensor], g: torch.Tensor, *, num_heads: int,
-        compute_dtype: torch.dtype = torch.float32
+        compute_dtype: torch.dtype = torch.float32,
+        mxu: Optional[str] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch, on any device: the
     explicit formulas (no autograd) in `compute_dtype` (float32). g is the
     gradient of the output, (B_, N, C). Returns dqkv in qkv's type,
     dlogit_scale in logit_scale's shape (`compute_dtype`; zero where the
     ln(100) clamp binds) and dbias in bias's type; the mask gets no
-    gradient."""
+    gradient. mxu: as for the forward (K2's and K5's modes)."""
     B_, N, C3 = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads)
     dq, dk, dv, dls, dbias = cosine_window_attention_headsplit_backward_plain(
         q, k, v, logit_scale, bias, mask, _split_heads(g, 1, num_heads)[0],
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, mxu=resolve_mxu(mxu, qkv.dtype))
     dqkv = torch.stack([dq, dk, dv], dim=0).permute(1, 3, 0, 2, 4)
     return dqkv.reshape(B_, N, C3), dls, dbias.to(bias.dtype)
 
@@ -379,6 +436,12 @@ def _count(kernel: str, qkv: torch.Tensor, num_heads: int) -> None:
     by_shape[key] = by_shape.get(key, 0) + 1
 
 
+def _count_mxu(mxu: str, qkv: torch.Tensor, num_heads: int) -> None:
+    B_, N, C3 = qkv.shape
+    key = (mxu, (B_, N, C3 // 3, num_heads))
+    LAUNCHES_BY_MXU[key] = LAUNCHES_BY_MXU.get(key, 0) + 1
+
+
 def launch_counts() -> dict:
     """{kernel name: launches} summed over shapes, since the counters were
     last cleared."""
@@ -392,7 +455,8 @@ def reset_launch_counts() -> None:
     global LAUNCHES, LAUNCHES_BWD, LAUNCHES_RESIDENT
     LAUNCHES = LAUNCHES_BWD = LAUNCHES_RESIDENT = 0
     for d in (LAUNCHES_BY_SHAPE, LAUNCHES_BWD_BY_SHAPE,
-              LAUNCHES_RESIDENT_BY_SHAPE, LAUNCHES_BY_KERNEL):
+              LAUNCHES_RESIDENT_BY_SHAPE, LAUNCHES_BY_KERNEL,
+              LAUNCHES_BY_MXU):
         d.clear()
 
 
@@ -401,10 +465,12 @@ def _stream(dev) -> int:
 
 
 def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
-                    want_stats, w=1):
-    """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block);
-    returns (out, lse or None)."""
+                    want_stats, w=1, mxu=None):
+    """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block),
+    in precision mode `mxu` (a key of _MXU_CODE; None = the default for
+    qkv's type); returns (out, lse or None)."""
     global LAUNCHES
+    mxu = resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE))
     B_, N, C3 = qkv.shape
     C = C3 // 3
     if qkv.data_ptr() % 16:
@@ -414,12 +480,13 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     if w < 1 or B_ % w or (nW and nW % w):
         raise ValueError(f"{w} windows per block must divide B_={B_} and "
                          f"the mask's nW={nW}")
-    lib = _library()
+    lib = _library(mxu)
     out = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((B_, num_heads, N), dtype=torch.float32,
                        device=qkv.device) if want_stats else None)
     shape_args = (B_, N, C, num_heads, nW, int(qkv.dtype == torch.bfloat16),
                   int(bias.dtype == torch.bfloat16), int(bool(maxfree)))
+    code = _MXU_CODE[mxu]
     mask_ptr = mask.data_ptr() if mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = _stream(qkv.device)
@@ -428,32 +495,36 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(),
                 lse.data_ptr() if want_stats else None, *shape_args, w,
-                stream)
+                code, stream)
         elif want_stats:
             err = lib.mmde_window_attention_fwd_stats(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                mask_ptr, out.data_ptr(), lse.data_ptr(), *shape_args, stream)
+                mask_ptr, out.data_ptr(), lse.data_ptr(), *shape_args, code,
+                stream)
         else:
             err = lib.mmde_window_attention_fwd(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                mask_ptr, out.data_ptr(), *shape_args, stream)
+                mask_ptr, out.data_ptr(), *shape_args, code, stream)
     if err != 0:
         raise RuntimeError(
             f"window_attention_fwd launch failed with code {err} "
             f"(B_={B_}, N={N}, C={C}, nH={num_heads}, {qkv.dtype}, "
-            f"{w} windows per block)")
+            f"{w} windows per block, mxu={mxu})")
     LAUNCHES += 1
+    _count_mxu(mxu, qkv, num_heads)
     _count(f"window_attention_fwd{f'_w{w}' if w > 1 else ''}"
            f"{'+lse' if want_stats else ''}", qkv, num_heads)
     return out, lse
 
 
 def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
-                     grid_mode, want_dbias, w=1):
+                     grid_mode, want_dbias, w=1, mxu=None):
     """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
-    pass stays at one window); returns (dqkv, dlogit_scale, dbias or
-    None)."""
+    pass stays at one window), in precision mode `mxu` (one of
+    MXU_MODES, the forward's; None = the default for qkv's type); returns
+    (dqkv, dlogit_scale, dbias or None)."""
     global LAUNCHES_BWD
+    mxu = resolve_mxu(mxu, qkv.dtype)
     B_, N, C3 = qkv.shape
     C = C3 // 3
     nH = num_heads
@@ -487,17 +558,20 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
             dbias.data_ptr() if dbias is not None else None,
             B_, N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
             int(bias.dtype == torch.bfloat16), mode)
+    code = _MXU_CODE[mxu]
     with torch.cuda.device(dev):
         if w > 1:
-            err = lib.mmde_window_attention_bwd_w(*args, w, _stream(dev))
+            err = lib.mmde_window_attention_bwd_w(*args, w, code,
+                                                  _stream(dev))
         else:
-            err = lib.mmde_window_attention_bwd(*args, _stream(dev))
+            err = lib.mmde_window_attention_bwd(*args, code, _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"window_attention_bwd launch failed with code {err} "
             f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype}, {grid_mode}, "
-            f"{w} windows per block)")
+            f"{w} windows per block, mxu={mxu})")
     LAUNCHES_BWD += 1
+    _count_mxu(mxu, qkv, nH)
     _count(f"window_attention_bwd{f'_w{w}' if w > 1 else ''}", qkv, nH)
     # per-block partial sums of dlogit_scale, summed here as the TPU package
     # sums its ds dump outside its kernel
@@ -554,6 +628,7 @@ def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
             f"window_attention_bwd_resident launch failed with code {err} "
             f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype})")
     LAUNCHES_RESIDENT += 1
+    _count_mxu("fp32", qkv, nH)
     _count("window_attention_bwd_resident", qkv, nH)
     # dk = rk * (dk^ - k^ <dk^, k^>), per head
     k = qkv[:, :, C:2 * C].float().reshape(B_, N, nH, HEAD_DIM)
@@ -575,21 +650,24 @@ def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
 class _PackedWindowAttention(torch.autograd.Function):
     """For CUDA tensors: K1 / K5 forward (saving each row's log-sum-exp)
     and K2 / K5 backward, or under "bias_resident" K1 without statistics and
-    K4; the plain forward and the plain backward for CPU tensors."""
+    K4; the plain forward and the plain backward for CPU tensors. The
+    forward and K2 / K5 run in precision mode `mxu`; K4 (and the plain
+    backward under "bias_resident") in fp32, as the JAX package's."""
 
     @staticmethod
     def forward(ctx, qkv, logit_scale, bias, mask, num_heads, maxfree,
-                grid_mode, windows_per_cell):
+                grid_mode, windows_per_cell, mxu):
         ctx.num_heads, ctx.grid_mode = num_heads, grid_mode
-        ctx.windows_per_cell = windows_per_cell
+        ctx.windows_per_cell, ctx.mxu = windows_per_cell, mxu
         lse = None
         if not qkv.is_cuda:
             out = cosine_window_attention_packed_plain(
-                qkv, logit_scale, bias, mask, num_heads=num_heads)
+                qkv, logit_scale, bias, mask, num_heads=num_heads, mxu=mxu,
+                maxfree=maxfree)
         elif grid_mode == "bias_resident":
             # K4 rebuilds the softmax from the exact row maximum itself
             out = _launch_forward(qkv, logit_scale, bias, mask, num_heads,
-                                  maxfree, want_stats=False)[0]
+                                  maxfree, want_stats=False, mxu=mxu)[0]
         else:
             B_, N, C3 = qkv.shape
             w = windows_per_block(
@@ -598,7 +676,7 @@ class _PackedWindowAttention(torch.autograd.Function):
                 windows_per_cell)
             out, lse = _launch_forward(qkv, logit_scale, bias, mask,
                                        num_heads, maxfree, want_stats=True,
-                                       w=w)
+                                       w=w, mxu=mxu)
         ctx.save_for_backward(qkv, logit_scale, bias, mask, lse)
         return out
 
@@ -609,7 +687,8 @@ class _PackedWindowAttention(torch.autograd.Function):
         g = g.contiguous()
         if not qkv.is_cuda:
             dqkv, dls, dbias = cosine_window_attention_packed_backward_plain(
-                qkv, logit_scale, bias, mask, g, num_heads=ctx.num_heads)
+                qkv, logit_scale, bias, mask, g, num_heads=ctx.num_heads,
+                mxu="fp32" if ctx.grid_mode == "bias_resident" else ctx.mxu)
         elif ctx.grid_mode == "bias_resident":
             dqkv, dls, dbias = _launch_backward_resident(
                 qkv, logit_scale, bias, mask, g, ctx.num_heads,
@@ -622,10 +701,11 @@ class _PackedWindowAttention(torch.autograd.Function):
                 ctx.windows_per_cell)
             dqkv, dls, dbias = _launch_backward(
                 qkv, logit_scale, bias, mask, lse, g, ctx.num_heads,
-                ctx.grid_mode, want_dbias=need_bias, w=w)
+                ctx.grid_mode, want_dbias=need_bias, w=w, mxu=ctx.mxu)
         # the mask is a constant of the window layout: no gradient
         return (dqkv if need_qkv else None, dls if need_ls else None,
-                dbias if need_bias else None, None, None, None, None, None)
+                dbias if need_bias else None, None, None, None, None, None,
+                None)
 
 
 def cosine_window_attention_packed(qkv: torch.Tensor,
@@ -635,7 +715,8 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
                                    *, num_heads: int,
                                    maxfree: bool = True,
                                    grid_mode: Optional[str] = None,
-                                   windows_per_cell=None) -> torch.Tensor:
+                                   windows_per_cell=None,
+                                   mxu: Optional[str] = None) -> torch.Tensor:
     """Fused cosine window attention, differentiable in qkv, logit_scale and
     bias.
 
@@ -665,6 +746,13 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
     8 windows per block: more is refused for shared memory, and raises).
     "bias_resident" ignores it (W = 1), as the JAX package does.
 
+    mxu: the kernel body's precision, "fp32" | "fold" | "bf16" (see
+    MXU_MODES); None = MXU_BF16_DEFAULT (MMDE_ATTN_MXU, "fold" unless set)
+    for bf16 qkv and "fp32" for fp32 qkv, as in the JAX package. Any other
+    value computes as "fp32", as the JAX body does with it (no error). The
+    forward and the K2 / K5 backward take the mode; K4 ("bias_resident")
+    keeps its fp32 backward, as the JAX package's.
+
     CUDA tensors launch the kernels (or raise); CPU tensors take the plain
     versions. When a gradient is recorded the forward kernel also writes
     each row's log-sum-exp (not under "bias_resident"), which the backward
@@ -679,18 +767,20 @@ def cosine_window_attention_packed(qkv: torch.Tensor,
         int(windows_per_cell)       # "auto" or an int, as MMDE_ATTN_W
     maxfree = bool(maxfree) and SOFTMAX_MAXFREE
     _check(qkv, logit_scale, bias, mask, num_heads)
+    mxu = resolve_mxu(mxu, qkv.dtype)
     if torch.is_grad_enabled() and (qkv.requires_grad
                                     or logit_scale.requires_grad
                                     or bias.requires_grad):
         return _PackedWindowAttention.apply(qkv, logit_scale, bias, mask,
                                             num_heads, maxfree, grid_mode,
-                                            windows_per_cell)
+                                            windows_per_cell, mxu)
     if not qkv.is_cuda:
         return cosine_window_attention_packed_plain(
-            qkv, logit_scale, bias, mask, num_heads=num_heads)
+            qkv, logit_scale, bias, mask, num_heads=num_heads, mxu=mxu,
+            maxfree=maxfree)
     B_, N, C3 = qkv.shape
     w = 1 if grid_mode == "bias_resident" else windows_per_block(
         B_, N, C3 // 3, num_heads, mask.shape[0] if mask is not None else 0,
         False, windows_per_cell)
     return _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
-                           want_stats=False, w=w)[0]
+                           want_stats=False, w=w, mxu=mxu)[0]

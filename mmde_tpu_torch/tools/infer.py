@@ -105,8 +105,14 @@ def main(argv=None) -> None:
     # 16-bit PNG scale: millimetres, 256 counts per metre for KITTI
     scale = 256.0 if cfg.data.dataset == "kitti" else 1000.0
     for i, name in enumerate(names):
-        bgr = cv2.imread(os.path.join(args.images, name), cv2.IMREAD_COLOR)
-        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)[None]
+        path = os.path.join(args.images, name)
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise FileNotFoundError(path)
+        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        # the JAX package's ImageFolder: each side cut to a multiple of 32
+        h, w = rgb.shape[:2]
+        rgb = cv2.resize(rgb, (w // 32 * 32, h // 32 * 32))[None]
         depth = predict(model, rgb, rgb, flip_tta=args.flip)["pred_d1"]
         stem = os.path.splitext(name)[0]
         cv2.imwrite(os.path.join(args.out, stem + ".png"),

@@ -83,6 +83,32 @@ def test_source_scan_covers_the_training_slice():
                                        "window_attention_bwd.cu"))
 
 
+def test_source_scan_covers_the_tools_slice():
+    """The walk above reaches the three card tools, their shared helpers
+    and their CUDA sources."""
+    names = set(_module_names())
+    for mod in ("tools.probe_layouts", "tools.bench_attention_variants",
+                "tools.roofline", "tools.card"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
+    for src in ("probes.cu", "roofline.cu", "hopper_ptx.cuh"):
+        assert os.path.isfile(os.path.join(PORT, "csrc", src)), src
+
+
+def test_tool_entry_points_want_a_card():
+    """The tools measure the card: without one their entry points raise
+    (probe_layouts runs its plain versions only when asked with --device
+    cpu)."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    from mmde_tpu_torch.tools import (bench_attention_variants,
+                                      probe_layouts, roofline)
+    for main in (probe_layouts.main, bench_attention_variants.main,
+                 roofline.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+    assert probe_layouts.main(["--device", "cpu"]) == 0
+
+
 def test_every_module_imports_without_the_jax_package_or_a_compiler():
     """Fresh interpreter: every module of the port imports here (no nvcc, no
     triton, no card) and pulls in nothing of mmde_tpu."""
@@ -167,9 +193,10 @@ def test_kernel_source_and_binding_agree():
                   src, re.S)
     assert m, "C entry point not found"
     params = [p.strip() for p in m.group(1).split(",")]
-    assert len(params) == 14
+    assert len(params) == 15
     n_ptr = sum("*" in p for p in params)
-    assert n_ptr == 6 and len(params) - n_ptr == 8
+    assert n_ptr == 6 and len(params) - n_ptr == 9
+    assert params[-2] == "int mxu"
     assert re.search(r"constexpr int DH = (\d+);", src).group(1) == str(
         wap.HEAD_DIM)
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)

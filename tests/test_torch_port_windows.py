@@ -208,13 +208,14 @@ class _OnCard(torch.Tensor):
 def _record(monkeypatch):
     calls = []
 
-    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1):
+    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None):
         calls.append(("fwd", w, want_stats, maxfree))
         B_, N, C3 = qkv.shape
         return (torch.zeros(B_, N, C3 // 3),
                 torch.zeros(B_, nH, N) if want_stats else None)
 
-    def bwd(qkv, ls, bias, mask, lse, g, nH, grid_mode, want_dbias, w=1):
+    def bwd(qkv, ls, bias, mask, lse, g, nH, grid_mode, want_dbias, w=1,
+            mxu=None):
         assert lse is not None
         calls.append(("bwd", w, grid_mode, want_dbias))
         return torch.zeros_like(qkv), torch.zeros_like(ls), \
@@ -283,7 +284,7 @@ _SOFTMAX_PROBE = """
 import torch
 from mmde_tpu_torch.ops import window_attention_packed as twp
 seen = []
-def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1):
+def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None):
     seen.append(maxfree)
     return torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3), None
 twp._launch_forward = fwd
