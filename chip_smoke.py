@@ -15,7 +15,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 versions, seconds spent building the kernels from csrc/.
   kernel_cases  the window-attention kernel against its plain PyTorch
                 version at the four flagship stage shapes, float32 and
-                bfloat16, with and without mask: max abs / rel-L2 error,
+                bfloat16 (bf16 launches at one window per block run the
+                tensor-core kernels, fp32 the FMA body, everywhere in this
+                script), with and without mask: max abs / rel-L2 error,
                 kernel ms and plain ms (CUDA events, warm, median), and
                 the roofline bound with its bytes and flops.
   kernel_cases_backward
@@ -126,6 +128,21 @@ What it does, each phase printing one JSON object on a line of its own:
                 mode, backward against the plain backward and float64
                 autograd of the plain forward in that mode; ms beside the
                 "fp32" mode's in the same call.
+  kernel_cases_tc
+                the tensor-core K1 / K2 (csrc/window_attention_{fwd,bwd}
+                _tc.cu) at the flagship's four stages, served (forward) and
+                trained (forward with log-sum-exp, backward), bf16, masked
+                where the model masks, in modes fold, fp32 and bf16: against
+                the plain version of the mode and float64 autograd (TOL_*,
+                TOL_MXU_BF16), and MXU_APART times nearer the own mode's
+                plain version than the other's (fold / fp32 against "bf16"):
+                a kernel that quietly rounds operands fails. ms beside the
+                FMA body's in the same call (in turns), plain ms, the SDPA
+                yardstick, the bound and the products the design needs
+                (tc_units, tc_flops); the backward also without dbias. The
+                kernels line adds the tensor-core bound (tc_bound_ms): those
+                products at the bf16 mma.sync rate the roofline phase
+                measured in the same run.
   serve_mxu, train_mxu
                 the flagship under MMDE_ATTN_MXU=bf16 (this script in a
                 process of its own): one request and 3 train steps, every
@@ -135,7 +152,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 (`shared_card`).
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
-                launches on that path, error, ms, plain ms, bound, and the
+                launches on that path (the packed stages of the bf16 models:
+                window_attention_fwd_tc[+lse] / window_attention_bwd_tc, and
+                none of the FMA body), error, ms, plain ms, bound, and the
                 nearest library call's time (bf16 cases:
                 F.scaled_dot_product_attention on the normalised, scaled q
                 and k with bias + mask as its attn_mask; the normalisation
@@ -169,6 +188,9 @@ import torch
 from mmde_tpu_torch.tools.card import HBM_BYTES_PER_S, PEAK_FLOPS, time_ms
 
 KERNEL_SOURCE = "mmde_tpu_torch/csrc/window_attention_fwd.cu"
+# K1 and K2 on the tensor cores: every bf16 launch at one window per block
+KERNEL_TC_SOURCE = "mmde_tpu_torch/csrc/window_attention_fwd_tc.cu"
+KERNEL_TC_BWD_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd_tc.cu"
 KERNEL_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
                    "(_fwd_body; pallas_call :454)")
 KERNEL_BWD_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd.cu"
@@ -1328,8 +1350,10 @@ def _profile(fn) -> dict:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        # device-side rows only: an operator's row repeats its kernels' time
-        if us > 0 and e.device_type == DeviceType.CUDA:
+        # device-side rows only: an operator's row repeats its kernels' time,
+        # and so does the optimizer's step annotation ("Optimizer.step#...")
+        if (us > 0 and e.device_type == DeviceType.CUDA
+                and not e.key.startswith("Optimizer.")):
             rows.append({"name": e.key[:120], "calls": e.count,
                          "device_us": us})
     rows.sort(key=lambda r: -r["device_us"])
@@ -1339,9 +1363,11 @@ def _profile(fn) -> dict:
 
     def group(name: str) -> str:
         n = name.lower()
-        if "window_attention_fwd" in n:     # K1 and K6' share the kernel
+        if "window_attention_fwd" in n or "fwd_tc_kernel" in n:
+            # K1 (FMA or tensor-core body), K6', K8', K5
             return "window_attention_fwd (this repo's kernel)"
         if ("bwd_dq_kernel" in n or "bwd_dkv_kernel" in n
+                or "bwd_dq_tc_kernel" in n or "bwd_dkv_tc_kernel" in n
                 or "bwd_dbias_kernel" in n or "bwd_dq_w_kernel" in n
                 or "bwd_dkv_w_kernel" in n or "bwd_resident_kernel" in n):
             return "window_attention_bwd (this repo's kernel)"
@@ -1709,10 +1735,21 @@ def _entry(name, shape, source, replaces, n, c, pairs=1) -> dict:
              "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
              "library_ms": c["library_ms"]}
     # the yardstick's own numbers: the normalisation it needs first and the
-    # SDPA backend that ran
-    entry.update({k: c[k] for k in ("library_norm_ms", "library_backend")
+    # SDPA backend that ran; for the tensor-core kernels the fp32-FMA body's
+    # time in the same call and the products' bound at the mma.sync rate
+    entry.update({k: c[k] for k in ("library_norm_ms", "library_backend",
+                                    "fma_ms", "tc_units", "tc_bound_ms",
+                                    "tc_rate_TFLOP_s")
                   if k in c})
     return entry
+
+
+def _tc_case(tc_cases, shape, pairs, mxu="fold"):
+    """kernel_cases_tc's case at this flagship shape (None elsewhere)."""
+    return next((c for c in tc_cases
+                 if c["model"] == shape["model"]
+                 and c["stage"] == shape["stage"]
+                 and c["frame_pairs"] == pairs and c["mxu"] == mxu), None)
 
 
 def _find(cases, shape, pairs, **want):
@@ -1724,10 +1761,12 @@ def _find(cases, shape, pairs, **want):
 
 
 def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
-                   serve: dict) -> list:
+                   serve: dict, tc_cases: list) -> list:
     """One entry per (kernel, served shape): the served model is bfloat16,
     stages 1-2 alternate unmasked and masked blocks (the masked case is
-    listed), stages 3-4 are unmasked."""
+    listed), stages 3-4 are unmasked. Packed stages: the tensor-core
+    forward, with kernel_cases_tc's numbers (the model's mode, "fold") at
+    the flagship's shapes, kernel_cases' elsewhere."""
     entries = []
     for shape in stage_shapes(serve["backbone"],
                               attn_impl=serve["_attn_impl"]):
@@ -1739,14 +1778,14 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
             entries.append(_entry("window_attention_slab_fwd", shape,
                                   KERNEL_SOURCE, KERNEL_SLAB_REPLACES, n, c))
         elif shape["layout"] == "packed":
-            c = next(c for c in k1_cases
-                     if c["model"] == shape["model"]
-                     and c["stage"] == shape["stage"]
-                     and c["dtype"] == "bfloat16"
-                     and c["softmax"] == "maxfree" and (c["nW"] > 0) == (
-                         nW > 0))
-            entries.append(_entry("window_attention_fwd", shape,
-                                  KERNEL_SOURCE, KERNEL_REPLACES, n, c))
+            c = _tc_case(tc_cases, shape, 1) or next(
+                c for c in k1_cases
+                if c["model"] == shape["model"]
+                and c["stage"] == shape["stage"]
+                and c["dtype"] == "bfloat16"
+                and c["softmax"] == "maxfree" and (c["nW"] > 0) == (nW > 0))
+            entries.append(_entry("window_attention_fwd_tc", shape,
+                                  KERNEL_TC_SOURCE, KERNEL_REPLACES, n, c))
         else:
             c = _find(hs_cases, shape, 1, nW=nW)["forward"]
             entries.append(_entry("window_attention_headsplit_fwd", shape,
@@ -1755,7 +1794,7 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
 
 
 def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
-                   train: dict) -> list:
+                   train: dict, tc_cases: list) -> list:
     """Two entries per trained shape, the forward through its training entry
     point (output and log-sum-exp) and the backward: the trained model is
     bfloat16 at 2 frame pairs, stages 1-2 masked in every other block (the
@@ -1777,12 +1816,17 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e = _entry("window_attention_slab_bwd", shape, KERNEL_BWD_SOURCE,
                        KERNEL_SLAB_BWD_REPLACES, nb, c, pairs)
         elif lay == "packed":
+            # the tensor-core kernels: kernel_cases_tc's numbers ("fold")
+            # at the flagship's shapes, kernel_cases_backward's elsewhere
             c = _find(k2_cases, shape, pairs)
-            entries.append(_entry("window_attention_fwd+lse", shape,
-                                  KERNEL_SOURCE, KERNEL_REPLACES, nf,
-                                  c["forward"], pairs))
-            e = _entry("window_attention_bwd", shape, KERNEL_BWD_SOURCE,
-                       KERNEL_BWD_REPLACES, nb, c, pairs)
+            t = _tc_case(tc_cases, shape, pairs) or c
+            entries.append(_entry("window_attention_fwd_tc+lse", shape,
+                                  KERNEL_TC_SOURCE, KERNEL_REPLACES, nf,
+                                  t["forward"], pairs))
+            e = _entry("window_attention_bwd_tc", shape, KERNEL_TC_BWD_SOURCE,
+                       KERNEL_BWD_REPLACES, nb, t, pairs)
+            if "ms_no_dbias" in t:
+                e["ms_no_dbias"] = t["ms_no_dbias"]
             e["ms_split_dbias"] = c["ms_split"]     # K3, not the default
             # K3 alone (0 launches on this path), its own bound; no single
             # PyTorch call computes dbias alone
@@ -2071,7 +2115,8 @@ def expected_packed_kernels(backbone: str, batch: int, times: int,
                 continue
             wf = 1 if resident else _w_of(sh, False, has_mask,
                                           wap.WINDOWS_PER_CELL)
-            fwd = "window_attention_fwd" + (f"_w{wf}" if wf > 1 else "") \
+            # the models here are bf16: W = 1 runs the tensor-core kernels
+            fwd = "window_attention_fwd" + (f"_w{wf}" if wf > 1 else "_tc") \
                 + ("+lse" if train and not resident else "")
             add(fwd, key, n * times)
             if not train:
@@ -2080,7 +2125,7 @@ def expected_packed_kernels(backbone: str, batch: int, times: int,
                 add("window_attention_bwd_resident", key, n * times)
             else:
                 wb = _w_of(sh, True, has_mask, wap.WINDOWS_PER_CELL)
-                add("window_attention_bwd" + (f"_w{wb}" if wb > 1 else ""),
+                add("window_attention_bwd" + (f"_w{wb}" if wb > 1 else "_tc"),
                     key, n * times)
     return want
 
@@ -2194,7 +2239,8 @@ def phase_resident_child(lines: list, child: dict, steps: int) -> tuple:
     """Path A, read off its process (under MMDE_ATTN_GRID=bias_resident):
     the trainer entry point `mmde_tpu_torch.tools.train_steps.main(
     ["--steps", "4"])` (the flagship, bf16, 2 frame pairs: every step 24 K1
-    launches without the log-sum-exp and 24 K4, no K2), then one fp32 step's
+    launches without the log-sum-exp, on the tensor cores, and 24 K4, no
+    K2), then one fp32 step's
     gradients (`child`) for train_parity_resident. Returns (the
     train_resident record, the child's gradients)."""
     recs = [ln for ln in lines if "step" in ln]
@@ -2237,7 +2283,7 @@ def _expected_resident(pairs: int, steps: int) -> dict:
     want: dict = {}
     for sh in stage_shapes(batch=pairs):
         key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
-        for k in ("window_attention_fwd", "window_attention_bwd_resident"):
+        for k in ("window_attention_fwd_tc", "window_attention_bwd_resident"):
             want.setdefault(k, {})[key] = sh["blocks"] * steps
     return want
 
@@ -2397,11 +2443,11 @@ def contract_resident(k4_cases: list, train_res: dict) -> list:
     for shape in stage_shapes(batch=2):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
         c = _find(k4_cases, shape, 2)
-        nf = train_res["_by_shape"]["window_attention_fwd"].get(key, 0)
+        nf = train_res["_by_shape"]["window_attention_fwd_tc"].get(key, 0)
         nb = train_res["_by_shape"]["window_attention_bwd_resident"].get(
             key, 0)
-        entries.append(_entry("window_attention_fwd (bias_resident)", shape,
-                              KERNEL_SOURCE, KERNEL_REPLACES, nf,
+        entries.append(_entry("window_attention_fwd_tc (bias_resident)",
+                              shape, KERNEL_TC_SOURCE, KERNEL_REPLACES, nf,
                               c["forward"], 2))
         e = _entry("window_attention_bwd_resident", shape,
                    KERNEL_RESIDENT_SOURCE, KERNEL_RESIDENT_REPLACES, nb, c, 2)
@@ -2459,8 +2505,9 @@ def phase_probes() -> list:
 
 def phase_variants() -> list:
     """T2 at the tool's four stages: v0 / v1 / v3 bitwise equal to the
-    production K1 launched with mxu fp32 / fold / bf16 (serving entry,
-    maxfree=False as the tool's body), every variant within K1's bf16
+    production library's K1 fp32-FMA body launched with mxu fp32 / fold /
+    bf16 (serving entry, maxfree=False as the tool's body; the model's bf16
+    launches take the tensor-core kernel), every variant within K1's bf16
     tolerance of its plain version, v3 and v4 also tbv.APART times nearer
     their own plain version than v1's; launches by (mode, shape) read
     around the tool's run."""
@@ -2480,9 +2527,9 @@ def phase_variants() -> list:
                                    f"its plain version: {rec}")
             if v in ("v0", "v1", "v3"):
                 with torch.no_grad():
-                    prod = wap.cosine_window_attention_packed(
-                        qkv, ls, bias, mask, num_heads=nH, maxfree=False,
-                        mxu=rec["mxu"])
+                    prod = wap._launch_forward(qkv, ls, bias, mask, nH, False,
+                                               False, mxu=rec["mxu"],
+                                               _fma=True)[0]
                 rec["bitwise_equal_to_production"] = bool(
                     torch.equal(prod, rec["_out"]))
                 if not rec["bitwise_equal_to_production"]:
@@ -2792,15 +2839,252 @@ def contract_mxu(mxu_cases: list, train_mxu: dict) -> list:
         key = str((shape["B_"], shape["N"], shape["C"], shape["nH"]))
         by_kernel = train_mxu["launches_by_kernel"]
         entries.append(_entry(
-            "window_attention_fwd+lse [mxu=bf16]", shape, KERNEL_SOURCE,
+            "window_attention_fwd_tc+lse [mxu=bf16]", shape, KERNEL_TC_SOURCE,
             KERNEL_REPLACES,
-            by_kernel.get("window_attention_fwd+lse", {}).get(key, 0),
+            by_kernel.get("window_attention_fwd_tc+lse", {}).get(key, 0),
             c["forward"], 2))
         entries.append(_entry(
-            "window_attention_bwd [mxu=bf16]", shape, KERNEL_BWD_SOURCE,
+            "window_attention_bwd_tc [mxu=bf16]", shape, KERNEL_TC_BWD_SOURCE,
             KERNEL_BWD_REPLACES,
-            by_kernel.get("window_attention_bwd", {}).get(key, 0), c, 2))
+            by_kernel.get("window_attention_bwd_tc", {}).get(key, 0), c, 2))
     return entries
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on the tensor cores (bf16 mma.sync)
+# ---------------------------------------------------------------------------
+
+def tc_units(mxu: str, train: bool, ls, maxfree: bool = True) -> float:
+    """N x N x 32 bf16 products the design needs (a split operand, bf16 hi
+    and lo, counts as two), not what the kernels issue: forward S and p v
+    (fp32 / fold: p split, 3; bf16: 2, and one more S sweep for each head
+    that takes the exact row maximum, as a share of the heads); backward S,
+    dP, dv, dq and dk (fp32 / fold: the last three split, 8; bf16: 5). The
+    kernels issue 3 / 2 + share forward and 12 / 9 backward: the dq pass
+    sweeps S and dP twice (delta first), the dk/dv pass recomputes them."""
+    from mmde_tpu_torch.ops.window_attention import MAX_LOGIT_SCALE
+    if train:
+        return 5.0 if mxu == "bf16" else 8.0
+    if mxu != "bf16":
+        return 3.0
+    scale = torch.exp(torch.clamp(ls.flatten().float(), max=MAX_LOGIT_SCALE))
+    hot = float(((scale > 30.0) | (not maxfree)).float().mean())
+    return 2.0 + hot
+
+
+def tc_work(B_, N, nH, units: float) -> dict:
+    """The products' flops, on the 64-row tiles the kernels compute (N
+    padded); their time (tc_bound_ms) is set by `tc_bounds` from the
+    roofline phase's measured bf16 mma.sync rate."""
+    np_ = -(-N // 64) * 64
+    return {"tc_units": units,
+            "tc_flops": units * 2 * B_ * nH * np_ * np_ * 32}
+
+
+def tc_bounds(tc_cases: list, tflops: float) -> None:
+    """tc_bound_ms of every kernel_cases_tc record (served: the case;
+    trained: its forward and its backward): its products at `tflops`, the
+    bf16 mma.sync dot pattern's rate that this run's roofline phase
+    measured (tools/roofline.py, dot_bf16_TFLOP_s)."""
+    for c in tc_cases:
+        for r in (c, c.get("forward")):
+            if r is not None and "tc_flops" in r:
+                r["tc_rate_TFLOP_s"] = tflops
+                r["tc_bound_ms"] = r["tc_flops"] / (tflops * 1e12) * 1e3
+
+
+def _nearer(rec: dict, what: str, got, own, other) -> None:
+    """The kernel must lie MXU_APART times nearer the plain version of its
+    own mode than the other one's (fold / fp32 against "bf16", "bf16"
+    against "fold"): a kernel that rounds what its mode does not, or does
+    not round what it does, fails."""
+    r = {"to_own_plain": _errs(got, own)["rel_l2"],
+         "to_other_plain": _errs(got, other)["rel_l2"],
+         "own_plain_to_other_plain": _errs(own, other)["rel_l2"]}
+    rec.setdefault("apart", {})[what] = r
+    if not r["to_other_plain"] >= MXU_APART * r["to_own_plain"]:
+        raise RuntimeError(f"tensor-core kernel (mxu={rec['mxu']}) not "
+                           f"{MXU_APART}x nearer its own plain version "
+                           f"({what}): {json.dumps(rec)}")
+
+
+def _tc_launched(before: dict, want: dict, what: str) -> None:
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    got = {}
+    for (kernel, _), n in wap.LAUNCHES_BY_KERNEL.items():
+        got[kernel] = got.get(kernel, 0) + n
+    for (kernel, _), n in before.items():
+        got[kernel] -= n
+    got = {k: n for k, n in got.items() if n}
+    if got != want:
+        raise RuntimeError(f"{what}: launched {got}, expected {want}")
+
+
+def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
+    """The tensor-core kernels at one flagship shape (bf16, the model's
+    mask where it has one; head 0 clamped at scale 100, head 1 hot at
+    scale 54.6 - both the online maximum, or in "bf16" the exact-maximum
+    sweep - the others cool, the static shift) in mode `mxu`, through the
+    wrapper as the model calls it: served, the forward alone; trained, the
+    forward with its log-sum-exp and the backward under autograd. Held to
+    the plain version of the mode (fold / fp32: TOL_BF16_REL_L2 and
+    TOL_BWD's bf16 limits; bf16: TOL_MXU_BF16) and to float64 autograd of
+    it (TOL_BWD / TOL_MXU_BF16_AUTOGRAD), and MXU_APART times nearer its
+    own mode's plain version than the other's (_nearer). Timed in the same
+    call: the kernel, the fp32-FMA body (`_fma`), the kernel and the FMA
+    body again (ms = the two turns' mean), the plain version, the SDPA
+    yardstick; trained also the backward without dbias."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    masked = shape["nW"] > 0
+    qkv, ls, bias, mask = make_kernel_inputs(shape, torch.bfloat16, masked,
+                                             gen)
+    ls[1] = 4.0
+    nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
+    other = "fold" if mxu == "bf16" else "bf16"
+    rec = dict(_case_head(shape, torch.bfloat16, mask), mxu=mxu,
+               frame_pairs=2 if train else 1)
+    with torch.no_grad():
+        want = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH, mxu=mxu)
+        want_o = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH, mxu=other)
+    before = dict(wap.LAUNCHES_BY_KERNEL)
+    if train:
+        g = torch.randn((B_, N, C), device="cuda", generator=gen).bfloat16()
+        leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+        out = wap.cosine_window_attention_packed(
+            leaves[0], leaves[1], leaves[2], mask, num_heads=nH, mxu=mxu)
+        out.backward(g)
+        torch.cuda.synchronize()
+        grads = [t.grad for t in leaves]
+        _tc_launched(before, {"window_attention_fwd_tc+lse": 1,
+                              "window_attention_bwd_tc": 1}, f"{rec}")
+    else:
+        with torch.no_grad():
+            out = wap.cosine_window_attention_packed(qkv, ls, bias, mask,
+                                                     num_heads=nH, mxu=mxu)
+        torch.cuda.synchronize()
+        _tc_launched(before, {"window_attention_fwd_tc": 1}, f"{rec}")
+    out = out.detach()
+    if mxu == "bf16":
+        fwd = {"max_abs_err": _errs(out, want)["max_abs"],
+               "rel_l2_err": _errs(out, want)["rel_l2"],
+               "tolerance": {"rel_l2": TOL_MXU_BF16["out"]}}
+        if not (fwd["rel_l2_err"] <= TOL_MXU_BF16["out"]
+                and bool(torch.isfinite(out).all())):
+            raise RuntimeError(f"tensor-core forward (mxu=bf16) disagrees "
+                               f"with its plain version: {json.dumps(fwd)} "
+                               f"at {json.dumps(rec)}")
+    else:
+        fwd = check_forward(out, want, torch.bfloat16, rec)
+    _nearer(rec, "out", out, want, want_o)
+    if train:
+        with torch.no_grad():
+            plain = wap.cosine_window_attention_packed_backward_plain(
+                qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu)
+            plain_o = wap.cosine_window_attention_packed_backward_plain(
+                qkv, ls, bias, mask, g, num_heads=nH, mxu=other)
+        truth = _float64_grads(qkv, ls, bias, mask, g, nH, mxu)
+        rb = mxu == "bf16"
+        rec["backward"] = _check_against(grads, {
+            "vs_plain": (plain, TOL_MXU_BF16 if rb else TOL_BWD["bfloat16"]),
+            "vs_float64_autograd": (truth, TOL_MXU_BF16_AUTOGRAD if rb
+                                    else TOL_BWD["bfloat16"])},
+            f"tensor-core backward (mxu={mxu}) at {json.dumps(rec)}")
+        _nearer(rec, "dqkv", grads[0], plain[0], plain_o[0])
+        err = rec["backward"]["vs_float64_autograd"]["dqkv"]
+        rec["max_abs_err"], rec["rel_l2_err"] = err["max_abs"], err["rel_l2"]
+        rec["forward"] = fwd
+        del truth, plain, plain_o, leaves, grads
+    else:
+        rec.update(fwd)
+    del want, want_o
+    if timed:
+        with torch.no_grad():
+            stats = train
+
+            def tc():
+                return wap._launch_forward(qkv, ls, bias, mask, nH, True,
+                                           stats, mxu=mxu)
+
+            def fma():
+                return wap._launch_forward(qkv, ls, bias, mask, nH, True,
+                                           stats, mxu=mxu, _fma=True)
+            turns = [time_ms(tc), time_ms(fma), time_ms(fma), time_ms(tc)]
+            f = {"ms": (turns[0] + turns[3]) / 2,
+                 "fma_ms": (turns[1] + turns[2]) / 2, "ms_turns": turns,
+                 "plain_ms": time_ms(
+                     lambda: wap.cosine_window_attention_packed_plain(
+                         qkv, ls, bias, mask, num_heads=nH, mxu=mxu),
+                     reps=3, warm=1)}
+            f.update(kernel_bound(B_, N, C, nH, rec["nW"], torch.bfloat16,
+                                  bias.dtype, stats=stats))
+            f.update(tc_work(B_, N, nH, tc_units(mxu, False, ls)))
+        lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
+                                mask, g=wap._split_heads(g, 1, nH)[0]
+                                if train else None)
+        f.update({k: v for k, v in lib.items() if k != "library_bwd_ms"})
+        if not train:
+            rec.update(f)
+        else:
+            rec["forward"].update(f)
+            with torch.no_grad():
+                lse = tc()[1]
+                lse_f = fma()[1]
+
+                def bwd(dbias=True, **kw):
+                    saved = lse_f if kw.get("_fma") else lse
+                    return lambda: wap._launch_backward(
+                        qkv, ls, bias, mask, saved, g, nH, "window_resident",
+                        dbias, mxu=mxu, **kw)
+                turns = [time_ms(bwd(), reps=8, warm=2),
+                         time_ms(bwd(_fma=True), reps=8, warm=2),
+                         time_ms(bwd(_fma=True), reps=8, warm=2),
+                         time_ms(bwd(), reps=8, warm=2)]
+                rec.update({
+                    "ms": (turns[0] + turns[3]) / 2,
+                    "fma_ms": (turns[1] + turns[2]) / 2, "ms_turns": turns,
+                    "ms_no_dbias": time_ms(bwd(dbias=False), reps=8, warm=2),
+                    "plain_ms": time_ms(
+                        lambda: wap.cosine_window_attention_packed_backward_plain(
+                            qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu),
+                        reps=3, warm=1)})
+            rec.update(backward_bound(B_, N, C, nH, rec["nW"],
+                                      torch.bfloat16, bias.dtype))
+            rec.update(tc_work(B_, N, nH, tc_units(mxu, True, ls)))
+            rec.update({k: v for k, v in lib.items() if k != "library_ms"})
+            rec["library_ms"] = lib["library_bwd_ms"]
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_tc(timed: bool = True) -> list:
+    """The tensor-core K1 / K2 at the flagship's four stages, served (1
+    frame pair, forward) and trained (2 pairs, forward with log-sum-exp and
+    backward), in modes fold (the model's), fp32 and bf16 (compare_tc).
+    Every case runs; the phase's line is printed, then it fails if any
+    case disagreed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4242)
+    cases, failed = [], []
+    for train in (False, True):
+        for shape in stage_shapes(batch=2 if train else 1):
+            for mxu in ("fold", "fp32", "bf16"):
+                try:
+                    cases.append(compare_tc(shape, mxu, train, gen, timed))
+                except RuntimeError as e:
+                    failed.append(str(e))
+                torch.cuda.empty_cache()
+    emit("kernel_cases_tc", {
+        "cases": cases, "failed": failed,
+        "timing": "CUDA events around one launch (forward; backward: the dq "
+                  "and dk/dv passes), median of 20 / 8 after warm-up, in "
+                  "turns kernel, FMA body, FMA body, kernel (ms_turns); "
+                  "inputs stay in L2"})
+    if failed:
+        raise RuntimeError(f"kernel_cases_tc: {len(failed)} case(s) "
+                           f"disagree: {failed[0]}")
+    return cases
 
 
 def main() -> int:
@@ -2839,10 +3123,12 @@ def main() -> int:
     k4_cases = phase_kernels_resident(timed=timed)
     kw_cases = phase_kernels_w(timed=timed)
     mxu_cases = phase_kernels_mxu(timed=timed)
+    tc_cases = phase_kernels_tc(timed=timed)
     if args.only == "kernels":
         return 0
     tool_entries = phase_probes() + phase_variants()
-    roof_entries, _ = phase_roofline()
+    roof_entries, roof = phase_roofline()
+    tc_bounds(tc_cases, roof["rates"]["dot_bf16_TFLOP_s"])
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
@@ -2876,8 +3162,10 @@ def main() -> int:
     entries = []
     for sv, tr in ((serve, train), (serve_large, train_large),
                    (serve_slab, train_slab)):
-        entries += contract_serve(k1_cases, hs_cases, slab_cases, sv)
-        entries += contract_train(k2_cases, hs_cases, slab_cases, tr)
+        entries += contract_serve(k1_cases, hs_cases, slab_cases, sv,
+                                  tc_cases)
+        entries += contract_train(k2_cases, hs_cases, slab_cases, tr,
+                                  tc_cases)
     entries += contract_resident(k4_cases, train_res)
     entries += contract_w(kw_cases, serve_w, train_w)
     entries += contract_mxu(mxu_cases, train_mxu)

@@ -88,8 +88,11 @@
 // version spends eight (nine to ten with dbias) N x N x 32 products, all as
 // fp32 FMAs on register tiles (8x4 per thread for the N x N tiles, 4x4 for
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
-// inputs far from their tensor-core bound. Tensor-core products and a
-// one-pass dq/dk/dv are the known next steps.
+// inputs far from their tensor-core bound. The port's bf16 packed launches
+// at one window per block run window_attention_bwd_tc.cu instead (bf16
+// mma.sync); under MMDE_ATTN_GRID=split K3's pass alone follows them
+// (mmde_window_attention_dbias). This body serves fp32 qkv, K5, the
+// head-split and slab layouts, and is that kernel's same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)
@@ -1371,6 +1374,27 @@ int launch_packed_w(const void* qkv, const void* g, const void* ls,
                                        dbias_mode, W, stream);
 }
 
+// K3 alone on the packed layout, after the tensor-core passes
+// (window_attention_bwd_tc.cu) wrote delta
+template <typename T, typename TB, bool FASTEXP, int MXU>
+int launch_dbias(const void* qkv, const void* g, const void* ls,
+                 const void* bias, const void* mask, const void* lse,
+                 const void* delta, void* dbias, int B_, int N, int nH,
+                 int nW, cudaStream_t stream) {
+  const int C = nH * DH;
+  const Rows<const T> q = packed_rows((const T*)qkv, 0, N, C, 3, DH);
+  const Rows<const T> k = packed_rows((const T*)qkv, 1, N, C, 3, DH);
+  const Rows<const T> v = packed_rows((const T*)qkv, 2, N, C, 3, DH);
+  const Rows<const T> gg = packed_rows((const T*)g, 0, N, C, 1, DH);
+  if (!rows_aligned(q) || !rows_aligned(k) || !rows_aligned(v) ||
+      !rows_aligned(gg))
+    return -1;
+  const int nT = (N + BT - 1) / BT;
+  dim3 grid(nT, nT, nH);
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
+  return (int)cudaGetLastError();
+}
+
 enum Layout { PACKED, STRIDED, MAP };
 
 // PACKED: q = qkv (B_, N, 3C), g (B_, N, C), dq = dqkv (B_, N, 3C), each by
@@ -1488,6 +1512,38 @@ extern "C" int mmde_window_attention_bwd(
         PACKED, qkv, nullptr, nullptr, g, nullptr, logit_scale, bias, mask,
         lse, dqkv, nullptr, nullptr, delta, dls_part, dbias, B_, N, nH, nW,
         qkv_bf16, bias_bf16, dbias_mode, stream);
+  });
+}
+
+// K3's pass alone (MMDE_ATTN_GRID=split behind the tensor-core passes of
+// window_attention_bwd_tc.cu, which write delta): dbias (nH, N, N) fp32,
+// every element written once. The other arguments as for
+// mmde_window_attention_bwd; lse and delta as that entry leaves them.
+extern "C" int mmde_window_attention_dbias(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, const void* delta,
+    void* dbias, int B_, int N, int C, int nH, int nW, int qkv_bf16,
+    int bias_bf16, int mxu, void* stream) {
+  if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535 ||
+      dbias == nullptr)
+    return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if (!qkv_bf16 && !bias_bf16)
+      return launch_dbias<float, float, false, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
+          s);
+    if (qkv_bf16 && bias_bf16)
+      return launch_dbias<__nv_bfloat16, __nv_bfloat16, true, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
+          s);
+    if (qkv_bf16 && !bias_bf16)
+      return launch_dbias<__nv_bfloat16, float, true, MXU>(
+          qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
+          s);
+    return -1;
   });
 }
 

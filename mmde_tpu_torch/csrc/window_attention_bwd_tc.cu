@@ -1,0 +1,627 @@
+// Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
+// (sm_90a, bf16 mma.sync), for bf16 qkv and g in the packed layout, one
+// window per block.
+//
+// Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
+// by _pallas_backward) for every bf16 launch at w = 1, in all three
+// precision modes: dqkv, dlogit_scale and (dbias_mode 1) dbias. Under
+// MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
+// windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
+// delta written here. window_attention_bwd.cu keeps K2's fp32-FMA body for
+// fp32 qkv and for K5 (w > 1). Same function and the same two passes as K2
+// (its header has the formulas):
+//
+//   dq/delta pass    one block per (window, head, 64-query tile), two
+//                    sweeps over 64-key tiles, each S = q k^T and dP = g v^T
+//                    with p rebuilt from the forward's log-sum-exp: the
+//                    first sums delta (exact, fp32), the second forms
+//                    ds = p (dp - delta) and dqn = sum_j ds_ij f_j k_j,
+//                    f_j = scale * rk_j. (K2's one sweep, dqn = A - delta B
+//                    with A = sum_j (p dp)_ij f_j k_j and B = sum_j p_ij f_j
+//                    k_j, was faster on the card, but its two sums cancel
+//                    where p sits on keys with dp near delta (hot heads) and
+//                    the operands' split residual (2^-17) then shows at
+//                    ~2e-5 of dq, over the 1e-5 the fp32 function is held
+//                    to; PERF.md has both times.)
+//   dk/dv pass       one block per (window, head, 64-key tile), a loop over
+//                    64-query tiles with lse and delta read back. It forms
+//                    S^T = k q^T and dP^T = v g^T directly, so p^T and ds^T
+//                    sit in the accumulators as the A fragments of dv += p^T
+//                    g and dkn += sum_i ds_ij (scale * rq_i) q_i; dk and dv
+//                    are summed over the query tiles in fp32 registers.
+//                    dlogit_scale: sum(ds * sc) from the fp32 accumulators
+//                    in every mode (K2's shortcut k^ . dkn would carry dkn's
+//                    split residual into a sum whose terms cancel), fp64
+//                    partials per block, no atomics. dbias: fp32 atomics
+//                    into (nH, query, key): a 4 x 4 transpose over the four
+//                    lanes of a fragment's column group (three shuffles)
+//                    hands each lane 4 consecutive keys of one query, one
+//                    16-byte vector atomic where N % 4 == 0, scalar atomics
+//                    elsewhere.
+//
+// What bounds it on an H100: bytes are few (qkv, g and dqkv once, bias and
+// mask from L2, dbias once), the work five N x N x 32 products and two exp
+// passes per (window, head); K2's body runs its eight products as fp32
+// FMAs. Here every product is bf16 mma.sync with fp32 accumulation and the
+// function stays the fp32 one: q, k, v and g are bf16 values (exact
+// operands), the fp32 factors rq, rk and scale are applied to accumulators
+// or folded into the fp32 operand that is split in two (bf16 hi + bf16 lo,
+// ~2^-17 left over). S, dP: 1 mma each (twice in the dq pass); ds k, dv,
+// dk: 2 each (12 N x N x 32 units issued, where the function needs 8 with
+// its split operands). The bf16 mode takes the JAX body's rounded operands
+// - bf16(q^ * scale), bf16(k^), bf16(p), bf16(ds) - one mma each (9 issued,
+// 5 needed). Tiles, fragments and the softmax rebuild follow
+// window_attention_fwd_tc.cu: raw bf16 tiles double-buffered by cp.async,
+// ldmatrix (.trans where the k of a product runs over the tile's rows),
+// rows of a fragment reduced inside their quad.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "window_attention_tc.cuh"
+
+namespace {
+
+// 4 bytes global -> shared, asynchronous; zero when !valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// dq and delta: one block per (query tile, head, window)
+// ---------------------------------------------------------------------------
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT)
+bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+                 Rows<const bf16> g, const float* __restrict__ logit_scale,
+                 const TB* __restrict__ bias, const TB* __restrict__ mask,
+                 const float* __restrict__ lse, Rows<bf16> dq,
+                 float* __restrict__ delta, int N, int nW) {
+  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  __shared__ float sRk[2][TC_BT];
+  // 2 stages x {bias[, mask]} tiles
+  extern __shared__ __align__(128) char sBM[];
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
+  const bf16* k_bh = k.head(b, h);
+  const bf16* v_bh = v.head(b, h);
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
+                                     : nullptr;
+  const size_t stat0 = ((size_t)b * gridDim.y + h) * N;
+  const float scale = expf(fminf(logit_scale[h], TC_LN100));
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  const int steps = 2 * nt;     // delta first, then ds
+  constexpr int TB_BYTES = btile_bytes<TB>();
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+  const int nb = mask_w != nullptr ? 2 : 1;
+
+  auto issue = [&](int s) {     // step s's K, V, bias, mask -> stage s & 1
+    const int st = s & 1, kn = (s % nt) * TC_BT;
+    load_tile(sK[st], k_bh, k, kn, N, tid);
+    load_tile(sV[st], v_bh, v, kn, N, tid);
+    if (async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, kn, N, tid, true);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, kn, N, tid,
+                   true);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+  uint32_t qa[2][4], qs[2][4], ga[2][4];
+  load_afrag(qa, q.head(b, h), q, r0, N, t);
+  load_afrag(ga, g.head(b, h), g, r0, N, t);
+  float rq0, rq1;
+  row_norms(qa, rq0, rq1, lane);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qs[ks][i] = qa[ks][i];
+  if constexpr (RB) scale_afrag(qs, rq0, rq1, scale);
+  const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
+  const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+  const float lse0 = ok0 ? lse[stat0 + r0] : 0.0f;
+  const float lse1 = ok1 ? lse[stat0 + r1] : 0.0f;
+
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float dpart0 = 0.0f, dpart1 = 0.0f, dl0 = 0.0f, dl1 = 0.0f;
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1;
+    const int k0 = (step % nt) * TC_BT;
+    const bool first = step < nt;   // the delta sweep
+    if (step == nt) {
+      dl0 = quad_sum(dpart0);
+      dl1 = quad_sum(dpart1);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) issue(step + 1);
+    const char* tb = sBM + nb * st * TB_BYTES;
+    const char* tm = tb + TB_BYTES;
+    if (!async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
+                   false);
+    }
+    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], dp[2][4], f[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+        uint32_t kb[4], vb[4];
+        frag_rows(kb, sK[st], j, lane);
+        mma(s[jj], qs[0], kb[0], kb[1]);
+        mma(s[jj], qs[1], kb[2], kb[3]);
+        frag_rows(vb, sV[st], j, lane);
+        mma(dp[jj], ga[0], vb[0], vb[1]);
+        mma(dp[jj], ga[1], vb[2], vb[3]);
+      }
+      // p = exp(s - lse), 0 past the edge
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cl = 8 * (2 * kk + jj) + 2 * t;
+        const int col = k0 + cl;
+        const float rk[2] = {sRk[st][cl], sRk[st][cl + 1]};
+        f[jj][0] = RB ? 1.0f : scale * rk[0];   // the bf16 mode: ds as it is
+        f[jj][1] = RB ? 1.0f : scale * rk[1];
+        const bool in1 = col + 1 < N;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* x = &s[jj][2 * half];
+          if (col >= N || !(half ? ok1 : ok0)) {
+            x[0] = x[1] = 0.0f;
+            continue;
+          }
+          const int rl = warp * 16 + (lane >> 2) + 8 * half;  // tile row
+          const float c = half ? c1 : c0;
+          const float ls2 = (half ? lse1 : lse0) * TC_LOG2E;
+          float2 bm = btile_pair(tb, rl, cl, TB());
+          if (nb == 2) {
+            const float2 mm = btile_pair(tm, rl, cl, TB());
+            bm.x += mm.x;
+            bm.y += mm.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float y = x[e];
+            if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
+            else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
+            x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
+          }
+          if (!in1) x[1] = 0.0f;
+        }
+      }
+      if (first) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          dpart0 += s[jj][0] * dp[jj][0] + s[jj][1] * dp[jj][1];
+          dpart1 += s[jj][2] * dp[jj][2] + s[jj][3] * dp[jj][3];
+        }
+        continue;
+      }
+      // ds = p (dp - delta); the bf16 mode rounds ds itself (f = 1)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        dp[jj][0] = s[jj][0] * (dp[jj][0] - dl0);
+        dp[jj][1] = s[jj][1] * (dp[jj][1] - dl0);
+        dp[jj][2] = s[jj][2] * (dp[jj][2] - dl1);
+        dp[jj][3] = s[jj][3] * (dp[jj][3] - dl1);
+      }
+      uint32_t ah[4], al[4];
+      afrag<!RB>(dp[0], dp[1], f[0], f[1], ah, al);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t kb[4];
+        frag_cols(kb, sK[st], kk, c, lane);
+        mma(acc[2 * c], ah, kb[0], kb[1]);
+        mma(acc[2 * c + 1], ah, kb[2], kb[3]);
+        if constexpr (!RB) {
+          mma(acc[2 * c], al, kb[0], kb[1]);
+          mma(acc[2 * c + 1], al, kb[2], kb[3]);
+        }
+      }
+    }
+  }
+  if (t == 0) {
+    if (ok0) delta[stat0 + r0] = dl0;
+    if (ok1) delta[stat0 + r1] = dl1;
+  }
+
+  // dq = rq (dqn - q^ (dqn . q^)), q^ from the raw q fragments
+  float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = acc[n][e];
+      if constexpr (RB) x *= scale;
+      const uint32_t w = afrag_at(qa, n, e >> 1);
+      const float qn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rq0 : rq1);
+      dqn[n][e] = x;
+      if (e < 2) dot0 = fmaf(x, qn, dot0);
+      else dot1 = fmaf(x, qn, dot1);
+    }
+  dot0 = quad_sum(dot0);
+  dot1 = quad_sum(dot1);
+  bf16* dq_bh = dq.head(b, h) + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? ok1 : ok0)) continue;
+      const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
+      const uint32_t w = afrag_at(qa, n, half);
+      store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
+                 rq * (dqn[n][2 * half] - lo_f(w) * rq * dot),
+                 rq * (dqn[n][2 * half + 1] - hi_f(w) * rq * dot));
+    }
+}
+
+// dbias[query][key..key+3] += (a, b, c, d): one 16-byte vector atomic
+__device__ __forceinline__ void atomic_add4(float* p, float a, float b,
+                                            float c, float d) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
+}
+
+// x[i] for a lane-dependent i in 0..3, by selects (no local memory)
+__device__ __forceinline__ float pick4(const float* x, int i) {
+  return i & 2 ? (i & 1 ? x[3] : x[2]) : (i & 1 ? x[1] : x[0]);
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv, dlogit_scale partials, dbias: one block per (key tile, head,
+// window)
+// ---------------------------------------------------------------------------
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT)
+bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+                  Rows<const bf16> g, const float* __restrict__ logit_scale,
+                  const TB* __restrict__ bias, const TB* __restrict__ mask,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, Rows<bf16> dk,
+                  Rows<bf16> dv, double* __restrict__ dls_part,
+                  float* __restrict__ dbias, int N, int nW) {
+  __shared__ __align__(128) bf16 sQ[2][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sG[2][TC_BT * TC_LD];
+  __shared__ float sRq[2][TC_BT];
+  __shared__ float sLse[2][TC_BT];
+  __shared__ float sDl[2][TC_BT];
+  __shared__ double sRed[4];
+  // 2 stages x {bias[, mask]} tiles
+  extern __shared__ __align__(128) char sBM[];
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int k0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
+  const int nH = gridDim.y;
+  const bf16* q_bh = q.head(b, h);
+  const bf16* g_bh = g.head(b, h);
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
+                                     : nullptr;
+  float* dbias_h = dbias != nullptr ? dbias + (size_t)h * N * N : nullptr;
+  const size_t stat0 = ((size_t)b * nH + h) * N;
+  const float ls = logit_scale[h];
+  const float scale = expf(fminf(ls, TC_LN100));
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  constexpr int TB_BYTES = btile_bytes<TB>();
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+  const int nb = mask_w != nullptr ? 2 : 1;
+
+  // query tile q0's Q, G, lse, delta, bias and mask (rows: queries, cols:
+  // this block's keys) -> stage st
+  auto load = [&](int st, int q0) {
+    load_tile(sQ[st], q_bh, q, q0, N, tid);
+    load_tile(sG[st], g_bh, g, q0, N, tid);
+    if (async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, true);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
+                   true);
+    }
+    const int j = tid & (TC_BT - 1);
+    const bool ok = q0 + j < N;
+    const float* src = (tid < TC_BT ? lse : delta) + stat0 + (ok ? q0 + j : 0);
+    cp_async4(tid < TC_BT ? &sLse[st][j] : &sDl[st][j], src, ok);
+    cp_async_commit();
+  };
+  load(0, 0);
+
+  const int r0 = k0 + warp * 16 + (lane >> 2), r1 = r0 + 8;   // keys
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+  uint32_t ka[2][4], ks_[2][4], va[2][4];
+  load_afrag(ka, k.head(b, h), k, r0, N, t);
+  load_afrag(va, v.head(b, h), v, r0, N, t);
+  float rk0, rk1;
+  row_norms(ka, rk0, rk1, lane);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ks_[s][i] = ka[s][i];
+  if constexpr (RB) scale_afrag(ks_, rk0, rk1, 1.0f);   // bf16(k^)
+
+  float accV[4][4], accK[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accV[n][e] = accK[n][e] = 0.0f;
+  double dls = 0.0;
+
+  for (int it = 0; it < nt; ++it) {
+    const int st = it & 1;
+    const int q0 = it * TC_BT;
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < nt) load(st ^ 1, q0 + TC_BT);
+    const char* tb = sBM + nb * st * TB_BYTES;
+    const char* tm = tb + TB_BYTES;
+    if (!async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
+                   false);
+    }
+    // the bf16 mode's q operand, bf16(q^ * scale), in place
+    tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    __syncthreads();
+
+    float dls_t = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], dp[2][4], f[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+        uint32_t qb[4], gb[4];
+        frag_rows(qb, sQ[st], j, lane);
+        mma(s[jj], ks_[0], qb[0], qb[1]);
+        mma(s[jj], ks_[1], qb[2], qb[3]);
+        frag_rows(gb, sG[st], j, lane);
+        mma(dp[jj], va[0], gb[0], gb[1]);
+        mma(dp[jj], va[1], gb[2], gb[3]);
+      }
+      // p^T, ds^T (rows: keys r0 / r1, cols: queries i, i + 1)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cl = 8 * (2 * kk + jj) + 2 * t;
+        const int i = q0 + cl;
+        const float rq[2] = {sRq[st][cl], sRq[st][cl + 1]};
+        const float ls2[2] = {sLse[st][cl] * TC_LOG2E,
+                              sLse[st][cl + 1] * TC_LOG2E};
+        const float dl[2] = {sDl[st][cl], sDl[st][cl + 1]};
+        f[jj][0] = RB ? 1.0f : scale * rq[0];   // the bf16 mode: ds as it is
+        f[jj][1] = RB ? 1.0f : scale * rq[1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kl = warp * 16 + (lane >> 2) + 8 * half;   // tile col
+          const float rk = half ? rk1 : rk0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[jj][2 * half + e];
+            float& d = dp[jj][2 * half + e];
+            if (!(half ? ok1 : ok0) || i + e >= N) {
+              x = d = 0.0f;
+              continue;
+            }
+            float sc = x;
+            if constexpr (MXU == MXU_FP32) sc = sc * rq[e] * rk * scale;
+            else if constexpr (MXU == MXU_FOLD) sc = sc * (scale * rq[e]) * rk;
+            float y = sc + btile_at<TB>(tb, cl + e, kl);
+            if (nb == 2) y += btile_at<TB>(tm, cl + e, kl);
+            x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
+            d = x * (d - dl[e]);
+            dls_t = fmaf(d, sc, dls_t);
+          }
+        }
+      }
+      if (dbias_h != nullptr) {
+        // lane 4 (4a + m) + t holds ds of keys kb + m (x[0], x[1]) and
+        // kb + 8 + m (x[2], x[3]), kb = k0 + 16 warp + 4a, for queries
+        // i, i + 1
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int i = q0 + 8 * (2 * kk + jj) + 2 * t;
+          const float* x = dp[jj];
+          if ((N & 3) == 0) {
+            // 4 x 4 transpose over the lanes m = 0..3 of one (a, t): round
+            // r trades with lane m ^ r, which sends its x[m], so lane m
+            // gathers x[m] of all four - keys kb + 8 (m >> 1) .. + 3 of
+            // query i + (m & 1)
+            const int m = (lane >> 2) & 3;
+            float got[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float send = pick4(x, m ^ r);
+              got[r] = r == 0 ? send
+                              : __shfl_xor_sync(0xffffffffu, send, 4 * r);
+            }
+            const int key = k0 + warp * 16 + 4 * (lane >> 4) + 8 * (m >> 1);
+            const int qi = i + (m & 1);
+            if (key < N && qi < N)
+              atomic_add4(dbias_h + (size_t)qi * N + key, pick4(got, m),
+                          pick4(got, m ^ 1), pick4(got, m ^ 2),
+                          pick4(got, m ^ 3));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = e < 2 ? r0 : r1, ii = i + (e & 1);
+              if (key < N && ii < N)
+                atomicAdd(dbias_h + (size_t)ii * N + key, x[e]);
+            }
+          }
+        }
+      }
+      // dv += p^T g, dkn += ds^T (scale rq q) (the bf16 mode: bf16(ds)^T
+      // bf16(q^ scale))
+      uint32_t ph[4], pl[4], dh[4], dl4[4];
+      const float one[2] = {1.0f, 1.0f};
+      afrag<!RB>(s[0], s[1], one, one, ph, pl);
+      afrag<!RB>(dp[0], dp[1], f[0], f[1], dh, dl4);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t gb[4], qb[4];
+        frag_cols(gb, sG[st], kk, c, lane);
+        frag_cols(qb, sQ[st], kk, c, lane);
+        mma(accV[2 * c], ph, gb[0], gb[1]);
+        mma(accV[2 * c + 1], ph, gb[2], gb[3]);
+        mma(accK[2 * c], dh, qb[0], qb[1]);
+        mma(accK[2 * c + 1], dh, qb[2], qb[3]);
+        if constexpr (!RB) {
+          mma(accV[2 * c], pl, gb[0], gb[1]);
+          mma(accV[2 * c + 1], pl, gb[2], gb[3]);
+          mma(accK[2 * c], dl4, qb[0], qb[1]);
+          mma(accK[2 * c + 1], dl4, qb[2], qb[3]);
+        }
+      }
+    }
+    dls += dls_t;
+  }
+
+  // dk = rk (dkn - k^ (dkn . k^))
+  float dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t w = afrag_at(ka, n, e >> 1);
+      const float kn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rk0 : rk1);
+      if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
+      else dot1 = fmaf(accK[n][e], kn, dot1);
+    }
+  dot0 = quad_sum(dot0);
+  dot1 = quad_sum(dot1);
+  bf16* dk_bh = dk.head(b, h) + 2 * t;
+  bf16* dv_bh = dv.head(b, h) + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? ok1 : ok0)) continue;
+      const int key = half ? r1 : r0;
+      const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
+      const uint32_t w = afrag_at(ka, n, half);
+      store_pair(dk_bh + dk.off(key) + 8 * n,
+                 rk * (accK[n][2 * half] - lo_f(w) * rk * dot),
+                 rk * (accK[n][2 * half + 1] - hi_f(w) * rk * dot));
+      store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
+                 accV[n][2 * half + 1]);
+    }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    dls += __shfl_xor_sync(0xffffffffu, dls, off);
+  if (lane == 0) sRed[warp] = dls;
+  __syncthreads();
+  if (tid == 0) {
+    const double tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
+    dls_part[((size_t)b * gridDim.x + blockIdx.x) * nH + h] =
+        ls < TC_LN100 ? tot : 0.0;
+  }
+}
+
+template <typename TB, int MXU>
+int launch(const void* qkv, const void* g, const void* ls, const void* bias,
+           const void* mask, const void* lse, void* dqkv, void* delta,
+           void* dls_part, void* dbias, int B_, int N, int nH, int nW,
+           cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
+  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
+  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
+  const Rows<const bf16> rg = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
+  const Rows<bf16> dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
+  const Rows<bf16> dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
+  const Rows<bf16> dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
+  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
+      !rows_aligned(rg) || !rows_aligned(dq) || !rows_aligned(dk) ||
+      !rows_aligned(dv))
+    return -1;
+  const int smem = (mask != nullptr ? 4 : 2) * btile_bytes<TB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_tc_kernel<TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * btile_bytes<TB>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<TB, MXU>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             4 * btile_bytes<TB>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
+  bwd_dq_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+      rq, rk, rv, rg, (const float*)ls, (const TB*)bias, (const TB*)mask,
+      (const float*)lse, dq, (float*)delta, N, nW);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkv_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+      rq, rk, rv, rg, (const float*)ls, (const TB*)bias, (const TB*)mask,
+      (const float*)lse, (const float*)delta, dk, dv, (double*)dls_part,
+      (float*)dbias, N, nW);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry. qkv (B_, N, 3C), g (B_, N, C) and dqkv (B_, N, 3C) bf16,
+// C = 32 * nH; bias (nH, N, N) and mask (nW, N, N; may be null) bf16 when
+// bias_bf16, else fp32. lse (B_, nH, N) fp32 from the forward; delta
+// (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp64 are written
+// (the caller sums dls_part over its first axis). dbias (nH, N, N) fp32
+// receives dbias by atomics when dbias_mode = 1 (the caller zeroes it
+// first); dbias_mode 0: no dbias (may
+// be null). mxu: MXU_FP32 / MXU_FOLD / MXU_BF16
+// (window_attention_common.cuh; -1 for another code). Returns the first
+// CUDA error of the two launches, or -1 for arguments the kernels do not
+// take. Launches on `stream`, does not synchronise, allocates nothing.
+extern "C" int mmde_window_attention_bwd_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, void* dqkv,
+    void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
+    int nW, int bias_bf16, int dbias_mode, int mxu,
+    void* stream) {
+  if (C != nH * TC_DH || B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 ||
+      nH > 65535)
+    return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  if (dbias_mode < 0 || dbias_mode > 1) return -1;
+  if (dbias_mode == 1 && dbias == nullptr) return -1;
+  void* db = dbias_mode == 1 ? dbias : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if constexpr (MXU == MXU_FOLD_PV) {
+      return -1;
+    } else if (bias_bf16) {
+      return launch<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse, dqkv,
+                               delta, dls_part, db, B_, N, nH, nW, s);
+    } else {
+      return launch<float, MXU>(qkv, g, logit_scale, bias, mask, lse, dqkv,
+                                delta, dls_part, db, B_, N, nH, nW, s);
+    }
+  });
+}

@@ -243,12 +243,19 @@ __device__ __forceinline__ void fetch_row(const T* __restrict__ base,
   }
 }
 
-// x <- x * rsqrt(sum(x^2) + 1e-12); returns the factor
+// x <- x * rsqrt(sum(x^2) + 1e-12); returns the factor. The sum is one
+// fused multiply-add chain over the channels in order: every kernel - the
+// fp32-FMA bodies here and the tensor-core ones (window_attention_tc.cuh
+// gathers a row into one lane for it) - takes the same chain, so that a
+// forward and a backward that meet the same row in different kernels get
+// the same norm to the bit (in the bf16 mode a last-bit difference can move
+// a rounded operand by a bf16 ulp). The intrinsic keeps every compilation
+// to the fused form.
 template <int D>
 __device__ __forceinline__ float normalise(float (&x)[D]) {
   float ss = 0.0f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) ss += x[d] * x[d];
+  for (int d = 0; d < D; ++d) ss = __fmaf_rn(x[d], x[d], ss);
   const float inv = rsqrtf(ss + 1e-12f);
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] *= inv;

@@ -65,8 +65,10 @@
 // at the tensor-core rate would be bound by those few bytes. Both products
 // run here as fp32 FMAs on register tiles (8x4 logits and 4x4 outputs per
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
-// load and take the same path, far from their bound. Tensor-core products
-// (mma.sync / wgmma for bf16) are the known next step.
+// load and take the same path, far from their bound. The port's bf16 packed
+// launches at one window per block run window_attention_fwd_tc.cu instead
+// (bf16 mma.sync); this body serves fp32 qkv, K5, the head-split and slab
+// layouts, and is that kernel's same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`): the packed bodies (K1, K5) are templates over it, and their C
@@ -147,12 +149,7 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
     const int r = q0 + tid;
     if (r < N) {
       load_row(q_bh + q.off(r), x);
-      float ss = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
-      const float inv = rsqrtf(ss + 1e-12f);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) x[d] *= inv;
+      normalise(x);
     } else {
 #pragma unroll
       for (int d = 0; d < DH; ++d) x[d] = 0.0f;
@@ -194,12 +191,9 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
         for (int d = 0; d < DH; ++d) x[d] = 0.0f;
       }
       if (is_k) {
-        float ss = 0.0f;
+        normalise(x);
 #pragma unroll
-        for (int d = 0; d < DH; ++d) ss += x[d] * x[d];
-        const float inv = rsqrtf(ss + 1e-12f);
-#pragma unroll
-        for (int d = 0; d < DH; ++d) sKt[d * BK + j] = rnd<RQK>(x[d] * inv);
+        for (int d = 0; d < DH; ++d) sKt[d * BK + j] = rnd<RQK>(x[d]);
       } else {
 #pragma unroll
         for (int d = 0; d < DH; d += 4)

@@ -1,0 +1,332 @@
+// Fused SwinV2 cosine window attention, forward, on Hopper's tensor cores
+// (sm_90a, bf16 mma.sync), for bf16 qkv in the packed layout (qkv as the
+// Linear emits it, (B_, N, 3C); out (B_, N, C)), one window per block.
+//
+// Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
+// _pallas_forward) for every bf16 launch at w = 1 - the flagship's and
+// swin_large's default serving and training path - in all three precision
+// modes. window_attention_fwd.cu keeps K1's fp32-FMA body for fp32 qkv, for
+// K5 (w > 1) and as the same-card A/B partner; the function, the softmax
+// forms and the log-sum-exp handed to the backward are the same.
+//
+//   per (window b, head h):
+//     q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),  k^ = k * rk likewise
+//     s  = scale * q^ k^T + bias[h] + mask[b % nW],  o = softmax(s) v
+//
+// What bounds it on an H100: the bytes are few (qkv once, out once, bias
+// and mask from L2), the work is two N x N x 32 products and N^2 exps per
+// (window, head): at 989 TFLOP/s bf16 it would be bound by bytes, at the
+// fp32-FMA rate K1's body reaches (38.5 TFLOP/s for its tile pattern) by
+// operations. This body puts both products on bf16 mma.sync (275 TFLOP/s
+// for the same pattern on this card) without changing the function:
+//
+//   * q and k are bf16 values, and a product of two bf16 values is exact in
+//     fp32; mma.sync accumulates in fp32. So S = q k^T is taken on the raw
+//     values and normalised afterwards, a rank-1 fp32 epilogue on the
+//     accumulator: "fold" s = S * (scale * rq_i) * rk_j, "fp32"
+//     s = (S * rq_i * rk_j) * scale - q^ k^T up to fp32 rounding order.
+//   * v is bf16 (exact); p is fp32, so p v runs as two products, p split
+//     into bf16(p) and bf16(p - bf16(p)): what is left is ~2^-17 * p, far
+//     below the output's own bf16 rounding.
+//   * "bf16" mode takes the JAX body's rounded operands instead:
+//     bf16(q^ * scale), bf16(k^) (k^ formed in shared memory once per key
+//     tile) and bf16(p) against the exact row maximum (a logits-only sweep
+//     first, as K1), each product one mma.sync.
+//
+// Structure: a block (4 warps) owns one (window, head, 64-query tile); each
+// warp 16 query rows, whose q stays in registers as A fragments for the
+// whole key loop. Key and value tiles of 64 rows (raw bf16, rows padded to
+// 80 bytes) are double-buffered in shared memory by 16-byte cp.async and
+// read as fragments by ldmatrix (.trans for v). The logits accumulators
+// become the A fragments of p v directly: p never touches shared memory.
+// Bias and mask tiles (64 x 64, the accumulators' rows and cols) come by
+// 8-byte cp.async beside K and V, double-buffered too (plain loads where N
+// rows are not 8-byte aligned, N = 225), and are read at each accumulator
+// element's (row, col) from shared memory. Row maximum and row sum stay
+// inside a quad (the 4 lanes that hold a row). Softmax forms as K1: the
+// static shift scale + 16 for heads with scale <= 30 under maxfree, an
+// online maximum otherwise (F1); the ragged edge (N = 900 = 14*64 + 4,
+// N = 225 = 3*64 + 33) is masked here. Two __syncthreads a key tile: the
+// tile's arrival, and its norms (and, in the bf16 mode, its rounded k^)
+// being written.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "window_attention_tc.cuh"
+
+namespace {
+
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT)
+fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+              const float* __restrict__ logit_scale,
+              const TB* __restrict__ bias, const TB* __restrict__ mask,
+              Rows<bf16> out, float* __restrict__ lse, int N, int nW,
+              int maxfree) {
+  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  __shared__ float sRk[2][TC_BT];
+  // 2 stages x {bias[, mask]} tiles
+  extern __shared__ __align__(128) char sBM[];
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
+  const bf16* k_bh = k.head(b, h);
+  const bf16* v_bh = v.head(b, h);
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
+                                     : nullptr;
+
+  const float scale = expf(fminf(logit_scale[h], TC_LN100));
+  const float shift = scale + 16.0f;
+  const bool mf = maxfree != 0 && scale <= TC_MAXFREE_MAX_SCALE;
+  // the bf16 mode rounds p against the row's exact maximum: a first sweep
+  // of the logits alone finds it
+  const bool max_first = RB && !mf;
+  const bool fixed = mf || max_first;
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  const int steps = (max_first ? 2 : 1) * nt;
+  constexpr int TB_BYTES = btile_bytes<TB>();
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+  const int nb = mask_w != nullptr ? 2 : 1;     // tiles a stage
+
+  // step `s`'s K (and V, outside the bf16 mode's first sweep), bias and
+  // mask tiles into stage s & 1
+  auto issue = [&](int s) {
+    const int st = s & 1, kn = (s % nt) * TC_BT;
+    load_tile(sK[st], k_bh, k, kn, N, tid);
+    if (!(max_first && s < nt)) load_tile(sV[st], v_bh, v, kn, N, tid);
+    if (async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, kn, N, tid, true);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, kn, N, tid,
+                   true);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  uint32_t qa[2][4];
+  load_afrag(qa, q.head(b, h), q, r0, N, t);
+  float rq0, rq1;
+  row_norms(qa, rq0, rq1, lane);
+  if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);
+  // the rank-1 epilogue's row factor (fp32 mode: scale applied last)
+  const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
+  const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+
+  float m0 = mf ? shift : -INFINITY, m1 = m0;
+  float l0 = 0.0f, l1 = 0.0f;
+  float o[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1;
+    const int k0 = (step % nt) * TC_BT;
+    const bool sweep = max_first && step < nt;  // the logits-only sweep
+    cp_async_wait_all();
+    __syncthreads();  // tile `step` arrived; every warp left step - 1
+    if (step + 1 < steps) issue(step + 1);
+    const char* tb = sBM + nb * st * TB_BYTES;
+    const char* tm = tb + TB_BYTES;
+    if (!async_b) {
+      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
+      if (nb == 2)
+        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
+                   false);
+    }
+    // k^'s norms (the bf16 mode: k^ rounded in place; its second sweep
+    // reloads the raw tile and rounds it again)
+    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    __syncthreads();
+
+    // ---- S = q k^T (raw or rounded operands), the epilogue ----
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+      uint32_t kb[4];
+      frag_rows(kb, sK[st], j, lane);
+      mma(s[j], qa[0], kb[0], kb[1]);
+      mma(s[j], qa[1], kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + 2 * t;       // tile column of elements 0 / 2
+      const int col = k0 + cl;
+      const float rk[2] = {sRk[st][cl], sRk[st][cl + 1]};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rl = warp * 16 + (lane >> 2) + 8 * half;   // tile row
+        const float c = half ? c1 : c0;
+        float* x = &s[j][2 * half];
+        if (col >= N || !(half ? ok1 : ok0)) {
+          // past the edge: keys -inf (p = 0), rows a finite filler
+          x[0] = col < N ? 0.0f : -INFINITY;
+          x[1] = col + 1 < N ? 0.0f : -INFINITY;
+          continue;
+        }
+        const bool in1 = col + 1 < N;
+        float2 bm = btile_pair(tb, rl, cl, TB());
+        if (nb == 2) {
+          const float2 mm = btile_pair(tm, rl, cl, TB());
+          bm.x += mm.x;
+          bm.y += mm.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float y = x[e];
+          if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
+          else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
+          x[e] = y + (e ? bm.y : bm.x);
+        }
+        if (!in1) x[1] = -INFINITY;
+      }
+    }
+
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+    if (sweep || !fixed) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        tm0 = fmaxf(tm0, fmaxf(s[j][0], s[j][1]));
+        tm1 = fmaxf(tm1, fmaxf(s[j][2], s[j][3]));
+      }
+      tm0 = quad_max(tm0);
+      tm1 = quad_max(tm1);
+    }
+    if (sweep) {
+      m0 = fmaxf(m0, tm0);
+      m1 = fmaxf(m1, tm1);
+      continue;
+    }
+    if (!fixed) {   // online maximum: rescale what was summed so far
+      const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
+      const float a0 = ex2((m0 - n0) * TC_LOG2E);
+      const float a1 = ex2((m1 - n1) * TC_LOG2E);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+    }
+    const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
+      s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
+      s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
+      s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+      l0 += s[j][0] + s[j][1];   // the row sums take p unrounded
+      l1 += s[j][2] + s[j][3];
+    }
+
+    // ---- o += p v: p from the accumulators, split (or rounded) ----
+    const float one[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      afrag<!RB>(s[2 * kk], s[2 * kk + 1], one, one, ph, pl);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t vb[4];
+        frag_cols(vb, sV[st], kk, c, lane);
+        mma(o[2 * c], ph, vb[0], vb[1]);
+        mma(o[2 * c + 1], ph, vb[2], vb[3]);
+        if constexpr (!RB) {
+          mma(o[2 * c], pl, vb[0], vb[1]);
+          mma(o[2 * c + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  // p = exp(s - lse) for either softmax form: the backward's statistic
+  if (lse != nullptr && t == 0) {
+    const size_t stat0 = ((size_t)b * gridDim.y + h) * N;
+    if (ok0) lse[stat0 + r0] = m0 + logf(l0);
+    if (ok1) lse[stat0 + r1] = m1 + logf(l1);
+  }
+  bf16* out_bh = out.head(b, h) + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (ok0) store_pair(out_bh + out.off(r0) + 8 * n, o[n][0] / l0,
+                        o[n][1] / l0);
+    if (ok1) store_pair(out_bh + out.off(r1) + 8 * n, o[n][2] / l1,
+                        o[n][3] / l1);
+  }
+}
+
+template <typename TB, int MXU>
+int launch(const void* qkv, const void* ls, const void* bias,
+           const void* mask, void* out, void* lse, int B_, int N, int nH,
+           int nW, int maxfree, cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
+  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
+  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
+  const Rows<bf16> ro = packed_rows((bf16*)out, 0, N, C, 1, TC_DH);
+  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
+      !rows_aligned(ro))
+    return -1;
+  const int smem = (mask != nullptr ? 4 : 2) * btile_bytes<TB>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tc_kernel<TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      4 * btile_bytes<TB>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
+  fwd_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+      rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
+      (float*)lse, N, nW, maxfree);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry. qkv (B_, N, 3C) and out (B_, N, C) bf16, C = 32 * nH;
+// bias (nH, N, N) and mask (nW, N, N; may be null) bf16 when bias_bf16, else
+// fp32; `lse` (B_, nH, N) fp32, when not null, receives each row's
+// log-sum-exp, as mmde_window_attention_fwd_stats writes it. mxu: the
+// precision mode (MXU_FP32 / MXU_FOLD / MXU_BF16, window_attention_common.cuh;
+// -1 for another code). Returns cudaGetLastError() of the launch, or -1 for
+// arguments the kernel does not take. Launches on `stream`, does not
+// synchronise, allocates nothing.
+extern "C" int mmde_window_attention_fwd_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
+    int nW, int bias_bf16, int maxfree, int mxu, void* stream) {
+  if (C != nH * TC_DH || B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 ||
+      nH > 65535)
+    return -1;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if constexpr (MXU == MXU_FOLD_PV) {
+      return -1;
+    } else if (bias_bf16) {
+      return launch<bf16, MXU>(qkv, logit_scale, bias, mask, out, lse, B_, N,
+                               nH, nW, maxfree, s);
+    } else {
+      return launch<float, MXU>(qkv, logit_scale, bias, mask, out, lse, B_,
+                                N, nH, nW, maxfree, s);
+    }
+  });
+}

@@ -1,0 +1,342 @@
+// Device helpers of the tensor-core window-attention kernels
+// (window_attention_fwd_tc.cu, window_attention_bwd_tc.cu): bf16 tiles
+// staged by cp.async, fragments read by ldmatrix, products by mma.sync
+// m16n8k16 (hopper_ptx.cuh), and the hi / lo bf16 split that keeps an fp32
+// operand's product exact to ~2^-17 of itself.
+//
+// Fragment layout (lane = 4 * g + t; mma_bf16_16816's note): an A fragment
+// (16 rows x 16 k) holds (row g | g+8, k 2t, 2t+1 | 2t+8, 2t+9); a B
+// fragment (16 k x 8 cols) holds (k 2t, 2t+1 | 2t+8, 2t+9, col g); an
+// accumulator (16 x 8) holds (row g, cols 2t, 2t+1) in [0], [1] and
+// (row g+8, the same cols) in [2], [3]. Two accumulators side by side (cols
+// 0-7, 8-15) are therefore exactly the A fragment of a product whose k runs
+// over those 16 cols: p and ds go from one product to the next in
+// registers, never through shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper_ptx.cuh"
+#include "window_attention_common.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_DH = 32;    // head dim of every swin variant
+constexpr int TC_BT = 64;    // rows of a tile: 4 warps x 16
+constexpr int TC_NT = 128;   // threads of a block
+constexpr int TC_LD = 40;    // bf16 per staged row: 64 bytes + 16 of pad,
+                             // so ldmatrix's 8 row reads hit 8 bank groups
+constexpr float TC_LN100 = 4.605170185988091f;
+constexpr float TC_LOG2E = 1.4426950408889634f;
+constexpr float TC_MAXFREE_MAX_SCALE = 30.0f;
+
+// 16 bytes global -> shared, asynchronous; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows r0 .. r0+63 of one head (32 bf16 each, layout `rows`) into a
+// [64][TC_LD] tile, zeros past N; the block's 128 threads issue 2 copies
+// each
+template <class L>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* base,
+                                          const L& rows, int r0, int N,
+                                          int tid) {
+#pragma unroll
+  for (int e = tid; e < TC_BT * 4; e += TC_NT) {
+    const int r = e >> 2, c = e & 3;
+    const bool ok = r0 + r < N;
+    cp_async16(s + r * TC_LD + c * 8,
+               base + (ok ? rows.off(r0 + r) : 0) + c * 8, ok);
+  }
+}
+
+// four 8x8 bf16 matrices; lanes 8m .. 8m+7 give matrix m's row addresses
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// B fragments of X^T for the 8 tile rows 8j .. 8j+7 of a staged tile X
+// (k = the 32 channels): {k-step 0: b0, b1, k-step 1: b0, b1}
+__device__ __forceinline__ void frag_rows(uint32_t (&r)[4], const bf16* s,
+                                          int j, int lane) {
+  ldsm4(r, s + (8 * j + (lane & 7)) * TC_LD + (lane >> 3) * 8);
+}
+
+// B fragments of X for the 16 tile rows 16kk .. 16kk+15 (k = those rows)
+// and channels 16c .. 16c+15: {cols 16c..+7: b0, b1, cols 16c+8..: b0, b1}
+__device__ __forceinline__ void frag_cols(uint32_t (&r)[4], const bf16* s,
+                                          int kk, int c, int lane) {
+  ldsm4_t(r, s + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * TC_LD +
+                 16 * c + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  const uint32_t b[2] = {b0, b1};
+  mma_bf16_16816(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// (a, b) as a bf16 pair `hi` and the pair of what is left, `lo`: a = hi + lo
+// up to ~2^-17 * |a|
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = pack2(a, b);
+  lo = pack2(a - lo_f(hi), b - hi_f(hi));
+}
+
+// A fragments (16 rows x 16 k) from two accumulators x0 (k 0-7), x1 (k
+// 8-15), each element times its column's factor f0[], f1[] ({col 2t, 2t+1});
+// SPLIT: hi and lo, else one rounding (hi only)
+template <bool SPLIT>
+__device__ __forceinline__ void afrag(const float (&x0)[4],
+                                      const float (&x1)[4],
+                                      const float (&f0)[2],
+                                      const float (&f1)[2], uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  if constexpr (SPLIT) {
+    split2(x0[0] * f0[0], x0[1] * f0[1], hi[0], lo[0]);
+    split2(x0[2] * f0[0], x0[3] * f0[1], hi[1], lo[1]);
+    split2(x1[0] * f1[0], x1[1] * f1[1], hi[2], lo[2]);
+    split2(x1[2] * f1[0], x1[3] * f1[1], hi[3], lo[3]);
+  } else {
+    hi[0] = pack2(x0[0] * f0[0], x0[1] * f0[1]);
+    hi[1] = pack2(x0[2] * f0[0], x0[3] * f0[1]);
+    hi[2] = pack2(x1[0] * f1[0], x1[1] * f1[1]);
+    hi[3] = pack2(x1[2] * f1[0], x1[3] * f1[1]);
+  }
+}
+
+// A fragments of 16 rows (r, r+8 per lane) x 32 channels straight from
+// device memory (rows past N are zeros): a[ks] for channels 16ks .. +15
+template <class L>
+__device__ __forceinline__ void load_afrag(uint32_t (&a)[2][4],
+                                           const bf16* base, const L& rows,
+                                           int r, int N, int t) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + (i & 1) * 8;
+      const int col = 16 * ks + (i >> 1) * 8 + 2 * t;
+      a[ks][i] = row < N ? *reinterpret_cast<const uint32_t*>(
+                               base + rows.off(row) + col)
+                         : 0u;
+    }
+}
+
+// Norms and rounded operands, computed alike wherever a row is used. The
+// forward and both backward passes meet each q and k row twice - as a
+// block's own A fragments and as a streamed tile - and the bf16 mode rounds
+// x * rnorm * f to bf16: a norm that differs in its last bit between two
+// places can move a rounded operand by a bf16 ulp, and the backward would
+// then rebuild other logits than the forward's. So every norm is the chain
+// of window_attention_common.cuh's normalise - one fused multiply-add per
+// channel, channels in order - which the FMA bodies take too; operands are
+// (x * rnorm) * f, two roundings, as the plain version and the FMA bodies
+// compute them.
+__device__ __forceinline__ uint32_t operand2(uint32_t w, float r, float f) {
+  return pack2(__fmul_rn(__fmul_rn(lo_f(w), r), f),
+               __fmul_rn(__fmul_rn(hi_f(w), r), f));
+}
+
+// rsqrt(sum(x^2) + 1e-12) of a row an A fragment spreads over a quad: word
+// slot s of lane t holds channels 8s + 2t, +1; each lane gathers the 16
+// words and runs the chain itself
+__device__ __forceinline__ float quad_row_rnorm(const uint32_t (&w)[4],
+                                                int lane) {
+  const int base = lane & ~3;
+  float ss = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint32_t x = __shfl_sync(0xffffffffu, w[s], base + t);
+      ss = __fmaf_rn(lo_f(x), lo_f(x), ss);
+      ss = __fmaf_rn(hi_f(x), hi_f(x), ss);
+    }
+  return rsqrtf(ss + 1e-12f);
+}
+
+// the norms of the two rows (r, r+8) an A fragment holds
+__device__ __forceinline__ void row_norms(const uint32_t (&a)[2][4],
+                                          float& n0, float& n1, int lane) {
+  const uint32_t w0[4] = {a[0][0], a[0][2], a[1][0], a[1][2]};
+  const uint32_t w1[4] = {a[0][1], a[0][3], a[1][1], a[1][3]};
+  n0 = quad_row_rnorm(w0, lane);
+  n1 = quad_row_rnorm(w1, lane);
+}
+
+// a <- bf16((a * r_row) * f): the bf16 mode's rounded operand (r0 for row
+// r, r1 for r+8)
+__device__ __forceinline__ void scale_afrag(uint32_t (&a)[2][4], float r0,
+                                            float r1, float f) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[ks][i] = operand2(a[ks][i], (i & 1) ? r1 : r0, f);
+}
+
+// the A-fragment pair that holds (row r | r+8, channels 8n+2t, +1): an
+// accumulator of n-tile n over the 32 channels sits on the same lanes
+__device__ __forceinline__ uint32_t afrag_at(const uint32_t (&a)[2][4], int n,
+                                             int half) {
+  return a[n >> 1][(n & 1) * 2 + half];
+}
+
+// After a staged tile arrived: rnorm[r] for its 64 rows, a thread a row
+// (the first 64), as normalise sums them; ROUND: each row replaced in place
+// by its bf16 operand bf16((x * rnorm) * f) (f = the scale for q^, 1 for
+// k^)
+template <bool ROUND>
+__device__ __forceinline__ void tile_norms(bf16* s, float* rnorm, float f,
+                                           int tid) {
+  if (tid >= TC_BT) return;
+  uint4* p = reinterpret_cast<uint4*>(s + tid * TC_LD);
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v = p[i];
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    ss = __fmaf_rn(lo_f(w[i]), lo_f(w[i]), ss);
+    ss = __fmaf_rn(hi_f(w[i]), hi_f(w[i]), ss);
+  }
+  const float inv = rsqrtf(ss + 1e-12f);
+  rnorm[tid] = inv;
+  if constexpr (ROUND) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = make_uint4(operand2(w[4 * i], inv, f),
+                        operand2(w[4 * i + 1], inv, f),
+                        operand2(w[4 * i + 2], inv, f),
+                        operand2(w[4 * i + 3], inv, f));
+  }
+}
+
+// The (64 rows x 64 cols) tile of a bias or mask (N, N), staged in shared
+// memory as TB with each row's 16-byte units XOR-swizzled by (row & 7), so
+// that the accumulators' reads - 8 rows x 4 lanes, or 4 rows x 8 lanes for
+// the transposed read of the dk/dv pass - hit distinct banks.
+template <typename TB>
+__device__ __forceinline__ int btile_off(int r, int c) {   // in bytes
+  const int b = c * (int)sizeof(TB);
+  return r * 64 * (int)sizeof(TB) + (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+}
+template <typename TB>
+__host__ __device__ constexpr int btile_bytes() {
+  return 64 * 64 * (int)sizeof(TB);
+}
+
+// 8 bytes global -> shared, asynchronous; zeros when !valid
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// Rows r0.. and cols c0.. of `src` (N, N) into the tile at `dst`: ASYNC
+// by cp.async in 8-byte chunks (needs N * sizeof(TB) % 8 == 0), else by
+// plain loads; zeros past the edge.
+template <typename TB>
+__device__ __forceinline__ void load_btile(char* dst, const TB* src, int r0,
+                                           int c0, int N, int tid,
+                                           bool async) {
+  constexpr int PER = 8 / (int)sizeof(TB);       // elements a chunk
+  if (async) {
+    for (int e = tid; e < 64 * 64 / PER; e += TC_NT) {
+      const int r = e / (64 / PER), c = (e % (64 / PER)) * PER;
+      const bool ok = r0 + r < N && c0 + c < N;
+      cp_async8(dst + btile_off<TB>(r, c),
+                src + (ok ? (size_t)(r0 + r) * N + c0 + c : 0), ok);
+    }
+  } else {
+    for (int e = tid; e < 64 * 64; e += TC_NT) {
+      const int r = e >> 6, c = e & 63;
+      const bool ok = r0 + r < N && c0 + c < N;
+      *reinterpret_cast<TB*>(dst + btile_off<TB>(r, c)) =
+          ok ? src[(size_t)(r0 + r) * N + c0 + c] : TB();
+    }
+  }
+}
+
+// tile elements (r, c), (r, c+1), c even, as fp32
+__device__ __forceinline__ float2 btile_pair(const char* t, int r, int c,
+                                             float) {
+  return *reinterpret_cast<const float2*>(t + btile_off<float>(r, c));
+}
+__device__ __forceinline__ float2 btile_pair(const char* t, int r, int c,
+                                             bf16) {
+  const uint32_t w =
+      *reinterpret_cast<const uint32_t*>(t + btile_off<bf16>(r, c));
+  return make_float2(lo_f(w), hi_f(w));
+}
+template <typename TB>
+__device__ __forceinline__ float btile_at(const char* t, int r, int c) {
+  return ldf(reinterpret_cast<const TB*>(t + btile_off<TB>(r, c)), 0);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
+}
+
+}  // namespace

@@ -6,8 +6,16 @@ temperature, the relative-position bias as plain (nH, N, N) and the
 shifted-window mask as plain (nW, N, N), and returns (B_, N, C). The TPU
 kernel's head-group packing, 8-row padding and -1e9 bias columns are TPU
 tiling and have no counterpart here: the CUDA kernels
-(csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu,
-csrc/window_attention_bwd_resident.cu) mask the ragged edge themselves.
+(csrc/window_attention_{fwd,bwd}_tc.cu, csrc/window_attention_fwd.cu,
+csrc/window_attention_bwd.cu, csrc/window_attention_bwd_resident.cu) mask
+the ragged edge themselves.
+
+Which body runs follows qkv's type, nothing else: bf16 qkv at one window per
+block (K1 with or without the log-sum-exp, K2's two passes) runs the
+tensor-core kernels (bf16 mma.sync, window_attention_{fwd,bwd}_tc.cu,
+counted as window_attention_fwd_tc[+lse] / window_attention_bwd_tc); fp32
+qkv, K5 (W > 1), K3's pass and K4 run the fp32-FMA bodies. Both compute
+the same function in each precision mode.
 
 Which kernel runs follows the JAX package's process-wide settings, each read
 once at import:
@@ -55,14 +63,17 @@ RESIDENT_ROWS = 16      # query rows per block of K4
 RESIDENT_BLOCKS = 528   # K4 splits its window sweep until ~4 blocks per SM
 LAUNCHES = 0            # incremented once per forward-kernel launch (K1, K5)
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
-LAUNCHES_BWD = 0        # once per K2 / K5 backward launch (all its passes)
+LAUNCHES_BWD = 0        # once per K2 / K5 backward launch (all its passes,
+                        # K3's under "split" included)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
 LAUNCHES_RESIDENT = 0   # once per K4 launch
 LAUNCHES_RESIDENT_BY_SHAPE: dict = {}
 # every launch above, keyed by (kernel, (B_, N, C, nH)); kernel names:
-# window_attention_fwd[+lse] (K1), window_attention_fwd_w{W}[+lse] (K5),
-# window_attention_bwd (K2), window_attention_bwd_w{W} (K5),
-# window_attention_bwd_resident (K4)
+# window_attention_fwd_tc[+lse] / window_attention_bwd_tc (K1 / K2 on the
+# tensor cores: bf16 qkv, W = 1), window_attention_fwd[+lse] /
+# window_attention_bwd (K1 / K2's fp32-FMA body), window_attention_fwd_w{W}
+# [+lse] / window_attention_bwd_w{W} (K5), window_attention_bwd_resident (K4),
+# window_attention_dbias (K3's pass after the tensor-core passes, "split")
 LAUNCHES_BY_KERNEL: dict = {}
 
 # The JAX package's three grid modes. The forward is the same function
@@ -136,6 +147,17 @@ _LIB_NAME_BWD = "window_attention_bwd"
 _SOURCES_BWD = ("window_attention_bwd.cu",)
 _LIB_NAME_RESIDENT = "window_attention_bwd_resident"
 _SOURCES_RESIDENT = ("window_attention_bwd_resident.cu",)
+_LIB_NAME_FWD_TC = "window_attention_fwd_tc"
+_SOURCES_FWD_TC = ("window_attention_fwd_tc.cu",)
+_LIB_NAME_BWD_TC = "window_attention_bwd_tc"
+_SOURCES_BWD_TC = ("window_attention_bwd_tc.cu",)
+
+
+def tensor_core_body(dtype: torch.dtype, w: int = 1) -> bool:
+    """Whether a packed launch of qkv's `dtype` at `w` windows per block
+    runs the tensor-core kernels: bf16 at W = 1, in every precision mode
+    (the other launches take the fp32-FMA bodies)."""
+    return dtype == torch.bfloat16 and w == 1
 
 # The JAX package's packed-layout plan and windows-per-cell rule, copied
 # (not imported) so that both packages send the same stages to the same
@@ -274,6 +296,9 @@ _FWD_W_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 _BWD_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
+_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+_DBIAS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 
 
 def _bind(lib, table) -> ctypes.CDLL:
@@ -301,7 +326,18 @@ def _library_bwd() -> ctypes.CDLL:
     from mmde_tpu_torch.ops.cuda_build import load_library
     return _bind(load_library(_LIB_NAME_BWD, _SOURCES_BWD), (
         ("mmde_window_attention_bwd", _BWD_ARGTYPES),
-        ("mmde_window_attention_bwd_w", _BWD_W_ARGTYPES)))
+        ("mmde_window_attention_bwd_w", _BWD_W_ARGTYPES),
+        ("mmde_window_attention_dbias", _DBIAS_ARGTYPES)))
+
+
+def _library_tc(backward: bool) -> ctypes.CDLL:
+    """The tensor-core forward or backward library."""
+    from mmde_tpu_torch.ops.cuda_build import load_library
+    if backward:
+        return _bind(load_library(_LIB_NAME_BWD_TC, _SOURCES_BWD_TC), (
+            ("mmde_window_attention_bwd_tc", _BWD_TC_ARGTYPES),))
+    return _bind(load_library(_LIB_NAME_FWD_TC, _SOURCES_FWD_TC), (
+        ("mmde_window_attention_fwd_tc", _FWD_TC_ARGTYPES),))
 
 
 def _library_resident() -> ctypes.CDLL:
@@ -312,9 +348,11 @@ def _library_resident() -> ctypes.CDLL:
 
 def library_specs() -> dict:
     """{library name: (sources, defines)} of every library the model's
-    path binds: the forward and the backward (each with every mode of
-    MXU_MODES) and K4."""
-    return {_LIB_NAME: (_SOURCES, ()), _LIB_NAME_BWD: (_SOURCES_BWD, ()),
+    path binds: the tensor-core forward and backward, the fp32-FMA forward
+    and backward (each with every mode of MXU_MODES) and K4."""
+    return {_LIB_NAME_FWD_TC: (_SOURCES_FWD_TC, ()),
+            _LIB_NAME_BWD_TC: (_SOURCES_BWD_TC, ()),
+            _LIB_NAME: (_SOURCES, ()), _LIB_NAME_BWD: (_SOURCES_BWD, ()),
             _LIB_NAME_RESIDENT: (_SOURCES_RESIDENT, ())}
 
 
@@ -328,6 +366,8 @@ def build_kernels(extra: Optional[dict] = None) -> dict:
     _library()
     _library_bwd()
     _library_resident()
+    _library_tc(False)
+    _library_tc(True)
     return {n: dict(cuda_build.BUILD_LOG[n]) for n in specs}
 
 
@@ -430,6 +470,8 @@ def _count(kernel: str, qkv: torch.Tensor, num_heads: int) -> None:
     key = (B_, N, C3 // 3, num_heads)
     LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
         (kernel, key), 0) + 1
+    if kernel == "window_attention_dbias":
+        return      # K3 after the tensor-core passes: part of one backward
     by_shape = (LAUNCHES_RESIDENT_BY_SHAPE if kernel.endswith("resident")
                 else LAUNCHES_BWD_BY_SHAPE if "_bwd" in kernel
                 else LAUNCHES_BY_SHAPE)
@@ -465,10 +507,14 @@ def _stream(dev) -> int:
 
 
 def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
-                    want_stats, w=1, mxu=None):
+                    want_stats, w=1, mxu=None, _fma=False):
     """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block),
     in precision mode `mxu` (a key of _MXU_CODE; None = the default for
-    qkv's type); returns (out, lse or None)."""
+    qkv's type); returns (out, lse or None). bf16 qkv at w = 1 runs the
+    tensor-core kernel (`tensor_core_body`), everything else K1's / K5's
+    fp32-FMA body; `_fma` (private: the card tools and chip_smoke.py's
+    same-card comparison, never the model) sends bf16 qkv to the FMA body
+    too."""
     global LAUNCHES
     mxu = resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE))
     B_, N, C3 = qkv.shape
@@ -480,7 +526,11 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     if w < 1 or B_ % w or (nW and nW % w):
         raise ValueError(f"{w} windows per block must divide B_={B_} and "
                          f"the mask's nW={nW}")
-    lib = _library(mxu)
+    tc = tensor_core_body(qkv.dtype, w) and not _fma
+    if tc and mxu not in MXU_MODES:
+        raise ValueError(f"the tensor-core forward takes mxu in {MXU_MODES}, "
+                         f"got {mxu!r}")
+    lib = _library_tc(False) if tc else _library(mxu)
     out = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((B_, num_heads, N), dtype=torch.float32,
                        device=qkv.device) if want_stats else None)
@@ -490,7 +540,13 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     mask_ptr = mask.data_ptr() if mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = _stream(qkv.device)
-        if w > 1:
+        if tc:
+            err = lib.mmde_window_attention_fwd_tc(
+                qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, out.data_ptr(),
+                lse.data_ptr() if want_stats else None, *shape_args[:5],
+                *shape_args[6:], code, stream)
+        elif w > 1:
             err = lib.mmde_window_attention_fwd_w(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(),
@@ -505,24 +561,30 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
             err = lib.mmde_window_attention_fwd(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(), *shape_args, code, stream)
+    name = ("window_attention_fwd" + ("_tc" if tc else f"_w{w}" if w > 1
+                                      else "")
+            + ("+lse" if want_stats else ""))
     if err != 0:
         raise RuntimeError(
-            f"window_attention_fwd launch failed with code {err} "
-            f"(B_={B_}, N={N}, C={C}, nH={num_heads}, {qkv.dtype}, "
-            f"{w} windows per block, mxu={mxu})")
+            f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
+            f"nH={num_heads}, {qkv.dtype}, {w} windows per block, "
+            f"mxu={mxu})")
     LAUNCHES += 1
     _count_mxu(mxu, qkv, num_heads)
-    _count(f"window_attention_fwd{f'_w{w}' if w > 1 else ''}"
-           f"{'+lse' if want_stats else ''}", qkv, num_heads)
+    _count(name, qkv, num_heads)
     return out, lse
 
 
 def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
-                     grid_mode, want_dbias, w=1, mxu=None):
+                     grid_mode, want_dbias, w=1, mxu=None, _fma=False):
     """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
     pass stays at one window), in precision mode `mxu` (one of
     MXU_MODES, the forward's; None = the default for qkv's type); returns
-    (dqkv, dlogit_scale, dbias or None)."""
+    (dqkv, dlogit_scale, dbias or None). bf16 qkv at w = 1 runs the
+    tensor-core passes (their dbias by atomics; under "split" K3's pass
+    follows them, counted as window_attention_dbias), everything else the
+    fp32-FMA bodies. Private, for chip_smoke.py's same-card comparisons
+    only: `_fma` sends bf16 qkv to the FMA body."""
     global LAUNCHES_BWD
     mxu = resolve_mxu(mxu, qkv.dtype)
     B_, N, C3 = qkv.shape
@@ -538,7 +600,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     if w < 1 or B_ % w or (nW and nW % w):
         raise ValueError(f"{w} windows per block must divide B_={B_} and "
                          f"the mask's nW={nW}")
-    lib = _library_bwd()
+    tc = tensor_core_body(qkv.dtype, w) and not _fma
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
@@ -551,28 +613,52 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
         dbias = torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
     elif mode == 2:     # every element written once
         dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
-    args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-            mask.data_ptr() if mask is not None else None, lse.data_ptr(),
-            g.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
-            dls_part.data_ptr(),
-            dbias.data_ptr() if dbias is not None else None,
-            B_, N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), mode)
+    mask_ptr = mask.data_ptr() if mask is not None else None
+    bias_bf16 = int(bias.dtype == torch.bfloat16)
     code = _MXU_CODE[mxu]
     with torch.cuda.device(dev):
-        if w > 1:
-            err = lib.mmde_window_attention_bwd_w(*args, w, code,
-                                                  _stream(dev))
+        stream = _stream(dev)
+        if tc:
+            err = _library_tc(True).mmde_window_attention_bwd_tc(
+                qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                delta.data_ptr(), dls_part.data_ptr(),
+                dbias.data_ptr() if mode == 1 else None, B_, N, C, nH, nW,
+                bias_bf16, int(mode == 1), code, stream)
+            if err == 0 and mode == 2:   # K3 on the delta written above
+                err = _library_bwd().mmde_window_attention_dbias(
+                    qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                    mask_ptr, lse.data_ptr(), g.data_ptr(), delta.data_ptr(),
+                    dbias.data_ptr(), B_, N, C, nH, nW, 1, bias_bf16, code,
+                    stream)
+                if err != 0:
+                    raise RuntimeError(
+                        f"window_attention_dbias launch failed with code "
+                        f"{err} (B_={B_}, N={N}, C={C}, nH={nH}, "
+                        f"{qkv.dtype}, mxu={mxu})")
+                _count("window_attention_dbias", qkv, nH)
         else:
-            err = lib.mmde_window_attention_bwd(*args, code, _stream(dev))
+            args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                    mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                    delta.data_ptr(), dls_part.data_ptr(),
+                    dbias.data_ptr() if dbias is not None else None,
+                    B_, N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
+                    bias_bf16, mode)
+            lib = _library_bwd()
+            if w > 1:
+                err = lib.mmde_window_attention_bwd_w(*args, w, code, stream)
+            else:
+                err = lib.mmde_window_attention_bwd(*args, code, stream)
+    name = "window_attention_bwd" + ("_tc" if tc else f"_w{w}" if w > 1
+                                     else "")
     if err != 0:
         raise RuntimeError(
-            f"window_attention_bwd launch failed with code {err} "
-            f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype}, {grid_mode}, "
-            f"{w} windows per block, mxu={mxu})")
+            f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
+            f"nH={nH}, {qkv.dtype}, {grid_mode}, {w} windows per block, "
+            f"mxu={mxu})")
     LAUNCHES_BWD += 1
     _count_mxu(mxu, qkv, nH)
-    _count(f"window_attention_bwd{f'_w{w}' if w > 1 else ''}", qkv, nH)
+    _count(name, qkv, nH)
     # per-block partial sums of dlogit_scale, summed here as the TPU package
     # sums its ds dump outside its kernel
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()

@@ -16,9 +16,11 @@ max |diff| against v0. The variants of the JAX tool's body:
                                                  at first use), forward
                                                  only
 
-v0, v1 and v3 launch the production entry point
-(`cosine_window_attention_packed`, serving: no statistics) with that mxu,
-no copy of the kernel. v2 is the same arithmetic as v1 on this card: K1's
+v0, v1 and v3 launch K1's fp32-FMA body from the production library
+(`_launch_forward(..., _fma=True)`, serving: no statistics) with that mxu,
+no copy of the kernel; the model's bf16 launches run the tensor-core
+kernel (window_attention_fwd_tc.cu) instead, which these variants predate.
+v2 is the same arithmetic as v1 on this card: K1's
 epilogue already forms (c + bias) + mask in one pass over the registers,
 so v2 launches v1's instantiation. Every variant takes the row maximum
 (maxfree=False), as the JAX tool's body does; inputs as the JAX tool's:
@@ -78,18 +80,17 @@ def make_inputs(stage: str, device="cuda", seed: int = 0) -> tuple:
 
 
 def forward(qkv, ls, bias, mask, num_heads: int, variant: int):
-    """One variant's output: the production entry point (v0-v3), or the v4
-    build of K1 through the wrapper's launch; plain PyTorch on the CPU."""
+    """One variant's output: K1's fp32-FMA body through the wrapper's
+    launch in the variant's mode (v0-v3: the production library; v4: its
+    own build), the body these variants were written against (bf16 qkv on
+    the model's path runs the tensor-core kernel instead); plain PyTorch on
+    the CPU."""
     mxu = VARIANTS[variant]
     if not qkv.is_cuda:
         return _plain(qkv, ls, bias, mask, num_heads, variant)
     with torch.no_grad():
-        if variant < 4:
-            return wap.cosine_window_attention_packed(
-                qkv, ls, bias, mask, num_heads=num_heads, maxfree=False,
-                mxu=mxu)
         return wap._launch_forward(qkv, ls, bias, mask, num_heads, False,
-                                   False, mxu=mxu)[0]
+                                   False, mxu=mxu, _fma=True)[0]
 
 
 def _plain(qkv, ls, bias, mask, num_heads: int, variant: int):

@@ -295,7 +295,9 @@ def attention_cost(B_: int, nH: int, N: int, C: int, nW: int,
 def measure_stage(B_: int, nH: int, N: int, C: int, nW: int,
                   seed: int = 0) -> dict:
     """K1 with the log-sum-exp and K2 (bf16, the default mode) at one
-    shape: median ms of one launch (CUDA events)."""
+    shape, their fp32-FMA bodies (the bodies the FMA-bound times model;
+    the model's bf16 path runs the tensor-core kernels): median ms of one
+    launch (CUDA events)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -311,11 +313,12 @@ def measure_stage(B_: int, nH: int, N: int, C: int, nW: int,
     g = torch.randn((B_, N, C), generator=gen, device="cuda").bfloat16()
     with torch.no_grad():
         fwd = time_ms(lambda: wap._launch_forward(qkv, ls, bias, mask, nH,
-                                                  True, True))
-        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+                                                  True, True, _fma=True))
+        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                  _fma=True)[1]
         bwd = time_ms(lambda: wap._launch_backward(
-            qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
-            reps=8, warm=2)
+            qkv, ls, bias, mask, lse, g, nH, "window_resident", True,
+            _fma=True), reps=8, warm=2)
     return {"fwd": fwd, "bwd": bwd}
 
 

@@ -249,7 +249,7 @@ def test_mode_codes_match_the_cuda_sources():
             entries[m.group(1)] = [p.strip() for p in m.group(2).split(",")]
     packed = ("mmde_window_attention_fwd", "mmde_window_attention_fwd_stats",
               "mmde_window_attention_fwd_w", "mmde_window_attention_bwd",
-              "mmde_window_attention_bwd_w")
+              "mmde_window_attention_bwd_w", "mmde_window_attention_dbias")
     for name, params in entries.items():
         assert params[-1] == "void* stream", name
         assert (params[-2] == "int mxu") == (name in packed), name
