@@ -36,11 +36,19 @@ What it does, each phase printing one JSON object on a line of its own:
                 their plain versions, the backward also against float64
                 autograd, at every head-split stage shape of the real swin
                 variants at 480x640 (swin_tiny 1-2, swin_large 1, swin_huge
-                1-2) and at swin_large's train shape, float32 and bfloat16,
-                masked and unmasked, one clamped and one hot head; q, k, v
-                are the model's strided views of one qkv tensor. ms, plain
-                ms, bound of the serving forward, the forward with
-                statistics and the backward.
+                1-2) and at swin_large's train shape, float32 (the FMA
+                bodies; the swin_tiny stage-1 unmasked case's dlogit_scale
+                against float64 is F3's number) and bfloat16 (the
+                tensor-core kernels, MXU_APART times nearer the "fp32"
+                plain version than the "bf16"-mode one), masked and
+                unmasked, one clamped and one hot head; q, k, v are the
+                model's strided views of one qkv tensor; each case checks
+                which kernels its launches ran. ms, plain ms, bound of the
+                serving forward, the forward with statistics and the
+                backward; bf16 also the FMA body in the same call (in
+                turns), the SDPA yardstick and the products the design
+                needs (tc_units, tc_flops; tc_bound_ms in the kernels
+                line).
   serve         the flagship model (swin_base_v2 + decoder_v2, bfloat16,
                 two 480x640 frames) built at full width from a seed,
                 answering requests through mmde_tpu_torch.tools.infer.predict
@@ -53,15 +61,20 @@ What it does, each phase printing one JSON object on a line of its own:
   serve_large, train_large
                 the same for swin_large_v2 + decoder_v2 (the flagship's
                 windows, depths and decoder): stage 1 (C 192, 6 heads) runs
-                the head-split kernels, stages 2-4 the packed ones.
+                the head-split tensor-core kernels, stages 2-4 the packed
+                ones.
   parity        the whole model, attn_impl "cuda" against "torch", same
                 weights and frames, float32 and bfloat16; every parity
                 phase runs the model with stage 3 cut to 10 blocks
                 (PARITY_DEPTHS), to keep the script inside its time.
   train_parity  one deterministic float32 train step, kernel path against
                 plain path: loss and gradients of a named set of parameters.
-  parity_large  both, float32, for swin_large_v2 (gradients of stage-1
-                parameters, which only the head-split backward reaches).
+  parity_large  both for swin_large_v2: the forward in float32 and
+                bfloat16 (TOL_MODEL), the train step in float32 (gradients
+                of stage-1 parameters among others, which only the
+                head-split backward reaches) and in bfloat16 (the stage-1
+                gradients, through the head-split tensor-core kernels,
+                TOL_TRAIN_PARITY_BF16).
   kernel_cases_slab
                 the slab kernels (K8' forward, K9' backward: the windows
                 read straight off the (B, Hp, Wp, 3C) map) against their
@@ -153,8 +166,10 @@ What it does, each phase printing one JSON object on a line of its own:
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models:
-                window_attention_fwd_tc[+lse] / window_attention_bwd_tc, and
-                none of the FMA body), error, ms, plain ms, bound, and the
+                window_attention_fwd_tc[+lse] / window_attention_bwd_tc, the
+                head-split stages window_attention_headsplit_fwd_tc[+lse] /
+                window_attention_headsplit_bwd_tc, and none of the FMA
+                bodies), error, ms, plain ms, bound, and the
                 nearest library call's time (bf16 cases:
                 F.scaled_dot_product_attention on the normalised, scaled q
                 and k with bias + mask as its attn_mask; the normalisation
@@ -196,7 +211,8 @@ KERNEL_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
 KERNEL_BWD_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd.cu"
 KERNEL_BWD_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:473 "
                        "(_bwd_body; pallas_call :1103)")
-# the head-split entry points live in the same two sources
+# the head-split entry points live in the same sources (bf16: the
+# tensor-core ones, KERNEL_TC_SOURCE / KERNEL_TC_BWD_SOURCE)
 KERNEL_HS_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:62 "
                       "(_kernel; pallas_call :132)")
 KERNEL_HS_BWD_REPLACES = ("mmde_tpu/ops/window_attention_pallas.py:146 "
@@ -810,7 +826,14 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     log-sum-exp) against the plain forward; K7' against the plain backward
     and against float64 autograd of the plain forward, at K1 / K2's
     tolerances. Gradients are taken through the model's views, into one
-    (B_, N, 3C) dqkv."""
+    (B_, N, 3C) dqkv. bf16 runs the tensor-core kernels (checked by their
+    launch counters), which must also lie MXU_APART times nearer the "fp32"
+    plain version than the "bf16"-mode one (forward and dqkv: a kernel that
+    quietly rounds its operands fails); fp32 runs the FMA bodies, whose
+    dlogit_scale against float64 is F3's number. Timed (timed=True): the
+    kernel, plain, bound, and for bf16 the FMA body (`_fma`) in turns with
+    the kernel (kernel, FMA, FMA, kernel), the SDPA yardstick and the
+    products the design needs (tc_work: K1's 3 units, K2's 8)."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     qkv, ls, bias, mask, g = make_headsplit_inputs(shape, dtype, with_mask,
                                                    gen)
@@ -819,33 +842,47 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     if not all(ths.rows_layout_ok(t) for t in (q, k, v, g)):
         raise RuntimeError(f"the model's views need a copy at {shape}")
     name = str(dtype).replace("torch.", "")
+    tc = dtype == torch.bfloat16
+    sfx = "_tc" if tc else ""
     rec = {"model": shape["model"], "stage": shape["stage"],
            "frame_pairs": shape["frame_pairs"], "B_": shape["B_"],
            "N": shape["N"], "C": shape["C"], "nH": nH,
            "nW": mask.shape[0] if mask is not None else 0, "dtype": name,
-           "tolerance_rel_l2": TOL_BWD[name]}
+           "body": "tensor cores" if tc else "fp32 FMA",
+           "mxu": "fp32", "tolerance_rel_l2": TOL_BWD[name]}
     with torch.no_grad():
         want = ths.cosine_window_attention_headsplit_plain(q, k, v, ls, bias,
                                                            mask)
+        before = dict(ths.LAUNCHES_BY_KERNEL)
         got = ths.cosine_window_attention_headsplit(q, k, v, ls, bias, mask)
         torch.cuda.synchronize()
+        _tc_launched(before, {"window_attention_headsplit_fwd" + sfx: 1},
+                     f"serving forward at {rec}", ths)
         rec["forward"] = check_forward(got, want, dtype, rec)
 
     leaves = [qkv.detach().clone().requires_grad_(), ls.clone()
               .requires_grad_(), bias.clone().requires_grad_()]
+    before = dict(ths.LAUNCHES_BY_KERNEL)
     out = ths.cosine_window_attention_headsplit(*_views(leaves[0], nH),
                                                 leaves[1], leaves[2], mask)
     rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
     out.backward(g)
     torch.cuda.synchronize()
-    got = [t.grad for t in leaves]
-    del out, want
+    _tc_launched(before, {f"window_attention_headsplit_fwd{sfx}+lse": 1,
+                          f"window_attention_headsplit_bwd{sfx}": 1},
+                 f"training forward and backward at {rec}", ths)
+    grads = [t.grad for t in leaves]
+    out = out.detach()
+
+    def stacked(dq, dk, dv):
+        return torch.stack([dq, dk, dv], 2).permute(0, 3, 2, 1, 4).reshape(
+            qkv.shape)
+
     with torch.no_grad():
         dq, dk, dv, dls, dbias = \
             ths.cosine_window_attention_headsplit_backward_plain(
                 q, k, v, ls, bias, mask, g)
-        plain = [torch.stack([dq, dk, dv], 2).permute(0, 3, 2, 1, 4)
-                 .reshape(qkv.shape), dls, dbias]
+        plain = [stacked(dq, dk, dv), dls, dbias]
         del dq, dk, dv
     leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls,
                                                                bias)]
@@ -857,54 +894,79 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     names = ("dqkv", "dlogit_scale", "dbias")
     rec["plain_vs_float64"] = {n: _errs(p, t)
                                for n, p, t in zip(names, plain, truth)}
-    if not all(bool(torch.isfinite(t).all()) for t in got):
-        raise RuntimeError(f"head-split backward not finite at {rec}")
-    if float(got[1].flatten()[0]) != 0.0:
-        raise RuntimeError(f"dlogit_scale of the clamped head is "
-                           f"{float(got[1].flatten()[0])}, not 0")
-    rec["vs_plain"] = {n: _errs(a, b) for n, a, b in zip(names, got, plain)}
-    rec["vs_float64"] = {n: _errs(a, b) for n, a, b in zip(names, got, truth)}
-    for which in ("vs_plain", "vs_float64"):
-        for n, e in rec[which].items():
-            if not e["rel_l2"] <= TOL_BWD[name][n]:
-                raise RuntimeError(f"head-split backward disagrees ({which}, "
-                                   f"{n}): {json.dumps(rec)}")
+    rec.update(_check_against(grads, {
+        "vs_plain": (plain, TOL_BWD[name]),
+        "vs_float64": (truth, TOL_BWD[name])},
+        f"head-split backward ({rec['body']}) at {json.dumps(rec)}"))
     rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
     rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
-    del got, plain, truth, leaves
+    if tc:
+        # the "bf16" mode's plain version: what a kernel rounding its
+        # operands to bf16 would compute
+        with torch.no_grad():
+            want_o = ths.cosine_window_attention_headsplit_plain(
+                q, k, v, ls, bias, mask, mxu="bf16")
+            dq, dk, dv, _, _ = \
+                ths.cosine_window_attention_headsplit_backward_plain(
+                    q, k, v, ls, bias, mask, g, mxu="bf16")
+            dqkv_o = stacked(dq, dk, dv)
+            del dq, dk, dv
+        _nearer(rec, "out", out, want, want_o)
+        _nearer(rec, "dqkv", grads[0], plain[0], dqkv_o)
+        del want_o, dqkv_o
+    del got, plain, truth, leaves, grads, out, want
     if timed:
-        nW = rec["nW"]
+        B_, N, C, nW = shape["B_"], shape["N"], shape["C"], rec["nW"]
         fwd, fst = rec["forward"], rec["forward_stats"]
         with torch.no_grad():
-            fwd["ms"] = time_ms(lambda: ths.cosine_window_attention_headsplit(
-                q, k, v, ls, bias, mask))
-            fwd["plain_ms"] = time_ms(
+            for r, stats in ((fwd, False), (fst, True)):
+                def kern(fma=False, stats=stats):
+                    return ths._launch_forward(q, k, v, ls, bias, mask,
+                                               stats, _fma=fma)
+                if tc:
+                    turns = [time_ms(kern), time_ms(lambda: kern(True)),
+                             time_ms(lambda: kern(True)), time_ms(kern)]
+                    r.update({"ms": (turns[0] + turns[3]) / 2,
+                              "fma_ms": (turns[1] + turns[2]) / 2,
+                              "ms_turns": turns})
+                    r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls)))
+                else:
+                    r["ms"] = time_ms(kern)
+                r.update(kernel_bound(B_, N, C, nH, nW, dtype, torch.float32,
+                                      stats=stats))
+                r["library_ms"] = None
+            fwd["plain_ms"] = fst["plain_ms"] = time_ms(
                 lambda: ths.cosine_window_attention_headsplit_plain(
                     q, k, v, ls, bias, mask), reps=5, warm=1)
-            fst["ms"] = time_ms(lambda: ths._launch_forward(
-                q, k, v, ls, bias, mask, want_stats=True))
-            fst["plain_ms"] = fwd["plain_ms"]
-            lse = ths._launch_forward(q, k, v, ls, bias, mask,
-                                      want_stats=True)[1]
-            # the backward entry alone (its three passes, the dbias buffer
-            # and the dlogit_scale sum), on the forward's saved statistics
-            rec["ms"] = time_ms(lambda: ths._launch_backward(
-                q, k, v, ls, bias, mask, lse, g, want_dbias=True),
-                reps=8, warm=2)
-            rec["ms_no_dbias"] = time_ms(lambda: ths._launch_backward(
-                q, k, v, ls, bias, mask, lse, g, want_dbias=False),
-                reps=8, warm=2)
+            lse = ths._launch_forward(q, k, v, ls, bias, mask, True)[1]
+            lse_f = ths._launch_forward(q, k, v, ls, bias, mask, True,
+                                        _fma=True)[1]
+
+            # the backward entry alone (its passes, the dbias buffer and
+            # the dlogit_scale sum), on the forward's saved statistics
+            def bwd(dbias=True, fma=False):
+                saved = lse_f if fma else lse
+                return lambda: ths._launch_backward(
+                    q, k, v, ls, bias, mask, saved, g, dbias, _fma=fma)
+            if tc:
+                turns = [time_ms(bwd(), reps=8, warm=2),
+                         time_ms(bwd(fma=True), reps=8, warm=2),
+                         time_ms(bwd(fma=True), reps=8, warm=2),
+                         time_ms(bwd(), reps=8, warm=2)]
+                rec.update({"ms": (turns[0] + turns[3]) / 2,
+                            "fma_ms": (turns[1] + turns[2]) / 2,
+                            "ms_turns": turns})
+                rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls)))
+            else:
+                rec["ms"] = time_ms(bwd(), reps=8, warm=2)
+            rec["ms_no_dbias"] = time_ms(bwd(dbias=False), reps=8, warm=2)
             rec["plain_ms"] = time_ms(
                 lambda: ths.cosine_window_attention_headsplit_backward_plain(
                     q, k, v, ls, bias, mask, g), reps=3, warm=1)
-        for r, stats in ((fwd, False), (fst, True)):
-            r.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH, nW,
-                                  dtype, torch.float32, stats=stats))
-            r["library_ms"] = None
-        rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
-                                  nW, dtype, torch.float32))
+            del lse, lse_f
+        rec.update(backward_bound(B_, N, C, nH, nW, dtype, torch.float32))
         rec["library_ms"] = None
-        if dtype == torch.bfloat16:         # the served and trained type
+        if tc:         # the served and trained type
             lib = library_yardstick(q, k, v, ls, bias, mask, g=g)
             for r in (fwd, fst):
                 r.update({k_: v_ for k_, v_ in lib.items()
@@ -917,9 +979,10 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
 
 
 def phase_kernels_headsplit(timed: bool = True) -> list:
-    """K6' / K7' at every head-split shape; timed at swin_large's (the
-    served and trained paths), the others checked only, to keep the script
-    inside its time."""
+    """K6' / K7' at every head-split shape, bf16 (the tensor-core kernels)
+    and fp32 (the FMA bodies), masked and unmasked; timed at swin_large's
+    (the served and trained paths), the others checked only, to keep the
+    script inside its time."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
     cases = []
@@ -933,7 +996,8 @@ def phase_kernels_headsplit(timed: bool = True) -> list:
         "cases": cases,
         "timing": "CUDA events, median: serving forward 3 warm + 20, "
                   "forward with statistics the same, backward entry 2 warm "
-                  "+ 8; inputs stay in L2 between launches"})
+                  "+ 8; bf16: kernel, FMA body, FMA body, kernel in turns "
+                  "(ms_turns); inputs stay in L2 between launches"})
     return cases
 
 
@@ -1207,7 +1271,7 @@ def _kernel_modules() -> dict:
 
 def _reset_launch_counts():
     for lay, m in _kernel_modules().items():
-        if lay == "packed":
+        if lay != "slab":
             m.reset_launch_counts()
             continue
         m.LAUNCHES = m.LAUNCHES_BWD = 0
@@ -1283,11 +1347,12 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         raise RuntimeError(f"{tag}: kernel launches by layout and shape "
                            f"{by_layout} for {requests} forwards, expected "
                            f"{want}")
-    by_kernel = _packed_by_kernel()
-    want_k = expected_packed_kernels(backbone, 1, requests, False, attn_impl)
+    by_kernel = _by_kernel()
+    want_k = expected_kernels(backbone, 1, requests, False, attn_impl)
     if by_kernel != want_k:
-        # every packed launch at the W the JAX rule gives (MMDE_ATTN_W)
-        raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
+        # every packed launch at the W the JAX rule gives (MMDE_ATTN_W), every
+        # bf16 launch at W = 1 on the tensor cores
+        raise RuntimeError(f"{tag}: launches by kernel {by_kernel}, "
                            f"expected {want_k}")
     by_mxu = _check_mxu(tag, by_kernel)
     per_forward = _per_forward(want, requests)
@@ -1470,13 +1535,14 @@ def _parity_model(backbone: str, dtype: str):
     return _PARITY_MODELS[key]
 
 
-def _parity_trainer(backbone: str, pairs: int) -> list:
-    """[state, step, initial weights and buffers, batch] of the fp32
-    deterministic trainer the train-parity phases step from."""
+def _parity_trainer(backbone: str, pairs: int,
+                    dtype: str = "float32") -> list:
+    """[state, step, initial weights and buffers, batch] of the
+    deterministic trainer (`dtype`) the train-parity phases step from."""
     from mmde_tpu_torch.tools import train_steps as ts
-    key = ("trainer", backbone, pairs)
+    key = ("trainer", backbone, pairs, dtype)
     if key not in _PARITY_MODELS:
-        cfg = ts.flagship_config("float32", "cuda", PARITY_DEPTHS,
+        cfg = ts.flagship_config(dtype, "cuda", PARITY_DEPTHS,
                                  batch_size=pairs, backbone=backbone)
         state, step = ts.build_trainer(cfg, device="cuda", seed=0,
                                        deterministic=True)
@@ -1551,6 +1617,19 @@ def phase_parity(backbone: str = "swin_base_v2",
 # 1e-4; qkv / RPE weights by 5e-4..9e-4; logit_scale gradients (cancelling
 # sums) by 6e-4..2.3e-3 (measured, H100).
 TOL_TRAIN_PARITY = {"loss_rel": 1e-4, "grad_rel_l2": 5e-3}
+# The same step in bfloat16 (parity_large's bf16 case, stage-1 gradients,
+# which only the head-split backward reaches): the plain path rounds p to
+# bf16 before p v and takes autograd through bf16 tensors, the kernels keep
+# p and ds in fp32, the output rounded once - the forward's difference that
+# TOL_MODEL["bfloat16"] bounds, carried into a loss and its gradients. The
+# two bf16 paths' gradients differ by what bf16 leaves of them (measured
+# 4.4e-2 .. 6.7e-2 rel-L2, H100), so they are held to the same step in
+# float32 (plain path) instead: every parameter's kernel-path gradient
+# within `to_float32_ratio` times the distance of the plain bf16 path's
+# farthest one (measured on an H100: plain 4.8e-2 .. 1.7e-1, kernel 7.4e-2
+# .. 1.2e-1; a cancelling sum such as dlogit_scale falls on either side
+# parameter by parameter); the loss to `loss_rel`.
+TOL_TRAIN_PARITY_BF16 = {"loss_rel": 1e-2, "to_float32_ratio": 1.5}
 PARITY_PARAMS = (
     "encoder.layers.0.blocks.1.attn.qkv.weight",
     "encoder.layers.2.blocks.5.attn.rpe_mlp.0.weight",
@@ -1571,6 +1650,9 @@ PARITY_DEPTHS = (2, 2, 10, 2)
 LARGE_PARITY_PARAMS = PARITY_PARAMS + (
     "encoder.layers.0.blocks.1.attn.rpe_mlp.0.weight",
     "encoder.layers.0.blocks.0.attn.q_bias")
+# the stage-1 parameters among them: parity_large's bf16 gradients
+LARGE_STAGE1_PARAMS = tuple(n for n in LARGE_PARITY_PARAMS
+                            if n.startswith("encoder.layers.0."))
 
 
 def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
@@ -1626,10 +1708,10 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     if fwd_by_shape != want or bwd_by_shape != want:
         raise RuntimeError(f"{tag}: forward launches {fwd_by_shape}, "
                            f"backward {bwd_by_shape}, expected {want} each")
-    by_kernel = _packed_by_kernel()
-    want_k = expected_packed_kernels(backbone, pairs, steps, True, attn_impl)
+    by_kernel = _by_kernel()
+    want_k = expected_kernels(backbone, pairs, steps, True, attn_impl)
     if by_kernel != want_k:
-        raise RuntimeError(f"{tag}: packed launches by kernel {by_kernel}, "
+        raise RuntimeError(f"{tag}: launches by kernel {by_kernel}, "
                            f"expected {want_k}")
     by_mxu = _check_mxu(tag, by_kernel)
     peak = torch.cuda.max_memory_allocated()
@@ -1683,13 +1765,15 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
 
 def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
                        params=PARITY_PARAMS, tag: str = "train_parity",
-                       impl: str = "cuda") -> dict:
-    """One deterministic fp32 step at full width (depths PARITY_DEPTHS),
-    kernel path
-    (`impl`) against plain path from the same weights and batch: the loss
-    and the gradients of a named set of parameters. cuDNN TF32 is off for
-    this phase (matmul TF32 is off by default)."""
-    (la, ga), (lb, gb) = (train_step_grads(backbone, pairs, path)
+                       impl: str = "cuda", dtype: str = "float32") -> dict:
+    """One deterministic step (fp32, or `dtype`) at full width (depths
+    PARITY_DEPTHS), kernel path (`impl`) against plain path from the same
+    weights and batch: the loss and the gradients of a named set of
+    parameters, at TOL_TRAIN_PARITY (bf16: TOL_TRAIN_PARITY_BF16, the
+    gradients against the float32 step's). cuDNN TF32 is off for this
+    phase (matmul TF32 is off by default)."""
+    tol = TOL_TRAIN_PARITY if dtype == "float32" else TOL_TRAIN_PARITY_BF16
+    (la, ga), (lb, gb) = (train_step_grads(backbone, pairs, path, dtype)
                           for path in (impl, "torch"))
     ga = {n: t for n, t in ga.items() if n in params}
     gb = {n: t for n, t in gb.items() if n in params}
@@ -1699,18 +1783,29 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
     grad_rel = {n: float((ga[n] - gb[n]).norm()
                          / gb[n].norm().clamp_min(1e-300)) for n in ga}
-    rec = {"model": backbone, "dtype": "float32", "frame_pairs": pairs,
+    rec = {"model": backbone, "dtype": dtype, "frame_pairs": pairs,
            "depths": list(PARITY_DEPTHS), "cudnn_allow_tf32": False,
            "attn_impl": impl, "loss_cuda": la, "loss_torch": lb,
            "loss_rel_diff": loss_rel,
            "grad_rel_l2": grad_rel,
            "grad_norm": {n: float(gb[n].norm()) for n in gb},
-           "tolerance": TOL_TRAIN_PARITY}
-    if not loss_rel <= TOL_TRAIN_PARITY["loss_rel"]:
+           "tolerance": tol}
+    if not loss_rel <= tol["loss_rel"]:
         raise RuntimeError(f"train parity: loss differs: {json.dumps(rec)}")
+    if dtype != "float32":
+        # each path's distance to the float32 step's gradients
+        _, g32 = train_step_grads(backbone, pairs, "torch", "float32")
+        rec["grad_rel_l2_to_float32"] = {
+            n: {path: float((g[n] - g32[n]).norm() / g32[n].norm())
+                for path, g in ((impl, ga), ("torch", gb))} for n in ga}
     for n, v in grad_rel.items():
-        if not (v <= TOL_TRAIN_PARITY["grad_rel_l2"]
-                and float(gb[n].norm()) > 0):
+        if dtype == "float32":
+            ok = v <= tol["grad_rel_l2"]
+        else:
+            d = rec["grad_rel_l2_to_float32"]
+            ok = d[n][impl] <= tol["to_float32_ratio"] * max(
+                e["torch"] for e in d.values())
+        if not (ok and float(gb[n].norm()) > 0):
             raise RuntimeError(f"train parity: gradient of {n} differs or is "
                                f"zero: {json.dumps(rec)}")
     if tag:
@@ -1788,8 +1883,8 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
                                   KERNEL_TC_SOURCE, KERNEL_REPLACES, n, c))
         else:
             c = _find(hs_cases, shape, 1, nW=nW)["forward"]
-            entries.append(_entry("window_attention_headsplit_fwd", shape,
-                                  KERNEL_SOURCE, KERNEL_HS_REPLACES, n, c))
+            entries.append(_entry("window_attention_headsplit_fwd_tc", shape,
+                                  KERNEL_TC_SOURCE, KERNEL_HS_REPLACES, n, c))
     return entries
 
 
@@ -1835,13 +1930,16 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e["k3_bound_by"] = c["k3_bound"]["bound_by"]
             e["k3_library_ms"] = None
         else:
+            # the tensor-core kernels (bf16 models), kernel_cases_headsplit's
+            # numbers
             c = _find(hs_cases, shape, pairs, nW=shape["nW"])
-            entries.append(_entry("window_attention_headsplit_fwd+lse",
-                                  shape, KERNEL_SOURCE, KERNEL_HS_REPLACES,
+            entries.append(_entry("window_attention_headsplit_fwd_tc+lse",
+                                  shape, KERNEL_TC_SOURCE, KERNEL_HS_REPLACES,
                                   nf, c["forward_stats"], pairs))
-            e = _entry("window_attention_headsplit_bwd", shape,
-                       KERNEL_BWD_SOURCE, KERNEL_HS_BWD_REPLACES, nb, c,
+            e = _entry("window_attention_headsplit_bwd_tc", shape,
+                       KERNEL_TC_BWD_SOURCE, KERNEL_HS_BWD_REPLACES, nb, c,
                        pairs)
+            e["ms_no_dbias"] = c["ms_no_dbias"]
         entries.append(e)
     return entries
 
@@ -2091,12 +2189,14 @@ def phase_kernels_w(timed: bool = True) -> list:
     return cases
 
 
-def expected_packed_kernels(backbone: str, batch: int, times: int,
-                            train: bool, attn_impl: str = "cuda") -> dict:
-    """{kernel name: {(B_, N, C, nH): launches}} of the packed kernels over
-    `times` forwards (or train steps) under this process's MMDE_ATTN_GRID
-    and MMDE_ATTN_W: each block's W by the JAX rule, for its own mask (the
-    shifted blocks of stages 1-2 have one, the others not)."""
+def expected_kernels(backbone: str, batch: int, times: int, train: bool,
+                     attn_impl: str = "cuda") -> dict:
+    """{kernel name: {(B_, N, C, nH): launches}} of the packed and the
+    head-split kernels over `times` forwards (or train steps) under this
+    process's MMDE_ATTN_GRID and MMDE_ATTN_W: each packed block's W by the
+    JAX rule, for its own mask (the shifted blocks of stages 1-2 have one,
+    the others not); every head-split block of these bf16 models on the
+    tensor cores."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
     want: dict = {}
@@ -2106,9 +2206,16 @@ def expected_packed_kernels(backbone: str, batch: int, times: int,
         want[kernel][key] = want[kernel].get(key, 0) + n
 
     for sh in stage_shapes(backbone, batch=batch, attn_impl=attn_impl):
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        if sh["layout"] == "headsplit":
+            add("window_attention_headsplit_fwd_tc" + ("+lse" if train
+                                                       else ""),
+                key, sh["blocks"] * times)
+            if train:
+                add("window_attention_headsplit_bwd_tc", key,
+                    sh["blocks"] * times)
         if sh["layout"] != "packed":
             continue
-        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
         masked = sh["blocks"] // 2 if sh["nW"] else 0
         for has_mask, n in ((False, sh["blocks"] - masked), (True, masked)):
             if n == 0:
@@ -2138,6 +2245,8 @@ def _check_mxu(tag: str, by_kernel: dict) -> dict:
     mode = wap.resolve_mxu(None, torch.bfloat16)
     want: dict = {}
     for kernel, d in by_kernel.items():
+        if kernel.startswith("window_attention_headsplit"):
+            continue        # one function ("fp32"), counted by its module
         m = "fp32" if kernel.endswith("resident") else mode
         for key, n in d.items():
             want[(m, key)] = want.get((m, key), 0) + n
@@ -2150,11 +2259,15 @@ def _check_mxu(tag: str, by_kernel: dict) -> dict:
     return out
 
 
-def _packed_by_kernel() -> dict:
+def _by_kernel() -> dict:
+    """{kernel: {(B_, N, C, nH): launches}} of the packed and head-split
+    kernels since the last reset."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
     out: dict = {}
-    for (kernel, key), n in wap.LAUNCHES_BY_KERNEL.items():
-        out.setdefault(kernel, {})[key] = n
+    for m in (wap, ths):
+        for (kernel, key), n in m.LAUNCHES_BY_KERNEL.items():
+            out.setdefault(kernel, {})[key] = n
     return out
 
 
@@ -2305,18 +2418,19 @@ def phase_w_child(lines: list) -> tuple:
     return got["serve_w"], got["train_w"]
 
 
-def train_step_grads(backbone: str, pairs: int, path: str) -> tuple:
-    """(losses, {name: gradient}) of one deterministic fp32 train step of
-    `backbone` at full width (depths PARITY_DEPTHS) under attention `path`,
-    weights and batch from fixed seeds, cuDNN TF32 off; cached per
-    process."""
-    key = ("train_step", backbone, pairs, path)
+def train_step_grads(backbone: str, pairs: int, path: str,
+                     dtype: str = "float32") -> tuple:
+    """(losses, {name: gradient}) of one deterministic train step (fp32, or
+    `dtype`) of `backbone` at full width (depths PARITY_DEPTHS) under
+    attention `path`, weights and batch from fixed seeds, cuDNN TF32 off;
+    cached per process."""
+    key = ("train_step", backbone, pairs, path, dtype)
     if key in _PLAIN_RUNS:
         return _PLAIN_RUNS[key]
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        trainer = _parity_trainer(backbone, pairs)
+        trainer = _parity_trainer(backbone, pairs, dtype)
         state, step, init, batch = trainer
         with torch.no_grad():       # every path steps from the same weights
             state.model.load_state_dict(init)
@@ -2882,12 +2996,13 @@ def tc_work(B_, N, nH, units: float) -> dict:
 
 
 def tc_bounds(tc_cases: list, tflops: float) -> None:
-    """tc_bound_ms of every kernel_cases_tc record (served: the case;
-    trained: its forward and its backward): its products at `tflops`, the
-    bf16 mma.sync dot pattern's rate that this run's roofline phase
+    """tc_bound_ms of every tensor-core record of kernel_cases_tc and
+    kernel_cases_headsplit (served: the case; trained: its forward, the
+    forward with statistics and the backward): its products at `tflops`,
+    the bf16 mma.sync dot pattern's rate that this run's roofline phase
     measured (tools/roofline.py, dot_bf16_TFLOP_s)."""
     for c in tc_cases:
-        for r in (c, c.get("forward")):
+        for r in (c, c.get("forward"), c.get("forward_stats")):
             if r is not None and "tc_flops" in r:
                 r["tc_rate_TFLOP_s"] = tflops
                 r["tc_bound_ms"] = r["tc_flops"] / (tflops * 1e12) * 1e3
@@ -2908,10 +3023,14 @@ def _nearer(rec: dict, what: str, got, own, other) -> None:
                            f"({what}): {json.dumps(rec)}")
 
 
-def _tc_launched(before: dict, want: dict, what: str) -> None:
-    from mmde_tpu_torch.ops import window_attention_packed as wap
+def _tc_launched(before: dict, want: dict, what: str, module=None) -> None:
+    """The kernels the wrapper `module` (the packed one by default) counted
+    since `before` (a copy of its LAUNCHES_BY_KERNEL) must be `want`
+    ({kernel: launches})."""
+    if module is None:
+        from mmde_tpu_torch.ops import window_attention_packed as module
     got = {}
-    for (kernel, _), n in wap.LAUNCHES_BY_KERNEL.items():
+    for (kernel, _), n in module.LAUNCHES_BY_KERNEL.items():
         got[kernel] = got.get(kernel, 0) + n
     for (kernel, _), n in before.items():
         got[kernel] -= n
@@ -3128,7 +3247,7 @@ def main() -> int:
         return 0
     tool_entries = phase_probes() + phase_variants()
     roof_entries, roof = phase_roofline()
-    tc_bounds(tc_cases, roof["rates"]["dot_bf16_TFLOP_s"])
+    tc_bounds(tc_cases + hs_cases, roof["rates"]["dot_bf16_TFLOP_s"])
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
@@ -3148,10 +3267,15 @@ def main() -> int:
     phase_parity()
     phase_train_parity()
     emit("parity_large", {
-        "forward": phase_parity("swin_large_v2", ("float32",), tag=None),
+        "forward": phase_parity("swin_large_v2", ("float32", "bfloat16"),
+                                tag=None),
         "train_step": phase_train_parity("swin_large_v2",
                                          params=LARGE_PARITY_PARAMS,
-                                         tag=None)})
+                                         tag=None),
+        # bf16: stage 1 on the head-split tensor-core kernels
+        "train_step_bf16": phase_train_parity(
+            "swin_large_v2", params=LARGE_STAGE1_PARAMS, tag=None,
+            dtype="bfloat16")})
     emit("parity_slab", {
         "forward": phase_parity(dtypes=("float32",), tag=None,
                                 impl="cuda_slab"),

@@ -34,7 +34,14 @@
 // per (window, head, row), lse = m + log(sum exp(s - m)), where m is
 // whichever shift that head's softmax used there (the static scale + 16, or
 // the running row maximum for hot heads). exp(s - lse) is that kernel's p
-// for either form, so the backward needs no per-head case.
+// for either form, so the backward needs no per-head case. The head-split
+// entries hand over two (fault F3): one rounding of lse ~ 60 (half an fp32
+// ulp, 4e-6) scales every p of its row alike, which the cancelling sum of
+// dlogit_scale does not average away (1.5e-4 of it at swin_tiny stage 1,
+// fp32). There the forward keeps m + log(l) in fp64 as fp32 hi + lo, and p
+// = exp((s - hi) - lo): s - hi is exact where p is not negligible, and lo
+// takes the rounding out. The packed and slab entries have no lo (their
+// kernels are instantiated without it, LO = false).
 //
 // The TPU kernel walks its grid in order, carries dk/dv from one query tile
 // to the next in the output block and dumps ds per window because Mosaic
@@ -123,9 +130,9 @@ constexpr int P_LD = BT + 4;  // [row][key] / [key][row] tiles
 constexpr float LN100 = 4.605170185988091f;
 
 constexpr int DQ_SMEM_FLOATS =
-    4 * DH * BT + BT * R_LD + 2 * BT * P_LD + 3 * BT;
+    4 * DH * BT + BT * R_LD + 2 * BT * P_LD + 4 * BT;
 constexpr int DKV_SMEM_FLOATS =
-    4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 3 * BT + 8;
+    4 * DH * BT + 2 * BT * R_LD + 2 * BT * P_LD + 4 * BT + 8;
 
 // tile stored transposed, [d][j]
 __device__ __forceinline__ void put_t(float* st, int j,
@@ -193,17 +200,20 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ sAt,
 }
 
 // in: s = q^ k^T of the tile (FOLD: (q^ * scale) k^T). out: s = sc =
-// scale * q^ k^T (FOLD: s as it is) and p = exp(sc + bias + mask - lse);
-// both 0 past the edge.
-template <typename TB, bool FASTEXP, bool FOLD>
+// scale * q^ k^T (FOLD: s as it is) and p = exp(sc + bias + mask - lse)
+// (LO, the head-split entries: exp((sc + bias + mask - lse) - lo), lo the
+// log-sum-exp's low part); both 0 past the edge.
+template <typename TB, bool FASTEXP, bool FOLD, bool LO>
 __device__ __forceinline__ void probabilities(
     float (&s)[8][4], float (&p)[8][4], const TB* __restrict__ bias_h,
     const TB* __restrict__ mask_w, const float* __restrict__ sLse,
-    float scale, int q0, int k0, int ty, int tx, int N) {
+    const float* __restrict__ sLo, float scale, int q0, int k0, int ty,
+    int tx, int N) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + ty * 8 + i;
     const float lse = sLse[ty * 8 + i];
+    const float lo = LO ? sLo[ty * 8 + i] : 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = k0 + tx * 4 + j;
@@ -213,13 +223,19 @@ __device__ __forceinline__ void probabilities(
         float v = sc + ldf(bias_h, idx);
         if (mask_w != nullptr) v += ldf(mask_w, idx);
         s[i][j] = sc;
-        p[i][j] = exp_<FASTEXP>(v - lse);
+        p[i][j] = exp_<FASTEXP>(LO ? (v - lse) - lo : v - lse);
       } else {
         s[i][j] = 0.0f;
         p[i][j] = 0.0f;
       }
     }
   }
+}
+
+// the low part of a row's log-sum-exp, 0 past the edge
+__device__ __forceinline__ float lse_low(const float* __restrict__ lse_lo,
+                                         size_t i, bool ok) {
+  return ok ? lse_lo[i] : 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -229,12 +245,13 @@ __device__ __forceinline__ void probabilities(
 // use A - delta * B: a first sweep over the keys sums delta (p and dp), the
 // second forms ds and its product.
 template <template <typename> class L, typename T, typename TB, bool FASTEXP,
-          int MXU>
+          int MXU, bool LO>
 __global__ void __launch_bounds__(NT)
 bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
               const float* __restrict__ logit_scale,
               const TB* __restrict__ bias, const TB* __restrict__ mask,
-              const float* __restrict__ lse, L<T> dq,
+              const float* __restrict__ lse,
+              const float* __restrict__ lse_lo, L<T> dq,
               float* __restrict__ delta, int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sQt = smem;               // [DH][BT] q^ (folded: q^ * scale)
@@ -247,6 +264,7 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   float* sRq = sW + BT * P_LD;     // [BT]
   float* sLse = sRq + BT;          // [BT]
   float* sDelta = sLse + BT;       // [BT]
+  float* sLo = sDelta + BT;        // [BT]
 
   constexpr bool FOLD = MXU != MXU_FP32;
   constexpr bool RB = MXU == MXU_BF16;
@@ -277,6 +295,7 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
       operand<RB>(x, FOLD ? scale : 1.0f);
       put_t(sQt, j, x);
       sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
+      if (LO) sLo[j] = lse_low(lse_lo, stat0 + r, r < N);
     } else {
       fetch_row(g.head(b, h), g, r, N, x);
       operand<RB>(x, 1.0f);
@@ -326,8 +345,8 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
       float s[8][4], p[8][4], dp[8][4];
       tile_dot(sQt, sKt, ty, tx, s);
-      probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
-                                       k0, ty, tx, N);
+      probabilities<TB, FASTEXP, FOLD, LO>(s, p, bias_h, mask_w, sLse, sLo,
+                                           scale, q0, k0, ty, tx, N);
       tile_dot(sGt, sVt, ty, tx, dp);
       if (RB && pass == 0) {
 #pragma unroll
@@ -432,14 +451,16 @@ bwd_dq_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // dk, dv (and dbias by atomics): one block per (key tile, head, window)
 // ---------------------------------------------------------------------------
 template <template <typename> class L, typename T, typename TB, bool FASTEXP,
-          int MXU>
+          int MXU, bool LO>
 __global__ void __launch_bounds__(NT)
 bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
                const float* __restrict__ logit_scale,
                const TB* __restrict__ bias, const TB* __restrict__ mask,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               L<T> dk, L<T> dv, double* __restrict__ dls_part,
-               float* __restrict__ dbias, int N, int nW) {
+               const float* __restrict__ lse,
+               const float* __restrict__ lse_lo,
+               const float* __restrict__ delta, L<T> dk, L<T> dv,
+               double* __restrict__ dls_part, float* __restrict__ dbias,
+               int N, int nW) {
   extern __shared__ __align__(16) float smem[];
   float* sKt = smem;               // [DH][BT] k^
   float* sVt = sKt + DH * BT;      // [DH][BT] v
@@ -452,8 +473,9 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   float* sRk = sDSt + BT * P_LD;   // [BT]
   float* sLse = sRk + BT;          // [BT]
   float* sDelta = sLse + BT;       // [BT]
-  // [4] doubles; the offset (21696 floats) keeps them 8-byte aligned
-  double* sRed = reinterpret_cast<double*>(sDelta + BT);
+  float* sLo = sDelta + BT;        // [BT]
+  // [4] doubles; the offset (21760 floats) keeps them 8-byte aligned
+  double* sRed = reinterpret_cast<double*>(sLo + BT);
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT;
@@ -518,6 +540,7 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
         put_t(sQt, j, x);
         put_r(sQ, j, x);
         sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
+        if (LO) sLo[j] = lse_low(lse_lo, stat0 + r, r < N);
       } else {
         operand<RB>(x, 1.0f);
         put_t(sGt, j, x);
@@ -529,8 +552,8 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
     float s[8][4], p[8][4], ds[8][4];
     tile_dot(sQt, sKt, ty, tx, s);
-    probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
-                                     k0, ty, tx, N);
+    probabilities<TB, FASTEXP, FOLD, LO>(s, p, bias_h, mask_w, sLse, sLo,
+                                         scale, q0, k0, ty, tx, N);
     tile_dot(sGt, sVt, ty, tx, ds);  // dp for now
     float dls_t = 0.0f;
 #pragma unroll
@@ -659,12 +682,13 @@ bwd_dkv_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // dbias alone, windows innermost: one block per (key tile, query tile, head)
 // ---------------------------------------------------------------------------
 template <template <typename> class L, typename T, typename TB, bool FASTEXP,
-          int MXU>
+          int MXU, bool LO>
 __global__ void __launch_bounds__(NT)
 bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
                  const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
                  const float* __restrict__ lse,
+                 const float* __restrict__ lse_lo,
                  const float* __restrict__ delta, float* __restrict__ dbias,
                  int B_, int N, int nW) {
   __shared__ __align__(16) float sQt[DH * BT];
@@ -672,6 +696,7 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
   __shared__ __align__(16) float sKt[DH * BT];
   __shared__ __align__(16) float sVt[DH * BT];
   __shared__ float sLse[BT];
+  __shared__ float sLo[BT];
   __shared__ float sDelta[BT];
 
   const int tid = threadIdx.x;
@@ -706,6 +731,7 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
         operand<RB>(x, FOLD ? scale : 1.0f);
         put_t(sQt, j, x);
         sLse[j] = q0 + j < N ? lse[stat0 + q0 + j] : 0.0f;
+        if (LO) sLo[j] = lse_low(lse_lo, stat0 + q0 + j, q0 + j < N);
         fetch_row(k.head(b, h), k, k0 + j, N, x);
         normalise(x);
         operand<RB>(x, 1.0f);
@@ -724,8 +750,8 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 
     float s[8][4], p[8][4], dp[8][4];
     tile_dot(sQt, sKt, ty, tx, s);
-    probabilities<TB, FASTEXP, FOLD>(s, p, bias_h, mask_w, sLse, scale, q0,
-                                     k0, ty, tx, N);
+    probabilities<TB, FASTEXP, FOLD, LO>(s, p, bias_h, mask_w, sLse, sLo,
+                                         scale, q0, k0, ty, tx, N);
     tile_dot(sGt, sVt, ty, tx, dp);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1260,35 +1286,38 @@ struct Operands {
 };
 
 template <template <typename> class L, typename T, typename TB,
-          bool FASTEXP, int MXU>
+          bool FASTEXP, int MXU, bool LO>
 int launch(const Operands<L, T>& o, const void* ls, const void* bias,
-           const void* mask, const void* lse, void* delta, void* dls_part,
-           void* dbias, int B_, int N, int nH, int nW, int dbias_mode,
-           cudaStream_t stream) {
+           const void* mask, const void* lse, const float* lse_lo,
+           void* delta, void* dls_part, void* dbias, int B_, int N, int nH,
+           int nW, int dbias_mode, cudaStream_t stream) {
   if (!o.aligned()) return -1;
   const int nT = (N + BT - 1) / BT;
   const int dq_bytes = DQ_SMEM_FLOATS * (int)sizeof(float);
   const int dkv_bytes = DKV_SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<L, T, TB, FASTEXP, MXU>,
+      bwd_dq_kernel<L, T, TB, FASTEXP, MXU, LO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_kernel<L, T, TB, FASTEXP, MXU>,
+  err = cudaFuncSetAttribute(bwd_dkv_kernel<L, T, TB, FASTEXP, MXU, LO>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkv_bytes);
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid(nT, nH, B_);
-  bwd_dq_kernel<L, T, TB, FASTEXP, MXU><<<grid, NT, dq_bytes, stream>>>(
+  bwd_dq_kernel<L, T, TB, FASTEXP, MXU, LO><<<grid, NT, dq_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-      (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
+      (const TB*)mask, (const float*)lse, lse_lo, o.dq, (float*)delta, N,
+      nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  bwd_dkv_kernel<L, T, TB, FASTEXP, MXU><<<grid, NT, dkv_bytes, stream>>>(
-      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-      (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
-      (double*)dls_part, dbias_mode == 1 ? (float*)dbias : nullptr, N, nW);
+  bwd_dkv_kernel<L, T, TB, FASTEXP, MXU, LO>
+      <<<grid, NT, dkv_bytes, stream>>>(
+          o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+          (const TB*)mask, (const float*)lse, lse_lo, (const float*)delta,
+          o.dk, o.dv, (double*)dls_part,
+          dbias_mode == 1 ? (float*)dbias : nullptr, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1297,9 +1326,9 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
   if constexpr (std::is_same<L<T>, Rows<T>>::value) {
     if (dbias_mode != 2) return (int)err;
     dim3 grid_b(nT, nT, nH);
-    bwd_dbias_kernel<L, T, TB, FASTEXP, MXU><<<grid_b, NT, 0, stream>>>(
+    bwd_dbias_kernel<L, T, TB, FASTEXP, MXU, LO><<<grid_b, NT, 0, stream>>>(
         o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-        (const TB*)mask, (const float*)lse, (const float*)delta,
+        (const TB*)mask, (const float*)lse, lse_lo, (const float*)delta,
         (float*)dbias, B_, N, nW);
     err = cudaGetLastError();
   }
@@ -1348,9 +1377,11 @@ int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
   if (err != cudaSuccess || dbias_mode != 2) return (int)err;
 
   dim3 grid_b(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU><<<grid_b, NT, 0, stream>>>(
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, false>
+      <<<grid_b, NT, 0, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
+      (const float*)lse, nullptr, (const float*)delta, (float*)dbias, B_, N,
+      nW);
   return (int)cudaGetLastError();
 }
 
@@ -1391,7 +1422,7 @@ int launch_dbias(const void* qkv, const void* g, const void* ls,
     return -1;
   const int nT = (N + BT - 1) / BT;
   dim3 grid(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, false><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, nullptr, (const float*)delta, (float*)dbias, B_, N, nW);
   return (int)cudaGetLastError();
 }
 
@@ -1425,10 +1456,9 @@ int launch_layout(Layout layout, const void* q, const void* k,
       m.dq = map_rows((T*)dq, 0, C, 3, Hp, Wp, ws, DH);
       m.dk = map_rows((T*)dq, 1, C, 3, Hp, Wp, ws, DH);
       m.dv = map_rows((T*)dq, 2, C, 3, Hp, Wp, ws, DH);
-      return launch<MapRows, T, TB, FASTEXP, MXU>(m, ls, bias, mask, lse,
-                                                  delta, dls_part, dbias, B_,
-                                                  N, nH, nW, dbias_mode,
-                                                  stream);
+      return launch<MapRows, T, TB, FASTEXP, MXU, false>(
+          m, ls, bias, mask, lse, nullptr, delta, dls_part, dbias, B_, N, nH,
+          nW, dbias_mode, stream);
     }
   } else {
     Operands<Rows, T> o;
@@ -1440,9 +1470,14 @@ int launch_layout(Layout layout, const void* q, const void* k,
       o.dq = packed_rows((T*)dq, 0, N, C, 3, DH);
       o.dk = packed_rows((T*)dq, 1, N, C, 3, DH);
       o.dv = packed_rows((T*)dq, 2, N, C, 3, DH);
-    } else if (MXU != MXU_FP32 || layout != STRIDED) {
+      return launch<Rows, T, TB, FASTEXP, MXU, false>(
+          o, ls, bias, mask, lse, nullptr, delta, dls_part, dbias, B_, N, nH,
+          nW, dbias_mode, stream);
+    }
+    if constexpr (MXU != MXU_FP32) {
       return -1;
     } else {
+      if (layout != STRIDED) return -1;
       o.q = {(const T*)q, st[0], st[1], st[2]};
       o.k = {(const T*)k, st[3], st[4], st[5]};
       o.v = {(const T*)v, st[6], st[7], st[8]};
@@ -1450,10 +1485,11 @@ int launch_layout(Layout layout, const void* q, const void* k,
       o.dq = contiguous_rows((T*)dq, nH, N, DH);
       o.dk = contiguous_rows((T*)dk, nH, N, DH);
       o.dv = contiguous_rows((T*)dv, nH, N, DH);
+      // F3: lse is (2, B_, nH, N), hi then lo
+      return launch<Rows, T, TB, FASTEXP, MXU, true>(
+          o, ls, bias, mask, lse, (const float*)lse + (size_t)B_ * nH * N,
+          delta, dls_part, dbias, B_, N, nH, nW, dbias_mode, stream);
     }
-    return launch<Rows, T, TB, FASTEXP, MXU>(o, ls, bias, mask, lse, delta,
-                                             dls_part, dbias, B_, N, nH, nW,
-                                             dbias_mode, stream);
   }
 }
 
@@ -1551,8 +1587,10 @@ extern "C" int mmde_window_attention_dbias(
 // element type, each at its own base with the strides `strides` gives, a
 // host array of twelve: q, k, v, g, each (window, head, token), in
 // elements; the channel axis is unit-stride and every row 16-byte aligned.
-// dq, dk, dv: contiguous (B_, nH, N, 32) of that type. The other arguments
-// as for mmde_window_attention_bwd.
+// dq, dk, dv: contiguous (B_, nH, N, 32) of that type. lse is (2, B_, nH,
+// N) fp32, each row's log-sum-exp as hi and lo, as
+// mmde_window_attention_headsplit_fwd_stats writes it (F3). The other
+// arguments as for mmde_window_attention_bwd.
 extern "C" int mmde_window_attention_headsplit_bwd(
     const void* q, const void* k, const void* v, const void* g,
     const void* strides, const void* logit_scale, const void* bias,

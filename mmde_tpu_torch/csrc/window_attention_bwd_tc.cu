@@ -1,10 +1,14 @@
 // Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 qkv and g in the packed layout, one
-// window per block.
+// (sm_90a, bf16 mma.sync), for bf16 q, k, v and g, one window per block: in
+// the packed layout and on head-split operands.
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
 // by _pallas_backward) for every bf16 launch at w = 1, in all three
-// precision modes: dqkv, dlogit_scale and (dbias_mode 1) dbias. Under
+// precision modes: dqkv, dlogit_scale and (dbias_mode 1) dbias; and
+// mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7, driven by
+// _pallas_backward) for every bf16 head-split launch, in its function (mode
+// fp32, fp32 bias and mask tiles): dq, dk, dv into contiguous (B_, nH, N,
+// 32), dlogit_scale, dbias by the same atomics. Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
 // delta written here. window_attention_bwd.cu keeps K2's fp32-FMA body for
@@ -85,7 +89,7 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
   __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
-  // 2 stages x {bias[, mask]} tiles
+  // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
@@ -101,20 +105,15 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const float scale = expf(fminf(logit_scale[h], TC_LN100));
   const int nt = (N + TC_BT - 1) / TC_BT;
   const int steps = 2 * nt;     // delta first, then ds
-  constexpr int TB_BYTES = btile_bytes<TB>();
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const int nb = mask_w != nullptr ? 2 : 1;
+  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
   auto issue = [&](int s) {     // step s's K, V, bias, mask -> stage s & 1
     const int st = s & 1, kn = (s % nt) * TC_BT;
     load_tile(sK[st], k_bh, k, kn, N, tid);
     load_tile(sV[st], v_bh, v, kn, N, tid);
-    if (async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, kn, N, tid, true);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, kn, N, tid,
-                   true);
-    }
+    if (async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
   };
   issue(0);
@@ -153,17 +152,16 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     }
     cp_async_wait_all();
     __syncthreads();
-    if (step + 1 < steps) issue(step + 1);
-    const char* tb = sBM + nb * st * TB_BYTES;
-    const char* tm = tb + TB_BYTES;
-    if (!async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
-                   false);
-    }
+    if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    const char* tb = bt.bias(st);
+    const char* tm = bt.mask(st);
+    if (!async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
+    else if (bt.fold())
+      fold_mask(bt, st, tid);
     tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
     __syncthreads();
+    if (step + 1 < steps && bt.fold()) issue(step + 1);
 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -201,7 +199,7 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
           const float c = half ? c1 : c0;
           const float ls2 = (half ? lse1 : lse0) * TC_LOG2E;
           float2 bm = btile_pair(tb, rl, cl, TB());
-          if (nb == 2) {
+          if (bt.add_mask()) {
             const float2 mm = btile_pair(tm, rl, cl, TB());
             bm.x += mm.x;
             bm.y += mm.y;
@@ -312,7 +310,7 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   __shared__ float sLse[2][TC_BT];
   __shared__ float sDl[2][TC_BT];
   __shared__ double sRed[4];
-  // 2 stages x {bias[, mask]} tiles
+  // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
@@ -330,21 +328,16 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const float ls = logit_scale[h];
   const float scale = expf(fminf(ls, TC_LN100));
   const int nt = (N + TC_BT - 1) / TC_BT;
-  constexpr int TB_BYTES = btile_bytes<TB>();
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const int nb = mask_w != nullptr ? 2 : 1;
+  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
   // query tile q0's Q, G, lse, delta, bias and mask (rows: queries, cols:
   // this block's keys) -> stage st
   auto load = [&](int st, int q0) {
     load_tile(sQ[st], q_bh, q, q0, N, tid);
     load_tile(sG[st], g_bh, g, q0, N, tid);
-    if (async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, true);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
-                   true);
-    }
+    if (async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, true);
     const int j = tid & (TC_BT - 1);
     const bool ok = q0 + j < N;
     const float* src = (tid < TC_BT ? lse : delta) + stat0 + (ok ? q0 + j : 0);
@@ -378,18 +371,17 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     const int q0 = it * TC_BT;
     cp_async_wait_all();
     __syncthreads();
-    if (it + 1 < nt) load(st ^ 1, q0 + TC_BT);
-    const char* tb = sBM + nb * st * TB_BYTES;
-    const char* tm = tb + TB_BYTES;
-    if (!async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
-                   false);
-    }
+    if (it + 1 < nt && !bt.fold()) load(st ^ 1, q0 + TC_BT);
+    const char* tb = bt.bias(st);
+    const char* tm = bt.mask(st);
+    if (!async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
+    else if (bt.fold())
+      fold_mask(bt, st, tid);
     // the bf16 mode's q operand, bf16(q^ * scale), in place
     tile_norms<RB>(sQ[st], sRq[st], scale, tid);
     __syncthreads();
+    if (it + 1 < nt && bt.fold()) load(st ^ 1, q0 + TC_BT);
 
     float dls_t = 0.0f;
 #pragma unroll
@@ -435,7 +427,7 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
             if constexpr (MXU == MXU_FP32) sc = sc * rq[e] * rk * scale;
             else if constexpr (MXU == MXU_FOLD) sc = sc * (scale * rq[e]) * rk;
             float y = sc + btile_at<TB>(tb, cl + e, kl);
-            if (nb == 2) y += btile_at<TB>(tm, cl + e, kl);
+            if (bt.add_mask()) y += btile_at<TB>(tm, cl + e, kl);
             x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
             d = x * (d - dl[e]);
             dls_t = fmaf(d, sc, dls_t);
@@ -546,43 +538,72 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   }
 }
 
+// The operands' (window, head, token) layout, on the host.
+struct Operands {
+  Rows<const bf16> q, k, v, g;
+  Rows<bf16> dq, dk, dv;
+  bool aligned() const {
+    return rows_aligned(q) && rows_aligned(k) && rows_aligned(v) &&
+           rows_aligned(g) && rows_aligned(dq) && rows_aligned(dk) &&
+           rows_aligned(dv);
+  }
+};
+
+// The two passes on operands already described as Rows (any (window, head,
+// token) strides, rows 16-byte aligned); -1 where a row is not.
 template <typename TB, int MXU>
-int launch(const void* qkv, const void* g, const void* ls, const void* bias,
-           const void* mask, const void* lse, void* dqkv, void* delta,
-           void* dls_part, void* dbias, int B_, int N, int nH, int nW,
-           cudaStream_t stream) {
-  const int C = nH * TC_DH;
-  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  const Rows<const bf16> rg = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
-  const Rows<bf16> dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
-  const Rows<bf16> dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
-  const Rows<bf16> dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
-  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
-      !rows_aligned(rg) || !rows_aligned(dq) || !rows_aligned(dk) ||
-      !rows_aligned(dv))
-    return -1;
-  const int smem = (mask != nullptr ? 4 : 2) * btile_bytes<TB>();
+int launch(const Operands& o, const void* ls, const void* bias,
+           const void* mask, const void* lse, void* delta, void* dls_part,
+           void* dbias, int B_, int N, int nH, int nW, cudaStream_t stream) {
+  if (!o.aligned()) return -1;
+  const int smem = bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_tc_kernel<TB, MXU>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * btile_bytes<TB>());
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<TB, MXU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             4 * btile_bytes<TB>());
+                             bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
   bwd_dq_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
-      rq, rk, rv, rg, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, dq, (float*)delta, N, nW);
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dkv_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
-      rq, rk, rv, rg, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, (const float*)delta, dk, dv, (double*)dls_part,
-      (float*)dbias, N, nW);
+      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+      (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
+      (double*)dls_part, (float*)dbias, N, nW);
   return (int)cudaGetLastError();
+}
+
+// qkv (B_, N, 3C), g (B_, N, C), dqkv (B_, N, 3C): the packed layout's Rows
+template <typename TB, int MXU>
+int launch_packed(const void* qkv, const void* g, const void* ls,
+                  const void* bias, const void* mask, const void* lse,
+                  void* dqkv, void* delta, void* dls_part, void* dbias,
+                  int B_, int N, int nH, int nW, cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  Operands o;
+  o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
+  o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
+  o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
+  o.g = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
+  o.dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
+  o.dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
+  o.dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
+  return launch<TB, MXU>(o, ls, bias, mask, lse, delta, dls_part, dbias, B_,
+                         N, nH, nW, stream);
+}
+
+bool shape_ok(int B_, int N, int nH, int nW, const void* mask,
+              int dbias_mode, const void* dbias) {
+  if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return false;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return false;
+  if (dbias_mode < 0 || dbias_mode > 1) return false;
+  return dbias_mode == 0 || dbias != nullptr;
 }
 
 }  // namespace
@@ -604,12 +625,8 @@ extern "C" int mmde_window_attention_bwd_tc(
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
     int nW, int bias_bf16, int dbias_mode, int mxu,
     void* stream) {
-  if (C != nH * TC_DH || B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 ||
-      nH > 65535)
+  if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
     return -1;
-  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
-  if (dbias_mode < 0 || dbias_mode > 1) return -1;
-  if (dbias_mode == 1 && dbias == nullptr) return -1;
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
@@ -617,11 +634,53 @@ extern "C" int mmde_window_attention_bwd_tc(
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
     } else if (bias_bf16) {
-      return launch<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse, dqkv,
-                               delta, dls_part, db, B_, N, nH, nW, s);
+      return launch_packed<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse,
+                                      dqkv, delta, dls_part, db, B_, N, nH,
+                                      nW, s);
     } else {
-      return launch<float, MXU>(qkv, g, logit_scale, bias, mask, lse, dqkv,
-                                delta, dls_part, db, B_, N, nH, nW, s);
+      return launch_packed<float, MXU>(qkv, g, logit_scale, bias, mask, lse,
+                                       dqkv, delta, dls_part, db, B_, N, nH,
+                                       nW, s);
     }
   });
+}
+
+// Head-split entry (K7's counterpart on the tensor cores): bf16 q, k, v and
+// g (B_, nH, N, 32), each at its own base with the strides `strides` gives,
+// a host array of twelve: q, k, v, g, each (window, head, token), in
+// elements (the model's permuted views: no copy); dq, dk, dv contiguous
+// (B_, nH, N, 32) bf16. bias and mask bf16 when bias_bf16, else fp32. The
+// TPU kernel's function (mode MXU_FP32); lse (B_, nH, N) from
+// mmde_window_attention_headsplit_fwd_tc; delta (B_, nH, N) fp32 and
+// dls_part (B_ * ceil(N / 64), nH) fp64 written (the caller sums dls_part
+// over its first axis); dbias (nH, N, N) fp32 receives dbias by 16-byte
+// vector atomics when dbias_mode = 1 (the caller zeroes it first), none
+// when 0. Returns the first CUDA error of the two launches, or -1 for
+// arguments the kernels do not take (a row that is not 16-byte aligned
+// among them). Launches on `stream`, does not synchronise, allocates
+// nothing.
+extern "C" int mmde_window_attention_headsplit_bwd_tc(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* strides, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, void* dls_part, void* dbias, int B_, int N, int nH, int nW,
+    int bias_bf16, int dbias_mode, void* stream) {
+  if (strides == nullptr || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
+    return -1;
+  const long long* st = (const long long*)strides;
+  Operands o;
+  o.q = {(const bf16*)q, st[0], st[1], st[2]};
+  o.k = {(const bf16*)k, st[3], st[4], st[5]};
+  o.v = {(const bf16*)v, st[6], st[7], st[8]};
+  o.g = {(const bf16*)g, st[9], st[10], st[11]};
+  o.dq = contiguous_rows((bf16*)dq, nH, N, TC_DH);
+  o.dk = contiguous_rows((bf16*)dk, nH, N, TC_DH);
+  o.dv = contiguous_rows((bf16*)dv, nH, N, TC_DH);
+  void* db = dbias_mode == 1 ? dbias : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bias_bf16)
+    return launch<bf16, MXU_FP32>(o, logit_scale, bias, mask, lse, delta,
+                                  dls_part, db, B_, N, nH, nW, s);
+  return launch<float, MXU_FP32>(o, logit_scale, bias, mask, lse, delta,
+                                 dls_part, db, B_, N, nH, nW, s);
 }

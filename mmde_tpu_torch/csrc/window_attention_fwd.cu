@@ -105,7 +105,8 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
                             const float* __restrict__ logit_scale,
                             const TB* __restrict__ bias,
                             const TB* __restrict__ mask, L<T> out,
-                            float* __restrict__ lse, int N, int nW,
+                            float* __restrict__ lse,
+                            float* __restrict__ lse_lo, int N, int nW,
                             int maxfree) {
   __shared__ __align__(16) float sQt[DH * BQ];   // q^ transposed [d][row]
   __shared__ __align__(16) float sKt[DH * BK];   // k^ transposed [d][key]
@@ -337,9 +338,21 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
   __syncthreads();
 
   // the statistic the backward kernel rebuilds p from, for either softmax
-  // form: p = exp(s - lse), lse = shift-or-maximum + log(row sum)
-  if (lse != nullptr && tid < BQ && q0 + tid < N)
-    lse[((size_t)b * gridDim.y + h) * N + q0 + tid] = sM[tid] + logf(sL[tid]);
+  // form: p = exp(s - lse), lse = shift-or-maximum + log(row sum). With
+  // lse_lo (the head-split entries, F3) m + log(l) is formed in fp64 and
+  // kept as fp32 hi + lo, so that p = exp((s - hi) - lo) carries no rounding
+  // of lse ~ 60 into a whole row.
+  if (lse != nullptr && tid < BQ && q0 + tid < N) {
+    const size_t i = ((size_t)b * gridDim.y + h) * N + q0 + tid;
+    if (lse_lo == nullptr) {
+      lse[i] = sM[tid] + logf(sL[tid]);
+    } else {
+      const double x = (double)sM[tid] + log((double)sL[tid]);
+      const float hi = (float)x;
+      lse[i] = hi;
+      lse_lo[i] = (float)(x - (double)hi);
+    }
+  }
 
   T* out_b = out.head(b, h) + px * 4;
 #pragma unroll
@@ -612,16 +625,16 @@ template <template <typename> class L, typename T, typename TB,
           bool FASTEXP, int MXU>
 int launch(const L<const T>& q, const L<const T>& k, const L<const T>& v,
            const void* ls, const void* bias, const void* mask,
-           const L<T>& out, void* lse, int B_, int N, int nH, int nW,
-           int maxfree, cudaStream_t stream) {
+           const L<T>& out, void* lse, float* lse_lo, int B_, int N, int nH,
+           int nW, int maxfree, cudaStream_t stream) {
   if (!rows_aligned(q) || !rows_aligned(k) || !rows_aligned(v) ||
       !rows_aligned(out))
     return -1;
   dim3 grid((N + BQ - 1) / BQ, nH, B_);
   window_attention_fwd_kernel<L, T, TB, FASTEXP, MXU>
       <<<grid, NT, 0, stream>>>(q, k, v, (const float*)ls, (const TB*)bias,
-                                (const TB*)mask, out, (float*)lse, N, nW,
-                                maxfree);
+                                (const TB*)mask, out, (float*)lse, lse_lo,
+                                N, nW, maxfree);
   return (int)cudaGetLastError();
 }
 
@@ -674,8 +687,8 @@ int launch_layout(Layout layout, const void* q, const void* k,
         packed_rows((const T*)q, 0, N, C, 3, DH),
         packed_rows((const T*)q, 1, N, C, 3, DH),
         packed_rows((const T*)q, 2, N, C, 3, DH), ls, bias, mask,
-        packed_rows((T*)out, 0, N, C, 1, DH), lse, B_, N, nH, nW, maxfree,
-        stream);
+        packed_rows((T*)out, 0, N, C, 1, DH), lse, nullptr, B_, N, nH, nW,
+        maxfree, stream);
   if constexpr (MXU != MXU_FP32) {
     return -1;
   } else if (layout == MAP) {
@@ -684,15 +697,17 @@ int launch_layout(Layout layout, const void* q, const void* k,
         map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH),
         map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH),
         map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH), ls, bias, mask,
-        map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, B_, N, nH, nW,
-        maxfree, stream);
+        map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, nullptr, B_, N, nH,
+        nW, maxfree, stream);
   } else {
     const Rows<const T> rq = {(const T*)q, st[0], st[1], st[2]};
     const Rows<const T> rk = {(const T*)k, st[3], st[4], st[5]};
     const Rows<const T> rv = {(const T*)v, st[6], st[7], st[8]};
+    // F3: lse is (2, B_, nH, N), hi then lo
+    float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
     return launch<Rows, T, TB, FASTEXP, MXU>(
         rq, rk, rv, ls, bias, mask, contiguous_rows((T*)out, nH, N, DH), lse,
-        B_, N, nH, nW, maxfree, stream);
+        lo, B_, N, nH, nW, maxfree, stream);
   }
 }
 
@@ -762,6 +777,8 @@ extern "C" int mmde_window_attention_fwd(const void* qkv,
 // host array of nine: q, k, v, each (window, head, token), in elements; the
 // channel axis is unit-stride and every row 16-byte aligned. out is a
 // contiguous (B_, nH, N, 32) of the same type. Row maximum for every head.
+// `lse`, when not null, is (2, B_, nH, N) fp32: each row's log-sum-exp as
+// hi and lo (F3), which mmde_window_attention_headsplit_bwd reads.
 extern "C" int mmde_window_attention_headsplit_fwd_stats(
     const void* q, const void* k, const void* v, const void* strides,
     const void* logit_scale, const void* bias, const void* mask, void* out,

@@ -1,11 +1,16 @@
 // Fused SwinV2 cosine window attention, forward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 qkv in the packed layout (qkv as the
-// Linear emits it, (B_, N, 3C); out (B_, N, C)), one window per block.
+// (sm_90a, bf16 mma.sync), for bf16 q, k, v, one window per block: in the
+// packed layout (qkv as the Linear emits it, (B_, N, 3C); out (B_, N, C))
+// and on head-split operands (any (B_, nH, N, 32) strides; out contiguous).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
 // _pallas_forward) for every bf16 launch at w = 1 - the flagship's and
 // swin_large's default serving and training path - in all three precision
-// modes. window_attention_fwd.cu keeps K1's fp32-FMA body for fp32 qkv, for
+// modes; and mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven
+// by _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
+// swin_tiny / swin_huge stages 1-2), in that kernel's function (mode fp32,
+// the row maximum for every head, fp32 bias and mask tiles).
+// window_attention_fwd.cu keeps the fp32-FMA body for fp32 q, k, v, for
 // K5 (w > 1) and as the same-card A/B partner; the function, the softmax
 // forms and the log-sum-exp handed to the backward are the same.
 //
@@ -42,7 +47,9 @@
 // Bias and mask tiles (64 x 64, the accumulators' rows and cols) come by
 // 8-byte cp.async beside K and V, double-buffered too (plain loads where N
 // rows are not 8-byte aligned, N = 225), and are read at each accumulator
-// element's (row, col) from shared memory. Row maximum and row sum stay
+// element's (row, col) from shared memory; fp32 tiles (the head-split
+// stages) keep one mask tile, folded into the stage's bias tile on arrival
+// (BiasTiles, window_attention_tc.cuh). Row maximum and row sum stay
 // inside a quad (the 4 lanes that hold a row). Softmax forms as K1: the
 // static shift scale + 16 for heads with scale <= 30 under maxfree, an
 // online maximum otherwise (F1); the ragged edge (N = 900 = 14*64 + 4,
@@ -68,7 +75,7 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
   __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
-  // 2 stages x {bias[, mask]} tiles
+  // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
@@ -90,9 +97,8 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const bool fixed = mf || max_first;
   const int nt = (N + TC_BT - 1) / TC_BT;
   const int steps = (max_first ? 2 : 1) * nt;
-  constexpr int TB_BYTES = btile_bytes<TB>();
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const int nb = mask_w != nullptr ? 2 : 1;     // tiles a stage
+  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
   // step `s`'s K (and V, outside the bf16 mode's first sweep), bias and
   // mask tiles into stage s & 1
@@ -100,12 +106,8 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     const int st = s & 1, kn = (s % nt) * TC_BT;
     load_tile(sK[st], k_bh, k, kn, N, tid);
     if (!(max_first && s < nt)) load_tile(sV[st], v_bh, v, kn, N, tid);
-    if (async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, kn, N, tid, true);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, kn, N, tid,
-                   true);
-    }
+    if (async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
   };
   issue(0);
@@ -135,19 +137,18 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     const bool sweep = max_first && step < nt;  // the logits-only sweep
     cp_async_wait_all();
     __syncthreads();  // tile `step` arrived; every warp left step - 1
-    if (step + 1 < steps) issue(step + 1);
-    const char* tb = sBM + nb * st * TB_BYTES;
-    const char* tm = tb + TB_BYTES;
-    if (!async_b) {
-      load_btile(sBM + nb * st * TB_BYTES, bias_h, q0, k0, N, tid, false);
-      if (nb == 2)
-        load_btile(sBM + (nb * st + 1) * TB_BYTES, mask_w, q0, k0, N, tid,
-                   false);
-    }
+    if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    const char* tb = bt.bias(st);
+    const char* tm = bt.mask(st);
+    if (!async_b)
+      stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
+    else if (bt.fold())
+      fold_mask(bt, st, tid);
     // k^'s norms (the bf16 mode: k^ rounded in place; its second sweep
     // reloads the raw tile and rounds it again)
     tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
     __syncthreads();
+    if (step + 1 < steps && bt.fold()) issue(step + 1);
 
     // ---- S = q k^T (raw or rounded operands), the epilogue ----
     float s[8][4];
@@ -178,7 +179,7 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
         }
         const bool in1 = col + 1 < N;
         float2 bm = btile_pair(tb, rl, cl, TB());
-        if (nb == 2) {
+        if (bt.add_mask()) {
           const float2 mm = btile_pair(tm, rl, cl, TB());
           bm.x += mm.x;
           bm.y += mm.y;
@@ -274,28 +275,44 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   }
 }
 
+// The launch on operands already described as Rows (any (window, head,
+// token) strides, rows 16-byte aligned); -1 where a row is not.
 template <typename TB, int MXU>
-int launch(const void* qkv, const void* ls, const void* bias,
-           const void* mask, void* out, void* lse, int B_, int N, int nH,
-           int nW, int maxfree, cudaStream_t stream) {
-  const int C = nH * TC_DH;
-  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  const Rows<bf16> ro = packed_rows((bf16*)out, 0, N, C, 1, TC_DH);
+int launch(const Rows<const bf16>& rq, const Rows<const bf16>& rk,
+           const Rows<const bf16>& rv, const Rows<bf16>& ro, const void* ls,
+           const void* bias, const void* mask, void* lse, int B_, int N,
+           int nH, int nW, int maxfree, cudaStream_t stream) {
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
       !rows_aligned(ro))
     return -1;
-  const int smem = (mask != nullptr ? 4 : 2) * btile_bytes<TB>();
+  const int smem = bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       fwd_tc_kernel<TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      4 * btile_bytes<TB>());
+      bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
   fwd_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree);
   return (int)cudaGetLastError();
+}
+
+// qkv (B_, N, 3C) and out (B_, N, C): the packed layout's Rows
+template <typename TB, int MXU>
+int launch_packed(const void* qkv, const void* ls, const void* bias,
+                  const void* mask, void* out, void* lse, int B_, int N,
+                  int nH, int nW, int maxfree, cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  return launch<TB, MXU>(packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH),
+                         packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH),
+                         packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH),
+                         packed_rows((bf16*)out, 0, N, C, 1, TC_DH), ls, bias,
+                         mask, lse, B_, N, nH, nW, maxfree, stream);
+}
+
+bool shape_ok(int B_, int N, int nH, int nW, const void* mask) {
+  if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return false;
+  return mask == nullptr || (nW > 0 && B_ % nW == 0);
 }
 
 }  // namespace
@@ -312,21 +329,47 @@ extern "C" int mmde_window_attention_fwd_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
     int nW, int bias_bf16, int maxfree, int mxu, void* stream) {
-  if (C != nH * TC_DH || B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 ||
-      nH > 65535)
-    return -1;
-  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
+  if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
     constexpr int MXU = decltype(m)::value;
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
     } else if (bias_bf16) {
-      return launch<bf16, MXU>(qkv, logit_scale, bias, mask, out, lse, B_, N,
-                               nH, nW, maxfree, s);
+      return launch_packed<bf16, MXU>(qkv, logit_scale, bias, mask, out, lse,
+                                      B_, N, nH, nW, maxfree, s);
     } else {
-      return launch<float, MXU>(qkv, logit_scale, bias, mask, out, lse, B_,
-                                N, nH, nW, maxfree, s);
+      return launch_packed<float, MXU>(qkv, logit_scale, bias, mask, out,
+                                       lse, B_, N, nH, nW, maxfree, s);
     }
   });
+}
+
+// Head-split entry (K6's counterpart on the tensor cores): bf16 q, k, v
+// (B_, nH, N, 32), each at its own base with the strides `strides` gives, a
+// host array of nine: q, k, v, each (window, head, token), in elements
+// (the model's permuted views of its qkv tensor: no copy); out a contiguous
+// (B_, nH, N, 32) bf16. bias (nH, N, N) and mask (nW, N, N; may be null)
+// bf16 when bias_bf16, else fp32 (the head-split stages stream them in
+// fp32, as the TPU kernel does). The TPU kernel's function only: mode
+// MXU_FP32, the running row maximum for every head (maxfree 0). `lse`
+// (B_, nH, N) fp32 when not null, as mmde_window_attention_fwd_tc writes
+// it. Returns cudaGetLastError() of the launch, or -1 for arguments the
+// kernel does not take (a row that is not 16-byte aligned among them).
+extern "C" int mmde_window_attention_headsplit_fwd_tc(
+    const void* q, const void* k, const void* v, const void* strides,
+    const void* logit_scale, const void* bias, const void* mask, void* out,
+    void* lse, int B_, int N, int nH, int nW, int bias_bf16, void* stream) {
+  if (strides == nullptr || !shape_ok(B_, N, nH, nW, mask)) return -1;
+  const long long* st = (const long long*)strides;
+  const Rows<const bf16> rq = {(const bf16*)q, st[0], st[1], st[2]};
+  const Rows<const bf16> rk = {(const bf16*)k, st[3], st[4], st[5]};
+  const Rows<const bf16> rv = {(const bf16*)v, st[6], st[7], st[8]};
+  const Rows<bf16> ro = contiguous_rows((bf16*)out, nH, N, TC_DH);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bias_bf16)
+    return launch<bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias, mask,
+                                  lse, B_, N, nH, nW, 0, s);
+  return launch<float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias, mask,
+                                 lse, B_, N, nH, nW, 0, s);
 }

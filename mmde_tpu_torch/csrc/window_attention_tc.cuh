@@ -280,14 +280,23 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
 }
 
 // Rows r0.. and cols c0.. of `src` (N, N) into the tile at `dst`: ASYNC
-// by cp.async in 8-byte chunks (needs N * sizeof(TB) % 8 == 0), else by
+// by cp.async in 8-byte chunks (needs N * sizeof(TB) % 8 == 0; fp32 tiles
+// with N % 4 == 0 in 16-byte ones past L1, a swizzle unit each: half the
+// copies; PERF.md has the head-split kernels' times with each), else by
 // plain loads; zeros past the edge.
 template <typename TB>
 __device__ __forceinline__ void load_btile(char* dst, const TB* src, int r0,
                                            int c0, int N, int tid,
                                            bool async) {
   constexpr int PER = 8 / (int)sizeof(TB);       // elements a chunk
-  if (async) {
+  if (sizeof(TB) == 4 && async && N % 4 == 0) {
+    for (int e = tid; e < 64 * 16; e += TC_NT) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      const bool ok = r0 + r < N && c0 + c < N;
+      cp_async16(dst + btile_off<TB>(r, c),
+                 src + (ok ? (size_t)(r0 + r) * N + c0 + c : 0), ok);
+    }
+  } else if (async) {
     for (int e = tid; e < 64 * 64 / PER; e += TC_NT) {
       const int r = e / (64 / PER), c = (e % (64 / PER)) * PER;
       const bool ok = r0 + r < N && c0 + c < N;
@@ -301,6 +310,83 @@ __device__ __forceinline__ void load_btile(char* dst, const TB* src, int r0,
       *reinterpret_cast<TB*>(dst + btile_off<TB>(r, c)) =
           ok ? src[(size_t)(r0 + r) * N + c0 + c] : TB();
     }
+  }
+}
+
+// Where a block's bias and mask tiles sit in its dynamic shared memory.
+// bf16 tiles (8 KB): 2 stages x {bias, mask}, the mask added where an
+// element is read. fp32 tiles (16 KB; the head-split stages stream fp32
+// bias and mask): the mask tile is single-buffered and added into its
+// stage's bias tile once a step, right after both arrived (`fold_mask`),
+// so that a masked block holds three tiles, not four - three blocks on an
+// SM where four fp32 tiles left two. Either way an element reads the same
+// fp32 bias + mask; a block that folds issues the next step's copies after
+// the fold (the mask tile is free again only then).
+template <typename TB>
+struct BiasTiles {
+  char* base;
+  bool masked;
+  static constexpr bool kFold = sizeof(TB) == 4;
+  __device__ __forceinline__ bool fold() const { return kFold && masked; }
+  __device__ __forceinline__ char* bias(int st) const {
+    return base + (fold() ? st : (masked ? 2 : 1) * st) * btile_bytes<TB>();
+  }
+  __device__ __forceinline__ char* mask(int st) const {
+    return fold() ? base + 2 * btile_bytes<TB>()
+                  : bias(st) + btile_bytes<TB>();
+  }
+  // whether a read adds the mask tile itself
+  __device__ __forceinline__ bool add_mask() const {
+    return masked && !fold();
+  }
+};
+
+// the dynamic shared memory of a block's bias (and mask) tiles
+template <typename TB>
+int bias_tiles_bytes(bool masked) {
+  const int tiles = !masked ? 2 : BiasTiles<TB>::kFold ? 3 : 4;
+  return tiles * btile_bytes<TB>();
+}
+
+// Stage st's bias (and mask) tiles of rows r0.., cols c0..: by cp.async
+// (`async`), or by plain loads - where the tiles fold, the sum itself.
+template <typename TB>
+__device__ __forceinline__ void stage_bias_tiles(const BiasTiles<TB>& t,
+                                                 int st, const TB* bias,
+                                                 const TB* mask, int r0,
+                                                 int c0, int N, int tid,
+                                                 bool async) {
+  if constexpr (BiasTiles<TB>::kFold) {
+    if (!async && t.masked) {
+      for (int e = tid; e < 64 * 64; e += TC_NT) {
+        const int r = e >> 6, c = e & 63;
+        const bool ok = r0 + r < N && c0 + c < N;
+        const size_t i = ok ? (size_t)(r0 + r) * N + c0 + c : 0;
+        *reinterpret_cast<TB*>(t.bias(st) + btile_off<TB>(r, c)) =
+            ok ? bias[i] + mask[i] : TB();
+      }
+      return;
+    }
+  }
+  load_btile(t.bias(st), bias, r0, c0, N, tid, async);
+  if (t.masked) load_btile(t.mask(st), mask, r0, c0, N, tid, async);
+}
+
+// After stage st's tiles arrived by cp.async: bias += mask, elementwise
+// (both tiles share the swizzle), the block's threads sharing the work
+template <typename TB>
+__device__ __forceinline__ void fold_mask(const BiasTiles<TB>& t, int st,
+                                          int tid) {
+  float4* b = reinterpret_cast<float4*>(t.bias(st));
+  const float4* m = reinterpret_cast<const float4*>(t.mask(st));
+  for (int i = tid; i < btile_bytes<TB>() / 16; i += TC_NT) {
+    float4 x = b[i];
+    const float4 y = m[i];
+    x.x += y.x;
+    x.y += y.y;
+    x.z += y.z;
+    x.w += y.w;
+    b[i] = x;
   }
 }
 

@@ -12,20 +12,35 @@ swin_huge stages 1-2), exactly where the JAX model takes the Pallas v1
 kernel.
 
 On a GPU the head-split layout is a matter of strides only. The CUDA
-kernels are the packed kernels' bodies (csrc/window_attention_fwd.cu,
-csrc/window_attention_bwd.cu), reached through head-split entry points that
-take each operand's (window, head, token) strides: the model's permuted
-views of qkv go in without a copy (rows must be unit-stride and 16-byte
-aligned, as they are for every swin variant; any other layout is copied
-first). The forward keeps a running row maximum for every head, as the TPU
-kernel does: there is no max-free softmax here, so fault F1 cannot arise.
+kernels are the packed kernels' bodies, reached through head-split entry
+points that take each operand's (window, head, token) strides: the model's
+permuted views of qkv go in without a copy (rows must be unit-stride and
+16-byte aligned, as they are for every swin variant; any other layout is
+copied first). Which body runs follows q's type, nothing else (the packed
+module's `tensor_core_body`): bf16 q, k, v run the tensor-core kernels
+(csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, counted as
+window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc)
+in the TPU kernel's function, mode "fp32" with fp32 bias and mask tiles;
+fp32 q, k, v run the fp32-FMA bodies (csrc/window_attention_fwd.cu,
+csrc/window_attention_bwd.cu; window_attention_headsplit_fwd[+lse] /
+window_attention_headsplit_bwd). The forward keeps a running row maximum for
+every head, as the TPU kernel does: there is no max-free softmax here, so
+fault F1 cannot arise.
+
+The log-sum-exp the backward rebuilds p from: the tensor-core forward hands
+over one fp32 number a row, (B_, nH, N), as the packed kernels do; the FMA
+forward hands over two, (2, B_, nH, N), the row's m + log(l) formed in fp64
+and kept as fp32 hi + lo, and its backward takes p = exp((s - hi) - lo)
+(`rebuild_probabilities`): one rounding of lse ~ 60 would scale a whole row
+of p alike, which the cancelling sum of dlogit_scale does not average away
+(fault F3; the bf16 path's own rounding is far below its tolerance).
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_headsplit_plain` and, under autograd,
 `cosine_window_attention_headsplit_backward_plain` - the same functions in
 plain PyTorch (the packed module's plain versions are these, on split
 heads), which are also what the kernels are compared with on the card.
-`LAUNCHES` / `LAUNCHES_BWD` count kernel launches, and nothing else.
+`LAUNCHES*` count kernel launches, and nothing else.
 
 Where it differs from the TPU kernels:
   * dbias: the TPU backward writes each window's ds in the input type and
@@ -68,10 +83,17 @@ def _bf16r(x: torch.Tensor) -> torch.Tensor:
 
 def _same(x: torch.Tensor) -> torch.Tensor:
     return x
+
+
 LAUNCHES = 0            # incremented once per forward-kernel launch
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
 LAUNCHES_BWD = 0        # incremented once per backward launch (all its passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
+# every launch above, keyed by (kernel, (B_, N, C, nH)); kernel names:
+# window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc
+# (bf16, the tensor cores), window_attention_headsplit_fwd[+lse] /
+# window_attention_headsplit_bwd (the fp32-FMA body)
+LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, strides, logit_scale, bias, mask, out [, lse]; B_, N, nH, nW,
@@ -81,18 +103,49 @@ _FWD_STATS_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
 # q, k, v, g, strides, logit_scale, bias, mask, lse, dq, dk, dv, delta,
 # dls_part, dbias; B_, N, nH, nW, qkv_bf16, bias_bf16, dbias_mode; stream
 _BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
+# the tensor-core entries (bf16 only): as above without qkv_bf16, lse
+# nullable in the forward
+_FWD_TC_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 15 + [_I] * 6 + [_P]
 
 
 def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
     """A head-split entry point of the libraries the packed module builds
-    (the same sources hold both layouts' entry points)."""
+    (the same sources hold both layouts' entry points): the tensor-core
+    forward or backward library for the `_tc` entries, the fp32-FMA ones
+    otherwise."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    lib = wap._library_bwd() if "bwd" in name else wap._library()
+    if name.endswith("_tc"):
+        lib = wap._library_tc("bwd" in name)
+    else:
+        lib = wap._library_bwd() if "bwd" in name else wap._library()
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _count(kernel: str, by_shape: dict, key: tuple) -> None:
+    by_shape[key] = by_shape.get(key, 0) + 1
+    LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
+        (kernel, key), 0) + 1
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} summed over shapes, since the counters were
+    last cleared."""
+    out: dict = {}
+    for (kernel, _), n in LAUNCHES_BY_KERNEL.items():
+        out[kernel] = out.get(kernel, 0) + n
+    return dict(sorted(out.items()))
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, LAUNCHES_BWD
+    LAUNCHES = LAUNCHES_BWD = 0
+    for d in (LAUNCHES_BY_SHAPE, LAUNCHES_BWD_BY_SHAPE, LAUNCHES_BY_KERNEL):
+        d.clear()
 
 
 def _check(q, k, v, logit_scale, bias, mask):
@@ -263,54 +316,104 @@ def cosine_window_attention_headsplit_backward_plain(
             dls.reshape(logit_scale.shape), ds.sum(dim=0))
 
 
-def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats):
-    """Launch the forward kernel; returns (out, lse or None)."""
+def lse_pair(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FMA forward's statistic of fp32 logits s (..., N), in plain
+    PyTorch: the row maximum m and the row sum l = sum(exp(s - m)) in fp32,
+    then m + log(l) in fp64, kept as fp32 (hi, lo)."""
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    x = m.double() + torch.log(l.double())
+    hi = x.float()
+    return hi, (x - hi.double()).float()
+
+
+def rebuild_probabilities(s: torch.Tensor, hi: torch.Tensor,
+                          lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """p = exp((s - hi) - lo), the FMA backward's rebuild of the softmax
+    from the forward's (hi, lo), in s's type; without lo exp(s - hi), the
+    one-number rebuild the packed and slab kernels take."""
+    d = s - hi[..., None]
+    if lo is not None:
+        d = d - lo[..., None]
+    return torch.exp(d)
+
+
+def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
+                    _fma=False):
+    """Launch the forward kernel; returns (out, lse or None). bf16 q, k, v
+    run the tensor-core kernel (lse (B_, nH, N)), fp32 the FMA body (lse
+    (2, B_, nH, N), hi and lo); `_fma` (private: chip_smoke.py's same-card
+    comparison and tools/bench_attention.py, never the model) sends bf16
+    to the FMA body too."""
     global LAUNCHES
+    from mmde_tpu_torch.ops.window_attention_packed import (
+        _stream, tensor_core_body)
     B_, nH, N, Dh = q.shape
     q, k, v = _rows(q), _rows(k), _rows(v)
+    tc = tensor_core_body(v.dtype) and not _fma
     name = "mmde_window_attention_headsplit_fwd" + (
-        "_stats" if want_stats else "")
-    fn = _entry(name, _FWD_STATS_ARGTYPES if want_stats else _FWD_ARGTYPES)
+        "_tc" if tc else "_stats" if want_stats else "")
+    fn = _entry(name, _FWD_TC_ARGTYPES if tc else _FWD_STATS_ARGTYPES
+                if want_stats else _FWD_ARGTYPES)
     dev = v.device
     out = torch.empty((B_, nH, N, Dh), dtype=v.dtype, device=dev)
-    lse = (torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
+    lse = (torch.empty(((B_, nH, N) if tc else (2, B_, nH, N)),
+                       dtype=torch.float32, device=dev)
            if want_stats else None)
     strides = _strides(q, k, v)
+    nW = mask.shape[0] if mask is not None else 0
+    bias_bf16 = int(bias.dtype == torch.bfloat16)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ctypes.addressof(strides), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 ctypes.addressof(strides), logit_scale.data_ptr(),
-                 bias.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 out.data_ptr(), *([lse.data_ptr()] if want_stats else []),
-                 B_, N, nH, mask.shape[0] if mask is not None else 0,
-                 int(v.dtype == torch.bfloat16),
-                 int(bias.dtype == torch.bfloat16), stream)
+        stream = _stream(dev)
+        if tc:
+            err = fn(*args, lse.data_ptr() if want_stats else None, B_, N,
+                     nH, nW, bias_bf16, stream)
+        else:
+            err = fn(*args, *([lse.data_ptr()] if want_stats else []), B_, N,
+                     nH, nW, int(v.dtype == torch.bfloat16), bias_bf16,
+                     stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, nH={nH}, "
             f"{v.dtype})")
     LAUNCHES += 1
-    key = (B_, N, nH * Dh, nH)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    _count("window_attention_headsplit_fwd" + ("_tc" if tc else "")
+           + ("+lse" if want_stats else ""), LAUNCHES_BY_SHAPE,
+           (B_, N, nH * Dh, nH))
     return out, lse
 
 
-def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias):
+def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
+                     _fma=False):
     """Launch the backward kernels; returns (dq, dk, dv, dlogit_scale,
-    dbias or None)."""
+    dbias or None). bf16 runs the tensor-core passes, fp32 (and bf16 with
+    the private `_fma`) the FMA body; `lse` must be what the same body's
+    forward wrote."""
     global LAUNCHES_BWD
-    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE
+    from mmde_tpu_torch.ops.window_attention_packed import (
+        BWD_TILE, _stream, tensor_core_body)
     B_, nH, N, Dh = q.shape
     if g.dtype != v.dtype or g.shape != v.shape:
         raise ValueError(f"g must be {tuple(v.shape)} {v.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype}")
+    tc = tensor_core_body(v.dtype) and not _fma
+    want_lse = (B_, nH, N) if tc else (2, B_, nH, N)
+    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
+        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
+                         f"reads a float32 {want_lse} log-sum-exp, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
     q, k, v, g = _rows(q), _rows(k), _rows(v), _rows(g)
-    fn = _entry("mmde_window_attention_headsplit_bwd", _BWD_ARGTYPES)
+    name = "mmde_window_attention_headsplit_bwd" + ("_tc" if tc else "")
+    fn = _entry(name, _BWD_TC_ARGTYPES if tc else _BWD_ARGTYPES)
     dev = v.device
     dq, dk, dv = (torch.empty((B_, nH, N, Dh), dtype=v.dtype, device=dev)
                   for _ in range(3))
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
+    # one fp64 partial of dlogit_scale per (window, 64-key tile, head): the
+    # dk/dv pass's tile is BWD_TILE rows in both bodies (TC_BT = 64)
     n_tiles = -(-N // BWD_TILE)
     dls_part = torch.empty((B_ * n_tiles, nH), dtype=torch.float64,
                            device=dev)
@@ -318,32 +421,37 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias):
     dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
              if want_dbias else None)
     strides = _strides(q, k, v, g)
+    bias_bf16 = int(bias.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                 ctypes.addressof(strides), logit_scale.data_ptr(),
-                 bias.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 delta.data_ptr(), dls_part.data_ptr(),
-                 dbias.data_ptr() if dbias is not None else None,
-                 B_, N, nH, mask.shape[0] if mask is not None else 0,
-                 int(v.dtype == torch.bfloat16),
-                 int(bias.dtype == torch.bfloat16), int(want_dbias), stream)
+        stream = _stream(dev)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                ctypes.addressof(strides), logit_scale.data_ptr(),
+                bias.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), dls_part.data_ptr(),
+                dbias.data_ptr() if dbias is not None else None,
+                B_, N, nH, mask.shape[0] if mask is not None else 0)
+        if tc:
+            err = fn(*args, bias_bf16, int(want_dbias), stream)
+        else:
+            err = fn(*args, int(v.dtype == torch.bfloat16), bias_bf16,
+                     int(want_dbias), stream)
     if err != 0:
         raise RuntimeError(
-            f"mmde_window_attention_headsplit_bwd launch failed with code "
-            f"{err} (B_={B_}, N={N}, nH={nH}, {v.dtype})")
+            f"{name} launch failed with code {err} (B_={B_}, N={N}, nH={nH}, "
+            f"{v.dtype})")
     LAUNCHES_BWD += 1
-    key = (B_, N, nH * Dh, nH)
-    LAUNCHES_BWD_BY_SHAPE[key] = LAUNCHES_BWD_BY_SHAPE.get(key, 0) + 1
+    _count("window_attention_headsplit_bwd" + ("_tc" if tc else ""),
+           LAUNCHES_BWD_BY_SHAPE, (B_, N, nH * Dh, nH))
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
     return dq, dk, dv, dls, dbias
 
 
 class _HeadSplitWindowAttention(torch.autograd.Function):
     """K6' forward (saving each row's log-sum-exp) and K7' backward for CUDA
-    tensors; the plain forward and the plain backward for CPU tensors."""
+    tensors, on the tensor cores for bf16 and the FMA body for fp32; the
+    plain forward and the plain backward for CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, logit_scale, bias, mask):
@@ -390,10 +498,11 @@ def cosine_window_attention_headsplit(q: torch.Tensor, k: torch.Tensor,
     v's type; mask: (nW, N, N) of bias's type or None, window b uses row
     b % nW. Returns (B_, nH, N, 32) in v's type.
 
-    CUDA tensors launch the kernels (or raise); CPU tensors take the plain
-    versions. When a gradient is recorded the forward kernel also writes
-    each row's log-sum-exp, which the backward kernel rebuilds the
-    probabilities from; without one (serving) it writes the output alone.
+    CUDA tensors launch the kernels (or raise): bf16 the tensor-core
+    kernels, fp32 the fp32-FMA ones; CPU tensors take the plain versions.
+    When a gradient is recorded the forward kernel also writes each row's
+    log-sum-exp, which the backward kernel rebuilds the probabilities from;
+    without one (serving) it writes the output alone.
     """
     _check(q, k, v, logit_scale, bias, mask)
     if torch.is_grad_enabled() and any(

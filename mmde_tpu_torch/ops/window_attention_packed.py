@@ -154,9 +154,10 @@ _SOURCES_BWD_TC = ("window_attention_bwd_tc.cu",)
 
 
 def tensor_core_body(dtype: torch.dtype, w: int = 1) -> bool:
-    """Whether a packed launch of qkv's `dtype` at `w` windows per block
-    runs the tensor-core kernels: bf16 at W = 1, in every precision mode
-    (the other launches take the fp32-FMA bodies)."""
+    """Whether a launch of qkv's `dtype` at `w` windows per block runs the
+    tensor-core kernels: bf16 at W = 1, in every precision mode (the other
+    launches take the fp32-FMA bodies). The head-split wrapper takes the
+    same rule (one window per block always)."""
     return dtype == torch.bfloat16 and w == 1
 
 # The JAX package's packed-layout plan and windows-per-cell rule, copied
@@ -331,7 +332,8 @@ def _library_bwd() -> ctypes.CDLL:
 
 
 def _library_tc(backward: bool) -> ctypes.CDLL:
-    """The tensor-core forward or backward library."""
+    """The tensor-core forward or backward library (the packed entries; the
+    head-split wrapper binds its own)."""
     from mmde_tpu_torch.ops.cuda_build import load_library
     if backward:
         return _bind(load_library(_LIB_NAME_BWD_TC, _SOURCES_BWD_TC), (

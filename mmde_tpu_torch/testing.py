@@ -1,4 +1,4 @@
-"""Numpy-only helpers for parity tests and smoke runs.
+"""Helpers for parity tests and smoke runs.
 
 `randomize_tree` fills a nested dict shaped like a flax `params` /
 `batch_stats` tree from a numpy generator at scales that keep activations
@@ -8,12 +8,20 @@ gives those without compiling or running the initialisation). The packages' own 
 std 0.001, identity BatchNorm) gives a near-constant depth map of
 max_depth / 2, on which any comparison passes vacuously — a flipped
 transposed convolution once hid behind exactly that.
+
+`tc_forward_heads` / `tc_backward_heads` emulate in plain torch the
+arithmetic of the tensor-core window-attention kernels
+(csrc/window_attention_{fwd,bwd}_tc.cu), which run only on the card, on
+head-split operands; `tc_forward` / `tc_backward` on the packed (B_, N, 3C)
+qkv. The CPU tests hold that arithmetic to the JAX kernels.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+import math
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 # Largest log temperature drawn: exp(3) ~ 20. Beyond scale ~ 30 the JAX
 # package's max-free softmax underflows in float32 (its static shift assumes
@@ -66,3 +74,127 @@ def randomize_tree(tree: Mapping, rng: np.random.Generator,
         else:
             out[k] = _leaf(_path + (str(k),), tuple(v.shape), rng)
     return out
+
+
+# ----------------------------------------- the tensor-core kernels' arithmetic
+
+_LN100 = math.log(100.0)
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels take it for an fp32 operand a and a bf16-exact
+    b: a split into bf16(a) and bf16(a - bf16(a)), two products summed in
+    fp32."""
+    hi = _bf(a)
+    return hi @ b + _bf(a - hi) @ b
+
+
+def _logits(q, k, ls, bias, mask, mxu):
+    """(s, sc, rq, rk, scale, operands): fp32 / fold take S = q k^T on the raw
+    bf16 values and normalise the accumulator, a rank-1 epilogue; "bf16"
+    takes bf16((q * rq) * scale) and bf16(k * rk)."""
+    nH = q.shape[1]
+    rq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
+    rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+    scale = torch.exp(torch.clamp(ls.float().reshape(nH, 1, 1), max=_LN100))
+    ops = None
+    if mxu == "bf16":
+        qd, kd = _bf(q * rq * scale), _bf(k * rk)
+        sc = qd @ kd.transpose(-1, -2)
+        ops = (qd, kd)
+    else:
+        S = q @ k.transpose(-1, -2)
+        rkt = rk.transpose(-1, -2)
+        sc = (S * (scale * rq) * rkt if mxu == "fold"
+              else S * rq * rkt * scale)
+    s = sc + bias.float()[None]
+    if mask is not None:
+        B, nW = q.shape[0], mask.shape[0]
+        s = (s.reshape(B // nW, nW, nH, *s.shape[-2:])
+             + mask.float()[None, :, None]).reshape(s.shape)
+    return s, sc, rq, rk, scale, ops
+
+
+def tc_forward_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     ls: torch.Tensor, bias: torch.Tensor,
+                     mask: Optional[torch.Tensor], mxu: str,
+                     maxfree: bool = True) -> torch.Tensor:
+    """The tensor-core forward's arithmetic on head-split fp32 q, k, v
+    (B_, nH, N, 32) holding bf16 values; (B_, nH, N, 32) fp32. `maxfree`:
+    whether the "bf16" mode may take the static shift (the head-split entry
+    passes maxfree 0)."""
+    s, _, _, _, scale, _ = _logits(q, k, ls, bias, mask, mxu)
+    shift = s.amax(-1, keepdim=True)
+    if mxu == "bf16":   # the static shift where the kernel takes it
+        shift = torch.where((scale <= 30.0)[None] & maxfree, scale + 16.0,
+                            shift)
+    e = torch.exp(s - shift)
+    o = (_bf(e) @ v if mxu == "bf16" else _split_mm(e, v))
+    return o / e.sum(-1, keepdim=True)
+
+
+def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu) -> list:
+    """The tensor-core backward's arithmetic on head-split operands: [dq,
+    dk, dv, dlogit_scale (nH, 1, 1), dbias]. fp32 / fold: delta exact, then
+    dqn = split(ds f_j) k, f_j = scale rk_j (the dq pass's two sweeps); dv =
+    split(p)^T g; dkn = split(ds f_i)^T q, f_i = scale rq_i; dlogit_scale =
+    sum(ds * sc) in fp32, every mode (k^ . dkn, K2's shortcut, would carry
+    dkn's split residual into a sum that cancels). bf16: the JAX body's
+    rounded operands, ds rounded."""
+    nH = q.shape[1]
+    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, mxu)
+    p = torch.softmax(s, dim=-1)
+    dp = g @ v.transpose(-1, -2)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if mxu == "bf16":
+        qd, kd = ops
+        dv = _bf(p).transpose(-1, -2) @ g
+        dqn = (_bf(ds) @ kd) * scale
+        dkn = _bf(ds).transpose(-1, -2) @ qd
+    else:
+        dqn = _split_mm(ds * (scale * rk.transpose(-1, -2)), k)
+        dv = _split_mm(p.transpose(-1, -2), g)
+        dkn = _split_mm((ds * (scale * rq)).transpose(-1, -2), q)
+    qn, kn = q * rq, k * rk
+    dq = rq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
+    dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
+    live = ls.float().flatten() < _LN100
+    dls = ((ds * sc).sum((0, 2, 3)) * live).reshape(nH, 1, 1)
+    return [dq, dk, dv, dls, ds.sum(0)]
+
+
+def _packed_heads(qkv: np.ndarray, nH: int):
+    B, N, _ = qkv.shape
+    x = torch.from_numpy(qkv).reshape(B, N, 3, nH, 32).permute(2, 0, 3, 1, 4)
+    return x[0], x[1], x[2]
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def tc_forward(qkv, ls, bias, mask, nH, mxu, maxfree=True) -> torch.Tensor:
+    """`tc_forward_heads` on the packed layout: numpy qkv (B_, N, 3C), ls,
+    bias, mask; returns (B_, N, C) fp32."""
+    o = tc_forward_heads(*_packed_heads(qkv, nH), _t(ls), _t(bias), _t(mask),
+                         mxu, maxfree)
+    B, _, N, _ = o.shape
+    return o.permute(0, 2, 1, 3).reshape(B, N, nH * 32)
+
+
+def tc_backward(qkv, ls, bias, mask, g, nH, mxu) -> list:
+    """`tc_backward_heads` on the packed layout (numpy in, g (B_, N, C)):
+    [dqkv (B_, N, 3C), dlogit_scale, dbias]."""
+    q, k, v = _packed_heads(qkv, nH)
+    B, N, _ = qkv.shape
+    gh = torch.from_numpy(g).reshape(B, N, nH, 32).permute(0, 2, 1, 3)
+    dq, dk, dv, dls, dbias = tc_backward_heads(
+        q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
+        B, N, 3 * nH * 32)
+    return [dqkv, dls, dbias]

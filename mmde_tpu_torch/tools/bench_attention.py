@@ -10,7 +10,9 @@ other tree with `git archive` into a gitignored directory and pass it as
 --tree). Per stage of swin_base_v2 + decoder_v2 at 480x640, bfloat16, masked
 where the stage shifts: the packed forward as served (1 frame pair), the
 forward with its log-sum-exp and the backward as trained (2 pairs); where
-the tree has the head-split kernels, swin_large_v2's stage 1 the same way;
+the tree has the head-split kernels, swin_large_v2's stage 1 the same way
+(bf16 on the tensor cores and, where the tree has both, the FMA body beside
+it);
 and, where it has the slab kernels, the flagship's four stage maps through
 them (float32 bias and mask, as the slab path streams them). `--grid
 bias_resident` adds the single-pass backward K4 (after the forward without
@@ -139,6 +141,10 @@ def bench_packed(shape, pairs, reps, gen, grid="window_resident",
 
 
 def bench_headsplit(shape, pairs, reps, gen) -> dict:
+    """The head-split kernels (float32 bias and mask, as the stage streams
+    them); where the tree has both bodies for bf16 (the private `_fma`),
+    also the FMA body beside the tensor-core one (the `*_fma_ms` keys)."""
+    import inspect
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     B_, N, C, nH, nW = shape
     B_ *= pairs
@@ -148,17 +154,21 @@ def bench_headsplit(shape, pairs, reps, gen) -> dict:
     g = g.reshape(B_, N, nH, C // nH).permute(0, 2, 1, 3)
     rec = {"kernel": "headsplit", "B_": B_, "N": N, "C": C, "nH": nH,
            "nW": nW}
-    if pairs == 1:
-        rec["fwd_ms"] = _time(lambda: ths._launch_forward(
-            q, k, v, ls, bias, mask, False), reps)
-        return rec
-    rec["fwd_lse_ms"] = _time(lambda: ths._launch_forward(
-        q, k, v, ls, bias, mask, True), reps)
-    lse = ths._launch_forward(q, k, v, ls, bias, mask, True)[1]
-    rec["bwd_ms"] = _time(lambda: ths._launch_backward(
-        q, k, v, ls, bias, mask, lse, g, True), reps)
-    rec["bwd_no_dbias_ms"] = _time(lambda: ths._launch_backward(
-        q, k, v, ls, bias, mask, lse, g, False), reps)
+    bodies = {"": {}}
+    if "_fma" in inspect.signature(ths._launch_forward).parameters:
+        bodies["_fma"] = {"_fma": True}
+    for sfx, kw in bodies.items():
+        if pairs == 1:
+            rec[f"fwd{sfx}_ms"] = _time(lambda: ths._launch_forward(
+                q, k, v, ls, bias, mask, False, **kw), reps)
+            continue
+        rec[f"fwd_lse{sfx}_ms"] = _time(lambda: ths._launch_forward(
+            q, k, v, ls, bias, mask, True, **kw), reps)
+        lse = ths._launch_forward(q, k, v, ls, bias, mask, True, **kw)[1]
+        rec[f"bwd{sfx}_ms"] = _time(lambda: ths._launch_backward(
+            q, k, v, ls, bias, mask, lse, g, True, **kw), reps)
+        rec[f"bwd_no_dbias{sfx}_ms"] = _time(lambda: ths._launch_backward(
+            q, k, v, ls, bias, mask, lse, g, False, **kw), reps)
     return rec
 
 

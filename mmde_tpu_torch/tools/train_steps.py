@@ -131,11 +131,9 @@ def kernel_launches() -> Dict[str, int]:
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.ops import window_attention_slab as was
-    out = dict(wap.launch_counts())
-    for prefix, m in (("window_attention_headsplit", ths),
-                      ("window_attention_slab", was)):
-        out[f"{prefix}_fwd"] = m.LAUNCHES
-        out[f"{prefix}_bwd"] = m.LAUNCHES_BWD
+    out = dict(wap.launch_counts(), **ths.launch_counts())
+    out["window_attention_slab_fwd"] = was.LAUNCHES
+    out["window_attention_slab_bwd"] = was.LAUNCHES_BWD
     return {k: v for k, v in out.items() if v}
 
 
@@ -181,11 +179,13 @@ def main(argv=None) -> None:
         if on_cuda:
             rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         if i == args.steps - 1:
+            from mmde_tpu_torch.ops import window_attention_headsplit as ths
             from mmde_tpu_torch.ops import window_attention_packed as wap
             rec["launches"] = kernel_launches()
             by_shape: Dict[str, Dict[str, int]] = {}
             for (kernel, (b_, n, c, nh)), cnt in sorted(
-                    wap.LAUNCHES_BY_KERNEL.items()):
+                    list(wap.LAUNCHES_BY_KERNEL.items())
+                    + list(ths.LAUNCHES_BY_KERNEL.items())):
                 by_shape.setdefault(kernel, {})[f"{b_}x{n}x{c}/{nh}"] = cnt
             rec["launches_by_shape"] = by_shape
         print(json.dumps(rec), flush=True)

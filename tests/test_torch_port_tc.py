@@ -7,11 +7,12 @@ card (chip_smoke.py, kernel_cases_tc, holds them to the plain versions).
 Here, on the CPU:
 
   * the arithmetic they rely on, emulated in plain torch (`tc_forward`,
-    `tc_backward` below: the raw bf16 q k^T with a rank-1 fp32 epilogue,
-    p / ds split into bf16 hi and lo before their products, scale * rk_j and
-    scale * rq_i folded into ds before the split, the bf16 mode's rounded
-    operands), is held to the JAX package's `cosine_window_attention_packed`
-    in interpret mode, forward and backward, per mode;
+    `tc_backward` of mmde_tpu_torch/testing.py: the raw bf16 q k^T with a
+    rank-1 fp32 epilogue, p / ds split into bf16 hi and lo before their
+    products, scale * rk_j and scale * rq_i folded into ds before the
+    split, the bf16 mode's rounded operands), is held to the JAX package's
+    `cosine_window_attention_packed` in interpret mode, forward and
+    backward, per mode;
   * the wrapper's routing, read off with the libraries replaced by
     recorders and a tensor that says it is on the card;
   * the sources and the build: the new libraries, their C entries' mode
@@ -34,6 +35,7 @@ import torch
 from mmde_tpu.ops import window_attention_packed as jwap
 from mmde_tpu_torch.ops import cuda_build
 from mmde_tpu_torch.ops import window_attention_packed as twp
+from mmde_tpu_torch.testing import tc_backward, tc_forward
 
 LN100 = math.log(100.0)
 
@@ -86,105 +88,6 @@ def _jax_run(qkv, ls, bias, mask, g, nH, mxu):
                                     for x in vjp(jnp.asarray(g))]
     finally:
         jwap.SOFTMAX_MAXFREE = maxfree
-
-
-# ------------------------------------------------------------ the emulation
-
-def _bf(x: torch.Tensor) -> torch.Tensor:
-    return x.bfloat16().float()
-
-
-def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernels take it for an fp32 operand a and a bf16-exact
-    b: a split into bf16(a) and bf16(a - bf16(a)), two products summed in
-    fp32."""
-    hi = _bf(a)
-    return hi @ b + _bf(a - hi) @ b
-
-
-def _heads(qkv, g, nH):
-    B, N, C3 = qkv.shape
-    x = torch.from_numpy(qkv).reshape(B, N, 3, nH, 32).permute(2, 0, 3, 1, 4)
-    gh = torch.from_numpy(g).reshape(B, N, nH, 32).permute(0, 2, 1, 3)
-    return x[0], x[1], x[2], gh
-
-
-def _logits(q, k, ls, bias, mask, mxu):
-    """(s, sc, rq, rk, scale, operands): fp32 / fold take S = q k^T on the raw
-    bf16 values and normalise the accumulator, a rank-1 epilogue; "bf16"
-    takes bf16((q * rq) * scale) and bf16(k * rk)."""
-    nH = q.shape[1]
-    rq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
-    rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
-    scale = torch.exp(torch.clamp(torch.from_numpy(ls).reshape(nH, 1, 1),
-                                  max=LN100))
-    ops = None
-    if mxu == "bf16":
-        qd, kd = _bf(q * rq * scale), _bf(k * rk)
-        sc = qd @ kd.transpose(-1, -2)
-        ops = (qd, kd)
-    else:
-        S = q @ k.transpose(-1, -2)
-        rkt = rk.transpose(-1, -2)
-        sc = (S * (scale * rq) * rkt if mxu == "fold"
-              else S * rq * rkt * scale)
-    s = sc + torch.from_numpy(bias)[None]
-    if mask is not None:
-        B, nW = q.shape[0], mask.shape[0]
-        s = (s.reshape(B // nW, nW, nH, *s.shape[-2:])
-             + torch.from_numpy(mask)[None, :, None]).reshape(s.shape)
-    return s, sc, rq, rk, scale, ops
-
-
-def tc_forward(qkv, ls, bias, mask, nH, mxu, maxfree=True):
-    """The tensor-core forward's arithmetic: (B_, N, C) fp32."""
-    q, k, v, _ = _heads(qkv, np.zeros((qkv.shape[0], qkv.shape[1],
-                                       qkv.shape[2] // 3), np.float32), nH)
-    s, _, _, _, scale, _ = _logits(q, k, ls, bias, mask, mxu)
-    shift = s.amax(-1, keepdim=True)
-    if mxu == "bf16":   # the static shift where the kernel takes it
-        shift = torch.where((scale <= 30.0)[None] & maxfree, scale + 16.0,
-                            shift)
-    e = torch.exp(s - shift)
-    o = (_bf(e) @ v if mxu == "bf16" else _split_mm(e, v))
-    o = o / e.sum(-1, keepdim=True)
-    B, _, N, _ = o.shape
-    return o.permute(0, 2, 1, 3).reshape(B, N, nH * 32)
-
-
-def tc_backward(qkv, ls, bias, mask, g, nH, mxu):
-    """The tensor-core backward's arithmetic: (dqkv, dlogit_scale, dbias).
-    fp32 / fold: delta exact, then dqn = split(ds f_j) k, f_j = scale rk_j
-    (the dq pass's two sweeps); dv = split(p)^T g; dkn = split(ds f_i)^T q,
-    f_i = scale rq_i; dlogit_scale = sum(ds * sc) in fp32, every mode (k^ .
-    dkn, K2's shortcut, would carry dkn's split residual into a sum that
-    cancels). bf16: the JAX body's rounded operands, ds rounded."""
-    q, k, v, gh = _heads(qkv, g, nH)
-    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, mxu)
-    p = torch.softmax(s, dim=-1)
-    dp = gh @ v.transpose(-1, -2)
-    delta = (p * dp).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
-    if mxu == "bf16":
-        qd, kd = ops
-        dv = _bf(p).transpose(-1, -2) @ gh
-        dqn = (_bf(ds) @ kd) * scale
-        dkn = _bf(ds).transpose(-1, -2) @ qd
-    else:
-        dqn = _split_mm(ds * (scale * rk.transpose(-1, -2)), k)
-        dv = _split_mm(p.transpose(-1, -2), gh)
-        dkn = _split_mm((ds * (scale * rq)).transpose(-1, -2), q)
-    qn, kn = q * rq, k * rk
-    dq = rq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
-    dots = (dkn * kn).sum(-1, keepdim=True)
-    dk = rk * (dkn - kn * dots)
-    live = torch.from_numpy(ls).flatten() < LN100
-    dls = (ds * sc).sum((0, 2, 3))
-    dls = (dls * live).reshape(nH, 1, 1)
-    B, _, N, _ = q.shape
-    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
-        B, N, 3 * nH * 32)
-    return [dqkv, dls, ds.sum(0)]
 
 
 _CASES = {}
