@@ -92,28 +92,37 @@ What it does, each phase printing one JSON object on a line of its own:
   parity_slab   parity and train_parity for "cuda_slab" against "torch".
   kernel_cases_resident
                 K4, the single-pass backward MMDE_ATTN_GRID=bias_resident
-                selects, at the flagship's four train shapes (bf16; fp32 at
-                stages 1 and 4), through the autograd Function under that
-                grid (the forward before it: K1 without the log-sum-exp),
-                against the plain backward and float64 autograd; dbias
-                bitwise equal over two launches; ms beside K2's in the same
-                call, bound, the SDPA backward yardstick.
+                selects, at the flagship's four train shapes (bf16: the
+                tensor-core K4, csrc/window_attention_bwd_resident_tc.cu;
+                fp32 at stages 1 and 4: the FMA body), through the autograd
+                Function under that grid (the forward before it: K1 without
+                the log-sum-exp), against the plain backward and float64
+                autograd; dbias bitwise equal over two launches; ms beside
+                the FMA body's (bf16, in turns) and K2's in the same call,
+                bound, the products' bound on the tensor cores (tc_units
+                10), the SDPA backward yardstick.
   kernel_cases_w
                 K5, W windows per block, at every (shape, W) the JAX rule
                 gives the flagship's served and trained stages under
                 MMDE_ATTN_W=auto (blocks with and without their mask) and
-                at W = 2 on stage 1: forward against the plain forward,
-                backward against the plain backward and float64 autograd;
-                ms beside K1 / K2 at W = 1 in the same call.
+                at W = 2 on stage 1: bf16 on the tensor cores (the `_tc_w`
+                entries; served in modes fold, fp32 and bf16, trained in
+                fold), fp32 the FMA body at stages 1 and 4: forward against
+                the plain forward of its mode, backward against the plain
+                backward and float64 autograd (TOL_*, TOL_MXU_BF16), bf16
+                MXU_APART times nearer its own mode's plain version than
+                the other's; ms beside the FMA body's (bf16, in turns) and
+                K1 / K2 at W = 1 in the same call, tc_units, SDPA.
   train_resident
                 the trainer entry point (`tools.train_steps.main`, 4 steps)
                 in a process of its own under MMDE_ATTN_GRID=bias_resident:
                 step ms, peak bytes, and its launches, 24 K1 without lse
-                and 24 K4 a step, no K2.
+                and 24 tensor-core K4 a step, no K2.
   serve_w, train_w
                 the flagship under MMDE_ATTN_W=auto (this script in a
                 process of its own): 2 requests, 4 steps, every packed
-                launch at the rule's W, launches by kernel and W.
+                launch at the rule's W (the tensor-core K5 where W > 1),
+                launches by kernel and W.
   train_parity_resident
                 one fp32 step (TF32 off) under bias_resident (computed in
                 train_resident's process, after its steps) against the
@@ -176,8 +185,14 @@ What it does, each phase printing one JSON object on a line of its own:
                 and the SDPA backend beside it; for a backward, that call's
                 backward under autograd). K4's and K5's entries carry the
                 launches of train_resident, serve_w and train_w; K2's also
-                K3's own time and bound; T1-T3's the launches of the tool
-                runs above, K1 / K2 in the bf16 mode those of train_mxu.
+                K3's own time, bound and FMA bound; T1-T3's the launches of
+                the tool runs above, K1 / K2 in the bf16 mode those of
+                train_mxu.
+  profile_resident, profile_w
+                (--profile only) Path A and Path B, a served request and a
+                train step each, device time by kernel group, on the
+                flagship profile's model and trainer with the module
+                settings their variables give (PROFILED_PATHS).
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -187,6 +202,7 @@ JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -224,8 +240,13 @@ KERNEL_W_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
 KERNEL_W_BWD_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:473 "
                          "(_bwd_body with w > 1, W from _choose_w :191; "
                          "pallas_call :1103)")
-# K4, the single-pass backward, has a source of its own
-KERNEL_RESIDENT_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd_resident.cu"
+# K4, the single-pass backward, has a source of its own (the bf16 path's,
+# on the tensor cores)
+KERNEL_RESIDENT_TC_SOURCE = ("mmde_tpu_torch/csrc/"
+                             "window_attention_bwd_resident_tc.cu")
+# N x N x 32 products the tensor-core K4 needs: S and dP in each of its two
+# sweeps, dq, dk and dv each on a split operand
+K4_TC_UNITS = 10.0
 KERNEL_RESIDENT_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:636 "
                             "(_bwd_body_v4; pallas_call :800)")
 # the two grid modes of K2 (K4 is "bias_resident", compared on its own)
@@ -1428,13 +1449,13 @@ def _profile(fn) -> dict:
 
     def group(name: str) -> str:
         n = name.lower()
-        if "window_attention_fwd" in n or "fwd_tc_kernel" in n:
+        if ("window_attention_fwd" in n or "fwd_tc_kernel" in n
+                or "fwd_tc_w_kernel" in n):
             # K1 (FMA or tensor-core body), K6', K8', K5
             return "window_attention_fwd (this repo's kernel)"
-        if ("bwd_dq_kernel" in n or "bwd_dkv_kernel" in n
-                or "bwd_dq_tc_kernel" in n or "bwd_dkv_tc_kernel" in n
-                or "bwd_dbias_kernel" in n or "bwd_dq_w_kernel" in n
-                or "bwd_dkv_w_kernel" in n or "bwd_resident_kernel" in n):
+        if ("bwd_dq_" in n or "bwd_dkv_" in n or "bwd_dbias_kernel" in n
+                or "bwd_resident" in n):
+            # K2 / K3 / K7' / K9' / K5's passes, K4 (any body)
             return "window_attention_bwd (this repo's kernel)"
         if "multi_tensor_apply" in n:
             return "optimizer (foreach AdamW, grad zeroing)"
@@ -1462,23 +1483,62 @@ def _profile(fn) -> dict:
             "top": rows[:12]}
 
 
+# Paths A and B, profiled beside the default path on the same model and
+# trainer: {tag: (the settings MMDE_ATTN_GRID / MMDE_ATTN_W give
+# ops/window_attention_packed.py at import, what runs)}. The wrapper reads
+# both module settings at each call, so setting them for a call is the
+# variable's path.
+PROFILED_PATHS = {
+    "profile_resident": ({"DEFAULT_GRID_MODE": "bias_resident"},
+                         "Path A (MMDE_ATTN_GRID=bias_resident): K1 without "
+                         "lse + K4, on the tensor cores"),
+    "profile_w": ({"WINDOWS_PER_CELL": "auto"},
+                  "Path B (MMDE_ATTN_W=auto): K5 on the tensor cores at "
+                  "the rule's W"),
+}
+
+
+@contextlib.contextmanager
+def _packed_settings(settings: dict):
+    """Module settings of ops/window_attention_packed.py for a `with` block,
+    restored after it."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    old = {k: getattr(wap, k) for k in settings}
+    for k, v in settings.items():
+        setattr(wap, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(wap, k, v)
+
+
 def phase_profile(path: str, backbone: str = "swin_base_v2",
-                  tag: str = "profile", attn_impl: str = "cuda") -> dict:
+                  tag: str = "profile", attn_impl: str = "cuda",
+                  paths: dict = None) -> dict:
     """Optional (--profile PATH): device time by kernel group of one served
     request and of one train step (2 frame pairs) of `backbone` under
     `attn_impl`. Every row goes to PATH (the served request's at top level,
-    the train step's under "train_step")."""
+    the train step's under "train_step"). `paths` ({tag: (settings,
+    what)}, PROFILED_PATHS): the same request and step again under each
+    path's settings, on the same model and trainer, rows to PATH with the
+    tag's suffix (_resident, _w) before its extension."""
     from mmde_tpu_torch.tools import infer
     from mmde_tpu_torch.tools import train_steps as ts
+    runs = {tag: ({}, None)}
+    runs.update(paths or {})
     model = infer.build(flagship_cfg("bfloat16", attn_impl,
                                      backbone=backbone),
                         device="cuda", seed=0)
     randomize_weights(model, seed=7)
     f1, f2 = make_frames(seed=11)
-    for _ in range(2):
-        infer.predict(model, f1, f2)
-    torch.cuda.synchronize()
-    serve = _profile(lambda: infer.predict(model, f1, f2))
+    serve = {}
+    for t, (settings, _) in runs.items():
+        with _packed_settings(settings):
+            for _ in range(2):
+                infer.predict(model, f1, f2)
+            torch.cuda.synchronize()
+            serve[t] = _profile(lambda: infer.predict(model, f1, f2))
     del model
     torch.cuda.empty_cache()
 
@@ -1487,22 +1547,29 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
                            backbone=backbone), device="cuda", seed=0)
     randomize_weights(state.model, seed=7)
     batch = ts.synthetic_batch(2, 480, 640, seed=31, device="cuda")
-    for _ in range(2):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    train = _profile(lambda: step(state, batch))
-    train["profiled_step_ms_host"] = (time.time() - t0) * 1e3
+    root, ext = os.path.splitext(path)
+    out = {}
+    for t, (settings, what) in runs.items():
+        with _packed_settings(settings):
+            for _ in range(2):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            train = _profile(lambda: step(state, batch))
+            train["profiled_step_ms_host"] = (time.time() - t0) * 1e3
+        p = path if t == tag else f"{root}_{t.split('_', 1)[1]}{ext}"
+        os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
+        with open(p, "w") as f:
+            json.dump({**serve[t], "train_step": train}, f, indent=1)
+        rec = {k: v for k, v in serve[t].items() if k != "rows"}
+        rec["train_step"] = {k: v for k, v in train.items() if k != "rows"}
+        if what is not None:
+            rec.update(path=what, settings=settings)
+        emit(t, rec)
+        out[t] = rec
     del state, step
     torch.cuda.empty_cache()
-
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump({**serve, "train_step": train}, f, indent=1)
-    rec = {k: v for k, v in serve.items() if k != "rows"}
-    rec["train_step"] = {k: v for k, v in train.items() if k != "rows"}
-    emit(tag, rec)
-    return rec
+    return out[tag]
 
 
 # outputs of the plain path ("torch"), which parity and parity_slab share:
@@ -1928,6 +1995,8 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e["k3_ms"] = c["k3_ms"]
             e["k3_bound_ms"] = c["k3_bound"]["bound_ms"]
             e["k3_bound_by"] = c["k3_bound"]["bound_by"]
+            e["k3_fma_bound_ms"] = c.get("k3_fma_bound_ms")
+            e["k3_fma_chain_bound_ms"] = c.get("k3_fma_chain_bound_ms")
             e["k3_library_ms"] = None
         else:
             # the tensor-core kernels (bf16 models), kernel_cases_headsplit's
@@ -1953,8 +2022,11 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     grid_mode="bias_resident" (forward: K1 without the log-sum-exp, checked
     against the plain forward under rec["forward"]), against the plain
     backward and float64 autograd; dbias bitwise equal over two launches.
-    Head 0 above the ln(100) clamp, head 1 hot (scale e^4). Times: K4 and,
-    in the same call, K2 at the same inputs (medians of single launches)."""
+    bf16 runs the tensor-core K4 (the launch is checked by name), fp32 the
+    FMA body. Head 0 above the ln(100) clamp, head 1 hot (scale e^4). Times
+    (medians of single launches): K4; bf16 also the FMA body at the same
+    inputs, in turns (kernel, FMA body, FMA body, kernel), its bound on the
+    tensor cores (tc_units) and the SDPA backward; K2 in the same call."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, shape["nW"] > 0,
                                              gen)
@@ -1963,7 +2035,10 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
                     generator=gen).to(dtype)
     name = str(dtype).replace("torch.", "")
+    tc = dtype == torch.bfloat16
+    kernel = "window_attention_bwd_resident" + ("_tc" if tc else "")
     rec = _case_head(shape, dtype, mask)
+    rec["kernel"] = kernel
     rec["tolerance_rel_l2"] = TOL_BWD[name]
     with torch.no_grad():
         plain = wap.cosine_window_attention_packed_backward_plain(
@@ -1973,6 +2048,7 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     truth = _float64_grads(qkv, ls, bias, mask, g, nH)
     leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
     before = (wap.LAUNCHES_RESIDENT, wap.LAUNCHES_BWD)
+    before_k = dict(wap.LAUNCHES_BY_KERNEL)
     out = wap.cosine_window_attention_packed(
         leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
         grid_mode="bias_resident")
@@ -1981,6 +2057,9 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     if (wap.LAUNCHES_RESIDENT - before[0], wap.LAUNCHES_BWD - before[1]) \
             != (1, 0):
         raise RuntimeError("bias_resident backward did not launch K4 alone")
+    _tc_launched(before_k, {"window_attention_fwd_tc" if tc else
+                            "window_attention_fwd": 1, kernel: 1},
+                 f"K4 at {json.dumps(rec)}")
     rec["forward"] = check_forward(out.detach(), want_out, dtype, rec)
     got = [t.grad for t in leaves]
     rec.update(_check_grads(got, plain, truth, name,
@@ -1992,14 +2071,26 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     if not rec["dbias_bitwise_equal"]:
         raise RuntimeError(f"K4 dbias differs between two launches at "
                            f"{json.dumps(rec)}")
-    rec["splits"] = wap.resident_splits(shape["N"], nH, shape["B_"])
+    rec["splits"] = wap.resident_splits(shape["N"], nH, shape["B_"], tc)
     rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
     rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
     del truth, want_out, d1, d2, out, leaves
     if timed:
         with torch.no_grad():
-            rec["ms"] = time_ms(lambda: wap._launch_backward_resident(
-                qkv, ls, bias, mask, g, nH), reps=8, warm=2)
+            def k4(fma=False):
+                return lambda: wap._launch_backward_resident(
+                    qkv, ls, bias, mask, g, nH, _fma=fma)
+            if tc:
+                turns = [time_ms(k4(), reps=8, warm=2),
+                         time_ms(k4(True), reps=8, warm=2),
+                         time_ms(k4(True), reps=8, warm=2),
+                         time_ms(k4(), reps=8, warm=2)]
+                rec.update({"ms": (turns[0] + turns[3]) / 2,
+                            "fma_ms": (turns[1] + turns[2]) / 2,
+                            "ms_turns": turns})
+                rec.update(tc_work(shape["B_"], shape["N"], nH, K4_TC_UNITS))
+            else:
+                rec["ms"] = time_ms(k4(), reps=8, warm=2)
             lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
             rec["k2_ms"] = time_ms(lambda: wap._launch_backward(
                 qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
@@ -2018,7 +2109,9 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
         fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                 rec["nW"], dtype, bias.dtype))
         fwd["library_ms"] = rec["library_ms"] = None
-        if dtype == torch.bfloat16:
+        if tc:
+            fwd.update(tc_work(shape["B_"], shape["N"], nH,
+                               tc_units("fold", False, ls)))
             lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
                                     mask, g=wap._split_heads(g, 1, nH)[0])
             fwd.update({k: v for k, v in lib.items()
@@ -2057,90 +2150,165 @@ def _w_of(shape, bwd: bool, masked: bool, setting="auto") -> int:
 
 
 def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
-              with_mask: bool, timed=True) -> list:
+              with_mask: bool, timed=True, mxu=None) -> list:
     """K5 at one shape: the forward at each W of `w_fwd` (with the
-    log-sum-exp when `train`) against the plain forward at K1's tolerances;
-    the backward at each W of `w_bwd` against the plain backward and
-    float64 autograd at K2's. Times beside K1 / K2 (W = 1) in the same
-    call. With the stage's mask or without (the W of a shifted stage's
-    blocks depends on it); head 0 clamped, head 1 hot."""
+    log-sum-exp when `train`) against the plain forward; the backward at
+    each W of `w_bwd` against the plain backward and float64 autograd. bf16
+    runs the tensor-core K5 (launches checked by name and W), fp32 the FMA
+    body. Precision mode `mxu` (None: the type's default): fold / fp32 at
+    K1's / K2's tolerances, "bf16" at TOL_MXU_BF16 (autograd:
+    TOL_MXU_BF16_AUTOGRAD); bf16 cases also MXU_APART times nearer their own
+    mode's plain version than the other's (_nearer). Times: K5; bf16 also
+    the FMA body at the same inputs in turns (kernel, FMA body, FMA body,
+    kernel), the products' bound on the tensor cores (tc_units) and the
+    SDPA yardstick; K1 / K2 (W = 1) in the same call. With the stage's mask
+    or without (the W of a shifted stage's blocks depends on it); head 0
+    clamped, head 1 hot."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, with_mask, gen)
     ls[1] = 4.0
     nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
     name = str(dtype).replace("torch.", "")
+    tc = dtype == torch.bfloat16
+    mode = wap.resolve_mxu(mxu, dtype)
+    rb = mode == "bf16"
+    other = "fold" if rb else "bf16"
     head = _case_head(shape, dtype, mask)
     head["frame_pairs"] = 2 if train else 1
+    head["mxu"] = mode
     recs, fwd_common = [], {}
+    stats = train
+
+    def fwd_call(w, fma=False):
+        return lambda: wap._launch_forward(qkv, ls, bias, mask, nH, True,
+                                           stats, w=w, mxu=mode, _fma=fma)
+
     with torch.no_grad():
         want_out = wap.cosine_window_attention_packed_plain(
-            qkv, ls, bias, mask, num_heads=nH)
+            qkv, ls, bias, mask, num_heads=nH, mxu=mode)
+        other_out = (wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH, mxu=other) if tc else None)
         if timed:
-            fwd_common["k1_ms"] = time_ms(lambda: wap._launch_forward(
-                qkv, ls, bias, mask, nH, True, train))
+            fwd_common["k1_ms"] = time_ms(fwd_call(1))
             fwd_common["plain_ms"] = time_ms(
                 lambda: wap.cosine_window_attention_packed_plain(
-                    qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
+                    qkv, ls, bias, mask, num_heads=nH, mxu=mode), reps=5,
+                warm=1)
             fwd_common.update(kernel_bound(B_, N, C, nH, head["nW"], dtype,
                                            bias.dtype, stats=train))
             fwd_common["library_ms"] = None
-            if dtype == torch.bfloat16:
+            if tc:
                 fwd_common.update(library_yardstick(
                     *wap._split_heads(qkv, 3, nH), ls, bias, mask))
+                fwd_common.update(tc_work(B_, N, nH, tc_units(mode, False,
+                                                              ls)))
         for w in w_fwd:
-            out, _ = wap._launch_forward(qkv, ls, bias, mask, nH, True, train,
-                                         w=w)
+            before = dict(wap.LAUNCHES_BY_KERNEL)
+            out, _ = fwd_call(w)()
             torch.cuda.synchronize()
             rec = dict(head, direction="forward", W=w, lse=train)
-            rec.update(check_forward(out, want_out, dtype, rec))
+            kname = (f"window_attention_fwd{'_tc' if tc else ''}_w{w}"
+                     + ("+lse" if train else ""))
+            _tc_launched(before, {kname: 1}, f"K5 {json.dumps(rec)}")
+            rec["kernel"] = kname
+            if rb:
+                rec.update({"max_abs_err": _errs(out, want_out)["max_abs"],
+                            "rel_l2_err": _errs(out, want_out)["rel_l2"],
+                            "tolerance": {"rel_l2": TOL_MXU_BF16["out"]}})
+                if not (rec["rel_l2_err"] <= TOL_MXU_BF16["out"]
+                        and bool(torch.isfinite(out).all())):
+                    raise RuntimeError(f"K5 forward (mxu=bf16) disagrees "
+                                       f"with its plain version: "
+                                       f"{json.dumps(rec)}")
+            else:
+                rec.update(check_forward(out, want_out, dtype, rec))
+            if tc:
+                _nearer(rec, "out", out, want_out, other_out)
             if timed:
-                rec["ms"] = time_ms(lambda: wap._launch_forward(
-                    qkv, ls, bias, mask, nH, True, train, w=w))
+                if tc:
+                    turns = [time_ms(fwd_call(w)), time_ms(fwd_call(w, True)),
+                             time_ms(fwd_call(w, True)), time_ms(fwd_call(w))]
+                    rec.update({"ms": (turns[0] + turns[3]) / 2,
+                                "fma_ms": (turns[1] + turns[2]) / 2,
+                                "ms_turns": turns})
+                else:
+                    rec["ms"] = time_ms(fwd_call(w))
                 rec.update(fwd_common)
             recs.append(rec)
-        del want_out
+        del want_out, other_out
     if w_bwd:
         g = torch.randn((B_, N, C), device="cuda", generator=gen).to(dtype)
         with torch.no_grad():
             plain = wap.cosine_window_attention_packed_backward_plain(
-                qkv, ls, bias, mask, g, num_heads=nH)
-        truth = _float64_grads(qkv, ls, bias, mask, g, nH)
+                qkv, ls, bias, mask, g, num_heads=nH, mxu=mode)
+            plain_o = (wap.cosine_window_attention_packed_backward_plain(
+                qkv, ls, bias, mask, g, num_heads=nH, mxu=other)
+                if tc else None)
+        truth = _float64_grads(qkv, ls, bias, mask, g, nH, mode)
         bwd_common = {}
-        if timed and dtype == torch.bfloat16:
+        if timed and tc:
             # the yardstick's backward needs autograd: outside no_grad
             bwd_common["library_bwd_ms"] = library_yardstick(
                 *wap._split_heads(qkv, 3, nH), ls, bias, mask,
                 g=wap._split_heads(g, 1, nH)[0])["library_bwd_ms"]
         with torch.no_grad():
-            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                      mxu=mode)[1]
+            lse_f = (wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                         mxu=mode, _fma=True)[1]
+                     if tc else lse)
+
+            def bwd_call(w, fma=False):
+                return lambda: wap._launch_backward(
+                    qkv, ls, bias, mask, lse_f if fma else lse, g, nH,
+                    "window_resident", True, w=w, mxu=mode, _fma=fma)
             if timed:
-                bwd_common["k2_ms"] = time_ms(lambda: wap._launch_backward(
-                    qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
-                    reps=8, warm=2)
+                bwd_common["k2_ms"] = time_ms(bwd_call(1), reps=8, warm=2)
                 bwd_common["plain_ms"] = time_ms(
                     lambda: wap.cosine_window_attention_packed_backward_plain(
-                        qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
+                        qkv, ls, bias, mask, g, num_heads=nH, mxu=mode),
+                    reps=3, warm=1)
                 bwd_common.update(backward_bound(B_, N, C, nH, head["nW"],
                                                  dtype, bias.dtype))
                 bwd_common["library_ms"] = bwd_common.pop("library_bwd_ms",
                                                           None)
+                if tc:
+                    bwd_common.update(tc_work(B_, N, nH,
+                                              tc_units(mode, True, ls)))
             for w in w_bwd:
-                got = wap._launch_backward(qkv, ls, bias, mask, lse, g, nH,
-                                           "window_resident", True, w=w)
+                before = dict(wap.LAUNCHES_BY_KERNEL)
+                got = bwd_call(w)()
                 torch.cuda.synchronize()
-                rec = dict(head, direction="backward", W=w,
-                           tolerance_rel_l2=TOL_BWD[name])
-                rec.update(_check_grads(got, plain, truth, name,
-                                        f"K5 backward at {json.dumps(rec)}"))
+                kname = f"window_attention_bwd{'_tc' if tc else ''}_w{w}"
+                rec = dict(head, direction="backward", W=w, kernel=kname,
+                           tolerance_rel_l2=TOL_MXU_BF16 if rb
+                           else TOL_BWD[name])
+                _tc_launched(before, {kname: 1}, f"K5 {json.dumps(rec)}")
+                what = f"K5 backward at {json.dumps(rec)}"
+                if rb:
+                    rec.update(_check_against(got, {
+                        "vs_plain": (plain, TOL_MXU_BF16),
+                        "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)}, what))
+                else:
+                    rec.update(_check_grads(got, plain, truth, name, what))
+                if tc:
+                    _nearer(rec, "dqkv", got[0], plain[0], plain_o[0])
                 rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
                 rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
                 if timed:
-                    rec["ms"] = time_ms(lambda: wap._launch_backward(
-                        qkv, ls, bias, mask, lse, g, nH, "window_resident",
-                        True, w=w), reps=8, warm=2)
+                    if tc:
+                        turns = [time_ms(bwd_call(w), reps=8, warm=2),
+                                 time_ms(bwd_call(w, True), reps=8, warm=2),
+                                 time_ms(bwd_call(w, True), reps=8, warm=2),
+                                 time_ms(bwd_call(w), reps=8, warm=2)]
+                        rec.update({"ms": (turns[0] + turns[3]) / 2,
+                                    "fma_ms": (turns[1] + turns[2]) / 2,
+                                    "ms_turns": turns})
+                    else:
+                        rec["ms"] = time_ms(bwd_call(w), reps=8, warm=2)
                     rec.update(bwd_common)
                 recs.append(rec)
-        del plain, truth
+        del plain, plain_o, truth
     torch.cuda.empty_cache()
     return recs
 
@@ -2148,11 +2316,13 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
 def phase_kernels_w(timed: bool = True) -> list:
     """K5 at every (shape, W) that choose_w("auto") gives the flagship's
     served (1 pair) and trained (2 pairs) stages, masked and unmasked
-    blocks alike, plus W = 2 at stage 1 trained; bfloat16, and float32 at
-    the trained stages 1 and 4."""
+    blocks alike, plus W = 2 at stage 1 trained; bfloat16 (the tensor-core
+    K5; served in each precision mode, trained in the model's, "fold"), and
+    float32 (the FMA body) at the trained stages 1 and 4. Every case runs;
+    the phase's line is printed, then it fails if any case disagreed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6262)
-    cases = []
+    cases, failed = [], []
 
     def by_mask(shape, bwd, extra=()):
         """{with mask: W values} of a shape's blocks, each W once (with the
@@ -2166,11 +2336,19 @@ def phase_kernels_w(timed: bool = True) -> list:
             ws[False] -= ws[True]
         return {m: sorted(w - {1}) for m, w in ws.items()}
 
+    def run(*args, **kw):
+        try:
+            cases.extend(compare_w(*args, **kw))
+        except RuntimeError as e:
+            failed.append(str(e))
+        torch.cuda.empty_cache()
+
     for shape in stage_shapes(batch=1):
         for m, ws in by_mask(shape, False).items():
             if ws:
-                cases += compare_w(shape, torch.bfloat16, gen, ws, [], False,
-                                   m, timed)
+                for mxu in ("fold", "fp32", "bf16"):
+                    run(shape, torch.bfloat16, gen, ws, [], False, m, timed,
+                        mxu=mxu)
     for dtype in (torch.bfloat16, torch.float32):
         for shape in stage_shapes(batch=2):
             if dtype == torch.float32 and shape["stage"] not in (1, 4):
@@ -2179,13 +2357,16 @@ def phase_kernels_w(timed: bool = True) -> list:
             wf, wb = by_mask(shape, False, extra), by_mask(shape, True, extra)
             for m in (True, False):
                 if wf[m] or wb[m]:
-                    cases += compare_w(shape, dtype, gen, wf[m], wb[m], True,
-                                       m, timed)
+                    run(shape, dtype, gen, wf[m], wb[m], True, m, timed)
     emit("kernel_cases_w", {
-        "cases": cases,
+        "cases": cases, "failed": failed,
         "timing": "CUDA events around one launch (forward; backward: the dq "
                   "and dk/dv passes), median of 20 (forward) / 8 (backward) "
-                  "after warm-up; k1_ms / k2_ms: the same at W = 1"})
+                  "after warm-up; bf16 in turns kernel, FMA body, FMA body, "
+                  "kernel (ms_turns); k1_ms / k2_ms: the same at W = 1"})
+    if failed:
+        raise RuntimeError(f"kernel_cases_w: {len(failed)} case(s) "
+                           f"disagree: {failed[0]}")
     return cases
 
 
@@ -2222,17 +2403,18 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
                 continue
             wf = 1 if resident else _w_of(sh, False, has_mask,
                                           wap.WINDOWS_PER_CELL)
-            # the models here are bf16: W = 1 runs the tensor-core kernels
-            fwd = "window_attention_fwd" + (f"_w{wf}" if wf > 1 else "_tc") \
+            # the models here are bf16: every packed launch runs the
+            # tensor-core kernels, K5 at its W
+            fwd = "window_attention_fwd_tc" + (f"_w{wf}" if wf > 1 else "") \
                 + ("+lse" if train and not resident else "")
             add(fwd, key, n * times)
             if not train:
                 continue
             if resident:
-                add("window_attention_bwd_resident", key, n * times)
+                add("window_attention_bwd_resident_tc", key, n * times)
             else:
                 wb = _w_of(sh, True, has_mask, wap.WINDOWS_PER_CELL)
-                add("window_attention_bwd" + (f"_w{wb}" if wb > 1 else "_tc"),
+                add("window_attention_bwd_tc" + (f"_w{wb}" if wb > 1 else ""),
                     key, n * times)
     return want
 
@@ -2247,7 +2429,7 @@ def _check_mxu(tag: str, by_kernel: dict) -> dict:
     for kernel, d in by_kernel.items():
         if kernel.startswith("window_attention_headsplit"):
             continue        # one function ("fp32"), counted by its module
-        m = "fp32" if kernel.endswith("resident") else mode
+        m = "fp32" if "resident" in kernel else mode
         for key, n in d.items():
             want[(m, key)] = want.get((m, key), 0) + n
     if wap.LAUNCHES_BY_MXU != want:
@@ -2348,12 +2530,13 @@ def phase_children(resident_steps: int = 4) -> tuple:
     return train_res, resident, serve_w, train_w, serve_mxu, train_mxu
 
 
+
 def phase_resident_child(lines: list, child: dict, steps: int) -> tuple:
     """Path A, read off its process (under MMDE_ATTN_GRID=bias_resident):
     the trainer entry point `mmde_tpu_torch.tools.train_steps.main(
     ["--steps", "4"])` (the flagship, bf16, 2 frame pairs: every step 24 K1
-    launches without the log-sum-exp, on the tensor cores, and 24 K4, no
-    K2), then one fp32 step's
+    launches without the log-sum-exp and 24 K4, both on the tensor cores,
+    no K2), then one fp32 step's
     gradients (`child`) for train_parity_resident. Returns (the
     train_resident record, the child's gradients)."""
     recs = [ln for ln in lines if "step" in ln]
@@ -2396,7 +2579,8 @@ def _expected_resident(pairs: int, steps: int) -> dict:
     want: dict = {}
     for sh in stage_shapes(batch=pairs):
         key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
-        for k in ("window_attention_fwd_tc", "window_attention_bwd_resident"):
+        for k in ("window_attention_fwd_tc",
+                  "window_attention_bwd_resident_tc"):
             want.setdefault(k, {})[key] = sh["blocks"] * steps
     return want
 
@@ -2516,11 +2700,13 @@ def child_main(args) -> int:
 
 
 def _w_case(cases, shape, pairs, direction, w, lse=None):
+    """kernel_cases_w's bf16 case in the model's mode ("fold")."""
     return next(c for c in cases
                 if c["model"] == shape["model"]
                 and c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
                 and c["frame_pairs"] == pairs and c["direction"] == direction
-                and c["W"] == w and (lse is None or c["lse"] == lse))
+                and c["W"] == w and c["mxu"] == "fold"
+                and (lse is None or c["lse"] == lse))
 
 
 def contract_w(kw_cases: list, serve_w: dict, train_w: dict) -> list:
@@ -2544,7 +2730,7 @@ def contract_w(kw_cases: list, serve_w: dict, train_w: dict) -> list:
                 # the blocks at this W with the case's mask, or without
                 entries.append(_entry(
                     kernel, dict(shape, nW=c["nW"]),
-                    KERNEL_BWD_SOURCE if bwd else KERNEL_SOURCE,
+                    KERNEL_TC_BWD_SOURCE if bwd else KERNEL_TC_SOURCE,
                     KERNEL_W_BWD_REPLACES if bwd else KERNEL_W_REPLACES,
                     n, c, pairs))
     return entries
@@ -2558,13 +2744,14 @@ def contract_resident(k4_cases: list, train_res: dict) -> list:
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
         c = _find(k4_cases, shape, 2)
         nf = train_res["_by_shape"]["window_attention_fwd_tc"].get(key, 0)
-        nb = train_res["_by_shape"]["window_attention_bwd_resident"].get(
+        nb = train_res["_by_shape"]["window_attention_bwd_resident_tc"].get(
             key, 0)
         entries.append(_entry("window_attention_fwd_tc (bias_resident)",
                               shape, KERNEL_TC_SOURCE, KERNEL_REPLACES, nf,
                               c["forward"], 2))
-        e = _entry("window_attention_bwd_resident", shape,
-                   KERNEL_RESIDENT_SOURCE, KERNEL_RESIDENT_REPLACES, nb, c, 2)
+        e = _entry("window_attention_bwd_resident_tc", shape,
+                   KERNEL_RESIDENT_TC_SOURCE, KERNEL_RESIDENT_REPLACES, nb, c,
+                   2)
         e["k2_ms"] = c["k2_ms"]
         e["dbias_bitwise_equal"] = c["dbias_bitwise_equal"]
         entries.append(e)
@@ -3008,6 +3195,20 @@ def tc_bounds(tc_cases: list, tflops: float) -> None:
                 r["tc_bound_ms"] = r["tc_flops"] / (tflops * 1e12) * 1e3
 
 
+def k3_fma_bounds(k2_cases: list, rates: dict) -> None:
+    """K3's FMA bound beside each K2 case that timed it: its two N x N x 32
+    products (S and dP; K3 sums ds into dbias with windows innermost) on
+    64-row tiles, at the fp32 rates this run's roofline phase measured -
+    the FMA dot pattern's (k3_fma_bound_ms) and the FMA chain's
+    (k3_fma_chain_bound_ms)."""
+    for c in k2_cases:
+        if "k3_ms" not in c:
+            continue
+        flops = tc_work(c["B_"], c["N"], c["nH"], 2.0)["tc_flops"]
+        c["k3_fma_bound_ms"] = flops / (rates["dot_fp32_TFLOP_s"] * 1e9)
+        c["k3_fma_chain_bound_ms"] = flops / (rates["fma_TFLOP_s"] * 1e9)
+
+
 def _nearer(rec: dict, what: str, got, own, other) -> None:
     """The kernel must lie MXU_APART times nearer the plain version of its
     own mode than the other one's (fold / fp32 against "bf16", "bf16"
@@ -3215,9 +3416,10 @@ def main() -> int:
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
-                         "swin_large and of the flagship's slab path, and "
-                         "write their rows to PATH and PATH with _large / "
-                         "_slab before its extension (JSON)")
+                         "swin_large, of the flagship's slab path and of "
+                         "Paths A and B, and write their rows to PATH and "
+                         "PATH with _large / _slab / _resident / _w before "
+                         "its extension (JSON)")
     ap.add_argument("--child", choices=["w", "resident", "mxu"],
                     default=None,
                     help=argparse.SUPPRESS)     # the script's own children
@@ -3247,7 +3449,9 @@ def main() -> int:
         return 0
     tool_entries = phase_probes() + phase_variants()
     roof_entries, roof = phase_roofline()
-    tc_bounds(tc_cases + hs_cases, roof["rates"]["dot_bf16_TFLOP_s"])
+    tc_bounds(tc_cases + hs_cases + k4_cases + kw_cases,
+              roof["rates"]["dot_bf16_TFLOP_s"])
+    k3_fma_bounds(k2_cases, roof["rates"])
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
@@ -3259,7 +3463,7 @@ def main() -> int:
     (train_res, resident_child, serve_w, train_w, _,
      train_mxu) = phase_children()
     if args.profile:
-        phase_profile(args.profile)
+        phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)
         phase_profile(f"{root}_large{ext}", "swin_large_v2", "profile_large")
         phase_profile(f"{root}_slab{ext}", tag="profile_slab",

@@ -96,10 +96,11 @@
 // fp32 FMAs on register tiles (8x4 per thread for the N x N tiles, 4x4 for
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
 // inputs far from their tensor-core bound. The port's bf16 packed launches
-// at one window per block run window_attention_bwd_tc.cu instead (bf16
+// (K2, and K5 at W > 1) run window_attention_bwd_tc.cu instead (bf16
 // mma.sync); under MMDE_ATTN_GRID=split K3's pass alone follows them
-// (mmde_window_attention_dbias). This body serves fp32 qkv, K5, the
-// head-split and slab layouts, and is that kernel's same-card comparison.
+// (mmde_window_attention_dbias). This body serves fp32 qkv (K2, K5, the
+// head-split layout), the slab layout, and is those kernels' same-card
+// comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)

@@ -1,10 +1,12 @@
 // Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 q, k, v and g, one window per block: in
-// the packed layout and on head-split operands.
+// (sm_90a, bf16 mma.sync), for bf16 q, k, v and g: in the packed layout at
+// one window per block or W (the _w kernels, below), and on head-split
+// operands.
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
-// by _pallas_backward) for every bf16 launch at w = 1, in all three
-// precision modes: dqkv, dlogit_scale and (dbias_mode 1) dbias; and
+// by _pallas_backward) for every bf16 launch, at w = 1 and with w > 1 (K5,
+// MMDE_ATTN_W), in all three precision modes: dqkv, dlogit_scale and
+// (dbias_mode 1) dbias; and
 // mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7, driven by
 // _pallas_backward) for every bf16 head-split launch, in its function (mode
 // fp32, fp32 bias and mask tiles): dq, dk, dv into contiguous (B_, nH, N,
@@ -12,8 +14,8 @@
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
 // delta written here. window_attention_bwd.cu keeps K2's fp32-FMA body for
-// fp32 qkv and for K5 (w > 1). Same function and the same two passes as K2
-// (its header has the formulas):
+// fp32 qkv (and as the same-card A/B partner). Same function and the same
+// two passes as K2 (its header has the formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
 //                    sweeps over 64-key tiles, each S = q k^T and dP = g v^T
@@ -538,6 +540,553 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5: W consecutive windows per block (mmde_tpu/ops/window_attention_packed.py
+// ::_bwd_body with w > 1). Both passes walk their tile axis outermost and the
+// W windows innermost: each outer tile's bias tile is staged once for the W
+// windows, each (tile, window) step streams that window's tiles and its own
+// mask tile. What a window carries between outer tiles lives in shared
+// memory in fragment order (a lane's own float4s): the dq pass's dq
+// accumulators and {lse, delta} of its rows, the dk/dv pass's dk^ and dv
+// accumulators. The A fragments of the block's own rows (q, g; k, v) come
+// back from L2 each step, their norms recomputed by the same chain. Per
+// window the arithmetic is the W = 1 passes', step for step. The dk/dv pass
+// sums the W windows' ds tiles in registers, in window order, before its
+// 16-byte dbias atomics: W times fewer atomics, each adding a W-window sum
+// (dbias is therefore summed in another order than at W = 1: in fp32, within
+// the same tolerance).
+// ---------------------------------------------------------------------------
+constexpr int W_MAX = 8;   // windows a block holds
+
+// Both W passes bound to one block an SM at least: ptxas then takes the
+// registers they need (without it, 4 bytes spilled in the bf16 mode's dq
+// pass and the fp32-tile dk/dv pass); shared memory decides how many fit.
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT, 1)
+bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+                   Rows<const bf16> g, const float* __restrict__ logit_scale,
+                   const TB* __restrict__ bias, const TB* __restrict__ mask,
+                   const float* __restrict__ lse, Rows<bf16> dq,
+                   float* __restrict__ delta, int N, int nW, int W) {
+  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  __shared__ float sRk[2][TC_BT];
+  // dynamic: bias tiles [2] (by key tile), mask tiles [2] (by step), then
+  // per window dq [4 warps][4 n][32 lanes] and {lse0, lse1, d0, d1} [4][32]
+  // (d: the lane's delta partial, over the first sweep)
+  extern __shared__ __align__(128) char sW[];
+  const bool masked = mask != nullptr;
+  char* sB = sW;
+  char* sM = sB + 2 * btile_bytes<TB>();
+  float4* sA = reinterpret_cast<float4*>(sM + (masked ? 2 : 0) *
+                                                  btile_bytes<TB>());
+  float4* sS = sA + W * 4 * 4 * 32;
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b0 = blockIdx.z * W;
+  const int nH = gridDim.y;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const float scale = expf(fminf(logit_scale[h], TC_LN100));
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  const int per_pass = nt * W;
+  const int steps = 2 * per_pass;   // delta first, then ds
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+
+  auto issue = [&](int s) {
+    const int st = s & 1, rr = s % per_pass, kn = (rr / W) * TC_BT;
+    const int b = b0 + rr % W;
+    load_tile(sK[st], k.head(b, h), k, kn, N, tid);
+    load_tile(sV[st], v.head(b, h), v, kn, N, tid);
+    if (async_b) {
+      if (rr % W == 0)
+        load_btile(sB + ((s / W) & 1) * btile_bytes<TB>(), bias_h, q0, kn, N,
+                   tid, true);
+      if (masked)
+        load_btile(sM + st * btile_bytes<TB>(),
+                   mask + (size_t)(b % nW) * N * N, q0, kn, N, tid, true);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+  for (int i = tid; i < W * 4 * 4 * 32; i += TC_NT)
+    sA[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int w = 0; w < W; ++w) {   // each lane its own rows' lse
+    const size_t stat0 = ((size_t)(b0 + w) * nH + h) * N;
+    sS[(w * 4 + warp) * 32 + lane] =
+        make_float4(ok0 ? lse[stat0 + r0] : 0.0f,
+                    ok1 ? lse[stat0 + r1] : 0.0f, 0.0f, 0.0f);
+  }
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1, rr = step % per_pass, w = rr % W;
+    const int b = b0 + w, k0 = (rr / W) * TC_BT;
+    const bool first = step < per_pass;   // the delta sweep
+    uint32_t qa[2][4], ga[2][4];
+    load_afrag(qa, q.head(b, h), q, r0, N, t);
+    load_afrag(ga, g.head(b, h), g, r0, N, t);
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) issue(step + 1);
+    const char* tb = sB + ((step / W) & 1) * btile_bytes<TB>();
+    const char* tm = sM + st * btile_bytes<TB>();
+    if (!async_b) {
+      if (w == 0)
+        load_btile(const_cast<char*>(tb), bias_h, q0, k0, N, tid, false);
+      if (masked)
+        load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
+                   q0, k0, N, tid, false);
+    }
+    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    __syncthreads();
+
+    float rq0, rq1;
+    row_norms(qa, rq0, rq1, lane);
+    if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);   // qs
+    const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
+    const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    float4* sa = sA + (w * 4 + warp) * 4 * 32 + lane;
+    float4* ss = sS + (w * 4 + warp) * 32 + lane;
+    const float4 stat = *ss;
+    const float lse0 = stat.x, lse1 = stat.y;
+    float dpart0 = stat.z, dpart1 = stat.w, dl0 = 0.0f, dl1 = 0.0f;
+    float acc[4][4];
+    if (!first) {
+      dl0 = quad_sum(dpart0);
+      dl1 = quad_sum(dpart1);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float4 x = sa[n * 32];
+        acc[n][0] = x.x;
+        acc[n][1] = x.y;
+        acc[n][2] = x.z;
+        acc[n][3] = x.w;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], dp[2][4], f[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+        uint32_t kb[4], vb[4];
+        frag_rows(kb, sK[st], j, lane);
+        mma(s[jj], qa[0], kb[0], kb[1]);
+        mma(s[jj], qa[1], kb[2], kb[3]);
+        frag_rows(vb, sV[st], j, lane);
+        mma(dp[jj], ga[0], vb[0], vb[1]);
+        mma(dp[jj], ga[1], vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cl = 8 * (2 * kk + jj) + 2 * t;
+        const int col = k0 + cl;
+        const float rk[2] = {sRk[st][cl], sRk[st][cl + 1]};
+        f[jj][0] = RB ? 1.0f : scale * rk[0];
+        f[jj][1] = RB ? 1.0f : scale * rk[1];
+        const bool in1 = col + 1 < N;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* x = &s[jj][2 * half];
+          if (col >= N || !(half ? ok1 : ok0)) {
+            x[0] = x[1] = 0.0f;
+            continue;
+          }
+          const int rl = warp * 16 + (lane >> 2) + 8 * half;
+          const float c = half ? c1 : c0;
+          const float ls2 = (half ? lse1 : lse0) * TC_LOG2E;
+          float2 bm = btile_pair(tb, rl, cl, TB());
+          if (masked) {
+            const float2 mm = btile_pair(tm, rl, cl, TB());
+            bm.x += mm.x;
+            bm.y += mm.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float y = x[e];
+            if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
+            else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
+            x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
+          }
+          if (!in1) x[1] = 0.0f;
+        }
+      }
+      if (first) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          dpart0 += s[jj][0] * dp[jj][0] + s[jj][1] * dp[jj][1];
+          dpart1 += s[jj][2] * dp[jj][2] + s[jj][3] * dp[jj][3];
+        }
+        continue;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        dp[jj][0] = s[jj][0] * (dp[jj][0] - dl0);
+        dp[jj][1] = s[jj][1] * (dp[jj][1] - dl0);
+        dp[jj][2] = s[jj][2] * (dp[jj][2] - dl1);
+        dp[jj][3] = s[jj][3] * (dp[jj][3] - dl1);
+      }
+      uint32_t ah[4], al[4];
+      afrag<!RB>(dp[0], dp[1], f[0], f[1], ah, al);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t kb[4];
+        frag_cols(kb, sK[st], kk, c, lane);
+        mma(acc[2 * c], ah, kb[0], kb[1]);
+        mma(acc[2 * c + 1], ah, kb[2], kb[3]);
+        if constexpr (!RB) {
+          mma(acc[2 * c], al, kb[0], kb[1]);
+          mma(acc[2 * c + 1], al, kb[2], kb[3]);
+        }
+      }
+    }
+    if (first) {
+      *ss = make_float4(lse0, lse1, dpart0, dpart1);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        sa[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    }
+  }
+
+  // every window: delta out, dq = rq (dqn - q^ (dqn . q^)) (each lane reads
+  // back its own state)
+  for (int w = 0; w < W; ++w) {
+    const int b = b0 + w;
+    const size_t stat0 = ((size_t)b * nH + h) * N;
+    const float4* sa = sA + (w * 4 + warp) * 4 * 32 + lane;
+    const float4 stat = sS[(w * 4 + warp) * 32 + lane];
+    const float dl0 = quad_sum(stat.z), dl1 = quad_sum(stat.w);
+    if (t == 0) {
+      if (ok0) delta[stat0 + r0] = dl0;
+      if (ok1) delta[stat0 + r1] = dl1;
+    }
+    uint32_t qa[2][4];
+    load_afrag(qa, q.head(b, h), q, r0, N, t);
+    float rq0, rq1;
+    row_norms(qa, rq0, rq1, lane);
+    float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 a = sa[n * 32];
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = av[e];
+        if constexpr (RB) x *= scale;
+        const uint32_t wd = afrag_at(qa, n, e >> 1);
+        const float qn =
+            ((e & 1) ? hi_f(wd) : lo_f(wd)) * (e < 2 ? rq0 : rq1);
+        dqn[n][e] = x;
+        if (e < 2) dot0 = fmaf(x, qn, dot0);
+        else dot1 = fmaf(x, qn, dot1);
+      }
+    }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    bf16* dq_bh = dq.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
+        const uint32_t wd = afrag_at(qa, n, half);
+        store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
+                   rq * (dqn[n][2 * half] - lo_f(wd) * rq * dot),
+                   rq * (dqn[n][2 * half + 1] - hi_f(wd) * rq * dot));
+      }
+  }
+}
+
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT, 1)
+bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
+                    Rows<const bf16> v, Rows<const bf16> g,
+                    const float* __restrict__ logit_scale,
+                    const TB* __restrict__ bias, const TB* __restrict__ mask,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, Rows<bf16> dk,
+                    Rows<bf16> dv, double* __restrict__ dls_part,
+                    float* __restrict__ dbias, int N, int nW, int W) {
+  __shared__ __align__(128) bf16 sQ[2][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sG[2][TC_BT * TC_LD];
+  __shared__ float sRq[2][TC_BT];
+  __shared__ float sLse[2][TC_BT];
+  __shared__ float sDl[2][TC_BT];
+  __shared__ double sRed[4];
+  // dynamic: bias tiles [2] (by query tile), mask tiles [2] (by step), then
+  // per window dv and dk^ [2][4 warps][4 n][32 lanes]
+  extern __shared__ __align__(128) char sW[];
+  const bool masked = mask != nullptr;
+  char* sB = sW;
+  char* sM = sB + 2 * btile_bytes<TB>();
+  float4* sAcc = reinterpret_cast<float4*>(sM + (masked ? 2 : 0) *
+                                                    btile_bytes<TB>());
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int k0 = blockIdx.x * TC_BT, h = blockIdx.y, b0 = blockIdx.z * W;
+  const int nH = gridDim.y;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  float* dbias_h = dbias != nullptr ? dbias + (size_t)h * N * N : nullptr;
+  const float ls = logit_scale[h];
+  const float scale = expf(fminf(ls, TC_LN100));
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  const int steps = nt * W;
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+
+  // step s = (query tile, window): Q, G, lse, delta and the window's mask
+  // tile -> stage s & 1; with the first window of a query tile its bias
+  // tile -> stage (s / W) & 1
+  auto load = [&](int s) {
+    const int st = s & 1, q0 = (s / W) * TC_BT, b = b0 + s % W;
+    const size_t stat0 = ((size_t)b * nH + h) * N;
+    load_tile(sQ[st], q.head(b, h), q, q0, N, tid);
+    load_tile(sG[st], g.head(b, h), g, q0, N, tid);
+    if (async_b) {
+      if (s % W == 0)
+        load_btile(sB + ((s / W) & 1) * btile_bytes<TB>(), bias_h, q0, k0, N,
+                   tid, true);
+      if (masked)
+        load_btile(sM + st * btile_bytes<TB>(),
+                   mask + (size_t)(b % nW) * N * N, q0, k0, N, tid, true);
+    }
+    const int j = tid & (TC_BT - 1);
+    const bool ok = q0 + j < N;
+    const float* src = (tid < TC_BT ? lse : delta) + stat0 + (ok ? q0 + j : 0);
+    cp_async4(tid < TC_BT ? &sLse[st][j] : &sDl[st][j], src, ok);
+    cp_async_commit();
+  };
+  load(0);
+
+  for (int i = tid; i < W * 2 * 4 * 4 * 32; i += TC_NT)
+    sAcc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int r0 = k0 + warp * 16 + (lane >> 2), r1 = r0 + 8;   // keys
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+  float dsum[8][4];   // ds over the W windows of one query tile
+  double dls = 0.0;
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1, w = step % W, b = b0 + w;
+    const int q0 = (step / W) * TC_BT;
+    uint32_t ka[2][4], va[2][4];
+    load_afrag(ka, k.head(b, h), k, r0, N, t);
+    load_afrag(va, v.head(b, h), v, r0, N, t);
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) load(step + 1);
+    const char* tb = sB + ((step / W) & 1) * btile_bytes<TB>();
+    const char* tm = sM + st * btile_bytes<TB>();
+    if (!async_b) {
+      if (w == 0)
+        load_btile(const_cast<char*>(tb), bias_h, q0, k0, N, tid, false);
+      if (masked)
+        load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
+                   q0, k0, N, tid, false);
+    }
+    tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    __syncthreads();
+
+    float rk0, rk1;
+    row_norms(ka, rk0, rk1, lane);
+    if constexpr (RB) scale_afrag(ka, rk0, rk1, 1.0f);   // bf16(k^)
+    float4* sv = sAcc + ((w * 2) * 4 + warp) * 4 * 32 + lane;
+    float4* sk = sAcc + ((w * 2 + 1) * 4 + warp) * 4 * 32 + lane;
+    float accV[4][4], accK[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 x = sv[n * 32], y = sk[n * 32];
+      accV[n][0] = x.x; accV[n][1] = x.y; accV[n][2] = x.z; accV[n][3] = x.w;
+      accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z; accK[n][3] = y.w;
+    }
+
+    float dls_t = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], dp[2][4], f[2][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+        uint32_t qb[4], gb[4];
+        frag_rows(qb, sQ[st], j, lane);
+        mma(s[jj], ka[0], qb[0], qb[1]);
+        mma(s[jj], ka[1], qb[2], qb[3]);
+        frag_rows(gb, sG[st], j, lane);
+        mma(dp[jj], va[0], gb[0], gb[1]);
+        mma(dp[jj], va[1], gb[2], gb[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cl = 8 * (2 * kk + jj) + 2 * t;
+        const int i = q0 + cl;
+        const float rq[2] = {sRq[st][cl], sRq[st][cl + 1]};
+        const float ls2[2] = {sLse[st][cl] * TC_LOG2E,
+                              sLse[st][cl + 1] * TC_LOG2E};
+        const float dl[2] = {sDl[st][cl], sDl[st][cl + 1]};
+        f[jj][0] = RB ? 1.0f : scale * rq[0];
+        f[jj][1] = RB ? 1.0f : scale * rq[1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kl = warp * 16 + (lane >> 2) + 8 * half;
+          const float rk = half ? rk1 : rk0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[jj][2 * half + e];
+            float& d = dp[jj][2 * half + e];
+            if (!(half ? ok1 : ok0) || i + e >= N) {
+              x = d = 0.0f;
+              continue;
+            }
+            float sc = x;
+            if constexpr (MXU == MXU_FP32) sc = sc * rq[e] * rk * scale;
+            else if constexpr (MXU == MXU_FOLD) sc = sc * (scale * rq[e]) * rk;
+            float y = sc + btile_at<TB>(tb, cl + e, kl);
+            if (masked) y += btile_at<TB>(tm, cl + e, kl);
+            x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
+            d = x * (d - dl[e]);
+            dls_t = fmaf(d, sc, dls_t);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dsum[2 * kk + jj][e] =
+              w == 0 ? dp[jj][e] : dsum[2 * kk + jj][e] + dp[jj][e];
+      }
+      if (dbias_h != nullptr && w == W - 1) {
+        // the W windows' ds: bwd_dkv_tc_kernel's transpose and atomics
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int i = q0 + 8 * (2 * kk + jj) + 2 * t;
+          const float* x = dsum[2 * kk + jj];
+          if ((N & 3) == 0) {
+            const int m = (lane >> 2) & 3;
+            float got[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float send = pick4(x, m ^ r);
+              got[r] = r == 0 ? send
+                              : __shfl_xor_sync(0xffffffffu, send, 4 * r);
+            }
+            const int key = k0 + warp * 16 + 4 * (lane >> 4) + 8 * (m >> 1);
+            const int qi = i + (m & 1);
+            if (key < N && qi < N)
+              atomic_add4(dbias_h + (size_t)qi * N + key, pick4(got, m),
+                          pick4(got, m ^ 1), pick4(got, m ^ 2),
+                          pick4(got, m ^ 3));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = e < 2 ? r0 : r1, ii = i + (e & 1);
+              if (key < N && ii < N)
+                atomicAdd(dbias_h + (size_t)ii * N + key, x[e]);
+            }
+          }
+        }
+      }
+      uint32_t ph[4], pl[4], dh[4], dl4[4];
+      const float one[2] = {1.0f, 1.0f};
+      afrag<!RB>(s[0], s[1], one, one, ph, pl);
+      afrag<!RB>(dp[0], dp[1], f[0], f[1], dh, dl4);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t gb[4], qb[4];
+        frag_cols(gb, sG[st], kk, c, lane);
+        frag_cols(qb, sQ[st], kk, c, lane);
+        mma(accV[2 * c], ph, gb[0], gb[1]);
+        mma(accV[2 * c + 1], ph, gb[2], gb[3]);
+        mma(accK[2 * c], dh, qb[0], qb[1]);
+        mma(accK[2 * c + 1], dh, qb[2], qb[3]);
+        if constexpr (!RB) {
+          mma(accV[2 * c], pl, gb[0], gb[1]);
+          mma(accV[2 * c + 1], pl, gb[2], gb[3]);
+          mma(accK[2 * c], dl4, qb[0], qb[1]);
+          mma(accK[2 * c + 1], dl4, qb[2], qb[3]);
+        }
+      }
+    }
+    dls += dls_t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      sv[n * 32] = make_float4(accV[n][0], accV[n][1], accV[n][2], accV[n][3]);
+      sk[n * 32] = make_float4(accK[n][0], accK[n][1], accK[n][2], accK[n][3]);
+    }
+  }
+
+  // every window: dk = rk (dkn - k^ (dkn . k^)), dv (each lane reads back
+  // its own state)
+  for (int w = 0; w < W; ++w) {
+    const int b = b0 + w;
+    const float4* sv = sAcc + ((w * 2) * 4 + warp) * 4 * 32 + lane;
+    const float4* sk = sAcc + ((w * 2 + 1) * 4 + warp) * 4 * 32 + lane;
+    uint32_t ka[2][4];
+    load_afrag(ka, k.head(b, h), k, r0, N, t);
+    float rk0, rk1;
+    row_norms(ka, rk0, rk1, lane);
+    float accK[4][4], accV[4][4], dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 x = sv[n * 32], y = sk[n * 32];
+      accV[n][0] = x.x; accV[n][1] = x.y; accV[n][2] = x.z; accV[n][3] = x.w;
+      accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z; accK[n][3] = y.w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t wd = afrag_at(ka, n, e >> 1);
+        const float kn =
+            ((e & 1) ? hi_f(wd) : lo_f(wd)) * (e < 2 ? rk0 : rk1);
+        if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
+        else dot1 = fmaf(accK[n][e], kn, dot1);
+      }
+    }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    bf16* dk_bh = dk.head(b, h) + 2 * t;
+    bf16* dv_bh = dv.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const int key = half ? r1 : r0;
+        const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
+        const uint32_t wd = afrag_at(ka, n, half);
+        store_pair(dk_bh + dk.off(key) + 8 * n,
+                   rk * (accK[n][2 * half] - lo_f(wd) * rk * dot),
+                   rk * (accK[n][2 * half + 1] - hi_f(wd) * rk * dot));
+        store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
+                   accV[n][2 * half + 1]);
+      }
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    dls += __shfl_xor_sync(0xffffffffu, dls, off);
+  if (lane == 0) sRed[warp] = dls;
+  __syncthreads();
+  if (tid == 0) {
+    const double tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
+    dls_part[((size_t)blockIdx.z * gridDim.x + blockIdx.x) * nH + h] =
+        ls < TC_LN100 ? tot : 0.0;
+  }
+}
+
+// dynamic shared memory of the W passes: bias and mask tiles, W windows'
+// state (dq pass: dq and 4 floats a lane; dk/dv pass: dk^ and dv)
+template <typename TB>
+int w_bwd_bytes(bool masked, int W, bool dkv) {
+  return (masked ? 4 : 2) * btile_bytes<TB>() +
+         W * (dkv ? 2 * 4 * 4 * 32 : 4 * 4 * 32 + 4 * 32) * 16;
+}
+
 // The operands' (window, head, token) layout, on the host.
 struct Operands {
   Rows<const bf16> q, k, v, g;
@@ -598,6 +1147,48 @@ int launch_packed(const void* qkv, const void* g, const void* ls,
                          N, nH, nW, stream);
 }
 
+// K5's two passes on the packed layout, W windows per block
+template <typename TB, int MXU>
+int launch_packed_w(const void* qkv, const void* g, const void* ls,
+                    const void* bias, const void* mask, const void* lse,
+                    void* dqkv, void* delta, void* dls_part, void* dbias,
+                    int B_, int N, int nH, int nW, int W,
+                    cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  Operands o;
+  o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
+  o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
+  o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
+  o.g = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
+  o.dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
+  o.dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
+  o.dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
+  if (!o.aligned()) return -1;
+  const bool masked = mask != nullptr;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_tc_w_kernel<TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      w_bwd_bytes<TB>(true, W_MAX, false));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dkv_tc_w_kernel<TB, MXU>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             w_bwd_bytes<TB>(true, W_MAX, true));
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_ / W);
+  bwd_dq_tc_w_kernel<TB, MXU>
+      <<<grid, TC_NT, w_bwd_bytes<TB>(masked, W, false), stream>>>(
+          o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+          (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkv_tc_w_kernel<TB, MXU>
+      <<<grid, TC_NT, w_bwd_bytes<TB>(masked, W, true), stream>>>(
+          o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
+          (const TB*)mask, (const float*)lse, (const float*)delta, o.dk,
+          o.dv, (double*)dls_part, (float*)dbias, N, nW, W);
+  return (int)cudaGetLastError();
+}
+
 bool shape_ok(int B_, int N, int nH, int nW, const void* mask,
               int dbias_mode, const void* dbias) {
   if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return false;
@@ -641,6 +1232,37 @@ extern "C" int mmde_window_attention_bwd_tc(
       return launch_packed<float, MXU>(qkv, g, logit_scale, bias, mask, lse,
                                        dqkv, delta, dls_part, db, B_, N, nH,
                                        nW, s);
+    }
+  });
+}
+
+// K5's entry on the tensor cores: as mmde_window_attention_bwd_tc, with W
+// (2 .. W_MAX, dividing B_, and nW where there is a mask) consecutive
+// windows per block in both passes; dls_part is (B_ / W * ceil(N / 64), nH).
+// -1 for a W it does not take.
+extern "C" int mmde_window_attention_bwd_tc_w(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, void* dqkv,
+    void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
+    int nW, int bias_bf16, int dbias_mode, int W, int mxu, void* stream) {
+  if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
+    return -1;
+  if (W < 2 || W > W_MAX || B_ % W != 0 || (mask != nullptr && nW % W != 0))
+    return -1;
+  void* db = dbias_mode == 1 ? dbias : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if constexpr (MXU == MXU_FOLD_PV) {
+      return -1;
+    } else if (bias_bf16) {
+      return launch_packed_w<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse,
+                                        dqkv, delta, dls_part, db, B_, N, nH,
+                                        nW, W, s);
+    } else {
+      return launch_packed_w<float, MXU>(qkv, g, logit_scale, bias, mask,
+                                         lse, dqkv, delta, dls_part, db, B_,
+                                         N, nH, nW, W, s);
     }
   });
 }

@@ -66,9 +66,9 @@
 // run here as fp32 FMAs on register tiles (8x4 logits and 4x4 outputs per
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
 // load and take the same path, far from their bound. The port's bf16 packed
-// launches at one window per block run window_attention_fwd_tc.cu instead
-// (bf16 mma.sync); this body serves fp32 qkv, K5, the head-split and slab
-// layouts, and is that kernel's same-card comparison.
+// launches (K1, and K5 at W > 1) run window_attention_fwd_tc.cu instead
+// (bf16 mma.sync); this body serves fp32 qkv (K1, K5, the head-split
+// layout), the slab layout, and is those kernels' same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`): the packed bodies (K1, K5) are templates over it, and their C

@@ -1,18 +1,20 @@
 // Fused SwinV2 cosine window attention, forward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 q, k, v, one window per block: in the
-// packed layout (qkv as the Linear emits it, (B_, N, 3C); out (B_, N, C))
-// and on head-split operands (any (B_, nH, N, 32) strides; out contiguous).
+// (sm_90a, bf16 mma.sync), for bf16 q, k, v: in the packed layout (qkv as
+// the Linear emits it, (B_, N, 3C); out (B_, N, C)) at one window per block
+// or W (fwd_tc_w_kernel, below), and on head-split operands (any (B_, nH,
+// N, 32) strides; out contiguous).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
 // _pallas_forward) for every bf16 launch at w = 1 - the flagship's and
-// swin_large's default serving and training path - in all three precision
-// modes; and mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven
-// by _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
+// swin_large's default serving and training path - and with w > 1 (K5,
+// MMDE_ATTN_W), in all three precision modes; and
+// mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven by
+// _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
 // swin_tiny / swin_huge stages 1-2), in that kernel's function (mode fp32,
 // the row maximum for every head, fp32 bias and mask tiles).
-// window_attention_fwd.cu keeps the fp32-FMA body for fp32 q, k, v, for
-// K5 (w > 1) and as the same-card A/B partner; the function, the softmax
-// forms and the log-sum-exp handed to the backward are the same.
+// window_attention_fwd.cu keeps the fp32-FMA body for fp32 q, k, v and as
+// the same-card A/B partner; the function, the softmax forms and the
+// log-sum-exp handed to the backward are the same.
 //
 //   per (window b, head h):
 //     q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),  k^ = k * rk likewise
@@ -275,6 +277,280 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5: W consecutive windows per block (mmde_tpu/ops/window_attention_packed.py
+// ::_fwd_body with w > 1, W from the JAX rule choose_w). The block owns one
+// (64-query tile, head) of its W windows and walks the key tiles outermost,
+// the windows innermost: each key tile's bias tile is staged once, by
+// cp.async, for the W windows. The block is two groups of 4 warps; each
+// step takes a pair of windows, one a group (windows 2p and 2p + 1; a
+// group idles on an odd W's last pair), each streaming its window's K and
+// V tiles and its own mask tile (window b uses b % nW; nW is a multiple of
+// W, so the W masks differ) through two stages. What a window carries from
+// one key tile to the next - its o accumulators and each row's m and l -
+// lives in shared memory in fragment order (a lane's own float4s: no bank
+// conflicts, no layout change); q comes back from L2 as A fragments each
+// step, its norms recomputed by the same chain (so the same bits). Per
+// window the arithmetic is fwd_tc_kernel's, step for step: same products,
+// same epilogue, same online rescaling in the same key order. Why two
+// groups: W windows' state (10 KB each) leaves one block an SM at W = 8,
+// so the block brings twice the warps to it.
+// ---------------------------------------------------------------------------
+constexpr int W_MAX = 8;   // windows a block holds (W x 10 KB of state)
+constexpr int W_GROUPS = 2;  // warp groups of the block, a window each
+
+template <typename TB, int MXU>
+__global__ void __launch_bounds__(W_GROUPS * TC_NT)
+fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+                const float* __restrict__ logit_scale,
+                const TB* __restrict__ bias, const TB* __restrict__ mask,
+                Rows<bf16> out, float* __restrict__ lse, int N, int nW,
+                int maxfree, int W) {
+  __shared__ __align__(128) bf16 sK[2][W_GROUPS][TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][W_GROUPS][TC_BT * TC_LD];
+  __shared__ float sRk[2][W_GROUPS][TC_BT];
+  // dynamic: bias tiles [2] (by key tile), mask tiles [2][W_GROUPS] (by
+  // step and group), then per window o [4 warps][4 n][32 lanes] and
+  // {m0, m1, l0, l1} [4][32]
+  extern __shared__ __align__(128) char sW[];
+  const bool masked = mask != nullptr;
+  char* sB = sW;
+  char* sM = sB + 2 * btile_bytes<TB>();
+  float4* sO = reinterpret_cast<float4*>(
+      sM + (masked ? 2 * W_GROUPS : 0) * btile_bytes<TB>());
+  float4* sS = sO + W * 4 * 4 * 32;
+
+  constexpr bool RB = MXU == MXU_BF16;
+  const int grp = threadIdx.x / TC_NT, tid = threadIdx.x % TC_NT;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b0 = blockIdx.z * W;
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const float scale = expf(fminf(logit_scale[h], TC_LN100));
+  const float shift = scale + 16.0f;
+  const bool mf = maxfree != 0 && scale <= TC_MAXFREE_MAX_SCALE;
+  const bool max_first = RB && !mf;
+  const bool fixed = mf || max_first;
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  const int pairs = (W + W_GROUPS - 1) / W_GROUPS;
+  const int per_pass = nt * pairs;
+  const int steps = (max_first ? 2 : 1) * per_pass;
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+  auto mask_tile = [&](int st) {
+    return sM + (st * W_GROUPS + grp) * btile_bytes<TB>();
+  };
+
+  // step s = (pass, key tile, pair): the group's window's K (and V outside
+  // the bf16 mode's first sweep) and mask tile -> stage s & 1; with a key
+  // tile's first pair, its bias tile (group 0) -> stage (s / pairs) & 1
+  auto issue = [&](int s) {
+    const int st = s & 1, rr = s % per_pass, kn = (rr / pairs) * TC_BT;
+    const int w = W_GROUPS * (rr % pairs) + grp, b = b0 + w;
+    if (w < W) {
+      load_tile(sK[st][grp], k.head(b, h), k, kn, N, tid);
+      if (!(max_first && s < per_pass))
+        load_tile(sV[st][grp], v.head(b, h), v, kn, N, tid);
+      if (async_b && masked)
+        load_btile(mask_tile(st), mask + (size_t)(b % nW) * N * N, q0, kn,
+                   N, tid, true);
+    }
+    if (async_b && grp == 0 && rr % pairs == 0)
+      load_btile(sB + ((s / pairs) & 1) * btile_bytes<TB>(), bias_h, q0, kn,
+                 N, tid, true);
+    cp_async_commit();
+  };
+  issue(0);
+
+  for (int i = threadIdx.x; i < W * 4 * 4 * 32; i += W_GROUPS * TC_NT)
+    sO[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float m_init = mf ? shift : -INFINITY;
+  for (int i = threadIdx.x; i < W * 4 * 32; i += W_GROUPS * TC_NT)
+    sS[i] = make_float4(m_init, m_init, 0.0f, 0.0f);
+
+  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step & 1, rr = step % per_pass;
+    const int w = W_GROUPS * (rr % pairs) + grp;
+    const bool active = w < W;
+    const int b = b0 + (active ? w : 0), k0 = (rr / pairs) * TC_BT;
+    const bool sweep = max_first && step < per_pass;  // logits-only sweep
+    uint32_t qa[2][4];
+    load_afrag(qa, q.head(b, h), q, r0, N, t);   // lands during the waits
+    cp_async_wait_all();
+    __syncthreads();  // tile `step` arrived; every warp left step - 1
+    if (step + 1 < steps) issue(step + 1);
+    const char* tb = sB + ((step / pairs) & 1) * btile_bytes<TB>();
+    const char* tm = mask_tile(st);
+    if (!async_b) {
+      if (grp == 0 && rr % pairs == 0)
+        load_btile(const_cast<char*>(tb), bias_h, q0, k0, N, tid, false);
+      if (masked && active)
+        load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
+                   q0, k0, N, tid, false);
+    }
+    if (active) tile_norms<RB>(sK[st][grp], sRk[st][grp], 1.0f, tid);
+    __syncthreads();
+    if (!active) continue;
+
+    float rq0, rq1;
+    row_norms(qa, rq0, rq1, lane);
+    if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);
+    const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
+    const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    float4* so = sO + (w * 4 + warp) * 4 * 32 + lane;
+    float4* ss = sS + (w * 4 + warp) * 32 + lane;
+    float4 mls = *ss;
+    float m0 = mls.x, m1 = mls.y, l0 = mls.z, l1 = mls.w;
+    const bf16* sk = sK[st][grp];
+    const float* rks = sRk[st][grp];
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+      uint32_t kb[4];
+      frag_rows(kb, sk, j, lane);
+      mma(s[j], qa[0], kb[0], kb[1]);
+      mma(s[j], qa[1], kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + 2 * t;
+      const int col = k0 + cl;
+      const float rk[2] = {rks[cl], rks[cl + 1]};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rl = warp * 16 + (lane >> 2) + 8 * half;
+        const float c = half ? c1 : c0;
+        float* x = &s[j][2 * half];
+        if (col >= N || !(half ? ok1 : ok0)) {
+          x[0] = col < N ? 0.0f : -INFINITY;
+          x[1] = col + 1 < N ? 0.0f : -INFINITY;
+          continue;
+        }
+        const bool in1 = col + 1 < N;
+        float2 bm = btile_pair(tb, rl, cl, TB());
+        if (masked) {
+          const float2 mm = btile_pair(tm, rl, cl, TB());
+          bm.x += mm.x;
+          bm.y += mm.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float y = x[e];
+          if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
+          else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
+          x[e] = y + (e ? bm.y : bm.x);
+        }
+        if (!in1) x[1] = -INFINITY;
+      }
+    }
+
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+    if (sweep || !fixed) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        tm0 = fmaxf(tm0, fmaxf(s[j][0], s[j][1]));
+        tm1 = fmaxf(tm1, fmaxf(s[j][2], s[j][3]));
+      }
+      tm0 = quad_max(tm0);
+      tm1 = quad_max(tm1);
+    }
+    if (sweep) {
+      *ss = make_float4(fmaxf(m0, tm0), fmaxf(m1, tm1), l0, l1);
+      continue;
+    }
+    float o[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 x = so[n * 32];
+      o[n][0] = x.x;
+      o[n][1] = x.y;
+      o[n][2] = x.z;
+      o[n][3] = x.w;
+    }
+    if (!fixed) {   // online maximum: rescale what was summed so far
+      const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
+      const float a0 = ex2((m0 - n0) * TC_LOG2E);
+      const float a1 = ex2((m1 - n1) * TC_LOG2E);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+    }
+    const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
+      s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
+      s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
+      s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    const float one[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      afrag<!RB>(s[2 * kk], s[2 * kk + 1], one, one, ph, pl);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint32_t vb[4];
+        frag_cols(vb, sV[st][grp], kk, c, lane);
+        mma(o[2 * c], ph, vb[0], vb[1]);
+        mma(o[2 * c + 1], ph, vb[2], vb[3]);
+        if constexpr (!RB) {
+          mma(o[2 * c], pl, vb[0], vb[1]);
+          mma(o[2 * c + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      so[n * 32] = make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+    *ss = make_float4(m0, m1, l0, l1);
+  }
+
+  // the group's windows' output and log-sum-exp (each lane reads back its
+  // own state: no barrier needed)
+  for (int w = grp; w < W; w += W_GROUPS) {
+    const int b = b0 + w;
+    const float4* so = sO + (w * 4 + warp) * 4 * 32 + lane;
+    const float4 mls = sS[(w * 4 + warp) * 32 + lane];
+    const float l0 = quad_sum(mls.z), l1 = quad_sum(mls.w);
+    if (lse != nullptr && t == 0) {
+      const size_t stat0 = ((size_t)b * gridDim.y + h) * N;
+      if (ok0) lse[stat0 + r0] = mls.x + logf(l0);
+      if (ok1) lse[stat0 + r1] = mls.y + logf(l1);
+    }
+    bf16* out_bh = out.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 x = so[n * 32];
+      if (ok0) store_pair(out_bh + out.off(r0) + 8 * n, x.x / l0, x.y / l0);
+      if (ok1) store_pair(out_bh + out.off(r1) + 8 * n, x.z / l1, x.w / l1);
+    }
+  }
+}
+
+// dynamic shared memory of fwd_tc_w_kernel: bias and mask tiles, W windows'
+// state
+template <typename TB>
+int w_fwd_bytes(bool masked, int W) {
+  return (2 + (masked ? 2 * W_GROUPS : 0)) * btile_bytes<TB>() +
+         W * (4 * 4 * 32 + 4 * 32) * 16;
+}
+
 // The launch on operands already described as Rows (any (window, head,
 // token) strides, rows 16-byte aligned); -1 where a row is not.
 template <typename TB, int MXU>
@@ -310,6 +586,32 @@ int launch_packed(const void* qkv, const void* ls, const void* bias,
                          mask, lse, B_, N, nH, nW, maxfree, stream);
 }
 
+// K5 on the packed layout: W windows per block
+template <typename TB, int MXU>
+int launch_packed_w(const void* qkv, const void* ls, const void* bias,
+                    const void* mask, void* out, void* lse, int B_, int N,
+                    int nH, int nW, int maxfree, int W,
+                    cudaStream_t stream) {
+  const int C = nH * TC_DH;
+  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
+  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
+  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
+  const Rows<bf16> ro = packed_rows((bf16*)out, 0, N, C, 1, TC_DH);
+  if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
+      !rows_aligned(ro))
+    return -1;
+  const int smem = w_fwd_bytes<TB>(mask != nullptr, W);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tc_w_kernel<TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      w_fwd_bytes<TB>(true, W_MAX));
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_ / W);
+  fwd_tc_w_kernel<TB, MXU><<<grid, W_GROUPS * TC_NT, smem, stream>>>(
+      rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
+      (float*)lse, N, nW, maxfree, W);
+  return (int)cudaGetLastError();
+}
+
 bool shape_ok(int B_, int N, int nH, int nW, const void* mask) {
   if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return false;
   return mask == nullptr || (nW > 0 && B_ % nW == 0);
@@ -341,6 +643,32 @@ extern "C" int mmde_window_attention_fwd_tc(
     } else {
       return launch_packed<float, MXU>(qkv, logit_scale, bias, mask, out,
                                        lse, B_, N, nH, nW, maxfree, s);
+    }
+  });
+}
+
+// K5's entry on the tensor cores: as mmde_window_attention_fwd_tc, with W
+// (2 .. W_MAX, dividing B_, and nW where there is a mask) consecutive
+// windows per block; `lse` may be null (serving). -1 for a W it does not
+// take.
+extern "C" int mmde_window_attention_fwd_tc_w(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
+    int nW, int bias_bf16, int maxfree, int W, int mxu, void* stream) {
+  if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask)) return -1;
+  if (W < 2 || W > W_MAX || B_ % W != 0 || (mask != nullptr && nW % W != 0))
+    return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if constexpr (MXU == MXU_FOLD_PV) {
+      return -1;
+    } else if (bias_bf16) {
+      return launch_packed_w<bf16, MXU>(qkv, logit_scale, bias, mask, out,
+                                        lse, B_, N, nH, nW, maxfree, W, s);
+    } else {
+      return launch_packed_w<float, MXU>(qkv, logit_scale, bias, mask, out,
+                                         lse, B_, N, nH, nW, maxfree, W, s);
     }
   });
 }

@@ -6,16 +6,18 @@ temperature, the relative-position bias as plain (nH, N, N) and the
 shifted-window mask as plain (nW, N, N), and returns (B_, N, C). The TPU
 kernel's head-group packing, 8-row padding and -1e9 bias columns are TPU
 tiling and have no counterpart here: the CUDA kernels
-(csrc/window_attention_{fwd,bwd}_tc.cu, csrc/window_attention_fwd.cu,
-csrc/window_attention_bwd.cu, csrc/window_attention_bwd_resident.cu) mask
+(csrc/window_attention_{fwd,bwd}_tc.cu, csrc/window_attention_bwd_resident
+[_tc].cu, csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu) mask
 the ragged edge themselves.
 
-Which body runs follows qkv's type, nothing else: bf16 qkv at one window per
-block (K1 with or without the log-sum-exp, K2's two passes) runs the
-tensor-core kernels (bf16 mma.sync, window_attention_{fwd,bwd}_tc.cu,
-counted as window_attention_fwd_tc[+lse] / window_attention_bwd_tc); fp32
-qkv, K5 (W > 1), K3's pass and K4 run the fp32-FMA bodies. Both compute
-the same function in each precision mode.
+Which body runs follows qkv's type, nothing else: bf16 qkv runs the
+tensor-core kernels (bf16 mma.sync) - K1 with or without the log-sum-exp and
+K2's two passes (window_attention_{fwd,bwd}_tc.cu, counted as
+window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W > 1 (the
+same sources, window_attention_fwd_tc_w{W}[+lse] /
+window_attention_bwd_tc_w{W}) and K4 (window_attention_bwd_resident_tc.cu,
+window_attention_bwd_resident_tc); fp32 qkv and K3's pass run the fp32-FMA
+bodies. Both compute the same function in each precision mode.
 
 Which kernel runs follows the JAX package's process-wide settings, each read
 once at import:
@@ -61,6 +63,7 @@ from mmde_tpu_torch.ops.window_attention_headsplit import (
 BWD_TILE = 64           # query rows per block of the backward's dq pass
 RESIDENT_ROWS = 16      # query rows per block of K4
 RESIDENT_BLOCKS = 528   # K4 splits its window sweep until ~4 blocks per SM
+RESIDENT_TC_BLOCKS = 264  # the tensor-core K4: ~2 blocks per SM, one wave
 LAUNCHES = 0            # incremented once per forward-kernel launch (K1, K5)
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B_, N, C, nH)
 LAUNCHES_BWD = 0        # once per K2 / K5 backward launch (all its passes,
@@ -72,8 +75,11 @@ LAUNCHES_RESIDENT_BY_SHAPE: dict = {}
 # window_attention_fwd_tc[+lse] / window_attention_bwd_tc (K1 / K2 on the
 # tensor cores: bf16 qkv, W = 1), window_attention_fwd[+lse] /
 # window_attention_bwd (K1 / K2's fp32-FMA body), window_attention_fwd_w{W}
-# [+lse] / window_attention_bwd_w{W} (K5), window_attention_bwd_resident (K4),
-# window_attention_dbias (K3's pass after the tensor-core passes, "split")
+# [+lse] / window_attention_bwd_w{W} (K5's fp32-FMA body),
+# window_attention_fwd_tc_w{W}[+lse] / window_attention_bwd_tc_w{W} (K5 on
+# the tensor cores), window_attention_bwd_resident[_tc] (K4's FMA body / on
+# the tensor cores), window_attention_dbias (K3's pass after the tensor-core
+# passes, "split")
 LAUNCHES_BY_KERNEL: dict = {}
 
 # The JAX package's three grid modes. The forward is the same function
@@ -151,14 +157,16 @@ _LIB_NAME_FWD_TC = "window_attention_fwd_tc"
 _SOURCES_FWD_TC = ("window_attention_fwd_tc.cu",)
 _LIB_NAME_BWD_TC = "window_attention_bwd_tc"
 _SOURCES_BWD_TC = ("window_attention_bwd_tc.cu",)
+_LIB_NAME_RESIDENT_TC = "window_attention_bwd_resident_tc"
+_SOURCES_RESIDENT_TC = ("window_attention_bwd_resident_tc.cu",)
 
 
 def tensor_core_body(dtype: torch.dtype, w: int = 1) -> bool:
     """Whether a launch of qkv's `dtype` at `w` windows per block runs the
-    tensor-core kernels: bf16 at W = 1, in every precision mode (the other
-    launches take the fp32-FMA bodies). The head-split wrapper takes the
-    same rule (one window per block always)."""
-    return dtype == torch.bfloat16 and w == 1
+    tensor-core kernels: bf16 at any W (K1 / K2 at W = 1, K5 above; K4 too),
+    in every precision mode; fp32 qkv takes the fp32-FMA bodies. The
+    head-split wrapper takes the same rule (one window per block always)."""
+    return dtype == torch.bfloat16
 
 # The JAX package's packed-layout plan and windows-per-cell rule, copied
 # (not imported) so that both packages send the same stages to the same
@@ -299,6 +307,9 @@ _BWD_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
 _FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 _BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+_FWD_TC_W_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_BWD_TC_W_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+_RESIDENT_TC_ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
 _DBIAS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 
 
@@ -337,13 +348,21 @@ def _library_tc(backward: bool) -> ctypes.CDLL:
     from mmde_tpu_torch.ops.cuda_build import load_library
     if backward:
         return _bind(load_library(_LIB_NAME_BWD_TC, _SOURCES_BWD_TC), (
-            ("mmde_window_attention_bwd_tc", _BWD_TC_ARGTYPES),))
+            ("mmde_window_attention_bwd_tc", _BWD_TC_ARGTYPES),
+            ("mmde_window_attention_bwd_tc_w", _BWD_TC_W_ARGTYPES)))
     return _bind(load_library(_LIB_NAME_FWD_TC, _SOURCES_FWD_TC), (
-        ("mmde_window_attention_fwd_tc", _FWD_TC_ARGTYPES),))
+        ("mmde_window_attention_fwd_tc", _FWD_TC_ARGTYPES),
+        ("mmde_window_attention_fwd_tc_w", _FWD_TC_W_ARGTYPES)))
 
 
-def _library_resident() -> ctypes.CDLL:
+def _library_resident(tc: bool = False) -> ctypes.CDLL:
+    """K4's library: its fp32-FMA body, or (`tc`) the tensor-core one."""
     from mmde_tpu_torch.ops.cuda_build import load_library
+    if tc:
+        return _bind(load_library(_LIB_NAME_RESIDENT_TC,
+                                  _SOURCES_RESIDENT_TC), (
+            ("mmde_window_attention_bwd_resident_tc",
+             _RESIDENT_TC_ARGTYPES),))
     return _bind(load_library(_LIB_NAME_RESIDENT, _SOURCES_RESIDENT), (
         ("mmde_window_attention_bwd_resident", _RESIDENT_ARGTYPES),))
 
@@ -351,11 +370,12 @@ def _library_resident() -> ctypes.CDLL:
 def library_specs() -> dict:
     """{library name: (sources, defines)} of every library the model's
     path binds: the tensor-core forward and backward, the fp32-FMA forward
-    and backward (each with every mode of MXU_MODES) and K4."""
+    and backward (each with every mode of MXU_MODES) and K4's two."""
     return {_LIB_NAME_FWD_TC: (_SOURCES_FWD_TC, ()),
             _LIB_NAME_BWD_TC: (_SOURCES_BWD_TC, ()),
             _LIB_NAME: (_SOURCES, ()), _LIB_NAME_BWD: (_SOURCES_BWD, ()),
-            _LIB_NAME_RESIDENT: (_SOURCES_RESIDENT, ())}
+            _LIB_NAME_RESIDENT: (_SOURCES_RESIDENT, ()),
+            _LIB_NAME_RESIDENT_TC: (_SOURCES_RESIDENT_TC, ())}
 
 
 def build_kernels(extra: Optional[dict] = None) -> dict:
@@ -368,6 +388,7 @@ def build_kernels(extra: Optional[dict] = None) -> dict:
     _library()
     _library_bwd()
     _library_resident()
+    _library_resident(tc=True)
     _library_tc(False)
     _library_tc(True)
     return {n: dict(cuda_build.BUILD_LOG[n]) for n in specs}
@@ -474,7 +495,7 @@ def _count(kernel: str, qkv: torch.Tensor, num_heads: int) -> None:
         (kernel, key), 0) + 1
     if kernel == "window_attention_dbias":
         return      # K3 after the tensor-core passes: part of one backward
-    by_shape = (LAUNCHES_RESIDENT_BY_SHAPE if kernel.endswith("resident")
+    by_shape = (LAUNCHES_RESIDENT_BY_SHAPE if "resident" in kernel
                 else LAUNCHES_BWD_BY_SHAPE if "_bwd" in kernel
                 else LAUNCHES_BY_SHAPE)
     by_shape[key] = by_shape.get(key, 0) + 1
@@ -512,11 +533,11 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
                     want_stats, w=1, mxu=None, _fma=False):
     """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block),
     in precision mode `mxu` (a key of _MXU_CODE; None = the default for
-    qkv's type); returns (out, lse or None). bf16 qkv at w = 1 runs the
-    tensor-core kernel (`tensor_core_body`), everything else K1's / K5's
-    fp32-FMA body; `_fma` (private: the card tools and chip_smoke.py's
-    same-card comparison, never the model) sends bf16 qkv to the FMA body
-    too."""
+    qkv's type); returns (out, lse or None). bf16 qkv runs the tensor-core
+    kernels (`tensor_core_body`; K5 there holds up to 8 windows, a larger w
+    raises), fp32 qkv K1's / K5's fp32-FMA body; `_fma` (private:
+    the card tools and chip_smoke.py's same-card comparison, never the
+    model) sends bf16 qkv to the FMA body too."""
     global LAUNCHES
     mxu = resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE))
     B_, N, C3 = qkv.shape
@@ -542,7 +563,13 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     mask_ptr = mask.data_ptr() if mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = _stream(qkv.device)
-        if tc:
+        if tc and w > 1:
+            err = lib.mmde_window_attention_fwd_tc_w(
+                qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                mask_ptr, out.data_ptr(),
+                lse.data_ptr() if want_stats else None, *shape_args[:5],
+                *shape_args[6:], w, code, stream)
+        elif tc:
             err = lib.mmde_window_attention_fwd_tc(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(),
@@ -563,9 +590,8 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
             err = lib.mmde_window_attention_fwd(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(), *shape_args, code, stream)
-    name = ("window_attention_fwd" + ("_tc" if tc else f"_w{w}" if w > 1
-                                      else "")
-            + ("+lse" if want_stats else ""))
+    name = ("window_attention_fwd" + ("_tc" if tc else "")
+            + (f"_w{w}" if w > 1 else "") + ("+lse" if want_stats else ""))
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
@@ -582,11 +608,11 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
     pass stays at one window), in precision mode `mxu` (one of
     MXU_MODES, the forward's; None = the default for qkv's type); returns
-    (dqkv, dlogit_scale, dbias or None). bf16 qkv at w = 1 runs the
-    tensor-core passes (their dbias by atomics; under "split" K3's pass
-    follows them, counted as window_attention_dbias), everything else the
-    fp32-FMA bodies. Private, for chip_smoke.py's same-card comparisons
-    only: `_fma` sends bf16 qkv to the FMA body."""
+    (dqkv, dlogit_scale, dbias or None). bf16 qkv runs the tensor-core
+    passes (their dbias by atomics; under "split" K3's pass follows them,
+    counted as window_attention_dbias), fp32 qkv the fp32-FMA bodies.
+    Private, for chip_smoke.py's same-card comparisons only: `_fma` sends
+    bf16 qkv to the FMA body."""
     global LAUNCHES_BWD
     mxu = resolve_mxu(mxu, qkv.dtype)
     B_, N, C3 = qkv.shape
@@ -621,12 +647,17 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         if tc:
-            err = _library_tc(True).mmde_window_attention_bwd_tc(
-                qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                delta.data_ptr(), dls_part.data_ptr(),
-                dbias.data_ptr() if mode == 1 else None, B_, N, C, nH, nW,
-                bias_bf16, int(mode == 1), code, stream)
+            args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                    mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                    delta.data_ptr(), dls_part.data_ptr(),
+                    dbias.data_ptr() if mode == 1 else None, B_, N, C, nH,
+                    nW, bias_bf16, int(mode == 1))
+            lib = _library_tc(True)
+            if w > 1:
+                err = lib.mmde_window_attention_bwd_tc_w(*args, w, code,
+                                                         stream)
+            else:
+                err = lib.mmde_window_attention_bwd_tc(*args, code, stream)
             if err == 0 and mode == 2:   # K3 on the delta written above
                 err = _library_bwd().mmde_window_attention_dbias(
                     qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
@@ -651,8 +682,8 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
                 err = lib.mmde_window_attention_bwd_w(*args, w, code, stream)
             else:
                 err = lib.mmde_window_attention_bwd(*args, code, stream)
-    name = "window_attention_bwd" + ("_tc" if tc else f"_w{w}" if w > 1
-                                     else "")
+    name = ("window_attention_bwd" + ("_tc" if tc else "")
+            + (f"_w{w}" if w > 1 else ""))
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
@@ -667,22 +698,33 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
 
 
-def resident_splits(N: int, nH: int, B_: int) -> int:
-    """Chunks K4 cuts its window sweep into: enough blocks for ~4 per SM
-    (RESIDENT_BLOCKS), at most one chunk per window. Each chunk writes its
-    own fp32 dbias partial; the partials are summed in a fixed order."""
-    blocks = -(-N // RESIDENT_ROWS) * nH
-    return max(1, min(B_, -(-RESIDENT_BLOCKS // blocks)))
+def resident_splits(N: int, nH: int, B_: int, tc: bool = False) -> int:
+    """Chunks K4 cuts its window sweep into, at most one chunk per window:
+    the FMA body's 16-row blocks until ~4 per SM (RESIDENT_BLOCKS); the
+    tensor-core kernel's 64-row blocks until ~2 per SM, one wave
+    (RESIDENT_TC_BLOCKS: two of its blocks fit an SM), no chunk empty. Each
+    chunk writes its own fp32 dbias partial; the partials are summed in a
+    fixed order."""
+    if not tc:
+        blocks = -(-N // RESIDENT_ROWS) * nH
+        return max(1, min(B_, -(-RESIDENT_BLOCKS // blocks)))
+    blocks = -(-N // BWD_TILE) * nH
+    splits = max(1, min(B_, RESIDENT_TC_BLOCKS // blocks))
+    return -(-B_ // -(-B_ // splits))     # every chunk of ceil(B_ / splits)
 
 
 def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
-                              want_dbias=True):
-    """Launch K4; returns (dqkv, dlogit_scale, dbias or None). dq leaves the
-    kernel complete; dk^ and dv are summed over query tiles by fp32 atomics
-    into a (B_, N, 2C) scratch, and the normalise-VJP of k and the casts
-    are applied here, as the TPU package applies them in XLA after its
-    kernel. A block holds three 16 x N fp32 rows in shared memory, so
-    windows of more than 1088 tokens are refused at launch (raises)."""
+                              want_dbias=True, _fma=False):
+    """Launch K4; returns (dqkv, dlogit_scale, dbias or None). bf16 qkv runs
+    the tensor-core kernel (window_attention_bwd_resident_tc.cu), fp32 qkv
+    the fp32-FMA body; `_fma` (private: chip_smoke.py's same-card
+    comparison, never the model) sends bf16 qkv to the FMA body too. dq
+    leaves the kernel complete; dk^ and dv are summed over query tiles by
+    fp32 atomics into a (B_, N, 2C) scratch, and the normalise-VJP of k and
+    the casts are applied here, as the TPU package applies them in XLA
+    after its kernel. The FMA body holds three 16 x N fp32 rows in shared
+    memory, so windows of more than 1088 tokens are refused at its launch
+    (raises)."""
     global LAUNCHES_RESIDENT
     B_, N, C3 = qkv.shape
     C = C3 // 3
@@ -693,31 +735,39 @@ def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
     if qkv.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("qkv and g must be 16-byte aligned for the "
                          "kernel's vector loads")
-    lib = _library_resident()
+    tc = tensor_core_body(qkv.dtype) and not _fma
+    lib = _library_resident(tc)
     dev = qkv.device
-    splits = resident_splits(N, nH, B_)
+    splits = resident_splits(N, nH, B_, tc)
+    rows = BWD_TILE if tc else RESIDENT_ROWS
     dqkv = torch.empty_like(qkv)
     dkv = torch.zeros((B_, N, 2 * C), dtype=torch.float32, device=dev)
     dbias_part = torch.empty((splits, nH, N, N), dtype=torch.float32,
                              device=dev)
-    dls_part = torch.empty((splits * -(-N // RESIDENT_ROWS), nH),
+    dls_part = torch.empty((splits * -(-N // rows), nH),
                            dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.mmde_window_attention_bwd_resident(
-            qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+    args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, g.data_ptr(),
             dqkv.data_ptr(), dkv.data_ptr(), dbias_part.data_ptr(),
             dls_part.data_ptr(), B_, N, C, nH,
-            mask.shape[0] if mask is not None else 0,
-            int(qkv.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16), splits, _stream(dev))
+            mask.shape[0] if mask is not None else 0)
+    bias_bf16 = int(bias.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        if tc:
+            err = lib.mmde_window_attention_bwd_resident_tc(
+                *args, bias_bf16, splits, _stream(dev))
+        else:
+            err = lib.mmde_window_attention_bwd_resident(
+                *args, int(qkv.dtype == torch.bfloat16), bias_bf16, splits,
+                _stream(dev))
+    name = "window_attention_bwd_resident" + ("_tc" if tc else "")
     if err != 0:
         raise RuntimeError(
-            f"window_attention_bwd_resident launch failed with code {err} "
+            f"{name} launch failed with code {err} "
             f"(B_={B_}, N={N}, C={C}, nH={nH}, {qkv.dtype})")
     LAUNCHES_RESIDENT += 1
     _count_mxu("fp32", qkv, nH)
-    _count("window_attention_bwd_resident", qkv, nH)
+    _count(name, qkv, nH)
     # dk = rk * (dk^ - k^ <dk^, k^>), per head
     k = qkv[:, :, C:2 * C].float().reshape(B_, N, nH, HEAD_DIM)
     rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)

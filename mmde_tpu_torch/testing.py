@@ -11,9 +11,11 @@ transposed convolution once hid behind exactly that.
 
 `tc_forward_heads` / `tc_backward_heads` emulate in plain torch the
 arithmetic of the tensor-core window-attention kernels
-(csrc/window_attention_{fwd,bwd}_tc.cu), which run only on the card, on
-head-split operands; `tc_forward` / `tc_backward` on the packed (B_, N, 3C)
-qkv. The CPU tests hold that arithmetic to the JAX kernels.
+(csrc/window_attention_{fwd,bwd}_tc.cu, at one window per block or W), which
+run only on the card, on head-split operands; `tc_forward` / `tc_backward`
+on the packed (B_, N, 3C) qkv; `tc_backward_resident` that of the
+tensor-core K4 (csrc/window_attention_bwd_resident_tc.cu). The CPU tests
+hold that arithmetic to the JAX kernels.
 """
 from __future__ import annotations
 
@@ -137,20 +139,68 @@ def tc_forward_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o / e.sum(-1, keepdim=True)
 
 
-def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu) -> list:
+def group_sum(x: torch.Tensor, size: int) -> torch.Tensor:
+    """x summed over its first axis (windows) as the kernels sum dbias:
+    consecutive groups of `size` windows, each summed window after window in
+    fp32, then the groups one after another (K5's W-window register sums
+    before their atomics; K4's chunks, each summed in the block, then the
+    chunks' partials)."""
+    parts = []
+    for i in range(0, x.shape[0], size):
+        acc = x[i]
+        for j in range(i + 1, min(i + size, x.shape[0])):
+            acc = acc + x[j]
+        parts.append(acc)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu,
+                      windows: int = 1) -> list:
     """The tensor-core backward's arithmetic on head-split operands: [dq,
     dk, dv, dlogit_scale (nH, 1, 1), dbias]. fp32 / fold: delta exact, then
     dqn = split(ds f_j) k, f_j = scale rk_j (the dq pass's two sweeps); dv =
     split(p)^T g; dkn = split(ds f_i)^T q, f_i = scale rq_i; dlogit_scale =
     sum(ds * sc) in fp32, every mode (k^ . dkn, K2's shortcut, would carry
     dkn's split residual into a sum that cancels). bf16: the JAX body's
-    rounded operands, ds rounded."""
-    nH = q.shape[1]
+    rounded operands, ds rounded. `windows`: K5's W, whose dk/dv pass sums
+    ds over its W windows before dbias (`group_sum`)."""
     s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, mxu)
     p = torch.softmax(s, dim=-1)
     dp = g @ v.transpose(-1, -2)
     delta = (p * dp).sum(-1, keepdim=True)
     ds = p * (dp - delta)
+    return _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, mxu,
+                     group_sum(ds, windows))
+
+
+def tc_backward_resident_heads(q, k, v, ls, bias, mask, g,
+                               splits: int) -> list:
+    """The tensor-core K4's arithmetic on head-split operands, as
+    tc_backward_heads returns it: always the "fp32" function; the block's
+    own row statistics (m the exact row maximum, l = sum exp(s - m) and
+    delta = sum(exp(s - m) dp) / l, m and l kept apart: p = exp(s - m) *
+    (1 / l)); the split operands of tc_backward_heads; dbias summed window
+    after window within each of `splits` chunks of ceil(B_ / splits)
+    windows, then the chunks in order."""
+    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, "fp32")
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    il = 1.0 / e.sum(-1, keepdim=True)
+    p = e * il
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (e * dp).sum(-1, keepdim=True) * il)
+    chunk = -(-q.shape[0] // splits)
+    return _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, "fp32",
+                     group_sum(ds, chunk))
+
+
+def _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, mxu,
+              dbias) -> list:
+    """[dq, dk, dv, dlogit_scale, dbias] from p and ds, the products as the
+    tensor-core kernels take them in mode `mxu`."""
+    nH = q.shape[1]
     if mxu == "bf16":
         qd, kd = ops
         dv = _bf(p).transpose(-1, -2) @ g
@@ -165,7 +215,7 @@ def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu) -> list:
     dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
     live = ls.float().flatten() < _LN100
     dls = ((ds * sc).sum((0, 2, 3)) * live).reshape(nH, 1, 1)
-    return [dq, dk, dv, dls, ds.sum(0)]
+    return [dq, dk, dv, dls, dbias]
 
 
 def _packed_heads(qkv: np.ndarray, nH: int):
@@ -187,14 +237,25 @@ def tc_forward(qkv, ls, bias, mask, nH, mxu, maxfree=True) -> torch.Tensor:
     return o.permute(0, 2, 1, 3).reshape(B, N, nH * 32)
 
 
-def tc_backward(qkv, ls, bias, mask, g, nH, mxu) -> list:
+def tc_backward(qkv, ls, bias, mask, g, nH, mxu, windows: int = 1) -> list:
     """`tc_backward_heads` on the packed layout (numpy in, g (B_, N, C)):
     [dqkv (B_, N, 3C), dlogit_scale, dbias]."""
+    return _packed_grads(qkv, g, nH, lambda q, k, v, gh: tc_backward_heads(
+        q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu, windows))
+
+
+def tc_backward_resident(qkv, ls, bias, mask, g, nH, splits: int) -> list:
+    """`tc_backward_resident_heads` on the packed layout, as tc_backward."""
+    return _packed_grads(qkv, g, nH,
+                         lambda q, k, v, gh: tc_backward_resident_heads(
+                             q, k, v, _t(ls), _t(bias), _t(mask), gh, splits))
+
+
+def _packed_grads(qkv, g, nH, fn) -> list:
     q, k, v = _packed_heads(qkv, nH)
     B, N, _ = qkv.shape
     gh = torch.from_numpy(g).reshape(B, N, nH, 32).permute(0, 2, 1, 3)
-    dq, dk, dv, dls, dbias = tc_backward_heads(
-        q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu)
+    dq, dk, dv, dls, dbias = fn(q, k, v, gh)
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
         B, N, 3 * nH * 32)
     return [dqkv, dls, dbias]

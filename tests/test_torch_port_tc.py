@@ -199,7 +199,7 @@ def recorded(monkeypatch):
     lib = _Recorder(calls)
     monkeypatch.setattr(twp, "_library", lambda mxu="fp32": lib)
     monkeypatch.setattr(twp, "_library_bwd", lambda: lib)
-    monkeypatch.setattr(twp, "_library_resident", lambda: lib)
+    monkeypatch.setattr(twp, "_library_resident", lambda tc=False: lib)
     monkeypatch.setattr(twp, "_library_tc", lambda backward: lib)
     monkeypatch.setattr(twp, "_stream", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device",
@@ -241,28 +241,36 @@ def _drive(dtype, grid="window_resident", wpc="1", mxu=None, train=True):
     ("fp32", "window_resident", "1", None, True),
     ("fp32", "split", "1", "fold", True),
     ("bf16", "window_resident", "auto", None, True),
+    ("fp32", "bias_resident", "1", None, True),
+    ("fp32", "window_resident", "auto", None, True),
 ])
 def test_routing_follows_the_type_and_w(recorded, case):
-    """bf16 qkv at one window per block runs the tensor-core entries in
-    every grid and mode (split: the tensor-core passes without dbias, then
-    K3's pass; bias_resident: the tensor-core forward without lse, then
-    K4); fp32 qkv and W > 1 (K5) run the fp32-FMA entries. The mode reaches
-    every packed entry as its code, just before the stream; the launch
-    counters name the kernel that ran, K3 after the tensor-core passes
-    under its own name (and outside the per-shape backward counts)."""
+    """bf16 qkv runs the tensor-core entries in every grid, mode and W
+    (split: the tensor-core passes without dbias, then K3's pass;
+    bias_resident: the tensor-core forward without lse, then the
+    tensor-core K4; W > 1: K5's tensor-core entries); fp32 qkv runs the
+    fp32-FMA entries (K4's and K5's among them). The mode reaches every
+    packed entry but K4's as its code, just before the stream (K5's: W,
+    then the mode); the launch counters name the kernel that ran, K3 after
+    the tensor-core passes under its own name (and outside the per-shape
+    backward counts)."""
     name, grid, wpc, mxu, train = case
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
     _drive(dtype, grid, wpc, mxu, train)
     code = twp._MXU_CODE[twp.resolve_mxu(mxu, dtype)]
     entries = [e for e, _ in recorded]
-    tc = dtype == torch.bfloat16 and wpc == "1"
+    tc = dtype == torch.bfloat16
+    w_sfx = "_w" if wpc == "auto" and grid != "bias_resident" else ""
     if not train:
         want = ["mmde_window_attention_fwd_tc"]
     elif grid == "bias_resident":
-        want = ["mmde_window_attention_fwd_tc",
-                "mmde_window_attention_bwd_resident"]
+        want = (["mmde_window_attention_fwd_tc",
+                 "mmde_window_attention_bwd_resident_tc"] if tc else
+                ["mmde_window_attention_fwd",
+                 "mmde_window_attention_bwd_resident"])
     elif tc:
-        want = ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_tc"]
+        want = ["mmde_window_attention_fwd_tc" + w_sfx,
+                "mmde_window_attention_bwd_tc" + w_sfx]
         want += ["mmde_window_attention_dbias"] if grid == "split" else []
     elif wpc == "auto":
         want = ["mmde_window_attention_fwd_w", "mmde_window_attention_bwd_w"]
@@ -270,7 +278,9 @@ def test_routing_follows_the_type_and_w(recorded, case):
         want = ["mmde_window_attention_fwd_stats", "mmde_window_attention_bwd"]
     assert entries == want, case
     for entry, args in recorded:
-        if entry != "mmde_window_attention_bwd_resident":
+        if entry.endswith("_w"):
+            assert args[-3] == 4, (entry, case)        # W, mxu, the stream
+        if not entry.startswith("mmde_window_attention_bwd_resident"):
             assert args[-2] == code, (entry, case)     # mxu, then the stream
         if entry == "mmde_window_attention_fwd_tc":
             with_lse = train and grid != "bias_resident"
@@ -283,8 +293,10 @@ def test_routing_follows_the_type_and_w(recorded, case):
         assert set(counted) <= {"window_attention_fwd_tc",
                                 "window_attention_fwd_tc+lse",
                                 "window_attention_bwd_tc",
+                                "window_attention_fwd_tc_w4+lse",
+                                "window_attention_bwd_tc_w4",
                                 "window_attention_dbias",
-                                "window_attention_bwd_resident"}, counted
+                                "window_attention_bwd_resident_tc"}, counted
         assert counted.get("window_attention_dbias", 0) == (
             1 if train and grid == "split" else 0), counted
         if train and grid != "bias_resident":
@@ -325,7 +337,7 @@ def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
 
 def test_tensor_core_body_rule():
     assert twp.tensor_core_body(torch.bfloat16, 1)
-    assert not twp.tensor_core_body(torch.bfloat16, 4)
+    assert twp.tensor_core_body(torch.bfloat16, 4)
     assert not twp.tensor_core_body(torch.float32, 1)
 
 

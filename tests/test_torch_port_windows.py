@@ -3,8 +3,9 @@
 MMDE_ATTN_W ("auto" or an int, read once at import in both packages) or
 windows_per_cell= makes the packed attention run W windows per block where
 the JAX rule `_choose_w` gives W > 1: the JAX package's `_fwd_body` /
-`_bwd_body` with w > 1, the port's K5 kernels in csrc/window_attention_fwd.cu
-and csrc/window_attention_bwd.cu. On CPU tensors the port runs the plain
+`_bwd_body` with w > 1, the port's K5 kernels (bf16: the `_tc_w` entries of
+csrc/window_attention_{fwd,bwd}_tc.cu; fp32: the K5 kernels of
+csrc/window_attention_{fwd,bwd}.cu). On CPU tensors the port runs the plain
 versions whatever W; they are held here to the JAX op with
 windows_per_cell=3 (interpret mode). The port's copies of `attention_plan`
 and the W rule are held to the JAX functions at every stage shape of the
