@@ -81,15 +81,26 @@ What it does, each phase printing one JSON object on a line of its own:
                 plain versions, the backward also against float64
                 autograd: the flagship's four stage maps served (1 frame
                 pair, forward) and trained (2 pairs), swin_large's stages
-                2-4 trained; float32 and bfloat16, float32 bias and mask,
-                masked where the stage shifts, one clamped and one hot
-                head. ms, plain ms, bound.
+                2-4 trained; bfloat16 (the tensor-core kernels, the `_tc`
+                slab entries, MXU_APART times nearer the fp32 plain version
+                than the "bf16"-mode one for the output and every gradient)
+                and float32 (the FMA bodies, hi + lo log-sum-exp), float32
+                bias and mask, masked where the stage shifts, one clamped
+                and one hot head; one more float32 case at stage 1 with
+                every unclamped head at scale 60 (F3). Each case checks
+                which kernels its launches ran. ms, plain ms, bound, the
+                SDPA yardstick (both types), and for bf16 the FMA body in
+                the same call (in turns) and the products the design needs
+                (tc_units; tc_bound_ms in the kernels line).
   serve_slab, train_slab
                 the flagship with attn_impl "cuda_slab" (the JAX package's
-                "pallas_slab"): every block's attention on the map, 24 K8'
-                launches a forward and 24 K8' + 24 K9' a step, none of the
-                packed or head-split kernels.
-  parity_slab   parity and train_parity for "cuda_slab" against "torch".
+                "pallas_slab"): every block's attention on the map, 24
+                tensor-core K8' launches a forward and 24 K8' (+lse) + 24
+                K9' a step, none of the FMA slab, packed or head-split
+                kernels.
+  parity_slab   parity (float32 and bfloat16: the FMA and the tensor-core
+                slab kernels) and train_parity for "cuda_slab" against
+                "torch".
   kernel_cases_resident
                 K4, the single-pass backward MMDE_ATTN_GRID=bias_resident
                 selects, at the flagship's four train shapes (bf16: the
@@ -177,7 +188,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 launches on that path (the packed stages of the bf16 models:
                 window_attention_fwd_tc[+lse] / window_attention_bwd_tc, the
                 head-split stages window_attention_headsplit_fwd_tc[+lse] /
-                window_attention_headsplit_bwd_tc, and none of the FMA
+                window_attention_headsplit_bwd_tc, the slab path's
+                window_attention_slab_fwd_tc[+lse] /
+                window_attention_slab_bwd_tc, and none of the FMA
                 bodies), error, ms, plain ms, bound, and the
                 nearest library call's time (bf16 cases:
                 F.scaled_dot_product_attention on the normalised, scaled q
@@ -1035,18 +1048,22 @@ def slab_shapes() -> list:
     return out
 
 
-def make_slab_inputs(shape: dict, dtype, gen):
+def make_slab_inputs(shape: dict, dtype, gen, hot: bool = False):
     """The qkv map (B, Hp, Wp, 3C) and output gradient map (B, Hp, Wp, C)
     as the model hands them over, float32 16*sigmoid bias and, where the
     stage shifts, a float32 0/-100 mask with one row per window of an image
     (the slab path keeps both float32 in bf16 models). Head 0 above the
-    ln(100) clamp, head 1 hot (scale e^4 = 54.6)."""
+    ln(100) clamp, head 1 hot (scale e^4 = 54.6); `hot`: every head but the
+    clamped one at scale 60, where one fp32 rounding of a row's
+    log-sum-exp (~60) shows in dlogit_scale (F3)."""
     dev = "cuda"
     B, (Hp, Wp) = shape["images"], shape["padded"]
     N, C, nH = shape["N"], shape["C"], shape["nH"]
     qkv = torch.randn((B, Hp, Wp, 3 * C), device=dev, generator=gen).to(dtype)
     ls = torch.randn((nH, 1, 1), device=dev, generator=gen) * 0.5 + 2.0
     ls[0], ls[1] = 5.0, 4.0
+    if hot:
+        ls[1:] = math.log(60.0)
     bias = 16.0 * torch.sigmoid(torch.randn((nH, N, N), device=dev,
                                             generator=gen))
     mask = None
@@ -1058,38 +1075,63 @@ def make_slab_inputs(shape: dict, dtype, gen):
     return qkv, ls, bias, mask, g
 
 
-def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
+def compare_slab(shape: dict, dtype, gen, timed: bool = True,
+                 hot: bool = False) -> dict:
     """K8' (serving entry) against the slab plain forward; at the train
     shapes (2 frame pairs) also K8' through the training entry (with the
     log-sum-exp) and K9' against the plain backward and against float64
-    autograd of the plain forward, at K1 / K2's tolerances. Times: median of
-    single launches; bounds count float32 bias and mask bytes."""
+    autograd of the plain forward, at K1 / K2's tolerances (TOL_*). bf16
+    runs the tensor-core kernels (the `_tc` slab entries, checked by their
+    launch counters), which must also lie MXU_APART times nearer the fp32
+    function's plain version than the "bf16"-mode head-split plain version
+    on the partitioned windows (output and every gradient); fp32 runs the
+    FMA bodies (hi + lo log-sum-exp, F3). Timed: the kernel, plain, bound,
+    the library call on the partitioned windows (both types: fp32 beside
+    the FMA body), and for bf16 the FMA body (`_fma`) in turns with the
+    kernel (kernel, FMA, FMA, kernel) and the products the design needs
+    (tc_work: K8' 3 units, K9' 8). Times: median of single launches; bounds
+    count float32 bias and mask bytes."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_slab as was
-    qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen)
+    qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen, hot)
     nH, ws = shape["nH"], shape["ws"]
+    B_, N, C = shape["B_"], shape["N"], shape["C"]
+    Hp, Wp = shape["padded"]
     kw = dict(num_heads=nH, window_size=ws)
     name = str(dtype).replace("torch.", "")
     nW = mask.shape[0] if mask is not None else 0
+    tc = dtype == torch.bfloat16
+    sfx = "_tc" if tc else ""
     rec = {"model": shape["model"], "stage": shape["stage"],
            "frame_pairs": shape["frame_pairs"], "map": list(qkv.shape),
-           "B_": shape["B_"], "N": shape["N"], "C": shape["C"], "nH": nH,
-           "nW": nW, "dtype": name, "tolerance_rel_l2": TOL_BWD[name]}
+           "B_": B_, "N": N, "C": C, "nH": nH, "nW": nW, "dtype": name,
+           "body": "tensor cores" if tc else "fp32 FMA", "mxu": "fp32",
+           "heads": ("clamped, then scale 60" if hot
+                     else "clamped, scale 54.6, cool"),
+           "tolerance_rel_l2": TOL_BWD[name]}
     with torch.no_grad():
         want = was.cosine_window_attention_slab_plain(qkv, ls, bias, mask,
                                                       **kw)
+        before = dict(was.LAUNCHES_BY_KERNEL)
         got = was.cosine_window_attention_slab(qkv, ls, bias, mask, **kw)
         torch.cuda.synchronize()
+        _tc_launched(before, {"window_attention_slab_fwd" + sfx: 1},
+                     f"slab serving forward at {rec}", was)
         rec["forward"] = check_forward(got, want, dtype, rec)
-        del got
     train = shape["frame_pairs"] > 1
+    names = ("dqkv", "dlogit_scale", "dbias")
     if train:
         leaves = [qkv.detach().clone().requires_grad_(),
                   ls.clone().requires_grad_(), bias.clone().requires_grad_()]
+        before = dict(was.LAUNCHES_BY_KERNEL)
         out = was.cosine_window_attention_slab(*leaves, mask, **kw)
         rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
         out.backward(g)
         torch.cuda.synchronize()
-        got = [t.grad for t in leaves]
+        _tc_launched(before, {f"window_attention_slab_fwd{sfx}+lse": 1,
+                              f"window_attention_slab_bwd{sfx}": 1},
+                     f"slab training forward and backward at {rec}", was)
+        grads = [t.grad for t in leaves]
         del out, leaves
         with torch.no_grad():
             plain = was.cosine_window_attention_slab_backward_plain(
@@ -1101,95 +1143,144 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
             compute_dtype=torch.float64, **kw)
         truth = torch.autograd.grad(out64, leaves64, g.double())
         del out64, leaves64
-        names = ("dqkv", "dlogit_scale", "dbias")
-        rec["plain_vs_float64"] = {n: _errs(p, t)
-                                   for n, p, t in zip(names, plain, truth)}
-        if not all(bool(torch.isfinite(t).all()) for t in got):
-            raise RuntimeError(f"slab backward not finite at {rec}")
-        if float(got[1].flatten()[0]) != 0.0:
-            raise RuntimeError(f"dlogit_scale of the clamped head is "
-                               f"{float(got[1].flatten()[0])}, not 0")
-        rec["vs_plain"] = {n: _errs(a, b)
-                           for n, a, b in zip(names, got, plain)}
-        rec["vs_float64"] = {n: _errs(a, b)
-                             for n, a, b in zip(names, got, truth)}
-        for which in ("vs_plain", "vs_float64"):
-            for n, e in rec[which].items():
-                if not e["rel_l2"] <= TOL_BWD[name][n]:
-                    raise RuntimeError(f"slab backward disagrees ({which}, "
-                                       f"{n}): {json.dumps(rec)}")
+        rec["plain_vs_float64"] = {n: _errs(p_, t)
+                                   for n, p_, t in zip(names, plain, truth)}
+        rec.update(_check_against(grads, {
+            "vs_plain": (plain, TOL_BWD[name]),
+            "vs_float64": (truth, TOL_BWD[name])},
+            f"slab backward ({rec['body']}) at {json.dumps(rec)}"))
         rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
         rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
-        del got, plain, truth
-    del want
+        del truth
+    if tc:
+        # the "bf16" mode's head-split plain version on the partitioned
+        # windows, reversed: what a kernel rounding its operands to bf16
+        # would compute
+        with torch.no_grad():
+            qw = was._heads(was.window_partition(qkv, ws), 3, nH)
+            o = ths.cosine_window_attention_headsplit_plain(
+                *qw, ls, bias, mask, mxu="bf16")
+            want_o = was.window_reverse(
+                o.permute(0, 2, 1, 3).reshape(-1, N, C), ws, Hp, Wp)
+            del o
+            _nearer(rec, "out", got, want, want_o)
+            del want_o
+            if train:
+                gw = was._heads(was.window_partition(g, ws), 1, nH)[0]
+                dq, dk, dv, dls_o, dbias_o = \
+                    ths.cosine_window_attention_headsplit_backward_plain(
+                        *qw, ls, bias, mask, gw, mxu="bf16")
+                dqkv_o = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4)
+                dqkv_o = was.window_reverse(dqkv_o.reshape(-1, N, 3 * C), ws,
+                                            Hp, Wp)
+                del dq, dk, dv
+                for n, a, own, other in zip(names, grads, plain,
+                                            (dqkv_o, dls_o, dbias_o)):
+                    _nearer(rec, n, a, own, other)
+                del dqkv_o, dls_o, dbias_o, gw
+            del qw
+    if train:
+        del grads, plain
+    del want, got
     if timed:
         fwd = rec["forward"]
-        with torch.no_grad():
-            fwd["ms"] = time_ms(lambda: was.cosine_window_attention_slab(
-                qkv, ls, bias, mask, **kw))
-            fwd["plain_ms"] = time_ms(
-                lambda: was.cosine_window_attention_slab_plain(
-                    qkv, ls, bias, mask, **kw), reps=5, warm=1)
-        fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH, nW,
-                                dtype, torch.float32))
-        fwd["library_ms"] = None
+        records = [(fwd, False)]
         if train:
-            fst = rec["forward_stats"]
-            with torch.no_grad():
-                fst["ms"] = time_ms(lambda: was._launch_forward(
-                    qkv, ls, bias, mask, nH, ws, want_stats=True))
-                fst["plain_ms"] = fwd["plain_ms"]
+            records.append((rec["forward_stats"], True))
+        with torch.no_grad():
+            for r, stats in records:
+                def kern(fma=False, stats=stats):
+                    return was._launch_forward(qkv, ls, bias, mask, nH, ws,
+                                               stats, _fma=fma)
+                if tc:
+                    turns = [time_ms(kern), time_ms(lambda: kern(True)),
+                             time_ms(lambda: kern(True)), time_ms(kern)]
+                    r.update({"ms": (turns[0] + turns[3]) / 2,
+                              "fma_ms": (turns[1] + turns[2]) / 2,
+                              "ms_turns": turns})
+                    r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls)))
+                else:
+                    r["ms"] = time_ms(kern)
+                r.update(kernel_bound(B_, N, C, nH, nW, dtype, torch.float32,
+                                      stats=stats))
+            plain_ms = time_ms(lambda: was.cosine_window_attention_slab_plain(
+                qkv, ls, bias, mask, **kw), reps=5, warm=1)
+            for r, _ in records:
+                r["plain_ms"] = plain_ms
+            if train:
                 lse = was._launch_forward(qkv, ls, bias, mask, nH, ws,
-                                          want_stats=True)[1]
+                                          True)[1]
+                lse_f = (was._launch_forward(qkv, ls, bias, mask, nH, ws,
+                                             True, _fma=True)[1]
+                         if tc else lse)
+
                 # the backward entry alone (both passes, the dbias buffer
-                # and the dlogit_scale sum), on the forward's statistics
-                rec["ms"] = time_ms(lambda: was._launch_backward(
-                    qkv, ls, bias, mask, lse, g, nH, ws, want_dbias=True),
-                    reps=8, warm=2)
-                rec["ms_no_dbias"] = time_ms(lambda: was._launch_backward(
-                    qkv, ls, bias, mask, lse, g, nH, ws, want_dbias=False),
-                    reps=8, warm=2)
+                # and the dlogit_scale sum), on its forward's statistic
+                def bwd(dbias=True, fma=False):
+                    saved = lse_f if fma else lse
+                    return lambda: was._launch_backward(
+                        qkv, ls, bias, mask, saved, g, nH, ws, dbias,
+                        _fma=fma)
+                if tc:
+                    turns = [time_ms(bwd(), reps=8, warm=2),
+                             time_ms(bwd(fma=True), reps=8, warm=2),
+                             time_ms(bwd(fma=True), reps=8, warm=2),
+                             time_ms(bwd(), reps=8, warm=2)]
+                    rec.update({"ms": (turns[0] + turns[3]) / 2,
+                                "fma_ms": (turns[1] + turns[2]) / 2,
+                                "ms_turns": turns})
+                    rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls)))
+                else:
+                    rec["ms"] = time_ms(bwd(), reps=8, warm=2)
+                rec["ms_no_dbias"] = time_ms(bwd(dbias=False), reps=8,
+                                             warm=2)
                 rec["plain_ms"] = time_ms(
                     lambda: was.cosine_window_attention_slab_backward_plain(
                         qkv, ls, bias, mask, g, **kw), reps=3, warm=1)
-            fst.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
-                                    nW, dtype, torch.float32, stats=True))
-            fst["library_ms"] = None
-            rec.update(backward_bound(shape["B_"], shape["N"], shape["C"],
-                                      nH, nW, dtype, torch.float32))
-            rec["library_ms"] = None
-        if dtype == torch.bfloat16:         # the served and trained type
-            # on the partitioned windows: the library call has no map layout
-            qw = was._heads(was.window_partition(qkv, ws), 3, nH)
-            gw = (was._heads(was.window_partition(g, ws), 1, nH)[0]
-                  if train else None)
-            lib = library_yardstick(*qw, ls, bias, mask, g=gw)
-            lib["library_call"] += " on window_partition(qkv_map)"
-            for r in (fwd, rec.get("forward_stats")):
-                if r is not None:
-                    r.update({k_: v_ for k_, v_ in lib.items()
-                              if k_ != "library_bwd_ms"})
-            if train:
-                rec.update({k_: v_ for k_, v_ in lib.items()
-                            if k_ != "library_ms"})
-                rec["library_ms"] = lib["library_bwd_ms"]
-            del qw, gw
+                rec.update(backward_bound(B_, N, C, nH, nW, dtype,
+                                          torch.float32))
+                del lse, lse_f
+        # on the partitioned windows: the library call has no map layout.
+        # Both types: fp32 beside the FMA body that fp32 maps still run
+        qw = was._heads(was.window_partition(qkv, ws), 3, nH)
+        gw = (was._heads(was.window_partition(g, ws), 1, nH)[0]
+              if train else None)
+        lib = library_yardstick(*qw, ls, bias, mask, g=gw)
+        lib["library_call"] += " on window_partition(qkv_map)"
+        for r, _ in records:
+            r.update({k_: v_ for k_, v_ in lib.items()
+                      if k_ != "library_bwd_ms"})
+        if train:
+            rec.update({k_: v_ for k_, v_ in lib.items()
+                        if k_ != "library_ms"})
+            rec["library_ms"] = lib["library_bwd_ms"]
+        del qw, gw
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_kernels_slab(timed: bool = True) -> list:
+    """K8' / K9' at every slab shape, bf16 (the tensor-core kernels) and
+    fp32 (the FMA bodies), and one more fp32 case at the flagship's stage-1
+    train shape with every head but the clamped one at scale 60 (F3's hi +
+    lo statistic, checked only)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
     cases = []
     for shape in slab_shapes():
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(compare_slab(shape, dtype, gen, timed=timed))
+    stage1 = next(s for s in slab_shapes()
+                  if s["frame_pairs"] == 2 and s["stage"] == 1)
+    cases.append(compare_slab(stage1, torch.float32, gen, timed=False,
+                              hot=True))
     emit("kernel_cases_slab", {
         "cases": cases,
         "timing": "CUDA events, median: serving forward 3 warm + 20 (1 pair "
                   "and 2), forward with statistics the same, backward entry "
-                  "2 warm + 8 (2 pairs); inputs stay in L2 between launches"})
+                  "2 warm + 8 (2 pairs); bf16: kernel, FMA body, FMA body, "
+                  "kernel in turns (ms_turns); inputs stay in L2 between "
+                  "launches"})
     return cases
 
 
@@ -1291,13 +1382,8 @@ def _kernel_modules() -> dict:
 
 
 def _reset_launch_counts():
-    for lay, m in _kernel_modules().items():
-        if lay != "slab":
-            m.reset_launch_counts()
-            continue
-        m.LAUNCHES = m.LAUNCHES_BWD = 0
-        m.LAUNCHES_BY_SHAPE.clear()
-        m.LAUNCHES_BWD_BY_SHAPE.clear()
+    for m in _kernel_modules().values():
+        m.reset_launch_counts()
 
 
 def _launches(backward: bool = False) -> dict:
@@ -1937,8 +2023,9 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
         nW = shape["nW"]
         if shape["layout"] == "slab":
             c = _find(slab_cases, shape, 1, nW=nW)["forward"]
-            entries.append(_entry("window_attention_slab_fwd", shape,
-                                  KERNEL_SOURCE, KERNEL_SLAB_REPLACES, n, c))
+            entries.append(_entry("window_attention_slab_fwd_tc", shape,
+                                  KERNEL_TC_SOURCE, KERNEL_SLAB_REPLACES, n,
+                                  c))
         elif shape["layout"] == "packed":
             c = _tc_case(tc_cases, shape, 1) or next(
                 c for c in k1_cases
@@ -1971,12 +2058,16 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
         nf = train["_fwd_by_shape"][lay].get(key, 0)
         nb = train["_bwd_by_shape"][lay].get(key, 0)
         if lay == "slab":
+            # the tensor-core kernels (bf16 models), kernel_cases_slab's
+            # numbers
             c = _find(slab_cases, shape, pairs, nW=shape["nW"])
-            entries.append(_entry("window_attention_slab_fwd+lse", shape,
-                                  KERNEL_SOURCE, KERNEL_SLAB_REPLACES, nf,
+            entries.append(_entry("window_attention_slab_fwd_tc+lse", shape,
+                                  KERNEL_TC_SOURCE, KERNEL_SLAB_REPLACES, nf,
                                   c["forward_stats"], pairs))
-            e = _entry("window_attention_slab_bwd", shape, KERNEL_BWD_SOURCE,
-                       KERNEL_SLAB_BWD_REPLACES, nb, c, pairs)
+            e = _entry("window_attention_slab_bwd_tc", shape,
+                       KERNEL_TC_BWD_SOURCE, KERNEL_SLAB_BWD_REPLACES, nb, c,
+                       pairs)
+            e["ms_no_dbias"] = c["ms_no_dbias"]
         elif lay == "packed":
             # the tensor-core kernels: kernel_cases_tc's numbers ("fold")
             # at the flagship's shapes, kernel_cases_backward's elsewhere
@@ -2372,12 +2463,12 @@ def phase_kernels_w(timed: bool = True) -> list:
 
 def expected_kernels(backbone: str, batch: int, times: int, train: bool,
                      attn_impl: str = "cuda") -> dict:
-    """{kernel name: {(B_, N, C, nH): launches}} of the packed and the
-    head-split kernels over `times` forwards (or train steps) under this
+    """{kernel name: {(B_, N, C, nH): launches}} of the packed, head-split
+    and slab kernels over `times` forwards (or train steps) under this
     process's MMDE_ATTN_GRID and MMDE_ATTN_W: each packed block's W by the
     JAX rule, for its own mask (the shifted blocks of stages 1-2 have one,
-    the others not); every head-split block of these bf16 models on the
-    tensor cores."""
+    the others not); every head-split and slab block of these bf16 models
+    on the tensor cores (no FMA slab launch)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
     want: dict = {}
@@ -2388,13 +2479,12 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
 
     for sh in stage_shapes(backbone, batch=batch, attn_impl=attn_impl):
         key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
-        if sh["layout"] == "headsplit":
-            add("window_attention_headsplit_fwd_tc" + ("+lse" if train
-                                                       else ""),
-                key, sh["blocks"] * times)
+        if sh["layout"] in ("headsplit", "slab"):
+            base = "window_attention_" + sh["layout"]
+            add(base + "_fwd_tc" + ("+lse" if train else ""), key,
+                sh["blocks"] * times)
             if train:
-                add("window_attention_headsplit_bwd_tc", key,
-                    sh["blocks"] * times)
+                add(base + "_bwd_tc", key, sh["blocks"] * times)
         if sh["layout"] != "packed":
             continue
         masked = sh["blocks"] // 2 if sh["nW"] else 0
@@ -2427,7 +2517,8 @@ def _check_mxu(tag: str, by_kernel: dict) -> dict:
     mode = wap.resolve_mxu(None, torch.bfloat16)
     want: dict = {}
     for kernel, d in by_kernel.items():
-        if kernel.startswith("window_attention_headsplit"):
+        if kernel.startswith(("window_attention_headsplit",
+                              "window_attention_slab")):
             continue        # one function ("fp32"), counted by its module
         m = "fp32" if "resident" in kernel else mode
         for key, n in d.items():
@@ -2442,12 +2533,10 @@ def _check_mxu(tag: str, by_kernel: dict) -> dict:
 
 
 def _by_kernel() -> dict:
-    """{kernel: {(B_, N, C, nH): launches}} of the packed and head-split
-    kernels since the last reset."""
-    from mmde_tpu_torch.ops import window_attention_headsplit as ths
-    from mmde_tpu_torch.ops import window_attention_packed as wap
+    """{kernel: {(B_, N, C, nH): launches}} of the packed, head-split and
+    slab kernels since the last reset."""
     out: dict = {}
-    for m in (wap, ths):
+    for m in _kernel_modules().values():
         for (kernel, key), n in m.LAUNCHES_BY_KERNEL.items():
             out.setdefault(kernel, {})[key] = n
     return out
@@ -3183,8 +3272,9 @@ def tc_work(B_, N, nH, units: float) -> dict:
 
 
 def tc_bounds(tc_cases: list, tflops: float) -> None:
-    """tc_bound_ms of every tensor-core record of kernel_cases_tc and
-    kernel_cases_headsplit (served: the case; trained: its forward, the
+    """tc_bound_ms of every tensor-core record of kernel_cases_tc,
+    kernel_cases_headsplit, kernel_cases_slab, kernel_cases_resident and
+    kernel_cases_w (served: the case; trained: its forward, the
     forward with statistics and the backward): its products at `tflops`,
     the bf16 mma.sync dot pattern's rate that this run's roofline phase
     measured (tools/roofline.py, dot_bf16_TFLOP_s)."""
@@ -3449,7 +3539,7 @@ def main() -> int:
         return 0
     tool_entries = phase_probes() + phase_variants()
     roof_entries, roof = phase_roofline()
-    tc_bounds(tc_cases + hs_cases + k4_cases + kw_cases,
+    tc_bounds(tc_cases + hs_cases + slab_cases + k4_cases + kw_cases,
               roof["rates"]["dot_bf16_TFLOP_s"])
     k3_fma_bounds(k2_cases, roof["rates"])
     serve = phase_serve()
@@ -3481,8 +3571,9 @@ def main() -> int:
             "swin_large_v2", params=LARGE_STAGE1_PARAMS, tag=None,
             dtype="bfloat16")})
     emit("parity_slab", {
-        "forward": phase_parity(dtypes=("float32",), tag=None,
-                                impl="cuda_slab"),
+        # bf16: every block on the tensor-core slab kernels; fp32: the FMA
+        # bodies (hi + lo log-sum-exp)
+        "forward": phase_parity(tag=None, impl="cuda_slab"),
         "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
     phase_train_parity_resident(resident_child)
     _PARITY_MODELS.clear()

@@ -35,13 +35,13 @@
 // whichever shift that head's softmax used there (the static scale + 16, or
 // the running row maximum for hot heads). exp(s - lse) is that kernel's p
 // for either form, so the backward needs no per-head case. The head-split
-// entries hand over two (fault F3): one rounding of lse ~ 60 (half an fp32
-// ulp, 4e-6) scales every p of its row alike, which the cancelling sum of
-// dlogit_scale does not average away (1.5e-4 of it at swin_tiny stage 1,
-// fp32). There the forward keeps m + log(l) in fp64 as fp32 hi + lo, and p
-// = exp((s - hi) - lo): s - hi is exact where p is not negligible, and lo
-// takes the rounding out. The packed and slab entries have no lo (their
-// kernels are instantiated without it, LO = false).
+// and slab entries hand over two (fault F3): one rounding of lse ~ 60 (half
+// an fp32 ulp, 4e-6) scales every p of its row alike, which the cancelling
+// sum of dlogit_scale does not average away (1.5e-4 of it at swin_tiny
+// stage 1, fp32). There the forward keeps m + log(l) in fp64 as fp32 hi +
+// lo, and p = exp((s - hi) - lo): s - hi is exact where p is not
+// negligible, and lo takes the rounding out. The packed entries have no lo
+// (their kernels are instantiated without it, LO = false).
 //
 // The TPU kernel walks its grid in order, carries dk/dv from one query tile
 // to the next in the output block and dumps ds per window because Mosaic
@@ -202,8 +202,8 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ sAt,
 
 // in: s = q^ k^T of the tile (FOLD: (q^ * scale) k^T). out: s = sc =
 // scale * q^ k^T (FOLD: s as it is) and p = exp(sc + bias + mask - lse)
-// (LO, the head-split entries: exp((sc + bias + mask - lse) - lo), lo the
-// log-sum-exp's low part); both 0 past the edge.
+// (LO, the head-split and slab entries: exp((sc + bias + mask - lse) -
+// lo), lo the log-sum-exp's low part); both 0 past the edge.
 template <typename TB, bool FASTEXP, bool FOLD, bool LO>
 __device__ __forceinline__ void probabilities(
     float (&s)[8][4], float (&p)[8][4], const TB* __restrict__ bias_h,
@@ -1457,9 +1457,10 @@ int launch_layout(Layout layout, const void* q, const void* k,
       m.dq = map_rows((T*)dq, 0, C, 3, Hp, Wp, ws, DH);
       m.dk = map_rows((T*)dq, 1, C, 3, Hp, Wp, ws, DH);
       m.dv = map_rows((T*)dq, 2, C, 3, Hp, Wp, ws, DH);
-      return launch<MapRows, T, TB, FASTEXP, MXU, false>(
-          m, ls, bias, mask, lse, nullptr, delta, dls_part, dbias, B_, N, nH,
-          nW, dbias_mode, stream);
+      // F3: lse is (2, B_, nH, N), hi then lo
+      return launch<MapRows, T, TB, FASTEXP, MXU, true>(
+          m, ls, bias, mask, lse, (const float*)lse + (size_t)B_ * nH * N,
+          delta, dls_part, dbias, B_, N, nH, nW, dbias_mode, stream);
     }
   } else {
     Operands<Rows, T> o;
@@ -1608,7 +1609,9 @@ extern "C" int mmde_window_attention_headsplit_bwd(
 // Slab entry (K9's counterpart): qkv (B, Hp, Wp, 3C), g (B, Hp, Wp, C) and
 // dqkv (B, Hp, Wp, 3C) maps of one element type, Hp and Wp multiples of ws;
 // the B * (Hp/ws) * (Wp/ws) windows image-major and row-major, N = ws*ws.
-// lse and delta are (B * nW, nH, N) in that window order, dls_part
+// lse is (2, B * nW, nH, N), hi and lo, as
+// mmde_window_attention_slab_fwd_stats writes it (F3); delta (B * nW, nH, N)
+// in that window order, dls_part
 // (B * nW * ceil(N / 64), nH); a mask (nW, N, N) holds one row per window of
 // an image (nW = (Hp/ws) * (Wp/ws)). dbias_mode 0 or 1 (atomics); the other
 // arguments as for mmde_window_attention_bwd.

@@ -1,7 +1,7 @@
 // Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
 // (sm_90a, bf16 mma.sync), for bf16 q, k, v and g: in the packed layout at
-// one window per block or W (the _w kernels, below), and on head-split
-// operands.
+// one window per block or W (the _w kernels, below), on head-split
+// operands, and on the slab path's (B, Hp, Wp, 3C) map.
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
 // by _pallas_backward) for every bf16 launch, at w = 1 and with w > 1 (K5,
@@ -10,7 +10,14 @@
 // mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7, driven by
 // _pallas_backward) for every bf16 head-split launch, in its function (mode
 // fp32, fp32 bias and mask tiles): dq, dk, dv into contiguous (B_, nH, N,
-// 32), dlogit_scale, dbias by the same atomics. Under
+// 32), dlogit_scale, dbias by the same atomics; and
+// mmde_tpu/ops/window_attention_slab.py::_bwd_body (K9, driven by
+// _pallas_backward) for every bf16 slab launch, in the same function: dqkv
+// written into the (B, Hp, Wp, 3C) map in place, dbias summed over windows
+// by the same atomics (the TPU kernel's resident fp32 block). The two
+// passes are templates over the operands' layout (Rows; MapRows for the
+// slab entry, window_attention_common.cuh), every row address L::head(b, h)
+// + L::off(r) (the map's tile loads through TileRows' shared table). Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
 // delta written here. window_attention_bwd.cu keeps K2's fp32-FMA body for
@@ -81,20 +88,24 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
 // ---------------------------------------------------------------------------
 // dq and delta: one block per (query tile, head, window)
 // ---------------------------------------------------------------------------
-template <typename TB, int MXU>
+// L: the operands' layout (Rows; MapRows for the slab entry)
+template <template <typename> class L, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-                 Rows<const bf16> g, const float* __restrict__ logit_scale,
+bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
+                 L<const bf16> g, const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
-                 const float* __restrict__ lse, Rows<bf16> dq,
+                 const float* __restrict__ lse, L<bf16> dq,
                  float* __restrict__ delta, int N, int nW) {
   __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
   __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
+  // MapRows: the stages' tile tables (TileRows), K and V rows' pixels
+  __shared__ int sTab[2][TC_BT];
   // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
+  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -110,14 +121,23 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
   const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
+  auto fill = [&](int s) {      // step s's tile table -> stage s & 1
+    if (s < steps)
+      TileRows<L<const bf16>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
+  };
   auto issue = [&](int s) {     // step s's K, V, bias, mask -> stage s & 1
     const int st = s & 1, kn = (s % nt) * TC_BT;
-    load_tile(sK[st], k_bh, k, kn, N, tid);
-    load_tile(sV[st], v_bh, v, kn, N, tid);
+    load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
+    load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
   };
+  if constexpr (TAB) {
+    fill(0);
+    fill(1);
+    __syncthreads();
+  }
   issue(0);
 
   const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
@@ -164,6 +184,8 @@ bwd_dq_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
     __syncthreads();
     if (step + 1 < steps && bt.fold()) issue(step + 1);
+    // stage st's table is free again (see fwd_tc_kernel)
+    if constexpr (TAB) fill(step + 2);
 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -297,14 +319,14 @@ __device__ __forceinline__ float pick4(const float* x, int i) {
 // dk, dv, dlogit_scale partials, dbias: one block per (key tile, head,
 // window)
 // ---------------------------------------------------------------------------
-template <typename TB, int MXU>
+template <template <typename> class L, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-                  Rows<const bf16> g, const float* __restrict__ logit_scale,
+bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
+                  L<const bf16> g, const float* __restrict__ logit_scale,
                   const TB* __restrict__ bias, const TB* __restrict__ mask,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, Rows<bf16> dk,
-                  Rows<bf16> dv, double* __restrict__ dls_part,
+                  const float* __restrict__ delta, L<bf16> dk,
+                  L<bf16> dv, double* __restrict__ dls_part,
                   float* __restrict__ dbias, int N, int nW) {
   __shared__ __align__(128) bf16 sQ[2][TC_BT * TC_LD];
   __shared__ __align__(128) bf16 sG[2][TC_BT * TC_LD];
@@ -312,10 +334,13 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   __shared__ float sLse[2][TC_BT];
   __shared__ float sDl[2][TC_BT];
   __shared__ double sRed[4];
+  // MapRows: the stages' tile tables (TileRows), Q and G rows' pixels
+  __shared__ int sTab[2][TC_BT];
   // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
+  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int k0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -333,11 +358,16 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
   const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
+  // query tile it's table (MapRows) -> stage it & 1
+  auto fill = [&](int it) {
+    if (it < nt)
+      TileRows<L<const bf16>>::fill(sTab[it & 1], q, it * TC_BT, tid);
+  };
   // query tile q0's Q, G, lse, delta, bias and mask (rows: queries, cols:
   // this block's keys) -> stage st
   auto load = [&](int st, int q0) {
-    load_tile(sQ[st], q_bh, q, q0, N, tid);
-    load_tile(sG[st], g_bh, g, q0, N, tid);
+    load_tile(sQ[st], q_bh, q, sTab[st], q0, N, tid);
+    load_tile(sG[st], g_bh, g, sTab[st], q0, N, tid);
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, true);
     const int j = tid & (TC_BT - 1);
@@ -346,6 +376,11 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     cp_async4(tid < TC_BT ? &sLse[st][j] : &sDl[st][j], src, ok);
     cp_async_commit();
   };
+  if constexpr (TAB) {
+    fill(0);
+    fill(1);
+    __syncthreads();
+  }
   load(0, 0);
 
   const int r0 = k0 + warp * 16 + (lane >> 2), r1 = r0 + 8;   // keys
@@ -384,6 +419,8 @@ bwd_dkv_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     tile_norms<RB>(sQ[st], sRq[st], scale, tid);
     __syncthreads();
     if (it + 1 < nt && bt.fold()) load(st ^ 1, q0 + TC_BT);
+    // stage st's table is free again (see fwd_tc_kernel)
+    if constexpr (TAB) fill(it + 2);
 
     float dls_t = 0.0f;
 #pragma unroll
@@ -1088,9 +1125,10 @@ int w_bwd_bytes(bool masked, int W, bool dkv) {
 }
 
 // The operands' (window, head, token) layout, on the host.
+template <template <typename> class L>
 struct Operands {
-  Rows<const bf16> q, k, v, g;
-  Rows<bf16> dq, dk, dv;
+  L<const bf16> q, k, v, g;
+  L<bf16> dq, dk, dv;
   bool aligned() const {
     return rows_aligned(q) && rows_aligned(k) && rows_aligned(v) &&
            rows_aligned(g) && rows_aligned(dq) && rows_aligned(dk) &&
@@ -1098,30 +1136,31 @@ struct Operands {
   }
 };
 
-// The two passes on operands already described as Rows (any (window, head,
-// token) strides, rows 16-byte aligned); -1 where a row is not.
-template <typename TB, int MXU>
-int launch(const Operands& o, const void* ls, const void* bias,
+// The two passes on operands already described in layout L (Rows: any
+// (window, head, token) strides; MapRows: windows of a map), rows 16-byte
+// aligned; -1 where a row is not.
+template <template <typename> class L, typename TB, int MXU>
+int launch(const Operands<L>& o, const void* ls, const void* bias,
            const void* mask, const void* lse, void* delta, void* dls_part,
            void* dbias, int B_, int N, int nH, int nW, cudaStream_t stream) {
   if (!o.aligned()) return -1;
   const int smem = bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_tc_kernel<TB, MXU>,
+      bwd_dq_tc_kernel<L, TB, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<TB, MXU>,
+  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<L, TB, MXU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  bwd_dq_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  bwd_dq_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  bwd_dkv_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
       (double*)dls_part, (float*)dbias, N, nW);
@@ -1135,7 +1174,7 @@ int launch_packed(const void* qkv, const void* g, const void* ls,
                   void* dqkv, void* delta, void* dls_part, void* dbias,
                   int B_, int N, int nH, int nW, cudaStream_t stream) {
   const int C = nH * TC_DH;
-  Operands o;
+  Operands<Rows> o;
   o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
   o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
   o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
@@ -1143,8 +1182,8 @@ int launch_packed(const void* qkv, const void* g, const void* ls,
   o.dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
   o.dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
   o.dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
-  return launch<TB, MXU>(o, ls, bias, mask, lse, delta, dls_part, dbias, B_,
-                         N, nH, nW, stream);
+  return launch<Rows, TB, MXU>(o, ls, bias, mask, lse, delta, dls_part,
+                               dbias, B_, N, nH, nW, stream);
 }
 
 // K5's two passes on the packed layout, W windows per block
@@ -1155,7 +1194,7 @@ int launch_packed_w(const void* qkv, const void* g, const void* ls,
                     int B_, int N, int nH, int nW, int W,
                     cudaStream_t stream) {
   const int C = nH * TC_DH;
-  Operands o;
+  Operands<Rows> o;
   o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
   o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
   o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
@@ -1290,7 +1329,7 @@ extern "C" int mmde_window_attention_headsplit_bwd_tc(
   if (strides == nullptr || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
     return -1;
   const long long* st = (const long long*)strides;
-  Operands o;
+  Operands<Rows> o;
   o.q = {(const bf16*)q, st[0], st[1], st[2]};
   o.k = {(const bf16*)k, st[3], st[4], st[5]};
   o.v = {(const bf16*)v, st[6], st[7], st[8]};
@@ -1301,8 +1340,55 @@ extern "C" int mmde_window_attention_headsplit_bwd_tc(
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<bf16, MXU_FP32>(o, logit_scale, bias, mask, lse, delta,
-                                  dls_part, db, B_, N, nH, nW, s);
-  return launch<float, MXU_FP32>(o, logit_scale, bias, mask, lse, delta,
-                                 dls_part, db, B_, N, nH, nW, s);
+    return launch<Rows, bf16, MXU_FP32>(o, logit_scale, bias, mask, lse,
+                                        delta, dls_part, db, B_, N, nH, nW, s);
+  return launch<Rows, float, MXU_FP32>(o, logit_scale, bias, mask, lse,
+                                       delta, dls_part, db, B_, N, nH, nW, s);
+}
+
+// Slab entry (K9's counterpart on the tensor cores): qkv (B, Hp, Wp, 3C),
+// g (B, Hp, Wp, C) and dqkv (B, Hp, Wp, 3C) bf16 maps, Hp and Wp multiples
+// of ws; the B * (Hp/ws) * (Wp/ws) windows image-major and row-major, N =
+// ws*ws, every token row read and written in place (MapRows). bias and mask
+// (one row per window of an image) bf16 when bias_bf16, else fp32. The TPU
+// kernel's function (mode MXU_FP32); lse (B * nW, nH, N) from
+// mmde_window_attention_slab_fwd_tc; delta (B * nW, nH, N) fp32 and
+// dls_part (B * nW * ceil(N / 64), nH) fp64 written (the caller sums
+// dls_part over its first axis); dbias (nH, N, N) fp32 receives dbias
+// summed over the windows by 16-byte vector atomics when dbias_mode = 1
+// (the caller zeroes it first), none when 0. Returns the first CUDA error of
+// the two launches, or -1 for arguments the kernels do not take (as
+// mmde_window_attention_slab_fwd_tc). Launches on `stream`, does not
+// synchronise, allocates nothing.
+extern "C" int mmde_window_attention_slab_bwd_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, void* dqkv,
+    void* delta, void* dls_part, void* dbias, int B, int Hp, int Wp, int C,
+    int nH, int ws, int bias_bf16, int dbias_mode, void* stream) {
+  if (C != nH * TC_DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
+      Hp % ws != 0 || Wp % ws != 0)
+    return -1;
+  const long long N = (long long)ws * ws;
+  const long long nW = (long long)(Hp / ws) * (Wp / ws);
+  if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
+  if ((long long)ws * Wp >= (1ll << 31)) return -1;   // MapRows::pix
+  const int B_ = (int)(B * nW);
+  if (!shape_ok(B_, (int)N, nH, (int)nW, mask, dbias_mode, dbias)) return -1;
+  Operands<MapRows> o;
+  o.q = map_rows((const bf16*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH);
+  o.k = map_rows((const bf16*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH);
+  o.v = map_rows((const bf16*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  o.g = map_rows((const bf16*)g, 0, C, 1, Hp, Wp, ws, TC_DH);
+  o.dq = map_rows((bf16*)dqkv, 0, C, 3, Hp, Wp, ws, TC_DH);
+  o.dk = map_rows((bf16*)dqkv, 1, C, 3, Hp, Wp, ws, TC_DH);
+  o.dv = map_rows((bf16*)dqkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  void* db = dbias_mode == 1 ? dbias : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bias_bf16)
+    return launch<MapRows, bf16, MXU_FP32>(o, logit_scale, bias, mask, lse,
+                                           delta, dls_part, db, B_, (int)N,
+                                           nH, (int)nW, s);
+  return launch<MapRows, float, MXU_FP32>(o, logit_scale, bias, mask, lse,
+                                          delta, dls_part, db, B_, (int)N, nH,
+                                          (int)nW, s);
 }

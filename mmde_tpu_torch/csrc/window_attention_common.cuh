@@ -52,6 +52,7 @@ struct MapRows {
   T* p;                    // map base + part*C
   long long s, rs, si, sh; // element strides of pixel, map row, image, head
   int ws, nww, nW;         // window edge; windows per window row, per image
+  int wp;                  // pixels per map row (rs / s)
   unsigned long long inv_ws;
   __device__ __forceinline__ T* head(int b, int h) const {
     const int img = b / nW, w = b - img * nW;
@@ -62,6 +63,12 @@ struct MapRows {
   __device__ __forceinline__ size_t off(int r) const {
     const int t = (int)(((unsigned long long)r * inv_ws) >> 32);
     return (size_t)t * rs + (size_t)(r - t * ws) * s;
+  }
+  // token r's pixel from the window's corner, off(r) = pix(r) * s (the
+  // tensor-core kernels' tile tables; the entries check ws * Wp < 2^31)
+  __device__ __forceinline__ int pix(int r) const {
+    const int t = (int)(((unsigned long long)r * inv_ws) >> 32);
+    return t * wp + (r - t * ws);
   }
 };
 
@@ -91,6 +98,7 @@ MapRows<T> map_rows(T* base, int part, int C, int parts, int Hp, int Wp,
   m.ws = ws;
   m.nww = Wp / ws;
   m.nW = (Hp / ws) * m.nww;
+  m.wp = Wp;
   m.inv_ws = ((1ull << 32) + ws - 1) / ws;
   return m;
 }

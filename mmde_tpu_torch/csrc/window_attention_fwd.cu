@@ -339,9 +339,9 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
 
   // the statistic the backward kernel rebuilds p from, for either softmax
   // form: p = exp(s - lse), lse = shift-or-maximum + log(row sum). With
-  // lse_lo (the head-split entries, F3) m + log(l) is formed in fp64 and
-  // kept as fp32 hi + lo, so that p = exp((s - hi) - lo) carries no rounding
-  // of lse ~ 60 into a whole row.
+  // lse_lo (the head-split and slab entries, F3) m + log(l) is formed in
+  // fp64 and kept as fp32 hi + lo, so that p = exp((s - hi) - lo) carries
+  // no rounding of lse ~ 60 into a whole row.
   if (lse != nullptr && tid < BQ && q0 + tid < N) {
     const size_t i = ((size_t)b * gridDim.y + h) * N + q0 + tid;
     if (lse_lo == nullptr) {
@@ -691,20 +691,21 @@ int launch_layout(Layout layout, const void* q, const void* k,
         maxfree, stream);
   if constexpr (MXU != MXU_FP32) {
     return -1;
-  } else if (layout == MAP) {
-    const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
-    return launch<MapRows, T, TB, FASTEXP, MXU>(
-        map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH),
-        map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH),
-        map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH), ls, bias, mask,
-        map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, nullptr, B_, N, nH,
-        nW, maxfree, stream);
   } else {
+    // F3: the head-split and slab entries' lse is (2, B_, nH, N), hi then lo
+    float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
+    if (layout == MAP) {
+      const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
+      return launch<MapRows, T, TB, FASTEXP, MXU>(
+          map_rows((const T*)q, 0, C, 3, Hp, Wp, ws, DH),
+          map_rows((const T*)q, 1, C, 3, Hp, Wp, ws, DH),
+          map_rows((const T*)q, 2, C, 3, Hp, Wp, ws, DH), ls, bias, mask,
+          map_rows((T*)out, 0, C, 1, Hp, Wp, ws, DH), lse, lo, B_, N, nH, nW,
+          maxfree, stream);
+    }
     const Rows<const T> rq = {(const T*)q, st[0], st[1], st[2]};
     const Rows<const T> rk = {(const T*)k, st[3], st[4], st[5]};
     const Rows<const T> rv = {(const T*)v, st[6], st[7], st[8]};
-    // F3: lse is (2, B_, nH, N), hi then lo
-    float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
     return launch<Rows, T, TB, FASTEXP, MXU>(
         rq, rk, rv, ls, bias, mask, contiguous_rows((T*)out, nH, N, DH), lse,
         lo, B_, N, nH, nW, maxfree, stream);
@@ -805,9 +806,13 @@ extern "C" int mmde_window_attention_headsplit_fwd(
 // Hp and Wp multiples of ws; out is a (B, Hp, Wp, C) map of its type. The
 // kernels' windows are the B * (Hp/ws) * (Wp/ws) windows of the map, image-
 // major and row-major, N = ws*ws tokens each; `lse` (when not null) is
-// (B * nW, nH, N) in that window order, and a mask (nW, N, N) must hold one
-// row per window of an image (nW = (Hp/ws) * (Wp/ws)). Row maximum for
-// every head. The other arguments as for mmde_window_attention_fwd_stats.
+// (2, B * nW, nH, N) in that window order, each row's log-sum-exp as hi and
+// lo (F3), which mmde_window_attention_slab_bwd reads; a mask (nW, N, N)
+// must hold one row per window of an image (nW = (Hp/ws) * (Wp/ws)). Row
+// maximum for every head. The other arguments as for
+// mmde_window_attention_fwd_stats. bf16 maps run the tensor-core entry
+// (mmde_window_attention_slab_fwd_tc, window_attention_fwd_tc.cu); these
+// serve fp32 maps and are its same-card comparison.
 extern "C" int mmde_window_attention_slab_fwd_stats(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B, int Hp, int Wp, int C,

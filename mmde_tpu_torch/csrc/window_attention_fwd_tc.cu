@@ -1,8 +1,9 @@
 // Fused SwinV2 cosine window attention, forward, on Hopper's tensor cores
 // (sm_90a, bf16 mma.sync), for bf16 q, k, v: in the packed layout (qkv as
 // the Linear emits it, (B_, N, 3C); out (B_, N, C)) at one window per block
-// or W (fwd_tc_w_kernel, below), and on head-split operands (any (B_, nH,
-// N, 32) strides; out contiguous).
+// or W (fwd_tc_w_kernel, below), on head-split operands (any (B_, nH, N,
+// 32) strides; out contiguous), and on the slab path's (B, Hp, Wp, 3C) map
+// (windows read in place, out the (B, Hp, Wp, C) map).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
 // _pallas_forward) for every bf16 launch at w = 1 - the flagship's and
@@ -10,8 +11,17 @@
 // MMDE_ATTN_W), in all three precision modes; and
 // mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven by
 // _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
-// swin_tiny / swin_huge stages 1-2), in that kernel's function (mode fp32,
-// the row maximum for every head, fp32 bias and mask tiles).
+// swin_tiny / swin_huge stages 1-2), and
+// mmde_tpu/ops/window_attention_slab.py::_fwd_body (K8, driven by
+// _pallas_forward) for every bf16 slab launch (attn_impl "pallas_slab"), in
+// those kernels' function (mode fp32, the row maximum for every head, fp32
+// bias and mask tiles). fwd_tc_kernel is a template over the operands'
+// layout (window_attention_common.cuh): Rows for the packed and head-split
+// entries, MapRows for the slab entry, whose token rows sit at
+// (wi*ws + r/ws, wj*ws + r%ws) of the map; every row address goes through
+// L::head(b, h) + L::off(r) (the map's tile loads through a shared table of
+// the tile's pixels, TileRows in window_attention_tc.cuh), so the
+// arithmetic is the same.
 // window_attention_fwd.cu keeps the fp32-FMA body for fp32 q, k, v and as
 // the same-card A/B partner; the function, the softmax forms and the
 // log-sum-exp handed to the backward are the same.
@@ -67,20 +77,24 @@
 
 namespace {
 
-template <typename TB, int MXU>
+// L: the operands' layout (Rows; MapRows for the slab entry)
+template <template <typename> class L, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
               const float* __restrict__ logit_scale,
               const TB* __restrict__ bias, const TB* __restrict__ mask,
-              Rows<bf16> out, float* __restrict__ lse, int N, int nW,
+              L<bf16> out, float* __restrict__ lse, int N, int nW,
               int maxfree) {
   __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
   __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
+  // MapRows: the stages' tile tables (TileRows), K and V rows' pixels
+  __shared__ int sTab[2][TC_BT];
   // the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
+  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -102,16 +116,27 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
   const BiasTiles<TB> bt{sBM, mask_w != nullptr};
 
+  // step `s`'s tile table (MapRows) into stage s & 1
+  auto fill = [&](int s) {
+    if (s < steps)
+      TileRows<L<const bf16>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
+  };
   // step `s`'s K (and V, outside the bf16 mode's first sweep), bias and
   // mask tiles into stage s & 1
   auto issue = [&](int s) {
     const int st = s & 1, kn = (s % nt) * TC_BT;
-    load_tile(sK[st], k_bh, k, kn, N, tid);
-    if (!(max_first && s < nt)) load_tile(sV[st], v_bh, v, kn, N, tid);
+    load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
+    if (!(max_first && s < nt))
+      load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
   };
+  if constexpr (TAB) {
+    fill(0);
+    fill(1);
+    __syncthreads();
+  }
   issue(0);
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
@@ -151,6 +176,9 @@ fwd_tc_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
     __syncthreads();
     if (step + 1 < steps && bt.fold()) issue(step + 1);
+    // stage st's table is free again (issue(step) read it before this
+    // step's first barrier); issue(step + 2) reads it after the next one
+    if constexpr (TAB) fill(step + 2);
 
     // ---- S = q k^T (raw or rounded operands), the epilogue ----
     float s[8][4];
@@ -551,11 +579,12 @@ int w_fwd_bytes(bool masked, int W) {
          W * (4 * 4 * 32 + 4 * 32) * 16;
 }
 
-// The launch on operands already described as Rows (any (window, head,
-// token) strides, rows 16-byte aligned); -1 where a row is not.
-template <typename TB, int MXU>
-int launch(const Rows<const bf16>& rq, const Rows<const bf16>& rk,
-           const Rows<const bf16>& rv, const Rows<bf16>& ro, const void* ls,
+// The launch on operands already described in layout L (Rows: any
+// (window, head, token) strides; MapRows: windows of a map), rows 16-byte
+// aligned; -1 where a row is not.
+template <template <typename> class L, typename TB, int MXU>
+int launch(const L<const bf16>& rq, const L<const bf16>& rk,
+           const L<const bf16>& rv, const L<bf16>& ro, const void* ls,
            const void* bias, const void* mask, void* lse, int B_, int N,
            int nH, int nW, int maxfree, cudaStream_t stream) {
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
@@ -563,11 +592,11 @@ int launch(const Rows<const bf16>& rq, const Rows<const bf16>& rk,
     return -1;
   const int smem = bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc_kernel<TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_tc_kernel<L, TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  fwd_tc_kernel<TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  fwd_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree);
   return (int)cudaGetLastError();
@@ -579,11 +608,12 @@ int launch_packed(const void* qkv, const void* ls, const void* bias,
                   const void* mask, void* out, void* lse, int B_, int N,
                   int nH, int nW, int maxfree, cudaStream_t stream) {
   const int C = nH * TC_DH;
-  return launch<TB, MXU>(packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH),
-                         packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH),
-                         packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH),
-                         packed_rows((bf16*)out, 0, N, C, 1, TC_DH), ls, bias,
-                         mask, lse, B_, N, nH, nW, maxfree, stream);
+  return launch<Rows, TB, MXU>(
+      packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH),
+      packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH),
+      packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH),
+      packed_rows((bf16*)out, 0, N, C, 1, TC_DH), ls, bias, mask, lse, B_, N,
+      nH, nW, maxfree, stream);
 }
 
 // K5 on the packed layout: W windows per block
@@ -696,8 +726,56 @@ extern "C" int mmde_window_attention_headsplit_fwd_tc(
   const Rows<bf16> ro = contiguous_rows((bf16*)out, nH, N, TC_DH);
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias, mask,
-                                  lse, B_, N, nH, nW, 0, s);
-  return launch<float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias, mask,
-                                 lse, B_, N, nH, nW, 0, s);
+    return launch<Rows, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
+                                        mask, lse, B_, N, nH, nW, 0, s);
+  return launch<Rows, float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
+                                       mask, lse, B_, N, nH, nW, 0, s);
+}
+
+// Slab entry (K8's counterpart on the tensor cores): qkv the bf16
+// (B, Hp, Wp, 3C) map the qkv Linear emits on the padded (and, in a shifted
+// block, rolled) feature map, Hp and Wp multiples of ws; out the bf16
+// (B, Hp, Wp, C) map. The kernel's windows are the B * (Hp/ws) * (Wp/ws)
+// windows of the map, image-major and row-major (window_partition's order),
+// N = ws*ws tokens each, every token row read and written in place
+// (MapRows): no partition before the kernel, no reverse after it. bias
+// (nH, N, N) and mask (nW, N, N; may be null; one row per window of an
+// image, nW = (Hp/ws) * (Wp/ws)) bf16 when bias_bf16, else fp32 (the model
+// streams them in fp32). The TPU kernel's function: mode MXU_FP32, the
+// running row maximum for every head (maxfree 0). `lse` (B * nW, nH, N)
+// fp32 when not null (training), one number a row in that window order, as
+// mmde_window_attention_fwd_tc writes it; null serves. Returns
+// cudaGetLastError() of the launch, or -1 for arguments the kernel does not
+// take (a map that is not whole windows, N * ws >= 2^32 for MapRows'
+// multiply-shift, ws * Wp >= 2^31 for its pixel index, more than 65535
+// windows, a row that is not 16-byte aligned). Launches on `stream`, does
+// not synchronise, allocates nothing.
+extern "C" int mmde_window_attention_slab_fwd_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, void* out, void* lse, int B, int Hp, int Wp, int C,
+    int nH, int ws, int bias_bf16, void* stream) {
+  if (C != nH * TC_DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
+      Hp % ws != 0 || Wp % ws != 0)
+    return -1;
+  const long long N = (long long)ws * ws;
+  const long long nW = (long long)(Hp / ws) * (Wp / ws);
+  if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
+  if ((long long)ws * Wp >= (1ll << 31)) return -1;   // MapRows::pix
+  const int B_ = (int)(B * nW);
+  if (!shape_ok(B_, (int)N, nH, (int)nW, mask)) return -1;
+  const MapRows<const bf16> rq =
+      map_rows((const bf16*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH);
+  const MapRows<const bf16> rk =
+      map_rows((const bf16*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH);
+  const MapRows<const bf16> rv =
+      map_rows((const bf16*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  const MapRows<bf16> ro = map_rows((bf16*)out, 0, C, 1, Hp, Wp, ws, TC_DH);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bias_bf16)
+    return launch<MapRows, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
+                                           mask, lse, B_, (int)N, nH,
+                                           (int)nW, 0, s);
+  return launch<MapRows, float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
+                                          mask, lse, B_, (int)N, nH, (int)nW,
+                                          0, s);
 }

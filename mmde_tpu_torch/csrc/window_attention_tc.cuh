@@ -65,6 +65,49 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* base,
   }
 }
 
+// The same, with the tile's row offsets from `tab`: for Rows they are
+// computed where loaded (tab unused, the code above); for MapRows a row
+// address is a multiply-shift (r / ws) and two 64-bit products, and a block
+// loads two tiles at the same token rows (K and V; Q and G), so the block
+// computes each 64-row tile's pixels once, a thread a row, into a shared
+// table (TileRows::fill) that both loads read: off(r) = tab[r] * s.
+template <class L>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* base,
+                                          const L& rows, const int* tab,
+                                          int r0, int N, int tid) {
+  load_tile(s, base, rows, r0, N, tid);
+}
+template <typename T>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* base,
+                                          const MapRows<T>& rows,
+                                          const int* tab, int r0, int N,
+                                          int tid) {
+#pragma unroll
+  for (int e = tid; e < TC_BT * 4; e += TC_NT) {
+    const int r = e >> 2, c = e & 3;
+    const bool ok = r0 + r < N;
+    cp_async16(s + r * TC_LD + c * 8,
+               base + (ok ? (size_t)tab[r] * rows.s : 0) + c * 8, ok);
+  }
+}
+
+// Whether layout L loads its tiles through a table, and the block's fill of
+// the table for the 64-row tile at r0 (the first 64 threads, a row each;
+// no barrier: the caller orders it before the loads that read it).
+template <class L>
+struct TileRows {
+  static constexpr bool kTable = false;
+  __device__ static void fill(int*, const L&, int, int) {}
+};
+template <typename T>
+struct TileRows<MapRows<T>> {
+  static constexpr bool kTable = true;
+  __device__ static void fill(int* tab, const MapRows<T>& x, int r0,
+                              int tid) {
+    if (tid < TC_BT) tab[tid] = x.pix(r0 + tid);
+  }
+};
+
 // four 8x8 bf16 matrices; lanes 8m .. 8m+7 give matrix m's row addresses
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(

@@ -10,23 +10,35 @@ map, the per-head log temperature, the relative-position bias as plain
 no reverse after it. The TPU package's head-group bias packing
 (`pack_rpe_bias_slab`) is TPU tiling and has no counterpart here.
 
-The CUDA kernels are the packed kernels' bodies (csrc/window_attention_fwd.cu,
-csrc/window_attention_bwd.cu) reached through slab entry points that address
-each window's token rows in the map (`MapRows`,
+The CUDA kernels are the packed kernels' bodies reached through slab entry
+points that address each window's token rows in the map (`MapRows`,
 csrc/window_attention_common.cuh); on a GPU the map layout is only another
 address per row, where the TPU kernel needed static sublane slices and
-in-kernel reshapes. As the TPU kernel, the forward keeps a running row
-maximum for every head (no max-free softmax) and takes bias and mask in
+in-kernel reshapes. Which body runs follows the map's type, nothing else
+(the packed module's `tensor_core_body`): a bf16 map runs the tensor-core
+kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, the
+entries `mmde_window_attention_slab_{fwd,bwd}_tc`; counted as
+window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc), an fp32
+map the fp32-FMA bodies (csrc/window_attention_fwd.cu,
+csrc/window_attention_bwd.cu; window_attention_slab_fwd[+lse] /
+window_attention_slab_bwd). As the TPU kernel, the forward keeps a running
+row maximum for every head (no max-free softmax) and takes bias and mask in
 float32 whatever the model's type; the backward sums dbias over windows in
 fp32 (by atomics here, in the resident output block there), gives
 `dlogit_scale` zero where the ln(100) clamp binds and the mask no gradient.
+
+The log-sum-exp the backward rebuilds p from is what its own forward
+wrote: the tensor-core forward one fp32 number a row, (B*nW, nH, N); the
+FMA forward two, (2, B*nW, nH, N), the row's m + log(l) formed in fp64 and
+kept as fp32 hi + lo (fault F3, as the head-split module's FMA path). A
+backward handed the other body's statistic raises.
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_slab_plain` and, under autograd,
 `cosine_window_attention_slab_backward_plain` - the window partition, the
 head-split module's plain function, and the reverse - which are also what the
-kernels are compared with on the card. `LAUNCHES` / `LAUNCHES_BWD` count
-kernel launches, and nothing else.
+kernels are compared with on the card. `LAUNCHES*` count kernel launches,
+and nothing else.
 """
 from __future__ import annotations
 
@@ -43,6 +55,11 @@ LAUNCHES = 0            # incremented once per forward-kernel launch
 LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B*nW, N, C, nH)
 LAUNCHES_BWD = 0        # incremented once per backward launch (both passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
+# every launch above, keyed by (kernel, (B*nW, N, C, nH)); kernel names:
+# window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc (bf16,
+# the tensor cores), window_attention_slab_fwd[+lse] /
+# window_attention_slab_bwd (the fp32-FMA body)
+LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # qkv, logit_scale, bias, mask, out [, lse]; B, Hp, Wp, C, nH, ws, qkv_bf16,
@@ -52,6 +69,10 @@ _FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 # qkv, logit_scale, bias, mask, lse, g, dqkv, delta, dls_part, dbias; B, Hp,
 # Wp, C, nH, ws, qkv_bf16, bias_bf16, dbias_mode; stream
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+# the tensor-core entries (bf16 only): as above without qkv_bf16, lse
+# nullable in the forward
+_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
 
 # The JAX package's slab test, copied (not imported) so both packages send
 # the same blocks to the slab kernel: None when C is not a multiple of 128,
@@ -95,21 +116,28 @@ def window_reverse(windows: torch.Tensor, ws: int, H: int,
     return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
 
 
-def _library(bwd: bool) -> ctypes.CDLL:
-    """The library the packed module builds (the same sources hold every
-    layout's entry points), with the slab entries' signatures set."""
+_ARGTYPES = {"mmde_window_attention_slab_fwd": _FWD_ARGTYPES,
+             "mmde_window_attention_slab_fwd_stats": _FWD_STATS_ARGTYPES,
+             "mmde_window_attention_slab_bwd": _BWD_ARGTYPES,
+             "mmde_window_attention_slab_fwd_tc": _FWD_TC_ARGTYPES,
+             "mmde_window_attention_slab_bwd_tc": _BWD_TC_ARGTYPES}
+
+
+def _entry(name: str) -> ctypes._CFuncPtr:
+    """A slab entry point of the libraries the packed module builds (the
+    same sources hold every layout's entry points), its signature set: the
+    tensor-core forward or backward library for the `_tc` entries, the
+    fp32-FMA ones otherwise."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    lib = wap._library_bwd() if bwd else wap._library()
-    entries = ((("mmde_window_attention_slab_bwd", _BWD_ARGTYPES),) if bwd
-               else (("mmde_window_attention_slab_fwd", _FWD_ARGTYPES),
-                     ("mmde_window_attention_slab_fwd_stats",
-                      _FWD_STATS_ARGTYPES)))
-    for name, types in entries:
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
-    return lib
+    if name.endswith("_tc"):
+        lib = wap._library_tc("bwd" in name)
+    else:
+        lib = wap._library_bwd() if "bwd" in name else wap._library()
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(qkv_map, logit_scale, bias, mask, num_heads, window_size):
@@ -205,63 +233,97 @@ def cosine_window_attention_slab_backward_plain(
     return dqkv, dls, dbias.to(bias.dtype)
 
 
-def _shape_args(qkv_map, bias, num_heads, window_size):
+def _shape_args(qkv_map, bias, num_heads, window_size, tc: bool):
+    """The entries' ints after the pointers: the map's geometry, then the
+    element types (qkv_bf16 only where the entry takes fp32 maps too)."""
     B, Hp, Wp, C3 = qkv_map.shape
-    return (B, Hp, Wp, C3 // 3, num_heads, window_size,
-            int(qkv_map.dtype == torch.bfloat16),
-            int(bias.dtype == torch.bfloat16))
+    types = (() if tc else (int(qkv_map.dtype == torch.bfloat16),)) + (
+        int(bias.dtype == torch.bfloat16),)
+    return (B, Hp, Wp, C3 // 3, num_heads, window_size) + types
 
 
-def _count(by_shape: dict, qkv_map, num_heads, window_size) -> None:
+def _count(kernel: str, by_shape: dict, qkv_map, num_heads,
+           window_size) -> None:
     B, Hp, Wp, C3 = qkv_map.shape
     ws = window_size
     key = (B * (Hp // ws) * (Wp // ws), ws * ws, C3 // 3, num_heads)
     by_shape[key] = by_shape.get(key, 0) + 1
+    LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
+        (kernel, key), 0) + 1
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} summed over shapes, since the counters were
+    last cleared."""
+    out: dict = {}
+    for (kernel, _), n in LAUNCHES_BY_KERNEL.items():
+        out[kernel] = out.get(kernel, 0) + n
+    return dict(sorted(out.items()))
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES, LAUNCHES_BWD
+    LAUNCHES = LAUNCHES_BWD = 0
+    for d in (LAUNCHES_BY_SHAPE, LAUNCHES_BWD_BY_SHAPE, LAUNCHES_BY_KERNEL):
+        d.clear()
+
+
+def _tc(qkv_map, _fma: bool) -> bool:
+    from mmde_tpu_torch.ops.window_attention_packed import tensor_core_body
+    return tensor_core_body(qkv_map.dtype) and not _fma
 
 
 def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
-                    want_stats):
-    """Launch the forward kernel; returns (out map, lse or None)."""
+                    want_stats, _fma=False):
+    """Launch the forward kernel; returns (out map, lse or None). A bf16 map
+    runs the tensor-core kernel (lse (B*nW, nH, N)), fp32 the FMA body (lse
+    (2, B*nW, nH, N), hi and lo); `_fma` (private: chip_smoke.py's same-card
+    comparison and tools/bench_attention.py, never the model) sends bf16 to
+    the FMA body too."""
     global LAUNCHES
+    from mmde_tpu_torch.ops.window_attention_packed import _stream
     B, Hp, Wp, C3 = qkv_map.shape
     ws = window_size
     if qkv_map.data_ptr() % 16:
         raise ValueError("qkv_map must be 16-byte aligned for the kernel's "
                          "vector loads")
-    lib = _library(bwd=False)
+    tc = _tc(qkv_map, _fma)
+    name = "mmde_window_attention_slab_fwd" + (
+        "_tc" if tc else "_stats" if want_stats else "")
+    fn = _entry(name)
     dev = qkv_map.device
     out = torch.empty((B, Hp, Wp, C3 // 3), dtype=qkv_map.dtype, device=dev)
     B_ = B * (Hp // ws) * (Wp // ws)
-    lse = (torch.empty((B_, num_heads, ws * ws), dtype=torch.float32,
+    lse = (torch.empty(((B_, num_heads, ws * ws) if tc else
+                        (2, B_, num_heads, ws * ws)), dtype=torch.float32,
                        device=dev) if want_stats else None)
-    mask_ptr = mask.data_ptr() if mask is not None else None
-    args = _shape_args(qkv_map, bias, num_heads, ws)
+    args = (qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr())
+    if tc or want_stats:    # the tensor-core entry's lse is nullable
+        args += (lse.data_ptr() if want_stats else None,)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if want_stats:
-            err = lib.mmde_window_attention_slab_fwd_stats(
-                qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                mask_ptr, out.data_ptr(), lse.data_ptr(), *args, stream)
-        else:
-            err = lib.mmde_window_attention_slab_fwd(
-                qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                mask_ptr, out.data_ptr(), *args, stream)
+        err = fn(*args, *_shape_args(qkv_map, bias, num_heads, ws, tc),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(
-            f"window_attention_slab_fwd launch failed with code {err} "
+            f"{name} launch failed with code {err} "
             f"(map {tuple(qkv_map.shape)}, nH={num_heads}, ws={ws}, "
             f"{qkv_map.dtype})")
     LAUNCHES += 1
-    _count(LAUNCHES_BY_SHAPE, qkv_map, num_heads, ws)
+    _count("window_attention_slab_fwd" + ("_tc" if tc else "")
+           + ("+lse" if want_stats else ""), LAUNCHES_BY_SHAPE, qkv_map,
+           num_heads, ws)
     return out, lse
 
 
 def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
-                     window_size, want_dbias):
+                     window_size, want_dbias, _fma=False):
     """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
-    or None)."""
+    or None). A bf16 map runs the tensor-core passes, fp32 (and bf16 with
+    the private `_fma`) the FMA body; `lse` must be what the same body's
+    forward wrote."""
     global LAUNCHES_BWD
-    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE
+    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE, _stream
     B, Hp, Wp, C3 = qkv_map.shape
     ws, nH, N = window_size, num_heads, window_size * window_size
     if g.dtype != qkv_map.dtype or tuple(g.shape) != (B, Hp, Wp, C3 // 3):
@@ -270,48 +332,63 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
     if qkv_map.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("qkv_map and g must be 16-byte aligned for the "
                          "kernel's vector loads")
-    lib = _library(bwd=True)
-    dev = qkv_map.device
     B_ = B * (Hp // ws) * (Wp // ws)
+    tc = _tc(qkv_map, _fma)
+    want_lse = (B_, nH, N) if tc else (2, B_, nH, N)
+    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
+        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
+                         f"reads a float32 {want_lse} log-sum-exp, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    name = "mmde_window_attention_slab_bwd" + ("_tc" if tc else "")
+    fn = _entry(name)
+    dev = qkv_map.device
     dqkv = torch.empty_like(qkv_map)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
+    # one fp64 partial of dlogit_scale per (window, 64-key tile, head): the
+    # dk/dv pass's tile is BWD_TILE rows in both bodies (TC_BT = 64)
     dls_part = torch.empty((B_ * -(-N // BWD_TILE), nH), dtype=torch.float64,
                            device=dev)
     # atomics add into dbias (the packed backward's default dbias mode)
     dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
              if want_dbias else None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mmde_window_attention_slab_bwd(
-            qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-            mask.data_ptr() if mask is not None else None, lse.data_ptr(),
-            g.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
-            dls_part.data_ptr(),
-            dbias.data_ptr() if dbias is not None else None,
-            *_shape_args(qkv_map, bias, nH, ws), int(want_dbias), stream)
+        err = fn(qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                 mask.data_ptr() if mask is not None else None,
+                 lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                 delta.data_ptr(), dls_part.data_ptr(),
+                 dbias.data_ptr() if dbias is not None else None,
+                 *_shape_args(qkv_map, bias, nH, ws, tc), int(want_dbias),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(
-            f"window_attention_slab_bwd launch failed with code {err} "
+            f"{name} launch failed with code {err} "
             f"(map {tuple(qkv_map.shape)}, nH={nH}, ws={ws}, "
             f"{qkv_map.dtype})")
     LAUNCHES_BWD += 1
-    _count(LAUNCHES_BWD_BY_SHAPE, qkv_map, nH, ws)
+    _count("window_attention_slab_bwd" + ("_tc" if tc else ""),
+           LAUNCHES_BWD_BY_SHAPE, qkv_map, nH, ws)
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
     return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
 
 
 class _SlabWindowAttention(torch.autograd.Function):
-    """K8 forward (saving each row's log-sum-exp) and K9 backward for CUDA
-    tensors; the plain forward and the plain backward for CPU tensors."""
+    """K8' forward (saving each row's log-sum-exp) and K9' backward for CUDA
+    tensors, on the tensor cores for bf16 and the FMA body for fp32 (and,
+    with the private `_fma`, for bf16: chip_smoke.py's same-card
+    comparison); the plain forward and the plain backward for CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, qkv_map, logit_scale, bias, mask, num_heads,
-                window_size):
+                window_size, _fma=False):
         ctx.num_heads, ctx.window_size = num_heads, window_size
+        # the backward takes the body its forward took: it reads that
+        # body's statistic
+        ctx.fma = _fma
         if qkv_map.is_cuda:
             out, lse = _launch_forward(qkv_map, logit_scale, bias, mask,
                                        num_heads, window_size,
-                                       want_stats=True)
+                                       want_stats=True, _fma=_fma)
         else:
             out = cosine_window_attention_slab_plain(
                 qkv_map, logit_scale, bias, mask, num_heads=num_heads,
@@ -328,14 +405,14 @@ class _SlabWindowAttention(torch.autograd.Function):
         if qkv_map.is_cuda:
             dqkv, dls, dbias = _launch_backward(
                 qkv_map, logit_scale, bias, mask, lse, g, ctx.num_heads,
-                ctx.window_size, want_dbias=need_bias)
+                ctx.window_size, want_dbias=need_bias, _fma=ctx.fma)
         else:
             dqkv, dls, dbias = cosine_window_attention_slab_backward_plain(
                 qkv_map, logit_scale, bias, mask, g, num_heads=ctx.num_heads,
                 window_size=ctx.window_size)
         # the mask is a constant of the window layout: no gradient
         return (dqkv if need_qkv else None, dls if need_ls else None,
-                dbias if need_bias else None, None, None, None)
+                dbias if need_bias else None, None, None, None, None)
 
 
 def cosine_window_attention_slab(qkv_map: torch.Tensor,
@@ -354,7 +431,8 @@ def cosine_window_attention_slab(qkv_map: torch.Tensor,
     window of an image in row-major window order. Returns (B, Hp, Wp, C) in
     qkv_map's type.
 
-    CUDA tensors launch the kernels (or raise); CPU tensors take the plain
+    CUDA tensors launch the kernels (or raise): a bf16 map the tensor-core
+    kernels, an fp32 map the fp32-FMA ones; CPU tensors take the plain
     versions. When a gradient is recorded the forward kernel also writes
     each row's log-sum-exp, which the backward kernel rebuilds the
     probabilities from; without one (serving) it writes the output alone.

@@ -14,7 +14,8 @@ the tree has the head-split kernels, swin_large_v2's stage 1 the same way
 (bf16 on the tensor cores and, where the tree has both, the FMA body beside
 it);
 and, where it has the slab kernels, the flagship's four stage maps through
-them (float32 bias and mask, as the slab path streams them). `--grid
+them (float32 bias and mask, as the slab path streams them; the FMA body
+beside the tensor-core one where the tree has both). `--grid
 bias_resident` adds the single-pass backward K4 (after the forward without
 log-sum-exp it follows) beside K2 at each train shape; `--windows-per-cell`
 adds the packed kernels at the W the JAX rule gives for that setting (K5
@@ -173,6 +174,10 @@ def bench_headsplit(shape, pairs, reps, gen) -> dict:
 
 
 def bench_slab(stage, pairs, reps, gen) -> dict:
+    """The slab kernels on the map (float32 bias and mask, as the slab path
+    streams them); where the tree has both bodies for bf16 (the private
+    `_fma`), also the FMA body beside the tensor-core one (`*_fma_ms`)."""
+    import inspect
     from mmde_tpu_torch.ops import window_attention_slab as was
     Hp, Wp, C, nH, ws, masked = stage
     B, N = 2 * pairs, ws * ws
@@ -182,17 +187,21 @@ def bench_slab(stage, pairs, reps, gen) -> dict:
     qkv, g = qkv.reshape(B, Hp, Wp, 3 * C), g.reshape(B, Hp, Wp, C)
     rec = {"kernel": "slab", "map": [B, Hp, Wp], "B_": B * nW, "N": N,
            "C": C, "nH": nH, "nW": nW if masked else 0}
-    if pairs == 1:
-        rec["fwd_ms"] = _time(lambda: was._launch_forward(
-            qkv, ls, bias, mask, nH, ws, False), reps)
-        return rec
-    rec["fwd_lse_ms"] = _time(lambda: was._launch_forward(
-        qkv, ls, bias, mask, nH, ws, True), reps)
-    lse = was._launch_forward(qkv, ls, bias, mask, nH, ws, True)[1]
-    rec["bwd_ms"] = _time(lambda: was._launch_backward(
-        qkv, ls, bias, mask, lse, g, nH, ws, True), reps)
-    rec["bwd_no_dbias_ms"] = _time(lambda: was._launch_backward(
-        qkv, ls, bias, mask, lse, g, nH, ws, False), reps)
+    bodies = {"": {}}
+    if "_fma" in inspect.signature(was._launch_forward).parameters:
+        bodies["_fma"] = {"_fma": True}
+    for sfx, kw in bodies.items():
+        if pairs == 1:
+            rec[f"fwd{sfx}_ms"] = _time(lambda: was._launch_forward(
+                qkv, ls, bias, mask, nH, ws, False, **kw), reps)
+            continue
+        rec[f"fwd_lse{sfx}_ms"] = _time(lambda: was._launch_forward(
+            qkv, ls, bias, mask, nH, ws, True, **kw), reps)
+        lse = was._launch_forward(qkv, ls, bias, mask, nH, ws, True, **kw)[1]
+        rec[f"bwd{sfx}_ms"] = _time(lambda: was._launch_backward(
+            qkv, ls, bias, mask, lse, g, nH, ws, True, **kw), reps)
+        rec[f"bwd_no_dbias{sfx}_ms"] = _time(lambda: was._launch_backward(
+            qkv, ls, bias, mask, lse, g, nH, ws, False, **kw), reps)
     return rec
 
 

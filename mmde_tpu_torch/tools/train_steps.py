@@ -131,9 +131,8 @@ def kernel_launches() -> Dict[str, int]:
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.ops import window_attention_slab as was
-    out = dict(wap.launch_counts(), **ths.launch_counts())
-    out["window_attention_slab_fwd"] = was.LAUNCHES
-    out["window_attention_slab_bwd"] = was.LAUNCHES_BWD
+    out = dict(wap.launch_counts(), **ths.launch_counts(),
+               **was.launch_counts())
     return {k: v for k, v in out.items() if v}
 
 

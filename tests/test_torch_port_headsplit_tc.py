@@ -417,8 +417,9 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     assert "MXU_FP32" in body and "MXU_FOLD" not in body
     assert "contiguous_rows" in body
     if "fwd" in entry:
-        # launch<TB, MXU_FP32>(..., maxfree = 0, stream)
-        assert re.findall(r"launch<(?:bf16|float), MXU_FP32>\([^;]*, 0, s\)",
+        # launch<Rows, TB, MXU_FP32>(..., maxfree = 0, stream)
+        assert re.findall(r"launch<Rows, (?:bf16|float), MXU_FP32>\([^;]*, 0, "
+                          r"s\)",
                           body, re.S)
     text = open(os.path.join(cuda_build.CSRC_DIR, src)).read()
     assert "rows_aligned(rq)" in text or "o.aligned()" in text
@@ -432,11 +433,11 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
 
 
 def test_fma_entries_hand_over_hi_and_lo():
-    """F3's remedy in the FMA sources: the head-split forward writes hi
-    and lo of each row's log-sum-exp (formed in fp64) into a (2, B_, nH, N)
-    buffer, the head-split backward reads the lo half and rebuilds p as
-    exp((s - hi) - lo); the packed and slab entries pass no lo, and their
-    backward kernels are instantiated without it."""
+    """F3's remedy in the FMA sources: the head-split and slab forwards
+    write hi and lo of each row's log-sum-exp (formed in fp64) into a
+    (2, B_, nH, N) buffer, their backwards read the lo half and rebuild p as
+    exp((s - hi) - lo); the packed entries pass no lo, and their backward
+    kernels are instantiated without it."""
     fwd = open(os.path.join(cuda_build.CSRC_DIR,
                             "window_attention_fwd.cu")).read()
     bwd = open(os.path.join(cuda_build.CSRC_DIR,
@@ -445,11 +446,14 @@ def test_fma_entries_hand_over_hi_and_lo():
     assert "(float*)lse + (size_t)B_ * nH * N" in fwd
     assert "(const float*)lse + (size_t)B_ * nH * N" in bwd
     assert "exp_<FASTEXP>(LO ? (v - lse) - lo : v - lse)" in bwd
-    assert len(re.findall(r"lse, nullptr, B_", fwd)) == 2   # packed, map
-    # the packed and slab backward kernels are built without the low part
+    assert len(re.findall(r"lse, nullptr, B_", fwd)) == 1   # packed
+    assert len(re.findall(r"lse,\s+lo, B_", fwd)) == 2     # map, strided
+    # only the packed backward kernels are built without the low part
     assert len(re.findall(r"launch<(?:Rows|MapRows), T, TB, FASTEXP, MXU, "
-                          r"false>", bwd)) == 2
+                          r"false>", bwd)) == 1
     assert len(re.findall(r"launch<Rows, T, TB, FASTEXP, MXU, true>",
+                          bwd)) == 1
+    assert len(re.findall(r"launch<MapRows, T, TB, FASTEXP, MXU, true>",
                           bwd)) == 1
 
 
