@@ -260,6 +260,9 @@ KERNEL_RESIDENT_TC_SOURCE = ("mmde_tpu_torch/csrc/"
 # N x N x 32 products the tensor-core K4 needs: S and dP in each of its two
 # sweeps, dq, dk and dv each on a split operand
 K4_TC_UNITS = 10.0
+# fp32 qkv: seven products of two operands in three bf16 pieces, six piece
+# products each (window_attention_tc.cuh)
+K4_FP32_TC_UNITS = 42.0
 KERNEL_RESIDENT_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:636 "
                             "(_bwd_body_v4; pallas_call :800)")
 # the two grid modes of K2 (K4 is "bias_resident", compared on its own)
@@ -438,10 +441,9 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
             rec.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                     rec["nW"], dtype, bias.dtype))
-            rec["library_ms"] = None
-            if dtype == torch.bfloat16:     # the served and trained type
-                rec.update(library_yardstick(*wap._split_heads(qkv, 3, nH),
-                                             ls, bias, mask))
+            # the yardstick in qkv's type (fp32: the FMA body's partner)
+            rec.update(library_yardstick(*wap._split_heads(qkv, 3, nH), ls,
+                                         bias, mask))
     return rec
 
 
@@ -595,11 +597,13 @@ def _float64_grads(qkv, ls, bias, mask, g, nH, mxu=None):
     return truth
 
 
-def _check_grads(got, plain, truth, name: str, what: str) -> dict:
+def _check_grads(got, plain, truth, name: str, what: str,
+                 clamped: bool = True) -> dict:
     """dqkv, dlogit_scale, dbias of a backward kernel against the plain
     backward and float64 autograd at TOL_BWD[name] (see _check_against)."""
     return _check_against(got, {"vs_plain": (plain, TOL_BWD[name]),
-                                "vs_float64": (truth, TOL_BWD[name])}, what)
+                                "vs_float64": (truth, TOL_BWD[name])}, what,
+                          clamped)
 
 
 def _case_head(shape, dtype, mask) -> dict:
@@ -671,14 +675,13 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
         fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                 rec["nW"], dtype, bias.dtype, stats=True))
-        fwd["library_ms"] = rec["library_ms"] = None
-        if dtype == torch.bfloat16:         # the trained type
-            lib = library_yardstick(
-                *wap._split_heads(qkv, 3, nH), ls, bias, mask,
-                g=wap._split_heads(g, 1, nH)[0])
-            fwd.update({k: v for k, v in lib.items() if k != "library_bwd_ms"})
-            rec.update({k: v for k, v in lib.items() if k != "library_ms"})
-            rec["library_ms"] = lib["library_bwd_ms"]
+        # the yardstick in qkv's type (fp32: the FMA body's partner)
+        lib = library_yardstick(
+            *wap._split_heads(qkv, 3, nH), ls, bias, mask,
+            g=wap._split_heads(g, 1, nH)[0])
+        fwd.update({k: v for k, v in lib.items() if k != "library_bwd_ms"})
+        rec.update({k: v for k, v in lib.items() if k != "library_ms"})
+        rec["library_ms"] = lib["library_bwd_ms"]
         # time the backward launch alone: forward once, backward repeatedly
         for grid_mode in WINDOW_GRID_MODES:
             out = wap.cosine_window_attention_packed(
@@ -811,6 +814,63 @@ def phase_kernels_backward(timed: bool = True) -> list:
                   "pass, dbias) of an autograd graph built once; 2 warm + 8 "
                   "launches, median"})
     return cases
+
+
+# F3 in the packed FMA body: dlogit_scale against float64 (rel-L2) with
+# every head at scale 60, where one rounding of a row's lse ~ 60 (half an
+# fp32 ulp, 2e-6) would scale the whole row's p (the head-split and slab
+# repairs measured 1.09e-5 / 5.2e-6)
+TOL_F3 = 2e-5
+
+
+def phase_f3_packed() -> dict:
+    """F3 in the packed FMA body: fp32 K1 (writing its statistic) and K2 at
+    W = 1 through the autograd Function, flagship stage 1 (2 frame pairs,
+    masked) with every head at scale 60: the statistic is (2, B_, nH, N), hi
+    + lo, and dlogit_scale lies within TOL_F3 of float64 autograd. Beside
+    it (`one_number`) the same backward on the one-number statistic the
+    packed body wrote before its repair, hi + lo rounded to one fp32 and lo
+    0 - at best that body's figure (its lse was m + logf(l) in fp32)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3131)
+    shape = stage_shapes(batch=2)[0]
+    dtype, nH = torch.float32, shape["nH"]
+    qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, True, gen)
+    ls[:] = math.log(60.0)
+    g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
+                    generator=gen)
+    rec = _case_head(shape, dtype, mask)
+    rec.update({"every_head_scale_60": True, "frame_pairs": 2, "W": 1,
+                "tolerance_dlogit_scale_rel_l2": TOL_F3})
+    leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+    before = dict(wap.LAUNCHES_BY_KERNEL)
+    out = wap.cosine_window_attention_packed(
+        leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
+        grid_mode="window_resident", windows_per_cell=1)
+    out.backward(g)
+    torch.cuda.synchronize()
+    _tc_launched(before, {"window_attention_fwd+lse": 1,
+                          "window_attention_bwd": 1}, "f3_packed")
+    truth = _float64_grads(qkv, ls, bias, mask, g, nH)
+    with torch.no_grad():
+        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+        one = torch.stack([(lse[0].double() + lse[1].double()).float(),
+                           torch.zeros_like(lse[1])])
+        old = wap._launch_backward(qkv, ls, bias, mask, one, g, nH,
+                                   "window_resident", True)
+    rec["statistic_shape"] = list(lse.shape)
+    rec["dlogit_scale"] = _errs(leaves[1].grad, truth[1])
+    rec["dqkv"] = _errs(leaves[0].grad, truth[0])
+    rec["one_number"] = {"dlogit_scale": _errs(old[1], truth[1]),
+                         "dqkv": _errs(old[0], truth[0])}
+    del truth, leaves, out, old
+    torch.cuda.empty_cache()
+    emit("f3_packed", rec)
+    if not (rec["statistic_shape"][0] == 2
+            and rec["dlogit_scale"]["rel_l2"] <= TOL_F3):
+        raise RuntimeError(f"f3_packed: {json.dumps(rec)}")
+    return rec
 
 
 def headsplit_shapes() -> list:
@@ -999,15 +1059,13 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
                     q, k, v, ls, bias, mask, g), reps=3, warm=1)
             del lse, lse_f
         rec.update(backward_bound(B_, N, C, nH, nW, dtype, torch.float32))
-        rec["library_ms"] = None
-        if tc:         # the served and trained type
-            lib = library_yardstick(q, k, v, ls, bias, mask, g=g)
-            for r in (fwd, fst):
-                r.update({k_: v_ for k_, v_ in lib.items()
-                          if k_ != "library_bwd_ms"})
-            rec.update({k_: v_ for k_, v_ in lib.items()
-                        if k_ != "library_ms"})
-            rec["library_ms"] = lib["library_bwd_ms"]
+        # the yardstick in q's type (fp32: the FMA body's partner)
+        lib = library_yardstick(q, k, v, ls, bias, mask, g=g)
+        for r in (fwd, fst):
+            r.update({k_: v_ for k_, v_ in lib.items()
+                      if k_ != "library_bwd_ms"})
+        rec.update({k_: v_ for k_, v_ in lib.items() if k_ != "library_ms"})
+        rec["library_ms"] = lib["library_bwd_ms"]
     torch.cuda.empty_cache()
     return rec
 
@@ -1966,10 +2024,11 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     return rec
 
 
-def _entry(name, shape, source, replaces, n, c, pairs=1) -> dict:
+def _entry(name, shape, source, replaces, n, c, pairs=1,
+           dtype="bf16") -> dict:
     where = (f"[{shape['model'].rsplit('_', 1)[0]} stage{shape['stage']} "
              f"B_={shape['B_']} N={shape['N']} C={shape['C']} "
-             f"nH={shape['nH']} bf16{' mask' if shape['nW'] else ''}"
+             f"nH={shape['nH']} {dtype}{' mask' if shape['nW'] else ''}"
              f"{' train' if pairs > 1 else ''}")
     if shape["layout"] == "slab":
         where += " map {}x{}x{}".format(shape["images"], *shape["padded"])
@@ -2000,10 +2059,10 @@ def _tc_case(tc_cases, shape, pairs, mxu="fold"):
                  and c["frame_pairs"] == pairs and c["mxu"] == mxu), None)
 
 
-def _find(cases, shape, pairs, **want):
+def _find(cases, shape, pairs, dtype="bfloat16", **want):
     return next(c for c in cases
                 if c["model"] == shape["model"]
-                and c["stage"] == shape["stage"] and c["dtype"] == "bfloat16"
+                and c["stage"] == shape["stage"] and c["dtype"] == dtype
                 and c.get("frame_pairs", 1) == pairs
                 and all(c[k] == v for k, v in want.items()))
 
@@ -2108,28 +2167,33 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
 # K4 (MMDE_ATTN_GRID=bias_resident) and K5 (MMDE_ATTN_W)
 # ---------------------------------------------------------------------------
 
-def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
+def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
     """K4 at one train shape through the autograd Function under
     grid_mode="bias_resident" (forward: K1 without the log-sum-exp, checked
     against the plain forward under rec["forward"]), against the plain
     backward and float64 autograd; dbias bitwise equal over two launches.
-    bf16 runs the tensor-core K4 (the launch is checked by name), fp32 the
-    FMA body. Head 0 above the ln(100) clamp, head 1 hot (scale e^4). Times
-    (medians of single launches): K4; bf16 also the FMA body at the same
-    inputs, in turns (kernel, FMA body, FMA body, kernel), its bound on the
-    tensor cores (tc_units) and the SDPA backward; K2 in the same call."""
+    bf16 and fp32 run the tensor-core K4 (the launch is checked by name;
+    fp32 after K1's FMA forward). Head 0 above the ln(100) clamp, head 1
+    hot (scale e^4); `hot`: every head at scale 60. Times (medians of single
+    launches): K4 and the FMA body at the same inputs, in turns (kernel,
+    FMA body, FMA body, kernel), its bound on the tensor cores (tc_units:
+    K4_TC_UNITS, fp32 K4_FP32_TC_UNITS) and the SDPA backward in qkv's type;
+    K2 in the same call."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, shape["nW"] > 0,
                                              gen)
     ls[1] = 4.0
+    if hot:
+        ls[:] = math.log(60.0)
     nH = shape["nH"]
     g = torch.randn((shape["B_"], shape["N"], shape["C"]), device="cuda",
                     generator=gen).to(dtype)
     name = str(dtype).replace("torch.", "")
     tc = dtype == torch.bfloat16
-    kernel = "window_attention_bwd_resident" + ("_tc" if tc else "")
+    kernel = "window_attention_bwd_resident_tc"
     rec = _case_head(shape, dtype, mask)
     rec["kernel"] = kernel
+    rec["every_head_scale_60"] = hot
     rec["tolerance_rel_l2"] = TOL_BWD[name]
     with torch.no_grad():
         plain = wap.cosine_window_attention_packed_backward_plain(
@@ -2154,7 +2218,7 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     rec["forward"] = check_forward(out.detach(), want_out, dtype, rec)
     got = [t.grad for t in leaves]
     rec.update(_check_grads(got, plain, truth, name,
-                            f"K4 at {json.dumps(rec)}"))
+                            f"K4 at {json.dumps(rec)}", clamped=not hot))
     with torch.no_grad():
         d1 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
         d2 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
@@ -2162,7 +2226,7 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
     if not rec["dbias_bitwise_equal"]:
         raise RuntimeError(f"K4 dbias differs between two launches at "
                            f"{json.dumps(rec)}")
-    rec["splits"] = wap.resident_splits(shape["N"], nH, shape["B_"], tc)
+    rec["splits"] = wap.resident_splits(shape["N"], nH, shape["B_"], True)
     rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
     rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
     del truth, want_out, d1, d2, out, leaves
@@ -2171,17 +2235,15 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
             def k4(fma=False):
                 return lambda: wap._launch_backward_resident(
                     qkv, ls, bias, mask, g, nH, _fma=fma)
-            if tc:
-                turns = [time_ms(k4(), reps=8, warm=2),
-                         time_ms(k4(True), reps=8, warm=2),
-                         time_ms(k4(True), reps=8, warm=2),
-                         time_ms(k4(), reps=8, warm=2)]
-                rec.update({"ms": (turns[0] + turns[3]) / 2,
-                            "fma_ms": (turns[1] + turns[2]) / 2,
-                            "ms_turns": turns})
-                rec.update(tc_work(shape["B_"], shape["N"], nH, K4_TC_UNITS))
-            else:
-                rec["ms"] = time_ms(k4(), reps=8, warm=2)
+            turns = [time_ms(k4(), reps=8, warm=2),
+                     time_ms(k4(True), reps=8, warm=2),
+                     time_ms(k4(True), reps=8, warm=2),
+                     time_ms(k4(), reps=8, warm=2)]
+            rec.update({"ms": (turns[0] + turns[3]) / 2,
+                        "fma_ms": (turns[1] + turns[2]) / 2,
+                        "ms_turns": turns})
+            rec.update(tc_work(shape["B_"], shape["N"], nH,
+                               K4_TC_UNITS if tc else K4_FP32_TC_UNITS))
             lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
             rec["k2_ms"] = time_ms(lambda: wap._launch_backward(
                 qkv, ls, bias, mask, lse, g, nH, "window_resident", True),
@@ -2199,37 +2261,42 @@ def compare_resident(shape, dtype, gen, *, timed=True) -> dict:
                                   rec["nW"], dtype, bias.dtype, lse=False))
         fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                 rec["nW"], dtype, bias.dtype))
-        fwd["library_ms"] = rec["library_ms"] = None
         if tc:
             fwd.update(tc_work(shape["B_"], shape["N"], nH,
                                tc_units("fold", False, ls)))
-            lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
-                                    mask, g=wap._split_heads(g, 1, nH)[0])
-            fwd.update({k: v for k, v in lib.items()
-                        if k != "library_bwd_ms"})
-            rec.update({k: v for k, v in lib.items() if k != "library_ms"})
-            rec["library_ms"] = lib["library_bwd_ms"]
+        lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
+                                mask, g=wap._split_heads(g, 1, nH)[0])
+        fwd.update({k: v for k, v in lib.items() if k != "library_bwd_ms"})
+        rec.update({k: v for k, v in lib.items() if k != "library_ms"})
+        rec["library_ms"] = lib["library_bwd_ms"]
     torch.cuda.empty_cache()
     return rec
 
 
 def phase_kernels_resident(timed: bool = True) -> list:
-    """K4 at the four flagship train shapes (2 frame pairs), bfloat16,
-    masked where the stage shifts; and float32 at stages 1 and 4."""
+    """K4 at the four flagship train shapes (2 frame pairs), bfloat16 and
+    float32 (both on the tensor cores), masked where the stage shifts;
+    float32 at stage 1 with every head at scale 60; and float32 at the
+    four train shapes of 1 frame pair (the fp32 Path A step's)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5151)
     shapes = stage_shapes(batch=2)
-    cases = [compare_resident(s, torch.bfloat16, gen, timed=timed)
-             for s in shapes]
-    cases += [compare_resident(s, torch.float32, gen, timed=timed)
-              for s in (shapes[0], shapes[3])]
+    cases = [compare_resident(s, dt, gen, timed=timed)
+             for dt in (torch.bfloat16, torch.float32) for s in shapes]
+    cases.append(compare_resident(shapes[0], torch.float32, gen,
+                                  timed=False, hot=True))
     for c in cases:
         c["frame_pairs"] = 2
+    # fp32 at the 1-pair train shapes: those of the fp32 Path A step
+    for s in stage_shapes(batch=1):
+        cases.append(dict(compare_resident(s, torch.float32, gen,
+                                           timed=timed), frame_pairs=1))
     emit("kernel_cases_resident", {
         "cases": cases,
         "timing": "CUDA events around one launch (K4 and the k-normalise "
                   "VJP after it; K2's dq, dk/dv passes), 2 warm + 8 "
-                  "launches, median; inputs stay in L2"})
+                  "launches, median; inputs stay in L2; in turns kernel, "
+                  "FMA body, FMA body, kernel (ms_turns)"})
     return cases
 
 
@@ -2241,31 +2308,35 @@ def _w_of(shape, bwd: bool, masked: bool, setting="auto") -> int:
 
 
 def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
-              with_mask: bool, timed=True, mxu=None) -> list:
+              with_mask: bool, timed=True, mxu=None, pairs=None) -> list:
     """K5 at one shape: the forward at each W of `w_fwd` (with the
     log-sum-exp when `train`) against the plain forward; the backward at
     each W of `w_bwd` against the plain backward and float64 autograd. bf16
-    runs the tensor-core K5 (launches checked by name and W), fp32 the FMA
-    body. Precision mode `mxu` (None: the type's default): fold / fp32 at
-    K1's / K2's tolerances, "bf16" at TOL_MXU_BF16 (autograd:
-    TOL_MXU_BF16_AUTOGRAD); bf16 cases also MXU_APART times nearer their own
-    mode's plain version than the other's (_nearer). Times: K5; bf16 also
-    the FMA body at the same inputs in turns (kernel, FMA body, FMA body,
-    kernel), the products' bound on the tensor cores (tc_units) and the
-    SDPA yardstick; K1 / K2 (W = 1) in the same call. With the stage's mask
-    or without (the W of a shifted stage's blocks depends on it); head 0
-    clamped, head 1 hot."""
+    and fp32 run the tensor-core K5 (launches checked by name and W; fp32
+    operands in three bf16 pieces, its statistic hi + lo). Precision mode
+    `mxu` (None: the type's default): fold / fp32 at K1's / K2's tolerances
+    for the type, "bf16" at TOL_MXU_BF16 (autograd: TOL_MXU_BF16_AUTOGRAD),
+    every case MXU_APART times nearer its own mode's plain version than the
+    other's (_nearer). Times: K5 and the FMA body at the same inputs in
+    turns (kernel, FMA body, FMA body, kernel), the products' bound on the
+    tensor cores (tc_units) and the SDPA yardstick in qkv's type; K1 / K2
+    (W = 1) in the same call. With the stage's mask or without (the W of a
+    shifted stage's blocks depends on it); head 0 clamped, head 1 hot.
+    fp32 backward: also under grid_mode="split" (K5's passes, then K3's
+    dbias pass on the FMA body reading the tensor-core forward's
+    statistic), held to the same limits. `pairs`: the frame pairs of the
+    shape (default 2 when `train`, else 1)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, with_mask, gen)
     ls[1] = 4.0
     nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
     name = str(dtype).replace("torch.", "")
-    tc = dtype == torch.bfloat16
+    f32 = dtype == torch.float32   # every launch at W > 1: tensor cores
     mode = wap.resolve_mxu(mxu, dtype)
     rb = mode == "bf16"
     other = "fold" if rb else "bf16"
     head = _case_head(shape, dtype, mask)
-    head["frame_pairs"] = 2 if train else 1
+    head["frame_pairs"] = pairs or (2 if train else 1)
     head["mxu"] = mode
     recs, fwd_common = [], {}
     stats = train
@@ -2277,8 +2348,8 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
     with torch.no_grad():
         want_out = wap.cosine_window_attention_packed_plain(
             qkv, ls, bias, mask, num_heads=nH, mxu=mode)
-        other_out = (wap.cosine_window_attention_packed_plain(
-            qkv, ls, bias, mask, num_heads=nH, mxu=other) if tc else None)
+        other_out = wap.cosine_window_attention_packed_plain(
+            qkv, ls, bias, mask, num_heads=nH, mxu=other)
         if timed:
             fwd_common["k1_ms"] = time_ms(fwd_call(1))
             fwd_common["plain_ms"] = time_ms(
@@ -2287,18 +2358,16 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                 warm=1)
             fwd_common.update(kernel_bound(B_, N, C, nH, head["nW"], dtype,
                                            bias.dtype, stats=train))
-            fwd_common["library_ms"] = None
-            if tc:
-                fwd_common.update(library_yardstick(
-                    *wap._split_heads(qkv, 3, nH), ls, bias, mask))
-                fwd_common.update(tc_work(B_, N, nH, tc_units(mode, False,
-                                                              ls)))
+            fwd_common.update(library_yardstick(
+                *wap._split_heads(qkv, 3, nH), ls, bias, mask))
+            fwd_common.update(tc_work(B_, N, nH, tc_units(mode, False, ls,
+                                                          f32=f32)))
         for w in w_fwd:
             before = dict(wap.LAUNCHES_BY_KERNEL)
             out, _ = fwd_call(w)()
             torch.cuda.synchronize()
             rec = dict(head, direction="forward", W=w, lse=train)
-            kname = (f"window_attention_fwd{'_tc' if tc else ''}_w{w}"
+            kname = (f"window_attention_fwd_tc_w{w}"
                      + ("+lse" if train else ""))
             _tc_launched(before, {kname: 1}, f"K5 {json.dumps(rec)}")
             rec["kernel"] = kname
@@ -2313,17 +2382,13 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                                        f"{json.dumps(rec)}")
             else:
                 rec.update(check_forward(out, want_out, dtype, rec))
-            if tc:
-                _nearer(rec, "out", out, want_out, other_out)
+            _nearer(rec, "out", out, want_out, other_out)
             if timed:
-                if tc:
-                    turns = [time_ms(fwd_call(w)), time_ms(fwd_call(w, True)),
-                             time_ms(fwd_call(w, True)), time_ms(fwd_call(w))]
-                    rec.update({"ms": (turns[0] + turns[3]) / 2,
-                                "fma_ms": (turns[1] + turns[2]) / 2,
-                                "ms_turns": turns})
-                else:
-                    rec["ms"] = time_ms(fwd_call(w))
+                turns = [time_ms(fwd_call(w)), time_ms(fwd_call(w, True)),
+                         time_ms(fwd_call(w, True)), time_ms(fwd_call(w))]
+                rec.update({"ms": (turns[0] + turns[3]) / 2,
+                            "fma_ms": (turns[1] + turns[2]) / 2,
+                            "ms_turns": turns})
                 rec.update(fwd_common)
             recs.append(rec)
         del want_out, other_out
@@ -2332,27 +2397,32 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
         with torch.no_grad():
             plain = wap.cosine_window_attention_packed_backward_plain(
                 qkv, ls, bias, mask, g, num_heads=nH, mxu=mode)
-            plain_o = (wap.cosine_window_attention_packed_backward_plain(
+            plain_o = wap.cosine_window_attention_packed_backward_plain(
                 qkv, ls, bias, mask, g, num_heads=nH, mxu=other)
-                if tc else None)
         truth = _float64_grads(qkv, ls, bias, mask, g, nH, mode)
         bwd_common = {}
-        if timed and tc:
+        if timed:
             # the yardstick's backward needs autograd: outside no_grad
             bwd_common["library_bwd_ms"] = library_yardstick(
                 *wap._split_heads(qkv, 3, nH), ls, bias, mask,
                 g=wap._split_heads(g, 1, nH)[0])["library_bwd_ms"]
+        # the statistic of the forward the model runs before these blocks'
+        # backward: K5 at the forward's W (the JAX rule gives W > 1 to a
+        # block's forward exactly where it gives it to its backward). The
+        # tensor cores round each product's sum toward zero, so their
+        # logits sit a few fp32 ulps below the FMA body's: the backward
+        # rebuilds p against the statistic of the arithmetic that wrote it
+        w_stat = w_fwd[0] if w_fwd else _w_of(shape, False, with_mask)
         with torch.no_grad():
             lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
-                                      mxu=mode)[1]
-            lse_f = (wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
-                                         mxu=mode, _fma=True)[1]
-                     if tc else lse)
+                                      w=w_stat, mxu=mode)[1]
+            lse_f = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                        w=w_stat, mxu=mode, _fma=True)[1]
 
-            def bwd_call(w, fma=False):
+            def bwd_call(w, fma=False, grid="window_resident"):
                 return lambda: wap._launch_backward(
                     qkv, ls, bias, mask, lse_f if fma else lse, g, nH,
-                    "window_resident", True, w=w, mxu=mode, _fma=fma)
+                    grid, True, w=w, mxu=mode, _fma=fma)
             if timed:
                 bwd_common["k2_ms"] = time_ms(bwd_call(1), reps=8, warm=2)
                 bwd_common["plain_ms"] = time_ms(
@@ -2363,14 +2433,13 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                                                  dtype, bias.dtype))
                 bwd_common["library_ms"] = bwd_common.pop("library_bwd_ms",
                                                           None)
-                if tc:
-                    bwd_common.update(tc_work(B_, N, nH,
-                                              tc_units(mode, True, ls)))
+                bwd_common.update(tc_work(B_, N, nH, tc_units(
+                    mode, True, ls, f32=f32)))
             for w in w_bwd:
                 before = dict(wap.LAUNCHES_BY_KERNEL)
                 got = bwd_call(w)()
                 torch.cuda.synchronize()
-                kname = f"window_attention_bwd{'_tc' if tc else ''}_w{w}"
+                kname = f"window_attention_bwd_tc_w{w}"
                 rec = dict(head, direction="backward", W=w, kernel=kname,
                            tolerance_rel_l2=TOL_MXU_BF16 if rb
                            else TOL_BWD[name])
@@ -2382,21 +2451,33 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                         "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)}, what))
                 else:
                     rec.update(_check_grads(got, plain, truth, name, what))
-                if tc:
-                    _nearer(rec, "dqkv", got[0], plain[0], plain_o[0])
+                _nearer(rec, "dqkv", got[0], plain[0], plain_o[0])
+                if f32:
+                    # "split": K3's FMA dbias pass after K5's passes, on the
+                    # statistic the tensor-core forward wrote
+                    before = dict(wap.LAUNCHES_BY_KERNEL)
+                    got_s = bwd_call(w, grid="split")()
+                    torch.cuda.synchronize()
+                    _tc_launched(before, {kname: 1,
+                                          "window_attention_dbias": 1},
+                                 f"K5 split {json.dumps(rec)}")
+                    rec["split"] = (_check_against(got_s, {
+                        "vs_plain": (plain, TOL_MXU_BF16),
+                        "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)},
+                        f"split {what}") if rb else
+                        _check_grads(got_s, plain, truth, name,
+                                     f"split {what}"))
+                    del got_s
                 rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
                 rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
                 if timed:
-                    if tc:
-                        turns = [time_ms(bwd_call(w), reps=8, warm=2),
-                                 time_ms(bwd_call(w, True), reps=8, warm=2),
-                                 time_ms(bwd_call(w, True), reps=8, warm=2),
-                                 time_ms(bwd_call(w), reps=8, warm=2)]
-                        rec.update({"ms": (turns[0] + turns[3]) / 2,
-                                    "fma_ms": (turns[1] + turns[2]) / 2,
-                                    "ms_turns": turns})
-                    else:
-                        rec["ms"] = time_ms(bwd_call(w), reps=8, warm=2)
+                    turns = [time_ms(bwd_call(w), reps=8, warm=2),
+                             time_ms(bwd_call(w, True), reps=8, warm=2),
+                             time_ms(bwd_call(w, True), reps=8, warm=2),
+                             time_ms(bwd_call(w), reps=8, warm=2)]
+                    rec.update({"ms": (turns[0] + turns[3]) / 2,
+                                "fma_ms": (turns[1] + turns[2]) / 2,
+                                "ms_turns": turns})
                     rec.update(bwd_common)
                 recs.append(rec)
         del plain, plain_o, truth
@@ -2407,10 +2488,13 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
 def phase_kernels_w(timed: bool = True) -> list:
     """K5 at every (shape, W) that choose_w("auto") gives the flagship's
     served (1 pair) and trained (2 pairs) stages, masked and unmasked
-    blocks alike, plus W = 2 at stage 1 trained; bfloat16 (the tensor-core
-    K5; served in each precision mode, trained in the model's, "fold"), and
-    float32 (the FMA body) at the trained stages 1 and 4. Every case runs;
-    the phase's line is printed, then it fails if any case disagreed."""
+    blocks alike, plus W = 2 at stage 1 trained (bf16) and the masked
+    backward at W = 8 there (fp32); bfloat16 (served in each precision
+    mode, trained in the model's, "fold") and float32 (served and trained
+    in each mode, timed in "fp32", its model's; trained at 1 pair too, the
+    fp32 Path B step's shapes), both on the tensor-core K5. Every case
+    runs; the phase's line is printed, then it fails if any case
+    disagreed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6262)
     cases, failed = [], []
@@ -2434,21 +2518,39 @@ def phase_kernels_w(timed: bool = True) -> list:
             failed.append(str(e))
         torch.cuda.empty_cache()
 
-    for shape in stage_shapes(batch=1):
-        for m, ws in by_mask(shape, False).items():
-            if ws:
-                for mxu in ("fold", "fp32", "bf16"):
-                    run(shape, torch.bfloat16, gen, ws, [], False, m, timed,
-                        mxu=mxu)
     for dtype in (torch.bfloat16, torch.float32):
+        for shape in stage_shapes(batch=1):
+            for m, ws in by_mask(shape, False).items():
+                if ws:
+                    for mxu in ("fold", "fp32", "bf16"):
+                        run(shape, dtype, gen, ws, [], False, m,
+                            timed and (dtype == torch.bfloat16
+                                       or mxu == "fp32"), mxu=mxu)
+    for dtype in (torch.bfloat16, torch.float32):
+        # fp32: every mode (its model's, "fp32", timed)
+        modes = ((None,) if dtype == torch.bfloat16
+                 else ("fp32", "fold", "bf16"))
         for shape in stage_shapes(batch=2):
-            if dtype == torch.float32 and shape["stage"] not in (1, 4):
-                continue
-            extra = (2,) if shape["stage"] == 1 else ()
-            wf, wb = by_mask(shape, False, extra), by_mask(shape, True, extra)
+            bf = dtype == torch.bfloat16
+            extra = (2,) if shape["stage"] == 1 and bf else ()
+            # fp32 at stage 1: the backward at W = 8 with the mask too
+            # (MMDE_ATTN_W=8; its dk/dv pass holds 4 windows a block)
+            wf = by_mask(shape, False, extra)
+            wb = by_mask(shape, True, extra if bf else
+                         (8,) if shape["stage"] == 1 else ())
             for m in (True, False):
                 if wf[m] or wb[m]:
-                    run(shape, dtype, gen, wf[m], wb[m], True, m, timed)
+                    for mxu in modes:
+                        run(shape, dtype, gen, wf[m], wb[m], True, m,
+                            timed and mxu in (None, "fp32"), mxu=mxu)
+    # fp32 at the train shapes of one frame pair, in its model's mode: the
+    # W and B_ of the fp32 Path B step (train_parity_w), timed there
+    for shape in stage_shapes(batch=1):
+        wf, wb = by_mask(shape, False), by_mask(shape, True)
+        for m in (True, False):
+            if wf[m] or wb[m]:
+                run(shape, torch.float32, gen, wf[m], wb[m], True, m, timed,
+                    mxu="fp32", pairs=1)
     emit("kernel_cases_w", {
         "cases": cases, "failed": failed,
         "timing": "CUDA events around one launch (forward; backward: the dq "
@@ -2591,17 +2693,20 @@ SHARED_CARD = ("train_resident, serve_w / train_w and serve_mxu / "
 def phase_children(resident_steps: int = 4) -> tuple:
     """Start the three children at once (`phase_resident_child`'s,
     `phase_w_child`'s, `phase_mxu_child`'s), wait for all three, then read
-    each; returns (train_resident, resident gradients, serve_w, train_w,
-    serve_mxu, train_mxu)."""
+    each; returns (train_resident, Path A's fp32 step, serve_w, train_w,
+    Path B's fp32 step, serve_mxu, train_mxu); a step: its loss,
+    gradients and launches by kernel and shape."""
     import tempfile
     me = os.path.basename(__file__)
     with tempfile.TemporaryDirectory() as tmp:
         grads = os.path.join(tmp, "grads.pt")
+        grads_w = os.path.join(tmp, "grads_w.pt")
         children = {
             "resident": _start_child(
                 [me, "--child", "resident", "--steps", str(resident_steps),
                  "--out", grads], {"MMDE_ATTN_GRID": "bias_resident"}),
-            "w": _start_child([me, "--child", "w"], {"MMDE_ATTN_W": "auto"}),
+            "w": _start_child([me, "--child", "w", "--out", grads_w],
+                              {"MMDE_ATTN_W": "auto"}),
             "mxu": _start_child([me, "--child", "mxu"],
                                 {"MMDE_ATTN_MXU": "bf16"})}
         try:
@@ -2612,11 +2717,14 @@ def phase_children(resident_steps: int = 4) -> tuple:
                     c["proc"].kill()
                     c["proc"].wait()
         resident = torch.load(grads)
+        w_child = torch.load(grads_w)
     train_res, resident = phase_resident_child(lines["resident"], resident,
                                                resident_steps)
     serve_w, train_w = phase_w_child(lines["w"])
+    w_child["child_lines"] = len(lines["w"])
     serve_mxu, train_mxu = phase_mxu_child(lines["mxu"])
-    return train_res, resident, serve_w, train_w, serve_mxu, train_mxu
+    return (train_res, resident, serve_w, train_w, w_child, serve_mxu,
+            train_mxu)
 
 
 
@@ -2720,41 +2828,60 @@ def train_step_grads(backbone: str, pairs: int, path: str,
     return res
 
 
-def phase_train_parity_resident(child: dict) -> dict:
-    """One deterministic fp32 flagship step (TF32 off) under
-    MMDE_ATTN_GRID=bias_resident (K1 without lse + K4: the resident child's
-    gradients) against the default grid's (K1 + K2, this process): loss and
-    the gradients of PARITY_PARAMS at TOL_TRAIN_PARITY."""
+def phase_train_parity_resident(child: dict, tag="train_parity_resident",
+                                setting="MMDE_ATTN_GRID=bias_resident"
+                                ) -> dict:
+    """One deterministic fp32 flagship step (TF32 off, 1 frame pair,
+    depths PARITY_DEPTHS) in a child process under `setting` - Path A (K1
+    without lse + K4) or Path B (MMDE_ATTN_W=auto: K5 where W > 1) - against
+    the plain fp32 path's (this process): loss and the gradients of
+    PARITY_PARAMS at TOL_TRAIN_PARITY. Its launches: Path A every backward
+    on the tensor-core K4, Path B every K5 launch on the tensor-core K5, and
+    neither an fp32 launch of their FMA bodies."""
     counts = child["launches"]
     blocks = sum(PARITY_DEPTHS)
-    if not (counts.get("window_attention_bwd_resident", 0) == blocks
-            and not any(k.startswith("window_attention_bwd")
-                        and k != "window_attention_bwd_resident"
-                        for k in counts)):
-        raise RuntimeError(f"train_parity_resident: the child's launches "
-                           f"{counts}, expected {blocks} K4 and no K2")
+    if tag == "train_parity_resident":
+        ok = (counts.get("window_attention_bwd_resident_tc", 0) == blocks
+              and not any(k.startswith("window_attention_bwd")
+                          and k != "window_attention_bwd_resident_tc"
+                          for k in counts))
+        want = f"{blocks} tensor-core K4, no K2 and no FMA K4"
+    else:
+        ok = (any(k.startswith("window_attention_bwd_tc_w") for k in counts)
+              and any(k.startswith("window_attention_fwd_tc_w")
+                      for k in counts)
+              and not any(k.startswith(("window_attention_fwd_w",
+                                        "window_attention_bwd_w"))
+                          for k in counts))
+        want = "tensor-core K5 forwards and backwards, no FMA K5"
+    fma = sum(n for k, n in counts.items()
+              if k == "window_attention_bwd_resident"
+              or k.startswith(("window_attention_fwd_w",
+                               "window_attention_bwd_w")))
+    if not ok or fma:
+        raise RuntimeError(f"{tag}: the child's launches {counts}, "
+                           f"expected {want}")
     la, ga = child["loss"], child["grads"]
-    lb, gb = train_step_grads("swin_base_v2", 1, "cuda")
+    lb, gb = train_step_grads("swin_base_v2", 1, "torch")
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
     grad_rel = {n: float((ga[n].cuda() - gb[n]).norm()
                          / gb[n].norm().clamp_min(1e-300))
                 for n in PARITY_PARAMS}
     rec = {"model": "swin_base_v2", "dtype": "float32", "frame_pairs": 1,
            "depths": list(PARITY_DEPTHS), "cudnn_allow_tf32": False,
-           "child_lines": child["child_lines"],
-           "bias_resident_launches": counts,
-           "loss_bias_resident": la, "loss_window_resident": lb,
+           "child_lines": child["child_lines"], "setting": setting,
+           "launches": counts, "fma_k4_k5_launches": fma,
+           "loss_kernel_path": la, "loss_plain_path": lb,
            "loss_rel_diff": loss_rel, "grad_rel_l2": grad_rel,
            "tolerance": TOL_TRAIN_PARITY}
     if not loss_rel <= TOL_TRAIN_PARITY["loss_rel"]:
-        raise RuntimeError(f"train_parity_resident: loss differs: "
-                           f"{json.dumps(rec)}")
+        raise RuntimeError(f"{tag}: loss differs: {json.dumps(rec)}")
     for n, v in grad_rel.items():
         if not (v <= TOL_TRAIN_PARITY["grad_rel_l2"]
                 and float(gb[n].norm()) > 0):
-            raise RuntimeError(f"train_parity_resident: gradient of {n} "
-                               f"differs or is zero: {json.dumps(rec)}")
-    emit("train_parity_resident", rec)
+            raise RuntimeError(f"{tag}: gradient of {n} differs or is "
+                               f"zero: {json.dumps(rec)}")
+    emit(tag, rec)
     return rec
 
 
@@ -2773,17 +2900,23 @@ def child_main(args) -> int:
             raise RuntimeError("the W child needs MMDE_ATTN_W=auto")
         phase_serve(requests=2, flip=False, tag="serve_w")
         phase_train(steps=4, deterministic_run=False, tag="train_w")
-        return 0
-    if wap.DEFAULT_GRID_MODE != "bias_resident":
-        raise RuntimeError("the resident child needs MMDE_ATTN_GRID="
-                           "bias_resident")
-    from mmde_tpu_torch.tools import train_steps
-    train_steps.main(["--steps", str(args.steps)])
+    else:
+        if wap.DEFAULT_GRID_MODE != "bias_resident":
+            raise RuntimeError("the resident child needs MMDE_ATTN_GRID="
+                               "bias_resident")
+        from mmde_tpu_torch.tools import train_steps
+        train_steps.main(["--steps", str(args.steps)])
+    # one fp32 step of the flagship under this process's setting: K4 or K5
+    # on the tensor cores in fp32
     torch.cuda.empty_cache()
     wap.reset_launch_counts()
     loss, grads = train_step_grads("swin_base_v2", 1, "cuda")
     torch.save({"loss": loss, "grads": {n: t.cpu() for n, t in grads.items()},
-                "launches": wap.launch_counts()}, args.out)
+                "launches": wap.launch_counts(),
+                "launches_by_kernel": {f"{k}|{','.join(map(str, key))}": n
+                                       for (k, key), n in
+                                       wap.LAUNCHES_BY_KERNEL.items()}},
+               args.out)
     print(json.dumps({"grads_child": {"loss": loss}}), flush=True)
     return 0
 
@@ -2844,6 +2977,53 @@ def contract_resident(k4_cases: list, train_res: dict) -> list:
         e["k2_ms"] = c["k2_ms"]
         e["dbias_bitwise_equal"] = c["dbias_bitwise_equal"]
         entries.append(e)
+    return entries
+
+
+def contract_fp32(k4_cases: list, kw_cases: list, res_child: dict,
+                  w_child: dict) -> list:
+    """The fp32 steps' entries (Paths A and B, 1 frame pair, depths
+    PARITY_DEPTHS): K4 and K5 on the tensor cores with dtype float32,
+    launches by kernel and shape from the children; ms, bounds and errors
+    from the fp32 kernel case timed at the same shape and W (1 frame pair,
+    mode "fp32"); a launch without one raises."""
+    entries = []
+    for child in (res_child, w_child):
+        for key, n in sorted(child["launches_by_kernel"].items()):
+            kernel, dims = key.split("|")
+            if not ("resident_tc" in kernel or "_tc_w" in kernel):
+                continue
+            B_, N, C, nH = (int(x) for x in dims.split(","))
+            shape = next(s for s in stage_shapes(batch=1)
+                         if (s["B_"], s["N"], s["C"], s["nH"])
+                         == (B_, N, C, nH))
+            if "resident" in kernel:
+                want = {"direction": None, "W": None}
+                src, rep = KERNEL_RESIDENT_TC_SOURCE, KERNEL_RESIDENT_REPLACES
+            else:
+                bwd = "_bwd" in kernel
+                want = {"direction": "backward" if bwd else "forward",
+                        "W": int(kernel.split("_w")[1].split("+")[0]),
+                        "lse": None if bwd else "+lse" in kernel}
+                src = KERNEL_TC_BWD_SOURCE if bwd else KERNEL_TC_SOURCE
+                rep = KERNEL_W_BWD_REPLACES if bwd else KERNEL_W_REPLACES
+            cases = [x for x in (k4_cases if "resident" in kernel
+                                 else kw_cases)
+                     if x["dtype"] == "float32" and x["frame_pairs"] == 1
+                     and x.get("mxu", "fp32") == "fp32" and "ms" in x
+                     and x["stage"] == shape["stage"] and x["B_"] == B_
+                     and not x.get("every_head_scale_60")
+                     and all(x.get(k) == v for k, v in want.items()
+                             if v is not None)]
+            if not cases:
+                raise RuntimeError(f"no fp32 kernel case timed at {key} "
+                                   f"{want}")
+            # the masked blocks' case where both kinds launch at this W
+            c = max(cases, key=lambda x: x["nW"])
+            e = _entry(kernel, dict(shape, nW=c["nW"]), src, rep, n, c, 1,
+                       dtype="fp32")
+            e["dtype"] = "float32"
+            entries.append(e)
     return entries
 
 
@@ -3004,15 +3184,17 @@ MXU_APART = 4.0
 TOL_MXU_BF16_AUTOGRAD = {"dqkv": 4e-3, "dbias": 4e-3}
 
 
-def _check_against(got, refs: dict, what: str) -> dict:
+def _check_against(got, refs: dict, what: str,
+                   clamped: bool = True) -> dict:
     """dqkv, dlogit_scale, dbias of a backward kernel against each
     reference of `refs` ({name: (tensors, {output: rel-L2 tolerance})}; an
     output without a tolerance is read, not held); raises on disagreement,
-    a value that is not finite, or a clamped head's dlogit_scale not 0."""
+    a value that is not finite, or (`clamped`: head 0 above the clamp) a
+    clamped head's dlogit_scale not 0."""
     names = ("dqkv", "dlogit_scale", "dbias")
     if not all(bool(torch.isfinite(t).all()) for t in got):
         raise RuntimeError(f"{what}: backward output not finite")
-    if float(got[1].flatten()[0]) != 0.0:
+    if clamped and float(got[1].flatten()[0]) != 0.0:
         raise RuntimeError(f"{what}: dlogit_scale of the clamped head is "
                            f"{float(got[1].flatten()[0])}, not 0")
     out = {ref: {n: _errs(k, w) for n, k, w in zip(names, got, want)}
@@ -3123,8 +3305,10 @@ def compare_mxu(shape, dtype, mxu: str, gen, timed=True) -> dict:
         out_w, _ = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
                                        w=w_f, mxu=mxu)
         rec["forward_w"] = forward_ok(out_w)
+        # K5's backward reads the statistic of K5's forward, as in the
+        # model (see compare_w)
         lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
-                                  mxu=mxu)[1]
+                                  w=w_f, mxu=mxu)[1]
         got_w = wap._launch_backward(qkv, ls, bias, mask, lse, g, nH,
                                      "window_resident", True, w=w_b,
                                      mxu=mxu)
@@ -3244,15 +3428,21 @@ def contract_mxu(mxu_cases: list, train_mxu: dict) -> list:
 # K1 and K2 on the tensor cores (bf16 mma.sync)
 # ---------------------------------------------------------------------------
 
-def tc_units(mxu: str, train: bool, ls, maxfree: bool = True) -> float:
+def tc_units(mxu: str, train: bool, ls, maxfree: bool = True,
+             f32: bool = False) -> float:
     """N x N x 32 bf16 products the design needs (a split operand, bf16 hi
     and lo, counts as two), not what the kernels issue: forward S and p v
     (fp32 / fold: p split, 3; bf16: 2, and one more S sweep for each head
     that takes the exact row maximum, as a share of the heads); backward S,
     dP, dv, dq and dk (fp32 / fold: the last three split, 8; bf16: 5). The
     kernels issue 3 / 2 + share forward and 12 / 9 backward: the dq pass
-    sweeps S and dP twice (delta first), the dk/dv pass recomputes them."""
+    sweeps S and dP twice (delta first), the dk/dv pass recomputes them.
+    `f32` (fp32 qkv, fp32 / fold): every operand in three bf16 pieces, six
+    piece products a product - forward 12, backward 30 (the kernels issue
+    12 and 54)."""
     from mmde_tpu_torch.ops.window_attention import MAX_LOGIT_SCALE
+    if f32 and mxu != "bf16":
+        return 30.0 if train else 12.0
     if train:
         return 5.0 if mxu == "bf16" else 8.0
     if mxu != "bf16":
@@ -3529,6 +3719,7 @@ def main() -> int:
     timed = args.only is None
     k1_cases = phase_kernels(timed=timed)
     k2_cases = phase_kernels_backward(timed=timed)
+    phase_f3_packed()
     hs_cases = phase_kernels_headsplit(timed=timed)
     slab_cases = phase_kernels_slab(timed=timed)
     k4_cases = phase_kernels_resident(timed=timed)
@@ -3536,6 +3727,7 @@ def main() -> int:
     mxu_cases = phase_kernels_mxu(timed=timed)
     tc_cases = phase_kernels_tc(timed=timed)
     if args.only == "kernels":
+        emit("phase_seconds", PHASE_SECONDS)
         return 0
     tool_entries = phase_probes() + phase_variants()
     roof_entries, roof = phase_roofline()
@@ -3550,7 +3742,7 @@ def main() -> int:
     serve_slab = phase_serve(tag="serve_slab", attn_impl="cuda_slab")
     train_slab = phase_train(steps=4, deterministic_run=False,
                              tag="train_slab", attn_impl="cuda_slab")
-    (train_res, resident_child, serve_w, train_w, _,
+    (train_res, resident_child, serve_w, train_w, w_child, _,
      train_mxu) = phase_children()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
@@ -3576,6 +3768,7 @@ def main() -> int:
         "forward": phase_parity(tag=None, impl="cuda_slab"),
         "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
     phase_train_parity_resident(resident_child)
+    phase_train_parity_resident(w_child, "train_parity_w", "MMDE_ATTN_W=auto")
     _PARITY_MODELS.clear()
     torch.cuda.empty_cache()
     entries = []
@@ -3587,6 +3780,7 @@ def main() -> int:
                                   tc_cases)
     entries += contract_resident(k4_cases, train_res)
     entries += contract_w(kw_cases, serve_w, train_w)
+    entries += contract_fp32(k4_cases, kw_cases, resident_child, w_child)
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)

@@ -40,8 +40,10 @@
 // sum of dlogit_scale does not average away (1.5e-4 of it at swin_tiny
 // stage 1, fp32). There the forward keeps m + log(l) in fp64 as fp32 hi +
 // lo, and p = exp((s - hi) - lo): s - hi is exact where p is not
-// negligible, and lo takes the rounding out. The packed entries have no lo
-// (their kernels are instantiated without it, LO = false).
+// negligible, and lo takes the rounding out. Every entry of this file reads
+// the pair (the packed ones since K1's and K5's FMA forwards write it; K3's
+// entry reads one number behind the bf16 tensor-core passes, whose forward
+// writes one, lse_pair = 0).
 //
 // The TPU kernel walks its grid in order, carries dk/dv from one query tile
 // to the next in the output block and dumps ds per window because Mosaic
@@ -96,11 +98,12 @@
 // fp32 FMAs on register tiles (8x4 per thread for the N x N tiles, 4x4 for
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
 // inputs far from their tensor-core bound. The port's bf16 packed launches
-// (K2, and K5 at W > 1) run window_attention_bwd_tc.cu instead (bf16
-// mma.sync); under MMDE_ATTN_GRID=split K3's pass alone follows them
-// (mmde_window_attention_dbias). This body serves fp32 qkv (K2, K5, the
-// head-split layout), the slab layout, and is those kernels' same-card
-// comparison.
+// (K2, and K5 at W > 1) and fp32 ones at W > 1 (K5, operands in three bf16
+// pieces) run window_attention_bwd_tc.cu instead (bf16 mma.sync); under
+// MMDE_ATTN_GRID=split K3's pass alone follows them
+// (mmde_window_attention_dbias). This body serves fp32 qkv at W = 1 (K2),
+// the fp32 head-split and slab layouts, and is the tensor-core kernels'
+// same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)
@@ -789,16 +792,19 @@ bwd_dbias_kernel(L<const T> q, L<const T> k, L<const T> v, L<const T> g,
 // use in turn. The dk/dv pass sums the W windows' ds tiles in registers
 // before its fp32 atomics into dbias: one atomic per element per W windows.
 
-// `probabilities` with the bias read from the staged tile
+// `probabilities` with the bias read from the staged tile, the log-sum-exp
+// as hi (sLse) + lo (sLo), F3
 template <typename TB, bool FASTEXP, bool FOLD>
 __device__ __forceinline__ void probabilities_staged(
     float (&s)[8][4], float (&p)[8][4], const float* __restrict__ sB,
     const TB* __restrict__ mask_w, const float* __restrict__ sLse,
-    float scale, int q0, int k0, int ty, int tx, int N) {
+    const float* __restrict__ sLo, float scale, int q0, int k0, int ty,
+    int tx, int N) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = q0 + ty * 8 + i;
     const float lse = sLse[ty * 8 + i];
+    const float lo = sLo[ty * 8 + i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = k0 + tx * 4 + j;
@@ -807,7 +813,7 @@ __device__ __forceinline__ void probabilities_staged(
         float v = sc + sB[(ty * 8 + i) * P_LD + tx * 4 + j];
         if (mask_w != nullptr) v += ldf(mask_w, (size_t)row * N + col);
         s[i][j] = sc;
-        p[i][j] = exp_<FASTEXP>(v - lse);
+        p[i][j] = exp_<FASTEXP>((v - lse) - lo);
       } else {
         s[i][j] = 0.0f;
         p[i][j] = 0.0f;
@@ -819,9 +825,9 @@ __device__ __forceinline__ void probabilities_staged(
 // shared memory of the W-window passes, in floats: the part every block
 // has, and one window's slot
 constexpr int DQW_BASE_FLOATS = 2 * BT * P_LD + BT * R_LD + BT * P_LD + BT;
-constexpr int DQW_WIN_FLOATS = 2 * BT * R_LD + 2 * BT;
+constexpr int DQW_WIN_FLOATS = 2 * BT * R_LD + 3 * BT;
 constexpr int DKVW_BASE_FLOATS =
-    8 + 2 * BT * P_LD + 2 * BT * R_LD + BT * P_LD + 3 * BT;
+    8 + 2 * BT * P_LD + 2 * BT * R_LD + BT * P_LD + 4 * BT;
 constexpr int DKVW_WIN_FLOATS = 2 * BT * R_LD;
 static_assert(2 * BT * P_LD >= 4 * DH * BT, "p / ds tiles cover the staging");
 
@@ -830,7 +836,8 @@ __global__ void __launch_bounds__(NT)
 bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                 Rows<const T> g, const float* __restrict__ logit_scale,
                 const TB* __restrict__ bias, const TB* __restrict__ mask,
-                const float* __restrict__ lse, Rows<T> dq,
+                const float* __restrict__ lse,
+                const float* __restrict__ lse_lo, Rows<T> dq,
                 float* __restrict__ delta, int N, int nW, int W) {
   extern __shared__ __align__(16) float smem[];
   float* sQt = smem;                   // [DH][BT] q^   } the tile products
@@ -842,7 +849,8 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   float* sK = smem + 2 * BT * P_LD;    // [BT][R_LD] k^
   float* sB = sK + BT * R_LD;          // [BT][P_LD] bias tile
   float* sRq = sB + BT * P_LD;         // [BT]
-  float* sWin = sRq + BT;              // W x {A, B [BT][R_LD]; delta, lse}
+  float* sWin = sRq + BT;              // W x {A, B [BT][R_LD]; delta, lse
+                                       //      hi, lo}
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT;
@@ -863,8 +871,10 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
     for (int e = tid; e < 2 * BT * R_LD; e += NT) wA[e] = 0.0f;
     if (tid < BT) {
       const int r = q0 + tid;
+      const size_t i = ((size_t)(b0 + w) * nH + h) * N + r;
       wD[tid] = 0.0f;
-      wL[tid] = r < N ? lse[((size_t)(b0 + w) * nH + h) * N + r] : 0.0f;
+      wL[tid] = r < N ? lse[i] : 0.0f;
+      wL[BT + tid] = r < N ? lse_lo[i] : 0.0f;
     }
   }
 
@@ -909,8 +919,8 @@ bwd_dq_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 
       float s[8][4], p[8][4], dp[8][4];
       tile_dot(sQt, sKt, ty, tx, s);
-      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, wL, scale,
-                                              q0, k0, ty, tx, N);
+      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, wL, wL + BT,
+                                              scale, q0, k0, ty, tx, N);
       tile_dot(sGt, sVt, ty, tx, dp);
       if (!RB || pass == 0) {
 #pragma unroll
@@ -1043,6 +1053,7 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                  Rows<const T> g, const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
                  const float* __restrict__ lse,
+                 const float* __restrict__ lse_lo,
                  const float* __restrict__ delta, Rows<T> dk, Rows<T> dv,
                  double* __restrict__ dls_part, float* __restrict__ dbias,
                  int N, int nW, int W) {
@@ -1060,7 +1071,8 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   float* sRk = sB + BT * P_LD;         // [BT]
   float* sLse = sRk + BT;              // [BT]
   float* sDelta = sLse + BT;           // [BT]
-  float* sWin = sDelta + BT;           // W x {dv, dk^ [BT][R_LD]}
+  float* sLo = sDelta + BT;            // [BT] the log-sum-exp's lo (F3)
+  float* sWin = sLo + BT;              // W x {dv, dk^ [BT][R_LD]}
 
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT;
@@ -1106,6 +1118,7 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
           put_t(sQt, j, x);
           put_r(sQ, j, x);
           sLse[j] = r < N ? lse[stat0 + r] : 0.0f;
+          sLo[j] = r < N ? lse_lo[stat0 + r] : 0.0f;
           fetch_row(k.head(b, h), k, k0 + j, N, x);
           normalise(x);
           operand<RB>(x, 1.0f);
@@ -1125,8 +1138,8 @@ bwd_dkv_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
 
       float s[8][4], p[8][4], ds[8][4];
       tile_dot(sQt, sKt, ty, tx, s);
-      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, sLse, scale,
-                                              q0, k0, ty, tx, N);
+      probabilities_staged<TB, FASTEXP, FOLD>(s, p, sB, mask_w, sLse, sLo,
+                                              scale, q0, k0, ty, tx, N);
       tile_dot(sGt, sVt, ty, tx, ds);  // dp for now
       float dls_t = 0.0f;
 #pragma unroll
@@ -1362,27 +1375,28 @@ int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid(nT, nH, B_ / W);
+  // F3: lse is (2, B_, nH, N), hi then lo
+  const float* lo = (const float*)lse + (size_t)B_ * nH * N;
   bwd_dq_w_kernel<T, TB, FASTEXP, MXU><<<grid, NT, (int)dq_bytes, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-      (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW, W);
+      (const TB*)mask, (const float*)lse, lo, o.dq, (float*)delta, N, nW, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   bwd_dkv_w_kernel<T, TB, FASTEXP, MXU>
       <<<grid, NT, (int)dkv_bytes, stream>>>(
           o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
-          (const TB*)mask, (const float*)lse, (const float*)delta, o.dk,
-          o.dv, (double*)dls_part,
+          (const TB*)mask, (const float*)lse, lo, (const float*)delta,
+          o.dk, o.dv, (double*)dls_part,
           dbias_mode == 1 ? (float*)dbias : nullptr, N, nW, W);
   err = cudaGetLastError();
   if (err != cudaSuccess || dbias_mode != 2) return (int)err;
 
   dim3 grid_b(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, false>
+  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, true>
       <<<grid_b, NT, 0, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, nullptr, (const float*)delta, (float*)dbias, B_, N,
-      nW);
+      (const float*)lse, lo, (const float*)delta, (float*)dbias, B_, N, nW);
   return (int)cudaGetLastError();
 }
 
@@ -1412,7 +1426,7 @@ template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_dbias(const void* qkv, const void* g, const void* ls,
                  const void* bias, const void* mask, const void* lse,
                  const void* delta, void* dbias, int B_, int N, int nH,
-                 int nW, cudaStream_t stream) {
+                 int nW, int lse_pair, cudaStream_t stream) {
   const int C = nH * DH;
   const Rows<const T> q = packed_rows((const T*)qkv, 0, N, C, 3, DH);
   const Rows<const T> k = packed_rows((const T*)qkv, 1, N, C, 3, DH);
@@ -1423,7 +1437,10 @@ int launch_dbias(const void* qkv, const void* g, const void* ls,
     return -1;
   const int nT = (N + BT - 1) / BT;
   dim3 grid(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, false><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, nullptr, (const float*)delta, (float*)dbias, B_, N, nW);
+  if (lse_pair)   // F3: (2, B_, nH, N), hi then lo
+    bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, true><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, (const float*)lse + (size_t)B_ * nH * N, (const float*)delta, (float*)dbias, B_, N, nW);
+  else
+    bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, false><<<grid, NT, 0, stream>>>(q, k, v, gg, (const float*)ls, (const TB*)bias, (const TB*)mask, (const float*)lse, nullptr, (const float*)delta, (float*)dbias, B_, N, nW);
   return (int)cudaGetLastError();
 }
 
@@ -1472,9 +1489,10 @@ int launch_layout(Layout layout, const void* q, const void* k,
       o.dq = packed_rows((T*)dq, 0, N, C, 3, DH);
       o.dk = packed_rows((T*)dq, 1, N, C, 3, DH);
       o.dv = packed_rows((T*)dq, 2, N, C, 3, DH);
-      return launch<Rows, T, TB, FASTEXP, MXU, false>(
-          o, ls, bias, mask, lse, nullptr, delta, dls_part, dbias, B_, N, nH,
-          nW, dbias_mode, stream);
+      // F3: lse is (2, B_, nH, N), hi then lo
+      return launch<Rows, T, TB, FASTEXP, MXU, true>(
+          o, ls, bias, mask, lse, (const float*)lse + (size_t)B_ * nH * N,
+          delta, dls_part, dbias, B_, N, nH, nW, dbias_mode, stream);
     }
     if constexpr (MXU != MXU_FP32) {
       return -1;
@@ -1527,8 +1545,8 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
 // Plain C entry. Pointers are device pointers. qkv (B_, N, 3C), g (B_, N, C)
 // and dqkv (B_, N, 3C) share an element type (qkv_bf16: 0 = fp32); bias
 // (nH, N, N) and mask (nW, N, N; may be null) share one (bias_bf16); fp32
-// qkv requires fp32 bias. lse (B_, nH, N) fp32 comes from the forward
-// kernel; delta (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp64
+// qkv requires fp32 bias. lse (2, B_, nH, N) fp32 comes from the forward
+// kernel, hi then lo (F3); delta (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp64
 // are scratch and output (the caller sums dls_part over its first axis).
 // dbias (nH, N, N) fp32: dbias_mode 0 = not computed (may be null),
 // 1 = added with atomics (the caller zeroes it first), 2 = written by the
@@ -1555,13 +1573,15 @@ extern "C" int mmde_window_attention_bwd(
 
 // K3's pass alone (MMDE_ATTN_GRID=split behind the tensor-core passes of
 // window_attention_bwd_tc.cu, which write delta): dbias (nH, N, N) fp32,
-// every element written once. The other arguments as for
-// mmde_window_attention_bwd; lse and delta as that entry leaves them.
+// every element written once. lse_pair: lse is (2, B_, nH, N), hi then lo
+// (F3: the fp32 tensor-core forward's), else (B_, nH, N) (the bf16 one's).
+// The other arguments as for mmde_window_attention_bwd; delta as the
+// tensor-core passes leave it.
 extern "C" int mmde_window_attention_dbias(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, const void* delta,
     void* dbias, int B_, int N, int C, int nH, int nW, int qkv_bf16,
-    int bias_bf16, int mxu, void* stream) {
+    int bias_bf16, int lse_pair, int mxu, void* stream) {
   if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535 ||
       dbias == nullptr)
     return -1;
@@ -1572,15 +1592,15 @@ extern "C" int mmde_window_attention_dbias(
     if (!qkv_bf16 && !bias_bf16)
       return launch_dbias<float, float, false, MXU>(
           qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
-          s);
+          lse_pair, s);
     if (qkv_bf16 && bias_bf16)
       return launch_dbias<__nv_bfloat16, __nv_bfloat16, true, MXU>(
           qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
-          s);
+          lse_pair, s);
     if (qkv_bf16 && !bias_bf16)
       return launch_dbias<__nv_bfloat16, float, true, MXU>(
           qkv, g, logit_scale, bias, mask, lse, delta, dbias, B_, N, nH, nW,
-          s);
+          lse_pair, s);
     return -1;
   });
 }

@@ -4,8 +4,8 @@
 // Replaces the TPU kernel K4, mmde_tpu/ops/window_attention_packed.py::
 // _bwd_body_v4 (driven by _pallas_backward_v4), the backward that
 // MMDE_ATTN_GRID=bias_resident selects, on qkv as the Linear emits it,
-// (B_, N, 3C), for fp32 qkv; bf16 qkv runs window_attention_bwd_resident_tc
-// .cu (the tensor cores), for which this body is the same-card comparison.
+// (B_, N, 3C); bf16 and fp32 qkv run window_attention_bwd_resident_tc.cu
+// (the tensor cores), for which this body is the same-card comparison.
 // Per (window b, head h), with q^ = q * rq, k^ = k * rk (rq, rk
 // = rsqrt(sum(x^2) + 1e-12)) and scale = exp(min(logit_scale[h], ln 100)):
 //

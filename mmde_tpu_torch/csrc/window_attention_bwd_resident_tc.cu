@@ -1,11 +1,11 @@
 // Fused SwinV2 cosine window attention, backward in one pass, on Hopper's
-// tensor cores (sm_90a, bf16 mma.sync), for bf16 qkv in the packed layout.
+// tensor cores (sm_90a, bf16 mma.sync), for bf16 and fp32 qkv in the packed
+// layout.
 //
 // Replaces the TPU kernel K4, mmde_tpu/ops/window_attention_packed.py::
 // _bwd_body_v4 (driven by _pallas_backward_v4), the backward that
-// MMDE_ATTN_GRID=bias_resident selects, for every bf16 launch; fp32 qkv
-// keeps the fp32-FMA body (window_attention_bwd_resident.cu), which is also
-// this kernel's same-card A/B partner. The function is that body's - always
+// MMDE_ATTN_GRID=bias_resident selects, for every launch; the fp32-FMA body
+// (window_attention_bwd_resident.cu) is its same-card A/B partner. The function is that body's - always
 // the exact ("fp32") one, whatever MMDE_ATTN_MXU says, as in the JAX package.
 // Per (window b, head h), q^ = q * rq, k^ = k * rk, scale = exp(min(ls, ln
 // 100)):
@@ -61,6 +61,20 @@
 // window (from L2), the atomics and the two sweeps' k / v streams from L2
 // come on top. Shared memory ~100 KB at bf16 bias and mask: two blocks an
 // SM; `splits` (the caller's) cuts the window sweep for about one wave.
+//
+// fp32 qkv (T = float): no fp32 operand is exact in bf16, so each is split
+// into three bf16 pieces and every product taken as the six piece products
+// whose indices sum to at most 2 (window_attention_tc.cuh): 42 units a
+// (window, head), ~2^-24 of each product left out. q and g stay in
+// registers as three A-fragment pieces; k and v arrive as fp32 tiles by
+// cp.async (two stages) and a split pass writes their three bf16 planes
+// (one stage: the step's first barrier frees them), the window's q and g
+// tiles likewise at its sweep 2; p and ds * factor go through shared
+// memory in three planes each. ~199 KB of shared memory with fp32 bias and
+// mask tiles: one block an SM. The tensor cores round each sum toward
+// zero, a few fp32 ulps below round-to-nearest; the block's own m and l
+// normalise p from those same logits, so no statistic of other arithmetic
+// meets them (K5's backward reads its forward's).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -123,32 +137,58 @@ __device__ __forceinline__ void store_pair(float* m, int row, int col, int N,
   }
 }
 
+// Operand pieces (window_attention_tc.cuh): T = bf16 takes q, k, v, g as
+// they are (one piece) and splits p and ds * factor in two; T = float
+// splits every operand in three - q and g A fragments in registers, k, v
+// and the window's q and g tiles staged as three bf16 planes each, p and ds
+// * factor in three.
+template <typename T>
+struct ResidentPieces {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int PS = F32 ? 3 : 1;   // a loaded or staged operand
+  static constexpr int PR = F32 ? 3 : 2;   // an operand formed in registers
+};
+
 // One block of 4 warps an SM at least (the bound lets ptxas take the
 // registers it needs: without it the fp32-tile instantiation spilled;
-// shared memory holds two blocks an SM either way).
-template <typename TB>
+// shared memory holds two blocks an SM for bf16 qkv, one for fp32).
+template <typename T, typename TB>
 __global__ void __launch_bounds__(TC_NT, 1)
-bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
-                       Rows<const bf16> v, Rows<const bf16> g,
-                       const float* __restrict__ logit_scale,
+bwd_resident_tc_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                       Rows<const T> g, const float* __restrict__ logit_scale,
                        const TB* __restrict__ bias,
-                       const TB* __restrict__ mask, Rows<bf16> dq,
+                       const TB* __restrict__ mask, Rows<T> dq,
                        float* __restrict__ dkv, float* __restrict__ dbias_part,
                        double* __restrict__ dls_part, int B_, int N, int nW,
                        int chunk) {
-  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  constexpr bool F32 = ResidentPieces<T>::F32;
+  constexpr int PS = ResidentPieces<T>::PS, PR = ResidentPieces<T>::PR;
+  // bf16: the K / V tiles, double-buffered (fp32 stages them in dynamic
+  // shared memory, below)
+  __shared__ __align__(128) bf16 sK[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
   __shared__ double sRed[4];
   extern __shared__ __align__(128) char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // [64][TC_LD] the window's q
-  bf16* sG = sQ + TC_BT * TC_LD;              // [64][TC_LD] its g
-  bf16* sPh = sG + TC_BT * TC_LD;             // [64 q][RT_LDP] p, hi
-  bf16* sPl = sPh + TC_BT * RT_LDP;           //                p, lo
-  bf16* sDh = sPl + TC_BT * RT_LDP;           // ds * scale * rq_i, hi
-  bf16* sDl = sDh + TC_BT * RT_LDP;           //                    lo
+  bf16* sQ = reinterpret_cast<bf16*>(smem);   // [PS][64][TC_LD] window's q
+  bf16* sG = sQ + PS * TC_PLANE;              // [PS][64][TC_LD] its g
+  bf16* sP = sG + PS * TC_PLANE;              // [PR][64 q][RT_LDP] p
+  bf16* sD = sP + PR * TC_BT * RT_LDP;        // [PR] ds * scale * rq_i
+  // bf16 stores and reads p and ds through these named hi / lo tiles: with
+  // plane-generic addresses (sP + p * plane) nvcc keeps every sweep-2
+  // fragment address in a register of its own (200 registers instead of
+  // 188 with fp32 bias tiles); named tiles have them formed at each use
+  bf16* sPh = sP;
+  bf16* sPl = sP + TC_BT * RT_LDP;
+  bf16* sDh = sD;
+  bf16* sDl = sD + TC_BT * RT_LDP;
   // the stages' bias (and mask) tiles: BiasTiles
-  char* sBM = reinterpret_cast<char*>(sDl + TC_BT * RT_LDP);
+  char* sBM = reinterpret_cast<char*>(sD + PR * TC_BT * RT_LDP);
+  // fp32: K and V staging [2 stages][K, V], then their planes [PS] each
+  float* sStg = reinterpret_cast<float*>(
+      sBM + (BiasTiles<TB>::kFold ? 3 : 4) * btile_bytes<TB>());
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 4 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
@@ -168,14 +208,22 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
 
   // step s's K, V, bias and mask tiles -> stage s & 1; the window's q and g
   // tiles (read by sweep 2's dk / dv products) with its sweep 2's first
+  // (fp32: split from device memory at that step, below)
   auto issue = [&](int s) {
     const int st = s & 1, b = b_beg + s / per_win, r = s % per_win;
     const int kn = (r % nt) * TC_BT;
-    load_tile(sK[st], k.head(b, h), k, kn, N, tid);
-    load_tile(sV[st], v.head(b, h), v, kn, N, tid);
-    if (r == nt) {
-      load_tile(sQ, q.head(b, h), q, q0, N, tid);
-      load_tile(sG, g.head(b, h), g, q0, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg + 2 * st * TC_STAGE_F32, k.head(b, h), k, kn, N,
+                    tid);
+      load_tile_f32(sStg + (2 * st + 1) * TC_STAGE_F32, v.head(b, h), v, kn,
+                    N, tid);
+    } else {
+      load_tile(sK[st], k.head(b, h), k, kn, N, tid);
+      load_tile(sV[st], v.head(b, h), v, kn, N, tid);
+      if (r == nt) {
+        load_tile(sQ, q.head(b, h), q, q0, N, tid);
+        load_tile(sG, g.head(b, h), g, q0, N, tid);
+      }
     }
     if (async_b)
       stage_bias_tiles(bt, st, bias_h,
@@ -187,7 +235,7 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
 
   const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const bool ok0 = r0 < N, ok1 = r1 < N;
-  uint32_t qa[2][4], ga[2][4];
+  uint32_t qa[PS][2][4], ga[PS][2][4];
   float rq0 = 0.0f, rq1 = 0.0f;
   float m0 = 0.0f, m1 = 0.0f, l0 = 0.0f, l1 = 0.0f, D0 = 0.0f, D1 = 0.0f;
   float il0 = 0.0f, il1 = 0.0f, dl0 = 0.0f, dl1 = 0.0f;
@@ -201,9 +249,17 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
     const bool grad = r >= nt;
     const int k0 = (r % nt) * TC_BT;
     if (r == 0) {   // a new window: its fragments, norms, fresh statistics
-      load_afrag(qa, q.head(b, h), q, r0, N, t);
-      load_afrag(ga, g.head(b, h), g, r0, N, t);
-      row_norms(qa, rq0, rq1, lane);
+      if constexpr (F32) {
+        float none0, none1;
+        load_operand<T, PS, true, false>(qa, q.head(b, h), q, r0, N, lane,
+                                         rq0, rq1, 1.0f);
+        load_operand<T, PS, false, false>(ga, g.head(b, h), g, r0, N, lane,
+                                          none0, none1, 1.0f);
+      } else {
+        load_afrag(qa[0], q.head(b, h), q, r0, N, t);
+        load_afrag(ga[0], g.head(b, h), g, r0, N, t);
+        row_norms(qa[0], rq0, rq1, lane);
+      }
       m0 = m1 = -INFINITY;
       l0 = l1 = D0 = D1 = 0.0f;
 #pragma unroll
@@ -230,9 +286,37 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
                        q0, k0, N, tid, false);
     else if (bt.fold())
       fold_mask(bt, st, tid);
-    tile_norms<false>(sK[st], sRk[st], 1.0f, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (and its norm), warps 2-3 a
+      // V row; at sweep 2's first step the window's q / g rows too
+      const int rr = tid & (TC_BT - 1);
+      const bool isk = tid < TC_BT;
+      float x[TC_DH];
+      staged_row(sStg + (2 * st + (isk ? 0 : 1)) * TC_STAGE_F32, rr, x);
+      if (isk) sRk[st][rr] = row_rnorm(x);
+      put_row<PS, false>(isk ? sKp : sVp, rr, x, 1.0f, 1.0f);
+      if (r == nt) {
+        const int row = q0 + rr;
+        if (row < N)
+          load_row(isk ? q.head(b, h) + q.off(row) : g.head(b, h) + g.off(row),
+                   x);
+        else
+#pragma unroll
+          for (int d = 0; d < TC_DH; ++d) x[d] = 0.0f;
+        put_row<PS, false>(isk ? sQ : sG, rr, x, 1.0f, 1.0f);
+      }
+    } else {
+      tile_norms<false>(sK[st], sRk[st], 1.0f, tid);
+    }
     __syncthreads();
     if (step + 1 < steps && bt.fold()) issue(step + 1);
+    // the step's K / V tile (fp32: its first plane, PS planes apart)
+    const bf16* kt = sK[st];
+    const bf16* vt = sV[st];
+    if constexpr (F32) {
+      kt = sKp;
+      vt = sVp;
+    }
 
     if (!grad) {
       // ---- sweep 1: S, the logits, online m; then dP a column block at a
@@ -242,10 +326,11 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-        uint32_t kb[4];
-        frag_rows(kb, sK[st], j, lane);
-        mma(s[j], qa[0], kb[0], kb[1]);
-        mma(s[j], qa[1], kb[2], kb[3]);
+        uint32_t kb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(kb[p], kt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(s[j], qa, kb);
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -293,10 +378,11 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        uint32_t vb[4];
-        frag_rows(vb, sV[st], j, lane);
-        mma(dp, ga[0], vb[0], vb[1]);
-        mma(dp, ga[1], vb[2], vb[3]);
+        uint32_t vb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(vb[p], vt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(dp, ga, vb);
         const float e0 = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
         const float e1 = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
         const float e2 = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
@@ -335,13 +421,15 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
         const int j = 2 * kk + jj;
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-        uint32_t kb[4], vb[4];
-        frag_rows(kb, sK[st], j, lane);
-        mma(s[jj], qa[0], kb[0], kb[1]);
-        mma(s[jj], qa[1], kb[2], kb[3]);
-        frag_rows(vb, sV[st], j, lane);
-        mma(dp[jj], ga[0], vb[0], vb[1]);
-        mma(dp[jj], ga[1], vb[2], vb[3]);
+        uint32_t kb[PS][4], vb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(kb[p], kt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(s[jj], qa, kb);
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(vb[p], vt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(dp[jj], ga, vb);
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -402,25 +490,38 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
           const int o = (warp * 16 + (lane >> 2) + 8 * half) * RT_LDP +
                         16 * kk + 8 * jj + 2 * t;
           const float fr = half ? fr1 : fr0;
-          uint32_t hi, lo;
-          split2(s[jj][2 * half], s[jj][2 * half + 1], hi, lo);
-          *reinterpret_cast<uint32_t*>(sPh + o) = hi;
-          *reinterpret_cast<uint32_t*>(sPl + o) = lo;
-          split2(dp[jj][2 * half] * fr, dp[jj][2 * half + 1] * fr, hi, lo);
-          *reinterpret_cast<uint32_t*>(sDh + o) = hi;
-          *reinterpret_cast<uint32_t*>(sDl + o) = lo;
+          if constexpr (F32) {
+            uint32_t w[PR];
+            pieces<PR>(s[jj][2 * half], s[jj][2 * half + 1], w);
+#pragma unroll
+            for (int p = 0; p < PR; ++p)
+              *reinterpret_cast<uint32_t*>(sP + p * TC_BT * RT_LDP + o) =
+                  w[p];
+            pieces<PR>(dp[jj][2 * half] * fr, dp[jj][2 * half + 1] * fr, w);
+#pragma unroll
+            for (int p = 0; p < PR; ++p)
+              *reinterpret_cast<uint32_t*>(sD + p * TC_BT * RT_LDP + o) =
+                  w[p];
+          } else {
+            uint32_t hi, lo;
+            split2(s[jj][2 * half], s[jj][2 * half + 1], hi, lo);
+            *reinterpret_cast<uint32_t*>(sPh + o) = hi;
+            *reinterpret_cast<uint32_t*>(sPl + o) = lo;
+            split2(dp[jj][2 * half] * fr, dp[jj][2 * half + 1] * fr, hi, lo);
+            *reinterpret_cast<uint32_t*>(sDh + o) = hi;
+            *reinterpret_cast<uint32_t*>(sDl + o) = lo;
+          }
         }
       // dqn += (ds scale rk_j) k_j, split
-      uint32_t ah[4], al[4];
-      afrag<true>(dp[0], dp[1], f[0], f[1], ah, al);
+      uint32_t a[PR][4];
+      afrag_p<PR>(dp[0], dp[1], f[0], f[1], a);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        uint32_t kb[4];
-        frag_cols(kb, sK[st], kk, c, lane);
-        mma(acc[2 * c], ah, kb[0], kb[1]);
-        mma(acc[2 * c + 1], ah, kb[2], kb[3]);
-        mma(acc[2 * c], al, kb[0], kb[1]);
-        mma(acc[2 * c + 1], al, kb[2], kb[3]);
+        uint32_t kb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_cols(kb[p], kt + p * TC_PLANE, kk, c, lane);
+        mma_cols<PR, PS>(acc[2 * c], acc[2 * c + 1], a, kb);
       }
     }
     dls += dls_t;
@@ -435,24 +536,33 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
         for (int e = 0; e < 4; ++e) accK[n][e] = accV[n][e] = 0.0f;
 #pragma unroll
       for (int kq = 0; kq < 4; ++kq) {
-        uint32_t ph[4], pl[4], dh[4], dlo[4];
-        frag_t(ph, sPh, RT_LDP, 16 * kq, 16 * warp, lane);
-        frag_t(pl, sPl, RT_LDP, 16 * kq, 16 * warp, lane);
-        frag_t(dh, sDh, RT_LDP, 16 * kq, 16 * warp, lane);
-        frag_t(dlo, sDl, RT_LDP, 16 * kq, 16 * warp, lane);
+        uint32_t pa[PR][4], da[PR][4];
+        if constexpr (F32) {
+#pragma unroll
+          for (int p = 0; p < PR; ++p)
+            frag_t(pa[p], sP + p * TC_BT * RT_LDP, RT_LDP, 16 * kq,
+                   16 * warp, lane);
+#pragma unroll
+          for (int p = 0; p < PR; ++p)
+            frag_t(da[p], sD + p * TC_BT * RT_LDP, RT_LDP, 16 * kq,
+                   16 * warp, lane);
+        } else {
+          frag_t(pa[0], sPh, RT_LDP, 16 * kq, 16 * warp, lane);
+          frag_t(pa[1], sPl, RT_LDP, 16 * kq, 16 * warp, lane);
+          frag_t(da[0], sDh, RT_LDP, 16 * kq, 16 * warp, lane);
+          frag_t(da[1], sDl, RT_LDP, 16 * kq, 16 * warp, lane);
+        }
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          uint32_t gb[4], qb[4];
-          frag_cols(gb, sG, kq, c, lane);
-          frag_cols(qb, sQ, kq, c, lane);
-          mma(accV[2 * c], ph, gb[0], gb[1]);
-          mma(accV[2 * c + 1], ph, gb[2], gb[3]);
-          mma(accV[2 * c], pl, gb[0], gb[1]);
-          mma(accV[2 * c + 1], pl, gb[2], gb[3]);
-          mma(accK[2 * c], dh, qb[0], qb[1]);
-          mma(accK[2 * c + 1], dh, qb[2], qb[3]);
-          mma(accK[2 * c], dlo, qb[0], qb[1]);
-          mma(accK[2 * c + 1], dlo, qb[2], qb[3]);
+          uint32_t gb[PS][4], qb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(gb[p], sG + p * TC_PLANE, kq, c, lane);
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(qb[p], sQ + p * TC_PLANE, kq, c, lane);
+          mma_cols<PR, PS>(accV[2 * c], accV[2 * c + 1], pa, gb);
+          mma_cols<PR, PS>(accK[2 * c], accK[2 * c + 1], da, qb);
         }
       }
       float* dk_b = dkv + (size_t)b * N * 2 * C + h * TC_DH;
@@ -471,25 +581,25 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const uint32_t w = afrag_at(qa, n, e >> 1);
           const float qn =
-              ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rq0 : rq1);
+              raw_at<PS>(qa, n, e >> 1, e & 1) * (e < 2 ? rq0 : rq1);
           if (e < 2) dot0 = fmaf(acc[n][e], qn, dot0);
           else dot1 = fmaf(acc[n][e], qn, dot1);
         }
       dot0 = quad_sum(dot0);
       dot1 = quad_sum(dot1);
-      bf16* dq_bh = dq.head(b, h) + 2 * t;
+      T* dq_bh = dq.head(b, h) + 2 * t;
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           if (!(half ? ok1 : ok0)) continue;
           const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
-          const uint32_t w = afrag_at(qa, n, half);
           store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
-                     rq * (acc[n][2 * half] - lo_f(w) * rq * dot),
-                     rq * (acc[n][2 * half + 1] - hi_f(w) * rq * dot));
+                     rq * (acc[n][2 * half] -
+                           raw_at<PS>(qa, n, half, 0) * rq * dot),
+                     rq * (acc[n][2 * half + 1] -
+                           raw_at<PS>(qa, n, half, 1) * rq * dot));
         }
     }
   }
@@ -507,24 +617,28 @@ bwd_resident_tc_kernel(Rows<const bf16> q, Rows<const bf16> k,
   }
 }
 
-// dynamic shared memory: the q / g tiles, the p / ds tiles, BiasTiles
-template <typename TB>
+// dynamic shared memory: the q / g tiles, the p / ds tiles, BiasTiles;
+// fp32: the K / V staging and planes
+template <typename T, typename TB>
 int dyn_bytes() {
-  return 2 * TC_BT * TC_LD * 2 + 4 * TC_BT * RT_LDP * 2 +
-         bias_tiles_bytes<TB>(true);
+  constexpr int PS = ResidentPieces<T>::PS, PR = ResidentPieces<T>::PR;
+  return 2 * PS * TC_PLANE * 2 + 2 * PR * TC_BT * RT_LDP * 2 +
+         bias_tiles_bytes<TB>(true) +
+         (ResidentPieces<T>::F32 ? 4 * TC_STAGE_F32 * 4 + 2 * PS * TC_PLANE * 2
+                                 : 0);
 }
 
-template <typename TB>
+template <typename T, typename TB>
 int launch(const void* qkv, const void* ls, const void* bias,
            const void* mask, const void* g, void* dqkv, void* dkv,
            void* dbias_part, void* dls_part, int B_, int N, int nH, int nW,
            int splits, cudaStream_t stream) {
   const int C = nH * TC_DH;
-  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  const Rows<const bf16> rg = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
-  const Rows<bf16> rdq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
+  const Rows<const T> rq = packed_rows((const T*)qkv, 0, N, C, 3, TC_DH);
+  const Rows<const T> rk = packed_rows((const T*)qkv, 1, N, C, 3, TC_DH);
+  const Rows<const T> rv = packed_rows((const T*)qkv, 2, N, C, 3, TC_DH);
+  const Rows<const T> rg = packed_rows((const T*)g, 0, N, C, 1, TC_DH);
+  const Rows<T> rdq = packed_rows((T*)dqkv, 0, N, C, 3, TC_DH);
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
       !rows_aligned(rg) || !rows_aligned(rdq) ||
       reinterpret_cast<uintptr_t>(dkv) % 16 != 0)
@@ -532,11 +646,11 @@ int launch(const void* qkv, const void* ls, const void* bias,
   const int chunk = (B_ + splits - 1) / splits;
   if ((long long)(splits - 1) * chunk >= B_) return -1;  // an empty chunk
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_resident_tc_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn_bytes<TB>());
+      bwd_resident_tc_kernel<T, TB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes<T, TB>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, splits);
-  bwd_resident_tc_kernel<TB><<<grid, TC_NT, dyn_bytes<TB>(), stream>>>(
+  bwd_resident_tc_kernel<T, TB><<<grid, TC_NT, dyn_bytes<T, TB>(), stream>>>(
       rq, rk, rv, rg, (const float*)ls, (const TB*)bias, (const TB*)mask,
       rdq, (float*)dkv, (float*)dbias_part, (double*)dls_part, B_, N, nW,
       chunk);
@@ -545,9 +659,9 @@ int launch(const void* qkv, const void* ls, const void* bias,
 
 }  // namespace
 
-// Plain C entry. qkv (B_, N, 3C), g (B_, N, C) and dqkv (B_, N, 3C) bf16,
-// C = 32 * nH; bias (nH, N, N) and mask (nW, N, N; may be null) bf16 when
-// bias_bf16, else fp32. Writes dq, the first C columns of dqkv, complete;
+// Plain C entry. qkv (B_, N, 3C), g (B_, N, C) and dqkv (B_, N, 3C) bf16
+// when qkv_bf16, else fp32 (then bias fp32 too), C = 32 * nH; bias (nH, N,
+// N) and mask (nW, N, N; may be null) bf16 when bias_bf16, else fp32. Writes dq, the first C columns of dqkv, complete;
 // adds scale * ds^T q^ (dk^, before the normalise-VJP) and p^T g (dv) into
 // dkv (B_, N, 2C) fp32, which the caller zeroes first; writes one fp32
 // dbias partial per window chunk into dbias_part (splits, nH, N, N), every
@@ -560,15 +674,20 @@ extern "C" int mmde_window_attention_bwd_resident_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* g, void* dqkv, void* dkv,
     void* dbias_part, void* dls_part, int B_, int N, int C, int nH, int nW,
-    int bias_bf16, int splits, void* stream) {
+    int qkv_bf16, int bias_bf16, int splits, void* stream) {
   if (C != nH * TC_DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535)
     return -1;
   if (splits <= 0 || splits > 65535) return -1;
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
   cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16)
+    return bias_bf16 ? -1
+                     : launch<float, float>(qkv, logit_scale, bias, mask, g,
+                                            dqkv, dkv, dbias_part, dls_part,
+                                            B_, N, nH, nW, splits, s);
   if (bias_bf16)
-    return launch<bf16>(qkv, logit_scale, bias, mask, g, dqkv, dkv,
-                        dbias_part, dls_part, B_, N, nH, nW, splits, s);
-  return launch<float>(qkv, logit_scale, bias, mask, g, dqkv, dkv,
-                       dbias_part, dls_part, B_, N, nH, nW, splits, s);
+    return launch<bf16, bf16>(qkv, logit_scale, bias, mask, g, dqkv, dkv,
+                              dbias_part, dls_part, B_, N, nH, nW, splits, s);
+  return launch<bf16, float>(qkv, logit_scale, bias, mask, g, dqkv, dkv,
+                             dbias_part, dls_part, B_, N, nH, nW, splits, s);
 }

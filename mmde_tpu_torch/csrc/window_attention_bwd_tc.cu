@@ -20,8 +20,10 @@
 // + L::off(r) (the map's tile loads through TileRows' shared table). Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
-// delta written here. window_attention_bwd.cu keeps K2's fp32-FMA body for
-// fp32 qkv (and as the same-card A/B partner). Same function and the same
+// delta written here. fp32 qkv runs K5's two passes here too (instantiated
+// on float, every operand in three bf16 pieces, below);
+// window_attention_bwd.cu keeps K2's fp32-FMA body for fp32 qkv at W = 1
+// (and as the same-card A/B partner). Same function and the same
 // two passes as K2 (its header has the formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
@@ -595,22 +597,41 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
 // ---------------------------------------------------------------------------
 constexpr int W_MAX = 8;   // windows a block holds
 
+// fp32 qkv (T = float): every operand in three bf16 pieces (the "bf16"
+// mode: one rounding), the streamed tiles staged in fp32 and split into
+// bf16 planes once they arrived (window_attention_tc.cuh), the forward's
+// statistic read as hi + lo (F3): p = exp((s - hi) - lo). Per window the
+// arithmetic is the bf16 passes' with split products.
+template <typename T, int MXU>
+struct WPieces {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool RB = MXU == MXU_BF16;
+  static constexpr int PS = F32 && !RB ? 3 : 1;   // staged / loaded
+  static constexpr int PR = RB ? 1 : F32 ? 3 : 2;  // formed in registers
+};
+
 // Both W passes bound to one block an SM at least: ptxas then takes the
 // registers they need (without it, 4 bytes spilled in the bf16 mode's dq
 // pass and the fp32-tile dk/dv pass); shared memory decides how many fit.
-template <typename TB, int MXU>
+template <typename T, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT, 1)
-bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
-                   Rows<const bf16> g, const float* __restrict__ logit_scale,
+bwd_dq_tc_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                   Rows<const T> g, const float* __restrict__ logit_scale,
                    const TB* __restrict__ bias, const TB* __restrict__ mask,
-                   const float* __restrict__ lse, Rows<bf16> dq,
+                   const float* __restrict__ lse, Rows<T> dq,
                    float* __restrict__ delta, int N, int nW, int W) {
-  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  using WP = WPieces<T, MXU>;
+  constexpr bool F32 = WP::F32;
+  constexpr int PS = WP::PS, PR = WP::PR;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sK[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
   // dynamic: bias tiles [2] (by key tile), mask tiles [2] (by step), then
   // per window dq [4 warps][4 n][32 lanes] and {lse0, lse1, d0, d1} [4][32]
-  // (d: the lane's delta partial, over the first sweep)
+  // (d: the lane's delta partial, over the first sweep); fp32: per window
+  // {lo0, lo1} [4][32], the K / V staging [2 stages][2] and planes
   extern __shared__ __align__(128) char sW[];
   const bool masked = mask != nullptr;
   char* sB = sW;
@@ -618,6 +639,10 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   float4* sA = reinterpret_cast<float4*>(sM + (masked ? 2 : 0) *
                                                   btile_bytes<TB>());
   float4* sS = sA + W * 4 * 4 * 32;
+  float2* sLo = reinterpret_cast<float2*>(sS + W * 4 * 32);
+  float* sStg = reinterpret_cast<float*>(sLo + W * 4 * 32);
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 4 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
 
   constexpr bool RB = MXU == MXU_BF16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -634,8 +659,15 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   auto issue = [&](int s) {
     const int st = s & 1, rr = s % per_pass, kn = (rr / W) * TC_BT;
     const int b = b0 + rr % W;
-    load_tile(sK[st], k.head(b, h), k, kn, N, tid);
-    load_tile(sV[st], v.head(b, h), v, kn, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg + 2 * st * TC_STAGE_F32, k.head(b, h), k, kn, N,
+                    tid);
+      load_tile_f32(sStg + (2 * st + 1) * TC_STAGE_F32, v.head(b, h), v, kn,
+                    N, tid);
+    } else {
+      load_tile(sK[st], k.head(b, h), k, kn, N, tid);
+      load_tile(sV[st], v.head(b, h), v, kn, N, tid);
+    }
     if (async_b) {
       if (rr % W == 0)
         load_btile(sB + ((s / W) & 1) * btile_bytes<TB>(), bias_h, q0, kn, N,
@@ -657,15 +689,27 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     sS[(w * 4 + warp) * 32 + lane] =
         make_float4(ok0 ? lse[stat0 + r0] : 0.0f,
                     ok1 ? lse[stat0 + r1] : 0.0f, 0.0f, 0.0f);
+    if constexpr (F32) {   // F3: the statistic's lo, (2, B_, nH, N)
+      const float* lo = lse + (size_t)gridDim.z * W * nH * N;
+      sLo[(w * 4 + warp) * 32 + lane] =
+          make_float2(ok0 ? lo[stat0 + r0] : 0.0f,
+                      ok1 ? lo[stat0 + r1] : 0.0f);
+    }
   }
 
   for (int step = 0; step < steps; ++step) {
     const int st = step & 1, rr = step % per_pass, w = rr % W;
     const int b = b0 + w, k0 = (rr / W) * TC_BT;
     const bool first = step < per_pass;   // the delta sweep
-    uint32_t qa[2][4], ga[2][4];
-    load_afrag(qa, q.head(b, h), q, r0, N, t);
-    load_afrag(ga, g.head(b, h), g, r0, N, t);
+    uint32_t qa[PS][2][4], ga[PS][2][4];
+    float2 qx[2][4], gx[2][4];   // fp32: the raw rows, split after the waits
+    if constexpr (F32) {
+      load_afrag_f32(qx, q.head(b, h), q, r0, N, t);
+      load_afrag_f32(gx, g.head(b, h), g, r0, N, t);
+    } else {
+      load_afrag(qa[0], q.head(b, h), q, r0, N, t);
+      load_afrag(ga[0], g.head(b, h), g, r0, N, t);
+    }
     cp_async_wait_all();
     __syncthreads();
     if (step + 1 < steps) issue(step + 1);
@@ -678,30 +722,67 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
         load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
                    q0, k0, N, tid, false);
     }
-    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (its norm; "bf16": k^
+      // rounded), warps 2-3 a V row
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      staged_row(sStg + (2 * st + (tid < TC_BT ? 0 : 1)) * TC_STAGE_F32, r,
+                 x);
+      if (tid < TC_BT) {
+        const float rn = row_rnorm(x);
+        sRk[st][r] = rn;
+        put_row<PS, RB>(sKp, r, x, rn, 1.0f);
+      } else {
+        put_row<PS, false>(sVp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    }
     __syncthreads();
+    const bf16* kt = sK[st];
+    const bf16* vt = sV[st];
+    if constexpr (F32) {
+      kt = sKp;
+      vt = sVp;
+    }
 
     float rq0, rq1;
-    row_norms(qa, rq0, rq1, lane);
-    if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);   // qs
-    const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
-    const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    if constexpr (F32) {
+      float none0, none1;
+      finish_operand<PS, true, RB || FQ>(qx, qa, lane, rq0, rq1, scale);
+      finish_operand<PS, false, false>(gx, ga, lane, none0, none1, 1.0f);
+    } else {
+      row_norms(qa[0], rq0, rq1, lane);
+      if constexpr (RB) scale_afrag(qa[0], rq0, rq1, scale);   // qs
+    }
+    const float c0 = FQ ? 1.0f : MXU == MXU_FP32 ? rq0 : rq0 * scale;
+    const float c1 = FQ ? 1.0f : MXU == MXU_FP32 ? rq1 : rq1 * scale;
     float4* sa = sA + (w * 4 + warp) * 4 * 32 + lane;
     float4* ss = sS + (w * 4 + warp) * 32 + lane;
     const float4 stat = *ss;
     const float lse0 = stat.x, lse1 = stat.y;
+    float2 lo = make_float2(0.0f, 0.0f);
+    if constexpr (F32) lo = sLo[(w * 4 + warp) * 32 + lane];
     float dpart0 = stat.z, dpart1 = stat.w, dl0 = 0.0f, dl1 = 0.0f;
+    // fp32: this step's products in fresh registers, added to the window's
+    // dq by the CUDA cores (round to nearest; the tensor cores' sums round
+    // toward zero, a running sum in their accumulator would drift low)
     float acc[4][4];
     if (!first) {
       dl0 = quad_sum(dpart0);
       dl1 = quad_sum(dpart1);
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const float4 x = sa[n * 32];
-        acc[n][0] = x.x;
-        acc[n][1] = x.y;
-        acc[n][2] = x.z;
-        acc[n][3] = x.w;
+        if constexpr (F32) {
+          acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+        } else {
+          const float4 x = sa[n * 32];
+          acc[n][0] = x.x;
+          acc[n][1] = x.y;
+          acc[n][2] = x.z;
+          acc[n][3] = x.w;
+        }
       }
     }
 
@@ -713,13 +794,15 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
         const int j = 2 * kk + jj;
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-        uint32_t kb[4], vb[4];
-        frag_rows(kb, sK[st], j, lane);
-        mma(s[jj], qa[0], kb[0], kb[1]);
-        mma(s[jj], qa[1], kb[2], kb[3]);
-        frag_rows(vb, sV[st], j, lane);
-        mma(dp[jj], ga[0], vb[0], vb[1]);
-        mma(dp[jj], ga[1], vb[2], vb[3]);
+        uint32_t kb[PS][4], vb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(kb[p], kt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(s[jj], qa, kb);
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(vb[p], vt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(dp[jj], ga, vb);
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -750,7 +833,11 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
             float y = x[e];
             if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
             else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
-            x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
+            if constexpr (F32)   // F3: p = exp((s - hi) - lo)
+              x[e] = ex2((((y + (e ? bm.y : bm.x)) - (half ? lse1 : lse0)) -
+                          (half ? lo.y : lo.x)) * TC_LOG2E);
+            else
+              x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
           }
           if (!in1) x[1] = 0.0f;
         }
@@ -770,26 +857,31 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
         dp[jj][2] = s[jj][2] * (dp[jj][2] - dl1);
         dp[jj][3] = s[jj][3] * (dp[jj][3] - dl1);
       }
-      uint32_t ah[4], al[4];
-      afrag<!RB>(dp[0], dp[1], f[0], f[1], ah, al);
+      uint32_t a[PR][4];
+      afrag_p<PR>(dp[0], dp[1], f[0], f[1], a);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        uint32_t kb[4];
-        frag_cols(kb, sK[st], kk, c, lane);
-        mma(acc[2 * c], ah, kb[0], kb[1]);
-        mma(acc[2 * c + 1], ah, kb[2], kb[3]);
-        if constexpr (!RB) {
-          mma(acc[2 * c], al, kb[0], kb[1]);
-          mma(acc[2 * c + 1], al, kb[2], kb[3]);
-        }
+        uint32_t kb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_cols(kb[p], kt + p * TC_PLANE, kk, c, lane);
+        mma_cols<PR, PS>(acc[2 * c], acc[2 * c + 1], a, kb);
       }
     }
     if (first) {
       *ss = make_float4(lse0, lse1, dpart0, dpart1);
     } else {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 4; ++n) {
+        if constexpr (F32) {
+          const float4 x = sa[n * 32];
+          acc[n][0] += x.x;
+          acc[n][1] += x.y;
+          acc[n][2] += x.z;
+          acc[n][3] += x.w;
+        }
         sa[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+      }
     }
   }
 
@@ -805,10 +897,10 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
       if (ok0) delta[stat0 + r0] = dl0;
       if (ok1) delta[stat0 + r1] = dl1;
     }
-    uint32_t qa[2][4];
-    load_afrag(qa, q.head(b, h), q, r0, N, t);
+    uint32_t qa[F32 ? 3 : 1][2][4];   // the raw q (fp32: exact in three)
     float rq0, rq1;
-    row_norms(qa, rq0, rq1, lane);
+    load_operand<T, F32 ? 3 : 1, true, false>(qa, q.head(b, h), q, r0, N,
+                                              lane, rq0, rq1, 1.0f);
     float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
@@ -818,9 +910,7 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
       for (int e = 0; e < 4; ++e) {
         float x = av[e];
         if constexpr (RB) x *= scale;
-        const uint32_t wd = afrag_at(qa, n, e >> 1);
-        const float qn =
-            ((e & 1) ? hi_f(wd) : lo_f(wd)) * (e < 2 ? rq0 : rq1);
+        const float qn = raw_at(qa, n, e >> 1, e & 1) * (e < 2 ? rq0 : rq1);
         dqn[n][e] = x;
         if (e < 2) dot0 = fmaf(x, qn, dot0);
         else dot1 = fmaf(x, qn, dot1);
@@ -828,45 +918,54 @@ bwd_dq_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     }
     dot0 = quad_sum(dot0);
     dot1 = quad_sum(dot1);
-    bf16* dq_bh = dq.head(b, h) + 2 * t;
+    T* dq_bh = dq.head(b, h) + 2 * t;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         if (!(half ? ok1 : ok0)) continue;
         const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
-        const uint32_t wd = afrag_at(qa, n, half);
         store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
-                   rq * (dqn[n][2 * half] - lo_f(wd) * rq * dot),
-                   rq * (dqn[n][2 * half + 1] - hi_f(wd) * rq * dot));
+                   rq * (dqn[n][2 * half] - raw_at(qa, n, half, 0) * rq * dot),
+                   rq * (dqn[n][2 * half + 1] -
+                         raw_at(qa, n, half, 1) * rq * dot));
       }
   }
 }
 
-template <typename TB, int MXU>
+template <typename T, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT, 1)
-bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
-                    Rows<const bf16> v, Rows<const bf16> g,
-                    const float* __restrict__ logit_scale,
+bwd_dkv_tc_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
+                    Rows<const T> g, const float* __restrict__ logit_scale,
                     const TB* __restrict__ bias, const TB* __restrict__ mask,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, Rows<bf16> dk,
-                    Rows<bf16> dv, double* __restrict__ dls_part,
-                    float* __restrict__ dbias, int N, int nW, int W) {
-  __shared__ __align__(128) bf16 sQ[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sG[2][TC_BT * TC_LD];
+                    const float* __restrict__ delta, Rows<T> dk, Rows<T> dv,
+                    double* __restrict__ dls_part, float* __restrict__ dbias,
+                    int N, int nW, int W) {
+  using WP = WPieces<T, MXU>;
+  constexpr bool F32 = WP::F32;
+  constexpr int PS = WP::PS, PR = WP::PR;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sQ[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sG[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRq[2][TC_BT];
   __shared__ float sLse[2][TC_BT];
   __shared__ float sDl[2][TC_BT];
+  __shared__ float sLo[2][F32 ? TC_BT : 1];   // fp32: the statistic's lo
   __shared__ double sRed[4];
   // dynamic: bias tiles [2] (by query tile), mask tiles [2] (by step), then
-  // per window dv and dk^ [2][4 warps][4 n][32 lanes]
+  // per window dv and dk^ [2][4 warps][4 n][32 lanes]; fp32: the Q / G
+  // staging [2 stages][2] and planes
   extern __shared__ __align__(128) char sW[];
   const bool masked = mask != nullptr;
   char* sB = sW;
   char* sM = sB + 2 * btile_bytes<TB>();
   float4* sAcc = reinterpret_cast<float4*>(sM + (masked ? 2 : 0) *
                                                     btile_bytes<TB>());
+  float* sStg = reinterpret_cast<float*>(sAcc + W * 2 * 4 * 4 * 32);
+  bf16* sQp = reinterpret_cast<bf16*>(sStg + 4 * TC_STAGE_F32);
+  bf16* sGp = sQp + PS * TC_PLANE;
 
   constexpr bool RB = MXU == MXU_BF16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -887,8 +986,15 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
   auto load = [&](int s) {
     const int st = s & 1, q0 = (s / W) * TC_BT, b = b0 + s % W;
     const size_t stat0 = ((size_t)b * nH + h) * N;
-    load_tile(sQ[st], q.head(b, h), q, q0, N, tid);
-    load_tile(sG[st], g.head(b, h), g, q0, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg + 2 * st * TC_STAGE_F32, q.head(b, h), q, q0, N,
+                    tid);
+      load_tile_f32(sStg + (2 * st + 1) * TC_STAGE_F32, g.head(b, h), g, q0,
+                    N, tid);
+    } else {
+      load_tile(sQ[st], q.head(b, h), q, q0, N, tid);
+      load_tile(sG[st], g.head(b, h), g, q0, N, tid);
+    }
     if (async_b) {
       if (s % W == 0)
         load_btile(sB + ((s / W) & 1) * btile_bytes<TB>(), bias_h, q0, k0, N,
@@ -901,6 +1007,13 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
     const bool ok = q0 + j < N;
     const float* src = (tid < TC_BT ? lse : delta) + stat0 + (ok ? q0 + j : 0);
     cp_async4(tid < TC_BT ? &sLse[st][j] : &sDl[st][j], src, ok);
+    if constexpr (F32) {   // F3: lo, (2, B_, nH, N)
+      if (tid < TC_BT)
+        cp_async4(&sLo[st][j],
+                  lse + (size_t)gridDim.z * W * nH * N + stat0 +
+                      (ok ? q0 + j : 0),
+                  ok);
+    }
     cp_async_commit();
   };
   load(0);
@@ -915,9 +1028,15 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
   for (int step = 0; step < steps; ++step) {
     const int st = step & 1, w = step % W, b = b0 + w;
     const int q0 = (step / W) * TC_BT;
-    uint32_t ka[2][4], va[2][4];
-    load_afrag(ka, k.head(b, h), k, r0, N, t);
-    load_afrag(va, v.head(b, h), v, r0, N, t);
+    uint32_t ka[PS][2][4], va[PS][2][4];
+    float2 kx[2][4], vx[2][4];   // fp32: the raw rows, split after the waits
+    if constexpr (F32) {
+      load_afrag_f32(kx, k.head(b, h), k, r0, N, t);
+      load_afrag_f32(vx, v.head(b, h), v, r0, N, t);
+    } else {
+      load_afrag(ka[0], k.head(b, h), k, r0, N, t);
+      load_afrag(va[0], v.head(b, h), v, r0, N, t);
+    }
     cp_async_wait_all();
     __syncthreads();
     if (step + 1 < steps) load(step + 1);
@@ -930,20 +1049,57 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
         load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
                    q0, k0, N, tid, false);
     }
-    tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a Q row each (its norm; "bf16": q^ *
+      // scale rounded), warps 2-3 a G row
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      staged_row(sStg + (2 * st + (tid < TC_BT ? 0 : 1)) * TC_STAGE_F32, r,
+                 x);
+      if (tid < TC_BT) {
+        const float rn = row_rnorm(x);
+        sRq[st][r] = rn;
+        put_row<PS, RB || FQ>(sQp, r, x, rn, scale);
+      } else {
+        put_row<PS, false>(sGp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    }
     __syncthreads();
+    const bf16* qt = sQ[st];
+    const bf16* gt = sG[st];
+    if constexpr (F32) {
+      qt = sQp;
+      gt = sGp;
+    }
 
     float rk0, rk1;
-    row_norms(ka, rk0, rk1, lane);
-    if constexpr (RB) scale_afrag(ka, rk0, rk1, 1.0f);   // bf16(k^)
+    if constexpr (F32) {
+      float none0, none1;
+      finish_operand<PS, true, RB>(kx, ka, lane, rk0, rk1, 1.0f);
+      finish_operand<PS, false, false>(vx, va, lane, none0, none1, 1.0f);
+    } else {
+      row_norms(ka[0], rk0, rk1, lane);
+      if constexpr (RB) scale_afrag(ka[0], rk0, rk1, 1.0f);   // bf16(k^)
+    }
     float4* sv = sAcc + ((w * 2) * 4 + warp) * 4 * 32 + lane;
     float4* sk = sAcc + ((w * 2 + 1) * 4 + warp) * 4 * 32 + lane;
+    // fp32: this step's products in fresh registers, added to the window's
+    // dv and dk^ by the CUDA cores after them (as the dq pass)
     float accV[4][4], accK[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      const float4 x = sv[n * 32], y = sk[n * 32];
-      accV[n][0] = x.x; accV[n][1] = x.y; accV[n][2] = x.z; accV[n][3] = x.w;
-      accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z; accK[n][3] = y.w;
+      if constexpr (F32) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accV[n][e] = accK[n][e] = 0.0f;
+      } else {
+        const float4 x = sv[n * 32], y = sk[n * 32];
+        accV[n][0] = x.x; accV[n][1] = x.y; accV[n][2] = x.z;
+        accV[n][3] = x.w;
+        accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z;
+        accK[n][3] = y.w;
+      }
     }
 
     float dls_t = 0.0f;
@@ -955,13 +1111,15 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
         const int j = 2 * kk + jj;
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-        uint32_t qb[4], gb[4];
-        frag_rows(qb, sQ[st], j, lane);
-        mma(s[jj], ka[0], qb[0], qb[1]);
-        mma(s[jj], ka[1], qb[2], qb[3]);
-        frag_rows(gb, sG[st], j, lane);
-        mma(dp[jj], va[0], gb[0], gb[1]);
-        mma(dp[jj], va[1], gb[2], gb[3]);
+        uint32_t qb[PS][4], gb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(qb[p], qt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(s[jj], ka, qb);
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(gb[p], gt + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(dp[jj], va, gb);
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -970,9 +1128,16 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
         const float rq[2] = {sRq[st][cl], sRq[st][cl + 1]};
         const float ls2[2] = {sLse[st][cl] * TC_LOG2E,
                               sLse[st][cl + 1] * TC_LOG2E};
+        float hi2[2] = {0.0f, 0.0f}, lo2[2] = {0.0f, 0.0f};
+        if constexpr (F32) {
+          hi2[0] = sLse[st][cl];
+          hi2[1] = sLse[st][cl + 1];
+          lo2[0] = sLo[st][cl];
+          lo2[1] = sLo[st][cl + 1];
+        }
         const float dl[2] = {sDl[st][cl], sDl[st][cl + 1]};
-        f[jj][0] = RB ? 1.0f : scale * rq[0];
-        f[jj][1] = RB ? 1.0f : scale * rq[1];
+        f[jj][0] = RB || FQ ? 1.0f : scale * rq[0];
+        f[jj][1] = RB || FQ ? 1.0f : scale * rq[1];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int kl = warp * 16 + (lane >> 2) + 8 * half;
@@ -987,10 +1152,14 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
             }
             float sc = x;
             if constexpr (MXU == MXU_FP32) sc = sc * rq[e] * rk * scale;
+            else if constexpr (FQ) sc = sc * rk;
             else if constexpr (MXU == MXU_FOLD) sc = sc * (scale * rq[e]) * rk;
             float y = sc + btile_at<TB>(tb, cl + e, kl);
             if (masked) y += btile_at<TB>(tm, cl + e, kl);
-            x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
+            if constexpr (F32)   // F3: p = exp((s - hi) - lo)
+              x = ex2(((y - hi2[e]) - lo2[e]) * TC_LOG2E);
+            else
+              x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
             d = x * (d - dl[e]);
             dls_t = fmaf(d, sc, dls_t);
           }
@@ -1031,30 +1200,33 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
           }
         }
       }
-      uint32_t ph[4], pl[4], dh[4], dl4[4];
+      uint32_t pa[PR][4], da[PR][4];
       const float one[2] = {1.0f, 1.0f};
-      afrag<!RB>(s[0], s[1], one, one, ph, pl);
-      afrag<!RB>(dp[0], dp[1], f[0], f[1], dh, dl4);
+      afrag_p<PR>(s[0], s[1], one, one, pa);
+      afrag_p<PR>(dp[0], dp[1], f[0], f[1], da);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        uint32_t gb[4], qb[4];
-        frag_cols(gb, sG[st], kk, c, lane);
-        frag_cols(qb, sQ[st], kk, c, lane);
-        mma(accV[2 * c], ph, gb[0], gb[1]);
-        mma(accV[2 * c + 1], ph, gb[2], gb[3]);
-        mma(accK[2 * c], dh, qb[0], qb[1]);
-        mma(accK[2 * c + 1], dh, qb[2], qb[3]);
-        if constexpr (!RB) {
-          mma(accV[2 * c], pl, gb[0], gb[1]);
-          mma(accV[2 * c + 1], pl, gb[2], gb[3]);
-          mma(accK[2 * c], dl4, qb[0], qb[1]);
-          mma(accK[2 * c + 1], dl4, qb[2], qb[3]);
-        }
+        uint32_t gb[PS][4], qb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_cols(gb[p], gt + p * TC_PLANE, kk, c, lane);
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_cols(qb[p], qt + p * TC_PLANE, kk, c, lane);
+        mma_cols2<PR, PS>(accV[2 * c], accV[2 * c + 1], pa, gb, accK[2 * c],
+                          accK[2 * c + 1], da, qb);
       }
     }
     dls += dls_t;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
+      if constexpr (F32) {
+        const float4 x = sv[n * 32], y = sk[n * 32];
+        accV[n][0] += x.x; accV[n][1] += x.y; accV[n][2] += x.z;
+        accV[n][3] += x.w;
+        accK[n][0] += y.x; accK[n][1] += y.y; accK[n][2] += y.z;
+        accK[n][3] += y.w;
+      }
       sv[n * 32] = make_float4(accV[n][0], accV[n][1], accV[n][2], accV[n][3]);
       sk[n * 32] = make_float4(accK[n][0], accK[n][1], accK[n][2], accK[n][3]);
     }
@@ -1066,10 +1238,10 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
     const int b = b0 + w;
     const float4* sv = sAcc + ((w * 2) * 4 + warp) * 4 * 32 + lane;
     const float4* sk = sAcc + ((w * 2 + 1) * 4 + warp) * 4 * 32 + lane;
-    uint32_t ka[2][4];
-    load_afrag(ka, k.head(b, h), k, r0, N, t);
+    uint32_t ka[F32 ? 3 : 1][2][4];   // the raw k (fp32: exact in three)
     float rk0, rk1;
-    row_norms(ka, rk0, rk1, lane);
+    load_operand<T, F32 ? 3 : 1, true, false>(ka, k.head(b, h), k, r0, N,
+                                              lane, rk0, rk1, 1.0f);
     float accK[4][4], accV[4][4], dot0 = 0.0f, dot1 = 0.0f;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
@@ -1078,17 +1250,15 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
       accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z; accK[n][3] = y.w;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const uint32_t wd = afrag_at(ka, n, e >> 1);
-        const float kn =
-            ((e & 1) ? hi_f(wd) : lo_f(wd)) * (e < 2 ? rk0 : rk1);
+        const float kn = raw_at(ka, n, e >> 1, e & 1) * (e < 2 ? rk0 : rk1);
         if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
         else dot1 = fmaf(accK[n][e], kn, dot1);
       }
     }
     dot0 = quad_sum(dot0);
     dot1 = quad_sum(dot1);
-    bf16* dk_bh = dk.head(b, h) + 2 * t;
-    bf16* dv_bh = dv.head(b, h) + 2 * t;
+    T* dk_bh = dk.head(b, h) + 2 * t;
+    T* dv_bh = dv.head(b, h) + 2 * t;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -1096,10 +1266,10 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
         if (!(half ? ok1 : ok0)) continue;
         const int key = half ? r1 : r0;
         const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
-        const uint32_t wd = afrag_at(ka, n, half);
         store_pair(dk_bh + dk.off(key) + 8 * n,
-                   rk * (accK[n][2 * half] - lo_f(wd) * rk * dot),
-                   rk * (accK[n][2 * half + 1] - hi_f(wd) * rk * dot));
+                   rk * (accK[n][2 * half] - raw_at(ka, n, half, 0) * rk * dot),
+                   rk * (accK[n][2 * half + 1] -
+                         raw_at(ka, n, half, 1) * rk * dot));
         store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
                    accV[n][2 * half + 1]);
       }
@@ -1117,18 +1287,23 @@ bwd_dkv_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k,
 }
 
 // dynamic shared memory of the W passes: bias and mask tiles, W windows'
-// state (dq pass: dq and 4 floats a lane; dk/dv pass: dk^ and dv)
-template <typename TB>
+// state (dq pass: dq and 4 floats a lane; dk/dv pass: dk^ and dv); fp32:
+// the dq pass's 2 more floats a lane, the staging and the planes
+template <typename T, typename TB, int MXU>
 int w_bwd_bytes(bool masked, int W, bool dkv) {
+  using WP = WPieces<T, MXU>;
   return (masked ? 4 : 2) * btile_bytes<TB>() +
-         W * (dkv ? 2 * 4 * 4 * 32 : 4 * 4 * 32 + 4 * 32) * 16;
+         W * (dkv ? 2 * 4 * 4 * 32 : 4 * 4 * 32 + 4 * 32) * 16 +
+         (WP::F32 ? (dkv ? 0 : W * 4 * 32 * 8) + 4 * TC_STAGE_F32 * 4 +
+                        2 * WP::PS * TC_PLANE * 2
+                  : 0);
 }
 
 // The operands' (window, head, token) layout, on the host.
-template <template <typename> class L>
+template <template <typename> class L, typename T = bf16>
 struct Operands {
-  L<const bf16> q, k, v, g;
-  L<bf16> dq, dk, dv;
+  L<const T> q, k, v, g;
+  L<T> dq, dk, dv;
   bool aligned() const {
     return rows_aligned(q) && rows_aligned(k) && rows_aligned(v) &&
            rows_aligned(g) && rows_aligned(dq) && rows_aligned(dk) &&
@@ -1186,45 +1361,80 @@ int launch_packed(const void* qkv, const void* g, const void* ls,
                                dbias, B_, N, nH, nW, stream);
 }
 
-// K5's two passes on the packed layout, W windows per block
-template <typename TB, int MXU>
+// Windows the dk/dv pass holds a block: W, or for fp32 qkv the largest
+// divisor of W whose dk^ / dv state fits beside the staging, the planes and
+// the static arrays (masked, 8 windows take 254 KB of the 227 KB a block may
+// have: the pass then runs 4 windows a block, twice the blocks, and the dq
+// pass keeps W). Decided from the shape and the device, before any launch.
+template <typename T, typename TB, int MXU>
+int dkv_windows(bool masked, int W) {
+  if (!WPieces<T, MXU>::F32) return W;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, bwd_dkv_tc_w_kernel<T, TB, MXU>) !=
+          cudaSuccess)
+    return -1;
+  int wd = W;
+  while (wd > 1 && w_bwd_bytes<T, TB, MXU>(masked, wd, true) +
+                           (int)fa.sharedSizeBytes > optin) {
+    --wd;
+    while (W % wd != 0) --wd;
+  }
+  return wd;
+}
+
+// K5's two passes on the packed layout, W windows per block (the dk/dv
+// pass: dkv_windows); T = float: fp32 qkv, g and dqkv, lse (2, B_, nH, N)
+// hi then lo. The bf16 passes take the shared memory of W_MAX masked
+// windows once; the fp32 ones that of the launch
+template <typename T, typename TB, int MXU>
 int launch_packed_w(const void* qkv, const void* g, const void* ls,
                     const void* bias, const void* mask, const void* lse,
                     void* dqkv, void* delta, void* dls_part, void* dbias,
                     int B_, int N, int nH, int nW, int W,
                     cudaStream_t stream) {
   const int C = nH * TC_DH;
-  Operands<Rows> o;
-  o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  o.g = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
-  o.dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
-  o.dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
-  o.dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
+  Operands<Rows, T> o;
+  o.q = packed_rows((const T*)qkv, 0, N, C, 3, TC_DH);
+  o.k = packed_rows((const T*)qkv, 1, N, C, 3, TC_DH);
+  o.v = packed_rows((const T*)qkv, 2, N, C, 3, TC_DH);
+  o.g = packed_rows((const T*)g, 0, N, C, 1, TC_DH);
+  o.dq = packed_rows((T*)dqkv, 0, N, C, 3, TC_DH);
+  o.dk = packed_rows((T*)dqkv, 1, N, C, 3, TC_DH);
+  o.dv = packed_rows((T*)dqkv, 2, N, C, 3, TC_DH);
   if (!o.aligned()) return -1;
   const bool masked = mask != nullptr;
+  const bool f32 = WPieces<T, MXU>::F32;
+  const int Wd = dkv_windows<T, TB, MXU>(masked, W);
+  if (Wd < 1) return (int)cudaGetLastError();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_tc_w_kernel<TB, MXU>,
+      bwd_dq_tc_w_kernel<T, TB, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      w_bwd_bytes<TB>(true, W_MAX, false));
+      f32 ? w_bwd_bytes<T, TB, MXU>(masked, W, false)
+          : w_bwd_bytes<T, TB, MXU>(true, W_MAX, false));
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_tc_w_kernel<TB, MXU>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             w_bwd_bytes<TB>(true, W_MAX, true));
+  err = cudaFuncSetAttribute(
+      bwd_dkv_tc_w_kernel<T, TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      f32 ? w_bwd_bytes<T, TB, MXU>(masked, Wd, true)
+          : w_bwd_bytes<T, TB, MXU>(true, W_MAX, true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_ / W);
-  bwd_dq_tc_w_kernel<TB, MXU>
-      <<<grid, TC_NT, w_bwd_bytes<TB>(masked, W, false), stream>>>(
+  bwd_dq_tc_w_kernel<T, TB, MXU>
+      <<<grid, TC_NT, w_bwd_bytes<T, TB, MXU>(masked, W, false), stream>>>(
           o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
           (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_tc_w_kernel<TB, MXU>
-      <<<grid, TC_NT, w_bwd_bytes<TB>(masked, W, true), stream>>>(
+  grid.z = B_ / Wd;
+  bwd_dkv_tc_w_kernel<T, TB, MXU>
+      <<<grid, TC_NT, w_bwd_bytes<T, TB, MXU>(masked, Wd, true), stream>>>(
           o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
           (const TB*)mask, (const float*)lse, (const float*)delta, o.dk,
-          o.dv, (double*)dls_part, (float*)dbias, N, nW, W);
+          o.dv, (double*)dls_part, (float*)dbias, N, nW, Wd);
   return (int)cudaGetLastError();
 }
 
@@ -1277,31 +1487,45 @@ extern "C" int mmde_window_attention_bwd_tc(
 
 // K5's entry on the tensor cores: as mmde_window_attention_bwd_tc, with W
 // (2 .. W_MAX, dividing B_, and nW where there is a mask) consecutive
-// windows per block in both passes; dls_part is (B_ / W * ceil(N / 64), nH).
-// -1 for a W it does not take.
+// windows per block in both passes (fp32: the dk/dv pass at a divisor of W
+// where W windows do not fit, dkv_windows); dls_part is (B_ * ceil(N / 64),
+// nH), zeroed: the dk/dv pass writes one row a block, the rest stay 0.
+// qkv_bf16 0: fp32 qkv, g and dqkv (and fp32 bias), every operand in three
+// bf16 pieces, lse (2, B_, nH, N) hi then lo as
+// mmde_window_attention_fwd_tc_w writes it (F3). -1 for a W or a type it
+// does not take.
 extern "C" int mmde_window_attention_bwd_tc_w(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
-    int nW, int bias_bf16, int dbias_mode, int W, int mxu, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int W, int mxu,
+    void* stream) {
   if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
     return -1;
   if (W < 2 || W > W_MAX || B_ % W != 0 || (mask != nullptr && nW % W != 0))
     return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
     constexpr int MXU = decltype(m)::value;
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
+    } else if (!qkv_bf16) {
+      return launch_packed_w<float, float, MXU>(qkv, g, logit_scale, bias,
+                                                mask, lse, dqkv, delta,
+                                                dls_part, db, B_, N, nH, nW,
+                                                W, s);
     } else if (bias_bf16) {
-      return launch_packed_w<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse,
-                                        dqkv, delta, dls_part, db, B_, N, nH,
-                                        nW, W, s);
+      return launch_packed_w<bf16, bf16, MXU>(qkv, g, logit_scale, bias,
+                                              mask, lse, dqkv, delta,
+                                              dls_part, db, B_, N, nH, nW, W,
+                                              s);
     } else {
-      return launch_packed_w<float, MXU>(qkv, g, logit_scale, bias, mask,
-                                         lse, dqkv, delta, dls_part, db, B_,
-                                         N, nH, nW, W, s);
+      return launch_packed_w<bf16, float, MXU>(qkv, g, logit_scale, bias,
+                                               mask, lse, dqkv, delta,
+                                               dls_part, db, B_, N, nH, nW, W,
+                                               s);
     }
   });
 }

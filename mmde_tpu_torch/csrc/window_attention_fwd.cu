@@ -66,9 +66,10 @@
 // run here as fp32 FMAs on register tiles (8x4 logits and 4x4 outputs per
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
 // load and take the same path, far from their bound. The port's bf16 packed
-// launches (K1, and K5 at W > 1) run window_attention_fwd_tc.cu instead
-// (bf16 mma.sync); this body serves fp32 qkv (K1, K5, the head-split
-// layout), the slab layout, and is those kernels' same-card comparison.
+// launches (K1, and K5 at W > 1) and fp32 ones at W > 1 (K5, operands in
+// three bf16 pieces) run window_attention_fwd_tc.cu instead (bf16
+// mma.sync); this body serves fp32 qkv at W = 1 (K1), the fp32 head-split
+// and slab layouts, and is the tensor-core kernels' same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`): the packed bodies (K1, K5) are templates over it, and their C
@@ -339,19 +340,15 @@ window_attention_fwd_kernel(L<const T> q, L<const T> k, L<const T> v,
 
   // the statistic the backward kernel rebuilds p from, for either softmax
   // form: p = exp(s - lse), lse = shift-or-maximum + log(row sum). With
-  // lse_lo (the head-split and slab entries, F3) m + log(l) is formed in
+  // lse_lo (every entry, F3) m + log(l) is formed in
   // fp64 and kept as fp32 hi + lo, so that p = exp((s - hi) - lo) carries
   // no rounding of lse ~ 60 into a whole row.
   if (lse != nullptr && tid < BQ && q0 + tid < N) {
     const size_t i = ((size_t)b * gridDim.y + h) * N + q0 + tid;
-    if (lse_lo == nullptr) {
-      lse[i] = sM[tid] + logf(sL[tid]);
-    } else {
-      const double x = (double)sM[tid] + log((double)sL[tid]);
-      const float hi = (float)x;
-      lse[i] = hi;
-      lse_lo[i] = (float)(x - (double)hi);
-    }
+    const double x = (double)sM[tid] + log((double)sL[tid]);
+    const float hi = (float)x;
+    lse[i] = hi;
+    lse_lo[i] = (float)(x - (double)hi);
   }
 
   T* out_b = out.head(b, h) + px * 4;
@@ -386,7 +383,8 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
                               const float* __restrict__ logit_scale,
                               const TB* __restrict__ bias,
                               const TB* __restrict__ mask, Rows<T> out,
-                              float* __restrict__ lse, int N, int nW,
+                              float* __restrict__ lse,
+                              float* __restrict__ lse_lo, int N, int nW,
                               int maxfree, int W) {
   extern __shared__ __align__(16) float smem[];
   float* sKt = smem;                 // [DH][BK] k^ of one window's key tile
@@ -603,9 +601,12 @@ window_attention_fwd_w_kernel(Rows<const T> q, Rows<const T> k,
     const float* wo = sWin + w * W_WIN_FLOATS + DH * BQ;
     const float* wm = wo + BQ * V_LD;
     const float* wl = wm + BQ;
-    if (lse != nullptr && tid < BQ && q0 + tid < N)
-      lse[((size_t)b * gridDim.y + h) * N + q0 + tid] =
-          wm[tid] + logf(wl[tid]);
+    if (lse != nullptr && tid < BQ && q0 + tid < N) {   // hi + lo, as K1
+      const size_t i = ((size_t)b * gridDim.y + h) * N + q0 + tid;
+      const double x = (double)wm[tid] + log((double)wl[tid]);
+      lse[i] = (float)x;
+      lse_lo[i] = (float)(x - (double)(float)x);
+    }
     T* out_b = out.head(b, h) + px * 4;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -660,10 +661,11 @@ int launch_w(const void* qkv, const void* ls, const void* bias,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + BQ - 1) / BQ, nH, B_ / W);
+  float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
   window_attention_fwd_w_kernel<T, TB, FASTEXP, MXU>
       <<<grid, NT, (int)bytes, stream>>>(rq, rk, rv, (const float*)ls,
                                          (const TB*)bias, (const TB*)mask, ro,
-                                         (float*)lse, N, nW, maxfree, W);
+                                         (float*)lse, lo, N, nW, maxfree, W);
   return (int)cudaGetLastError();
 }
 
@@ -682,18 +684,18 @@ int launch_layout(Layout layout, const void* q, const void* k,
                   int B_, int N, int nH, int nW, int maxfree,
                   cudaStream_t stream) {
   const int C = nH * DH;
+  // F3: every entry's lse is (2, B_, nH, N), hi then lo
+  float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
   if (layout == PACKED)
     return launch<Rows, T, TB, FASTEXP, MXU>(
         packed_rows((const T*)q, 0, N, C, 3, DH),
         packed_rows((const T*)q, 1, N, C, 3, DH),
         packed_rows((const T*)q, 2, N, C, 3, DH), ls, bias, mask,
-        packed_rows((T*)out, 0, N, C, 1, DH), lse, nullptr, B_, N, nH, nW,
+        packed_rows((T*)out, 0, N, C, 1, DH), lse, lo, B_, N, nH, nW,
         maxfree, stream);
   if constexpr (MXU != MXU_FP32) {
     return -1;
   } else {
-    // F3: the head-split and slab entries' lse is (2, B_, nH, N), hi then lo
-    float* lo = lse != nullptr ? (float*)lse + (size_t)B_ * nH * N : nullptr;
     if (layout == MAP) {
       const int Hp = (int)st[0], Wp = (int)st[1], ws = (int)st[2];
       return launch<MapRows, T, TB, FASTEXP, MXU>(
@@ -739,8 +741,9 @@ int dispatch(Layout layout, const void* q, const void* k, const void* v,
 
 // Plain C entries. Pointers are device pointers; `mask` may be null (then nW
 // is ignored). qkv_bf16 / bias_bf16 select the element types (0 = fp32);
-// fp32 qkv requires fp32 bias. `lse` (B_, nH, N) fp32, when not null,
-// receives each row's log-sum-exp for the backward kernel. All return
+// fp32 qkv requires fp32 bias. `lse` (2, B_, nH, N) fp32, when not null,
+// receives each row's log-sum-exp for the backward kernel as hi then lo
+// (F3: m + log(l) formed in fp64). All return
 // cudaGetLastError() of the launch, or -1 for an argument combination the
 // kernel does not take. They launch on `stream`, do not synchronise and
 // allocate nothing. The packed entries (these two and

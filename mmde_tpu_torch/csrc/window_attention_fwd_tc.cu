@@ -22,9 +22,11 @@
 // L::head(b, h) + L::off(r) (the map's tile loads through a shared table of
 // the tile's pixels, TileRows in window_attention_tc.cuh), so the
 // arithmetic is the same.
-// window_attention_fwd.cu keeps the fp32-FMA body for fp32 q, k, v and as
-// the same-card A/B partner; the function, the softmax forms and the
-// log-sum-exp handed to the backward are the same.
+// fp32 q, k, v run K5 here too (fwd_tc_w_kernel on float, every operand in
+// three bf16 pieces, below); window_attention_fwd.cu keeps the fp32-FMA body
+// for the other fp32 launches and as the same-card A/B partner; the
+// function, the softmax forms and the log-sum-exp handed to the backward
+// are the same.
 //
 //   per (window b, head h):
 //     q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),  k^ = k * rk likewise
@@ -327,26 +329,49 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
 constexpr int W_MAX = 8;   // windows a block holds (W x 10 KB of state)
 constexpr int W_GROUPS = 2;  // warp groups of the block, a window each
 
-template <typename TB, int MXU>
-__global__ void __launch_bounds__(W_GROUPS * TC_NT)
-fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
+// fp32 qkv (T = float): every operand in three bf16 pieces (the "bf16"
+// mode: one rounding), K and V tiles staged in fp32 and split into bf16
+// planes once they arrived (window_attention_tc.cuh); the staging and the
+// planes leave room for one warp group at W = 8 with fp32 bias and mask
+// tiles, so an fp32 block is one group (G = 1) that walks its W windows in
+// turn. Per window the arithmetic is the bf16 kernel's with split products.
+template <typename T, int MXU>
+struct WPieces {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool RB = MXU == MXU_BF16;
+  static constexpr int PS = F32 && !RB ? 3 : 1;   // staged / loaded
+  static constexpr int PR = RB ? 1 : F32 ? 3 : 2;  // formed in registers
+  static constexpr int G = F32 ? 1 : W_GROUPS;     // warp groups
+};
+
+template <typename T, typename TB, int MXU>
+__global__ void __launch_bounds__(WPieces<T, MXU>::G * TC_NT)
+fwd_tc_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
                 const float* __restrict__ logit_scale,
                 const TB* __restrict__ bias, const TB* __restrict__ mask,
-                Rows<bf16> out, float* __restrict__ lse, int N, int nW,
+                Rows<T> out, float* __restrict__ lse, int N, int nW,
                 int maxfree, int W) {
-  __shared__ __align__(128) bf16 sK[2][W_GROUPS][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sV[2][W_GROUPS][TC_BT * TC_LD];
-  __shared__ float sRk[2][W_GROUPS][TC_BT];
-  // dynamic: bias tiles [2] (by key tile), mask tiles [2][W_GROUPS] (by
-  // step and group), then per window o [4 warps][4 n][32 lanes] and
-  // {m0, m1, l0, l1} [4][32]
+  using WP = WPieces<T, MXU>;
+  constexpr bool F32 = WP::F32;
+  constexpr int PS = WP::PS, PR = WP::PR, G = WP::G;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sK[2][G][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][G][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ float sRk[2][G][TC_BT];
+  // dynamic: bias tiles [2] (by key tile), mask tiles [2][G] (by step and
+  // group), then per window o [4 warps][4 n][32 lanes] and {m0, m1, l0,
+  // l1} [4][32]; fp32: K / V staging [2 stages][2], K / V planes [PS] each
   extern __shared__ __align__(128) char sW[];
   const bool masked = mask != nullptr;
   char* sB = sW;
   char* sM = sB + 2 * btile_bytes<TB>();
   float4* sO = reinterpret_cast<float4*>(
-      sM + (masked ? 2 * W_GROUPS : 0) * btile_bytes<TB>());
+      sM + (masked ? 2 * G : 0) * btile_bytes<TB>());
   float4* sS = sO + W * 4 * 4 * 32;
+  float* sStg = reinterpret_cast<float*>(sS + W * 4 * 32);
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 4 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
 
   constexpr bool RB = MXU == MXU_BF16;
   const int grp = threadIdx.x / TC_NT, tid = threadIdx.x % TC_NT;
@@ -360,12 +385,12 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   const bool max_first = RB && !mf;
   const bool fixed = mf || max_first;
   const int nt = (N + TC_BT - 1) / TC_BT;
-  const int pairs = (W + W_GROUPS - 1) / W_GROUPS;
+  const int pairs = (W + G - 1) / G;
   const int per_pass = nt * pairs;
   const int steps = (max_first ? 2 : 1) * per_pass;
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
   auto mask_tile = [&](int st) {
-    return sM + (st * W_GROUPS + grp) * btile_bytes<TB>();
+    return sM + (st * G + grp) * btile_bytes<TB>();
   };
 
   // step s = (pass, key tile, pair): the group's window's K (and V outside
@@ -373,11 +398,19 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   // tile's first pair, its bias tile (group 0) -> stage (s / pairs) & 1
   auto issue = [&](int s) {
     const int st = s & 1, rr = s % per_pass, kn = (rr / pairs) * TC_BT;
-    const int w = W_GROUPS * (rr % pairs) + grp, b = b0 + w;
+    const int w = G * (rr % pairs) + grp, b = b0 + w;
     if (w < W) {
-      load_tile(sK[st][grp], k.head(b, h), k, kn, N, tid);
-      if (!(max_first && s < per_pass))
-        load_tile(sV[st][grp], v.head(b, h), v, kn, N, tid);
+      const bool want_v = !(max_first && s < per_pass);
+      if constexpr (F32) {
+        load_tile_f32(sStg + 2 * st * TC_STAGE_F32, k.head(b, h), k, kn, N,
+                      tid);
+        if (want_v)
+          load_tile_f32(sStg + (2 * st + 1) * TC_STAGE_F32, v.head(b, h), v,
+                        kn, N, tid);
+      } else {
+        load_tile(sK[st][grp], k.head(b, h), k, kn, N, tid);
+        if (want_v) load_tile(sV[st][grp], v.head(b, h), v, kn, N, tid);
+      }
       if (async_b && masked)
         load_btile(mask_tile(st), mask + (size_t)(b % nW) * N * N, q0, kn,
                    N, tid, true);
@@ -389,10 +422,10 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
   };
   issue(0);
 
-  for (int i = threadIdx.x; i < W * 4 * 4 * 32; i += W_GROUPS * TC_NT)
+  for (int i = threadIdx.x; i < W * 4 * 4 * 32; i += G * TC_NT)
     sO[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float m_init = mf ? shift : -INFINITY;
-  for (int i = threadIdx.x; i < W * 4 * 32; i += W_GROUPS * TC_NT)
+  for (int i = threadIdx.x; i < W * 4 * 32; i += G * TC_NT)
     sS[i] = make_float4(m_init, m_init, 0.0f, 0.0f);
 
   const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
@@ -400,12 +433,16 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
 
   for (int step = 0; step < steps; ++step) {
     const int st = step & 1, rr = step % per_pass;
-    const int w = W_GROUPS * (rr % pairs) + grp;
+    const int w = G * (rr % pairs) + grp;
     const bool active = w < W;
     const int b = b0 + (active ? w : 0), k0 = (rr / pairs) * TC_BT;
     const bool sweep = max_first && step < per_pass;  // logits-only sweep
-    uint32_t qa[2][4];
-    load_afrag(qa, q.head(b, h), q, r0, N, t);   // lands during the waits
+    uint32_t qa[PS][2][4];
+    float2 qx[2][4];   // fp32: the raw rows, split after the barriers
+    if constexpr (F32)
+      load_afrag_f32(qx, q.head(b, h), q, r0, N, t);
+    else
+      load_afrag(qa[0], q.head(b, h), q, r0, N, t);  // lands during the waits
     cp_async_wait_all();
     __syncthreads();  // tile `step` arrived; every warp left step - 1
     if (step + 1 < steps) issue(step + 1);
@@ -418,20 +455,45 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
         load_btile(const_cast<char*>(tm), mask + (size_t)(b % nW) * N * N,
                    q0, k0, N, tid, false);
     }
-    if (active) tile_norms<RB>(sK[st][grp], sRk[st][grp], 1.0f, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (its norm; "bf16": k^
+      // rounded), warps 2-3 a V row (outside the logits-only sweep)
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      if (tid < TC_BT) {
+        staged_row(sStg + 2 * st * TC_STAGE_F32, r, x);
+        const float rn = row_rnorm(x);
+        sRk[st][0][r] = rn;
+        put_row<PS, RB>(sKp, r, x, rn, 1.0f);
+      } else if (!sweep) {
+        staged_row(sStg + (2 * st + 1) * TC_STAGE_F32, r, x);
+        put_row<PS, false>(sVp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      if (active) tile_norms<RB>(sK[st][grp], sRk[st][grp], 1.0f, tid);
+    }
     __syncthreads();
     if (!active) continue;
 
     float rq0, rq1;
-    row_norms(qa, rq0, rq1, lane);
-    if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);
-    const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
-    const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    if constexpr (F32) {
+      finish_operand<PS, true, RB || FQ>(qx, qa, lane, rq0, rq1, scale);
+    } else {
+      row_norms(qa[0], rq0, rq1, lane);
+      if constexpr (RB) scale_afrag(qa[0], rq0, rq1, scale);
+    }
+    const float c0 = FQ ? 1.0f : MXU == MXU_FP32 ? rq0 : rq0 * scale;
+    const float c1 = FQ ? 1.0f : MXU == MXU_FP32 ? rq1 : rq1 * scale;
     float4* so = sO + (w * 4 + warp) * 4 * 32 + lane;
     float4* ss = sS + (w * 4 + warp) * 32 + lane;
     float4 mls = *ss;
     float m0 = mls.x, m1 = mls.y, l0 = mls.z, l1 = mls.w;
     const bf16* sk = sK[st][grp];
+    const bf16* sv = sV[st][grp];
+    if constexpr (F32) {
+      sk = sKp;
+      sv = sVp;
+    }
     const float* rks = sRk[st][grp];
 
     float s[8][4];
@@ -439,10 +501,10 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-      uint32_t kb[4];
-      frag_rows(kb, sk, j, lane);
-      mma(s[j], qa[0], kb[0], kb[1]);
-      mma(s[j], qa[1], kb[2], kb[3]);
+      uint32_t kb[PS][4];
+#pragma unroll
+      for (int p = 0; p < PS; ++p) frag_rows(kb[p], sk + p * TC_PLANE, j, lane);
+      mma_rows<PS, PS>(s[j], qa, kb);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -491,14 +553,22 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
       *ss = make_float4(fmaxf(m0, tm0), fmaxf(m1, tm1), l0, l1);
       continue;
     }
-    float o[4][4];
+    // fp32: this step's products in fresh registers, added to the
+    // window's o by the CUDA cores after them (round to nearest): the tensor
+    // cores round each sum toward zero, and an o kept in their accumulator
+    // over the key tiles would drift low by about half an ulp a step
+    float o[4][4], ra0 = 1.0f, ra1 = 1.0f;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      const float4 x = so[n * 32];
-      o[n][0] = x.x;
-      o[n][1] = x.y;
-      o[n][2] = x.z;
-      o[n][3] = x.w;
+      if constexpr (F32) {
+        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+      } else {
+        const float4 x = so[n * 32];
+        o[n][0] = x.x;
+        o[n][1] = x.y;
+        o[n][2] = x.z;
+        o[n][3] = x.w;
+      }
     }
     if (!fixed) {   // online maximum: rescale what was summed so far
       const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
@@ -508,12 +578,17 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
       m1 = n1;
       l0 *= a0;
       l1 *= a1;
+      if constexpr (F32) {
+        ra0 = a0;
+        ra1 = a1;
+      } else {
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        o[n][0] *= a0;
-        o[n][1] *= a0;
-        o[n][2] *= a1;
-        o[n][3] *= a1;
+        for (int n = 0; n < 4; ++n) {
+          o[n][0] *= a0;
+          o[n][1] *= a0;
+          o[n][2] *= a1;
+          o[n][3] *= a1;
+        }
       }
     }
     const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
@@ -529,39 +604,59 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
     const float one[2] = {1.0f, 1.0f};
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ph[4], pl[4];
-      afrag<!RB>(s[2 * kk], s[2 * kk + 1], one, one, ph, pl);
+      uint32_t pa[PR][4];
+      afrag_p<PR>(s[2 * kk], s[2 * kk + 1], one, one, pa);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        uint32_t vb[4];
-        frag_cols(vb, sV[st][grp], kk, c, lane);
-        mma(o[2 * c], ph, vb[0], vb[1]);
-        mma(o[2 * c + 1], ph, vb[2], vb[3]);
-        if constexpr (!RB) {
-          mma(o[2 * c], pl, vb[0], vb[1]);
-          mma(o[2 * c + 1], pl, vb[2], vb[3]);
-        }
+        uint32_t vb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_cols(vb[p], sv + p * TC_PLANE, kk, c, lane);
+        mma_cols<PR, PS>(o[2 * c], o[2 * c + 1], pa, vb);
       }
     }
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n) {
+      if constexpr (F32) {   // o = o_before * rescale + this step's
+        const float4 x = so[n * 32];
+        o[n][0] = fmaf(x.x, ra0, o[n][0]);
+        o[n][1] = fmaf(x.y, ra0, o[n][1]);
+        o[n][2] = fmaf(x.z, ra1, o[n][2]);
+        o[n][3] = fmaf(x.w, ra1, o[n][3]);
+      }
       so[n * 32] = make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+    }
     *ss = make_float4(m0, m1, l0, l1);
   }
 
   // the group's windows' output and log-sum-exp (each lane reads back its
-  // own state: no barrier needed)
-  for (int w = grp; w < W; w += W_GROUPS) {
+  // own state: no barrier needed); fp32: the statistic as hi + lo, m +
+  // log(l) formed in fp64 (F3; (2, B_, nH, N))
+  for (int w = grp; w < W; w += G) {
     const int b = b0 + w;
     const float4* so = sO + (w * 4 + warp) * 4 * 32 + lane;
     const float4 mls = sS[(w * 4 + warp) * 32 + lane];
     const float l0 = quad_sum(mls.z), l1 = quad_sum(mls.w);
     if (lse != nullptr && t == 0) {
       const size_t stat0 = ((size_t)b * gridDim.y + h) * N;
-      if (ok0) lse[stat0 + r0] = mls.x + logf(l0);
-      if (ok1) lse[stat0 + r1] = mls.y + logf(l1);
+      if constexpr (F32) {
+        float* lo = lse + (size_t)gridDim.z * W * gridDim.y * N;
+        const double x0 = (double)mls.x + log((double)l0);
+        const double x1 = (double)mls.y + log((double)l1);
+        if (ok0) {
+          lse[stat0 + r0] = (float)x0;
+          lo[stat0 + r0] = (float)(x0 - (double)(float)x0);
+        }
+        if (ok1) {
+          lse[stat0 + r1] = (float)x1;
+          lo[stat0 + r1] = (float)(x1 - (double)(float)x1);
+        }
+      } else {
+        if (ok0) lse[stat0 + r0] = mls.x + logf(l0);
+        if (ok1) lse[stat0 + r1] = mls.y + logf(l1);
+      }
     }
-    bf16* out_bh = out.head(b, h) + 2 * t;
+    T* out_bh = out.head(b, h) + 2 * t;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const float4 x = so[n * 32];
@@ -572,11 +667,13 @@ fwd_tc_w_kernel(Rows<const bf16> q, Rows<const bf16> k, Rows<const bf16> v,
 }
 
 // dynamic shared memory of fwd_tc_w_kernel: bias and mask tiles, W windows'
-// state
-template <typename TB>
+// state; fp32: the K / V staging and planes
+template <typename T, typename TB, int MXU>
 int w_fwd_bytes(bool masked, int W) {
-  return (2 + (masked ? 2 * W_GROUPS : 0)) * btile_bytes<TB>() +
-         W * (4 * 4 * 32 + 4 * 32) * 16;
+  using WP = WPieces<T, MXU>;
+  return (2 + (masked ? 2 * WP::G : 0)) * btile_bytes<TB>() +
+         W * (4 * 4 * 32 + 4 * 32) * 16 +
+         (WP::F32 ? 4 * TC_STAGE_F32 * 4 + 2 * WP::PS * TC_PLANE * 2 : 0);
 }
 
 // The launch on operands already described in layout L (Rows: any
@@ -616,27 +713,29 @@ int launch_packed(const void* qkv, const void* ls, const void* bias,
       nH, nW, maxfree, stream);
 }
 
-// K5 on the packed layout: W windows per block
-template <typename TB, int MXU>
+// K5 on the packed layout: W windows per block; T = float: fp32 qkv and
+// out, lse (2, B_, nH, N) hi then lo
+template <typename T, typename TB, int MXU>
 int launch_packed_w(const void* qkv, const void* ls, const void* bias,
                     const void* mask, void* out, void* lse, int B_, int N,
                     int nH, int nW, int maxfree, int W,
                     cudaStream_t stream) {
   const int C = nH * TC_DH;
-  const Rows<const bf16> rq = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  const Rows<const bf16> rk = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  const Rows<const bf16> rv = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  const Rows<bf16> ro = packed_rows((bf16*)out, 0, N, C, 1, TC_DH);
+  const Rows<const T> rq = packed_rows((const T*)qkv, 0, N, C, 3, TC_DH);
+  const Rows<const T> rk = packed_rows((const T*)qkv, 1, N, C, 3, TC_DH);
+  const Rows<const T> rv = packed_rows((const T*)qkv, 2, N, C, 3, TC_DH);
+  const Rows<T> ro = packed_rows((T*)out, 0, N, C, 1, TC_DH);
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
       !rows_aligned(ro))
     return -1;
-  const int smem = w_fwd_bytes<TB>(mask != nullptr, W);
+  const int smem = w_fwd_bytes<T, TB, MXU>(mask != nullptr, W);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc_w_kernel<TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      w_fwd_bytes<TB>(true, W_MAX));
+      fwd_tc_w_kernel<T, TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      w_fwd_bytes<T, TB, MXU>(true, W_MAX));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_ / W);
-  fwd_tc_w_kernel<TB, MXU><<<grid, W_GROUPS * TC_NT, smem, stream>>>(
+  fwd_tc_w_kernel<T, TB, MXU><<<grid, WPieces<T, MXU>::G * TC_NT, smem, stream>>>(
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree, W);
   return (int)cudaGetLastError();
@@ -679,26 +778,35 @@ extern "C" int mmde_window_attention_fwd_tc(
 
 // K5's entry on the tensor cores: as mmde_window_attention_fwd_tc, with W
 // (2 .. W_MAX, dividing B_, and nW where there is a mask) consecutive
-// windows per block; `lse` may be null (serving). -1 for a W it does not
-// take.
+// windows per block; `lse` may be null (serving). qkv_bf16 0: fp32 qkv and
+// out (and fp32 bias), every operand in three bf16 pieces, `lse` (2, B_,
+// nH, N) hi then lo (F3). -1 for a W or a type it does not take.
 extern "C" int mmde_window_attention_fwd_tc_w(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
-    int nW, int bias_bf16, int maxfree, int W, int mxu, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, int W, int mxu,
+    void* stream) {
   if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask)) return -1;
   if (W < 2 || W > W_MAX || B_ % W != 0 || (mask != nullptr && nW % W != 0))
     return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
     constexpr int MXU = decltype(m)::value;
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
+    } else if (!qkv_bf16) {
+      return launch_packed_w<float, float, MXU>(qkv, logit_scale, bias, mask,
+                                                out, lse, B_, N, nH, nW,
+                                                maxfree, W, s);
     } else if (bias_bf16) {
-      return launch_packed_w<bf16, MXU>(qkv, logit_scale, bias, mask, out,
-                                        lse, B_, N, nH, nW, maxfree, W, s);
+      return launch_packed_w<bf16, bf16, MXU>(qkv, logit_scale, bias, mask,
+                                              out, lse, B_, N, nH, nW,
+                                              maxfree, W, s);
     } else {
-      return launch_packed_w<float, MXU>(qkv, logit_scale, bias, mask, out,
-                                         lse, B_, N, nH, nW, maxfree, W, s);
+      return launch_packed_w<bf16, float, MXU>(qkv, logit_scale, bias, mask,
+                                               out, lse, B_, N, nH, nW,
+                                               maxfree, W, s);
     }
   });
 }

@@ -467,5 +467,293 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
 }
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 operands on bf16 tensor cores. An fp32 x is three bf16 pieces, x1 =
+// bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), each difference
+// exact: together every bit of x's 24. A product a b of two such operands
+// is taken as the six piece products a_i b_j with i + j <= 2 (0-based), the
+// smallest first, into the fp32 accumulator: what is left out (a2 b3, a3
+// b2, a3 b3) is ~2^-24 of |a b|, the order of the accumulator's own
+// rounding. A kernel's operand counts P pieces: 1 for a bf16 value (exact)
+// or a rounded one (the "bf16" mode), 2 for the bf16-qkv kernels' fp32
+// values formed in registers (hi + lo, ~2^-17 left over), 3 for fp32 qkv.
+// The piece products a_i b_j with i + j <= max(PA, PB) - 1; for PA = 3
+// the smallest first, otherwise in i order (the bf16 kernels' order).
+// ---------------------------------------------------------------------------
+constexpr int TC_PLANE = TC_BT * TC_LD;   // bf16 of one staged piece (plane)
+
+// (a, b) as P bf16 pairs summing to it (P = 1: one rounding)
+template <int P>
+__device__ __forceinline__ void pieces(float a, float b, uint32_t (&w)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    w[i] = pack2(a, b);
+    a -= lo_f(w[i]);
+    b -= hi_f(w[i]);
+  }
+}
+
+// the piece products of a PA x PB product: how many, and the n-th as
+// 8 i + j, in the order they are added
+__host__ __device__ constexpr int terms_count(int PA, int PB) {
+  const int top = (PA > PB ? PA : PB) - 1;
+  int n = 0;
+  for (int i = 0; i < PA; ++i)
+    for (int j = 0; j < PB; ++j) n += i + j <= top;
+  return n;
+}
+__host__ __device__ constexpr int term_ij(int PA, int PB, int n) {
+  const int top = (PA > PB ? PA : PB) - 1;
+  int k = 0;
+  for (int sum = (PA == 3 ? top : 0); PA == 3 ? sum >= 0 : sum <= 0;
+       sum += (PA == 3 ? -1 : 1))
+    for (int i = 0; i < PA; ++i)
+      for (int j = 0; j < PB; ++j)
+        if ((PA == 3 ? i + j == sum : i + j <= top) && k++ == n)
+          return 8 * i + j;
+  return 0;
+}
+
+// d += a b over the 32 channels of a 16-row x 8-col logit tile: A
+// fragments a[piece][k-step] of the block's rows, B fragments b[piece] =
+// {k-step 0: b0, b1, k-step 1: b0, b1} (frag_rows of each plane)
+template <int PA, int PB, int n = 0>
+__device__ __forceinline__ void mma_rows(float (&d)[4],
+                                         const uint32_t (&a)[PA][2][4],
+                                         const uint32_t (&b)[PB][4]) {
+  if constexpr (n < terms_count(PA, PB)) {
+    constexpr int i = term_ij(PA, PB, n) >> 3, j = term_ij(PA, PB, n) & 7;
+    mma(d, a[i][0], b[j][0], b[j][1]);
+    mma(d, a[i][1], b[j][2], b[j][3]);
+    mma_rows<PA, PB, n + 1>(d, a, b);
+  }
+}
+
+// d0, d1 (channels 16c.., 16c+8..) += a b for one 16-deep k step: A
+// fragments a[piece] of an operand formed in registers (afrag_p), B
+// fragments b[piece] = {cols 16c..: b0, b1, 16c+8..: b0, b1} (frag_cols)
+template <int PA, int PB, int n = 0>
+__device__ __forceinline__ void mma_cols(float (&d0)[4], float (&d1)[4],
+                                         const uint32_t (&a)[PA][4],
+                                         const uint32_t (&b)[PB][4]) {
+  if constexpr (n < terms_count(PA, PB)) {
+    constexpr int i = term_ij(PA, PB, n) >> 3, j = term_ij(PA, PB, n) & 7;
+    mma(d0, a[i], b[j][0], b[j][1]);
+    mma(d1, a[i], b[j][2], b[j][3]);
+    mma_cols<PA, PB, n + 1>(d0, d1, a, b);
+  }
+}
+
+// afrag's A fragments in P pieces (P = 1: one rounding, 2: hi + lo)
+template <int P>
+__device__ __forceinline__ void afrag_p(const float (&x0)[4],
+                                        const float (&x1)[4],
+                                        const float (&f0)[2],
+                                        const float (&f1)[2],
+                                        uint32_t (&a)[P][4]) {
+  uint32_t w[4][P];
+  pieces<P>(x0[0] * f0[0], x0[1] * f0[1], w[0]);
+  pieces<P>(x0[2] * f0[0], x0[3] * f0[1], w[1]);
+  pieces<P>(x1[0] * f1[0], x1[1] * f1[1], w[2]);
+  pieces<P>(x1[2] * f1[0], x1[3] * f1[1], w[3]);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[p][i] = w[i][p];
+}
+
+// fp32 A fragments of 16 rows (r, r+8 per lane) x 32 channels straight
+// from device memory, as load_afrag lays them out (a float2 per bf16 pair)
+template <class L>
+__device__ __forceinline__ void load_afrag_f32(float2 (&x)[2][4],
+                                               const float* base,
+                                               const L& rows, int r, int N,
+                                               int t) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + (i & 1) * 8;
+      const int col = 16 * ks + (i >> 1) * 8 + 2 * t;
+      x[ks][i] = row < N ? *reinterpret_cast<const float2*>(
+                               base + rows.off(row) + col)
+                         : make_float2(0.0f, 0.0f);
+    }
+}
+
+// quad_row_rnorm of a row an fp32 fragment spreads over a quad: the same
+// chain, channel by channel in order
+__device__ __forceinline__ float quad_row_rnorm(const float2 (&w)[4],
+                                                int lane) {
+  const int base = lane & ~3;
+  float ss = 0.0f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float x = __shfl_sync(0xffffffffu, w[s].x, base + t);
+      const float y = __shfl_sync(0xffffffffu, w[s].y, base + t);
+      ss = __fmaf_rn(x, x, ss);
+      ss = __fmaf_rn(y, y, ss);
+    }
+  return rsqrtf(ss + 1e-12f);
+}
+
+// the norms (NORM) and pieces of fp32 A fragments x (load_afrag_f32): as
+// load_operand below, for a caller that issues the loads early
+template <int P, bool NORM, bool ROUND>
+__device__ __forceinline__ void finish_operand(const float2 (&x)[2][4],
+                                               uint32_t (&a)[P][2][4],
+                                               int lane, float& n0,
+                                               float& n1, float f) {
+  if constexpr (NORM) {
+    const float2 w0[4] = {x[0][0], x[0][2], x[1][0], x[1][2]};
+    const float2 w1[4] = {x[0][1], x[0][3], x[1][1], x[1][3]};
+    n0 = quad_row_rnorm(w0, lane);
+    n1 = quad_row_rnorm(w1, lane);
+  }
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float u = x[ks][i].x, v = x[ks][i].y;
+      if constexpr (ROUND) {
+        const float rn = (i & 1) ? n1 : n0;
+        u = __fmul_rn(__fmul_rn(u, rn), f);
+        v = __fmul_rn(__fmul_rn(v, rn), f);
+      }
+      uint32_t w[P];
+      pieces<P>(u, v, w);
+#pragma unroll
+      for (int p = 0; p < P; ++p) a[p][ks][i] = w[p];
+    }
+}
+
+// mma_cols for two products that share their k step, term by term
+// interleaved (the bf16 dk/dv passes' order): d0, d1 += a b; e0, e1 += c d
+template <int PA, int PB, int n = 0>
+__device__ __forceinline__ void mma_cols2(float (&d0)[4], float (&d1)[4],
+                                          const uint32_t (&a)[PA][4],
+                                          const uint32_t (&b)[PB][4],
+                                          float (&e0)[4], float (&e1)[4],
+                                          const uint32_t (&c)[PA][4],
+                                          const uint32_t (&d)[PB][4]) {
+  if constexpr (n < terms_count(PA, PB)) {
+    constexpr int i = term_ij(PA, PB, n) >> 3, j = term_ij(PA, PB, n) & 7;
+    mma(d0, a[i], b[j][0], b[j][1]);
+    mma(d1, a[i], b[j][2], b[j][3]);
+    mma(e0, c[i], d[j][0], d[j][1]);
+    mma(e1, c[i], d[j][2], d[j][3]);
+    mma_cols2<PA, PB, n + 1>(d0, d1, a, b, e0, e1, c, d);
+  }
+}
+
+// A fragments a[piece][k-step] of 16 rows of operand T (bf16: the raw
+// values, one piece; fp32: P pieces, or for ROUND one piece of the "bf16"
+// mode's bf16((x * rnorm) * f)); with NORM the rows' norms n0 (row r), n1
+// (r + 8) by the one chain
+template <typename T, int P, bool NORM, bool ROUND, class L>
+__device__ __forceinline__ void load_operand(uint32_t (&a)[P][2][4],
+                                             const T* base, const L& rows,
+                                             int r, int N, int lane,
+                                             float& n0, float& n1, float f) {
+  const int t = lane & 3;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(P == 1, "a bf16 operand is one piece");
+    load_afrag(a[0], base, rows, r, N, t);
+    if constexpr (NORM) row_norms(a[0], n0, n1, lane);
+    if constexpr (ROUND) scale_afrag(a[0], n0, n1, f);
+  } else {
+    float2 x[2][4];
+    load_afrag_f32(x, base, rows, r, N, t);
+    finish_operand<P, NORM, ROUND>(x, a, lane, n0, n1, f);
+  }
+}
+
+// the raw value at afrag_at's slot (element e = 0 / 1 of the pair): the
+// sum of its pieces (exact: three pieces hold every bit)
+template <int P>
+__device__ __forceinline__ float raw_at(const uint32_t (&a)[P][2][4], int n,
+                                        int half, int e) {
+  const uint32_t w = afrag_at(a[P - 1], n, half);
+  float x = e ? hi_f(w) : lo_f(w);
+#pragma unroll
+  for (int p = P - 2; p >= 0; --p) {
+    const uint32_t u = afrag_at(a[p], n, half);
+    x += e ? hi_f(u) : lo_f(u);
+  }
+  return x;
+}
+
+// fp32 tiles stream through a staging buffer (64 rows x 32 fp32, row r's
+// 16-byte chunk c at chunk c ^ (r & 7): the split pass reads a row a
+// thread, 8 threads a phase on 8 bank groups) by 16-byte cp.async, zeros
+// past N; after arrival the split pass writes the pieces into bf16 planes
+// [piece][64][TC_LD], which ldmatrix reads as it reads a bf16 tile.
+constexpr int TC_STAGE_F32 = TC_BT * TC_DH;   // floats of a staging buffer
+
+template <class L>
+__device__ __forceinline__ void load_tile_f32(float* s, const float* base,
+                                              const L& rows, int r0, int N,
+                                              int tid) {
+#pragma unroll
+  for (int e = tid; e < TC_BT * 8; e += TC_NT) {
+    const int r = e >> 3, c = e & 7;
+    const bool ok = r0 + r < N;
+    cp_async16(s + r * TC_DH + ((c ^ (r & 7)) << 2),
+               base + (ok ? rows.off(r0 + r) : 0) + c * 4, ok);
+  }
+}
+
+// row r of a staging buffer, channels in order
+__device__ __forceinline__ void staged_row(const float* s, int r,
+                                           float (&x)[TC_DH]) {
+  const float4* p = reinterpret_cast<const float4*>(s + r * TC_DH);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 v = p[i ^ (r & 7)];
+    x[4 * i] = v.x;
+    x[4 * i + 1] = v.y;
+    x[4 * i + 2] = v.z;
+    x[4 * i + 3] = v.w;
+  }
+}
+
+// rsqrt(sum(x^2) + 1e-12), normalise's chain
+__device__ __forceinline__ float row_rnorm(const float (&x)[TC_DH]) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int d = 0; d < TC_DH; ++d) ss = __fmaf_rn(x[d], x[d], ss);
+  return rsqrtf(ss + 1e-12f);
+}
+
+// row r of planes [P][64][TC_LD]: x in P pieces, or for ROUND one piece of
+// bf16((x * rn) * f)
+template <int P, bool ROUND>
+__device__ __forceinline__ void put_row(bf16* planes, int r,
+                                        const float (&x)[TC_DH], float rn,
+                                        float f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t w[4][P];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float u = x[8 * i + 2 * j], v = x[8 * i + 2 * j + 1];
+      if constexpr (ROUND) {
+        u = __fmul_rn(__fmul_rn(u, rn), f);
+        v = __fmul_rn(__fmul_rn(v, rn), f);
+      }
+      pieces<P>(u, v, w[j]);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      reinterpret_cast<uint4*>(planes + p * TC_PLANE + r * TC_LD)[i] =
+          make_uint4(w[0][p], w[1][p], w[2][p], w[3][p]);
+  }
+}
 
 }  // namespace

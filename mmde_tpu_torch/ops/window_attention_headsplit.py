@@ -331,7 +331,7 @@ def rebuild_probabilities(s: torch.Tensor, hi: torch.Tensor,
                           lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """p = exp((s - hi) - lo), the FMA backward's rebuild of the softmax
     from the forward's (hi, lo), in s's type; without lo exp(s - hi), the
-    one-number rebuild the packed and slab kernels take."""
+    one-number rebuild the bf16 tensor-core kernels take."""
     d = s - hi[..., None]
     if lo is not None:
         d = d - lo[..., None]

@@ -10,14 +10,18 @@ tiling and have no counterpart here: the CUDA kernels
 [_tc].cu, csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu) mask
 the ragged edge themselves.
 
-Which body runs follows qkv's type, nothing else: bf16 qkv runs the
-tensor-core kernels (bf16 mma.sync) - K1 with or without the log-sum-exp and
-K2's two passes (window_attention_{fwd,bwd}_tc.cu, counted as
-window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W > 1 (the
-same sources, window_attention_fwd_tc_w{W}[+lse] /
+Which body runs follows qkv's type and W, nothing else (`tensor_core_body`):
+bf16 qkv runs the tensor-core kernels (bf16 mma.sync) - K1 with or without
+the log-sum-exp and K2's two passes (window_attention_{fwd,bwd}_tc.cu,
+counted as window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W
+> 1 (the same sources, window_attention_fwd_tc_w{W}[+lse] /
 window_attention_bwd_tc_w{W}) and K4 (window_attention_bwd_resident_tc.cu,
-window_attention_bwd_resident_tc); fp32 qkv and K3's pass run the fp32-FMA
-bodies. Both compute the same function in each precision mode.
+window_attention_bwd_resident_tc); fp32 qkv runs K4 and K5 on the same
+kernels (every fp32 operand as three bf16 pieces) and K1 / K2 at W = 1 on
+the fp32-FMA bodies, as does K3's pass. All compute the same function in
+each precision mode. The forward hands the backward each row's
+log-sum-exp: fp32 hi + lo, (2, B_, nH, N), formed in fp64 (F3), from every
+body but the bf16 tensor-core one, which keeps (B_, nH, N) (`stat_pair`).
 
 Which kernel runs follows the JAX package's process-wide settings, each read
 once at import:
@@ -161,12 +165,24 @@ _LIB_NAME_RESIDENT_TC = "window_attention_bwd_resident_tc"
 _SOURCES_RESIDENT_TC = ("window_attention_bwd_resident_tc.cu",)
 
 
-def tensor_core_body(dtype: torch.dtype, w: int = 1) -> bool:
+def tensor_core_body(dtype: torch.dtype, w: int = 1,
+                     resident: bool = False) -> bool:
     """Whether a launch of qkv's `dtype` at `w` windows per block runs the
     tensor-core kernels: bf16 at any W (K1 / K2 at W = 1, K5 above; K4 too),
-    in every precision mode; fp32 qkv takes the fp32-FMA bodies. The
-    head-split wrapper takes the same rule (one window per block always)."""
-    return dtype == torch.bfloat16
+    in every precision mode; fp32 qkv at W > 1 (K5) and in K4 (`resident`),
+    its operands split into three bf16 pieces; fp32 at W = 1 (K1, K2, K3)
+    keeps the fp32-FMA bodies. The head-split and slab wrappers keep their
+    own rule (bf16 only)."""
+    return dtype == torch.bfloat16 or (dtype == torch.float32
+                                       and (w > 1 or resident))
+
+
+def stat_pair(dtype: torch.dtype, tc: bool) -> bool:
+    """Whether a training launch's log-sum-exp is fp32 hi + lo, (2, B_, nH,
+    N), m + log(l) formed in fp64 (F3: one rounding of lse ~ 60 shifts a
+    whole row of the rebuilt p): every body but the bf16 tensor-core one,
+    which keeps (B_, nH, N) (sound at bf16 inputs, PERF.md)."""
+    return not (tc and dtype == torch.bfloat16)
 
 # The JAX package's packed-layout plan and windows-per-cell rule, copied
 # (not imported) so that both packages send the same stages to the same
@@ -307,10 +323,10 @@ _BWD_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
 _FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 _BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
-_FWD_TC_W_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
-_BWD_TC_W_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
-_RESIDENT_TC_ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
-_DBIAS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+_FWD_TC_W_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
+_BWD_TC_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
+_RESIDENT_TC_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
+_DBIAS_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 
 
 def _bind(lib, table) -> ctypes.CDLL:
@@ -533,11 +549,12 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
                     want_stats, w=1, mxu=None, _fma=False):
     """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block),
     in precision mode `mxu` (a key of _MXU_CODE; None = the default for
-    qkv's type); returns (out, lse or None). bf16 qkv runs the tensor-core
-    kernels (`tensor_core_body`; K5 there holds up to 8 windows, a larger w
-    raises), fp32 qkv K1's / K5's fp32-FMA body; `_fma` (private:
-    the card tools and chip_smoke.py's same-card comparison, never the
-    model) sends bf16 qkv to the FMA body too."""
+    qkv's type); returns (out, lse or None), lse (2, B_, nH, N) hi + lo
+    where `stat_pair` says so, else (B_, nH, N). bf16 qkv runs the
+    tensor-core kernels (`tensor_core_body`; K5 there holds up to 8
+    windows, a larger w raises), fp32 qkv K5 on them and K1 on its fp32-FMA
+    body; `_fma` (private: the card tools and chip_smoke.py's same-card
+    comparison, never the model) sends any launch to the FMA body."""
     global LAUNCHES
     mxu = resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE))
     B_, N, C3 = qkv.shape
@@ -555,9 +572,11 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
                          f"got {mxu!r}")
     lib = _library_tc(False) if tc else _library(mxu)
     out = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
-    lse = (torch.empty((B_, num_heads, N), dtype=torch.float32,
-                       device=qkv.device) if want_stats else None)
-    shape_args = (B_, N, C, num_heads, nW, int(qkv.dtype == torch.bfloat16),
+    stat = ((2,) if stat_pair(qkv.dtype, tc) else ()) + (B_, num_heads, N)
+    lse = (torch.empty(stat, dtype=torch.float32, device=qkv.device)
+           if want_stats else None)
+    qkv_bf16 = int(qkv.dtype == torch.bfloat16)
+    shape_args = (B_, N, C, num_heads, nW, qkv_bf16,
                   int(bias.dtype == torch.bfloat16), int(bool(maxfree)))
     code = _MXU_CODE[mxu]
     mask_ptr = mask.data_ptr() if mask is not None else None
@@ -567,8 +586,8 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
             err = lib.mmde_window_attention_fwd_tc_w(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(),
-                lse.data_ptr() if want_stats else None, *shape_args[:5],
-                *shape_args[6:], w, code, stream)
+                lse.data_ptr() if want_stats else None, *shape_args, w, code,
+                stream)
         elif tc:
             err = lib.mmde_window_attention_fwd_tc(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
@@ -610,9 +629,11 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     MXU_MODES, the forward's; None = the default for qkv's type); returns
     (dqkv, dlogit_scale, dbias or None). bf16 qkv runs the tensor-core
     passes (their dbias by atomics; under "split" K3's pass follows them,
-    counted as window_attention_dbias), fp32 qkv the fp32-FMA bodies.
+    counted as window_attention_dbias), fp32 qkv them at W > 1 (K5) and
+    the fp32-FMA bodies at W = 1 (K2). `lse` must be the statistic the
+    same body's forward writes (`stat_pair`): the other shape raises.
     Private, for chip_smoke.py's same-card comparisons only: `_fma` sends
-    bf16 qkv to the FMA body."""
+    any launch to the FMA body."""
     global LAUNCHES_BWD
     mxu = resolve_mxu(mxu, qkv.dtype)
     B_, N, C3 = qkv.shape
@@ -629,11 +650,20 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
         raise ValueError(f"{w} windows per block must divide B_={B_} and "
                          f"the mask's nW={nW}")
     tc = tensor_core_body(qkv.dtype, w) and not _fma
+    pair = stat_pair(qkv.dtype, tc)
+    want_lse = ((2,) if pair else ()) + (B_, nH, N)
+    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
+        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
+                         f"reads a float32 {want_lse} log-sum-exp, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
     n_tiles = -(-N // BWD_TILE)
-    dls_part = torch.empty((B_ // w * n_tiles, nH), dtype=torch.float64,
+    # a row per (window, tile) at most: a pass of several windows a block
+    # writes one a block (the fp32 tensor-core dk/dv pass may hold fewer
+    # windows than w), the rest stay 0
+    dls_part = torch.zeros((B_ * n_tiles, nH), dtype=torch.float64,
                            device=dev)
     mode = _DBIAS_MODE[grid_mode] if want_dbias else 0
     dbias = None
@@ -644,6 +674,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     mask_ptr = mask.data_ptr() if mask is not None else None
     bias_bf16 = int(bias.dtype == torch.bfloat16)
     code = _MXU_CODE[mxu]
+    qkv_bf16 = int(qkv.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         if tc:
@@ -651,19 +682,21 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
                     mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
                     delta.data_ptr(), dls_part.data_ptr(),
                     dbias.data_ptr() if mode == 1 else None, B_, N, C, nH,
-                    nW, bias_bf16, int(mode == 1))
+                    nW)
             lib = _library_tc(True)
             if w > 1:
-                err = lib.mmde_window_attention_bwd_tc_w(*args, w, code,
-                                                         stream)
+                err = lib.mmde_window_attention_bwd_tc_w(
+                    *args, qkv_bf16, bias_bf16, int(mode == 1), w, code,
+                    stream)
             else:
-                err = lib.mmde_window_attention_bwd_tc(*args, code, stream)
+                err = lib.mmde_window_attention_bwd_tc(
+                    *args, bias_bf16, int(mode == 1), code, stream)
             if err == 0 and mode == 2:   # K3 on the delta written above
                 err = _library_bwd().mmde_window_attention_dbias(
                     qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                     mask_ptr, lse.data_ptr(), g.data_ptr(), delta.data_ptr(),
-                    dbias.data_ptr(), B_, N, C, nH, nW, 1, bias_bf16, code,
-                    stream)
+                    dbias.data_ptr(), B_, N, C, nH, nW, qkv_bf16, bias_bf16,
+                    int(pair), code, stream)
                 if err != 0:
                     raise RuntimeError(
                         f"window_attention_dbias launch failed with code "
@@ -675,8 +708,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
                     mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
                     delta.data_ptr(), dls_part.data_ptr(),
                     dbias.data_ptr() if dbias is not None else None,
-                    B_, N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
-                    bias_bf16, mode)
+                    B_, N, C, nH, nW, qkv_bf16, bias_bf16, mode)
             lib = _library_bwd()
             if w > 1:
                 err = lib.mmde_window_attention_bwd_w(*args, w, code, stream)
@@ -715,10 +747,11 @@ def resident_splits(N: int, nH: int, B_: int, tc: bool = False) -> int:
 
 def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
                               want_dbias=True, _fma=False):
-    """Launch K4; returns (dqkv, dlogit_scale, dbias or None). bf16 qkv runs
-    the tensor-core kernel (window_attention_bwd_resident_tc.cu), fp32 qkv
-    the fp32-FMA body; `_fma` (private: chip_smoke.py's same-card
-    comparison, never the model) sends bf16 qkv to the FMA body too. dq
+    """Launch K4; returns (dqkv, dlogit_scale, dbias or None). bf16 and
+    fp32 qkv run the tensor-core kernel (window_attention_bwd_resident_tc.cu;
+    fp32 operands as three bf16 pieces); `_fma` (private: chip_smoke.py's
+    same-card comparison, never the model) sends a launch to the fp32-FMA
+    body. dq
     leaves the kernel complete; dk^ and dv are summed over query tiles by
     fp32 atomics into a (B_, N, 2C) scratch, and the normalise-VJP of k and
     the casts are applied here, as the TPU package applies them in XLA
@@ -735,7 +768,7 @@ def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
     if qkv.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("qkv and g must be 16-byte aligned for the "
                          "kernel's vector loads")
-    tc = tensor_core_body(qkv.dtype) and not _fma
+    tc = tensor_core_body(qkv.dtype, resident=True) and not _fma
     lib = _library_resident(tc)
     dev = qkv.device
     splits = resident_splits(N, nH, B_, tc)
@@ -755,7 +788,8 @@ def _launch_backward_resident(qkv, logit_scale, bias, mask, g, num_heads,
     with torch.cuda.device(dev):
         if tc:
             err = lib.mmde_window_attention_bwd_resident_tc(
-                *args, bias_bf16, splits, _stream(dev))
+                *args, int(qkv.dtype == torch.bfloat16), bias_bf16, splits,
+                _stream(dev))
         else:
             err = lib.mmde_window_attention_bwd_resident(
                 *args, int(qkv.dtype == torch.bfloat16), bias_bf16, splits,

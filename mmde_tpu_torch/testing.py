@@ -15,7 +15,13 @@ arithmetic of the tensor-core window-attention kernels
 run only on the card, on head-split operands; `tc_forward` / `tc_backward`
 on the packed (B_, N, 3C) qkv; `tc_backward_resident` that of the
 tensor-core K4 (csrc/window_attention_bwd_resident_tc.cu). The CPU tests
-hold that arithmetic to the JAX kernels.
+hold that arithmetic to the JAX kernels. `pieces` picks the operand split:
+0 (the default) the bf16-qkv kernels' - q, k, v and g exact bf16 values,
+the fp32 operands formed in registers (p, ds times its factor) split into
+bf16 hi + lo; 3 the fp32-qkv kernels' - every fp32 operand as three bf16
+pieces, each product the six piece products whose indices sum to at most
+2 (0-based); 2 the same with two pieces and three products, the split the
+fp32 kernels were measured against and rejected (PERF.md).
 """
 from __future__ import annotations
 
@@ -87,18 +93,45 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
-def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernels take it for an fp32 operand a and a bf16-exact
-    b: a split into bf16(a) and bf16(a - bf16(a)), two products summed in
-    fp32."""
-    hi = _bf(a)
-    return hi @ b + _bf(a - hi) @ b
+def bf16_pieces(x: torch.Tensor, n: int) -> list:
+    """x as n bf16 values (held in fp32) summing to it: x1 = bf16(x), x2 =
+    bf16(x - x1), ...; three hold every bit of an fp32 x."""
+    out = []
+    for _ in range(n):
+        out.append(_bf(x))
+        x = x - out[-1]
+    return out
 
 
-def _logits(q, k, ls, bias, mask, mxu):
+def _mm(a: torch.Tensor, b: torch.Tensor, pa: int, pb: int) -> torch.Tensor:
+    """a @ b as the tensor-core kernels take it: each operand as it is (0:
+    exact bf16 values) or split into that many bf16 pieces; the piece
+    products whose indices sum to at most max(pa, pb) - 1, the smallest
+    first, summed in fp32."""
+    xs = bf16_pieces(a, pa) if pa else [a]
+    ys = bf16_pieces(b, pb) if pb else [b]
+    top = max(len(xs), len(ys)) - 1
+    terms = [(i, j) for i in range(len(xs)) for j in range(len(ys))
+             if i + j <= top]
+    out = None
+    for i, j in sorted(terms, key=lambda ij: -(ij[0] + ij[1])):
+        t = xs[i] @ ys[j]
+        out = t if out is None else out + t
+    return out
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, pieces: int = 0
+              ) -> torch.Tensor:
+    """a @ b for an fp32 operand a formed in registers and a staged b: a in
+    two bf16 pieces against an exact b (pieces 0), or both in `pieces`."""
+    return _mm(a, b, pieces or 2, pieces)
+
+
+def _logits(q, k, ls, bias, mask, mxu, pieces=0):
     """(s, sc, rq, rk, scale, operands): fp32 / fold take S = q k^T on the raw
-    bf16 values and normalise the accumulator, a rank-1 epilogue; "bf16"
-    takes bf16((q * rq) * scale) and bf16(k * rk)."""
+    values (exact bf16, or in `pieces`) and normalise the accumulator, a
+    rank-1 epilogue; "bf16" takes bf16((q * rq) * scale) and bf16(k * rk);
+    fold in `pieces` splits the folded (q * rq) * scale, the epilogue rk."""
     nH = q.shape[1]
     rq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
     rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
@@ -108,8 +141,13 @@ def _logits(q, k, ls, bias, mask, mxu):
         qd, kd = _bf(q * rq * scale), _bf(k * rk)
         sc = qd @ kd.transpose(-1, -2)
         ops = (qd, kd)
+    elif mxu == "fold" and pieces:
+        qs = q * rq * scale
+        S = _mm(qs, k.transpose(-1, -2), pieces, pieces)
+        sc = S * rk.transpose(-1, -2)
+        ops = (qs, None)
     else:
-        S = q @ k.transpose(-1, -2)
+        S = _mm(q, k.transpose(-1, -2), pieces, pieces)
         rkt = rk.transpose(-1, -2)
         sc = (S * (scale * rq) * rkt if mxu == "fold"
               else S * rq * rkt * scale)
@@ -124,18 +162,18 @@ def _logits(q, k, ls, bias, mask, mxu):
 def tc_forward_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ls: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor], mxu: str,
-                     maxfree: bool = True) -> torch.Tensor:
+                     maxfree: bool = True, pieces: int = 0) -> torch.Tensor:
     """The tensor-core forward's arithmetic on head-split fp32 q, k, v
-    (B_, nH, N, 32) holding bf16 values; (B_, nH, N, 32) fp32. `maxfree`:
-    whether the "bf16" mode may take the static shift (the head-split entry
-    passes maxfree 0)."""
-    s, _, _, _, scale, _ = _logits(q, k, ls, bias, mask, mxu)
+    (B_, nH, N, 32) holding bf16 values (pieces 0) or fp32 ones; (B_, nH,
+    N, 32) fp32. `maxfree`: whether the "bf16" mode may take the static
+    shift (the head-split entry passes maxfree 0)."""
+    s, _, _, _, scale, _ = _logits(q, k, ls, bias, mask, mxu, pieces)
     shift = s.amax(-1, keepdim=True)
     if mxu == "bf16":   # the static shift where the kernel takes it
         shift = torch.where((scale <= 30.0)[None] & maxfree, scale + 16.0,
                             shift)
     e = torch.exp(s - shift)
-    o = (_bf(e) @ v if mxu == "bf16" else _split_mm(e, v))
+    o = (_bf(e) @ _bf(v) if mxu == "bf16" else _split_mm(e, v, pieces))
     return o / e.sum(-1, keepdim=True)
 
 
@@ -158,7 +196,7 @@ def group_sum(x: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu,
-                      windows: int = 1) -> list:
+                      windows: int = 1, pieces: int = 0) -> list:
     """The tensor-core backward's arithmetic on head-split operands: [dq,
     dk, dv, dlogit_scale (nH, 1, 1), dbias]. fp32 / fold: delta exact, then
     dqn = split(ds f_j) k, f_j = scale rk_j (the dq pass's two sweeps); dv =
@@ -167,17 +205,25 @@ def tc_backward_heads(q, k, v, ls, bias, mask, g, mxu,
     dkn's split residual into a sum that cancels). bf16: the JAX body's
     rounded operands, ds rounded. `windows`: K5's W, whose dk/dv pass sums
     ds over its W windows before dbias (`group_sum`)."""
-    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, mxu)
+    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, mxu, pieces)
     p = torch.softmax(s, dim=-1)
-    dp = g @ v.transpose(-1, -2)
+    dp = _dp(g, v, mxu, pieces)
     delta = (p * dp).sum(-1, keepdim=True)
     ds = p * (dp - delta)
     return _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, mxu,
-                     group_sum(ds, windows))
+                     group_sum(ds, windows), pieces)
+
+
+def _dp(g, v, mxu, pieces):
+    """dP = g v^T: bf16(g) bf16(v)^T in the "bf16" mode, else the raw values
+    (exact bf16, or in `pieces`)."""
+    if mxu == "bf16":
+        return _bf(g) @ _bf(v).transpose(-1, -2)
+    return _mm(g, v.transpose(-1, -2), pieces, pieces)
 
 
 def tc_backward_resident_heads(q, k, v, ls, bias, mask, g,
-                               splits: int) -> list:
+                               splits: int, pieces: int = 0) -> list:
     """The tensor-core K4's arithmetic on head-split operands, as
     tc_backward_heads returns it: always the "fp32" function; the block's
     own row statistics (m the exact row maximum, l = sum exp(s - m) and
@@ -185,31 +231,35 @@ def tc_backward_resident_heads(q, k, v, ls, bias, mask, g,
     (1 / l)); the split operands of tc_backward_heads; dbias summed window
     after window within each of `splits` chunks of ceil(B_ / splits)
     windows, then the chunks in order."""
-    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, "fp32")
+    s, sc, rq, rk, scale, ops = _logits(q, k, ls, bias, mask, "fp32",
+                                        pieces)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     il = 1.0 / e.sum(-1, keepdim=True)
     p = e * il
-    dp = g @ v.transpose(-1, -2)
+    dp = _dp(g, v, "fp32", pieces)
     ds = p * (dp - (e * dp).sum(-1, keepdim=True) * il)
     chunk = -(-q.shape[0] // splits)
     return _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, "fp32",
-                     group_sum(ds, chunk))
+                     group_sum(ds, chunk), pieces)
 
 
 def _tc_grads(q, k, g, ls, sc, rq, rk, scale, ops, p, ds, mxu,
-              dbias) -> list:
+              dbias, pieces=0) -> list:
     """[dq, dk, dv, dlogit_scale, dbias] from p and ds, the products as the
-    tensor-core kernels take them in mode `mxu`."""
+    tensor-core kernels take them in mode `mxu` and split `pieces`."""
     nH = q.shape[1]
     if mxu == "bf16":
         qd, kd = ops
-        dv = _bf(p).transpose(-1, -2) @ g
+        dv = _bf(p).transpose(-1, -2) @ _bf(g)
         dqn = (_bf(ds) @ kd) * scale
         dkn = _bf(ds).transpose(-1, -2) @ qd
     else:
-        dqn = _split_mm(ds * (scale * rk.transpose(-1, -2)), k)
-        dv = _split_mm(p.transpose(-1, -2), g)
-        dkn = _split_mm((ds * (scale * rq)).transpose(-1, -2), q)
+        dqn = _split_mm(ds * (scale * rk.transpose(-1, -2)), k, pieces)
+        dv = _split_mm(p.transpose(-1, -2), g, pieces)
+        if ops is not None:     # fold in pieces: the folded q^ * scale
+            dkn = _split_mm(ds.transpose(-1, -2), ops[0], pieces)
+        else:
+            dkn = _split_mm((ds * (scale * rq)).transpose(-1, -2), q, pieces)
     qn, kn = q * rq, k * rk
     dq = rq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
     dk = rk * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
@@ -228,27 +278,31 @@ def _t(x):
     return None if x is None else torch.from_numpy(np.asarray(x))
 
 
-def tc_forward(qkv, ls, bias, mask, nH, mxu, maxfree=True) -> torch.Tensor:
+def tc_forward(qkv, ls, bias, mask, nH, mxu, maxfree=True,
+               pieces: int = 0) -> torch.Tensor:
     """`tc_forward_heads` on the packed layout: numpy qkv (B_, N, 3C), ls,
     bias, mask; returns (B_, N, C) fp32."""
     o = tc_forward_heads(*_packed_heads(qkv, nH), _t(ls), _t(bias), _t(mask),
-                         mxu, maxfree)
+                         mxu, maxfree, pieces)
     B, _, N, _ = o.shape
     return o.permute(0, 2, 1, 3).reshape(B, N, nH * 32)
 
 
-def tc_backward(qkv, ls, bias, mask, g, nH, mxu, windows: int = 1) -> list:
+def tc_backward(qkv, ls, bias, mask, g, nH, mxu, windows: int = 1,
+                pieces: int = 0) -> list:
     """`tc_backward_heads` on the packed layout (numpy in, g (B_, N, C)):
     [dqkv (B_, N, 3C), dlogit_scale, dbias]."""
     return _packed_grads(qkv, g, nH, lambda q, k, v, gh: tc_backward_heads(
-        q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu, windows))
+        q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu, windows, pieces))
 
 
-def tc_backward_resident(qkv, ls, bias, mask, g, nH, splits: int) -> list:
+def tc_backward_resident(qkv, ls, bias, mask, g, nH, splits: int,
+                         pieces: int = 0) -> list:
     """`tc_backward_resident_heads` on the packed layout, as tc_backward."""
     return _packed_grads(qkv, g, nH,
                          lambda q, k, v, gh: tc_backward_resident_heads(
-                             q, k, v, _t(ls), _t(bias), _t(mask), gh, splits))
+                             q, k, v, _t(ls), _t(bias), _t(mask), gh, splits,
+                             pieces))
 
 
 def _packed_grads(qkv, g, nH, fn) -> list:

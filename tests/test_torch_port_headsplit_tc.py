@@ -433,11 +433,12 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
 
 
 def test_fma_entries_hand_over_hi_and_lo():
-    """F3's remedy in the FMA sources: the head-split and slab forwards
-    write hi and lo of each row's log-sum-exp (formed in fp64) into a
-    (2, B_, nH, N) buffer, their backwards read the lo half and rebuild p as
-    exp((s - hi) - lo); the packed entries pass no lo, and their backward
-    kernels are instantiated without it."""
+    """F3's remedy in the FMA sources: the head-split, slab and (since the
+    packed body's repair) packed forwards write hi and lo of each row's
+    log-sum-exp (formed in fp64) into a (2, B_, nH, N) buffer, their
+    backwards read the lo half and rebuild p as exp((s - hi) - lo); no
+    entry passes a null lo, and no backward kernel is instantiated without
+    it but K3's, behind the bf16 tensor-core passes (lse_pair 0)."""
     fwd = open(os.path.join(cuda_build.CSRC_DIR,
                             "window_attention_fwd.cu")).read()
     bwd = open(os.path.join(cuda_build.CSRC_DIR,
@@ -446,13 +447,12 @@ def test_fma_entries_hand_over_hi_and_lo():
     assert "(float*)lse + (size_t)B_ * nH * N" in fwd
     assert "(const float*)lse + (size_t)B_ * nH * N" in bwd
     assert "exp_<FASTEXP>(LO ? (v - lse) - lo : v - lse)" in bwd
-    assert len(re.findall(r"lse, nullptr, B_", fwd)) == 1   # packed
-    assert len(re.findall(r"lse,\s+lo, B_", fwd)) == 2     # map, strided
-    # only the packed backward kernels are built without the low part
+    assert len(re.findall(r"lse, nullptr, B_", fwd)) == 0
+    assert len(re.findall(r"lse,\s+lo, B_", fwd)) == 3  # packed, map, strided
     assert len(re.findall(r"launch<(?:Rows|MapRows), T, TB, FASTEXP, MXU, "
-                          r"false>", bwd)) == 1
+                          r"false>", bwd)) == 0
     assert len(re.findall(r"launch<Rows, T, TB, FASTEXP, MXU, true>",
-                          bwd)) == 1
+                          bwd)) == 2
     assert len(re.findall(r"launch<MapRows, T, TB, FASTEXP, MXU, true>",
                           bwd)) == 1
 
@@ -503,7 +503,7 @@ def test_f3_rebuild_from_hi_and_lo_matches_float64():
 
 def test_f3_rebuild_without_lo_is_the_one_number_form():
     """Without lo the rebuild is exp(s - lse) exactly, the form of the
-    packed and slab kernels (their numbers do not move)."""
+    bf16 tensor-core kernels (their numbers do not move)."""
     s, _ = _scale60_rows(rows=8, n=64, seed=1)
     hi, lo = ths.lse_pair(s)
     torch.testing.assert_close(ths.rebuild_probabilities(s, hi),

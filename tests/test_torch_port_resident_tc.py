@@ -274,8 +274,8 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
      ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_resident_tc"],
      {"window_attention_fwd_tc", "window_attention_bwd_resident_tc"}),
     ("fp32", "bias_resident", "1", True,
-     ["mmde_window_attention_fwd", "mmde_window_attention_bwd_resident"],
-     {"window_attention_fwd", "window_attention_bwd_resident"}),
+     ["mmde_window_attention_fwd", "mmde_window_attention_bwd_resident_tc"],
+     {"window_attention_fwd", "window_attention_bwd_resident_tc"}),
     ("bf16", "window_resident", "auto", True,
      ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w"],
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
@@ -287,16 +287,17 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
     ("bf16", "window_resident", "auto", False,
      ["mmde_window_attention_fwd_tc_w"], {"window_attention_fwd_tc_w4"}),
     ("fp32", "window_resident", "auto", True,
-     ["mmde_window_attention_fwd_w", "mmde_window_attention_bwd_w"],
-     {"window_attention_fwd_w4+lse", "window_attention_bwd_w4"}),
+     ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w"],
+     {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
 ])
 def test_k4_and_k5_route_by_type(recorded, case):
     """bf16 qkv takes the tensor-core K4 (after the tensor-core forward
     without lse, W = 1 whatever the setting, as in JAX) and the tensor-core
     K5 at the rule's W, whose entries receive W just before the mode and
     the stream (the forward's lse null when serving); under "split" K3's
-    pass follows K5 as it follows K2. fp32 qkv keeps the FMA bodies. The
-    counters name the kernel that ran, with its W."""
+    pass follows K5 as it follows K2. fp32 qkv takes them too (K4 and K5
+    on the tensor cores, its forward before K4 the FMA K1). The counters
+    name the kernel that ran, with its W."""
     dtype_name, grid, wpc, train, want, counted = case
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     _drive(dtype, grid, wpc, train)
@@ -312,7 +313,8 @@ def test_k4_and_k5_route_by_type(recorded, case):
             assert args[-4] == (1 if grid == "window_resident" else 0)
         if entry == "mmde_window_attention_bwd_resident_tc":
             # bias_bf16, then the chunks (tensor-core splits), then stream
-            assert args[-3:-1] == (1, twp.resident_splits(36, 4, 8, True))
+            assert args[-3:-1] == (int(dtype == torch.bfloat16),
+                                   twp.resident_splits(36, 4, 8, True))
     if grid == "bias_resident":
         assert sum(twp.LAUNCHES_RESIDENT_BY_SHAPE.values()) == 1
         assert not twp.LAUNCHES_BWD_BY_SHAPE
@@ -328,7 +330,7 @@ def test_private_switch_reaches_the_fma_k4_and_k5(recorded):
     lt, b = torch.from_numpy(ls), torch.from_numpy(bias).bfloat16()
     m = torch.from_numpy(mask).bfloat16()
     gt = torch.from_numpy(g).bfloat16()
-    lse = torch.zeros((8, nH, 36))
+    lse = torch.zeros((2, 8, nH, 36))    # the FMA body's hi + lo (F3)
     twp._launch_backward_resident(q, lt, b, m, gt, nH, _fma=True)
     twp._launch_backward_resident(q, lt, b, m, gt, nH)
     twp._launch_forward(q, lt, b, m, nH, True, True, w=4, _fma=True)
@@ -395,7 +397,10 @@ def test_tensor_core_splits_fill_one_wave_and_no_chunk_is_empty(N, nH, B_,
 def test_tensor_core_body_takes_every_w():
     assert twp.tensor_core_body(torch.bfloat16, 4)
     assert twp.tensor_core_body(torch.bfloat16, 8)
-    assert not twp.tensor_core_body(torch.float32, 4)
+    # fp32 qkv: K5 (W > 1) and K4 on the tensor cores, W = 1 on the FMA body
+    assert twp.tensor_core_body(torch.float32, 4)
+    assert twp.tensor_core_body(torch.float32, 1, resident=True)
+    assert not twp.tensor_core_body(torch.float32, 1)
 
 
 # ------------------------------------------------------- sources and build
@@ -420,7 +425,7 @@ def test_new_entries_and_their_ctypes_signatures(src, entry, argtypes, mxu):
     argument types (pointer -> c_void_p, int -> c_int); the K5 entries take
     `int W`, then the mode `int mxu`, then the stream; K4's takes no mode
     (always the fp32 function). The sources include the tensor-core header,
-    run their products through its mma helper and no library."""
+    run their products through its mma helpers and no library."""
     params = _entries(src)[entry]
     kinds = [twp._P if "*" in p else twp._I for p in params]
     assert kinds == getattr(twp, argtypes), entry
@@ -431,7 +436,7 @@ def test_new_entries_and_their_ctypes_signatures(src, entry, argtypes, mxu):
         assert "int mxu" not in params and params[-2] == "int splits"
     text = open(os.path.join(cuda_build.CSRC_DIR, src)).read()
     assert '#include "window_attention_tc.cuh"' in text
-    assert "mma(" in text
+    assert re.search(r"\bmma(_rows|_cols2?)?\s*[<(]", text)
     for lib in ("cublas", "cudnn", "torch/extension.h", "cutlass"):
         assert lib not in text.lower()
 

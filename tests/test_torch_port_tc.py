@@ -248,8 +248,9 @@ def test_routing_follows_the_type_and_w(recorded, case):
     """bf16 qkv runs the tensor-core entries in every grid, mode and W
     (split: the tensor-core passes without dbias, then K3's pass;
     bias_resident: the tensor-core forward without lse, then the
-    tensor-core K4; W > 1: K5's tensor-core entries); fp32 qkv runs the
-    fp32-FMA entries (K4's and K5's among them). The mode reaches every
+    tensor-core K4; W > 1: K5's tensor-core entries); fp32 qkv runs K1 /
+    K2's fp32-FMA entries at W = 1 and the tensor-core K4 and K5 (its
+    operands in three bf16 pieces). The mode reaches every
     packed entry but K4's as its code, just before the stream (K5's: W,
     then the mode); the launch counters name the kernel that ran, K3 after
     the tensor-core passes under its own name (and outside the per-shape
@@ -267,13 +268,11 @@ def test_routing_follows_the_type_and_w(recorded, case):
         want = (["mmde_window_attention_fwd_tc",
                  "mmde_window_attention_bwd_resident_tc"] if tc else
                 ["mmde_window_attention_fwd",
-                 "mmde_window_attention_bwd_resident"])
-    elif tc:
+                 "mmde_window_attention_bwd_resident_tc"])
+    elif tc or w_sfx:
         want = ["mmde_window_attention_fwd_tc" + w_sfx,
                 "mmde_window_attention_bwd_tc" + w_sfx]
         want += ["mmde_window_attention_dbias"] if grid == "split" else []
-    elif wpc == "auto":
-        want = ["mmde_window_attention_fwd_w", "mmde_window_attention_bwd_w"]
     else:
         want = ["mmde_window_attention_fwd_stats", "mmde_window_attention_bwd"]
     assert entries == want, case
@@ -301,8 +300,9 @@ def test_routing_follows_the_type_and_w(recorded, case):
             1 if train and grid == "split" else 0), counted
         if train and grid != "bias_resident":
             assert sum(twp.LAUNCHES_BWD_BY_SHAPE.values()) == 1
-    else:
-        assert not any("_tc" in k for k in counted), counted
+    else:   # fp32: the tensor-core kernels only for K4 and K5
+        assert all("_tc" not in k or "resident" in k or "_w4" in k
+                   for k in counted), counted
 
 
 def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
@@ -316,8 +316,9 @@ def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
     gt = torch.from_numpy(g).bfloat16()
     lse = torch.zeros((2, nH, 36))
     twp._launch_forward(q, lt, b, None, nH, True, True, _fma=True)
-    twp._launch_backward(q, lt, b, None, lse, gt, nH, "window_resident",
-                         True, _fma=True)
+    # the FMA body's statistic is hi + lo (F3), the bf16 tensor cores' one
+    twp._launch_backward(q, lt, b, None, torch.zeros((2,) + lse.shape), gt,
+                         nH, "window_resident", True, _fma=True)
     twp._launch_backward(q, lt, b, None, lse, gt, nH, "window_resident",
                          True)
     assert [e for e, _ in recorded] == [
