@@ -7,7 +7,8 @@
                                             # of a request and a train step,
                                             # flagship (p.json), swin_large
                                             # (p_large.json), the flagship's
-                                            # slab path (p_slab.json)
+                                            # slab path (p_slab.json), the
+                                            # fp32 flagship (p_fp32.json)
 
 What it does, each phase printing one JSON object on a line of its own:
 
@@ -15,22 +16,31 @@ What it does, each phase printing one JSON object on a line of its own:
                 versions, seconds spent building the kernels from csrc/.
   kernel_cases  the window-attention kernel against its plain PyTorch
                 version at the four flagship stage shapes, float32 and
-                bfloat16 (bf16 launches at one window per block run the
-                tensor-core kernels, fp32 the FMA body, everywhere in this
-                script), with and without mask: max abs / rel-L2 error,
-                kernel ms and plain ms (CUDA events, warm, median), and
-                the roofline bound with its bytes and flops.
+                bfloat16 (every packed launch, bf16 or fp32, runs the
+                tensor-core kernels, fp32 operands in three bf16 pieces,
+                everywhere in this script; fp32 head-split and slab launches
+                the FMA bodies), with and without mask: max abs / rel-L2
+                error, kernel ms (fp32: in turns with the FMA body, fma_ms)
+                and plain ms (CUDA events, warm, median), and the roofline
+                bound with its bytes and flops.
   kernel_cases_backward
                 the backward kernel (both ways it can sum dbias) at the
                 same stage shapes for 2 and 1 frame pairs, float32 and
                 bfloat16, one head at the ln(100) clamp and one hot head:
                 dqkv, dbias, dlogit_scale against the plain backward and
                 against float64 autograd of the plain forward; ms, plain
-                ms, bound. Each case also holds the output of the forward
+                ms, bound; each checks which kernels its launches ran
+                ("split": K3's FMA pass behind the tensor-core passes, fp32
+                too); fp32 also the FMA body's forward and backward in turns
+                (fma_ms). Each case also holds the output of the forward
                 that recorded the graph (the forward kernel's training entry
                 point, which writes the log-sum-exp as well) against the
                 plain forward, and times it. Both phases also cover the
                 packed stages 2-4 of swin_large_v2.
+  f3_packed     F3 on both packed bodies at W = 1 (fp32, every head at
+                scale 60, flagship stage 1 trained): the tensor-core K1 / K2
+                and the FMA bodies through the autograd Function, each
+                dlogit_scale within TOL_F3 of float64.
   kernel_cases_headsplit
                 the head-split forward (K6') and backward (K7') against
                 their plain versions, the backward also against float64
@@ -164,8 +174,9 @@ What it does, each phase printing one JSON object on a line of its own:
   kernel_cases_tc
                 the tensor-core K1 / K2 (csrc/window_attention_{fwd,bwd}
                 _tc.cu) at the flagship's four stages, served (forward) and
-                trained (forward with log-sum-exp, backward), bf16, masked
-                where the model masks, in modes fold, fp32 and bf16: against
+                trained (forward with log-sum-exp, backward), bf16 and fp32
+                (three bf16 pieces an operand), masked where the model
+                masks, in modes fold, fp32 and bf16 (each type): against
                 the plain version of the mode and float64 autograd (TOL_*,
                 TOL_MXU_BF16), and MXU_APART times nearer the own mode's
                 plain version than the other's (fold / fp32 against "bf16"):
@@ -176,6 +187,19 @@ What it does, each phase printing one JSON object on a line of its own:
                 kernels line adds the tensor-core bound (tc_bound_ms): those
                 products at the bf16 mma.sync rate the roofline phase
                 measured in the same run.
+  serve_fp32, train_fp32
+                the flagship in float32 (the JAX package's default type):
+                one request through tools.infer.predict, and 6 train steps
+                at 2 frame pairs with peak memory; every attention launch
+                the tensor-core K1 (+lse) / K2 with dtype float32 (2/2/18/2
+                a forward and a backward), no FMA K1 / K2.
+  train_parity_tiny
+                one deterministic fp32 step of configs/
+                convergence_gate_swin.yaml's model (swin_tiny_v2 +
+                decoder_v2, windows 6/6/6/3, 96x128, 2 frame pairs), kernel
+                path against plain path at TOL_TRAIN_PARITY: stages 3-4
+                packed at N = 36 and N = 9 (below one 64-row tile) on the
+                tensor cores, stages 1-2 on the head-split FMA bodies.
   serve_mxu, train_mxu
                 the flagship under MMDE_ATTN_MXU=bf16 (this script in a
                 process of its own): one request and 3 train steps, every
@@ -185,14 +209,16 @@ What it does, each phase printing one JSON object on a line of its own:
                 (`shared_card`).
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
-                launches on that path (the packed stages of the bf16 models:
+                launches on that path (the packed stages of the bf16 models
+                and of the fp32 flagship (serve_fp32 / train_fp32, dtype
+                float32, kernel_cases_tc's fp32 numbers, tc_units 12 / 30):
                 window_attention_fwd_tc[+lse] / window_attention_bwd_tc, the
                 head-split stages window_attention_headsplit_fwd_tc[+lse] /
                 window_attention_headsplit_bwd_tc, the slab path's
                 window_attention_slab_fwd_tc[+lse] /
                 window_attention_slab_bwd_tc, and none of the FMA
                 bodies), error, ms, plain ms, bound, and the
-                nearest library call's time (bf16 cases:
+                nearest library call's time (in qkv's type:
                 F.scaled_dot_product_attention on the normalised, scaled q
                 and k with bias + mask as its attn_mask; the normalisation
                 and the SDPA backend beside it; for a backward, that call's
@@ -206,6 +232,8 @@ What it does, each phase printing one JSON object on a line of its own:
                 train step each, device time by kernel group, on the
                 flagship profile's model and trainer with the module
                 settings their variables give (PROFILED_PATHS).
+  profile_fp32  (--profile only) the fp32 flagship's request and train step,
+                device time by kernel group.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -232,7 +260,8 @@ import torch
 from mmde_tpu_torch.tools.card import HBM_BYTES_PER_S, PEAK_FLOPS, time_ms
 
 KERNEL_SOURCE = "mmde_tpu_torch/csrc/window_attention_fwd.cu"
-# K1 and K2 on the tensor cores: every bf16 launch at one window per block
+# K1 and K2 on the tensor cores: every packed launch (bf16 and fp32) at one
+# window per block
 KERNEL_TC_SOURCE = "mmde_tpu_torch/csrc/window_attention_fwd_tc.cu"
 KERNEL_TC_BWD_SOURCE = "mmde_tpu_torch/csrc/window_attention_bwd_tc.cu"
 KERNEL_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:283 "
@@ -436,12 +465,22 @@ def compare_kernel(shape, dtype, with_mask, gen, *, maxfree=True,
         if timed:
             rec["ms"] = time_ms(lambda: wap.cosine_window_attention_packed(
                 qkv, ls, bias, mask, num_heads=nH, maxfree=maxfree))
+            if dtype == torch.float32:
+                # the tensor-core kernel and the fp32-FMA body in turns
+                def fwd(fma):
+                    return lambda: wap._launch_forward(
+                        qkv, ls, bias, mask, nH, maxfree, False, _fma=fma)
+                turns = [time_ms(fwd(False)), time_ms(fwd(True)),
+                         time_ms(fwd(True)), time_ms(fwd(False))]
+                rec.update({"ms_launch": (turns[0] + turns[3]) / 2,
+                            "fma_ms": (turns[1] + turns[2]) / 2,
+                            "ms_turns": turns})
             rec["plain_ms"] = time_ms(
                 lambda: wap.cosine_window_attention_packed_plain(
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
             rec.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                     rec["nW"], dtype, bias.dtype))
-            # the yardstick in qkv's type (fp32: the FMA body's partner)
+            # the yardstick in qkv's type
             rec.update(library_yardstick(*wap._split_heads(qkv, 3, nH), ls,
                                          bias, mask))
     return rec
@@ -635,11 +674,17 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
 
     def kernel_grads(grid_mode):
         leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+        before = dict(wap.LAUNCHES_BY_KERNEL)
         out = wap.cosine_window_attention_packed(
             leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
             grid_mode=grid_mode)
         out.backward(g)
         torch.cuda.synchronize()
+        # both types on the tensor cores; "split": K3's FMA pass after them
+        _tc_launched(before, dict(
+            {"window_attention_fwd_tc+lse": 1, "window_attention_bwd_tc": 1},
+            **({"window_attention_dbias": 1} if grid_mode == "split"
+               else {})), f"K2 ({grid_mode}) at {json.dumps(rec)}")
         return [t.grad for t in leaves], out.detach()
 
     with torch.no_grad():
@@ -675,7 +720,7 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
                     qkv, ls, bias, mask, num_heads=nH), reps=5, warm=1)
         fwd.update(kernel_bound(shape["B_"], shape["N"], shape["C"], nH,
                                 rec["nW"], dtype, bias.dtype, stats=True))
-        # the yardstick in qkv's type (fp32: the FMA body's partner)
+        # the yardstick in qkv's type
         lib = library_yardstick(
             *wap._split_heads(qkv, 3, nH), ls, bias, mask,
             g=wap._split_heads(g, 1, nH)[0])
@@ -705,6 +750,28 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             split = [time_ms(lambda: wap._launch_backward(
                 qkv, ls, bias, mask, lse, g, nH, "split", want), reps=8,
                 warm=2) for want in (True, False)]
+            if dtype == torch.float32:
+                # the tensor-core kernels and the fp32-FMA bodies in turns,
+                # each backward on its own forward's statistic
+                lse_f = wap._launch_forward(qkv, ls, bias, mask, nH, True,
+                                            True, _fma=True)[1]
+
+                def f1(fma):
+                    return lambda: wap._launch_forward(
+                        qkv, ls, bias, mask, nH, True, True, _fma=fma)
+
+                def b2(fma):
+                    return lambda: wap._launch_backward(
+                        qkv, ls, bias, mask, lse_f if fma else lse, g, nH,
+                        "window_resident", True, _fma=fma)
+                ft = [time_ms(f1(False)), time_ms(f1(True)),
+                      time_ms(f1(True)), time_ms(f1(False))]
+                bt = [time_ms(b2(f), reps=8, warm=2)
+                      for f in (False, True, True, False)]
+                fwd.update({"ms_launch": (ft[0] + ft[3]) / 2,
+                            "fma_ms": (ft[1] + ft[2]) / 2, "ms_turns": ft})
+                rec.update({"ms_launch": (bt[0] + bt[3]) / 2,
+                            "fma_ms": (bt[1] + bt[2]) / 2, "ms_turns": bt})
         rec["k3_ms"] = split[0] - split[1]
         rec["k3_bound"] = dbias_bound(shape["B_"], shape["N"], shape["C"], nH,
                                       rec["nW"], dtype, bias.dtype)
@@ -824,13 +891,15 @@ TOL_F3 = 2e-5
 
 
 def phase_f3_packed() -> dict:
-    """F3 in the packed FMA body: fp32 K1 (writing its statistic) and K2 at
-    W = 1 through the autograd Function, flagship stage 1 (2 frame pairs,
-    masked) with every head at scale 60: the statistic is (2, B_, nH, N), hi
-    + lo, and dlogit_scale lies within TOL_F3 of float64 autograd. Beside
-    it (`one_number`) the same backward on the one-number statistic the
-    packed body wrote before its repair, hi + lo rounded to one fp32 and lo
-    0 - at best that body's figure (its lse was m + logf(l) in fp32)."""
+    """F3 on both packed bodies at W = 1, fp32, through the autograd
+    Function at flagship stage 1 (2 frame pairs, masked) with every head at
+    scale 60: the tensor-core K1 (writing its statistic) and K2 - the
+    model's path - and the fp32-FMA bodies (the Function's private `fma`),
+    each checked by its launches. The statistic is (2, B_, nH, N), hi + lo,
+    and each body's dlogit_scale lies within TOL_F3 of float64 autograd.
+    Beside them (`one_number`) the FMA backward on the one-number statistic
+    the packed body wrote before its repair, hi + lo rounded to one fp32 and
+    lo 0 - at best that body's figure (its lse was m + logf(l) in fp32)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3131)
@@ -843,32 +912,40 @@ def phase_f3_packed() -> dict:
     rec = _case_head(shape, dtype, mask)
     rec.update({"every_head_scale_60": True, "frame_pairs": 2, "W": 1,
                 "tolerance_dlogit_scale_rel_l2": TOL_F3})
-    leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
-    before = dict(wap.LAUNCHES_BY_KERNEL)
-    out = wap.cosine_window_attention_packed(
-        leaves[0], leaves[1], leaves[2], mask, num_heads=nH,
-        grid_mode="window_resident", windows_per_cell=1)
-    out.backward(g)
-    torch.cuda.synchronize()
-    _tc_launched(before, {"window_attention_fwd+lse": 1,
-                          "window_attention_bwd": 1}, "f3_packed")
     truth = _float64_grads(qkv, ls, bias, mask, g, nH)
+    for body, fma, want in (
+            ("tensor_core", False, {"window_attention_fwd_tc+lse": 1,
+                                    "window_attention_bwd_tc": 1}),
+            ("fma", True, {"window_attention_fwd+lse": 1,
+                           "window_attention_bwd": 1})):
+        leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+        before = dict(wap.LAUNCHES_BY_KERNEL)
+        out = wap._PackedWindowAttention.apply(
+            leaves[0], leaves[1], leaves[2], mask, nH, wap.SOFTMAX_MAXFREE,
+            "window_resident", 1, "fp32", fma)
+        out.backward(g)
+        torch.cuda.synchronize()
+        _tc_launched(before, want, f"f3_packed ({body})")
+        with torch.no_grad():
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                      _fma=fma)[1]
+        rec[body] = {"statistic_shape": list(lse.shape),
+                     "dlogit_scale": _errs(leaves[1].grad, truth[1]),
+                     "dqkv": _errs(leaves[0].grad, truth[0])}
+        del leaves, out
     with torch.no_grad():
-        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
         one = torch.stack([(lse[0].double() + lse[1].double()).float(),
                            torch.zeros_like(lse[1])])
         old = wap._launch_backward(qkv, ls, bias, mask, one, g, nH,
-                                   "window_resident", True)
-    rec["statistic_shape"] = list(lse.shape)
-    rec["dlogit_scale"] = _errs(leaves[1].grad, truth[1])
-    rec["dqkv"] = _errs(leaves[0].grad, truth[0])
+                                   "window_resident", True, _fma=True)
     rec["one_number"] = {"dlogit_scale": _errs(old[1], truth[1]),
                          "dqkv": _errs(old[0], truth[0])}
-    del truth, leaves, out, old
+    del truth, old
     torch.cuda.empty_cache()
     emit("f3_packed", rec)
-    if not (rec["statistic_shape"][0] == 2
-            and rec["dlogit_scale"]["rel_l2"] <= TOL_F3):
+    if not all(rec[b]["statistic_shape"][0] == 2
+               and rec[b]["dlogit_scale"]["rel_l2"] <= TOL_F3
+               for b in ("tensor_core", "fma")):
         raise RuntimeError(f"f3_packed: {json.dumps(rec)}")
     return rec
 
@@ -1470,18 +1547,47 @@ def _per_forward(want: dict, times: int) -> dict:
     return {layout: sum(d.values()) // times for layout, d in want.items()}
 
 
+@contextlib.contextmanager
+def _packed_launch_dtypes(seen: dict):
+    """Count the packed wrapper's launches by (direction, qkv's type) into
+    `seen` for a `with` block (the autograd Function and the served forward
+    call the module's launch functions by name)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    fwd, bwd = wap._launch_forward, wap._launch_backward
+
+    def counted(fn, direction):
+        def call(qkv, *a, **k):
+            key = f"{direction} {str(qkv.dtype).replace('torch.', '')}"
+            seen[key] = seen.get(key, 0) + 1
+            return fn(qkv, *a, **k)
+        return call
+    wap._launch_forward = counted(fwd, "forward")
+    wap._launch_backward = counted(bwd, "backward")
+    try:
+        yield
+    finally:
+        wap._launch_forward, wap._launch_backward = fwd, bwd
+
+
+def _check_launch_dtypes(tag: str, seen: dict, dtype: str) -> dict:
+    """Every packed launch `seen` ran on qkv of the model's `dtype`."""
+    if any(not k.endswith(" " + dtype) for k in seen):
+        raise RuntimeError(f"{tag}: packed launches by type {seen}, "
+                           f"expected {dtype} only")
+    return dict(seen)
+
+
 def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
                 flip: bool = True, tag: str = "serve",
-                attn_impl: str = "cuda") -> dict:
-    """`backbone` + decoder_v2 (bfloat16, the flagship's windows and
-    depths, attention `attn_impl`) built at full width from a seed,
-    answering `requests` requests of two 480x640 frames through
-    tools.infer.predict, with every kernel's launch counter read around
-    them; with `flip`, also a flip-averaged request."""
+                attn_impl: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """`backbone` + decoder_v2 (`dtype`, the flagship's windows and depths,
+    attention `attn_impl`) built at full width from a seed, answering
+    `requests` requests of two 480x640 frames through tools.infer.predict,
+    with every kernel's launch counter read around them; with `flip`, also
+    a flip-averaged request."""
     from mmde_tpu_torch.tools import infer
     t0 = time.time()
-    model = infer.build(flagship_cfg("bfloat16", attn_impl,
-                                     backbone=backbone),
+    model = infer.build(flagship_cfg(dtype, attn_impl, backbone=backbone),
                         device="cuda", seed=0)
     randomize_weights(model, seed=7)
     build_s = time.time() - t0
@@ -1492,7 +1598,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
     torch.cuda.reset_peak_memory_stats()
 
     _reset_launch_counts()
-    ms, dev_ms, shapes = [], [], None
+    ms, dev_ms, shapes, seen = [], [], None, {}
     for i in range(requests):
         g1, g2 = make_frames(seed=100 + i)
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1500,7 +1606,8 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         torch.cuda.synchronize()
         t = time.time()
         e0.record()
-        out = infer.predict(model, g1, g2)
+        with _packed_launch_dtypes(seen):
+            out = infer.predict(model, g1, g2)
         e1.record()
         torch.cuda.synchronize()
         ms.append((time.time() - t) * 1e3)
@@ -1516,10 +1623,10 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
     want_k = expected_kernels(backbone, 1, requests, False, attn_impl)
     if by_kernel != want_k:
         # every packed launch at the W the JAX rule gives (MMDE_ATTN_W), every
-        # bf16 launch at W = 1 on the tensor cores
+        # packed launch at W = 1 on the tensor cores
         raise RuntimeError(f"{tag}: launches by kernel {by_kernel}, "
                            f"expected {want_k}")
-    by_mxu = _check_mxu(tag, by_kernel)
+    by_mxu = _check_mxu(tag, by_kernel, getattr(torch, dtype))
     per_forward = _per_forward(want, requests)
     if attn_impl == "cuda_slab" and backbone == "swin_base_v2" and (
             per_forward != {"packed": 0, "headsplit": 0, "slab": 24}):
@@ -1531,7 +1638,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
     if depth_std <= 0.1:
         raise RuntimeError(f"{tag}: depth map is near-constant (std "
                            f"{depth_std})")
-    rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2",
+    rec = {"model": f"{backbone} + decoder_v2, {dtype}, depths 2/2/18/2",
            "attn_impl": attn_impl,
            "params": n_params, "build_seconds": round(build_s, 2),
            "input": "2 x uint8 (1, 480, 640, 3)", "request_ms": ms,
@@ -1542,6 +1649,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
                                  for lay, d in by_layout.items()},
            "launches_by_kernel": _str_keys(by_kernel),
            "launches_by_mxu": by_mxu,
+           "packed_launches_by_type": _check_launch_dtypes(tag, seen, dtype),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if flip:
         infer.predict(model, f1, f2, flip_tta=True)       # warm-up
@@ -1659,20 +1767,19 @@ def _packed_settings(settings: dict):
 
 def phase_profile(path: str, backbone: str = "swin_base_v2",
                   tag: str = "profile", attn_impl: str = "cuda",
-                  paths: dict = None) -> dict:
+                  paths: dict = None, dtype: str = "bfloat16") -> dict:
     """Optional (--profile PATH): device time by kernel group of one served
     request and of one train step (2 frame pairs) of `backbone` under
-    `attn_impl`. Every row goes to PATH (the served request's at top level,
-    the train step's under "train_step"). `paths` ({tag: (settings,
-    what)}, PROFILED_PATHS): the same request and step again under each
-    path's settings, on the same model and trainer, rows to PATH with the
-    tag's suffix (_resident, _w) before its extension."""
+    `attn_impl`, in `dtype`. Every row goes to PATH (the served request's
+    at top level, the train step's under "train_step"). `paths` ({tag:
+    (settings, what)}, PROFILED_PATHS): the same request and step again
+    under each path's settings, on the same model and trainer, rows to PATH
+    with the tag's suffix (_resident, _w) before its extension."""
     from mmde_tpu_torch.tools import infer
     from mmde_tpu_torch.tools import train_steps as ts
     runs = {tag: ({}, None)}
     runs.update(paths or {})
-    model = infer.build(flagship_cfg("bfloat16", attn_impl,
-                                     backbone=backbone),
+    model = infer.build(flagship_cfg(dtype, attn_impl, backbone=backbone),
                         device="cuda", seed=0)
     randomize_weights(model, seed=7)
     f1, f2 = make_frames(seed=11)
@@ -1687,7 +1794,7 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
     torch.cuda.empty_cache()
 
     state, step = ts.build_trainer(
-        ts.flagship_config(attn_impl=attn_impl, batch_size=2,
+        ts.flagship_config(dtype, attn_impl=attn_impl, batch_size=2,
                            backbone=backbone), device="cuda", seed=0)
     randomize_weights(state.model, seed=7)
     batch = ts.synthetic_batch(2, 480, 640, seed=31, device="cuda")
@@ -1868,14 +1975,15 @@ LARGE_STAGE1_PARAMS = tuple(n for n in LARGE_PARITY_PARAMS
 
 def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                 pairs: int = 2, deterministic_run: bool = True,
-                tag: str = "train", attn_impl: str = "cuda") -> dict:
+                tag: str = "train", attn_impl: str = "cuda",
+                dtype: str = "bfloat16") -> dict:
     """The trainer on the card: `steps` steps of make_train_step at `pairs`
-    frame pairs (bf16, train mode, drop path 0.3, seeded generator,
+    frame pairs (`dtype`, train mode, drop path 0.3, seeded generator,
     attention `attn_impl`) on one synthetic batch, every kernel's launches
     counted per step; then, with `deterministic_run`, a short deterministic
     run whose loss must fall."""
     from mmde_tpu_torch.tools import train_steps as ts
-    cfg = ts.flagship_config("bfloat16", attn_impl, batch_size=pairs,
+    cfg = ts.flagship_config(dtype, attn_impl, batch_size=pairs,
                              backbone=backbone)
     t0 = time.time()
     state, step = ts.build_trainer(cfg, device="cuda", seed=0)
@@ -1894,12 +2002,13 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     torch.cuda.reset_peak_memory_stats()
 
     _reset_launch_counts()
-    losses, ms = [], []
+    losses, ms, seen = [], [], {}
     for i in range(steps):
         before = (_launches(), _launches(backward=True))
         torch.cuda.synchronize()
         t = time.time()
-        state, aux = step(state, batch)
+        with _packed_launch_dtypes(seen):
+            state, aux = step(state, batch)
         torch.cuda.synchronize()
         ms.append((time.time() - t) * 1e3)
         aux = {k: float(v) for k, v in aux.items()}
@@ -1924,14 +2033,14 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
     if by_kernel != want_k:
         raise RuntimeError(f"{tag}: launches by kernel {by_kernel}, "
                            f"expected {want_k}")
-    by_mxu = _check_mxu(tag, by_kernel)
+    by_mxu = _check_mxu(tag, by_kernel, getattr(torch, dtype))
     peak = torch.cuda.max_memory_allocated()
     moved = {n: float((p.detach() - watch[n]).abs().max())
              for n, p in state.model.named_parameters() if n in watch}
     if not all(v > 0 for v in moved.values()):
         raise RuntimeError(f"{tag}: parameters did not change: {moved}")
     steady = ms[1:]
-    rec = {"model": f"{backbone} + decoder_v2, bfloat16, depths 2/2/18/2, "
+    rec = {"model": f"{backbone} + decoder_v2, {dtype}, depths 2/2/18/2, "
                     "train mode, drop path 0.3, remat none",
            "attn_impl": attn_impl, "frame_pairs": pairs, "steps": steps,
            "params": sum(p.numel() for p in state.model.parameters()),
@@ -1947,6 +2056,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                                      for lay, d in bwd_by_shape.items()},
            "launches_by_kernel": _str_keys(by_kernel),
            "launches_by_mxu": by_mxu,
+           "packed_launches_by_type": _check_launch_dtypes(tag, seen, dtype),
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
     del state, step
     torch.cuda.empty_cache()
@@ -2051,11 +2161,11 @@ def _entry(name, shape, source, replaces, n, c, pairs=1,
     return entry
 
 
-def _tc_case(tc_cases, shape, pairs, mxu="fold"):
+def _tc_case(tc_cases, shape, pairs, mxu="fold", dtype="bfloat16"):
     """kernel_cases_tc's case at this flagship shape (None elsewhere)."""
     return next((c for c in tc_cases
                  if c["model"] == shape["model"]
-                 and c["stage"] == shape["stage"]
+                 and c["stage"] == shape["stage"] and c["dtype"] == dtype
                  and c["frame_pairs"] == pairs and c["mxu"] == mxu), None)
 
 
@@ -2163,6 +2273,131 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
     return entries
 
 
+def contract_fp32_w1(serve: dict, train: dict, tc_cases: list) -> list:
+    """The fp32 flagship's K1 (served), K1+lse and K2 (trained, 2 frame
+    pairs) on the tensor cores, dtype float32: launches from serve_fp32 /
+    train_fp32, errors, times and bounds from kernel_cases_tc's fp32 cases
+    in mode "fp32" (the fp32 model's) at the same shapes, the fp32-FMA body
+    in the same call (fma_ms) and the fp32 library call."""
+    entries = []
+    for shape in stage_shapes(batch=1):
+        key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
+        c = _tc_case(tc_cases, shape, 1, "fp32", "float32")
+        entries.append(_entry("window_attention_fwd_tc", shape,
+                              KERNEL_TC_SOURCE, KERNEL_REPLACES,
+                              serve["_by_shape"]["packed"].get(key, 0), c,
+                              dtype="fp32"))
+    for shape in stage_shapes(batch=train["frame_pairs"]):
+        key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
+        t = _tc_case(tc_cases, shape, train["frame_pairs"], "fp32",
+                     "float32")
+        entries.append(_entry("window_attention_fwd_tc+lse", shape,
+                              KERNEL_TC_SOURCE, KERNEL_REPLACES,
+                              train["_fwd_by_shape"]["packed"].get(key, 0),
+                              t["forward"], train["frame_pairs"],
+                              dtype="fp32"))
+        e = _entry("window_attention_bwd_tc", shape, KERNEL_TC_BWD_SOURCE,
+                   KERNEL_BWD_REPLACES,
+                   train["_bwd_by_shape"]["packed"].get(key, 0), t,
+                   train["frame_pairs"], dtype="fp32")
+        e["ms_no_dbias"] = t["ms_no_dbias"]
+        entries.append(e)
+    for e in entries:
+        e["dtype"] = "float32"
+    return entries
+
+
+# configs/convergence_gate_swin.yaml's model, trained at 2 frame pairs:
+# stages 1-2 (C 96 / 192) head-split, 3-4 (C 384 / 768) packed at N = 36
+# and N = 9
+TINY_PARITY_PARAMS = (
+    "encoder.layers.0.blocks.1.attn.qkv.weight",
+    "encoder.layers.1.blocks.0.attn.logit_scale",
+    "encoder.layers.2.blocks.1.attn.qkv.weight",
+    "encoder.layers.2.blocks.3.attn.rpe_mlp.0.weight",
+    "encoder.layers.2.blocks.5.attn.logit_scale",
+    "encoder.layers.3.blocks.0.attn.logit_scale",
+    "encoder.layers.3.blocks.1.attn.qkv.weight",
+    "decoder.decoder_depth.conv_layers.0.weight",
+)
+
+
+def phase_train_parity_tiny(pairs: int = 2) -> dict:
+    """One deterministic fp32 step of configs/convergence_gate_swin.yaml's
+    model (swin_tiny_v2 + decoder_v2, depths 2/2/6/2, windows 6/6/6/3, its
+    96x128 crop, `pairs` frame pairs, weights from seed 7), kernel path
+    against plain path from the same weights and batch: the loss and the
+    gradients of TINY_PARITY_PARAMS at TOL_TRAIN_PARITY, cuDNN TF32 off.
+    The kernel path's launches: the packed stages (3-4, N 36 and 9, below
+    one 64-row tile) on the tensor-core K1+lse / K2, the head-split stages
+    (1-2) on their FMA bodies - the two bodies in one step."""
+    from mmde_tpu_torch.config import load_yaml
+    from mmde_tpu_torch.tools import train_steps as ts
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_yaml(os.path.join(root, "configs",
+                                 "convergence_gate_swin.yaml"))
+    if cfg.model.dtype != "float32":
+        raise RuntimeError(f"train_parity_tiny: the config's type is "
+                           f"{cfg.model.dtype}, not float32")
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                       deterministic=True)
+        randomize_weights(state.model, seed=7)
+        init = {n: t.detach().clone()
+                for n, t in state.model.state_dict().items()}
+        batch = ts.synthetic_batch(pairs, 96, 128, seed=35, device="cuda")
+        res, launches = {}, {}
+        for path in ("cuda", "torch"):
+            with torch.no_grad():
+                state.model.load_state_dict(init)
+            _set_attn_impl(state.model, path)
+            _reset_launch_counts()
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+            launches[path] = _str_keys(_by_kernel())
+            res[path] = ({k: float(v) for k, v in aux.items()},
+                         {n: p.grad.detach().double().clone()
+                          for n, p in state.model.named_parameters()
+                          if n in TINY_PARITY_PARAMS})
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    del state, step
+    torch.cuda.empty_cache()
+    (la, ga), (lb, gb) = res["cuda"], res["torch"]
+    if set(ga) != set(TINY_PARITY_PARAMS):
+        raise RuntimeError(f"train_parity_tiny: parameters missing: "
+                           f"{set(TINY_PARITY_PARAMS) - set(ga)}")
+    depths = cfg.model.swin.depths
+    want = {"window_attention_fwd_tc+lse": depths[2] + depths[3],
+            "window_attention_bwd_tc": depths[2] + depths[3],
+            "window_attention_headsplit_fwd+lse": depths[0] + depths[1],
+            "window_attention_headsplit_bwd": depths[0] + depths[1]}
+    got = {k: sum(d.values()) for k, d in launches["cuda"].items()}
+    loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
+    grad_rel = {n: float((ga[n] - gb[n]).norm()
+                         / gb[n].norm().clamp_min(1e-300)) for n in ga}
+    rec = {"model": "swin_tiny_v2 + decoder_v2 (configs/"
+                    "convergence_gate_swin.yaml), float32, depths "
+                    f"{'/'.join(map(str, depths))}, windows "
+                    f"{'/'.join(map(str, cfg.model.swin.window_size))}",
+           "input": f"{pairs} frame pairs, 96x128", "cudnn_allow_tf32": False,
+           "launches": launches["cuda"], "loss_cuda": la, "loss_torch": lb,
+           "loss_rel_diff": loss_rel, "grad_rel_l2": grad_rel,
+           "grad_norm": {n: float(gb[n].norm()) for n in gb},
+           "tolerance": TOL_TRAIN_PARITY}
+    emit("train_parity_tiny", rec)
+    if got != want or launches["torch"]:
+        raise RuntimeError(f"train_parity_tiny: launches {got} (plain path "
+                           f"{launches['torch']}), expected {want}")
+    if not loss_rel <= TOL_TRAIN_PARITY["loss_rel"] or not all(
+            v <= TOL_TRAIN_PARITY["grad_rel_l2"] and float(gb[n].norm()) > 0
+            for n, v in grad_rel.items()):
+        raise RuntimeError(f"train_parity_tiny: {json.dumps(rec)}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # K4 (MMDE_ATTN_GRID=bias_resident) and K5 (MMDE_ATTN_W)
 # ---------------------------------------------------------------------------
@@ -2172,8 +2407,8 @@ def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
     grid_mode="bias_resident" (forward: K1 without the log-sum-exp, checked
     against the plain forward under rec["forward"]), against the plain
     backward and float64 autograd; dbias bitwise equal over two launches.
-    bf16 and fp32 run the tensor-core K4 (the launch is checked by name;
-    fp32 after K1's FMA forward). Head 0 above the ln(100) clamp, head 1
+    bf16 and fp32 run the tensor-core K4 after the tensor-core K1 (the
+    launches are checked by name). Head 0 above the ln(100) clamp, head 1
     hot (scale e^4); `hot`: every head at scale 60. Times (medians of single
     launches): K4 and the FMA body at the same inputs, in turns (kernel,
     FMA body, FMA body, kernel), its bound on the tensor cores (tc_units:
@@ -2212,8 +2447,7 @@ def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
     if (wap.LAUNCHES_RESIDENT - before[0], wap.LAUNCHES_BWD - before[1]) \
             != (1, 0):
         raise RuntimeError("bias_resident backward did not launch K4 alone")
-    _tc_launched(before_k, {"window_attention_fwd_tc" if tc else
-                            "window_attention_fwd": 1, kernel: 1},
+    _tc_launched(before_k, {"window_attention_fwd_tc": 1, kernel: 1},
                  f"K4 at {json.dumps(rec)}")
     rec["forward"] = check_forward(out.detach(), want_out, dtype, rec)
     got = [t.grad for t in leaves]
@@ -2570,7 +2804,8 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
     process's MMDE_ATTN_GRID and MMDE_ATTN_W: each packed block's W by the
     JAX rule, for its own mask (the shifted blocks of stages 1-2 have one,
     the others not); every head-split and slab block of these bf16 models
-    on the tensor cores (no FMA slab launch)."""
+    on the tensor cores (no FMA slab launch); every packed block of either
+    type on the tensor cores."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
     want: dict = {}
@@ -2595,8 +2830,8 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
                 continue
             wf = 1 if resident else _w_of(sh, False, has_mask,
                                           wap.WINDOWS_PER_CELL)
-            # the models here are bf16: every packed launch runs the
-            # tensor-core kernels, K5 at its W
+            # every packed launch (bf16 or fp32) runs the tensor-core
+            # kernels, K5 at its W
             fwd = "window_attention_fwd_tc" + (f"_w{wf}" if wf > 1 else "") \
                 + ("+lse" if train and not resident else "")
             add(fwd, key, n * times)
@@ -2611,12 +2846,13 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
     return want
 
 
-def _check_mxu(tag: str, by_kernel: dict) -> dict:
+def _check_mxu(tag: str, by_kernel: dict,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
     """Every packed launch since the reset in this process's precision mode
-    for a bf16 model (MMDE_ATTN_MXU, "fold" unless set); K4 in fp32.
-    Returns {mode: {shape: launches}} (string keys)."""
+    for a model of `dtype` (bf16: MMDE_ATTN_MXU, "fold" unless set; fp32:
+    "fp32"); K4 in fp32. Returns {mode: {shape: launches}} (string keys)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    mode = wap.resolve_mxu(None, torch.bfloat16)
+    mode = wap.resolve_mxu(None, dtype)
     want: dict = {}
     for kernel, d in by_kernel.items():
         if kernel.startswith(("window_attention_headsplit",
@@ -3520,28 +3756,33 @@ def _tc_launched(before: dict, want: dict, what: str, module=None) -> None:
         raise RuntimeError(f"{what}: launched {got}, expected {want}")
 
 
-def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
-    """The tensor-core kernels at one flagship shape (bf16, the model's
-    mask where it has one; head 0 clamped at scale 100, head 1 hot at
-    scale 54.6 - both the online maximum, or in "bf16" the exact-maximum
-    sweep - the others cool, the static shift) in mode `mxu`, through the
-    wrapper as the model calls it: served, the forward alone; trained, the
-    forward with its log-sum-exp and the backward under autograd. Held to
-    the plain version of the mode (fold / fp32: TOL_BF16_REL_L2 and
-    TOL_BWD's bf16 limits; bf16: TOL_MXU_BF16) and to float64 autograd of
-    it (TOL_BWD / TOL_MXU_BF16_AUTOGRAD), and MXU_APART times nearer its
-    own mode's plain version than the other's (_nearer). Timed in the same
-    call: the kernel, the fp32-FMA body (`_fma`), the kernel and the FMA
-    body again (ms = the two turns' mean), the plain version, the SDPA
-    yardstick; trained also the backward without dbias."""
+def compare_tc(shape, mxu: str, train: bool, gen, timed=True,
+               dtype=torch.bfloat16) -> dict:
+    """The tensor-core kernels at one flagship shape (qkv, bias and mask of
+    `dtype`, the model's mask where it has one; head 0 clamped at scale
+    100, head 1 hot at scale 54.6 - both the online maximum, or in "bf16"
+    the exact-maximum sweep - the others cool, the static shift) in mode
+    `mxu`, through the wrapper as the model calls it: served, the forward
+    alone; trained, the forward with its log-sum-exp and the backward under
+    autograd. Held to the plain version of the mode (fold / fp32:
+    TOL_BF16_REL_L2 and TOL_BWD's bf16 limits for bf16 qkv, TOL_FP32_MAX_ABS
+    and TOL_BWD's fp32 limits for fp32 qkv; bf16: TOL_MXU_BF16) and to
+    float64 autograd of it (TOL_BWD / TOL_MXU_BF16_AUTOGRAD), and MXU_APART
+    times nearer its own mode's plain version than the other's (_nearer).
+    Timed in the same call: the kernel, the fp32-FMA body (`_fma`), the
+    kernel and the FMA body again (ms = the two turns' mean), the plain
+    version, the SDPA yardstick in qkv's type; trained also the backward
+    without dbias. The products' bound: tc_units (fp32 qkv in three bf16
+    pieces: 12 / 30 in fp32 and fold)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     masked = shape["nW"] > 0
-    qkv, ls, bias, mask = make_kernel_inputs(shape, torch.bfloat16, masked,
-                                             gen)
+    qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, masked, gen)
     ls[1] = 4.0
     nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
     other = "fold" if mxu == "bf16" else "bf16"
-    rec = dict(_case_head(shape, torch.bfloat16, mask), mxu=mxu,
+    name = str(dtype).replace("torch.", "")
+    f32 = dtype == torch.float32
+    rec = dict(_case_head(shape, dtype, mask), mxu=mxu,
                frame_pairs=2 if train else 1)
     with torch.no_grad():
         want = wap.cosine_window_attention_packed_plain(
@@ -3550,7 +3791,7 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
             qkv, ls, bias, mask, num_heads=nH, mxu=other)
     before = dict(wap.LAUNCHES_BY_KERNEL)
     if train:
-        g = torch.randn((B_, N, C), device="cuda", generator=gen).bfloat16()
+        g = torch.randn((B_, N, C), device="cuda", generator=gen).to(dtype)
         leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
         out = wap.cosine_window_attention_packed(
             leaves[0], leaves[1], leaves[2], mask, num_heads=nH, mxu=mxu)
@@ -3576,7 +3817,7 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
                                f"with its plain version: {json.dumps(fwd)} "
                                f"at {json.dumps(rec)}")
     else:
-        fwd = check_forward(out, want, torch.bfloat16, rec)
+        fwd = check_forward(out, want, dtype, rec)
     _nearer(rec, "out", out, want, want_o)
     if train:
         with torch.no_grad():
@@ -3587,9 +3828,9 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
         truth = _float64_grads(qkv, ls, bias, mask, g, nH, mxu)
         rb = mxu == "bf16"
         rec["backward"] = _check_against(grads, {
-            "vs_plain": (plain, TOL_MXU_BF16 if rb else TOL_BWD["bfloat16"]),
+            "vs_plain": (plain, TOL_MXU_BF16 if rb else TOL_BWD[name]),
             "vs_float64_autograd": (truth, TOL_MXU_BF16_AUTOGRAD if rb
-                                    else TOL_BWD["bfloat16"])},
+                                    else TOL_BWD[name])},
             f"tensor-core backward (mxu={mxu}) at {json.dumps(rec)}")
         _nearer(rec, "dqkv", grads[0], plain[0], plain_o[0])
         err = rec["backward"]["vs_float64_autograd"]["dqkv"]
@@ -3617,9 +3858,9 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
                      lambda: wap.cosine_window_attention_packed_plain(
                          qkv, ls, bias, mask, num_heads=nH, mxu=mxu),
                      reps=3, warm=1)}
-            f.update(kernel_bound(B_, N, C, nH, rec["nW"], torch.bfloat16,
+            f.update(kernel_bound(B_, N, C, nH, rec["nW"], dtype,
                                   bias.dtype, stats=stats))
-            f.update(tc_work(B_, N, nH, tc_units(mxu, False, ls)))
+            f.update(tc_work(B_, N, nH, tc_units(mxu, False, ls, f32=f32)))
         lib = library_yardstick(*wap._split_heads(qkv, 3, nH), ls, bias,
                                 mask, g=wap._split_heads(g, 1, nH)[0]
                                 if train else None)
@@ -3649,9 +3890,9 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
                         lambda: wap.cosine_window_attention_packed_backward_plain(
                             qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu),
                         reps=3, warm=1)})
-            rec.update(backward_bound(B_, N, C, nH, rec["nW"],
-                                      torch.bfloat16, bias.dtype))
-            rec.update(tc_work(B_, N, nH, tc_units(mxu, True, ls)))
+            rec.update(backward_bound(B_, N, C, nH, rec["nW"], dtype,
+                                      bias.dtype))
+            rec.update(tc_work(B_, N, nH, tc_units(mxu, True, ls, f32=f32)))
             rec.update({k: v for k, v in lib.items() if k != "library_ms"})
             rec["library_ms"] = lib["library_bwd_ms"]
     torch.cuda.empty_cache()
@@ -3661,20 +3902,22 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True) -> dict:
 def phase_kernels_tc(timed: bool = True) -> list:
     """The tensor-core K1 / K2 at the flagship's four stages, served (1
     frame pair, forward) and trained (2 pairs, forward with log-sum-exp and
-    backward), in modes fold (the model's), fp32 and bf16 (compare_tc).
-    Every case runs; the phase's line is printed, then it fails if any
-    case disagreed."""
+    backward), bf16 and fp32 qkv, in modes fold (the bf16 model's), fp32
+    (the fp32 model's) and bf16 (compare_tc). Every case runs; the phase's
+    line is printed, then it fails if any case disagreed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4242)
     cases, failed = [], []
-    for train in (False, True):
-        for shape in stage_shapes(batch=2 if train else 1):
-            for mxu in ("fold", "fp32", "bf16"):
-                try:
-                    cases.append(compare_tc(shape, mxu, train, gen, timed))
-                except RuntimeError as e:
-                    failed.append(str(e))
-                torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for train in (False, True):
+            for shape in stage_shapes(batch=2 if train else 1):
+                for mxu in ("fold", "fp32", "bf16"):
+                    try:
+                        cases.append(compare_tc(shape, mxu, train, gen,
+                                                timed, dtype))
+                    except RuntimeError as e:
+                        failed.append(str(e))
+                    torch.cuda.empty_cache()
     emit("kernel_cases_tc", {
         "cases": cases, "failed": failed,
         "timing": "CUDA events around one launch (forward; backward: the dq "
@@ -3696,10 +3939,11 @@ def main() -> int:
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
-                         "swin_large, of the flagship's slab path and of "
-                         "Paths A and B, and write their rows to PATH and "
-                         "PATH with _large / _slab / _resident / _w before "
-                         "its extension (JSON)")
+                         "swin_large, of the flagship's slab path, of Paths "
+                         "A and B and of the fp32 flagship, and write their "
+                         "rows to PATH and PATH with _large / _slab / "
+                         "_resident / _w / _fp32 before its extension "
+                         "(JSON)")
     ap.add_argument("--child", choices=["w", "resident", "mxu"],
                     default=None,
                     help=argparse.SUPPRESS)     # the script's own children
@@ -3742,6 +3986,11 @@ def main() -> int:
     serve_slab = phase_serve(tag="serve_slab", attn_impl="cuda_slab")
     train_slab = phase_train(steps=4, deterministic_run=False,
                              tag="train_slab", attn_impl="cuda_slab")
+    # the fp32 flagship (the JAX package's default type), full depth
+    serve_fp32 = phase_serve(requests=1, flip=False, tag="serve_fp32",
+                             dtype="float32")
+    train_fp32 = phase_train(steps=6, deterministic_run=False,
+                             tag="train_fp32", dtype="float32")
     (train_res, resident_child, serve_w, train_w, w_child, _,
      train_mxu) = phase_children()
     if args.profile:
@@ -3750,8 +3999,11 @@ def main() -> int:
         phase_profile(f"{root}_large{ext}", "swin_large_v2", "profile_large")
         phase_profile(f"{root}_slab{ext}", tag="profile_slab",
                       attn_impl="cuda_slab")
+        phase_profile(f"{root}_fp32{ext}", tag="profile_fp32",
+                      dtype="float32")
     phase_parity()
     phase_train_parity()
+    phase_train_parity_tiny()
     emit("parity_large", {
         "forward": phase_parity("swin_large_v2", ("float32", "bfloat16"),
                                 tag=None),
@@ -3781,6 +4033,7 @@ def main() -> int:
     entries += contract_resident(k4_cases, train_res)
     entries += contract_w(kw_cases, serve_w, train_w)
     entries += contract_fp32(k4_cases, kw_cases, resident_child, w_child)
+    entries += contract_fp32_w1(serve_fp32, train_fp32, tc_cases)
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)

@@ -97,13 +97,12 @@
 // version spends eight (nine to ten with dbias) N x N x 32 products, all as
 // fp32 FMAs on register tiles (8x4 per thread for the N x N tiles, 4x4 for
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
-// inputs far from their tensor-core bound. The port's bf16 packed launches
-// (K2, and K5 at W > 1) and fp32 ones at W > 1 (K5, operands in three bf16
-// pieces) run window_attention_bwd_tc.cu instead (bf16 mma.sync); under
+// inputs far from their tensor-core bound. The port's packed launches, bf16
+// and fp32 (K2, and K5 at W > 1; fp32 operands in three bf16 pieces), run
+// window_attention_bwd_tc.cu instead (bf16 mma.sync); under
 // MMDE_ATTN_GRID=split K3's pass alone follows them
-// (mmde_window_attention_dbias). This body serves fp32 qkv at W = 1 (K2),
-// the fp32 head-split and slab layouts, and is the tensor-core kernels'
-// same-card comparison.
+// (mmde_window_attention_dbias). This body serves the fp32 head-split and
+// slab layouts and is the tensor-core kernels' same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)

@@ -1,12 +1,13 @@
 // Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 q, k, v and g: in the packed layout at
-// one window per block or W (the _w kernels, below), on head-split
-// operands, and on the slab path's (B, Hp, Wp, 3C) map.
+// (sm_90a, bf16 mma.sync), for bf16 or fp32 q, k, v and g: in the packed
+// layout at one window per block or W (the _w kernels, below), on
+// head-split operands (bf16), and on the slab path's (B, Hp, Wp, 3C) map
+// (bf16).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
-// by _pallas_backward) for every bf16 launch, at w = 1 and with w > 1 (K5,
-// MMDE_ATTN_W), in all three precision modes: dqkv, dlogit_scale and
-// (dbias_mode 1) dbias; and
+// by _pallas_backward) for every packed launch, bf16 and fp32, at w = 1
+// and with w > 1 (K5, MMDE_ATTN_W), in all three precision modes: dqkv,
+// dlogit_scale and (dbias_mode 1) dbias; and
 // mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7, driven by
 // _pallas_backward) for every bf16 head-split launch, in its function (mode
 // fp32, fp32 bias and mask tiles): dq, dk, dv into contiguous (B_, nH, N,
@@ -17,14 +18,15 @@
 // by the same atomics (the TPU kernel's resident fp32 block). The two
 // passes are templates over the operands' layout (Rows; MapRows for the
 // slab entry, window_attention_common.cuh), every row address L::head(b, h)
-// + L::off(r) (the map's tile loads through TileRows' shared table). Under
+// + L::off(r) (the map's tile loads through TileRows' shared table), and
+// over their type: fp32 qkv (packed only) takes every operand in three bf16
+// pieces (Pieces, below), as K5's fp32 passes do. Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
-// delta written here. fp32 qkv runs K5's two passes here too (instantiated
-// on float, every operand in three bf16 pieces, below);
-// window_attention_bwd.cu keeps K2's fp32-FMA body for fp32 qkv at W = 1
-// (and as the same-card A/B partner). Same function and the same
-// two passes as K2 (its header has the formulas):
+// delta written here (reading the fp32 forward's hi + lo, lse_pair 1).
+// window_attention_bwd.cu keeps K2's fp32-FMA body for the fp32 head-split
+// and slab launches and as the same-card A/B partner. Same function and the
+// same two passes as K2 (its header has the formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
 //                    sweeps over 64-key tiles, each S = q k^T and dP = g v^T
@@ -87,32 +89,62 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                : "memory");
 }
 
+// fp32 operands (T = float), at one window a block: every operand in three
+// bf16 pieces (PS staged, PR formed in registers; the "bf16" mode one
+// rounding), the block's own rows (q, g; k, v) held in registers as A
+// fragments in PS pieces for the whole sweep, the streamed tiles arriving
+// in fp32 into one staging buffer and split into bf16 planes (the next
+// step's copies issued once the split pass is done), the statistic read as
+// hi + lo (F3): p = exp((s - hi) - lo), as the fp32 forward wrote it. Each
+// step's products go into fresh registers and are added by the CUDA cores
+// (round to nearest) to the running dq, dk^ and dv, which live in shared
+// memory in fragment order (a lane's own float4s), as K5's do. kTiles: the
+// dynamic shared memory of the staging and the planes; kState: of the
+// running sums (dq pass: dq; dk/dv pass: dk^ and dv).
+template <typename T, int MXU>
+struct Pieces {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool RB = MXU == MXU_BF16;
+  static constexpr int PS = F32 && !RB ? 3 : 1;
+  static constexpr int PR = RB ? 1 : F32 ? 3 : 2;
+  static constexpr int kTiles =
+      F32 ? 2 * TC_STAGE_F32 * 4 + 2 * PS * TC_PLANE * 2 : 0;
+  static constexpr int kState = 4 * 4 * 32 * 16;   // one float4 set a lane
+};
+
 // ---------------------------------------------------------------------------
 // dq and delta: one block per (query tile, head, window)
 // ---------------------------------------------------------------------------
-// L: the operands' layout (Rows; MapRows for the slab entry)
-template <template <typename> class L, typename TB, int MXU>
+// L: the operands' layout (Rows; MapRows for the slab entry); T: their type
+template <template <typename> class L, typename T, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
-                 L<const bf16> g, const float* __restrict__ logit_scale,
+bwd_dq_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
+                 L<const T> g, const float* __restrict__ logit_scale,
                  const TB* __restrict__ bias, const TB* __restrict__ mask,
-                 const float* __restrict__ lse, L<bf16> dq,
+                 const float* __restrict__ lse, L<T> dq,
                  float* __restrict__ delta, int N, int nW) {
-  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  using P = Pieces<T, MXU>;
+  constexpr bool F32 = P::F32;
+  constexpr int PS = P::PS, PR = P::PR;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sK[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
   // MapRows: the stages' tile tables (TileRows), K and V rows' pixels
   __shared__ int sTab[2][TC_BT];
-  // the stages' bias (and mask) tiles: BiasTiles
+  // fp32: the K / V staging and planes, the running dq (Pieces), then the
+  // stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
-  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
+  constexpr bool TAB = TileRows<L<const T>>::kTable;
+  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
-  const bf16* k_bh = k.head(b, h);
-  const bf16* v_bh = v.head(b, h);
+  const T* k_bh = k.head(b, h);
+  const T* v_bh = v.head(b, h);
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
                                      : nullptr;
@@ -121,16 +153,27 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
   const int nt = (N + TC_BT - 1) / TC_BT;
   const int steps = 2 * nt;     // delta first, then ds
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
+  float* sStg = reinterpret_cast<float*>(sBM);
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 2 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
+  float4* sA = reinterpret_cast<float4*>(sBM + P::kTiles) +
+               warp * 4 * 32 + lane;   // the lane's running dq (fp32)
+  const BiasTiles<TB> bt{sBM + (F32 ? P::kTiles + P::kState : 0),
+                         mask_w != nullptr};
 
   auto fill = [&](int s) {      // step s's tile table -> stage s & 1
     if (s < steps)
-      TileRows<L<const bf16>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
+      TileRows<L<const T>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
   };
   auto issue = [&](int s) {     // step s's K, V, bias, mask -> stage s & 1
     const int st = s & 1, kn = (s % nt) * TC_BT;
-    load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
-    load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg, k_bh, k, kn, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, kn, N, tid);
+    } else {
+      load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
+      load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
+    }
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
@@ -144,20 +187,38 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
 
   const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const bool ok0 = r0 < N, ok1 = r1 < N;
-  uint32_t qa[2][4], qs[2][4], ga[2][4];
-  load_afrag(qa, q.head(b, h), q, r0, N, t);
-  load_afrag(ga, g.head(b, h), g, r0, N, t);
+  uint32_t qa[PS][2][4], qs[2][4], ga[PS][2][4];
   float rq0, rq1;
-  row_norms(qa, rq0, rq1, lane);
+  if constexpr (F32) {
+    float2 qx[2][4], gx[2][4];
+    load_afrag_f32(qx, q.head(b, h), q, r0, N, t);
+    load_afrag_f32(gx, g.head(b, h), g, r0, N, t);
+    float none0, none1;
+    finish_operand<PS, true, RB || FQ>(qx, qa, lane, rq0, rq1, scale);
+    finish_operand<PS, false, false>(gx, ga, lane, none0, none1, 1.0f);
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
+    for (int n = 0; n < 4; ++n) sA[n * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    load_afrag(qa[0], q.head(b, h), q, r0, N, t);
+    load_afrag(ga[0], g.head(b, h), g, r0, N, t);
+    row_norms(qa[0], rq0, rq1, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qs[ks][i] = qa[ks][i];
-  if constexpr (RB) scale_afrag(qs, rq0, rq1, scale);
-  const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
-  const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qs[ks][i] = qa[0][ks][i];
+    if constexpr (RB) scale_afrag(qs, rq0, rq1, scale);
+  }
+  const float c0 = FQ ? 1.0f : MXU == MXU_FP32 ? rq0 : rq0 * scale;
+  const float c1 = FQ ? 1.0f : MXU == MXU_FP32 ? rq1 : rq1 * scale;
   const float lse0 = ok0 ? lse[stat0 + r0] : 0.0f;
   const float lse1 = ok1 ? lse[stat0 + r1] : 0.0f;
+  // fp32: the statistic's lo, (2, B_, nH, N) (F3)
+  float lo0 = 0.0f, lo1 = 0.0f;
+  if constexpr (F32) {
+    const float* lo = lse + (size_t)gridDim.z * gridDim.y * N;
+    lo0 = ok0 ? lo[stat0 + r0] : 0.0f;
+    lo1 = ok1 ? lo[stat0 + r1] : 0.0f;
+  }
 
   float acc[4][4];
 #pragma unroll
@@ -176,18 +237,47 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
     }
     cp_async_wait_all();
     __syncthreads();
-    if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    if constexpr (!F32) {
+      if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    }
     const char* tb = bt.bias(st);
     const char* tm = bt.mask(st);
     if (!async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
     else if (bt.fold())
       fold_mask(bt, st, tid);
-    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (its norm; "bf16": k^
+      // rounded), warps 2-3 a V row
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      staged_row(sStg + (tid < TC_BT ? 0 : TC_STAGE_F32), r, x);
+      if (tid < TC_BT) {
+        const float rn = row_rnorm(x);
+        sRk[st][r] = rn;
+        put_row<PS, RB>(sKp, r, x, rn, 1.0f);
+      } else {
+        put_row<PS, false>(sVp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    }
     __syncthreads();
-    if (step + 1 < steps && bt.fold()) issue(step + 1);
+    if constexpr (F32) {
+      // the next step's copies wait for the split pass (one staging
+      // buffer), as they wait for the fold where the tiles fold
+      if (step + 1 < steps) issue(step + 1);
+    } else {
+      if (step + 1 < steps && bt.fold()) issue(step + 1);
+    }
     // stage st's table is free again (see fwd_tc_kernel)
     if constexpr (TAB) fill(step + 2);
+    if constexpr (F32) {   // this step's products in fresh registers
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    }
 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -197,13 +287,25 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
         const int j = 2 * kk + jj;
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-        uint32_t kb[4], vb[4];
-        frag_rows(kb, sK[st], j, lane);
-        mma(s[jj], qs[0], kb[0], kb[1]);
-        mma(s[jj], qs[1], kb[2], kb[3]);
-        frag_rows(vb, sV[st], j, lane);
-        mma(dp[jj], ga[0], vb[0], vb[1]);
-        mma(dp[jj], ga[1], vb[2], vb[3]);
+        if constexpr (F32) {
+          uint32_t kb[PS][4], vb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(kb[p], sKp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(s[jj], qa, kb);
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(vb[p], sVp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(dp[jj], ga, vb);
+        } else {
+          uint32_t kb[4], vb[4];
+          frag_rows(kb, sK[st], j, lane);
+          mma(s[jj], qs[0], kb[0], kb[1]);
+          mma(s[jj], qs[1], kb[2], kb[3]);
+          frag_rows(vb, sV[st], j, lane);
+          mma(dp[jj], ga[0][0], vb[0], vb[1]);
+          mma(dp[jj], ga[0][1], vb[2], vb[3]);
+        }
       }
       // p = exp(s - lse), 0 past the edge
 #pragma unroll
@@ -235,7 +337,11 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
             float y = x[e];
             if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
             else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
-            x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
+            if constexpr (F32)   // F3: p = exp((s - hi) - lo)
+              x[e] = ex2((((y + (e ? bm.y : bm.x)) - (half ? lse1 : lse0)) -
+                          (half ? lo1 : lo0)) * TC_LOG2E);
+            else
+              x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
           }
           if (!in1) x[1] = 0.0f;
         }
@@ -256,17 +362,40 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
         dp[jj][2] = s[jj][2] * (dp[jj][2] - dl1);
         dp[jj][3] = s[jj][3] * (dp[jj][3] - dl1);
       }
-      uint32_t ah[4], al[4];
-      afrag<!RB>(dp[0], dp[1], f[0], f[1], ah, al);
+      if constexpr (F32) {
+        uint32_t a[PR][4];
+        afrag_p<PR>(dp[0], dp[1], f[0], f[1], a);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        uint32_t kb[4];
-        frag_cols(kb, sK[st], kk, c, lane);
-        mma(acc[2 * c], ah, kb[0], kb[1]);
-        mma(acc[2 * c + 1], ah, kb[2], kb[3]);
-        if constexpr (!RB) {
-          mma(acc[2 * c], al, kb[0], kb[1]);
-          mma(acc[2 * c + 1], al, kb[2], kb[3]);
+        for (int c = 0; c < 2; ++c) {
+          uint32_t kb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(kb[p], sKp + p * TC_PLANE, kk, c, lane);
+          mma_cols<PR, PS>(acc[2 * c], acc[2 * c + 1], a, kb);
+        }
+      } else {
+        uint32_t ah[4], al[4];
+        afrag<!RB>(dp[0], dp[1], f[0], f[1], ah, al);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t kb[4];
+          frag_cols(kb, sK[st], kk, c, lane);
+          mma(acc[2 * c], ah, kb[0], kb[1]);
+          mma(acc[2 * c + 1], ah, kb[2], kb[3]);
+          if constexpr (!RB) {
+            mma(acc[2 * c], al, kb[0], kb[1]);
+            mma(acc[2 * c + 1], al, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    if constexpr (F32) {   // the running dq += this step's, round to nearest
+      if (!first) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float4 x = sA[n * 32];
+          sA[n * 32] = make_float4(x.x + acc[n][0], x.y + acc[n][1],
+                                   x.z + acc[n][2], x.w + acc[n][3]);
         }
       }
     }
@@ -276,34 +405,70 @@ bwd_dq_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
     if (ok1) delta[stat0 + r1] = dl1;
   }
 
-  // dq = rq (dqn - q^ (dqn . q^)), q^ from the raw q fragments
-  float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
+  // dq = rq (dqn - q^ (dqn . q^)), q^ from the raw q fragments (fp32: the
+  // raw q again, exact in three pieces; the running dq)
+  if constexpr (F32) {
+    uint32_t qr[3][2][4];
+    load_operand<T, 3, true, false>(qr, q.head(b, h), q, r0, N, lane, rq0,
+                                    rq1, 1.0f);
+    float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n) {
+      const float4 a = sA[n * 32];
+      const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = acc[n][e];
-      if constexpr (RB) x *= scale;
-      const uint32_t w = afrag_at(qa, n, e >> 1);
-      const float qn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rq0 : rq1);
-      dqn[n][e] = x;
-      if (e < 2) dot0 = fmaf(x, qn, dot0);
-      else dot1 = fmaf(x, qn, dot1);
+      for (int e = 0; e < 4; ++e) {
+        float x = av[e];
+        if constexpr (RB) x *= scale;
+        const float qn = raw_at(qr, n, e >> 1, e & 1) * (e < 2 ? rq0 : rq1);
+        dqn[n][e] = x;
+        if (e < 2) dot0 = fmaf(x, qn, dot0);
+        else dot1 = fmaf(x, qn, dot1);
+      }
     }
-  dot0 = quad_sum(dot0);
-  dot1 = quad_sum(dot1);
-  bf16* dq_bh = dq.head(b, h) + 2 * t;
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    T* dq_bh = dq.head(b, h) + 2 * t;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (!(half ? ok1 : ok0)) continue;
-      const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
-      const uint32_t w = afrag_at(qa, n, half);
-      store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
-                 rq * (dqn[n][2 * half] - lo_f(w) * rq * dot),
-                 rq * (dqn[n][2 * half + 1] - hi_f(w) * rq * dot));
-    }
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
+        store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
+                   rq * (dqn[n][2 * half] - raw_at(qr, n, half, 0) * rq * dot),
+                   rq * (dqn[n][2 * half + 1] -
+                         raw_at(qr, n, half, 1) * rq * dot));
+      }
+  } else {
+    float dqn[4][4], dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = acc[n][e];
+        if constexpr (RB) x *= scale;
+        const uint32_t w = afrag_at(qa[0], n, e >> 1);
+        const float qn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rq0 : rq1);
+        dqn[n][e] = x;
+        if (e < 2) dot0 = fmaf(x, qn, dot0);
+        else dot1 = fmaf(x, qn, dot1);
+      }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    T* dq_bh = dq.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const float rq = half ? rq1 : rq0, dot = half ? dot1 : dot0;
+        const uint32_t w = afrag_at(qa[0], n, half);
+        store_pair(dq_bh + dq.off(half ? r1 : r0) + 8 * n,
+                   rq * (dqn[n][2 * half] - lo_f(w) * rq * dot),
+                   rq * (dqn[n][2 * half + 1] - hi_f(w) * rq * dot));
+      }
+  }
 }
 
 // dbias[query][key..key+3] += (a, b, c, d): one 16-byte vector atomic
@@ -321,34 +486,42 @@ __device__ __forceinline__ float pick4(const float* x, int i) {
 // dk, dv, dlogit_scale partials, dbias: one block per (key tile, head,
 // window)
 // ---------------------------------------------------------------------------
-template <template <typename> class L, typename TB, int MXU>
+template <template <typename> class L, typename T, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
-                  L<const bf16> g, const float* __restrict__ logit_scale,
+bwd_dkv_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
+                  L<const T> g, const float* __restrict__ logit_scale,
                   const TB* __restrict__ bias, const TB* __restrict__ mask,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, L<bf16> dk,
-                  L<bf16> dv, double* __restrict__ dls_part,
+                  const float* __restrict__ delta, L<T> dk,
+                  L<T> dv, double* __restrict__ dls_part,
                   float* __restrict__ dbias, int N, int nW) {
-  __shared__ __align__(128) bf16 sQ[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sG[2][TC_BT * TC_LD];
+  using P = Pieces<T, MXU>;
+  constexpr bool F32 = P::F32;
+  constexpr int PS = P::PS, PR = P::PR;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sQ[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sG[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRq[2][TC_BT];
   __shared__ float sLse[2][TC_BT];
   __shared__ float sDl[2][TC_BT];
+  __shared__ float sLo[2][F32 ? TC_BT : 1];   // fp32: the statistic's lo
   __shared__ double sRed[4];
   // MapRows: the stages' tile tables (TileRows), Q and G rows' pixels
   __shared__ int sTab[2][TC_BT];
-  // the stages' bias (and mask) tiles: BiasTiles
+  // fp32: the Q / G staging and planes, the running dv and dk^ (Pieces),
+  // then the stages' bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
-  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
+  constexpr bool TAB = TileRows<L<const T>>::kTable;
+  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int k0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
   const int nH = gridDim.y;
-  const bf16* q_bh = q.head(b, h);
-  const bf16* g_bh = g.head(b, h);
+  const T* q_bh = q.head(b, h);
+  const T* g_bh = g.head(b, h);
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
                                      : nullptr;
@@ -358,24 +531,45 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
   const float scale = expf(fminf(ls, TC_LN100));
   const int nt = (N + TC_BT - 1) / TC_BT;
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
+  float* sStg = reinterpret_cast<float*>(sBM);
+  bf16* sQp = reinterpret_cast<bf16*>(sStg + 2 * TC_STAGE_F32);
+  bf16* sGp = sQp + PS * TC_PLANE;
+  // the lane's running dv and dk^ (fp32)
+  float4* sv = reinterpret_cast<float4*>(sBM + P::kTiles) +
+               warp * 4 * 32 + lane;
+  float4* sk = sv + 4 * 4 * 32;
+  const BiasTiles<TB> bt{sBM + (F32 ? P::kTiles + 2 * P::kState : 0),
+                         mask_w != nullptr};
 
   // query tile it's table (MapRows) -> stage it & 1
   auto fill = [&](int it) {
     if (it < nt)
-      TileRows<L<const bf16>>::fill(sTab[it & 1], q, it * TC_BT, tid);
+      TileRows<L<const T>>::fill(sTab[it & 1], q, it * TC_BT, tid);
   };
   // query tile q0's Q, G, lse, delta, bias and mask (rows: queries, cols:
-  // this block's keys) -> stage st
+  // this block's keys) -> stage st (fp32: Q and G into the staging, lse's
+  // lo too)
   auto load = [&](int st, int q0) {
-    load_tile(sQ[st], q_bh, q, sTab[st], q0, N, tid);
-    load_tile(sG[st], g_bh, g, sTab[st], q0, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg, q_bh, q, q0, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, g_bh, g, q0, N, tid);
+    } else {
+      load_tile(sQ[st], q_bh, q, sTab[st], q0, N, tid);
+      load_tile(sG[st], g_bh, g, sTab[st], q0, N, tid);
+    }
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, true);
     const int j = tid & (TC_BT - 1);
     const bool ok = q0 + j < N;
     const float* src = (tid < TC_BT ? lse : delta) + stat0 + (ok ? q0 + j : 0);
     cp_async4(tid < TC_BT ? &sLse[st][j] : &sDl[st][j], src, ok);
+    if constexpr (F32) {   // F3: lo, (2, B_, nH, N)
+      if (tid < TC_BT)
+        cp_async4(&sLo[st][j],
+                  lse + (size_t)gridDim.z * nH * N + stat0 +
+                      (ok ? q0 + j : 0),
+                  ok);
+    }
     cp_async_commit();
   };
   if constexpr (TAB) {
@@ -387,16 +581,28 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
 
   const int r0 = k0 + warp * 16 + (lane >> 2), r1 = r0 + 8;   // keys
   const bool ok0 = r0 < N, ok1 = r1 < N;
-  uint32_t ka[2][4], ks_[2][4], va[2][4];
-  load_afrag(ka, k.head(b, h), k, r0, N, t);
-  load_afrag(va, v.head(b, h), v, r0, N, t);
+  uint32_t ka[PS][2][4], ks_[2][4], va[PS][2][4];
   float rk0, rk1;
-  row_norms(ka, rk0, rk1, lane);
+  if constexpr (F32) {
+    float2 kx[2][4], vx[2][4];
+    load_afrag_f32(kx, k.head(b, h), k, r0, N, t);
+    load_afrag_f32(vx, v.head(b, h), v, r0, N, t);
+    float none0, none1;
+    finish_operand<PS, true, RB>(kx, ka, lane, rk0, rk1, 1.0f);
+    finish_operand<PS, false, false>(vx, va, lane, none0, none1, 1.0f);
 #pragma unroll
-  for (int s = 0; s < 2; ++s)
+    for (int n = 0; n < 4; ++n)
+      sv[n * 32] = sk[n * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    load_afrag(ka[0], k.head(b, h), k, r0, N, t);
+    load_afrag(va[0], v.head(b, h), v, r0, N, t);
+    row_norms(ka[0], rk0, rk1, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ks_[s][i] = ka[s][i];
-  if constexpr (RB) scale_afrag(ks_, rk0, rk1, 1.0f);   // bf16(k^)
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ks_[s][i] = ka[0][s][i];
+    if constexpr (RB) scale_afrag(ks_, rk0, rk1, 1.0f);   // bf16(k^)
+  }
 
   float accV[4][4], accK[4][4];
 #pragma unroll
@@ -410,19 +616,48 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
     const int q0 = it * TC_BT;
     cp_async_wait_all();
     __syncthreads();
-    if (it + 1 < nt && !bt.fold()) load(st ^ 1, q0 + TC_BT);
+    if constexpr (!F32) {
+      if (it + 1 < nt && !bt.fold()) load(st ^ 1, q0 + TC_BT);
+    }
     const char* tb = bt.bias(st);
     const char* tm = bt.mask(st);
     if (!async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
     else if (bt.fold())
       fold_mask(bt, st, tid);
-    // the bf16 mode's q operand, bf16(q^ * scale), in place
-    tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a Q row each (its norm; "bf16" / fold:
+      // q^ * scale, rounded / in pieces), warps 2-3 a G row
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      staged_row(sStg + (tid < TC_BT ? 0 : TC_STAGE_F32), r, x);
+      if (tid < TC_BT) {
+        const float rn = row_rnorm(x);
+        sRq[st][r] = rn;
+        put_row<PS, RB || FQ>(sQp, r, x, rn, scale);
+      } else {
+        put_row<PS, false>(sGp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      // the bf16 mode's q operand, bf16(q^ * scale), in place
+      tile_norms<RB>(sQ[st], sRq[st], scale, tid);
+    }
     __syncthreads();
-    if (it + 1 < nt && bt.fold()) load(st ^ 1, q0 + TC_BT);
+    if constexpr (F32) {
+      // the next tile's copies wait for the split pass (one staging
+      // buffer), as they wait for the fold where the tiles fold
+      if (it + 1 < nt) load(st ^ 1, q0 + TC_BT);
+    } else {
+      if (it + 1 < nt && bt.fold()) load(st ^ 1, q0 + TC_BT);
+    }
     // stage st's table is free again (see fwd_tc_kernel)
     if constexpr (TAB) fill(it + 2);
+    if constexpr (F32) {   // this tile's products in fresh registers
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accV[n][e] = accK[n][e] = 0.0f;
+    }
 
     float dls_t = 0.0f;
 #pragma unroll
@@ -433,13 +668,25 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
         const int j = 2 * kk + jj;
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
-        uint32_t qb[4], gb[4];
-        frag_rows(qb, sQ[st], j, lane);
-        mma(s[jj], ks_[0], qb[0], qb[1]);
-        mma(s[jj], ks_[1], qb[2], qb[3]);
-        frag_rows(gb, sG[st], j, lane);
-        mma(dp[jj], va[0], gb[0], gb[1]);
-        mma(dp[jj], va[1], gb[2], gb[3]);
+        if constexpr (F32) {
+          uint32_t qb[PS][4], gb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(qb[p], sQp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(s[jj], ka, qb);
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(gb[p], sGp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(dp[jj], va, gb);
+        } else {
+          uint32_t qb[4], gb[4];
+          frag_rows(qb, sQ[st], j, lane);
+          mma(s[jj], ks_[0], qb[0], qb[1]);
+          mma(s[jj], ks_[1], qb[2], qb[3]);
+          frag_rows(gb, sG[st], j, lane);
+          mma(dp[jj], va[0][0], gb[0], gb[1]);
+          mma(dp[jj], va[0][1], gb[2], gb[3]);
+        }
       }
       // p^T, ds^T (rows: keys r0 / r1, cols: queries i, i + 1)
 #pragma unroll
@@ -449,9 +696,18 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
         const float rq[2] = {sRq[st][cl], sRq[st][cl + 1]};
         const float ls2[2] = {sLse[st][cl] * TC_LOG2E,
                               sLse[st][cl + 1] * TC_LOG2E};
+        float hi2[2] = {0.0f, 0.0f}, lo2[2] = {0.0f, 0.0f};
+        if constexpr (F32) {
+          hi2[0] = sLse[st][cl];
+          hi2[1] = sLse[st][cl + 1];
+          lo2[0] = sLo[st][cl];
+          lo2[1] = sLo[st][cl + 1];
+        }
         const float dl[2] = {sDl[st][cl], sDl[st][cl + 1]};
-        f[jj][0] = RB ? 1.0f : scale * rq[0];   // the bf16 mode: ds as it is
-        f[jj][1] = RB ? 1.0f : scale * rq[1];
+        // the bf16 mode (and fp32 fold, whose q operand is q^ * scale): ds
+        // as it is
+        f[jj][0] = RB || FQ ? 1.0f : scale * rq[0];
+        f[jj][1] = RB || FQ ? 1.0f : scale * rq[1];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int kl = warp * 16 + (lane >> 2) + 8 * half;   // tile col
@@ -466,12 +722,19 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
             }
             float sc = x;
             if constexpr (MXU == MXU_FP32) sc = sc * rq[e] * rk * scale;
+            else if constexpr (FQ) sc = sc * rk;
             else if constexpr (MXU == MXU_FOLD) sc = sc * (scale * rq[e]) * rk;
             float y = sc + btile_at<TB>(tb, cl + e, kl);
             if (bt.add_mask()) y += btile_at<TB>(tm, cl + e, kl);
-            x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
+            if constexpr (F32)   // F3: p = exp((s - hi) - lo)
+              x = ex2(((y - hi2[e]) - lo2[e]) * TC_LOG2E);
+            else
+              x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
             d = x * (d - dl[e]);
-            dls_t = fmaf(d, sc, dls_t);
+            // fp32: sum(ds * (sc - lse)), the same sum (a row of ds sums to
+            // zero), without ~60 times the rounding of that row sum
+            if constexpr (F32) dls_t = fmaf(d, sc - hi2[e], dls_t);
+            else dls_t = fmaf(d, sc, dls_t);
           }
         }
       }
@@ -514,59 +777,127 @@ bwd_dkv_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
       }
       // dv += p^T g, dkn += ds^T (scale rq q) (the bf16 mode: bf16(ds)^T
       // bf16(q^ scale))
-      uint32_t ph[4], pl[4], dh[4], dl4[4];
       const float one[2] = {1.0f, 1.0f};
-      afrag<!RB>(s[0], s[1], one, one, ph, pl);
-      afrag<!RB>(dp[0], dp[1], f[0], f[1], dh, dl4);
+      if constexpr (F32) {
+        uint32_t pa[PR][4], da[PR][4];
+        afrag_p<PR>(s[0], s[1], one, one, pa);
+        afrag_p<PR>(dp[0], dp[1], f[0], f[1], da);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        uint32_t gb[4], qb[4];
-        frag_cols(gb, sG[st], kk, c, lane);
-        frag_cols(qb, sQ[st], kk, c, lane);
-        mma(accV[2 * c], ph, gb[0], gb[1]);
-        mma(accV[2 * c + 1], ph, gb[2], gb[3]);
-        mma(accK[2 * c], dh, qb[0], qb[1]);
-        mma(accK[2 * c + 1], dh, qb[2], qb[3]);
-        if constexpr (!RB) {
-          mma(accV[2 * c], pl, gb[0], gb[1]);
-          mma(accV[2 * c + 1], pl, gb[2], gb[3]);
-          mma(accK[2 * c], dl4, qb[0], qb[1]);
-          mma(accK[2 * c + 1], dl4, qb[2], qb[3]);
+        for (int c = 0; c < 2; ++c) {
+          uint32_t gb[PS][4], qb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(gb[p], sGp + p * TC_PLANE, kk, c, lane);
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(qb[p], sQp + p * TC_PLANE, kk, c, lane);
+          mma_cols2<PR, PS>(accV[2 * c], accV[2 * c + 1], pa, gb,
+                            accK[2 * c], accK[2 * c + 1], da, qb);
+        }
+      } else {
+        uint32_t ph[4], pl[4], dh[4], dl4[4];
+        afrag<!RB>(s[0], s[1], one, one, ph, pl);
+        afrag<!RB>(dp[0], dp[1], f[0], f[1], dh, dl4);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t gb[4], qb[4];
+          frag_cols(gb, sG[st], kk, c, lane);
+          frag_cols(qb, sQ[st], kk, c, lane);
+          mma(accV[2 * c], ph, gb[0], gb[1]);
+          mma(accV[2 * c + 1], ph, gb[2], gb[3]);
+          mma(accK[2 * c], dh, qb[0], qb[1]);
+          mma(accK[2 * c + 1], dh, qb[2], qb[3]);
+          if constexpr (!RB) {
+            mma(accV[2 * c], pl, gb[0], gb[1]);
+            mma(accV[2 * c + 1], pl, gb[2], gb[3]);
+            mma(accK[2 * c], dl4, qb[0], qb[1]);
+            mma(accK[2 * c + 1], dl4, qb[2], qb[3]);
+          }
         }
       }
     }
     dls += dls_t;
+    if constexpr (F32) {   // the running dv, dk^ += this tile's, nearest
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float4 x = sv[n * 32], y = sk[n * 32];
+        sv[n * 32] = make_float4(x.x + accV[n][0], x.y + accV[n][1],
+                                 x.z + accV[n][2], x.w + accV[n][3]);
+        sk[n * 32] = make_float4(y.x + accK[n][0], y.y + accK[n][1],
+                                 y.z + accK[n][2], y.w + accK[n][3]);
+      }
+    }
   }
 
-  // dk = rk (dkn - k^ (dkn . k^))
-  float dot0 = 0.0f, dot1 = 0.0f;
+  // dk = rk (dkn - k^ (dkn . k^)) (fp32: the running sums, the raw k again,
+  // exact in three pieces)
+  if constexpr (F32) {
+    uint32_t kr[3][2][4];
+    load_operand<T, 3, true, false>(kr, k.head(b, h), k, r0, N, lane, rk0,
+                                    rk1, 1.0f);
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint32_t w = afrag_at(ka, n, e >> 1);
-      const float kn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rk0 : rk1);
-      if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
-      else dot1 = fmaf(accK[n][e], kn, dot1);
+    for (int n = 0; n < 4; ++n) {
+      const float4 x = sv[n * 32], y = sk[n * 32];
+      accV[n][0] = x.x; accV[n][1] = x.y; accV[n][2] = x.z; accV[n][3] = x.w;
+      accK[n][0] = y.x; accK[n][1] = y.y; accK[n][2] = y.z; accK[n][3] = y.w;
     }
-  dot0 = quad_sum(dot0);
-  dot1 = quad_sum(dot1);
-  bf16* dk_bh = dk.head(b, h) + 2 * t;
-  bf16* dv_bh = dv.head(b, h) + 2 * t;
+    float dot0 = 0.0f, dot1 = 0.0f;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (!(half ? ok1 : ok0)) continue;
-      const int key = half ? r1 : r0;
-      const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
-      const uint32_t w = afrag_at(ka, n, half);
-      store_pair(dk_bh + dk.off(key) + 8 * n,
-                 rk * (accK[n][2 * half] - lo_f(w) * rk * dot),
-                 rk * (accK[n][2 * half + 1] - hi_f(w) * rk * dot));
-      store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
-                 accV[n][2 * half + 1]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const float kn = raw_at(kr, n, e >> 1, e & 1) * (e < 2 ? rk0 : rk1);
+        if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
+        else dot1 = fmaf(accK[n][e], kn, dot1);
+      }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    T* dk_bh = dk.head(b, h) + 2 * t;
+    T* dv_bh = dv.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const int key = half ? r1 : r0;
+        const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
+        store_pair(dk_bh + dk.off(key) + 8 * n,
+                   rk * (accK[n][2 * half] - raw_at(kr, n, half, 0) * rk * dot),
+                   rk * (accK[n][2 * half + 1] -
+                         raw_at(kr, n, half, 1) * rk * dot));
+        store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
+                   accV[n][2 * half + 1]);
+      }
+  } else {
+    float dot0 = 0.0f, dot1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t w = afrag_at(ka[0], n, e >> 1);
+        const float kn = ((e & 1) ? hi_f(w) : lo_f(w)) * (e < 2 ? rk0 : rk1);
+        if (e < 2) dot0 = fmaf(accK[n][e], kn, dot0);
+        else dot1 = fmaf(accK[n][e], kn, dot1);
+      }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+    T* dk_bh = dk.head(b, h) + 2 * t;
+    T* dv_bh = dv.head(b, h) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? ok1 : ok0)) continue;
+        const int key = half ? r1 : r0;
+        const float rk = half ? rk1 : rk0, dot = half ? dot1 : dot0;
+        const uint32_t w = afrag_at(ka[0], n, half);
+        store_pair(dk_bh + dk.off(key) + 8 * n,
+                   rk * (accK[n][2 * half] - lo_f(w) * rk * dot),
+                   rk * (accK[n][2 * half + 1] - hi_f(w) * rk * dot));
+        store_pair(dv_bh + dv.off(key) + 8 * n, accV[n][2 * half],
+                   accV[n][2 * half + 1]);
+      }
+  }
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1)
     dls += __shfl_xor_sync(0xffffffffu, dls, off);
@@ -1312,53 +1643,58 @@ struct Operands {
 };
 
 // The two passes on operands already described in layout L (Rows: any
-// (window, head, token) strides; MapRows: windows of a map), rows 16-byte
-// aligned; -1 where a row is not.
-template <template <typename> class L, typename TB, int MXU>
-int launch(const Operands<L>& o, const void* ls, const void* bias,
+// (window, head, token) strides; MapRows: windows of a map) of type T, rows
+// 16-byte aligned; -1 where a row is not.
+template <template <typename> class L, typename T, typename TB, int MXU>
+int launch(const Operands<L, T>& o, const void* ls, const void* bias,
            const void* mask, const void* lse, void* delta, void* dls_part,
            void* dbias, int B_, int N, int nH, int nW, cudaStream_t stream) {
   if (!o.aligned()) return -1;
-  const int smem = bias_tiles_bytes<TB>(mask != nullptr);
+  using P = Pieces<T, MXU>;
+  // fp32: the staging, the planes and the running sums before the tiles
+  constexpr int dq_pre = P::F32 ? P::kTiles + P::kState : 0;
+  constexpr int dkv_pre = P::F32 ? P::kTiles + 2 * P::kState : 0;
+  const int tiles = bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_tc_kernel<L, TB, MXU>,
+      bwd_dq_tc_kernel<L, T, TB, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bias_tiles_bytes<TB>(true));
+      dq_pre + bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<L, TB, MXU>,
+  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<L, T, TB, MXU>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bias_tiles_bytes<TB>(true));
+                             dkv_pre + bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  bwd_dq_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  bwd_dq_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, dq_pre + tiles, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  bwd_dkv_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, dkv_pre + tiles, stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
       (double*)dls_part, (float*)dbias, N, nW);
   return (int)cudaGetLastError();
 }
 
-// qkv (B_, N, 3C), g (B_, N, C), dqkv (B_, N, 3C): the packed layout's Rows
-template <typename TB, int MXU>
+// qkv (B_, N, 3C), g (B_, N, C), dqkv (B_, N, 3C): the packed layout's Rows;
+// T = float: fp32 qkv, g and dqkv, lse (2, B_, nH, N) hi then lo
+template <typename T, typename TB, int MXU>
 int launch_packed(const void* qkv, const void* g, const void* ls,
                   const void* bias, const void* mask, const void* lse,
                   void* dqkv, void* delta, void* dls_part, void* dbias,
                   int B_, int N, int nH, int nW, cudaStream_t stream) {
   const int C = nH * TC_DH;
-  Operands<Rows> o;
-  o.q = packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH);
-  o.k = packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH);
-  o.v = packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH);
-  o.g = packed_rows((const bf16*)g, 0, N, C, 1, TC_DH);
-  o.dq = packed_rows((bf16*)dqkv, 0, N, C, 3, TC_DH);
-  o.dk = packed_rows((bf16*)dqkv, 1, N, C, 3, TC_DH);
-  o.dv = packed_rows((bf16*)dqkv, 2, N, C, 3, TC_DH);
-  return launch<Rows, TB, MXU>(o, ls, bias, mask, lse, delta, dls_part,
-                               dbias, B_, N, nH, nW, stream);
+  Operands<Rows, T> o;
+  o.q = packed_rows((const T*)qkv, 0, N, C, 3, TC_DH);
+  o.k = packed_rows((const T*)qkv, 1, N, C, 3, TC_DH);
+  o.v = packed_rows((const T*)qkv, 2, N, C, 3, TC_DH);
+  o.g = packed_rows((const T*)g, 0, N, C, 1, TC_DH);
+  o.dq = packed_rows((T*)dqkv, 0, N, C, 3, TC_DH);
+  o.dk = packed_rows((T*)dqkv, 1, N, C, 3, TC_DH);
+  o.dv = packed_rows((T*)dqkv, 2, N, C, 3, TC_DH);
+  return launch<Rows, T, TB, MXU>(o, ls, bias, mask, lse, delta, dls_part,
+                                  dbias, B_, N, nH, nW, stream);
 }
 
 // Windows the dk/dv pass holds a block: W, or for fp32 qkv the largest
@@ -1454,33 +1790,40 @@ bool shape_ok(int B_, int N, int nH, int nW, const void* mask,
 // (B_, nH, N) fp32 and dls_part (B_ * ceil(N / 64), nH) fp64 are written
 // (the caller sums dls_part over its first axis). dbias (nH, N, N) fp32
 // receives dbias by atomics when dbias_mode = 1 (the caller zeroes it
-// first); dbias_mode 0: no dbias (may
-// be null). mxu: MXU_FP32 / MXU_FOLD / MXU_BF16
-// (window_attention_common.cuh; -1 for another code). Returns the first
-// CUDA error of the two launches, or -1 for arguments the kernels do not
-// take. Launches on `stream`, does not synchronise, allocates nothing.
+// first); dbias_mode 0: no dbias (may be null). qkv_bf16 0: fp32 qkv, g and
+// dqkv (and fp32 bias), every operand in three bf16 pieces, lse (2, B_, nH,
+// N) hi then lo as mmde_window_attention_fwd_tc writes it (F3). mxu:
+// MXU_FP32 / MXU_FOLD / MXU_BF16 (window_attention_common.cuh; -1 for
+// another code). Returns the first CUDA error of the two launches, or -1
+// for arguments the kernels do not take. Launches on `stream`, does not
+// synchronise, allocates nothing.
 extern "C" int mmde_window_attention_bwd_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int C, int nH,
-    int nW, int bias_bf16, int dbias_mode, int mxu,
+    int nW, int qkv_bf16, int bias_bf16, int dbias_mode, int mxu,
     void* stream) {
   if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
     return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
     constexpr int MXU = decltype(m)::value;
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
+    } else if (!qkv_bf16) {
+      return launch_packed<float, float, MXU>(qkv, g, logit_scale, bias,
+                                              mask, lse, dqkv, delta,
+                                              dls_part, db, B_, N, nH, nW, s);
     } else if (bias_bf16) {
-      return launch_packed<bf16, MXU>(qkv, g, logit_scale, bias, mask, lse,
-                                      dqkv, delta, dls_part, db, B_, N, nH,
-                                      nW, s);
+      return launch_packed<bf16, bf16, MXU>(qkv, g, logit_scale, bias, mask,
+                                            lse, dqkv, delta, dls_part, db,
+                                            B_, N, nH, nW, s);
     } else {
-      return launch_packed<float, MXU>(qkv, g, logit_scale, bias, mask, lse,
-                                       dqkv, delta, dls_part, db, B_, N, nH,
-                                       nW, s);
+      return launch_packed<bf16, float, MXU>(qkv, g, logit_scale, bias, mask,
+                                             lse, dqkv, delta, dls_part, db,
+                                             B_, N, nH, nW, s);
     }
   });
 }
@@ -1564,10 +1907,12 @@ extern "C" int mmde_window_attention_headsplit_bwd_tc(
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<Rows, bf16, MXU_FP32>(o, logit_scale, bias, mask, lse,
-                                        delta, dls_part, db, B_, N, nH, nW, s);
-  return launch<Rows, float, MXU_FP32>(o, logit_scale, bias, mask, lse,
-                                       delta, dls_part, db, B_, N, nH, nW, s);
+    return launch<Rows, bf16, bf16, MXU_FP32>(o, logit_scale, bias, mask,
+                                              lse, delta, dls_part, db, B_, N,
+                                              nH, nW, s);
+  return launch<Rows, bf16, float, MXU_FP32>(o, logit_scale, bias, mask, lse,
+                                             delta, dls_part, db, B_, N, nH,
+                                             nW, s);
 }
 
 // Slab entry (K9's counterpart on the tensor cores): qkv (B, Hp, Wp, 3C),
@@ -1609,10 +1954,10 @@ extern "C" int mmde_window_attention_slab_bwd_tc(
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<MapRows, bf16, MXU_FP32>(o, logit_scale, bias, mask, lse,
-                                           delta, dls_part, db, B_, (int)N,
-                                           nH, (int)nW, s);
-  return launch<MapRows, float, MXU_FP32>(o, logit_scale, bias, mask, lse,
-                                          delta, dls_part, db, B_, (int)N, nH,
-                                          (int)nW, s);
+    return launch<MapRows, bf16, bf16, MXU_FP32>(o, logit_scale, bias, mask,
+                                                 lse, delta, dls_part, db, B_,
+                                                 (int)N, nH, (int)nW, s);
+  return launch<MapRows, bf16, float, MXU_FP32>(o, logit_scale, bias, mask,
+                                                lse, delta, dls_part, db, B_,
+                                                (int)N, nH, (int)nW, s);
 }

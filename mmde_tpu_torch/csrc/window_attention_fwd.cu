@@ -65,11 +65,11 @@
 // at the tensor-core rate would be bound by those few bytes. Both products
 // run here as fp32 FMAs on register tiles (8x4 logits and 4x4 outputs per
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
-// load and take the same path, far from their bound. The port's bf16 packed
-// launches (K1, and K5 at W > 1) and fp32 ones at W > 1 (K5, operands in
-// three bf16 pieces) run window_attention_fwd_tc.cu instead (bf16
-// mma.sync); this body serves fp32 qkv at W = 1 (K1), the fp32 head-split
-// and slab layouts, and is the tensor-core kernels' same-card comparison.
+// load and take the same path, far from their bound. The port's packed
+// launches, bf16 and fp32 (K1, and K5 at W > 1; fp32 operands in three bf16
+// pieces), run window_attention_fwd_tc.cu instead (bf16 mma.sync); this
+// body serves the fp32 head-split and slab layouts and is the tensor-core
+// kernels' same-card comparison.
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`): the packed bodies (K1, K5) are templates over it, and their C

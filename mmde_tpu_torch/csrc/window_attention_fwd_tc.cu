@@ -1,14 +1,15 @@
 // Fused SwinV2 cosine window attention, forward, on Hopper's tensor cores
-// (sm_90a, bf16 mma.sync), for bf16 q, k, v: in the packed layout (qkv as
-// the Linear emits it, (B_, N, 3C); out (B_, N, C)) at one window per block
-// or W (fwd_tc_w_kernel, below), on head-split operands (any (B_, nH, N,
-// 32) strides; out contiguous), and on the slab path's (B, Hp, Wp, 3C) map
-// (windows read in place, out the (B, Hp, Wp, C) map).
+// (sm_90a, bf16 mma.sync), for bf16 or fp32 q, k, v: in the packed layout
+// (qkv as the Linear emits it, (B_, N, 3C); out (B_, N, C)) at one window
+// per block or W (fwd_tc_w_kernel, below), on head-split operands (any
+// (B_, nH, N, 32) strides; out contiguous; bf16), and on the slab path's
+// (B, Hp, Wp, 3C) map (windows read in place, out the (B, Hp, Wp, C) map;
+// bf16).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
-// _pallas_forward) for every bf16 launch at w = 1 - the flagship's and
-// swin_large's default serving and training path - and with w > 1 (K5,
-// MMDE_ATTN_W), in all three precision modes; and
+// _pallas_forward) for every packed launch at w = 1 - the flagship's and
+// swin_large's default serving and training path, in bf16 and in fp32 - and
+// with w > 1 (K5, MMDE_ATTN_W), in all three precision modes; and
 // mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven by
 // _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
 // swin_tiny / swin_huge stages 1-2), and
@@ -21,12 +22,12 @@
 // (wi*ws + r/ws, wj*ws + r%ws) of the map; every row address goes through
 // L::head(b, h) + L::off(r) (the map's tile loads through a shared table of
 // the tile's pixels, TileRows in window_attention_tc.cuh), so the
-// arithmetic is the same.
-// fp32 q, k, v run K5 here too (fwd_tc_w_kernel on float, every operand in
-// three bf16 pieces, below); window_attention_fwd.cu keeps the fp32-FMA body
-// for the other fp32 launches and as the same-card A/B partner; the
-// function, the softmax forms and the log-sum-exp handed to the backward
-// are the same.
+// arithmetic is the same. It is a template over the operand type too: fp32
+// q, k, v (packed only) take every operand in three bf16 pieces (below), as
+// K5's fp32 instantiation does; window_attention_fwd.cu keeps the fp32-FMA
+// body for the fp32 head-split and slab launches and as the same-card A/B
+// partner; the function, the softmax forms and the log-sum-exp handed to
+// the backward are the same.
 //
 //   per (window b, head h):
 //     q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),  k^ = k * rk likewise
@@ -70,6 +71,26 @@
 // N = 225 = 3*64 + 33) is masked here. Two __syncthreads a key tile: the
 // tile's arrival, and its norms (and, in the bf16 mode, its rounded k^)
 // being written.
+//
+// fp32 q, k, v (T = float): every operand in three bf16 pieces, x1 =
+// bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), each product the six
+// piece products whose indices sum to at most 2 (window_attention_tc.cuh;
+// the "bf16" mode: one rounding, as for bf16 qkv). q stays in registers as
+// A fragments in three pieces (three times the bf16 kernel's); K and V
+// tiles arrive in fp32 by 16-byte cp.async into one staging buffer, and a
+// split pass (warps 0-1 a K row each with its norm, warps 2-3 a V row)
+// writes their pieces into bf16 planes that ldmatrix reads as it reads a
+// bf16 tile; the next step's copies are issued once the split pass is done
+// (one staging buffer: the planes decouple it from the products). p leaves
+// the accumulators in three pieces. Each step's p v products go into fresh
+// registers and are added to the running o by the CUDA cores (round to
+// nearest): the tensor cores round each sum toward zero, and an o left in
+// their accumulator over the key tiles would drift low. p is exp(s - m),
+// the difference formed first (as the FMA body does), so that no rounding
+// of the shift scales a whole row. The statistic is hi + lo, m + log(l)
+// formed in fp64, (2, B_, nH, N) (F3), as the fp32 K5 forward writes it;
+// the backward rebuilds p from it with the same arithmetic
+// (window_attention_bwd_tc.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,32 +100,56 @@
 
 namespace {
 
-// L: the operands' layout (Rows; MapRows for the slab entry)
-template <template <typename> class L, typename TB, int MXU>
+// fp32 operands (T = float): pieces a staged tile and q are cut into (PS),
+// pieces of an operand formed in registers, p (PR); the dynamic shared
+// memory they take before the bias tiles (one fp32 staging buffer of K and
+// V, PS planes of each)
+template <typename T, int MXU>
+struct Pieces {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool RB = MXU == MXU_BF16;
+  static constexpr int PS = F32 && !RB ? 3 : 1;
+  static constexpr int PR = RB ? 1 : F32 ? 3 : 2;
+  static constexpr int kTiles =
+      F32 ? 2 * TC_STAGE_F32 * 4 + 2 * PS * TC_PLANE * 2 : 0;
+};
+
+// L: the operands' layout (Rows; MapRows for the slab entry); T: their type
+template <template <typename> class L, typename T, typename TB, int MXU>
 __global__ void __launch_bounds__(TC_NT)
-fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
+fwd_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
               const float* __restrict__ logit_scale,
               const TB* __restrict__ bias, const TB* __restrict__ mask,
-              L<bf16> out, float* __restrict__ lse, int N, int nW,
+              L<T> out, float* __restrict__ lse, int N, int nW,
               int maxfree) {
-  __shared__ __align__(128) bf16 sK[2][TC_BT * TC_LD];
-  __shared__ __align__(128) bf16 sV[2][TC_BT * TC_LD];
+  using P = Pieces<T, MXU>;
+  constexpr bool F32 = P::F32;
+  constexpr int PS = P::PS, PR = P::PR;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sK[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][F32 ? 8 : TC_BT * TC_LD];
   __shared__ float sRk[2][TC_BT];
   // MapRows: the stages' tile tables (TileRows), K and V rows' pixels
   __shared__ int sTab[2][TC_BT];
-  // the stages' bias (and mask) tiles: BiasTiles
+  // fp32: the K / V staging and planes (Pieces::kTiles), then the stages'
+  // bias (and mask) tiles: BiasTiles
   extern __shared__ __align__(128) char sBM[];
 
   constexpr bool RB = MXU == MXU_BF16;
-  constexpr bool TAB = TileRows<L<const bf16>>::kTable;
+  constexpr bool TAB = TileRows<L<const T>>::kTable;
+  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
-  const bf16* k_bh = k.head(b, h);
-  const bf16* v_bh = v.head(b, h);
+  const T* k_bh = k.head(b, h);
+  const T* v_bh = v.head(b, h);
   const TB* bias_h = bias + (size_t)h * N * N;
   const TB* mask_w = mask != nullptr ? mask + (size_t)(b % nW) * N * N
                                      : nullptr;
+  float* sStg = reinterpret_cast<float*>(sBM);
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 2 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
 
   const float scale = expf(fminf(logit_scale[h], TC_LN100));
   const float shift = scale + 16.0f;
@@ -116,20 +161,26 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
   const int nt = (N + TC_BT - 1) / TC_BT;
   const int steps = (max_first ? 2 : 1) * nt;
   const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
-  const BiasTiles<TB> bt{sBM, mask_w != nullptr};
+  const BiasTiles<TB> bt{sBM + P::kTiles, mask_w != nullptr};
 
   // step `s`'s tile table (MapRows) into stage s & 1
   auto fill = [&](int s) {
     if (s < steps)
-      TileRows<L<const bf16>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
+      TileRows<L<const T>>::fill(sTab[s & 1], k, (s % nt) * TC_BT, tid);
   };
   // step `s`'s K (and V, outside the bf16 mode's first sweep), bias and
-  // mask tiles into stage s & 1
+  // mask tiles into stage s & 1 (fp32: K and V into the staging)
   auto issue = [&](int s) {
     const int st = s & 1, kn = (s % nt) * TC_BT;
-    load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
-    if (!(max_first && s < nt))
-      load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
+    if constexpr (F32) {
+      load_tile_f32(sStg, k_bh, k, kn, N, tid);
+      if (!(max_first && s < nt))
+        load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, kn, N, tid);
+    } else {
+      load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
+      if (!(max_first && s < nt))
+        load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
+    }
     if (async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, kn, N, tid, true);
     cp_async_commit();
@@ -142,14 +193,20 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
   issue(0);
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[2][4];
-  load_afrag(qa, q.head(b, h), q, r0, N, t);
+  uint32_t qa[PS][2][4];
   float rq0, rq1;
-  row_norms(qa, rq0, rq1, lane);
-  if constexpr (RB) scale_afrag(qa, rq0, rq1, scale);
+  if constexpr (F32) {
+    float2 qx[2][4];
+    load_afrag_f32(qx, q.head(b, h), q, r0, N, t);
+    finish_operand<PS, true, RB || FQ>(qx, qa, lane, rq0, rq1, scale);
+  } else {
+    load_afrag(qa[0], q.head(b, h), q, r0, N, t);
+    row_norms(qa[0], rq0, rq1, lane);
+    if constexpr (RB) scale_afrag(qa[0], rq0, rq1, scale);
+  }
   // the rank-1 epilogue's row factor (fp32 mode: scale applied last)
-  const float c0 = MXU == MXU_FP32 ? rq0 : rq0 * scale;
-  const float c1 = MXU == MXU_FP32 ? rq1 : rq1 * scale;
+  const float c0 = FQ ? 1.0f : MXU == MXU_FP32 ? rq0 : rq0 * scale;
+  const float c1 = FQ ? 1.0f : MXU == MXU_FP32 ? rq1 : rq1 * scale;
   const bool ok0 = r0 < N, ok1 = r1 < N;
 
   float m0 = mf ? shift : -INFINITY, m1 = m0;
@@ -166,18 +223,42 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
     const bool sweep = max_first && step < nt;  // the logits-only sweep
     cp_async_wait_all();
     __syncthreads();  // tile `step` arrived; every warp left step - 1
-    if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    if constexpr (!F32) {
+      if (step + 1 < steps && !bt.fold()) issue(step + 1);
+    }
     const char* tb = bt.bias(st);
     const char* tm = bt.mask(st);
     if (!async_b)
       stage_bias_tiles(bt, st, bias_h, mask_w, q0, k0, N, tid, false);
     else if (bt.fold())
       fold_mask(bt, st, tid);
-    // k^'s norms (the bf16 mode: k^ rounded in place; its second sweep
-    // reloads the raw tile and rounds it again)
-    tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (its norm; "bf16": k^
+      // rounded), warps 2-3 a V row (outside the logits-only sweep)
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      if (tid < TC_BT) {
+        staged_row(sStg, r, x);
+        const float rn = row_rnorm(x);
+        sRk[st][r] = rn;
+        put_row<PS, RB>(sKp, r, x, rn, 1.0f);
+      } else if (!sweep) {
+        staged_row(sStg + TC_STAGE_F32, r, x);
+        put_row<PS, false>(sVp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      // k^'s norms (the bf16 mode: k^ rounded in place; its second sweep
+      // reloads the raw tile and rounds it again)
+      tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    }
     __syncthreads();
-    if (step + 1 < steps && bt.fold()) issue(step + 1);
+    if constexpr (F32) {
+      // the next step's copies wait for the split pass (one staging
+      // buffer), as they wait for the fold where the tiles fold
+      if (step + 1 < steps) issue(step + 1);
+    } else {
+      if (step + 1 < steps && bt.fold()) issue(step + 1);
+    }
     // stage st's table is free again (issue(step) read it before this
     // step's first barrier); issue(step + 2) reads it after the next one
     if constexpr (TAB) fill(step + 2);
@@ -188,10 +269,18 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-      uint32_t kb[4];
-      frag_rows(kb, sK[st], j, lane);
-      mma(s[j], qa[0], kb[0], kb[1]);
-      mma(s[j], qa[1], kb[2], kb[3]);
+      if constexpr (F32) {
+        uint32_t kb[PS][4];
+#pragma unroll
+        for (int p = 0; p < PS; ++p)
+          frag_rows(kb[p], sKp + p * TC_PLANE, j, lane);
+        mma_rows<PS, PS>(s[j], qa, kb);
+      } else {
+        uint32_t kb[4];
+        frag_rows(kb, sK[st], j, lane);
+        mma(s[j], qa[0][0], kb[0], kb[1]);
+        mma(s[j], qa[0][1], kb[2], kb[3]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -242,6 +331,7 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
       m1 = fmaxf(m1, tm1);
       continue;
     }
+    float ra0 = 1.0f, ra1 = 1.0f;   // fp32: o's rescale, applied after
     if (!fixed) {   // online maximum: rescale what was summed so far
       const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
       const float a0 = ex2((m0 - n0) * TC_LOG2E);
@@ -250,40 +340,92 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
       m1 = n1;
       l0 *= a0;
       l1 *= a1;
+      if constexpr (F32) {
+        ra0 = a0;
+        ra1 = a1;
+      } else {
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        o[n][0] *= a0;
-        o[n][1] *= a0;
-        o[n][2] *= a1;
-        o[n][3] *= a1;
+        for (int n = 0; n < 4; ++n) {
+          o[n][0] *= a0;
+          o[n][1] *= a0;
+          o[n][2] *= a1;
+          o[n][3] *= a1;
+        }
       }
     }
-    const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+    if constexpr (F32) {
+      // exp(s - m): the difference first, as the FMA body forms it. The
+      // shift m * log2(e) rounded on its own (a number near 110 at scale
+      // 60 + 16) would scale the whole row's p and its sum l alike, and
+      // with them the statistic - F3's fault, which dlogit_scale's
+      // cancelling sum keeps
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
-      s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
-      s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
-      s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
-      l0 += s[j][0] + s[j][1];   // the row sums take p unrounded
-      l1 += s[j][2] + s[j][3];
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = ex2((s[j][0] - m0) * TC_LOG2E);
+        s[j][1] = ex2((s[j][1] - m0) * TC_LOG2E);
+        s[j][2] = ex2((s[j][2] - m1) * TC_LOG2E);
+        s[j][3] = ex2((s[j][3] - m1) * TC_LOG2E);
+        l0 += s[j][0] + s[j][1];   // the row sums take p unrounded
+        l1 += s[j][2] + s[j][3];
+      }
+    } else {
+      const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
+        s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
+        s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
+        s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+        l0 += s[j][0] + s[j][1];   // the row sums take p unrounded
+        l1 += s[j][2] + s[j][3];
+      }
     }
 
     // ---- o += p v: p from the accumulators, split (or rounded) ----
     const float one[2] = {1.0f, 1.0f};
+    if constexpr (F32) {
+      // this step's products in fresh registers, then o = o * rescale +
+      // them on the CUDA cores
+      float os[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ph[4], pl[4];
-      afrag<!RB>(s[2 * kk], s[2 * kk + 1], one, one, ph, pl);
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        uint32_t vb[4];
-        frag_cols(vb, sV[st], kk, c, lane);
-        mma(o[2 * c], ph, vb[0], vb[1]);
-        mma(o[2 * c + 1], ph, vb[2], vb[3]);
-        if constexpr (!RB) {
-          mma(o[2 * c], pl, vb[0], vb[1]);
-          mma(o[2 * c + 1], pl, vb[2], vb[3]);
+        for (int e = 0; e < 4; ++e) os[n][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[PR][4];
+        afrag_p<PR>(s[2 * kk], s[2 * kk + 1], one, one, pa);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t vb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_cols(vb[p], sVp + p * TC_PLANE, kk, c, lane);
+          mma_cols<PR, PS>(os[2 * c], os[2 * c + 1], pa, vb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        o[n][0] = fmaf(o[n][0], ra0, os[n][0]);
+        o[n][1] = fmaf(o[n][1], ra0, os[n][1]);
+        o[n][2] = fmaf(o[n][2], ra1, os[n][2]);
+        o[n][3] = fmaf(o[n][3], ra1, os[n][3]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ph[4], pl[4];
+        afrag<!RB>(s[2 * kk], s[2 * kk + 1], one, one, ph, pl);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t vb[4];
+          frag_cols(vb, sV[st], kk, c, lane);
+          mma(o[2 * c], ph, vb[0], vb[1]);
+          mma(o[2 * c + 1], ph, vb[2], vb[3]);
+          if constexpr (!RB) {
+            mma(o[2 * c], pl, vb[0], vb[1]);
+            mma(o[2 * c + 1], pl, vb[2], vb[3]);
+          }
         }
       }
     }
@@ -292,12 +434,27 @@ fwd_tc_kernel(L<const bf16> q, L<const bf16> k, L<const bf16> v,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   // p = exp(s - lse) for either softmax form: the backward's statistic
+  // (fp32: hi + lo, m + log(l) formed in fp64; (2, B_, nH, N))
   if (lse != nullptr && t == 0) {
     const size_t stat0 = ((size_t)b * gridDim.y + h) * N;
-    if (ok0) lse[stat0 + r0] = m0 + logf(l0);
-    if (ok1) lse[stat0 + r1] = m1 + logf(l1);
+    if constexpr (F32) {
+      float* lo = lse + (size_t)gridDim.z * gridDim.y * N;
+      const double x0 = (double)m0 + log((double)l0);
+      const double x1 = (double)m1 + log((double)l1);
+      if (ok0) {
+        lse[stat0 + r0] = (float)x0;
+        lo[stat0 + r0] = (float)(x0 - (double)(float)x0);
+      }
+      if (ok1) {
+        lse[stat0 + r1] = (float)x1;
+        lo[stat0 + r1] = (float)(x1 - (double)(float)x1);
+      }
+    } else {
+      if (ok0) lse[stat0 + r0] = m0 + logf(l0);
+      if (ok1) lse[stat0 + r1] = m1 + logf(l1);
+    }
   }
-  bf16* out_bh = out.head(b, h) + 2 * t;
+  T* out_bh = out.head(b, h) + 2 * t;
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     if (ok0) store_pair(out_bh + out.off(r0) + 8 * n, o[n][0] / l0,
@@ -677,39 +834,42 @@ int w_fwd_bytes(bool masked, int W) {
 }
 
 // The launch on operands already described in layout L (Rows: any
-// (window, head, token) strides; MapRows: windows of a map), rows 16-byte
-// aligned; -1 where a row is not.
-template <template <typename> class L, typename TB, int MXU>
-int launch(const L<const bf16>& rq, const L<const bf16>& rk,
-           const L<const bf16>& rv, const L<bf16>& ro, const void* ls,
-           const void* bias, const void* mask, void* lse, int B_, int N,
-           int nH, int nW, int maxfree, cudaStream_t stream) {
+// (window, head, token) strides; MapRows: windows of a map) of type T, rows
+// 16-byte aligned; -1 where a row is not.
+template <template <typename> class L, typename T, typename TB, int MXU>
+int launch(const L<const T>& rq, const L<const T>& rk, const L<const T>& rv,
+           const L<T>& ro, const void* ls, const void* bias,
+           const void* mask, void* lse, int B_, int N, int nH, int nW,
+           int maxfree, cudaStream_t stream) {
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
       !rows_aligned(ro))
     return -1;
-  const int smem = bias_tiles_bytes<TB>(mask != nullptr);
+  constexpr int tiles = Pieces<T, MXU>::kTiles;
+  const int smem = tiles + bias_tiles_bytes<TB>(mask != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc_kernel<L, TB, MXU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bias_tiles_bytes<TB>(true));
+      fwd_tc_kernel<L, T, TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tiles + bias_tiles_bytes<TB>(true));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  fwd_tc_kernel<L, TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  fwd_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, smem, stream>>>(
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree);
   return (int)cudaGetLastError();
 }
 
-// qkv (B_, N, 3C) and out (B_, N, C): the packed layout's Rows
-template <typename TB, int MXU>
+// qkv (B_, N, 3C) and out (B_, N, C): the packed layout's Rows; T = float:
+// fp32 qkv and out, lse (2, B_, nH, N) hi then lo
+template <typename T, typename TB, int MXU>
 int launch_packed(const void* qkv, const void* ls, const void* bias,
                   const void* mask, void* out, void* lse, int B_, int N,
                   int nH, int nW, int maxfree, cudaStream_t stream) {
   const int C = nH * TC_DH;
-  return launch<Rows, TB, MXU>(
-      packed_rows((const bf16*)qkv, 0, N, C, 3, TC_DH),
-      packed_rows((const bf16*)qkv, 1, N, C, 3, TC_DH),
-      packed_rows((const bf16*)qkv, 2, N, C, 3, TC_DH),
-      packed_rows((bf16*)out, 0, N, C, 1, TC_DH), ls, bias, mask, lse, B_, N,
+  return launch<Rows, T, TB, MXU>(
+      packed_rows((const T*)qkv, 0, N, C, 3, TC_DH),
+      packed_rows((const T*)qkv, 1, N, C, 3, TC_DH),
+      packed_rows((const T*)qkv, 2, N, C, 3, TC_DH),
+      packed_rows((T*)out, 0, N, C, 1, TC_DH), ls, bias, mask, lse, B_, N,
       nH, nW, maxfree, stream);
 }
 
@@ -751,27 +911,37 @@ bool shape_ok(int B_, int N, int nH, int nW, const void* mask) {
 // Plain C entry. qkv (B_, N, 3C) and out (B_, N, C) bf16, C = 32 * nH;
 // bias (nH, N, N) and mask (nW, N, N; may be null) bf16 when bias_bf16, else
 // fp32; `lse` (B_, nH, N) fp32, when not null, receives each row's
-// log-sum-exp, as mmde_window_attention_fwd_stats writes it. mxu: the
-// precision mode (MXU_FP32 / MXU_FOLD / MXU_BF16, window_attention_common.cuh;
-// -1 for another code). Returns cudaGetLastError() of the launch, or -1 for
-// arguments the kernel does not take. Launches on `stream`, does not
-// synchronise, allocates nothing.
+// log-sum-exp, as mmde_window_attention_fwd_stats writes it. qkv_bf16 0:
+// fp32 qkv and out (and fp32 bias), every operand in three bf16 pieces,
+// `lse` (2, B_, nH, N) hi then lo (F3). mxu: the precision mode (MXU_FP32 /
+// MXU_FOLD / MXU_BF16, window_attention_common.cuh; -1 for another code).
+// Returns cudaGetLastError() of the launch, or -1 for arguments the kernel
+// does not take. Launches on `stream`, does not synchronise, allocates
+// nothing.
 extern "C" int mmde_window_attention_fwd_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B_, int N, int C, int nH,
-    int nW, int bias_bf16, int maxfree, int mxu, void* stream) {
+    int nW, int qkv_bf16, int bias_bf16, int maxfree, int mxu,
+    void* stream) {
   if (C != nH * TC_DH || !shape_ok(B_, N, nH, nW, mask)) return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   return by_mode(mxu, [&](auto m) {
     constexpr int MXU = decltype(m)::value;
     if constexpr (MXU == MXU_FOLD_PV) {
       return -1;
+    } else if (!qkv_bf16) {
+      return launch_packed<float, float, MXU>(qkv, logit_scale, bias, mask,
+                                              out, lse, B_, N, nH, nW,
+                                              maxfree, s);
     } else if (bias_bf16) {
-      return launch_packed<bf16, MXU>(qkv, logit_scale, bias, mask, out, lse,
-                                      B_, N, nH, nW, maxfree, s);
+      return launch_packed<bf16, bf16, MXU>(qkv, logit_scale, bias, mask,
+                                            out, lse, B_, N, nH, nW, maxfree,
+                                            s);
     } else {
-      return launch_packed<float, MXU>(qkv, logit_scale, bias, mask, out,
-                                       lse, B_, N, nH, nW, maxfree, s);
+      return launch_packed<bf16, float, MXU>(qkv, logit_scale, bias, mask,
+                                             out, lse, B_, N, nH, nW,
+                                             maxfree, s);
     }
   });
 }
@@ -834,10 +1004,12 @@ extern "C" int mmde_window_attention_headsplit_fwd_tc(
   const Rows<bf16> ro = contiguous_rows((bf16*)out, nH, N, TC_DH);
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<Rows, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
-                                        mask, lse, B_, N, nH, nW, 0, s);
-  return launch<Rows, float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
-                                       mask, lse, B_, N, nH, nW, 0, s);
+    return launch<Rows, bf16, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale,
+                                              bias, mask, lse, B_, N, nH, nW,
+                                              0, s);
+  return launch<Rows, bf16, float, MXU_FP32>(rq, rk, rv, ro, logit_scale,
+                                             bias, mask, lse, B_, N, nH, nW,
+                                             0, s);
 }
 
 // Slab entry (K8's counterpart on the tensor cores): qkv the bf16
@@ -880,10 +1052,11 @@ extern "C" int mmde_window_attention_slab_fwd_tc(
   const MapRows<bf16> ro = map_rows((bf16*)out, 0, C, 1, Hp, Wp, ws, TC_DH);
   cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
-    return launch<MapRows, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
-                                           mask, lse, B_, (int)N, nH,
-                                           (int)nW, 0, s);
-  return launch<MapRows, float, MXU_FP32>(rq, rk, rv, ro, logit_scale, bias,
-                                          mask, lse, B_, (int)N, nH, (int)nW,
-                                          0, s);
+    return launch<MapRows, bf16, bf16, MXU_FP32>(rq, rk, rv, ro,
+                                                 logit_scale, bias, mask, lse,
+                                                 B_, (int)N, nH, (int)nW,
+                                                 0, s);
+  return launch<MapRows, bf16, float, MXU_FP32>(rq, rk, rv, ro, logit_scale,
+                                                bias, mask, lse, B_, (int)N,
+                                                nH, (int)nW, 0, s);
 }

@@ -17,8 +17,8 @@ points that take each operand's (window, head, token) strides: the model's
 permuted views of qkv go in without a copy (rows must be unit-stride and
 16-byte aligned, as they are for every swin variant; any other layout is
 copied first). Which body runs follows q's type, nothing else (the packed
-module's `tensor_core_body`): bf16 q, k, v run the tensor-core kernels
-(csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, counted as
+module's `headsplit_tensor_core_body`): bf16 q, k, v run the tensor-core
+kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, counted as
 window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc)
 in the TPU kernel's function, mode "fp32" with fp32 bias and mask tiles;
 fp32 q, k, v run the fp32-FMA bodies (csrc/window_attention_fwd.cu,
@@ -347,10 +347,10 @@ def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
     to the FMA body too."""
     global LAUNCHES
     from mmde_tpu_torch.ops.window_attention_packed import (
-        _stream, tensor_core_body)
+        _stream, headsplit_tensor_core_body)
     B_, nH, N, Dh = q.shape
     q, k, v = _rows(q), _rows(k), _rows(v)
-    tc = tensor_core_body(v.dtype) and not _fma
+    tc = headsplit_tensor_core_body(v.dtype) and not _fma
     name = "mmde_window_attention_headsplit_fwd" + (
         "_tc" if tc else "_stats" if want_stats else "")
     fn = _entry(name, _FWD_TC_ARGTYPES if tc else _FWD_STATS_ARGTYPES
@@ -394,12 +394,12 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
     forward wrote."""
     global LAUNCHES_BWD
     from mmde_tpu_torch.ops.window_attention_packed import (
-        BWD_TILE, _stream, tensor_core_body)
+        BWD_TILE, _stream, headsplit_tensor_core_body)
     B_, nH, N, Dh = q.shape
     if g.dtype != v.dtype or g.shape != v.shape:
         raise ValueError(f"g must be {tuple(v.shape)} {v.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype}")
-    tc = tensor_core_body(v.dtype) and not _fma
+    tc = headsplit_tensor_core_body(v.dtype) and not _fma
     want_lse = (B_, nH, N) if tc else (2, B_, nH, N)
     if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
         raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "

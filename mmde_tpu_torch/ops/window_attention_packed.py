@@ -10,18 +10,20 @@ tiling and have no counterpart here: the CUDA kernels
 [_tc].cu, csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu) mask
 the ragged edge themselves.
 
-Which body runs follows qkv's type and W, nothing else (`tensor_core_body`):
-bf16 qkv runs the tensor-core kernels (bf16 mma.sync) - K1 with or without
-the log-sum-exp and K2's two passes (window_attention_{fwd,bwd}_tc.cu,
-counted as window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W
-> 1 (the same sources, window_attention_fwd_tc_w{W}[+lse] /
+Every packed launch, bf16 or fp32 qkv, runs the tensor-core kernels (bf16
+mma.sync; `tensor_core_body`) - K1 with or without the log-sum-exp and K2's
+two passes (window_attention_{fwd,bwd}_tc.cu, counted as
+window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W > 1 (the
+same sources, window_attention_fwd_tc_w{W}[+lse] /
 window_attention_bwd_tc_w{W}) and K4 (window_attention_bwd_resident_tc.cu,
-window_attention_bwd_resident_tc); fp32 qkv runs K4 and K5 on the same
-kernels (every fp32 operand as three bf16 pieces) and K1 / K2 at W = 1 on
-the fp32-FMA bodies, as does K3's pass. All compute the same function in
-each precision mode. The forward hands the backward each row's
-log-sum-exp: fp32 hi + lo, (2, B_, nH, N), formed in fp64 (F3), from every
-body but the bf16 tensor-core one, which keeps (B_, nH, N) (`stat_pair`).
+window_attention_bwd_resident_tc) - fp32 qkv with every operand as three
+bf16 pieces; K3's pass ("split") keeps its fp32-FMA body, after the
+tensor-core passes. All compute the same function in each precision mode.
+The fp32-FMA bodies of K1 / K2 / K5 / K4 stay as the private same-card A/B
+partner (`_fma`). The forward hands the backward each row's log-sum-exp:
+fp32 hi + lo, (2, B_, nH, N), formed in fp64 (F3), from every body but the
+bf16 tensor-core one, which keeps (B_, nH, N) (`stat_pair`); a backward
+rebuilds p only from the statistic of its own body's forward.
 
 Which kernel runs follows the JAX package's process-wide settings, each read
 once at import:
@@ -167,14 +169,20 @@ _SOURCES_RESIDENT_TC = ("window_attention_bwd_resident_tc.cu",)
 
 def tensor_core_body(dtype: torch.dtype, w: int = 1,
                      resident: bool = False) -> bool:
-    """Whether a launch of qkv's `dtype` at `w` windows per block runs the
-    tensor-core kernels: bf16 at any W (K1 / K2 at W = 1, K5 above; K4 too),
-    in every precision mode; fp32 qkv at W > 1 (K5) and in K4 (`resident`),
-    its operands split into three bf16 pieces; fp32 at W = 1 (K1, K2, K3)
-    keeps the fp32-FMA bodies. The head-split and slab wrappers keep their
-    own rule (bf16 only)."""
-    return dtype == torch.bfloat16 or (dtype == torch.float32
-                                       and (w > 1 or resident))
+    """Whether a packed launch of qkv's `dtype` at `w` windows per block (or
+    K4's, `resident`) runs the tensor-core kernels: bf16 and fp32 qkv at
+    every W (K1 / K2 at W = 1, K5 above) and in K4, in every precision mode,
+    fp32 operands split into three bf16 pieces. K3's pass keeps its FMA
+    body. The head-split and slab wrappers keep their own rule (bf16 only,
+    `headsplit_tensor_core_body`)."""
+    return dtype in (torch.bfloat16, torch.float32)
+
+
+def headsplit_tensor_core_body(dtype: torch.dtype) -> bool:
+    """The head-split and slab wrappers' rule: bf16 on the tensor cores,
+    fp32 on the fp32-FMA bodies (their entries instantiate the tensor-core
+    kernels on bf16 operands only)."""
+    return dtype == torch.bfloat16
 
 
 def stat_pair(dtype: torch.dtype, tc: bool) -> bool:
@@ -321,8 +329,8 @@ _FWD_W_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 _BWD_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
-_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
-_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 _FWD_TC_W_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]
 _BWD_TC_W_ARGTYPES = [_P] * 10 + [_I] * 10 + [_P]
 _RESIDENT_TC_ARGTYPES = [_P] * 9 + [_I] * 8 + [_P]
@@ -541,6 +549,10 @@ def reset_launch_counts() -> None:
         d.clear()
 
 
+def _body_name(tc: bool) -> str:
+    return "tensor-core" if tc else "FMA"
+
+
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -550,11 +562,11 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     """Launch the forward kernel, K1 (w = 1) or K5 (w windows per block),
     in precision mode `mxu` (a key of _MXU_CODE; None = the default for
     qkv's type); returns (out, lse or None), lse (2, B_, nH, N) hi + lo
-    where `stat_pair` says so, else (B_, nH, N). bf16 qkv runs the
-    tensor-core kernels (`tensor_core_body`; K5 there holds up to 8
-    windows, a larger w raises), fp32 qkv K5 on them and K1 on its fp32-FMA
-    body; `_fma` (private: the card tools and chip_smoke.py's same-card
-    comparison, never the model) sends any launch to the FMA body."""
+    where `stat_pair` says so, else (B_, nH, N). bf16 and fp32 qkv run the
+    tensor-core kernels (`tensor_core_body`; fp32 operands in three bf16
+    pieces; K5 there holds up to 8 windows, a larger w raises); `_fma`
+    (private: the card tools and chip_smoke.py's same-card comparison,
+    never the model) sends any launch to the FMA body."""
     global LAUNCHES
     mxu = resolve_mxu(mxu, qkv.dtype, tuple(_MXU_CODE))
     B_, N, C3 = qkv.shape
@@ -575,6 +587,8 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     stat = ((2,) if stat_pair(qkv.dtype, tc) else ()) + (B_, num_heads, N)
     lse = (torch.empty(stat, dtype=torch.float32, device=qkv.device)
            if want_stats else None)
+    if lse is not None:     # which arithmetic wrote it (see _launch_backward)
+        lse.written_by = _body_name(tc)
     qkv_bf16 = int(qkv.dtype == torch.bfloat16)
     shape_args = (B_, N, C, num_heads, nW, qkv_bf16,
                   int(bias.dtype == torch.bfloat16), int(bool(maxfree)))
@@ -592,8 +606,8 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
             err = lib.mmde_window_attention_fwd_tc(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                 mask_ptr, out.data_ptr(),
-                lse.data_ptr() if want_stats else None, *shape_args[:5],
-                *shape_args[6:], code, stream)
+                lse.data_ptr() if want_stats else None, *shape_args, code,
+                stream)
         elif w > 1:
             err = lib.mmde_window_attention_fwd_w(
                 qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
@@ -627,13 +641,12 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
     pass stays at one window), in precision mode `mxu` (one of
     MXU_MODES, the forward's; None = the default for qkv's type); returns
-    (dqkv, dlogit_scale, dbias or None). bf16 qkv runs the tensor-core
-    passes (their dbias by atomics; under "split" K3's pass follows them,
-    counted as window_attention_dbias), fp32 qkv them at W > 1 (K5) and
-    the fp32-FMA bodies at W = 1 (K2). `lse` must be the statistic the
-    same body's forward writes (`stat_pair`): the other shape raises.
-    Private, for chip_smoke.py's same-card comparisons only: `_fma` sends
-    any launch to the FMA body."""
+    (dqkv, dlogit_scale, dbias or None). bf16 and fp32 qkv run the
+    tensor-core passes (their dbias by atomics; under "split" K3's pass
+    follows them, counted as window_attention_dbias). `lse` must be the
+    statistic the same body's forward writes (`stat_pair`): the other shape
+    raises. Private, for chip_smoke.py's same-card comparisons only: `_fma`
+    sends any launch to the FMA body."""
     global LAUNCHES_BWD
     mxu = resolve_mxu(mxu, qkv.dtype)
     B_, N, C3 = qkv.shape
@@ -653,9 +666,16 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     pair = stat_pair(qkv.dtype, tc)
     want_lse = ((2,) if pair else ()) + (B_, nH, N)
     if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
-                         f"reads a float32 {want_lse} log-sum-exp, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
+        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
+                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    # the tensor cores round each sum toward zero, so fp32 logits there lie
+    # a few ulps below the FMA body's: p is rebuilt only from the statistic
+    # the same arithmetic wrote (a statistic made elsewhere carries no tag)
+    written_by = getattr(lse, "written_by", None)
+    if written_by not in (None, _body_name(tc)):
+        raise ValueError(f"the {_body_name(tc)} backward was handed the "
+                         f"log-sum-exp the {written_by} forward wrote")
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
@@ -690,7 +710,7 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
                     stream)
             else:
                 err = lib.mmde_window_attention_bwd_tc(
-                    *args, bias_bf16, int(mode == 1), code, stream)
+                    *args, qkv_bf16, bias_bf16, int(mode == 1), code, stream)
             if err == 0 and mode == 2:   # K3 on the delta written above
                 err = _library_bwd().mmde_window_attention_dbias(
                     qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
@@ -824,13 +844,17 @@ class _PackedWindowAttention(torch.autograd.Function):
     and K2 / K5 backward, or under "bias_resident" K1 without statistics and
     K4; the plain forward and the plain backward for CPU tensors. The
     forward and K2 / K5 run in precision mode `mxu`; K4 (and the plain
-    backward under "bias_resident") in fp32, as the JAX package's."""
+    backward under "bias_resident") in fp32, as the JAX package's. The
+    backward runs the body its own forward ran (`ctx.fma`): the tensor-core
+    kernels, or with the private last argument `fma` (chip_smoke.py's
+    same-card comparison, never the model) the fp32-FMA bodies, so that p
+    is rebuilt from the statistic the same arithmetic wrote."""
 
     @staticmethod
     def forward(ctx, qkv, logit_scale, bias, mask, num_heads, maxfree,
-                grid_mode, windows_per_cell, mxu):
+                grid_mode, windows_per_cell, mxu, fma=False):
         ctx.num_heads, ctx.grid_mode = num_heads, grid_mode
-        ctx.windows_per_cell, ctx.mxu = windows_per_cell, mxu
+        ctx.windows_per_cell, ctx.mxu, ctx.fma = windows_per_cell, mxu, fma
         lse = None
         if not qkv.is_cuda:
             out = cosine_window_attention_packed_plain(
@@ -839,7 +863,8 @@ class _PackedWindowAttention(torch.autograd.Function):
         elif grid_mode == "bias_resident":
             # K4 rebuilds the softmax from the exact row maximum itself
             out = _launch_forward(qkv, logit_scale, bias, mask, num_heads,
-                                  maxfree, want_stats=False, mxu=mxu)[0]
+                                  maxfree, want_stats=False, mxu=mxu,
+                                  _fma=fma)[0]
         else:
             B_, N, C3 = qkv.shape
             w = windows_per_block(
@@ -848,7 +873,7 @@ class _PackedWindowAttention(torch.autograd.Function):
                 windows_per_cell)
             out, lse = _launch_forward(qkv, logit_scale, bias, mask,
                                        num_heads, maxfree, want_stats=True,
-                                       w=w, mxu=mxu)
+                                       w=w, mxu=mxu, _fma=fma)
         ctx.save_for_backward(qkv, logit_scale, bias, mask, lse)
         return out
 
@@ -864,7 +889,7 @@ class _PackedWindowAttention(torch.autograd.Function):
         elif ctx.grid_mode == "bias_resident":
             dqkv, dls, dbias = _launch_backward_resident(
                 qkv, logit_scale, bias, mask, g, ctx.num_heads,
-                want_dbias=need_bias)
+                want_dbias=need_bias, _fma=ctx.fma)
         else:
             B_, N, C3 = qkv.shape
             w = windows_per_block(
@@ -873,11 +898,12 @@ class _PackedWindowAttention(torch.autograd.Function):
                 ctx.windows_per_cell)
             dqkv, dls, dbias = _launch_backward(
                 qkv, logit_scale, bias, mask, lse, g, ctx.num_heads,
-                ctx.grid_mode, want_dbias=need_bias, w=w, mxu=ctx.mxu)
+                ctx.grid_mode, want_dbias=need_bias, w=w, mxu=ctx.mxu,
+                _fma=ctx.fma)
         # the mask is a constant of the window layout: no gradient
         return (dqkv if need_qkv else None, dls if need_ls else None,
                 dbias if need_bias else None, None, None, None, None, None,
-                None)
+                None, None)
 
 
 def cosine_window_attention_packed(qkv: torch.Tensor,

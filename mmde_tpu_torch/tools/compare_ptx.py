@@ -9,7 +9,8 @@ flags (`ops/cuda_build.py`).
 OTHER is another checkout (unpack it with `git archive` into a gitignored
 directory). A kernel the other tree builds under another template
 signature is matched by its name with the operand type this tree adds
-(`fwd_tc_w_kernel<bf16, TB, M>` against `fwd_tc_w_kernel<TB, M>`). Names
+(`fwd_tc_w_kernel<bf16, TB, M>` against `fwd_tc_w_kernel<TB, M>`;
+`fwd_tc_kernel<L, bf16, TB, M>` against `fwd_tc_kernel<L, TB, M>`). Names
 that carry a per-file hash (the anonymous namespace, shared arrays) and
 virtual register numbers are set aside before comparing, so "same" means
 the same instructions in the same order. Prints one JSON line per kernel
@@ -32,9 +33,12 @@ from mmde_tpu_torch.ops import cuda_build
 SOURCES = ("window_attention_fwd_tc.cu", "window_attention_bwd_tc.cu",
            "window_attention_bwd_resident_tc.cu")
 _BASE = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
-# the kernels this tree templates over the operand type as well
+# the kernels this tree templates over the operand type as well: first
+# (_TYPED), or after the layout (_TYPED_AFTER_LAYOUT)
 _TYPED = ("fwd_tc_w_kernel", "bwd_dq_tc_w_kernel", "bwd_dkv_tc_w_kernel",
           "bwd_resident_tc_kernel")
+_TYPED_AFTER_LAYOUT = ("fwd_tc_kernel", "bwd_dq_tc_kernel",
+                       "bwd_dkv_tc_kernel")
 
 
 def _demangle(names: list) -> list:
@@ -116,6 +120,12 @@ def _typed_as_other(name: str) -> str:
     for k in _TYPED:
         if name.startswith(k + "<__nv_bfloat16, "):
             return k + "<" + name[len(k) + len("<__nv_bfloat16, "):]
+    for k in _TYPED_AFTER_LAYOUT:
+        for layout in ("Rows", "MapRows"):
+            head = f"{k}<{layout}, __nv_bfloat16, "
+            # (layout, type, bias type, mode): four arguments
+            if name.startswith(head) and name.count(",") == 3:
+                return f"{k}<{layout}, " + name[len(head):]
     return name
 
 

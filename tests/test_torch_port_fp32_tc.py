@@ -156,7 +156,8 @@ def test_three_pieces_hold_every_bit_of_fp32():
 @pytest.mark.parametrize("nW", [0, 2])
 def test_fp32_resident_emulation_matches_jax_k4(nW):
     """The fp32 tensor-core K4's arithmetic (three pieces, 2 chunks of 2
-    windows; the forward before it the plain fp32 function, K1's FMA body)
+    windows; the forward before it the plain fp32 function, which K1 is
+    held to)
     against the JAX op under grid_mode="bias_resident" in
     interpret mode on the same unrounded fp32 inputs, N = 49: output and
     the three gradients within 1e-5 (max abs relative to the JAX result's
@@ -166,7 +167,7 @@ def test_fp32_resident_emulation_matches_jax_k4(nW):
     jax_res = _jax_run(*x, grid_mode="bias_resident")
     qkv, ls, bias, mask = (None if a is None else torch.from_numpy(a)
                            for a in x[:4])
-    # the forward before K4 is K1's FMA body: the plain fp32 function
+    # the forward before K4: the plain fp32 function
     out = twp.cosine_window_attention_packed_plain(qkv, ls, bias, mask,
                                                    num_heads=x[5],
                                                    maxfree=False)
@@ -369,11 +370,11 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
 @pytest.mark.parametrize("case", [
     # (grid, W setting, mode, train) -> entries, counted kernels
     ("bias_resident", "1", None, True,
-     ["mmde_window_attention_fwd", "mmde_window_attention_bwd_resident_tc"],
-     {"window_attention_fwd", "window_attention_bwd_resident_tc"}),
+     ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_resident_tc"],
+     {"window_attention_fwd_tc", "window_attention_bwd_resident_tc"}),
     ("bias_resident", "auto", None, True,
-     ["mmde_window_attention_fwd", "mmde_window_attention_bwd_resident_tc"],
-     {"window_attention_fwd", "window_attention_bwd_resident_tc"}),
+     ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_resident_tc"],
+     {"window_attention_fwd_tc", "window_attention_bwd_resident_tc"}),
     ("window_resident", "auto", None, True,
      ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w"],
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
@@ -388,18 +389,22 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
     ("window_resident", "auto", None, False,
      ["mmde_window_attention_fwd_tc_w"], {"window_attention_fwd_tc_w4"}),
     ("window_resident", "1", None, True,
-     ["mmde_window_attention_fwd_stats", "mmde_window_attention_bwd"],
-     {"window_attention_fwd+lse", "window_attention_bwd"}),
+     ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_tc"],
+     {"window_attention_fwd_tc+lse", "window_attention_bwd_tc"}),
     ("split", "1", None, True,
-     ["mmde_window_attention_fwd_stats", "mmde_window_attention_bwd"],
-     {"window_attention_fwd+lse", "window_attention_bwd"}),
+     ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_tc",
+      "mmde_window_attention_dbias"],
+     {"window_attention_fwd_tc+lse", "window_attention_bwd_tc",
+      "window_attention_dbias"}),
+    ("window_resident", "1", "bf16", False,
+     ["mmde_window_attention_fwd_tc"], {"window_attention_fwd_tc"}),
 ])
 def test_fp32_routes_k4_and_k5_to_the_tensor_cores(recorded, case):
-    """fp32 qkv: K4 (after K1's FMA forward without lse) and K5 at the
-    rule's W on the tensor-core entries, each told the operand type
-    (qkv_bf16 0) just before bias_bf16; at W = 1 K1 / K2 on the FMA body
-    (K3 inside its entry under "split"). Every statistic is (2, B_, nH, N),
-    hi then lo (F3); K3 behind the tensor-core K5 is told so (lse_pair 1)."""
+    """fp32 qkv: K4 (after K1's tensor-core forward without lse), K5 at the
+    rule's W and K1 / K2 at W = 1 on the tensor-core entries, each told the
+    operand type (qkv_bf16 0) just before bias_bf16. Every statistic is (2,
+    B_, nH, N), hi then lo (F3); K3 behind the tensor-core K2 / K5 ("split")
+    is told so (lse_pair 1)."""
     grid, wpc, mxu, train, want, counted = case
     _drive(torch.float32, grid, wpc, train, mxu)
     assert [e for e, _ in recorded] == want, case
@@ -414,6 +419,15 @@ def test_fp32_routes_k4_and_k5_to_the_tensor_cores(recorded, case):
             # ..., nW, qkv_bf16, bias_bf16, dbias_mode, W, mxu, stream
             assert args[-7:-4] == (4, 0, 0), args
             assert args[-3:-1] == (4, code)
+        if entry == "mmde_window_attention_fwd_tc":
+            # ..., nW, qkv_bf16, bias_bf16, maxfree, mxu, stream
+            assert args[-6:-4] == (4, 0) and args[-4] == 0, args
+            assert args[-2] == code, args
+            assert (args[5] is not None) == (train and grid != "bias_resident")
+        if entry == "mmde_window_attention_bwd_tc":
+            # ..., nW, qkv_bf16, bias_bf16, dbias_mode, mxu, stream
+            assert args[-6:-2] == (4, 0, 0, int(grid == "window_resident"))
+            assert args[-2] == code, args
         if entry == "mmde_window_attention_bwd_resident_tc":
             # ..., nW, qkv_bf16, bias_bf16, splits, stream
             assert args[-5:-1] == (4, 0, 0,
@@ -426,11 +440,12 @@ def test_fp32_routes_k4_and_k5_to_the_tensor_cores(recorded, case):
 def test_the_statistic_is_hi_and_lo_for_fp32_and_one_number_for_bf16(
         recorded):
     """The forward's statistic: (2, B_, nH, N) for fp32 qkv on every body
-    (K1's FMA forward, K5 on the tensor cores) and for the FMA body of any
-    type; (B_, nH, N) for bf16 on the tensor cores (`stat_pair`)."""
+    (K1 and K5 on the tensor cores, their FMA bodies) and for the FMA body
+    of any type; (B_, nH, N) for bf16 on the tensor cores (`stat_pair`)."""
     qkv, ls, bias, mask, g, nH = _inputs(8, 36, 4, seed=2)
     lt, m = torch.from_numpy(ls), torch.from_numpy(mask)
     for dtype, w, fma, pair in ((torch.float32, 1, False, True),
+                                (torch.float32, 1, True, True),
                                 (torch.float32, 4, False, True),
                                 (torch.float32, 4, True, True),
                                 (torch.bfloat16, 4, True, True),

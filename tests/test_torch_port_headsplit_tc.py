@@ -377,9 +377,11 @@ def test_unaligned_stride_raises(recorded, monkeypatch, entry_dtype):
 
 def test_tensor_core_rule_is_the_packed_one():
     """bf16 head-split launches take the tensor cores by the packed
-    module's rule (one window per block always); fp32 keeps the FMA body."""
-    assert twp.tensor_core_body(torch.bfloat16)
-    assert not twp.tensor_core_body(torch.float32)
+    module's head-split rule (one window per block always); fp32 keeps the
+    FMA body, where fp32 packed launches take the tensor cores."""
+    assert twp.headsplit_tensor_core_body(torch.bfloat16)
+    assert not twp.headsplit_tensor_core_body(torch.float32)
+    assert twp.tensor_core_body(torch.float32)
 
 
 # ------------------------------------------------------- sources and build
@@ -417,9 +419,9 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     assert "MXU_FP32" in body and "MXU_FOLD" not in body
     assert "contiguous_rows" in body
     if "fwd" in entry:
-        # launch<Rows, TB, MXU_FP32>(..., maxfree = 0, stream)
-        assert re.findall(r"launch<Rows, (?:bf16|float), MXU_FP32>\([^;]*, 0, "
-                          r"s\)",
+        # launch<Rows, bf16, TB, MXU_FP32>(..., maxfree = 0, stream)
+        assert re.findall(r"launch<Rows, bf16, (?:bf16|float), MXU_FP32>"
+                          r"\([^;]*,\s+0,\s+s\)",
                           body, re.S)
     text = open(os.path.join(cuda_build.CSRC_DIR, src)).read()
     assert "rows_aligned(rq)" in text or "o.aligned()" in text

@@ -161,19 +161,23 @@ def test_wrapper_routes_the_mode_to_the_kernels(monkeypatch):
     mode reaches forward and backward; K4 (bias_resident) gets no mode."""
     calls = []
 
-    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None):
+    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None,
+            _fma=False):
+        assert not _fma      # the model path: the tensor-core body
         calls.append(("fwd", mxu))
         B_, N, C3 = qkv.shape
         return (torch.zeros(B_, N, C3 // 3, dtype=qkv.dtype),
                 torch.zeros(B_, nH, N) if want_stats else None)
 
     def bwd(qkv, ls, bias, mask, lse, g, nH, grid_mode, want_dbias, w=1,
-            mxu=None):
+            mxu=None, _fma=False):
+        assert not _fma
         calls.append(("bwd", mxu))
         return torch.zeros_like(qkv), torch.zeros_like(ls), \
             torch.zeros_like(bias)
 
-    def resident(qkv, ls, bias, mask, g, nH, want_dbias=True):
+    def resident(qkv, ls, bias, mask, g, nH, want_dbias=True, _fma=False):
+        assert not _fma
         calls.append(("resident",))
         return torch.zeros_like(qkv), torch.zeros_like(ls), \
             torch.zeros_like(bias)

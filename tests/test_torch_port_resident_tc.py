@@ -274,8 +274,8 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
      ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_resident_tc"],
      {"window_attention_fwd_tc", "window_attention_bwd_resident_tc"}),
     ("fp32", "bias_resident", "1", True,
-     ["mmde_window_attention_fwd", "mmde_window_attention_bwd_resident_tc"],
-     {"window_attention_fwd", "window_attention_bwd_resident_tc"}),
+     ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_resident_tc"],
+     {"window_attention_fwd_tc", "window_attention_bwd_resident_tc"}),
     ("bf16", "window_resident", "auto", True,
      ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w"],
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
@@ -296,8 +296,8 @@ def test_k4_and_k5_route_by_type(recorded, case):
     K5 at the rule's W, whose entries receive W just before the mode and
     the stream (the forward's lse null when serving); under "split" K3's
     pass follows K5 as it follows K2. fp32 qkv takes them too (K4 and K5
-    on the tensor cores, its forward before K4 the FMA K1). The counters
-    name the kernel that ran, with its W."""
+    on the tensor cores, its forward before K4 the tensor-core K1). The
+    counters name the kernel that ran, with its W."""
     dtype_name, grid, wpc, train, want, counted = case
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     _drive(dtype, grid, wpc, train)
@@ -397,10 +397,10 @@ def test_tensor_core_splits_fill_one_wave_and_no_chunk_is_empty(N, nH, B_,
 def test_tensor_core_body_takes_every_w():
     assert twp.tensor_core_body(torch.bfloat16, 4)
     assert twp.tensor_core_body(torch.bfloat16, 8)
-    # fp32 qkv: K5 (W > 1) and K4 on the tensor cores, W = 1 on the FMA body
+    # fp32 qkv: K5 (W > 1), K4 and K1 / K2 at W = 1 on the tensor cores
     assert twp.tensor_core_body(torch.float32, 4)
     assert twp.tensor_core_body(torch.float32, 1, resident=True)
-    assert not twp.tensor_core_body(torch.float32, 1)
+    assert twp.tensor_core_body(torch.float32, 1)
 
 
 # ------------------------------------------------------- sources and build

@@ -455,8 +455,8 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     n_maps = 7 if "bwd" in entry else 4       # q, k, v, (g,) out / dq, dk, dv
     assert body.count("map_rows(") == n_maps
     assert "MXU_FP32" in body and "MXU_FOLD" not in body
-    assert len(re.findall(r"launch<MapRows, (?:bf16|float), MXU_FP32>", body)
-               ) == 2
+    assert len(re.findall(r"launch<MapRows, bf16, (?:bf16|float), MXU_FP32>",
+                          body)) == 2
     if "fwd" in entry:      # launch<MapRows, TB, MXU_FP32>(..., maxfree 0, s)
         assert len(re.findall(r",\s+0, s\);", body)) == 2
     lib = "window_attention_bwd_tc" if "bwd" in entry else \
@@ -468,17 +468,18 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     ("window_attention_fwd_tc.cu", ("fwd_tc_kernel",)),
     ("window_attention_bwd_tc.cu", ("bwd_dq_tc_kernel", "bwd_dkv_tc_kernel"))])
 def test_kernels_are_templated_on_the_layout(src, kernels):
-    """The one-window tensor-core kernels take the operands' layout as a
-    template parameter (Rows for the packed and head-split entries, MapRows
-    for the slab one: one body), and so does the host launch; K5's W
-    kernels stay on Rows (the slab path has no W option)."""
+    """The one-window tensor-core kernels take the operands' layout (and
+    their type) as template parameters (Rows for the packed and head-split
+    entries, MapRows for the slab one: one body), and so does the host
+    launch; K5's W kernels stay on Rows (the slab path has no W option)."""
     text = _src(src)
     for k in kernels:
         assert re.search(r"template <template <typename> class L, typename "
-                         r"TB, int MXU>\n__global__ void __launch_bounds__\("
-                         r"TC_NT\)\n%s\(L<const bf16> q" % k, text), k
-    assert re.search(r"template <template <typename> class L, typename TB, "
-                     r"int MXU>\nint launch\(", text)
+                         r"T, typename TB, int MXU>\n__global__ void "
+                         r"__launch_bounds__\(TC_NT\)\n%s\(L<const T> q" % k,
+                         text), k
+    assert re.search(r"template <template <typename> class L, typename T, "
+                     r"typename TB, int MXU>\nint launch\(", text)
     assert "launch<MapRows" in text and "launch<Rows" in text
     assert not re.search(r"_w_kernel\(L<", text)
     # the tile loads read the block's table (MapRows; Rows ignores it),

@@ -245,37 +245,32 @@ def _drive(dtype, grid="window_resident", wpc="1", mxu=None, train=True):
     ("fp32", "window_resident", "auto", None, True),
 ])
 def test_routing_follows_the_type_and_w(recorded, case):
-    """bf16 qkv runs the tensor-core entries in every grid, mode and W
-    (split: the tensor-core passes without dbias, then K3's pass;
+    """bf16 and fp32 qkv run the tensor-core entries in every grid, mode
+    and W (split: the tensor-core passes without dbias, then K3's pass;
     bias_resident: the tensor-core forward without lse, then the
-    tensor-core K4; W > 1: K5's tensor-core entries); fp32 qkv runs K1 /
-    K2's fp32-FMA entries at W = 1 and the tensor-core K4 and K5 (its
-    operands in three bf16 pieces). The mode reaches every
-    packed entry but K4's as its code, just before the stream (K5's: W,
-    then the mode); the launch counters name the kernel that ran, K3 after
-    the tensor-core passes under its own name (and outside the per-shape
-    backward counts)."""
+    tensor-core K4; W > 1: K5's tensor-core entries; fp32 operands in three
+    bf16 pieces), each entry told the operand type (qkv_bf16). The mode
+    reaches every packed entry but K4's as its code, just before the stream
+    (K5's: W, then the mode); the launch counters name the kernel that ran,
+    K3 after the tensor-core passes under its own name (and outside the
+    per-shape backward counts)."""
     name, grid, wpc, mxu, train = case
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
     _drive(dtype, grid, wpc, mxu, train)
     code = twp._MXU_CODE[twp.resolve_mxu(mxu, dtype)]
     entries = [e for e, _ in recorded]
-    tc = dtype == torch.bfloat16
     w_sfx = "_w" if wpc == "auto" and grid != "bias_resident" else ""
     if not train:
         want = ["mmde_window_attention_fwd_tc"]
     elif grid == "bias_resident":
-        want = (["mmde_window_attention_fwd_tc",
-                 "mmde_window_attention_bwd_resident_tc"] if tc else
-                ["mmde_window_attention_fwd",
-                 "mmde_window_attention_bwd_resident_tc"])
-    elif tc or w_sfx:
+        want = ["mmde_window_attention_fwd_tc",
+                "mmde_window_attention_bwd_resident_tc"]
+    else:
         want = ["mmde_window_attention_fwd_tc" + w_sfx,
                 "mmde_window_attention_bwd_tc" + w_sfx]
         want += ["mmde_window_attention_dbias"] if grid == "split" else []
-    else:
-        want = ["mmde_window_attention_fwd_stats", "mmde_window_attention_bwd"]
     assert entries == want, case
+    qkv_bf16 = int(dtype == torch.bfloat16)
     for entry, args in recorded:
         if entry.endswith("_w"):
             assert args[-3] == 4, (entry, case)        # W, mxu, the stream
@@ -284,25 +279,26 @@ def test_routing_follows_the_type_and_w(recorded, case):
         if entry == "mmde_window_attention_fwd_tc":
             with_lse = train and grid != "bias_resident"
             assert (args[5] is not None) == with_lse, case
+            # ..., nW, qkv_bf16, bias_bf16, maxfree, mxu, stream
+            assert args[-5] == qkv_bf16, case
         if entry == "mmde_window_attention_bwd_tc":
             dbias_mode = args[-3]
             assert dbias_mode == (1 if grid == "window_resident" else 0)
+            # ..., nW, qkv_bf16, bias_bf16, dbias_mode, mxu, stream
+            assert args[-5] == qkv_bf16, case
     counted = twp.launch_counts()
-    if tc:
-        assert set(counted) <= {"window_attention_fwd_tc",
-                                "window_attention_fwd_tc+lse",
-                                "window_attention_bwd_tc",
-                                "window_attention_fwd_tc_w4+lse",
-                                "window_attention_bwd_tc_w4",
-                                "window_attention_dbias",
-                                "window_attention_bwd_resident_tc"}, counted
-        assert counted.get("window_attention_dbias", 0) == (
-            1 if train and grid == "split" else 0), counted
-        if train and grid != "bias_resident":
-            assert sum(twp.LAUNCHES_BWD_BY_SHAPE.values()) == 1
-    else:   # fp32: the tensor-core kernels only for K4 and K5
-        assert all("_tc" not in k or "resident" in k or "_w4" in k
-                   for k in counted), counted
+    # either type: every packed launch on the tensor cores
+    assert set(counted) <= {"window_attention_fwd_tc",
+                            "window_attention_fwd_tc+lse",
+                            "window_attention_bwd_tc",
+                            "window_attention_fwd_tc_w4+lse",
+                            "window_attention_bwd_tc_w4",
+                            "window_attention_dbias",
+                            "window_attention_bwd_resident_tc"}, counted
+    assert counted.get("window_attention_dbias", 0) == (
+        1 if train and grid == "split" else 0), counted
+    if train and grid != "bias_resident":
+        assert sum(twp.LAUNCHES_BWD_BY_SHAPE.values()) == 1
 
 
 def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
@@ -339,7 +335,9 @@ def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
 def test_tensor_core_body_rule():
     assert twp.tensor_core_body(torch.bfloat16, 1)
     assert twp.tensor_core_body(torch.bfloat16, 4)
-    assert not twp.tensor_core_body(torch.float32, 1)
+    # fp32 packed launches at W = 1 too; head-split and slab: bf16 only
+    assert twp.tensor_core_body(torch.float32, 1)
+    assert not twp.headsplit_tensor_core_body(torch.float32)
 
 
 # ------------------------------------------------------- sources and build

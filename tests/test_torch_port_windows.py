@@ -209,20 +209,23 @@ class _OnCard(torch.Tensor):
 def _record(monkeypatch):
     calls = []
 
-    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None):
+    def fwd(qkv, ls, bias, mask, nH, maxfree, want_stats, w=1, mxu=None,
+            _fma=False):
+        assert not _fma      # the model path: the tensor-core body
         calls.append(("fwd", w, want_stats, maxfree))
         B_, N, C3 = qkv.shape
         return (torch.zeros(B_, N, C3 // 3),
                 torch.zeros(B_, nH, N) if want_stats else None)
 
     def bwd(qkv, ls, bias, mask, lse, g, nH, grid_mode, want_dbias, w=1,
-            mxu=None):
-        assert lse is not None
+            mxu=None, _fma=False):
+        assert lse is not None and not _fma
         calls.append(("bwd", w, grid_mode, want_dbias))
         return torch.zeros_like(qkv), torch.zeros_like(ls), \
             torch.zeros_like(bias)
 
-    def resident(qkv, ls, bias, mask, g, nH, want_dbias=True):
+    def resident(qkv, ls, bias, mask, g, nH, want_dbias=True, _fma=False):
+        assert not _fma
         calls.append(("resident", want_dbias))
         return torch.zeros_like(qkv), torch.zeros_like(ls), \
             torch.zeros_like(bias)
