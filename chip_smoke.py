@@ -16,10 +16,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 versions, seconds spent building the kernels from csrc/.
   kernel_cases  the window-attention kernel against its plain PyTorch
                 version at the four flagship stage shapes, float32 and
-                bfloat16 (every packed launch, bf16 or fp32, runs the
-                tensor-core kernels, fp32 operands in three bf16 pieces,
-                everywhere in this script; fp32 head-split and slab launches
-                the FMA bodies), with and without mask: max abs / rel-L2
+                bfloat16 (every packed and head-split launch, bf16 or fp32,
+                runs the tensor-core kernels, fp32 operands in three bf16
+                pieces, everywhere in this script; fp32 slab launches the
+                FMA bodies), with and without mask: max abs / rel-L2
                 error, kernel ms (fp32: in turns with the FMA body, fma_ms)
                 and plain ms (CUDA events, warm, median), and the roofline
                 bound with its bytes and flops.
@@ -46,19 +46,21 @@ What it does, each phase printing one JSON object on a line of its own:
                 their plain versions, the backward also against float64
                 autograd, at every head-split stage shape of the real swin
                 variants at 480x640 (swin_tiny 1-2, swin_large 1, swin_huge
-                1-2) and at swin_large's train shape, float32 (the FMA
-                bodies; the swin_tiny stage-1 unmasked case's dlogit_scale
-                against float64 is F3's number) and bfloat16 (the
-                tensor-core kernels, MXU_APART times nearer the "fp32"
-                plain version than the "bf16"-mode one), masked and
-                unmasked, one clamped and one hot head; q, k, v are the
-                model's strided views of one qkv tensor; each case checks
-                which kernels its launches ran. ms, plain ms, bound of the
-                serving forward, the forward with statistics and the
-                backward; bf16 also the FMA body in the same call (in
-                turns), the SDPA yardstick and the products the design
-                needs (tc_units, tc_flops; tc_bound_ms in the kernels
-                line).
+                1-2) and at swin_large's train shape, float32 and bfloat16
+                (both the tensor-core kernels, fp32 in three bf16 pieces;
+                MXU_APART times nearer the "fp32" plain version than the
+                "bf16"-mode one: bf16 the output and dqkv, fp32 the output
+                and every gradient), masked and unmasked, one clamped and
+                one hot head; q, k, v are the model's strided views of one
+                qkv tensor; each case checks which kernels its launches
+                ran. ms, plain ms, bound of the serving forward, the forward
+                with statistics and the backward; the FMA body in the same
+                call (in turns), the SDPA yardstick in q's type and the
+                products the design needs (tc_units, tc_flops; tc_bound_ms
+                in the kernels line). Then F3 (`f3`): fp32 at swin_large's
+                train shape with every head at scale 60, both bodies
+                through the autograd Function, dlogit_scale within TOL_F3
+                of float64.
   serve         the flagship model (swin_base_v2 + decoder_v2, bfloat16,
                 two 480x640 frames) built at full width from a seed,
                 answering requests through mmde_tpu_torch.tools.infer.predict
@@ -73,6 +75,12 @@ What it does, each phase printing one JSON object on a line of its own:
                 windows, depths and decoder): stage 1 (C 192, 6 heads) runs
                 the head-split tensor-core kernels, stages 2-4 the packed
                 ones.
+  serve_large_fp32, train_large_fp32
+                swin_large_v2 in float32 (the JAX package's default type):
+                one request, and 3 train steps at 2 frame pairs with peak
+                memory; every head-split and packed launch a tensor-core
+                kernel of dtype float32 (stage 1 K6' / K7', stages 2-4
+                K1 / K2), none of the FMA bodies.
   parity        the whole model, attn_impl "cuda" against "torch", same
                 weights and frames, float32 and bfloat16; every parity
                 phase runs the model with stage 3 cut to 10 blocks
@@ -83,8 +91,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 bfloat16 (TOL_MODEL), the train step in float32 (gradients
                 of stage-1 parameters among others, which only the
                 head-split backward reaches) and in bfloat16 (the stage-1
-                gradients, through the head-split tensor-core kernels,
-                TOL_TRAIN_PARITY_BF16).
+                gradients, TOL_TRAIN_PARITY_BF16), both types through the
+                head-split tensor-core kernels; every train-parity step on
+                "cuda" launches tensor-core kernels only.
   kernel_cases_slab
                 the slab kernels (K8' forward, K9' backward: the windows
                 read straight off the (B, Hp, Wp, 3C) map) against their
@@ -113,9 +122,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 "torch".
   kernel_cases_resident
                 K4, the single-pass backward MMDE_ATTN_GRID=bias_resident
-                selects, at the flagship's four train shapes (bf16: the
-                tensor-core K4, csrc/window_attention_bwd_resident_tc.cu;
-                fp32 at stages 1 and 4: the FMA body), through the autograd
+                selects, at the flagship's four train shapes (bf16 and
+                fp32 on the tensor-core K4, csrc/window_attention_bwd_
+                resident_tc.cu; fp32 also with every head at scale 60,
+                dlogit_scale within TOL_F3 of float64: F3), through the autograd
                 Function under that grid (the forward before it: K1 without
                 the log-sum-exp), against the plain backward and float64
                 autograd; dbias bitwise equal over two launches; ms beside
@@ -128,7 +138,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 MMDE_ATTN_W=auto (blocks with and without their mask) and
                 at W = 2 on stage 1: bf16 on the tensor cores (the `_tc_w`
                 entries; served in modes fold, fp32 and bf16, trained in
-                fold), fp32 the FMA body at stages 1 and 4: forward against
+                fold), fp32 on the tensor-core K5 too (and an F3 case at
+                stage 1, every head at scale 60, modes fp32 and fold, the
+                backward at the rule's W and at 8: dlogit_scale within
+                TOL_F3 of float64): forward against
                 the plain forward of its mode, backward against the plain
                 backward and float64 autograd (TOL_*, TOL_MXU_BF16), bf16
                 MXU_APART times nearer its own mode's plain version than
@@ -198,8 +211,8 @@ What it does, each phase printing one JSON object on a line of its own:
                 convergence_gate_swin.yaml's model (swin_tiny_v2 +
                 decoder_v2, windows 6/6/6/3, 96x128, 2 frame pairs), kernel
                 path against plain path at TOL_TRAIN_PARITY: stages 3-4
-                packed at N = 36 and N = 9 (below one 64-row tile) on the
-                tensor cores, stages 1-2 on the head-split FMA bodies.
+                packed at N = 36 and N = 9 (below one 64-row tile) and
+                stages 1-2 head-split, all on the tensor cores.
   serve_mxu, train_mxu
                 the flagship under MMDE_ATTN_MXU=bf16 (this script in a
                 process of its own): one request and 3 train steps, every
@@ -211,7 +224,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
                 and of the fp32 flagship (serve_fp32 / train_fp32, dtype
-                float32, kernel_cases_tc's fp32 numbers, tc_units 12 / 30):
+                float32, kernel_cases_tc's fp32 numbers, tc_units 12 / 30),
+                fp32 swin_large's (serve_large_fp32 / train_large_fp32,
+                dtype float32: kernel_cases_headsplit's and kernel_cases[_
+                backward]'s fp32 numbers):
                 window_attention_fwd_tc[+lse] / window_attention_bwd_tc, the
                 head-split stages window_attention_headsplit_fwd_tc[+lse] /
                 window_attention_headsplit_bwd_tc, the slab path's
@@ -232,8 +248,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 train step each, device time by kernel group, on the
                 flagship profile's model and trainer with the module
                 settings their variables give (PROFILED_PATHS).
-  profile_fp32  (--profile only) the fp32 flagship's request and train step,
-                device time by kernel group.
+  profile_fp32, profile_large_fp32
+                (--profile only) the fp32 flagship's and fp32 swin_large's
+                request and train step, device time by kernel group.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -997,14 +1014,15 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     log-sum-exp) against the plain forward; K7' against the plain backward
     and against float64 autograd of the plain forward, at K1 / K2's
     tolerances. Gradients are taken through the model's views, into one
-    (B_, N, 3C) dqkv. bf16 runs the tensor-core kernels (checked by their
-    launch counters), which must also lie MXU_APART times nearer the "fp32"
-    plain version than the "bf16"-mode one (forward and dqkv: a kernel that
-    quietly rounds its operands fails); fp32 runs the FMA bodies, whose
-    dlogit_scale against float64 is F3's number. Timed (timed=True): the
-    kernel, plain, bound, and for bf16 the FMA body (`_fma`) in turns with
-    the kernel (kernel, FMA, FMA, kernel), the SDPA yardstick and the
-    products the design needs (tc_work: K1's 3 units, K2's 8)."""
+    (B_, N, 3C) dqkv. Both types run the tensor-core kernels (checked by
+    their launch counters; fp32 operands in three bf16 pieces), which must
+    also lie MXU_APART times nearer the "fp32" plain version than the
+    "bf16"-mode one (bf16: forward and dqkv; fp32: the forward and every
+    gradient, as the slab cases hold bf16 - a kernel that quietly rounds
+    its operands fails). Timed (timed=True): the kernel, plain, bound, the
+    FMA body (`_fma`) in turns with the kernel (kernel, FMA, FMA, kernel),
+    the SDPA yardstick in q's type and the products the design needs
+    (tc_work: bf16 K1's 3 units, K2's 8; fp32 12 and 30)."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     qkv, ls, bias, mask, g = make_headsplit_inputs(shape, dtype, with_mask,
                                                    gen)
@@ -1013,13 +1031,12 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     if not all(ths.rows_layout_ok(t) for t in (q, k, v, g)):
         raise RuntimeError(f"the model's views need a copy at {shape}")
     name = str(dtype).replace("torch.", "")
-    tc = dtype == torch.bfloat16
-    sfx = "_tc" if tc else ""
+    f32 = dtype == torch.float32
     rec = {"model": shape["model"], "stage": shape["stage"],
            "frame_pairs": shape["frame_pairs"], "B_": shape["B_"],
            "N": shape["N"], "C": shape["C"], "nH": nH,
            "nW": mask.shape[0] if mask is not None else 0, "dtype": name,
-           "body": "tensor cores" if tc else "fp32 FMA",
+           "body": "tensor cores" + (", three bf16 pieces" if f32 else ""),
            "mxu": "fp32", "tolerance_rel_l2": TOL_BWD[name]}
     with torch.no_grad():
         want = ths.cosine_window_attention_headsplit_plain(q, k, v, ls, bias,
@@ -1027,7 +1044,7 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
         before = dict(ths.LAUNCHES_BY_KERNEL)
         got = ths.cosine_window_attention_headsplit(q, k, v, ls, bias, mask)
         torch.cuda.synchronize()
-        _tc_launched(before, {"window_attention_headsplit_fwd" + sfx: 1},
+        _tc_launched(before, {"window_attention_headsplit_fwd_tc": 1},
                      f"serving forward at {rec}", ths)
         rec["forward"] = check_forward(got, want, dtype, rec)
 
@@ -1039,8 +1056,8 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
     out.backward(g)
     torch.cuda.synchronize()
-    _tc_launched(before, {f"window_attention_headsplit_fwd{sfx}+lse": 1,
-                          f"window_attention_headsplit_bwd{sfx}": 1},
+    _tc_launched(before, {"window_attention_headsplit_fwd_tc+lse": 1,
+                          "window_attention_headsplit_bwd_tc": 1},
                  f"training forward and backward at {rec}", ths)
     grads = [t.grad for t in leaves]
     out = out.detach()
@@ -1071,20 +1088,21 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
         f"head-split backward ({rec['body']}) at {json.dumps(rec)}"))
     rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
     rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
-    if tc:
-        # the "bf16" mode's plain version: what a kernel rounding its
-        # operands to bf16 would compute
-        with torch.no_grad():
-            want_o = ths.cosine_window_attention_headsplit_plain(
-                q, k, v, ls, bias, mask, mxu="bf16")
-            dq, dk, dv, _, _ = \
-                ths.cosine_window_attention_headsplit_backward_plain(
-                    q, k, v, ls, bias, mask, g, mxu="bf16")
-            dqkv_o = stacked(dq, dk, dv)
-            del dq, dk, dv
-        _nearer(rec, "out", out, want, want_o)
-        _nearer(rec, "dqkv", grads[0], plain[0], dqkv_o)
-        del want_o, dqkv_o
+    # the "bf16" mode's plain version: what a kernel rounding its operands
+    # to bf16 would compute
+    with torch.no_grad():
+        want_o = ths.cosine_window_attention_headsplit_plain(
+            q, k, v, ls, bias, mask, mxu="bf16")
+        dq, dk, dv, dls_o, dbias_o = \
+            ths.cosine_window_attention_headsplit_backward_plain(
+                q, k, v, ls, bias, mask, g, mxu="bf16")
+        others = [stacked(dq, dk, dv), dls_o, dbias_o]
+        del dq, dk, dv
+    _nearer(rec, "out", out, want, want_o)
+    for n, a, own, other in list(zip(names, grads, plain, others))[
+            :3 if f32 else 1]:
+        _nearer(rec, n, a, own, other)
+    del want_o, others
     del got, plain, truth, leaves, grads, out, want
     if timed:
         B_, N, C, nW = shape["B_"], shape["N"], shape["C"], rec["nW"]
@@ -1094,15 +1112,13 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
                 def kern(fma=False, stats=stats):
                     return ths._launch_forward(q, k, v, ls, bias, mask,
                                                stats, _fma=fma)
-                if tc:
-                    turns = [time_ms(kern), time_ms(lambda: kern(True)),
-                             time_ms(lambda: kern(True)), time_ms(kern)]
-                    r.update({"ms": (turns[0] + turns[3]) / 2,
-                              "fma_ms": (turns[1] + turns[2]) / 2,
-                              "ms_turns": turns})
-                    r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls)))
-                else:
-                    r["ms"] = time_ms(kern)
+                turns = [time_ms(kern), time_ms(lambda: kern(True)),
+                         time_ms(lambda: kern(True)), time_ms(kern)]
+                r.update({"ms": (turns[0] + turns[3]) / 2,
+                          "fma_ms": (turns[1] + turns[2]) / 2,
+                          "ms_turns": turns})
+                r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls,
+                                                     f32=f32)))
                 r.update(kernel_bound(B_, N, C, nH, nW, dtype, torch.float32,
                                       stats=stats))
                 r["library_ms"] = None
@@ -1119,24 +1135,22 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
                 saved = lse_f if fma else lse
                 return lambda: ths._launch_backward(
                     q, k, v, ls, bias, mask, saved, g, dbias, _fma=fma)
-            if tc:
-                turns = [time_ms(bwd(), reps=8, warm=2),
-                         time_ms(bwd(fma=True), reps=8, warm=2),
-                         time_ms(bwd(fma=True), reps=8, warm=2),
-                         time_ms(bwd(), reps=8, warm=2)]
-                rec.update({"ms": (turns[0] + turns[3]) / 2,
-                            "fma_ms": (turns[1] + turns[2]) / 2,
-                            "ms_turns": turns})
-                rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls)))
-            else:
-                rec["ms"] = time_ms(bwd(), reps=8, warm=2)
+            turns = [time_ms(bwd(), reps=8, warm=2),
+                     time_ms(bwd(fma=True), reps=8, warm=2),
+                     time_ms(bwd(fma=True), reps=8, warm=2),
+                     time_ms(bwd(), reps=8, warm=2)]
+            rec.update({"ms": (turns[0] + turns[3]) / 2,
+                        "fma_ms": (turns[1] + turns[2]) / 2,
+                        "ms_turns": turns})
+            rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls,
+                                                   f32=f32)))
             rec["ms_no_dbias"] = time_ms(bwd(dbias=False), reps=8, warm=2)
             rec["plain_ms"] = time_ms(
                 lambda: ths.cosine_window_attention_headsplit_backward_plain(
                     q, k, v, ls, bias, mask, g), reps=3, warm=1)
             del lse, lse_f
         rec.update(backward_bound(B_, N, C, nH, nW, dtype, torch.float32))
-        # the yardstick in q's type (fp32: the FMA body's partner)
+        # the yardstick in q's type
         lib = library_yardstick(q, k, v, ls, bias, mask, g=g)
         for r in (fwd, fst):
             r.update({k_: v_ for k_, v_ in lib.items()
@@ -1147,11 +1161,67 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     return rec
 
 
+def f3_headsplit(gen) -> dict:
+    """F3 on both head-split bodies, fp32, through the autograd Function at
+    swin_large's stage-1 train shape (2 frame pairs, masked) with every
+    head at scale 60: the tensor-core K6' (writing its statistic) and K7' -
+    the model's path - and the fp32-FMA bodies (the Function's private
+    `fma`), each checked by its launches. The statistic is (2, B_, nH, N),
+    hi + lo, and each body's dlogit_scale lies within TOL_F3 of float64
+    autograd of the plain forward."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    shape = next(s for s in headsplit_shapes()
+                 if s["model"] == "swin_large_v2" and s["frame_pairs"] == 2)
+    nH = shape["nH"]
+    qkv, ls, bias, mask, g = make_headsplit_inputs(shape, torch.float32,
+                                                   True, gen)
+    ls[:] = math.log(60.0)
+    rec = {"model": shape["model"], "stage": shape["stage"],
+           "frame_pairs": 2, "B_": shape["B_"], "N": shape["N"],
+           "C": shape["C"], "nH": nH, "nW": mask.shape[0],
+           "dtype": "float32", "every_head_scale_60": True,
+           "tolerance_dlogit_scale_rel_l2": TOL_F3}
+    leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls,
+                                                               bias)]
+    out64 = ths.cosine_window_attention_headsplit_plain(
+        *_views(leaves64[0], nH), leaves64[1], leaves64[2], mask.double(),
+        compute_dtype=torch.float64)
+    truth = torch.autograd.grad(out64, leaves64, g.double())
+    del out64, leaves64
+    for body, fma, sfx in (("tensor_core", False, "_tc"),
+                           ("fma", True, "")):
+        leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls,
+                                                                bias)]
+        before = dict(ths.LAUNCHES_BY_KERNEL)
+        out = ths._HeadSplitWindowAttention.apply(
+            *_views(leaves[0], nH), leaves[1], leaves[2], mask, fma)
+        out.backward(g)
+        torch.cuda.synchronize()
+        _tc_launched(before, {f"window_attention_headsplit_fwd{sfx}+lse": 1,
+                              f"window_attention_headsplit_bwd{sfx}": 1},
+                     f"f3 head-split ({body})", ths)
+        with torch.no_grad():
+            lse = ths._launch_forward(*_views(qkv, nH), ls, bias, mask, True,
+                                      _fma=fma)[1]
+        rec[body] = {"statistic_shape": list(lse.shape),
+                     "dlogit_scale": _errs(leaves[1].grad, truth[1]),
+                     "dqkv": _errs(leaves[0].grad, truth[0]),
+                     "dbias": _errs(leaves[2].grad, truth[2])}
+        del leaves, out, lse
+    del truth
+    torch.cuda.empty_cache()
+    rec["ok"] = all(rec[b]["statistic_shape"][0] == 2
+                    and rec[b]["dlogit_scale"]["rel_l2"] <= TOL_F3
+                    for b in ("tensor_core", "fma"))
+    return rec
+
+
 def phase_kernels_headsplit(timed: bool = True) -> list:
-    """K6' / K7' at every head-split shape, bf16 (the tensor-core kernels)
-    and fp32 (the FMA bodies), masked and unmasked; timed at swin_large's
-    (the served and trained paths), the others checked only, to keep the
-    script inside its time."""
+    """K6' / K7' at every head-split shape, bf16 and fp32 (both on the
+    tensor-core kernels), masked and unmasked; timed at swin_large's (the
+    served and trained paths), the others checked only, to keep the script
+    inside its time; then F3 on both fp32 bodies (f3_headsplit). The
+    phase's line is printed, then it fails if the F3 case missed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
     cases = []
@@ -1161,12 +1231,15 @@ def phase_kernels_headsplit(timed: bool = True) -> list:
                 cases.append(compare_headsplit(
                     shape, dtype, with_mask, gen,
                     timed=timed and shape["model"] == "swin_large_v2"))
+    f3 = f3_headsplit(gen)
     emit("kernel_cases_headsplit", {
-        "cases": cases,
+        "cases": cases, "f3": f3,
         "timing": "CUDA events, median: serving forward 3 warm + 20, "
                   "forward with statistics the same, backward entry 2 warm "
-                  "+ 8; bf16: kernel, FMA body, FMA body, kernel in turns "
+                  "+ 8; kernel, FMA body, FMA body, kernel in turns "
                   "(ms_turns); inputs stay in L2 between launches"})
+    if not f3["ok"]:
+        raise RuntimeError(f"kernel_cases_headsplit: F3 case {json.dumps(f3)}")
     return cases
 
 
@@ -1548,32 +1621,39 @@ def _per_forward(want: dict, times: int) -> dict:
 
 
 @contextlib.contextmanager
-def _packed_launch_dtypes(seen: dict):
-    """Count the packed wrapper's launches by (direction, qkv's type) into
-    `seen` for a `with` block (the autograd Function and the served forward
-    call the module's launch functions by name)."""
+def _launch_dtypes(seen: dict):
+    """Count the packed and head-split wrappers' launches by (layout,
+    direction, operand type) into `seen` for a `with` block (the autograd
+    Functions and the served forward call the modules' launch functions by
+    name)."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    fwd, bwd = wap._launch_forward, wap._launch_backward
+    saved = [(m, n, getattr(m, n)) for m in (wap, ths)
+             for n in ("_launch_forward", "_launch_backward")]
 
-    def counted(fn, direction):
-        def call(qkv, *a, **k):
-            key = f"{direction} {str(qkv.dtype).replace('torch.', '')}"
-            seen[key] = seen.get(key, 0) + 1
-            return fn(qkv, *a, **k)
+    def counted(fn, key):
+        def call(x, *a, **k):
+            kk = f"{key} {str(x.dtype).replace('torch.', '')}"
+            seen[kk] = seen.get(kk, 0) + 1
+            return fn(x, *a, **k)
         return call
-    wap._launch_forward = counted(fwd, "forward")
-    wap._launch_backward = counted(bwd, "backward")
+    for m, n, fn in saved:
+        layout = "packed" if m is wap else "headsplit"
+        direction = "forward" if n.endswith("forward") else "backward"
+        setattr(m, n, counted(fn, f"{layout} {direction}"))
     try:
         yield
     finally:
-        wap._launch_forward, wap._launch_backward = fwd, bwd
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def _check_launch_dtypes(tag: str, seen: dict, dtype: str) -> dict:
-    """Every packed launch `seen` ran on qkv of the model's `dtype`."""
+    """Every packed and head-split launch `seen` ran on operands of the
+    model's `dtype`."""
     if any(not k.endswith(" " + dtype) for k in seen):
-        raise RuntimeError(f"{tag}: packed launches by type {seen}, "
-                           f"expected {dtype} only")
+        raise RuntimeError(f"{tag}: launches by type {seen}, expected "
+                           f"{dtype} only")
     return dict(seen)
 
 
@@ -1606,7 +1686,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
         torch.cuda.synchronize()
         t = time.time()
         e0.record()
-        with _packed_launch_dtypes(seen):
+        with _launch_dtypes(seen):
             out = infer.predict(model, g1, g2)
         e1.record()
         torch.cuda.synchronize()
@@ -1649,7 +1729,7 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
                                  for lay, d in by_layout.items()},
            "launches_by_kernel": _str_keys(by_kernel),
            "launches_by_mxu": by_mxu,
-           "packed_launches_by_type": _check_launch_dtypes(tag, seen, dtype),
+           "launches_by_type": _check_launch_dtypes(tag, seen, dtype),
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if flip:
         infer.predict(model, f1, f2, flip_tta=True)       # warm-up
@@ -2007,7 +2087,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
         before = (_launches(), _launches(backward=True))
         torch.cuda.synchronize()
         t = time.time()
-        with _packed_launch_dtypes(seen):
+        with _launch_dtypes(seen):
             state, aux = step(state, batch)
         torch.cuda.synchronize()
         ms.append((time.time() - t) * 1e3)
@@ -2056,7 +2136,7 @@ def phase_train(backbone: str = "swin_base_v2", steps: int = 6,
                                      for lay, d in bwd_by_shape.items()},
            "launches_by_kernel": _str_keys(by_kernel),
            "launches_by_mxu": by_mxu,
-           "packed_launches_by_type": _check_launch_dtypes(tag, seen, dtype),
+           "launches_by_type": _check_launch_dtypes(tag, seen, dtype),
            "param_max_abs_change": moved, "peak_memory_bytes": peak}
     del state, step
     torch.cuda.empty_cache()
@@ -2104,13 +2184,20 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
     grad_rel = {n: float((ga[n] - gb[n]).norm()
                          / gb[n].norm().clamp_min(1e-300)) for n in ga}
+    launches = _STEP_LAUNCHES[("train_step", backbone, pairs, impl, dtype)]
     rec = {"model": backbone, "dtype": dtype, "frame_pairs": pairs,
            "depths": list(PARITY_DEPTHS), "cudnn_allow_tf32": False,
            "attn_impl": impl, "loss_cuda": la, "loss_torch": lb,
            "loss_rel_diff": loss_rel,
            "grad_rel_l2": grad_rel,
            "grad_norm": {n: float(gb[n].norm()) for n in gb},
-           "tolerance": tol}
+           "launches": launches, "tolerance": tol}
+    # "cuda": every packed and head-split launch of either type on the
+    # tensor cores, none on an FMA body
+    if impl == "cuda" and (not launches or any(
+            "_tc" not in k for k in launches)):
+        raise RuntimeError(f"train parity: kernel path's launches "
+                           f"{launches}, expected tensor-core kernels only")
     if not loss_rel <= tol["loss_rel"]:
         raise RuntimeError(f"train parity: loss differs: {json.dumps(rec)}")
     if dtype != "float32":
@@ -2178,13 +2265,16 @@ def _find(cases, shape, pairs, dtype="bfloat16", **want):
 
 
 def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
-                   serve: dict, tc_cases: list) -> list:
-    """One entry per (kernel, served shape): the served model is bfloat16,
-    stages 1-2 alternate unmasked and masked blocks (the masked case is
-    listed), stages 3-4 are unmasked. Packed stages: the tensor-core
-    forward, with kernel_cases_tc's numbers (the model's mode, "fold") at
-    the flagship's shapes, kernel_cases' elsewhere."""
+                   serve: dict, tc_cases: list,
+                   dtype: str = "bfloat16") -> list:
+    """One entry per (kernel, served shape): the served model is `dtype`
+    (bfloat16, or float32 for serve_large_fp32: the slab path is not served
+    in float32), stages 1-2 alternate unmasked and masked blocks (the masked
+    case is listed), stages 3-4 are unmasked. Packed stages: the
+    tensor-core forward, with kernel_cases_tc's numbers (the model's mode,
+    "fold" / "fp32") at the flagship's shapes, kernel_cases' elsewhere."""
     entries = []
+    label = "fp32" if dtype == "float32" else "bf16"
     for shape in stage_shapes(serve["backbone"],
                               attn_impl=serve["_attn_impl"]):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
@@ -2196,30 +2286,39 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
                                   KERNEL_TC_SOURCE, KERNEL_SLAB_REPLACES, n,
                                   c))
         elif shape["layout"] == "packed":
-            c = _tc_case(tc_cases, shape, 1) or next(
+            c = _tc_case(tc_cases, shape, 1, "fp32" if label == "fp32"
+                         else "fold", dtype) or next(
                 c for c in k1_cases
                 if c["model"] == shape["model"]
                 and c["stage"] == shape["stage"]
-                and c["dtype"] == "bfloat16"
+                and c["dtype"] == dtype
                 and c["softmax"] == "maxfree" and (c["nW"] > 0) == (nW > 0))
             entries.append(_entry("window_attention_fwd_tc", shape,
-                                  KERNEL_TC_SOURCE, KERNEL_REPLACES, n, c))
+                                  KERNEL_TC_SOURCE, KERNEL_REPLACES, n, c,
+                                  dtype=label))
         else:
-            c = _find(hs_cases, shape, 1, nW=nW)["forward"]
+            c = _find(hs_cases, shape, 1, dtype, nW=nW)["forward"]
             entries.append(_entry("window_attention_headsplit_fwd_tc", shape,
-                                  KERNEL_TC_SOURCE, KERNEL_HS_REPLACES, n, c))
+                                  KERNEL_TC_SOURCE, KERNEL_HS_REPLACES, n, c,
+                                  dtype=label))
+    for e in entries:
+        e["dtype"] = dtype
     return entries
 
 
 def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
-                   train: dict, tc_cases: list) -> list:
+                   train: dict, tc_cases: list,
+                   dtype: str = "bfloat16") -> list:
     """Two entries per trained shape, the forward through its training entry
     point (output and log-sum-exp) and the backward: the trained model is
-    bfloat16 at 2 frame pairs, stages 1-2 masked in every other block (the
-    masked case is listed). Errors: the forward's output against the plain
-    forward, the backward's dqkv against float64 autograd."""
+    `dtype` (bfloat16, or float32 for train_large_fp32) at 2 frame pairs,
+    stages 1-2 masked in every other block (the masked case is listed).
+    Errors: the forward's output against the plain forward, the backward's
+    dqkv against float64 autograd."""
     entries = []
     pairs = train["frame_pairs"]
+    label = "fp32" if dtype == "float32" else "bf16"
+    mode = "fp32" if label == "fp32" else "fold"
     for shape in stage_shapes(train["backbone"], batch=pairs,
                               attn_impl=train["_attn_impl"]):
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
@@ -2238,15 +2337,16 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
                        pairs)
             e["ms_no_dbias"] = c["ms_no_dbias"]
         elif lay == "packed":
-            # the tensor-core kernels: kernel_cases_tc's numbers ("fold")
-            # at the flagship's shapes, kernel_cases_backward's elsewhere
-            c = _find(k2_cases, shape, pairs)
-            t = _tc_case(tc_cases, shape, pairs) or c
+            # the tensor-core kernels: kernel_cases_tc's numbers (the
+            # model's mode) at the flagship's shapes, kernel_cases_backward's
+            # elsewhere
+            c = _find(k2_cases, shape, pairs, dtype)
+            t = _tc_case(tc_cases, shape, pairs, mode, dtype) or c
             entries.append(_entry("window_attention_fwd_tc+lse", shape,
                                   KERNEL_TC_SOURCE, KERNEL_REPLACES, nf,
-                                  t["forward"], pairs))
+                                  t["forward"], pairs, dtype=label))
             e = _entry("window_attention_bwd_tc", shape, KERNEL_TC_BWD_SOURCE,
-                       KERNEL_BWD_REPLACES, nb, t, pairs)
+                       KERNEL_BWD_REPLACES, nb, t, pairs, dtype=label)
             if "ms_no_dbias" in t:
                 e["ms_no_dbias"] = t["ms_no_dbias"]
             e["ms_split_dbias"] = c["ms_split"]     # K3, not the default
@@ -2259,17 +2359,20 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
             e["k3_fma_chain_bound_ms"] = c.get("k3_fma_chain_bound_ms")
             e["k3_library_ms"] = None
         else:
-            # the tensor-core kernels (bf16 models), kernel_cases_headsplit's
-            # numbers
-            c = _find(hs_cases, shape, pairs, nW=shape["nW"])
+            # the tensor-core kernels (either type),
+            # kernel_cases_headsplit's numbers
+            c = _find(hs_cases, shape, pairs, dtype, nW=shape["nW"])
             entries.append(_entry("window_attention_headsplit_fwd_tc+lse",
                                   shape, KERNEL_TC_SOURCE, KERNEL_HS_REPLACES,
-                                  nf, c["forward_stats"], pairs))
+                                  nf, c["forward_stats"], pairs,
+                                  dtype=label))
             e = _entry("window_attention_headsplit_bwd_tc", shape,
                        KERNEL_TC_BWD_SOURCE, KERNEL_HS_BWD_REPLACES, nb, c,
-                       pairs)
+                       pairs, dtype=label)
             e["ms_no_dbias"] = c["ms_no_dbias"]
         entries.append(e)
+    for e in entries:
+        e["dtype"] = dtype
     return entries
 
 
@@ -2330,7 +2433,7 @@ def phase_train_parity_tiny(pairs: int = 2) -> dict:
     gradients of TINY_PARITY_PARAMS at TOL_TRAIN_PARITY, cuDNN TF32 off.
     The kernel path's launches: the packed stages (3-4, N 36 and 9, below
     one 64-row tile) on the tensor-core K1+lse / K2, the head-split stages
-    (1-2) on their FMA bodies - the two bodies in one step."""
+    (1-2) on the tensor-core K6'+lse / K7' - no FMA body in the step."""
     from mmde_tpu_torch.config import load_yaml
     from mmde_tpu_torch.tools import train_steps as ts
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2372,8 +2475,8 @@ def phase_train_parity_tiny(pairs: int = 2) -> dict:
     depths = cfg.model.swin.depths
     want = {"window_attention_fwd_tc+lse": depths[2] + depths[3],
             "window_attention_bwd_tc": depths[2] + depths[3],
-            "window_attention_headsplit_fwd+lse": depths[0] + depths[1],
-            "window_attention_headsplit_bwd": depths[0] + depths[1]}
+            "window_attention_headsplit_fwd_tc+lse": depths[0] + depths[1],
+            "window_attention_headsplit_bwd_tc": depths[0] + depths[1]}
     got = {k: sum(d.values()) for k, d in launches["cuda"].items()}
     loss_rel = abs(la["loss_total"] - lb["loss_total"]) / abs(lb["loss_total"])
     grad_rel = {n: float((ga[n] - gb[n]).norm()
@@ -2409,7 +2512,8 @@ def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
     backward and float64 autograd; dbias bitwise equal over two launches.
     bf16 and fp32 run the tensor-core K4 after the tensor-core K1 (the
     launches are checked by name). Head 0 above the ln(100) clamp, head 1
-    hot (scale e^4); `hot`: every head at scale 60. Times (medians of single
+    hot (scale e^4); `hot`: every head at scale 60, and dlogit_scale held
+    to TOL_F3 of float64 (F3). Times (medians of single
     launches): K4 and the FMA body at the same inputs, in turns (kernel,
     FMA body, FMA body, kernel), its bound on the tensor cores (tc_units:
     K4_TC_UNITS, fp32 K4_FP32_TC_UNITS) and the SDPA backward in qkv's type;
@@ -2453,6 +2557,12 @@ def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
     got = [t.grad for t in leaves]
     rec.update(_check_grads(got, plain, truth, name,
                             f"K4 at {json.dumps(rec)}", clamped=not hot))
+    if hot:
+        # F3: K4's own m and l, difference-first exp, centred dlogit_scale
+        rec["tolerance_f3_dlogit_scale_rel_l2"] = TOL_F3
+        if not rec["vs_float64"]["dlogit_scale"]["rel_l2"] <= TOL_F3:
+            raise RuntimeError(f"K4 F3 case: dlogit_scale against float64 "
+                               f"above {TOL_F3}: {json.dumps(rec)}")
     with torch.no_grad():
         d1 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
         d2 = wap._launch_backward_resident(qkv, ls, bias, mask, g, nH)[2]
@@ -2510,8 +2620,9 @@ def compare_resident(shape, dtype, gen, *, timed=True, hot=False) -> dict:
 def phase_kernels_resident(timed: bool = True) -> list:
     """K4 at the four flagship train shapes (2 frame pairs), bfloat16 and
     float32 (both on the tensor cores), masked where the stage shifts;
-    float32 at stage 1 with every head at scale 60; and float32 at the
-    four train shapes of 1 frame pair (the fp32 Path A step's)."""
+    float32 at stage 1 with every head at scale 60 (F3: dlogit_scale within
+    TOL_F3 of float64); and float32 at the four train shapes of 1 frame
+    pair (the fp32 Path A step's)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5151)
     shapes = stage_shapes(batch=2)
@@ -2542,7 +2653,8 @@ def _w_of(shape, bwd: bool, masked: bool, setting="auto") -> int:
 
 
 def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
-              with_mask: bool, timed=True, mxu=None, pairs=None) -> list:
+              with_mask: bool, timed=True, mxu=None, pairs=None,
+              hot=False) -> list:
     """K5 at one shape: the forward at each W of `w_fwd` (with the
     log-sum-exp when `train`) against the plain forward; the backward at
     each W of `w_bwd` against the plain backward and float64 autograd. bf16
@@ -2559,10 +2671,14 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
     fp32 backward: also under grid_mode="split" (K5's passes, then K3's
     dbias pass on the FMA body reading the tensor-core forward's
     statistic), held to the same limits. `pairs`: the frame pairs of the
-    shape (default 2 when `train`, else 1)."""
+    shape (default 2 when `train`, else 1). `hot`: every head at scale 60,
+    and (fp32 / fold) each backward's dlogit_scale held to TOL_F3 of
+    float64 (F3)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, with_mask, gen)
     ls[1] = 4.0
+    if hot:
+        ls[:] = math.log(60.0)
     nH, B_, N, C = shape["nH"], shape["B_"], shape["N"], shape["C"]
     name = str(dtype).replace("torch.", "")
     f32 = dtype == torch.float32   # every launch at W > 1: tensor cores
@@ -2572,6 +2688,7 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
     head = _case_head(shape, dtype, mask)
     head["frame_pairs"] = pairs or (2 if train else 1)
     head["mxu"] = mode
+    head["every_head_scale_60"] = hot
     recs, fwd_common = [], {}
     stats = train
 
@@ -2684,7 +2801,15 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                         "vs_plain": (plain, TOL_MXU_BF16),
                         "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)}, what))
                 else:
-                    rec.update(_check_grads(got, plain, truth, name, what))
+                    rec.update(_check_grads(got, plain, truth, name, what,
+                                            clamped=not hot))
+                if hot and not rb:
+                    rec["tolerance_f3_dlogit_scale_rel_l2"] = TOL_F3
+                    if not rec["vs_float64"]["dlogit_scale"]["rel_l2"] \
+                            <= TOL_F3:
+                        raise RuntimeError(f"K5 F3 case: dlogit_scale "
+                                           f"against float64 above {TOL_F3}"
+                                           f": {json.dumps(rec)}")
                 _nearer(rec, "dqkv", got[0], plain[0], plain_o[0])
                 if f32:
                     # "split": K3's FMA dbias pass after K5's passes, on the
@@ -2700,7 +2825,7 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                         "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)},
                         f"split {what}") if rb else
                         _check_grads(got_s, plain, truth, name,
-                                     f"split {what}"))
+                                     f"split {what}", clamped=not hot))
                     del got_s
                 rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
                 rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
@@ -2726,9 +2851,10 @@ def phase_kernels_w(timed: bool = True) -> list:
     backward at W = 8 there (fp32); bfloat16 (served in each precision
     mode, trained in the model's, "fold") and float32 (served and trained
     in each mode, timed in "fp32", its model's; trained at 1 pair too, the
-    fp32 Path B step's shapes), both on the tensor-core K5. Every case
-    runs; the phase's line is printed, then it fails if any case
-    disagreed."""
+    fp32 Path B step's shapes), both on the tensor-core K5; and the fp32
+    F3 case (every head at scale 60, stage 1 trained, masked, backward at
+    the rule's W and at 8) in fp32 and fold. Every case runs; the phase's
+    line is printed, then it fails if any case disagreed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6262)
     cases, failed = [], []
@@ -2785,6 +2911,16 @@ def phase_kernels_w(timed: bool = True) -> list:
             if wf[m] or wb[m]:
                 run(shape, torch.float32, gen, wf[m], wb[m], True, m, timed,
                     mxu="fp32", pairs=1)
+    # F3 on fp32 K5: every head at scale 60, stage 1 trained with its mask,
+    # the forward at the rule's W (its statistic feeds the backward), the
+    # backward at the rule's W and at W = 8, in the two modes that compute
+    # the fp32 function (the "bf16" mode's roundings of its operands flip
+    # between fp32 and float64, so float64 is no F3 oracle for it)
+    s1 = stage_shapes(batch=2)[0]
+    for mxu in ("fp32", "fold"):
+        run(s1, torch.float32, gen, by_mask(s1, False)[True],
+            sorted({_w_of(s1, True, True), 8} - {1}), True, True, False,
+            mxu=mxu, hot=True)
     emit("kernel_cases_w", {
         "cases": cases, "failed": failed,
         "timing": "CUDA events around one launch (forward; backward: the dq "
@@ -2803,9 +2939,9 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
     and slab kernels over `times` forwards (or train steps) under this
     process's MMDE_ATTN_GRID and MMDE_ATTN_W: each packed block's W by the
     JAX rule, for its own mask (the shifted blocks of stages 1-2 have one,
-    the others not); every head-split and slab block of these bf16 models
-    on the tensor cores (no FMA slab launch); every packed block of either
-    type on the tensor cores."""
+    the others not); every head-split block of either type and every slab
+    block (the slab path runs bf16 models only here) on the tensor cores;
+    every packed block of either type on the tensor cores: no FMA body."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
     want: dict = {}
@@ -3035,12 +3171,17 @@ def phase_w_child(lines: list) -> tuple:
     return got["serve_w"], got["train_w"]
 
 
+# {train_step_grads' key: {kernel: launches}} of each step it took
+_STEP_LAUNCHES: dict = {}
+
+
 def train_step_grads(backbone: str, pairs: int, path: str,
                      dtype: str = "float32") -> tuple:
     """(losses, {name: gradient}) of one deterministic train step (fp32, or
     `dtype`) of `backbone` at full width (depths PARITY_DEPTHS) under
     attention `path`, weights and batch from fixed seeds, cuDNN TF32 off;
-    cached per process."""
+    cached per process. The step's launches by kernel go to
+    _STEP_LAUNCHES."""
     key = ("train_step", backbone, pairs, path, dtype)
     if key in _PLAIN_RUNS:
         return _PLAIN_RUNS[key]
@@ -3052,7 +3193,11 @@ def train_step_grads(backbone: str, pairs: int, path: str,
         with torch.no_grad():       # every path steps from the same weights
             state.model.load_state_dict(init)
         _set_attn_impl(state.model, path)
+        _reset_launch_counts()
         state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        _STEP_LAUNCHES[key] = {k: sum(d.values())
+                               for k, d in _by_kernel().items()}
         trainer[0] = state
         grads = {n: p.grad.detach().double().clone()
                  for n, p in state.model.named_parameters()
@@ -3940,10 +4085,11 @@ def main() -> int:
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
                          "swin_large, of the flagship's slab path, of Paths "
-                         "A and B and of the fp32 flagship, and write their "
+                         "A and B, of the fp32 flagship and of fp32 "
+                         "swin_large, and write their "
                          "rows to PATH and PATH with _large / _slab / "
-                         "_resident / _w / _fp32 before its extension "
-                         "(JSON)")
+                         "_resident / _w / _fp32 / _large_fp32 before its "
+                         "extension (JSON)")
     ap.add_argument("--child", choices=["w", "resident", "mxu"],
                     default=None,
                     help=argparse.SUPPRESS)     # the script's own children
@@ -3991,6 +4137,13 @@ def main() -> int:
                              dtype="float32")
     train_fp32 = phase_train(steps=6, deterministic_run=False,
                              tag="train_fp32", dtype="float32")
+    # swin_large in float32: stage 1 on the fp32 head-split tensor-core
+    # kernels, stages 2-4 on the fp32 packed ones
+    serve_large_fp32 = phase_serve("swin_large_v2", requests=1, flip=False,
+                                   tag="serve_large_fp32", dtype="float32")
+    train_large_fp32 = phase_train("swin_large_v2", steps=3,
+                                   deterministic_run=False,
+                                   tag="train_large_fp32", dtype="float32")
     (train_res, resident_child, serve_w, train_w, w_child, _,
      train_mxu) = phase_children()
     if args.profile:
@@ -4001,6 +4154,8 @@ def main() -> int:
                       attn_impl="cuda_slab")
         phase_profile(f"{root}_fp32{ext}", tag="profile_fp32",
                       dtype="float32")
+        phase_profile(f"{root}_large_fp32{ext}", "swin_large_v2",
+                      "profile_large_fp32", dtype="float32")
     phase_parity()
     phase_train_parity()
     phase_train_parity_tiny()
@@ -4034,6 +4189,10 @@ def main() -> int:
     entries += contract_w(kw_cases, serve_w, train_w)
     entries += contract_fp32(k4_cases, kw_cases, resident_child, w_child)
     entries += contract_fp32_w1(serve_fp32, train_fp32, tc_cases)
+    entries += contract_serve(k1_cases, hs_cases, slab_cases,
+                              serve_large_fp32, tc_cases, "float32")
+    entries += contract_train(k2_cases, hs_cases, slab_cases,
+                              train_large_fp32, tc_cases, "float32")
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)

@@ -74,7 +74,11 @@
 // mask tiles: one block an SM. The tensor cores round each sum toward
 // zero, a few fp32 ulps below round-to-nearest; the block's own m and l
 // normalise p from those same logits, so no statistic of other arithmetic
-// meets them (K5's backward reads its forward's).
+// meets them (K5's backward reads its forward's). Both sweeps form exp(s -
+// m) with the difference first, and dlogit_scale sums ds * (sc - (m +
+// log l)), the same sum (a row of ds sums to zero) without ~60 times the
+// rounding of that row sum at a hot head (F3; fwd_tc_kernel and
+// bwd_dkv_tc_kernel take both rules).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -239,6 +243,7 @@ bwd_resident_tc_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
   float rq0 = 0.0f, rq1 = 0.0f;
   float m0 = 0.0f, m1 = 0.0f, l0 = 0.0f, l1 = 0.0f, D0 = 0.0f, D1 = 0.0f;
   float il0 = 0.0f, il1 = 0.0f, dl0 = 0.0f, dl1 = 0.0f;
+  float lc0 = 0.0f, lc1 = 0.0f;   // fp32: the rows' m + log(l)
   float acc[4][4];
   double dls = 0.0;
 
@@ -274,6 +279,10 @@ bwd_resident_tc_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
       il1 = 1.0f / l1;
       dl0 = quad_sum(D0) * il0;
       dl1 = quad_sum(D1) * il1;
+      if constexpr (F32) {
+        lc0 = m0 + logf(l0);
+        lc1 = m1 + logf(l1);
+      }
     }
     cp_async_wait_all();
     __syncthreads();  // tile `step` arrived; every warp left step - 1
@@ -383,10 +392,20 @@ bwd_resident_tc_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
         for (int p = 0; p < PS; ++p)
           frag_rows(vb[p], vt + p * TC_PLANE, j, lane);
         mma_rows<PS, PS>(dp, ga, vb);
-        const float e0 = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
-        const float e1 = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
-        const float e2 = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
-        const float e3 = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+        float e0, e1, e2, e3;
+        if constexpr (F32) {
+          // exp(s - m), the difference first: a shift m * log2(e) rounded
+          // on its own scales the whole row's l and D alike (F3)
+          e0 = ex2((s[j][0] - m0) * TC_LOG2E);
+          e1 = ex2((s[j][1] - m0) * TC_LOG2E);
+          e2 = ex2((s[j][2] - m1) * TC_LOG2E);
+          e3 = ex2((s[j][3] - m1) * TC_LOG2E);
+        } else {
+          e0 = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
+          e1 = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
+          e2 = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
+          e3 = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+        }
         l0 += e0 + e1;
         l1 += e2 + e3;
         D0 = fmaf(e0, dp[0], fmaf(e1, dp[1], D0));
@@ -463,10 +482,20 @@ bwd_resident_tc_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
               continue;
             }
             const float sc = x[e] * c * rk[e] * scale;
-            const float p =
-                ex2(fmaf(sc + (e ? bm.y : bm.x), TC_LOG2E, -sh)) * il;
+            float p;
+            if constexpr (F32)   // exp(s - m), the difference first (F3)
+              p = ex2(((sc + (e ? bm.y : bm.x)) - (half ? m1 : m0)) *
+                      TC_LOG2E) * il;
+            else
+              p = ex2(fmaf(sc + (e ? bm.y : bm.x), TC_LOG2E, -sh)) * il;
             const float ds = p * (d[e] - dl);
-            dls_t = fmaf(ds, sc, dls_t);
+            // fp32: sum(ds * (sc - lse)) with the block's own lse = m +
+            // log(l): the same sum (a row of ds sums to zero), without ~60
+            // times the rounding of that row sum
+            if constexpr (F32)
+              dls_t = fmaf(ds, sc - (half ? lc1 : lc0), dls_t);
+            else
+              dls_t = fmaf(ds, sc, dls_t);
             x[e] = p;
             d[e] = ds;
           }

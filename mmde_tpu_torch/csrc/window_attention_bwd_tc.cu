@@ -1,17 +1,17 @@
 // Fused SwinV2 cosine window attention, backward, on Hopper's tensor cores
 // (sm_90a, bf16 mma.sync), for bf16 or fp32 q, k, v and g: in the packed
 // layout at one window per block or W (the _w kernels, below), on
-// head-split operands (bf16), and on the slab path's (B, Hp, Wp, 3C) map
-// (bf16).
+// head-split operands (bf16 or fp32), and on the slab path's (B, Hp, Wp,
+// 3C) map (bf16).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
 // by _pallas_backward) for every packed launch, bf16 and fp32, at w = 1
 // and with w > 1 (K5, MMDE_ATTN_W), in all three precision modes: dqkv,
 // dlogit_scale and (dbias_mode 1) dbias; and
 // mmde_tpu/ops/window_attention_pallas.py::_bwd_kernel (K7, driven by
-// _pallas_backward) for every bf16 head-split launch, in its function (mode
-// fp32, fp32 bias and mask tiles): dq, dk, dv into contiguous (B_, nH, N,
-// 32), dlogit_scale, dbias by the same atomics; and
+// _pallas_backward) for every head-split launch, bf16 and fp32, in its
+// function (mode fp32, fp32 bias and mask tiles): dq, dk, dv into
+// contiguous (B_, nH, N, 32), dlogit_scale, dbias by the same atomics; and
 // mmde_tpu/ops/window_attention_slab.py::_bwd_body (K9, driven by
 // _pallas_backward) for every bf16 slab launch, in the same function: dqkv
 // written into the (B, Hp, Wp, 3C) map in place, dbias summed over windows
@@ -19,13 +19,13 @@
 // passes are templates over the operands' layout (Rows; MapRows for the
 // slab entry, window_attention_common.cuh), every row address L::head(b, h)
 // + L::off(r) (the map's tile loads through TileRows' shared table), and
-// over their type: fp32 qkv (packed only) takes every operand in three bf16
-// pieces (Pieces, below), as K5's fp32 passes do. Under
+// over their type: fp32 operands (packed and head-split) take every operand
+// in three bf16 pieces (Pieces, below), as K5's fp32 passes do. Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
 // delta written here (reading the fp32 forward's hi + lo, lse_pair 1).
-// window_attention_bwd.cu keeps K2's fp32-FMA body for the fp32 head-split
-// and slab launches and as the same-card A/B partner. Same function and the
+// window_attention_bwd.cu keeps K2's fp32-FMA body for the fp32 slab
+// launches and as the same-card A/B partner. Same function and the
 // same two passes as K2 (its header has the formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
@@ -931,7 +931,8 @@ constexpr int W_MAX = 8;   // windows a block holds
 // fp32 qkv (T = float): every operand in three bf16 pieces (the "bf16"
 // mode: one rounding), the streamed tiles staged in fp32 and split into
 // bf16 planes once they arrived (window_attention_tc.cuh), the forward's
-// statistic read as hi + lo (F3): p = exp((s - hi) - lo). Per window the
+// statistic read as hi + lo (F3): p = exp((s - hi) - lo), dlogit_scale
+// summed as ds * (sc - hi), as the W = 1 passes sum it. Per window the
 // arithmetic is the bf16 passes' with split products.
 template <typename T, int MXU>
 struct WPieces {
@@ -1492,7 +1493,9 @@ bwd_dkv_tc_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
             else
               x = ex2(fmaf(y, TC_LOG2E, -ls2[e]));
             d = x * (d - dl[e]);
-            dls_t = fmaf(d, sc, dls_t);
+            // fp32: sum(ds * (sc - lse)), as bwd_dkv_tc_kernel sums it
+            if constexpr (F32) dls_t = fmaf(d, sc - hi2[e], dls_t);
+            else dls_t = fmaf(d, sc, dls_t);
           }
         }
 #pragma unroll
@@ -1873,29 +1876,47 @@ extern "C" int mmde_window_attention_bwd_tc_w(
   });
 }
 
-// Head-split entry (K7's counterpart on the tensor cores): bf16 q, k, v and
-// g (B_, nH, N, 32), each at its own base with the strides `strides` gives,
+// Head-split entry (K7's counterpart on the tensor cores): q, k, v and g
+// (B_, nH, N, 32), each at its own base with the strides `strides` gives,
 // a host array of twelve: q, k, v, g, each (window, head, token), in
 // elements (the model's permuted views: no copy); dq, dk, dv contiguous
-// (B_, nH, N, 32) bf16. bias and mask bf16 when bias_bf16, else fp32. The
-// TPU kernel's function (mode MXU_FP32); lse (B_, nH, N) from
-// mmde_window_attention_headsplit_fwd_tc; delta (B_, nH, N) fp32 and
-// dls_part (B_ * ceil(N / 64), nH) fp64 written (the caller sums dls_part
-// over its first axis); dbias (nH, N, N) fp32 receives dbias by 16-byte
-// vector atomics when dbias_mode = 1 (the caller zeroes it first), none
-// when 0. Returns the first CUDA error of the two launches, or -1 for
-// arguments the kernels do not take (a row that is not 16-byte aligned
-// among them). Launches on `stream`, does not synchronise, allocates
-// nothing.
+// (B_, nH, N, 32), of q's type. qkv_bf16 1: bf16 operands, bias and mask
+// bf16 when bias_bf16, else fp32, lse (B_, nH, N) from
+// mmde_window_attention_headsplit_fwd_tc; qkv_bf16 0: fp32 q, k, v, g and
+// dq, dk, dv, every operand in three bf16 pieces, fp32 bias and mask, lse
+// (2, B_, nH, N) hi then lo as that entry writes it for fp32 (F3). The TPU
+// kernel's function (mode MXU_FP32); delta (B_, nH, N) fp32 and dls_part
+// (B_ * ceil(N / 64), nH) fp64 written (the caller sums dls_part over its
+// first axis); dbias (nH, N, N) fp32 receives dbias by 16-byte vector
+// atomics when dbias_mode = 1 (the caller zeroes it first), none when 0.
+// Returns the first CUDA error of the two launches, or -1 for arguments the
+// kernels do not take (a row that is not 16-byte aligned among them).
+// Launches on `stream`, does not synchronise, allocates nothing.
 extern "C" int mmde_window_attention_headsplit_bwd_tc(
     const void* q, const void* k, const void* v, const void* g,
     const void* strides, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, void* dq, void* dk, void* dv,
     void* delta, void* dls_part, void* dbias, int B_, int N, int nH, int nW,
-    int bias_bf16, int dbias_mode, void* stream) {
+    int qkv_bf16, int bias_bf16, int dbias_mode, void* stream) {
   if (strides == nullptr || !shape_ok(B_, N, nH, nW, mask, dbias_mode, dbias))
     return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   const long long* st = (const long long*)strides;
+  void* db = dbias_mode == 1 ? dbias : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16) {
+    Operands<Rows, float> o;
+    o.q = {(const float*)q, st[0], st[1], st[2]};
+    o.k = {(const float*)k, st[3], st[4], st[5]};
+    o.v = {(const float*)v, st[6], st[7], st[8]};
+    o.g = {(const float*)g, st[9], st[10], st[11]};
+    o.dq = contiguous_rows((float*)dq, nH, N, TC_DH);
+    o.dk = contiguous_rows((float*)dk, nH, N, TC_DH);
+    o.dv = contiguous_rows((float*)dv, nH, N, TC_DH);
+    return launch<Rows, float, float, MXU_FP32>(o, logit_scale, bias, mask,
+                                                lse, delta, dls_part, db, B_,
+                                                N, nH, nW, s);
+  }
   Operands<Rows> o;
   o.q = {(const bf16*)q, st[0], st[1], st[2]};
   o.k = {(const bf16*)k, st[3], st[4], st[5]};
@@ -1904,8 +1925,6 @@ extern "C" int mmde_window_attention_headsplit_bwd_tc(
   o.dq = contiguous_rows((bf16*)dq, nH, N, TC_DH);
   o.dk = contiguous_rows((bf16*)dk, nH, N, TC_DH);
   o.dv = contiguous_rows((bf16*)dv, nH, N, TC_DH);
-  void* db = dbias_mode == 1 ? dbias : nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
     return launch<Rows, bf16, bf16, MXU_FP32>(o, logit_scale, bias, mask,
                                               lse, delta, dls_part, db, B_, N,

@@ -2,17 +2,17 @@
 // (sm_90a, bf16 mma.sync), for bf16 or fp32 q, k, v: in the packed layout
 // (qkv as the Linear emits it, (B_, N, 3C); out (B_, N, C)) at one window
 // per block or W (fwd_tc_w_kernel, below), on head-split operands (any
-// (B_, nH, N, 32) strides; out contiguous; bf16), and on the slab path's
-// (B, Hp, Wp, 3C) map (windows read in place, out the (B, Hp, Wp, C) map;
-// bf16).
+// (B_, nH, N, 32) strides; out contiguous; bf16 or fp32), and on the slab
+// path's (B, Hp, Wp, 3C) map (windows read in place, out the (B, Hp, Wp,
+// C) map; bf16).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
 // _pallas_forward) for every packed launch at w = 1 - the flagship's and
 // swin_large's default serving and training path, in bf16 and in fp32 - and
 // with w > 1 (K5, MMDE_ATTN_W), in all three precision modes; and
 // mmde_tpu/ops/window_attention_pallas.py::_kernel (K6, driven by
-// _pallas_forward) for every bf16 head-split launch (swin_large stage 1,
-// swin_tiny / swin_huge stages 1-2), and
+// _pallas_forward) for every head-split launch, bf16 and fp32 (swin_large
+// stage 1, swin_tiny / swin_huge stages 1-2), and
 // mmde_tpu/ops/window_attention_slab.py::_fwd_body (K8, driven by
 // _pallas_forward) for every bf16 slab launch (attn_impl "pallas_slab"), in
 // those kernels' function (mode fp32, the row maximum for every head, fp32
@@ -23,9 +23,9 @@
 // L::head(b, h) + L::off(r) (the map's tile loads through a shared table of
 // the tile's pixels, TileRows in window_attention_tc.cuh), so the
 // arithmetic is the same. It is a template over the operand type too: fp32
-// q, k, v (packed only) take every operand in three bf16 pieces (below), as
-// K5's fp32 instantiation does; window_attention_fwd.cu keeps the fp32-FMA
-// body for the fp32 head-split and slab launches and as the same-card A/B
+// q, k, v (packed and head-split) take every operand in three bf16 pieces
+// (below), as K5's fp32 instantiation does; window_attention_fwd.cu keeps
+// the fp32-FMA body for the fp32 slab launches and as the same-card A/B
 // partner; the function, the softmax forms and the log-sum-exp handed to
 // the backward are the same.
 //
@@ -748,15 +748,30 @@ fwd_tc_w_kernel(Rows<const T> q, Rows<const T> k, Rows<const T> v,
         }
       }
     }
-    const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+    if constexpr (F32) {
+      // exp(s - m), the difference first, as fwd_tc_kernel's fp32 branch
+      // forms it: a shift m * log2(e) rounded on its own scales the whole
+      // row's p, its sum and the statistic alike (F3)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
-      s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
-      s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
-      s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = ex2((s[j][0] - m0) * TC_LOG2E);
+        s[j][1] = ex2((s[j][1] - m0) * TC_LOG2E);
+        s[j][2] = ex2((s[j][2] - m1) * TC_LOG2E);
+        s[j][3] = ex2((s[j][3] - m1) * TC_LOG2E);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+    } else {
+      const float sh0 = m0 * TC_LOG2E, sh1 = m1 * TC_LOG2E;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = ex2(fmaf(s[j][0], TC_LOG2E, -sh0));
+        s[j][1] = ex2(fmaf(s[j][1], TC_LOG2E, -sh0));
+        s[j][2] = ex2(fmaf(s[j][2], TC_LOG2E, -sh1));
+        s[j][3] = ex2(fmaf(s[j][3], TC_LOG2E, -sh1));
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
     }
     const float one[2] = {1.0f, 1.0f};
 #pragma unroll
@@ -981,28 +996,43 @@ extern "C" int mmde_window_attention_fwd_tc_w(
   });
 }
 
-// Head-split entry (K6's counterpart on the tensor cores): bf16 q, k, v
+// Head-split entry (K6's counterpart on the tensor cores): q, k, v
 // (B_, nH, N, 32), each at its own base with the strides `strides` gives, a
 // host array of nine: q, k, v, each (window, head, token), in elements
 // (the model's permuted views of its qkv tensor: no copy); out a contiguous
-// (B_, nH, N, 32) bf16. bias (nH, N, N) and mask (nW, N, N; may be null)
-// bf16 when bias_bf16, else fp32 (the head-split stages stream them in
-// fp32, as the TPU kernel does). The TPU kernel's function only: mode
-// MXU_FP32, the running row maximum for every head (maxfree 0). `lse`
-// (B_, nH, N) fp32 when not null, as mmde_window_attention_fwd_tc writes
-// it. Returns cudaGetLastError() of the launch, or -1 for arguments the
-// kernel does not take (a row that is not 16-byte aligned among them).
+// (B_, nH, N, 32) of q's type. qkv_bf16 1: bf16 q, k, v and out; bias
+// (nH, N, N) and mask (nW, N, N; may be null) bf16 when bias_bf16, else
+// fp32 (the head-split stages stream them in fp32, as the TPU kernel does);
+// `lse` (B_, nH, N) fp32 when not null, as mmde_window_attention_fwd_tc
+// writes it. qkv_bf16 0: fp32 q, k, v and out, every operand in three bf16
+// pieces, fp32 bias and mask (a bf16 bias is refused), `lse` (2, B_, nH, N)
+// hi then lo, m + log(l) formed in fp64 (F3), as the packed fp32 forward
+// writes it. The TPU kernel's function only: mode MXU_FP32, the running row
+// maximum for every head (maxfree 0). Returns cudaGetLastError() of the
+// launch, or -1 for arguments the kernel does not take (a row that is not
+// 16-byte aligned among them).
 extern "C" int mmde_window_attention_headsplit_fwd_tc(
     const void* q, const void* k, const void* v, const void* strides,
     const void* logit_scale, const void* bias, const void* mask, void* out,
-    void* lse, int B_, int N, int nH, int nW, int bias_bf16, void* stream) {
+    void* lse, int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
+    void* stream) {
   if (strides == nullptr || !shape_ok(B_, N, nH, nW, mask)) return -1;
+  if (!qkv_bf16 && bias_bf16) return -1;
   const long long* st = (const long long*)strides;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16) {
+    const Rows<const float> rq = {(const float*)q, st[0], st[1], st[2]};
+    const Rows<const float> rk = {(const float*)k, st[3], st[4], st[5]};
+    const Rows<const float> rv = {(const float*)v, st[6], st[7], st[8]};
+    const Rows<float> ro = contiguous_rows((float*)out, nH, N, TC_DH);
+    return launch<Rows, float, float, MXU_FP32>(rq, rk, rv, ro, logit_scale,
+                                                bias, mask, lse, B_, N, nH,
+                                                nW, 0, s);
+  }
   const Rows<const bf16> rq = {(const bf16*)q, st[0], st[1], st[2]};
   const Rows<const bf16> rk = {(const bf16*)k, st[3], st[4], st[5]};
   const Rows<const bf16> rv = {(const bf16*)v, st[6], st[7], st[8]};
   const Rows<bf16> ro = contiguous_rows((bf16*)out, nH, N, TC_DH);
-  cudaStream_t s = (cudaStream_t)stream;
   if (bias_bf16)
     return launch<Rows, bf16, bf16, MXU_FP32>(rq, rk, rv, ro, logit_scale,
                                               bias, mask, lse, B_, N, nH, nW,

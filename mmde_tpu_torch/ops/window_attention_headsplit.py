@@ -17,23 +17,30 @@ points that take each operand's (window, head, token) strides: the model's
 permuted views of qkv go in without a copy (rows must be unit-stride and
 16-byte aligned, as they are for every swin variant; any other layout is
 copied first). Which body runs follows q's type, nothing else (the packed
-module's `headsplit_tensor_core_body`): bf16 q, k, v run the tensor-core
-kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, counted as
-window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc)
-in the TPU kernel's function, mode "fp32" with fp32 bias and mask tiles;
-fp32 q, k, v run the fp32-FMA bodies (csrc/window_attention_fwd.cu,
-csrc/window_attention_bwd.cu; window_attention_headsplit_fwd[+lse] /
-window_attention_headsplit_bwd). The forward keeps a running row maximum for
-every head, as the TPU kernel does: there is no max-free softmax here, so
-fault F1 cannot arise.
+module's `headsplit_tensor_core_body`): bf16 and fp32 q, k, v run the
+tensor-core kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync;
+fp32 operands in three bf16 pieces, the packed fp32 instantiation over the
+views' strides; counted as window_attention_headsplit_fwd_tc[+lse] /
+window_attention_headsplit_bwd_tc) in the TPU kernel's function, mode
+"fp32" with fp32 bias and mask tiles. The fp32-FMA bodies
+(csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu;
+window_attention_headsplit_fwd[+lse] / window_attention_headsplit_bwd) stay
+as the private same-card A/B partner (`_fma`). The forward keeps a running
+row maximum for every head, as the TPU kernel does: there is no max-free
+softmax here, so fault F1 cannot arise.
 
-The log-sum-exp the backward rebuilds p from: the tensor-core forward hands
-over one fp32 number a row, (B_, nH, N), as the packed kernels do; the FMA
-forward hands over two, (2, B_, nH, N), the row's m + log(l) formed in fp64
-and kept as fp32 hi + lo, and its backward takes p = exp((s - hi) - lo)
-(`rebuild_probabilities`): one rounding of lse ~ 60 would scale a whole row
-of p alike, which the cancelling sum of dlogit_scale does not average away
-(fault F3; the bf16 path's own rounding is far below its tolerance).
+The log-sum-exp the backward rebuilds p from (the packed module's
+`stat_pair`): the bf16 tensor-core forward hands over one fp32 number a
+row, (B_, nH, N), as the packed kernels do; every other body (fp32 on the
+tensor cores, either type on the FMA body) two, (2, B_, nH, N), the row's m
++ log(l) formed in fp64 and kept as fp32 hi + lo, and its backward takes p
+= exp((s - hi) - lo) (`rebuild_probabilities`): one rounding of lse ~ 60
+would scale a whole row of p alike, which the cancelling sum of
+dlogit_scale does not average away (fault F3; the bf16 path's own rounding
+is far below its tolerance). The statistic carries the body that wrote it
+(`written_by`), and a backward of the other body refuses it: the tensor
+cores round each sum toward zero, so their fp32 logits lie a few ulps from
+the FMA body's.
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_headsplit_plain` and, under autograd,
@@ -91,8 +98,8 @@ LAUNCHES_BWD = 0        # incremented once per backward launch (all its passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
 # every launch above, keyed by (kernel, (B_, N, C, nH)); kernel names:
 # window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc
-# (bf16, the tensor cores), window_attention_headsplit_fwd[+lse] /
-# window_attention_headsplit_bwd (the fp32-FMA body)
+# (the tensor cores), window_attention_headsplit_fwd[+lse] /
+# window_attention_headsplit_bwd (the fp32-FMA body, `_fma` only)
 LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -103,10 +110,9 @@ _FWD_STATS_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
 # q, k, v, g, strides, logit_scale, bias, mask, lse, dq, dk, dv, delta,
 # dls_part, dbias; B_, N, nH, nW, qkv_bf16, bias_bf16, dbias_mode; stream
 _BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
-# the tensor-core entries (bf16 only): as above without qkv_bf16, lse
-# nullable in the forward
-_FWD_TC_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
-_BWD_TC_ARGTYPES = [_P] * 15 + [_I] * 6 + [_P]
+# the tensor-core entries: the same arguments, lse nullable in the forward
+_FWD_TC_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
 
 
 def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
@@ -340,14 +346,15 @@ def rebuild_probabilities(s: torch.Tensor, hi: torch.Tensor,
 
 def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
                     _fma=False):
-    """Launch the forward kernel; returns (out, lse or None). bf16 q, k, v
-    run the tensor-core kernel (lse (B_, nH, N)), fp32 the FMA body (lse
-    (2, B_, nH, N), hi and lo); `_fma` (private: chip_smoke.py's same-card
-    comparison and tools/bench_attention.py, never the model) sends bf16
-    to the FMA body too."""
+    """Launch the forward kernel; returns (out, lse or None). bf16 and fp32
+    q, k, v run the tensor-core kernel (lse (B_, nH, N) for bf16, (2, B_,
+    nH, N) hi and lo for fp32: `stat_pair`); `_fma` (private:
+    chip_smoke.py's same-card comparison and tools/bench_attention.py, never
+    the model) sends either type to the FMA body (lse (2, B_, nH, N)). The
+    statistic carries the body that wrote it (`written_by`)."""
     global LAUNCHES
     from mmde_tpu_torch.ops.window_attention_packed import (
-        _stream, headsplit_tensor_core_body)
+        _body_name, _stream, headsplit_tensor_core_body, stat_pair)
     B_, nH, N, Dh = q.shape
     q, k, v = _rows(q), _rows(k), _rows(v)
     tc = headsplit_tensor_core_body(v.dtype) and not _fma
@@ -357,24 +364,21 @@ def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
                 if want_stats else _FWD_ARGTYPES)
     dev = v.device
     out = torch.empty((B_, nH, N, Dh), dtype=v.dtype, device=dev)
-    lse = (torch.empty(((B_, nH, N) if tc else (2, B_, nH, N)),
-                       dtype=torch.float32, device=dev)
-           if want_stats else None)
+    lse = None
+    if want_stats:
+        stat = ((2,) if stat_pair(v.dtype, tc) else ()) + (B_, nH, N)
+        lse = torch.empty(stat, dtype=torch.float32, device=dev)
+        lse.written_by = _body_name(tc)   # checked by _launch_backward
     strides = _strides(q, k, v)
     nW = mask.shape[0] if mask is not None else 0
-    bias_bf16 = int(bias.dtype == torch.bfloat16)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             ctypes.addressof(strides), logit_scale.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr())
+    if tc or want_stats:    # the tensor-core entry's lse is nullable
+        args += (lse.data_ptr() if want_stats else None,)
     with torch.cuda.device(dev):
-        stream = _stream(dev)
-        if tc:
-            err = fn(*args, lse.data_ptr() if want_stats else None, B_, N,
-                     nH, nW, bias_bf16, stream)
-        else:
-            err = fn(*args, *([lse.data_ptr()] if want_stats else []), B_, N,
-                     nH, nW, int(v.dtype == torch.bfloat16), bias_bf16,
-                     stream)
+        err = fn(*args, B_, N, nH, nW, int(v.dtype == torch.bfloat16),
+                 int(bias.dtype == torch.bfloat16), _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, nH={nH}, "
@@ -389,22 +393,30 @@ def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
 def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
                      _fma=False):
     """Launch the backward kernels; returns (dq, dk, dv, dlogit_scale,
-    dbias or None). bf16 runs the tensor-core passes, fp32 (and bf16 with
-    the private `_fma`) the FMA body; `lse` must be what the same body's
-    forward wrote."""
+    dbias or None). bf16 and fp32 run the tensor-core passes (the private
+    `_fma`: the FMA body); `lse` must be what the same body's forward wrote:
+    the other shape, or a statistic tagged with the other body, raises
+    before any launch."""
     global LAUNCHES_BWD
     from mmde_tpu_torch.ops.window_attention_packed import (
-        BWD_TILE, _stream, headsplit_tensor_core_body)
+        BWD_TILE, _body_name, _stream, headsplit_tensor_core_body, stat_pair)
     B_, nH, N, Dh = q.shape
     if g.dtype != v.dtype or g.shape != v.shape:
         raise ValueError(f"g must be {tuple(v.shape)} {v.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype}")
     tc = headsplit_tensor_core_body(v.dtype) and not _fma
-    want_lse = (B_, nH, N) if tc else (2, B_, nH, N)
+    want_lse = ((2,) if stat_pair(v.dtype, tc) else ()) + (B_, nH, N)
     if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
-                         f"reads a float32 {want_lse} log-sum-exp, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
+        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
+                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    # fp32 logits on the tensor cores lie a few ulps from the FMA body's:
+    # p is rebuilt only from the statistic the same arithmetic wrote (a
+    # statistic made elsewhere carries no tag)
+    written_by = getattr(lse, "written_by", None)
+    if written_by not in (None, _body_name(tc)):
+        raise ValueError(f"the {_body_name(tc)} backward was handed the "
+                         f"log-sum-exp the {written_by} forward wrote")
     q, k, v, g = _rows(q), _rows(k), _rows(v), _rows(g)
     name = "mmde_window_attention_headsplit_bwd" + ("_tc" if tc else "")
     fn = _entry(name, _BWD_TC_ARGTYPES if tc else _BWD_ARGTYPES)
@@ -421,22 +433,18 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
     dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
              if want_dbias else None)
     strides = _strides(q, k, v, g)
-    bias_bf16 = int(bias.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
-        stream = _stream(dev)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                ctypes.addressof(strides), logit_scale.data_ptr(),
-                bias.data_ptr(),
-                mask.data_ptr() if mask is not None else None,
-                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), dls_part.data_ptr(),
-                dbias.data_ptr() if dbias is not None else None,
-                B_, N, nH, mask.shape[0] if mask is not None else 0)
-        if tc:
-            err = fn(*args, bias_bf16, int(want_dbias), stream)
-        else:
-            err = fn(*args, int(v.dtype == torch.bfloat16), bias_bf16,
-                     int(want_dbias), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 ctypes.addressof(strides), logit_scale.data_ptr(),
+                 bias.data_ptr(),
+                 mask.data_ptr() if mask is not None else None,
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 delta.data_ptr(), dls_part.data_ptr(),
+                 dbias.data_ptr() if dbias is not None else None,
+                 B_, N, nH, mask.shape[0] if mask is not None else 0,
+                 int(v.dtype == torch.bfloat16),
+                 int(bias.dtype == torch.bfloat16), int(want_dbias),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, nH={nH}, "
@@ -450,14 +458,19 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
 
 class _HeadSplitWindowAttention(torch.autograd.Function):
     """K6' forward (saving each row's log-sum-exp) and K7' backward for CUDA
-    tensors, on the tensor cores for bf16 and the FMA body for fp32; the
-    plain forward and the plain backward for CPU tensors."""
+    tensors, on the tensor cores for bf16 and fp32; the plain forward and
+    the plain backward for CPU tensors. The backward runs the body its own
+    forward ran (`ctx.fma`): the tensor-core kernels, or with the private
+    last argument `fma` (chip_smoke.py's same-card comparison, never the
+    model) the fp32-FMA bodies, so that p is rebuilt from the statistic the
+    same arithmetic wrote."""
 
     @staticmethod
-    def forward(ctx, q, k, v, logit_scale, bias, mask):
+    def forward(ctx, q, k, v, logit_scale, bias, mask, fma=False):
+        ctx.fma = fma
         if q.is_cuda:
             out, lse = _launch_forward(q, k, v, logit_scale, bias, mask,
-                                       want_stats=True)
+                                       want_stats=True, _fma=fma)
         else:
             out = cosine_window_attention_headsplit_plain(
                 q, k, v, logit_scale, bias, mask)
@@ -472,7 +485,7 @@ class _HeadSplitWindowAttention(torch.autograd.Function):
         if q.is_cuda:
             dq, dk, dv, dls, dbias = _launch_backward(
                 q, k, v, logit_scale, bias, mask, lse, g,
-                want_dbias=need[4])
+                want_dbias=need[4], _fma=ctx.fma)
         else:
             dq, dk, dv, dls, dbias = \
                 cosine_window_attention_headsplit_backward_plain(
@@ -480,7 +493,7 @@ class _HeadSplitWindowAttention(torch.autograd.Function):
         # the mask is a constant of the window layout: no gradient
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, dls if need[3] else None,
-                dbias.to(bias.dtype) if need[4] else None, None)
+                dbias.to(bias.dtype) if need[4] else None, None, None)
 
 
 def cosine_window_attention_headsplit(q: torch.Tensor, k: torch.Tensor,
@@ -498,8 +511,8 @@ def cosine_window_attention_headsplit(q: torch.Tensor, k: torch.Tensor,
     v's type; mask: (nW, N, N) of bias's type or None, window b uses row
     b % nW. Returns (B_, nH, N, 32) in v's type.
 
-    CUDA tensors launch the kernels (or raise): bf16 the tensor-core
-    kernels, fp32 the fp32-FMA ones; CPU tensors take the plain versions.
+    CUDA tensors launch the kernels (or raise): the tensor-core kernels,
+    for bf16 and fp32 alike; CPU tensors take the plain versions.
     When a gradient is recorded the forward kernel also writes each row's
     log-sum-exp, which the backward kernel rebuilds the probabilities from;
     without one (serving) it writes the output alone.

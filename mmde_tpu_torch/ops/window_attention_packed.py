@@ -173,23 +173,34 @@ def tensor_core_body(dtype: torch.dtype, w: int = 1,
     K4's, `resident`) runs the tensor-core kernels: bf16 and fp32 qkv at
     every W (K1 / K2 at W = 1, K5 above) and in K4, in every precision mode,
     fp32 operands split into three bf16 pieces. K3's pass keeps its FMA
-    body. The head-split and slab wrappers keep their own rule (bf16 only,
-    `headsplit_tensor_core_body`)."""
+    body. The head-split and slab wrappers have rules of their own
+    (`headsplit_tensor_core_body`, `slab_tensor_core_body`)."""
     return dtype in (torch.bfloat16, torch.float32)
 
 
 def headsplit_tensor_core_body(dtype: torch.dtype) -> bool:
-    """The head-split and slab wrappers' rule: bf16 on the tensor cores,
-    fp32 on the fp32-FMA bodies (their entries instantiate the tensor-core
-    kernels on bf16 operands only)."""
+    """The head-split wrapper's rule (ops/window_attention_headsplit.py):
+    bf16 and fp32 q, k, v on the tensor cores, fp32 operands in three bf16
+    pieces as the packed kernels take them (the same instantiation over the
+    views' strides)."""
+    return dtype in (torch.bfloat16, torch.float32)
+
+
+def slab_tensor_core_body(dtype: torch.dtype) -> bool:
+    """The slab wrapper's rule (ops/window_attention_slab.py): a bf16 map on
+    the tensor cores, an fp32 one on the fp32-FMA bodies (the slab entries
+    instantiate the tensor-core kernels on bf16 only: the kernels take fp32
+    operands in the Rows layout, not through the map's tile table)."""
     return dtype == torch.bfloat16
 
 
 def stat_pair(dtype: torch.dtype, tc: bool) -> bool:
     """Whether a training launch's log-sum-exp is fp32 hi + lo, (2, B_, nH,
     N), m + log(l) formed in fp64 (F3: one rounding of lse ~ 60 shifts a
-    whole row of the rebuilt p): every body but the bf16 tensor-core one,
-    which keeps (B_, nH, N) (sound at bf16 inputs, PERF.md)."""
+    whole row of the rebuilt p): every body of every layout but the bf16
+    tensor-core one (fp32 on the tensor cores or the FMA bodies, bf16 on
+    the FMA bodies), which keeps (B_, nH, N) (sound at bf16 inputs,
+    PERF.md)."""
     return not (tc and dtype == torch.bfloat16)
 
 # The JAX package's packed-layout plan and windows-per-cell rule, copied

@@ -15,7 +15,7 @@ points that address each window's token rows in the map (`MapRows`,
 csrc/window_attention_common.cuh); on a GPU the map layout is only another
 address per row, where the TPU kernel needed static sublane slices and
 in-kernel reshapes. Which body runs follows the map's type, nothing else
-(the packed module's `headsplit_tensor_core_body`): a bf16 map runs the
+(the packed module's `slab_tensor_core_body`): a bf16 map runs the
 tensor-core kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, the
 entries `mmde_window_attention_slab_{fwd,bwd}_tc`; counted as
 window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc), an fp32
@@ -270,8 +270,8 @@ def reset_launch_counts() -> None:
 
 def _tc(qkv_map, _fma: bool) -> bool:
     from mmde_tpu_torch.ops.window_attention_packed import (
-        headsplit_tensor_core_body)
-    return headsplit_tensor_core_body(qkv_map.dtype) and not _fma
+        slab_tensor_core_body)
+    return slab_tensor_core_body(qkv_map.dtype) and not _fma
 
 
 def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,

@@ -2,17 +2,19 @@
 """Time the window-attention kernels at the flagship's stage shapes.
 
     python3 mmde_tpu_torch/tools/bench_attention.py [--tree DIR] [--reps 20] \
-        [--grid bias_resident] [--windows-per-cell auto|N]
+        [--grid bias_resident] [--windows-per-cell auto|N] \
+        [--dtype bfloat16|float32]
 
 Imports `mmde_tpu_torch` from DIR (default: the checkout holding this file),
 so one copy of the script times two trees in turns on one card (unpack the
 other tree with `git archive` into a gitignored directory and pass it as
---tree). Per stage of swin_base_v2 + decoder_v2 at 480x640, bfloat16, masked
-where the stage shifts: the packed forward as served (1 frame pair), the
+--tree). Per stage of swin_base_v2 + decoder_v2 at 480x640, bfloat16 (or
+`--dtype float32`: fp32 operands, bias and mask), masked where the stage
+shifts: the packed forward as served (1 frame pair), the
 forward with its log-sum-exp and the backward as trained (2 pairs); where
 the tree has the head-split kernels, swin_large_v2's stage 1 the same way
-(bf16 on the tensor cores and, where the tree has both, the FMA body beside
-it);
+(the body the tree gives the type and, where the tree has both, the FMA
+body beside it);
 and, where it has the slab kernels, the flagship's four stage maps through
 them (float32 bias and mask, as the slab path streams them; the FMA body
 beside the tensor-core one where the tree has both). `--grid
@@ -80,9 +82,9 @@ def _time(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _inputs(B_, N, C, nH, nW, gen):
+def _inputs(B_, N, C, nH, nW, gen, dtype="bfloat16"):
     import torch
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", getattr(torch, dtype)
     qkv = torch.randn((B_, N, 3 * C), device=dev, generator=gen).to(bf)
     ls = torch.randn((nH, 1, 1), device=dev, generator=gen) * 0.5 + 2.0
     bias = 16.0 * torch.sigmoid(torch.randn((nH, N, N), device=dev,
@@ -96,14 +98,14 @@ def _inputs(B_, N, C, nH, nW, gen):
 
 
 def bench_packed(shape, pairs, reps, gen, grid="window_resident",
-                 wpc="1") -> dict:
+                 wpc="1", dtype="bfloat16") -> dict:
     import torch
     from mmde_tpu_torch.ops import window_attention_packed as wap
     B_, N, C, nH, nW = shape
     B_ *= pairs
-    qkv, ls, bias, mask, g = _inputs(B_, N, C, nH, nW, gen)
-    bias = bias.to(torch.bfloat16)              # as bf16 models stream it
-    mask = None if mask is None else mask.to(torch.bfloat16)
+    qkv, ls, bias, mask, g = _inputs(B_, N, C, nH, nW, gen, dtype)
+    bias = bias.to(qkv.dtype)                   # as the models stream it
+    mask = None if mask is None else mask.to(qkv.dtype)
     rec = {"kernel": "packed", "B_": B_, "N": N, "C": C, "nH": nH, "nW": nW}
     # W of the forward and the backward under --windows-per-cell (K5 where
     # W > 1), where the tree has K5
@@ -141,7 +143,7 @@ def bench_packed(shape, pairs, reps, gen, grid="window_resident",
     return rec
 
 
-def bench_headsplit(shape, pairs, reps, gen) -> dict:
+def bench_headsplit(shape, pairs, reps, gen, dtype="bfloat16") -> dict:
     """The head-split kernels (float32 bias and mask, as the stage streams
     them); where the tree has both bodies for bf16 (the private `_fma`),
     also the FMA body beside the tensor-core one (the `*_fma_ms` keys)."""
@@ -149,7 +151,7 @@ def bench_headsplit(shape, pairs, reps, gen) -> dict:
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     B_, N, C, nH, nW = shape
     B_ *= pairs
-    qkv, ls, bias, mask, g = _inputs(B_, N, C, nH, nW, gen)
+    qkv, ls, bias, mask, g = _inputs(B_, N, C, nH, nW, gen, dtype)
     q, k, v = qkv.reshape(B_, N, 3, nH, C // nH).permute(2, 0, 3, 1,
                                                           4).unbind(0)
     g = g.reshape(B_, N, nH, C // nH).permute(0, 2, 1, 3)
@@ -173,7 +175,7 @@ def bench_headsplit(shape, pairs, reps, gen) -> dict:
     return rec
 
 
-def bench_slab(stage, pairs, reps, gen) -> dict:
+def bench_slab(stage, pairs, reps, gen, dtype="bfloat16") -> dict:
     """The slab kernels on the map (float32 bias and mask, as the slab path
     streams them); where the tree has both bodies for bf16 (the private
     `_fma`), also the FMA body beside the tensor-core one (`*_fma_ms`)."""
@@ -183,7 +185,7 @@ def bench_slab(stage, pairs, reps, gen) -> dict:
     B, N = 2 * pairs, ws * ws
     nW = (Hp // ws) * (Wp // ws)
     qkv, ls, bias, mask, g = _inputs(B * nW, N, C, nH, nW if masked else 0,
-                                     gen)
+                                     gen, dtype)
     qkv, g = qkv.reshape(B, Hp, Wp, 3 * C), g.reshape(B, Hp, Wp, C)
     rec = {"kernel": "slab", "map": [B, Hp, Wp], "B_": B * nW, "N": N,
            "C": C, "nH": nH, "nW": nW if masked else 0}
@@ -231,6 +233,9 @@ def main(argv=None) -> int:
     p.add_argument("--windows-per-cell", default="1",
                    help='"auto" or an int: also time the packed kernels at '
                         "the W the JAX rule gives for it (K5 where W > 1)")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float32"),
+                   help="the operands' type (float32: fp32 bias and mask)")
     args = p.parse_args(argv)
     if args.windows_per_cell != "auto":
         int(args.windows_per_cell)
@@ -251,17 +256,21 @@ def main(argv=None) -> int:
     for pairs in (1, 2):
         for shape in BASE_STAGES:
             rec = bench_packed(shape, pairs, args.reps, gen, args.grid,
-                               args.windows_per_cell)
-            print(json.dumps({"tree": tree, **rec}), flush=True)
+                               args.windows_per_cell, args.dtype)
+            print(json.dumps({"tree": tree, "dtype": args.dtype, **rec}),
+                  flush=True)
         if _has("mmde_tpu_torch.ops.window_attention_headsplit"):
-            rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen)
-            print(json.dumps({"tree": tree, **rec}), flush=True)
+            rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen,
+                                  args.dtype)
+            print(json.dumps({"tree": tree, "dtype": args.dtype, **rec}),
+                  flush=True)
     if _has("mmde_tpu_torch.ops.window_attention_slab"):
         # after the others, so that their inputs do not depend on the tree
         for pairs in (1, 2):
             for stage in BASE_SLAB_STAGES:
-                rec = bench_slab(stage, pairs, args.reps, gen)
-                print(json.dumps({"tree": tree, **rec}), flush=True)
+                rec = bench_slab(stage, pairs, args.reps, gen, args.dtype)
+                print(json.dumps({"tree": tree, "dtype": args.dtype,
+                                  **rec}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

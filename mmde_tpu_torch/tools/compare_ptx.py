@@ -7,10 +7,11 @@ flags (`ops/cuda_build.py`).
     python -m mmde_tpu_torch.tools.compare_ptx --tree OTHER [--out DIR]
 
 OTHER is another checkout (unpack it with `git archive` into a gitignored
-directory). A kernel the other tree builds under another template
-signature is matched by its name with the operand type this tree adds
-(`fwd_tc_w_kernel<bf16, TB, M>` against `fwd_tc_w_kernel<TB, M>`;
-`fwd_tc_kernel<L, bf16, TB, M>` against `fwd_tc_kernel<L, TB, M>`). Names
+directory). A kernel is matched by its name; one the other tree builds
+under the template signature before the operand type was added is matched
+by its name with that type (`fwd_tc_w_kernel<bf16, TB, M>` against
+`fwd_tc_w_kernel<TB, M>`; `fwd_tc_kernel<L, bf16, TB, M>` against
+`fwd_tc_kernel<L, TB, M>`). Names
 that carry a per-file hash (the anonymous namespace, shared arrays) and
 virtual register numbers are set aside before comparing, so "same" means
 the same instructions in the same order. Prints one JSON line per kernel
@@ -129,6 +130,15 @@ def _typed_as_other(name: str) -> str:
     return name
 
 
+def _match(name: str, mine) -> str:
+    """This tree's kernel (of the names `mine`) that the other tree's kernel
+    `name` is compared with: the same name, or the typed name whose
+    untyped spelling `name` is; None for a kernel this tree lacks."""
+    if name in mine:
+        return name
+    return next((k for k in mine if _typed_as_other(k) == name), None)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", required=True, help="the other checkout")
@@ -147,9 +157,10 @@ def main(argv=None) -> int:
             built[(here, src)]
         other, mine = _entries(o_ptx), _entries(h_ptx)
         o_regs, h_regs = _ptxas(o_log), _ptxas(h_log)
-        by_other = {_typed_as_other(k): k for k in mine}
+        matched = set()
         for name, body in other.items():
-            k = by_other.get(name)
+            k = _match(name, mine)
+            matched.add(k)
             rec = {"source": src, "kernel": name, "matched": k,
                    "same_ptx": k is not None and mine[k] == body,
                    "other": o_regs.get(name), "this": h_regs.get(k)}
@@ -160,7 +171,7 @@ def main(argv=None) -> int:
                         body.splitlines(), mine[k].splitlines(), n=0))
             print(json.dumps(rec))
         for k in mine:
-            if _typed_as_other(k) not in other:
+            if k not in matched:
                 print(json.dumps({"source": src, "kernel": k,
                                   "only_this_tree": True,
                                   "this": h_regs.get(k)}))

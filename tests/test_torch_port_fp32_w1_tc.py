@@ -262,9 +262,11 @@ def test_the_fp32_statistic_is_a_pair_tagged_with_its_body(recorded, fma):
 
 
 def test_fp32_headsplit_and_slab_keep_their_fma_entries(recorded):
-    """The head-split and slab wrappers keep their own rule: fp32 operands
-    reach their FMA entries (whose tensor-core entries instantiate the
-    kernels on bf16 only), bf16 their tensor-core ones."""
+    """The head-split and slab wrappers keep rules of their own: head-split
+    operands of either type reach the tensor-core entries (fp32 through the
+    packed fp32 instantiation); an fp32 slab map still reaches its FMA
+    entries (the slab tensor-core entries instantiate the kernels on bf16
+    only), a bf16 one its tensor-core ones."""
     rng = np.random.default_rng(6)
     B_, nH, N = 2, 3, 16
     for dtype, tc in ((torch.float32, False), (torch.bfloat16, True)):
@@ -279,7 +281,7 @@ def test_fp32_headsplit_and_slab_keep_their_fma_entries(recorded):
         tslab._launch_forward(qmap, ls, bias, None, nH, 4, True)
         sfx = "_tc" if tc else "_stats"
         assert [e for e, _ in recorded] == [
-            "mmde_window_attention_headsplit_fwd" + sfx,
+            "mmde_window_attention_headsplit_fwd_tc",
             "mmde_window_attention_slab_fwd" + sfx], (dtype, recorded)
         recorded.clear()
 
@@ -318,9 +320,9 @@ def test_w1_entries_take_the_operand_type(src, entry, argtypes, tail):
 
 def test_w1_kernels_are_templates_over_the_operand_type():
     """The W = 1 kernels take the operand type as a template argument, the
-    packed entries instantiate them on float (three bf16 pieces, the
-    statistic hi + lo formed in fp64, the pair read back), and the
-    head-split and slab entries on bf16 only."""
+    packed and head-split entries instantiate them on float (three bf16
+    pieces, the statistic hi + lo formed in fp64, the pair read back), and
+    the slab entries on bf16 only."""
     fwd = _source("window_attention_fwd_tc.cu")
     bwd = _source("window_attention_bwd_tc.cu")
     assert re.search(r"template <template <typename> class L, typename T, "
@@ -334,9 +336,12 @@ def test_w1_kernels_are_templates_over_the_operand_type():
         assert "launch_packed<float, float, MXU>" in text
         assert "static constexpr int PS = F32 && !RB ? 3 : 1;" in text
         assert "if (!qkv_bf16 && bias_bf16) return -1;" in text
-        hs_slab = text[text.index("mmde_window_attention_headsplit_"):]
-        assert re.findall(r"launch<(?:Rows|MapRows), (\w+),", hs_slab) == \
-            ["bf16"] * 4
+        hs = text[text.index('extern "C" int '
+                             'mmde_window_attention_headsplit_'):]
+        slab = hs[hs.index('extern "C" int mmde_window_attention_slab_'):]
+        assert re.findall(r"launch<Rows, (\w+),", hs) == \
+            ["float", "bf16", "bf16"]
+        assert re.findall(r"launch<MapRows, (\w+),", slab) == ["bf16"] * 2
     assert "(double)m0 + log((double)l0)" in fwd
     # p = exp(s - m), the difference first; dlogit_scale centred on lse
     assert "ex2((s[j][0] - m0) * TC_LOG2E)" in fwd

@@ -176,7 +176,8 @@ class _Recorder:
     """Stands in for a ctypes library: every entry point records its name,
     its arguments and (read at the call) the host strides array, and returns
     0, or -1 as the C entries do where a head-split operand's row is not
-    16-byte aligned."""
+    16-byte aligned (at the element size the entry's qkv_bf16 argument
+    gives: third from last in a forward, fourth in a backward)."""
 
     def __init__(self, calls):
         self._calls = calls
@@ -193,7 +194,7 @@ class _Recorder:
                     args[n_ops])
                 rec["strides"] = [tuple(st[3 * i:3 * i + 3])
                                   for i in range(n_ops)]
-                esize = 2 if entry.endswith("_tc") else 4
+                esize = 2 if args[-4 if "bwd" in entry else -3] else 4
                 if not all(_aligned(args[i], rec["strides"][i], esize)
                            for i in range(n_ops)):
                     self._calls.append(rec)
@@ -241,21 +242,18 @@ def _drive(dtype, train=True, N=36):
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_routing_follows_the_type(recorded, dtype, train):
-    """bf16 q, k, v run the head-split tensor-core entries, with the
-    strides of the model's permuted views (N*3C, 32, 3C) - no copy - fp32
-    bias and mask, the (B_, nH, N) log-sum-exp and dbias by atomics (mode
-    1); fp32 runs the FMA entries, with the (2, B_, nH, N) log-sum-exp (hi
-    and lo). The counters name the kernel that ran."""
+    """bf16 and fp32 q, k, v run the head-split tensor-core entries, told
+    the operand type (qkv_bf16 1 / 0), with the strides of the model's
+    permuted views (N*3C, 32, 3C) - no copy - fp32 bias and mask, the
+    statistic of the type (bf16 (B_, nH, N); fp32 (2, B_, nH, N), hi and
+    lo) and dbias by atomics (mode 1). The counters name the kernel that
+    ran."""
     _drive(dtype, train)
     B, N = 4, 36
-    tc = dtype == torch.bfloat16
-    fwd = ("mmde_window_attention_headsplit_fwd_tc" if tc else
-           "mmde_window_attention_headsplit_fwd_stats" if train else
-           "mmde_window_attention_headsplit_fwd")
-    want = [fwd]
+    bf16 = int(dtype == torch.bfloat16)
+    want = ["mmde_window_attention_headsplit_fwd_tc"]
     if train:
-        want.append("mmde_window_attention_headsplit_bwd"
-                    + ("_tc" if tc else ""))
+        want.append("mmde_window_attention_headsplit_bwd_tc")
     assert [c["entry"] for c in recorded] == want
     view = (N * 3 * C, 32, 3 * C)
     for c in recorded:
@@ -263,23 +261,21 @@ def test_routing_follows_the_type(recorded, dtype, train):
         ints = [a for a in c["args"] if isinstance(a, int) and a < 1 << 16]
         assert ints[:4] == [B, N, NH, 2], ints      # B_, N, nH, nW
     f = recorded[0]["args"]
-    if tc:
-        assert len(f) == len(ths._FWD_TC_ARGTYPES)
-        assert f[-2] == 0                       # bias_bf16: fp32 tiles
-        assert (f[8] is not None) == train      # lse only when training
-    else:
-        assert f[-2] == 0 and f[-3] == 0        # fp32 q, k, v and bias
+    assert len(f) == len(ths._FWD_TC_ARGTYPES)
+    assert f[-3] == bf16                        # qkv_bf16
+    assert f[-2] == 0                           # bias_bf16: fp32 tiles
+    assert (f[8] is not None) == train          # lse only when training
     if train:
         b = recorded[1]["args"]
+        assert b[-4] == bf16 and b[-3] == 0     # qkv_bf16, bias_bf16
         assert b[-2] == 1                       # dbias by atomics
-        assert len(b) == len(ths._BWD_TC_ARGTYPES if tc
-                             else ths._BWD_ARGTYPES)
+        assert len(b) == len(ths._BWD_TC_ARGTYPES)
         assert recorded[1]["strides"][3] == (NH * N * 32, N * 32, 32)  # g
-    kernel = "window_attention_headsplit_" + ("fwd_tc" if tc else "fwd")
+        assert b[8] == f[8]                     # the forward's statistic
+    kernel = "window_attention_headsplit_fwd_tc"
     counted = {kernel + ("+lse" if train else ""): 1}
     if train:
-        counted["window_attention_headsplit_bwd"
-                + ("_tc" if tc else "")] = 1
+        counted["window_attention_headsplit_bwd_tc"] = 1
     assert ths.launch_counts() == counted
     assert ths.LAUNCHES == 1 and ths.LAUNCHES_BWD == int(train)
     key = (B, N, C, NH)
@@ -376,12 +372,15 @@ def test_unaligned_stride_raises(recorded, monkeypatch, entry_dtype):
 
 
 def test_tensor_core_rule_is_the_packed_one():
-    """bf16 head-split launches take the tensor cores by the packed
-    module's head-split rule (one window per block always); fp32 keeps the
-    FMA body, where fp32 packed launches take the tensor cores."""
+    """Head-split launches take the tensor cores by the packed module's
+    head-split rule (one window per block always), bf16 and fp32 alike, as
+    packed launches do; the slab wrapper's own rule keeps fp32 maps on the
+    FMA body."""
     assert twp.headsplit_tensor_core_body(torch.bfloat16)
-    assert not twp.headsplit_tensor_core_body(torch.float32)
+    assert twp.headsplit_tensor_core_body(torch.float32)
     assert twp.tensor_core_body(torch.float32)
+    assert twp.slab_tensor_core_body(torch.bfloat16)
+    assert not twp.slab_tensor_core_body(torch.float32)
 
 
 # ------------------------------------------------------- sources and build
@@ -413,16 +412,20 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     assert kinds == getattr(ths, argtypes)
     n_ops = 4 if "bwd" in entry else 3
     assert params[n_ops] == "const void* strides"
-    assert params[-3:] == (["int bias_bf16", "int dbias_mode", "void* stream"]
-                           if "bwd" in entry else
-                           ["int nW", "int bias_bf16", "void* stream"])
+    assert params[-4:] == (["int qkv_bf16", "int bias_bf16", "int dbias_mode",
+                            "void* stream"] if "bwd" in entry else
+                           ["int nW", "int qkv_bf16", "int bias_bf16",
+                            "void* stream"])
     assert "MXU_FP32" in body and "MXU_FOLD" not in body
     assert "contiguous_rows" in body
+    # fp32 q, k, v: the packed fp32 instantiation, fp32 bias only
+    assert "if (!qkv_bf16 && bias_bf16) return -1;" in body
+    assert "launch<Rows, float, float, MXU_FP32>" in body
     if "fwd" in entry:
-        # launch<Rows, bf16, TB, MXU_FP32>(..., maxfree = 0, stream)
-        assert re.findall(r"launch<Rows, bf16, (?:bf16|float), MXU_FP32>"
-                          r"\([^;]*,\s+0,\s+s\)",
-                          body, re.S)
+        # launch<Rows, T, TB, MXU_FP32>(..., maxfree = 0, stream), each type
+        assert len(re.findall(r"launch<Rows, (?:bf16|float), (?:bf16|float), "
+                              r"MXU_FP32>\([^;]*,\s+0,\s+s\)",
+                              body, re.S)) == 3
     text = open(os.path.join(cuda_build.CSRC_DIR, src)).read()
     assert "rows_aligned(rq)" in text or "o.aligned()" in text
     # dls_part: one row per (window, 64-key tile), the wrapper's BWD_TILE
