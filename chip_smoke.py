@@ -8,18 +8,21 @@
                                             # flagship (p.json), swin_large
                                             # (p_large.json), the flagship's
                                             # slab path (p_slab.json), the
-                                            # fp32 flagship (p_fp32.json)
+                                            # fp32 flagship (p_fp32.json),
+                                            # its slab path (p_slab_fp32.json)
 
 What it does, each phase printing one JSON object on a line of its own:
 
   env           card name and power limit (nvidia-smi), torch / CUDA / nvcc
-                versions, seconds spent building the kernels from csrc/.
+                versions, seconds spent building the kernels from csrc/,
+                registers and spills by kernel (ptxas), the slab kernels'
+                occupancy (blocks an SM holds, by type and mask).
   kernel_cases  the window-attention kernel against its plain PyTorch
                 version at the four flagship stage shapes, float32 and
-                bfloat16 (every packed and head-split launch, bf16 or fp32,
-                runs the tensor-core kernels, fp32 operands in three bf16
-                pieces, everywhere in this script; fp32 slab launches the
-                FMA bodies), with and without mask: max abs / rel-L2
+                bfloat16 (every packed, head-split and slab launch, bf16 or
+                fp32, runs the tensor-core kernels, fp32 operands in three
+                bf16 pieces, everywhere in this script; the FMA bodies only
+                as A/B partners), with and without mask: max abs / rel-L2
                 error, kernel ms (fp32: in turns with the FMA body, fma_ms)
                 and plain ms (CUDA events, warm, median), and the roofline
                 bound with its bytes and flops.
@@ -100,26 +103,35 @@ What it does, each phase printing one JSON object on a line of its own:
                 plain versions, the backward also against float64
                 autograd: the flagship's four stage maps served (1 frame
                 pair, forward) and trained (2 pairs), swin_large's stages
-                2-4 trained; bfloat16 (the tensor-core kernels, the `_tc`
-                slab entries, MXU_APART times nearer the fp32 plain version
-                than the "bf16"-mode one for the output and every gradient)
-                and float32 (the FMA bodies, hi + lo log-sum-exp), float32
-                bias and mask, masked where the stage shifts, one clamped
-                and one hot head; one more float32 case at stage 1 with
-                every unclamped head at scale 60 (F3). Each case checks
-                which kernels its launches ran. ms, plain ms, bound, the
-                SDPA yardstick (both types), and for bf16 the FMA body in
-                the same call (in turns) and the products the design needs
-                (tc_units; tc_bound_ms in the kernels line).
+                2-4 trained; bfloat16 and float32 (both the tensor-core
+                kernels, the `_tc` slab entries, fp32 in three bf16 pieces
+                with a hi + lo log-sum-exp; MXU_APART times nearer the fp32
+                plain version than the "bf16"-mode one for the output and
+                every gradient), float32 bias and mask, masked where the
+                stage shifts, one clamped and one hot head. Each case
+                checks which kernels its launches ran. ms, plain ms, bound,
+                the SDPA yardstick in the map's type, the FMA body in the
+                same call (in turns) and the products the design needs
+                (tc_units; tc_bound_ms in the kernels line). Then F3
+                (`f3`): fp32 at the flagship's stage-1 train shape with
+                every unclamped head at scale 60, both bodies (forwards
+                against the plain forward, the backward through the
+                autograd Function against the plain backward and float64
+                at TOL_BWD), dlogit_scale within TOL_F3 of float64.
   serve_slab, train_slab
                 the flagship with attn_impl "cuda_slab" (the JAX package's
                 "pallas_slab"): every block's attention on the map, 24
                 tensor-core K8' launches a forward and 24 K8' (+lse) + 24
                 K9' a step, none of the FMA slab, packed or head-split
                 kernels.
-  parity_slab   parity (float32 and bfloat16: the FMA and the tensor-core
-                slab kernels) and train_parity for "cuda_slab" against
-                "torch".
+  serve_slab_fp32, train_slab_fp32
+                the same in float32 (the JAX package's default type): one
+                request, and 3 train steps at 2 frame pairs with peak
+                memory; every launch a tensor-core slab kernel of dtype
+                float32 (24 K8' a request, 24 K8'+lse + 24 K9' a step).
+  parity_slab   parity (float32 and bfloat16, both on the tensor-core slab
+                kernels, every launch checked) and train_parity for
+                "cuda_slab" against "torch".
   kernel_cases_resident
                 K4, the single-pass backward MMDE_ATTN_GRID=bias_resident
                 selects, at the flagship's four train shapes (bf16 and
@@ -227,7 +239,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 float32, kernel_cases_tc's fp32 numbers, tc_units 12 / 30),
                 fp32 swin_large's (serve_large_fp32 / train_large_fp32,
                 dtype float32: kernel_cases_headsplit's and kernel_cases[_
-                backward]'s fp32 numbers):
+                backward]'s fp32 numbers), the fp32 flagship's slab path
+                (serve_slab_fp32 / train_slab_fp32, dtype float32:
+                kernel_cases_slab's fp32 numbers):
                 window_attention_fwd_tc[+lse] / window_attention_bwd_tc, the
                 head-split stages window_attention_headsplit_fwd_tc[+lse] /
                 window_attention_headsplit_bwd_tc, the slab path's
@@ -248,9 +262,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 train step each, device time by kernel group, on the
                 flagship profile's model and trainer with the module
                 settings their variables give (PROFILED_PATHS).
-  profile_fp32, profile_large_fp32
-                (--profile only) the fp32 flagship's and fp32 swin_large's
-                request and train step, device time by kernel group.
+  profile_fp32, profile_large_fp32, profile_slab_fp32
+                (--profile only) the fp32 flagship's, fp32 swin_large's and
+                the fp32 flagship slab path's request and train step,
+                device time by kernel group.
 
 then the `nvidia-smi --query-gpu=name,power.limit` line and a last line
 {"ok": true, "device": {...}}. Any failing phase raises: the script exits
@@ -801,6 +816,7 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
 def phase_env() -> dict:
     from mmde_tpu_torch.ops import cuda_build
     from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.ops import window_attention_slab as was
     from mmde_tpu_torch.tools.bench_attention import ptxas_summary
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -829,6 +845,13 @@ def phase_env() -> dict:
            # registers / spills / shared memory per kernel, as ptxas says
            "ptxas": [ln for r in recs.values()
                      for ln in ptxas_summary(r["log"])],
+           # blocks an SM holds of each tensor-core slab kernel, by map
+           # type and mask (the CUDA occupancy calculator)
+           "slab_occupancy": {
+               str(dt).replace("torch.", ""): {
+                   "masked" if m else "unmasked": was.occupancy(dt, m)
+                   for m in (False, True)}
+               for dt in (torch.float32, torch.bfloat16)},
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     emit("env", env)
@@ -1283,39 +1306,36 @@ def make_slab_inputs(shape: dict, dtype, gen, hot: bool = False):
     return qkv, ls, bias, mask, g
 
 
-def compare_slab(shape: dict, dtype, gen, timed: bool = True,
-                 hot: bool = False) -> dict:
+def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
     """K8' (serving entry) against the slab plain forward; at the train
     shapes (2 frame pairs) also K8' through the training entry (with the
     log-sum-exp) and K9' against the plain backward and against float64
-    autograd of the plain forward, at K1 / K2's tolerances (TOL_*). bf16
-    runs the tensor-core kernels (the `_tc` slab entries, checked by their
-    launch counters), which must also lie MXU_APART times nearer the fp32
+    autograd of the plain forward, at K1 / K2's tolerances (TOL_*). Both
+    types run the tensor-core kernels (the `_tc` slab entries, checked by
+    their launch counters; fp32 operands in three bf16 pieces, hi + lo
+    log-sum-exp: F3), which must also lie MXU_APART times nearer the fp32
     function's plain version than the "bf16"-mode head-split plain version
-    on the partitioned windows (output and every gradient); fp32 runs the
-    FMA bodies (hi + lo log-sum-exp, F3). Timed: the kernel, plain, bound,
-    the library call on the partitioned windows (both types: fp32 beside
-    the FMA body), and for bf16 the FMA body (`_fma`) in turns with the
-    kernel (kernel, FMA, FMA, kernel) and the products the design needs
-    (tc_work: K8' 3 units, K9' 8). Times: median of single launches; bounds
-    count float32 bias and mask bytes."""
+    on the partitioned windows (output and every gradient). Timed: the
+    kernel, plain, bound, the library call on the partitioned windows in
+    the map's type, the FMA body (`_fma`) in turns with the kernel (kernel,
+    FMA, FMA, kernel) and the products the design needs (tc_work: bf16 K8'
+    3 units, K9' 8; fp32 12 and 30). Times: median of single launches;
+    bounds count float32 bias and mask bytes."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_slab as was
-    qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen, hot)
+    qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen)
     nH, ws = shape["nH"], shape["ws"]
     B_, N, C = shape["B_"], shape["N"], shape["C"]
     Hp, Wp = shape["padded"]
     kw = dict(num_heads=nH, window_size=ws)
     name = str(dtype).replace("torch.", "")
     nW = mask.shape[0] if mask is not None else 0
-    tc = dtype == torch.bfloat16
-    sfx = "_tc" if tc else ""
+    f32 = dtype == torch.float32
     rec = {"model": shape["model"], "stage": shape["stage"],
            "frame_pairs": shape["frame_pairs"], "map": list(qkv.shape),
            "B_": B_, "N": N, "C": C, "nH": nH, "nW": nW, "dtype": name,
-           "body": "tensor cores" if tc else "fp32 FMA", "mxu": "fp32",
-           "heads": ("clamped, then scale 60" if hot
-                     else "clamped, scale 54.6, cool"),
+           "body": "tensor cores" + (", three bf16 pieces" if f32 else ""),
+           "mxu": "fp32", "heads": "clamped, scale 54.6, cool",
            "tolerance_rel_l2": TOL_BWD[name]}
     with torch.no_grad():
         want = was.cosine_window_attention_slab_plain(qkv, ls, bias, mask,
@@ -1323,7 +1343,7 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
         before = dict(was.LAUNCHES_BY_KERNEL)
         got = was.cosine_window_attention_slab(qkv, ls, bias, mask, **kw)
         torch.cuda.synchronize()
-        _tc_launched(before, {"window_attention_slab_fwd" + sfx: 1},
+        _tc_launched(before, {"window_attention_slab_fwd_tc": 1},
                      f"slab serving forward at {rec}", was)
         rec["forward"] = check_forward(got, want, dtype, rec)
     train = shape["frame_pairs"] > 1
@@ -1336,8 +1356,8 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
         rec["forward_stats"] = check_forward(out.detach(), want, dtype, rec)
         out.backward(g)
         torch.cuda.synchronize()
-        _tc_launched(before, {f"window_attention_slab_fwd{sfx}+lse": 1,
-                              f"window_attention_slab_bwd{sfx}": 1},
+        _tc_launched(before, {"window_attention_slab_fwd_tc+lse": 1,
+                              "window_attention_slab_bwd_tc": 1},
                      f"slab training forward and backward at {rec}", was)
         grads = [t.grad for t in leaves]
         del out, leaves
@@ -1360,33 +1380,32 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
         rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
         rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
         del truth
-    if tc:
-        # the "bf16" mode's head-split plain version on the partitioned
-        # windows, reversed: what a kernel rounding its operands to bf16
-        # would compute
-        with torch.no_grad():
-            qw = was._heads(was.window_partition(qkv, ws), 3, nH)
-            o = ths.cosine_window_attention_headsplit_plain(
-                *qw, ls, bias, mask, mxu="bf16")
-            want_o = was.window_reverse(
-                o.permute(0, 2, 1, 3).reshape(-1, N, C), ws, Hp, Wp)
-            del o
-            _nearer(rec, "out", got, want, want_o)
-            del want_o
-            if train:
-                gw = was._heads(was.window_partition(g, ws), 1, nH)[0]
-                dq, dk, dv, dls_o, dbias_o = \
-                    ths.cosine_window_attention_headsplit_backward_plain(
-                        *qw, ls, bias, mask, gw, mxu="bf16")
-                dqkv_o = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4)
-                dqkv_o = was.window_reverse(dqkv_o.reshape(-1, N, 3 * C), ws,
-                                            Hp, Wp)
-                del dq, dk, dv
-                for n, a, own, other in zip(names, grads, plain,
-                                            (dqkv_o, dls_o, dbias_o)):
-                    _nearer(rec, n, a, own, other)
-                del dqkv_o, dls_o, dbias_o, gw
-            del qw
+    # the "bf16" mode's head-split plain version on the partitioned
+    # windows, reversed: what a kernel rounding its operands to bf16
+    # would compute
+    with torch.no_grad():
+        qw = was._heads(was.window_partition(qkv, ws), 3, nH)
+        o = ths.cosine_window_attention_headsplit_plain(
+            *qw, ls, bias, mask, mxu="bf16")
+        want_o = was.window_reverse(
+            o.permute(0, 2, 1, 3).reshape(-1, N, C), ws, Hp, Wp)
+        del o
+        _nearer(rec, "out", got, want, want_o)
+        del want_o
+        if train:
+            gw = was._heads(was.window_partition(g, ws), 1, nH)[0]
+            dq, dk, dv, dls_o, dbias_o = \
+                ths.cosine_window_attention_headsplit_backward_plain(
+                    *qw, ls, bias, mask, gw, mxu="bf16")
+            dqkv_o = torch.stack([dq, dk, dv], 0).permute(1, 3, 0, 2, 4)
+            dqkv_o = was.window_reverse(dqkv_o.reshape(-1, N, 3 * C), ws,
+                                        Hp, Wp)
+            del dq, dk, dv
+            for n, a, own, other in zip(names, grads, plain,
+                                        (dqkv_o, dls_o, dbias_o)):
+                _nearer(rec, n, a, own, other)
+            del dqkv_o, dls_o, dbias_o, gw
+        del qw
     if train:
         del grads, plain
     del want, got
@@ -1400,15 +1419,13 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
                 def kern(fma=False, stats=stats):
                     return was._launch_forward(qkv, ls, bias, mask, nH, ws,
                                                stats, _fma=fma)
-                if tc:
-                    turns = [time_ms(kern), time_ms(lambda: kern(True)),
-                             time_ms(lambda: kern(True)), time_ms(kern)]
-                    r.update({"ms": (turns[0] + turns[3]) / 2,
-                              "fma_ms": (turns[1] + turns[2]) / 2,
-                              "ms_turns": turns})
-                    r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls)))
-                else:
-                    r["ms"] = time_ms(kern)
+                turns = [time_ms(kern), time_ms(lambda: kern(True)),
+                         time_ms(lambda: kern(True)), time_ms(kern)]
+                r.update({"ms": (turns[0] + turns[3]) / 2,
+                          "fma_ms": (turns[1] + turns[2]) / 2,
+                          "ms_turns": turns})
+                r.update(tc_work(B_, N, nH, tc_units("fp32", False, ls,
+                                                     f32=f32)))
                 r.update(kernel_bound(B_, N, C, nH, nW, dtype, torch.float32,
                                       stats=stats))
             plain_ms = time_ms(lambda: was.cosine_window_attention_slab_plain(
@@ -1418,9 +1435,8 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
             if train:
                 lse = was._launch_forward(qkv, ls, bias, mask, nH, ws,
                                           True)[1]
-                lse_f = (was._launch_forward(qkv, ls, bias, mask, nH, ws,
-                                             True, _fma=True)[1]
-                         if tc else lse)
+                lse_f = was._launch_forward(qkv, ls, bias, mask, nH, ws,
+                                            True, _fma=True)[1]
 
                 # the backward entry alone (both passes, the dbias buffer
                 # and the dlogit_scale sum), on its forward's statistic
@@ -1429,17 +1445,15 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
                     return lambda: was._launch_backward(
                         qkv, ls, bias, mask, saved, g, nH, ws, dbias,
                         _fma=fma)
-                if tc:
-                    turns = [time_ms(bwd(), reps=8, warm=2),
-                             time_ms(bwd(fma=True), reps=8, warm=2),
-                             time_ms(bwd(fma=True), reps=8, warm=2),
-                             time_ms(bwd(), reps=8, warm=2)]
-                    rec.update({"ms": (turns[0] + turns[3]) / 2,
-                                "fma_ms": (turns[1] + turns[2]) / 2,
-                                "ms_turns": turns})
-                    rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls)))
-                else:
-                    rec["ms"] = time_ms(bwd(), reps=8, warm=2)
+                turns = [time_ms(bwd(), reps=8, warm=2),
+                         time_ms(bwd(fma=True), reps=8, warm=2),
+                         time_ms(bwd(fma=True), reps=8, warm=2),
+                         time_ms(bwd(), reps=8, warm=2)]
+                rec.update({"ms": (turns[0] + turns[3]) / 2,
+                            "fma_ms": (turns[1] + turns[2]) / 2,
+                            "ms_turns": turns})
+                rec.update(tc_work(B_, N, nH, tc_units("fp32", True, ls,
+                                                       f32=f32)))
                 rec["ms_no_dbias"] = time_ms(bwd(dbias=False), reps=8,
                                              warm=2)
                 rec["plain_ms"] = time_ms(
@@ -1448,8 +1462,7 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
                 rec.update(backward_bound(B_, N, C, nH, nW, dtype,
                                           torch.float32))
                 del lse, lse_f
-        # on the partitioned windows: the library call has no map layout.
-        # Both types: fp32 beside the FMA body that fp32 maps still run
+        # on the partitioned windows: the library call has no map layout
         qw = was._heads(was.window_partition(qkv, ws), 3, nH)
         gw = (was._heads(was.window_partition(g, ws), 1, nH)[0]
               if train else None)
@@ -1467,28 +1480,111 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True,
     return rec
 
 
+def f3_slab(gen) -> dict:
+    """F3 on both fp32 slab bodies at the flagship's stage-1 train shape (2
+    frame pairs, masked) with every head but the clamped one at scale 60:
+    the tensor-core K8' / K9' - the model's path - and the fp32-FMA bodies
+    (`_fma`, the Function's private last argument), each checked by its
+    launches. Each body is held as compare_slab holds a case: its serving
+    forward and its forward with the statistic to the plain forward
+    (check_forward); its dqkv, dlogit_scale and dbias, through the autograd
+    Function, to the plain backward and to float64 autograd of the plain
+    forward (TOL_BWD; raises on a miss). Its statistic is (2, B*nW, nH, N),
+    hi + lo, and `ok` also wants each body's dlogit_scale within TOL_F3 of
+    float64."""
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    shape = next(s for s in slab_shapes()
+                 if s["model"] == "swin_base_v2" and s["frame_pairs"] == 2
+                 and s["stage"] == 1)
+    nH, ws = shape["nH"], shape["ws"]
+    kw = dict(num_heads=nH, window_size=ws)
+    qkv, ls, bias, mask, g = make_slab_inputs(shape, torch.float32, gen,
+                                              hot=True)
+    rec = {"model": shape["model"], "stage": shape["stage"],
+           "frame_pairs": 2, "map": list(qkv.shape), "B_": shape["B_"],
+           "N": shape["N"], "C": shape["C"], "nH": nH, "nW": mask.shape[0],
+           "dtype": "float32", "heads": "clamped, then scale 60",
+           "tolerance_rel_l2": TOL_BWD["float32"],
+           "tolerance_dlogit_scale_rel_l2": TOL_F3}
+    names = ("dqkv", "dlogit_scale", "dbias")
+    with torch.no_grad():
+        want = was.cosine_window_attention_slab_plain(qkv, ls, bias, mask,
+                                                      **kw)
+        plain = was.cosine_window_attention_slab_backward_plain(
+            qkv, ls, bias, mask, g, **kw)
+    leaves64 = [t.detach().double().requires_grad_() for t in (qkv, ls,
+                                                               bias)]
+    out64 = was.cosine_window_attention_slab_plain(
+        *leaves64, mask.double(), compute_dtype=torch.float64, **kw)
+    truth = torch.autograd.grad(out64, leaves64, g.double())
+    del out64, leaves64
+    rec["plain_vs_float64"] = {n: _errs(p_, t)
+                               for n, p_, t in zip(names, plain, truth)}
+    for body, fma, sfx in (("tensor_core", False, "_tc"),
+                           ("fma", True, "")):
+        where = dict(rec, body=body)
+        r = {}
+        with torch.no_grad():
+            before = dict(was.LAUNCHES_BY_KERNEL)
+            got = was._launch_forward(qkv, ls, bias, mask, nH, ws, False,
+                                      _fma=fma)[0]
+            torch.cuda.synchronize()
+            _tc_launched(before, {f"window_attention_slab_fwd{sfx}": 1},
+                         f"f3 slab serving forward ({body})", was)
+            r["forward"] = check_forward(got, want, torch.float32, where)
+            del got
+        leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls,
+                                                                bias)]
+        before = dict(was.LAUNCHES_BY_KERNEL)
+        out = was._SlabWindowAttention.apply(*leaves, mask, nH, ws, fma)
+        r["forward_stats"] = check_forward(out.detach(), want,
+                                           torch.float32, where)
+        out.backward(g)
+        torch.cuda.synchronize()
+        _tc_launched(before, {f"window_attention_slab_fwd{sfx}+lse": 1,
+                              f"window_attention_slab_bwd{sfx}": 1},
+                     f"f3 slab ({body})", was)
+        r.update(_check_against([t.grad for t in leaves], {
+            "vs_plain": (plain, TOL_BWD["float32"]),
+            "vs_float64": (truth, TOL_BWD["float32"])},
+            f"f3 slab backward ({body}) at {json.dumps(where)}"))
+        with torch.no_grad():
+            lse = was._launch_forward(qkv, ls, bias, mask, nH, ws, True,
+                                      _fma=fma)[1]
+        r["statistic_shape"] = list(lse.shape)
+        rec[body] = r
+        del leaves, out, lse
+    del truth, plain, want
+    torch.cuda.empty_cache()
+    rec["ok"] = all(
+        rec[b]["statistic_shape"][0] == 2
+        and rec[b]["vs_float64"]["dlogit_scale"]["rel_l2"] <= TOL_F3
+        for b in ("tensor_core", "fma"))
+    return rec
+
+
 def phase_kernels_slab(timed: bool = True) -> list:
-    """K8' / K9' at every slab shape, bf16 (the tensor-core kernels) and
-    fp32 (the FMA bodies), and one more fp32 case at the flagship's stage-1
-    train shape with every head but the clamped one at scale 60 (F3's hi +
-    lo statistic, checked only)."""
+    """K8' / K9' at every slab shape, bf16 and fp32 (both on the
+    tensor-core kernels, fp32 in three bf16 pieces); then F3 on both fp32
+    bodies (f3_slab, which raises where a body misses TOL_FP32_MAX_ABS or
+    TOL_BWD). The phase's line is printed, then it fails if a body's
+    dlogit_scale missed TOL_F3."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
     cases = []
     for shape in slab_shapes():
         for dtype in (torch.float32, torch.bfloat16):
             cases.append(compare_slab(shape, dtype, gen, timed=timed))
-    stage1 = next(s for s in slab_shapes()
-                  if s["frame_pairs"] == 2 and s["stage"] == 1)
-    cases.append(compare_slab(stage1, torch.float32, gen, timed=False,
-                              hot=True))
+    f3 = f3_slab(gen)
     emit("kernel_cases_slab", {
-        "cases": cases,
+        "cases": cases, "f3": f3,
         "timing": "CUDA events, median: serving forward 3 warm + 20 (1 pair "
                   "and 2), forward with statistics the same, backward entry "
-                  "2 warm + 8 (2 pairs); bf16: kernel, FMA body, FMA body, "
-                  "kernel in turns (ms_turns); inputs stay in L2 between "
+                  "2 warm + 8 (2 pairs); kernel, FMA body, FMA body, kernel "
+                  "in turns (ms_turns); inputs stay in L2 between "
                   "launches"})
+    if not f3["ok"]:
+        raise RuntimeError(f"kernel_cases_slab: F3 case {json.dumps(f3)}")
     return cases
 
 
@@ -1622,13 +1718,12 @@ def _per_forward(want: dict, times: int) -> dict:
 
 @contextlib.contextmanager
 def _launch_dtypes(seen: dict):
-    """Count the packed and head-split wrappers' launches by (layout,
+    """Count the packed, head-split and slab wrappers' launches by (layout,
     direction, operand type) into `seen` for a `with` block (the autograd
     Functions and the served forward call the modules' launch functions by
     name)."""
-    from mmde_tpu_torch.ops import window_attention_headsplit as ths
-    from mmde_tpu_torch.ops import window_attention_packed as wap
-    saved = [(m, n, getattr(m, n)) for m in (wap, ths)
+    layouts = {m: lay for lay, m in _kernel_modules().items()}
+    saved = [(m, n, getattr(m, n)) for m in layouts
              for n in ("_launch_forward", "_launch_backward")]
 
     def counted(fn, key):
@@ -1638,9 +1733,8 @@ def _launch_dtypes(seen: dict):
             return fn(x, *a, **k)
         return call
     for m, n, fn in saved:
-        layout = "packed" if m is wap else "headsplit"
         direction = "forward" if n.endswith("forward") else "backward"
-        setattr(m, n, counted(fn, f"{layout} {direction}"))
+        setattr(m, n, counted(fn, f"{layouts[m]} {direction}"))
     try:
         yield
     finally:
@@ -1649,8 +1743,8 @@ def _launch_dtypes(seen: dict):
 
 
 def _check_launch_dtypes(tag: str, seen: dict, dtype: str) -> dict:
-    """Every packed and head-split launch `seen` ran on operands of the
-    model's `dtype`."""
+    """Every packed, head-split and slab launch `seen` ran on operands of
+    the model's `dtype`."""
     if any(not k.endswith(" " + dtype) for k in seen):
         raise RuntimeError(f"{tag}: launches by type {seen}, expected "
                            f"{dtype} only")
@@ -1956,9 +2050,10 @@ def phase_parity(backbone: str = "swin_base_v2",
                  dtypes=("float32", "bfloat16"), tag: str = "parity",
                  impl: str = "cuda") -> dict:
     """Kernel path (`impl`) vs plain path through the whole model (depths
-    PARITY_DEPTHS). fp32 convolutions go through cuDNN in TF32 by default;
-    for this phase TF32 is switched off so that both paths are true fp32
-    outside the attention."""
+    PARITY_DEPTHS); every launch of the kernel path a tensor-core kernel.
+    fp32 convolutions go through cuDNN in TF32 by default; for this phase
+    TF32 is switched off so that both paths are true fp32 outside the
+    attention."""
     from mmde_tpu_torch.tools import infer
     old = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -1976,10 +2071,14 @@ def phase_parity(backbone: str = "swin_base_v2",
                     continue
                 model = _parity_model(backbone, dtype)
                 _set_attn_impl(model, path)
+                _reset_launch_counts()
                 outs[path] = infer.predict(model, f1, f2)
                 check_outputs(outs[path], f"parity {dtype} {path}")
                 if path == "torch":
                     _PLAIN_RUNS[key] = outs[path]
+                else:
+                    launches = {k: sum(d.values())
+                                for k, d in _by_kernel().items()}
             std = float(outs["torch"]["pred_d1"].std())
             if std <= 0.1:
                 raise RuntimeError(f"parity {dtype}: depth map is "
@@ -1998,8 +2097,14 @@ def phase_parity(backbone: str = "swin_base_v2",
             if not mean_d <= tol.get("depth_mean", tol["depth"]):
                 raise RuntimeError(f"parity {dtype}: pred_d1 differs by "
                                    f"{mean_d} on average")
+            # every launch of either type on the tensor cores
+            if not launches or any("_tc" not in k for k in launches):
+                raise RuntimeError(f"parity {dtype}: kernel path's launches "
+                                   f"{launches}, expected tensor-core "
+                                   "kernels only")
             res[dtype] = {"max_abs_diff": diffs, "mean_abs_diff_d1": mean_d,
-                          "depth_std": std, "tolerance": tol}
+                          "depth_std": std, "tolerance": tol,
+                          "launches": launches}
     finally:
         torch.backends.cudnn.allow_tf32 = old
     if tag:
@@ -2192,9 +2297,9 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
            "grad_rel_l2": grad_rel,
            "grad_norm": {n: float(gb[n].norm()) for n in gb},
            "launches": launches, "tolerance": tol}
-    # "cuda": every packed and head-split launch of either type on the
-    # tensor cores, none on an FMA body
-    if impl == "cuda" and (not launches or any(
+    # "cuda" / "cuda_slab": every packed, head-split and slab launch of
+    # either type on the tensor cores, none on an FMA body
+    if impl != "torch" and (not launches or any(
             "_tc" not in k for k in launches)):
         raise RuntimeError(f"train parity: kernel path's launches "
                            f"{launches}, expected tensor-core kernels only")
@@ -2268,11 +2373,12 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
                    serve: dict, tc_cases: list,
                    dtype: str = "bfloat16") -> list:
     """One entry per (kernel, served shape): the served model is `dtype`
-    (bfloat16, or float32 for serve_large_fp32: the slab path is not served
-    in float32), stages 1-2 alternate unmasked and masked blocks (the masked
-    case is listed), stages 3-4 are unmasked. Packed stages: the
-    tensor-core forward, with kernel_cases_tc's numbers (the model's mode,
-    "fold" / "fp32") at the flagship's shapes, kernel_cases' elsewhere."""
+    (bfloat16, or float32 for serve_large_fp32 and serve_slab_fp32),
+    stages 1-2 alternate unmasked and masked blocks (the masked case is
+    listed), stages 3-4 are unmasked. Packed stages: the tensor-core
+    forward, with kernel_cases_tc's numbers (the model's mode, "fold" /
+    "fp32") at the flagship's shapes, kernel_cases' elsewhere; slab stages
+    kernel_cases_slab's in the model's type."""
     entries = []
     label = "fp32" if dtype == "float32" else "bf16"
     for shape in stage_shapes(serve["backbone"],
@@ -2281,10 +2387,10 @@ def contract_serve(k1_cases: list, hs_cases: list, slab_cases: list,
         n = serve["_by_shape"][shape["layout"]].get(key, 0)
         nW = shape["nW"]
         if shape["layout"] == "slab":
-            c = _find(slab_cases, shape, 1, nW=nW)["forward"]
+            c = _find(slab_cases, shape, 1, dtype, nW=nW)["forward"]
             entries.append(_entry("window_attention_slab_fwd_tc", shape,
                                   KERNEL_TC_SOURCE, KERNEL_SLAB_REPLACES, n,
-                                  c))
+                                  c, dtype=label))
         elif shape["layout"] == "packed":
             c = _tc_case(tc_cases, shape, 1, "fp32" if label == "fp32"
                          else "fold", dtype) or next(
@@ -2311,7 +2417,8 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
                    dtype: str = "bfloat16") -> list:
     """Two entries per trained shape, the forward through its training entry
     point (output and log-sum-exp) and the backward: the trained model is
-    `dtype` (bfloat16, or float32 for train_large_fp32) at 2 frame pairs,
+    `dtype` (bfloat16, or float32 for train_large_fp32 and
+    train_slab_fp32) at 2 frame pairs,
     stages 1-2 masked in every other block (the masked case is listed).
     Errors: the forward's output against the plain forward, the backward's
     dqkv against float64 autograd."""
@@ -2326,15 +2433,15 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
         nf = train["_fwd_by_shape"][lay].get(key, 0)
         nb = train["_bwd_by_shape"][lay].get(key, 0)
         if lay == "slab":
-            # the tensor-core kernels (bf16 models), kernel_cases_slab's
+            # the tensor-core kernels (either type), kernel_cases_slab's
             # numbers
-            c = _find(slab_cases, shape, pairs, nW=shape["nW"])
+            c = _find(slab_cases, shape, pairs, dtype, nW=shape["nW"])
             entries.append(_entry("window_attention_slab_fwd_tc+lse", shape,
                                   KERNEL_TC_SOURCE, KERNEL_SLAB_REPLACES, nf,
-                                  c["forward_stats"], pairs))
+                                  c["forward_stats"], pairs, dtype=label))
             e = _entry("window_attention_slab_bwd_tc", shape,
                        KERNEL_TC_BWD_SOURCE, KERNEL_SLAB_BWD_REPLACES, nb, c,
-                       pairs)
+                       pairs, dtype=label)
             e["ms_no_dbias"] = c["ms_no_dbias"]
         elif lay == "packed":
             # the tensor-core kernels: kernel_cases_tc's numbers (the
@@ -2939,9 +3046,9 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
     and slab kernels over `times` forwards (or train steps) under this
     process's MMDE_ATTN_GRID and MMDE_ATTN_W: each packed block's W by the
     JAX rule, for its own mask (the shifted blocks of stages 1-2 have one,
-    the others not); every head-split block of either type and every slab
-    block (the slab path runs bf16 models only here) on the tensor cores;
-    every packed block of either type on the tensor cores: no FMA body."""
+    the others not); every head-split and every slab block of either type
+    on the tensor cores; every packed block of either type on the tensor
+    cores: no FMA body."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     resident = train and wap.DEFAULT_GRID_MODE == "bias_resident"
     want: dict = {}
@@ -4085,11 +4192,11 @@ def main() -> int:
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
                          "swin_large, of the flagship's slab path, of Paths "
-                         "A and B, of the fp32 flagship and of fp32 "
-                         "swin_large, and write their "
-                         "rows to PATH and PATH with _large / _slab / "
-                         "_resident / _w / _fp32 / _large_fp32 before its "
-                         "extension (JSON)")
+                         "A and B, of the fp32 flagship, of fp32 swin_large "
+                         "and of the fp32 flagship's slab path, and write "
+                         "their rows to PATH and PATH with _large / _slab / "
+                         "_resident / _w / _fp32 / _large_fp32 / _slab_fp32 "
+                         "before its extension (JSON)")
     ap.add_argument("--child", choices=["w", "resident", "mxu"],
                     default=None,
                     help=argparse.SUPPRESS)     # the script's own children
@@ -4144,6 +4251,14 @@ def main() -> int:
     train_large_fp32 = phase_train("swin_large_v2", steps=3,
                                    deterministic_run=False,
                                    tag="train_large_fp32", dtype="float32")
+    # the fp32 flagship on the slab path: every block's K8' / K9' on the
+    # fp32 tensor-core kernels
+    serve_slab_fp32 = phase_serve(requests=1, flip=False,
+                                  tag="serve_slab_fp32",
+                                  attn_impl="cuda_slab", dtype="float32")
+    train_slab_fp32 = phase_train(steps=3, deterministic_run=False,
+                                  tag="train_slab_fp32",
+                                  attn_impl="cuda_slab", dtype="float32")
     (train_res, resident_child, serve_w, train_w, w_child, _,
      train_mxu) = phase_children()
     if args.profile:
@@ -4156,6 +4271,8 @@ def main() -> int:
                       dtype="float32")
         phase_profile(f"{root}_large_fp32{ext}", "swin_large_v2",
                       "profile_large_fp32", dtype="float32")
+        phase_profile(f"{root}_slab_fp32{ext}", tag="profile_slab_fp32",
+                      attn_impl="cuda_slab", dtype="float32")
     phase_parity()
     phase_train_parity()
     phase_train_parity_tiny()
@@ -4170,8 +4287,8 @@ def main() -> int:
             "swin_large_v2", params=LARGE_STAGE1_PARAMS, tag=None,
             dtype="bfloat16")})
     emit("parity_slab", {
-        # bf16: every block on the tensor-core slab kernels; fp32: the FMA
-        # bodies (hi + lo log-sum-exp)
+        # either type: every block on the tensor-core slab kernels (fp32:
+        # three bf16 pieces, hi + lo log-sum-exp)
         "forward": phase_parity(tag=None, impl="cuda_slab"),
         "train_step": phase_train_parity(tag=None, impl="cuda_slab")})
     phase_train_parity_resident(resident_child)
@@ -4193,6 +4310,10 @@ def main() -> int:
                               serve_large_fp32, tc_cases, "float32")
     entries += contract_train(k2_cases, hs_cases, slab_cases,
                               train_large_fp32, tc_cases, "float32")
+    entries += contract_serve(k1_cases, hs_cases, slab_cases,
+                              serve_slab_fp32, tc_cases, "float32")
+    entries += contract_train(k2_cases, hs_cases, slab_cases,
+                              train_slab_fp32, tc_cases, "float32")
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)

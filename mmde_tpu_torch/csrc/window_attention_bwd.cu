@@ -101,8 +101,9 @@
 // and fp32 (K2, and K5 at W > 1; fp32 operands in three bf16 pieces), run
 // window_attention_bwd_tc.cu instead (bf16 mma.sync); under
 // MMDE_ATTN_GRID=split K3's pass alone follows them
-// (mmde_window_attention_dbias). This body serves the fp32 head-split and
-// slab layouts and is the tensor-core kernels' same-card comparison.
+// (mmde_window_attention_dbias), and the head-split and slab launches of
+// either type run the tensor-core passes too. This body is their same-card
+// comparison (the wrappers' private `_fma`).
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)

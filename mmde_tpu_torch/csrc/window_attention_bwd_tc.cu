@@ -2,7 +2,7 @@
 // (sm_90a, bf16 mma.sync), for bf16 or fp32 q, k, v and g: in the packed
 // layout at one window per block or W (the _w kernels, below), on
 // head-split operands (bf16 or fp32), and on the slab path's (B, Hp, Wp,
-// 3C) map (bf16).
+// 3C) map (bf16 or fp32).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_bwd_body (K2, driven
 // by _pallas_backward) for every packed launch, bf16 and fp32, at w = 1
@@ -13,20 +13,22 @@
 // function (mode fp32, fp32 bias and mask tiles): dq, dk, dv into
 // contiguous (B_, nH, N, 32), dlogit_scale, dbias by the same atomics; and
 // mmde_tpu/ops/window_attention_slab.py::_bwd_body (K9, driven by
-// _pallas_backward) for every bf16 slab launch, in the same function: dqkv
+// _pallas_backward) for every slab launch, bf16 and fp32, in the same
+// function: dqkv
 // written into the (B, Hp, Wp, 3C) map in place, dbias summed over windows
 // by the same atomics (the TPU kernel's resident fp32 block). The two
 // passes are templates over the operands' layout (Rows; MapRows for the
 // slab entry, window_attention_common.cuh), every row address L::head(b, h)
 // + L::off(r) (the map's tile loads through TileRows' shared table), and
-// over their type: fp32 operands (packed and head-split) take every operand
-// in three bf16 pieces (Pieces, below), as K5's fp32 passes do. Under
+// over their type: fp32 operands (packed, head-split and slab) take every
+// operand in three bf16 pieces (Pieces, below), as K5's fp32 passes do, the
+// map's fp32 tiles staged through the same table. Under
 // MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
 // windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
 // delta written here (reading the fp32 forward's hi + lo, lse_pair 1).
-// window_attention_bwd.cu keeps K2's fp32-FMA body for the fp32 slab
-// launches and as the same-card A/B partner. Same function and the
-// same two passes as K2 (its header has the formulas):
+// window_attention_bwd.cu keeps K2's fp32-FMA body as the same-card A/B
+// partner. Same function and the same two passes as K2 (its header has the
+// formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
 //                    sweeps over 64-key tiles, each S = q k^T and dP = g v^T
@@ -139,7 +141,6 @@ bwd_dq_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
 
   constexpr bool RB = MXU == MXU_BF16;
   constexpr bool TAB = TileRows<L<const T>>::kTable;
-  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -168,8 +169,8 @@ bwd_dq_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
   auto issue = [&](int s) {     // step s's K, V, bias, mask -> stage s & 1
     const int st = s & 1, kn = (s % nt) * TC_BT;
     if constexpr (F32) {
-      load_tile_f32(sStg, k_bh, k, kn, N, tid);
-      load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, kn, N, tid);
+      load_tile_f32(sStg, k_bh, k, sTab[st], kn, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, sTab[st], kn, N, tid);
     } else {
       load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
       load_tile(sV[st], v_bh, v, sTab[st], kn, N, tid);
@@ -515,7 +516,6 @@ bwd_dkv_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
 
   constexpr bool RB = MXU == MXU_BF16;
   constexpr bool TAB = TileRows<L<const T>>::kTable;
-  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3;
   const int k0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -551,8 +551,8 @@ bwd_dkv_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
   // lo too)
   auto load = [&](int st, int q0) {
     if constexpr (F32) {
-      load_tile_f32(sStg, q_bh, q, q0, N, tid);
-      load_tile_f32(sStg + TC_STAGE_F32, g_bh, g, q0, N, tid);
+      load_tile_f32(sStg, q_bh, q, sTab[st], q0, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, g_bh, g, sTab[st], q0, N, tid);
     } else {
       load_tile(sQ[st], q_bh, q, sTab[st], q0, N, tid);
       load_tile(sG[st], g_bh, g, sTab[st], q0, N, tid);
@@ -1645,6 +1645,29 @@ struct Operands {
   }
 };
 
+// dynamic shared memory of the two passes: fp32 adds the staging, the
+// planes and the running sums (dq pass one set, dk/dv pass two) before the
+// bias and mask tiles
+template <typename T, typename TB, int MXU>
+int tc_bwd_bytes(bool masked, bool dkv) {
+  using P = Pieces<T, MXU>;
+  return (P::F32 ? P::kTiles + (dkv ? 2 : 1) * P::kState : 0) +
+         bias_tiles_bytes<TB>(masked);
+}
+
+// Lets both passes take their masked (largest) dynamic shared memory.
+template <template <typename> class L, typename T, typename TB, int MXU>
+cudaError_t allow_tc_bwd_bytes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_tc_kernel<L, T, TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tc_bwd_bytes<T, TB, MXU>(true, false));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(bwd_dkv_tc_kernel<L, T, TB, MXU>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              tc_bwd_bytes<T, TB, MXU>(true, true));
+}
+
 // The two passes on operands already described in layout L (Rows: any
 // (window, head, token) strides; MapRows: windows of a map) of type T, rows
 // 16-byte aligned; -1 where a row is not.
@@ -1653,27 +1676,18 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
            const void* mask, const void* lse, void* delta, void* dls_part,
            void* dbias, int B_, int N, int nH, int nW, cudaStream_t stream) {
   if (!o.aligned()) return -1;
-  using P = Pieces<T, MXU>;
-  // fp32: the staging, the planes and the running sums before the tiles
-  constexpr int dq_pre = P::F32 ? P::kTiles + P::kState : 0;
-  constexpr int dkv_pre = P::F32 ? P::kTiles + 2 * P::kState : 0;
-  const int tiles = bias_tiles_bytes<TB>(mask != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_tc_kernel<L, T, TB, MXU>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_pre + bias_tiles_bytes<TB>(true));
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkv_tc_kernel<L, T, TB, MXU>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_pre + bias_tiles_bytes<TB>(true));
+  const bool masked = mask != nullptr;
+  cudaError_t err = allow_tc_bwd_bytes<L, T, TB, MXU>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  bwd_dq_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, dq_pre + tiles, stream>>>(
+  bwd_dq_tc_kernel<L, T, TB, MXU>
+      <<<grid, TC_NT, tc_bwd_bytes<T, TB, MXU>(masked, false), stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, o.dq, (float*)delta, N, nW);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, dkv_pre + tiles, stream>>>(
+  bwd_dkv_tc_kernel<L, T, TB, MXU>
+      <<<grid, TC_NT, tc_bwd_bytes<T, TB, MXU>(masked, true), stream>>>(
       o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias,
       (const TB*)mask, (const float*)lse, (const float*)delta, o.dk, o.dv,
       (double*)dls_part, (float*)dbias, N, nW);
@@ -1698,6 +1712,27 @@ int launch_packed(const void* qkv, const void* g, const void* ls,
   o.dv = packed_rows((T*)dqkv, 2, N, C, 3, TC_DH);
   return launch<Rows, T, TB, MXU>(o, ls, bias, mask, lse, delta, dls_part,
                                   dbias, B_, N, nH, nW, stream);
+}
+
+// The slab layout: qkv (B, Hp, Wp, 3C), g (B, Hp, Wp, C) and dqkv maps of
+// type T, windows of ws x ws read and written in place (MapRows); mode
+// MXU_FP32. T = float: lse (2, B_, nH, N) hi then lo
+template <typename T, typename TB>
+int launch_slab(const void* qkv, const void* g, const void* ls,
+                const void* bias, const void* mask, const void* lse,
+                void* dqkv, void* delta, void* dls_part, void* dbias, int B_,
+                int Hp, int Wp, int C, int nH, int ws, cudaStream_t stream) {
+  Operands<MapRows, T> o;
+  o.q = map_rows((const T*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH);
+  o.k = map_rows((const T*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH);
+  o.v = map_rows((const T*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  o.g = map_rows((const T*)g, 0, C, 1, Hp, Wp, ws, TC_DH);
+  o.dq = map_rows((T*)dqkv, 0, C, 3, Hp, Wp, ws, TC_DH);
+  o.dk = map_rows((T*)dqkv, 1, C, 3, Hp, Wp, ws, TC_DH);
+  o.dv = map_rows((T*)dqkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  return launch<MapRows, T, TB, MXU_FP32>(o, ls, bias, mask, lse, delta,
+                                          dls_part, dbias, B_, ws * ws, nH,
+                                          (Hp / ws) * (Wp / ws), stream);
 }
 
 // Windows the dk/dv pass holds a block: W, or for fp32 qkv the largest
@@ -1935,12 +1970,15 @@ extern "C" int mmde_window_attention_headsplit_bwd_tc(
 }
 
 // Slab entry (K9's counterpart on the tensor cores): qkv (B, Hp, Wp, 3C),
-// g (B, Hp, Wp, C) and dqkv (B, Hp, Wp, 3C) bf16 maps, Hp and Wp multiples
-// of ws; the B * (Hp/ws) * (Wp/ws) windows image-major and row-major, N =
-// ws*ws, every token row read and written in place (MapRows). bias and mask
-// (one row per window of an image) bf16 when bias_bf16, else fp32. The TPU
-// kernel's function (mode MXU_FP32); lse (B * nW, nH, N) from
-// mmde_window_attention_slab_fwd_tc; delta (B * nW, nH, N) fp32 and
+// g (B, Hp, Wp, C) and dqkv (B, Hp, Wp, 3C) maps, Hp and Wp multiples of
+// ws; the B * (Hp/ws) * (Wp/ws) windows image-major and row-major, N =
+// ws*ws, every token row read and written in place (MapRows). qkv_bf16 1:
+// bf16 maps, bias and mask (one row per window of an image) bf16 when
+// bias_bf16, else fp32, lse (B * nW, nH, N) from
+// mmde_window_attention_slab_fwd_tc; qkv_bf16 0: fp32 maps, every operand
+// in three bf16 pieces, fp32 bias and mask (a bf16 bias is refused), lse
+// (2, B * nW, nH, N) hi then lo as that entry writes it for fp32 (F3). The
+// TPU kernel's function (mode MXU_FP32); delta (B * nW, nH, N) fp32 and
 // dls_part (B * nW * ceil(N / 64), nH) fp64 written (the caller sums
 // dls_part over its first axis); dbias (nH, N, N) fp32 receives dbias
 // summed over the windows by 16-byte vector atomics when dbias_mode = 1
@@ -1952,7 +1990,8 @@ extern "C" int mmde_window_attention_slab_bwd_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
     void* delta, void* dls_part, void* dbias, int B, int Hp, int Wp, int C,
-    int nH, int ws, int bias_bf16, int dbias_mode, void* stream) {
+    int nH, int ws, int qkv_bf16, int bias_bf16, int dbias_mode,
+    void* stream) {
   if (C != nH * TC_DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
       Hp % ws != 0 || Wp % ws != 0)
     return -1;
@@ -1962,21 +2001,43 @@ extern "C" int mmde_window_attention_slab_bwd_tc(
   if ((long long)ws * Wp >= (1ll << 31)) return -1;   // MapRows::pix
   const int B_ = (int)(B * nW);
   if (!shape_ok(B_, (int)N, nH, (int)nW, mask, dbias_mode, dbias)) return -1;
-  Operands<MapRows> o;
-  o.q = map_rows((const bf16*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH);
-  o.k = map_rows((const bf16*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH);
-  o.v = map_rows((const bf16*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH);
-  o.g = map_rows((const bf16*)g, 0, C, 1, Hp, Wp, ws, TC_DH);
-  o.dq = map_rows((bf16*)dqkv, 0, C, 3, Hp, Wp, ws, TC_DH);
-  o.dk = map_rows((bf16*)dqkv, 1, C, 3, Hp, Wp, ws, TC_DH);
-  o.dv = map_rows((bf16*)dqkv, 2, C, 3, Hp, Wp, ws, TC_DH);
+  if (!qkv_bf16 && bias_bf16) return -1;
   void* db = dbias_mode == 1 ? dbias : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16)
+    return launch_slab<float, float>(qkv, g, logit_scale, bias, mask, lse,
+                                     dqkv, delta, dls_part, db, B_, Hp, Wp,
+                                     C, nH, ws, s);
   if (bias_bf16)
-    return launch<MapRows, bf16, bf16, MXU_FP32>(o, logit_scale, bias, mask,
-                                                 lse, delta, dls_part, db, B_,
-                                                 (int)N, nH, (int)nW, s);
-  return launch<MapRows, bf16, float, MXU_FP32>(o, logit_scale, bias, mask,
-                                                lse, delta, dls_part, db, B_,
-                                                (int)N, nH, (int)nW, s);
+    return launch_slab<bf16, bf16>(qkv, g, logit_scale, bias, mask, lse, dqkv,
+                                   delta, dls_part, db, B_, Hp, Wp, C, nH, ws,
+                                   s);
+  return launch_slab<bf16, float>(qkv, g, logit_scale, bias, mask, lse, dqkv,
+                                  delta, dls_part, db, B_, Hp, Wp, C, nH, ws,
+                                  s);
+}
+
+// Blocks of the slab entry's two passes an SM holds at their launch
+// (qkv_bf16 as that entry takes it, fp32 bias and mask, with or without the
+// mask), from cudaOccupancyMaxActiveBlocksPerMultiprocessor: dq pass to
+// *dq_blocks, dk/dv pass to *dkv_blocks. Returns the first CUDA error. No
+// launch.
+extern "C" int mmde_window_attention_slab_bwd_tc_occupancy(int qkv_bf16,
+                                                           int masked,
+                                                           int* dq_blocks,
+                                                           int* dkv_blocks) {
+  auto query = [&](auto t) {
+    using T = decltype(t);
+    cudaError_t err = allow_tc_bwd_bytes<MapRows, T, float, MXU_FP32>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          dq_blocks, bwd_dq_tc_kernel<MapRows, T, float, MXU_FP32>, TC_NT,
+          tc_bwd_bytes<T, float, MXU_FP32>(masked != 0, false));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          dkv_blocks, bwd_dkv_tc_kernel<MapRows, T, float, MXU_FP32>, TC_NT,
+          tc_bwd_bytes<T, float, MXU_FP32>(masked != 0, true));
+    return (int)err;
+  };
+  return qkv_bf16 ? query(bf16()) : query(0.0f);
 }

@@ -67,9 +67,9 @@
 // thread), which keeps fp32 inputs in true fp32; bf16 inputs are widened on
 // load and take the same path, far from their bound. The port's packed
 // launches, bf16 and fp32 (K1, and K5 at W > 1; fp32 operands in three bf16
-// pieces), run window_attention_fwd_tc.cu instead (bf16 mma.sync); this
-// body serves the fp32 head-split and slab layouts and is the tensor-core
-// kernels' same-card comparison.
+// pieces), run window_attention_fwd_tc.cu instead (bf16 mma.sync), and so
+// do the head-split and slab launches of either type; this body is the
+// tensor-core kernels' same-card comparison (the wrappers' private `_fma`).
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`): the packed bodies (K1, K5) are templates over it, and their C

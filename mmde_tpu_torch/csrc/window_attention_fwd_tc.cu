@@ -4,7 +4,7 @@
 // per block or W (fwd_tc_w_kernel, below), on head-split operands (any
 // (B_, nH, N, 32) strides; out contiguous; bf16 or fp32), and on the slab
 // path's (B, Hp, Wp, 3C) map (windows read in place, out the (B, Hp, Wp,
-// C) map; bf16).
+// C) map; bf16 or fp32).
 //
 // Replaces mmde_tpu/ops/window_attention_packed.py::_fwd_body (K1, driven by
 // _pallas_forward) for every packed launch at w = 1 - the flagship's and
@@ -14,20 +14,20 @@
 // _pallas_forward) for every head-split launch, bf16 and fp32 (swin_large
 // stage 1, swin_tiny / swin_huge stages 1-2), and
 // mmde_tpu/ops/window_attention_slab.py::_fwd_body (K8, driven by
-// _pallas_forward) for every bf16 slab launch (attn_impl "pallas_slab"), in
-// those kernels' function (mode fp32, the row maximum for every head, fp32
-// bias and mask tiles). fwd_tc_kernel is a template over the operands'
-// layout (window_attention_common.cuh): Rows for the packed and head-split
-// entries, MapRows for the slab entry, whose token rows sit at
-// (wi*ws + r/ws, wj*ws + r%ws) of the map; every row address goes through
-// L::head(b, h) + L::off(r) (the map's tile loads through a shared table of
-// the tile's pixels, TileRows in window_attention_tc.cuh), so the
-// arithmetic is the same. It is a template over the operand type too: fp32
-// q, k, v (packed and head-split) take every operand in three bf16 pieces
-// (below), as K5's fp32 instantiation does; window_attention_fwd.cu keeps
-// the fp32-FMA body for the fp32 slab launches and as the same-card A/B
-// partner; the function, the softmax forms and the log-sum-exp handed to
-// the backward are the same.
+// _pallas_forward) for every slab launch, bf16 and fp32 (attn_impl
+// "pallas_slab"), in those kernels' function (mode fp32, the row maximum
+// for every head, fp32 bias and mask tiles). fwd_tc_kernel is a template
+// over the operands' layout (window_attention_common.cuh): Rows for the
+// packed and head-split entries, MapRows for the slab entry, whose token
+// rows sit at (wi*ws + r/ws, wj*ws + r%ws) of the map; every row address
+// goes through L::head(b, h) + L::off(r) (the map's tile loads through a
+// shared table of the tile's pixels, TileRows in window_attention_tc.cuh),
+// so the arithmetic is the same. It is a template over the operand type
+// too: fp32 q, k, v (packed, head-split and slab) take every operand in
+// three bf16 pieces (below), as K5's fp32 instantiation does, the map's
+// fp32 tiles staged through the same table; window_attention_fwd.cu keeps
+// the fp32-FMA body as the same-card A/B partner; the function, the
+// softmax forms and the log-sum-exp handed to the backward are the same.
 //
 //   per (window b, head h):
 //     q^ = q * rq, rq = rsqrt(sum(q^2) + 1e-12),  k^ = k * rk likewise
@@ -138,7 +138,6 @@ fwd_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
 
   constexpr bool RB = MXU == MXU_BF16;
   constexpr bool TAB = TileRows<L<const T>>::kTable;
-  static_assert(!(F32 && TAB), "fp32 operands come in the Rows layout");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * TC_BT, h = blockIdx.y, b = blockIdx.z;
@@ -173,9 +172,9 @@ fwd_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
   auto issue = [&](int s) {
     const int st = s & 1, kn = (s % nt) * TC_BT;
     if constexpr (F32) {
-      load_tile_f32(sStg, k_bh, k, kn, N, tid);
+      load_tile_f32(sStg, k_bh, k, sTab[st], kn, N, tid);
       if (!(max_first && s < nt))
-        load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, kn, N, tid);
+        load_tile_f32(sStg + TC_STAGE_F32, v_bh, v, sTab[st], kn, N, tid);
     } else {
       load_tile(sK[st], k_bh, k, sTab[st], kn, N, tid);
       if (!(max_first && s < nt))
@@ -848,6 +847,21 @@ int w_fwd_bytes(bool masked, int W) {
          (WP::F32 ? 4 * TC_STAGE_F32 * 4 + 2 * WP::PS * TC_PLANE * 2 : 0);
 }
 
+// dynamic shared memory of fwd_tc_kernel: fp32's staging and planes, then
+// the bias and mask tiles
+template <typename T, typename TB, int MXU>
+int tc_fwd_bytes(bool masked) {
+  return Pieces<T, MXU>::kTiles + bias_tiles_bytes<TB>(masked);
+}
+
+// Lets fwd_tc_kernel take its masked (largest) dynamic shared memory.
+template <template <typename> class L, typename T, typename TB, int MXU>
+cudaError_t allow_tc_fwd_bytes() {
+  return cudaFuncSetAttribute(fwd_tc_kernel<L, T, TB, MXU>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              tc_fwd_bytes<T, TB, MXU>(true));
+}
+
 // The launch on operands already described in layout L (Rows: any
 // (window, head, token) strides; MapRows: windows of a map) of type T, rows
 // 16-byte aligned; -1 where a row is not.
@@ -859,15 +873,11 @@ int launch(const L<const T>& rq, const L<const T>& rk, const L<const T>& rv,
   if (!rows_aligned(rq) || !rows_aligned(rk) || !rows_aligned(rv) ||
       !rows_aligned(ro))
     return -1;
-  constexpr int tiles = Pieces<T, MXU>::kTiles;
-  const int smem = tiles + bias_tiles_bytes<TB>(mask != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc_kernel<L, T, TB, MXU>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tiles + bias_tiles_bytes<TB>(true));
+  cudaError_t err = allow_tc_fwd_bytes<L, T, TB, MXU>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + TC_BT - 1) / TC_BT, nH, B_);
-  fwd_tc_kernel<L, T, TB, MXU><<<grid, TC_NT, smem, stream>>>(
+  fwd_tc_kernel<L, T, TB, MXU>
+      <<<grid, TC_NT, tc_fwd_bytes<T, TB, MXU>(mask != nullptr), stream>>>(
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree);
   return (int)cudaGetLastError();
@@ -914,6 +924,21 @@ int launch_packed_w(const void* qkv, const void* ls, const void* bias,
       rq, rk, rv, (const float*)ls, (const TB*)bias, (const TB*)mask, ro,
       (float*)lse, N, nW, maxfree, W);
   return (int)cudaGetLastError();
+}
+
+// The slab layout: qkv the (B, Hp, Wp, 3C) map, out the (B, Hp, Wp, C)
+// map, both of type T, windows of ws x ws read in place (MapRows); mode
+// MXU_FP32, maxfree 0. T = float: lse (2, B_, nH, N) hi then lo
+template <typename T, typename TB>
+int launch_slab(const void* qkv, const void* ls, const void* bias,
+                const void* mask, void* out, void* lse, int B_, int Hp,
+                int Wp, int C, int nH, int ws, cudaStream_t stream) {
+  return launch<MapRows, T, TB, MXU_FP32>(
+      map_rows((const T*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH),
+      map_rows((const T*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH),
+      map_rows((const T*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH),
+      map_rows((T*)out, 0, C, 1, Hp, Wp, ws, TC_DH), ls, bias, mask, lse, B_,
+      ws * ws, nH, (Hp / ws) * (Wp / ws), 0, stream);
 }
 
 bool shape_ok(int B_, int N, int nH, int nW, const void* mask) {
@@ -1042,19 +1067,23 @@ extern "C" int mmde_window_attention_headsplit_fwd_tc(
                                              0, s);
 }
 
-// Slab entry (K8's counterpart on the tensor cores): qkv the bf16
+// Slab entry (K8's counterpart on the tensor cores): qkv the
 // (B, Hp, Wp, 3C) map the qkv Linear emits on the padded (and, in a shifted
-// block, rolled) feature map, Hp and Wp multiples of ws; out the bf16
-// (B, Hp, Wp, C) map. The kernel's windows are the B * (Hp/ws) * (Wp/ws)
-// windows of the map, image-major and row-major (window_partition's order),
-// N = ws*ws tokens each, every token row read and written in place
-// (MapRows): no partition before the kernel, no reverse after it. bias
-// (nH, N, N) and mask (nW, N, N; may be null; one row per window of an
-// image, nW = (Hp/ws) * (Wp/ws)) bf16 when bias_bf16, else fp32 (the model
-// streams them in fp32). The TPU kernel's function: mode MXU_FP32, the
-// running row maximum for every head (maxfree 0). `lse` (B * nW, nH, N)
-// fp32 when not null (training), one number a row in that window order, as
-// mmde_window_attention_fwd_tc writes it; null serves. Returns
+// block, rolled) feature map, Hp and Wp multiples of ws; out the
+// (B, Hp, Wp, C) map of qkv's type. The kernel's windows are the
+// B * (Hp/ws) * (Wp/ws) windows of the map, image-major and row-major
+// (window_partition's order), N = ws*ws tokens each, every token row read
+// and written in place (MapRows): no partition before the kernel, no
+// reverse after it. qkv_bf16 1: a bf16 map; bias (nH, N, N) and mask
+// (nW, N, N; may be null; one row per window of an image, nW = (Hp/ws) *
+// (Wp/ws)) bf16 when bias_bf16, else fp32 (the model streams them in fp32);
+// `lse` (B * nW, nH, N) fp32 when not null (training), one number a row in
+// that window order, as mmde_window_attention_fwd_tc writes it. qkv_bf16 0:
+// an fp32 map and out, every operand in three bf16 pieces (the packed fp32
+// instantiation's arithmetic over MapRows), fp32 bias and mask (a bf16 bias
+// is refused), `lse` (2, B * nW, nH, N) hi then lo, m + log(l) formed in
+// fp64 (F3). Null `lse` serves. The TPU kernel's function: mode MXU_FP32,
+// the running row maximum for every head (maxfree 0). Returns
 // cudaGetLastError() of the launch, or -1 for arguments the kernel does not
 // take (a map that is not whole windows, N * ws >= 2^32 for MapRows'
 // multiply-shift, ws * Wp >= 2^31 for its pixel index, more than 65535
@@ -1063,7 +1092,7 @@ extern "C" int mmde_window_attention_headsplit_fwd_tc(
 extern "C" int mmde_window_attention_slab_fwd_tc(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, void* out, void* lse, int B, int Hp, int Wp, int C,
-    int nH, int ws, int bias_bf16, void* stream) {
+    int nH, int ws, int qkv_bf16, int bias_bf16, void* stream) {
   if (C != nH * TC_DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
       Hp % ws != 0 || Wp % ws != 0)
     return -1;
@@ -1073,20 +1102,34 @@ extern "C" int mmde_window_attention_slab_fwd_tc(
   if ((long long)ws * Wp >= (1ll << 31)) return -1;   // MapRows::pix
   const int B_ = (int)(B * nW);
   if (!shape_ok(B_, (int)N, nH, (int)nW, mask)) return -1;
-  const MapRows<const bf16> rq =
-      map_rows((const bf16*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH);
-  const MapRows<const bf16> rk =
-      map_rows((const bf16*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH);
-  const MapRows<const bf16> rv =
-      map_rows((const bf16*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH);
-  const MapRows<bf16> ro = map_rows((bf16*)out, 0, C, 1, Hp, Wp, ws, TC_DH);
+  if (!qkv_bf16 && bias_bf16) return -1;
   cudaStream_t s = (cudaStream_t)stream;
+  if (!qkv_bf16)
+    return launch_slab<float, float>(qkv, logit_scale, bias, mask, out, lse,
+                                     B_, Hp, Wp, C, nH, ws, s);
   if (bias_bf16)
-    return launch<MapRows, bf16, bf16, MXU_FP32>(rq, rk, rv, ro,
-                                                 logit_scale, bias, mask, lse,
-                                                 B_, (int)N, nH, (int)nW,
-                                                 0, s);
-  return launch<MapRows, bf16, float, MXU_FP32>(rq, rk, rv, ro, logit_scale,
-                                                bias, mask, lse, B_, (int)N,
-                                                nH, (int)nW, 0, s);
+    return launch_slab<bf16, bf16>(qkv, logit_scale, bias, mask, out, lse, B_,
+                                   Hp, Wp, C, nH, ws, s);
+  return launch_slab<bf16, float>(qkv, logit_scale, bias, mask, out, lse, B_,
+                                  Hp, Wp, C, nH, ws, s);
+}
+
+// Blocks of the slab entry's fwd_tc_kernel an SM holds at its launch
+// (qkv_bf16 as that entry takes it, fp32 bias and mask as the model
+// streams them, with or without the mask), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers and static and
+// dynamic shared memory together. Written to *blocks; returns the CUDA
+// error. No launch.
+extern "C" int mmde_window_attention_slab_fwd_tc_occupancy(int qkv_bf16,
+                                                           int masked,
+                                                           int* blocks) {
+  auto query = [&](auto t) {
+    using T = decltype(t);
+    cudaError_t err = allow_tc_fwd_bytes<MapRows, T, float, MXU_FP32>();
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fwd_tc_kernel<MapRows, T, float, MXU_FP32>, TC_NT,
+        tc_fwd_bytes<T, float, MXU_FP32>(masked != 0));
+  };
+  return qkv_bf16 ? query(bf16()) : query(0.0f);
 }

@@ -585,6 +585,31 @@ __device__ __forceinline__ void load_afrag_f32(float2 (&x)[2][4],
     }
 }
 
+// The same for MapRows (the slab's fp32 q, g; k, v and their reloads): the
+// lane's two rows' offsets once, pix(r) * s, in place of off()'s two
+// 64-bit products a row. Measured against off() on an H100, 700 W (PERF.md
+// §6, tools/bench_attention.py --tree): the fp32 slab forward 2-4 % faster
+// at flagship stages 1-3 (181 registers and no spill, where off() left 168
+// and a 4-byte spill), the backward unchanged.
+template <typename T>
+__device__ __forceinline__ void load_afrag_f32(float2 (&x)[2][4],
+                                               const float* base,
+                                               const MapRows<T>& rows, int r,
+                                               int N, int t) {
+  const size_t o[2] = {(size_t)rows.pix(r < N ? r : 0) * rows.s,
+                       (size_t)rows.pix(r + 8 < N ? r + 8 : 0) * rows.s};
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + (i & 1) * 8;
+      const int col = 16 * ks + (i >> 1) * 8 + 2 * t;
+      x[ks][i] = row < N ? *reinterpret_cast<const float2*>(
+                               base + o[i & 1] + col)
+                         : make_float2(0.0f, 0.0f);
+    }
+}
+
 // quad_row_rnorm of a row an fp32 fragment spreads over a quad: the same
 // chain, channel by channel in order
 __device__ __forceinline__ float quad_row_rnorm(const float2 (&w)[4],
@@ -693,7 +718,8 @@ __device__ __forceinline__ float raw_at(const uint32_t (&a)[P][2][4], int n,
 // 16-byte chunk c at chunk c ^ (r & 7): the split pass reads a row a
 // thread, 8 threads a phase on 8 bank groups) by 16-byte cp.async, zeros
 // past N; after arrival the split pass writes the pieces into bf16 planes
-// [piece][64][TC_LD], which ldmatrix reads as it reads a bf16 tile.
+// [piece][64][TC_LD], which ldmatrix reads as it reads a bf16 tile. Either
+// layout: Rows (packed, head-split) or MapRows (slab, through the table).
 constexpr int TC_STAGE_F32 = TC_BT * TC_DH;   // floats of a staging buffer
 
 template <class L>
@@ -706,6 +732,30 @@ __device__ __forceinline__ void load_tile_f32(float* s, const float* base,
     const bool ok = r0 + r < N;
     cp_async16(s + r * TC_DH + ((c ^ (r & 7)) << 2),
                base + (ok ? rows.off(r0 + r) : 0) + c * 4, ok);
+  }
+}
+
+// The same, with the tile's row offsets from `tab`, as load_tile takes
+// them: Rows ignores the table (the code above), MapRows reads its row
+// addresses off the block's shared table of the tile's pixels (TileRows),
+// off(r) = tab[r] * s
+template <class L>
+__device__ __forceinline__ void load_tile_f32(float* s, const float* base,
+                                              const L& rows, const int* tab,
+                                              int r0, int N, int tid) {
+  load_tile_f32(s, base, rows, r0, N, tid);
+}
+template <typename T>
+__device__ __forceinline__ void load_tile_f32(float* s, const float* base,
+                                              const MapRows<T>& rows,
+                                              const int* tab, int r0, int N,
+                                              int tid) {
+#pragma unroll
+  for (int e = tid; e < TC_BT * 8; e += TC_NT) {
+    const int r = e >> 3, c = e & 7;
+    const bool ok = r0 + r < N;
+    cp_async16(s + r * TC_DH + ((c ^ (r & 7)) << 2),
+               base + (ok ? (size_t)tab[r] * rows.s : 0) + c * 4, ok);
   }
 }
 

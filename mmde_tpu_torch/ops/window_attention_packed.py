@@ -187,11 +187,11 @@ def headsplit_tensor_core_body(dtype: torch.dtype) -> bool:
 
 
 def slab_tensor_core_body(dtype: torch.dtype) -> bool:
-    """The slab wrapper's rule (ops/window_attention_slab.py): a bf16 map on
-    the tensor cores, an fp32 one on the fp32-FMA bodies (the slab entries
-    instantiate the tensor-core kernels on bf16 only: the kernels take fp32
-    operands in the Rows layout, not through the map's tile table)."""
-    return dtype == torch.bfloat16
+    """The slab wrapper's rule (ops/window_attention_slab.py): bf16 and fp32
+    maps on the tensor cores, fp32 operands in three bf16 pieces as the
+    packed kernels take them (the same kernels over the map's layout, fp32
+    tiles staged through the map's tile table)."""
+    return dtype in (torch.bfloat16, torch.float32)
 
 
 def stat_pair(dtype: torch.dtype, tc: bool) -> bool:

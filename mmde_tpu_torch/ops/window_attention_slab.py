@@ -14,24 +14,29 @@ The CUDA kernels are the packed kernels' bodies reached through slab entry
 points that address each window's token rows in the map (`MapRows`,
 csrc/window_attention_common.cuh); on a GPU the map layout is only another
 address per row, where the TPU kernel needed static sublane slices and
-in-kernel reshapes. Which body runs follows the map's type, nothing else
-(the packed module's `slab_tensor_core_body`): a bf16 map runs the
-tensor-core kernels (csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, the
-entries `mmde_window_attention_slab_{fwd,bwd}_tc`; counted as
-window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc), an fp32
-map the fp32-FMA bodies (csrc/window_attention_fwd.cu,
-csrc/window_attention_bwd.cu; window_attention_slab_fwd[+lse] /
-window_attention_slab_bwd). As the TPU kernel, the forward keeps a running
-row maximum for every head (no max-free softmax) and takes bias and mask in
-float32 whatever the model's type; the backward sums dbias over windows in
-fp32 (by atomics here, in the resident output block there), gives
-`dlogit_scale` zero where the ln(100) clamp binds and the mask no gradient.
+in-kernel reshapes. Every slab launch of either type runs the tensor-core
+kernels (the packed module's `slab_tensor_core_body`;
+csrc/window_attention_{fwd,bwd}_tc.cu, bf16 mma.sync, the entries
+`mmde_window_attention_slab_{fwd,bwd}_tc`; counted as
+window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc): a bf16
+map on its raw values, an fp32 map with every operand in three bf16 pieces,
+as the packed fp32 kernels take them (`qkv_bf16` 0). The fp32-FMA bodies
+(csrc/window_attention_fwd.cu, csrc/window_attention_bwd.cu;
+window_attention_slab_fwd[+lse] / window_attention_slab_bwd) are reached
+only through the private `_fma`, the same-card comparison's partner. As the
+TPU kernel, the forward keeps a running row maximum for every head (no
+max-free softmax) and takes bias and mask in float32 whatever the model's
+type; the backward sums dbias over windows in fp32 (by atomics here, in the
+resident output block there), gives `dlogit_scale` zero where the ln(100)
+clamp binds and the mask no gradient.
 
 The log-sum-exp the backward rebuilds p from is what its own forward
-wrote: the tensor-core forward one fp32 number a row, (B*nW, nH, N); the
-FMA forward two, (2, B*nW, nH, N), the row's m + log(l) formed in fp64 and
-kept as fp32 hi + lo (fault F3, as the head-split module's FMA path). A
-backward handed the other body's statistic raises.
+wrote: the bf16 tensor-core forward one fp32 number a row, (B*nW, nH, N);
+the fp32 tensor-core forward and every FMA forward two, (2, B*nW, nH, N),
+the row's m + log(l) formed in fp64 and kept as fp32 hi + lo (fault F3,
+`stat_pair`). The statistic carries the body that wrote it (`written_by`):
+a backward handed the other body's statistic - the other shape, or the
+same shape from the other body - raises before any launch.
 
 For CUDA tensors the wrapper launches the kernels or raises; for CPU tensors
 it computes `cosine_window_attention_slab_plain` and, under autograd,
@@ -56,9 +61,9 @@ LAUNCHES_BY_SHAPE: dict = {}    # the same count, keyed by (B*nW, N, C, nH)
 LAUNCHES_BWD = 0        # incremented once per backward launch (both passes)
 LAUNCHES_BWD_BY_SHAPE: dict = {}
 # every launch above, keyed by (kernel, (B*nW, N, C, nH)); kernel names:
-# window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc (bf16,
-# the tensor cores), window_attention_slab_fwd[+lse] /
-# window_attention_slab_bwd (the fp32-FMA body)
+# window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc (the
+# tensor cores, either type), window_attention_slab_fwd[+lse] /
+# window_attention_slab_bwd (the fp32-FMA body, `_fma` only)
 LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,10 +74,13 @@ _FWD_STATS_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 # qkv, logit_scale, bias, mask, lse, g, dqkv, delta, dls_part, dbias; B, Hp,
 # Wp, C, nH, ws, qkv_bf16, bias_bf16, dbias_mode; stream
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
-# the tensor-core entries (bf16 only): as above without qkv_bf16, lse
-# nullable in the forward
-_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
-_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+# the tensor-core entries: as the FMA ones, lse nullable in the forward
+_FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+_BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+# their occupancy queries: qkv_bf16, masked; the blocks an SM holds (the
+# forward's; the dq and dk/dv passes')
+_FWD_OCC_ARGTYPES = [_I, _I, _P]
+_BWD_OCC_ARGTYPES = [_I, _I, _P, _P]
 
 # The JAX package's slab test, copied (not imported) so both packages send
 # the same blocks to the slab kernel: None when C is not a multiple of 128,
@@ -120,7 +128,9 @@ _ARGTYPES = {"mmde_window_attention_slab_fwd": _FWD_ARGTYPES,
              "mmde_window_attention_slab_fwd_stats": _FWD_STATS_ARGTYPES,
              "mmde_window_attention_slab_bwd": _BWD_ARGTYPES,
              "mmde_window_attention_slab_fwd_tc": _FWD_TC_ARGTYPES,
-             "mmde_window_attention_slab_bwd_tc": _BWD_TC_ARGTYPES}
+             "mmde_window_attention_slab_bwd_tc": _BWD_TC_ARGTYPES,
+             "mmde_window_attention_slab_fwd_tc_occupancy": _FWD_OCC_ARGTYPES,
+             "mmde_window_attention_slab_bwd_tc_occupancy": _BWD_OCC_ARGTYPES}
 
 
 def _entry(name: str) -> ctypes._CFuncPtr:
@@ -129,7 +139,7 @@ def _entry(name: str) -> ctypes._CFuncPtr:
     tensor-core forward or backward library for the `_tc` entries, the
     fp32-FMA ones otherwise."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
-    if name.endswith("_tc"):
+    if name.endswith(("_tc", "_tc_occupancy")):
         lib = wap._library_tc("bwd" in name)
     else:
         lib = wap._library_bwd() if "bwd" in name else wap._library()
@@ -233,13 +243,13 @@ def cosine_window_attention_slab_backward_plain(
     return dqkv, dls, dbias.to(bias.dtype)
 
 
-def _shape_args(qkv_map, bias, num_heads, window_size, tc: bool):
+def _shape_args(qkv_map, bias, num_heads, window_size):
     """The entries' ints after the pointers: the map's geometry, then the
-    element types (qkv_bf16 only where the entry takes fp32 maps too)."""
+    element types (qkv_bf16, bias_bf16)."""
     B, Hp, Wp, C3 = qkv_map.shape
-    types = (() if tc else (int(qkv_map.dtype == torch.bfloat16),)) + (
-        int(bias.dtype == torch.bfloat16),)
-    return (B, Hp, Wp, C3 // 3, num_heads, window_size) + types
+    return (B, Hp, Wp, C3 // 3, num_heads, window_size,
+            int(qkv_map.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16))
 
 
 def _count(kernel: str, by_shape: dict, qkv_map, num_heads,
@@ -268,6 +278,23 @@ def reset_launch_counts() -> None:
         d.clear()
 
 
+def occupancy(dtype: torch.dtype, masked: bool) -> dict:
+    """Blocks an SM holds of each tensor-core slab kernel at the slab
+    entries' launch for maps of `dtype`, fp32 bias and mask (with or without
+    the mask), as the CUDA occupancy calculator gives them on the current
+    card: {"fwd", "dq", "dkv"}. Needs the card; launches nothing."""
+    blocks = [ctypes.c_int(0) for _ in range(3)]
+    bf = int(dtype == torch.bfloat16)
+    errs = (_entry("mmde_window_attention_slab_fwd_tc_occupancy")(
+                bf, int(masked), ctypes.byref(blocks[0])),
+            _entry("mmde_window_attention_slab_bwd_tc_occupancy")(
+                bf, int(masked), ctypes.byref(blocks[1]),
+                ctypes.byref(blocks[2])))
+    if any(errs):
+        raise RuntimeError(f"slab occupancy query failed with codes {errs}")
+    return dict(zip(("fwd", "dq", "dkv"), (b.value for b in blocks)))
+
+
 def _tc(qkv_map, _fma: bool) -> bool:
     from mmde_tpu_torch.ops.window_attention_packed import (
         slab_tensor_core_body)
@@ -276,13 +303,15 @@ def _tc(qkv_map, _fma: bool) -> bool:
 
 def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
                     want_stats, _fma=False):
-    """Launch the forward kernel; returns (out map, lse or None). A bf16 map
-    runs the tensor-core kernel (lse (B*nW, nH, N)), fp32 the FMA body (lse
-    (2, B*nW, nH, N), hi and lo); `_fma` (private: chip_smoke.py's same-card
-    comparison and tools/bench_attention.py, never the model) sends bf16 to
-    the FMA body too."""
+    """Launch the forward kernel; returns (out map, lse or None). bf16 and
+    fp32 maps run the tensor-core kernel (lse (B*nW, nH, N) for bf16, (2,
+    B*nW, nH, N) hi and lo for fp32: `stat_pair`); `_fma` (private:
+    chip_smoke.py's same-card comparison and tools/bench_attention.py, never
+    the model) sends either type to the FMA body (lse (2, B*nW, nH, N)). The
+    statistic carries the body that wrote it (`written_by`)."""
     global LAUNCHES
-    from mmde_tpu_torch.ops.window_attention_packed import _stream
+    from mmde_tpu_torch.ops.window_attention_packed import (
+        _body_name, _stream, stat_pair)
     B, Hp, Wp, C3 = qkv_map.shape
     ws = window_size
     if qkv_map.data_ptr() % 16:
@@ -295,15 +324,18 @@ def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
     dev = qkv_map.device
     out = torch.empty((B, Hp, Wp, C3 // 3), dtype=qkv_map.dtype, device=dev)
     B_ = B * (Hp // ws) * (Wp // ws)
-    lse = (torch.empty(((B_, num_heads, ws * ws) if tc else
-                        (2, B_, num_heads, ws * ws)), dtype=torch.float32,
-                       device=dev) if want_stats else None)
+    lse = None
+    if want_stats:
+        stat = ((2,) if stat_pair(qkv_map.dtype, tc) else ()) + (
+            B_, num_heads, ws * ws)
+        lse = torch.empty(stat, dtype=torch.float32, device=dev)
+        lse.written_by = _body_name(tc)   # checked by _launch_backward
     args = (qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr())
     if tc or want_stats:    # the tensor-core entry's lse is nullable
         args += (lse.data_ptr() if want_stats else None,)
     with torch.cuda.device(dev):
-        err = fn(*args, *_shape_args(qkv_map, bias, num_heads, ws, tc),
+        err = fn(*args, *_shape_args(qkv_map, bias, num_heads, ws),
                  _stream(dev))
     if err != 0:
         raise RuntimeError(
@@ -320,11 +352,13 @@ def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
 def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
                      window_size, want_dbias, _fma=False):
     """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
-    or None). A bf16 map runs the tensor-core passes, fp32 (and bf16 with
-    the private `_fma`) the FMA body; `lse` must be what the same body's
-    forward wrote."""
+    or None). bf16 and fp32 maps run the tensor-core passes (the private
+    `_fma`: the FMA body); `lse` must be what the same body's forward
+    wrote: the other shape, or a statistic tagged with the other body,
+    raises before any launch."""
     global LAUNCHES_BWD
-    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE, _stream
+    from mmde_tpu_torch.ops.window_attention_packed import (
+        BWD_TILE, _body_name, _stream, stat_pair)
     B, Hp, Wp, C3 = qkv_map.shape
     ws, nH, N = window_size, num_heads, window_size * window_size
     if g.dtype != qkv_map.dtype or tuple(g.shape) != (B, Hp, Wp, C3 // 3):
@@ -335,11 +369,18 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
                          "kernel's vector loads")
     B_ = B * (Hp // ws) * (Wp // ws)
     tc = _tc(qkv_map, _fma)
-    want_lse = (B_, nH, N) if tc else (2, B_, nH, N)
+    want_lse = ((2,) if stat_pair(qkv_map.dtype, tc) else ()) + (B_, nH, N)
     if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {'tensor-core' if tc else 'FMA'} backward "
-                         f"reads a float32 {want_lse} log-sum-exp, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
+        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
+                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    # fp32 logits on the tensor cores lie a few ulps from the FMA body's:
+    # p is rebuilt only from the statistic the same arithmetic wrote (a
+    # statistic made elsewhere carries no tag)
+    written_by = getattr(lse, "written_by", None)
+    if written_by not in (None, _body_name(tc)):
+        raise ValueError(f"the {_body_name(tc)} backward was handed the "
+                         f"log-sum-exp the {written_by} forward wrote")
     name = "mmde_window_attention_slab_bwd" + ("_tc" if tc else "")
     fn = _entry(name)
     dev = qkv_map.device
@@ -358,7 +399,7 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
                  lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
                  delta.data_ptr(), dls_part.data_ptr(),
                  dbias.data_ptr() if dbias is not None else None,
-                 *_shape_args(qkv_map, bias, nH, ws, tc), int(want_dbias),
+                 *_shape_args(qkv_map, bias, nH, ws), int(want_dbias),
                  _stream(dev))
     if err != 0:
         raise RuntimeError(
@@ -374,10 +415,9 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
 
 class _SlabWindowAttention(torch.autograd.Function):
     """K8' forward (saving each row's log-sum-exp) and K9' backward for CUDA
-    tensors, on the tensor cores for bf16 and the FMA body for fp32 (and,
-    with the private `_fma`, for bf16: chip_smoke.py's same-card
-    comparison); the plain forward and the plain backward for CPU
-    tensors."""
+    tensors, on the tensor cores for either type (with the private `_fma`,
+    the FMA body: chip_smoke.py's same-card comparison); the plain forward
+    and the plain backward for CPU tensors."""
 
     @staticmethod
     def forward(ctx, qkv_map, logit_scale, bias, mask, num_heads,
@@ -432,11 +472,11 @@ def cosine_window_attention_slab(qkv_map: torch.Tensor,
     window of an image in row-major window order. Returns (B, Hp, Wp, C) in
     qkv_map's type.
 
-    CUDA tensors launch the kernels (or raise): a bf16 map the tensor-core
-    kernels, an fp32 map the fp32-FMA ones; CPU tensors take the plain
-    versions. When a gradient is recorded the forward kernel also writes
-    each row's log-sum-exp, which the backward kernel rebuilds the
-    probabilities from; without one (serving) it writes the output alone.
+    CUDA tensors launch the tensor-core kernels (or raise), an fp32 map's
+    operands in three bf16 pieces; CPU tensors take the plain versions.
+    When a gradient is recorded the forward kernel also writes each row's
+    log-sum-exp, which the backward kernel rebuilds the probabilities from;
+    without one (serving) it writes the output alone.
     """
     _check(qkv_map, logit_scale, bias, mask, num_heads, window_size)
     if torch.is_grad_enabled() and (qkv_map.requires_grad

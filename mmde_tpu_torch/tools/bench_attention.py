@@ -3,7 +3,7 @@
 
     python3 mmde_tpu_torch/tools/bench_attention.py [--tree DIR] [--reps 20] \
         [--grid bias_resident] [--windows-per-cell auto|N] \
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--only packed|headsplit|slab]
 
 Imports `mmde_tpu_torch` from DIR (default: the checkout holding this file),
 so one copy of the script times two trees in turns on one card (unpack the
@@ -16,8 +16,10 @@ the tree has the head-split kernels, swin_large_v2's stage 1 the same way
 (the body the tree gives the type and, where the tree has both, the FMA
 body beside it);
 and, where it has the slab kernels, the flagship's four stage maps through
-them (float32 bias and mask, as the slab path streams them; the FMA body
-beside the tensor-core one where the tree has both). `--grid
+them (float32 bias and mask, as the slab path streams them; where the tree
+has the private `_fma`, the FMA body beside the body the tree gives the
+type: for fp32 maps the same-card A/B of the tensor-core K8' / K9' against
+the FMA ones). `--only` times one layout's kernels alone. `--grid
 bias_resident` adds the single-pass backward K4 (after the forward without
 log-sum-exp it follows) beside K2 at each train shape; `--windows-per-cell`
 adds the packed kernels at the W the JAX rule gives for that setting (K5
@@ -177,8 +179,9 @@ def bench_headsplit(shape, pairs, reps, gen, dtype="bfloat16") -> dict:
 
 def bench_slab(stage, pairs, reps, gen, dtype="bfloat16") -> dict:
     """The slab kernels on the map (float32 bias and mask, as the slab path
-    streams them); where the tree has both bodies for bf16 (the private
-    `_fma`), also the FMA body beside the tensor-core one (`*_fma_ms`)."""
+    streams them); where the tree has the private `_fma`, also the FMA body
+    (`*_fma_ms`) beside the body the tree gives `dtype` (the tensor cores
+    for either type since fp32 maps left the FMA body)."""
     import inspect
     from mmde_tpu_torch.ops import window_attention_slab as was
     Hp, Wp, C, nH, ws, masked = stage
@@ -236,6 +239,9 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="the operands' type (float32: fp32 bias and mask)")
+    p.add_argument("--only", default=None,
+                   choices=("packed", "headsplit", "slab"),
+                   help="time this layout's kernels only")
     args = p.parse_args(argv)
     if args.windows_per_cell != "auto":
         int(args.windows_per_cell)
@@ -253,18 +259,22 @@ def main(argv=None) -> int:
         flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
+    def wanted(layout):
+        return args.only in (None, layout) and _has(
+            f"mmde_tpu_torch.ops.window_attention_{layout}")
+
     for pairs in (1, 2):
-        for shape in BASE_STAGES:
+        for shape in BASE_STAGES if wanted("packed") else ():
             rec = bench_packed(shape, pairs, args.reps, gen, args.grid,
                                args.windows_per_cell, args.dtype)
             print(json.dumps({"tree": tree, "dtype": args.dtype, **rec}),
                   flush=True)
-        if _has("mmde_tpu_torch.ops.window_attention_headsplit"):
+        if wanted("headsplit"):
             rec = bench_headsplit(LARGE_STAGE1, pairs, args.reps, gen,
                                   args.dtype)
             print(json.dumps({"tree": tree, "dtype": args.dtype, **rec}),
                   flush=True)
-    if _has("mmde_tpu_torch.ops.window_attention_slab"):
+    if wanted("slab"):
         # after the others, so that their inputs do not depend on the tree
         for pairs in (1, 2):
             for stage in BASE_SLAB_STAGES:

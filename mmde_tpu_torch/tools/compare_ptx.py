@@ -15,7 +15,10 @@ by its name with that type (`fwd_tc_w_kernel<bf16, TB, M>` against
 that carry a per-file hash (the anonymous namespace, shared arrays) and
 virtual register numbers are set aside before comparing, so "same" means
 the same instructions in the same order. Prints one JSON line per kernel
-of OTHER, then one per kernel only this tree has. Needs nvcc; no card.
+of OTHER, then one per kernel only this tree has, then a summary: the
+kernels whose PTX differs from OTHER's and those only this tree has (a
+change that adds an instantiation lists it there and nothing else). Needs
+nvcc; no card.
 """
 from __future__ import annotations
 
@@ -150,6 +153,8 @@ def main(argv=None) -> int:
     work = args.out or tempfile.mkdtemp()
     os.makedirs(work, exist_ok=True)
     jobs = [(t, s) for s in SOURCES for t in (args.tree, here)]
+    summary = {"same_ptx": 0, "different_ptx": [], "only_this_tree": [],
+               "only_other_tree": []}
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _build(*j, work), jobs)))
     for src in SOURCES:
@@ -169,12 +174,20 @@ def main(argv=None) -> int:
                     ln[:1] in "+-" and not ln.startswith(("+++", "---"))
                     for ln in difflib.unified_diff(
                         body.splitlines(), mine[k].splitlines(), n=0))
+            if k is None:
+                summary["only_other_tree"].append(name)
+            elif rec["same_ptx"]:
+                summary["same_ptx"] += 1
+            else:
+                summary["different_ptx"].append(k)
             print(json.dumps(rec))
         for k in mine:
             if k not in matched:
+                summary["only_this_tree"].append(k)
                 print(json.dumps({"source": src, "kernel": k,
                                   "only_this_tree": True,
                                   "this": h_regs.get(k)}))
+    print(json.dumps({"summary": summary}))
     return 0
 
 

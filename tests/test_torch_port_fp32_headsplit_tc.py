@@ -24,7 +24,8 @@ float64 autograd and the scale-60 F3 case). Here, on the CPU:
     a (2, B_, nH, N) statistic tagged with its body; `_fma` and the
     autograd Function's private `fma` to the FMA entries; a backward handed
     the other body's statistic refuses it before any launch; fp32 slab maps
-    still on their FMA entries;
+    on the tensor-core slab entries too (their own file:
+    test_torch_port_fp32_slab_tc.py);
   * the fp32 branches of K4 and K5 in the sources: exp(s - m) with the
     difference first, dlogit_scale as sum(ds * (sc - lse)).
 """
@@ -258,23 +259,34 @@ def test_an_unaligned_fp32_view_is_copied_first(recorded):
 
 
 def test_fp32_slab_maps_keep_their_fma_entries(recorded):
-    """The slab wrapper's own rule: an fp32 map's forward and backward
-    reach the FMA slab entries (the (2, B*nW, nH, N) statistic between
-    them), a bf16 map the tensor-core ones."""
+    """The slab wrapper's own rule, which now sends fp32 maps to the
+    tensor cores as this module's rule sends fp32 views: an fp32 map's
+    forward and backward reach the tensor-core slab entries with qkv_bf16 0
+    and the (2, B*nW, nH, N) statistic between them, a bf16 map the same
+    entries with qkv_bf16 1 and (B*nW, nH, N); only the private `_fma`
+    reaches the FMA slab entries (the name is kept from when fp32 maps ran
+    there)."""
     rng = np.random.default_rng(7)
     ls = torch.full((NH, 1, 1), 1.5)
     bias = torch.zeros((NH, 16, 16))
-    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_tc")):
+    for dtype, fma in ((torch.float32, False), (torch.bfloat16, False),
+                       (torch.float32, True)):
         qmap = torch.from_numpy(rng.standard_normal(
             (1, 8, 8, 3 * C)).astype(np.float32)).to(dtype)
         g = torch.from_numpy(rng.standard_normal(
             (1, 8, 8, C)).astype(np.float32)).to(dtype)
-        lse = tslab._launch_forward(qmap, ls, bias, None, NH, 4, True)[1]
-        tslab._launch_backward(qmap, ls, bias, None, lse, g, NH, 4, True)
-        assert tuple(lse.shape) == ((2,) if not sfx else ()) + (4, NH, 16)
+        lse = tslab._launch_forward(qmap, ls, bias, None, NH, 4, True,
+                                    _fma=fma)[1]
+        tslab._launch_backward(qmap, ls, bias, None, lse, g, NH, 4, True,
+                               _fma=fma)
+        pair = fma or dtype == torch.float32
+        assert tuple(lse.shape) == ((2,) if pair else ()) + (4, NH, 16)
+        sfx = "" if fma else "_tc"
         assert [c["entry"] for c in recorded] == [
             "mmde_window_attention_slab_fwd" + (sfx or "_stats"),
-            "mmde_window_attention_slab_bwd" + sfx], dtype
+            "mmde_window_attention_slab_bwd" + sfx], (dtype, fma)
+        f, b = recorded[0]["args"], recorded[1]["args"]
+        assert f[-3] == b[-4] == int(dtype == torch.bfloat16)   # qkv_bf16
         recorded.clear()
 
 

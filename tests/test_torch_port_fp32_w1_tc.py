@@ -262,14 +262,15 @@ def test_the_fp32_statistic_is_a_pair_tagged_with_its_body(recorded, fma):
 
 
 def test_fp32_headsplit_and_slab_keep_their_fma_entries(recorded):
-    """The head-split and slab wrappers keep rules of their own: head-split
-    operands of either type reach the tensor-core entries (fp32 through the
-    packed fp32 instantiation); an fp32 slab map still reaches its FMA
-    entries (the slab tensor-core entries instantiate the kernels on bf16
-    only), a bf16 one its tensor-core ones."""
+    """The head-split and slab wrappers keep rules of their own, which now
+    both take either type to the tensor cores: head-split operands and slab
+    maps, bf16 or fp32 (fp32 through the packed fp32 instantiation, over
+    the views' strides or the map's layout), reach the tensor-core entries
+    with qkv_bf16 for their type (the name is kept from when fp32 slab maps
+    ran the FMA entries)."""
     rng = np.random.default_rng(6)
     B_, nH, N = 2, 3, 16
-    for dtype, tc in ((torch.float32, False), (torch.bfloat16, True)):
+    for dtype in (torch.float32, torch.bfloat16):
         qkv = torch.from_numpy(rng.standard_normal(
             (B_, N, 3 * nH * 32)).astype(np.float32)).to(dtype)
         q, k, v = twp._split_heads(qkv, 3, nH)
@@ -279,10 +280,10 @@ def test_fp32_headsplit_and_slab_keep_their_fma_entries(recorded):
         qmap = torch.from_numpy(rng.standard_normal(
             (1, 8, 8, 3 * nH * 32)).astype(np.float32)).to(dtype)
         tslab._launch_forward(qmap, ls, bias, None, nH, 4, True)
-        sfx = "_tc" if tc else "_stats"
         assert [e for e, _ in recorded] == [
             "mmde_window_attention_headsplit_fwd_tc",
-            "mmde_window_attention_slab_fwd" + sfx], (dtype, recorded)
+            "mmde_window_attention_slab_fwd_tc"], (dtype, recorded)
+        assert recorded[1][1][-3] == int(dtype == torch.bfloat16)
         recorded.clear()
 
 
@@ -319,10 +320,11 @@ def test_w1_entries_take_the_operand_type(src, entry, argtypes, tail):
 
 
 def test_w1_kernels_are_templates_over_the_operand_type():
-    """The W = 1 kernels take the operand type as a template argument, the
-    packed and head-split entries instantiate them on float (three bf16
-    pieces, the statistic hi + lo formed in fp64, the pair read back), and
-    the slab entries on bf16 only."""
+    """The W = 1 kernels take the operand type as a template argument, and
+    the packed, head-split and slab entries instantiate them on float
+    (three bf16 pieces, the statistic hi + lo formed in fp64, the pair read
+    back) as on bf16 (the slab entries through `launch_slab`, the map's
+    layout)."""
     fwd = _source("window_attention_fwd_tc.cu")
     bwd = _source("window_attention_bwd_tc.cu")
     assert re.search(r"template <template <typename> class L, typename T, "
@@ -341,7 +343,9 @@ def test_w1_kernels_are_templates_over_the_operand_type():
         slab = hs[hs.index('extern "C" int mmde_window_attention_slab_'):]
         assert re.findall(r"launch<Rows, (\w+),", hs) == \
             ["float", "bf16", "bf16"]
-        assert re.findall(r"launch<MapRows, (\w+),", slab) == ["bf16"] * 2
+        assert re.findall(r"launch_slab<(\w+),", slab) == [
+            "float", "bf16", "bf16"]
+        assert "launch<MapRows, T, TB, MXU_FP32>" in text
     assert "(double)m0 + log((double)l0)" in fwd
     # p = exp(s - m), the difference first; dlogit_scale centred on lse
     assert "ex2((s[j][0] - m0) * TC_LOG2E)" in fwd

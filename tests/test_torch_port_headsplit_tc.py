@@ -374,13 +374,13 @@ def test_unaligned_stride_raises(recorded, monkeypatch, entry_dtype):
 def test_tensor_core_rule_is_the_packed_one():
     """Head-split launches take the tensor cores by the packed module's
     head-split rule (one window per block always), bf16 and fp32 alike, as
-    packed launches do; the slab wrapper's own rule keeps fp32 maps on the
-    FMA body."""
+    packed launches do; the slab wrapper's own rule takes both types
+    too."""
     assert twp.headsplit_tensor_core_body(torch.bfloat16)
     assert twp.headsplit_tensor_core_body(torch.float32)
     assert twp.tensor_core_body(torch.float32)
     assert twp.slab_tensor_core_body(torch.bfloat16)
-    assert not twp.slab_tensor_core_body(torch.float32)
+    assert twp.slab_tensor_core_body(torch.float32)
 
 
 # ------------------------------------------------------- sources and build

@@ -1,16 +1,17 @@
 """PyTorch port vs JAX package: the slab kernels K8' / K9' on the tensor
 cores, and the slab FMA path's two-number log-sum-exp.
 
-bf16 slab launches (attn_impl "pallas_slab", read as "cuda_slab": every
+Slab launches (attn_impl "pallas_slab", read as "cuda_slab": every
 flagship block's attention on the (B, Hp, Wp, 3C) map) run
 csrc/window_attention_{fwd,bwd}_tc.cu through their slab entries: the
 head-split tensor-core bodies on another address function (`MapRows`, each
 window's token rows read and written in place in the map), in the TPU
 kernel's function (mode "fp32", the running row maximum for every head, fp32
-bias and mask tiles). Those kernels run only on the card (chip_smoke.py,
-kernel_cases_slab, holds them to the plain versions, to float64 autograd
-and MXU_APART times nearer the fp32 function than the "bf16"-mode plain
-version). Here, on the CPU:
+bias and mask tiles); bf16 maps here, fp32 maps (three bf16 pieces an
+operand) in test_torch_port_fp32_slab_tc.py. Those kernels run only on the
+card (chip_smoke.py, kernel_cases_slab, holds them to the plain versions,
+to float64 autograd and MXU_APART times nearer the fp32 function than the
+"bf16"-mode plain version). Here, on the CPU:
 
   * the arithmetic they rely on, emulated in plain torch
     (`mmde_tpu_torch.testing.tc_forward_heads` / `tc_backward_heads`) on the
@@ -253,12 +254,13 @@ def _map_inputs(dtype, ws=6, seed=3):
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_routing_follows_the_type(recorded, dtype, train):
-    """A bf16 map runs the slab tensor-core entries with the map's geometry
-    (B, Hp, Wp, C, nH, ws), fp32 bias and mask and, when training, the
-    (B*nW, nH, N) log-sum-exp, which the backward reads (the same buffer)
-    with dbias by atomics (mode 1); an fp32 map runs the FMA entries, whose
-    statistic is (2, B*nW, nH, N), hi and lo. The counters name the kernel
-    that ran."""
+    """Either type runs the slab tensor-core entries with the map's
+    geometry (B, Hp, Wp, C, nH, ws), qkv_bf16 for the map's type (0: fp32
+    operands in three bf16 pieces), fp32 bias and mask and, when training,
+    the log-sum-exp its type's statistic gives - (B*nW, nH, N) for bf16,
+    (2, B*nW, nH, N) hi and lo for fp32 - which the backward reads (the
+    same buffer) with dbias by atomics (mode 1). The counters name the
+    kernel that ran."""
     calls, _ = recorded
     qt, lt, bt, mt, gt = _map_inputs(dtype)
     kw = dict(num_heads=NH, window_size=6)
@@ -269,34 +271,25 @@ def test_routing_follows_the_type(recorded, dtype, train):
     else:
         with torch.no_grad():
             tslab.cosine_window_attention_slab(qt, lt, bt, mt, **kw)
-    tc = dtype == torch.bfloat16
-    fwd = ("mmde_window_attention_slab_fwd_tc" if tc else
-           "mmde_window_attention_slab_fwd_stats" if train else
-           "mmde_window_attention_slab_fwd")
-    want = [fwd] + (["mmde_window_attention_slab_bwd"
-                     + ("_tc" if tc else "")] if train else [])
+    bf = int(dtype == torch.bfloat16)
+    want = ["mmde_window_attention_slab_fwd_tc"] + (
+        ["mmde_window_attention_slab_bwd_tc"] if train else [])
     assert [c["entry"] for c in calls] == want
     geometry = [B, 12, 18, C, NH, 6]                # B, Hp, Wp, C, nH, ws
     f = calls[0]["args"]
-    if tc:
-        assert len(f) == len(tslab._FWD_TC_ARGTYPES)
-        assert list(f[6:12]) == geometry and f[12] == 0     # fp32 tiles
-        assert (f[5] is not None) == train                  # lse: training
-    else:
-        n_ptr = 6 if train else 5
-        assert list(f[n_ptr:n_ptr + 6]) == geometry
-        assert list(f[n_ptr + 6:n_ptr + 8]) == [0, 0]       # fp32 qkv, bias
+    assert len(f) == len(tslab._FWD_TC_ARGTYPES)
+    assert list(f[6:12]) == geometry
+    assert list(f[12:14]) == [bf, 0]                # qkv_bf16, fp32 tiles
+    assert (f[5] is not None) == train              # lse: training
     if train:
         b = calls[1]["args"]
-        assert len(b) == len(tslab._BWD_TC_ARGTYPES if tc
-                             else tslab._BWD_ARGTYPES)
+        assert len(b) == len(tslab._BWD_TC_ARGTYPES)
         assert list(b[10:16]) == geometry
-        assert b[-2] == 1                           # dbias by atomics
+        assert list(b[16:19]) == [bf, 0, 1]         # dbias by atomics
         assert b[4] == f[5]                         # its forward's lse
-    kernel = "window_attention_slab_fwd" + ("_tc" if tc else "")
-    counted = {kernel + ("+lse" if train else ""): 1}
+    counted = {"window_attention_slab_fwd_tc" + ("+lse" if train else ""): 1}
     if train:
-        counted["window_attention_slab_bwd" + ("_tc" if tc else "")] = 1
+        counted["window_attention_slab_bwd_tc"] = 1
     assert tslab.launch_counts() == counted
     key = (B * 6, 36, C, NH)
     assert tslab.LAUNCHES == 1 and tslab.LAUNCHES_BWD == int(train)
@@ -307,9 +300,9 @@ def test_routing_follows_the_type(recorded, dtype, train):
 
 def test_statistics_take_the_body_s_shape(recorded):
     """The forward hands the backward what its body reads: (B*nW, nH, N)
-    from the tensor-core forward, (2, B*nW, nH, N) (hi, lo: F3) from the
-    FMA one; a backward handed the other body's statistic raises before any
-    launch."""
+    from the bf16 tensor-core forward, (2, B*nW, nH, N) (hi, lo: F3) from
+    the FMA one and from the fp32 tensor-core one; a backward handed the
+    other body's statistic raises before any launch."""
     calls, _ = recorded
     qt, lt, bt, mt, gt = _map_inputs(torch.bfloat16)
     _, lse = tslab._launch_forward(qt, lt, bt, mt, NH, 6, True)
@@ -327,16 +320,17 @@ def test_statistics_take_the_body_s_shape(recorded):
     assert [c["entry"] for c in calls] == [
         "mmde_window_attention_slab_fwd_tc",
         "mmde_window_attention_slab_fwd_stats",
-        "mmde_window_attention_slab_fwd_stats"]
+        "mmde_window_attention_slab_fwd_tc"]
 
 
 @pytest.mark.parametrize("dtype,fma", [(torch.float32, False),
                                        (torch.bfloat16, True)])
 def test_fma_entries_get_the_hi_lo_pair(recorded, dtype, fma):
-    """F3 repaired in the slab FMA body: the FMA forward with statistics
-    writes into a (2, B*nW, nH, N) float32 buffer - hi at its base, lo
-    B*nW*nH*N floats on, as the C entry reads it - and the FMA backward is
-    handed that same buffer."""
+    """F3's pair, written by every slab forward that writes it - the fp32
+    tensor-core forward (fp32, not `_fma`) and the FMA forward (`_fma`) -
+    with statistics into a (2, B*nW, nH, N) float32 buffer - hi at its
+    base, lo B*nW*nH*N floats on, as the C entries read it - and the same
+    body's backward is handed that same buffer."""
     calls, _ = recorded
     qt, lt, bt, mt, gt = _map_inputs(dtype)
     q = qt.detach().as_subclass(_OnCard)
@@ -344,9 +338,10 @@ def test_fma_entries_get_the_hi_lo_pair(recorded, dtype, fma):
     assert tuple(lse.shape) == (2, B * 6, NH, 36)
     assert lse.dtype == torch.float32 and lse.is_contiguous()
     tslab._launch_backward(q, lt, bt, mt, lse, gt, NH, 6, True, _fma=fma)
+    sfx = "" if fma else "_tc"
     assert [c["entry"] for c in calls] == [
-        "mmde_window_attention_slab_fwd_stats",
-        "mmde_window_attention_slab_bwd"]
+        "mmde_window_attention_slab_fwd" + (sfx or "_stats"),
+        "mmde_window_attention_slab_bwd" + sfx]
     assert calls[0]["args"][5] == calls[1]["args"][4] == lse.data_ptr()
 
 
@@ -385,7 +380,8 @@ def test_private_fma_argument_reaches_the_fma_entries(recorded):
     ("mmde_window_attention_slab_fwd_tc", torch.bfloat16, {}),
     ("mmde_window_attention_slab_bwd_tc", torch.bfloat16,
      {"window_attention_slab_fwd_tc+lse": 1}),
-    ("mmde_window_attention_slab_fwd_stats", torch.float32, {})])
+    ("mmde_window_attention_slab_bwd_tc", torch.float32,
+     {"window_attention_slab_fwd_tc+lse": 1})])
 def test_failed_launch_raises(recorded, entry, dtype, counted):
     """A nonzero return (the C entries' -1 for arguments they refuse, or a
     CUDA error) raises RuntimeError naming the entry and code; nothing falls
@@ -405,11 +401,17 @@ def test_failed_launch_raises(recorded, entry, dtype, counted):
 
 
 def test_tensor_core_rule_is_the_packed_one():
-    """bf16 slab launches take the tensor cores by the packed module's rule;
-    fp32 keeps the FMA body."""
-    assert tslab._tc(torch.empty(1, dtype=torch.bfloat16), False)
-    assert not tslab._tc(torch.empty(1, dtype=torch.bfloat16), True)
-    assert not tslab._tc(torch.empty(1, dtype=torch.float32), False)
+    """Slab launches take the tensor cores by the packed module's rule
+    (`slab_tensor_core_body`): bf16 and fp32 maps, as the packed and
+    head-split rules take both types; only the private `_fma` reaches the
+    FMA body."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tslab._tc(torch.empty(1, dtype=dtype), False)
+        assert not tslab._tc(torch.empty(1, dtype=dtype), True)
+        assert twp.slab_tensor_core_body(dtype)
+        assert twp.slab_tensor_core_body(dtype) == \
+            twp.headsplit_tensor_core_body(dtype)
+    assert not twp.slab_tensor_core_body(torch.float16)
 
 
 # ------------------------------------------------------- sources and build
@@ -435,10 +437,12 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     tensor-core libraries the model's build already holds (no new library),
     every ctypes argument type matches its C parameter (pointers c_void_p,
     ints c_int), the geometry is the FMA slab entries' (B, Hp, Wp, C, nH,
-    ws) with their shape checks (whole windows, N * ws < 2^32 for the
-    multiply-shift, at most 65535 windows), every operand is a map_rows
-    layout, and the body runs mode MXU_FP32 with maxfree 0 (the TPU
-    kernel's function)."""
+    ws), then qkv_bf16 and bias_bf16 as there, with their shape checks
+    (whole windows, N * ws < 2^32 for the multiply-shift, at most 65535
+    windows) and a bf16 bias refused for an fp32 map; each type goes to the
+    file's `launch_slab`, whose every operand is a map_rows layout and whose
+    body runs mode MXU_FP32 (the forward with maxfree 0: the TPU kernel's
+    function)."""
     params, body = _entries(src)[entry]
     params = [p.strip() for p in params.split(",")]
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
@@ -447,18 +451,24 @@ def test_tensor_core_entries_and_signatures(entry, src, argtypes):
     names = [p.split()[-1].lstrip("*") for p in params]
     assert names[names.index("B"):names.index("ws") + 1] == [
         "B", "Hp", "Wp", "C", "nH", "ws"]
-    assert names[-3 if "bwd" in entry else -2:-1] == (
-        ["bias_bf16", "dbias_mode"] if "bwd" in entry else ["bias_bf16"])
+    assert names[-4 if "bwd" in entry else -3:-1] == (
+        ["qkv_bf16", "bias_bf16", "dbias_mode"] if "bwd" in entry
+        else ["qkv_bf16", "bias_bf16"])
     assert "Hp % ws != 0 || Wp % ws != 0" in body
     assert "N * ws >= (1ll << 32)" in body and "> 65535" in body
     assert "ws * Wp >= (1ll << 31)" in body
+    assert "if (!qkv_bf16 && bias_bf16) return -1;" in body
+    assert [m.group(1) for m in re.finditer(r"launch_slab<(\w+, \w+)>",
+                                            body)] == [
+        "float, float", "bf16, bf16", "bf16, float"]
+    text = _src(src)
+    helper = re.search(r"\nint launch_slab\((.*?)\n}", text, re.S).group(1)
     n_maps = 7 if "bwd" in entry else 4       # q, k, v, (g,) out / dq, dk, dv
-    assert body.count("map_rows(") == n_maps
-    assert "MXU_FP32" in body and "MXU_FOLD" not in body
-    assert len(re.findall(r"launch<MapRows, bf16, (?:bf16|float), MXU_FP32>",
-                          body)) == 2
-    if "fwd" in entry:      # launch<MapRows, TB, MXU_FP32>(..., maxfree 0, s)
-        assert len(re.findall(r",\s+0, s\);", body)) == 2
+    assert helper.count("map_rows(") == n_maps
+    assert "launch<MapRows, T, TB, MXU_FP32>" in helper
+    assert "MXU_FOLD" not in helper
+    if "fwd" in entry:      # launch<MapRows, T, TB, MXU_FP32>(..., 0, stream)
+        assert re.search(r",\s+0, stream\);", helper)
     lib = "window_attention_bwd_tc" if "bwd" in entry else \
         "window_attention_fwd_tc"
     assert twp.library_specs()[lib] == ((src,), ())

@@ -335,10 +335,10 @@ def test_private_arguments_reach_the_fma_body_and_the_sweep(recorded):
 def test_tensor_core_body_rule():
     assert twp.tensor_core_body(torch.bfloat16, 1)
     assert twp.tensor_core_body(torch.bfloat16, 4)
-    # fp32 packed launches at W = 1 too, and head-split; slab: bf16 only
+    # fp32 packed launches at W = 1 too, head-split and slab
     assert twp.tensor_core_body(torch.float32, 1)
     assert twp.headsplit_tensor_core_body(torch.float32)
-    assert not twp.slab_tensor_core_body(torch.float32)
+    assert twp.slab_tensor_core_body(torch.float32)
 
 
 # ------------------------------------------------------- sources and build
