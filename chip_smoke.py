@@ -33,8 +33,13 @@ What it does, each phase printing one JSON object on a line of its own:
                 dqkv, dbias, dlogit_scale against the plain backward and
                 against float64 autograd of the plain forward; ms, plain
                 ms, bound; each checks which kernels its launches ran
-                ("split": K3's FMA pass behind the tensor-core passes, fp32
-                too); fp32 also the FMA body's forward and backward in turns
+                ("split": the tensor-core K3 behind the tensor-core passes,
+                either type; `k3`: its dbias against K3's plain version and
+                float64, MXU_APART times nearer than the "bf16" mode's,
+                bitwise over two launches; timed alone on the dq pass's
+                delta in turns with its FMA body, k3_ms / k3_fma_ms, beside
+                k3_plain_ms, its bound, FMA bound and tensor-core bound);
+                fp32 also the FMA body's forward and backward in turns
                 (fma_ms). Each case also holds the output of the forward
                 that recorded the graph (the forward kernel's training entry
                 point, which writes the log-sum-exp as well) against the
@@ -43,7 +48,9 @@ What it does, each phase printing one JSON object on a line of its own:
   f3_packed     F3 on both packed bodies at W = 1 (fp32, every head at
                 scale 60, flagship stage 1 trained): the tensor-core K1 / K2
                 and the FMA bodies through the autograd Function, each
-                dlogit_scale within TOL_F3 of float64.
+                dlogit_scale within TOL_F3 of float64; each body's K3
+                ("split", on its own statistic) dbias within TOL_BWD's fp32
+                limit of float64.
   kernel_cases_headsplit
                 the head-split forward (K6') and backward (K7') against
                 their plain versions, the backward also against float64
@@ -63,7 +70,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 in the kernels line). Then F3 (`f3`): fp32 at swin_large's
                 train shape with every head at scale 60, both bodies
                 through the autograd Function, dlogit_scale within TOL_F3
-                of float64.
+                of float64. Masked swin_large and swin_tiny stage 1 also
+                under MMDE_ATTN_GRID=split (`split`): the tensor-core
+                passes, then the head-split tensor-core K3, gradients at
+                TOL_BWD, K3 bitwise over two launches and timed alone.
   serve         the flagship model (swin_base_v2 + decoder_v2, bfloat16,
                 two 480x640 frames) built at full width from a seed,
                 answering requests through mmde_tpu_torch.tools.infer.predict
@@ -96,7 +106,12 @@ What it does, each phase printing one JSON object on a line of its own:
                 head-split backward reaches) and in bfloat16 (the stage-1
                 gradients, TOL_TRAIN_PARITY_BF16), both types through the
                 head-split tensor-core kernels; every train-parity step on
-                "cuda" launches tensor-core kernels only.
+                "cuda" launches tensor-core kernels only. Then
+                (`block0_k7_dlogit_scale`) block 0's attention inputs of
+                the bf16 step's kernel path, captured, and on them K7' and
+                the plain bf16 path against float64: the dlogit_scale of K7'
+                within twice the plain path's distance (or TOL_BWD's bf16
+                limit).
   kernel_cases_slab
                 the slab kernels (K8' forward, K9' backward: the windows
                 read straight off the (B, Hp, Wp, 3C) map) against their
@@ -158,7 +173,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 backward and float64 autograd (TOL_*, TOL_MXU_BF16), bf16
                 MXU_APART times nearer its own mode's plain version than
                 the other's; ms beside the FMA body's (bf16, in turns) and
-                K1 / K2 at W = 1 in the same call, tc_units, SDPA.
+                K1 / K2 at W = 1 in the same call, tc_units, SDPA; every
+                backward also under "split" (the tensor-core K3 at one
+                window after K5's passes).
   train_resident
                 the trainer entry point (`tools.train_steps.main`, 4 steps)
                 in a process of its own under MMDE_ATTN_GRID=bias_resident:
@@ -208,7 +225,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 a kernel that quietly rounds operands fails. ms beside the
                 FMA body's in the same call (in turns), plain ms, the SDPA
                 yardstick, the bound and the products the design needs
-                (tc_units, tc_flops); the backward also without dbias. The
+                (tc_units, tc_flops); the backward also without dbias, and
+                the tensor-core K3 of the mode (`k3`, as in
+                kernel_cases_backward, at the mode's limits). The
                 kernels line adds the tensor-core bound (tc_bound_ms): those
                 products at the bf16 mma.sync rate the roofline phase
                 measured in the same run.
@@ -232,6 +251,14 @@ What it does, each phase printing one JSON object on a line of its own:
                 train_resident, serve_w / train_w and these run side by
                 side: their request and step times share the card
                 (`shared_card`).
+  train_split   after those three: the bf16 flagship trainer at full width
+                (2 frame pairs, 1 warm and 2 timed steps) in a process of
+                its own under MMDE_ATTN_GRID=split: step ms, peak bytes,
+                launches (tensor-core K1+lse, K2 and K3 only: 72 a step),
+                one step's device ms by kernel group with K3's own sum, and
+                one more step with every attention backward launched twice
+                on the same inputs: dbias (and dqkv, dlogit_scale) bitwise
+                equal, block by block.
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
@@ -253,10 +280,11 @@ What it does, each phase printing one JSON object on a line of its own:
                 and k with bias + mask as its attn_mask; the normalisation
                 and the SDPA backend beside it; for a backward, that call's
                 backward under autograd). K4's and K5's entries carry the
-                launches of train_resident, serve_w and train_w; K2's also
-                K3's own time, bound and FMA bound; T1-T3's the launches of
-                the tool runs above, K1 / K2 in the bf16 mode those of
-                train_mxu.
+                launches of train_resident, serve_w and train_w; the
+                tensor-core K3's (window_attention_dbias_tc) those of
+                train_split, its numbers kernel_cases_backward's; T1-T3's
+                the launches of the tool runs above, K1 / K2 in the bf16
+                mode those of train_mxu.
   profile_resident, profile_w
                 (--profile only) Path A and Path B, a served request and a
                 train step each, device time by kernel group, on the
@@ -329,6 +357,9 @@ KERNEL_RESIDENT_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:636 "
 # the two grid modes of K2 (K4 is "bias_resident", compared on its own)
 WINDOW_GRID_MODES = ("window_resident", "split")
 # and so do the slab entry points
+# K3 (MMDE_ATTN_GRID=split) on the tensor cores, in the backward TC source
+KERNEL_K3_REPLACES = ("mmde_tpu/ops/window_attention_packed.py:842 "
+                      "(_dbias_body; _pallas_dbias :912; pallas_call :989)")
 KERNEL_SLAB_REPLACES = ("mmde_tpu/ops/window_attention_slab.py:109 "
                         "(_fwd_body; pallas_call :264)")
 KERNEL_SLAB_BWD_REPLACES = ("mmde_tpu/ops/window_attention_slab.py:140 "
@@ -685,12 +716,47 @@ def _case_head(shape, dtype, mask) -> dict:
             "dtype": str(dtype).replace("torch.", "")}
 
 
+def check_k3(got, again, own, other, truth, tol_plain, tol_truth,
+             mxu: str, what: str) -> dict:
+    """The tensor-core K3's fp32 dbias `got` against K3's plain version in
+    its own mode (`own`, fp32) at `tol_plain` and float64 autograd
+    (`truth`) at `tol_truth` (rel-L2), MXU_APART times nearer `own` than
+    the other mode's plain version (`other`; _nearer), and bitwise equal to
+    a second launch on the same inputs (`again`); raises on a miss or a
+    value that is not finite."""
+    rec = {"mxu": mxu, "vs_plain": _errs(got, own),
+           "vs_float64": _errs(got, truth),
+           "tolerance_rel_l2": {"vs_plain": tol_plain,
+                                "vs_float64": tol_truth},
+           "bitwise_equal_over_two_launches": bool(torch.equal(got, again))}
+    _nearer(rec, "dbias", got, own, other)
+    if not (bool(torch.isfinite(got).all())
+            and rec["bitwise_equal_over_two_launches"]
+            and rec["vs_plain"]["rel_l2"] <= tol_plain
+            and rec["vs_float64"]["rel_l2"] <= tol_truth):
+        raise RuntimeError(f"tensor-core K3 at {what}: {json.dumps(rec)}")
+    return rec
+
+
+def k3_turns(tc, fma) -> dict:
+    """K3 alone, the tensor-core kernel and its FMA body in turns (kernel,
+    FMA, FMA, kernel), each launched straight on its own dq pass's delta."""
+    t = [time_ms(f, reps=8, warm=2) for f in (tc, fma, fma, tc)]
+    return {"k3_ms": (t[0] + t[3]) / 2, "k3_fma_ms": (t[1] + t[2]) / 2,
+            "k3_ms_turns": t}
+
+
 def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     """K2 (both dbias grid modes) against the plain backward and against
     float64 autograd of the plain forward, at one stage shape; and the
     output of the forward that recorded the graph (K1 through its training
     entry point, which also writes the log-sum-exp) against the plain
-    forward, under rec["forward"]. Head 0 sits
+    forward, under rec["forward"]. Under "split" the tensor-core passes run
+    without dbias and the tensor-core K3 after them (`k3`: its fp32 dbias
+    against K3's plain version and float64 at TOL_BWD, MXU_APART times
+    nearer than the "bf16"-mode plain version, bitwise over two launches;
+    timed alone on the dq pass's delta in turns with its FMA body, beside
+    its plain version, its bound and its products' bound). Head 0 sits
     above the ln(100) clamp (its dlogit_scale must be exactly 0), head 1 is
     hot (scale e^4 = 54.6 > 30: the forward's row-maximum softmax form)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
@@ -712,10 +778,11 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             grid_mode=grid_mode)
         out.backward(g)
         torch.cuda.synchronize()
-        # both types on the tensor cores; "split": K3's FMA pass after them
+        # both types on the tensor cores; "split": the tensor-core K3 after
+        # the passes
         _tc_launched(before, dict(
             {"window_attention_fwd_tc+lse": 1, "window_attention_bwd_tc": 1},
-            **({"window_attention_dbias": 1} if grid_mode == "split"
+            **({"window_attention_dbias_tc": 1} if grid_mode == "split"
                else {})), f"K2 ({grid_mode}) at {json.dumps(rec)}")
         return [t.grad for t in leaves], out.detach()
 
@@ -739,6 +806,24 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
     dflt = rec[wap.DEFAULT_GRID_MODE]["vs_float64"]
     rec["max_abs_err"] = dflt["dqkv"]["max_abs"]
     rec["rel_l2_err"] = dflt["dqkv"]["rel_l2"]
+    mode = wap.resolve_mxu(None, dtype)
+    with torch.no_grad():
+        lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
+        delta = wap._backward_passes(qkv, ls, bias, mask, lse, g, nH, False,
+                                     1, mode, False)[3]
+
+        def k3():
+            return wap._launch_dbias(qkv, ls, bias, mask, lse, g, delta, nH)
+        got = k3()
+
+        def plain_k3(mxu=mode):
+            return wap.cosine_window_attention_packed_dbias_plain(
+                qkv, ls, bias, mask, g, num_heads=nH, mxu=mxu)
+        rec["k3"] = check_k3(got, k3(), plain_k3(), plain_k3("bf16"),
+                             truth[2], TOL_BWD[name]["dbias"],
+                             TOL_BWD[name]["dbias"], mode,
+                             f"K3 {json.dumps(rec)}")
+        del got
     del truth, want_out
     if timed:
         leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
@@ -777,11 +862,18 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
             rec["plain_ms"] = time_ms(
                 lambda: wap.cosine_window_attention_packed_backward_plain(
                     qkv, ls, bias, mask, g, num_heads=nH), reps=3, warm=1)
-            # K3 alone: the split backward with dbias less the same without
-            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True)[1]
-            split = [time_ms(lambda: wap._launch_backward(
-                qkv, ls, bias, mask, lse, g, nH, "split", want), reps=8,
-                warm=2) for want in (True, False)]
+            # K3 alone, each body launched on its own forward's statistic
+            # and its own dq pass's delta
+            lse_k = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                        _fma=True)[1]
+            delta_k = wap._backward_passes(qkv, ls, bias, mask, lse_k, g, nH,
+                                           False, 1, mode, True)[3]
+            rec.update(k3_turns(k3, lambda: wap._launch_dbias(
+                qkv, ls, bias, mask, lse_k, g, delta_k, nH, _fma=True)))
+            rec["k3_plain_ms"] = time_ms(plain_k3, reps=3, warm=1)
+            rec["k3_tc"] = tc_work(shape["B_"], shape["N"], nH,
+                                   12.0 if dtype == torch.float32 else 2.0)
+            del lse_k, delta_k
             if dtype == torch.float32:
                 # the tensor-core kernels and the fp32-FMA bodies in turns,
                 # each backward on its own forward's statistic
@@ -804,7 +896,6 @@ def compare_backward(shape, dtype, gen, *, timed=True) -> dict:
                             "fma_ms": (ft[1] + ft[2]) / 2, "ms_turns": ft})
                 rec.update({"ms_launch": (bt[0] + bt[3]) / 2,
                             "fma_ms": (bt[1] + bt[2]) / 2, "ms_turns": bt})
-        rec["k3_ms"] = split[0] - split[1]
         rec["k3_bound"] = dbias_bound(shape["B_"], shape["N"], shape["C"], nH,
                                       rec["nW"], dtype, bias.dtype)
         rec.update(backward_bound(shape["B_"], shape["N"], shape["C"], nH,
@@ -937,6 +1028,9 @@ def phase_f3_packed() -> dict:
     model's path - and the fp32-FMA bodies (the Function's private `fma`),
     each checked by its launches. The statistic is (2, B_, nH, N), hi + lo,
     and each body's dlogit_scale lies within TOL_F3 of float64 autograd.
+    Under "split" each body's K3 after its passes (`dbias_split`, on its own
+    forward's statistic): dbias within TOL_BWD's fp32 dbias limit of
+    float64.
     Beside them (`one_number`) the FMA backward on the one-number statistic
     the packed body wrote before its repair, hi + lo rounded to one fp32 and
     lo 0 - at best that body's figure (its lse was m + logf(l) in fp32)."""
@@ -969,10 +1063,19 @@ def phase_f3_packed() -> dict:
         with torch.no_grad():
             lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
                                       _fma=fma)[1]
+            before = dict(wap.LAUNCHES_BY_KERNEL)
+            dbias = wap._launch_backward(qkv, ls, bias, mask, lse, g, nH,
+                                         "split", True, _fma=fma)[2]
+            torch.cuda.synchronize()
+            sfx = "" if fma else "_tc"
+            _tc_launched(before, {f"window_attention_bwd{sfx}": 1,
+                                  f"window_attention_dbias{sfx}": 1},
+                         f"f3_packed split ({body})")
         rec[body] = {"statistic_shape": list(lse.shape),
                      "dlogit_scale": _errs(leaves[1].grad, truth[1]),
-                     "dqkv": _errs(leaves[0].grad, truth[0])}
-        del leaves, out
+                     "dqkv": _errs(leaves[0].grad, truth[0]),
+                     "dbias_split": _errs(dbias, truth[2])}
+        del leaves, out, dbias
     with torch.no_grad():
         one = torch.stack([(lse[0].double() + lse[1].double()).float(),
                            torch.zeros_like(lse[1])])
@@ -980,11 +1083,14 @@ def phase_f3_packed() -> dict:
                                    "window_resident", True, _fma=True)
     rec["one_number"] = {"dlogit_scale": _errs(old[1], truth[1]),
                          "dqkv": _errs(old[0], truth[0])}
+    rec["tolerance_dbias_split_rel_l2"] = TOL_BWD["float32"]["dbias"]
     del truth, old
     torch.cuda.empty_cache()
     emit("f3_packed", rec)
     if not all(rec[b]["statistic_shape"][0] == 2
                and rec[b]["dlogit_scale"]["rel_l2"] <= TOL_F3
+               and rec[b]["dbias_split"]["rel_l2"]
+               <= TOL_BWD["float32"]["dbias"]
                for b in ("tensor_core", "fma")):
         raise RuntimeError(f"f3_packed: {json.dumps(rec)}")
     return rec
@@ -1031,8 +1137,63 @@ def _views(qkv, nH):
                                                             4).unbind(0)
 
 
+def headsplit_split(qkv, ls, bias, mask, g, plain, truth, dtype,
+                    timed: bool, what: str) -> dict:
+    """Under MMDE_ATTN_GRID=split (the packed module's DEFAULT_GRID_MODE,
+    set for the call) the head-split backward through the autograd
+    Function: the tensor-core passes without dbias, then the tensor-core K3
+    (its launches checked); dqkv, dlogit_scale and dbias against the plain
+    backward and float64 at TOL_BWD; K3's dbias bitwise equal over two
+    launches on the passes' delta. Timed: K3 alone beside its plain
+    version, its bound and its products (2 units bf16, 12 fp32)."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    nH, name = ls.numel(), str(dtype).replace("torch.", "")
+    leaves = [t.detach().clone().requires_grad_() for t in (qkv, ls, bias)]
+    before = dict(ths.LAUNCHES_BY_KERNEL)
+    with _packed_settings({"DEFAULT_GRID_MODE": "split"}):
+        out = ths.cosine_window_attention_headsplit(
+            *_views(leaves[0], nH), leaves[1], leaves[2], mask)
+        out.backward(g)
+    torch.cuda.synchronize()
+    _tc_launched(before, {"window_attention_headsplit_fwd_tc+lse": 1,
+                          "window_attention_headsplit_bwd_tc": 1,
+                          "window_attention_headsplit_dbias_tc": 1},
+                 f"split {what}", ths)
+    rec = _check_against([t.grad for t in leaves], {
+        "vs_plain": (plain, TOL_BWD[name]),
+        "vs_float64": (truth, TOL_BWD[name])}, f"split {what}")
+    del leaves, out
+    q, k, v = _views(qkv, nH)
+    with torch.no_grad():
+        lse = ths._launch_forward(q, k, v, ls, bias, mask, True)[1]
+        delta = ths._backward_passes(q, k, v, ls, bias, mask, lse, g, True,
+                                     True, False)[5]
+
+        def k3():
+            return ths._launch_dbias(q, k, v, g, ls, bias, mask, lse, delta)
+        got = k3()
+        rec["k3_bitwise_equal_over_two_launches"] = bool(
+            torch.equal(got, k3()))
+        if not rec["k3_bitwise_equal_over_two_launches"]:
+            raise RuntimeError(f"head-split K3 not bitwise equal over two "
+                               f"launches at {what}")
+        if timed:
+            B_, N = qkv.shape[:2]
+            rec["k3_ms"] = time_ms(k3, reps=8, warm=2)
+            rec["k3_plain_ms"] = time_ms(
+                lambda: ths.cosine_window_attention_headsplit_dbias_plain(
+                    q, k, v, ls, bias, mask, g), reps=3, warm=1)
+            rec["k3_bound"] = dbias_bound(
+                B_, N, qkv.shape[2] // 3, nH,
+                0 if mask is None else mask.shape[0], dtype, torch.float32)
+            rec["k3_tc"] = tc_work(B_, N, nH, 12.0 if dtype == torch.float32
+                                   else 2.0)
+        del got, lse, delta
+    return rec
+
+
 def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
-                      timed: bool = True) -> dict:
+                      timed: bool = True, split: bool = False) -> dict:
     """K6' (serving entry, and the training entry that also writes the
     log-sum-exp) against the plain forward; K7' against the plain backward
     and against float64 autograd of the plain forward, at K1 / K2's
@@ -1045,7 +1206,8 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
     its operands fails). Timed (timed=True): the kernel, plain, bound, the
     FMA body (`_fma`) in turns with the kernel (kernel, FMA, FMA, kernel),
     the SDPA yardstick in q's type and the products the design needs
-    (tc_work: bf16 K1's 3 units, K2's 8; fp32 12 and 30)."""
+    (tc_work: bf16 K1's 3 units, K2's 8; fp32 12 and 30). `split`: also
+    the backward under MMDE_ATTN_GRID=split (headsplit_split)."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     qkv, ls, bias, mask, g = make_headsplit_inputs(shape, dtype, with_mask,
                                                    gen)
@@ -1126,6 +1288,9 @@ def compare_headsplit(shape: dict, dtype, with_mask: bool, gen,
             :3 if f32 else 1]:
         _nearer(rec, n, a, own, other)
     del want_o, others
+    if split:
+        rec["split"] = headsplit_split(qkv, ls, bias, mask, g, plain, truth,
+                                       dtype, timed, json.dumps(rec))
     del got, plain, truth, leaves, grads, out, want
     if timed:
         B_, N, C, nW = shape["B_"], shape["N"], shape["C"], rec["nW"]
@@ -1243,8 +1408,10 @@ def phase_kernels_headsplit(timed: bool = True) -> list:
     """K6' / K7' at every head-split shape, bf16 and fp32 (both on the
     tensor-core kernels), masked and unmasked; timed at swin_large's (the
     served and trained paths), the others checked only, to keep the script
-    inside its time; then F3 on both fp32 bodies (f3_headsplit). The
-    phase's line is printed, then it fails if the F3 case missed."""
+    inside its time; masked swin_large and swin_tiny stage 1 also under
+    MMDE_ATTN_GRID=split (the tensor-core K3); then F3 on both fp32 bodies
+    (f3_headsplit). The phase's line is printed, then it fails if the F3
+    case missed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2468)
     cases = []
@@ -1253,7 +1420,10 @@ def phase_kernels_headsplit(timed: bool = True) -> list:
             for with_mask in (False, True):     # every such stage shifts
                 cases.append(compare_headsplit(
                     shape, dtype, with_mask, gen,
-                    timed=timed and shape["model"] == "swin_large_v2"))
+                    timed=timed and shape["model"] == "swin_large_v2",
+                    split=with_mask and shape["stage"] == 1
+                    and shape["model"] in ("swin_large_v2",
+                                           "swin_tiny_v2")))
     f3 = f3_headsplit(gen)
     emit("kernel_cases_headsplit", {
         "cases": cases, "f3": f3,
@@ -1879,9 +2049,11 @@ def _profile(fn) -> dict:
                 or "fwd_tc_w_kernel" in n):
             # K1 (FMA or tensor-core body), K6', K8', K5
             return "window_attention_fwd (this repo's kernel)"
-        if ("bwd_dq_" in n or "bwd_dkv_" in n or "bwd_dbias_kernel" in n
-                or "bwd_resident" in n):
-            # K2 / K3 / K7' / K9' / K5's passes, K4 (any body)
+        if "bwd_dbias" in n:
+            # K3 (MMDE_ATTN_GRID=split; either body)
+            return "window_attention_dbias (this repo's kernel)"
+        if "bwd_dq_" in n or "bwd_dkv_" in n or "bwd_resident" in n:
+            # K2 / K7' / K9' / K5's passes, K4 (any body)
             return "window_attention_bwd (this repo's kernel)"
         if "multi_tensor_apply" in n:
             return "optimizer (foreach AdamW, grad zeroing)"
@@ -2326,6 +2498,85 @@ def phase_train_parity(backbone: str = "swin_base_v2", pairs: int = 1,
     return rec
 
 
+def k7_block0() -> dict:
+    """The bf16 swin_large stage-1 dlogit_scale of parity_large's bf16 step
+    (ROADMAP Queue C): block 0's attention inputs - q, k, v, logit_scale,
+    bias, mask and the gradient of its output - captured from that step's
+    kernel path (the deterministic trainer, the same weights and batch);
+    on those exact inputs K7' (the head-split tensor-core backward, through
+    the autograd Function) and the plain bf16 path (the "torch"
+    attention's autograd in bf16) against float64 autograd of the plain
+    forward: dlogit_scale (rel-L2 over the heads and max abs), dq / dk / dv
+    and dbias (rel-L2). Raises if K7' lies more than twice as far from
+    float64 as the plain bf16 path and outside TOL_BWD's bf16 limit."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    from mmde_tpu_torch.ops.window_attention import cosine_window_attention
+    state, step, init, batch = _parity_trainer("swin_large_v2", 1,
+                                               "bfloat16")
+    fn = ths._HeadSplitWindowAttention
+    apply, cap = fn.apply, {}
+
+    def spy(*args):
+        out = apply(*args)
+        if not cap:
+            cap["x"] = [a.detach().clone() if torch.is_tensor(a) else a
+                        for a in args[:6]]
+            out.register_hook(lambda g: cap.setdefault("g", g.detach()
+                                                       .clone()))
+        return out
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        state.model.load_state_dict(init)
+    _set_attn_impl(state.model, "cuda")
+    fn.apply = spy
+    try:
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        del fn.apply
+        torch.backends.cudnn.allow_tf32 = old
+        with torch.no_grad():
+            state.model.load_state_dict(init)
+    (q, k, v, ls, bias, mask), g = cap["x"], cap["g"]
+
+    def grads(attn, dt=None, **kw):
+        leaves = [t.detach().to(dt or t.dtype).requires_grad_()
+                  for t in (q, k, v, ls, bias)]
+        m = None if mask is None else mask.to(dt or mask.dtype)
+        out = attn(*leaves, m, **kw)
+        return torch.autograd.grad(out, leaves, g.to(out.dtype))
+    truth = grads(ths.cosine_window_attention_headsplit_plain, torch.float64,
+                  compute_dtype=torch.float64)
+    rec = {"model": "swin_large_v2", "block": "encoder.layers.0.blocks.0",
+           "B_": q.shape[0], "N": q.shape[2], "nH": q.shape[1],
+           "dtype": str(q.dtype).replace("torch.", ""),
+           "masked": mask is not None,
+           "logit_scale": [float(x) for x in ls.flatten()]}
+    for path, attn in (("k7_tensor_core", ths.cosine_window_attention_headsplit),
+                       ("plain_bf16", cosine_window_attention)):
+        got = grads(attn)
+        dls = _errs(got[3], truth[3])
+        rec[path] = {"dlogit_scale": dls,
+                     "dlogit_scale_by_head": [float(x) for x in
+                                              got[3].flatten()],
+                     "dqkv": _errs(torch.stack(got[:3]),
+                                   torch.stack(truth[:3])),
+                     "dbias": _errs(got[4], truth[4])}
+    rec["float64_dlogit_scale_by_head"] = [float(x) for x in
+                                           truth[3].flatten()]
+    k7 = rec["k7_tensor_core"]["dlogit_scale"]["rel_l2"]
+    plain = rec["plain_bf16"]["dlogit_scale"]["rel_l2"]
+    rec["k7_over_plain"] = k7 / max(plain, 1e-300)
+    rec["ok"] = k7 <= max(2.0 * plain, TOL_BWD["bfloat16"]["dlogit_scale"])
+    if not rec["ok"]:
+        raise RuntimeError(f"K7' dlogit_scale on block 0's inputs: "
+                           f"{json.dumps(rec)}")
+    del cap, truth
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _entry(name, shape, source, replaces, n, c, pairs=1,
            dtype="bf16") -> dict:
     where = (f"[{shape['model'].rsplit('_', 1)[0]} stage{shape['stage']} "
@@ -2456,15 +2707,9 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
                        KERNEL_BWD_REPLACES, nb, t, pairs, dtype=label)
             if "ms_no_dbias" in t:
                 e["ms_no_dbias"] = t["ms_no_dbias"]
-            e["ms_split_dbias"] = c["ms_split"]     # K3, not the default
-            # K3 alone (0 launches on this path), its own bound; no single
-            # PyTorch call computes dbias alone
-            e["k3_ms"] = c["k3_ms"]
-            e["k3_bound_ms"] = c["k3_bound"]["bound_ms"]
-            e["k3_bound_by"] = c["k3_bound"]["bound_by"]
-            e["k3_fma_bound_ms"] = c.get("k3_fma_bound_ms")
-            e["k3_fma_chain_bound_ms"] = c.get("k3_fma_chain_bound_ms")
-            e["k3_library_ms"] = None
+            # the backward under "split": the passes and K3 (its own
+            # entries: contract_k3)
+            e["ms_split_dbias"] = c["ms_split"]
         else:
             # the tensor-core kernels (either type),
             # kernel_cases_headsplit's numbers
@@ -2480,6 +2725,38 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
         entries.append(e)
     for e in entries:
         e["dtype"] = dtype
+    return entries
+
+
+def contract_k3(k2_cases: list, train_split: dict) -> list:
+    """The tensor-core K3 on the bf16 flagship's step under
+    MMDE_ATTN_GRID=split, one entry per stage shape (2 frame pairs, stages
+    1-2 masked): launches from train_split; error against float64, K3 alone
+    on the dq pass's delta (ms; fma_ms its FMA body in turns), K3's plain
+    version's time, its bound and its products' bound from
+    kernel_cases_backward's bf16 case at that shape. No PyTorch call
+    computes dbias alone (library_ms null)."""
+    entries = []
+    for shape in stage_shapes(batch=train_split["frame_pairs"]):
+        key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
+        c = _find(k2_cases, shape, train_split["frame_pairs"])
+        k3 = c["k3"]["vs_float64"]
+        rec = {"max_abs_err": k3["max_abs"], "rel_l2_err": k3["rel_l2"],
+               "ms": c["k3_ms"], "plain_ms": c["k3_plain_ms"],
+               "bound_ms": c["k3_bound"]["bound_ms"],
+               "bound_by": c["k3_bound"]["bound_by"], "library_ms": None,
+               "fma_ms": c["k3_fma_ms"]}
+        rec.update({k: c["k3_tc"][k] for k in ("tc_units", "tc_bound_ms",
+                                                "tc_rate_TFLOP_s")})
+        e = _entry("window_attention_dbias_tc", shape, KERNEL_TC_BWD_SOURCE,
+                   KERNEL_K3_REPLACES,
+                   train_split["_by_kernel"].get(
+                       "window_attention_dbias_tc", {}).get(key, 0),
+                   rec, train_split["frame_pairs"])
+        e.update(dtype="bfloat16",
+                 bitwise_equal_over_two_launches=c["k3"][
+                     "bitwise_equal_over_two_launches"])
+        entries.append(e)
     return entries
 
 
@@ -2775,9 +3052,9 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
     tensor cores (tc_units) and the SDPA yardstick in qkv's type; K1 / K2
     (W = 1) in the same call. With the stage's mask or without (the W of a
     shifted stage's blocks depends on it); head 0 clamped, head 1 hot.
-    fp32 backward: also under grid_mode="split" (K5's passes, then K3's
-    dbias pass on the FMA body reading the tensor-core forward's
-    statistic), held to the same limits. `pairs`: the frame pairs of the
+    Every backward also under grid_mode="split" (K5's passes, then the
+    tensor-core K3 at one window on the tensor-core forward's statistic),
+    held to the same limits. `pairs`: the frame pairs of the
     shape (default 2 when `train`, else 1). `hot`: every head at scale 60,
     and (fp32 / fold) each backward's dlogit_scale held to TOL_F3 of
     float64 (F3)."""
@@ -2918,22 +3195,21 @@ def compare_w(shape, dtype, gen, w_fwd, w_bwd, train: bool,
                                            f"against float64 above {TOL_F3}"
                                            f": {json.dumps(rec)}")
                 _nearer(rec, "dqkv", got[0], plain[0], plain_o[0])
-                if f32:
-                    # "split": K3's FMA dbias pass after K5's passes, on the
-                    # statistic the tensor-core forward wrote
-                    before = dict(wap.LAUNCHES_BY_KERNEL)
-                    got_s = bwd_call(w, grid="split")()
-                    torch.cuda.synchronize()
-                    _tc_launched(before, {kname: 1,
-                                          "window_attention_dbias": 1},
-                                 f"K5 split {json.dumps(rec)}")
-                    rec["split"] = (_check_against(got_s, {
-                        "vs_plain": (plain, TOL_MXU_BF16),
-                        "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)},
-                        f"split {what}") if rb else
-                        _check_grads(got_s, plain, truth, name,
-                                     f"split {what}", clamped=not hot))
-                    del got_s
+                # "split": the tensor-core K3 after K5's passes, on the
+                # statistic the tensor-core forward wrote
+                before = dict(wap.LAUNCHES_BY_KERNEL)
+                got_s = bwd_call(w, grid="split")()
+                torch.cuda.synchronize()
+                _tc_launched(before, {kname: 1,
+                                      "window_attention_dbias_tc": 1},
+                             f"K5 split {json.dumps(rec)}")
+                rec["split"] = (_check_against(got_s, {
+                    "vs_plain": (plain, TOL_MXU_BF16),
+                    "vs_float64": (truth, TOL_MXU_BF16_AUTOGRAD)},
+                    f"split {what}") if rb else
+                    _check_grads(got_s, plain, truth, name,
+                                 f"split {what}", clamped=not hot))
+                del got_s
                 rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
                 rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
                 if timed:
@@ -3086,6 +3362,16 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
                 wb = _w_of(sh, True, has_mask, wap.WINDOWS_PER_CELL)
                 add("window_attention_bwd_tc" + (f"_w{wb}" if wb > 1 else ""),
                     key, n * times)
+    if train and wap.DEFAULT_GRID_MODE == "split":
+        # the tensor-core K3 after every packed (any W) and head-split
+        # backward; the slab path keeps its atomics
+        for name, by_shape in list(want.items()):
+            k3 = ("window_attention_headsplit_dbias_tc"
+                  if name == "window_attention_headsplit_bwd_tc" else
+                  "window_attention_dbias_tc"
+                  if name.startswith("window_attention_bwd_tc") else None)
+            for key, n in by_shape.items() if k3 else ():
+                add(k3, key, n)
     return want
 
 
@@ -3373,10 +3659,125 @@ def phase_train_parity_resident(child: dict, tag="train_parity_resident",
     return rec
 
 
-def child_main(args) -> int:
-    """The processes phase_w_child, phase_mxu_child and
-    phase_resident_child start, with their environment variable set."""
+def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
+    """`train_split`, in a process of its own under MMDE_ATTN_GRID=split:
+    the bf16 flagship trainer at full width (480x640, `pairs` frame pairs,
+    train mode, weights from seed 7), `warm` steps, then `steps` timed
+    steps (host clock to torch.cuda.synchronize(), peak bytes, launches by
+    kernel and shape - tensor-core kernels only: K1+lse, K2's passes and
+    K3 after each backward, `expected_kernels`), one step profiled (device
+    ms by kernel group, K3's own), and one more step in which every
+    attention backward is launched twice on the same inputs (the same
+    weights and batch): dbias, dqkv and dlogit_scale of the two calls
+    compared bit for bit, block by block. Prints one JSON line."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.tools import train_steps as ts
+    state, step = ts.build_trainer(ts.flagship_config("bfloat16", "cuda",
+                                                      batch_size=pairs),
+                                   device="cuda", seed=0)
+    randomize_weights(state.model, seed=7)
+    batch = ts.synthetic_batch(pairs, 480, 640, seed=31, device="cuda")
+    for _ in range(warm):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(steps):
+        t = time.time()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        losses.append(float(aux["loss_total"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train_split: loss not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    by_kernel = _by_kernel()
+    want = expected_kernels("swin_base_v2", pairs, steps, True)
+    if by_kernel != want:
+        raise RuntimeError(f"train_split: launches by kernel {by_kernel}, "
+                           f"expected {want}")
+    prof = _profile(lambda: step(state, batch))
+    same = []
+    launch = wap._launch_backward
+
+    def twice(*a, **kw):
+        first, second = launch(*a, **kw), launch(*a, **kw)
+        same.append([bool(torch.equal(x, y)) for x, y in zip(first, second)])
+        return first
+    wap._launch_backward = twice
+    try:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        wap._launch_backward = launch
+    names = ("dqkv", "dlogit_scale", "dbias")
+    rec = {"command": "chip_smoke.py --child split under "
+                      "MMDE_ATTN_GRID=split",
+           "model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2, "
+                    "train mode, 480x640, weights from seed 7",
+           "frame_pairs": pairs, "warm_steps": warm, "step_ms": ms,
+           "step_ms_mean": statistics.mean(ms), "losses": losses,
+           "images_per_s": 2 * pairs / (statistics.mean(ms) / 1e3),
+           "peak_memory_bytes": peak,
+           "launches": {k: sum(d.values()) for k, d in by_kernel.items()},
+           "launches_by_kernel": _str_keys(by_kernel),
+           "device_ms_total": prof["device_ms_total"],
+           "device_launches": prof["launches"],
+           "device_ms_by_group": prof["device_ms_by_group"],
+           "k3_device_ms": prof["device_ms_by_group"].get(
+               "window_attention_dbias (this repo's kernel)", 0.0),
+           "profile_top": prof["top"],
+           "backward_calls_twice": len(same),
+           "bitwise_equal_blocks": {n: sum(r[i] for r in same)
+                                    for i, n in enumerate(names)}}
+    print(json.dumps({"train_split": rec}), flush=True)
+
+
+def phase_train_split(pairs: int = 2, steps: int = 2) -> dict:
+    """Start `train_split_child` (this script under MMDE_ATTN_GRID=split)
+    once the other children are done, so that it has the card alone; wait,
+    check and emit its record: every block's dbias bitwise equal over its
+    two backward calls, no FMA launch (its launches were checked against
+    `expected_kernels` in the child), K3 on the device."""
+    child = _start_child([os.path.basename(__file__), "--child", "split"],
+                         {"MMDE_ATTN_GRID": "split"})
+    try:
+        lines = _child_lines(child, 600)
+    finally:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+    got = [ln["train_split"] for ln in lines if "train_split" in ln]
+    if len(got) != 1:
+        raise RuntimeError(f"split child printed {[list(ln) for ln in lines]}")
+    rec = got[0]
+    blocks = sum(sh["blocks"] for sh in stage_shapes())
+    fma = [k for k in rec["launches"] if "_tc" not in k]
+    rec["ok"] = (rec["backward_calls_twice"] == blocks
+                 and rec["bitwise_equal_blocks"]["dbias"] == blocks
+                 and not fma and rec["k3_device_ms"] > 0
+                 and rec["launches"].get("window_attention_dbias_tc", 0)
+                 == blocks * steps)
+    emit("train_split", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"train_split: {json.dumps(rec)}")
+    rec["_by_kernel"] = {
+        k: {tuple(int(x) for x in sh.strip("()").split(",")): n
+            for sh, n in d.items()}
+        for k, d in rec["launches_by_kernel"].items()}
+    return rec
+
+
+def child_main(args) -> int:
+    """The processes phase_w_child, phase_mxu_child, phase_resident_child
+    and phase_train_split start, with their environment variable set."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    if args.child == "split":
+        if wap.DEFAULT_GRID_MODE != "split":
+            raise RuntimeError("the split child needs MMDE_ATTN_GRID=split")
+        train_split_child()
+        return 0
     if args.child == "mxu":
         if wap.MXU_BF16_DEFAULT != "bf16":
             raise RuntimeError("the mxu child needs MMDE_ATTN_MXU=bf16")
@@ -3963,18 +4364,22 @@ def tc_bounds(tc_cases: list, tflops: float) -> None:
                 r["tc_bound_ms"] = r["tc_flops"] / (tflops * 1e12) * 1e3
 
 
-def k3_fma_bounds(k2_cases: list, rates: dict) -> None:
-    """K3's FMA bound beside each K2 case that timed it: its two N x N x 32
+def k3_bounds(k2_cases: list, rates: dict) -> None:
+    """K3's bounds beside each K2 case that timed it: its two N x N x 32
     products (S and dP; K3 sums ds into dbias with windows innermost) on
     64-row tiles, at the fp32 rates this run's roofline phase measured -
     the FMA dot pattern's (k3_fma_bound_ms) and the FMA chain's
-    (k3_fma_chain_bound_ms)."""
+    (k3_fma_chain_bound_ms) - and the tensor-core K3's products (2 units
+    bf16, 12 fp32 in three pieces: k3_tc) at its bf16 mma.sync rate
+    (k3_tc["tc_bound_ms"])."""
     for c in k2_cases:
-        if "k3_ms" not in c:
-            continue
-        flops = tc_work(c["B_"], c["N"], c["nH"], 2.0)["tc_flops"]
-        c["k3_fma_bound_ms"] = flops / (rates["dot_fp32_TFLOP_s"] * 1e9)
-        c["k3_fma_chain_bound_ms"] = flops / (rates["fma_TFLOP_s"] * 1e9)
+        for r in (c, c.get("split")):     # head-split cases: their split leg
+            if not r or "k3_ms" not in r:
+                continue
+            flops = tc_work(c["B_"], c["N"], c["nH"], 2.0)["tc_flops"]
+            r["k3_fma_bound_ms"] = flops / (rates["dot_fp32_TFLOP_s"] * 1e9)
+            r["k3_fma_chain_bound_ms"] = flops / (rates["fma_TFLOP_s"] * 1e9)
+            tc_bounds([r["k3_tc"]], rates["dot_bf16_TFLOP_s"])
 
 
 def _nearer(rec: dict, what: str, got, own, other) -> None:
@@ -4025,7 +4430,9 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True,
     kernel and the FMA body again (ms = the two turns' mean), the plain
     version, the SDPA yardstick in qkv's type; trained also the backward
     without dbias. The products' bound: tc_units (fp32 qkv in three bf16
-    pieces: 12 / 30 in fp32 and fold)."""
+    pieces: 12 / 30 in fp32 and fold). Trained, also the tensor-core K3 of
+    the mode ("split", `k3`: check_k3 at TOL_BWD / TOL_MXU_BF16, float64
+    at TOL_BWD / TOL_MXU_BF16_AUTOGRAD, the mode rule, bitwise)."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     masked = shape["nW"] > 0
     qkv, ls, bias, mask = make_kernel_inputs(shape, dtype, masked, gen)
@@ -4088,6 +4495,32 @@ def compare_tc(shape, mxu: str, train: bool, gen, timed=True,
         err = rec["backward"]["vs_float64_autograd"]["dqkv"]
         rec["max_abs_err"], rec["rel_l2_err"] = err["max_abs"], err["rel_l2"]
         rec["forward"] = fwd
+        # "split": the tensor-core K3 in this mode, after the passes, on
+        # their delta and the tensor-core forward's statistic
+        with torch.no_grad():
+            lse = wap._launch_forward(qkv, ls, bias, mask, nH, True, True,
+                                      mxu=mxu)[1]
+            delta = wap._backward_passes(qkv, ls, bias, mask, lse, g, nH,
+                                         False, 1, mxu, False)[3]
+
+            def k3():
+                return wap._launch_dbias(qkv, ls, bias, mask, lse, g, delta,
+                                         nH, mxu)
+
+            def plain_k3(m):
+                return wap.cosine_window_attention_packed_dbias_plain(
+                    qkv, ls, bias, mask, g, num_heads=nH, mxu=m)
+            before = dict(wap.LAUNCHES_BY_KERNEL)
+            got = k3()
+            torch.cuda.synchronize()
+            _tc_launched(before, {"window_attention_dbias_tc": 1},
+                         f"K3 {json.dumps(rec)}")
+            rec["k3"] = check_k3(
+                got, k3(), plain_k3(mxu), plain_k3(other), truth[2],
+                TOL_MXU_BF16["dbias"] if rb else TOL_BWD[name]["dbias"],
+                TOL_MXU_BF16_AUTOGRAD["dbias"] if rb
+                else TOL_BWD[name]["dbias"], mxu, f"{json.dumps(rec)}")
+            del got, lse, delta
         del truth, plain, plain_o, leaves, grads
     else:
         rec.update(fwd)
@@ -4197,7 +4630,7 @@ def main() -> int:
                          "their rows to PATH and PATH with _large / _slab / "
                          "_resident / _w / _fp32 / _large_fp32 / _slab_fp32 "
                          "before its extension (JSON)")
-    ap.add_argument("--child", choices=["w", "resident", "mxu"],
+    ap.add_argument("--child", choices=["w", "resident", "mxu", "split"],
                     default=None,
                     help=argparse.SUPPRESS)     # the script's own children
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
@@ -4230,7 +4663,7 @@ def main() -> int:
     roof_entries, roof = phase_roofline()
     tc_bounds(tc_cases + hs_cases + slab_cases + k4_cases + kw_cases,
               roof["rates"]["dot_bf16_TFLOP_s"])
-    k3_fma_bounds(k2_cases, roof["rates"])
+    k3_bounds(k2_cases + hs_cases, roof["rates"])
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
@@ -4261,6 +4694,8 @@ def main() -> int:
                                   attn_impl="cuda_slab", dtype="float32")
     (train_res, resident_child, serve_w, train_w, w_child, _,
      train_mxu) = phase_children()
+    # after the three side-by-side children: the card to itself
+    train_split = phase_train_split()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)
@@ -4285,7 +4720,9 @@ def main() -> int:
         # bf16: stage 1 on the head-split tensor-core kernels
         "train_step_bf16": phase_train_parity(
             "swin_large_v2", params=LARGE_STAGE1_PARAMS, tag=None,
-            dtype="bfloat16")})
+            dtype="bfloat16"),
+        # and K7' on that step's block-0 inputs against float64
+        "block0_k7_dlogit_scale": k7_block0()})
     emit("parity_slab", {
         # either type: every block on the tensor-core slab kernels (fp32:
         # three bf16 pieces, hi + lo log-sum-exp)
@@ -4315,6 +4752,7 @@ def main() -> int:
     entries += contract_train(k2_cases, hs_cases, slab_cases,
                               train_slab_fp32, tc_cases, "float32")
     entries += contract_mxu(mxu_cases, train_mxu)
+    entries += contract_k3(k2_cases, train_split)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)
     smi = subprocess.run(

@@ -42,8 +42,8 @@
 // lo, and p = exp((s - hi) - lo): s - hi is exact where p is not
 // negligible, and lo takes the rounding out. Every entry of this file reads
 // the pair (the packed ones since K1's and K5's FMA forwards write it; K3's
-// entry reads one number behind the bf16 tensor-core passes, whose forward
-// writes one, lse_pair = 0).
+// entry still takes lse_pair 0 for a one-number statistic, which no caller
+// hands it since the tensor-core K3 runs behind the tensor-core passes).
 //
 // The TPU kernel walks its grid in order, carries dk/dv from one query tile
 // to the next in the output block and dumps ds per window because Mosaic
@@ -99,11 +99,10 @@
 // the N x 32 outputs), which keeps fp32 inputs in true fp32 and leaves bf16
 // inputs far from their tensor-core bound. The port's packed launches, bf16
 // and fp32 (K2, and K5 at W > 1; fp32 operands in three bf16 pieces), run
-// window_attention_bwd_tc.cu instead (bf16 mma.sync); under
-// MMDE_ATTN_GRID=split K3's pass alone follows them
-// (mmde_window_attention_dbias), and the head-split and slab launches of
-// either type run the tensor-core passes too. This body is their same-card
-// comparison (the wrappers' private `_fma`).
+// window_attention_bwd_tc.cu instead (bf16 mma.sync), and so do K3's pass
+// under MMDE_ATTN_GRID=split (bwd_dbias_tc_kernel) and the head-split and
+// slab launches of either type. This body is their same-card comparison
+// (the wrappers' private `_fma`).
 //
 // Precision modes (MXU, window_attention_common.cuh; the JAX package's
 // `mxu`, an argument of the packed entries): the packed passes (K2, K3, K5)
@@ -1336,7 +1335,8 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
   if (err != cudaSuccess) return (int)err;
 
   // the windows-innermost dbias pass serves the packed and head-split
-  // layouts (MMDE_ATTN_GRID=split); the slab entry sums dbias by atomics
+  // layouts (MMDE_ATTN_GRID=split, the FMA partner of the tensor-core K3 in
+  // window_attention_bwd_tc.cu); the slab entry sums dbias by atomics
   if constexpr (std::is_same<L<T>, Rows<T>>::value) {
     if (dbias_mode != 2) return (int)err;
     dim3 grid_b(nT, nT, nH);
@@ -1349,8 +1349,9 @@ int launch(const Operands<L, T>& o, const void* ls, const void* bias,
   return (int)err;
 }
 
-// K5's two passes (and, with dbias_mode = 2, K3's pass at one window) on
-// the packed layout, W windows per block of the dq and dk/dv passes.
+// K5's two passes on the packed layout, W windows per block of the dq and
+// dk/dv passes (dbias by atomics or none: K3's pass at one window is
+// mmde_window_attention_dbias).
 template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
              const void* mask, const void* lse, void* delta, void* dls_part,
@@ -1389,14 +1390,6 @@ int launch_w(const Operands<Rows, T>& o, const void* ls, const void* bias,
           (const TB*)mask, (const float*)lse, lo, (const float*)delta,
           o.dk, o.dv, (double*)dls_part,
           dbias_mode == 1 ? (float*)dbias : nullptr, N, nW, W);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dbias_mode != 2) return (int)err;
-
-  dim3 grid_b(nT, nT, nH);
-  bwd_dbias_kernel<Rows, T, TB, FASTEXP, MXU, true>
-      <<<grid_b, NT, 0, stream>>>(
-      o.q, o.k, o.v, o.g, (const float*)ls, (const TB*)bias, (const TB*)mask,
-      (const float*)lse, lo, (const float*)delta, (float*)dbias, B_, N, nW);
   return (int)cudaGetLastError();
 }
 
@@ -1420,8 +1413,8 @@ int launch_packed_w(const void* qkv, const void* g, const void* ls,
                                        dbias_mode, W, stream);
 }
 
-// K3 alone on the packed layout, after the tensor-core passes
-// (window_attention_bwd_tc.cu) wrote delta
+// K3's FMA body alone on the packed layout (the `_fma` partner of the
+// tensor-core K3), on the delta the FMA dq pass wrote
 template <typename T, typename TB, bool FASTEXP, int MXU>
 int launch_dbias(const void* qkv, const void* g, const void* ls,
                  const void* bias, const void* mask, const void* lse,
@@ -1571,12 +1564,12 @@ extern "C" int mmde_window_attention_bwd(
   });
 }
 
-// K3's pass alone (MMDE_ATTN_GRID=split behind the tensor-core passes of
-// window_attention_bwd_tc.cu, which write delta): dbias (nH, N, N) fp32,
-// every element written once. lse_pair: lse is (2, B_, nH, N), hi then lo
-// (F3: the fp32 tensor-core forward's), else (B_, nH, N) (the bf16 one's).
-// The other arguments as for mmde_window_attention_bwd; delta as the
-// tensor-core passes leave it.
+// K3's FMA body alone (MMDE_ATTN_GRID=split, the same-card A/B partner of
+// mmde_window_attention_dbias_tc; after the FMA passes with dbias_mode 0,
+// which write delta): dbias (nH, N, N) fp32, every element written once.
+// lse_pair: lse is (2, B_, nH, N), hi then lo (F3: every FMA forward's),
+// else (B_, nH, N). The other arguments as for mmde_window_attention_bwd;
+// delta as the dq pass leaves it.
 extern "C" int mmde_window_attention_dbias(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, const void* delta,
@@ -1658,8 +1651,10 @@ extern "C" int mmde_window_attention_slab_bwd(
 
 // K5's entry: as mmde_window_attention_bwd, with W (>= 2, dividing B_)
 // consecutive windows per block of the dq and dk/dv passes; dls_part is
-// (B_ / W * ceil(N / 64), nH). Returns the attribute's error when W windows'
-// accumulators do not fit in a block's shared memory (W > 8).
+// (B_ / W * ceil(N / 64), nH); dbias_mode 0 or 1 (K3's pass is
+// mmde_window_attention_dbias, after these passes). Returns the attribute's
+// error when W windows' accumulators do not fit in a block's shared memory
+// (W > 8).
 extern "C" int mmde_window_attention_bwd_w(
     const void* qkv, const void* logit_scale, const void* bias,
     const void* mask, const void* lse, const void* g, void* dqkv,
@@ -1668,7 +1663,7 @@ extern "C" int mmde_window_attention_bwd_w(
     void* stream) {
   if (C != nH * DH || B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535) return -1;
   if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return -1;
-  if (dbias_mode < 0 || dbias_mode > 2) return -1;
+  if (dbias_mode < 0 || dbias_mode > 1) return -1;
   if (dbias_mode != 0 && dbias == nullptr) return -1;
   if (W < 2 || B_ % W != 0 || B_ / W > 65535) return -1;
   cudaStream_t s = (cudaStream_t)stream;

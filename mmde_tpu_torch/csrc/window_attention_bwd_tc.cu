@@ -22,13 +22,16 @@
 // + L::off(r) (the map's tile loads through TileRows' shared table), and
 // over their type: fp32 operands (packed, head-split and slab) take every
 // operand in three bf16 pieces (Pieces, below), as K5's fp32 passes do, the
-// map's fp32 tiles staged through the same table. Under
-// MMDE_ATTN_GRID=split the caller passes dbias_mode 0 and runs K3's
-// windows-innermost dbias pass (window_attention_bwd.cu) after it, on the
-// delta written here (reading the fp32 forward's hi + lo, lse_pair 1).
-// window_attention_bwd.cu keeps K2's fp32-FMA body as the same-card A/B
-// partner. Same function and the same two passes as K2 (its header has the
-// formulas):
+// map's fp32 tiles staged through the same table. And
+// mmde_tpu/ops/window_attention_packed.py::_dbias_body (K3, driven by
+// _pallas_dbias; MMDE_ATTN_GRID=split) for every packed and head-split
+// launch, bf16 and fp32, in every mode: the caller passes dbias_mode 0 to
+// the passes and runs bwd_dbias_tc_kernel (below) on the delta they wrote
+// and the forward's statistic, dbias summed over the windows in one fixed
+// order, the same bits on every run; the slab entry keeps its atomics.
+// window_attention_bwd.cu keeps K2's and K3's fp32-FMA bodies as the
+// same-card A/B partner. Same function and the same two passes as K2 (its
+// header has the formulas):
 //
 //   dq/delta pass    one block per (window, head, 64-query tile), two
 //                    sweeps over 64-key tiles, each S = q k^T and dP = g v^T
@@ -907,6 +910,258 @@ bwd_dkv_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
     const double tot = sRed[0] + sRed[1] + sRed[2] + sRed[3];
     dls_part[((size_t)b * gridDim.x + blockIdx.x) * nH + h] =
         ls < TC_LN100 ? tot : 0.0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: dbias alone, windows innermost (mmde_tpu/ops/window_attention_packed.py
+// ::_dbias_body, driven by _pallas_dbias; MMDE_ATTN_GRID=split). One block
+// per (64-query tile, 64-key tile, head) sweeps every window in one fixed
+// order and keeps its 64 x 64 fp32 dbias tile in accumulator layout in
+// registers (each warp 16 query rows x 64 keys, 32 floats a lane), stored
+// once: no atomics, the same bits on every run. Per window it forms S and
+// dP as the dq pass (bwd_dq_tc_kernel) forms them - the same operands,
+// norms, products and epilogue, in the same order - rebuilds p from the
+// forward's statistic (fp32: hi + lo, F3) and adds p (dP - delta) with the
+// dq pass's delta. With a mask the windows go type-major, b = s nW + t for
+// each type t and sample s (the JAX grid's (nW, S) order): the mask tile
+// is staged once a type (two buffers, by the type's parity), the bias tile
+// once a block. The K / V tiles are double-buffered across windows by
+// cp.async (fp32: one staging buffer, split into bf16 planes, the next
+// window's copies issued after the split pass), the block's own q and g
+// rows come as A fragments straight from L2, issued before each window's
+// barrier. Bound on an H100: two N x N x 32 products a (window, head), no
+// output but dbias itself; the products' operands stream from L2 (the k
+// and v tiles are read by every query tile of their head).
+// ---------------------------------------------------------------------------
+template <template <typename> class L, typename T, typename TB, int MXU>
+__global__ void __launch_bounds__(TC_NT)
+bwd_dbias_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
+                    L<const T> g, const float* __restrict__ logit_scale,
+                    const TB* __restrict__ bias, const TB* __restrict__ mask,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dbias, int B_, int N, int nW) {
+  using P = Pieces<T, MXU>;
+  constexpr bool F32 = P::F32;
+  constexpr int PS = P::PS;
+  constexpr bool RB = MXU == MXU_BF16;
+  // fp32 "fold": the folded q^ * scale is the operand split in three
+  constexpr bool FQ = F32 && MXU == MXU_FOLD;
+  __shared__ __align__(128) bf16 sK[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ __align__(128) bf16 sV[2][F32 ? 8 : TC_BT * TC_LD];
+  __shared__ float sRk[2][TC_BT];
+  // fp32: the K / V staging and planes (Pieces); then the bias tile and,
+  // masked, the two mask tiles
+  extern __shared__ __align__(128) char sBM[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * TC_BT, k0 = blockIdx.y * TC_BT;
+  const int h = blockIdx.z, nH = gridDim.z;
+  const bool masked = mask != nullptr;
+  const int S = masked ? B_ / nW : B_;   // samples a window type
+  const TB* bias_h = bias + (size_t)h * N * N;
+  const float scale = expf(fminf(logit_scale[h], TC_LN100));
+  const bool async_b = (N * (int)sizeof(TB)) % 8 == 0;
+  float* sStg = reinterpret_cast<float*>(sBM);
+  bf16* sKp = reinterpret_cast<bf16*>(sStg + 2 * TC_STAGE_F32);
+  bf16* sVp = sKp + PS * TC_PLANE;
+  char* sB = sBM + P::kTiles;
+  auto mask_tile = [&](int type) {
+    return sB + (1 + (type & 1)) * btile_bytes<TB>();
+  };
+  // step s's window: type-major where masked
+  auto window = [&](int s) { return masked ? (s % S) * nW + s / S : s; };
+
+  auto issue = [&](int s) {     // step s's K, V (bias, mask) -> stage s & 1
+    const int st = s & 1, b = window(s);
+    if constexpr (F32) {
+      load_tile_f32(sStg, k.head(b, h), k, k0, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, v.head(b, h), v, k0, N, tid);
+    } else {
+      load_tile(sK[st], k.head(b, h), k, k0, N, tid);
+      load_tile(sV[st], v.head(b, h), v, k0, N, tid);
+    }
+    if (async_b) {
+      if (s == 0) load_btile(sB, bias_h, q0, k0, N, tid, true);
+      if (masked && s % S == 0)
+        load_btile(mask_tile(s / S), mask + (size_t)(b % nW) * N * N, q0,
+                   k0, N, tid, true);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bool ok0 = r0 < N, ok1 = r1 < N;
+  const float* lo_base = lse + (size_t)B_ * nH * N;   // fp32: lo (F3)
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int step = 0; step < B_; ++step) {
+    const int st = step & 1, b = window(step);
+    const size_t stat0 = ((size_t)b * nH + h) * N;
+    // the block's own rows of this window, issued before the wait
+    uint32_t qa[PS][2][4], qs[2][4], ga[PS][2][4];
+    float2 qx[2][4], gx[2][4];
+    if constexpr (F32) {
+      load_afrag_f32(qx, q.head(b, h), q, r0, N, t);
+      load_afrag_f32(gx, g.head(b, h), g, r0, N, t);
+    } else {
+      load_afrag(qa[0], q.head(b, h), q, r0, N, t);
+      load_afrag(ga[0], g.head(b, h), g, r0, N, t);
+    }
+    const float lse0 = ok0 ? lse[stat0 + r0] : 0.0f;
+    const float lse1 = ok1 ? lse[stat0 + r1] : 0.0f;
+    const float dl0 = ok0 ? delta[stat0 + r0] : 0.0f;
+    const float dl1 = ok1 ? delta[stat0 + r1] : 0.0f;
+    float lo0 = 0.0f, lo1 = 0.0f;
+    if constexpr (F32) {
+      lo0 = ok0 ? lo_base[stat0 + r0] : 0.0f;
+      lo1 = ok1 ? lo_base[stat0 + r1] : 0.0f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (!F32) {
+      if (step + 1 < B_) issue(step + 1);
+    }
+    if (!async_b) {
+      if (step == 0) load_btile(sB, bias_h, q0, k0, N, tid, false);
+      if (masked && step % S == 0)
+        load_btile(mask_tile(step / S), mask + (size_t)(b % nW) * N * N, q0,
+                   k0, N, tid, false);
+    }
+    if constexpr (F32) {
+      // the split pass: warps 0-1 a K row each (its norm; "bf16": k^
+      // rounded), warps 2-3 a V row
+      const int r = tid & (TC_BT - 1);
+      float x[TC_DH];
+      staged_row(sStg + (tid < TC_BT ? 0 : TC_STAGE_F32), r, x);
+      if (tid < TC_BT) {
+        const float rn = row_rnorm(x);
+        sRk[st][r] = rn;
+        put_row<PS, RB>(sKp, r, x, rn, 1.0f);
+      } else {
+        put_row<PS, false>(sVp, r, x, 1.0f, 1.0f);
+      }
+    } else {
+      tile_norms<RB>(sK[st], sRk[st], 1.0f, tid);
+    }
+    __syncthreads();
+    if constexpr (F32) {   // the staging is free again
+      if (step + 1 < B_) issue(step + 1);
+    }
+
+    float rq0, rq1;
+    if constexpr (F32) {
+      float none0, none1;
+      finish_operand<PS, true, RB || FQ>(qx, qa, lane, rq0, rq1, scale);
+      finish_operand<PS, false, false>(gx, ga, lane, none0, none1, 1.0f);
+    } else {
+      row_norms(qa[0], rq0, rq1, lane);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qs[ks][i] = qa[0][ks][i];
+      if constexpr (RB) scale_afrag(qs, rq0, rq1, scale);
+    }
+    const float c0 = FQ ? 1.0f : MXU == MXU_FP32 ? rq0 : rq0 * scale;
+    const float c1 = FQ ? 1.0f : MXU == MXU_FP32 ? rq1 : rq1 * scale;
+    const char* tb = sB;
+    const char* tm = mask_tile(masked ? step / S : 0);
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.0f;
+        if constexpr (F32) {
+          uint32_t kb[PS][4], vb[PS][4];
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(kb[p], sKp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(s[jj], qa, kb);
+#pragma unroll
+          for (int p = 0; p < PS; ++p)
+            frag_rows(vb[p], sVp + p * TC_PLANE, j, lane);
+          mma_rows<PS, PS>(dp[jj], ga, vb);
+        } else {
+          uint32_t kb[4], vb[4];
+          frag_rows(kb, sK[st], j, lane);
+          mma(s[jj], qs[0], kb[0], kb[1]);
+          mma(s[jj], qs[1], kb[2], kb[3]);
+          frag_rows(vb, sV[st], j, lane);
+          mma(dp[jj], ga[0][0], vb[0], vb[1]);
+          mma(dp[jj], ga[0][1], vb[2], vb[3]);
+        }
+      }
+      // p = exp(s - lse), 0 past the edge: the dq pass's epilogue
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int cl = 8 * (2 * kk + jj) + 2 * t;
+        const int col = k0 + cl;
+        const float rk[2] = {sRk[st][cl], sRk[st][cl + 1]};
+        const bool in1 = col + 1 < N;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* x = &s[jj][2 * half];
+          if (col >= N || !(half ? ok1 : ok0)) {
+            x[0] = x[1] = 0.0f;
+            continue;
+          }
+          const int rl = warp * 16 + (lane >> 2) + 8 * half;  // tile row
+          const float c = half ? c1 : c0;
+          const float ls2 = (half ? lse1 : lse0) * TC_LOG2E;
+          float2 bm = btile_pair(tb, rl, cl, TB());
+          if (masked) {
+            const float2 mm = btile_pair(tm, rl, cl, TB());
+            bm.x += mm.x;
+            bm.y += mm.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float y = x[e];
+            if constexpr (MXU == MXU_FP32) y = y * c * rk[e] * scale;
+            else if constexpr (MXU == MXU_FOLD) y = y * c * rk[e];
+            if constexpr (F32)   // F3: p = exp((s - hi) - lo)
+              x[e] = ex2((((y + (e ? bm.y : bm.x)) - (half ? lse1 : lse0)) -
+                          (half ? lo1 : lo0)) * TC_LOG2E);
+            else
+              x[e] = ex2(fmaf(y + (e ? bm.y : bm.x), TC_LOG2E, -ls2));
+          }
+          if (!in1) x[1] = 0.0f;
+        }
+      }
+      // dbias += p (dp - delta), window after window
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float* a = acc[2 * kk + jj];
+        a[0] = fmaf(s[jj][0], dp[jj][0] - dl0, a[0]);
+        a[1] = fmaf(s[jj][1], dp[jj][1] - dl0, a[1]);
+        a[2] = fmaf(s[jj][2], dp[jj][2] - dl1, a[2]);
+        a[3] = fmaf(s[jj][3], dp[jj][3] - dl1, a[3]);
+      }
+    }
+  }
+
+  float* dbias_h = dbias + (size_t)h * N * N;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = k0 + 8 * n + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? r1 : r0;
+      if (row >= N) continue;
+      if (col < N) dbias_h[(size_t)row * N + col] = acc[n][2 * half];
+      if (col + 1 < N) dbias_h[(size_t)row * N + col + 1] = acc[n][2 * half + 1];
+    }
   }
 }
 
@@ -1812,6 +2067,49 @@ int launch_packed_w(const void* qkv, const void* g, const void* ls,
   return (int)cudaGetLastError();
 }
 
+// dynamic shared memory of K3: fp32 adds the staging and the planes before
+// the bias tile and, masked, the two mask tiles
+template <typename T, typename TB, int MXU>
+int dbias_tc_bytes(bool masked) {
+  return Pieces<T, MXU>::kTiles + (masked ? 3 : 1) * btile_bytes<TB>();
+}
+
+// K3 on operands already described as Rows (the packed layout's column
+// blocks or the head-split views' strides), rows 16-byte aligned; -1 where
+// a row is not. dbias (nH, N, N) fp32, every element written once.
+template <typename T, typename TB, int MXU>
+int launch_dbias(const Rows<const T>& q, const Rows<const T>& k,
+                 const Rows<const T>& v, const Rows<const T>& g,
+                 const void* ls, const void* bias, const void* mask,
+                 const void* lse, const void* delta, void* dbias, int B_,
+                 int N, int nH, int nW, cudaStream_t stream) {
+  if (!rows_aligned(q) || !rows_aligned(k) || !rows_aligned(v) ||
+      !rows_aligned(g))
+    return -1;
+  const bool masked = mask != nullptr;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dbias_tc_kernel<Rows, T, TB, MXU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dbias_tc_bytes<T, TB, MXU>(true));
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (N + TC_BT - 1) / TC_BT;
+  dim3 grid(nt, nt, nH);
+  bwd_dbias_tc_kernel<Rows, T, TB, MXU>
+      <<<grid, TC_NT, dbias_tc_bytes<T, TB, MXU>(masked), stream>>>(
+          q, k, v, g, (const float*)ls, (const TB*)bias, (const TB*)mask,
+          (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
+  return (int)cudaGetLastError();
+}
+
+// K3's arguments as the two entries check them
+bool dbias_shape_ok(int B_, int N, int nH, int nW, const void* mask,
+                    const void* dbias, int qkv_bf16, int bias_bf16) {
+  if (B_ <= 0 || N <= 0 || nH <= 0 || nH > 65535 || dbias == nullptr)
+    return false;
+  if (mask != nullptr && (nW <= 0 || B_ % nW != 0)) return false;
+  return qkv_bf16 || !bias_bf16;
+}
+
 bool shape_ok(int B_, int N, int nH, int nW, const void* mask,
               int dbias_mode, const void* dbias) {
   if (B_ <= 0 || N <= 0 || nH <= 0 || B_ > 65535 || nH > 65535) return false;
@@ -1909,6 +2207,85 @@ extern "C" int mmde_window_attention_bwd_tc_w(
                                                s);
     }
   });
+}
+
+// K3's pass alone on the tensor cores (MMDE_ATTN_GRID=split, after
+// mmde_window_attention_bwd_tc or _tc_w with dbias_mode 0, on the delta
+// they wrote): dbias (nH, N, N) fp32, every element written once, summed
+// over the windows in one fixed order (type-major where masked): the same
+// bits on every run. qkv, g, bias, mask, delta and the mode as for
+// mmde_window_attention_bwd_tc; lse as that entry's forward wrote it: bf16
+// qkv (B_, nH, N), fp32 qkv (2, B_, nH, N) hi then lo - lse_pair says
+// which, and must be 0 for bf16 qkv and 1 for fp32 (the arithmetic that
+// reads it is the dq pass's). Returns the CUDA error of the launch, or -1
+// for arguments the kernel does not take. Launches on `stream`, does not
+// synchronise, allocates nothing.
+extern "C" int mmde_window_attention_dbias_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, const void* delta,
+    void* dbias, int B_, int N, int C, int nH, int nW, int qkv_bf16,
+    int bias_bf16, int lse_pair, int mxu, void* stream) {
+  if (C != nH * TC_DH ||
+      !dbias_shape_ok(B_, N, nH, nW, mask, dbias, qkv_bf16, bias_bf16))
+    return -1;
+  if (lse_pair != (qkv_bf16 ? 0 : 1)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = [&](auto t, auto tb, auto m) {
+    using T = decltype(t);
+    using TB = decltype(tb);
+    constexpr int MXU = decltype(m)::value;
+    return launch_dbias<T, TB, MXU>(
+        packed_rows((const T*)qkv, 0, N, C, 3, TC_DH),
+        packed_rows((const T*)qkv, 1, N, C, 3, TC_DH),
+        packed_rows((const T*)qkv, 2, N, C, 3, TC_DH),
+        packed_rows((const T*)g, 0, N, C, 1, TC_DH), logit_scale, bias, mask,
+        lse, delta, dbias, B_, N, nH, nW, s);
+  };
+  return by_mode(mxu, [&](auto m) {
+    constexpr int MXU = decltype(m)::value;
+    if constexpr (MXU == MXU_FOLD_PV) {
+      return -1;
+    } else if (!qkv_bf16) {
+      return run(0.0f, 0.0f, m);
+    } else if (bias_bf16) {
+      return run(bf16(), bf16(), m);
+    } else {
+      return run(bf16(), 0.0f, m);
+    }
+  });
+}
+
+// Head-split entry of K3 on the tensor cores (MMDE_ATTN_GRID=split, after
+// mmde_window_attention_headsplit_bwd_tc with dbias_mode 0, on its delta):
+// q, k, v, g, the twelve strides, bias, mask, lse, qkv_bf16 and bias_bf16
+// as that entry takes them (mode MXU_FP32; bf16: lse (B_, nH, N), fp32:
+// (2, B_, nH, N) hi then lo); dbias (nH, N, N) fp32, every element written
+// once, windows type-major where masked. Returns the CUDA error of the
+// launch, or -1 for arguments the kernel does not take (a row that is not
+// 16-byte aligned among them). Launches on `stream`, does not synchronise,
+// allocates nothing.
+extern "C" int mmde_window_attention_headsplit_dbias_tc(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* strides, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* delta, void* dbias,
+    int B_, int N, int nH, int nW, int qkv_bf16, int bias_bf16,
+    void* stream) {
+  if (strides == nullptr ||
+      !dbias_shape_ok(B_, N, nH, nW, mask, dbias, qkv_bf16, bias_bf16))
+    return -1;
+  const long long* st = (const long long*)strides;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = [&](auto t, auto tb) {
+    using T = decltype(t);
+    using TB = decltype(tb);
+    return launch_dbias<T, TB, MXU_FP32>(
+        {(const T*)q, st[0], st[1], st[2]}, {(const T*)k, st[3], st[4], st[5]},
+        {(const T*)v, st[6], st[7], st[8]},
+        {(const T*)g, st[9], st[10], st[11]}, logit_scale, bias, mask, lse,
+        delta, dbias, B_, N, nH, nW, s);
+  };
+  if (!qkv_bf16) return run(0.0f, 0.0f);
+  return bias_bf16 ? run(bf16(), bf16()) : run(bf16(), 0.0f);
 }
 
 // Head-split entry (K7's counterpart on the tensor cores): q, k, v and g

@@ -52,8 +52,12 @@ heads), which are also what the kernels are compared with on the card.
 Where it differs from the TPU kernels:
   * dbias: the TPU backward writes each window's ds in the input type and
     sums them in XLA; here the dk/dv pass adds its ds into one fp32
-    (nH, N, N) buffer with atomics (the packed backward's default). The sum
-    is fp32 throughout, but not bit-reproducible from run to run.
+    (nH, N, N) buffer with atomics (the packed backward's default), fp32
+    throughout but not bit-reproducible from run to run; under
+    MMDE_ATTN_GRID=split (the packed module's DEFAULT_GRID_MODE) the passes
+    skip dbias and K3's windows-innermost pass sums it in one fixed order
+    (`_launch_dbias`, counted as window_attention_headsplit_dbias_tc): the
+    same bits on every run, as the TPU package's XLA sum gives.
   * Dh = 32 only (NotImplementedError otherwise). The TPU kernel takes any
     Dh; no swin variant has another.
   * No padding to the TPU's 8-row q tiles: the kernels mask the ragged
@@ -99,7 +103,10 @@ LAUNCHES_BWD_BY_SHAPE: dict = {}
 # every launch above, keyed by (kernel, (B_, N, C, nH)); kernel names:
 # window_attention_headsplit_fwd_tc[+lse] / window_attention_headsplit_bwd_tc
 # (the tensor cores), window_attention_headsplit_fwd[+lse] /
-# window_attention_headsplit_bwd (the fp32-FMA body, `_fma` only)
+# window_attention_headsplit_bwd (the fp32-FMA body, `_fma` only);
+# window_attention_headsplit_dbias_tc (K3's pass under "split"; FMA:
+# window_attention_headsplit_dbias, inside the FMA backward entry), counted
+# in LAUNCHES_BY_KERNEL only
 LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -113,6 +120,9 @@ _BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
 # the tensor-core entries: the same arguments, lse nullable in the forward
 _FWD_TC_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P]
 _BWD_TC_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
+# K3: q, k, v, g, strides, logit_scale, bias, mask, lse, delta, dbias; B_,
+# N, nH, nW, qkv_bf16, bias_bf16; stream
+_DBIAS_TC_ARGTYPES = [_P] * 11 + [_I] * 6 + [_P]
 
 
 def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
@@ -122,7 +132,7 @@ def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
     otherwise."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     if name.endswith("_tc"):
-        lib = wap._library_tc("bwd" in name)
+        lib = wap._library_tc("bwd" in name or "dbias" in name)
     else:
         lib = wap._library_bwd() if "bwd" in name else wap._library()
     fn = getattr(lib, name)
@@ -132,8 +142,9 @@ def _entry(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-def _count(kernel: str, by_shape: dict, key: tuple) -> None:
-    by_shape[key] = by_shape.get(key, 0) + 1
+def _count(kernel: str, by_shape: Optional[dict], key: tuple) -> None:
+    if by_shape is not None:
+        by_shape[key] = by_shape.get(key, 0) + 1
     LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
         (kernel, key), 0) + 1
 
@@ -322,6 +333,35 @@ def cosine_window_attention_headsplit_backward_plain(
             dls.reshape(logit_scale.shape), ds.sum(dim=0))
 
 
+def cosine_window_attention_headsplit_dbias_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logit_scale: torch.Tensor, bias: torch.Tensor,
+        mask: Optional[torch.Tensor], g: torch.Tensor, *,
+        compute_dtype: torch.dtype = torch.float32, mxu: str = "fp32"
+        ) -> torch.Tensor:
+    """K3's function alone (MMDE_ATTN_GRID=split) in plain PyTorch, on any
+    device: dbias (nH, N, N) in `compute_dtype`, the windows' ds summed, ds
+    formed as `cosine_window_attention_headsplit_backward_plain` forms it
+    (the same ops in mode `mxu`)."""
+    B_, nH, N, _ = q.shape
+    ct = compute_dtype
+    fold = _MXU_OPS[mxu][0]
+    r = _bf16r if mxu == "bf16" else _same
+    qc, kc, vc, gc = (t.to(ct) for t in (q, k, v, g))
+    qn = qc * torch.rsqrt((qc * qc).sum(-1, keepdim=True) + 1e-12)
+    kn = kc * torch.rsqrt((kc * kc).sum(-1, keepdim=True) + 1e-12)
+    scale = torch.exp(torch.clamp(logit_scale.to(ct).reshape(nH, 1, 1),
+                                  max=MAX_LOGIT_SCALE))
+    s = _logits(qn, kn, scale, fold, r)[0] + bias[None].to(ct)
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(B_ // nW, nW, nH, N, N)
+             + mask[None, :, None].to(ct)).reshape(B_, nH, N, N)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.matmul(r(gc), r(vc).transpose(-1, -2))
+    return (p * (dp - (dp * p).sum(-1, keepdim=True))).sum(dim=0)
+
+
 def lse_pair(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FMA forward's statistic of fp32 logits s (..., N), in plain
     PyTorch: the row maximum m and the row sum l = sum(exp(s - m)) in fp32,
@@ -394,29 +434,36 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
                      _fma=False):
     """Launch the backward kernels; returns (dq, dk, dv, dlogit_scale,
     dbias or None). bf16 and fp32 run the tensor-core passes (the private
-    `_fma`: the FMA body); `lse` must be what the same body's forward wrote:
-    the other shape, or a statistic tagged with the other body, raises
-    before any launch."""
+    `_fma`: the FMA body); dbias by their atomics, or under
+    MMDE_ATTN_GRID=split by K3's pass after them (`_launch_dbias`; the FMA
+    body runs its own K3 inside its entry, dbias_mode 2). `lse` must be
+    what the same body's forward wrote: the other shape, or a statistic
+    tagged with the other body, raises before any launch."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    split = want_dbias and wap.DEFAULT_GRID_MODE == "split"
+    dq, dk, dv, dls, dbias, delta = _backward_passes(
+        q, k, v, logit_scale, bias, mask, lse, g, want_dbias, split, _fma)
+    if split and dbias is None:     # K3 on the delta the passes wrote
+        dbias = _launch_dbias(q, k, v, g, logit_scale, bias, mask, lse,
+                              delta)
+    return dq, dk, dv, dls, dbias
+
+
+def _backward_passes(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
+                     split, fma):
+    """`_launch_backward`'s passes: (dq, dk, dv, dlogit_scale, dbias or
+    None, delta), delta (B_, nH, N) as the dq pass wrote it (K3's input;
+    chip_smoke.py times K3 alone on it). dbias: by atomics where
+    `want_dbias` and not `split`; under `split` the FMA body's (`fma`) own
+    K3, none from the tensor-core passes."""
     global LAUNCHES_BWD
-    from mmde_tpu_torch.ops.window_attention_packed import (
-        BWD_TILE, _body_name, _stream, headsplit_tensor_core_body, stat_pair)
+    from mmde_tpu_torch.ops import window_attention_packed as wap
     B_, nH, N, Dh = q.shape
     if g.dtype != v.dtype or g.shape != v.shape:
         raise ValueError(f"g must be {tuple(v.shape)} {v.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype}")
-    tc = headsplit_tensor_core_body(v.dtype) and not _fma
-    want_lse = ((2,) if stat_pair(v.dtype, tc) else ()) + (B_, nH, N)
-    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
-                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
-                         f"{lse.dtype}")
-    # fp32 logits on the tensor cores lie a few ulps from the FMA body's:
-    # p is rebuilt only from the statistic the same arithmetic wrote (a
-    # statistic made elsewhere carries no tag)
-    written_by = getattr(lse, "written_by", None)
-    if written_by not in (None, _body_name(tc)):
-        raise ValueError(f"the {_body_name(tc)} backward was handed the "
-                         f"log-sum-exp the {written_by} forward wrote")
+    tc = wap.headsplit_tensor_core_body(v.dtype) and not fma
+    wap.check_statistic(lse, v.dtype, tc, (B_, nH, N))
     q, k, v, g = _rows(q), _rows(k), _rows(v), _rows(g)
     name = "mmde_window_attention_headsplit_bwd" + ("_tc" if tc else "")
     fn = _entry(name, _BWD_TC_ARGTYPES if tc else _BWD_ARGTYPES)
@@ -426,12 +473,15 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
     # one fp64 partial of dlogit_scale per (window, 64-key tile, head): the
     # dk/dv pass's tile is BWD_TILE rows in both bodies (TC_BT = 64)
-    n_tiles = -(-N // BWD_TILE)
+    n_tiles = -(-N // wap.BWD_TILE)
     dls_part = torch.empty((B_ * n_tiles, nH), dtype=torch.float64,
                            device=dev)
-    # atomics add into dbias (the packed backward's default dbias mode)
+    # atomics add into dbias (mode 1, the packed backward's default); under
+    # "split" the FMA entry writes it in its own K3 (mode 2), the tensor
+    # cores' K3 runs after the passes (mode 0)
+    mode = (0 if tc else 2) if split else int(want_dbias)
     dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
-             if want_dbias else None)
+             if mode else None)
     strides = _strides(q, k, v, g)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -443,17 +493,51 @@ def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
                  dbias.data_ptr() if dbias is not None else None,
                  B_, N, nH, mask.shape[0] if mask is not None else 0,
                  int(v.dtype == torch.bfloat16),
-                 int(bias.dtype == torch.bfloat16), int(want_dbias),
-                 _stream(dev))
+                 int(bias.dtype == torch.bfloat16), mode, wap._stream(dev))
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, nH={nH}, "
             f"{v.dtype})")
     LAUNCHES_BWD += 1
+    key = (B_, N, nH * Dh, nH)
     _count("window_attention_headsplit_bwd" + ("_tc" if tc else ""),
-           LAUNCHES_BWD_BY_SHAPE, (B_, N, nH * Dh, nH))
+           LAUNCHES_BWD_BY_SHAPE, key)
+    if mode == 2:       # the FMA entry's own K3 pass
+        _count("window_attention_headsplit_dbias", None, key)
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
-    return dq, dk, dv, dls, dbias
+    return dq, dk, dv, dls, dbias, delta
+
+
+def _launch_dbias(q, k, v, g, logit_scale, bias, mask, lse, delta):
+    """Launch the tensor-core K3 ("split") on head-split operands, on the
+    `delta` the tensor-core dq pass wrote and its forward's statistic;
+    returns dbias (nH, N, N) fp32, every element written once, windows in
+    one fixed order (type-major where masked): the same bits on every run.
+    No fallback: a build or launch failure raises."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    B_, nH, N, Dh = q.shape
+    wap.check_statistic(lse, v.dtype, True, (B_, nH, N))
+    q, k, v, g = _rows(q), _rows(k), _rows(v), _rows(g)
+    fn = _entry("mmde_window_attention_headsplit_dbias_tc",
+                _DBIAS_TC_ARGTYPES)
+    dev = v.device
+    dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
+    strides = _strides(q, k, v, g)
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 ctypes.addressof(strides), logit_scale.data_ptr(),
+                 bias.data_ptr(),
+                 mask.data_ptr() if mask is not None else None,
+                 lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(), B_, N,
+                 nH, mask.shape[0] if mask is not None else 0,
+                 int(v.dtype == torch.bfloat16),
+                 int(bias.dtype == torch.bfloat16), wap._stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_headsplit_dbias_tc launch failed with code "
+            f"{err} (B_={B_}, N={N}, nH={nH}, {v.dtype})")
+    _count("window_attention_headsplit_dbias_tc", None, (B_, N, nH * Dh, nH))
+    return dbias
 
 
 class _HeadSplitWindowAttention(torch.autograd.Function):

@@ -15,11 +15,12 @@ mma.sync; `tensor_core_body`) - K1 with or without the log-sum-exp and K2's
 two passes (window_attention_{fwd,bwd}_tc.cu, counted as
 window_attention_fwd_tc[+lse] / window_attention_bwd_tc), K5 at W > 1 (the
 same sources, window_attention_fwd_tc_w{W}[+lse] /
-window_attention_bwd_tc_w{W}) and K4 (window_attention_bwd_resident_tc.cu,
-window_attention_bwd_resident_tc) - fp32 qkv with every operand as three
-bf16 pieces; K3's pass ("split") keeps its fp32-FMA body, after the
-tensor-core passes. All compute the same function in each precision mode.
-The fp32-FMA bodies of K1 / K2 / K5 / K4 stay as the private same-card A/B
+window_attention_bwd_tc_w{W}), K4 (window_attention_bwd_resident_tc.cu,
+window_attention_bwd_resident_tc) and K3's windows-innermost dbias pass
+under "split" (window_attention_bwd_tc.cu, window_attention_dbias_tc, after
+the tensor-core passes at any W) - fp32 qkv with every operand as three
+bf16 pieces. All compute the same function in each precision mode. The
+fp32-FMA bodies of K1 / K2 / K3 / K5 / K4 stay as the private same-card A/B
 partner (`_fma`). The forward hands the backward each row's log-sum-exp:
 fp32 hi + lo, (2, B_, nH, N), formed in fp64 (F3), from every body but the
 bf16 tensor-core one, which keeps (B_, nH, N) (`stat_pair`); a backward
@@ -64,6 +65,7 @@ import torch
 
 from mmde_tpu_torch.ops.window_attention_headsplit import (
     HEAD_DIM, cosine_window_attention_headsplit_backward_plain,
+    cosine_window_attention_headsplit_dbias_plain,
     cosine_window_attention_headsplit_plain)
 
 BWD_TILE = 64           # query rows per block of the backward's dq pass
@@ -84,8 +86,8 @@ LAUNCHES_RESIDENT_BY_SHAPE: dict = {}
 # [+lse] / window_attention_bwd_w{W} (K5's fp32-FMA body),
 # window_attention_fwd_tc_w{W}[+lse] / window_attention_bwd_tc_w{W} (K5 on
 # the tensor cores), window_attention_bwd_resident[_tc] (K4's FMA body / on
-# the tensor cores), window_attention_dbias (K3's pass after the tensor-core
-# passes, "split")
+# the tensor cores), window_attention_dbias_tc / window_attention_dbias (K3's
+# pass under "split" on the tensor cores / its FMA body, `_fma`)
 LAUNCHES_BY_KERNEL: dict = {}
 
 # The JAX package's three grid modes. The forward is the same function
@@ -172,8 +174,8 @@ def tensor_core_body(dtype: torch.dtype, w: int = 1,
     """Whether a packed launch of qkv's `dtype` at `w` windows per block (or
     K4's, `resident`) runs the tensor-core kernels: bf16 and fp32 qkv at
     every W (K1 / K2 at W = 1, K5 above) and in K4, in every precision mode,
-    fp32 operands split into three bf16 pieces. K3's pass keeps its FMA
-    body. The head-split and slab wrappers have rules of their own
+    fp32 operands split into three bf16 pieces; K3's pass ("split") too.
+    The head-split and slab wrappers have rules of their own
     (`headsplit_tensor_core_body`, `slab_tensor_core_body`)."""
     return dtype in (torch.bfloat16, torch.float32)
 
@@ -384,7 +386,8 @@ def _library_tc(backward: bool) -> ctypes.CDLL:
     if backward:
         return _bind(load_library(_LIB_NAME_BWD_TC, _SOURCES_BWD_TC), (
             ("mmde_window_attention_bwd_tc", _BWD_TC_ARGTYPES),
-            ("mmde_window_attention_bwd_tc_w", _BWD_TC_W_ARGTYPES)))
+            ("mmde_window_attention_bwd_tc_w", _BWD_TC_W_ARGTYPES),
+            ("mmde_window_attention_dbias_tc", _DBIAS_ARGTYPES)))
     return _bind(load_library(_LIB_NAME_FWD_TC, _SOURCES_FWD_TC), (
         ("mmde_window_attention_fwd_tc", _FWD_TC_ARGTYPES),
         ("mmde_window_attention_fwd_tc_w", _FWD_TC_W_ARGTYPES)))
@@ -523,13 +526,28 @@ def cosine_window_attention_packed_backward_plain(
     return dqkv.reshape(B_, N, C3), dls, dbias.to(bias.dtype)
 
 
+def cosine_window_attention_packed_dbias_plain(
+        qkv: torch.Tensor, logit_scale: torch.Tensor, bias: torch.Tensor,
+        mask: Optional[torch.Tensor], g: torch.Tensor, *, num_heads: int,
+        compute_dtype: torch.dtype = torch.float32,
+        mxu: Optional[str] = None) -> torch.Tensor:
+    """K3's function alone ("split": dbias, the windows' ds summed) in
+    plain PyTorch, on any device: (nH, N, N) in `compute_dtype`, ds as the
+    plain backward forms it in mode `mxu` (None: the default for qkv's
+    type); what the card holds the tensor-core K3 to and times beside it."""
+    q, k, v = _split_heads(qkv, 3, num_heads)
+    return cosine_window_attention_headsplit_dbias_plain(
+        q, k, v, logit_scale, bias, mask, _split_heads(g, 1, num_heads)[0],
+        compute_dtype=compute_dtype, mxu=resolve_mxu(mxu, qkv.dtype))
+
+
 def _count(kernel: str, qkv: torch.Tensor, num_heads: int) -> None:
     B_, N, C3 = qkv.shape
     key = (B_, N, C3 // 3, num_heads)
     LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
         (kernel, key), 0) + 1
-    if kernel == "window_attention_dbias":
-        return      # K3 after the tensor-core passes: part of one backward
+    if kernel.startswith("window_attention_dbias"):
+        return      # K3 after the dq and dk/dv passes: part of one backward
     by_shape = (LAUNCHES_RESIDENT_BY_SHAPE if "resident" in kernel
                 else LAUNCHES_BWD_BY_SHAPE if "_bwd" in kernel
                 else LAUNCHES_BY_SHAPE)
@@ -647,19 +665,54 @@ def _launch_forward(qkv, logit_scale, bias, mask, num_heads, maxfree,
     return out, lse
 
 
+def check_statistic(lse, dtype: torch.dtype, tc: bool, rows: tuple) -> None:
+    """Raise unless `lse` is the statistic the backward body `tc` reads for
+    qkv of `dtype` and (B_, nH, N) `rows`: its shape (`stat_pair`) and the
+    body that wrote it. The tensor cores round each sum toward zero, so fp32
+    logits there lie a few ulps below the FMA body's: p is rebuilt only from
+    the statistic the same arithmetic wrote (a statistic made elsewhere
+    carries no tag)."""
+    want = ((2,) if stat_pair(dtype, tc) else ()) + tuple(rows)
+    if tuple(lse.shape) != want or lse.dtype != torch.float32:
+        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
+                         f"{want} log-sum-exp, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    written_by = getattr(lse, "written_by", None)
+    if written_by not in (None, _body_name(tc)):
+        raise ValueError(f"the {_body_name(tc)} backward was handed the "
+                         f"log-sum-exp the {written_by} forward wrote")
+
+
 def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
                      grid_mode, want_dbias, w=1, mxu=None, _fma=False):
-    """Launch K2's passes (w = 1) or K5's (w windows per block; K3's dbias
-    pass stays at one window), in precision mode `mxu` (one of
-    MXU_MODES, the forward's; None = the default for qkv's type); returns
-    (dqkv, dlogit_scale, dbias or None). bf16 and fp32 qkv run the
-    tensor-core passes (their dbias by atomics; under "split" K3's pass
-    follows them, counted as window_attention_dbias). `lse` must be the
-    statistic the same body's forward writes (`stat_pair`): the other shape
-    raises. Private, for chip_smoke.py's same-card comparisons only: `_fma`
-    sends any launch to the FMA body."""
-    global LAUNCHES_BWD
+    """Launch K2's passes (w = 1) or K5's (w windows per block), in
+    precision mode `mxu` (one of MXU_MODES, the forward's; None = the
+    default for qkv's type); returns (dqkv, dlogit_scale, dbias or None).
+    bf16 and fp32 qkv run the tensor-core passes: dbias by their atomics,
+    or under "split" K3's pass after them at one window (`_launch_dbias`,
+    on the delta they wrote). `lse` must be the statistic the same body's
+    forward writes (`check_statistic`): the other raises. Private, for
+    chip_smoke.py's same-card comparisons only: `_fma` sends every launch
+    to the FMA body (K3 too)."""
     mxu = resolve_mxu(mxu, qkv.dtype)
+    atomics = want_dbias and _DBIAS_MODE[grid_mode] == 1
+    dqkv, dls, dbias, delta = _backward_passes(
+        qkv, logit_scale, bias, mask, lse, g, num_heads, atomics, w, mxu,
+        _fma)
+    if want_dbias and not atomics:      # K3 on the delta the passes wrote
+        dbias = _launch_dbias(qkv, logit_scale, bias, mask, lse, g, delta,
+                              num_heads, mxu, _fma=_fma)
+    return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
+
+
+def _backward_passes(qkv, logit_scale, bias, mask, lse, g, num_heads,
+                     atomics, w, mxu, fma):
+    """`_launch_backward`'s dq and dk/dv passes (mode `mxu` resolved, the
+    FMA body for `fma`), dbias by their atomics where `atomics`; returns
+    (dqkv, dlogit_scale, dbias fp32 or None, delta), delta (B_, nH, N) as
+    the dq pass wrote it (K3's input; chip_smoke.py times K3 alone on
+    it)."""
+    global LAUNCHES_BWD
     B_, N, C3 = qkv.shape
     C = C3 // 3
     nH = num_heads
@@ -673,20 +726,8 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     if w < 1 or B_ % w or (nW and nW % w):
         raise ValueError(f"{w} windows per block must divide B_={B_} and "
                          f"the mask's nW={nW}")
-    tc = tensor_core_body(qkv.dtype, w) and not _fma
-    pair = stat_pair(qkv.dtype, tc)
-    want_lse = ((2,) if pair else ()) + (B_, nH, N)
-    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
-                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
-                         f"{lse.dtype}")
-    # the tensor cores round each sum toward zero, so fp32 logits there lie
-    # a few ulps below the FMA body's: p is rebuilt only from the statistic
-    # the same arithmetic wrote (a statistic made elsewhere carries no tag)
-    written_by = getattr(lse, "written_by", None)
-    if written_by not in (None, _body_name(tc)):
-        raise ValueError(f"the {_body_name(tc)} backward was handed the "
-                         f"log-sum-exp the {written_by} forward wrote")
+    tc = tensor_core_body(qkv.dtype, w) and not fma
+    check_statistic(lse, qkv.dtype, tc, (B_, nH, N))
     dev = qkv.device
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((B_, nH, N), dtype=torch.float32, device=dev)
@@ -696,50 +737,26 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     # windows than w), the rest stay 0
     dls_part = torch.zeros((B_ * n_tiles, nH), dtype=torch.float64,
                            device=dev)
-    mode = _DBIAS_MODE[grid_mode] if want_dbias else 0
-    dbias = None
-    if mode == 1:       # atomics add into it
-        dbias = torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
-    elif mode == 2:     # every element written once
-        dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
-    mask_ptr = mask.data_ptr() if mask is not None else None
-    bias_bf16 = int(bias.dtype == torch.bfloat16)
+    # dbias by the passes' atomics, into zeros
+    dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
+             if atomics else None)
+    args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, lse.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), delta.data_ptr(),
+            dls_part.data_ptr(), dbias.data_ptr() if atomics else None, B_,
+            N, C, nH, nW, int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16), int(atomics))
     code = _MXU_CODE[mxu]
-    qkv_bf16 = int(qkv.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         stream = _stream(dev)
         if tc:
-            args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                    mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                    delta.data_ptr(), dls_part.data_ptr(),
-                    dbias.data_ptr() if mode == 1 else None, B_, N, C, nH,
-                    nW)
             lib = _library_tc(True)
             if w > 1:
-                err = lib.mmde_window_attention_bwd_tc_w(
-                    *args, qkv_bf16, bias_bf16, int(mode == 1), w, code,
-                    stream)
+                err = lib.mmde_window_attention_bwd_tc_w(*args, w, code,
+                                                         stream)
             else:
-                err = lib.mmde_window_attention_bwd_tc(
-                    *args, qkv_bf16, bias_bf16, int(mode == 1), code, stream)
-            if err == 0 and mode == 2:   # K3 on the delta written above
-                err = _library_bwd().mmde_window_attention_dbias(
-                    qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                    mask_ptr, lse.data_ptr(), g.data_ptr(), delta.data_ptr(),
-                    dbias.data_ptr(), B_, N, C, nH, nW, qkv_bf16, bias_bf16,
-                    int(pair), code, stream)
-                if err != 0:
-                    raise RuntimeError(
-                        f"window_attention_dbias launch failed with code "
-                        f"{err} (B_={B_}, N={N}, C={C}, nH={nH}, "
-                        f"{qkv.dtype}, mxu={mxu})")
-                _count("window_attention_dbias", qkv, nH)
+                err = lib.mmde_window_attention_bwd_tc(*args, code, stream)
         else:
-            args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
-                    mask_ptr, lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                    delta.data_ptr(), dls_part.data_ptr(),
-                    dbias.data_ptr() if dbias is not None else None,
-                    B_, N, C, nH, nW, qkv_bf16, bias_bf16, mode)
             lib = _library_bwd()
             if w > 1:
                 err = lib.mmde_window_attention_bwd_w(*args, w, code, stream)
@@ -750,15 +767,60 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
-            f"nH={nH}, {qkv.dtype}, {grid_mode}, {w} windows per block, "
-            f"mxu={mxu})")
+            f"nH={nH}, {qkv.dtype}, dbias atomics {atomics}, {w} windows "
+            f"per block, mxu={mxu})")
     LAUNCHES_BWD += 1
     _count_mxu(mxu, qkv, nH)
     _count(name, qkv, nH)
     # per-block partial sums of dlogit_scale, summed here as the TPU package
     # sums its ds dump outside its kernel
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
-    return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
+    return dqkv, dls, dbias, delta
+
+
+def _launch_dbias(qkv, logit_scale, bias, mask, lse, g, delta, num_heads,
+                  mxu=None, _fma=False):
+    """Launch K3's pass alone ("split"), on the `delta` the dq pass of the
+    same body wrote and the statistic its forward wrote; returns dbias
+    (nH, N, N) fp32, every element written once, windows summed in one
+    fixed order (the same bits on every run). bf16 and fp32 qkv run the
+    tensor-core K3 (window_attention_bwd_tc.cu, counted as
+    window_attention_dbias_tc; fp32 operands in three bf16 pieces); `_fma`
+    (private: chip_smoke.py's same-card comparison, never the model) its
+    FMA body (window_attention_bwd.cu, window_attention_dbias). No
+    fallback: a build or launch failure raises."""
+    mxu = resolve_mxu(mxu, qkv.dtype)
+    B_, N, C3 = qkv.shape
+    C = C3 // 3
+    nH = num_heads
+    tc = tensor_core_body(qkv.dtype) and not _fma
+    check_statistic(lse, qkv.dtype, tc, (B_, nH, N))
+    if tuple(delta.shape) != (B_, nH, N) or delta.dtype != torch.float32:
+        raise ValueError(f"delta must be float32 {(B_, nH, N)}, got "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    dev = qkv.device
+    dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
+    nW = mask.shape[0] if mask is not None else 0
+    args = (qkv.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+            mask.data_ptr() if mask is not None else None, lse.data_ptr(),
+            g.data_ptr(), delta.data_ptr(), dbias.data_ptr(), B_, N, C, nH,
+            nW, int(qkv.dtype == torch.bfloat16),
+            int(bias.dtype == torch.bfloat16),
+            int(stat_pair(qkv.dtype, tc)), _MXU_CODE[mxu])
+    name = "window_attention_dbias" + ("_tc" if tc else "")
+    with torch.cuda.device(dev):
+        if tc:
+            err = _library_tc(True).mmde_window_attention_dbias_tc(
+                *args, _stream(dev))
+        else:
+            err = _library_bwd().mmde_window_attention_dbias(
+                *args, _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed with code {err} (B_={B_}, N={N}, C={C}, "
+            f"nH={nH}, {qkv.dtype}, mxu={mxu})")
+    _count(name, qkv, nH)
+    return dbias
 
 
 def resident_splits(N: int, nH: int, B_: int, tc: bool = False) -> int:

@@ -14,7 +14,9 @@ arithmetic of the tensor-core window-attention kernels
 (csrc/window_attention_{fwd,bwd}_tc.cu, at one window per block or W), which
 run only on the card, on head-split operands; `tc_forward` / `tc_backward`
 on the packed (B_, N, 3C) qkv; `tc_backward_resident` that of the
-tensor-core K4 (csrc/window_attention_bwd_resident_tc.cu). The CPU tests
+tensor-core K4 (csrc/window_attention_bwd_resident_tc.cu); `tc_dbias` /
+`tc_dbias_heads` that of the tensor-core K3, dbias alone summed window
+after window in `dbias_order` (MMDE_ATTN_GRID=split). The CPU tests
 hold that arithmetic to the JAX kernels. `pieces` picks the operand split:
 0 (the default) the bf16-qkv kernels' - q, k, v and g exact bf16 values,
 the fp32 operands formed in registers (p, ds times its factor) split into
@@ -222,6 +224,31 @@ def _dp(g, v, mxu, pieces):
     return _mm(g, v.transpose(-1, -2), pieces, pieces)
 
 
+def dbias_order(B: int, nW: int) -> list:
+    """The windows in the order the tensor-core K3 sums them: with a mask
+    (nW > 0) type-major - window type t = b % nW outer, sample s inner, b =
+    s * nW + t (the JAX dbias grid's (nW, S) order) - else 0 .. B - 1."""
+    if not nW:
+        return list(range(B))
+    return [s * nW + t for t in range(nW) for s in range(B // nW)]
+
+
+def tc_dbias_heads(q, k, v, ls, bias, mask, g, mxu,
+                   pieces: int = 0) -> torch.Tensor:
+    """The tensor-core K3's arithmetic on head-split operands: S as the dq
+    pass forms it (`_logits`: raw products and the rank-1 epilogue, or the
+    "bf16" mode's rounded operands; fp32 in `pieces`), dP as `_dp`, delta
+    exact in fp32, ds = p (dP - delta), summed over the windows one after
+    another in `dbias_order` in fp32; (nH, N, N)."""
+    s, _, _, _, _, _ = _logits(q, k, ls, bias, mask, mxu, pieces)
+    p = torch.softmax(s, dim=-1)
+    dp = _dp(g, v, mxu, pieces)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    B = q.shape[0]
+    order = dbias_order(B, 0 if mask is None else mask.shape[0])
+    return group_sum(ds[order], B)
+
+
 def tc_backward_resident_heads(q, k, v, ls, bias, mask, g,
                                splits: int, pieces: int = 0) -> list:
     """The tensor-core K4's arithmetic on head-split operands, as
@@ -294,6 +321,17 @@ def tc_backward(qkv, ls, bias, mask, g, nH, mxu, windows: int = 1,
     [dqkv (B_, N, 3C), dlogit_scale, dbias]."""
     return _packed_grads(qkv, g, nH, lambda q, k, v, gh: tc_backward_heads(
         q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu, windows, pieces))
+
+
+def tc_dbias(qkv, ls, bias, mask, g, nH, mxu,
+             pieces: int = 0) -> torch.Tensor:
+    """`tc_dbias_heads` on the packed layout: numpy qkv (B_, N, 3C), ls,
+    bias, mask, g (B_, N, C); returns dbias (nH, N, N) fp32."""
+    q, k, v = _packed_heads(qkv, nH)
+    B, N, _ = qkv.shape
+    gh = torch.from_numpy(g).reshape(B, N, nH, 32).permute(0, 2, 1, 3)
+    return tc_dbias_heads(q, k, v, _t(ls), _t(bias), _t(mask), gh, mxu,
+                          pieces)
 
 
 def tc_backward_resident(qkv, ls, bias, mask, g, nH, splits: int,

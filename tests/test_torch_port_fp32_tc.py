@@ -383,9 +383,9 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
     ("split", "auto", "fold", True,
      ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w",
-      "mmde_window_attention_dbias"],
+      "mmde_window_attention_dbias_tc"],
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4",
-      "window_attention_dbias"}),
+      "window_attention_dbias_tc"}),
     ("window_resident", "auto", None, False,
      ["mmde_window_attention_fwd_tc_w"], {"window_attention_fwd_tc_w4"}),
     ("window_resident", "1", None, True,
@@ -393,9 +393,9 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
      {"window_attention_fwd_tc+lse", "window_attention_bwd_tc"}),
     ("split", "1", None, True,
      ["mmde_window_attention_fwd_tc", "mmde_window_attention_bwd_tc",
-      "mmde_window_attention_dbias"],
+      "mmde_window_attention_dbias_tc"],
      {"window_attention_fwd_tc+lse", "window_attention_bwd_tc",
-      "window_attention_dbias"}),
+      "window_attention_dbias_tc"}),
     ("window_resident", "1", "bf16", False,
      ["mmde_window_attention_fwd_tc"], {"window_attention_fwd_tc"}),
 ])
@@ -403,8 +403,8 @@ def test_fp32_routes_k4_and_k5_to_the_tensor_cores(recorded, case):
     """fp32 qkv: K4 (after K1's tensor-core forward without lse), K5 at the
     rule's W and K1 / K2 at W = 1 on the tensor-core entries, each told the
     operand type (qkv_bf16 0) just before bias_bf16. Every statistic is (2,
-    B_, nH, N), hi then lo (F3); K3 behind the tensor-core K2 / K5 ("split")
-    is told so (lse_pair 1)."""
+    B_, nH, N), hi then lo (F3); the tensor-core K3 behind the tensor-core
+    K2 / K5 ("split") is told so (lse_pair 1)."""
     grid, wpc, mxu, train, want, counted = case
     _drive(torch.float32, grid, wpc, train, mxu)
     assert [e for e, _ in recorded] == want, case
@@ -432,7 +432,7 @@ def test_fp32_routes_k4_and_k5_to_the_tensor_cores(recorded, case):
             # ..., nW, qkv_bf16, bias_bf16, splits, stream
             assert args[-5:-1] == (4, 0, 0,
                                    twp.resident_splits(36, 4, 8, True))
-        if entry == "mmde_window_attention_dbias":
+        if entry == "mmde_window_attention_dbias_tc":
             # ..., qkv_bf16, bias_bf16, lse_pair, mxu, stream
             assert args[-5:-1] == (0, 0, 1, code), args
 

@@ -177,7 +177,8 @@ class _Recorder:
     its arguments and (read at the call) the host strides array, and returns
     0, or -1 as the C entries do where a head-split operand's row is not
     16-byte aligned (at the element size the entry's qkv_bf16 argument
-    gives: third from last in a forward, fourth in a backward)."""
+    gives: third from last in a forward and in K3's entry, fourth in a
+    backward)."""
 
     def __init__(self, calls):
         self._calls = calls
@@ -189,7 +190,7 @@ class _Recorder:
         def fn(*args):
             rec = {"entry": entry, "args": args}
             if "headsplit" in entry:
-                n_ops = 4 if "bwd" in entry else 3
+                n_ops = 4 if "bwd" in entry or "dbias" in entry else 3
                 st = (ctypes.c_longlong * (3 * n_ops)).from_address(
                     args[n_ops])
                 rec["strides"] = [tuple(st[3 * i:3 * i + 3])
@@ -281,6 +282,61 @@ def test_routing_follows_the_type(recorded, dtype, train):
     key = (B, N, C, NH)
     assert ths.LAUNCHES_BY_SHAPE == {key: 1}
     assert ths.LAUNCHES_BWD_BY_SHAPE == ({key: 1} if train else {})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_runs_the_tensor_core_k3_after_the_passes(recorded,
+                                                        monkeypatch, dtype):
+    """Under MMDE_ATTN_GRID=split (the packed module's DEFAULT_GRID_MODE)
+    a head-split backward runs the tensor-core passes without dbias (mode
+    0), then K3's head-split entry on the same views' strides, the
+    forward's statistic and the delta the passes wrote; K3 is counted as
+    window_attention_headsplit_dbias_tc, outside the per-shape backward
+    counts."""
+    monkeypatch.setattr(twp, "DEFAULT_GRID_MODE", "split")
+    _drive(dtype)
+    B, N = 4, 36
+    bf16 = int(dtype == torch.bfloat16)
+    assert [c["entry"] for c in recorded] == [
+        "mmde_window_attention_headsplit_fwd_tc",
+        "mmde_window_attention_headsplit_bwd_tc",
+        "mmde_window_attention_headsplit_dbias_tc"]
+    f, b, d = (c["args"] for c in recorded)
+    assert b[-2] == 0                           # the passes: no dbias
+    assert len(d) == len(ths._DBIAS_TC_ARGTYPES)
+    assert recorded[2]["strides"] == recorded[1]["strides"]
+    assert d[8] == f[8] == b[8]                 # the forward's statistic
+    assert d[9] == b[12]                        # the dq pass's delta
+    # ..., B_, N, nH, nW, qkv_bf16, bias_bf16, stream
+    assert d[-7:-1] == (B, N, NH, 2, bf16, 0)
+    assert ths.launch_counts() == {
+        "window_attention_headsplit_fwd_tc+lse": 1,
+        "window_attention_headsplit_bwd_tc": 1,
+        "window_attention_headsplit_dbias_tc": 1}
+    assert ths.LAUNCHES_BWD_BY_SHAPE == {(B, N, C, NH): 1}
+
+
+def test_split_fma_body_runs_its_own_k3(recorded, monkeypatch):
+    """`_fma` under "split": the FMA backward entry with dbias_mode 2, its
+    own windows-innermost pass (counted as
+    window_attention_headsplit_dbias); the tensor-core K3 refuses the FMA
+    forward's statistic."""
+    monkeypatch.setattr(twp, "DEFAULT_GRID_MODE", "split")
+    qkv, ls, bias, mask, g = _inputs(2, 36, True, seed=8)
+    lt, bt, mt = (torch.from_numpy(a) for a in (ls, bias, mask))
+    q, k, v = _views(torch.from_numpy(qkv).bfloat16())
+    gt = torch.from_numpy(g).bfloat16()
+    _, lse = ths._launch_forward(q, k, v, lt, bt, mt, True, _fma=True)
+    ths._launch_backward(q, k, v, lt, bt, mt, lse, gt, True, _fma=True)
+    assert [c["entry"] for c in recorded] == [
+        "mmde_window_attention_headsplit_fwd_stats",
+        "mmde_window_attention_headsplit_bwd"]
+    assert recorded[1]["args"][-2] == 2
+    assert ths.launch_counts()["window_attention_headsplit_dbias"] == 1
+    delta = torch.zeros((2, NH, 36))
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        ths._launch_dbias(q, k, v, gt, lt, bt, mt, lse, delta)
+    assert len(recorded) == 2
 
 
 def test_model_layout_gradient_is_read_in_place(recorded):

@@ -281,9 +281,9 @@ def _drive(dtype, grid, wpc, train=True, mxu=None):
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4"}),
     ("bf16", "split", "auto", True,
      ["mmde_window_attention_fwd_tc_w", "mmde_window_attention_bwd_tc_w",
-      "mmde_window_attention_dbias"],
+      "mmde_window_attention_dbias_tc"],
      {"window_attention_fwd_tc_w4+lse", "window_attention_bwd_tc_w4",
-      "window_attention_dbias"}),
+      "window_attention_dbias_tc"}),
     ("bf16", "window_resident", "auto", False,
      ["mmde_window_attention_fwd_tc_w"], {"window_attention_fwd_tc_w4"}),
     ("fp32", "window_resident", "auto", True,
@@ -294,8 +294,8 @@ def test_k4_and_k5_route_by_type(recorded, case):
     """bf16 qkv takes the tensor-core K4 (after the tensor-core forward
     without lse, W = 1 whatever the setting, as in JAX) and the tensor-core
     K5 at the rule's W, whose entries receive W just before the mode and
-    the stream (the forward's lse null when serving); under "split" K3's
-    pass follows K5 as it follows K2. fp32 qkv takes them too (K4 and K5
+    the stream (the forward's lse null when serving); under "split" the
+    tensor-core K3's pass follows K5 as it follows K2. fp32 qkv takes them too (K4 and K5
     on the tensor cores, its forward before K4 the tensor-core K1). The
     counters name the kernel that ran, with its W."""
     dtype_name, grid, wpc, train, want, counted = case

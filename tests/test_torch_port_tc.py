@@ -246,14 +246,16 @@ def _drive(dtype, grid="window_resident", wpc="1", mxu=None, train=True):
 ])
 def test_routing_follows_the_type_and_w(recorded, case):
     """bf16 and fp32 qkv run the tensor-core entries in every grid, mode
-    and W (split: the tensor-core passes without dbias, then K3's pass;
+    and W (split: the tensor-core passes without dbias, then the
+    tensor-core K3's pass on the statistic of the type, lse_pair 0 / 1;
     bias_resident: the tensor-core forward without lse, then the
     tensor-core K4; W > 1: K5's tensor-core entries; fp32 operands in three
     bf16 pieces), each entry told the operand type (qkv_bf16). The mode
     reaches every packed entry but K4's as its code, just before the stream
     (K5's: W, then the mode); the launch counters name the kernel that ran,
-    K3 after the tensor-core passes under its own name (and outside the
-    per-shape backward counts)."""
+    K3 after the tensor-core passes under its own name,
+    window_attention_dbias_tc (and outside the per-shape backward
+    counts)."""
     name, grid, wpc, mxu, train = case
     dtype = torch.bfloat16 if name == "bf16" else torch.float32
     _drive(dtype, grid, wpc, mxu, train)
@@ -268,7 +270,7 @@ def test_routing_follows_the_type_and_w(recorded, case):
     else:
         want = ["mmde_window_attention_fwd_tc" + w_sfx,
                 "mmde_window_attention_bwd_tc" + w_sfx]
-        want += ["mmde_window_attention_dbias"] if grid == "split" else []
+        want += ["mmde_window_attention_dbias_tc"] if grid == "split" else []
     assert entries == want, case
     qkv_bf16 = int(dtype == torch.bfloat16)
     for entry, args in recorded:
@@ -286,6 +288,10 @@ def test_routing_follows_the_type_and_w(recorded, case):
             assert dbias_mode == (1 if grid == "window_resident" else 0)
             # ..., nW, qkv_bf16, bias_bf16, dbias_mode, mxu, stream
             assert args[-5] == qkv_bf16, case
+        if entry == "mmde_window_attention_dbias_tc":
+            # ..., nW, qkv_bf16, bias_bf16, lse_pair, mxu, stream
+            assert args[-5] == qkv_bf16 and args[-3] == 1 - qkv_bf16, case
+            assert len(args) == len(twp._DBIAS_ARGTYPES)
     counted = twp.launch_counts()
     # either type: every packed launch on the tensor cores
     assert set(counted) <= {"window_attention_fwd_tc",
@@ -293,9 +299,9 @@ def test_routing_follows_the_type_and_w(recorded, case):
                             "window_attention_bwd_tc",
                             "window_attention_fwd_tc_w4+lse",
                             "window_attention_bwd_tc_w4",
-                            "window_attention_dbias",
+                            "window_attention_dbias_tc",
                             "window_attention_bwd_resident_tc"}, counted
-    assert counted.get("window_attention_dbias", 0) == (
+    assert counted.get("window_attention_dbias_tc", 0) == (
         1 if train and grid == "split" else 0), counted
     if train and grid != "bias_resident":
         assert sum(twp.LAUNCHES_BWD_BY_SHAPE.values()) == 1
