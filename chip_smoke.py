@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                 # everything, one card
     python3 chip_smoke.py --only kernels  # build + compare the kernels only
+    python3 chip_smoke.py --only loop     # the training / evaluation entry
+                                          # points only (loop, eval_ckpt,
+                                          # deterministic)
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
                                             # of a request and a train step,
                                             # flagship (p.json), swin_large
@@ -259,6 +262,34 @@ What it does, each phase printing one JSON object on a line of its own:
                 one more step with every attention backward launched twice
                 on the same inputs: dbias (and dqkv, dlogit_scale) bitwise
                 equal, block by block.
+  loop          python -m mmde_tpu_torch.tools.train (in this process) on
+                configs/flagship_synth.yaml's model (bf16, 480x640, full
+                depth), in a temporary directory removed at the end: 2
+                frame pairs a step, 2 epochs of 3 steps, a checkpoint and
+                validation on the 8 synthetic held-out samples every epoch;
+                the saved epoch 2 restored into a fresh trainer and held
+                bitwise to the state the run ended with (model, optimizer
+                moments and count, generator); the CLI again in the same
+                log directory to 3 epochs (RESUME_FROM "auto"): it must
+                resume at epoch 3 with the optimizer's count at 6. Launches
+                read around each run (K1+lse / K2 once a block a step, K1
+                once a block a held-out sample, tensor-core kernels only);
+                images/s from the loop's own log lines, peak bytes, the
+                train and validation scalars, checkpoint bytes, save and
+                restore seconds, free disk before and after.
+  eval_ckpt     python -m mmde_tpu_torch.tools.eval --ckpt <loop's ckpt/>
+                --flip-tta --shift-window-tta: the best checkpoint (not the
+                latest) must be the one restored; the metric table; the
+                TTA's K1 launches (2 crops of 480x480 a sample, flipped:
+                48 a sample); then one request served as tools.infer --ckpt
+                serves it (infer.build, ckpt.io.restore_eval, predict).
+  deterministic under torch.use_deterministic_algorithms(True,
+                warn_only=True): the stage-1 attention backward of the
+                flagship (packed) and of swin_large (head-split), bf16, 2
+                frame pairs, unmasked and masked, twice on the same inputs:
+                dqkv, dlogit_scale and dbias bitwise equal, K3 launched, no
+                atomics asked of the passes; in strict mode the slab
+                backward raises (no K3 over MapRows yet).
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
@@ -284,7 +315,9 @@ What it does, each phase printing one JSON object on a line of its own:
                 tensor-core K3's (window_attention_dbias_tc) those of
                 train_split, its numbers kernel_cases_backward's; T1-T3's
                 the launches of the tool runs above, K1 / K2 in the bf16
-                mode those of train_mxu.
+                mode those of train_mxu; the entries with a "path" key
+                carry the loop phase's launches (its first run: 6 steps,
+                16 held-out forwards).
   profile_resident, profile_w
                 (--profile only) Path A and Path B, a served request and a
                 train step each, device time by kernel group, on the
@@ -307,9 +340,11 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3417,7 +3452,6 @@ def _start_child(argv: list, env_extra: dict) -> dict:
     """Start this checkout's python `argv` with `env_extra` in the
     environment (the kernel settings are read at import: a process of their
     own), its output to temporary files."""
-    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, **env_extra)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -3461,7 +3495,6 @@ def phase_children(resident_steps: int = 4) -> tuple:
     each; returns (train_resident, Path A's fp32 step, serve_w, train_w,
     Path B's fp32 step, serve_mxu, train_mxu); a step: its loss,
     gradients and launches by kernel and shape."""
-    import tempfile
     me = os.path.basename(__file__)
     with tempfile.TemporaryDirectory() as tmp:
         grads = os.path.join(tmp, "grads.pt")
@@ -4615,12 +4648,411 @@ def phase_kernels_tc(timed: bool = True) -> list:
     return cases
 
 
+# ----------------------------------------------- the training loop's entries
+
+LOOP_PAIRS, LOOP_STEPS, LOOP_VAL = 2, 3, 8      # pairs a step, steps an epoch,
+                                                # held-out samples
+
+
+def _merge_launches(*dicts) -> dict:
+    out = {"packed": {}, "headsplit": {}, "slab": {}}
+    for d in dicts:
+        for lay, by in d.items():
+            for k, n in by.items():
+                out[lay][k] = out[lay].get(k, 0) + n
+    return out
+
+
+def _loop_config(tmp: str) -> str:
+    """configs/flagship_synth.yaml's model (bf16, 480x640, full depth)
+    with validation and a checkpoint every epoch, every step printed and
+    RESUME_FROM "auto", written to `tmp`."""
+    import yaml
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "flagship_synth.yaml")) as f:
+        y = yaml.safe_load(f)
+    y.update(VALIDATION_FREQUENCY=1, SAVE_FREQUENCY=1, SAVE_MODEL=True,
+             PRINT_FREQUENCY=1, RESUME_FROM="auto")
+    path = os.path.join(tmp, "flagship_loop.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(y, f)
+    return path
+
+
+def _loop_log(log_dir: str) -> dict:
+    """The run's logs.txt step lines ({epoch: [img/s ...]}) and its
+    scalars.jsonl ({tag: {epoch: value}})."""
+    import re
+    rates: dict = {}
+    with open(os.path.join(log_dir, "logs.txt")) as f:
+        for line in f:
+            m = re.match(r"Epoch \[(\d+)/\d+\] step \d+ .* ([\d.]+) img/s",
+                         line)
+            if m:
+                rates.setdefault(int(m.group(1)), []).append(
+                    float(m.group(2)))
+    scalars: dict = {}
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            scalars.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    return {"images_per_s_by_epoch": rates, "scalars": scalars}
+
+
+def _state_tensors(state) -> dict:
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    opt = state.optimizer.state_dict()
+    for i, st in opt["state"].items():
+        for k, v in st.items():
+            out[f"optimizer.{i}.{k}"] = v
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def phase_loop(tmp: str) -> dict:
+    """`python -m mmde_tpu_torch.tools.train` in this process on
+    configs/flagship_synth.yaml's model (bf16, 480x640, full depth, weights
+    from the config's seed): --batch-size 2, 2 epochs of 3 steps, each
+    followed by a checkpoint and validation on the 8 synthetic held-out
+    samples; the saved epoch-2 state restored into a fresh trainer and
+    held bitwise to the state the run ended with; then the CLI again in
+    the same log directory to 3 epochs, which resumes (RESUME_FROM "auto")
+    at epoch 3 with the optimizer's count at 6. Launch counters set to 0
+    before each run and read after: K1+lse / K2 once a block a step, K1
+    once a block a validation sample."""
+    from mmde_tpu_torch.ckpt import io
+    from mmde_tpu_torch.config import load_yaml, replace
+    from mmde_tpu_torch.tools import train as train_cli
+    from mmde_tpu_torch.train import loop
+    cfg_path = _loop_config(tmp)
+    log_dir = os.path.join(tmp, "run")
+    ckpt_dir = os.path.join(log_dir, "ckpt")
+    free_before = shutil.disk_usage(tmp).free
+    saves, restores, held = [], [], {}
+    real_save, real_restore = io.save_epoch, io.restore
+
+    def save(d, state, epoch):
+        torch.cuda.synchronize()
+        t = time.time()
+        path = real_save(d, state, epoch)
+        saves.append({"epoch": epoch, "seconds": time.time() - t,
+                      "bytes": os.path.getsize(path)})
+        held["state"] = state
+        return path
+
+    def restore(d, state, epoch=None):
+        t = time.time()
+        got, e = real_restore(d, state, epoch)
+        torch.cuda.synchronize()
+        restores.append({"epoch": e, "seconds": time.time() - t,
+                         "count": got.optimizer.count, "step": got.step})
+        return got, e
+
+    argv = ["--config", cfg_path, "--synthetic", "--batch-size",
+            str(LOOP_PAIRS), "--max-steps", str(LOOP_STEPS), "--log-dir",
+            log_dir, "--device", "cuda"]
+    rec = {"command": "python -m mmde_tpu_torch.tools.train "
+                      + " ".join(argv[:1] + ["<flagship_synth.yaml + val, "
+                                             "save every epoch, resume "
+                                             "auto>"] + argv[2:]),
+           "model": "swin_base_v2 + decoder_v2, bfloat16, 480x640, depths "
+                    "2/2/18/2, weights from the config's seed",
+           "frame_pairs": LOOP_PAIRS, "steps_per_epoch": LOOP_STEPS,
+           "val_samples": LOOP_VAL}
+    io.save_epoch, io.restore = save, restore
+    try:
+        runs = []
+        for epochs in (2, 3):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launch_counts()
+            n_save, n_restore = len(saves), len(restores)
+            t = time.time()
+            val = train_cli.main(argv + ["--epochs", str(epochs)])
+            torch.cuda.synchronize()
+            seconds = time.time() - t
+            trained = epochs - (2 if epochs == 3 else 0)
+            want_fwd = _merge_launches(
+                expected_launches("swin_base_v2", LOOP_PAIRS,
+                                  trained * LOOP_STEPS),
+                expected_launches("swin_base_v2", 1, trained * LOOP_VAL))
+            want_bwd = expected_launches("swin_base_v2", LOOP_PAIRS,
+                                         trained * LOOP_STEPS)
+            fwd, bwd = _launches(), _launches(backward=True)
+            if fwd != want_fwd or bwd != want_bwd:
+                raise RuntimeError(f"loop: launches forward {fwd}, backward "
+                                   f"{bwd}; expected {want_fwd} / {want_bwd}")
+            kernels = {k: sum(d.values()) for k, d in _by_kernel().items()}
+            if any("_tc" not in k for k in kernels):
+                raise RuntimeError(f"loop: an FMA body ran: {kernels}")
+            runs.append({"epochs": epochs, "seconds": seconds,
+                         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": kernels,
+                         "saves": saves[n_save:],
+                         "restores": restores[n_restore:],
+                         "last_val": val,
+                         "_fwd": fwd, "_bwd": bwd})
+            if epochs == 2:
+                # the saved epoch-2 state into a fresh trainer, against the
+                # state the run ended with (saving is the epoch's last
+                # change; validation leaves the state alone)
+                trained_state = held.pop("state")
+                cfg = load_yaml(cfg_path)
+                cfg = replace(cfg, train=replace(cfg.train, epochs=2,
+                                                 batch_size=LOOP_PAIRS))
+                fresh, _ = loop.build_state(cfg, LOOP_STEPS, "cuda")
+                t = time.time()
+                fresh, e = real_restore(ckpt_dir, fresh)
+                torch.cuda.synchronize()
+                want, got = _state_tensors(trained_state), \
+                    _state_tensors(fresh)
+                differ = [k for k in want if got.get(k) is None
+                          or got[k].dtype != want[k].dtype
+                          or not torch.equal(got[k].to(want[k].device),
+                                             want[k])]
+                rec["restore_check"] = {
+                    "epoch": e, "seconds": time.time() - t,
+                    "tensors": len(want), "bitwise_equal": len(want) - len(
+                        differ), "differ": differ[:5],
+                    "count": fresh.optimizer.count,
+                    "step": fresh.step,
+                    "param_dtypes": sorted({str(p.dtype) for p in
+                                            fresh.model.parameters()}),
+                    "parameters": sum(p.numel() for p in
+                                      fresh.model.parameters())}
+                del trained_state, fresh, want, got
+                held.clear()
+        rec["free_disk_bytes_before"] = free_before
+        rec["free_disk_bytes_after"] = shutil.disk_usage(tmp).free
+        rec["checkpoint_files"] = {
+            os.path.relpath(os.path.join(d, n), ckpt_dir):
+                os.path.getsize(os.path.join(d, n))
+            for d, _, names in os.walk(ckpt_dir) for n in names}
+        rec.update(_loop_log(log_dir))
+    finally:
+        io.save_epoch, io.restore = real_save, real_restore
+        held.clear()
+    rec["runs"] = [{k: v for k, v in r.items() if not k.startswith("_")}
+                   for r in runs]
+    resume = runs[1]["restores"]
+    best = sorted(os.listdir(os.path.join(ckpt_dir, "best")))
+    scal = rec["scalars"]
+    finite = all(math.isfinite(v) for tag in scal.values()
+                 for v in tag.values())
+    rc = rec["restore_check"]
+    rec["ok"] = (finite and rc["bitwise_equal"] == rc["tensors"]
+                 and rc["epoch"] == 2 and rc["count"] == 2 * LOOP_STEPS
+                 and len(resume) == 1 and resume[0]["epoch"] == 2
+                 and resume[0]["count"] == 2 * LOOP_STEPS
+                 and sorted(scal["train/loss_total"]) == [1, 2, 3]
+                 and sorted(scal["val/rmse"]) == [1, 2, 3]
+                 and len(best) == 1)
+    emit("loop", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"loop: {json.dumps(rec)[:3000]}")
+    rec["_cfg"], rec["_ckpt"], rec["_best"] = cfg_path, ckpt_dir, best[0]
+    rec["_train"] = {"backbone": "swin_base_v2", "frame_pairs": LOOP_PAIRS,
+                     "_attn_impl": "cuda", "_fwd_by_shape": runs[0]["_fwd"],
+                     "_bwd_by_shape": runs[0]["_bwd"]}
+    rec["_serve"] = {"backbone": "swin_base_v2", "_attn_impl": "cuda",
+                     "_by_shape": runs[0]["_fwd"]}
+    return rec
+
+
+def phase_eval_ckpt(loop_rec: dict) -> dict:
+    """`python -m mmde_tpu_torch.tools.eval --ckpt <the loop's ckpt/>
+    --flip-tta --shift-window-tta` in this process on the loop's config
+    (the 8 held-out samples, 480x640, crops of 480 at x = 0 and 160,
+    flipped over the composition): the restored checkpoint must be the
+    best one (ckpt/best/), its epoch the best file's; every attention
+    launch K1 at the crops' shapes (2 crops a sample, 2 passes: 48 a
+    sample). Then one request as `tools.infer --ckpt` serves it:
+    infer.build, ckpt.io.restore_eval (best first), infer.predict on a
+    480x640 pair (the CLI's image files need cv2, which the card machine
+    lacks)."""
+    from mmde_tpu_torch.ckpt import io
+    from mmde_tpu_torch.config import load_yaml
+    from mmde_tpu_torch.tools import eval as eval_cli
+    from mmde_tpu_torch.tools import infer
+    cfg_path, ckpt = loop_rec["_cfg"], loop_rec["_ckpt"]
+    best_epoch = int(loop_rec["_best"][len("epoch_"):-len(".pt")])
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    t = time.time()
+    res = eval_cli.main(["--config", cfg_path, "--ckpt", ckpt, "--synthetic",
+                         "--flip-tta", "--shift-window-tta", "--device",
+                         "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    kernels = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    crops = [{"B_": s["B_"], "N": s["N"], "C": s["C"], "nH": s["nH"]}
+             for s in stage_shapes(h=480, w=480, batch=2)]
+    want = sum(s["blocks"] for s in stage_shapes()) * 2 * LOOP_VAL
+    _reset_launch_counts()
+    model = infer.build(load_yaml(cfg_path), device="cuda", seed=0)
+    epoch, kind = io.restore_eval(ckpt, model)
+    f1, f2 = make_frames(seed=3)
+    t = time.time()
+    out = infer.predict(model, f1, f2)
+    torch.cuda.synchronize()
+    request_ms = (time.time() - t) * 1e3
+    rec = {"command": "python -m mmde_tpu_torch.tools.eval --ckpt <loop "
+                      "ckpt/> --synthetic --flip-tta --shift-window-tta",
+           "seconds": seconds, "restored": res["restored"],
+           "best_epoch_file": best_epoch,
+           "latest_epoch": io.latest_epoch(ckpt),
+           "metrics": res["metrics"], "losses": res["losses"],
+           "tta_launches": kernels, "tta_k1_launches": kernels.get(
+               "window_attention_fwd_tc", 0),
+           "tta_k1_expected": want, "crop_shapes": crops,
+           "infer": {"restored": {"epoch": epoch, "kind": kind},
+                     "request_ms": request_ms,
+                     "outputs": check_outputs(out, "eval_ckpt infer"),
+                     "launches": {k: sum(d.values())
+                                  for k, d in _by_kernel().items()}}}
+    finite = all(math.isfinite(v) for v in res["metrics"].values())
+    rec["ok"] = (finite and res["restored"] == {"epoch": best_epoch,
+                                                "kind": "best"}
+                 and (epoch, kind) == (best_epoch, "best")
+                 and kernels == {"window_attention_fwd_tc":
+                                 rec["tta_k1_launches"]}
+                 and rec["tta_k1_launches"] == want)
+    del model
+    emit("eval_ckpt", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"eval_ckpt: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def phase_deterministic() -> dict:
+    """Under torch.use_deterministic_algorithms(True, warn_only=True): the
+    stage-1 attention backward of the flagship (packed, C 128, 4 heads) and
+    of swin_large (head-split, C 192, 6 heads), bf16, 2 frame pairs, each
+    of the stage's two blocks (unshifted; shifted, masked) through the
+    autograd Function twice on the same inputs: dqkv, dlogit_scale and
+    dbias bitwise equal, K3 (the tensor-core dbias pass) launched once a
+    backward, the passes never asked for atomics. Under strict mode the
+    slab backward (flagship stage 1 map) must raise."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    atomics_seen = []
+    real_wap, real_ths = wap._backward_passes, ths._backward_passes
+
+    def wap_spy(*a, **kw):
+        atomics_seen.append(("packed", a[7]))
+        return real_wap(*a, **kw)
+
+    def ths_spy(*a, **kw):
+        atomics_seen.append(("headsplit", a[8] and not a[9]))
+        return real_ths(*a, **kw)
+
+    def grads(fn, leaves, g):
+        for x in leaves:
+            x.grad = None
+        fn().backward(g)
+        torch.cuda.synchronize()
+        return [x.grad.clone() for x in leaves]
+
+    cases = []
+    was_on = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    wap._backward_passes, ths._backward_passes = wap_spy, ths_spy
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for backbone in ("swin_base_v2", "swin_large_v2"):
+            shape = stage_shapes(backbone, batch=2)[0]
+            for masked in (False, True):
+                _reset_launch_counts()
+                atomics_seen.clear()
+                if shape["layout"] == "packed":
+                    qkv, ls, bias, mask = make_kernel_inputs(
+                        shape, torch.bfloat16, masked, gen)
+                    g = torch.randn(qkv.shape[:2] + (shape["C"],),
+                                    device="cuda", generator=gen
+                                    ).to(torch.bfloat16)
+                    leaves = [qkv.requires_grad_(), ls.requires_grad_(),
+                              bias.requires_grad_()]
+
+                    def fn():
+                        return wap.cosine_window_attention_packed(
+                            qkv, ls, bias, mask, num_heads=shape["nH"])
+                    k3 = "window_attention_dbias_tc"
+                else:
+                    qkv, ls, bias, mask, g = make_headsplit_inputs(
+                        shape, torch.bfloat16, masked, gen)
+                    leaves = [qkv.requires_grad_(), ls.requires_grad_(),
+                              bias.requires_grad_()]
+
+                    def fn():
+                        q, k, v = _views(qkv, shape["nH"])
+                        return ths.cosine_window_attention_headsplit(
+                            q, k, v, ls, bias, mask)
+                    k3 = "window_attention_headsplit_dbias_tc"
+                first = grads(fn, leaves, g)
+                again = grads(fn, leaves, g)
+                same = {n: bool(torch.equal(a, b)) for n, a, b in
+                        zip(("dqkv", "dlogit_scale", "dbias"), first, again)}
+                counts = {k: sum(d.values())
+                          for k, d in _by_kernel().items()}
+                cases.append({
+                    "model": backbone, "stage": 1, "layout": shape["layout"],
+                    "B_": shape["B_"], "N": shape["N"], "C": shape["C"],
+                    "nH": shape["nH"], "masked": masked, "bitwise": same,
+                    "k3_launches": counts.get(k3, 0),
+                    "atomics_asked": sum(bool(a) for _, a in atomics_seen),
+                    "launches": counts})
+        torch.use_deterministic_algorithms(True)
+        shape = stage_shapes(attn_impl="cuda_slab", batch=2)[0]
+        qkv, ls, bias, mask, g = make_slab_inputs(shape, torch.bfloat16, gen)
+        qkv.requires_grad_()
+        bias.requires_grad_()
+        try:
+            was.cosine_window_attention_slab(
+                qkv, ls, bias, mask, num_heads=shape["nH"],
+                window_size=shape["ws"]).backward(g)
+            slab = {"raised": False}
+        except RuntimeError as e:
+            slab = {"raised": "MapRows" in str(e), "error": str(e)[:200]}
+    finally:
+        wap._backward_passes, ths._backward_passes = real_wap, real_ths
+        torch.use_deterministic_algorithms(was_on, warn_only=was_warn)
+    rec = {"flags": "torch.use_deterministic_algorithms(True, "
+                    "warn_only=True); the slab case strict",
+           "cases": cases, "slab_strict": slab}
+    rec["ok"] = (len(cases) == 4 and slab["raised"] is True and all(
+        all(c["bitwise"].values()) and c["k3_launches"] == 2
+        and c["atomics_asked"] == 0 for c in cases))
+    emit("deterministic", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"deterministic: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def phase_loop_entries() -> dict:
+    """loop, eval_ckpt (in a temporary directory, removed in `finally`)
+    and deterministic; returns loop's record."""
+    tmp = tempfile.mkdtemp(prefix="mmde_smoke_loop_")
+    try:
+        rec = phase_loop(tmp)
+        phase_eval_ckpt(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_deterministic()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="build the kernels, compare them with their plain "
-                         "versions (no timing), then stop (prints no final "
-                         "ok line)")
+    ap.add_argument("--only", choices=["kernels", "loop"], default=None,
+                    help="kernels: build the kernels, compare them with "
+                         "their plain versions (no timing); loop: the "
+                         "training and evaluation entry points (loop, "
+                         "eval_ckpt, deterministic); then stop (prints no "
+                         "final ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
@@ -4646,6 +5078,10 @@ def main() -> int:
     if args.child:
         return child_main(args)
     phase_env()
+    if args.only == "loop":
+        phase_loop_entries()
+        emit("phase_seconds", PHASE_SECONDS)
+        return 0
     timed = args.only is None
     k1_cases = phase_kernels(timed=timed)
     k2_cases = phase_kernels_backward(timed=timed)
@@ -4696,6 +5132,7 @@ def main() -> int:
      train_mxu) = phase_children()
     # after the three side-by-side children: the card to itself
     train_split = phase_train_split()
+    loop_rec = phase_loop_entries()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)
@@ -4753,6 +5190,15 @@ def main() -> int:
                               train_slab_fp32, tc_cases, "float32")
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += contract_k3(k2_cases, train_split)
+    # the training loop's own launches (tools.train: 6 steps, 16 held-out
+    # forwards), at the shapes and with the numbers of the train / serve
+    # entries
+    for e in (contract_train(k2_cases, hs_cases, slab_cases,
+                             loop_rec["_train"], tc_cases)
+              + contract_serve(k1_cases, hs_cases, slab_cases,
+                               loop_rec["_serve"], tc_cases)):
+        e["path"] = "loop (tools.train, 2 epochs; validation)"
+        entries.append(e)
     entries += tool_entries + roof_entries
     print(json.dumps({"kernels": entries}), flush=True)
     smi = subprocess.run(

@@ -54,10 +54,11 @@ Where it differs from the TPU kernels:
     sums them in XLA; here the dk/dv pass adds its ds into one fp32
     (nH, N, N) buffer with atomics (the packed backward's default), fp32
     throughout but not bit-reproducible from run to run; under
-    MMDE_ATTN_GRID=split (the packed module's DEFAULT_GRID_MODE) the passes
-    skip dbias and K3's windows-innermost pass sums it in one fixed order
-    (`_launch_dbias`, counted as window_attention_headsplit_dbias_tc): the
-    same bits on every run, as the TPU package's XLA sum gives.
+    MMDE_ATTN_GRID=split (the packed module's DEFAULT_GRID_MODE), and
+    under `torch.use_deterministic_algorithms(True)` (`dbias_split`), the
+    passes skip dbias and K3's windows-innermost pass sums it in one fixed
+    order (`_launch_dbias`, counted as window_attention_headsplit_dbias_tc):
+    the same bits on every run, as the TPU package's XLA sum gives.
   * Dh = 32 only (NotImplementedError otherwise). The TPU kernel takes any
     Dh; no swin variant has another.
   * No padding to the TPU's 8-row q tiles: the kernels mask the ragged
@@ -430,17 +431,28 @@ def _launch_forward(q, k, v, logit_scale, bias, mask, want_stats,
     return out, lse
 
 
+def dbias_split() -> bool:
+    """Whether a head-split backward sums dbias by K3's pass ("split")
+    rather than by atomics: under MMDE_ATTN_GRID=split (the packed module's
+    DEFAULT_GRID_MODE, read at each call), and under
+    `torch.use_deterministic_algorithms(True)` whatever the grid mode (the
+    head-split stages have no K4 of their own)."""
+    from mmde_tpu_torch.ops import window_attention_packed as wap
+    return (wap.DEFAULT_GRID_MODE == "split"
+            or torch.are_deterministic_algorithms_enabled())
+
+
 def _launch_backward(q, k, v, logit_scale, bias, mask, lse, g, want_dbias,
                      _fma=False):
     """Launch the backward kernels; returns (dq, dk, dv, dlogit_scale,
     dbias or None). bf16 and fp32 run the tensor-core passes (the private
     `_fma`: the FMA body); dbias by their atomics, or under
-    MMDE_ATTN_GRID=split by K3's pass after them (`_launch_dbias`; the FMA
-    body runs its own K3 inside its entry, dbias_mode 2). `lse` must be
+    MMDE_ATTN_GRID=split or in deterministic mode (`dbias_split`) by K3's
+    pass after them (`_launch_dbias`; the FMA body runs its own K3 inside
+    its entry, dbias_mode 2). `lse` must be
     what the same body's forward wrote: the other shape, or a statistic
     tagged with the other body, raises before any launch."""
-    from mmde_tpu_torch.ops import window_attention_packed as wap
-    split = want_dbias and wap.DEFAULT_GRID_MODE == "split"
+    split = want_dbias and dbias_split()
     dq, dk, dv, dls, dbias, delta = _backward_passes(
         q, k, v, logit_scale, bias, mask, lse, g, want_dbias, split, _fma)
     if split and dbias is None:     # K3 on the delta the passes wrote

@@ -108,6 +108,18 @@ if DEFAULT_GRID_MODE not in GRID_MODES:
         f"MMDE_ATTN_GRID={DEFAULT_GRID_MODE!r} is not one of {GRID_MODES}")
 _DBIAS_MODE = {"window_resident": 1, "split": 2}
 
+
+def backward_grid_mode(grid_mode: str) -> str:
+    """The grid mode a packed backward runs: `grid_mode`, except that under
+    `torch.use_deterministic_algorithms(True)`, read at each call, the
+    atomics of "window_resident" give way to "split" (K3's pass, the same
+    dbias bits on every run). "bias_resident" (K4) is deterministic as it
+    is."""
+    if grid_mode == "window_resident" and \
+            torch.are_deterministic_algorithms_enabled():
+        return "split"
+    return grid_mode
+
 # Windows per block, read once at import with the JAX package's check
 # (MMDE_ATTN_W: "auto" or an int; the default 1 is K1/K2's schedule).
 _w_env = os.environ.get("MMDE_ATTN_W", "1")
@@ -689,13 +701,14 @@ def _launch_backward(qkv, logit_scale, bias, mask, lse, g, num_heads,
     precision mode `mxu` (one of MXU_MODES, the forward's; None = the
     default for qkv's type); returns (dqkv, dlogit_scale, dbias or None).
     bf16 and fp32 qkv run the tensor-core passes: dbias by their atomics,
-    or under "split" K3's pass after them at one window (`_launch_dbias`,
-    on the delta they wrote). `lse` must be the statistic the same body's
+    or under "split" - and in deterministic mode (`backward_grid_mode`) -
+    K3's pass after them at one window (`_launch_dbias`, on the delta they
+    wrote). `lse` must be the statistic the same body's
     forward writes (`check_statistic`): the other raises. Private, for
     chip_smoke.py's same-card comparisons only: `_fma` sends every launch
     to the FMA body (K3 too)."""
     mxu = resolve_mxu(mxu, qkv.dtype)
-    atomics = want_dbias and _DBIAS_MODE[grid_mode] == 1
+    atomics = want_dbias and _DBIAS_MODE[backward_grid_mode(grid_mode)] == 1
     dqkv, dls, dbias, delta = _backward_passes(
         qkv, logit_scale, bias, mask, lse, g, num_heads, atomics, w, mxu,
         _fma)

@@ -27,7 +27,8 @@ only through the private `_fma`, the same-card comparison's partner. As the
 TPU kernel, the forward keeps a running row maximum for every head (no
 max-free softmax) and takes bias and mask in float32 whatever the model's
 type; the backward sums dbias over windows in fp32 (by atomics here, in the
-resident output block there), gives `dlogit_scale` zero where the ln(100)
+resident output block there; so deterministic mode refuses it,
+`check_deterministic`), gives `dlogit_scale` zero where the ln(100)
 clamp binds and the mask no gradient.
 
 The log-sum-exp the backward rebuilds p from is what its own forward
@@ -48,6 +49,7 @@ and nothing else.
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -349,14 +351,34 @@ def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
     return out, lse
 
 
+def check_deterministic(want_dbias: bool) -> None:
+    """The slab backward sums dbias by fp32 atomics only: no K3 over
+    `MapRows` exists yet. Under `torch.use_deterministic_algorithms(True)`
+    (read at each call) a backward that wants dbias raises, or, with
+    `warn_only=True`, warns and runs - PyTorch's own rule for an op
+    without a deterministic kernel."""
+    if not (want_dbias and torch.are_deterministic_algorithms_enabled()):
+        return
+    msg = ("the slab attention backward (window_attention_slab_bwd) sums "
+           "dbias by fp32 atomics and has no deterministic kernel: K3 over "
+           "MapRows is not written yet; use attn_impl='cuda' or turn off "
+           "torch.use_deterministic_algorithms")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg)
+        return
+    raise RuntimeError(msg)
+
+
 def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
                      window_size, want_dbias, _fma=False):
     """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
     or None). bf16 and fp32 maps run the tensor-core passes (the private
     `_fma`: the FMA body); `lse` must be what the same body's forward
     wrote: the other shape, or a statistic tagged with the other body,
-    raises before any launch."""
+    raises before any launch; so does deterministic mode when dbias is
+    wanted (`check_deterministic`)."""
     global LAUNCHES_BWD
+    check_deterministic(want_dbias)
     from mmde_tpu_torch.ops.window_attention_packed import (
         BWD_TILE, _body_name, _stream, stat_pair)
     B, Hp, Wp, C3 = qkv_map.shape

@@ -2,12 +2,15 @@
 """Inference entry points and folder CLI of the port.
 
     python -m mmde_tpu_torch.tools.infer --images ./photos --out ./depth_out \\
-        [--config cfg.yaml] [--weights model.pth] [--flip] [--device cuda]
+        [--config cfg.yaml] [--ckpt RUN/ckpt | --weights model.pth] [--flip] \\
+        [--device cuda]
 
-`build` -> `load_weights` -> `predict` is the serving path: `predict` takes
-numpy frames and returns numpy predictions, and is what a server or a smoke
-run calls. The CLI pairs each image with itself (as the JAX package's
-tools/infer.py does for the two-frame model) and writes 16-bit depth PNGs;
+`build` -> `load_weights` (or `ckpt.io.restore_eval` of a training run's
+checkpoints, the best-RMSE one first, as `--ckpt` does) -> `predict` is the
+serving path: `predict` takes numpy frames and returns numpy predictions,
+and is what a server or a smoke run calls. The CLI pairs each image with
+itself (as the JAX package's tools/infer.py does for the two-frame model)
+and writes 16-bit depth PNGs;
 it imports cv2 only inside main(). The first call on a CUDA device builds the
 attention kernels into mmde_tpu_torch/_build/. MMDE_ATTN_W=auto (or an int),
 read once at import as in the JAX package, serves the packed attention with
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from mmde_tpu_torch.ckpt import io
 from mmde_tpu_torch.config import Config, ModelConfig, load_yaml
 from mmde_tpu_torch.models.two_frame import build_model
 from mmde_tpu_torch.train.step import make_forward
@@ -84,6 +88,8 @@ def main(argv=None) -> None:
     p.add_argument("--images", required=True, help="folder of RGB images")
     p.add_argument("--out", required=True, help="output folder")
     p.add_argument("--config", default=None, help="YAML config")
+    p.add_argument("--ckpt", default=None,
+                   help="a training run's ckpt/ directory (best first)")
     p.add_argument("--weights", default=None, help="torch state dict (.pth)")
     p.add_argument("--flip", action="store_true", help="flip averaging")
     p.add_argument("--device", default="cuda")
@@ -94,6 +100,9 @@ def main(argv=None) -> None:
 
     cfg = load_yaml(args.config) if args.config else Config()
     model = build(cfg, device=args.device, seed=args.seed)
+    if args.ckpt:
+        epoch, kind = io.restore_eval(args.ckpt, model)
+        print(f"restored {kind} checkpoint (epoch {epoch})")
     if args.weights:
         load_weights(model, args.weights)
     names = sorted(n for n in os.listdir(args.images)

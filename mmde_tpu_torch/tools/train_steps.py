@@ -26,8 +26,8 @@ MMDE_ATTN_GRID=split takes the backward's atomics-free dbias pass (K3),
 MMDE_ATTN_GRID=bias_resident the single-pass backward (K4) after a forward
 without the log-sum-exp; MMDE_ATTN_W=auto (or an int) runs W windows per
 block (K5) where the JAX rule gives W > 1. The training loop proper
-(datasets, validation, checkpoints) is a later slice; this entry is what a
-smoke run and a profiler drive.
+(datasets, validation, checkpoints) is tools/train.py; this entry, one
+batch and bare steps, is what a smoke run and a profiler drive.
 """
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ an XLA fusion, never a hand-written kernel; its `fused=True` and
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Iterable, Sequence, Tuple, Union
 
 import torch
@@ -56,7 +57,9 @@ def poly_lr_schedule(max_lr: float, min_lr: float, steps_per_epoch: int,
 
     def schedule(count: int) -> float:
         step = float(count) + 1.0
-        frac = step / denom
+        # one epoch (half = 0): no warm-up, the decay from +inf floors at
+        # min_lr, as the JAX package's float division gives
+        frac = step / denom if denom else math.inf
         if step < denom:
             return (max_lr - min_lr) * frac ** power + min_lr
         # a negative base has no real power: clamp (frac >= 1 here anyway)

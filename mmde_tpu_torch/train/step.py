@@ -24,7 +24,8 @@ from mmde_tpu_torch import metrics as M
 from mmde_tpu_torch.losses import total_loss
 from mmde_tpu_torch.models.two_frame import require_device
 from mmde_tpu_torch.nn.layers import set_generator
-from mmde_tpu_torch.train.tta import flip_average_two_frame
+from mmde_tpu_torch.train.tta import (flip_average_two_frame,
+                                      shift_window_eval_two_frame)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -115,12 +116,22 @@ def make_eval_step(model: torch.nn.Module, *, decoder: str,
 
     flip_tta: mirror the frames horizontally, run again, and average the
     un-mirrored depth maps; pose predictions come from the plain pass
-    (mirroring changes the true pose). shift_window (sliding-crop
-    evaluation) is not ported yet."""
-    if shift_window is not None or shift_stride is not None:
-        raise NotImplementedError(
-            "shift-window evaluation is not ported yet (ROADMAP Queue A, M4)")
+    (mirroring changes the true pose). shift_window: slide (H x
+    shift_window) crops across the width, `shift_stride` apart (None: half
+    a crop), and recompose by coverage averaging (train/tta.py); a no-op
+    when the frames are not wider than the crop. Composable with flip_tta
+    (the flip applies over the composition)."""
     require_device(device, model, "make_eval_step")
+
+    def full_forward(f1, f2, kwargs):
+        if shift_window and f1.shape[2] > shift_window:
+            if kwargs:
+                raise NotImplementedError(
+                    "shift-window TTA with sparse-depth inputs is not "
+                    "supported (nor in the JAX package)")
+            return shift_window_eval_two_frame(
+                model, f1, f2, crop=shift_window, stride=shift_stride)
+        return model(f1, f2, **kwargs)
 
     def eval_step(state: TrainState, batch: Batch):
         del state                       # the model is updated in place
@@ -133,9 +144,10 @@ def make_eval_step(model: torch.nn.Module, *, decoder: str,
                     raise NotImplementedError(
                         "flip averaging with sparse-depth inputs is not "
                         "ported yet (ROADMAP Queue A, M6)")
-                out = flip_average_two_frame(model, f1, f2)
+                out = flip_average_two_frame(
+                    lambda a, b: full_forward(a, b, {}), f1, f2)
             else:
-                out = model(f1, f2, **kwargs)
+                out = full_forward(f1, f2, kwargs)
             _, aux = total_loss(out, batch, decoder=decoder,
                                 lambda_rot=lambda_rot,
                                 lambda_trans=lambda_trans,

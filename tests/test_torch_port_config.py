@@ -94,6 +94,16 @@ def test_source_scan_covers_the_tools_slice():
         assert os.path.isfile(os.path.join(PORT, "csrc", src)), src
 
 
+def test_source_scan_covers_the_loop_slice():
+    """The walk above reaches the training and evaluation entry points and
+    the new data/ and utils/ subpackages."""
+    names = set(_module_names())
+    for mod in ("data", "data.synthetic", "data.loader", "utils",
+                "utils.logging", "ckpt.io", "train.loop", "train.tta",
+                "tools.train", "tools.eval", "tools.convergence_gate"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
+
+
 def test_tool_entry_points_want_a_card():
     """The tools measure the card: without one their entry points raise
     (probe_layouts runs its plain versions only when asked with --device

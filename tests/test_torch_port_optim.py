@@ -47,6 +47,18 @@ def test_poly_lr_schedule_matches_jax_over_a_whole_run(epochs, spe):
     assert got[-1] >= 3e-5 and np.all(np.isfinite(got))
 
 
+def test_poly_lr_schedule_of_one_epoch_is_min_lr_as_in_jax():
+    """One epoch: no warm-up half (0 steps); the JAX schedule's float
+    division by zero decays from +inf and floors at min_lr, the port's
+    too (it used to raise ZeroDivisionError)."""
+    js = jopt.poly_lr_schedule(5e-4, 3e-5, 4, 1)
+    ts = topt.poly_lr_schedule(5e-4, 3e-5, 4, 1)
+    want = np.asarray(jax.vmap(js)(jnp.arange(6)))
+    got = np.array([ts(c) for c in range(6)])
+    np.testing.assert_allclose(got, want, rtol=5e-6, atol=0)
+    assert np.all(got == 3e-5)
+
+
 @pytest.fixture(scope="module")
 def nano():
     """The nano two-frame model in both packages with shared weights."""

@@ -417,13 +417,19 @@ def test_eval_steps_match_jax(pair, flip_tta):
 
 
 def test_shift_window_is_not_ported_and_says_where():
+    """Shift-window evaluation is ported (tests/test_torch_port_tta.py);
+    what stays unported with it, as in the JAX package, is its combination
+    with sparse-depth inputs, and that raises and says so."""
     tm = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="M4"):
-        tstep.make_eval_step(tm, shift_window=64, device="cpu", **_LOSS)
-    with pytest.raises(NotImplementedError, match="M4"):
-        tstep.make_eval_metrics_step(
-            tm, dataset="void", min_depth_eval=1e-3, max_depth_eval=10.0,
-            shift_window=64, device="cpu", **_LOSS)
+    tstep.make_eval_step(tm, shift_window=64, device="cpu", **_LOSS)
+    step = tstep.make_eval_metrics_step(
+        tm, dataset="void", min_depth_eval=1e-3, max_depth_eval=10.0,
+        shift_window=64, device="cpu", **_LOSS)
+    frames = torch.zeros(1, 64, 96, 3)
+    batch = {"image1": frames, "image2": frames,
+             "sparse_depth1": torch.zeros(1, 64, 96)}
+    with pytest.raises(NotImplementedError, match="sparse-depth"):
+        step(None, batch)
 
 
 def test_decoder_v1_train_step_runs(pair):
