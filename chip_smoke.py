@@ -6,6 +6,8 @@
     python3 chip_smoke.py --only loop     # the training / evaluation entry
                                           # points only (loop, eval_ckpt,
                                           # deterministic)
+    python3 chip_smoke.py --only models   # the other encoders and families
+                                          # (and K3 over MapRows) only
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
                                             # of a request and a train step,
                                             # flagship (p.json), swin_large
@@ -261,7 +263,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 one step's device ms by kernel group with K3's own sum, and
                 one more step with every attention backward launched twice
                 on the same inputs: dbias (and dqkv, dlogit_scale) bitwise
-                equal, block by block.
+                equal, block by block; then the same trainer on the slab
+                path (`slab`): one step (K8'+lse, K9' without atomics and
+                K3 over MapRows, 24 each), one with every slab backward
+                launched twice, all three gradients bitwise, block by block.
   loop          python -m mmde_tpu_torch.tools.train (in this process) on
                 configs/flagship_synth.yaml's model (bf16, 480x640, full
                 depth), in a temporary directory removed at the end: 2
@@ -289,7 +294,39 @@ What it does, each phase printing one JSON object on a line of its own:
                 frame pairs, unmasked and masked, twice on the same inputs:
                 dqkv, dlogit_scale and dbias bitwise equal, K3 launched, no
                 atomics asked of the passes; in strict mode the slab
-                backward raises (no K3 over MapRows yet).
+                backward on flagship stage 1's map, bf16 and fp32, the same
+                checks through K3 over MapRows.
+  kernel_cases_models
+                the attention kernels at the new paths' own shapes, float32:
+                K1 served at the single-frame GLPDepth's (one 480x640
+                image) against its plain version; K1+lse and K2 at
+                void_downscale16_completion's (4 pairs at 480x480, stages
+                1-3) against the plain forward / backward and float64.
+  serve_cnn, train_cnn
+                configs/void.yaml's model at full width (cnn_transformer_
+                multi_scale, resnet50, hidden 512, 8 heads, ff 4096, 6
+                layers; decoder_v1, float32) from seed 7: requests of a
+                480x480 pair (ms, peak bytes) and the card's fp32 forward,
+                TF32 off, cuDNN on, against the same weights on the CPU
+                (depth atol 1e-3, pose 1e-4; beside it cuDNN off and the
+                CPU's own witnesses, also for the drawn weights before
+                `condition_cnn`); train steps at 4 pairs (ms, images/s,
+                peak bytes). Its attention is global, plain PyTorch: no
+                window-attention launch.
+  train_completion
+                configs/void_downscale16_completion.yaml's model at full
+                width (glpdepth_scale16 over swin_base_v2 stages 1-3, sparse
+                depth fused: 5 input channels, float32) on 4 pairs of
+                480x480 frames with sparse depth: train steps (K1+lse / K2
+                on the tensor cores, 22 each a step), one deterministic step
+                against the plain path (TOL_TRAIN_PARITY), then
+                tools.train --synthetic (3 steps, validation, a checkpoint)
+                and tools.eval --flip-tta of it (sparse depth mirrored).
+  serve_glpdepth
+                the single-frame GLPDepth over swin_base_v2 (float32, full
+                depth): requests of one 480x640 frame (pred_d; K1 24 a
+                request) and a flip-averaged one, then two steps of
+                train.single_frame.make_single_train_step on 4 frames.
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
@@ -313,7 +350,13 @@ What it does, each phase printing one JSON object on a line of its own:
                 backward under autograd). K4's and K5's entries carry the
                 launches of train_resident, serve_w and train_w; the
                 tensor-core K3's (window_attention_dbias_tc) those of
-                train_split, its numbers kernel_cases_backward's; T1-T3's
+                train_split, its numbers kernel_cases_backward's; K3 over
+                MapRows (window_attention_slab_dbias_tc) those of
+                train_split's slab step, its numbers kernel_cases_slab's
+                `k3`; the new paths' K1 / K1+lse / K2 (a "path" key) those
+                of serve_glpdepth and train_completion, their numbers
+                kernel_cases_models' (the GLPDepth step's shapes:
+                kernel_cases_backward's fp32 1-pair cases); T1-T3's
                 the launches of the tool runs above, K1 / K2 in the bf16
                 mode those of train_mxu; the entries with a "path" key
                 carry the loop phase's launches (its first run: 6 steps,
@@ -337,6 +380,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -971,6 +1015,10 @@ def phase_env() -> dict:
            # registers / spills / shared memory per kernel, as ptxas says
            "ptxas": [ln for r in recs.values()
                      for ln in ptxas_summary(r["log"])],
+           # K3 over MapRows (the slab path's dbias pass) on its own line
+           "k3_map_rows_ptxas": [ln for r in recs.values()
+                                 for ln in ptxas_summary(r["log"])
+                                 if "bwd_dbias_tc_kernel<MapRows" in ln],
            # blocks an SM holds of each tensor-core slab kernel, by map
            # type and mask (the CUDA occupancy calculator)
            "slab_occupancy": {
@@ -1524,9 +1572,16 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
     kernel, plain, bound, the library call on the partitioned windows in
     the map's type, the FMA body (`_fma`) in turns with the kernel (kernel,
     FMA, FMA, kernel) and the products the design needs (tc_work: bf16 K8'
-    3 units, K9' 8; fp32 12 and 30). Times: median of single launches;
-    bounds count float32 bias and mask bytes."""
+    3 units, K9' 8; fp32 12 and 30). At the train shapes also K3 over
+    `MapRows` (`k3`, the slab path's dbias under MMDE_ATTN_GRID=split and
+    in deterministic mode): its dbias on the atomics-free passes' delta
+    against the plain backward's and float64 at TOL_BWD, MXU_APART times
+    nearer than the "bf16"-mode one, bitwise over two launches; timed
+    alone (k3_ms) beside its plain version, its bound and its products
+    (2 units bf16, 12 fp32). Times: median of single launches; bounds
+    count float32 bias and mask bytes."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.ops import window_attention_slab as was
     qkv, ls, bias, mask, g = make_slab_inputs(shape, dtype, gen)
     nH, ws = shape["nH"], shape["ws"]
@@ -1584,6 +1639,7 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
             f"slab backward ({rec['body']}) at {json.dumps(rec)}"))
         rec["max_abs_err"] = rec["vs_float64"]["dqkv"]["max_abs"]
         rec["rel_l2_err"] = rec["vs_float64"]["dqkv"]["rel_l2"]
+        truth_db = truth[2]
         del truth
     # the "bf16" mode's head-split plain version on the partitioned
     # windows, reversed: what a kernel rounding its operands to bf16
@@ -1609,10 +1665,28 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
             for n, a, own, other in zip(names, grads, plain,
                                         (dqkv_o, dls_o, dbias_o)):
                 _nearer(rec, n, a, own, other)
-            del dqkv_o, dls_o, dbias_o, gw
+            # K3 over MapRows: the passes without atomics, then dbias
+            # window after window on their delta (MMDE_ATTN_GRID=split,
+            # deterministic mode)
+            lse = was._launch_forward(qkv, ls, bias, mask, nH, ws, True)[1]
+            delta = was._backward_passes(qkv, ls, bias, mask, lse, g, nH, ws,
+                                         atomics=False, tc=True)[3]
+            before = dict(was.LAUNCHES_BY_KERNEL)
+
+            def k3():
+                return was._launch_dbias(qkv, ls, bias, mask, lse, g, delta,
+                                         nH, ws)
+            got_k3 = k3()
+            _tc_launched(before, {"window_attention_slab_dbias_tc": 1},
+                         f"slab K3 at {rec}", was)
+            rec["k3"] = check_k3(got_k3, k3(), plain[2], dbias_o, truth_db,
+                                 TOL_BWD[name]["dbias"],
+                                 TOL_BWD[name]["dbias"], "fp32",
+                                 f"K3 over MapRows {json.dumps(rec)}")
+            del dqkv_o, dls_o, dbias_o, gw, got_k3
         del qw
     if train:
-        del grads, plain
+        del grads, plain, truth_db
     del want, got
     if timed:
         fwd = rec["forward"]
@@ -1666,7 +1740,24 @@ def compare_slab(shape: dict, dtype, gen, timed: bool = True) -> dict:
                         qkv, ls, bias, mask, g, **kw), reps=3, warm=1)
                 rec.update(backward_bound(B_, N, C, nH, nW, dtype,
                                           torch.float32))
-                del lse, lse_f
+                # K3 over MapRows alone on the dq pass's delta; its plain
+                # version: the packed layout's on the partitioned windows
+                delta = was._backward_passes(qkv, ls, bias, mask, lse, g,
+                                             nH, ws, atomics=False,
+                                             tc=True)[3]
+                rec["k3_ms"] = time_ms(
+                    lambda: was._launch_dbias(qkv, ls, bias, mask, lse, g,
+                                              delta, nH, ws), reps=8, warm=2)
+                qp = was.window_partition(qkv, ws)
+                gp = was.window_partition(g, ws)
+                rec["k3_plain_ms"] = time_ms(
+                    lambda: wap.cosine_window_attention_packed_dbias_plain(
+                        qp, ls, bias, mask, gp, num_heads=nH, mxu="fp32"),
+                    reps=3, warm=1)
+                rec["k3_tc"] = tc_work(B_, N, nH, 12.0 if f32 else 2.0)
+                rec["k3_bound"] = dbias_bound(B_, N, C, nH, nW, dtype,
+                                              torch.float32)
+                del lse, lse_f, delta, qp, gp
         # on the partitioned windows: the library call has no map layout
         qw = was._heads(was.window_partition(qkv, ws), 3, nH)
         gw = (was._heads(was.window_partition(g, ws), 1, nH)[0]
@@ -2763,34 +2854,47 @@ def contract_train(k2_cases: list, hs_cases: list, slab_cases: list,
     return entries
 
 
-def contract_k3(k2_cases: list, train_split: dict) -> list:
+def contract_k3(cases: list, train_split: dict, *, slab: bool = False
+                ) -> list:
     """The tensor-core K3 on the bf16 flagship's step under
     MMDE_ATTN_GRID=split, one entry per stage shape (2 frame pairs, stages
-    1-2 masked): launches from train_split; error against float64, K3 alone
-    on the dq pass's delta (ms; fma_ms its FMA body in turns), K3's plain
-    version's time, its bound and its products' bound from
-    kernel_cases_backward's bf16 case at that shape. No PyTorch call
-    computes dbias alone (library_ms null)."""
+    1-2 masked): launches from train_split (its slab step's when `slab`);
+    error against float64, K3 alone on the dq pass's delta, K3's plain
+    version's time, its bound and its products' bound from the bf16 case
+    at that shape of kernel_cases_backward (packed: fma_ms the FMA body in
+    turns) or, with `slab`, of kernel_cases_slab (K3 over MapRows; its
+    plain version the packed layout's on the partitioned windows). No
+    PyTorch call computes dbias alone (library_ms null)."""
+    pairs = train_split["frame_pairs"]
+    if slab:
+        name, replaces = ("window_attention_slab_dbias_tc",
+                          KERNEL_SLAB_BWD_REPLACES)
+        by_kernel = train_split["slab"]["_by_kernel"]
+        shapes = stage_shapes(batch=pairs, attn_impl="cuda_slab")
+    else:
+        name, replaces = "window_attention_dbias_tc", KERNEL_K3_REPLACES
+        by_kernel = train_split["_by_kernel"]
+        shapes = stage_shapes(batch=pairs)
     entries = []
-    for shape in stage_shapes(batch=train_split["frame_pairs"]):
+    for shape in shapes:
         key = (shape["B_"], shape["N"], shape["C"], shape["nH"])
-        c = _find(k2_cases, shape, train_split["frame_pairs"])
+        c = _find(cases, shape, pairs)
         k3 = c["k3"]["vs_float64"]
         rec = {"max_abs_err": k3["max_abs"], "rel_l2_err": k3["rel_l2"],
                "ms": c["k3_ms"], "plain_ms": c["k3_plain_ms"],
                "bound_ms": c["k3_bound"]["bound_ms"],
-               "bound_by": c["k3_bound"]["bound_by"], "library_ms": None,
-               "fma_ms": c["k3_fma_ms"]}
+               "bound_by": c["k3_bound"]["bound_by"], "library_ms": None}
+        if not slab:
+            rec["fma_ms"] = c["k3_fma_ms"]
         rec.update({k: c["k3_tc"][k] for k in ("tc_units", "tc_bound_ms",
                                                 "tc_rate_TFLOP_s")})
-        e = _entry("window_attention_dbias_tc", shape, KERNEL_TC_BWD_SOURCE,
-                   KERNEL_K3_REPLACES,
-                   train_split["_by_kernel"].get(
-                       "window_attention_dbias_tc", {}).get(key, 0),
-                   rec, train_split["frame_pairs"])
+        e = _entry(name, shape, KERNEL_TC_BWD_SOURCE, replaces,
+                   by_kernel.get(name, {}).get(key, 0), rec, pairs)
         e.update(dtype="bfloat16",
                  bitwise_equal_over_two_launches=c["k3"][
                      "bitwise_equal_over_two_launches"])
+        if slab:
+            e["layout"] = "MapRows"
         entries.append(e)
     return entries
 
@@ -3398,11 +3502,13 @@ def expected_kernels(backbone: str, batch: int, times: int, train: bool,
                 add("window_attention_bwd_tc" + (f"_w{wb}" if wb > 1 else ""),
                     key, n * times)
     if train and wap.DEFAULT_GRID_MODE == "split":
-        # the tensor-core K3 after every packed (any W) and head-split
-        # backward; the slab path keeps its atomics
+        # the tensor-core K3 after every packed (any W), head-split and
+        # slab backward
         for name, by_shape in list(want.items()):
             k3 = ("window_attention_headsplit_dbias_tc"
                   if name == "window_attention_headsplit_bwd_tc" else
+                  "window_attention_slab_dbias_tc"
+                  if name == "window_attention_slab_bwd_tc" else
                   "window_attention_dbias_tc"
                   if name.startswith("window_attention_bwd_tc") else None)
             for key, n in by_shape.items() if k3 else ():
@@ -3702,7 +3808,10 @@ def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
     ms by kernel group, K3's own), and one more step in which every
     attention backward is launched twice on the same inputs (the same
     weights and batch): dbias, dqkv and dlogit_scale of the two calls
-    compared bit for bit, block by block. Prints one JSON line."""
+    compared bit for bit, block by block. Then the same trainer on the
+    slab path: one step (its launches: K8'+lse, K9' and K3 over MapRows a
+    block) and one with each slab backward launched twice, compared the
+    same way. Prints one JSON line."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.tools import train_steps as ts
     state, step = ts.build_trainer(ts.flagship_config("bfloat16", "cuda",
@@ -3745,6 +3854,37 @@ def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
     finally:
         wap._launch_backward = launch
     names = ("dqkv", "dlogit_scale", "dbias")
+    # the same trainer on the slab path: every block's K9' passes without
+    # atomics and K3 over MapRows after them; one counted step, then one
+    # with every slab backward launched twice
+    from mmde_tpu_torch.ops import window_attention_slab as was
+    _set_attn_impl(state.model, "cuda_slab")
+    _reset_launch_counts()
+    state, aux = step(state, batch)
+    torch.cuda.synchronize()
+    slab_by_kernel = _by_kernel()
+    slab_want = expected_kernels("swin_base_v2", pairs, 1, True,
+                                 attn_impl="cuda_slab")
+    if slab_by_kernel != slab_want or not math.isfinite(
+            float(aux["loss_total"])):
+        raise RuntimeError(f"train_split slab step: launches by kernel "
+                           f"{slab_by_kernel}, expected {slab_want}; loss "
+                           f"{float(aux['loss_total'])}")
+    slab_same = []
+    slab_launch = was._launch_backward
+
+    def slab_twice(*a, **kw):
+        first, second = slab_launch(*a, **kw), slab_launch(*a, **kw)
+        slab_same.append([bool(torch.equal(x, y))
+                          for x, y in zip(first, second)])
+        return first
+    was._launch_backward = slab_twice
+    try:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        was._launch_backward = slab_launch
+    _set_attn_impl(state.model, "cuda")
     rec = {"command": "chip_smoke.py --child split under "
                       "MMDE_ATTN_GRID=split",
            "model": "swin_base_v2 + decoder_v2, bfloat16, depths 2/2/18/2, "
@@ -3763,7 +3903,13 @@ def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
            "profile_top": prof["top"],
            "backward_calls_twice": len(same),
            "bitwise_equal_blocks": {n: sum(r[i] for r in same)
-                                    for i, n in enumerate(names)}}
+                                    for i, n in enumerate(names)},
+           "slab": {"attn_impl": "cuda_slab", "launches": {
+               k: sum(d.values()) for k, d in slab_by_kernel.items()},
+               "launches_by_kernel": _str_keys(slab_by_kernel),
+               "backward_calls_twice": len(slab_same),
+               "bitwise_equal_blocks": {n: sum(r[i] for r in slab_same)
+                                        for i, n in enumerate(names)}}}
     print(json.dumps({"train_split": rec}), flush=True)
 
 
@@ -3772,7 +3918,9 @@ def phase_train_split(pairs: int = 2, steps: int = 2) -> dict:
     once the other children are done, so that it has the card alone; wait,
     check and emit its record: every block's dbias bitwise equal over its
     two backward calls, no FMA launch (its launches were checked against
-    `expected_kernels` in the child), K3 on the device."""
+    `expected_kernels` in the child), K3 on the device; on the slab path
+    (`slab`) K3 over MapRows once a block and step, and every block's
+    dqkv, dlogit_scale and dbias bitwise over two calls."""
     child = _start_child([os.path.basename(__file__), "--child", "split"],
                          {"MMDE_ATTN_GRID": "split"})
     try:
@@ -3787,18 +3935,26 @@ def phase_train_split(pairs: int = 2, steps: int = 2) -> dict:
     rec = got[0]
     blocks = sum(sh["blocks"] for sh in stage_shapes())
     fma = [k for k in rec["launches"] if "_tc" not in k]
+    slab = rec["slab"]
     rec["ok"] = (rec["backward_calls_twice"] == blocks
                  and rec["bitwise_equal_blocks"]["dbias"] == blocks
                  and not fma and rec["k3_device_ms"] > 0
                  and rec["launches"].get("window_attention_dbias_tc", 0)
-                 == blocks * steps)
+                 == blocks * steps
+                 and slab["backward_calls_twice"] == blocks
+                 and all(v == blocks
+                         for v in slab["bitwise_equal_blocks"].values())
+                 and slab["launches"].get("window_attention_slab_dbias_tc",
+                                          0) == blocks
+                 and not [k for k in slab["launches"] if "_tc" not in k])
     emit("train_split", rec)
     if not rec["ok"]:
         raise RuntimeError(f"train_split: {json.dumps(rec)}")
-    rec["_by_kernel"] = {
-        k: {tuple(int(x) for x in sh.strip("()").split(",")): n
-            for sh, n in d.items()}
-        for k, d in rec["launches_by_kernel"].items()}
+    for r in (rec, slab):
+        r["_by_kernel"] = {
+            k: {tuple(int(x) for x in sh.strip("()").split(",")): n
+                for sh, n in d.items()}
+            for k, d in r["launches_by_kernel"].items()}
     return rec
 
 
@@ -4931,8 +5087,10 @@ def phase_deterministic() -> dict:
     of the stage's two blocks (unshifted; shifted, masked) through the
     autograd Function twice on the same inputs: dqkv, dlogit_scale and
     dbias bitwise equal, K3 (the tensor-core dbias pass) launched once a
-    backward, the passes never asked for atomics. Under strict mode the
-    slab backward (flagship stage 1 map) must raise."""
+    backward, the passes never asked for atomics. Then, under strict mode,
+    the slab backward on flagship stage 1's map (2 pairs, C 128), bf16 and
+    fp32, each block: the same three bitwise checks, K3 over MapRows once a
+    backward, no atomics."""
     from mmde_tpu_torch.ops import window_attention_headsplit as ths
     from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.ops import window_attention_slab as was
@@ -4940,6 +5098,7 @@ def phase_deterministic() -> dict:
     gen.manual_seed(5)
     atomics_seen = []
     real_wap, real_ths = wap._backward_passes, ths._backward_passes
+    real_was = was._backward_passes
 
     def wap_spy(*a, **kw):
         atomics_seen.append(("packed", a[7]))
@@ -4948,6 +5107,10 @@ def phase_deterministic() -> dict:
     def ths_spy(*a, **kw):
         atomics_seen.append(("headsplit", a[8] and not a[9]))
         return real_ths(*a, **kw)
+
+    def was_spy(*a, **kw):
+        atomics_seen.append(("slab", kw["atomics"]))
+        return real_was(*a, **kw)
 
     def grads(fn, leaves, g):
         for x in leaves:
@@ -4960,6 +5123,7 @@ def phase_deterministic() -> dict:
     was_on = torch.are_deterministic_algorithms_enabled()
     was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
     wap._backward_passes, ths._backward_passes = wap_spy, ths_spy
+    was._backward_passes = was_spy
     try:
         torch.use_deterministic_algorithms(True, warn_only=True)
         for backbone in ("swin_base_v2", "swin_large_v2"):
@@ -5004,31 +5168,678 @@ def phase_deterministic() -> dict:
                     "k3_launches": counts.get(k3, 0),
                     "atomics_asked": sum(bool(a) for _, a in atomics_seen),
                     "launches": counts})
+        # the slab path (flagship stage 1's map), strict mode, both types:
+        # K3 over MapRows after atomics-free passes
         torch.use_deterministic_algorithms(True)
         shape = stage_shapes(attn_impl="cuda_slab", batch=2)[0]
-        qkv, ls, bias, mask, g = make_slab_inputs(shape, torch.bfloat16, gen)
-        qkv.requires_grad_()
-        bias.requires_grad_()
-        try:
-            was.cosine_window_attention_slab(
-                qkv, ls, bias, mask, num_heads=shape["nH"],
-                window_size=shape["ws"]).backward(g)
-            slab = {"raised": False}
-        except RuntimeError as e:
-            slab = {"raised": "MapRows" in str(e), "error": str(e)[:200]}
+        for dtype in (torch.bfloat16, torch.float32):
+            for masked in (False, True):
+                _reset_launch_counts()
+                atomics_seen.clear()
+                qkv, ls, bias, mask, g = make_slab_inputs(
+                    dict(shape, nW=shape["nW"] if masked else 0), dtype, gen)
+                leaves = [qkv.requires_grad_(), ls.requires_grad_(),
+                          bias.requires_grad_()]
+
+                def fn():
+                    return was.cosine_window_attention_slab(
+                        qkv, ls, bias, mask, num_heads=shape["nH"],
+                        window_size=shape["ws"])
+                first = grads(fn, leaves, g)
+                again = grads(fn, leaves, g)
+                same = {n: bool(torch.equal(a, b)) for n, a, b in
+                        zip(("dqkv", "dlogit_scale", "dbias"), first, again)}
+                counts = {k: sum(d.values())
+                          for k, d in _by_kernel().items()}
+                cases.append({
+                    "model": "swin_base_v2", "stage": 1, "layout": "slab",
+                    "map": list(qkv.shape), "B_": shape["B_"],
+                    "N": shape["N"], "C": shape["C"], "nH": shape["nH"],
+                    "masked": masked,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "bitwise": same,
+                    "k3_launches": counts.get(
+                        "window_attention_slab_dbias_tc", 0),
+                    "atomics_asked": sum(bool(a) for _, a in atomics_seen),
+                    "launches": counts})
     finally:
-        wap._backward_passes, ths._backward_passes = real_wap, real_ths
+        (wap._backward_passes, ths._backward_passes,
+         was._backward_passes) = real_wap, real_ths, real_was
         torch.use_deterministic_algorithms(was_on, warn_only=was_warn)
     rec = {"flags": "torch.use_deterministic_algorithms(True, "
-                    "warn_only=True); the slab case strict",
-           "cases": cases, "slab_strict": slab}
-    rec["ok"] = (len(cases) == 4 and slab["raised"] is True and all(
+                    "warn_only=True); the slab cases strict",
+           "cases": cases}
+    rec["ok"] = (len(cases) == 8 and all(
         all(c["bitwise"].values()) and c["k3_launches"] == 2
         and c["atomics_asked"] == 0 for c in cases))
     emit("deterministic", rec)
     if not rec["ok"]:
         raise RuntimeError(f"deterministic: {json.dumps(rec)[:3000]}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The other encoders and model families: configs/void.yaml's model
+# (cnn_transformer_multi_scale, resnet50 trunk), configs/
+# void_downscale16_completion.yaml's (glpdepth_scale16 over swin_base_v2
+# stages 1-3, sparse depth fused into the input) and the single-frame
+# GLPDepth, each at full width on the card.
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# void_downscale16_completion's attention: stages 1-3 of swin_base_v2 at
+# 480x480 (maps 120 / 60 / 30, one window row at stage 3), 4 frame pairs
+COMPLETION_PAIRS = 4
+COMPLETION_PARAMS = (
+    "net.encoder.patch_embed.proj.weight",
+    "net.encoder.layers.0.blocks.1.attn.qkv.weight",
+    "net.encoder.layers.0.blocks.0.attn.logit_scale",
+    "net.encoder.layers.1.blocks.1.attn.rpe_mlp.0.weight",
+    "net.encoder.layers.2.blocks.17.attn.logit_scale",
+    "net.depth_stack.conv.weight",
+    "net.pos1a.weight")
+
+
+def _yaml_config(name: str, **model):
+    """configs/<name> through the port's loader, model fields replaced."""
+    from mmde_tpu_torch.config import load_yaml
+    cfg = load_yaml(os.path.join(ROOT, "configs", name))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **model))
+
+
+def _glpdepth_cfg(dtype: str = "float32"):
+    """The single-frame GLPDepth over the flagship's swin_base_v2 (depths
+    2/2/18/2, windows 30/30/30/15, shift on stages 1-2); no config file of
+    the repo names this family."""
+    from mmde_tpu_torch.config import Config, TrainConfig
+    m = dataclasses.replace(flagship_cfg(dtype), family="glpdepth")
+    return Config(model=m, train=TrainConfig(batch_size=2))
+
+
+def _model_shapes(h: int, w: int, images: int, stages: int) -> list:
+    """stage_shapes of the flagship's widths for `images` images at h x w,
+    the first `stages` stages (each shape's B_ for that many images)."""
+    out = []
+    for s in stage_shapes(h=h, w=w, batch=1)[:stages]:
+        out.append(dict(s, B_=s["B_"] // 2 * images, images=images,
+                        frame_pairs=images / 2))
+    return out
+
+
+def _packed_kernels(shapes: list, times: int, train: bool) -> dict:
+    """expected_kernels' count for the packed stages of `shapes` (W = 1)."""
+    want: dict = {}
+    for sh in shapes:
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        names = (["window_attention_fwd_tc+lse", "window_attention_bwd_tc"]
+                 if train else ["window_attention_fwd_tc"])
+        for n in names:
+            want.setdefault(n, {})[key] = sh["blocks"] * times
+    return want
+
+
+def _sparse(depth: np.ndarray, rng) -> np.ndarray:
+    """VIO-style sparse depth: ~5 % of the valid pixels kept."""
+    return np.where((depth > 0) & (rng.random(depth.shape) < 0.05), depth,
+                    0.0).astype(np.float32)
+
+
+def _model_batch(pairs: int, h: int, w: int, seed: int, sparse: bool,
+                 device: str = "cuda") -> dict:
+    """train_steps.synthetic_batch, with sparse_depth1 / 2 when `sparse`."""
+    from mmde_tpu_torch.tools import train_steps as ts
+    batch = ts.synthetic_batch(pairs, h, w, seed=seed, device="cpu")
+    if sparse:
+        rng = np.random.default_rng(seed + 1)
+        for k in (1, 2):
+            batch[f"sparse_depth{k}"] = torch.from_numpy(
+                _sparse(batch[f"depth{k}"].numpy(), rng))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase_kernels_models(timed: bool = True) -> dict:
+    """The attention kernels at the shapes only the new model paths give
+    them, float32 (the configs' type): K1 served at the single-frame
+    GLPDepth's shapes (one 480x640 image: B_ 24 / 6 / 2 / 2, stages 1-2
+    masked) against its plain version; K1+lse and K2 at
+    void_downscale16_completion's (4 pairs at 480x480, stages 1-3: B_ 128 /
+    32 / 8, stages 1-2 masked) against the plain forward / backward and
+    float64 autograd (compare_backward, K3 included). The GLPDepth train
+    step's shapes (4 images) are the flagship's 2-pair shapes of
+    kernel_cases_backward."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4242)
+    served = [compare_kernel(sh, torch.float32, sh["nW"] > 0, gen,
+                             timed=timed)
+              for sh in _model_shapes(480, 640, 1, 4)]
+    trained = [compare_backward(sh, torch.float32, gen, timed=timed)
+               for sh in _model_shapes(480, 480, 2 * COMPLETION_PAIRS, 3)]
+    for c, sh in zip(served, _model_shapes(480, 640, 1, 4)):
+        c.update(path="glpdepth served", images=1)
+    for c in trained:
+        c.update(path="void_downscale16_completion trained",
+                 frame_pairs=COMPLETION_PAIRS)
+    rec = {"served": served, "trained": trained}
+    emit("kernel_cases_models", rec)
+    return rec
+
+
+def _timed_requests(fn, requests: int) -> tuple:
+    """(host ms, CUDA-event ms, last output) of `requests` calls of fn()."""
+    ms, dev_ms, out = [], [], None
+    for _ in range(requests):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.time()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        dev_ms.append(e0.elapsed_time(e1))
+    return ms, dev_ms, out
+
+
+def _finite_outputs(out: dict, shapes: dict, what: str) -> dict:
+    for k, shp in shapes.items():
+        a = out[k]
+        if shp is None:
+            if a is not None:
+                raise RuntimeError(f"{what}: {k} should be None")
+            continue
+        if tuple(a.shape) != shp or not np.isfinite(a).all():
+            raise RuntimeError(f"{what}: {k} shape {np.shape(a)} (want "
+                               f"{shp}) or not finite")
+    d = out["pred_d1" if "pred_d1" in shapes else "pred_d"]
+    if not (d.min() >= 0.0 and d.max() <= 10.0 and d.std() > 0.1):
+        raise RuntimeError(f"{what}: depth outside [0, 10] or near-constant "
+                           f"(std {d.std()})")
+    return {k: None if v is None else list(v) for k, v in shapes.items()}
+
+
+def condition_cnn(model, seed: int = 12) -> None:
+    """Weights from `randomize_weights` under which a deep ResNet trunk is
+    a well-conditioned function, for a card-vs-CPU comparison: each
+    residual block's last BatchNorm scale x 0.2 (torchvision's
+    zero_init_residual idea, not zero) and every BatchNorm's running
+    statistics calibrated on one eval-mode forward of a 480x480 pair from
+    `seed` (cumulative average, then momentum 0.1 again). Drawn running
+    statistics do not normalise: the trunk's output reached std 1372 at
+    void.yaml's width and the encoder's attention softmax saturated
+    (`phase_serve_cnn` records the card-vs-CPU gap and the CPU's own
+    witnesses under both sets of weights)."""
+    from mmde_tpu_torch.nn.resnet import BasicBlock, Bottleneck
+    from mmde_tpu_torch.train.step import _image
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(0.2)
+            elif isinstance(m, BasicBlock):
+                m.bn2.weight.mul_(0.2)
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    model.eval()
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+        m.train()
+    g1, g2 = make_frames(seed=seed, h=480, w=480)
+    with torch.no_grad():
+        model(_image(torch.from_numpy(g1).to(dev)),
+              _image(torch.from_numpy(g2).to(dev)))
+    for m in bns:
+        m.momentum = 0.1
+        m.eval()
+
+
+def _card_vs_cpu(model, cpu, f1, f2) -> dict:
+    """Max |card - CPU| of depth and pose on the card model's weights,
+    TF32 off, with cuDNN on (the served path: the gate) and off; beside
+    them two witnesses of the function's own conditioning on the CPU alone:
+    its change under a 1e-6 relative change of frame 1, and with mkldnn
+    off (other convolution algorithms, the same arithmetic)."""
+    from mmde_tpu_torch.tools import infer
+    keys = ("pred_d1", "pred_d2", "pred_r12", "pred_t12")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t = time.time()
+    host = infer.predict(cpu, f1, f2)
+    res = {"cpu_request_s": time.time() - t}
+
+    def gap(out):
+        return {k: float(np.abs(out[k] - host[k]).max()) for k in keys}
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.enabled)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for on in (False, True):
+            torch.backends.cudnn.enabled = on
+            card = infer.predict(model, f1, f2)
+            res["cudnn_on" if on else "cudnn_off"] = gap(card)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.enabled) = flags
+    res["pose_max_rel"] = {
+        k: float(np.abs(card[k] - host[k]).max()
+                 / max(np.abs(host[k]).max(), 1e-30))
+        for k in ("pred_r12", "pred_t12")}
+    res["pose_close"] = all(np.allclose(card[k], host[k], rtol=1e-4,
+                                        atol=1e-4)
+                            for k in ("pred_r12", "pred_t12"))
+    rng = np.random.default_rng(0)
+    x1 = f1.astype(np.float32) / 255.0
+    res["cpu_under_1e-6_input"] = gap(infer.predict(
+        cpu, x1 * (1 + 1e-6 * rng.standard_normal(x1.shape)).astype(
+            np.float32), f2.astype(np.float32) / 255.0))
+    old = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        res["cpu_mkldnn_off"] = gap(infer.predict(cpu, f1, f2))
+    finally:
+        torch.backends.mkldnn.enabled = old
+    return res
+
+
+def phase_serve_cnn(requests: int = 3) -> dict:
+    """configs/void.yaml's model at full width (cnn_transformer_multi_scale:
+    resnet50 trunk, hidden 512, 8 heads, feed-forward 4096, 6 encoder
+    layers; decoder_v1, scale 16; float32), weights from seed 7
+    (`condition_cnn`), serving one 480x480 uint8 pair a request through
+    tools.infer.predict: request ms (host clock and CUDA events), peak
+    bytes. The path launches no window-attention kernel (its attention is
+    the global one, plain PyTorch products, as XLA's in the JAX package).
+    Then the card's fp32 forward, TF32 off and cuDNN on as served, against
+    the same weights on the CPU: depth atol 1e-3, pose rtol / atol 1e-4
+    (`_card_vs_cpu`, which also records cuDNN off and the CPU's own
+    witnesses); the same record for the drawn weights before
+    `condition_cnn`, ungated."""
+    from mmde_tpu_torch.tools import infer
+    cfg = _yaml_config("void.yaml")
+    t0 = time.time()
+    model = infer.build(cfg, device="cuda", seed=0)
+    randomize_weights(model, seed=7)
+    build_s = time.time() - t0
+    f1, f2 = make_frames(seed=11, h=480, w=480)
+    cpu = infer.build(cfg, device="cpu", seed=0)
+    drawn = _card_vs_cpu(model, cpu, f1, f2)
+    condition_cnn(model)
+    infer.predict(model, f1, f2)                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    ms, dev_ms, out = _timed_requests(
+        lambda: infer.predict(model, f1, f2), requests)
+    launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    shapes = {"pred_d1": (1, 480, 480, 1), "pred_d2": (1, 480, 480, 1),
+              "pred_r12": (1, 9), "pred_t12": (1, 3), "pred_r21": None,
+              "pred_t21": None}
+    rec = {"model": "configs/void.yaml: cnn_transformer_multi_scale "
+                    "(resnet50, hidden 512, 8 heads, ff 4096, 6 layers) + "
+                    "decoder_v1, scale 16, float32",
+           "params": sum(p.numel() for p in model.parameters()),
+           "build_seconds": round(build_s, 2),
+           "input": "2 x uint8 (1, 480, 480, 3)", "request_ms": ms,
+           "request_ms_cuda_events": dev_ms,
+           "outputs": _finite_outputs(out, shapes, "serve_cnn"),
+           "depth_std": float(out["pred_d1"].std()),
+           "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    check = _card_vs_cpu(model, cpu, f1, f2)
+    rec["card_vs_cpu"] = dict(check, tolerance={"depth_atol": 1e-3,
+                                                "pose_rtol_atol": 1e-4},
+                              tf32=False, gate="cudnn_on")
+    rec["card_vs_cpu_drawn_weights"] = drawn
+    on = check["cudnn_on"]
+    ok = (on["pred_d1"] <= 1e-3 and on["pred_d2"] <= 1e-3
+          and check["pose_close"] and not launches)
+    rec["ok"] = bool(ok)
+    del model, cpu
+    torch.cuda.empty_cache()
+    emit("serve_cnn", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"serve_cnn: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def _train_steps(state, step, batch, steps: int, tag: str) -> dict:
+    """`steps` steps on one batch: host ms, losses (finite), peak bytes,
+    launches by kernel, parameters moved."""
+    watch = {n: p.detach().clone()
+             for n, p in list(state.model.named_parameters())[::25]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    ms, losses = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.time()
+        state, aux = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t) * 1e3)
+        aux = {k: float(v) for k, v in aux.items()}
+        if not all(math.isfinite(v) for v in aux.values()):
+            raise RuntimeError(f"{tag} step {i}: loss not finite: {aux}")
+        losses.append(aux)
+    moved = sum(bool((p.detach() - watch[n]).abs().max() > 0)
+                for n, p in state.model.named_parameters() if n in watch)
+    if moved == 0:
+        raise RuntimeError(f"{tag}: no watched parameter changed")
+    steady = ms[1:] or ms
+    return {"steps": steps, "losses": losses, "first_step_ms": ms[0],
+            "step_ms": steady, "step_ms_median": statistics.median(steady),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "params_watched_moved": f"{moved}/{len(watch)}",
+            "_by_kernel": _by_kernel(), "_state": state}
+
+
+def phase_train_cnn(steps: int = 4) -> dict:
+    """configs/void.yaml's trainer at full width: BATCH_SIZE 4 pairs of
+    480x480 synthetic frames, float32, train mode (BatchNorm batch
+    statistics), weights from seed 7; step ms, images/s (an image is one
+    frame), peak bytes; no window-attention launch."""
+    from mmde_tpu_torch.tools import train_steps as ts
+    cfg = _yaml_config("void.yaml")
+    pairs = cfg.train.batch_size
+    state, step = ts.build_trainer(cfg, device="cuda", seed=0)
+    randomize_weights(state.model, seed=7)
+    batch = _model_batch(pairs, 480, 480, seed=31, sparse=False)
+    r = _train_steps(state, step, batch, steps, "train_cnn")
+    launches = {k: sum(d.values()) for k, d in r.pop("_by_kernel").items()}
+    r.pop("_state")
+    rec = {"model": "configs/void.yaml (cnn_transformer_multi_scale, "
+                    "resnet50) + decoder_v1, float32, train mode",
+           "frame_pairs": pairs, "input": "480x480",
+           "images_per_s": 2 * pairs / (r["step_ms_median"] / 1e3),
+           "launches": launches, **r}
+    rec["ok"] = not launches
+    del state, step
+    torch.cuda.empty_cache()
+    emit("train_cnn", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"train_cnn: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def _completion_config(tmp: str) -> str:
+    """configs/void_downscale16_completion.yaml on the synthetic data
+    (sparse depth in the batches), one epoch, a checkpoint and validation,
+    written to `tmp`."""
+    import yaml
+    with open(os.path.join(ROOT, "configs",
+                           "void_downscale16_completion.yaml")) as f:
+        y = yaml.safe_load(f)
+    y.update(DATASET_NAME="synthetic", EPOCH=1, VALIDATION_FREQUENCY=1,
+             SAVE_FREQUENCY=1, SAVE_MODEL=True, PRINT_FREQUENCY=1,
+             WORKERS=2, RESUME_FROM="")
+    path = os.path.join(tmp, "completion.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(y, f)
+    return path
+
+
+def phase_train_completion(steps: int = 3, loop_steps: int = 3) -> dict:
+    """configs/void_downscale16_completion.yaml's model at full width
+    (glpdepth_scale16: swin_base_v2 stages 1-3, embed 128, windows 30, 5
+    input channels - the frame, sparse / max_depth, sparse > 0 -, float32)
+    on 4 pairs of 480x480 synthetic frames with sparse depth: `steps` train
+    steps (step ms, images/s, peak bytes; every attention launch K1+lse /
+    K2 on the tensor cores, 22 a step each at B_ 128 / 32 / 8); one
+    deterministic step on the kernel path against the plain path from the
+    same weights, cuDNN TF32 off (TOL_TRAIN_PARITY on the loss and
+    COMPLETION_PARAMS' gradients); then `python -m
+    mmde_tpu_torch.tools.train --synthetic --max-steps 3` of the config
+    (one epoch, 8 held-out pairs, a checkpoint) and `python -m
+    mmde_tpu_torch.tools.eval --flip-tta` of its checkpoint (sparse depth
+    mirrored with the frames: 2 passes x 22 K1 launches a pair)."""
+    from mmde_tpu_torch.tools import eval as eval_cli
+    from mmde_tpu_torch.tools import train as train_cli
+    from mmde_tpu_torch.tools import train_steps as ts
+    cfg = _yaml_config("void_downscale16_completion.yaml")
+    pairs = cfg.train.batch_size
+    shapes = _model_shapes(480, 480, 2 * pairs, 3)
+    state, step = ts.build_trainer(cfg, device="cuda", seed=0)
+    randomize_weights(state.model, seed=7)
+    batch = _model_batch(pairs, 480, 480, seed=41, sparse=True)
+    r = _train_steps(state, step, batch, steps, "train_completion")
+    by_kernel = r.pop("_by_kernel")
+    r.pop("_state")
+    want = _packed_kernels(shapes, steps, True)
+    rec = {"model": "configs/void_downscale16_completion.yaml: "
+                    "glpdepth_scale16, swin_base_v2 stages 1-3 (depths "
+                    "2/2/18, windows 30), sparse depth fused (5 input "
+                    "channels), float32, train mode",
+           "frame_pairs": pairs, "input": "480x480 + sparse depth (~5 %)",
+           "params": sum(p.numel() for p in state.model.parameters()),
+           "images_per_s": 2 * pairs / (r["step_ms_median"] / 1e3),
+           "launches_by_kernel": _str_keys(by_kernel),
+           "launches_expected": _str_keys(want), **r}
+    if by_kernel != want:
+        raise RuntimeError(f"train_completion: launches {by_kernel}, "
+                           f"expected {want}")
+    del state, step
+    torch.cuda.empty_cache()
+    # one deterministic step, kernel path against plain path
+    state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                   deterministic=True)
+    randomize_weights(state.model, seed=7)
+    init = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        for path in ("cuda", "torch"):
+            with torch.no_grad():
+                state.model.load_state_dict(init)
+            _set_attn_impl(state.model, path)
+            _reset_launch_counts()
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+            res[path] = (float(aux["loss_total"]),
+                         {n: p.grad.detach().double().clone()
+                          for n, p in state.model.named_parameters()
+                          if n in COMPLETION_PARAMS},
+                         {k: sum(d.values())
+                          for k, d in _by_kernel().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (la, ga, kl), (lb, gb, pl) = res["cuda"], res["torch"]
+    if set(ga) != set(COMPLETION_PARAMS):
+        raise RuntimeError(f"train_completion: parity parameters missing "
+                           f"{set(COMPLETION_PARAMS) - set(ga)}")
+    grad_rel = {n: float((ga[n] - gb[n]).norm() / gb[n].norm()) for n in ga}
+    rec["parity"] = {"loss_cuda": la, "loss_torch": lb,
+                     "loss_rel_diff": abs(la - lb) / abs(lb),
+                     "grad_rel_l2": grad_rel, "launches_cuda": kl,
+                     "launches_torch": pl, "tolerance": TOL_TRAIN_PARITY,
+                     "cudnn_allow_tf32": False}
+    parity_ok = (rec["parity"]["loss_rel_diff"] <= TOL_TRAIN_PARITY["loss_rel"]
+                 and all(v <= TOL_TRAIN_PARITY["grad_rel_l2"]
+                         for v in grad_rel.values())
+                 and all(float(g.norm()) > 0 for g in gb.values())
+                 and kl and all("_tc" in k for k in kl) and not pl)
+    del state, step, init, res, ga, gb
+    torch.cuda.empty_cache()
+    # the loop and the eval CLI on the config
+    tmp = tempfile.mkdtemp(prefix="mmde_smoke_completion_")
+    try:
+        path = _completion_config(tmp)
+        log_dir = os.path.join(tmp, "run")
+        _reset_launch_counts()
+        t = time.time()
+        final = train_cli.main(["--config", path, "--synthetic",
+                                "--max-steps", str(loop_steps), "--log-dir",
+                                log_dir, "--device", "cuda"])
+        loop_s = time.time() - t
+        loop_launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+        torch.cuda.empty_cache()
+        _reset_launch_counts()
+        t = time.time()
+        ev = eval_cli.main(["--config", path, "--ckpt",
+                            os.path.join(log_dir, "ckpt"), "--synthetic",
+                            "--flip-tta", "--device", "cuda"])
+        eval_s = time.time() - t
+        eval_launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    blocks = sum(sh["blocks"] for sh in shapes)
+    rec["loop"] = {"command": "python -m mmde_tpu_torch.tools.train "
+                              "--synthetic --max-steps 3 (1 epoch)",
+                   "seconds": loop_s, "final": final,
+                   "launches": loop_launches}
+    rec["eval"] = {"command": "python -m mmde_tpu_torch.tools.eval --ckpt "
+                              "<run>/ckpt --synthetic --flip-tta",
+                   "seconds": eval_s, "restored": ev["restored"],
+                   "metrics": ev["metrics"], "losses": ev["losses"],
+                   "launches": eval_launches,
+                   "k1_expected": 8 * 2 * blocks}
+    loop_ok = (loop_launches.get("window_attention_bwd_tc") == blocks
+               * loop_steps and all(math.isfinite(v)
+                                    for v in (final or {}).values()))
+    eval_ok = (ev["restored"] is not None
+               and eval_launches == {"window_attention_fwd_tc":
+                                     8 * 2 * blocks}
+               and all(math.isfinite(v) for v in ev["metrics"].values()))
+    rec["ok"] = bool(parity_ok and loop_ok and eval_ok)
+    rec["_shapes"] = shapes
+    rec["_by_kernel"] = by_kernel
+    emit("train_completion", {k: v for k, v in rec.items()
+                              if not k.startswith("_")})
+    if not rec["ok"]:
+        raise RuntimeError(f"train_completion: parity {parity_ok}, loop "
+                           f"{loop_ok}, eval {eval_ok}: "
+                           f"{json.dumps(rec, default=str)[:3000]}")
+    return rec
+
+
+def phase_serve_glpdepth(requests: int = 3, steps: int = 2) -> dict:
+    """The single-frame GLPDepth over the flagship's swin_base_v2 (float32,
+    full depth), weights from seed 7: `requests` requests of one 480x640
+    uint8 frame through tools.infer.predict (pred_d; 24 K1 launches each at
+    B_ 24 / 6 / 2 / 2) and a flip-averaged one; then `steps` steps of
+    train.single_frame.make_single_train_step on 4 frames (SiLog; K1+lse /
+    K2 at the flagship's 2-pair shapes, B_ 96 / 24 / 8 / 8)."""
+    from mmde_tpu_torch.tools import infer
+    from mmde_tpu_torch.train.optim import build_optimizer
+    from mmde_tpu_torch.train.single_frame import make_single_train_step
+    from mmde_tpu_torch.train.step import TrainState
+    cfg = _glpdepth_cfg()
+    model = infer.build(cfg, device="cuda", seed=0)
+    randomize_weights(model, seed=7)
+    f1, _ = make_frames(seed=13)
+    infer.predict(model, f1)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    ms, dev_ms, out = _timed_requests(lambda: infer.predict(model, f1),
+                                      requests)
+    served = _by_kernel()
+    shapes = _model_shapes(480, 640, 1, 4)
+    want = _packed_kernels(shapes, requests, False)
+    rec = {"model": "glpdepth (single frame): swin_base_v2, depths "
+                    "2/2/18/2, windows 30/30/30/15, float32",
+           "params": sum(p.numel() for p in model.parameters()),
+           "input": "uint8 (1, 480, 640, 3)", "request_ms": ms,
+           "request_ms_cuda_events": dev_ms,
+           "outputs": _finite_outputs(out, {"pred_d": (1, 480, 640, 1)},
+                                      "serve_glpdepth"),
+           "depth_std": float(out["pred_d"].std()),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches_by_kernel": _str_keys(served),
+           "launches_expected": _str_keys(want)}
+    t = time.time()
+    flip = infer.predict(model, f1, flip_tta=True)
+    torch.cuda.synchronize()
+    rec["flip_request_ms"] = (time.time() - t) * 1e3
+    _finite_outputs(flip, {"pred_d": (1, 480, 640, 1)}, "glpdepth flip")
+    # the single-frame train step: SiLog, 2 frames
+    model.train()
+    optimizer, _ = build_optimizer(
+        model, backbone=cfg.model.backbone, depths=cfg.model.swin.depths,
+        max_lr=cfg.train.max_lr, min_lr=cfg.train.min_lr,
+        weight_decay=cfg.train.weight_decay,
+        layer_decay=cfg.train.layer_decay, steps_per_epoch=100,
+        epochs=cfg.train.epochs, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TrainState.create(model, optimizer, gen)
+    step = make_single_train_step(model, optimizer, device="cuda")
+    b = _model_batch(2, 480, 640, seed=43, sparse=False)
+    batch = {"image": torch.cat([b["image1"], b["image2"]]),
+             "depth": torch.cat([b["depth1"], b["depth2"]])}
+    r = _train_steps(state, step, batch, steps, "serve_glpdepth train")
+    trained = r.pop("_by_kernel")
+    r.pop("_state")
+    want_t = _packed_kernels(_model_shapes(480, 640, 4, 4), steps, True)
+    rec["train"] = {"step": "train.single_frame.make_single_train_step, "
+                            "4 frames 480x640, SiLog",
+                    "images_per_s": 4 / (r["step_ms_median"] / 1e3),
+                    "launches_by_kernel": _str_keys(trained),
+                    "launches_expected": _str_keys(want_t), **r}
+    rec["ok"] = served == want and trained == want_t
+    rec["_served"], rec["_trained"] = served, trained
+    del model, optimizer, state, step
+    torch.cuda.empty_cache()
+    emit("serve_glpdepth", {k: v for k, v in rec.items()
+                            if not k.startswith("_")})
+    if not rec["ok"]:
+        raise RuntimeError(f"serve_glpdepth: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def contract_models(model_cases: dict, k2_cases: list, completion: dict,
+                    glpdepth: dict) -> list:
+    """The new paths' kernels, float32: K1 served at the single-frame
+    GLPDepth's shapes (launches from serve_glpdepth), K1+lse / K2 at its
+    train step's (the flagship's 2-pair shapes, kernel_cases_backward's
+    fp32 cases) and at void_downscale16_completion's (kernel_cases_models'
+    cases; launches from train_completion's timed steps)."""
+    entries = []
+    for c, sh in zip(model_cases["served"], _model_shapes(480, 640, 1, 4)):
+        key = (sh["B_"], sh["N"], sh["C"], sh["nH"])
+        e = _entry("window_attention_fwd_tc", sh, KERNEL_TC_SOURCE,
+                   KERNEL_REPLACES, glpdepth["_served"].get(
+                       "window_attention_fwd_tc", {}).get(key, 0), c,
+                   dtype="fp32")
+        e.update(dtype="float32", path="glpdepth served (1 image)")
+        entries.append(e)
+    for path, by_kernel, cases in (
+            ("glpdepth single-frame train step (4 images)",
+             glpdepth["_trained"],
+             [_find(k2_cases, sh, 2, "float32")
+              for sh in _model_shapes(480, 640, 4, 4)]),
+            ("void_downscale16_completion train step (4 pairs)",
+             completion["_by_kernel"], model_cases["trained"])):
+        for c in cases:
+            sh = dict(c, layout="packed")
+            key = (c["B_"], c["N"], c["C"], c["nH"])
+            for name, src, rep, r in (
+                    ("window_attention_fwd_tc+lse", KERNEL_TC_SOURCE,
+                     KERNEL_REPLACES, c["forward"]),
+                    ("window_attention_bwd_tc", KERNEL_TC_BWD_SOURCE,
+                     KERNEL_BWD_REPLACES, c)):
+                e = _entry(name, sh, src, rep,
+                           by_kernel.get(name, {}).get(key, 0), r, 2,
+                           dtype="fp32")
+                e.update(dtype="float32", path=path)
+                entries.append(e)
+    return entries
+
+
+def phase_models() -> tuple:
+    """serve_cnn, train_cnn, train_completion, serve_glpdepth; returns
+    (train_completion's record, serve_glpdepth's)."""
+    phase_serve_cnn()
+    phase_train_cnn()
+    completion = phase_train_completion()
+    glpdepth = phase_serve_glpdepth()
+    torch.cuda.empty_cache()
+    return completion, glpdepth
 
 
 def phase_loop_entries() -> dict:
@@ -5047,12 +5858,17 @@ def phase_loop_entries() -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "loop"], default=None,
+    ap.add_argument("--only", choices=["kernels", "loop", "models"],
+                    default=None,
                     help="kernels: build the kernels, compare them with "
                          "their plain versions (no timing); loop: the "
                          "training and evaluation entry points (loop, "
-                         "eval_ckpt, deterministic); then stop (prints no "
-                         "final ok line)")
+                         "eval_ckpt, deterministic); models: the slab "
+                         "kernels (K3 over MapRows among them), the other "
+                         "encoders and families (kernel_cases_models, "
+                         "serve_cnn, train_cnn, train_completion, "
+                         "serve_glpdepth) and deterministic; then stop "
+                         "(prints no final ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
@@ -5082,6 +5898,13 @@ def main() -> int:
         phase_loop_entries()
         emit("phase_seconds", PHASE_SECONDS)
         return 0
+    if args.only == "models":
+        phase_kernels_slab(timed=False)
+        phase_kernels_models(timed=False)
+        phase_models()
+        phase_deterministic()
+        emit("phase_seconds", PHASE_SECONDS)
+        return 0
     timed = args.only is None
     k1_cases = phase_kernels(timed=timed)
     k2_cases = phase_kernels_backward(timed=timed)
@@ -5092,6 +5915,7 @@ def main() -> int:
     kw_cases = phase_kernels_w(timed=timed)
     mxu_cases = phase_kernels_mxu(timed=timed)
     tc_cases = phase_kernels_tc(timed=timed)
+    model_cases = phase_kernels_models(timed=timed)
     if args.only == "kernels":
         emit("phase_seconds", PHASE_SECONDS)
         return 0
@@ -5099,7 +5923,7 @@ def main() -> int:
     roof_entries, roof = phase_roofline()
     tc_bounds(tc_cases + hs_cases + slab_cases + k4_cases + kw_cases,
               roof["rates"]["dot_bf16_TFLOP_s"])
-    k3_bounds(k2_cases + hs_cases, roof["rates"])
+    k3_bounds(k2_cases + hs_cases + slab_cases, roof["rates"])
     serve = phase_serve()
     train = phase_train()
     serve_large = phase_serve("swin_large_v2", flip=False, tag="serve_large")
@@ -5133,6 +5957,7 @@ def main() -> int:
     # after the three side-by-side children: the card to itself
     train_split = phase_train_split()
     loop_rec = phase_loop_entries()
+    completion, glpdepth = phase_models()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)
@@ -5190,6 +6015,8 @@ def main() -> int:
                               train_slab_fp32, tc_cases, "float32")
     entries += contract_mxu(mxu_cases, train_mxu)
     entries += contract_k3(k2_cases, train_split)
+    entries += contract_k3(slab_cases, train_split, slab=True)
+    entries += contract_models(model_cases, k2_cases, completion, glpdepth)
     # the training loop's own launches (tools.train: 6 steps, 16 held-out
     # forwards), at the shapes and with the numbers of the train / serve
     # entries

@@ -28,7 +28,9 @@
 // launch, bf16 and fp32, in every mode: the caller passes dbias_mode 0 to
 // the passes and runs bwd_dbias_tc_kernel (below) on the delta they wrote
 // and the forward's statistic, dbias summed over the windows in one fixed
-// order, the same bits on every run; the slab entry keeps its atomics.
+// order, the same bits on every run; the slab entry's K3
+// (mmde_window_attention_slab_dbias_tc) is the same kernel over MapRows,
+// each window's rows read in place off the map.
 // window_attention_bwd.cu keeps K2's and K3's fp32-FMA bodies as the
 // same-card A/B partner. Same function and the same two passes as K2 (its
 // header has the formulas):
@@ -974,14 +976,23 @@ bwd_dbias_tc_kernel(L<const T> q, L<const T> k, L<const T> v,
   // step s's window: type-major where masked
   auto window = [&](int s) { return masked ? (s % S) * nW + s / S : s; };
 
+  // MapRows: the key tile's pixels from a window's corner (TileRows), the
+  // same in every window, so filled once for the whole sweep; Rows ignores
+  // the table
+  __shared__ int sTab[TC_BT];
+  if constexpr (TileRows<L<const T>>::kTable) {
+    TileRows<L<const T>>::fill(sTab, k, k0, tid);
+    __syncthreads();
+  }
+
   auto issue = [&](int s) {     // step s's K, V (bias, mask) -> stage s & 1
     const int st = s & 1, b = window(s);
     if constexpr (F32) {
-      load_tile_f32(sStg, k.head(b, h), k, k0, N, tid);
-      load_tile_f32(sStg + TC_STAGE_F32, v.head(b, h), v, k0, N, tid);
+      load_tile_f32(sStg, k.head(b, h), k, sTab, k0, N, tid);
+      load_tile_f32(sStg + TC_STAGE_F32, v.head(b, h), v, sTab, k0, N, tid);
     } else {
-      load_tile(sK[st], k.head(b, h), k, k0, N, tid);
-      load_tile(sV[st], v.head(b, h), v, k0, N, tid);
+      load_tile(sK[st], k.head(b, h), k, sTab, k0, N, tid);
+      load_tile(sV[st], v.head(b, h), v, sTab, k0, N, tid);
     }
     if (async_b) {
       if (s == 0) load_btile(sB, bias_h, q0, k0, N, tid, true);
@@ -2074,12 +2085,13 @@ int dbias_tc_bytes(bool masked) {
   return Pieces<T, MXU>::kTiles + (masked ? 3 : 1) * btile_bytes<TB>();
 }
 
-// K3 on operands already described as Rows (the packed layout's column
-// blocks or the head-split views' strides), rows 16-byte aligned; -1 where
-// a row is not. dbias (nH, N, N) fp32, every element written once.
-template <typename T, typename TB, int MXU>
-int launch_dbias(const Rows<const T>& q, const Rows<const T>& k,
-                 const Rows<const T>& v, const Rows<const T>& g,
+// K3 on operands already described in layout L (Rows: the packed layout's
+// column blocks or the head-split views' strides; MapRows: the slab's
+// windows of a map), rows 16-byte aligned; -1 where a row is not. dbias
+// (nH, N, N) fp32, every element written once.
+template <template <typename> class L, typename T, typename TB, int MXU>
+int launch_dbias(const L<const T>& q, const L<const T>& k,
+                 const L<const T>& v, const L<const T>& g,
                  const void* ls, const void* bias, const void* mask,
                  const void* lse, const void* delta, void* dbias, int B_,
                  int N, int nH, int nW, cudaStream_t stream) {
@@ -2088,13 +2100,13 @@ int launch_dbias(const Rows<const T>& q, const Rows<const T>& k,
     return -1;
   const bool masked = mask != nullptr;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dbias_tc_kernel<Rows, T, TB, MXU>,
+      bwd_dbias_tc_kernel<L, T, TB, MXU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       dbias_tc_bytes<T, TB, MXU>(true));
   if (err != cudaSuccess) return (int)err;
   const int nt = (N + TC_BT - 1) / TC_BT;
   dim3 grid(nt, nt, nH);
-  bwd_dbias_tc_kernel<Rows, T, TB, MXU>
+  bwd_dbias_tc_kernel<L, T, TB, MXU>
       <<<grid, TC_NT, dbias_tc_bytes<T, TB, MXU>(masked), stream>>>(
           q, k, v, g, (const float*)ls, (const TB*)bias, (const TB*)mask,
           (const float*)lse, (const float*)delta, (float*)dbias, B_, N, nW);
@@ -2234,7 +2246,7 @@ extern "C" int mmde_window_attention_dbias_tc(
     using T = decltype(t);
     using TB = decltype(tb);
     constexpr int MXU = decltype(m)::value;
-    return launch_dbias<T, TB, MXU>(
+    return launch_dbias<Rows, T, TB, MXU>(
         packed_rows((const T*)qkv, 0, N, C, 3, TC_DH),
         packed_rows((const T*)qkv, 1, N, C, 3, TC_DH),
         packed_rows((const T*)qkv, 2, N, C, 3, TC_DH),
@@ -2278,7 +2290,7 @@ extern "C" int mmde_window_attention_headsplit_dbias_tc(
   auto run = [&](auto t, auto tb) {
     using T = decltype(t);
     using TB = decltype(tb);
-    return launch_dbias<T, TB, MXU_FP32>(
+    return launch_dbias<Rows, T, TB, MXU_FP32>(
         {(const T*)q, st[0], st[1], st[2]}, {(const T*)k, st[3], st[4], st[5]},
         {(const T*)v, st[6], st[7], st[8]},
         {(const T*)g, st[9], st[10], st[11]}, logit_scale, bias, mask, lse,
@@ -2392,6 +2404,49 @@ extern "C" int mmde_window_attention_slab_bwd_tc(
   return launch_slab<bf16, float>(qkv, g, logit_scale, bias, mask, lse, dqkv,
                                   delta, dls_part, db, B_, Hp, Wp, C, nH, ws,
                                   s);
+}
+
+// Slab entry of K3 on the tensor cores (MMDE_ATTN_GRID=split and
+// deterministic mode, after mmde_window_attention_slab_bwd_tc with
+// dbias_mode 0, on the delta it wrote): qkv (B, Hp, Wp, 3C) and g (B, Hp,
+// Wp, C) maps, bias, mask, lse, qkv_bf16 and bias_bf16 as that entry takes
+// them (mode MXU_FP32; bf16: lse (B * nW, nH, N), fp32: (2, B * nW, nH, N)
+// hi then lo); each window's rows read in place off the map (MapRows, the
+// key tile's pixels in a table filled once a block). dbias (nH, N, N)
+// fp32, every element written once, the windows summed in one fixed order
+// (type-major where masked: the mask row is b % nW): the same bits on every
+// run. Returns the CUDA error of the launch, or -1 for arguments the
+// kernel does not take (as mmde_window_attention_slab_bwd_tc). Launches on
+// `stream`, does not synchronise, allocates nothing.
+extern "C" int mmde_window_attention_slab_dbias_tc(
+    const void* qkv, const void* logit_scale, const void* bias,
+    const void* mask, const void* lse, const void* g, const void* delta,
+    void* dbias, int B, int Hp, int Wp, int C, int nH, int ws, int qkv_bf16,
+    int bias_bf16, void* stream) {
+  if (C != nH * TC_DH || B <= 0 || ws <= 0 || Hp <= 0 || Wp <= 0 ||
+      Hp % ws != 0 || Wp % ws != 0)
+    return -1;
+  const long long N = (long long)ws * ws;
+  const long long nW = (long long)(Hp / ws) * (Wp / ws);
+  if (N * ws >= (1ll << 32) || (long long)B * nW > 65535) return -1;
+  if ((long long)ws * Wp >= (1ll << 31)) return -1;   // MapRows::pix
+  const int B_ = (int)(B * nW);
+  if (!dbias_shape_ok(B_, (int)N, nH, (int)nW, mask, dbias, qkv_bf16,
+                      bias_bf16))
+    return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = [&](auto t, auto tb) {
+    using T = decltype(t);
+    using TB = decltype(tb);
+    return launch_dbias<MapRows, T, TB, MXU_FP32>(
+        map_rows((const T*)qkv, 0, C, 3, Hp, Wp, ws, TC_DH),
+        map_rows((const T*)qkv, 1, C, 3, Hp, Wp, ws, TC_DH),
+        map_rows((const T*)qkv, 2, C, 3, Hp, Wp, ws, TC_DH),
+        map_rows((const T*)g, 0, C, 1, Hp, Wp, ws, TC_DH), logit_scale, bias,
+        mask, lse, delta, dbias, B_, (int)N, nH, (int)nW, s);
+  };
+  if (!qkv_bf16) return run(0.0f, 0.0f);
+  return bias_bf16 ? run(bf16(), bf16()) : run(bf16(), 0.0f);
 }
 
 // Blocks of the slab entry's two passes an SM holds at their launch

@@ -3,16 +3,18 @@
 Counterpart of mmde_tpu/models/two_frame.py:
   * encoder selected by backbone string: swin_{nano,tiny,base,large,huge}_v2
     with embed_dim 32/96/128/192/352 and matching head counts;
+    cnn_transformer[_multi_scale] / resnet_only[_multi_scale] with
+    resnet50 / resnet18 trunks (nn/cnn_transformer.py);
   * model_scale 32 (4 swin stages, stride-32 feature) vs 16 (3 stages,
     stride-16 feature);
   * decoder_v1 / decoder_v2 twin heads;
   * forward: the two frames interleaved on the batch axis through the shared
     encoder, then split for the decoder.
 
-The cnn_transformer / resnet_only backbones and the glpdepth families are
-not ported yet and raise NotImplementedError naming their ROADMAP item.
-All derived hyperparameters live in the pure `build_plan` function, so
-configs stay immutable.
+`build_model` builds the three families (`cfg.family`): two_frame (this
+module), glpdepth_scale16 and glpdepth (models/glpdepth.py). All derived
+hyperparameters live in the pure `build_plan` function, so configs stay
+immutable.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from mmde_tpu_torch.config import ModelConfig
+from mmde_tpu_torch.nn.cnn_transformer import CnnTransformer, ResNetOnly
 from mmde_tpu_torch.nn.decoders import DecoderV1, DecoderV2
 from mmde_tpu_torch.nn.swin_v2 import SwinTransformerV2
 
@@ -36,11 +39,6 @@ SWIN_VARIANTS = {
     "large": (192, (6, 12, 24, 48)),
     "huge": (352, (11, 22, 44, 88)),
 }
-
-_NOT_PORTED_ENCODERS = (
-    "the cnn_transformer / resnet_only encoders are not ported yet "
-    "(ROADMAP Queue A: other encoders and families)")
-
 
 @dataclass(frozen=True)
 class BuildPlan:
@@ -96,10 +94,28 @@ def _model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _build_encoder(cfg: ModelConfig, dtype: torch.dtype,
-                   generator: Optional[torch.Generator]) -> nn.Module:
+                   generator: Optional[torch.Generator],
+                   in_chans: int = 3) -> nn.Module:
+    """The encoder of `cfg.backbone`; `in_chans` input channels (5 with
+    sparse depth fused in)."""
     b = cfg.backbone
     if "swin" not in b:
-        raise NotImplementedError(_NOT_PORTED_ENCODERS)
+        cm = cfg.cnn.cnn_model
+        if cm not in ("resnet50", "50", "resnet18", "18"):
+            raise ValueError(f"unknown cnn_model '{cm}'")
+        model = "resnet50" if cm in ("resnet50", "50") else "resnet18"
+        hidden = 512 if model == "resnet50" else 256
+        multi = b.endswith("multi_scale")
+        if "cnn_transformer" in b:
+            return CnnTransformer(hidden_dim=hidden, n_enc_layers=6,
+                                  multi_scale=multi, cnn_model=model,
+                                  ff_dim=cfg.cnn.transformer_ff_dim,
+                                  in_chans=in_chans, dtype=dtype)
+        if "resnet_only" in b:
+            return ResNetOnly(hidden_dim=hidden, multi_scale=multi,
+                              cnn_model=model, in_chans=in_chans,
+                              dtype=dtype)
+        raise ValueError(f"backbone '{b}' is not registered")
     variant = next(v for v in SWIN_VARIANTS if v in b)
     embed_dim, num_heads = SWIN_VARIANTS[variant]
     s = cfg.swin
@@ -120,7 +136,7 @@ def _build_encoder(cfg: ModelConfig, dtype: torch.dtype,
         use_checkpoint=s.use_checkpoint, remat_policy=s.remat_policy,
         scan_blocks=s.scan_blocks, resident_pad_max=s.resident_pad_max,
         frozen_stages=s.frozen_stages, attn_impl=resolve_attn_impl(cfg),
-        dtype=dtype, generator=generator)
+        in_chans=in_chans, dtype=dtype, generator=generator)
 
 
 class TwoFrameDepthPose(nn.Module):
@@ -192,15 +208,17 @@ def require_device(device: Union[str, torch.device],
 def build_model(cfg: ModelConfig, *,
                 device: Union[str, torch.device] = "cuda",
                 generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Model factory. The model is created on `device`, which defaults to
-    the CUDA card: without one this raises rather than building on the CPU
-    (tests pass device="cpu"). `generator` (a CPU generator) seeds the
-    initialisation and the model's stochastic depth; None uses torch's
-    global generator."""
-    if cfg.family in ("glpdepth", "glpdepth_scale16"):
-        raise NotImplementedError(
-            f"model family '{cfg.family}' is not ported yet (ROADMAP Queue "
-            "A: other encoders and families)")
+    """Model factory over the three families (`cfg.family`): two_frame
+    (TwoFrameDepthPose), glpdepth_scale16 (Scale16TwoFrame: the fused
+    out_p network, with sparse-depth fusion under `sparse_depth_input`),
+    glpdepth (GLPDepth, single frame). The model is created on `device`,
+    which defaults to the CUDA card: without one this raises rather than
+    building on the CPU (tests pass device="cpu"). `generator` (a CPU
+    generator) seeds the initialisation and the model's stochastic depth;
+    None uses torch's global generator."""
+    from mmde_tpu_torch.models.glpdepth import GLPDepth, Scale16TwoFrame
+    family = {"glpdepth": GLPDepth, "glpdepth_scale16": Scale16TwoFrame
+              }.get(cfg.family, TwoFrameDepthPose)
     device = require_device(device, what="build_model")
     if generator is not None:
         # torch's initialisers draw from the global generator: fork it,
@@ -208,7 +226,7 @@ def build_model(cfg: ModelConfig, *,
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(torch.randint(
                 0, 2 ** 31 - 1, (1,), generator=generator)))
-            model = TwoFrameDepthPose(cfg)
+            model = family(cfg)
     else:
-        model = TwoFrameDepthPose(cfg)
+        model = family(cfg)
     return model.to(device)

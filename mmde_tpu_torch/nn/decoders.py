@@ -38,6 +38,14 @@ def _conv(cin: int, cout: int, stride: int, dtype) -> Conv2d:
     return m
 
 
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """NCHW bilinear x2, half-pixel centres: `jax.image.resize(...,
+    "bilinear")` at twice the size (the edge sample's renormalised weights
+    there equal torch's clamp here)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=False)
+
+
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -125,8 +133,7 @@ class DecoderDepth(nn.Module):
         x = self.deconv_layers(x)
         x = self.conv_layers(x)
         for _ in range(self.num_upscale):
-            x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                              align_corners=False)
+            x = upsample2x(x)
         x = self.last_layer(x)
         return torch.sigmoid(_to_nhwc(x).float()) * self.max_depth
 

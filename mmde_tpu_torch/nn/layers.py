@@ -63,6 +63,17 @@ class LayerNormFP32(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default kernel initialiser (`lecun_normal`): a normal of
+    variance 1 / fan_in truncated at two standard deviations, the standard
+    deviation widened so the truncated draw keeps that variance. fan_in is
+    every axis of a torch weight but the first (out, in[, kH, kW])."""
+    fan_in = weight[0].numel()
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
 def _uniform(shape, generator: Optional[torch.Generator],
              device: torch.device) -> torch.Tensor:
     """U[0, 1) of `shape` from `generator`, drawn on the generator's own

@@ -15,7 +15,10 @@ Counterpart of mmde_tpu/nn/swin_v2.py:
   * cyclic-shift SW-MSA with the additive 0/-100 region mask, built with
     numpy on the padded map and cached per map size;
   * PatchMerging / PatchReduction1C / ConvPatchMerging downsampling,
-    PatchEmbed conv-4x4;
+    PatchEmbed conv-4x4 (any input channel count: 5 with sparse depth) or
+    the ResNet-style `ResNetDLNPatchEmbed`;
+  * the absolute position embedding (`ape`), resized to the map by
+    jax.image.resize's bicubic (`resize_bicubic`, its own weights);
   * strid16 mode, per-stage window/shift flags, stochastic-depth schedule,
     fp32 LayerNorm on the outputs.
 
@@ -54,7 +57,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mmde_tpu_torch.nn.layers import (Conv2d, DropPath, LayerNormFP32, Linear,
-                                      Mlp)
+                                      Mlp, lecun_normal_)
 from mmde_tpu_torch.ops.window_attention import (cosine_window_attention,
                                                  scaled_window_attention)
 from mmde_tpu_torch.ops.window_attention_headsplit import (
@@ -542,6 +545,85 @@ class PatchEmbed(nn.Module):
         return x
 
 
+class ResNetDLNPatchEmbed(nn.Module):
+    """ResNet-style stem patch embed, total stride 4: conv 3x3 s2 (64) ->
+    LayerNorm -> GELU -> conv 3x3 (64) -> LayerNorm -> GELU -> conv 3x3
+    (embed_dim) -> LayerNorm -> GELU -> max pool 3x3 s2, every stride-2 op
+    padded (1, 1) as torch pads; NHWC in, NHWC out. Names mirror the JAX
+    module (`conv1`, `ln1`, `conv2`, `ln2`, `conv3`, `norm`); convolutions
+    bias-free with flax's initialiser."""
+
+    def __init__(self, embed_dim: int = 96, in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+
+        def conv(cin, cout, stride):
+            m = Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False,
+                       dtype=dtype)
+            lecun_normal_(m.weight)
+            return m
+
+        self.conv1 = conv(in_chans, 64, 2)
+        self.ln1 = LayerNormFP32(64)
+        self.conv2 = conv(64, 64, 1)
+        self.ln2 = LayerNormFP32(64)
+        self.conv3 = conv(64, embed_dim, 1)
+        self.norm = LayerNormFP32(embed_dim)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        pad_b, pad_r = (4 - H % 4) % 4, (4 - W % 4) % 4
+        if pad_b or pad_r:
+            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+        for conv, norm in ((self.conv1, self.ln1), (self.conv2, self.ln2),
+                           (self.conv3, self.norm)):
+            x = conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            x = F.gelu(norm(x))
+        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1)
+        return x.permute(0, 2, 3, 1)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel at a = -0.5 of |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+def bicubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of `jax.image.resize(...,
+    "bicubic")` along one axis (antialias on, its default): half-pixel
+    sample positions, Keys' kernel at a = -0.5 stretched by the shrink
+    factor when shrinking, each column renormalised to sum 1, zero for a
+    sample outside the input. `F.interpolate(mode="bicubic")` is another
+    function (a = -0.75, clamped edges, no antialias)."""
+    scale = np.float32(out_size / in_size)
+    inv = np.float32(1.0) / scale
+    kscale = max(inv, np.float32(1.0))
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv
+              - np.float32(0.5))
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]
+               ) / kscale
+    w = _keys_cubic(x)
+    tot = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, 1), 0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_bicubic(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, C, h, w) -> (B, C, height, width) by `bicubic_weights` along each
+    axis whose size changes (jax.image.resize's function)."""
+    if x.shape[2] != height:
+        wh = torch.from_numpy(bicubic_weights(x.shape[2], height)).to(x)
+        x = torch.einsum("bchw,hH->bcHw", x, wh)
+    if x.shape[3] != width:
+        ww = torch.from_numpy(bicubic_weights(x.shape[3], width)).to(x)
+        x = torch.einsum("bchw,wW->bchW", x, ww)
+    return x
+
+
 _DOWNSAMPLE = {"merge": PatchMerging, "reduce1c": PatchReduction1C,
                "conv": ConvPatchMerging}
 
@@ -668,19 +750,12 @@ class SwinTransformerV2(nn.Module):
                  out_indices: Sequence[int] = (3,), frozen_stages: int = -1,
                  use_shift=True,
                  pretrain_window_size: Sequence[int] = (-1, -1, -1, -1),
-                 pretrain_img_size: int = 224, attn_impl: str = "torch",
+                 pretrain_img_size: int = 224, in_chans: int = 3,
+                 attn_impl: str = "torch",
                  dtype: torch.dtype = torch.float32,
                  scan_blocks: bool = False, resident_pad_max: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if ape:
-            raise NotImplementedError(
-                "absolute position embedding is not ported yet (ROADMAP "
-                "Queue A, remaining modules)")
-        if patch_embed_type != "normal":
-            raise NotImplementedError(
-                f"patch_embed_type {patch_embed_type!r} is not ported yet "
-                "(ROADMAP Queue A, remaining modules)")
         num_layers = len(depths)
         window_size = (list(window_size) if not isinstance(window_size, int)
                        else [window_size] * num_layers)
@@ -693,8 +768,22 @@ class SwinTransformerV2(nn.Module):
         self.frozen_stages = frozen_stages
         self.dtype = dtype
 
-        self.patch_embed = PatchEmbed(embed_dim=embed_dim,
-                                      patch_norm=patch_norm, dtype=dtype)
+        if patch_embed_type == "normal":
+            self.patch_embed = PatchEmbed(embed_dim=embed_dim,
+                                          patch_norm=patch_norm,
+                                          in_chans=in_chans, dtype=dtype)
+        elif patch_embed_type == "resnetdln":
+            self.patch_embed = ResNetDLNPatchEmbed(embed_dim, in_chans, dtype)
+        else:
+            raise NotImplementedError(patch_embed_type)
+        self.absolute_pos_embed = None
+        if ape:
+            # (1, C, res, res) as the reference stores it; the JAX package
+            # holds it NHWC (ckpt/from_jax.py transposes)
+            res = pretrain_img_size // 4
+            self.absolute_pos_embed = nn.Parameter(
+                torch.empty(1, embed_dim, res, res))
+            nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02)
         total = sum(depths)
         dpr = list(np.linspace(0, drop_path_rate, total))
         self.layers = nn.ModuleList()
@@ -735,6 +824,12 @@ class SwinTransformerV2(nn.Module):
         x = self.patch_embed(x.to(self.dtype))
         if self.frozen_stages >= 0:
             x = x.detach()
+        if self.absolute_pos_embed is not None:
+            ape = resize_bicubic(self.absolute_pos_embed, x.shape[1],
+                                 x.shape[2]).permute(0, 2, 3, 1)
+            if self.frozen_stages >= 1:
+                ape = ape.detach()
+            x = x + ape.to(x.dtype)
         outs = []
         for i, layer in enumerate(self.layers):
             x_out, x = layer(x)

@@ -27,9 +27,15 @@ only through the private `_fma`, the same-card comparison's partner. As the
 TPU kernel, the forward keeps a running row maximum for every head (no
 max-free softmax) and takes bias and mask in float32 whatever the model's
 type; the backward sums dbias over windows in fp32 (by atomics here, in the
-resident output block there; so deterministic mode refuses it,
-`check_deterministic`), gives `dlogit_scale` zero where the ln(100)
-clamp binds and the mask no gradient.
+resident output block there), gives `dlogit_scale` zero where the ln(100)
+clamp binds and the mask no gradient. Under MMDE_ATTN_GRID=split and in
+deterministic mode (`torch.use_deterministic_algorithms(True)`), both read
+at each call (`dbias_split`), the passes run without their atomics and K3
+(`bwd_dbias_tc_kernel` over `MapRows`, the entry
+`mmde_window_attention_slab_dbias_tc`, counted as
+window_attention_slab_dbias_tc) sums dbias window after window in one
+fixed order, reading each window's rows in place off the map: the same
+bits on every run, as the TPU kernel's resident block gives them.
 
 The log-sum-exp the backward rebuilds p from is what its own forward
 wrote: the bf16 tensor-core forward one fp32 number a row, (B*nW, nH, N);
@@ -49,7 +55,6 @@ and nothing else.
 from __future__ import annotations
 
 import ctypes
-import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -65,7 +70,9 @@ LAUNCHES_BWD_BY_SHAPE: dict = {}
 # every launch above, keyed by (kernel, (B*nW, N, C, nH)); kernel names:
 # window_attention_slab_fwd_tc[+lse] / window_attention_slab_bwd_tc (the
 # tensor cores, either type), window_attention_slab_fwd[+lse] /
-# window_attention_slab_bwd (the fp32-FMA body, `_fma` only)
+# window_attention_slab_bwd (the fp32-FMA body, `_fma` only),
+# window_attention_slab_dbias_tc (K3 after the tensor-core passes, under
+# `dbias_split`; outside the backward counts above)
 LAUNCHES_BY_KERNEL: dict = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -79,6 +86,9 @@ _BWD_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 # the tensor-core entries: as the FMA ones, lse nullable in the forward
 _FWD_TC_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 _BWD_TC_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+# K3: qkv, logit_scale, bias, mask, lse, g, delta, dbias; B, Hp, Wp, C, nH,
+# ws, qkv_bf16, bias_bf16; stream
+_DBIAS_TC_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 # their occupancy queries: qkv_bf16, masked; the blocks an SM holds (the
 # forward's; the dq and dk/dv passes')
 _FWD_OCC_ARGTYPES = [_I, _I, _P]
@@ -131,6 +141,7 @@ _ARGTYPES = {"mmde_window_attention_slab_fwd": _FWD_ARGTYPES,
              "mmde_window_attention_slab_bwd": _BWD_ARGTYPES,
              "mmde_window_attention_slab_fwd_tc": _FWD_TC_ARGTYPES,
              "mmde_window_attention_slab_bwd_tc": _BWD_TC_ARGTYPES,
+             "mmde_window_attention_slab_dbias_tc": _DBIAS_TC_ARGTYPES,
              "mmde_window_attention_slab_fwd_tc_occupancy": _FWD_OCC_ARGTYPES,
              "mmde_window_attention_slab_bwd_tc_occupancy": _BWD_OCC_ARGTYPES}
 
@@ -138,11 +149,11 @@ _ARGTYPES = {"mmde_window_attention_slab_fwd": _FWD_ARGTYPES,
 def _entry(name: str) -> ctypes._CFuncPtr:
     """A slab entry point of the libraries the packed module builds (the
     same sources hold every layout's entry points), its signature set: the
-    tensor-core forward or backward library for the `_tc` entries, the
-    fp32-FMA ones otherwise."""
+    tensor-core forward or backward library (the backward's: K3 too) for
+    the `_tc` entries, the fp32-FMA ones otherwise."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     if name.endswith(("_tc", "_tc_occupancy")):
-        lib = wap._library_tc("bwd" in name)
+        lib = wap._library_tc("bwd" in name or "dbias" in name)
     else:
         lib = wap._library_bwd() if "bwd" in name else wap._library()
     fn = getattr(lib, name)
@@ -259,7 +270,8 @@ def _count(kernel: str, by_shape: dict, qkv_map, num_heads,
     B, Hp, Wp, C3 = qkv_map.shape
     ws = window_size
     key = (B * (Hp // ws) * (Wp // ws), ws * ws, C3 // 3, num_heads)
-    by_shape[key] = by_shape.get(key, 0) + 1
+    if by_shape is not None:
+        by_shape[key] = by_shape.get(key, 0) + 1
     LAUNCHES_BY_KERNEL[(kernel, key)] = LAUNCHES_BY_KERNEL.get(
         (kernel, key), 0) + 1
 
@@ -351,58 +363,61 @@ def _launch_forward(qkv_map, logit_scale, bias, mask, num_heads, window_size,
     return out, lse
 
 
-def check_deterministic(want_dbias: bool) -> None:
-    """The slab backward sums dbias by fp32 atomics only: no K3 over
-    `MapRows` exists yet. Under `torch.use_deterministic_algorithms(True)`
-    (read at each call) a backward that wants dbias raises, or, with
-    `warn_only=True`, warns and runs - PyTorch's own rule for an op
-    without a deterministic kernel."""
-    if not (want_dbias and torch.are_deterministic_algorithms_enabled()):
-        return
-    msg = ("the slab attention backward (window_attention_slab_bwd) sums "
-           "dbias by fp32 atomics and has no deterministic kernel: K3 over "
-           "MapRows is not written yet; use attn_impl='cuda' or turn off "
-           "torch.use_deterministic_algorithms")
-    if torch.is_deterministic_algorithms_warn_only_enabled():
-        warnings.warn(msg)
-        return
-    raise RuntimeError(msg)
+def dbias_split(_fma: bool = False) -> bool:
+    """Whether a slab backward sums dbias by K3's pass rather than by the
+    passes' atomics: under MMDE_ATTN_GRID=split (the packed module's
+    DEFAULT_GRID_MODE) and under `torch.use_deterministic_algorithms(True)`,
+    both read at each call - the head-split rule (`dbias_split` there; the
+    slab path has no K4 of its own). The FMA body (`_fma`, the same-card
+    comparison's partner) keeps its atomics."""
+    from mmde_tpu_torch.ops import window_attention_headsplit as ths
+    return ths.dbias_split() and not _fma
 
 
-def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
-                     window_size, want_dbias, _fma=False):
-    """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
-    or None). bf16 and fp32 maps run the tensor-core passes (the private
-    `_fma`: the FMA body); `lse` must be what the same body's forward
-    wrote: the other shape, or a statistic tagged with the other body,
-    raises before any launch; so does deterministic mode when dbias is
-    wanted (`check_deterministic`)."""
-    global LAUNCHES_BWD
-    check_deterministic(want_dbias)
-    from mmde_tpu_torch.ops.window_attention_packed import (
-        BWD_TILE, _body_name, _stream, stat_pair)
+def _launch_dbias(qkv_map, logit_scale, bias, mask, lse, g, delta,
+                  num_heads, window_size):
+    """Launch the tensor-core K3 over `MapRows` on the `delta` the
+    tensor-core dq pass wrote and its forward's statistic; returns dbias
+    (nH, N, N) fp32, every element written once, windows in one fixed order
+    (type-major where masked): the same bits on every run. No fallback: a
+    build or launch failure raises."""
+    from mmde_tpu_torch.ops.window_attention_packed import (_stream,
+                                                            check_statistic)
     B, Hp, Wp, C3 = qkv_map.shape
     ws, nH, N = window_size, num_heads, window_size * window_size
-    if g.dtype != qkv_map.dtype or tuple(g.shape) != (B, Hp, Wp, C3 // 3):
-        raise ValueError(f"g must be {(B, Hp, Wp, C3 // 3)} {qkv_map.dtype}, "
-                         f"got {tuple(g.shape)} {g.dtype}")
-    if qkv_map.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("qkv_map and g must be 16-byte aligned for the "
-                         "kernel's vector loads")
     B_ = B * (Hp // ws) * (Wp // ws)
-    tc = _tc(qkv_map, _fma)
-    want_lse = ((2,) if stat_pair(qkv_map.dtype, tc) else ()) + (B_, nH, N)
-    if tuple(lse.shape) != want_lse or lse.dtype != torch.float32:
-        raise ValueError(f"the {_body_name(tc)} backward reads a float32 "
-                         f"{want_lse} log-sum-exp, got {tuple(lse.shape)} "
-                         f"{lse.dtype}")
-    # fp32 logits on the tensor cores lie a few ulps from the FMA body's:
-    # p is rebuilt only from the statistic the same arithmetic wrote (a
-    # statistic made elsewhere carries no tag)
-    written_by = getattr(lse, "written_by", None)
-    if written_by not in (None, _body_name(tc)):
-        raise ValueError(f"the {_body_name(tc)} backward was handed the "
-                         f"log-sum-exp the {written_by} forward wrote")
+    check_statistic(lse, qkv_map.dtype, True, (B_, nH, N))
+    if tuple(delta.shape) != (B_, nH, N) or delta.dtype != torch.float32:
+        raise ValueError(f"delta must be float32 {(B_, nH, N)}, got "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    fn = _entry("mmde_window_attention_slab_dbias_tc")
+    dev = qkv_map.device
+    dbias = torch.empty((nH, N, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
+                 mask.data_ptr() if mask is not None else None,
+                 lse.data_ptr(), g.data_ptr(), delta.data_ptr(),
+                 dbias.data_ptr(), *_shape_args(qkv_map, bias, nH, ws),
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"window_attention_slab_dbias_tc launch failed with code {err} "
+            f"(map {tuple(qkv_map.shape)}, nH={nH}, ws={ws}, "
+            f"{qkv_map.dtype})")
+    _count("window_attention_slab_dbias_tc", None, qkv_map, nH, ws)
+    return dbias
+
+
+def _backward_passes(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
+                     window_size, atomics, tc):
+    """The two backward passes of body `tc` (the tensor cores, else the FMA
+    body); returns (dqkv map, dlogit_scale, dbias or None, delta). dbias by
+    the passes' fp32 atomics when `atomics`, none otherwise."""
+    global LAUNCHES_BWD
+    from mmde_tpu_torch.ops.window_attention_packed import BWD_TILE, _stream
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws, nH, N = window_size, num_heads, window_size * window_size
+    B_ = B * (Hp // ws) * (Wp // ws)
     name = "mmde_window_attention_slab_bwd" + ("_tc" if tc else "")
     fn = _entry(name)
     dev = qkv_map.device
@@ -414,14 +429,14 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
                            device=dev)
     # atomics add into dbias (the packed backward's default dbias mode)
     dbias = (torch.zeros((nH, N, N), dtype=torch.float32, device=dev)
-             if want_dbias else None)
+             if atomics else None)
     with torch.cuda.device(dev):
         err = fn(qkv_map.data_ptr(), logit_scale.data_ptr(), bias.data_ptr(),
                  mask.data_ptr() if mask is not None else None,
                  lse.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
                  delta.data_ptr(), dls_part.data_ptr(),
-                 dbias.data_ptr() if dbias is not None else None,
-                 *_shape_args(qkv_map, bias, nH, ws), int(want_dbias),
+                 dbias.data_ptr() if atomics else None,
+                 *_shape_args(qkv_map, bias, nH, ws), int(atomics),
                  _stream(dev))
     if err != 0:
         raise RuntimeError(
@@ -432,6 +447,38 @@ def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
     _count("window_attention_slab_bwd" + ("_tc" if tc else ""),
            LAUNCHES_BWD_BY_SHAPE, qkv_map, nH, ws)
     dls = dls_part.sum(dim=0).reshape(logit_scale.shape).float()
+    return dqkv, dls, dbias, delta
+
+
+def _launch_backward(qkv_map, logit_scale, bias, mask, lse, g, num_heads,
+                     window_size, want_dbias, _fma=False):
+    """Launch the backward kernels; returns (dqkv map, dlogit_scale, dbias
+    or None). bf16 and fp32 maps run the tensor-core passes (the private
+    `_fma`: the FMA body), dbias by their atomics, or under
+    MMDE_ATTN_GRID=split or in deterministic mode (`dbias_split`) by K3's
+    pass after them (`_launch_dbias`, on the delta they wrote); `lse` must
+    be what the same body's forward wrote (`check_statistic`): the other
+    shape, or a statistic tagged with the other body, raises before any
+    launch."""
+    from mmde_tpu_torch.ops.window_attention_packed import check_statistic
+    B, Hp, Wp, C3 = qkv_map.shape
+    ws, nH = window_size, num_heads
+    if g.dtype != qkv_map.dtype or tuple(g.shape) != (B, Hp, Wp, C3 // 3):
+        raise ValueError(f"g must be {(B, Hp, Wp, C3 // 3)} {qkv_map.dtype}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    if qkv_map.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("qkv_map and g must be 16-byte aligned for the "
+                         "kernel's vector loads")
+    B_ = B * (Hp // ws) * (Wp // ws)
+    tc = _tc(qkv_map, _fma)
+    check_statistic(lse, qkv_map.dtype, tc, (B_, nH, ws * ws))
+    split = want_dbias and dbias_split(_fma)
+    dqkv, dls, dbias, delta = _backward_passes(
+        qkv_map, logit_scale, bias, mask, lse, g, nH, ws,
+        atomics=want_dbias and not split, tc=tc)
+    if split:
+        dbias = _launch_dbias(qkv_map, logit_scale, bias, mask, lse, g,
+                              delta, nH, ws)
     return dqkv, dls, None if dbias is None else dbias.to(bias.dtype)
 
 

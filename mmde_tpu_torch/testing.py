@@ -67,6 +67,8 @@ def _leaf(path: Tuple[str, ...], shape: Tuple[int, ...],
         return normal(0.1)
     if name == "relative_position_bias_table":
         return normal(0.5)
+    if name == "absolute_pos_embed":
+        return normal(0.5)
     if name in ("gamma_1", "gamma_2"):          # layerscale
         return normal(0.1, 0.5)
     raise KeyError(f"randomize_tree: no rule for leaf {'/'.join(path)}")

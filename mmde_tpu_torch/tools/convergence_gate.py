@@ -5,18 +5,23 @@
         [--config YAML] [--epochs N] [--seed S] [--log-dir DIR] \\
         [--device cuda]
 
-Counterpart of the JAX package's tools/convergence_gate.py, its swin
-variant: runs the real training job (`train.loop.train`: loader threads,
+Counterpart of the JAX package's tools/convergence_gate.py, both
+variants: runs the real training job (`train.loop.train`: loader threads,
 the poly LR schedule over the epochs, checkpoints, best-RMSE selection,
-validation) on the learnable synthetic dataset of
-configs/convergence_gate_swin.yaml (swin_tiny_v2 + decoder_v2, 96x128),
+validation) on the learnable synthetic dataset of the variant's config,
 then re-evaluates the best checkpoint through the eval CLI
 (`python -m mmde_tpu_torch.tools.eval --flip-tta`, a process of its own)
 on the held-out samples and holds it to the thresholds pinned in the JAX
-tool: d1 >= 0.35 and rmse <= 2.0, the recorded from-scratch plateau of the
-swin path (divergence, NaNs or wrong kernel gradients fall through it).
-Prints one JSON line; exits 1 when a threshold is missed. The resnet
-variant ("cue-learning") needs the resnet encoder, ROADMAP M6.
+tool:
+  * swin (configs/convergence_gate_swin.yaml: swin_tiny_v2 + decoder_v2,
+    96x128, 24 epochs): d1 >= 0.35 and rmse <= 2.0, the recorded
+    from-scratch plateau of the swin path (divergence, NaNs or wrong
+    kernel gradients fall through it);
+  * resnet (configs/convergence_gate.yaml: resnet_only_multi_scale with a
+    resnet18 trunk + decoder_v2, 64x96, 48 epochs): d1 >= 0.85 and rmse
+    <= 0.75, "cue-learning" - the depth cue in the red channel learned end
+    to end.
+Prints one JSON line; exits 1 when a threshold is missed.
 """
 from __future__ import annotations
 
@@ -66,10 +71,6 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     variant = VARIANTS[args.variant]
-    if args.variant == "resnet":
-        raise NotImplementedError(
-            "the resnet gate needs the resnet encoder, not ported yet "
-            "(ROADMAP Queue A, M6)")
     thresholds = {"d1_min": variant["d1_min"],
                   "rmse_max": variant["rmse_max"]}
     config = args.config or os.path.join(ROOT, "configs", variant["config"])

@@ -11,7 +11,10 @@ the newest epoch), runs the evaluation split one sample a batch with
 optional flip and shift-window TTA (crops of CROP_HEIGHT pixels, half a
 crop apart), and prints the metric table and the mean losses.
 `--save-pngs` and `--save-viz` (depth PNGs, comparison panels) wait for
-the port of utils/viz (ROADMAP M9) and raise until then. The default
+the port of utils/viz (ROADMAP M9) and raise until then. The two-frame
+families over any encoder are evaluated (with sparse depth in the batches
+where the model fuses it, flip TTA mirroring it with the frames); the
+single-frame family has `train.single_frame.evaluate_single`. The default
 device is the CUDA card: without one the run raises.
 """
 from __future__ import annotations
@@ -44,11 +47,13 @@ def main(argv=None) -> dict:
     from mmde_tpu_torch.config import Config, load_yaml
     from mmde_tpu_torch.data.loader import DataLoader
     from mmde_tpu_torch.tools.infer import build
-    from mmde_tpu_torch.train.loop import build_datasets, validate
+    from mmde_tpu_torch.train.loop import (build_datasets, check_two_frame,
+                                           validate)
     from mmde_tpu_torch.train.step import TrainState, make_eval_metrics_step
     from mmde_tpu_torch.utils.logging import display_result
 
     cfg = load_yaml(args.config) if args.config else Config()
+    check_two_frame(cfg)
     model = build(cfg, device=args.device, seed=0)
     _, val_ds = build_datasets(cfg, args.synthetic)
     val_loader = DataLoader(val_ds, 1, shuffle=False, num_workers=2,

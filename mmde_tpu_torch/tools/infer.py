@@ -8,9 +8,11 @@
 `build` -> `load_weights` (or `ckpt.io.restore_eval` of a training run's
 checkpoints, the best-RMSE one first, as `--ckpt` does) -> `predict` is the
 serving path: `predict` takes numpy frames and returns numpy predictions,
-and is what a server or a smoke run calls. The CLI pairs each image with
-itself (as the JAX package's tools/infer.py does for the two-frame model)
-and writes 16-bit depth PNGs;
+and is what a server or a smoke run calls, for every model family (the
+single-frame GLPDepth takes one frame and returns `pred_d`; a model that
+fuses sparse depth takes the sparse maps). The CLI pairs each image with
+itself for the two-frame families (as the JAX package's tools/infer.py
+does), feeds it alone to GLPDepth, and writes 16-bit depth PNGs;
 it imports cv2 only inside main(). The first call on a CUDA device builds the
 attention kernels into mmde_tpu_torch/_build/. MMDE_ATTN_W=auto (or an int),
 read once at import as in the JAX package, serves the packed attention with
@@ -29,9 +31,11 @@ import torch
 
 from mmde_tpu_torch.ckpt import io
 from mmde_tpu_torch.config import Config, ModelConfig, load_yaml
+from mmde_tpu_torch.models.glpdepth import GLPDepth
 from mmde_tpu_torch.models.two_frame import build_model
+from mmde_tpu_torch.train.single_frame import make_single_forward
 from mmde_tpu_torch.train.step import make_forward
-from mmde_tpu_torch.train.tta import flip_average_two_frame
+from mmde_tpu_torch.train.tta import flip_average, flip_average_two_frame
 
 
 def build(cfg: Union[ModelConfig, Config, str, None] = None, *,
@@ -63,19 +67,36 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
     model.load_state_dict(obj, strict=True)
 
 
-def predict(model: torch.nn.Module, frame1: np.ndarray, frame2: np.ndarray,
-            *, flip_tta: bool = False) -> Dict[str, Optional[np.ndarray]]:
+def predict(model: torch.nn.Module, frame1: np.ndarray,
+            frame2: Optional[np.ndarray] = None, *,
+            sparse1: Optional[np.ndarray] = None,
+            sparse2: Optional[np.ndarray] = None,
+            flip_tta: bool = False) -> Dict[str, Optional[np.ndarray]]:
     """frames: (B, H, W, 3) uint8 (0..255) or float (0..1) numpy arrays.
-    Returns the model's outputs as float32 numpy arrays: pred_d1/pred_d2
-    (B, H, W, 1), pred_r12/pred_r21 (B, 9), pred_t12/pred_t21 (B, 3)
-    (r21/t21 None for decoder_v1). Runs on the device the model lives on;
-    uint8 frames are normalised there."""
+    Returns the model's outputs as float32 numpy arrays: for the two-frame
+    families pred_d1/pred_d2 (B, H, W, 1), pred_r12/pred_r21 (B, 9),
+    pred_t12/pred_t21 (B, 3) (r21/t21 None for decoder_v1;
+    glpdepth_scale16 adds out_p (B, 12)); for the single-frame GLPDepth
+    (frame1 alone) pred_d (B, H, W, 1). sparse1 / sparse2: (B, H, W) sparse
+    depth for a model built with sparse_depth_input (sparse2 defaults to
+    sparse1), mirrored with the frames under `flip_tta`. Runs on the device
+    the model lives on; uint8 frames are normalised there."""
     device = next(model.parameters()).device
-    f1 = torch.from_numpy(np.ascontiguousarray(frame1)).to(device)
-    f2 = torch.from_numpy(np.ascontiguousarray(frame2)).to(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if isinstance(model, GLPDepth):
+        forward = make_single_forward(model)
+        f = tensor(frame1)
+        d = flip_average(forward, f) if flip_tta else forward(f)
+        return {"pred_d": d.float().cpu().numpy()}
+    f1, f2 = tensor(frame1), tensor(frame2)
+    maps = {k: tensor(v) for k, v in (("sparse1", sparse1),
+                                      ("sparse2", sparse2)) if v is not None}
     forward = make_forward(model)
-    out = (flip_average_two_frame(forward, f1, f2) if flip_tta
-           else forward(f1, f2))
+    out = (flip_average_two_frame(forward, f1, f2, **maps) if flip_tta
+           else forward(f1, f2, **maps))
     return {k: None if v is None else v.float().cpu().numpy()
             for k, v in out.items()}
 
@@ -122,7 +143,10 @@ def main(argv=None) -> None:
         # the JAX package's ImageFolder: each side cut to a multiple of 32
         h, w = rgb.shape[:2]
         rgb = cv2.resize(rgb, (w // 32 * 32, h // 32 * 32))[None]
-        depth = predict(model, rgb, rgb, flip_tta=args.flip)["pred_d1"]
+        if isinstance(model, GLPDepth):
+            depth = predict(model, rgb, flip_tta=args.flip)["pred_d"]
+        else:
+            depth = predict(model, rgb, rgb, flip_tta=args.flip)["pred_d1"]
         stem = os.path.splitext(name)[0]
         cv2.imwrite(os.path.join(args.out, stem + ".png"),
                     np.clip(depth[0, ..., 0] * scale, 0, 65535

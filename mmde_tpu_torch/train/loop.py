@@ -6,8 +6,10 @@ train step per batch (forward, loss, backward, update), batches copied to
 the device ahead of the step (`data.loader.device_prefetch`), per-sample
 validation metrics, a checkpoint every `save_freq` epochs and the best
 validation RMSE kept apart (`ckpt.io`), scalars and logs.txt in the run's
-log directory. Data-parallel training (the JAX package's mesh) is ROADMAP
-M8; the dataset readers for VOID, NYU, KITTI and their mix are M5.
+log directory, for the two-frame families over any encoder (sparse depth
+in the batches where the model fuses it). Data-parallel training (the JAX
+package's mesh) is ROADMAP M8; the dataset readers for VOID, NYU, KITTI
+and their mix are M5.
 """
 from __future__ import annotations
 
@@ -39,33 +41,49 @@ def build_datasets(cfg: Config, synthetic: bool = False):
     (the convergence gate's data: depth cued in the red channel, 256 or
     more training samples from seed 1, a held-out draw of 8 from seed 7)
     or "synthetic" (or any dataset with `synthetic`: 64 or more samples,
-    8 held out)."""
+    8 held out). A model built for sparse depth input
+    (cfg.model.sparse_depth_input) gets the synthetic sets with their
+    VIO-style sparse depth maps (~5 % of the valid pixels), which the JAX
+    package's loop leaves out."""
     from mmde_tpu_torch.data.synthetic import SyntheticTwoFrameDataset
     d, u8 = cfg.data, cfg.data.ship_uint8
+    sp = cfg.model.sparse_depth_input
     if d.dataset == "synthetic_learnable":
         train = SyntheticTwoFrameDataset(
             num_samples=max(256, 8 * cfg.train.batch_size),
             height=d.crop_h, width=d.crop_w, max_depth=cfg.model.max_depth,
-            seed=1, depth_cue=True, uint8_images=u8)
+            seed=1, depth_cue=True, uint8_images=u8, sparse_depth=sp)
         val = SyntheticTwoFrameDataset(
             num_samples=8, height=d.crop_h, width=d.crop_w,
             max_depth=cfg.model.max_depth, seed=7, depth_cue=True,
-            uint8_images=u8)
+            uint8_images=u8, sparse_depth=sp)
         return train, val
     if synthetic or d.dataset == "synthetic":
         # a few print windows an epoch at the configured batch size
         train = SyntheticTwoFrameDataset(
             num_samples=max(64, 24 * cfg.train.batch_size), height=d.crop_h,
-            width=d.crop_w, max_depth=cfg.model.max_depth, uint8_images=u8)
+            width=d.crop_w, max_depth=cfg.model.max_depth, uint8_images=u8,
+            sparse_depth=sp)
         val = SyntheticTwoFrameDataset(
             num_samples=8, height=d.crop_h, width=d.crop_w,
-            max_depth=cfg.model.max_depth, seed=7, uint8_images=u8)
+            max_depth=cfg.model.max_depth, seed=7, uint8_images=u8,
+            sparse_depth=sp)
         return train, val
     if d.dataset in ("void", "nyudepthv2", "kitti", "mixed"):
         raise NotImplementedError(
             f"dataset '{d.dataset}' is not ported yet (ROADMAP Queue A, M5: "
             "the data path); use --synthetic")
     raise ValueError(f"unknown dataset '{d.dataset}'")
+
+
+def check_two_frame(cfg: Config) -> None:
+    """Raise for a model family the two-frame loop and eval cannot drive:
+    family "glpdepth" takes one frame (train.single_frame)."""
+    if cfg.model.family == "glpdepth":
+        raise ValueError(
+            "family 'glpdepth' is single-frame: train it with "
+            "train.single_frame.make_single_train_step and evaluate it with "
+            "evaluate_single; the loop and the eval CLI take two frames")
 
 
 def build_state(cfg: Config, steps_per_epoch: int,
@@ -152,7 +170,12 @@ def train(cfg: Config, *, synthetic: bool = False,
 
     prestage_batches > 0: copy that many batches to the device before the
     first epoch and cycle them (a measurement mode: the host producer
-    leaves the epoch; every epoch then trains on the same batches)."""
+    leaves the epoch; every epoch then trains on the same batches).
+
+    The loop drives the two-frame families (two_frame, glpdepth_scale16);
+    the single-frame GLPDepth trains through train.single_frame, as in the
+    JAX package, whose loop takes two frames too."""
+    check_two_frame(cfg)
     device = require_device(device, what="train")
     log_dir = log_dir or os.path.join(cfg.log_dir,
                                       time.strftime("%m%d_%H%M%S"))

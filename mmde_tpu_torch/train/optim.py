@@ -13,8 +13,10 @@ Counterpart of mmde_tpu/train/optim.py:
 
 Layer ids and the no-decay rule are computed on the port's parameter names
 (`encoder.layers.0.blocks.3.attn.qkv.weight`, `encoder.layers.1.downsample.
-reduction.weight`): the JAX tree's `rpe_fc1` / `rpe_fc2` are `rpe_mlp.0` /
-`rpe_mlp.2` here, so the no-decay names differ. The JAX package's
+reduction.weight`; under glpdepth_scale16 `net.encoder.layers.N`): the JAX
+tree's `rpe_fc1` / `rpe_fc2` are `rpe_mlp.0` / `rpe_mlp.2` here, so the
+no-decay names differ, and the cnn_transformer's packed `in_proj_bias` is
+decayed as the JAX tree's per-head (nH, Dh) q / k / v biases are. The JAX package's
 `blocks_scan` branch (one leaf covering all blocks of a scanned stage) has
 no counterpart: the port has no scanned layout.
 
@@ -35,6 +37,9 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple, Union
 import torch
 
 NO_DECAY_NAMES = ("relative_position_bias_table", "rpe_mlp", "logit_scale")
+# 1-D here but (nH, Dh) leaves in the JAX tree (flax's attention keeps the
+# q / k / v biases per head), where the rank rule decays them
+DECAY_1D_NAMES = ("in_proj_bias",)
 
 NamedParams = Union[torch.nn.Module, Iterable[Tuple[str, torch.Tensor]]]
 
@@ -101,10 +106,12 @@ def build_layer_scales(params: NamedParams, depths: Sequence[int],
 
 
 def weight_decay_mask(params: NamedParams) -> Dict[str, bool]:
-    """{parameter name: True where weight decay applies}: not for rank <= 1,
-    not for the RPE / logit-scale parameters."""
+    """{parameter name: True where weight decay applies}: not for rank <= 1
+    (but the attention projections' packed biases, DECAY_1D_NAMES, which
+    the JAX tree holds per head), not for the RPE / logit-scale
+    parameters."""
     def decay(name: str, p: torch.Tensor) -> bool:
-        if p.dim() <= 1:
+        if p.dim() <= 1 and not name.endswith(DECAY_1D_NAMES):
             return False
         return not any(nd in part for nd in NO_DECAY_NAMES
                        for part in name.split("."))

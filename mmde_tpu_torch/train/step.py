@@ -114,9 +114,10 @@ def make_eval_step(model: torch.nn.Module, *, decoder: str,
                    device: Union[str, torch.device] = "cuda"):
     """Eval forward + losses: step(state, batch) -> (preds, loss aux).
 
-    flip_tta: mirror the frames horizontally, run again, and average the
-    un-mirrored depth maps; pose predictions come from the plain pass
-    (mirroring changes the true pose). shift_window: slide (H x
+    flip_tta: mirror the frames (and the sparse depth maps, where the
+    batch has them) horizontally, run again, and average the un-mirrored
+    depth maps; pose predictions come from the plain pass (mirroring
+    changes the true pose). shift_window: slide (H x
     shift_window) crops across the width, `shift_stride` apart (None: half
     a crop), and recompose by coverage averaging (train/tta.py); a no-op
     when the frames are not wider than the crop. Composable with flip_tta
@@ -140,12 +141,10 @@ def make_eval_step(model: torch.nn.Module, *, decoder: str,
         with torch.inference_mode():
             f1, f2 = _image(batch["image1"]), _image(batch["image2"])
             if flip_tta:
-                if kwargs:
-                    raise NotImplementedError(
-                        "flip averaging with sparse-depth inputs is not "
-                        "ported yet (ROADMAP Queue A, M6)")
+                # sparse depth mirrored with the frames
                 out = flip_average_two_frame(
-                    lambda a, b: full_forward(a, b, {}), f1, f2)
+                    lambda a, b, **k: full_forward(a, b, k), f1, f2,
+                    **kwargs)
             else:
                 out = full_forward(f1, f2, kwargs)
             _, aux = total_loss(out, batch, decoder=decoder,
@@ -198,12 +197,13 @@ def make_forward(model):
     """Plain inference forward (for TTA / serving): eval mode, no gradient
     recorded, so the attention kernel writes its output alone.
 
-    forward(frame1, frame2) takes NHWC tensors on the model's device, uint8
-    or float, and returns the model's output dict."""
+    forward(frame1, frame2, **maps) takes NHWC tensors on the model's
+    device, uint8 or float (and, for a model that fuses sparse depth,
+    sparse1 / sparse2 maps), and returns the model's output dict."""
     model.eval()
 
-    def forward(frame1: torch.Tensor, frame2: torch.Tensor):
+    def forward(frame1: torch.Tensor, frame2: torch.Tensor, **maps):
         with torch.inference_mode():
-            return model(_image(frame1), _image(frame2))
+            return model(_image(frame1), _image(frame2), **maps)
 
     return forward

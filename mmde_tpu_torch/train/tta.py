@@ -31,12 +31,16 @@ def flip_average(forward: Callable[[torch.Tensor], torch.Tensor],
 
 
 def flip_average_two_frame(forward, frame1: torch.Tensor,
-                           frame2: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """forward(frame1, frame2) -> output dict. Depth maps are averaged with
-    the un-mirrored prediction of the mirrored frames; pose outputs come from
-    the plain pass."""
-    out = dict(forward(frame1, frame2))
-    fout = forward(torch.flip(frame1, dims=(2,)), torch.flip(frame2, dims=(2,)))
+                           frame2: torch.Tensor, **maps: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+    """forward(frame1, frame2, **maps) -> output dict. Depth maps are
+    averaged with the un-mirrored prediction of the mirrored frames; pose
+    outputs come from the plain pass. `maps` (sparse depth, (B, H, W[, 1]))
+    go to each pass as they are and mirrored on the width with the
+    frames."""
+    out = dict(forward(frame1, frame2, **maps))
+    fout = forward(torch.flip(frame1, dims=(2,)), torch.flip(frame2, dims=(2,)),
+                   **{k: torch.flip(v, dims=(2,)) for k, v in maps.items()})
     for k in ("pred_d1", "pred_d2"):
         out[k] = 0.5 * (out[k] + torch.flip(fout[k], dims=(2,)))
     return out

@@ -104,6 +104,15 @@ def test_source_scan_covers_the_loop_slice():
         assert f"mmde_tpu_torch.{mod}" in names, mod
 
 
+def test_source_scan_covers_the_models_slice():
+    """The walk above reaches the other encoders and model families and
+    the single-frame training path."""
+    names = set(_module_names())
+    for mod in ("nn.resnet", "nn.cnn_transformer", "models.glpdepth",
+                "train.single_frame"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
+
+
 def test_tool_entry_points_want_a_card():
     """The tools measure the card: without one their entry points raise
     (probe_layouts runs its plain versions only when asked with --device

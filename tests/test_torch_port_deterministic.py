@@ -3,11 +3,10 @@
 Under `torch.use_deterministic_algorithms(True)`, read at each call, the
 packed and head-split backward sum dbias by K3's windows-innermost pass
 (the same bits on every run) in place of the fp32 atomics, at any grid
-setting but K4's (itself deterministic); the slab backward, which has no
-K3 over `MapRows` yet, raises - or warns and runs under `warn_only`, as
-PyTorch's own ops without a deterministic kernel do. The routing is read
-on the CPU with the kernel launches replaced by recorders; the card run
-(chip_smoke.py, `deterministic`) checks the bits.
+setting but K4's (itself deterministic); the slab backward takes K3 over
+`MapRows` the same way. The routing is read on the CPU with the kernel
+launches replaced by recorders; the card run (chip_smoke.py,
+`deterministic`) checks the bits.
 """
 import warnings
 
@@ -113,21 +112,57 @@ def test_headsplit_backward_takes_k3_in_deterministic_mode(monkeypatch,
     assert float(out[4].sum()) == (3 * 16 * 16 if split else 0.0)
 
 
-def test_slab_backward_raises_or_warns_in_deterministic_mode(deterministic):
-    """No K3 over MapRows: strict mode raises naming it, warn_only warns
-    and goes on; without dbias wanted, or outside deterministic mode,
-    nothing is said."""
-    deterministic(True)
-    with pytest.raises(RuntimeError, match="MapRows"):
-        was.check_deterministic(True)
-    with pytest.raises(RuntimeError, match="MapRows"):
-        was._launch_backward(torch.zeros(1, 6, 6, 96), None, None, None,
-                             None, None, 1, 6, want_dbias=True)
-    was.check_deterministic(False)
-    deterministic(True, warn_only=True)
-    with pytest.warns(UserWarning, match="MapRows"):
-        was.check_deterministic(True)
+def _record_slab(monkeypatch):
+    seen = {}
+
+    def passes(qkv, ls, bias, mask, lse, g, nH, ws, atomics, tc):
+        seen["atomics"] = atomics
+        B, Hp, Wp, C3 = qkv.shape
+        N = ws * ws
+        dbias = torch.zeros(nH, N, N) if atomics else None
+        return (torch.zeros_like(qkv), torch.zeros(nH, 1, 1), dbias,
+                torch.zeros(B * (Hp // ws) * (Wp // ws), nH, N))
+
+    def dbias(qkv, ls, bias, mask, lse, g, delta, nH, ws):
+        seen["k3"] = True
+        return torch.ones(nH, ws * ws, ws * ws)
+
+    monkeypatch.setattr(was, "_backward_passes", passes)
+    monkeypatch.setattr(was, "_launch_dbias", dbias)
+    return seen
+
+
+def test_slab_backward_raises_or_warns_in_deterministic_mode(monkeypatch,
+                                                             deterministic):
+    """The slab backward has K3 over MapRows now: in deterministic mode,
+    strict or warn_only, it neither raises nor warns - its passes run
+    without atomics and K3 sums dbias after them; without dbias wanted, or
+    outside deterministic mode (grid mode not "split"), the atomics as
+    before."""
+    seen = _record_slab(monkeypatch)
+    nH, ws = 4, 6
+    qkv = torch.zeros(2, 12, 6, 3 * nH * 32)
+    g = torch.zeros(2, 12, 6, nH * 32)
+    lse = torch.zeros(2 * 2, nH, ws * ws)
+    bias = torch.zeros(nH, ws * ws, ws * ws)
+    ls = torch.zeros(nH, 1, 1)
+    for on, warn_only in ((True, False), (True, True)):
+        deterministic(on, warn_only)
+        seen.clear()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = was._launch_backward(qkv.bfloat16(), ls, bias, None, lse,
+                                       g.bfloat16(), nH, ws, want_dbias=True)
+        assert seen == {"atomics": False, "k3": True}
+        assert torch.equal(out[2], torch.ones(nH, ws * ws, ws * ws))
+        seen.clear()
+        was._launch_backward(qkv.bfloat16(), ls, bias, None, lse,
+                             g.bfloat16(), nH, ws, want_dbias=False)
+        assert seen == {"atomics": False}
     deterministic(False)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        was.check_deterministic(True)
+    seen.clear()
+    was._launch_backward(qkv.bfloat16(), ls, bias, None, lse, g.bfloat16(),
+                         nH, ws, want_dbias=True)
+    split = wap.DEFAULT_GRID_MODE == "split"
+    assert seen == ({"atomics": False, "k3": True} if split
+                    else {"atomics": True})

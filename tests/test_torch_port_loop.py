@@ -203,8 +203,16 @@ def test_what_is_not_ported_raises_and_says_where(tmp_path):
         tloop.build_state(c, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="M9"):
         teval.main(["--save-pngs", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M6"):
-        convergence_gate.main(["--variant", "resnet", "--device", "cpu"])
+    # the single-frame family trains through train.single_frame, not the
+    # two-frame loop (as in the JAX package)
+    c = tcfg.replace(cfg, model=tcfg.replace(cfg.model, family="glpdepth"))
+    with pytest.raises(ValueError, match="single_frame"):
+        tloop.train(c, synthetic=True, log_dir=str(tmp_path / "g"),
+                    device="cpu")
+    single = tmp_path / "single.yaml"
+    single.write_text(open(_yaml(tmp_path)).read() + 'FAMILY: "glpdepth"\n')
+    with pytest.raises(ValueError, match="single_frame"):
+        teval.main(["--config", str(single), "--device", "cpu"])
 
 
 def test_gate_holds_the_jax_tools_thresholds():
