@@ -8,6 +8,9 @@
                                           # deterministic)
     python3 chip_smoke.py --only models   # the other encoders and families
                                           # (and K3 over MapRows) only
+    python3 chip_smoke.py --only data     # the data path: codec, VOID /
+                                          # KITTI / NYU readers, training
+                                          # on a VOID tree, the infer CLI
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
                                             # of a request and a train step,
                                             # flagship (p.json), swin_large
@@ -327,6 +330,51 @@ What it does, each phase printing one JSON object on a line of its own:
                 depth): requests of one 480x640 frame (pred_d; K1 24 a
                 request) and a flip-averaged one, then two steps of
                 train.single_frame.make_single_train_step on 4 frames.
+  codec         the data path's host library (csrc/preprocess.cpp, built
+                with g++ in the background during env): the committed
+                JPEGs of tests/fixtures/jpeg against cv2's decodes saved
+                beside them, at the CPU tests' limits (<= 2 for 4:4:4 and
+                grey, <= 3 subsampled), and the two 480x640 frames; PNG
+                write then read, bitwise, grey / RGB / RGBA at 8 and 16 bits
+                under every row filter; the two frames' decodes against
+                cv2's at every 13th pixel (frames_cv2_stride13.npz);
+                VOID's undistortion maps at 640x480
+                against the closed form in float64 (1e-4 px) and inside the
+                source image (0.05 px); decode / encode ms of VOID-sized files, the
+                host's CPU count.
+  data_void     mmde_tpu_torch.testing.write_void_release at 640x480 (6
+                scenes x 48 frames, IMU at 200 Hz, the test scene's IMU in
+                raw.bag only) in a temporary data root; VoidV3 train (crop
+                480x480) and test samples: keys, shapes, dtypes, poses
+                against the generating poses, IMU counts against the
+                generating stamps; the reader's pairs/s through the
+                DataLoader (4-pair batches, start-up outside the window)
+                with 1 thread (10 batches) and with void.yaml's 8 workers
+                (the rest of an epoch, 208 pairs).
+  train_void    python -m mmde_tpu_torch.tools.train --config
+                configs/void.yaml (pointed at the tree; cnn model, 480x480
+                crop, batch 4, 8 workers), one epoch (53 steps),
+                validation on the test list, a checkpoint: step ms between
+                batches, the loop's wait for the loader and its share of
+                the steps after WARMUP_STEPS, the pairs/s the median step
+                needs; then
+                tools.eval of the checkpoint on the test list. No
+                window-attention launch.
+  train_void_flagship
+                flagship_synth.yaml's model (bf16, 480x640) with
+                DATASET_NAME void, 2 pairs, 3 steps through tools.train: its
+                launches the tensor-core K1+lse / K2 once a block a step.
+  data_mixed    a KITTI tree at 375x1242 through KITTIEigen (KB crop to
+                352x1216), an NYU tree of the committed 480x640 JPEGs
+                through NYUDepthV2Pairs, build_datasets of
+                configs/mixed_bf16_dp.yaml over NYU + KITTI + VOID: a batch
+                of each source at 480x640.
+  infer_cli     python -m mmde_tpu_torch.tools.infer (in this process,
+                flagship_synth.yaml's model, --weights of seed-7 drawn
+                weights) on a folder of a 487x651 PNG and a 480x640 JPEG
+                frame: each 16-bit depth PNG read back and held to
+                tools.infer.predict on the frame read another way, within
+                INFER_MM; K1 launched.
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
@@ -1005,6 +1053,8 @@ def phase_env() -> dict:
                  **trl.library_specs())
     _TOOL_BUILD.append(ThreadPoolExecutor(1).submit(
         cuda_build.load_libraries, tools))
+    # and the data path's host library (g++), also in the background
+    _HOST_BUILD.append(ThreadPoolExecutor(1).submit(_build_host_library))
     env = {"nvidia_smi": smi, "python": sys.version.split()[0],
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "nvcc": cuda_build.nvcc_version(),
@@ -5856,9 +5906,633 @@ def phase_loop_entries() -> dict:
     return rec
 
 
+# ------------------------------------------------------------------------
+# The data path (ROADMAP M5): VOID, KITTI and NYU trees written by
+# mmde_tpu_torch.testing into one temporary data root, read by the port's
+# readers (its own PNG / JPEG codec and undistortion, no cv2 and no PIL)
+# and trained on through tools.train.
+# ------------------------------------------------------------------------
+
+# a VOID release at VOID's size, IMU at 200 Hz, the test scene's IMU in
+# raw.bag only; 5 train scenes of 43 pairs: 53 steps of void.yaml's 4 pairs
+# in one epoch, long enough for the loader's steady state (train_void)
+DATA_VOID = dict(scenes=6, frames=48, height=480, width=640, imu_hz=200.0,
+                 bag_scenes=(5,), test_scenes=1)
+WARMUP_STEPS = 10       # train_void: steps left out of the steady state
+VOID_INTERVAL = 5                   # configs/void.yaml IMAGE_INTERVAL_RANGE
+JPEG_DIR = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+# the CPU tests' limits on the JPEG decode against cv2, by sampling mode
+JPEG_LIMITS = {"444": 2, "grey": 2, "420": 3, "422": 3, "440": 3}
+VOID_KEYS = {"filename", "foldername", "timestamp1", "timestamp2",
+             "image1_raw", "image2_raw", "depth1_raw", "depth2_raw",
+             "image1", "image2", "depth1", "depth2", "T12", "R12", "w12",
+             "AxisAngle12", "T21", "R21", "w21", "AxisAngle21",
+             "imu_timestamp", "imu_data", "imu_len"}
+_HOST_BUILD: list = []      # the host library's background build (env)
+
+
+def _build_host_library() -> float:
+    """Build (or load) csrc/preprocess.cpp's library; seconds taken."""
+    from mmde_tpu_torch.data import native
+    t = time.time()
+    native.load()
+    return time.time() - t
+
+
+def host_info() -> dict:
+    """The card's name and power limit beside the host's CPUs: every time
+    of the data phases depends on both."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return {"nvidia_smi": smi, "cpu_count": os.cpu_count(),
+            "cpus_usable": len(os.sched_getaffinity(0))}
+
+
+def _jpeg_frames() -> list:
+    """The committed 480 x 640 JPEG frames (4:2:0, quality 90)."""
+    return sorted(os.path.join(JPEG_DIR, f) for f in os.listdir(JPEG_DIR)
+                  if f.startswith("frame") and f.endswith(".jpg"))
+
+
+def _frame_err(path: str, got: np.ndarray):
+    """Max abs difference of a decode of a committed frame from cv2's
+    decode of it at every 13th row and column (frames_cv2_stride13.npz,
+    written beside the frames by make_jpeg_fixtures.py); None where the
+    shape is not the frame's."""
+    want = np.load(os.path.join(JPEG_DIR, "frames_cv2_stride13.npz"))[
+        os.path.basename(path).split("_")[0]]
+    if got.shape != (480, 640, 3):
+        return None
+    return int(np.abs(got[::13, ::13].astype(np.int64) - want).max())
+
+
+def _median_ms(fn, n: int = 5) -> float:
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_codec() -> dict:
+    """The port's codec and undistortion on the card's host: the committed
+    JPEGs (tests/fixtures/jpeg) against cv2's decodes saved beside them at
+    the CPU tests' limits; PNG write then read, bitwise, for grey, RGB and
+    RGBA at 8 and 16 bits under every row filter; the undistortion maps of
+    VOID's camera at 640 x 480 against the closed form evaluated here in
+    float64, and every output pixel inside the source image (alpha 0, to
+    0.05 px);
+    decode / encode ms of VOID-sized files."""
+    from mmde_tpu_torch import testing
+    from mmde_tpu_torch.data import codec, imgproc, native
+    build_s = _HOST_BUILD.pop().result() if _HOST_BUILD else None
+    lib = native.load()
+    jpeg = {}
+    for npy in sorted(os.listdir(JPEG_DIR)):
+        if not npy.endswith(".npy"):
+            continue
+        name = npy[:-4]
+        want = np.load(os.path.join(JPEG_DIR, npy))
+        path = os.path.join(JPEG_DIR, name + ".jpg")
+        if want.ndim == 2:
+            got, mode = native.jpeg_decode(np.fromfile(path, np.uint8)), \
+                "grey"
+        else:
+            got, mode = codec.imread_rgb(path), name.split("_")[0]
+        err = (int(np.abs(got.astype(np.int64) - want).max())
+               if got.shape == want.shape else None)
+        jpeg[name] = {"shape": list(got.shape), "max_abs_err": err,
+                      "limit": JPEG_LIMITS[mode]}
+    frames = _jpeg_frames()
+    big = [codec.imread_rgb(f) for f in frames]
+    frame_err = {os.path.basename(f): _frame_err(f, b)
+                 for f, b in zip(frames, big)}
+    rng = np.random.default_rng(0)
+    arrays = {"grey8": rng.integers(0, 256, (61, 83), np.uint8),
+              "rgb8": rng.integers(0, 256, (61, 83, 3), np.uint8),
+              "rgba8": rng.integers(0, 256, (61, 83, 4), np.uint8),
+              "grey16": rng.integers(0, 65536, (61, 83), np.uint16),
+              "rgb16": rng.integers(0, 65536, (61, 83, 3), np.uint16),
+              "rgba16": rng.integers(0, 65536, (61, 83, 4), np.uint16)}
+    png = {}
+    for name, a in arrays.items():
+        png[name] = all(
+            np.array_equal(codec.decode_png(codec.encode_png(a, filter_type=ft)
+                                            )["pixels"], a)
+            for ft in (None, 0, 1, 2, 3, 4))
+    cam = testing.VOID_CAMERA
+    K = testing.VOID_K
+    dist = np.array([cam["k_0"], cam["k_1"], cam["p_x"], cam["p_y"],
+                     cam["k_2"]])
+    new_K = imgproc.optimal_new_camera_matrix(K, dist, (640, 480))
+    mx, my = imgproc.undistort_rectify_maps(K, dist, new_K, (640, 480))
+    # the closed form again, written out here: pixel -> ray through new_K
+    # -> radtan -> pixel through K, float64
+    v, u = np.mgrid[0:480, 0:640].astype(np.float64)
+    x = (u - new_K[0, 2]) / new_K[0, 0]
+    y = (v - new_K[1, 2]) / new_K[1, 1]
+    r2 = x * x + y * y
+    radial = 1 + dist[0] * r2 + dist[1] * r2 ** 2 + dist[4] * r2 ** 3
+    xd = x * radial + 2 * dist[2] * x * y + dist[3] * (r2 + 2 * x * x)
+    yd = y * radial + dist[2] * (r2 + 2 * y * y) + 2 * dist[3] * x * y
+    map_err = max(float(np.abs(mx - (K[0, 0] * xd + K[0, 2])).max()),
+                  float(np.abs(my - (K[1, 1] * yd + K[1, 2])).max()))
+    # alpha 0: every output pixel inside the source, to within 0.05 px (the
+    # rectangle is cv2's, from a 9 x 9 grid of the border)
+    inside = bool(mx.min() > -0.05 and mx.max() < 639.05
+                  and my.min() > -0.05 and my.max() < 479.05)
+    frame = testing.smooth_image(rng, 480, 640)
+    depth = np.rint(testing.smooth_field(rng, 480, 640, 1, 0.3, 5.0) * 256
+                    ).astype(np.uint16)
+    rgb_png, depth_png = codec.encode_png(frame), codec.encode_png(depth)
+    jpg = open(frames[0], "rb").read()
+    rec = {"library": os.path.relpath(native.library_path(), ROOT),
+           "build_seconds": build_s, "jpeg": jpeg,
+           "jpeg_frames": {os.path.basename(f): list(b.shape)
+                           for f, b in zip(frames, big)},
+           "jpeg_frames_max_abs_err_stride13": frame_err,
+           "png_round_trip_bitwise": png,
+           "new_K": new_K.tolist(), "map_max_abs_err_px": map_err,
+           "map_tolerance_px": 1e-4, "maps_inside_source": inside,
+           "ms": {"jpeg_decode_480x640": _median_ms(
+                      lambda: codec.imdecode_rgb(jpg)),
+                  "png_decode_rgb_480x640": _median_ms(
+                      lambda: codec.decode_png(rgb_png)),
+                  "png_decode_depth16_480x640": _median_ms(
+                      lambda: codec.decode_png(depth_png)),
+                  "png_encode_rgb_480x640": _median_ms(
+                      lambda: codec.encode_png(frame)),
+                  "undistort_maps_480x640": _median_ms(
+                      lambda: imgproc.undistort_rectify_maps(
+                          K, dist, new_K, (640, 480)), 3),
+                  "remap_u8_480x640": _median_ms(
+                      lambda: imgproc.remap(frame, mx, my))},
+           "bytes": {"png_rgb_480x640": len(rgb_png),
+                     "png_depth16_480x640": len(depth_png),
+                     "jpeg_480x640": len(jpg)},
+           **host_info()}
+    rec["ok"] = bool(lib is not None and len(jpeg) >= 6
+                     and all(j["max_abs_err"] is not None
+                             and j["max_abs_err"] <= j["limit"]
+                             for j in jpeg.values())
+                     and all(b.shape == (480, 640, 3) for b in big)
+                     and len(big) == 2 and all(png.values())
+                     and all(e is not None and e <= JPEG_LIMITS["420"]
+                             for e in frame_err.values())
+                     and map_err <= 1e-4 and inside)
+    emit("codec", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"codec: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def _void_sample_check(s: dict, info: dict, train: bool) -> dict:
+    """A VoidV3 sample against the tree that wrote it: keys, shapes and
+    dtypes; R12 / T12 / R21 / T21 against the generating poses; the IMU
+    count against the generating stamps in [t1, t2]."""
+    from mmde_tpu_torch import geometry
+    scene = s["foldername"]
+    names = [f"{t:.4f}.png" for t in info["stamps"][scene]]
+    o1 = names.index(s["filename"])
+    o2 = o1 + VOID_INTERVAL
+    poses = info["poses"][scene]
+    _, T12, R12, _, _ = geometry.relative_pose_parts(poses[o1], poses[o2])
+    _, T21, R21, _, _ = geometry.relative_pose_parts(poses[o2], poses[o1])
+    pose_err = max(float(np.abs(s["R12"] - R12).max()),
+                   float(np.abs(s["T12"] - T12.reshape(3)).max()),
+                   float(np.abs(s["R21"] - R21).max()),
+                   float(np.abs(s["T21"] - T21.reshape(3)).max()))
+    imu_t = np.round(info["imu"][scene][0] * 1e9).astype(np.int64) * 1e-9
+    t1, t2 = float(s["timestamp1"]), float(s["timestamp2"])
+    want_n = int(((imu_t >= t1) & (imu_t <= t2)).sum())
+    h, w = (480, 480) if train else (480, 640)
+    shapes = {"image1": (h, w, 3), "depth1": (h, w),
+              "image1_raw": (480, 640, 3), "depth1_raw": (480, 640),
+              "R12": (3, 3), "T12": (3,), "imu_data": (256, 7)}
+    bad = [k for k, sh in shapes.items()
+           if s[k].shape != sh or s[k].dtype != np.float32]
+    return {"scene": scene, "order": o1, "keys_ok": set(s) == VOID_KEYS,
+            "bad_shapes_or_dtypes": bad, "pose_max_abs_err": pose_err,
+            "imu_len": int(s["imu_len"]), "imu_expected": min(want_n, 256),
+            "timestamps_float64": np.asarray(s["timestamp1"]).dtype
+            == np.float64,
+            "finite": bool(all(np.isfinite(s[k]).all() for k in shapes))}
+
+
+def phase_data_void(root: str) -> dict:
+    """write_void_release at 640 x 480 (DATA_VOID) into `root`; VoidV3's
+    train (crop 480 x 480, void.yaml's) and test samples checked against
+    the tree (_void_sample_check; the test scene's IMU comes from raw.bag,
+    converted on first use); the reader's pairs/s through the DataLoader,
+    batches of 4, with one thread (10 batches) and with void.yaml's 8
+    workers (the rest of an epoch: 52 batches, 208 pairs), start-up
+    outside the window (every scene's cache - maps, IMU - first, then the
+    loader's first batch)."""
+    from mmde_tpu_torch import testing
+    from mmde_tpu_torch.data.loader import DataLoader
+    from mmde_tpu_torch.data.void_v3 import VoidV3
+    t = time.time()
+    info = testing.write_void_release(root, **DATA_VOID)
+    write_s = time.time() - t
+    meta = info["meta"]
+    calib = os.path.join(meta, "calibration.json")
+
+    def void(split: str) -> VoidV3:
+        return VoidV3(root, os.path.join(meta, f"{split}_image.txt"), calib,
+                      is_train=split == "train", crop_size=(480, 480),
+                      image_interval_range=(VOID_INTERVAL, VOID_INTERVAL),
+                      imu_max_len=256)
+
+    train, test = void("train"), void("test")
+    checks = []
+    for ds, is_train in ((train, True), (test, False)):
+        for i in (0, len(ds) - 1):
+            checks.append(_void_sample_check(ds[i], info, is_train))
+    rates = {}
+    per_scene = DATA_VOID["frames"] - VOID_INTERVAL
+    for workers, batches in ((0, 10), (8, None)):
+        ds = void("train")
+        for i in range(0, len(ds), per_scene):
+            ds[i]                   # every scene's cache (maps, IMU) first
+        batches_left = iter(DataLoader(ds, 4, shuffle=True,
+                                       num_workers=workers, seed=0))
+        next(batches_left)          # the loader's start and first batch
+        t = time.perf_counter()
+        n = 0
+        for k, b in enumerate(batches_left):
+            n += len(b["filename"])
+            if batches is not None and k + 1 >= batches:
+                break
+        seconds = time.perf_counter() - t
+        batches_left.close()
+        rates[f"{max(workers, 1)}_thread" + ("s" if workers else "")] = {
+            "pairs": n, "seconds": seconds, "pairs_per_s": n / seconds}
+    rec = {"tree": {k: v for k, v in DATA_VOID.items()},
+           "write_seconds": write_s, "train_samples": len(train),
+           "test_samples": len(test), "samples": checks,
+           "loader": rates, **host_info()}
+    test_scenes = DATA_VOID["test_scenes"]
+    bag_scene = f"scene_{DATA_VOID['bag_scenes'][0]:02d}"
+    rec["ok"] = bool(
+        len(train) == (DATA_VOID["scenes"] - test_scenes) * per_scene
+        and len(test) == test_scenes * per_scene
+        and rates["8_threads"]["pairs"] == (len(train) // 4 - 1) * 4
+        and all(c["keys_ok"] and not c["bad_shapes_or_dtypes"]
+                and c["pose_max_abs_err"] <= 1e-6 and c["finite"]
+                and c["imu_len"] == c["imu_expected"] > 0
+                and c["timestamps_float64"] for c in checks)
+        and os.path.isfile(os.path.join(root, "void_raw", bag_scene,
+                                        "raw.csv")))
+    emit("data_void", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"data_void: {json.dumps(rec)[:3000]}")
+    rec["_info"] = info
+    return rec
+
+
+@contextlib.contextmanager
+def _loader_waits(out: list):
+    """Record, for every batch train.loop asks device_prefetch for, when it
+    asked and when it got it (out: [(t_asked, t_got)]; t_got None where the
+    epoch had ended)."""
+    from mmde_tpu_torch.train import loop
+    real = loop.device_prefetch
+
+    def timed(iterator, device="cuda", size=2):
+        gen = real(iterator, device, size)
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    b = next(gen)
+                except StopIteration:
+                    out.append((t, None))
+                    return
+                out.append((t, time.perf_counter()))
+                yield b
+        finally:
+            gen.close()
+
+    loop.device_prefetch = timed
+    try:
+        yield
+    finally:
+        loop.device_prefetch = real
+
+
+def _void_config(tmp: str, name: str, base: str, root: str, **extra) -> str:
+    """configs/<base> pointed at the VOID tree under `root` (its meta/),
+    written to `tmp`/<name>."""
+    import yaml
+    with open(os.path.join(ROOT, "configs", base)) as f:
+        y = yaml.safe_load(f)
+    y.update(DATASET_NAME="void", DATA_PATH=root, EPOCH=1, RESUME_FROM="",
+             PRINT_FREQUENCY=1, IMAGE_INTERVAL_RANGE=[VOID_INTERVAL] * 2,
+             **extra)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(y, f)
+    return path
+
+
+def _wait_share(waits: list, steps: int, warmup: int = 0) -> dict:
+    """The loop's wait for the loader over its `steps` steps, from what
+    _loader_waits recorded. The first wait is start-up (the workers' first
+    batch). The share of time spent waiting counts from getting batch
+    `warmup` (the first `warmup` steps left out: every scene's cache is
+    built on first use) to asking for the one after the last step; the
+    time between batches is a step (the loop prints every step, which
+    waits for the card)."""
+    if len(waits) <= steps or any(w[1] is None for w in waits[:steps]):
+        return {"batches_asked": len(waits)}
+
+    def share(first: int):
+        span = waits[steps][0] - waits[first][1]
+        waited = sum(b - a for a, b in waits[first + 1:steps])
+        return waited / span if span > 0 else None
+
+    between = [1e3 * (waits[i + 1][0] - waits[i][1]) for i in range(steps)]
+    return {"steps": steps, "warmup_steps": warmup,
+            "first_batch_s": waits[0][1] - waits[0][0],
+            "wait_ms": [1e3 * (b - a) for a, b in waits[1:steps]],
+            "step_ms_between_batches": between,
+            "step_ms_median": statistics.median(between[warmup:]),
+            "loader_wait_share_after_first": share(0),
+            "loader_wait_share": share(warmup)}
+
+
+def phase_train_void(root: str, tmp: str) -> dict:
+    """`python -m mmde_tpu_torch.tools.train --config` of configs/void.yaml
+    (cnn_transformer_multi_scale + decoder_v1, float32, 480x480 crop,
+    batch 4, 8 workers) on the VOID tree: one epoch (53 steps), validation
+    on the test list and a checkpoint; the loop's wait for the loader
+    timed around each batch (the loop prints every step, which syncs the
+    card), its share after WARMUP_STEPS steps and the pairs/s the median
+    step needs, the step's images/s from its log; then `tools.eval` of the
+    checkpoint on the test list. The cnn model launches no window-attention
+    kernel."""
+    from mmde_tpu_torch.tools import eval as eval_cli
+    from mmde_tpu_torch.tools import train as train_cli
+    path = _void_config(tmp, "void.yaml", "void.yaml", root,
+                        VALIDATION_FREQUENCY=1, SAVE_FREQUENCY=1,
+                        SAVE_MODEL=True, WORKERS=8)
+    log_dir = os.path.join(tmp, "void_run")
+    waits: list = []
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with _loader_waits(waits):
+        final = train_cli.main(["--config", path, "--log-dir", log_dir,
+                                "--device", "cuda"])
+    train_s = time.time() - t
+    launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    torch.cuda.empty_cache()
+    t = time.time()
+    ev = eval_cli.main(["--config", path, "--ckpt",
+                        os.path.join(log_dir, "ckpt"), "--device", "cuda"])
+    eval_s = time.time() - t
+    log = _loop_log(log_dir)
+    steps = (DATA_VOID["scenes"] - DATA_VOID["test_scenes"]) * (
+        DATA_VOID["frames"] - VOID_INTERVAL) // 4
+    rec = {"command": "python -m mmde_tpu_torch.tools.train --config "
+                      "<configs/void.yaml on the VOID tree>",
+           "model": "configs/void.yaml: cnn_transformer_multi_scale "
+                    "(resnet50) + decoder_v1, float32, crop 480x480",
+           "frame_pairs": 4, "steps": steps, "seconds": train_s,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "final_val": final, "launches": launches,
+           "loader": _wait_share(waits, steps, WARMUP_STEPS),
+           "images_per_s_logged": log["images_per_s_by_epoch"],
+           "pairs_per_s_needed": None,
+           "eval": {"seconds": eval_s, "restored": ev["restored"],
+                    "metrics": ev["metrics"]}, **host_info()}
+    if "step_ms_median" in rec["loader"]:
+        rec["pairs_per_s_needed"] = 4e3 / rec["loader"]["step_ms_median"]
+    rec["ok"] = bool(
+        not launches and final and ev["restored"] is not None
+        and rec["loader"].get("steps") == steps
+        and all(math.isfinite(v) for v in final.values())
+        and all(math.isfinite(v) for v in ev["metrics"].values())
+        and sorted(log["scalars"]["train/loss_total"]) == [1])
+    emit("train_void", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"train_void: {json.dumps(rec, default=str)[:3000]}")
+    return rec
+
+
+def phase_train_void_flagship(root: str, tmp: str, steps: int = 3) -> dict:
+    """configs/flagship_synth.yaml's model (swin_base_v2 + decoder_v2,
+    bfloat16, full depth) with DATASET_NAME void at 480 x 640, 2 pairs,
+    `steps` steps through tools.train (no validation); its launches are
+    the tensor-core K1+lse and K2, once a block a step."""
+    from mmde_tpu_torch.tools import train as train_cli
+    path = _void_config(tmp, "void_flagship.yaml", "flagship_synth.yaml",
+                        root, CROP_HEIGHT=480, CROP_WIDTH=640, WORKERS=8,
+                        VALIDATION_FREQUENCY=99, SAVE_MODEL=False)
+    waits: list = []
+    _reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with _loader_waits(waits):
+        train_cli.main(["--config", path, "--batch-size", str(LOOP_PAIRS),
+                        "--max-steps", str(steps), "--log-dir",
+                        os.path.join(tmp, "flagship_run"), "--device",
+                        "cuda"])
+    seconds = time.time() - t
+    fwd, bwd = _launches(), _launches(backward=True)
+    want = expected_launches("swin_base_v2", LOOP_PAIRS, steps)
+    kernels = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    log = _loop_log(os.path.join(tmp, "flagship_run"))
+    rec = {"command": "python -m mmde_tpu_torch.tools.train --config "
+                      "<flagship_synth.yaml, DATASET_NAME void> "
+                      f"--batch-size {LOOP_PAIRS} --max-steps {steps}",
+           "model": "swin_base_v2 + decoder_v2, bfloat16, 480x640, depths "
+                    "2/2/18/2", "frame_pairs": LOOP_PAIRS, "steps": steps,
+           "seconds": seconds,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": kernels, "launches_expected_per_layout": {
+               lay: sum(d.values()) for lay, d in want.items()},
+           "loader": _wait_share(waits, steps),
+           "images_per_s_logged": log["images_per_s_by_epoch"],
+           "losses": log["scalars"].get("train/loss_total"), **host_info()}
+    rec["ok"] = bool(fwd == want and bwd == want and kernels
+                     and set(kernels) == {"window_attention_fwd_tc+lse",
+                                          "window_attention_bwd_tc"}
+                     and all(math.isfinite(v) for v in
+                             log["scalars"]["train/loss_total"].values()))
+    emit("train_void_flagship", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"train_void_flagship: launches {fwd} / {bwd}, "
+                           f"expected {want}: {json.dumps(rec)[:2000]}")
+    return rec
+
+
+def phase_data_mixed(root: str) -> dict:
+    """A KITTI tree at 375 x 1242 through KITTIEigen (KB crop to 352 x
+    1216), an NYU tree of the committed 480 x 640 JPEGs through
+    NYUDepthV2Pairs, then build_datasets of configs/mixed_bf16_dp.yaml
+    over NYU + KITTI + VOID (the VOID tree already in `root`): every
+    source joins; one batch of 2 from each source, at the config's 480 x
+    640."""
+    from mmde_tpu_torch import testing
+    from mmde_tpu_torch.data.datasets import KITTIEigen, NYUDepthV2Pairs
+    from mmde_tpu_torch.data.loader import collate
+    from mmde_tpu_torch.train.loop import build_datasets
+    t = time.time()
+    testing.write_kitti_tree(root, n_train=2, n_test=1)
+    testing.write_nyu_tree(root, _jpeg_frames(), frames_per_scene=3,
+                           train_scenes=2)
+    write_s = time.time() - t
+    fn = os.path.join(root, "filenames")
+    kitti = KITTIEigen(root, fn, False, (352, 704))[0]
+    nyu = NYUDepthV2Pairs(root, fn, True, (480, 640))[0]
+    cfg = _yaml_config("mixed_bf16_dp.yaml")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, data_path=root))
+    train, val = build_datasets(cfg)
+    batches = {}
+    for src in train.sources:
+        b = collate([src[i] for i in range(2)])
+        batches[str(int(b["dataset_id"][0]))] = {
+            "kind": src.kind,
+            "shapes": {k: list(v.shape) for k, v in b.items()},
+            "finite": bool(all(np.isfinite(v).all() for v in b.values())),
+            "pose_valid": b["pose_valid"].tolist()}
+    hw = [cfg.data.crop_h, cfg.data.crop_w]
+    rec = {"write_seconds": write_s,
+           "kitti_eval_image": list(kitti["image"].shape),
+           "kitti_valid_depth_share": float((kitti["depth"] > 0).mean()),
+           "nyu_pair_image": list(nyu["image1"].shape),
+           "mixed_sources": len(train.sources), "mixed_val_sources":
+               len(val.sources), "epoch_size": len(train),
+           "batches": batches, **host_info()}
+    rec["ok"] = bool(
+        list(kitti["image"].shape) == [352, 1216, 3]
+        and list(nyu["image1"].shape) == [480, 640, 3]
+        and sorted(batches) == ["0", "1", "2"]
+        and all(b["finite"] and b["shapes"]["image1"] == [2] + hw + [3]
+                and b["shapes"]["depth1"] == [2] + hw
+                for b in batches.values()))
+    emit("data_mixed", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"data_mixed: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+INFER_MM = 2            # infer_cli: CLI PNG vs predict(), mm (16-bit counts)
+
+
+def phase_infer_cli(tmp: str) -> dict:
+    """`python -m mmde_tpu_torch.tools.infer --config
+    configs/flagship_synth.yaml --weights <state dict>` (in this process:
+    the flagship, bf16, with randomize_weights' seed-7 weights saved as a
+    state dict, under which depth depends on the frame) on a folder of a
+    487 x 651 PNG, which the CLI resizes to 480 x 640, and a committed 480 x
+    640 JPEG. Each 16-bit PNG it writes is held, within INFER_MM, to
+    `infer.predict` of the same weights in this process on the frame read
+    another way: the PNG's pixels as drawn here (the PNG round trip is
+    bitwise in `codec`), resized by imgproc.resize_linear; the JPEG's
+    decode, held first to cv2's at every 13th pixel
+    (frames_cv2_stride13.npz). The two depth maps must each vary and differ
+    from each other by far more than INFER_MM, so that a wrong decode or
+    resize fails; K1 launched. cv2 is never imported (where it is
+    installed on this machine its path is recorded)."""
+    from mmde_tpu_torch import testing
+    from mmde_tpu_torch.data import codec
+    from mmde_tpu_torch.data.imgproc import resize_linear
+    from mmde_tpu_torch.tools import infer
+    images, out = os.path.join(tmp, "frames"), os.path.join(tmp, "depth")
+    os.makedirs(images)
+    cfg = os.path.join(ROOT, "configs", "flagship_synth.yaml")
+    model = infer.build(cfg, device="cuda", seed=0)
+    randomize_weights(model, seed=7)
+    weights = os.path.join(tmp, "flagship_seed7.pth")
+    torch.save(model.state_dict(), weights)
+    png = testing.smooth_image(np.random.default_rng(5), 487, 651)
+    codec.write_png(os.path.join(images, "a.png"), png)
+    jpeg = _jpeg_frames()[0]
+    shutil.copyfile(jpeg, os.path.join(images, "b.jpg"))
+    jpeg_rgb = codec.imread_rgb(jpeg)
+    jpeg_err = _frame_err(jpeg, jpeg_rgb)
+    _reset_launch_counts()
+    t = time.time()
+    infer.main(["--images", images, "--out", out, "--config", cfg,
+                "--weights", weights, "--device", "cuda"])
+    seconds = time.time() - t
+    launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    frames = {"a.png": resize_linear(png, 640, 480), "b.png": jpeg_rgb}
+    written, maps = {}, {}
+    for name in sorted(os.listdir(out)):
+        d = codec.imread_unchanged(os.path.join(out, name))
+        written[name] = {"shape": list(d.shape), "dtype": str(d.dtype),
+                         "min": int(d.min()), "max": int(d.max()),
+                         "std_mm": float(d.std())}
+        if name in frames and d.shape == (480, 640):
+            x = frames[name][None]
+            want = np.clip(infer.predict(model, x, x)["pred_d1"][0, ..., 0]
+                           * 1000.0, 0, 65535).astype(np.uint16)
+            written[name]["max_abs_mm_vs_predict"] = int(
+                np.abs(d.astype(np.int64) - want).max())
+            maps[name] = d.astype(np.int64)
+    between = (int(np.abs(maps["a.png"] - maps["b.png"]).max())
+               if len(maps) == 2 else None)
+    import importlib.util
+    spec = importlib.util.find_spec("cv2")       # found, never imported
+    rec = {"command": "python -m mmde_tpu_torch.tools.infer --images "
+                      "<a.png 487x651, b.jpg 480x640> --out <dir> --config "
+                      "configs/flagship_synth.yaml --weights <seed 7> "
+                      "--device cuda",
+           "seconds": seconds, "written": written, "tolerance_mm": INFER_MM,
+           "jpeg_max_abs_err_stride13": jpeg_err,
+           "max_abs_mm_between_frames": between, "launches": launches,
+           "cv2_on_this_machine": spec.origin if spec else None,
+           **host_info()}
+    rec["ok"] = bool(sorted(written) == ["a.png", "b.png"] and len(maps) == 2
+                     and jpeg_err is not None
+                     and jpeg_err <= JPEG_LIMITS["420"]
+                     and all(w["dtype"] == "uint16" and w["std_mm"] > 100
+                             and w.get("max_abs_mm_vs_predict",
+                                       INFER_MM + 1) <= INFER_MM
+                             for w in written.values())
+                     and between > 100 * INFER_MM
+                     and launches.get("window_attention_fwd_tc", 0) > 0)
+    del model
+    torch.cuda.empty_cache()
+    emit("infer_cli", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"infer_cli: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def phase_data() -> dict:
+    """codec, data_void, train_void, train_void_flagship, data_mixed and
+    infer_cli in one temporary directory (the data root and the runs),
+    removed at the end."""
+    phase_codec()
+    tmp = tempfile.mkdtemp(prefix="mmde_smoke_data_")
+    try:
+        root = os.path.join(tmp, "data")
+        os.makedirs(root)
+        phase_data_void(root)
+        phase_train_void(root, tmp)
+        torch.cuda.empty_cache()
+        phase_train_void_flagship(root, tmp)
+        torch.cuda.empty_cache()
+        phase_data_mixed(root)
+        phase_infer_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "loop", "models"],
+    ap.add_argument("--only", choices=["kernels", "loop", "models", "data"],
                     default=None,
                     help="kernels: build the kernels, compare them with "
                          "their plain versions (no timing); loop: the "
@@ -5867,8 +6541,10 @@ def main() -> int:
                          "kernels (K3 over MapRows among them), the other "
                          "encoders and families (kernel_cases_models, "
                          "serve_cnn, train_cnn, train_completion, "
-                         "serve_glpdepth) and deterministic; then stop "
-                         "(prints no final ok line)")
+                         "serve_glpdepth) and deterministic; data: the "
+                         "data path (codec, data_void, train_void, "
+                         "train_void_flagship, data_mixed, infer_cli); "
+                         "then stop (prints no final ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
                          "step with torch.profiler, of the flagship, of "
@@ -5894,6 +6570,10 @@ def main() -> int:
     if args.child:
         return child_main(args)
     phase_env()
+    if args.only == "data":
+        phase_data()
+        emit("phase_seconds", PHASE_SECONDS)
+        return 0
     if args.only == "loop":
         phase_loop_entries()
         emit("phase_seconds", PHASE_SECONDS)
@@ -5958,6 +6638,7 @@ def main() -> int:
     train_split = phase_train_split()
     loop_rec = phase_loop_entries()
     completion, glpdepth = phase_models()
+    phase_data()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)

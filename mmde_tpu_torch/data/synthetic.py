@@ -6,8 +6,9 @@ the pixels invalid, and consistent relative poses (T21 = inv(T12)), in the
 batch layout the train step consumes; sample i is drawn from
 `np.random.default_rng(seed * 100003 + i)` in the same order, so both
 packages give the same arrays. The `depth_cue` variant's bilinear upsample
-is `resize_bilinear` here (numpy, cv2's INTER_LINEAR convention) where the
-JAX package calls cv2, which the card machine does not have.
+is `imgproc.resize_bilinear` here (numpy, cv2's INTER_LINEAR convention;
+still importable from this module) where the JAX package calls cv2, which
+the card machine does not have.
 """
 from __future__ import annotations
 
@@ -15,34 +16,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from mmde_tpu_torch.data.imgproc import resize_bilinear
 from mmde_tpu_torch.geometry import exp_so3
-
-
-def _linear_taps(n_out: int, n_in: int):
-    """Source indices and weights of cv2's INTER_LINEAR along one axis:
-    half-pixel centres, f = (x + 0.5) * n_in / n_out - 0.5 in float64, the
-    weight its fractional part in float32, clamped to the border (weight 0
-    past either edge)."""
-    f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-    i0 = np.floor(f).astype(np.int64)
-    w = (f - i0).astype(np.float32)
-    w[i0 < 0] = 0.0
-    i0[i0 < 0] = 0
-    edge = i0 >= n_in - 1
-    w[edge] = 0.0
-    i0[edge] = n_in - 1
-    return i0, np.minimum(i0 + 1, n_in - 1), w
-
-
-def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """`cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)`
-    of a 2-D float32 array: the horizontal pass, then the vertical one, in
-    float32."""
-    x0, x1, wx = _linear_taps(width, img.shape[1])
-    y0, y1, wy = _linear_taps(height, img.shape[0])
-    rows = img[:, x0] * (1.0 - wx) + img[:, x1] * wx
-    out = rows[y0] * (1.0 - wy)[:, None] + rows[y1] * wy[:, None]
-    return out.astype(np.float32)
 
 
 class SyntheticTwoFrameDataset:

@@ -1,5 +1,9 @@
 """Helpers for parity tests and smoke runs.
 
+`write_void_release`, `write_kitti_tree` and `write_nyu_tree` write small
+dataset trees in the releases' layouts with the port's own PNG writer (they
+run where cv2 and PIL do not, on the card machine too).
+
 `randomize_tree` fills a nested dict shaped like a flax `params` /
 `batch_stats` tree from a numpy generator at scales that keep activations
 O(1) through the network. Only each leaf's `.shape` is read, so the tree may
@@ -353,3 +357,286 @@ def _packed_grads(qkv, g, nH, fn) -> list:
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
         B, N, 3 * nH * 32)
     return [dqkv, dls, dbias]
+
+
+# --------------------------------------------------------------------------
+# Dataset trees in the releases' layouts, written with the port's own PNG
+# writer (no cv2 or PIL), so they are made on the card machine too. Images
+# are smooth random fields plus noise, depth a smooth positive field; every
+# row Paeth-filtered (the writer's adaptive choice costs 4x the time).
+# --------------------------------------------------------------------------
+
+
+class _PngWriter:
+    """PNG writes on a thread pool (zlib releases the interpreter lock);
+    the arrays are drawn in order by the caller, so a tree is the same
+    whatever the scheduling. Leaving the `with` block waits for every write
+    and raises the first failure."""
+
+    def __enter__(self):
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+        self.pool = ThreadPoolExecutor(max(os.cpu_count() or 1, 1))
+        self.futures = []
+        return self
+
+    def __call__(self, path: str, img: np.ndarray) -> None:
+        from mmde_tpu_torch.data.codec import write_png
+        self.futures.append(self.pool.submit(write_png, path, img,
+                                             filter_type=4))
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True)
+        for f in self.futures:
+            f.result()
+        return False
+
+# VOID-sized camera (D435i at 640 x 480; write_void_release scales the
+# focal lengths and centre to the tree's size) and radtan coefficients
+VOID_K = np.array([[514.638, 0.0, 315.267], [0.0, 518.858, 247.358],
+                   [0.0, 0.0, 1.0]])
+VOID_CAMERA = {"f_x": 514.638, "f_y": 518.858, "c_x": 315.267,
+               "c_y": 247.358, "k_0": 0.0205, "k_1": -0.0473,
+               "k_2": 0.0089, "p_x": 0.00062, "p_y": -0.00041}
+
+
+def smooth_field(rng: np.random.Generator, h: int, w: int, channels: int,
+                 lo: float, hi: float, cell: int = 16) -> np.ndarray:
+    """float32 (h, w[, channels]) in [lo, hi]: a coarse random grid
+    upsampled bilinearly."""
+    from mmde_tpu_torch.data.imgproc import resize_bilinear
+    shape = (h // cell + 2, w // cell + 2) + ((channels,) if channels > 1
+                                              else ())
+    coarse = rng.uniform(lo, hi, shape).astype(np.float32)
+    return resize_bilinear(coarse, w, h)
+
+
+def smooth_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """uint8 RGB (h, w, 3): a smooth field plus noise of std 6."""
+    img = smooth_field(rng, h, w, 3, 20.0, 235.0)
+    img += rng.normal(0.0, 6.0, img.shape).astype(np.float32)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def _bag_record(header: dict, data: bytes) -> bytes:
+    import struct
+    hb = b""
+    for k, v in header.items():
+        f = k.encode() + b"=" + v
+        hb += struct.pack("<I", len(f)) + f
+    return (struct.pack("<I", len(hb)) + hb + struct.pack("<I", len(data))
+            + data)
+
+
+def write_imu_bag(path: str, stamps: np.ndarray, acc: np.ndarray,
+                  gyro: np.ndarray, compression: str = "bz2") -> None:
+    """A rosbag 2.0 file with one /camera/imu connection and one
+    sensor_msgs/Imu message per stamp (seconds), in one chunk."""
+    import bz2
+    import struct
+    conn = _bag_record({"op": b"\x07", "topic": b"/camera/imu",
+                        "conn": struct.pack("<I", 0)}, b"")
+    msgs = [conn]
+    for k, ts in enumerate(stamps):
+        ns = int(round(float(ts) * 1e9))
+        body = struct.pack("<III", k, ns // 10**9, ns % 10**9)
+        body += struct.pack("<I", 10) + b"camera_imu"
+        body += struct.pack("<4d", 0.0, 0.0, 0.0, 1.0)
+        body += struct.pack("<9d", *([0.0] * 9))
+        body += struct.pack("<3d", *map(float, gyro[k]))
+        body += struct.pack("<9d", *([0.0] * 9))
+        body += struct.pack("<3d", *map(float, acc[k]))
+        body += struct.pack("<9d", *([0.0] * 9))
+        msgs.append(_bag_record({"op": b"\x02",
+                                 "conn": struct.pack("<I", 0),
+                                 "time": struct.pack("<Q", ns)}, body))
+    payload = b"".join(msgs)
+    if compression == "bz2":
+        payload = bz2.compress(payload)
+    chunk = _bag_record({"op": b"\x05",
+                         "compression": compression.encode()}, payload)
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n" + chunk)
+
+
+def write_imu_csv(path: str, stamps: np.ndarray, acc: np.ndarray,
+                  gyro: np.ndarray) -> None:
+    """The rostopic-echo CSV of the same messages (data.rosbag's layout)."""
+    from mmde_tpu_torch.data.rosbag import HEADER_COLS
+    lines = [HEADER_COLS]
+    for k, ts in enumerate(stamps):
+        ns = int(round(float(ts) * 1e9))
+        lines.append(f"{ns},{k},{ns},camera_imu,0.0,0.0,0.0,1.0,"
+                     f"{gyro[k][0]},{gyro[k][1]},{gyro[k][2]},"
+                     f"{acc[k][0]},{acc[k][1]},{acc[k][2]}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_void_release(root: str, scenes: int = 2, frames: int = 24,
+                       height: int = 480, width: int = 640,
+                       imu_hz: float = 200.0,
+                       bag_scenes: Tuple[int, ...] = (1,),
+                       test_scenes: int = 1, seed: int = 0) -> dict:
+    """A VOID release tree under `root`:
+
+        void_release/void_1500/data/<scene>/{image, ground_truth,
+            sparse_depth, validity_map}/<stamp>.png, absolute_pose/
+            <stamp>.txt (3 x 4), K.txt
+        void_raw/<scene>/raw.csv, or raw.bag (bz2 chunk) for `bag_scenes`
+        meta/{train,test}_image.txt (the last `test_scenes` scenes test),
+            meta/calibration.json (VOID_CAMERA, IMU biases, extrinsics)
+
+    Frames at 15 Hz; depth in VOID's PNG convention (metres x 256, 0.3 to
+    5 m, ~2 % of the pixels 0), sparse depth at ~1.5 % of the pixels; a
+    smooth camera trajectory; IMU at `imu_hz` over the whole scene. Returns
+    {"root", "meta", "scenes", "poses" {scene: [4x4]}, "stamps" {scene:
+    [s]}, "imu" {scene: (stamps, acc, gyro)}}."""
+    import json
+    import os
+    from mmde_tpu_torch.geometry import exp_so3
+    rng = np.random.default_rng(seed)
+    release = os.path.join(root, "void_release", "void_1500", "data")
+    meta = os.path.join(root, "meta")
+    os.makedirs(meta, exist_ok=True)
+    names = [f"scene_{i:02d}" for i in range(scenes)]
+    out = {"root": root, "meta": meta, "scenes": names, "poses": {},
+           "stamps": {}, "imu": {}}
+    lists = {"train": [], "test": []}
+    t0 = 1552097915.0
+    with _PngWriter() as png:
+        for si, scene in enumerate(names):
+            base = os.path.join(release, scene)
+            for sub in ("image", "ground_truth", "sparse_depth",
+                        "validity_map", "absolute_pose"):
+                os.makedirs(os.path.join(base, sub), exist_ok=True)
+            K = VOID_K.copy()
+            K[0] *= width / 640.0
+            K[1] *= height / 480.0
+            np.savetxt(os.path.join(base, "K.txt"), K)
+            start = t0 + 100.0 * si
+            stamps = [start + i / 15.0 for i in range(frames)]
+            poses = []
+            for i, ts in enumerate(stamps):
+                name = f"{ts:.4f}"
+                png(os.path.join(base, "image", name + ".png"),
+                    smooth_image(rng, height, width))
+                depth = smooth_field(rng, height, width, 1, 0.3, 5.0)
+                depth[rng.random((height, width)) < 0.02] = 0.0
+                gt = np.rint(depth * 256.0).astype(np.uint16)
+                png(os.path.join(base, "ground_truth", name + ".png"), gt)
+                keep = rng.random((height, width)) < 0.015
+                png(os.path.join(base, "sparse_depth", name + ".png"),
+                    np.where(keep, gt, 0).astype(np.uint16))
+                png(os.path.join(base, "validity_map", name + ".png"),
+                    keep.astype(np.uint8))
+                w = (np.array([0.02, -0.01, 0.015]) * i
+                     + rng.normal(0, 0.002, 3))
+                t = (np.array([0.03, 0.005, 0.02]) * i
+                     + rng.normal(0, 0.002, 3))
+                pose = np.eye(4)
+                pose[:3, :3] = exp_so3(w)
+                pose[:3, 3] = t
+                poses.append(pose)
+                np.savetxt(os.path.join(base, "absolute_pose", name + ".txt"),
+                           pose[:3])
+                split = "test" if si >= scenes - test_scenes else "train"
+                lists[split].append(
+                    f"void_release/void_1500/data/{scene}/image/{name}.png")
+            raw = os.path.join(root, "void_raw", scene)
+            os.makedirs(raw, exist_ok=True)
+            n_imu = int((stamps[-1] - stamps[0] + 0.2) * imu_hz)
+            imu_t = stamps[0] - 0.1 + np.arange(n_imu) / imu_hz
+            acc = rng.normal(0.0, 0.3, (n_imu, 3)) + np.array([0.0, 0.0, 9.81])
+            gyro = rng.normal(0.0, 0.05, (n_imu, 3))
+            if si in bag_scenes:
+                write_imu_bag(os.path.join(raw, "raw.bag"), imu_t, acc, gyro)
+            else:
+                write_imu_csv(os.path.join(raw, "raw.csv"), imu_t, acc, gyro)
+            out["poses"][scene] = poses
+            out["stamps"][scene] = stamps
+            out["imu"][scene] = (imu_t, acc, gyro)
+    for split, lines in lists.items():
+        with open(os.path.join(meta, f"{split}_image.txt"), "w") as f:
+            f.write("\n".join(lines))
+    calib = {"alignment": {"t_camera_to_body": [0.0106, 0.0, 0.0],
+                           "w_camera_to_body": [0.0021, -0.0034, 0.0012]},
+             "imu": {"b_a": [0.05, -0.12, 0.08],
+                     "b_g": [0.0011, -0.0007, 0.0004]},
+             "camera": VOID_CAMERA}
+    with open(os.path.join(meta, "calibration.json"), "w") as f:
+        json.dump(calib, f)
+    return out
+
+
+def write_kitti_tree(root: str, n_train: int = 3, n_test: int = 2,
+                     height: int = 375, width: int = 1242,
+                     seed: int = 0) -> dict:
+    """A KITTI Eigen-benchmark tree under `root`: kitti/<date>/<drive>/
+    image_02/data/<frame>.png (RGB) and kitti/<drive>/proj_depth/
+    groundtruth/image_02/<frame>.png (uint16, metres x 256, ~5 % of the
+    pixels valid, as the projected LiDAR is), listed in
+    filenames/eigen_benchmark/{train,test}_list.txt."""
+    import os
+    rng = np.random.default_rng(seed)
+    date, drive = "2011_09_26", "2011_09_26_drive_0001_sync"
+    lists = {}
+    with _PngWriter() as png:
+        for split, n in (("train", n_train), ("test", n_test)):
+            lines = []
+            for i in range(n):
+                frame = f"{i + (0 if split == 'train' else 100):010d}.png"
+                img_rel = f"/{date}/{drive}/image_02/data/{frame}"
+                gt_rel = f"/{drive}/proj_depth/groundtruth/image_02/{frame}"
+                for rel in (img_rel, gt_rel):
+                    os.makedirs(os.path.dirname(os.path.join(root, "kitti")
+                                                + rel), exist_ok=True)
+                png(os.path.join(root, "kitti") + img_rel,
+                    smooth_image(rng, height, width))
+                depth = smooth_field(rng, height, width, 1, 2.0, 80.0)
+                valid = rng.random((height, width)) < 0.05
+                png(os.path.join(root, "kitti") + gt_rel,
+                    np.where(valid, np.rint(depth * 256.0), 0
+                             ).astype(np.uint16))
+                lines.append(f"{img_rel} {gt_rel}")
+            lists[split] = lines
+    lst = os.path.join(root, "filenames", "eigen_benchmark")
+    os.makedirs(lst, exist_ok=True)
+    for split, lines in lists.items():
+        with open(os.path.join(lst, f"{split}_list.txt"), "w") as f:
+            f.write("\n".join(lines))
+    return {"root": root, "lists": lists}
+
+
+def write_nyu_tree(root: str, jpegs, frames_per_scene: int = 3,
+                   train_scenes: int = 2, seed: int = 0) -> dict:
+    """An NYU-Depth-V2 tree under `root`: nyu_depth_v2/<scene>/
+    rgb_<i>.jpg (copies of the JPEG files `jpegs`, in turn) and
+    sync_depth_<i>.png (uint16 millimetres, 480 x 640), listed in
+    filenames/nyudepthv2/train_list.txt; `train_scenes` scenes of the
+    training split and one of the held-out test scenes ("bathroom_0019")."""
+    import os
+    import shutil
+    rng = np.random.default_rng(seed)
+    scenes = [f"kitchen_{i + 1:04d}" for i in range(train_scenes)] + \
+        ["bathroom_0019"]
+    lines, k = [], 0
+    with _PngWriter() as png:
+        for scene in scenes:
+            d = os.path.join(root, "nyu_depth_v2", scene)
+            os.makedirs(d, exist_ok=True)
+            for i in range(frames_per_scene):
+                shutil.copyfile(jpegs[k % len(jpegs)],
+                                os.path.join(d, f"rgb_{i:05d}.jpg"))
+                k += 1
+                depth = smooth_field(rng, 480, 640, 1, 0.5, 9.5)
+                depth[rng.random((480, 640)) < 0.03] = 0.0
+                png(os.path.join(d, f"sync_depth_{i:05d}.png"),
+                    np.rint(depth * 1000.0).astype(np.uint16))
+                lines.append(f"/{scene}/rgb_{i:05d}.jpg "
+                             f"/{scene}/sync_depth_{i:05d}.png")
+    lst = os.path.join(root, "filenames", "nyudepthv2")
+    os.makedirs(lst, exist_ok=True)
+    with open(os.path.join(lst, "train_list.txt"), "w") as f:
+        f.write("\n".join(lines))
+    return {"root": root, "scenes": scenes, "lines": lines}

@@ -12,13 +12,15 @@ and is what a server or a smoke run calls, for every model family (the
 single-frame GLPDepth takes one frame and returns `pred_d`; a model that
 fuses sparse depth takes the sparse maps). The CLI pairs each image with
 itself for the two-frame families (as the JAX package's tools/infer.py
-does), feeds it alone to GLPDepth, and writes 16-bit depth PNGs;
-it imports cv2 only inside main(). The first call on a CUDA device builds the
-attention kernels into mmde_tpu_torch/_build/. MMDE_ATTN_W=auto (or an int),
-read once at import as in the JAX package, serves the packed attention with
-W windows per block (K5) where the JAX rule gives W > 1; MMDE_ATTN_GRID
-changes only the backward, so serving is the same under each of its values
-(see ops/window_attention_packed.py).
+does), feeds it alone to GLPDepth, and writes 16-bit depth PNGs, reading
+and writing the files with the port's own codec (data.codec: PNG and
+baseline JPEG) and resizing as the JAX package's ImageFolder does
+(data.imgproc.resize_linear, cv2's INTER_LINEAR). The first call on a
+CUDA device builds the attention kernels into mmde_tpu_torch/_build/.
+MMDE_ATTN_W=auto (or an int), read once at import as in the JAX package,
+serves the packed attention with W windows per block (K5) where the JAX
+rule gives W > 1; MMDE_ATTN_GRID changes only the backward, so serving is
+the same under each of its values (see ops/window_attention_packed.py).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import torch
 
 from mmde_tpu_torch.ckpt import io
 from mmde_tpu_torch.config import Config, ModelConfig, load_yaml
+from mmde_tpu_torch.data import codec
+from mmde_tpu_torch.data.imgproc import resize_linear
 from mmde_tpu_torch.models.glpdepth import GLPDepth
 from mmde_tpu_torch.models.two_frame import build_model
 from mmde_tpu_torch.train.single_frame import make_single_forward
@@ -101,7 +105,7 @@ def predict(model: torch.nn.Module, frame1: np.ndarray,
             for k, v in out.items()}
 
 
-_IMAGE_EXT = (".png", ".jpg", ".jpeg", ".bmp")
+_IMAGE_EXT = (".png", ".jpg", ".jpeg")     # ImageFolder's
 
 
 def main(argv=None) -> None:
@@ -116,8 +120,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-
-    import cv2  # only the CLI reads and writes image files
 
     cfg = load_yaml(args.config) if args.config else Config()
     model = build(cfg, device=args.device, seed=args.seed)
@@ -135,22 +137,18 @@ def main(argv=None) -> None:
     # 16-bit PNG scale: millimetres, 256 counts per metre for KITTI
     scale = 256.0 if cfg.data.dataset == "kitti" else 1000.0
     for i, name in enumerate(names):
-        path = os.path.join(args.images, name)
-        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise FileNotFoundError(path)
-        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+        rgb = codec.imread_rgb(os.path.join(args.images, name))
         # the JAX package's ImageFolder: each side cut to a multiple of 32
         h, w = rgb.shape[:2]
-        rgb = cv2.resize(rgb, (w // 32 * 32, h // 32 * 32))[None]
+        rgb = resize_linear(rgb, w // 32 * 32, h // 32 * 32)[None]
         if isinstance(model, GLPDepth):
             depth = predict(model, rgb, flip_tta=args.flip)["pred_d"]
         else:
             depth = predict(model, rgb, rgb, flip_tta=args.flip)["pred_d1"]
         stem = os.path.splitext(name)[0]
-        cv2.imwrite(os.path.join(args.out, stem + ".png"),
-                    np.clip(depth[0, ..., 0] * scale, 0, 65535
-                            ).astype(np.uint16))
+        codec.write_png(os.path.join(args.out, stem + ".png"),
+                        np.clip(depth[0, ..., 0] * scale, 0, 65535
+                                ).astype(np.uint16))
         print(f"[{i + 1}/{len(names)}] {name}")
 
 

@@ -7,12 +7,14 @@ the device ahead of the step (`data.loader.device_prefetch`), per-sample
 validation metrics, a checkpoint every `save_freq` epochs and the best
 validation RMSE kept apart (`ckpt.io`), scalars and logs.txt in the run's
 log directory, for the two-frame families over any encoder (sparse depth
-in the batches where the model fuses it). Data-parallel training (the JAX
-package's mesh) is ROADMAP M8; the dataset readers for VOID, NYU, KITTI
-and their mix are M5.
+in the batches where the model fuses it), on the synthetic sets or the
+VOID, NYU, KITTI and mixed readers of data/. Only the batches' arrays go
+to the device (VOID's file names stay on the host). Data-parallel training
+(the JAX package's mesh) is ROADMAP M8.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import os
 import time
@@ -37,18 +39,31 @@ LOSS_NAMES = ("loss_total", "loss_depth", "loss_rotation", "loss_translation")
 
 
 def build_datasets(cfg: Config, synthetic: bool = False):
-    """(train, val) datasets of cfg.data.dataset: "synthetic_learnable"
-    (the convergence gate's data: depth cued in the red channel, 256 or
-    more training samples from seed 1, a held-out draw of 8 from seed 7)
-    or "synthetic" (or any dataset with `synthetic`: 64 or more samples,
-    8 held out). A model built for sparse depth input
-    (cfg.model.sparse_depth_input) gets the synthetic sets with their
-    VIO-style sparse depth maps (~5 % of the valid pixels), which the JAX
-    package's loop leaves out."""
-    from mmde_tpu_torch.data.synthetic import SyntheticTwoFrameDataset
+    """(train, val) datasets of cfg.data.dataset, as the JAX package's
+    build_datasets picks them:
+
+      * "synthetic_learnable": the convergence gate's data (depth cued in
+        the red channel, 256 or more training samples from seed 1, a
+        held-out draw of 8 from seed 7);
+      * "synthetic" (or any dataset with `synthetic`): 64 or more samples,
+        8 held out;
+      * "void": VoidV3 over the release under cfg.data.data_path, its lists
+        and calibration.json in cfg.data.void_meta_dir (default
+        data_path/meta); sparse depth is not loaded, as in the JAX loop;
+      * "nyudepthv2": NYUDepthV2Pairs (scene-held-out test split);
+      * "kitti": KITTIEigen in the unified two-frame schema (self-paired,
+        identity pose);
+      * "mixed": NYU pairs + KITTI + VOID in the unified schema, every
+        source whose root exists under data_path joining the mix.
+
+    A model built for sparse depth input (cfg.model.sparse_depth_input)
+    gets the synthetic sets with their VIO-style sparse depth maps (~5 %
+    of the valid pixels), which the JAX package's loop leaves out."""
     d, u8 = cfg.data, cfg.data.ship_uint8
     sp = cfg.model.sparse_depth_input
+    crop = (d.crop_h, d.crop_w)
     if d.dataset == "synthetic_learnable":
+        from mmde_tpu_torch.data.synthetic import SyntheticTwoFrameDataset
         train = SyntheticTwoFrameDataset(
             num_samples=max(256, 8 * cfg.train.batch_size),
             height=d.crop_h, width=d.crop_w, max_depth=cfg.model.max_depth,
@@ -59,6 +74,7 @@ def build_datasets(cfg: Config, synthetic: bool = False):
             uint8_images=u8, sparse_depth=sp)
         return train, val
     if synthetic or d.dataset == "synthetic":
+        from mmde_tpu_torch.data.synthetic import SyntheticTwoFrameDataset
         # a few print windows an epoch at the configured batch size
         train = SyntheticTwoFrameDataset(
             num_samples=max(64, 24 * cfg.train.batch_size), height=d.crop_h,
@@ -69,11 +85,64 @@ def build_datasets(cfg: Config, synthetic: bool = False):
             max_depth=cfg.model.max_depth, seed=7, uint8_images=u8,
             sparse_depth=sp)
         return train, val
-    if d.dataset in ("void", "nyudepthv2", "kitti", "mixed"):
-        raise NotImplementedError(
-            f"dataset '{d.dataset}' is not ported yet (ROADMAP Queue A, M5: "
-            "the data path); use --synthetic")
+    fn = os.path.join(d.data_path, "filenames")
+    meta = d.void_meta_dir or os.path.join(d.data_path, "meta")
+
+    def void(is_train: bool):
+        from mmde_tpu_torch.data.void_v3 import VoidV3
+        return VoidV3(d.data_path,
+                      os.path.join(meta, ("train" if is_train else "test")
+                                   + "_image.txt"),
+                      os.path.join(meta, "calibration.json"),
+                      is_train=is_train, crop_size=crop,
+                      image_interval_range=d.image_interval_range,
+                      imu_max_len=d.imu_max_len)
+
+    if d.dataset == "void":
+        return void(True), void(False)
+    if d.dataset == "nyudepthv2":
+        from mmde_tpu_torch.data.datasets import NYUDepthV2Pairs
+        return (NYUDepthV2Pairs(d.data_path, fn, True, crop),
+                NYUDepthV2Pairs(d.data_path, fn, False, crop))
+    if d.dataset == "kitti":
+        from mmde_tpu_torch.data.datasets import KITTIEigen
+        from mmde_tpu_torch.data.mixed import UnifiedTwoFrame
+        return tuple(UnifiedTwoFrame(KITTIEigen(d.data_path, fn, t, crop),
+                                     "single_frame", crop, 0)
+                     for t in (True, False))
+    if d.dataset == "mixed":
+        from mmde_tpu_torch.data.datasets import KITTIEigen, NYUDepthV2Pairs
+        from mmde_tpu_torch.data.mixed import MixedDataset, UnifiedTwoFrame
+        train_sources, val_sources = [], []
+        for root, make, kind, dataset_id in (
+                ("nyu_depth_v2",
+                 lambda t: NYUDepthV2Pairs(d.data_path, fn, t, crop),
+                 "two_frame", 0),
+                ("kitti", lambda t: KITTIEigen(d.data_path, fn, t, crop),
+                 "single_frame", 1),
+                ("void_release", void, "two_frame_pose", 2)):
+            if not os.path.isdir(os.path.join(d.data_path, root)):
+                continue
+            train_sources.append(UnifiedTwoFrame(make(True), kind, crop,
+                                                 dataset_id))
+            val_sources.append(UnifiedTwoFrame(make(False), kind, crop,
+                                               dataset_id))
+        if not train_sources:
+            raise FileNotFoundError(
+                f"no dataset roots found under {d.data_path}")
+        return (MixedDataset(train_sources, seed=cfg.train.seed),
+                MixedDataset(val_sources, seed=cfg.train.seed + 1))
     raise ValueError(f"unknown dataset '{d.dataset}'")
+
+
+def ship_uint8(datasets) -> None:
+    """What cfg.data.ship_uint8 asks of `train`: switch every dataset's
+    augmentation policy to uint8 output (4x fewer host-to-device bytes; the
+    steps normalise on the device), as the JAX loop does for the datasets
+    that have a policy."""
+    for ds in datasets:
+        if hasattr(ds, "policy"):
+            ds.policy = dataclasses.replace(ds.policy, output_dtype="uint8")
 
 
 def check_two_frame(cfg: Config) -> None:
@@ -186,6 +255,8 @@ def train(cfg: Config, *, synthetic: bool = False,
     ckpt_dir = os.path.join(log_dir, "ckpt")
 
     train_ds, val_ds = build_datasets(cfg, synthetic)
+    if cfg.data.ship_uint8:
+        ship_uint8((train_ds, val_ds))
     train_loader = DataLoader(train_ds, cfg.train.batch_size, shuffle=True,
                               num_workers=cfg.data.workers, drop_last=True,
                               seed=cfg.train.seed)

@@ -60,6 +60,24 @@ def test_source_imports_nothing_of_jax(path):
                 f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {m}")
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_neither_cv2_nor_pil(path):
+    """The card machine has neither cv2 nor PIL: the port reads and writes
+    images with its own codec (data.codec) and resizes, converts colour and
+    undistorts with data.imgproc. The tests may use both as oracles."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        mods = []
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        for m in mods:
+            assert m.split(".")[0] not in ("cv2", "PIL"), (
+                f"{os.path.relpath(path, ROOT)}:{node.lineno} imports {m}")
+
+
 def _module_names():
     names = []
     for p in _port_sources():
@@ -113,6 +131,32 @@ def test_source_scan_covers_the_models_slice():
         assert f"mmde_tpu_torch.{mod}" in names, mod
 
 
+def test_source_scan_covers_the_data_slice():
+    """The walk above reaches the data path's readers, codec, image
+    operations and host library bindings, the two host-only CLIs, and the
+    C++ source they build."""
+    names = set(_module_names())
+    for mod in ("data.native", "data.codec", "data.imgproc",
+                "data.manifests", "data.augment", "data.rosbag",
+                "data.void_v3", "data.void_pickle", "data.datasets",
+                "data.mixed", "tools.make_void_lists",
+                "tools.rosbag_imu_to_csv"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
+    assert os.path.isfile(os.path.join(PORT, "csrc", "preprocess.cpp"))
+
+
+def test_host_only_clis_take_no_device(capsys):
+    """make_void_lists and rosbag_imu_to_csv read and write files and touch
+    no device, so they are exempt from the entry points' CUDA default and
+    take no --device (argparse refuses it)."""
+    from mmde_tpu_torch.tools import make_void_lists, rosbag_imu_to_csv
+    for main in (make_void_lists.main, rosbag_imu_to_csv.main):
+        with pytest.raises(SystemExit) as e:
+            main(["x", "--device", "cpu"])
+        assert e.value.code == 2
+        assert "unrecognized arguments: --device" in capsys.readouterr().err
+
+
 def test_tool_entry_points_want_a_card():
     """The tools measure the card: without one their entry points raise
     (probe_layouts runs its plain versions only when asked with --device
@@ -130,16 +174,28 @@ def test_tool_entry_points_want_a_card():
 
 def test_every_module_imports_without_the_jax_package_or_a_compiler():
     """Fresh interpreter: every module of the port imports here (no nvcc, no
-    triton, no card) and pulls in nothing of mmde_tpu."""
+    triton, no card) and pulls in nothing of mmde_tpu, cv2 or PIL; the data
+    path's modules build nothing at import (no g++ run: the library
+    directory gains no file)."""
+    from mmde_tpu_torch.data import native
+    names = _module_names()
+    for mod in ("data.native", "data.codec", "data.imgproc",
+                "data.void_v3", "data.datasets", "data.mixed",
+                "tools.make_void_lists", "tools.rosbag_imu_to_csv"):
+        assert f"mmde_tpu_torch.{mod}" in names, mod
     code = (
-        "import importlib, sys\n"
-        f"mods = {_module_names()!r}\n"
+        "import importlib, os, sys\n"
+        f"build = {native.BUILD_DIR!r}\n"
+        "before = set(os.listdir(build)) if os.path.isdir(build) else set()\n"
+        f"mods = {names!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'mmde_tpu' or "
-        "m.startswith('mmde_tpu.')]\n"
+        "bad = [m for m in sys.modules if m in ('mmde_tpu', 'cv2', 'PIL') "
+        "or m.startswith(('mmde_tpu.', 'cv2.', 'PIL.'))]\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "after = set(os.listdir(build)) if os.path.isdir(build) else set()\n"
+        "assert after == before, after - before\n"
         "print('ok', len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)

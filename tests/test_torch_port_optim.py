@@ -176,11 +176,16 @@ def test_adamw_updates_match_jax_on_shared_gradients(nano, frozen_stages):
     opt, _ = topt.build_optimizer(tm, device="cpu", **kw)
     km = key_map(params)
     named = dict(tm.named_parameters())
+
+    @jax.jit
+    def jstep(grads, opt_state, jparams):
+        updates, opt_state = tx.update(grads, opt_state, jparams)
+        return optax.apply_updates(jparams, updates), opt_state
+
     for step in range(5):                # crosses the warm-up/decay switch
         grads = _shared_grads(params, step)
-        updates, opt_state = tx.update(jax.tree.map(jnp.asarray, grads),
-                                       opt_state, jparams)
-        jparams = optax.apply_updates(jparams, updates)
+        jparams, opt_state = jstep(jax.tree.map(jnp.asarray, grads),
+                                   opt_state, jparams)
         flat_g = flatten_tree(grads)
         for path, key in km.items():
             from mmde_tpu_torch.ckpt.from_jax import convert_value

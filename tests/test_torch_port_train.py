@@ -70,7 +70,7 @@ def test_backbone_gradients_match_jax_grad(jimpl, timpl):
     def loss(p):
         return jnp.sum(jm.apply({"params": p}, jnp.asarray(x))[-1] * w)
 
-    want = flatten_tree(jax.tree.map(np.asarray, jax.grad(loss)(
+    want = flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(loss))(
         jax.tree.map(jnp.asarray, params))))
 
     tm = tsw.SwinTransformerV2(attn_impl=timpl, **kw)
