@@ -11,6 +11,8 @@
     python3 chip_smoke.py --only data     # the data path: codec, VOID /
                                           # KITTI / NYU readers, training
                                           # on a VOID tree, the infer CLI
+    python3 chip_smoke.py --only modules  # pretrained loading, the remat
+                                          # policies, tools.profile_step
     python3 chip_smoke.py --profile p.json  # also: device time by kernel
                                             # of a request and a train step,
                                             # flagship (p.json), swin_large
@@ -290,7 +292,10 @@ What it does, each phase printing one JSON object on a line of its own:
                 latest) must be the one restored; the metric table; the
                 TTA's K1 launches (2 crops of 480x480 a sample, flipped:
                 48 a sample); then one request served as tools.infer --ckpt
-                serves it (infer.build, ckpt.io.restore_eval, predict).
+                serves it (infer.build, ckpt.io.restore_eval, predict);
+                then (`save`) tools.eval on 2 samples with --save-pngs and
+                --save-viz: the 16-bit PNGs against that model's eval step
+                (depth x 1000 truncated, <= 1 count), the panels' shape.
   deterministic under torch.use_deterministic_algorithms(True,
                 warn_only=True): the stage-1 attention backward of the
                 flagship (packed) and of swin_large (head-split), bf16, 2
@@ -371,10 +376,29 @@ What it does, each phase printing one JSON object on a line of its own:
                 of each source at 480x640.
   infer_cli     python -m mmde_tpu_torch.tools.infer (in this process,
                 flagship_synth.yaml's model, --weights of seed-7 drawn
-                weights) on a folder of a 487x651 PNG and a 480x640 JPEG
-                frame: each 16-bit depth PNG read back and held to
-                tools.infer.predict on the frame read another way, within
-                INFER_MM; K1 launched.
+                weights, --colormap) on a folder of a 487x651 PNG and a
+                480x640 JPEG frame: each 16-bit depth PNG read back and held
+                to tools.infer.predict on the frame read another way, within
+                INFER_MM; each _color.png to utils.viz.colorize_depth of
+                that depth (COLOR_MISMATCH); K1 launched.
+  pretrained    a SimMIM-style swin_base_v2 checkpoint (module.encoder.
+                prefixes, the static buffers, mask_token, a window-12
+                discrete table) through ckpt.pretrained.load_pretrained into
+                nyu_swin_decoder_v1.yaml's model (bitwise, the report) and,
+                for the table, into a stage-1 encoder with rpe_table_type
+                "none" at window 30 (bitwise the float64 geo resampling);
+                then 2 steps through tools.train with that config on an NYU
+                tree, PRETRAINED_SWIN the file: "full" remat, K1+lse twice
+                a block a step, K2 once.
+  remat         the bf16 flagship trainer (2 pairs, deterministic) under
+                each remat policy (none, full, mlp_only, attn_out,
+                attn_qkv) from the same weights and batch: the first
+                step's loss and gradients (under deterministic algorithms:
+                K3 for dbias) against "none"'s, its K1+lse / K2 / K3
+                launches (the replays), then peak bytes and median step ms
+                of 3 steps as a user runs them.
+  profile_step  python -m mmde_tpu_torch.tools.profile_step on the flagship
+                (2 pairs, 2 steps): device ms a step by kernel group.
   kernels       per kernel and shape of each served path (forward) and
                 each trained path (forward with statistics, backward):
                 launches on that path (the packed stages of the bf16 models
@@ -2195,68 +2219,6 @@ def phase_serve(backbone: str = "swin_base_v2", requests: int = 3,
     return rec
 
 
-def _profile(fn) -> dict:
-    """Device time of one call of `fn` by kernel, from torch.profiler,
-    grouped coarsely."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        # device-side rows only: an operator's row repeats its kernels' time,
-        # and so does the optimizer's step annotation ("Optimizer.step#...")
-        if (us > 0 and e.device_type == DeviceType.CUDA
-                and not e.key.startswith("Optimizer.")):
-            rows.append({"name": e.key[:120], "calls": e.count,
-                         "device_us": us})
-    rows.sort(key=lambda r: -r["device_us"])
-    total = sum(r["device_us"] for r in rows)
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-
-    def group(name: str) -> str:
-        n = name.lower()
-        if ("window_attention_fwd" in n or "fwd_tc_kernel" in n
-                or "fwd_tc_w_kernel" in n):
-            # K1 (FMA or tensor-core body), K6', K8', K5
-            return "window_attention_fwd (this repo's kernel)"
-        if "bwd_dbias" in n:
-            # K3 (MMDE_ATTN_GRID=split; either body)
-            return "window_attention_dbias (this repo's kernel)"
-        if "bwd_dq_" in n or "bwd_dkv_" in n or "bwd_resident" in n:
-            # K2 / K7' / K9' / K5's passes, K4 (any body)
-            return "window_attention_bwd (this repo's kernel)"
-        if "multi_tensor_apply" in n:
-            return "optimizer (foreach AdamW, grad zeroing)"
-        if ("fprop" in n or "implicit_gemm" in n or "conv" in n
-                or "cudnn" in n or "dgrad" in n or "wgrad" in n):
-            return "convolutions (cuDNN)"
-        if ("gemm" in n or "cutlass" in n or "cublas" in n or "nvjet" in n
-                or "xmma" in n):
-            return "matrix products (cuBLAS)"
-        if "layer_norm" in n or "layernorm" in n:
-            return "layer norm"
-        if "upsample" in n:
-            return "bilinear upsample"
-        if "copy_kernel" in n or "memcpy" in n or "memset" in n:
-            return "copies and casts"
-        return "elementwise, other"
-    groups = {}
-    for r in rows:
-        g = group(r["name"])
-        groups[g] = groups.get(g, 0.0) + r["device_us"]
-    return {"rows": rows, "device_ms_total": total / 1e3,
-            "launches": sum(r["calls"] for r in rows),
-            "device_ms_by_group": {k: v / 1e3 for k, v in sorted(
-                groups.items(), key=lambda kv: -kv[1])},
-            "top": rows[:12]}
-
-
 # Paths A and B, profiled beside the default path on the same model and
 # trainer: {tag: (the settings MMDE_ATTN_GRID / MMDE_ATTN_W give
 # ops/window_attention_packed.py at import, what runs)}. The wrapper reads
@@ -2299,6 +2261,7 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
     with the tag's suffix (_resident, _w) before its extension."""
     from mmde_tpu_torch.tools import infer
     from mmde_tpu_torch.tools import train_steps as ts
+    from mmde_tpu_torch.tools.profile_step import profile_call
     runs = {tag: ({}, None)}
     runs.update(paths or {})
     model = infer.build(flagship_cfg(dtype, attn_impl, backbone=backbone),
@@ -2311,7 +2274,7 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
             for _ in range(2):
                 infer.predict(model, f1, f2)
             torch.cuda.synchronize()
-            serve[t] = _profile(lambda: infer.predict(model, f1, f2))
+            serve[t] = profile_call(lambda: infer.predict(model, f1, f2))
     del model
     torch.cuda.empty_cache()
 
@@ -2328,7 +2291,7 @@ def phase_profile(path: str, backbone: str = "swin_base_v2",
                 state, _ = step(state, batch)
             torch.cuda.synchronize()
             t0 = time.time()
-            train = _profile(lambda: step(state, batch))
+            train = profile_call(lambda: step(state, batch))
             train["profiled_step_ms_host"] = (time.time() - t0) * 1e3
         p = path if t == tag else f"{root}_{t.split('_', 1)[1]}{ext}"
         os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
@@ -3864,6 +3827,7 @@ def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
     same way. Prints one JSON line."""
     from mmde_tpu_torch.ops import window_attention_packed as wap
     from mmde_tpu_torch.tools import train_steps as ts
+    from mmde_tpu_torch.tools.profile_step import profile_call
     state, step = ts.build_trainer(ts.flagship_config("bfloat16", "cuda",
                                                       batch_size=pairs),
                                    device="cuda", seed=0)
@@ -3889,7 +3853,7 @@ def train_split_child(pairs: int = 2, warm: int = 1, steps: int = 2) -> None:
     if by_kernel != want:
         raise RuntimeError(f"train_split: launches by kernel {by_kernel}, "
                            f"expected {want}")
-    prof = _profile(lambda: step(state, batch))
+    prof = profile_call(lambda: step(state, batch))
     same = []
     launch = wap._launch_backward
 
@@ -5074,8 +5038,11 @@ def phase_eval_ckpt(loop_rec: dict) -> dict:
     launch K1 at the crops' shapes (2 crops a sample, 2 passes: 48 a
     sample). Then one request as `tools.infer --ckpt` serves it:
     infer.build, ckpt.io.restore_eval (best first), infer.predict on a
-    480x640 pair (the CLI's image files need cv2, which the card machine
-    lacks)."""
+    480x640 pair. Then (`save`) the eval CLI again, on SAVE_BATCHES
+    samples, with --save-pngs and --save-viz: each 16-bit PNG decodes to
+    the eval step's depth (make_eval_step of the restored model, this
+    process) x 1000 truncated, each panel is (4 x 480 + 12) x 1280 RGB, a
+    pose file per sample in each directory."""
     from mmde_tpu_torch.ckpt import io
     from mmde_tpu_torch.config import load_yaml
     from mmde_tpu_torch.tools import eval as eval_cli
@@ -5123,10 +5090,72 @@ def phase_eval_ckpt(loop_rec: dict) -> dict:
                  and kernels == {"window_attention_fwd_tc":
                                  rec["tta_k1_launches"]}
                  and rec["tta_k1_launches"] == want)
+    rec["save"] = _eval_saves(cfg_path, ckpt, model)
+    rec["ok"] = rec["ok"] and rec["save"]["ok"]
     del model
     emit("eval_ckpt", rec)
     if not rec["ok"]:
         raise RuntimeError(f"eval_ckpt: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+SAVE_BATCHES = 2        # eval_ckpt: samples of its --save-pngs / --save-viz
+
+
+def _eval_saves(cfg_path: str, ckpt: str, model) -> dict:
+    """`tools.eval --ckpt <ckpt> --save-pngs DIR --save-viz DIR` on
+    SAVE_BATCHES samples (no TTA), its files held to `model`'s eval step
+    (the same restored checkpoint) on the same samples."""
+    from mmde_tpu_torch.config import load_yaml
+    from mmde_tpu_torch.data import codec
+    from mmde_tpu_torch.data.loader import DataLoader
+    from mmde_tpu_torch.tools import eval as eval_cli
+    from mmde_tpu_torch.train.loop import batch_tensors, build_datasets
+    from mmde_tpu_torch.train.step import TrainState, make_eval_step
+    base = os.path.dirname(cfg_path)
+    pngs, panels = os.path.join(base, "pngs"), os.path.join(base, "viz")
+    _reset_launch_counts()
+    t = time.time()
+    res = eval_cli.main(["--config", cfg_path, "--ckpt", ckpt, "--synthetic",
+                         "--max-batches", str(SAVE_BATCHES), "--save-pngs",
+                         pngs, "--save-viz", panels, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t
+    launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    cfg = load_yaml(cfg_path)
+    step = make_eval_step(model, decoder=cfg.model.decoder,
+                          lambda_rot=cfg.train.loss_lambda1,
+                          lambda_trans=cfg.train.loss_lambda2, device="cuda")
+    _, val = build_datasets(cfg, synthetic=True)
+    counts, stds = [], []
+    for n, batch in zip(range(SAVE_BATCHES), DataLoader(val, 1,
+                                                        shuffle=False)):
+        preds, _ = step(TrainState(model, None), batch_tensors(batch, "cuda"))
+        for k in ("d1", "d2"):
+            d = preds[f"pred_{k}"][0, ..., 0].float().cpu().numpy()
+            got = codec.imread_unchanged(os.path.join(pngs,
+                                                      f"{n:05d}_{k}.png"))
+            want = (d * 1000.0).astype(np.uint16)
+            counts.append(int(np.abs(got.astype(np.int64) - want).max())
+                          if got.shape == want.shape else None)
+            stds.append(float(got.std()))
+    shapes = sorted({tuple(codec.imread_rgb(os.path.join(panels, f)).shape)
+                     for f in os.listdir(panels) if f.endswith(".png")})
+    poses = sorted(f for f in os.listdir(pngs) if f.endswith(".txt"))
+    rec = {"command": "python -m mmde_tpu_torch.tools.eval --ckpt <loop "
+                      f"ckpt/> --synthetic --max-batches {SAVE_BATCHES} "
+                      "--save-pngs DIR --save-viz DIR",
+           "seconds": seconds, "files_written": len(res["written"]),
+           "png_max_abs_counts_vs_eval_step": counts,
+           "png_std_counts": stds, "panel_shapes": [list(x) for x in shapes],
+           "pose_files": poses, "launches": launches}
+    rec["ok"] = bool(all(c is not None and c <= 1 for c in counts)
+                     and len(counts) == 2 * SAVE_BATCHES
+                     and shapes == [(4 * 480 + 12, 2 * 640, 3)]
+                     and len(os.listdir(panels)) == 2 * SAVE_BATCHES
+                     and len(poses) == SAVE_BATCHES
+                     and len(res["written"]) == 5 * SAVE_BATCHES
+                     and launches.get("window_attention_fwd_tc", 0) > 0)
     return rec
 
 
@@ -6424,6 +6453,7 @@ def phase_data_mixed(root: str) -> dict:
 
 
 INFER_MM = 2            # infer_cli: CLI PNG vs predict(), mm (16-bit counts)
+COLOR_MISMATCH = 1e-3   # infer_cli: share of _color.png pixels off predict()'s
 
 
 def phase_infer_cli(tmp: str) -> dict:
@@ -6439,12 +6469,17 @@ def phase_infer_cli(tmp: str) -> dict:
     decode, held first to cv2's at every 13th pixel
     (frames_cv2_stride13.npz). The two depth maps must each vary and differ
     from each other by far more than INFER_MM, so that a wrong decode or
-    resize fails; K1 launched. cv2 is never imported (where it is
-    installed on this machine its path is recorded)."""
+    resize fails; K1 launched. With --colormap the CLI also writes each
+    frame's rainbow-coloured depth (`<name>_color.png`, 480 x 640 RGB),
+    held to utils.viz.colorize_depth of `infer.predict`'s depth (at most
+    COLOR_MISMATCH of the pixels apart: a depth a float ulp across a
+    colour bin's edge). cv2 is never imported (where it is installed on
+    this machine its path is recorded)."""
     from mmde_tpu_torch import testing
     from mmde_tpu_torch.data import codec
     from mmde_tpu_torch.data.imgproc import resize_linear
     from mmde_tpu_torch.tools import infer
+    from mmde_tpu_torch.utils import viz
     images, out = os.path.join(tmp, "frames"), os.path.join(tmp, "depth")
     os.makedirs(images)
     cfg = os.path.join(ROOT, "configs", "flagship_synth.yaml")
@@ -6461,12 +6496,26 @@ def phase_infer_cli(tmp: str) -> dict:
     _reset_launch_counts()
     t = time.time()
     infer.main(["--images", images, "--out", out, "--config", cfg,
-                "--weights", weights, "--device", "cuda"])
+                "--weights", weights, "--colormap", "--device", "cuda"])
     seconds = time.time() - t
     launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
     frames = {"a.png": resize_linear(png, 640, 480), "b.png": jpeg_rgb}
-    written, maps = {}, {}
+    written, maps, colored = {}, {}, {}
     for name in sorted(os.listdir(out)):
+        if name.endswith("_color.png"):
+            rgb = codec.imread_rgb(os.path.join(out, name))
+            frame = frames.get(name[:-len("_color.png")] + ".png")
+            rec_c = {"shape": list(rgb.shape), "dtype": str(rgb.dtype)}
+            if frame is not None and rgb.shape == (480, 640, 3):
+                x = frame[None]
+                want = viz.colorize_depth(
+                    infer.predict(model, x, x)["pred_d1"][0, ..., 0])
+                rec_c["pixels_apart"] = float(
+                    np.any(rgb != want[..., ::-1], axis=-1).mean())
+                rec_c["colours"] = int(len(np.unique(
+                    rgb.reshape(-1, 3), axis=0)))
+            colored[name] = rec_c
+            continue
         d = codec.imread_unchanged(os.path.join(out, name))
         written[name] = {"shape": list(d.shape), "dtype": str(d.dtype),
                          "min": int(d.min()), "max": int(d.max()),
@@ -6485,8 +6534,9 @@ def phase_infer_cli(tmp: str) -> dict:
     rec = {"command": "python -m mmde_tpu_torch.tools.infer --images "
                       "<a.png 487x651, b.jpg 480x640> --out <dir> --config "
                       "configs/flagship_synth.yaml --weights <seed 7> "
-                      "--device cuda",
+                      "--colormap --device cuda",
            "seconds": seconds, "written": written, "tolerance_mm": INFER_MM,
+           "colormap": colored, "colormap_tolerance": COLOR_MISMATCH,
            "jpeg_max_abs_err_stride13": jpeg_err,
            "max_abs_mm_between_frames": between, "launches": launches,
            "cv2_on_this_machine": spec.origin if spec else None,
@@ -6499,7 +6549,11 @@ def phase_infer_cli(tmp: str) -> dict:
                                        INFER_MM + 1) <= INFER_MM
                              for w in written.values())
                      and between > 100 * INFER_MM
-                     and launches.get("window_attention_fwd_tc", 0) > 0)
+                     and launches.get("window_attention_fwd_tc", 0) > 0
+                     and sorted(colored) == ["a_color.png", "b_color.png"]
+                     and all(c.get("pixels_apart", 1.0) <= COLOR_MISMATCH
+                             and c["colours"] > 16
+                             for c in colored.values()))
     del model
     torch.cuda.empty_cache()
     emit("infer_cli", rec)
@@ -6530,9 +6584,376 @@ def phase_data() -> dict:
     return {}
 
 
+# ------------------------------------------------------------------------
+# Pretrained backbones (ROADMAP M7), the remat policies that keep named
+# intermediates (M2) and the profiling tool (M9).
+# ------------------------------------------------------------------------
+
+PRETRAINED_STEPS = 2            # tools.train steps from the pretrained file
+REMAT_POLICIES = ("none", "full", "mlp_only", "attn_out", "attn_qkv")
+REMAT_STEPS = 3                 # timed steps a policy (the median is kept)
+
+
+def _simmim_file(path: str, encoder, pretrain_windows) -> tuple:
+    """Write a SimMIM-style checkpoint of `encoder` (a swin_base_v2) to
+    `path`: {"model": ..., "epoch": ...} holding every tensor of its state
+    dict under `module.encoder.`, each block's static buffers
+    (relative_position_index, relative_coords_table) at its stage's
+    pretraining window (`pretrain_windows`), the pretraining head's
+    mask_token, and for layers.0.blocks.0 a discrete relative-position
+    table pretrained at window 12 (rpe_table_type "none"'s, drawn).
+    Returns (the encoder's tensors, that table), on the CPU."""
+    from mmde_tpu_torch.nn.swin_v2 import (relative_coords_table,
+                                           relative_position_index)
+    sd = {k: v.detach().cpu() for k, v in encoder.state_dict().items()}
+    out = {f"module.encoder.{k}": v for k, v in sd.items()}
+    for i, layer in enumerate(encoder.layers):
+        w = (pretrain_windows[i],) * 2
+        for j in range(len(layer.blocks)):
+            a = f"module.encoder.layers.{i}.blocks.{j}.attn."
+            out[a + "relative_position_index"] = torch.from_numpy(
+                relative_position_index(w)).long()
+            out[a + "relative_coords_table"] = torch.from_numpy(
+                relative_coords_table(w, w[0]))[None]
+    nH = encoder.layers[0].blocks[0].attn.num_heads
+    gen = torch.Generator().manual_seed(12)
+    table = torch.randn((2 * 12 - 1) ** 2, nH, generator=gen)
+    out["module.encoder.layers.0.blocks.0.attn."
+        "relative_position_bias_table"] = table
+    out["module.encoder.mask_token"] = torch.zeros(
+        1, 1, encoder.num_features[0])
+    torch.save({"model": out, "epoch": 100}, path)
+    return sd, table
+
+
+def _nyu_config(tmp: str, root: str, pretrained: str) -> str:
+    """configs/nyu_swin_decoder_v1.yaml (swin_base_v2 + decoder_v1, bf16,
+    480 x 640, USE_CHECKPOINT_SWIN: "full" remat) pointed at the NYU tree
+    under `root` with PRETRAINED_SWIN `pretrained`; one epoch, no
+    validation, no checkpoint. The NYU pairs are read through the mix
+    (DATASET_NAME "mixed", NYU its only source), which gives them the pose
+    keys the loss reads: the "nyudepthv2" reader has none, in either
+    package (ROADMAP Queue C)."""
+    import yaml
+    with open(os.path.join(ROOT, "configs", "nyu_swin_decoder_v1.yaml")) as f:
+        y = yaml.safe_load(f)
+    y.update(DATASET_NAME="mixed", DATA_PATH=root, EPOCH=1, RESUME_FROM="",
+             PRINT_FREQUENCY=1, VALIDATION_FREQUENCY=99, SAVE_MODEL=False,
+             WORKERS=2)
+    y["SWIN"]["PRETRAINED_SWIN"] = pretrained
+    path = os.path.join(tmp, "nyu_pretrained.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(y, f)
+    return path
+
+
+def phase_pretrained(tmp: str) -> dict:
+    """ckpt.pretrained.load_pretrained on the card. A SimMIM-style
+    swin_base_v2 checkpoint (`_simmim_file`: buffers at the pretraining
+    windows 12 / 12 / 12 / 6, weights drawn by
+    randomize_weights) into the flagship encoder of
+    nyu_swin_decoder_v1.yaml's model: every encoder tensor bitwise the
+    file's; the report (the window-12 table unexpected in the MLP-RPE
+    model, the mask_token a note). Its window-12 table into the model's
+    first stage built with rpe_table_type "none" (window 30): bitwise the
+    float64 interpolate_rpe_table (geo) result in float32; the stage's
+    output norm and its other blocks' tables reported missing. Then
+    PRETRAINED_STEPS steps through `python -m mmde_tpu_torch.tools.train`
+    with that config (2 pairs, an NYU tree of the committed JPEGs,
+    PRETRAINED_SWIN the file): the loader's report printed, K1+lse twice a
+    block a step (USE_CHECKPOINT_SWIN: "full" remat replays each block),
+    K2 once, finite losses."""
+    import io as stdio
+    from mmde_tpu_torch import testing
+    from mmde_tpu_torch.ckpt import pretrained, torch_convert
+    from mmde_tpu_torch.config import load_yaml
+    from mmde_tpu_torch.models.two_frame import SWIN_VARIANTS
+    from mmde_tpu_torch.nn.swin_v2 import SwinTransformerV2
+    from mmde_tpu_torch.tools import infer
+    from mmde_tpu_torch.tools import train as train_cli
+    cfg = load_yaml(os.path.join(ROOT, "configs", "nyu_swin_decoder_v1.yaml"))
+    path = os.path.join(tmp, "swin_v2_base_simmim.pth")
+    t = time.time()
+    src = infer.build(cfg, device="cuda", seed=1)
+    randomize_weights(src, seed=9)
+    sd, table = _simmim_file(path, src.encoder,
+                             cfg.model.swin.pretrain_window_size)
+    del src
+    write_s = time.time() - t
+    model = infer.build(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t = time.time()
+    missing, unexpected, notes = pretrained.load_pretrained(
+        model, cfg.model, path, verbose=False)
+    torch.cuda.synchronize()
+    load_s = time.time() - t
+    got = model.encoder.state_dict()
+    unequal = [k for k in got if not torch.equal(got[k].cpu(), sd[k])]
+    del model, got
+
+    variant = next(v for v in SWIN_VARIANTS if v in cfg.model.backbone)
+    embed, heads = SWIN_VARIANTS[variant]
+    depth = cfg.model.swin.depths[0]
+
+    class Discrete(torch.nn.Module):
+        """The model's first stage with rpe_table_type "none"."""
+
+        def __init__(self):
+            super().__init__()
+            self.encoder = SwinTransformerV2(
+                embed_dim=embed, depths=(depth,), num_heads=heads[:1],
+                window_size=cfg.model.swin.window_size[:1],
+                pretrain_window_size=(12,), out_indices=(0,),
+                rpe_table_type="none", drop_path_rate=0.0)
+
+    disc = Discrete().cuda()
+    d_missing, d_unexpected, _ = pretrained.load_pretrained(
+        disc, cfg.model, path, verbose=False)
+    loaded = disc.encoder.layers[0].blocks[0].attn \
+        .relative_position_bias_table.detach().cpu()
+    want = torch.from_numpy(torch_convert.interpolate_rpe_table(
+        table.double().numpy(), 12, cfg.model.swin.window_size[0]
+    ).astype(np.float32))
+    del disc
+
+    root = os.path.join(tmp, "nyu")
+    testing.write_nyu_tree(root, _jpeg_frames())
+    cfg_path = _nyu_config(tmp, root, path)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    printed = stdio.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(printed):
+        train_cli.main(["--config", cfg_path, "--batch-size",
+                        str(LOOP_PAIRS), "--max-steps",
+                        str(PRETRAINED_STEPS), "--log-dir",
+                        os.path.join(tmp, "nyu_run"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.time() - t
+    fwd, bwd = _launches(), _launches(backward=True)
+    want_fwd = expected_launches("swin_base_v2", LOOP_PAIRS,
+                                 2 * PRETRAINED_STEPS)
+    want_bwd = expected_launches("swin_base_v2", LOOP_PAIRS,
+                                 PRETRAINED_STEPS)
+    kernels = {k: sum(d.values()) for k, d in _by_kernel().items()}
+    log = _loop_log(os.path.join(tmp, "nyu_run"))
+    losses = log["scalars"].get("train/loss_total", {})
+    lines = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith("[pretrained]")]
+    rec = {"file": "SimMIM-style swin_base_v2 state dict under "
+                   "module.encoder. + buffers + mask_token + a window-12 "
+                   "table (layers.0.blocks.0)",
+           "file_bytes": os.path.getsize(path), "write_seconds": write_s,
+           "load_seconds": load_s, "tensors": len(sd),
+           "not_bitwise": unequal[:8], "report": {
+               "missing": len(missing), "unexpected": unexpected,
+               "notes": notes},
+           "discrete": {"missing": d_missing,
+                        "unexpected_count": len(d_unexpected),
+                        "table_shape": list(loaded.shape),
+                        "table_bitwise_float64_geo": torch.equal(loaded,
+                                                                 want),
+                        "table_max_abs_vs_float64": float(
+                            (loaded.double() - want.double()).abs().max())},
+           "train": {"command": "python -m mmde_tpu_torch.tools.train "
+                                "--config <nyu_swin_decoder_v1.yaml, an NYU "
+                                "tree through the mix, PRETRAINED_SWIN the "
+                                "file> "
+                                f"--batch-size {LOOP_PAIRS} --max-steps "
+                                f"{PRETRAINED_STEPS}",
+                     "seconds": train_s, "printed": lines,
+                     "launches": kernels,
+                     "k1_lse_launches": kernels.get(
+                         "window_attention_fwd_tc+lse", 0),
+                     "k2_launches": kernels.get("window_attention_bwd_tc",
+                                                0),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "losses": losses}}
+    tab = "layers.0.blocks.0.attn.relative_position_bias_table"
+    rec["ok"] = bool(
+        not unequal and not missing and unexpected == [tab]
+        and notes == ["unmapped: mask_token"]
+        and set(d_missing) == {"norm0.weight", "norm0.bias"} | {
+            f"layers.0.blocks.{i}.attn.relative_position_bias_table"
+            for i in range(1, depth)}
+        and rec["discrete"]["table_bitwise_float64_geo"]
+        and lines == [f"[pretrained] loaded {path}: 0 missing, "
+                      "1 unexpected"]
+        and fwd == want_fwd and bwd == want_bwd
+        and set(kernels) == {"window_attention_fwd_tc+lse",
+                             "window_attention_bwd_tc"}
+        and len(losses) > 0
+        and all(math.isfinite(v) for v in losses.values()))
+    emit("pretrained", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"pretrained: launches {fwd} / {bwd}, expected "
+                           f"{want_fwd} / {want_bwd}: "
+                           f"{json.dumps(rec)[:3000]}")
+    return rec
+
+
+def _set_remat(model, policy: str) -> None:
+    """Every swin stage of `model` under remat `policy`, in place (the
+    stages read it at each forward)."""
+    from mmde_tpu_torch.nn.swin_v2 import BasicLayer
+    for m in model.modules():
+        if isinstance(m, BasicLayer):
+            m.remat = policy
+            for blk in m.blocks:
+                blk.remat_mlp = policy == "mlp_only"
+
+
+def phase_remat(steps: int = REMAT_STEPS) -> dict:
+    """The bf16 flagship trainer at 2 pairs (deterministic: eval-mode
+    modules, weights from randomize_weights' seed 7, one batch) under each
+    remat policy of REMAT_POLICIES in turn, every policy's first step from
+    the same weights and under torch.use_deterministic_algorithms (warn
+    only: the attention backward then sums dbias by K3, cuDNN and the
+    index_add take their deterministic algorithms; bf16 gradients carry the
+    atomics' order otherwise, ~an ulp of bf16): that step's loss and the
+    gradients of PARITY_PARAMS against "none"'s (loss at
+    TOL_TRAIN_PARITY_BF16, gradients at TOL_TRAIN_PARITY's rel-L2), its
+    K1+lse / K2 / K3 launches (the replay: K1+lse twice a block under
+    "full", "attn_out" and "attn_qkv", once otherwise; K2 and K3 once).
+    Then `steps` steps as a user runs them (atomics): peak bytes
+    (max_memory_allocated over those steps) and the median step ms (host
+    clock to synchronize)."""
+    from mmde_tpu_torch.tools import train_steps as ts
+    cfg = ts.flagship_config("bfloat16", batch_size=LOOP_PAIRS)
+    state, step = ts.build_trainer(cfg, device="cuda", seed=0,
+                                   deterministic=True)
+    randomize_weights(state.model, seed=7)
+    init = {n: t.detach().clone() for n, t in state.model.state_dict().items()}
+    batch = ts.synthetic_batch(LOOP_PAIRS, 480, 640, seed=33, device="cuda")
+    state, _ = step(state, batch)           # warm: kernels, moments
+    blocks = sum(s["blocks"] for s in stage_shapes())
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    res, base = {}, None
+    for policy in REMAT_POLICIES:
+        with torch.no_grad():
+            state.model.load_state_dict(init)
+        _set_remat(state.model, policy)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            state, aux = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(was_deterministic)
+        loss = {k: float(v) for k, v in aux.items()}
+        grads = {n: p.grad.detach().double().clone()
+                 for n, p in state.model.named_parameters()
+                 if n in PARITY_PARAMS}
+        launches = {k: sum(d.values()) for k, d in _by_kernel().items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.time()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.time() - t) * 1e3)
+        replays = policy in ("full", "attn_out", "attn_qkv")
+        rec = {"peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "step_ms_median": statistics.median(ms), "step_ms": ms,
+               "loss": loss, "launches_first_step": launches,
+               "k1_lse_launches": launches.get(
+                   "window_attention_fwd_tc+lse", 0),
+               "k2_launches": launches.get("window_attention_bwd_tc", 0),
+               "k3_launches": launches.get("window_attention_dbias_tc", 0),
+               "k1_lse_expected": blocks * (2 if replays else 1),
+               "k2_expected": blocks}
+        if base is None:
+            base = (loss, grads)
+        rec["loss_rel_diff"] = abs(loss["loss_total"]
+                                   - base[0]["loss_total"]) / abs(
+                                       base[0]["loss_total"])
+        rec["grad_rel_l2"] = {n: float((grads[n] - base[1][n]).norm()
+                                       / base[1][n].norm().clamp_min(1e-300))
+                              for n in base[1]}
+        rec["ok"] = bool(
+            rec["k1_lse_launches"] == rec["k1_lse_expected"]
+            and rec["k2_launches"] == rec["k3_launches"] == blocks
+            and set(launches) == {"window_attention_fwd_tc+lse",
+                                  "window_attention_bwd_tc",
+                                  "window_attention_dbias_tc"}
+            and math.isfinite(loss["loss_total"])
+            and rec["loss_rel_diff"] <= TOL_TRAIN_PARITY_BF16["loss_rel"]
+            and all(v <= TOL_TRAIN_PARITY["grad_rel_l2"]
+                    for v in rec["grad_rel_l2"].values())
+            and set(grads) == set(PARITY_PARAMS)
+            and all(float(g.norm()) > 0 for g in grads.values()))
+        res[policy] = rec
+    peaks = {p: r["peak_memory_bytes"] for p, r in res.items()}
+    out = {"model": "swin_base_v2 + decoder_v2, bfloat16, 480x640, depths "
+                    "2/2/18/2, deterministic trainer",
+           "frame_pairs": LOOP_PAIRS, "steps_timed": steps,
+           "policies": res, "peak_bytes": peaks,
+           "peak_order": sorted(peaks, key=peaks.get, reverse=True),
+           "tolerance": {"loss_rel": TOL_TRAIN_PARITY_BF16["loss_rel"],
+                         "grad_rel_l2": TOL_TRAIN_PARITY["grad_rel_l2"]}}
+    out["ok"] = bool(all(r["ok"] for r in res.values())
+                     and peaks["full"] < peaks["none"]
+                     and peaks["attn_out"] < peaks["none"])
+    del state, step
+    torch.cuda.empty_cache()
+    emit("remat", out)
+    if not out["ok"]:
+        raise RuntimeError(f"remat: {json.dumps(out)[:3000]}")
+    return out
+
+
+def phase_profile_step() -> dict:
+    """`python -m mmde_tpu_torch.tools.profile_step --batch 2 --steps 2`
+    in this process: the flagship's train step under torch.profiler,
+    device ms a step by kernel group (the grouping the --profile phases
+    use); the attention groups must carry time."""
+    import io as stdio
+    from mmde_tpu_torch.tools import profile_step
+    printed = stdio.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(printed):
+        rep = profile_step.main(["--batch", str(LOOP_PAIRS), "--steps", "2"])
+    rec = {"command": "python -m mmde_tpu_torch.tools.profile_step "
+                      f"--batch {LOOP_PAIRS} --steps 2",
+           "seconds": time.time() - t,
+           "printed": json.loads(printed.getvalue().strip().splitlines()[-1]),
+           "top": rep["top"][:6]}
+    groups = rec["printed"]["device_ms_by_group"]
+    rec["ok"] = bool(rec["printed"]["device_ms_total"] > 0
+                     and groups.get("window_attention_fwd (this repo's "
+                                    "kernel)", 0) > 0
+                     and groups.get("window_attention_bwd (this repo's "
+                                    "kernel)", 0) > 0)
+    torch.cuda.empty_cache()
+    emit("profile_step", rec)
+    if not rec["ok"]:
+        raise RuntimeError(f"profile_step: {json.dumps(rec)[:3000]}")
+    return rec
+
+
+def phase_modules() -> dict:
+    """pretrained (in a temporary directory, removed in `finally`), remat
+    and profile_step."""
+    tmp = tempfile.mkdtemp(prefix="mmde_smoke_modules_")
+    try:
+        phase_pretrained(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_remat()
+    phase_profile_step()
+    return {}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["kernels", "loop", "models", "data"],
+    ap.add_argument("--only", choices=["kernels", "loop", "models", "data",
+                                       "modules"],
                     default=None,
                     help="kernels: build the kernels, compare them with "
                          "their plain versions (no timing); loop: the "
@@ -6544,6 +6965,7 @@ def main() -> int:
                          "serve_glpdepth) and deterministic; data: the "
                          "data path (codec, data_void, train_void, "
                          "train_void_flagship, data_mixed, infer_cli); "
+                         "modules: pretrained, remat, profile_step; "
                          "then stop (prints no final ok line)")
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="also profile one served request and one train "
@@ -6572,6 +6994,10 @@ def main() -> int:
     phase_env()
     if args.only == "data":
         phase_data()
+        emit("phase_seconds", PHASE_SECONDS)
+        return 0
+    if args.only == "modules":
+        phase_modules()
         emit("phase_seconds", PHASE_SECONDS)
         return 0
     if args.only == "loop":
@@ -6639,6 +7065,7 @@ def main() -> int:
     loop_rec = phase_loop_entries()
     completion, glpdepth = phase_models()
     phase_data()
+    phase_modules()
     if args.profile:
         phase_profile(args.profile, paths=PROFILED_PATHS)
         root, ext = os.path.splitext(args.profile)

@@ -11,7 +11,11 @@ Counterpart of mmde_tpu/models/glpdepth.py:
     trans3). With `sparse_depth_input`, depth completion: each frame takes
     its sparse depth / max_depth and its validity (sparse > 0) as two more
     input channels (5 into the patch embed), frame 2 falling back to frame
-    1's sparse depth. forward -> {"pred_d1", "pred_d2", "out_p"}.
+    1's sparse depth. forward -> {"pred_d1", "pred_d2", "out_p"}. Built
+    for batches without sparse depth (`sparse_depth=False`, as the JAX
+    package's init_model reads it off a sample batch without the maps), a
+    `sparse_depth_input` model is the RGB model: 3 input channels, no
+    fusion.
   * `Scale16TwoFrame`: GLPDepthScale16 behind the two-frame prediction dict
     (`out_p` split into pred_r12 / pred_t12, no reverse direction, as
     decoder_v1), `out_p` kept.
@@ -172,17 +176,22 @@ class GLPDepthScale16(nn.Module):
     """Two frames at stride 16 with the fused depth + `out_p` decoder.
     forward(frame1, frame2, sparse1=None, sparse2=None) with NHWC float
     frames -> {"pred_d1", "pred_d2": (B, H, W, 1) float32, "out_p": (B,
-    12)}. A model built with `sparse_depth_input` takes 5-channel input and
-    wants sparse1."""
+    12)}. A model built with `sparse_depth_input` for batches that carry
+    sparse depth (`sparse_depth`, the default) takes 5-channel input and
+    wants sparse1; built for batches without it, it takes the frames alone
+    (3 channels) and skips the fusion, as the JAX model initialised from
+    such a batch does."""
 
     def __init__(self, cfg: ModelConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sparse_depth: bool = True):
         super().__init__()
         from mmde_tpu_torch.models.two_frame import (_build_encoder,
                                                      _model_dtype)
         self.cfg = cfg
         self.dtype = dt = _model_dtype(cfg)
-        in_chans = 5 if cfg.sparse_depth_input else 3
+        self.fuses_sparse = bool(cfg.sparse_depth_input and sparse_depth)
+        in_chans = 5 if self.fuses_sparse else 3
         if "swin" in cfg.backbone:
             n = len(cfg.swin.depths) - 1
             self.encoder = _swin(cfg, n, in_chans, dt, generator)
@@ -209,7 +218,7 @@ class GLPDepthScale16(nn.Module):
         self.head_b = _conv(embed_dim * 2, 2, 1, dt)
 
     def forward(self, frame1, frame2, sparse1=None, sparse2=None):
-        if self.cfg.sparse_depth_input:
+        if self.fuses_sparse:
             if sparse1 is None:
                 raise ValueError("this model was built for sparse depth "
                                  "input (sparse_depth_input): pass sparse1")
@@ -217,6 +226,10 @@ class GLPDepthScale16(nn.Module):
             frame1 = fuse_sparse(frame1, sparse1, md)
             frame2 = fuse_sparse(frame2, sparse1 if sparse2 is None
                                  else sparse2, md)
+        elif sparse1 is not None and self.cfg.sparse_depth_input:
+            raise ValueError("this model was built for batches without "
+                             "sparse depth (3 input channels): it takes no "
+                             "sparse1")
         B = frame1.shape[0]
         frames = torch.stack([frame1, frame2], dim=1).to(self.dtype)
         frames = frames.reshape((2 * B,) + tuple(frames.shape[2:]))
@@ -244,10 +257,11 @@ class Scale16TwoFrame(nn.Module):
     direction (r21 / t21 None), `out_p` kept."""
 
     def __init__(self, cfg: ModelConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sparse_depth: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.net = GLPDepthScale16(cfg, generator)
+        self.net = GLPDepthScale16(cfg, generator, sparse_depth)
 
     def forward(self, frame1, frame2, sparse1=None, sparse2=None):
         out = self.net(frame1, frame2, sparse1, sparse2)

@@ -207,7 +207,8 @@ def require_device(device: Union[str, torch.device],
 
 def build_model(cfg: ModelConfig, *,
                 device: Union[str, torch.device] = "cuda",
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None,
+                sparse_depth: bool = True) -> nn.Module:
     """Model factory over the three families (`cfg.family`): two_frame
     (TwoFrameDepthPose), glpdepth_scale16 (Scale16TwoFrame: the fused
     out_p network, with sparse-depth fusion under `sparse_depth_input`),
@@ -215,10 +216,15 @@ def build_model(cfg: ModelConfig, *,
     which defaults to the CUDA card: without one this raises rather than
     building on the CPU (tests pass device="cpu"). `generator` (a CPU
     generator) seeds the initialisation and the model's stochastic depth;
-    None uses torch's global generator."""
+    None uses torch's global generator. `sparse_depth`: whether the
+    batches carry sparse depth maps, which the JAX package's init_model
+    reads off its sample batch; a glpdepth_scale16 model with
+    `sparse_depth_input` built for batches without them is the RGB model
+    (3 input channels, no fusion)."""
     from mmde_tpu_torch.models.glpdepth import GLPDepth, Scale16TwoFrame
     family = {"glpdepth": GLPDepth, "glpdepth_scale16": Scale16TwoFrame
               }.get(cfg.family, TwoFrameDepthPose)
+    kw = {"sparse_depth": sparse_depth} if family is Scale16TwoFrame else {}
     device = require_device(device, what="build_model")
     if generator is not None:
         # torch's initialisers draw from the global generator: fork it,
@@ -226,7 +232,7 @@ def build_model(cfg: ModelConfig, *,
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(torch.randint(
                 0, 2 ** 31 - 1, (1,), generator=generator)))
-            model = family(cfg)
+            model = family(cfg, **kw)
     else:
-        model = family(cfg)
+        model = family(cfg, **kw)
     return model.to(device)

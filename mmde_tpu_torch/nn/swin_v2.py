@@ -38,10 +38,15 @@ Rematerialisation follows `use_checkpoint` (per stage) and `remat_policy`:
 "none" keeps every activation (the flagship's setting), "full" recomputes
 each block in the backward (torch.utils.checkpoint, non-reentrant; the
 block's drop-path masks are drawn outside the recomputed region so both
-runs see one draw), "mlp_only" recomputes the MLP alone. "attn_out" /
-"attn_qkv" save named intermediates of a block under an XLA remat policy,
-which eager PyTorch has no counterpart for: they raise when a training
-forward reaches them. Remat changes memory, never values.
+runs see one draw), "mlp_only" recomputes the MLP alone. "attn_out" keeps
+the block input and the attention's output (the JAX package's
+`swin_attn_out`) and recomputes the rest; "attn_qkv" also keeps the qkv
+projection (`swin_qkv`) of the blocks where the JAX package names it, the
+packed and slab ones. Both split the block into checkpointed segments that
+end at the kept tensors (`BasicLayer._block`), so the backward replays the
+attention forward from its kept input (the forward kernel with the
+log-sum-exp) before the backward kernel. Remat changes memory, never
+values.
 
 Parameter names follow the reference PyTorch implementation
 (`layers.0.blocks.0.attn.qkv.weight`, `attn.rpe_mlp.0/2`, `norm3.weight`).
@@ -300,29 +305,48 @@ class WindowAttention(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B*nW, N, C) windows, or - slab blocks only - the padded,
         rolled (B, Hp, Wp, C) map; returns the same layout."""
-        nH = self.num_heads
-        if x.dim() == 4 and not (self.attn_impl == "cuda_slab"
-                                 and self.attn_type == "cosine_mh"):
-            raise ValueError("a (B, Hp, Wp, C) map goes to the slab kernels "
-                             "only: attn_impl='cuda_slab', cosine attention")
+        return self.attend(self.project_qkv(x), mask)
+
+    def project_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """The qkv projection with the q / v bias, in x's layout."""
         qkv = self.qkv(x)
         if self.q_bias is not None:
             # k has no bias: concat(q_bias, 0, v_bias) after a bias-free Linear
             bias_vec = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                   self.v_bias]).to(qkv.dtype)
             qkv = qkv + bias_vec
+        return qkv
+
+    def packed(self, N: int) -> bool:
+        """Whether windows of N tokens take the packed kernels."""
+        C = self.dim
+        return (self.attn_type == "cosine_mh"
+                and self.attn_impl in ("cuda", "cuda_slab")
+                and packed_layout_ok(N, self.num_heads, C // self.num_heads,
+                                     C))
+
+    def attend(self, qkv: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Attention of a qkv projection and the output projection, in the
+        layout `forward` takes."""
+        nH = self.num_heads
+        if qkv.dim() == 4 and not (self.attn_impl == "cuda_slab"
+                                   and self.attn_type == "cosine_mh"):
+            raise ValueError("a (B, Hp, Wp, C) map goes to the slab kernels "
+                             "only: attn_impl='cuda_slab', cosine attention")
         bias = self.rpe_bias()
-        if x.dim() == 4:
+        if qkv.dim() == 4:
             # float32 bias and mask, as the JAX slab path keeps them
             return self.proj(cosine_window_attention_slab(
                 qkv, self.logit_scale, bias, mask, num_heads=nH,
                 window_size=self.window_size[0]))
 
-        B_, N, C = x.shape
+        B_, N, C3 = qkv.shape
+        C = C3 // 3
         Dh = C // nH
         fused = (self.attn_type == "cosine_mh"
                  and self.attn_impl in ("cuda", "cuda_slab"))
-        if fused and packed_layout_ok(N, nH, Dh, C):
+        if self.packed(N):
             if self.dtype == torch.bfloat16:
                 # bf16 models stream bias and mask in bf16 on the packed path
                 # only, as the JAX package does: the mask is exact (0 / -100),
@@ -411,34 +435,74 @@ class SwinBlock(nn.Module):
                 keeps=None) -> torch.Tensor:
         """`keeps`: drop-path masks from `draw_drop_path`, for a caller that
         runs this forward twice (remat); None draws them here."""
-        B, H, W, C = x.shape
+        keeps = keeps if keeps is not None else self.draw_drop_path(x)
+        return self.residual(x, self.attention(x, mask), keeps)
+
+    def _padded(self, x: torch.Tensor) -> Tuple[int, int]:
+        ws = self.window_size
+        return (-(-x.shape[1] // ws) * ws, -(-x.shape[2] // ws) * ws)
+
+    def slab(self, x: torch.Tensor) -> bool:
+        """Whether the block hands its map (block input x) to the slab
+        kernels whole."""
+        C, nH = x.shape[-1], self.attn.num_heads
+        return (self.attn.attn_impl == "cuda_slab"
+                and self.attn.attn_type == "cosine_mh"
+                and slab_plan(self.window_size, self._padded(x)[1], nH,
+                              C // nH, C) is not None)
+
+    def names_qkv(self, x: torch.Tensor) -> bool:
+        """Whether the JAX package names this block's qkv projection
+        (`swin_qkv`, kept under remat "attn_qkv"): on the slab and packed
+        paths."""
+        return self.slab(x) or self.attn.packed(self.window_size ** 2)
+
+    def attention_input(self, x: torch.Tensor) -> torch.Tensor:
+        """Block input -> what the attention takes: (pre-norm) -> pad ->
+        roll -> partition into (B*nW, ws*ws, C) windows, or the rolled map
+        itself for a slab block."""
         ws, ss = self.window_size, self.shift_size
-        keep1, keep2 = keeps if keeps is not None else self.draw_drop_path(x)
-        shortcut = x
+        slab = self.slab(x)
         if not self.postnorm:
             x = self.norm1(x)
-        pad_b = (ws - H % ws) % ws
-        pad_r = (ws - W % ws) % ws
-        if pad_b or pad_r:
-            x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
-        Hp, Wp = H + pad_b, W + pad_r
+        Hp, Wp = self._padded(x)
+        if Hp != x.shape[1] or Wp != x.shape[2]:
+            x = F.pad(x, (0, 0, 0, Wp - x.shape[2], 0, Hp - x.shape[1]))
         if ss > 0:
             x = torch.roll(x, (-ss, -ss), dims=(1, 2))
-            attn_mask = mask
+        return x if slab else window_partition(x, ws)
+
+    def qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """Block input -> the qkv projection (`swin_qkv`)."""
+        return self.attn.project_qkv(self.attention_input(x))
+
+    def attend(self, qkv: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The qkv projection -> the attention's output (`swin_attn_out`)."""
+        return self.attn.attend(qkv, mask if self.shift_size > 0 else None)
+
+    def attention(self, x: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Block input -> the attention's output (`swin_attn_out`): windows,
+        or the map for a slab block."""
+        return self.attend(self.qkv(x), mask)
+
+    def residual(self, x: torch.Tensor, attn: torch.Tensor,
+                 keeps) -> torch.Tensor:
+        """Block input and the attention's output -> the block's output:
+        reverse the partition, roll back, crop, then the residual branches
+        with their drop-path masks `keeps`."""
+        H, W = x.shape[1:3]
+        ws, ss = self.window_size, self.shift_size
+        keep1, keep2 = keeps
+        shortcut = x
+        if attn.dim() == 4:
+            x = attn                                     # the map, in place
         else:
-            attn_mask = None
-        nH = self.attn.num_heads
-        if (self.attn.attn_impl == "cuda_slab"
-                and self.attn.attn_type == "cosine_mh"
-                and slab_plan(ws, Wp, nH, C // nH, C) is not None):
-            x = self.attn(x, attn_mask)                  # the map, in place
-        else:
-            windows = window_partition(x, ws)            # (B*nW, ws*ws, C)
-            attn = self.attn(windows, attn_mask)
-            x = window_reverse(attn, ws, Hp, Wp)
+            x = window_reverse(attn, ws, *self._padded(shortcut))
         if ss > 0:
             x = torch.roll(x, (ss, ss), dims=(1, 2))
-        if pad_b or pad_r:
+        if x.shape[1] != H or x.shape[2] != W:
             x = x[:, :H, :W, :]
 
         if self.postnorm:
@@ -705,13 +769,19 @@ class BasicLayer(nn.Module):
         if not (self.remat in ("full", "attn_out", "attn_qkv")
                 and torch.is_grad_enabled() and x.requires_grad):
             return blk(x, mask)
-        if self.remat != "full":
-            raise NotImplementedError(
-                f"remat_policy {self.remat!r} saves named intermediates "
-                "under an XLA remat policy and is not ported (ROADMAP Queue "
-                "A, M2); train with 'full', 'mlp_only' or 'none'")
         keeps = blk.draw_drop_path(x)       # one draw for both runs
-        return checkpoint(blk, x, mask, keeps, use_reentrant=False)
+        if self.remat == "full":
+            return checkpoint(blk, x, mask, keeps, use_reentrant=False)
+        # The JAX policy save_only_these_names("swin_attn_out"[, "swin_qkv"])
+        # keeps those tensors and the block input: one checkpointed segment
+        # ends at each kept tensor, and each segment's backward replays it
+        # from its kept input.
+        if self.remat == "attn_qkv" and blk.names_qkv(x):
+            qkv = checkpoint(blk.qkv, x, use_reentrant=False)
+            attn = checkpoint(blk.attend, qkv, mask, use_reentrant=False)
+        else:
+            attn = checkpoint(blk.attention, x, mask, use_reentrant=False)
+        return checkpoint(blk.residual, x, attn, keeps, use_reentrant=False)
 
     def forward(self, x):
         B, H, W, C = x.shape

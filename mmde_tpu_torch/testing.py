@@ -32,6 +32,7 @@ fp32 kernels were measured against and rejected (PERF.md).
 from __future__ import annotations
 
 import math
+import os
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -42,6 +43,18 @@ import torch
 # a logit near the bound in every row), which would be the reference's
 # error, not the port's.
 MAX_TEST_LOGIT_SCALE = 3.0
+
+
+def set_test_threads() -> int:
+    """Give torch's intra-op pool this process's share of the CPUs: the
+    CPU count over the pytest-xdist workers (PYTEST_XDIST_WORKER_COUNT, 1
+    when unset), at least 1. Each worker otherwise starts a pool of every
+    CPU and the workers' pools fight for the same cores. Returns the count
+    set."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 1)
+    n = max(1, (os.cpu_count() or 1) // max(workers, 1))
+    torch.set_num_threads(n)
+    return n
 
 
 def _leaf(path: Tuple[str, ...], shape: Tuple[int, ...],

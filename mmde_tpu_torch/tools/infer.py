@@ -3,7 +3,7 @@
 
     python -m mmde_tpu_torch.tools.infer --images ./photos --out ./depth_out \\
         [--config cfg.yaml] [--ckpt RUN/ckpt | --weights model.pth] [--flip] \\
-        [--device cuda]
+        [--colormap] [--device cuda]
 
 `build` -> `load_weights` (or `ckpt.io.restore_eval` of a training run's
 checkpoints, the best-RMSE one first, as `--ckpt` does) -> `predict` is the
@@ -12,11 +12,16 @@ and is what a server or a smoke run calls, for every model family (the
 single-frame GLPDepth takes one frame and returns `pred_d`; a model that
 fuses sparse depth takes the sparse maps). The CLI pairs each image with
 itself for the two-frame families (as the JAX package's tools/infer.py
-does), feeds it alone to GLPDepth, and writes 16-bit depth PNGs, reading
-and writing the files with the port's own codec (data.codec: PNG and
-baseline JPEG) and resizing as the JAX package's ImageFolder does
-(data.imgproc.resize_linear, cv2's INTER_LINEAR). The first call on a
-CUDA device builds the attention kernels into mmde_tpu_torch/_build/.
+does), feeds it alone to GLPDepth, and writes 16-bit depth PNGs
+(utils.viz.save_depth_png16: millimetres, 1/256 m for KITTI) and, with
+--colormap, the rainbow-coloured depth beside each (`<name>_color.png`,
+utils.viz.colorize_depth), reading and writing the files with the port's
+own codec (data.codec: PNG and baseline JPEG) and resizing as the JAX
+package's ImageFolder does (data.imgproc.resize_linear, cv2's
+INTER_LINEAR). The images carry no sparse depth, so a completion config
+gives its RGB model, as the JAX CLI's initialisation from an image does.
+The first call on a CUDA device builds the attention kernels into
+mmde_tpu_torch/_build/.
 MMDE_ATTN_W=auto (or an int), read once at import as in the JAX package,
 serves the packed attention with W windows per block (K5) where the JAX
 rule gives W > 1; MMDE_ATTN_GRID changes only the backward, so serving is
@@ -40,15 +45,17 @@ from mmde_tpu_torch.models.two_frame import build_model
 from mmde_tpu_torch.train.single_frame import make_single_forward
 from mmde_tpu_torch.train.step import make_forward
 from mmde_tpu_torch.train.tta import flip_average, flip_average_two_frame
+from mmde_tpu_torch.utils import viz
 
 
 def build(cfg: Union[ModelConfig, Config, str, None] = None, *,
           device: Union[str, torch.device] = "cuda",
-          seed: int = 0) -> torch.nn.Module:
+          seed: int = 0, sparse_depth: bool = True) -> torch.nn.Module:
     """Build the model of `cfg` (a ModelConfig, a Config, a YAML path, or
     None for the defaults) on `device` in eval mode, initialised from
-    `seed`. The default device is the CUDA card; there is no silent CPU
-    substitute."""
+    `seed`, for inputs with or without sparse depth maps (`sparse_depth`,
+    see `models.two_frame.build_model`). The default device is the CUDA
+    card; there is no silent CPU substitute."""
     if cfg is None:
         cfg = Config()
     elif isinstance(cfg, str):
@@ -57,7 +64,8 @@ def build(cfg: Union[ModelConfig, Config, str, None] = None, *,
         cfg = cfg.model
     gen = torch.Generator()
     gen.manual_seed(seed)
-    return build_model(cfg, device=device, generator=gen).eval()
+    return build_model(cfg, device=device, generator=gen,
+                       sparse_depth=sparse_depth).eval()
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
@@ -117,12 +125,15 @@ def main(argv=None) -> None:
                    help="a training run's ckpt/ directory (best first)")
     p.add_argument("--weights", default=None, help="torch state dict (.pth)")
     p.add_argument("--flip", action="store_true", help="flip averaging")
+    p.add_argument("--colormap", action="store_true",
+                   help="also write the colour-mapped depth (_color.png)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
     cfg = load_yaml(args.config) if args.config else Config()
-    model = build(cfg, device=args.device, seed=args.seed)
+    model = build(cfg, device=args.device, seed=args.seed,
+                  sparse_depth=False)
     if args.ckpt:
         epoch, kind = io.restore_eval(args.ckpt, model)
         print(f"restored {kind} checkpoint (epoch {epoch})")
@@ -134,8 +145,6 @@ def main(argv=None) -> None:
         print("no images found")
         return
     os.makedirs(args.out, exist_ok=True)
-    # 16-bit PNG scale: millimetres, 256 counts per metre for KITTI
-    scale = 256.0 if cfg.data.dataset == "kitti" else 1000.0
     for i, name in enumerate(names):
         rgb = codec.imread_rgb(os.path.join(args.images, name))
         # the JAX package's ImageFolder: each side cut to a multiple of 32
@@ -146,9 +155,12 @@ def main(argv=None) -> None:
         else:
             depth = predict(model, rgb, rgb, flip_tta=args.flip)["pred_d1"]
         stem = os.path.splitext(name)[0]
-        codec.write_png(os.path.join(args.out, stem + ".png"),
-                        np.clip(depth[0, ..., 0] * scale, 0, 65535
-                                ).astype(np.uint16))
+        viz.save_depth_png16(os.path.join(args.out, stem + ".png"),
+                             depth[0, ..., 0], cfg.data.dataset)
+        if args.colormap:
+            codec.write_png(os.path.join(args.out, stem + "_color.png"),
+                            np.ascontiguousarray(viz.colorize_depth(
+                                depth[0, ..., 0])[..., ::-1]))
         print(f"[{i + 1}/{len(names)}] {name}")
 
 

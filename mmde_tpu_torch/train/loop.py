@@ -49,7 +49,8 @@ def build_datasets(cfg: Config, synthetic: bool = False):
         8 held out;
       * "void": VoidV3 over the release under cfg.data.data_path, its lists
         and calibration.json in cfg.data.void_meta_dir (default
-        data_path/meta); sparse depth is not loaded, as in the JAX loop;
+        data_path/meta); sparse depth is not loaded, as in the JAX loop
+        (a completion model then trains as the RGB model, as there);
       * "nyudepthv2": NYUDepthV2Pairs (scene-held-out test split);
       * "kitti": KITTIEigen in the unified two-frame schema (self-paired,
         identity pose);
@@ -155,21 +156,31 @@ def check_two_frame(cfg: Config) -> None:
             "evaluate_single; the loop and the eval CLI take two frames")
 
 
+def carries_sparse_depth(dataset) -> bool:
+    """Whether the dataset's samples carry sparse depth maps, read off its
+    first sample as the JAX loop reads it off a sample batch."""
+    return "sparse_depth1" in dataset[0]
+
+
 def build_state(cfg: Config, steps_per_epoch: int,
-                device: Union[str, torch.device] = "cuda"
-                ) -> Tuple[TrainState, callable]:
+                device: Union[str, torch.device] = "cuda",
+                sparse_depth: bool = True) -> Tuple[TrainState, callable]:
     """(TrainState, LR schedule) of a fresh run: the model of cfg.model
-    initialised from cfg.train.seed on `device`, its layer-decay AdamW with
-    the poly schedule over cfg.train.epochs x `steps_per_epoch`, and a
-    generator on `device` seeded with cfg.train.seed + 1 for drop-path and
-    dropout (the JAX TrainState's rng)."""
-    if cfg.model.swin.pretrained:
-        raise NotImplementedError(
-            "pretrained backbone weights are not ported yet (ROADMAP Queue "
-            "A, M7)")
+    initialised from cfg.train.seed on `device` for batches with or
+    without sparse depth (`sparse_depth`, see `build_model`), the
+    pretrained backbone of cfg.model.swin.pretrained overlaid when that
+    file exists (`ckpt.pretrained.load_pretrained`: a missing file is
+    skipped with a message, as in the JAX loop), its layer-decay AdamW
+    with the poly schedule over cfg.train.epochs x `steps_per_epoch`, and
+    a generator on `device` seeded with cfg.train.seed + 1 for drop-path
+    and dropout (the JAX TrainState's rng)."""
     init_gen = torch.Generator()
     init_gen.manual_seed(cfg.train.seed)
-    model = build_model(cfg.model, device=device, generator=init_gen)
+    model = build_model(cfg.model, device=device, generator=init_gen,
+                        sparse_depth=sparse_depth)
+    if cfg.model.swin.pretrained:
+        from mmde_tpu_torch.ckpt.pretrained import load_pretrained
+        load_pretrained(model, cfg.model, cfg.model.swin.pretrained)
     tc = cfg.train
     optimizer, schedule = build_optimizer(
         model, backbone=cfg.model.backbone, depths=cfg.model.swin.depths,
@@ -182,7 +193,9 @@ def build_state(cfg: Config, steps_per_epoch: int,
     return TrainState.create(model, optimizer, gen), schedule
 
 
-def _tensors(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
+def batch_tensors(batch: dict, device: Union[str, torch.device]
+                  ) -> Dict[str, torch.Tensor]:
+    """A host batch's arrays as tensors on `device` (file names stay)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items() if isinstance(v, np.ndarray)}
 
@@ -197,7 +210,7 @@ def validate(metrics_step, state, val_loader, cfg: Config,
     device = torch.device(device)
     pending = []
     for batch in val_loader:
-        arrays = _tensors(batch, device)
+        arrays = batch_tensors(batch, device)
         per_sample, aux = metrics_step(state, arrays)
         pending.append((arrays["image1"].shape[0], per_sample, aux))
     if not pending:
@@ -266,7 +279,8 @@ def train(cfg: Config, *, synthetic: bool = False,
     steps_per_epoch = len(train_loader)
     if max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
-    state, schedule = build_state(cfg, steps_per_epoch, device)
+    state, schedule = build_state(cfg, steps_per_epoch, device,
+                                  carries_sparse_depth(train_ds))
     model, optimizer = state.model, state.optimizer
     tc = cfg.train
     step_fn = make_train_step(model, optimizer, decoder=cfg.model.decoder,

@@ -19,6 +19,10 @@ from mmde_tpu.ops.window_attention_packed import (
 from mmde_tpu_torch.ops import window_attention as twa
 from mmde_tpu_torch.ops import window_attention_packed as twp
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _qkv_inputs(B=6, nH=8, N=49, Dh=32, nW=3, with_mask=True, seed=0):
     rng = np.random.default_rng(seed)

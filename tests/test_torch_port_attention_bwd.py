@@ -23,6 +23,10 @@ from mmde_tpu_torch.ops import cuda_build
 from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.ops.window_attention import MAX_LOGIT_SCALE
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _inputs(B=4, nH=4, N=49, nW=2, with_mask=True, seed=0, clamp_head=False,
             max_ls=3.0):

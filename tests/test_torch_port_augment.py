@@ -14,6 +14,10 @@ import pytest
 from mmde_tpu.data import augment as jaug
 from mmde_tpu_torch.data import augment as taug
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 @pytest.mark.parametrize("output_dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("mode", ["v1", "v2", "eval"])

@@ -19,6 +19,10 @@ from mmde_tpu_torch.tools import train_steps
 from mmde_tpu_torch.train import optim as topt
 from mmde_tpu_torch.train import step as tstep
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _CFG = tcfg.Config(
     model=tcfg.ModelConfig(
         backbone="swin_nano_v2", decoder="decoder_v2", model_scale=32,

@@ -28,6 +28,10 @@ from mmde_tpu_torch.models import two_frame as ttf
 from mmde_tpu_torch.nn import cnn_transformer as tct
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

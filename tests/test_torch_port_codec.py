@@ -26,6 +26,10 @@ from PIL import Image
 
 from mmde_tpu_torch.data import codec, native
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
 LIMIT = {"444": 2, "grey": 2, "420": 3, "422": 3, "440": 3}

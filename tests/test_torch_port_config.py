@@ -13,6 +13,10 @@ import torch
 from mmde_tpu import config as jcfg
 from mmde_tpu_torch import config as tcfg
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "mmde_tpu_torch")
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))

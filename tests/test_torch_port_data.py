@@ -20,6 +20,10 @@ from mmde_tpu.data import synthetic as jsyn
 from mmde_tpu_torch.data import loader as tloader
 from mmde_tpu_torch.data import synthetic as tsyn
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 @pytest.mark.parametrize("kw", [{}, {"uint8_images": True},
                                 {"sparse_depth": True}],

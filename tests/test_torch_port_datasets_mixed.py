@@ -33,6 +33,10 @@ from mmde_tpu_torch.testing import (smooth_image, write_kitti_tree,
                                     write_nyu_tree, write_void_release)
 from mmde_tpu_torch.train import loop as tloop
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JPEGS = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures", "jpeg",
                                       "frame*_480x640.jpg")))

@@ -40,6 +40,10 @@ from mmde_tpu_torch.ops import window_attention_headsplit as ths
 from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.testing import dbias_order, tc_dbias, tc_dbias_heads
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 # the emulation against the JAX kernel (test_torch_port_tc.py's dbias
 # bounds: max abs over the largest value, rel-L2): fp32 / fold 1e-5; the

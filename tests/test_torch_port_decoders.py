@@ -23,6 +23,10 @@ from mmde_tpu_torch.nn import decoders as tdec
 from mmde_tpu_torch.nn import layers as tl
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)

@@ -17,6 +17,10 @@ from mmde_tpu_torch.ops import window_attention_headsplit as ths
 from mmde_tpu_torch.ops import window_attention_packed as wap
 from mmde_tpu_torch.ops import window_attention_slab as was
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 @pytest.fixture
 def deterministic():

@@ -48,6 +48,10 @@ from mmde_tpu_torch.testing import tc_backward_heads, tc_forward_heads
 from test_torch_port_headsplit_tc import (C, NH, _jax_run, _OnCard,
                                           _Recorder, _views)
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _NAMES = ("out", "dq", "dk", "dv", "dlogit_scale", "dbias")
 
 

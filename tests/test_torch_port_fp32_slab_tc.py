@@ -49,6 +49,10 @@ from mmde_tpu_torch.testing import tc_backward_heads, tc_forward_heads
 from test_torch_port_slab_tc import (B, C, GRIDS, NH, _jax_run, _OnCard,
                                      _to_map, recorded)
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 _NAMES = ("out", "dqkv", "dlogit_scale", "dbias")
 # the card's fp32 limits (chip_smoke.py: TOL_FP32_MAX_ABS, TOL_BWD)

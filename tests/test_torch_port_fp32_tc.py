@@ -46,6 +46,10 @@ from mmde_tpu_torch.testing import (bf16_pieces, tc_backward,
                                     tc_backward_resident, tc_forward)
 from mmde_tpu_torch.tools import split_errors
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 _NAMES = ("out", "dqkv", "dlogit_scale", "dbias")
 # the card's fp32 limits (chip_smoke.py: TOL_FP32_MAX_ABS, TOL_BWD)

@@ -43,6 +43,10 @@ from mmde_tpu_torch.tools import split_errors
 from test_torch_port_fp32_tc import (FP32_LIMITS, _errors, _held, _inputs,
                                      _jax_run)
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 # ------------------------------------------------ K1 / K2's arithmetic, W = 1
 
 _CASES = {}

@@ -27,6 +27,10 @@ from mmde_tpu_torch.models import two_frame as ttf
 from mmde_tpu_torch.nn import swin_v2 as tswin
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SWIN = dict(depths=(1, 1, 1, 1), window_size=(4, 4, 4, 2),
              pretrain_window_size=(4, 4, 4, 2),

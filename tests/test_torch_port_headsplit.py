@@ -34,6 +34,10 @@ from mmde_tpu_torch.ops.window_attention import cosine_window_attention
 from mmde_tpu_torch.testing import randomize_tree
 from mmde_tpu_torch.train import optim as topt
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _inputs(B=4, nH=3, N=36, nW=2, with_mask=True, seed=0, clamp_head=False):
     """numpy float32 q, k, v (B, nH, N, 32), logit_scale, 16*sigmoid bias,

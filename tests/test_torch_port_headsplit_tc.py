@@ -43,6 +43,10 @@ from mmde_tpu_torch.ops import window_attention_headsplit as ths
 from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.testing import tc_backward_heads, tc_forward_heads
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 NH, C = 3, 96           # swin_tiny's stage-1 width: C % 128 != 0
 

@@ -25,6 +25,10 @@ from mmde_tpu.data.void_v3 import Calibration, _SceneCache
 from mmde_tpu_torch.data import imgproc, native
 from mmde_tpu_torch.testing import VOID_K
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 # VOID-sized radtan coefficients: k1, k2, p1, p2, k3
 DISTS = [np.array([0.0205, -0.0473, 0.00062, -0.00041, 0.0089]),
          np.array([0.0366, 0.0022, 0.0022, -0.0032, 0.0007]),

@@ -15,6 +15,10 @@ import pytest
 from mmde_tpu.data.datasets import ImageFolder
 from mmde_tpu_torch.tools import infer
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _NANO = ("BACKBONE: swin_nano_v2\nDECODER: decoder_v2\nMODEL_SCALE: 32\n"
          "SWIN:\n  DEPTHS: [2, 2, 2, 2]\n  WINDOW_SIZE: [6, 6, 6, 3]\n"
          "  PRETRAIN_WINDOW_SIZE: [4, 4, 4, 2]\n")

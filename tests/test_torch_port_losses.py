@@ -16,6 +16,10 @@ from mmde_tpu_torch import geometry as tgeo
 from mmde_tpu_torch import losses as tloss
 from mmde_tpu_torch import metrics as tmet
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _t(x):
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x))

@@ -25,6 +25,10 @@ import torch
 from mmde_tpu.ops import window_attention_packed as jwap
 from mmde_tpu_torch.ops import window_attention_packed as twp
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -25,6 +25,10 @@ from mmde_tpu_torch.models import two_frame as ttf
 from mmde_tpu_torch.testing import randomize_tree
 from mmde_tpu_torch.train import optim as topt
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _SWIN = dict(depths=(2, 2, 2, 2), window_size=(6, 6, 6, 3),
              pretrain_window_size=(4, 4, 4, 2),
              use_shift=(True, True, False, False), drop_path_rate=0.1)

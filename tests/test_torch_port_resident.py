@@ -26,6 +26,10 @@ from mmde_tpu.ops.window_attention_packed import (
     pack_rpe_bias)
 from mmde_tpu_torch.ops import window_attention_packed as twp
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

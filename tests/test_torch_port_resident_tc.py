@@ -39,6 +39,10 @@ from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.testing import (group_sum, tc_backward,
                                     tc_backward_resident, tc_forward)
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 _NAMES = ("out", "dqkv", "dlogit_scale", "dbias")
 

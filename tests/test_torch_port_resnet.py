@@ -27,6 +27,10 @@ from mmde_tpu_torch.ckpt.from_jax import (flatten_tree, key_map,
 from mmde_tpu_torch.nn import resnet as tres
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ATOL = 1e-4
 
 

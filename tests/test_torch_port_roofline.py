@@ -22,6 +22,10 @@ from jax.experimental import pallas as pl
 
 from mmde_tpu_torch.tools import roofline as trl
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -32,6 +32,10 @@ from mmde_tpu_torch.train import optim as topt
 from mmde_tpu_torch.train import single_frame as tsf
 from mmde_tpu_torch.train import step as tstep
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _SWIN = dict(depths=(1, 1, 1, 1), window_size=(4, 4, 4, 2),
              pretrain_window_size=(4, 4, 4, 2),
              use_shift=(True, True, False, False), drop_path_rate=0.0)

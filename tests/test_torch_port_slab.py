@@ -35,6 +35,10 @@ from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.ops import window_attention_slab as tslab
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _inputs(B=2, nH=4, ws=6, nwh=2, nww=3, with_mask=True, seed=0,
             clamp_head=False):

@@ -36,6 +36,10 @@ from mmde_tpu_torch.ops import window_attention_headsplit as ths
 from mmde_tpu_torch.ops import window_attention_packed as wap
 from mmde_tpu_torch.ops import window_attention_slab as was
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _inputs(dtype, seed, masked=True, ws=6, nH=4, B=2, Hw=2, Ww=3):
     rng = np.random.default_rng(seed)

@@ -48,6 +48,10 @@ from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.ops import window_attention_slab as tslab
 from mmde_tpu_torch.testing import tc_backward_heads, tc_forward_heads
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 B, NH = 2, 4
 C = NH * 32             # 128: one TPU head group, the flagship's stage 1

@@ -16,6 +16,10 @@ from mmde_tpu_torch.ckpt.from_jax import load_jax_variables
 from mmde_tpu_torch.nn import swin_v2 as tsw
 from mmde_tpu_torch.testing import randomize_tree
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 def _init(jmodel, *args, seed=0):
     """A `params` tree for `jmodel`, every leaf drawn with numpy at O(1)

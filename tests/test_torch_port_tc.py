@@ -37,6 +37,10 @@ from mmde_tpu_torch.ops import cuda_build
 from mmde_tpu_torch.ops import window_attention_packed as twp
 from mmde_tpu_torch.testing import tc_backward, tc_forward
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 LN100 = math.log(100.0)
 
 

@@ -33,6 +33,10 @@ from mmde_tpu_torch.tools import infer, train_steps
 from mmde_tpu_torch.train import optim as topt
 from mmde_tpu_torch.train import step as tstep
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 _SWIN = dict(depths=(2, 2, 2, 2), window_size=(6, 6, 6, 3),
              pretrain_window_size=(4, 4, 4, 2),
              use_shift=(True, True, False, False), drop_path_rate=0.3)
@@ -106,7 +110,8 @@ def _grads(m, x):
     return {n: p.grad.clone() for n, p in m.named_parameters()}
 
 
-@pytest.mark.parametrize("policy", ["full", "mlp_only"])
+@pytest.mark.parametrize("policy", ["full", "mlp_only", "attn_out",
+                                    "attn_qkv"])
 def test_remat_changes_memory_never_values(policy):
     """Train mode, drop path 0.3, one seed: gradients with and without
     rematerialisation are equal bit for bit (the recomputed block sees the
@@ -131,12 +136,17 @@ def test_use_checkpoint_false_ignores_the_policy():
 
 @pytest.mark.parametrize("policy", ["attn_out", "attn_qkv"])
 def test_named_residual_policies_raise_when_training(policy):
-    m = _swin(policy)
+    """The policies that keep named intermediates are ported (their
+    gradients: tests/test_torch_port_remat.py): a training forward runs and
+    gives the eval forward's output (drop path 0.3 drawn, so compare with
+    the masks' draw of "none" on the same seed); an unknown policy still
+    raises."""
     x = torch.randn(1, 48, 48, 3)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        m(x)
+    out = _swin(policy)(x)[-1]
+    assert out.requires_grad and out.shape == (1, 6, 6, 64)
+    torch.testing.assert_close(out, _swin("none")(x)[-1], rtol=0, atol=0)
     with torch.no_grad():                           # serving is unaffected
-        assert m.eval()(x)[-1].shape == (1, 6, 6, 64)
+        assert _swin(policy).eval()(x)[-1].shape == (1, 6, 6, 64)
     with pytest.raises(ValueError):
         _swin("typo")
 

@@ -24,6 +24,10 @@ from mmde_tpu_torch.tools import train_steps
 from mmde_tpu_torch.train import step as tstep
 from mmde_tpu_torch.train import tta as ttta
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 
 @pytest.mark.parametrize("width", [64, 96, 97, 128, 640])
 @pytest.mark.parametrize("crop,stride", [(64, 32), (64, 30), (48, 48),

@@ -27,6 +27,10 @@ from mmde_tpu.ops.window_attention_packed import (attention_plan,
                                                   pack_rpe_bias)
 from mmde_tpu_torch.tools import bench_attention_variants as tbv
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -41,6 +41,10 @@ from mmde_tpu_torch.testing import randomize_tree, write_void_release
 from mmde_tpu_torch.tools import make_void_lists, rosbag_imu_to_csv
 from mmde_tpu_torch.train import loop as tloop
 
+from mmde_tpu_torch.testing import set_test_threads
+
+set_test_threads()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(scenes=2, frames=9, height=48, width=64, bag_scenes=(1,))
 
@@ -268,8 +272,8 @@ def test_one_void_training_step_matches_the_jax_loop(tmp_path, monkeypatch):
         return (jax.tree.map(jnp.asarray, params),
                 jax.tree.map(jnp.asarray, stats))
 
-    def t_build(cfg, *, device, generator=None):
-        m = build(cfg, device=device, generator=generator)
+    def t_build(cfg, **kw):
+        m = build(cfg, **kw)
         load_jax_variables(m, params, stats)
         return m
 
